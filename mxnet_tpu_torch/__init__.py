@@ -1,0 +1,33 @@
+"""mxnet_tpu_torch: the PyTorch/CUDA port of mxnet_tpu, for NVIDIA Hopper.
+
+Usage mirrors the JAX package (``import mxnet_tpu_torch as mx``), with
+one difference: the default context is the card, ``gpu(0)``. Pass
+``ctx=mx.cpu()`` to run on the CPU; without a card and without that,
+array creation, ``Block.initialize`` and serving raise.
+
+Plain tensor code is PyTorch; the JAX package's Pallas kernels become
+kernels written by hand for Hopper (``kernels/``, sources in ``csrc/``),
+built with ``nvcc`` at first use. This package imports neither JAX nor
+the JAX package.
+"""
+from __future__ import annotations
+
+__version__ = "0.1.0"
+
+from .base import MXNetError
+from .context import Context, cpu, current_context, gpu, num_gpus
+from . import autograd
+from . import ndarray
+from . import ndarray as nd
+from .ndarray import NDArray
+from . import initializer
+from . import initializer as init
+from . import kernels
+from . import gluon
+from . import serving
+from . import convert
+
+__all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
+           "current_context", "autograd", "nd", "ndarray", "NDArray",
+           "initializer", "init", "kernels", "gluon", "serving", "convert",
+           "__version__"]

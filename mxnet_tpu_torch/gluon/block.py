@@ -1,0 +1,212 @@
+"""Gluon Block / HybridBlock.
+
+Counterpart of ``mxnet_tpu/gluon/block.py``: name scopes and prefixes,
+child and parameter registration by attribute assignment,
+``collect_params`` and the structural (attribute-path) parameter names
+of ``_collect_params_with_structure``. ``HybridBlock.hybridize()`` only
+sets a flag in this slice: the forward always runs eagerly. Capturing
+it (CUDA graphs, a compile service) is later work.
+"""
+from __future__ import annotations
+
+import re
+import threading
+from collections import OrderedDict
+
+from .parameter import DeferredInitializationError, Parameter, ParameterDict
+
+__all__ = ["Block", "HybridBlock"]
+
+
+class _BlockScope:
+    """Name-scope manager: children created inside ``with
+    block.name_scope():`` get prefixes under the block's prefix."""
+
+    _tls = threading.local()
+
+    def __init__(self, block):
+        self._block = block
+        self._counter = {}
+        self._old_scope = None
+
+    @staticmethod
+    def create(prefix, params, hint):
+        """Prefix and ParameterDict for a new Block."""
+        current = getattr(_BlockScope._tls, "value", None)
+        if current is None:
+            if prefix is None:
+                counters = _BlockScope._top_counters()
+                count = counters.get(hint, 0)
+                counters[hint] = count + 1
+                prefix = f"{hint}{count}_"
+            params = ParameterDict(prefix) if params is None else \
+                ParameterDict(params.prefix, shared=params)
+            return prefix, params
+        if prefix is None:
+            count = current._counter.get(hint, 0)
+            current._counter[hint] = count + 1
+            prefix = f"{hint}{count}_"
+        if params is None:
+            params = ParameterDict(current._block.params.prefix + prefix)
+        else:
+            params = ParameterDict(params.prefix, shared=params)
+        return current._block.prefix + prefix, params
+
+    @staticmethod
+    def _top_counters():
+        counters = getattr(_BlockScope._tls, "top", None)
+        if counters is None:
+            counters = _BlockScope._tls.top = {}
+        return counters
+
+    def __enter__(self):
+        if self._block._empty_prefix:
+            return self
+        self._old_scope = getattr(_BlockScope._tls, "value", None)
+        _BlockScope._tls.value = self
+        return self
+
+    def __exit__(self, *exc):
+        if self._block._empty_prefix:
+            return
+        _BlockScope._tls.value = self._old_scope
+
+
+class Block:
+    """Base container for layers and models."""
+
+    def __init__(self, prefix=None, params=None):
+        self._empty_prefix = prefix == ""
+        self._prefix, self._params = _BlockScope.create(prefix, params,
+                                                        self._alias())
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+        self._scope = _BlockScope(self)
+        self._children = OrderedDict()
+        self._reg_params = OrderedDict()
+
+    def _alias(self):
+        return self.__class__.__name__.lower()
+
+    def __setattr__(self, name, value):
+        """Registers Parameters and child Blocks."""
+        if hasattr(self, name):
+            existing = getattr(self, name)
+            if isinstance(existing, (Parameter, Block)) and not isinstance(
+                    value, type(existing)) \
+                    and not isinstance(existing, type(value)):
+                raise TypeError(f"Changing attribute type for {name} from "
+                                f"{type(existing)} to {type(value)} is not "
+                                "allowed")
+        if isinstance(value, Block):
+            self._children[name] = value
+        elif isinstance(value, Parameter):
+            self._reg_params[name] = value
+        super().__setattr__(name, value)
+
+    def register_child(self, block, name=None):
+        if name is None:
+            name = str(len(self._children))
+        self._children[name] = block
+        return block
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    @property
+    def name(self):
+        return self._name
+
+    def name_scope(self):
+        return self._scope
+
+    @property
+    def params(self):
+        return self._params
+
+    def collect_params(self, select=None) -> ParameterDict:
+        """Parameters of this block and its descendants, optionally
+        filtered by a regex on the full name."""
+        ret = ParameterDict(self._params.prefix)
+        if select is None:
+            ret.update(self._params)
+        else:
+            pattern = re.compile(select)
+            ret.update({k: v for k, v in self._params.items()
+                        if pattern.match(k)})
+        for child in self._children.values():
+            ret.update(child.collect_params(select=select))
+        return ret
+
+    def initialize(self, init=None, ctx=None, generator=None,
+                   force_reinit=False):
+        """Initialize every parameter on ``ctx`` (default: the current
+        context, the card unless a ``with mx.cpu():`` says otherwise),
+        drawing from the CPU ``torch.Generator`` ``generator``."""
+        self.collect_params().initialize(init, ctx, generator, force_reinit)
+
+    def _collect_params_with_structure(self, prefix=""):
+        """Parameters by structural (attribute-path) name, e.g.
+        ``encoder.1.attn.query.weight``; independent of name counters."""
+        ret = OrderedDict()
+        for name, p in self._reg_params.items():
+            ret[prefix + name] = p
+        for cname, child in self._children.items():
+            ret.update(child._collect_params_with_structure(
+                prefix + cname + "."))
+        return ret
+
+    def __call__(self, *args):
+        return self.forward(*args)
+
+    def forward(self, *args):
+        raise NotImplementedError
+
+    def __repr__(self):
+        s = f"{type(self).__name__}(\n"
+        for name, child in self._children.items():
+            s += f"  ({name}): {child!r}\n".replace("\n", "\n  ")[2:] + "\n"
+        return s + ")"
+
+
+class HybridBlock(Block):
+    """A Block whose forward is written once as ``hybrid_forward(F, x,
+    *args, **params)`` over the ``F`` op namespace."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+
+    def hybridize(self, active=True, **kwargs):
+        """Records the flag on this block and its children; the forward
+        still runs eagerly in this slice."""
+        self._active = active
+        for child in self._children.values():
+            if isinstance(child, HybridBlock):
+                child.hybridize(active, **kwargs)
+
+    def infer_shape(self, *args):
+        """Resolve deferred parameter shapes from the inputs; layers
+        whose parameter shapes depend on the input override this."""
+        raise ValueError(
+            f"{type(self).__name__} has parameters with unknown shape. "
+            "Override infer_shape or provide in_units/in_channels.")
+
+    def _materialize_params(self, *args):
+        try:
+            return {name: p.data() for name, p in self._reg_params.items()}
+        except DeferredInitializationError:
+            self.infer_shape(*args)
+            for p in self._reg_params.values():
+                p._finish_deferred_init()
+            return {name: p.data() for name, p in self._reg_params.items()}
+
+    def forward(self, x, *args):
+        from .. import ndarray as F
+
+        params = self._materialize_params(x, *args)
+        return self.hybrid_forward(F, x, *args, **params)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError

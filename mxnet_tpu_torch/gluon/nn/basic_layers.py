@@ -1,0 +1,148 @@
+"""Gluon basic layers the serving path uses.
+
+Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: Sequential,
+HybridSequential, Dense, Dropout and LayerNorm. Layers manage
+parameters and hyper-parameters; compute goes through the registered
+ops.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ... import autograd, initializer as init_mod
+from ..block import Block, HybridBlock
+
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
+           "LayerNorm"]
+
+
+class Sequential(Block):
+    """Blocks run one after another."""
+
+    def add(self, *blocks):
+        for block in blocks:
+            self.register_child(block)
+        return self
+
+    def forward(self, x, *args):
+        for block in self._children.values():
+            x = block(x)
+        return x
+
+    def __len__(self):
+        return len(self._children)
+
+    def __getitem__(self, key):
+        return list(self._children.values())[key]
+
+    def __iter__(self):
+        return iter(self._children.values())
+
+
+class HybridSequential(HybridBlock):
+    """Sequential whose children are hybridizable."""
+
+    add = Sequential.add
+    forward = Sequential.forward
+    __len__ = Sequential.__len__
+    __getitem__ = Sequential.__getitem__
+    __iter__ = Sequential.__iter__
+
+
+class Dense(HybridBlock):
+    """Fully-connected layer; weight shape ``(units, in_units)``,
+    ``in_units=0`` defers it to the first forward."""
+
+    def __init__(self, units, activation=None, use_bias=True, flatten=True,
+                 dtype="float32", weight_initializer=None,
+                 bias_initializer="zeros", in_units=0, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._units = units
+        self._flatten = flatten
+        self._act_type = activation
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(units, in_units), dtype=dtype,
+                init=weight_initializer, allow_deferred_init=True)
+            if use_bias:
+                self.bias = self.params.get(
+                    "bias", shape=(units,), dtype=dtype,
+                    init=init_mod.create(bias_initializer),
+                    allow_deferred_init=True)
+            else:
+                self.bias = None
+
+    def infer_shape(self, x, *args):
+        in_units = math.prod(x.shape[1:]) if self._flatten else x.shape[-1]
+        self.weight.shape = (self._units, in_units)
+
+    def hybrid_forward(self, F, x, weight=None, bias=None):
+        if bias is None:
+            out = F.FullyConnected(x, weight, num_hidden=self._units,
+                                   no_bias=True, flatten=self._flatten)
+        else:
+            out = F.FullyConnected(x, weight, bias, num_hidden=self._units,
+                                   flatten=self._flatten)
+        if self._act_type:
+            out = F.Activation(out, act_type=self._act_type)
+        return out
+
+    def __repr__(self):
+        return (f"Dense({self.weight.shape[1] or None} -> {self._units}, "
+                f"{self._act_type or 'linear'})")
+
+
+class Dropout(HybridBlock):
+    """Active only in train mode (``autograd.is_training()``). Its keep
+    masks come from ``generator``, a ``torch.Generator`` on the input's
+    device; without one, a randomly seeded generator is made at the
+    first training call."""
+
+    def __init__(self, rate, axes=(), generator=None, prefix=None,
+                 params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._rate = rate
+        self._axes = axes
+        self._generator = generator
+
+    def hybrid_forward(self, F, x):
+        if self._rate <= 0 or not autograd.is_training():
+            return x
+        if self._generator is None:
+            self._generator = torch.Generator(device=x._data.device)
+            self._generator.seed()
+        return F.Dropout(x, p=self._rate, axes=self._axes, training=True,
+                         generator=self._generator)
+
+    def __repr__(self):
+        return f"Dropout(p = {self._rate}, axes={self._axes})"
+
+
+class LayerNorm(HybridBlock):
+    """Layer normalisation over ``axis`` (biased variance)."""
+
+    def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True, differentiable=scale)
+            self.beta = self.params.get(
+                "beta", shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True, differentiable=center)
+
+    def infer_shape(self, x, *args):
+        channels = x.shape[self._axis]
+        self.gamma.shape = (channels,)
+        self.beta.shape = (channels,)
+
+    def hybrid_forward(self, F, x, gamma=None, beta=None):
+        return F.LayerNorm(x, gamma, beta, axis=self._axis,
+                           eps=self._epsilon)

@@ -1,0 +1,226 @@
+"""Gluon Parameter / ParameterDict.
+
+Counterpart of ``mxnet_tpu/gluon/parameter.py``: a Parameter holds one
+NDArray handle over a ``torch.Tensor``; shape dims of 0 are unknown and
+resolved at the first forward (deferred initialization).
+
+``substitute({param: ndarray})`` makes ``param.data()`` return other
+values on the calling thread only, for the duration of a ``with``. The
+serving layer runs a block on its snapshot of the weights this way
+without touching the live parameters other threads may be using.
+"""
+from __future__ import annotations
+
+import threading
+from collections import OrderedDict
+from contextlib import contextmanager
+
+import numpy as _np
+import torch
+
+from .. import initializer as init_mod
+from ..base import MXNetError, canonical_dtype
+from ..context import Context, current_context
+from ..ndarray import NDArray
+
+__all__ = ["Parameter", "ParameterDict", "DeferredInitializationError",
+           "substitute"]
+
+_tls = threading.local()
+
+
+@contextmanager
+def substitute(mapping):
+    """Within the scope, on this thread, ``p.data()`` returns
+    ``mapping[p]`` (an NDArray) for each Parameter ``p`` in mapping."""
+    prev = getattr(_tls, "subs", None)
+    _tls.subs = mapping
+    try:
+        yield
+    finally:
+        _tls.subs = prev
+
+
+class DeferredInitializationError(MXNetError):
+    """Parameter accessed before its deferred shape was known."""
+
+
+class Parameter:
+    """A weight. Shape dims equal to 0 are unknown until the first
+    forward."""
+
+    def __init__(self, name, grad_req="write", shape=None, dtype="float32",
+                 init=None, allow_deferred_init=False, differentiable=True):
+        self.name = name
+        self.grad_req = grad_req if differentiable else "null"
+        if isinstance(shape, int):
+            shape = (shape,)
+        self._shape = tuple(shape) if shape is not None else None
+        self.dtype = canonical_dtype(dtype)
+        self.init = init
+        self.allow_deferred_init = allow_deferred_init
+        self._data = None            # NDArray
+        self._deferred_init = None   # (init, ctx, default_init, generator)
+
+    @property
+    def shape(self):
+        return self._shape
+
+    @shape.setter
+    def shape(self, new_shape):
+        new_shape = tuple(new_shape)
+        if self._shape is not None and not (
+                len(self._shape) == len(new_shape)
+                and all(s in (0, n) for s, n in zip(self._shape, new_shape))):
+            raise ValueError(f"Parameter {self.name!r}: shape {new_shape} is "
+                             f"incompatible with {self._shape}")
+        self._shape = new_shape
+
+    def _shape_known(self):
+        return self._shape is not None and all(s > 0 for s in self._shape)
+
+    def initialize(self, init=None, ctx=None, default_init=None,
+                   generator=None, force_reinit=False):
+        """Make the data now, or record a deferred initialization when
+        the shape is not known yet. ``generator`` is a CPU
+        ``torch.Generator`` (a fresh randomly seeded one when None)."""
+        if self._data is not None and not force_reinit:
+            return
+        ctx = ctx if ctx is not None else current_context()
+        if not isinstance(ctx, Context):
+            ctx = ctx[0]
+        ctx.torch_device()  # an unusable context fails here, not later
+        default_init = default_init or init_mod.Uniform()
+        if generator is None:
+            generator = torch.Generator()
+            generator.seed()
+        if not self._shape_known():
+            if self.allow_deferred_init:
+                self._deferred_init = (init, ctx, default_init, generator)
+                return
+            raise ValueError(f"Cannot initialize Parameter {self.name!r}: "
+                             f"unknown shape {self._shape} and "
+                             "allow_deferred_init=False")
+        self._finish_init(init, ctx, default_init, generator)
+
+    def _finish_init(self, init, ctx, default_init, generator):
+        # the parameter's own initializer wins and applies its weight
+        # rule whatever the name; a block-level one is a default that
+        # goes through name-suffix dispatch
+        if self.init is not None:
+            data = init_mod.create(self.init).init_array(
+                self.name, self._shape, self.dtype, generator)
+        else:
+            data = init_mod.create(init or default_init)(
+                self.name, self._shape, self.dtype, generator)
+        self._data = NDArray(data.to(ctx.torch_device()))
+        self._deferred_init = None
+
+    def _finish_deferred_init(self):
+        if self._deferred_init is None:
+            return
+        if not self._shape_known():
+            raise DeferredInitializationError(
+                f"Parameter {self.name!r} has unknown shape {self._shape}")
+        self._finish_init(*self._deferred_init)
+
+    def data(self, ctx=None) -> NDArray:
+        subs = getattr(_tls, "subs", None)
+        if subs is not None and self in subs:
+            return subs[self]
+        if self._data is not None:
+            return self._data
+        if self._deferred_init is not None:
+            raise DeferredInitializationError(
+                f"Parameter {self.name!r} has not been initialized yet "
+                "because its shape is unknown; run a forward pass first")
+        raise RuntimeError(f"Parameter {self.name!r} has not been "
+                           "initialized; call initialize() first")
+
+    def set_data(self, data):
+        """Overwrite the value, keeping the parameter's device. A
+        parameter whose initialization was deferred takes its shape from
+        ``data`` and is initialized with it."""
+        tensor = data._data if isinstance(data, NDArray) else \
+            torch.tensor(_np.asarray(data))
+        if self._data is None and self._deferred_init is not None:
+            self.shape = tuple(tensor.shape)
+            ctx = self._deferred_init[1]
+            self._data = NDArray(tensor.to(device=ctx.torch_device(),
+                                           dtype=self.dtype, copy=True))
+            self._deferred_init = None
+            return
+        cur = self.data()
+        if tuple(tensor.shape) != cur.shape:
+            raise ValueError(f"Parameter {self.name!r}: set_data shape "
+                             f"{tuple(tensor.shape)} != {cur.shape}")
+        cur._rebind(tensor.to(device=cur._data.device, dtype=self.dtype,
+                              copy=True))
+
+    def __repr__(self):
+        return f"Parameter {self.name} (shape={self._shape}, dtype={self.dtype})"
+
+
+class ParameterDict:
+    """Prefix-scoped ordered dict of Parameters with ``get``
+    create-or-retrieve semantics."""
+
+    def __init__(self, prefix="", shared=None):
+        self._prefix = prefix
+        self._params = OrderedDict()
+        self._shared = shared
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    def items(self):
+        return self._params.items()
+
+    def keys(self):
+        return self._params.keys()
+
+    def values(self):
+        return self._params.values()
+
+    def __iter__(self):
+        return iter(self._params)
+
+    def __len__(self):
+        return len(self._params)
+
+    def __getitem__(self, key):
+        return self._params[key]
+
+    def __contains__(self, key):
+        return key in self._params
+
+    def __repr__(self):
+        body = "\n".join(f"  {p!r}" for p in self._params.values())
+        return f"ParameterDict '{self._prefix}' (\n{body}\n)"
+
+    def get(self, name, **kwargs):
+        """The Parameter ``prefix + name``, created with ``kwargs`` when
+        it does not exist (the shared dict is consulted first)."""
+        name = self._prefix + name
+        param = self._params.get(name)
+        if param is None and self._shared is not None and name in self._shared:
+            param = self._params[name] = self._shared[name]
+        if param is None:
+            param = self._params[name] = Parameter(name, **kwargs)
+        elif kwargs.get("shape") is not None:
+            param.shape = kwargs["shape"]
+        return param
+
+    def update(self, other):
+        for k, v in other.items():
+            if k in self._params and self._params[k] is not v:
+                raise ValueError("Cannot update self with other because they "
+                                 f"have different Parameters named {k!r}")
+            self._params[k] = v
+
+    def initialize(self, init=None, ctx=None, generator=None,
+                   force_reinit=False):
+        for p in self._params.values():
+            p.initialize(init=init, ctx=ctx, generator=generator,
+                         force_reinit=force_reinit)

@@ -1,0 +1,72 @@
+"""Hand-written kernel layer: registry, dispatch and launch counts.
+
+Counterpart of ``mxnet_tpu/kernels/__init__.py``, reduced to one rule.
+Each op family registers
+
+* ``kernel``: the wrapper of a kernel written by hand for Hopper, which
+  takes CUDA tensors only and counts its launches in ``kernel.launches``;
+* ``plain``: a plain PyTorch version of the same function.
+
+``dispatch(family, *tensors, ...)`` sends CPU tensors to the plain
+version and CUDA tensors to the kernel. There is no opt-out, no
+autotuned table and no fallback: on the card the kernel launches or the
+call raises. Tensors on mixed or other devices raise.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..base import MXNetError
+
+__all__ = ["register_kernel", "dispatch", "entry", "launch_counts",
+           "reset_launch_counts"]
+
+_FAMILIES: dict = {}
+
+
+class KernelEntry:
+    __slots__ = ("family", "kernel", "plain", "tolerance", "replaces")
+
+    def __init__(self, family, kernel, plain, tolerance, replaces):
+        self.family = family
+        self.kernel = kernel
+        self.plain = plain
+        self.tolerance = tolerance
+        self.replaces = replaces
+
+
+def register_kernel(family, *, kernel, plain, tolerance, replaces):
+    """Register an op family. ``tolerance`` states the kernel's numeric
+    contract against ``plain``; ``replaces`` names the TPU kernel."""
+    e = KernelEntry(family, kernel, plain, tolerance, replaces)
+    _FAMILIES[family] = e
+    return e
+
+
+def entry(family) -> KernelEntry:
+    return _FAMILIES[family]
+
+
+def dispatch(family, *args, **kwargs):
+    """Route one call by the device of its tensor arguments."""
+    e = _FAMILIES[family]
+    devices = {a.device.type for a in args if isinstance(a, torch.Tensor)}
+    if devices == {"cpu"}:
+        return e.plain(*args, **kwargs)
+    if devices == {"cuda"}:
+        return e.kernel(*args, **kwargs)
+    raise MXNetError(f"{family}: tensors on devices {sorted(devices)}; "
+                     "expected all on the CPU or all on one CUDA card")
+
+
+def launch_counts():
+    """``{family: launches}`` of every registered kernel wrapper."""
+    return {f: e.kernel.launches for f, e in sorted(_FAMILIES.items())}
+
+
+def reset_launch_counts():
+    for e in _FAMILIES.values():
+        e.kernel.launches = 0
+
+
+from . import flash  # noqa: E402,F401  (flash_attention)

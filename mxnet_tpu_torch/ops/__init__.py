@@ -1,0 +1,7 @@
+"""Op definitions; importing this package registers every op."""
+from . import registry
+from . import tensor  # noqa: F401
+from . import nn  # noqa: F401
+from . import pallas_ops  # noqa: F401
+
+__all__ = ["registry"]
