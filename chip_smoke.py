@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--phases device,build,flash,...]
 
 Phases, each printing one JSON line:
 
@@ -28,15 +29,35 @@ Phases, each printing one JSON line:
 5. profile: one batch per bucket on the host clock, and a
    ``torch.profiler`` window over bucket-32 batches (device time by
    kernel group, device busy share).
+6. flash_bwd: holds the two flash-attention backward kernels (dq; dk and
+   dv) against the dense float32 recompute on the training shape and on
+   the flash phase's other shapes, then times them, their plain versions
+   and the backward of ``scaled_dot_product_attention`` (a yardstick).
+7. opt: holds the fused SGD-momentum and Adam kernels bit for bit
+   (``torch.equal``) against their plain versions on the classifier's
+   full parameter list and on odd sizes, with and without clip and
+   weight decay, and times one multi-tensor step beside
+   ``torch.optim``'s fused step (a yardstick with other semantics).
+8. train_check: the classifier at full width with 2 layers, one "adam"
+   and one "sgd" (momentum) ``ShardedTrainer`` step on the card and on a
+   CPU copy from the same weights; loss and every parameter agree, and
+   each kernel of the step counts its launches.
+9. train: 20 "adam" steps of the full 12-layer classifier on one batch
+   of 32 (``make_task`` of the example): finite, falling loss, launch
+   counts, median step time, tokens/s, peak memory, and a
+   ``torch.profiler`` split of one step's device time.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure is an
-exception and a non-zero exit.
+exception and a non-zero exit. ``--phases`` runs a subset (device and
+build always run) and then prints no result line.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
+import statistics
 import subprocess
 import sys
 import threading
@@ -47,8 +68,9 @@ import torch
 
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import kernels, serving
-from mxnet_tpu_torch.convert import load_jax_params
-from mxnet_tpu_torch.kernels import build, flash
+from mxnet_tpu_torch.convert import export_params, load_jax_params
+from mxnet_tpu_torch.kernels import build, flash, opt_step
+from mxnet_tpu_torch.parallel import DeviceMesh, ShardedTrainer
 
 BERT_BASE = {"vocab": 30522, "units": 768, "hidden": 3072, "heads": 12,
              "layers": 12, "seq_len": 128, "num_classes": 2}
@@ -58,6 +80,19 @@ F32_TOL = 2e-5  # the kernel reassociates the softmax normaliser across k tiles
 BF16_TOL = 2e-2  # the plain version rounds scores and probabilities to bf16
 SERVE_TOL = 1e-4  # float32 logits; cuBLAS may pick another algorithm per batch size
 CPU_TOL = 1e-3    # float32 logits after 12 layers, CPU vs card summation order
+# one training step, card vs CPU copy, float32 (2 layers at BERT-base
+# width): the loss to rtol 1e-4; each parameter element to 1e-5 of its
+# magnitude plus 5e-2 * lr. Adam's first step moves a weight by about lr
+# whatever its gradient's size, so where a gradient is rounding noise on
+# both sides (the attention key biases, whose true gradient is zero, and a
+# few embedding elements whose token contributions cancel) the two runs
+# differ by up to a step each way: for Adam, at most 1e-5 of a tensor's
+# elements (every element of a key bias) may exceed the bound, and none
+# may differ by more than 2 * lr (each run moves a weight by at most lr).
+STEP_LOSS_RTOL = 1e-4
+STEP_PARAM_RTOL, STEP_PARAM_LR_FRAC = 1e-5, 5e-2
+ADAM_NOISE_SHARE = 1e-5
+TRAIN = {"batch": 32, "steps": 20, "warmup": 3, "lr": 1e-4, "wd": 1e-4}
 
 
 def build_encoder(args, mx, nn, contrib_nn):
@@ -137,6 +172,17 @@ def random_params(cfg, seed):
     return out
 
 
+def make_task(num_samples, seq_len, vocab, num_classes, seed=0):
+    """``examples/gluon/transformer_finetune.py:make_task``, verbatim:
+    the class is the marker token placed somewhere in the sequence."""
+    rs = np.random.RandomState(seed)
+    x = rs.randint(num_classes, vocab, (num_samples, seq_len))
+    y = rs.randint(0, num_classes, num_samples)
+    pos = rs.randint(0, seq_len, num_samples)
+    x[np.arange(num_samples), pos] = y  # marker token = class id
+    return x.astype(np.float32), y.astype(np.float32)
+
+
 def emit(obj):
     print(json.dumps(obj), flush=True)
 
@@ -197,6 +243,20 @@ def attention_bound_ms(q, k, causal, dtype_flops):
                                        else "operations")
 
 
+# (B, H, Sq, Sk, D), dtype, causal: the serving/training shape, ragged S,
+# cross attention (Sq != Sk), every head-dim bucket, bfloat16
+FLASH_CASES = [((32, 12, 128, 128, 64), dt, c)
+               for dt in (torch.float32, torch.bfloat16) for c in (False, True)]
+FLASH_CASES += [((8, 12, 100, 100, 64), torch.float32, False),
+                ((8, 12, 100, 100, 64), torch.float32, True),
+                ((4, 12, 128, 256, 64), torch.float32, False),
+                ((4, 8, 128, 128, 128), torch.float32, False),
+                ((4, 8, 128, 128, 128), torch.bfloat16, True),
+                ((2, 4, 96, 80, 40), torch.float32, True),
+                ((2, 4, 64, 64, 256), torch.float32, False),
+                ((2, 4, 48, 48, 512), torch.float32, True)]
+
+
 def phase_flash():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -209,18 +269,8 @@ def phase_flash():
                             dtype=torch.float32).to(dtype)
                 for s in (sq, sk, sk)]
 
-    cases = [((32, 12, 128, 128, 64), dt, c)
-             for dt in (torch.float32, torch.bfloat16) for c in (False, True)]
-    cases += [((8, 12, 100, 100, 64), torch.float32, False),
-              ((8, 12, 100, 100, 64), torch.float32, True),
-              ((4, 12, 128, 256, 64), torch.float32, False),
-              ((4, 8, 128, 128, 128), torch.float32, False),
-              ((4, 8, 128, 128, 128), torch.bfloat16, True),
-              ((2, 4, 96, 80, 40), torch.float32, True),
-              ((2, 4, 64, 64, 256), torch.float32, False),
-              ((2, 4, 48, 48, 512), torch.float32, True)]
     slice_err = None
-    for (b, h, sq, sk, d), dtype, causal in cases:
+    for (b, h, sq, sk, d), dtype, causal in FLASH_CASES:
         q, k, v = qkv(b, h, sq, sk, d, dtype)
         scale = 1.0 / math.sqrt(d)
         got = flash.flash_forward(q, k, v, scale, causal)
@@ -353,6 +403,8 @@ def phase_serve(smi):
 def _kernel_group(name):
     low = name.lower()
     for group, keys in (("flash_attention", ("flash_fwd_kernel",)),
+                        ("flash_bwd", ("flash_bwd_",)),
+                        ("optimizer", ("opt_step_kernel",)),
                         ("gemm", ("gemm", "cutlass", "sm90_xmma", "cublas")),
                         ("layer_norm", ("layer_norm",)),
                         ("activations", ("gelu", "tanh")),
@@ -362,12 +414,28 @@ def _kernel_group(name):
     return "other"
 
 
+def _device_split(prof, reps):
+    """Device microseconds per repetition by kernel group and by kernel,
+    from a ``torch.profiler`` run."""
+    from torch.autograd import DeviceType
+
+    groups, kernels_us = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        us = e.self_device_time_total / reps
+        kernels_us[e.key] = kernels_us.get(e.key, 0.0) + us
+        g = _kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + us
+    top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:8]
+    return groups, [[k[:80], v] for k, v in top]
+
+
 def phase_profile(model, smi, reps=3):
     """Where a served batch's time goes: host-clock ms of one batch per
     bucket (``ServedModel.run``, which waits for the answer), then a
     ``torch.profiler`` window over ``reps`` bucket-32 batches: device
     time by kernel group and the device's busy share of the window."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     bucket_ms = {}
@@ -385,43 +453,429 @@ def phase_profile(model, smi, reps=3):
         for _ in range(reps):
             model.run(x)
         window_ms = (time.perf_counter() - t0) * 1e3
-    groups, kernels_us = {}, {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
-            continue
-        us = e.self_device_time_total / reps
-        kernels_us[e.key] = kernels_us.get(e.key, 0.0) + us
-        g = _kernel_group(e.key)
-        groups[g] = groups.get(g, 0.0) + us
+    groups, top = _device_split(prof, reps)
     device_ms = sum(groups.values()) / 1e3
-    top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:8]
     emit({"phase": "profile", "card": smi, "bucket_ms": bucket_ms,
           "bucket": model.max_bucket, "window_ms_per_batch": window_ms / reps,
           "device_ms_per_batch": device_ms if groups else "not measured",
           "device_busy_share": device_ms * reps / window_ms
           if groups else "not measured",
-          "device_us_by_group": groups,
-          "top_kernels_us": [[k[:80], v] for k, v in top]})
+          "device_us_by_group": groups, "top_kernels_us": top})
 
 
-def main():
+def _bound_ms(nbytes, flops, peak_flops):
+    t_bytes, t_ops = nbytes / H100_BYTES_S, flops / peak_flops
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def flash_bwd_bounds(q, k, causal):
+    """Least time of the dq kernel, the dkv kernel and the whole backward:
+    each input read once and each output written once over HBM, or the
+    multiply-adds over the unmasked score pairs at the float32 rate (dq:
+    recompute S, dP, dS k = 6 FLOP per pair and head-dim column; dkv: S,
+    dP, P^T dO, dS^T q = 8; the whole backward done once: 10)."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    e = q.element_size()
+    rows_q, rows_k = b * h * sq * d, b * h * sk * d
+    stats = b * h * sq * 4                  # lse, D: float32 per q row
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    fl = b * h * pairs * d
+    return {
+        "dq": _bound_ms((4 * rows_q + 2 * rows_k) * e + 2 * stats, 6 * fl,
+                        H100_F32_FLOPS),
+        "dkv": _bound_ms((2 * rows_q + 4 * rows_k) * e + 2 * stats, 8 * fl,
+                         H100_F32_FLOPS),
+        "whole": _bound_ms((4 * rows_q + 4 * rows_k) * e, 10 * fl,
+                           H100_F32_FLOPS)}
+
+
+def phase_flash_bwd():
+    """The backward kernels against the dense float32 recompute
+    (``flash_backward_plain``) on the forward's shapes, then timings at
+    the training shape (32, 12, 128, 64) float32."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    train_err = None
+    for (b, h, sq, sk, d), dtype, causal in FLASH_CASES:
+        q, do = rand((b, h, sq, d), dtype), rand((b, h, sq, d), dtype)
+        k, v = rand((b, h, sk, d), dtype), rand((b, h, sk, d), dtype)
+        scale = 1.0 / math.sqrt(d)
+        o, lse = flash.flash_forward(q, k, v, scale, causal, with_lse=True)
+        dq, dsum = flash.flash_backward_dq(q, k, v, o, lse, do, scale, causal)
+        dk, dv = flash.flash_backward_dkv(q, k, v, lse, dsum, do, scale,
+                                          causal)
+        torch.cuda.synchronize()
+        want = flash.flash_backward_plain(q, k, v, o, do, scale, causal)
+        tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+        errs = {}
+        for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            errs[name] = (g.float() - w.float()).abs().max().item()
+            if not torch.allclose(g.float(), w.float(), rtol=tol, atol=tol):
+                raise AssertionError(
+                    f"flash backward {name} disagrees with the plain version "
+                    f"at {(b, h, sq, sk, d)} {dtype} causal={causal}: max "
+                    f"abs err {errs[name]}")
+        emit({"phase": "flash_bwd", "shape": [b, h, sq, sk, d],
+              "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+              "max_abs_err": errs, "rtol_atol": tol, "ok": True})
+        if (b, h, sq, sk, d) == (32, 12, 128, 128, 64) and \
+                dtype == torch.float32 and not causal:
+            train_err = max(errs.values())
+
+    q, k, v, do = (rand((32, 12, 128, 64), torch.float32) for _ in range(4))
+    scale = 0.125
+    o, lse = flash.flash_forward(q, k, v, scale, False, with_lse=True)
+    dq, dsum = flash.flash_backward_dq(q, k, v, o, lse, do, scale)
+    ms = {"dq": cuda_ms(lambda: flash.flash_backward_dq(q, k, v, o, lse, do,
+                                                        scale)),
+          "dkv": cuda_ms(lambda: flash.flash_backward_dkv(q, k, v, lse, dsum,
+                                                          do, scale)),
+          "dq_plain": cuda_ms(lambda: flash.flash_backward_dq_plain(
+              q, k, v, o, lse, do, scale, False)),
+          "dkv_plain": cuda_ms(lambda: flash.flash_backward_dkv_plain(
+              q, k, v, lse, dsum, do, scale, False))}
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(*leaves,
+                                                           scale=scale)
+    ms["library"] = cuda_ms(lambda: torch.autograd.grad(
+        out, leaves, do, retain_graph=True))
+    bounds = flash_bwd_bounds(q, k, False)
+    timing = {"shape": [32, 12, 128, 128, 64], "dtype": "float32",
+              "causal": False, "ms": ms,
+              "bound_ms": {n: b[0] for n, b in bounds.items()},
+              "bound_by": {n: b[1] for n, b in bounds.items()},
+              "max_abs_err": train_err}
+    emit({"phase": "flash_bwd_timing", **timing,
+          "library": "scaled_dot_product_attention backward (dq, dk, dv "
+                     "together) under autograd"})
+    return timing
+
+
+def _opt_inputs(shapes, gen, dev):
+    """Random float32 weights, gradients and Adam/momentum state."""
+    def rand(s, scale):
+        return torch.randn(s, generator=gen, device=dev) * scale
+
+    return {"w": [rand(s, 0.05) for s in shapes],
+            "g": [rand(s, 0.01) for s in shapes],
+            "m": [rand(s, 1e-3) for s in shapes],
+            "v": [rand(s, 1e-3).square() for s in shapes]}
+
+
+def _run_opt(family, fn, state, lr, wds, hyper, skip=None):
+    if family == "opt_sgd":
+        fn(state["w"], state["g"], state["m"], lr, wds, skip=skip, **hyper)
+    else:
+        fn(state["w"], state["g"], state["m"], state["v"], lr, wds,
+           skip=skip, **hyper)
+
+
+def _clone(state):
+    return {k: [t.clone() for t in ts] for k, ts in state.items()}
+
+
+def phase_opt():
+    """The fused optimizer kernels bit for bit against their plain
+    versions, then one timed multi-tensor step over the classifier's 109 M
+    parameters beside ``torch.optim``'s fused step."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    names = list(classifier_shapes(BERT_BASE))
+    full = [classifier_shapes(BERT_BASE)[n] for n in names]
+    wds_full = [1e-4 if n.endswith(("weight", "gamma")) else 0.0
+                for n in names]
+    odd = [(1,), (127,), (129,), (16383,), (16385,), (1000, 1001)]
+    lr = torch.tensor(1e-3, device=dev)
+    sgd = {"momentum": 0.9}
+    adam = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
+    clip = {"rescale_grad": 0.5, "clip_gradient": 0.004}
+    cases = [("full", full, wds_full, "opt_sgd", sgd),
+             ("full", full, wds_full, "opt_adam", adam),
+             ("full+clip", full, wds_full, "opt_sgd", {**sgd, **clip}),
+             ("full+clip", full, wds_full, "opt_adam", {**adam, **clip}),
+             ("odd", odd, [0.0] * len(odd), "opt_sgd", sgd),
+             ("odd+clip+wd", odd, [1e-2] * len(odd), "opt_adam",
+              {**adam, **clip}),
+             ("odd+clip+wd", odd, [1e-2] * len(odd), "opt_sgd",
+              {**sgd, **clip})]
+    for label, shapes, wds, family, hyper in cases:
+        base = _opt_inputs(shapes, gen, dev)
+        got, want = _clone(base), _clone(base)
+        e = kernels.entry(family)
+        _run_opt(family, e.kernel, got, lr, wds, hyper)
+        _run_opt(family, e.plain, want, lr, wds, hyper)
+        torch.cuda.synchronize()
+        for key in got:
+            for i, (a, b) in enumerate(zip(got[key], want[key])):
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"{family} {label}: {key}[{i}] {tuple(a.shape)} "
+                        "differs from the plain version (max abs "
+                        f"{(a - b).abs().max().item()})")
+        if torch.equal(got["w"][0], base["w"][0]):
+            raise AssertionError(f"{family} {label}: nothing was updated")
+        skipped = _clone(base)
+        _run_opt(family, e.kernel, skipped, lr, wds, hyper,
+                 skip=torch.ones((), device=dev))
+        if not all(torch.equal(a, b) for k in base
+                   for a, b in zip(skipped[k], base[k])):
+            raise AssertionError(f"{family} {label}: skip flag ignored")
+        emit({"phase": "opt", "family": family, "case": label,
+              "tensors": len(shapes),
+              "elements": sum(math.prod(s) for s in shapes),
+              "hyper": hyper, "bitwise_equal": True})
+
+    n = sum(math.prod(s) for s in full)
+    state = _opt_inputs(full, gen, dev)
+    timing = {}
+    for family, hyper, nbytes in (("opt_adam", adam, 28 * n),
+                                  ("opt_sgd", sgd, 20 * n)):
+        e = kernels.entry(family)
+        timing[family] = {
+            "ms": cuda_ms(lambda: _run_opt(family, e.kernel, state, lr,
+                                           wds_full, hyper)),
+            "plain_ms": cuda_ms(lambda: _run_opt(family, e.plain, state, lr,
+                                                 wds_full, hyper), iters=5),
+            "bound_ms": nbytes / H100_BYTES_S * 1e3, "bound_by": "bytes"}
+    params = [torch.nn.Parameter(w.clone()) for w in state["w"]]
+    for p, g in zip(params, state["g"]):
+        p.grad = g.clone()
+    groups = [{"params": [p for p, wd in zip(params, wds_full) if wd],
+               "weight_decay": 1e-4},
+              {"params": [p for p, wd in zip(params, wds_full) if not wd],
+               "weight_decay": 0.0}]
+    torch_adam = torch.optim.Adam(groups, lr=1e-3, fused=True)
+    torch_sgd = torch.optim.SGD(groups, lr=1e-3, momentum=0.9, fused=True)
+    timing["opt_adam"]["library_ms"] = cuda_ms(torch_adam.step)
+    timing["opt_sgd"]["library_ms"] = cuda_ms(torch_sgd.step)
+    emit({"phase": "opt_timing", "params": n, "tensors": len(full),
+          **timing,
+          "library": "torch.optim.Adam/SGD(fused=True) over the same "
+                     "tensors; yardsticks only: Adam applies eps after "
+                     "un-biasing sqrt(v) (MXNet folds the bias correction "
+                     "into lr), SGD accumulates momentum on the gradient "
+                     "before lr (MXNet on lr * gradient), and neither "
+                     "clips"})
+    return timing
+
+
+def _classifier_on(ctx, cfg, weights):
+    with ctx:
+        clf = build_classifier(mx, cfg)
+        clf.initialize(mx.init.Zero())
+        load_jax_params(clf, weights)
+    return clf
+
+
+def phase_train_check():
+    """One "adam" and one "sgd" (momentum) step of the classifier at
+    BERT-base width with 2 layers, batch 4, on the card and on a CPU copy
+    from the same weights. Returns the launch counts of the sgd step."""
+    cfg = dict(BERT_BASE, layers=2)
+    weights = random_params(cfg, seed=0)
+    x, y = make_task(4, cfg["seq_len"], cfg["vocab"], cfg["num_classes"],
+                     seed=7)
+    runs = {}
+    for opt, params in (("adam", {"learning_rate": 1e-4, "wd": 1e-4}),
+                        ("sgd", {"learning_rate": 0.01, "momentum": 0.9,
+                                 "wd": 1e-4})):
+        losses, nets, counts = {}, {}, None
+        for where in ("card", "cpu"):
+            ctx = mx.gpu(0) if where == "card" else mx.cpu()
+            clf = _classifier_on(ctx, cfg, weights)
+            with ctx:
+                st = ShardedTrainer(clf,
+                                    mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                                    opt, dict(params),
+                                    mesh=DeviceMesh({"dp": 1}))
+                kernels.reset_launch_counts()
+                losses[where] = st.step(mx.nd.array(x),
+                                        mx.nd.array(y)).asscalar()
+                if where == "card":
+                    counts = kernels.launch_counts()
+            nets[where] = export_params(clf)
+        layers = cfg["layers"]
+        want_counts = {"flash_attention": layers,
+                       "flash_attention_bwd_dq": layers,
+                       "flash_attention_bwd_dkv": layers,
+                       "opt_adam": int(opt == "adam"),
+                       "opt_sgd": int(opt == "sgd")}
+        if counts != want_counts:
+            raise AssertionError(f"train_check {opt}: launches {counts}, "
+                                 f"expected {want_counts}")
+        np.testing.assert_allclose(losses["card"], losses["cpu"],
+                                   rtol=STEP_LOSS_RTOL)
+        lr = params["learning_rate"]
+        worst, noisy = 0.0, 0
+        for name, want in nets["cpu"].items():
+            diff = np.abs(nets["card"][name] - want)
+            over = int((diff > STEP_PARAM_RTOL * np.abs(want) +
+                        STEP_PARAM_LR_FRAC * lr).sum())
+            allowed = 0
+            if opt == "adam":
+                allowed = want.size if name.endswith("attn.key.bias") else \
+                    int(ADAM_NOISE_SHARE * want.size)
+            worst = max(worst, float(diff.max()) / lr)
+            noisy += over
+            if over > allowed or diff.max() > 2 * lr + STEP_PARAM_RTOL * \
+                    np.abs(want).max():
+                raise AssertionError(
+                    f"train_check {opt} {name}: {over} elements beyond the "
+                    f"bound (allowed {allowed}), max diff {diff.max()}")
+        runs[opt] = {"loss_card": losses["card"], "loss_cpu": losses["cpu"],
+                     "max_param_diff_over_lr": worst,
+                     "elements_beyond_bound": noisy, "launches": counts}
+    emit({"phase": "train_check", "config": cfg, "batch": 4,
+          "loss_rtol": STEP_LOSS_RTOL, "param_rtol": STEP_PARAM_RTOL,
+          "param_atol_over_lr": STEP_PARAM_LR_FRAC,
+          "adam_noise_share": ADAM_NOISE_SHARE, **runs})
+    return runs["sgd"]["launches"]
+
+
+def phase_train(smi):
+    """The fine-tune at full size: 20 "adam" steps on one fixed batch of
+    32, then ``predict``; one more step under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, tr = BERT_BASE, TRAIN
+    clf = _classifier_on(mx.gpu(0), cfg, random_params(cfg, seed=0))
+    st = ShardedTrainer(clf, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+                        {"learning_rate": tr["lr"], "wd": tr["wd"]},
+                        mesh=DeviceMesh({"dp": 1}))
+    x, y = make_task(tr["batch"], cfg["seq_len"], cfg["vocab"],
+                     cfg["num_classes"], seed=5)
+    xb, yb = mx.nd.array(x), mx.nd.array(y)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(tr["steps"]):
+        t0 = time.perf_counter()
+        losses.append(st.step(xb, yb).asscalar())
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    pred = st.predict(xb).asnumpy()
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    layers, steps = cfg["layers"], tr["steps"]
+    want = {"flash_attention": layers * (steps + 1),
+            "flash_attention_bwd_dq": layers * steps,
+            "flash_attention_bwd_dkv": layers * steps,
+            "opt_adam": steps, "opt_sgd": 0}
+    if counts != want:
+        raise AssertionError(f"train: launches {counts}, expected {want}")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train: loss not finite and falling: {losses}")
+    if pred.shape != (tr["batch"], cfg["num_classes"]) or \
+            not np.isfinite(pred).all():
+        raise AssertionError(f"train: bad predictions {pred.shape}")
+    if st.skipped_steps:
+        raise AssertionError(f"train: {st.skipped_steps} steps skipped")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st.step(xb, yb).asscalar()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    groups, top = _device_split(prof, 1)
+    device_ms = sum(groups.values()) / 1e3
+    median = statistics.median(step_ms[tr["warmup"]:])
+    emit({"phase": "train", "card": smi, "config": cfg, **tr,
+          "losses": losses, "step_ms": step_ms, "median_step_ms": median,
+          "tokens_per_s": tr["batch"] * cfg["seq_len"] / (median / 1e3),
+          "memory_allocated_before": before, "max_memory_allocated": peak,
+          "launches": counts,
+          "accuracy_on_batch": float((pred.argmax(-1) == y).mean()),
+          "profiled_step_ms": window_ms,
+          "device_ms_per_step": device_ms if groups else "not measured",
+          "device_idle_share": 1 - device_ms / window_ms
+          if groups else "not measured",
+          "device_us_by_group": groups, "top_kernels_us": top})
+    return counts
+
+
+PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train")
+
+
+def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
+                 library):
+    return {"name": name, "route": "cuda",
+            "source": f"mxnet_tpu_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--phases", default=",".join(PHASES),
+                   help="comma-separated subset of " + ",".join(PHASES))
+    phases = set(p.parse_args(argv).phases.split(","))
+    if phases - set(PHASES):
+        raise SystemExit(f"unknown phases {sorted(phases - set(PHASES))}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     dev = phase_device()
+    smi = dev["nvidia_smi"]
     phase_build()
-    timing = phase_flash()
-    launches, model = phase_serve(dev["nvidia_smi"])
-    phase_profile(model, dev["nvidia_smi"])
-    emit({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "mxnet_tpu/kernels/flash.py:38",
-        "launches": launches, "max_abs_err": timing["max_abs_err"],
-        "ms": timing["kernel_ms"], "plain_ms": timing["plain_ms"],
-        "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}]})
-    print(dev["nvidia_smi"], flush=True)
+    done = {}
+    if "flash" in phases:
+        done["flash"] = phase_flash()
+    if "serve" in phases:
+        done["serve"], model = phase_serve(smi)
+        phase_profile(model, smi)
+        del model  # its weights would count in the train phase's peak
+    if "flash_bwd" in phases:
+        done["flash_bwd"] = phase_flash_bwd()
+    if "opt" in phases:
+        done["opt"] = phase_opt()
+    if "train_check" in phases:
+        done["train_check"] = phase_train_check()
+    if "train" in phases:
+        done["train"] = phase_train(smi)
+    if set(done) != set(PHASES):
+        print(f"phases run: {sorted(done)}; no result line", flush=True)
+        return 1
+    fwd, bwd, opt = done["flash"], done["flash_bwd"], done["opt"]
+    train, sgd_launches = done["train"], done["train_check"]
+    lines = [
+        _kernel_line("flash_attention", "flash_attention.cu",
+                     "mxnet_tpu/kernels/flash.py:38", done["serve"],
+                     fwd["max_abs_err"], fwd["kernel_ms"], fwd["plain_ms"],
+                     (fwd["bound_ms"], fwd["bound_by"]), fwd["library_ms"])]
+    for part in ("dq", "dkv"):
+        lines.append(_kernel_line(
+            f"flash_attention_bwd_{part}", "flash_attention_bwd.cu",
+            "mxnet_tpu/kernels/flash.py:134",
+            train[f"flash_attention_bwd_{part}"], bwd["max_abs_err"],
+            bwd["ms"][part], bwd["ms"][f"{part}_plain"],
+            (bwd["bound_ms"][part], bwd["bound_by"][part]),
+            bwd["ms"]["library"]))
+    for family, replaces, launches in (
+            ("opt_sgd", "mxnet_tpu/kernels/opt_step.py:114",
+             sgd_launches["opt_sgd"]),
+            ("opt_adam", "mxnet_tpu/kernels/opt_step.py:131",
+             train["opt_adam"])):
+        t = opt[family]
+        lines.append(_kernel_line(family, "opt_step.cu", replaces, launches,
+                                  0.0, t["ms"], t["plain_ms"],
+                                  (t["bound_ms"], t["bound_by"]),
+                                  t["library_ms"]))
+    emit({"kernels": lines})
+    print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],
                                  "count": dev["count"]}})
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

@@ -24,10 +24,12 @@ from . import initializer
 from . import initializer as init
 from . import kernels
 from . import gluon
+from . import optimizer
+from . import parallel
 from . import serving
 from . import convert
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "autograd", "nd", "ndarray", "NDArray",
-           "initializer", "init", "kernels", "gluon", "serving", "convert",
-           "__version__"]
+           "initializer", "init", "kernels", "gluon", "optimizer", "parallel",
+           "serving", "convert", "__version__"]

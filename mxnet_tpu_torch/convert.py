@@ -11,6 +11,10 @@ JAX package's: a FullyConnected weight is ``(num_hidden, in_units)``.
 
 Any missing name, extra name, shape mismatch or dtype mismatch raises;
 a parameter whose shape was deferred takes the array's shape.
+
+``export_params(block)`` is the inverse: ``{structural_name:
+numpy.ndarray}`` of the block's current values, in the same layout, so
+tests can compare weights after training with the JAX package's.
 """
 from __future__ import annotations
 
@@ -18,7 +22,7 @@ import numpy as _np
 
 from .base import MXNetError, canonical_dtype
 
-__all__ = ["load_jax_params"]
+__all__ = ["load_jax_params", "export_params"]
 
 
 def load_jax_params(block, params):
@@ -43,3 +47,10 @@ def load_jax_params(block, params):
                              f"{arr.shape}, the parameter {p.shape}")
         p.set_data(arr)
     return len(targets)
+
+
+def export_params(block):
+    """``{structural_name: numpy.ndarray}`` copies of ``block``'s
+    parameter values (host copies; bfloat16 widens to float32)."""
+    return {name: p.data().asnumpy()
+            for name, p in block._collect_params_with_structure().items()}

@@ -20,64 +20,18 @@
 // a score of -inf. Causal k tiles wholly above the diagonal are skipped.
 // Query rows past Sq are computed on zero-filled inputs and never stored.
 //
+// Optionally (training) the kernel also writes each row's log-sum-exp of
+// the scaled scores, m + log(max(l, 1e-30)), which the backward kernels
+// (flash_attention_bwd.cu) use to recompute probabilities.
+//
 // The launch function is plain C: it returns cudaGetLastError() after the
 // launch and never synchronises.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTX = 8;                  // lanes per row group
-constexpr int kTY = kThreads / kTX;     // row groups per block
-
-__device__ __forceinline__ void load4(const float* p, float* o) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-}
-
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-}
-
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-// Copy rows [row0, row0 + ROWS) of a row-major (n_rows, d) matrix into a
-// float tile with leading dimension ld; rows past n_rows are zero.
-template <typename T, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          int row0, int n_rows, int d) {
-  const int chunks = d >> 2;
-  for (int i = threadIdx.x; i < ROWS * chunks; i += kThreads) {
-    const int r = i / chunks;
-    const int c = (i - r * chunks) << 2;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (row0 + r < n_rows) load4(src + (size_t)(row0 + r) * d + c, v);
-    *reinterpret_cast<float4*>(dst + r * ld + c) = make_float4(v[0], v[1], v[2], v[3]);
-  }
-}
-
-__device__ __forceinline__ float group_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 4));
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-}
-
-__device__ __forceinline__ float group_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 4);
-  x += __shfl_xor_sync(0xffffffffu, x, 2);
-  return x + __shfl_xor_sync(0xffffffffu, x, 1);
-}
+using namespace mxtt_flash;
 
 template <int BQ, int BK, int DMAX>
 struct Tiles {
@@ -91,7 +45,8 @@ template <typename T, int BQ, int BK, int DMAX>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
-                 int sq, int sk, int d, float scale, int causal) {
+                 float* __restrict__ lse, int sq, int sk, int d, float scale,
+                 int causal) {
   constexpr int RQ = BQ / kTY;    // q rows per thread
   constexpr int CK = BK / kTX;    // score columns per thread
   constexpr int CD = DMAX / kTX;  // output columns per thread (at most)
@@ -144,24 +99,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < CK; ++c) s[r][c] = 0.f;
 
-    for (int e = 0; e < d; e += 4) {
-      float4 qv[RQ];
-#pragma unroll
-      for (int r = 0; r < RQ; ++r)
-        qv[r] = *reinterpret_cast<const float4*>(Qs + (row0 + r) * LD + e);
-#pragma unroll
-      for (int c = 0; c < CK; ++c) {
-        const float4 kv = *reinterpret_cast<const float4*>(Ks + (tx + kTX * c) * LD + e);
-#pragma unroll
-        for (int r = 0; r < RQ; ++r) {
-          float t = s[r][c];
-          t = fmaf(qv[r].x, kv.x, t);
-          t = fmaf(qv[r].y, kv.y, t);
-          t = fmaf(qv[r].z, kv.z, t);
-          s[r][c] = fmaf(qv[r].w, kv.w, t);
-        }
-      }
-    }
+    tile_dots<RQ, CK, LD>(s, Qs, Ks, row0, tx, d);
 
 #pragma unroll
     for (int r = 0; r < RQ; ++r) {
@@ -217,14 +155,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < CD; ++j)
         if (j < cd) store1(orow + kTX * j, acc[r][j] / denom);
+      // log-sum-exp of the row's scaled scores, for the backward pass
+      if (lse != nullptr && tx == 0)
+        lse[(size_t)head * sq + q_pos] =
+            (m[r] == -INFINITY ? 0.f : m[r]) + logf(denom);
     }
   }
 }
 
 template <typename T, int BQ, int BK, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int bh, int sq, int sk, int d, float scale, int causal,
-                   cudaStream_t stream) {
+                   float* lse, int bh, int sq, int sk, int d, float scale,
+                   int causal, cudaStream_t stream) {
   auto kern = flash_fwd_kernel<T, BQ, BK, DMAX>;
   const size_t smem = Tiles<BQ, BK, DMAX>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -234,35 +176,39 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   kern<<<(unsigned)blocks, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, d, scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sq, sk, d, scale,
+      causal);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_for_dim(const void* q, const void* k, const void* v,
-                           void* o, int bh, int sq, int sk, int d,
+                           void* o, float* lse, int bh, int sq, int sk, int d,
                            float scale, int causal, cudaStream_t stream) {
-  if (d <= 64) return launch<T, 64, 64, 64>(q, k, v, o, bh, sq, sk, d, scale, causal, stream);
-  if (d <= 128) return launch<T, 64, 32, 128>(q, k, v, o, bh, sq, sk, d, scale, causal, stream);
-  if (d <= 256) return launch<T, 32, 32, 256>(q, k, v, o, bh, sq, sk, d, scale, causal, stream);
-  return launch<T, 16, 16, 512>(q, k, v, o, bh, sq, sk, d, scale, causal, stream);
+  if (d <= 64) return launch<T, 64, 64, 64>(q, k, v, o, lse, bh, sq, sk, d, scale, causal, stream);
+  if (d <= 128) return launch<T, 64, 32, 128>(q, k, v, o, lse, bh, sq, sk, d, scale, causal, stream);
+  if (d <= 256) return launch<T, 32, 32, 256>(q, k, v, o, lse, bh, sq, sk, d, scale, causal, stream);
+  return launch<T, 16, 16, 512>(q, k, v, o, lse, bh, sq, sk, d, scale, causal, stream);
 }
 
 }  // namespace
 
 // q (bh, sq, d), k and v (bh, sk, d), o (bh, sq, d), all contiguous and
 // 16-byte aligned on the current device. dtype: 0 float32, 1 bfloat16.
+// lse (bh, sq) float32 receives each row's log-sum-exp of the scaled,
+// masked scores; a null lse writes none (the serving path).
 extern "C" int mxtt_flash_attention_forward(const void* q, const void* k,
-                                            const void* v, void* o, int bh,
-                                            int sq, int sk, int d,
-                                            float scale, int causal,
-                                            int dtype, void* stream) {
+                                            const void* v, void* o,
+                                            float* lse, int bh, int sq,
+                                            int sk, int d, float scale,
+                                            int causal, int dtype,
+                                            void* stream) {
   if (bh < 1 || sq < 1 || sk < 1 || d < 8 || d > 512 || d % 8 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)launch_for_dim<float>(q, k, v, o, bh, sq, sk, d, scale, causal, s);
+    return (int)launch_for_dim<float>(q, k, v, o, lse, bh, sq, sk, d, scale, causal, s);
   if (dtype == 1)
-    return (int)launch_for_dim<__nv_bfloat16>(q, k, v, o, bh, sq, sk, d, scale, causal, s);
+    return (int)launch_for_dim<__nv_bfloat16>(q, k, v, o, lse, bh, sq, sk, d, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -7,8 +7,10 @@ Each op family registers
   takes CUDA tensors only and counts its launches in ``kernel.launches``;
 * ``plain``: a plain PyTorch version of the same function.
 
-``dispatch(family, *tensors, ...)`` sends CPU tensors to the plain
-version and CUDA tensors to the kernel. There is no opt-out, no
+``dispatch(family, *args, ...)`` sends CPU tensors to the plain
+version and CUDA tensors to the kernel; it looks at every tensor among
+the arguments, in lists and tuples too (the optimizer families take
+lists of tensors). There is no opt-out, no
 autotuned table and no fallback: on the card the kernel launches or the
 call raises. Tensors on mixed or other devices raise.
 """
@@ -47,10 +49,19 @@ def entry(family) -> KernelEntry:
     return _FAMILIES[family]
 
 
+def _tensors(values):
+    for a in values:
+        if isinstance(a, torch.Tensor):
+            yield a
+        elif isinstance(a, (list, tuple)):
+            yield from _tensors(a)
+
+
 def dispatch(family, *args, **kwargs):
     """Route one call by the device of its tensor arguments."""
     e = _FAMILIES[family]
-    devices = {a.device.type for a in args if isinstance(a, torch.Tensor)}
+    devices = {t.device.type
+               for t in _tensors(list(args) + list(kwargs.values()))}
     if devices == {"cpu"}:
         return e.plain(*args, **kwargs)
     if devices == {"cuda"}:
@@ -69,4 +80,5 @@ def reset_launch_counts():
         e.kernel.launches = 0
 
 
-from . import flash  # noqa: E402,F401  (flash_attention)
+from . import flash  # noqa: E402,F401  (flash_attention, its backward)
+from . import opt_step  # noqa: E402,F401  (opt_sgd, opt_adam)

@@ -5,8 +5,17 @@ tensor, ``_data``; mutation is by rebinding that tensor (README
 "Design"), so a Parameter's handle can be given new values without
 callers holding stale references. Placement is explicit: an array lives
 where its Context says, the card by default.
+
+Arithmetic and reductions are the ones the loss and the trainer use
+(``+ - *``, negation, ``sum``, ``mean``, ``reshape``); they act on the
+tensors directly, so gradients flow through them under
+``autograd.record()``. ``attach_grad`` / ``grad`` / ``backward`` mirror
+MXNet's imperative autograd over ``torch.autograd``
+(``mxnet_tpu_torch.autograd``).
 """
 from __future__ import annotations
+
+import numbers
 
 import numpy as _np
 import torch
@@ -33,7 +42,7 @@ def _to_tensor(data, ctx, dtype):
 class NDArray:
     """An n-dimensional array on one device."""
 
-    __slots__ = ("_data",)
+    __slots__ = ("_data", "_grad_req")
 
     def __init__(self, data, ctx=None, dtype=None):
         if isinstance(data, NDArray):
@@ -42,6 +51,7 @@ class NDArray:
                 or dtype is not None:
             data = _to_tensor(data, ctx, dtype)
         self._data = data
+        self._grad_req = "null"
 
     @property
     def shape(self):
@@ -77,6 +87,19 @@ class NDArray:
         t = self._data.detach()
         return t.to("cpu", dtype=canonical_dtype(numpy_dtype(t.dtype))).numpy()
 
+    def asscalar(self):
+        """The value of a one-element array as a Python number."""
+        if self.size != 1:
+            raise ValueError(f"asscalar needs a one-element array, got "
+                             f"shape {self.shape}")
+        return self.asnumpy().item()
+
+    def wait_to_read(self):
+        """Block until the array's producers have finished (a device
+        synchronise on a card)."""
+        if self._data.device.type == "cuda":
+            torch.cuda.synchronize(self._data.device)
+
     def as_in_context(self, ctx: Context) -> "NDArray":
         if ctx == self.context:
             return self
@@ -94,12 +117,70 @@ class NDArray:
             key = key._data
         return NDArray(self._data[key])
 
-    def __add__(self, other):
+    def _binary(self, other, fn):
         if isinstance(other, NDArray):
             other = other._data
-        return NDArray(self._data + other)
+        elif not isinstance(other, numbers.Number):
+            return NotImplemented
+        return NDArray(fn(self._data, other))
+
+    def __add__(self, other):
+        return self._binary(other, torch.add)
 
     __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary(other, torch.sub)
+
+    def __mul__(self, other):
+        return self._binary(other, torch.mul)
+
+    __rmul__ = __mul__
+
+    def __neg__(self):
+        return NDArray(-self._data)
+
+    def _reduce(self, fn, axis, keepdims):
+        if axis is None:
+            out = fn(self._data)
+            return NDArray(out.reshape((1,) * self.ndim) if keepdims else out)
+        axis = (axis,) if isinstance(axis, int) else tuple(axis)
+        return NDArray(fn(self._data, dim=axis, keepdim=keepdims))
+
+    def sum(self, axis=None, keepdims=False):
+        return self._reduce(torch.sum, axis, keepdims)
+
+    def mean(self, axis=None, keepdims=False):
+        return self._reduce(torch.mean, axis, keepdims)
+
+    def reshape(self, *shape):
+        shape = shape[0] if len(shape) == 1 and isinstance(
+            shape[0], (tuple, list)) else shape
+        return NDArray(self._data.reshape(tuple(shape)))
+
+    # ------------------------------------------------------ autograd -----
+    def attach_grad(self, grad_req="write"):
+        """Make this array a leaf whose gradient ``backward`` fills:
+        ``"write"`` overwrites it, ``"add"`` accumulates, ``"null"``
+        detaches."""
+        if grad_req not in ("write", "add", "null"):
+            raise ValueError(f"grad_req must be write, add or null, got "
+                             f"{grad_req!r}")
+        self._data = self._data.detach().requires_grad_(grad_req != "null")
+        self._grad_req = grad_req
+        if grad_req != "null":
+            self._data._mx_grad_req = grad_req
+
+    @property
+    def grad(self):
+        g = self._data.grad if self._data.requires_grad else None
+        return None if g is None else NDArray(g)
+
+    def backward(self, out_grad=None, retain_graph=False, train_mode=True):
+        from .. import autograd
+
+        autograd.backward([self], None if out_grad is None else [out_grad],
+                          retain_graph=retain_graph, train_mode=train_mode)
 
 
 def _invoke(op_name, nd_inputs, kwargs):

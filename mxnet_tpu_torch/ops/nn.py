@@ -1,7 +1,8 @@
-"""Neural-net ops the serving path uses.
+"""Neural-net ops the serving and training paths use.
 
 Counterpart of ``mxnet_tpu/ops/nn.py`` (FullyConnected :29, LayerNorm
-:226, Activation :377, LeakyReLU :391, Dropout :424). These were plain
+:226, softmax :283, log_softmax :294, Activation :377, LeakyReLU :391,
+Dropout :424). These were plain
 XLA in the JAX package, so here they are plain PyTorch (cuBLAS for the
 matrix products). Dropout takes an explicit ``torch.Generator`` where the
 JAX op took a PRNG key.
@@ -76,3 +77,23 @@ def _dropout(data, p=0.5, training=False, generator=None, axes=()):
     mask = torch.rand(shape, generator=generator, device=data.device) < keep
     return torch.where(mask, data / keep, torch.zeros((), dtype=data.dtype,
                                                       device=data.device))
+
+
+@register("softmax")
+def _softmax(data, axis=-1, temperature=None, length=None, use_length=False):
+    """Softmax over ``axis``; ``use_length`` masks positions at or past
+    ``length`` (per leading index) before normalising."""
+    if temperature:
+        data = data / temperature
+    if use_length and length is not None:
+        steps = torch.arange(data.shape[axis], device=data.device)
+        mask = steps < length.unsqueeze(-1)
+        data = data.masked_fill(~mask, float("-inf"))
+    return torch.softmax(data, dim=axis)
+
+
+@register("log_softmax")
+def _log_softmax(data, axis=-1, temperature=None):
+    if temperature:
+        data = data / temperature
+    return torch.log_softmax(data, dim=axis)

@@ -3,12 +3,14 @@
 Counterpart of ``mxnet_tpu/ops/pallas_ops.py`` (``_contrib_flash_attention``
 :31-54), exposed as ``nd.contrib.flash_attention`` /
 ``F.contrib.flash_attention``. It routes through
-:func:`mxnet_tpu_torch.kernels.dispatch`: the hand-written CUDA kernel on
-a card, the plain PyTorch version on the CPU.
+:func:`mxnet_tpu_torch.kernels.flash.flash_attention`, which dispatches
+each kernel family by device (the hand-written CUDA kernels on a card,
+the plain PyTorch versions on the CPU) and carries gradients through the
+backward kernels when a graph is recorded.
 """
 from __future__ import annotations
 
-from .. import kernels as _kernels
+from ..kernels import flash as _flash
 from .registry import register
 
 
@@ -21,5 +23,4 @@ def _contrib_flash_attention(q, k, v, scale=None, causal=False):
                          f"rank {q.ndim}")
     if scale is None:
         scale = 1.0 / (q.shape[-1] ** 0.5)
-    return _kernels.dispatch("flash_attention", q, k, v, float(scale),
-                             causal=bool(causal))
+    return _flash.flash_attention(q, k, v, scale, causal)

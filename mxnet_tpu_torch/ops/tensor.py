@@ -1,8 +1,8 @@
-"""Tensor ops the serving path uses.
+"""Tensor ops the serving and training paths use.
 
-Counterpart of ``mxnet_tpu/ops/tensor.py`` (Embedding :182, reshape :211,
-transpose :240, Flatten :255, slice_axis :292), with the same MXNet
-semantics.
+Counterpart of ``mxnet_tpu/ops/tensor.py`` (pick :162, Embedding :182,
+reshape :211, transpose :240, Flatten :255, slice_axis :292) and of the
+broadcast arithmetic the losses use, with the same MXNet semantics.
 """
 from __future__ import annotations
 
@@ -52,3 +52,22 @@ def _slice_axis(x, axis=0, begin=0, end=None):
     sl = [slice(None)] * x.ndim
     sl[axis] = slice(begin, end)
     return x[tuple(sl)]
+
+
+@register("pick")
+def _pick(data, index, axis=-1, keepdims=False, mode="clip"):
+    """``data`` at ``index`` along ``axis``; indices (floats allowed) are
+    truncated to integers and clipped into range."""
+    idx = index.to(torch.int64).clamp(0, data.shape[axis] - 1)
+    out = torch.take_along_dim(data, idx.unsqueeze(axis), dim=axis)
+    return out if keepdims else out.squeeze(axis)
+
+
+@register("broadcast_mul")
+def _broadcast_mul(lhs, rhs):
+    return lhs * rhs
+
+
+@register("square")
+def _square(x):
+    return torch.square(x)

@@ -1,0 +1,144 @@
+"""Card tests of the training slice's kernels, marked ``gpu``: they skip
+without a card (decided in a fixture) and import nothing of JAX, so they
+run on a machine that has only PyTorch:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_card.py
+
+* gradients through ``nd.contrib.flash_attention`` on the card come from
+  the backward kernels, equal the plain dense recompute, and reach the
+  q/k/v projections of a MultiHeadAttention;
+* the flash backward kernels against their plain versions;
+* the fused SGD-momentum and Adam kernels bit for bit against theirs.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import kernels, nd
+from mxnet_tpu_torch.gluon.contrib import nn as cnn
+from mxnet_tpu_torch.kernels import flash
+
+F32_TOL, BF16_TOL = 2e-5, 2e-2
+
+
+@pytest.fixture
+def cuda_device():
+    """Decided when the test runs, never at import or collection."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (run on the chip: python -m pytest "
+                    "--noconftest -m gpu tests/test_torch_card.py)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0)
+
+
+def _rand(shape, seed, scale=0.5):
+    return (np.random.RandomState(seed).randn(*shape) * scale).astype(
+        np.float32)
+
+
+@pytest.mark.gpu
+def test_gradients_flow_through_the_flash_kernel_on_card(cuda_device):
+    b, h, s, d = 2, 4, 100, 64
+    q, k, v, do = (_rand((b, h, s, d), seed) for seed in range(4))
+    arrays = [mx.nd.array(a) for a in (q, k, v)]
+    for a in arrays:
+        a.attach_grad()
+    kernels.reset_launch_counts()
+    with mx.autograd.record():
+        out = nd.contrib.flash_attention(*arrays, causal=True)
+    out.backward(mx.nd.array(do))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_bwd_dq"] == 1
+    assert counts["flash_attention_bwd_dkv"] == 1
+    want = flash.flash_backward_plain(
+        *(a._data.detach() for a in arrays), out._data.detach(),
+        torch.from_numpy(do).to(cuda_device), 1 / math.sqrt(d), True)
+    for a, w in zip(arrays, want):
+        assert a.grad is not None
+        torch.testing.assert_close(a.grad._data, w, rtol=F32_TOL,
+                                   atol=F32_TOL)
+
+    mha = cnn.MultiHeadAttention(64, 4)
+    mha.initialize(mx.init.Xavier(),
+                   generator=torch.Generator().manual_seed(0))
+    x = mx.nd.array(_rand((2, 16, 64), seed=5))
+    mha(x)  # resolve deferred shapes
+    weights = [getattr(mha, n).weight.data()._data.requires_grad_(True)
+               for n in ("query", "key", "value")]
+    with mx.autograd.record():
+        y = mha(x)
+    grads = torch.autograd.grad(y._data.square().sum(), weights,
+                                allow_unused=True)
+    for g in grads:
+        assert g is not None and torch.count_nonzero(g) > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype,causal", [
+    ((4, 12, 128, 128, 64), torch.float32, False),
+    ((4, 12, 128, 128, 64), torch.bfloat16, True),
+    ((2, 4, 100, 100, 64), torch.float32, True),
+    ((2, 4, 96, 80, 40), torch.float32, True),
+    ((2, 4, 128, 256, 64), torch.float32, False),
+    ((2, 4, 64, 64, 256), torch.float32, False),
+    ((2, 4, 48, 48, 512), torch.bfloat16, False),
+])
+def test_backward_kernels_match_plain_on_card(cuda_device, shape, dtype,
+                                              causal):
+    b, h, sq, sk, d = shape
+    q, do = (torch.from_numpy(_rand((b, h, sq, d), s)).to(cuda_device, dtype)
+             for s in (1, 2))
+    k, v = (torch.from_numpy(_rand((b, h, sk, d), s)).to(cuda_device, dtype)
+            for s in (3, 4))
+    scale = 1 / math.sqrt(d)
+    o, lse = flash.flash_forward(q, k, v, scale, causal, with_lse=True)
+    dq, dsum = flash.flash_backward_dq(q, k, v, o, lse, do, scale, causal)
+    dk, dv = flash.flash_backward_dkv(q, k, v, lse, dsum, do, scale, causal)
+    torch.cuda.synchronize()
+    want = flash.flash_backward_plain(q, k, v, o, do, scale, causal)
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    for g, w in zip((dq, dk, dv), want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+def _opt_state(shapes, family, device):
+    cols = 3 if family == "opt_sgd" else 4
+    out = []
+    for j, scale in enumerate((0.05, 0.01, 1e-3, 1e-3)[:cols]):
+        col = [torch.from_numpy(_rand(s, seed=7 * i + j, scale=scale))
+               .to(device) for i, s in enumerate(shapes)]
+        out.append([t.square() for t in col] if j == 3 else col)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["opt_sgd", "opt_adam"])
+@pytest.mark.parametrize("rescale,clip,wd", [
+    (1.0, -1.0, 0.0), (0.5, -1.0, 1e-4), (1.0, 0.004, 1e-2),
+    (0.5, 0.004, 1e-4)])
+def test_optimizer_kernels_are_bitwise_the_plain_versions(
+        cuda_device, family, rescale, clip, wd):
+    shapes = [(1,), (127,), (129,), (40, 33), (16385,), (30522, 7)]
+    base = _opt_state(shapes, family, cuda_device)
+    got = [[t.clone() for t in col] for col in base]
+    want = [[t.clone() for t in col] for col in base]
+    lr = torch.tensor(1e-3, device=cuda_device)
+    wds = [wd] * len(shapes)
+    hyper = {"momentum": 0.9} if family == "opt_sgd" else {}
+    hyper.update(rescale_grad=rescale, clip_gradient=clip)
+    e = kernels.entry(family)
+    before = e.kernel.launches
+    e.kernel(*got, lr, wds, **hyper)
+    e.plain(*want, lr, wds, **hyper)
+    torch.cuda.synchronize()
+    assert e.kernel.launches == before + 1
+    for col_g, col_w in zip(got, want):
+        for a, b in zip(col_g, col_w):
+            assert torch.equal(a, b)
+    assert not torch.equal(got[0][-1], base[0][-1])
