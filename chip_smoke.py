@@ -46,6 +46,25 @@ Phases, each printing one JSON line:
    of 32 (``make_task`` of the example): finite, falling loss, launch
    counts, median step time, tokens/s, peak memory, and a
    ``torch.profiler`` split of one step's device time.
+10. int8_gemm: holds the int8 GEMM kernel (K4) bit for bit
+    (``torch.equal``) against its plain version on every product shape
+    of a served int8 batch, on ragged shapes with and without bias and
+    relu, per-channel and scalar scales, and where |acc| passes 2**24;
+    then times the kernel, the plain version and ``torch._int_mm`` +
+    the epilogue (a yardstick only) at each shape of the path.
+11. serve_int8: bert_base_sst2_int8_serve. The serve phase's classifier
+    with ``gluon.nn.Embedding`` (exportable) is exported, calibrated on
+    the card (naive, 64 rows of ``make_task``) and quantized by
+    ``quantize_model`` (channel-wise), saved with ``save_checkpoint``
+    and served through ``ModelContainer.add_checkpoint`` +
+    ``ModelServer`` under the serve phase's traffic. Every answer is
+    checked against the int8 graph evaluated directly on the card, one
+    request against a CPU copy of the int8 graph, and compared with the
+    float32 block (class agreement, logit gap); the launch counts must
+    be 74 int8 GEMMs and 12 flash forwards per batch. Then the float32
+    block and the int8 graph take turns under the same traffic in one
+    server (five bursts each, ABBA order), and a bucket-32 int8 batch is
+    profiled (profile_int8).
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure is an
@@ -60,6 +79,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -76,9 +96,20 @@ BERT_BASE = {"vocab": 30522, "units": 768, "hidden": 3072, "heads": 12,
              "layers": 12, "seq_len": 128, "num_classes": 2}
 H100_F32_FLOPS = 67e12    # float32 outside the tensor cores, 700 W part
 H100_BYTES_S = 3.35e12    # HBM3
+H100_INT8_OPS = 1979e12   # dense int8 tensor-core peak, 700 W part
 F32_TOL = 2e-5  # the kernel reassociates the softmax normaliser across k tiles
 BF16_TOL = 2e-2  # the plain version rounds scores and probabilities to bf16
 SERVE_TOL = 1e-4  # float32 logits; cuBLAS may pick another algorithm per batch size
+# int8 logits, served batch vs the graph evaluated on the request alone:
+# the int8 products are exact and every other op is row-independent
+INT8_EVAL_TOL = 1e-5
+# int8 logits, card vs CPU: float rounding differences of 1e-7 flip
+# activation codes at rounding boundaries, and 12 layers carry the flips
+# on: scaling one range of the CPU graph by (1 + 2**-23) moved its logits
+# by 4% of their largest size (a 1e-6 change by 6%), so card and CPU are
+# held to 15% of it, and to the same class where the two logits differ
+# by more than that
+INT8_CPU_SHARE = 0.15
 CPU_TOL = 1e-3    # float32 logits after 12 layers, CPU vs card summation order
 # one training step, card vs CPU copy, float32 (2 layers at BERT-base
 # width): the loss to rtol 1e-4; each parameter element to 1e-5 of its
@@ -95,22 +126,27 @@ ADAM_NOISE_SHARE = 1e-5
 TRAIN = {"batch": 32, "steps": 20, "warmup": 3, "lr": 1e-4, "wd": 1e-4}
 
 
-def build_encoder(args, mx, nn, contrib_nn):
-    """``examples/gluon/transformer_finetune.py:build_encoder``, verbatim."""
+def build_encoder(args, mx, nn, contrib_nn, exportable=False):
+    """``examples/gluon/transformer_finetune.py:build_encoder``, verbatim;
+    ``exportable`` puts ``gluon.nn.Embedding`` (a HybridBlock, same
+    weight and lookup) in place of ``SparseEmbedding`` (a plain Block,
+    which ``export`` cannot trace into a graph)."""
     enc = nn.HybridSequential(prefix="encoder_")
+    embedding = nn.Embedding if exportable else contrib_nn.SparseEmbedding
     with enc.name_scope():
-        enc.add(contrib_nn.SparseEmbedding(args.vocab, args.units))
+        enc.add(embedding(args.vocab, args.units))
         for _ in range(args.layers):
             enc.add(contrib_nn.TransformerEncoderCell(
                 args.units, args.hidden, args.heads))
     return enc
 
 
-def build_classifier(mx, cfg):
+def build_classifier(mx, cfg, exportable=False, prefix=None):
     """The example's ``Classifier`` (encoder, first-token pooling through
     ``slice_axis`` + ``Flatten``, ``Dense(tanh)``, ``Dense(classes)``)
     built from package ``mx``'s blocks; ``cfg`` holds the
-    ``BERT_BASE`` keys."""
+    ``BERT_BASE`` keys. ``exportable``: see :func:`build_encoder` (the
+    int8 flow exports the block); ``prefix`` names its parameters."""
     nn, contrib_nn = mx.gluon.nn, mx.gluon.contrib.nn
     args = type("Args", (), dict(cfg))
 
@@ -118,7 +154,8 @@ def build_classifier(mx, cfg):
         def __init__(self, **kw):
             super().__init__(**kw)
             with self.name_scope():
-                self.encoder = build_encoder(args, mx, nn, contrib_nn)
+                self.encoder = build_encoder(args, mx, nn, contrib_nn,
+                                             exportable)
                 self.pool = nn.Dense(args.units, activation="tanh",
                                      flatten=False)
                 self.out = nn.Dense(args.num_classes)
@@ -129,7 +166,7 @@ def build_classifier(mx, cfg):
             first = F.invoke("slice_axis", h, axis=1, begin=0, end=1)
             return self.out(self.pool(F.invoke("Flatten", first)))
 
-    return Classifier()
+    return Classifier(prefix=prefix)
 
 
 def classifier_shapes(cfg):
@@ -310,6 +347,82 @@ def phase_flash():
     return timing
 
 
+def _traffic(cfg):
+    """The serve phases' burst: 4 threads x 12 requests of 1-8 rows of
+    random token ids, from ``RandomState(1)``."""
+    rs = np.random.RandomState(1)
+    return [[rs.randint(0, cfg["vocab"], (rs.randint(1, 9), cfg["seq_len"]))
+             .astype(np.float32) for _ in range(12)] for _ in range(4)]
+
+
+def _burst(server, model, payloads):
+    """Submit every payload at once, one thread per row of payloads;
+    returns the answers (same layout), the wall seconds, the launch
+    counts over the burst and the model's stats. Fails unless every
+    request of the burst was answered."""
+    futures = [[None] * len(row) for row in payloads]
+    before = server.stats()["models"][model.name]["completed"]
+
+    def client(i):
+        for j, x in enumerate(payloads[i]):
+            futures[i][j] = server.submit(model.name, x)
+
+    kernels.reset_launch_counts()
+    t_start = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(payloads))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+        if t.is_alive():
+            raise RuntimeError("a client thread did not finish submitting")
+    answers = [[f.result(timeout=300) for f in row] for row in futures]
+    wall = time.perf_counter() - t_start
+    counts = kernels.launch_counts()
+    stats = server.stats()["models"][model.name]
+    n = sum(len(row) for row in payloads)
+    if stats["completed"] - before != n or stats["failed"]:
+        raise AssertionError(f"not every request was answered: {stats}")
+    stats["burst_latency_ms"] = [f.latency_ms() for row in futures
+                                 for f in row]
+    return answers, wall, counts, stats
+
+
+def _paired_bursts(models, payloads, pairs=5):
+    """Alternating bursts (ABBA order) of the same traffic through one
+    server over ``models``: rows/s, p50 and p99 of each burst, and the
+    median of each model's bursts."""
+    from mxnet_tpu_torch.serving.metrics import percentile
+
+    server = serving.ModelServer(serving.ModelContainer(models)).start()
+    server.warmup()
+    rows = sum(x.shape[0] for row in payloads for x in row)
+    runs = {m.name: [] for m in models}
+    for i in range(pairs):
+        for m in (models if i % 2 == 0 else models[::-1]):
+            _, wall, _, stats = _burst(server, m, payloads)
+            lat = stats["burst_latency_ms"]
+            runs[m.name].append({"rows_per_s": rows / wall,
+                                 "p50_ms": percentile(lat, 50),
+                                 "p99_ms": percentile(lat, 99)})
+    if not server.drain(timeout=60):
+        raise RuntimeError("server did not drain")
+    return {name: {"bursts": r, **{k: statistics.median(b[k] for b in r)
+                                   for k in r[0]}}
+            for name, r in runs.items()}
+
+
+def _serve_summary(stats, rows, wall, peak, before):
+    return {"requests": stats["completed"], "rows": rows,
+            "batches": stats["batches"],
+            "bucket_census": stats["bucket_census"],
+            "fill_ratio": stats["batch_fill_ratio"],
+            "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
+            "rows_per_s": rows / wall, "wall_s": wall,
+            "memory_allocated_before": before, "max_memory_allocated": peak}
+
+
 def phase_serve(smi):
     cfg = BERT_BASE
     t0 = time.perf_counter()
@@ -321,44 +434,19 @@ def phase_serve(smi):
     t_weights = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     model = serving.ServedModel.from_block("bert_base_sst2", clf,
                                            example_shape=(cfg["seq_len"],))
     server = serving.ModelServer(serving.ModelContainer([model])).start()
     warm = server.warmup()
-
-    rs = np.random.RandomState(1)
-    n_threads, per_thread = 4, 12
-    payloads = [[rs.randint(0, cfg["vocab"], (rs.randint(1, 9),
-                                              cfg["seq_len"]))
-                 .astype(np.float32) for _ in range(per_thread)]
-                for _ in range(n_threads)]
-    futures = [[None] * per_thread for _ in range(n_threads)]
-
-    def client(i):
-        for j, x in enumerate(payloads[i]):
-            futures[i][j] = server.submit(model.name, x)
-
-    kernels.reset_launch_counts()
-    t_start = time.perf_counter()
-    threads = [threading.Thread(target=client, args=(i,))
-               for i in range(n_threads)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=300)
-        if t.is_alive():
-            raise RuntimeError("a client thread did not finish submitting")
-    answers = [[f.result(timeout=300) for f in row] for row in futures]
-    wall = time.perf_counter() - t_start
-    launches = kernels.launch_counts()["flash_attention"]
-    stats = server.stats()["models"][model.name]
+    payloads = _traffic(cfg)
+    answers, wall, counts, stats = _burst(server, model, payloads)
+    launches = counts["flash_attention"]
     peak = torch.cuda.max_memory_allocated()
     if not server.drain(timeout=60):
         raise RuntimeError("server did not drain")
 
     rows = sum(x.shape[0] for row in payloads for x in row)
-    if stats["completed"] != n_threads * per_thread or stats["failed"]:
-        raise AssertionError(f"not every request was answered: {stats}")
     if launches != cfg["layers"] * stats["batches"]:
         raise AssertionError(f"flash launches {launches} != "
                              f"{cfg['layers']} x {stats['batches']} batches")
@@ -387,31 +475,39 @@ def phase_serve(smi):
     cpu_err = float(np.abs(got - want).max())
     np.testing.assert_allclose(got, want, rtol=CPU_TOL, atol=CPU_TOL)
 
+    summary = _serve_summary(stats, rows, wall, peak, before)
     emit({"phase": "serve", "card": smi, "params": int(n_params),
           "weights_s": t_weights, "warmup": warm["models"][model.name],
-          "requests": stats["completed"], "rows": rows,
-          "batches": stats["batches"],
-          "bucket_census": stats["bucket_census"],
-          "fill_ratio": stats["batch_fill_ratio"],
-          "p50_ms": stats["p50_ms"], "p99_ms": stats["p99_ms"],
-          "rows_per_s": rows / wall, "wall_s": wall,
-          "max_memory_allocated": peak, "flash_launches": launches,
+          **summary, "flash_launches": launches,
           "max_abs_err_vs_block": max_err, "max_abs_err_vs_cpu": cpu_err})
-    return launches, model
+    return dict(summary, flash_launches=launches), model
 
 
 def _kernel_group(name):
     low = name.lower()
-    for group, keys in (("flash_attention", ("flash_fwd_kernel",)),
+    for group, keys in (("int8_gemm", ("int8_gemm_kernel",)),
+                        ("flash_attention", ("flash_fwd_kernel",)),
                         ("flash_bwd", ("flash_bwd_",)),
                         ("optimizer", ("opt_step_kernel",)),
                         ("gemm", ("gemm", "cutlass", "sm90_xmma", "cublas")),
                         ("layer_norm", ("layer_norm",)),
                         ("activations", ("gelu", "tanh")),
+                        # the activation quantize passes (x / s, round,
+                        # clip; their int8 cast counts as a copy)
+                        ("quantize", ("div_true", "round", "clamp")),
                         ("copy", ("memcpy", "copy"))):
         if any(k in low for k in keys):
             return group
     return "other"
+
+
+def _host_split(prof, reps, top=8):
+    """Host microseconds per repetition of the ops that took the most
+    host time themselves, from a ``torch.profiler`` run."""
+    host = [(e.key, e.self_cpu_time_total / reps, e.count // reps)
+            for e in prof.key_averages() if e.self_cpu_time_total > 0]
+    return [[k[:60], us, n] for k, us, n in
+            sorted(host, key=lambda t: -t[1])[:top]]
 
 
 def _device_split(prof, reps):
@@ -427,11 +523,11 @@ def _device_split(prof, reps):
         kernels_us[e.key] = kernels_us.get(e.key, 0.0) + us
         g = _kernel_group(e.key)
         groups[g] = groups.get(g, 0.0) + us
-    top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:8]
+    top = sorted(kernels_us.items(), key=lambda kv: -kv[1])[:10]
     return groups, [[k[:80], v] for k, v in top]
 
 
-def phase_profile(model, smi, reps=3):
+def phase_profile(model, smi, reps=3, phase="profile"):
     """Where a served batch's time goes: host-clock ms of one batch per
     bucket (``ServedModel.run``, which waits for the answer), then a
     ``torch.profiler`` window over ``reps`` bucket-32 batches: device
@@ -455,12 +551,15 @@ def phase_profile(model, smi, reps=3):
         window_ms = (time.perf_counter() - t0) * 1e3
     groups, top = _device_split(prof, reps)
     device_ms = sum(groups.values()) / 1e3
-    emit({"phase": "profile", "card": smi, "bucket_ms": bucket_ms,
-          "bucket": model.max_bucket, "window_ms_per_batch": window_ms / reps,
-          "device_ms_per_batch": device_ms if groups else "not measured",
-          "device_busy_share": device_ms * reps / window_ms
-          if groups else "not measured",
-          "device_us_by_group": groups, "top_kernels_us": top})
+    out = {"bucket_ms": bucket_ms, "bucket": model.max_bucket,
+           "window_ms_per_batch": window_ms / reps,
+           "device_ms_per_batch": device_ms if groups else "not measured",
+           "device_busy_share": device_ms * reps / window_ms
+           if groups else "not measured",
+           "device_us_by_group": groups, "top_kernels_us": top,
+           "top_host_ops_us_calls": _host_split(prof, reps)}
+    emit({"phase": phase, "card": smi, "model": model.name, **out})
+    return out
 
 
 def _bound_ms(nbytes, flops, peak_flops):
@@ -707,7 +806,7 @@ def phase_train_check():
                        "flash_attention_bwd_dq": layers,
                        "flash_attention_bwd_dkv": layers,
                        "opt_adam": int(opt == "adam"),
-                       "opt_sgd": int(opt == "sgd")}
+                       "opt_sgd": int(opt == "sgd"), "int8_gemm": 0}
         if counts != want_counts:
             raise AssertionError(f"train_check {opt}: launches {counts}, "
                                  f"expected {want_counts}")
@@ -769,7 +868,7 @@ def phase_train(smi):
     want = {"flash_attention": layers * (steps + 1),
             "flash_attention_bwd_dq": layers * steps,
             "flash_attention_bwd_dkv": layers * steps,
-            "opt_adam": steps, "opt_sgd": 0}
+            "opt_adam": steps, "opt_sgd": 0, "int8_gemm": 0}
     if counts != want:
         raise AssertionError(f"train: launches {counts}, expected {want}")
     if not all(math.isfinite(v) for v in losses) or \
@@ -803,7 +902,268 @@ def phase_train(smi):
     return counts
 
 
-PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train")
+# (M, K, N) of every int8 product of a bucket-32 int8 batch at BERT-base
+# width (seq 128, so M = 4096 tokens): per layer q, k, v, proj, ffn1,
+# ffn2; then the pooler and the head on the 32 first tokens
+INT8_LAYER_SHAPES = [(4096, 768, 768)] * 4 + [(4096, 768, 3072),
+                                                (4096, 3072, 768)]
+INT8_HEAD_SHAPES = [(32, 768, 768), (32, 768, 2)]
+INT8_RAGGED = [(m, k, n) for m in (1, 17, 129) for k in (1, 5, 130)
+               for n in (1, 3, 129)]
+INT8_LAUNCHES = len(INT8_LAYER_SHAPES) * BERT_BASE["layers"] + \
+    len(INT8_HEAD_SHAPES)   # 74 per served batch
+
+
+def int8_bound(m, k, n):
+    """Least time of one int8_gemm launch: qx, weight, scale and bias
+    read once, the float32 output written once, or 2*M*N*K operations at
+    the int8 tensor-core peak."""
+    nbytes = m * k + n * k + 8 * n + 4 * m * n
+    return _bound_ms(nbytes, 2 * m * n * k, H100_INT8_OPS)
+
+
+def _int8_inputs(m, k, n, gen, dev, per_channel=True, bias=True, big=False):
+    """Random int8 operands, float32 scales in [1e-5, 1e-3] and biases.
+    ``big``: rows of +-127 so that |acc| passes 2**24 and its conversion
+    to float32 rounds."""
+    if big:
+        qx = torch.full((m, k), 127, dtype=torch.int8, device=dev)
+        w = torch.full((n, k), 127, dtype=torch.int8, device=dev)
+        for i in range(m):
+            qx[i, :i] = 126
+        for j in range(n):
+            w[j, :j] = -127
+    else:
+        qx = torch.randint(-127, 128, (m, k), generator=gen, device=dev,
+                           dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=gen, device=dev,
+                          dtype=torch.int8)
+    scale = torch.rand(n if per_channel else 1, generator=gen, device=dev) \
+        * 1e-3 + 1e-5
+    b = torch.randn(n, generator=gen, device=dev) if bias else None
+    return qx, w, scale, b
+
+
+def _int_mm_epilogue(qx, w, scale, bias):
+    """The library yardstick: cuBLAS's int8 GEMM (``torch._int_mm``, which
+    takes N a multiple of 8: the weight is zero-padded to it) and the
+    same epilogue in PyTorch. Timed only, never on the port's path."""
+    n = w.shape[0]
+    wp = w if n % 8 == 0 else torch.nn.functional.pad(w, (0, 0, 0, -n % 8))
+    acc = torch._int_mm(qx, wp.t())[:, :n]
+    return acc.to(torch.float32) * scale + bias
+
+
+def phase_int8_gemm():
+    """K4 against its plain version with ``torch.equal`` on the int8
+    batch's shapes and on ragged ones, with and without bias and relu,
+    per-channel and scalar scales, and large |acc|; then CUDA-event times
+    of the kernel, the plain version and ``torch._int_mm`` + epilogue at
+    each distinct shape of the path."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    e = kernels.entry("int8_gemm")
+    cases = [(shape, {}) for shape in sorted(set(INT8_LAYER_SHAPES))
+             + INT8_HEAD_SHAPES]
+    cases += [(shape, {"bias": bias, "relu": relu, "per_channel": pc})
+              for shape in INT8_RAGGED for bias, relu, pc in
+              ((True, False, True), (False, True, False),
+               (True, True, True))]
+    cases += [((129, 3072, 65), {"big": True}),
+              ((64, 3072, 64), {"big": True, "relu": True})]
+    n_checked = 0
+    for (m, k, n), opts in cases:
+        relu = opts.get("relu", False)
+        qx, w, scale, b = _int8_inputs(m, k, n, gen, dev,
+                                       opts.get("per_channel", True),
+                                       opts.get("bias", True),
+                                       opts.get("big", False))
+        got = e.kernel(qx, w, scale, bias=b, relu=relu)
+        torch.cuda.synchronize()
+        want = e.plain(qx, w, scale, bias=b, relu=relu)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"int8_gemm differs from the plain version at {(m, k, n)} "
+                f"{opts}: max abs {(got - want).abs().max().item()}")
+        n_checked += 1
+    emit({"phase": "int8_gemm", "cases": n_checked, "bitwise_equal": True,
+          "shapes": [[m, k, n] for (m, k, n), _ in cases]})
+
+    per_shape = {}
+    for m, k, n in sorted(set(INT8_LAYER_SHAPES)) + INT8_HEAD_SHAPES:
+        qx, w, scale, b = _int8_inputs(m, k, n, gen, dev)
+        bound, bound_by = int8_bound(m, k, n)
+        per_shape[(m, k, n)] = {
+            "ms": cuda_ms(lambda: e.kernel(qx, w, scale, bias=b)),
+            "plain_ms": cuda_ms(lambda: e.plain(qx, w, scale, bias=b)),
+            "library_ms": cuda_ms(lambda: _int_mm_epilogue(qx, w, scale, b)),
+            "bound_ms": bound, "bound_by": bound_by}
+        emit({"phase": "int8_gemm_timing", "shape_mkn": [m, k, n],
+              **per_shape[(m, k, n)],
+              "kernel_tops": 2 * m * n * k / per_shape[(m, k, n)]["ms"] / 1e9})
+    # one bucket-32 batch: 12 layers of the six products, pooler and head
+    launches = [s for s in INT8_LAYER_SHAPES
+                for _ in range(BERT_BASE["layers"])] + INT8_HEAD_SHAPES
+    batch = {key: sum(per_shape[s][key] for s in launches)
+             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    t_ops = sum(2 * m * n * k for m, k, n in launches) / H100_INT8_OPS
+    t_bytes = sum(m * k + n * k + 8 * n + 4 * m * n
+                  for m, k, n in launches) / H100_BYTES_S
+    batch["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    emit({"phase": "int8_gemm_batch", "launches": len(launches), **batch,
+          "library": "torch._int_mm (cuBLAS int8, N padded to 8) + the "
+                     "same epilogue in PyTorch; a yardstick only"})
+    return batch
+
+
+def _quantized_classifier(cfg, weights, calib_x, workdir):
+    """``quantize_net``'s steps on the current context: export the
+    float classifier, load the pair, ``quantize_model`` (naive
+    calibration, channel-wise), ``save_checkpoint`` the int8 pair.
+    Returns the float block, the int8 prefix and the int8 graph."""
+    from mxnet_tpu_torch.contrib import quantization
+
+    clf = build_classifier(mx, cfg, exportable=True)
+    clf.initialize(mx.init.Zero())
+    load_jax_params(clf, weights)
+    clf.export(f"{workdir}/float")
+    sym, args, auxs = mx.model.load_checkpoint(f"{workdir}/float", 0)
+    calib = mx.io.NDArrayIter(calib_x, batch_size=32, label_name=None)
+    qsym, qargs, qauxs = quantization.quantize_model(
+        sym, args, auxs, data_names=("data",), calib_data=calib,
+        calib_mode="naive", num_calib_examples=len(calib_x))
+    mx.model.save_checkpoint(f"{workdir}/int8", 0, qsym, qargs, qauxs)
+    return clf, f"{workdir}/int8", qsym, qargs
+
+
+def phase_serve_int8(smi, float_serve=None):
+    """bert_base_sst2_int8_serve: the classifier quantized on the card
+    (calibrated on 64 rows of ``make_task`` in two batches of 32), its
+    int8 checkpoint served through ``ModelContainer.add_checkpoint`` +
+    ``ModelServer`` under the serve phase's traffic."""
+    from mxnet_tpu_torch.contrib import quantization
+
+    cfg = BERT_BASE
+    weights = random_params(cfg, seed=0)
+    calib_x, _ = make_task(64, cfg["seq_len"], cfg["vocab"],
+                           cfg["num_classes"], seed=1)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as workdir:
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        clf, prefix, qsym, qargs = _quantized_classifier(cfg, weights,
+                                                         calib_x, workdir)
+        quant_s = time.perf_counter() - t0
+        calib_counts = kernels.launch_counts()
+        census = quantization.last_quantization()["ops"]
+        calib = quantization.last_calibration()
+
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        container = serving.ModelContainer()
+        model = container.add_checkpoint("bert_base_sst2_int8", prefix, 0,
+                                         example_shape=(cfg["seq_len"],))
+        server = serving.ModelServer(container).start()
+        warm = server.warmup()
+        info = server.model_info()[model.name]
+        payloads = _traffic(cfg)
+        answers, wall, counts, stats = _burst(server, model, payloads)
+        peak = torch.cuda.max_memory_allocated()
+        if not server.drain(timeout=60):
+            raise RuntimeError("server did not drain")
+        with mx.cpu():
+            _, cpu_args, _ = mx.model.load_checkpoint(prefix, 0)
+        # the float32 block and the int8 graph, same traffic, one server
+        paired = _paired_bursts([serving.ServedModel.from_block(
+            "float32", clf, example_shape=(cfg["seq_len"],)), model],
+            payloads)
+
+    rows = sum(x.shape[0] for row in payloads for x in row)
+    want_counts = {"int8_gemm": INT8_LAUNCHES * stats["batches"],
+                   "flash_attention": cfg["layers"] * stats["batches"]}
+    got_counts = {k: counts[k] for k in want_counts}
+    if got_counts != want_counts or calib_counts["int8_gemm"]:
+        raise AssertionError(f"serve_int8 launches {got_counts}, expected "
+                             f"{want_counts}; calibration {calib_counts}")
+    if census.get("_contrib_quantized_fully_connected") != INT8_LAUNCHES or \
+            census.get("_contrib_quantized_embedding") != 1:
+        raise AssertionError(f"quantized graph census {census}")
+    if stats["weight_dtype"] != "int8" or not info["quantized"]:
+        raise AssertionError(f"served weight dtype {stats['weight_dtype']}, "
+                             f"{info}")
+
+    # every answer against the int8 graph evaluated directly on the card,
+    # and the float32 block on the same rows
+    err_eval, agree, n_rows, gap = 0.0, 0, 0, 0.0
+    float_all = []
+    for row_p, row_a in zip(payloads, answers):
+        for x, got in zip(row_p, row_a):
+            if got.shape != (x.shape[0], cfg["num_classes"]) or \
+                    not np.isfinite(got).all():
+                raise AssertionError(f"bad answer {got.shape}")
+            with torch.inference_mode():
+                want = qsym.eval_with({"data": mx.nd.array(x)},
+                                      qargs).asnumpy()
+                ref = clf(mx.nd.array(x)).asnumpy()
+            err_eval = max(err_eval, float(np.abs(got - want).max()))
+            np.testing.assert_allclose(got, want, rtol=INT8_EVAL_TOL,
+                                       atol=INT8_EVAL_TOL)
+            agree += int((got.argmax(-1) == ref.argmax(-1)).sum())
+            n_rows += x.shape[0]
+            gap = max(gap, float(np.abs(got - ref).max()))
+            float_all.append(ref)
+    float_scale = float(np.abs(np.concatenate(float_all)).max())
+
+    # a CPU copy of the int8 graph (plain int8 GEMM and attention)
+    x = payloads[0][0]
+    emb_max = next(n for n in cpu_args if n.endswith("weight_max"))
+    nudged = dict(cpu_args)
+    nudged[emb_max] = cpu_args[emb_max] * (1 + 2 ** -23)
+    with mx.cpu(), torch.inference_mode():
+        want = qsym.eval_with({"data": mx.nd.array(x)}, cpu_args).asnumpy()
+        moved = qsym.eval_with({"data": mx.nd.array(x)}, nudged).asnumpy()
+    nudge_change = float(np.abs(moved - want).max())
+    got = answers[0][0]
+    cpu_err = float(np.abs(got - want).max())
+    tol = INT8_CPU_SHARE * float(np.abs(want).max())
+    decided = np.abs(want[:, 0] - want[:, 1]) > tol
+    if cpu_err > tol or not np.array_equal(
+            got.argmax(-1)[decided], want.argmax(-1)[decided]):
+        raise AssertionError(f"int8 card vs CPU: max abs {cpu_err} > {tol} "
+                             "or an argmax differs")
+
+    summary = _serve_summary(stats, rows, wall, peak, before)
+    emit({"phase": "serve_int8", "card": smi, "config":
+          "bert_base_sst2_int8_serve", "quantize_s": quant_s,
+          "calibration": {"mode": calib["mode"], "examples": calib["examples"],
+                          "batches": calib["batches"],
+                          "tensors": len(calib["tensors"]),
+                          "launches": {k: v for k, v in calib_counts.items()
+                                       if v}},
+          "census": census, "warmup": warm["models"][model.name],
+          "weight_dtype": stats["weight_dtype"], "model_info": info,
+          **summary, "launches": got_counts,
+          "launches_per_batch": {k: v / stats["batches"]
+                                 for k, v in got_counts.items()},
+          "max_abs_err_vs_eval_with": err_eval,
+          "max_abs_err_vs_cpu": cpu_err, "cpu_tol": tol,
+          "cpu_change_from_one_ulp_range_nudge": nudge_change,
+          "cpu_rows_checked": int(x.shape[0]),
+          "agreement_with_float32": agree / n_rows,
+          "max_logit_gap_vs_float32": gap,
+          "max_abs_float32_logit": float_scale,
+          "paired_bursts": paired,
+          "float32_serve": float_serve and {
+              k: float_serve[k] for k in ("rows_per_s", "p50_ms", "p99_ms",
+                                          "fill_ratio",
+                                          "memory_allocated_before",
+                                          "max_memory_allocated")}})
+    return dict(summary, int8_launches=got_counts["int8_gemm"]), model
+
+
+PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
+          "int8_gemm", "serve_int8")
 
 
 def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
@@ -842,6 +1202,12 @@ def main(argv=None):
         done["train_check"] = phase_train_check()
     if "train" in phases:
         done["train"] = phase_train(smi)
+    if "int8_gemm" in phases:
+        done["int8_gemm"] = phase_int8_gemm()
+    if "serve_int8" in phases:
+        done["serve_int8"], model = phase_serve_int8(smi, done.get("serve"))
+        phase_profile(model, smi, phase="profile_int8")
+        del model
     if set(done) != set(PHASES):
         print(f"phases run: {sorted(done)}; no result line", flush=True)
         return 1
@@ -849,7 +1215,8 @@ def main(argv=None):
     train, sgd_launches = done["train"], done["train_check"]
     lines = [
         _kernel_line("flash_attention", "flash_attention.cu",
-                     "mxnet_tpu/kernels/flash.py:38", done["serve"],
+                     "mxnet_tpu/kernels/flash.py:38",
+                     done["serve"]["flash_launches"],
                      fwd["max_abs_err"], fwd["kernel_ms"], fwd["plain_ms"],
                      (fwd["bound_ms"], fwd["bound_by"]), fwd["library_ms"])]
     for part in ("dq", "dkv"):
@@ -870,6 +1237,11 @@ def main(argv=None):
                                   0.0, t["ms"], t["plain_ms"],
                                   (t["bound_ms"], t["bound_by"]),
                                   t["library_ms"]))
+    k4 = done["int8_gemm"]
+    lines.append(_kernel_line(
+        "int8_gemm", "int8_gemm.cu", "mxnet_tpu/kernels/int8_gemm.py:86",
+        done["serve_int8"]["int8_launches"], 0.0, k4["ms"], k4["plain_ms"],
+        (k4["bound_ms"], k4["bound_by"]), k4["library_ms"]))
     emit({"kernels": lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

@@ -23,7 +23,13 @@ from .ndarray import NDArray
 from . import initializer
 from . import initializer as init
 from . import kernels
+from . import name
+from . import symbol
+from . import symbol as sym
 from . import gluon
+from . import io
+from . import model
+from . import contrib
 from . import optimizer
 from . import parallel
 from . import serving
@@ -31,5 +37,6 @@ from . import convert
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "autograd", "nd", "ndarray", "NDArray",
-           "initializer", "init", "kernels", "gluon", "optimizer", "parallel",
+           "initializer", "init", "kernels", "name", "symbol", "sym",
+           "gluon", "io", "model", "contrib", "optimizer", "parallel",
            "serving", "convert", "__version__"]

@@ -1,7 +1,7 @@
 """Gluon: the imperative/hybrid high-level API."""
 from . import contrib, loss, nn
-from .block import Block, HybridBlock
+from .block import Block, HybridBlock, SymbolBlock
 from .parameter import Parameter, ParameterDict
 
-__all__ = ["nn", "contrib", "loss", "Block", "HybridBlock", "Parameter",
-           "ParameterDict"]
+__all__ = ["nn", "contrib", "loss", "Block", "HybridBlock", "SymbolBlock",
+           "Parameter", "ParameterDict"]

@@ -1,4 +1,4 @@
-"""Gluon Block / HybridBlock.
+"""Gluon Block / HybridBlock / SymbolBlock.
 
 Counterpart of ``mxnet_tpu/gluon/block.py``: name scopes and prefixes,
 child and parameter registration by attribute assignment,
@@ -6,6 +6,12 @@ child and parameter registration by attribute assignment,
 of ``_collect_params_with_structure``. ``HybridBlock.hybridize()`` only
 sets a flag in this slice: the forward always runs eagerly. Capturing
 it (CUDA graphs, a compile service) is later work.
+
+A HybridBlock called on a Symbol traces its ``hybrid_forward`` over the
+``mx.sym`` namespace into a graph (:301-315); ``export`` (:332) writes
+that graph and the parameters as ``prefix-symbol.json`` +
+``prefix-0000.params``, and ``SymbolBlock`` (:358) runs such a graph as
+a block, ``SymbolBlock.imports`` (:385) loading the pair back.
 """
 from __future__ import annotations
 
@@ -15,7 +21,7 @@ from collections import OrderedDict
 
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
-__all__ = ["Block", "HybridBlock"]
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 
 class _BlockScope:
@@ -203,6 +209,13 @@ class HybridBlock(Block):
             return {name: p.data() for name, p in self._reg_params.items()}
 
     def forward(self, x, *args):
+        """NDArrays run ``hybrid_forward`` over ``mx.nd``; a Symbol input
+        traces it over ``mx.sym``, the parameters as graph variables."""
+        from .. import symbol
+
+        if isinstance(x, symbol.Symbol):
+            params = {name: p.var() for name, p in self._reg_params.items()}
+            return self.hybrid_forward(symbol, x, *args, **params)
         from .. import ndarray as F
 
         params = self._materialize_params(x, *args)
@@ -210,3 +223,103 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+    def _trace_symbol(self, input_names=("data",)):
+        """This block's forward as a graph over inputs ``input_names``."""
+        from .. import symbol
+
+        out = self.forward(*[symbol.var(n) for n in input_names])
+        if isinstance(out, (list, tuple)):
+            out = symbol.Group(list(out))
+        return out
+
+    def export(self, path, epoch=0, input_names=("data",)):
+        """Write ``path-symbol.json`` and ``path-%04d.params`` (tagged
+        ``arg:``/``aux:``), loadable by :meth:`SymbolBlock.imports`,
+        ``model.load_checkpoint`` and the JAX package. Returns the
+        graph. Run one forward first when shapes were deferred."""
+        from ..ndarray import utils as nd_utils
+
+        sym = self._trace_symbol(input_names)
+        sym.save(f"{path}-symbol.json")
+        args = set(sym.list_arguments())
+        auxs = set(sym.list_auxiliary_states())
+        save_dict = {}
+        for name, param in self.collect_params().items():
+            if name in args:
+                save_dict[f"arg:{name}"] = param.data()
+            elif name in auxs:
+                save_dict[f"aux:{name}"] = param.data()
+        nd_utils.save(f"{path}-{epoch:04d}.params", save_dict)
+        return sym
+
+
+class SymbolBlock(HybridBlock):
+    """A Symbol graph run as a block: each argument or auxiliary state
+    of the graph that is not an input becomes a Parameter (auxiliary
+    states not differentiable)."""
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix="", params=params)
+        from .. import symbol
+
+        if not isinstance(inputs, (list, tuple)):
+            inputs = [inputs]
+        self._sb_inputs = [i if isinstance(i, symbol.Symbol)
+                           else symbol.var(str(i)) for i in inputs]
+        self._sb_outputs = outputs
+        input_names = {s.name for s in self._sb_inputs}
+        for name in outputs.list_arguments():
+            if name not in input_names:
+                self.params.get(name, allow_deferred_init=True)
+        for name in outputs.list_auxiliary_states():
+            if name not in input_names:
+                self.params.get(name, grad_req="null",
+                                allow_deferred_init=True,
+                                differentiable=False)
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A block over an ``export``-ed (or ``save_checkpoint``-ed)
+        graph; the parameters from ``param_file`` on ``ctx`` (default:
+        the current context)."""
+        from .. import symbol
+
+        sym = symbol.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        block = SymbolBlock(sym, [symbol.var(n) for n in input_names])
+        if param_file:
+            params = block.collect_params()
+            params.initialize(ctx=ctx)
+            params.load(param_file, ctx=ctx, allow_missing=False,
+                        ignore_extra=True)
+        return block
+
+    @property
+    def symbol(self):
+        return self._sb_outputs
+
+    def infer_shape(self, *args):
+        """Deferred parameter shapes from the input shapes, by the
+        graph's shape inference."""
+        names = [s.name for s in self._sb_inputs]
+        shapes = self._sb_outputs._infer(
+            {n: tuple(a.shape) for n, a in zip(names, args)})
+        for name, p in self.collect_params().items():
+            got = shapes.get(("var", name))
+            if got is not None and (p.shape is None or
+                                    any(s == 0 for s in p.shape)):
+                p.shape = got
+
+    def forward(self, *args):
+        params = self.collect_params()
+        try:
+            feed = {name: p.data() for name, p in params.items()}
+        except DeferredInitializationError:
+            self.infer_shape(*args)
+            for p in params.values():
+                p._finish_deferred_init()
+            feed = {name: p.data() for name, p in params.items()}
+        feed.update(zip([s.name for s in self._sb_inputs], args))
+        return self._sb_outputs.eval_with(feed)

@@ -1,7 +1,7 @@
 """Gluon neural-net layers."""
 from ..block import Block, HybridBlock
-from .basic_layers import (Dense, Dropout, HybridSequential, LayerNorm,
-                           Sequential)
+from .basic_layers import (Dense, Dropout, Embedding, HybridSequential,
+                           LayerNorm, Sequential)
 
 __all__ = ["Block", "HybridBlock", "Sequential", "HybridSequential",
-           "Dense", "Dropout", "LayerNorm"]
+           "Dense", "Dropout", "Embedding", "LayerNorm"]

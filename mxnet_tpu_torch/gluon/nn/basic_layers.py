@@ -1,9 +1,9 @@
 """Gluon basic layers the serving path uses.
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: Sequential,
-HybridSequential, Dense, Dropout and LayerNorm. Layers manage
-parameters and hyper-parameters; compute goes through the registered
-ops.
+HybridSequential, Dense, Dropout, Embedding (:236) and LayerNorm. Layers
+manage parameters and hyper-parameters; compute goes through the
+registered ops, so each also traces into a graph (``export``).
 """
 from __future__ import annotations
 
@@ -15,7 +15,7 @@ from ... import autograd, initializer as init_mod
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
-           "LayerNorm"]
+           "Embedding", "LayerNorm"]
 
 
 class Sequential(Block):
@@ -119,6 +119,28 @@ class Dropout(HybridBlock):
 
     def __repr__(self):
         return f"Dropout(p = {self._rate}, axes={self._axes})"
+
+
+class Embedding(HybridBlock):
+    """Row lookup in a ``(input_dim, output_dim)`` table; ids may be
+    floats (truncated to integers)."""
+
+    def __init__(self, input_dim, output_dim, dtype="float32",
+                 weight_initializer=None, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._input_dim = input_dim
+        self._output_dim = output_dim
+        with self.name_scope():
+            self.weight = self.params.get(
+                "weight", shape=(input_dim, output_dim), dtype=dtype,
+                init=weight_initializer)
+
+    def hybrid_forward(self, F, x, weight=None):
+        return F.invoke("Embedding", x, weight, input_dim=self._input_dim,
+                        output_dim=self._output_dim)
+
+    def __repr__(self):
+        return f"Embedding({self._input_dim} -> {self._output_dim})"
 
 
 class LayerNorm(HybridBlock):

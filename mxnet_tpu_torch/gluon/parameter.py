@@ -20,7 +20,7 @@ import torch
 
 from .. import initializer as init_mod
 from ..base import MXNetError, canonical_dtype
-from ..context import Context, current_context
+from ..context import Context, cpu, current_context
 from ..ndarray import NDArray
 
 __all__ = ["Parameter", "ParameterDict", "DeferredInitializationError",
@@ -53,6 +53,7 @@ class Parameter:
                  init=None, allow_deferred_init=False, differentiable=True):
         self.name = name
         self.grad_req = grad_req if differentiable else "null"
+        self._differentiable = differentiable
         if isinstance(shape, int):
             shape = (shape,)
         self._shape = tuple(shape) if shape is not None else None
@@ -157,6 +158,14 @@ class Parameter:
         cur._rebind(tensor.to(device=cur._data.device, dtype=self.dtype,
                               copy=True))
 
+    def var(self):
+        """This parameter as a graph input (``export`` traces blocks with
+        these); not differentiable means an auxiliary state."""
+        from .. import symbol
+
+        return symbol.var(self.name, shape=self._shape, dtype=self.dtype,
+                          is_aux=not self._differentiable)
+
     def __repr__(self):
         return f"Parameter {self.name} (shape={self._shape}, dtype={self.dtype})"
 
@@ -224,3 +233,32 @@ class ParameterDict:
         for p in self._params.values():
             p.initialize(init=init, ctx=ctx, generator=generator,
                          force_reinit=force_reinit)
+
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Set the parameters from a ``.params`` file (``arg:``/``aux:``
+        tags dropped). A parameter not initialized yet takes the saved
+        array's shape and dtype (int8 quantized weights), on ``ctx`` or
+        the context of its deferred initialization."""
+        from ..ndarray import utils as nd_utils
+
+        loaded = {restore_prefix + k.replace("arg:", "").replace("aux:", ""):
+                  v for k, v in nd_utils.load(filename, ctx=cpu()).items()}
+        if not allow_missing:
+            missing = [n for n in self.keys() if n not in loaded]
+            if missing:
+                raise MXNetError(f"parameters {missing} are missing in file "
+                                 f"{filename!r}")
+        for name, value in loaded.items():
+            p = self._params.get(name)
+            if p is None:
+                if not ignore_extra:
+                    raise MXNetError(f"parameter {name!r} loaded from "
+                                     f"{filename!r} is not present in this "
+                                     "ParameterDict")
+                continue
+            if p._data is None:
+                p.dtype = value.dtype
+                if p._deferred_init is None:
+                    p.initialize(ctx=ctx)
+            p.set_data(value)

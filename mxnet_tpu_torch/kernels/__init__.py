@@ -12,7 +12,9 @@ version and CUDA tensors to the kernel; it looks at every tensor among
 the arguments, in lists and tuples too (the optimizer families take
 lists of tensors). There is no opt-out, no
 autotuned table and no fallback: on the card the kernel launches or the
-call raises. Tensors on mixed or other devices raise.
+call raises. ``meta`` tensors, which carry shapes and no data (the
+symbol's shape inference), take the plain version too. Tensors on mixed
+or other devices raise.
 """
 from __future__ import annotations
 
@@ -62,7 +64,7 @@ def dispatch(family, *args, **kwargs):
     e = _FAMILIES[family]
     devices = {t.device.type
                for t in _tensors(list(args) + list(kwargs.values()))}
-    if devices == {"cpu"}:
+    if devices in ({"cpu"}, {"meta"}):
         return e.plain(*args, **kwargs)
     if devices == {"cuda"}:
         return e.kernel(*args, **kwargs)
@@ -82,3 +84,4 @@ def reset_launch_counts():
 
 from . import flash  # noqa: E402,F401  (flash_attention, its backward)
 from . import opt_step  # noqa: E402,F401  (opt_sgd, opt_adam)
+from . import int8_gemm  # noqa: E402,F401  (int8_gemm)

@@ -34,6 +34,8 @@ def _to_tensor(data, ctx, dtype):
                        dtype=canonical_dtype(dtype) if dtype else data.dtype)
     device = (ctx or current_context()).torch_device()
     arr = _np.ascontiguousarray(data)
+    if not arr.flags.writeable:  # torch.from_numpy shares the buffer
+        arr = arr.copy()
     t = torch.from_numpy(arr)
     return t.to(device=device,
                 dtype=canonical_dtype(dtype) if dtype else t.dtype)

@@ -15,9 +15,14 @@ from .registry import register
 
 
 @register("_contrib_flash_attention")
-def _contrib_flash_attention(q, k, v, scale=None, causal=False):
+def _contrib_flash_attention(q, k, v, scale=None, causal=False,
+                             block_q=None, block_k=None, interpret=False):
     """Fused attention over (B, H, S, D) tensors; ``scale=None`` means
-    ``1/sqrt(D)``."""
+    ``1/sqrt(D)``. ``block_q``, ``block_k`` and ``interpret`` are the
+    Pallas kernel's tiling and interpreter switches, which the JAX
+    package's graphs carry as attributes; they are accepted so those
+    graphs load, and do not change the result (the CUDA kernel picks its
+    own tiles)."""
     if q.ndim != 4:
         raise ValueError(f"flash_attention expects (B, H, S, D) inputs, got "
                          f"rank {q.ndim}")

@@ -1,8 +1,9 @@
 """Tensor ops the serving and training paths use.
 
 Counterpart of ``mxnet_tpu/ops/tensor.py`` (pick :162, Embedding :182,
-reshape :211, transpose :240, Flatten :255, slice_axis :292) and of the
-broadcast arithmetic the losses use, with the same MXNet semantics.
+reshape :211, transpose :240, Flatten :255, slice_axis :292), of the
+broadcast arithmetic the losses use and of ``elemwise_add``
+(``mxnet_tpu/ops/math.py:146``), with the same MXNet semantics.
 """
 from __future__ import annotations
 
@@ -66,6 +67,17 @@ def _pick(data, index, axis=-1, keepdims=False, mode="clip"):
 @register("broadcast_mul")
 def _broadcast_mul(lhs, rhs):
     return lhs * rhs
+
+
+@register("elemwise_add")
+def _elemwise_add(lhs, rhs):
+    """Sum of two arrays of one shape (``Symbol.__add__``, the residual
+    connections of a traced encoder); use broadcast ops otherwise."""
+    if lhs.shape != rhs.shape:
+        raise ValueError(f"elemwise op requires identical shapes, got "
+                         f"{tuple(lhs.shape)} vs {tuple(rhs.shape)}; use the "
+                         "broadcast_* variant")
+    return lhs + rhs
 
 
 @register("square")

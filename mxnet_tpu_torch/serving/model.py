@@ -3,11 +3,20 @@ batch buckets.
 
 Counterpart of ``mxnet_tpu/serving/model.py``. A :class:`ServedModel`
 wraps one inference forward ``fwd(tensor) -> tensor(s)`` on one device
-(the card unless ``ctx=mx.cpu()``). Only the ``from_block`` loader is
-ported: it snapshots the block's parameters onto the device at build
-time, so later changes to the live parameters do not leak into serving,
-and runs the block on that snapshot through
-:func:`~mxnet_tpu_torch.gluon.parameter.substitute`.
+(the card unless ``ctx=mx.cpu()``). The loaders copy the parameters
+onto the device at build time, so later changes to the live parameters
+do not leak into serving:
+
+* :meth:`ServedModel.from_block`: a gluon Block, run on its snapshot
+  through :func:`~mxnet_tpu_torch.gluon.parameter.substitute`;
+* :meth:`ServedModel.from_symbol` (:331): a Symbol and its parameter
+  dicts, run by the graph's evaluator (``Symbol._build_eval``);
+* :meth:`ServedModel.from_checkpoint` (:381): a ``save_checkpoint`` pair.
+
+A quantized model (``contrib.quantization``) loads through the same
+loaders: its int8 weight parameters are detected, and ``weight_dtype``
+(:78-88) says ``"int8"`` where a float model says its float dtype; the
+input dtype stays float.
 
 Requests carry a leading batch dim ``(k,) + example_shape``; the batcher
 coalesces rows into the smallest bucket that holds them. The smallest
@@ -37,15 +46,21 @@ class ServedModel:
     and dtype, and its padded-bucket ladder."""
 
     def __init__(self, name, forward, example_shape, dtype="float32",
-                 buckets=None, device=None):
+                 buckets=None, device=None, weight_dtype=None):
         self.name = str(name)
         self.example_shape = tuple(int(s) for s in example_shape)
         self.dtype = dtype_name(dtype)
+        self.weight_dtype = dtype_name(weight_dtype or dtype)
         self.buckets = coerce("buckets", buckets or DEFAULTS["buckets"])
         self.device = device if device is not None else \
             current_context().torch_device()
         self._fwd = forward
         self._h2d = None  # side stream for host-to-device copies
+
+    @property
+    def quantized(self):
+        """True for an int8-weight (quantized) model."""
+        return self.weight_dtype == "int8"
 
     @property
     def max_bucket(self):
@@ -128,8 +143,8 @@ class ServedModel:
 
     def __repr__(self):
         return (f"ServedModel({self.name!r}, example={self.example_shape}, "
-                f"dtype={self.dtype}, device={self.device}, "
-                f"buckets={self.buckets})")
+                f"dtype={self.dtype}, weight_dtype={self.weight_dtype}, "
+                f"device={self.device}, buckets={self.buckets})")
 
     @classmethod
     def from_block(cls, name, block, example_shape, dtype="float32",
@@ -156,7 +171,80 @@ class ServedModel:
             outs = out if isinstance(out, (tuple, list)) else (out,)
             return tuple(o._data for o in outs)
 
-        return cls(name, fwd, example_shape, dtype, buckets, device)
+        return cls(name, fwd, example_shape, dtype, buckets, device,
+                   _weight_dtype([a._data for a in snapshot.values()],
+                                 dtype))
+
+    @classmethod
+    def from_symbol(cls, name, sym, arg_params=None, aux_params=None,
+                    input_name=None, example_shape=None, dtype="float32",
+                    buckets=None, ctx=None):
+        """Serve a Symbol and its ``{name: NDArray}`` (or numpy)
+        parameter dicts; the data input is the one argument without a
+        value unless ``input_name`` says. The parameters are copied onto
+        ``ctx`` (default: the current context, the card) now."""
+        if example_shape is None:
+            raise ValueError("from_symbol requires example_shape (the "
+                             "per-row input shape, without the batch dim)")
+        device = (ctx or current_context()).torch_device()
+        arg_params = dict(arg_params or {})
+        aux_params = dict(aux_params or {})
+        arg_names = sym.list_arguments()
+        aux_names = sym.list_auxiliary_states()
+        if input_name is None:
+            data_names = [n for n in arg_names if n not in arg_params]
+            if len(data_names) != 1:
+                raise ValueError(
+                    f"model {name!r}: cannot infer the data input from "
+                    f"{data_names or arg_names}; pass input_name=")
+            input_name = data_names[0]
+        elif input_name not in arg_names:
+            raise ValueError(f"model {name!r}: {input_name!r} is not an "
+                             f"argument of the symbol ({arg_names})")
+        pnames = [n for n in arg_names if n != input_name]
+        missing = [n for n in pnames if n not in arg_params] + \
+                  [n for n in aux_names if n not in aux_params]
+        if missing:
+            raise ValueError(
+                f"model {name!r}: no parameter values for {missing}")
+
+        def snap(v):
+            t = v._data if isinstance(v, NDArray) else \
+                torch.as_tensor(_np.asarray(v))
+            return t.detach().to(device, copy=True)
+
+        args = {n: snap(arg_params[n]) for n in pnames}
+        auxs = {n: snap(aux_params[n]) for n in aux_names}
+        run = sym._build_eval()
+
+        def fwd(x):
+            return tuple(run(dict(args, **{input_name: x}), auxs))
+
+        return cls(name, fwd, example_shape, dtype, buckets, device,
+                   _weight_dtype(args.values(), dtype))
+
+    @classmethod
+    def from_checkpoint(cls, name, prefix, epoch, example_shape,
+                        dtype="float32", buckets=None, input_name=None,
+                        ctx=None):
+        """Serve a ``save_checkpoint`` pair (``prefix-symbol.json`` and
+        ``prefix-%04d.params``), read to the host and copied onto
+        ``ctx``."""
+        from ..context import cpu
+        from ..model import load_checkpoint
+
+        sym, arg_params, aux_params = load_checkpoint(prefix, epoch,
+                                                      ctx=cpu())
+        return cls.from_symbol(name, sym, arg_params, aux_params,
+                               input_name=input_name,
+                               example_shape=example_shape, dtype=dtype,
+                               buckets=buckets, ctx=ctx)
+
+
+def _weight_dtype(tensors, dtype):
+    """``"int8"`` when any parameter is int8 (a quantized model), else
+    the model's input dtype."""
+    return "int8" if any(t.dtype == torch.int8 for t in tensors) else dtype
 
 
 class ModelContainer:
@@ -176,6 +264,14 @@ class ModelContainer:
     def add_block(self, name, block, example_shape, **kw):
         return self.add(ServedModel.from_block(name, block, example_shape,
                                                **kw))
+
+    def add_symbol(self, name, sym, arg_params=None, aux_params=None, **kw):
+        return self.add(ServedModel.from_symbol(name, sym, arg_params,
+                                                aux_params, **kw))
+
+    def add_checkpoint(self, name, prefix, epoch, example_shape, **kw):
+        return self.add(ServedModel.from_checkpoint(name, prefix, epoch,
+                                                    example_shape, **kw))
 
     def names(self):
         return list(self._models)

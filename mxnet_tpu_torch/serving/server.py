@@ -70,6 +70,16 @@ class ModelServer:
         return list(self._batchers) if self._batchers \
             else self._container.names()
 
+    def model_info(self):
+        """Per-model metadata: input dtype, weight dtype (``"int8"`` for
+        quantized models), bucket ladder, example shape."""
+        return {m.name: {"dtype": m.dtype,
+                         "weight_dtype": m.weight_dtype,
+                         "quantized": m.quantized,
+                         "buckets": list(m.buckets),
+                         "example_shape": list(m.example_shape)}
+                for m in self._container}
+
     def _batcher(self, model):
         b = self._batchers.get(model)
         if b is None:
@@ -112,10 +122,12 @@ class ModelServer:
 
     def stats(self):
         """Per-model counters, latency percentiles, queue depth, bucket
-        census and fill ratio, plus the last drain."""
+        census and fill ratio, input and weight dtype, plus the last
+        drain."""
         models = {name: b.metrics.snapshot(
             queue_depth=b.queue_depth(), buckets=list(b.model.buckets),
-            dtype=b.model.dtype, device=str(b.model.device),
+            dtype=b.model.dtype, weight_dtype=b.model.weight_dtype,
+            device=str(b.model.device),
             draining=b.draining)
             for name, b in self._batchers.items()}
         return {"name": self.name, "started": self._started,

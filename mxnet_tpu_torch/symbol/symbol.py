@@ -1,0 +1,442 @@
+"""Symbol: the op graph that ``HybridBlock.export`` traces, the
+quantization pass rewrites and the symbol loaders serve.
+
+Counterpart of the core of ``mxnet_tpu/symbol/symbol.py``: ``_Node``
+:94, ``_topo`` :115, ``Symbol`` :133 (lists of arguments, auxiliary
+states and outputs, ``get_internals`` :189, ``infer_shape`` :258,
+``_build_eval`` :409, ``eval_with`` :506, ``tojson`` :597, ``save``),
+``_apply_op`` :858, ``var`` :949, ``Group`` :970, ``load_json`` :993 and
+``load`` :1043, over the port's op registry. Graph JSON is the JAX
+package's format both ways (attributes as Python literals, ``_attr_str``
+/ ``_parse_attr``), so a graph written by either package loads in the
+other, calibration floats exactly.
+
+Evaluation walks the nodes in topological order and calls each op's
+PyTorch function on the tensors (there is no ``jit``: PyTorch runs
+eagerly), so on a card every kernel family launches as it does in the
+imperative path. Shape inference runs the same walk on ``meta`` tensors,
+which carry shapes and no data.
+"""
+from __future__ import annotations
+
+import ast
+import inspect
+import json
+
+import torch
+
+from ..base import MXNetError, canonical_dtype, dtype_name
+from ..ops import registry as _registry
+
+__all__ = ["Symbol", "var", "Group", "load", "load_json"]
+
+# auto-created parameter inputs of layer ops: arg name -> (suffix, skip_if)
+_LAYER_PARAMS = {
+    "FullyConnected": {"weight": ("weight", None),
+                       "bias": ("bias", lambda a: a.get("no_bias", False))},
+    "LayerNorm": {"gamma": ("gamma", None), "beta": ("beta", None)},
+    "Embedding": {"weight": ("weight", None)},
+}
+# arguments the evaluator supplies, never node attributes or inputs
+_RUNTIME_PARAMS = frozenset({"training", "generator"})
+
+
+def _is_dunder(key):
+    return key.startswith("__") and key.endswith("__")
+
+
+def _op_kwargs(attrs):
+    """Node attributes minus the dunder-keyed variable metadata."""
+    return {k: v for k, v in attrs.items() if not _is_dunder(k)}
+
+
+def _sig_params(fn):
+    return list(inspect.signature(fn).parameters.values())
+
+
+class _Node:
+    """One graph node: an op application, or a variable (``op=None``)."""
+
+    __slots__ = ("op", "name", "attrs", "inputs", "num_outputs")
+
+    def __init__(self, op, name, attrs=None, inputs=(), num_outputs=1):
+        self.op = op                  # registered op name, or None
+        self.name = name
+        self.attrs = dict(attrs or {})
+        self.inputs = list(inputs)    # [(node, out_index), ...]
+        self.num_outputs = num_outputs
+
+    @property
+    def is_var(self):
+        return self.op is None
+
+    @property
+    def is_aux(self):
+        return self.is_var and bool(self.attrs.get("__is_aux__", False))
+
+
+def _topo(entries):
+    """Post-order unique node list of the subgraph feeding ``entries``."""
+    seen, order = set(), []
+
+    def visit(node):
+        if id(node) in seen:
+            return
+        seen.add(id(node))
+        for child, _ in node.inputs:
+            visit(child)
+        order.append(node)
+
+    for node, _ in entries:
+        visit(node)
+    return order
+
+
+def _output_name(entry):
+    node, idx = entry
+    if node.is_var:
+        return node.name
+    if node.num_outputs == 1:
+        return f"{node.name}_output"
+    return f"{node.name}_output{idx}"
+
+
+def _attr_str(v):
+    return v if isinstance(v, str) else repr(v)
+
+
+def _parse_attr(s):
+    if not isinstance(s, str):
+        return s
+    try:
+        return ast.literal_eval(s)
+    except (ValueError, SyntaxError):
+        return s
+
+
+class Symbol:
+    """A list of outputs ``(node, out_index)`` over the graph."""
+
+    def __init__(self, entries):
+        self._entries = list(entries)
+
+    @property
+    def name(self):
+        return self._entries[0][0].name if len(self._entries) == 1 else None
+
+    def __getitem__(self, index):
+        if isinstance(index, str):
+            for e in self._entries:
+                if _output_name(e) == index or e[0].name == index:
+                    return Symbol([e])
+            raise ValueError(f"no output named {index!r}; outputs: "
+                             f"{self.list_outputs()}")
+        if isinstance(index, slice):
+            return Symbol(self._entries[index])
+        return Symbol([self._entries[index]])
+
+    def __repr__(self):
+        return f"<Symbol {self.name or 'group'}>"
+
+    def __add__(self, other):
+        if not isinstance(other, Symbol):
+            raise TypeError("only Symbol + Symbol (elemwise_add) is ported; "
+                            f"got {type(other).__name__}")
+        return _apply_op("elemwise_add", [self, other], {})
+
+    # ------------------------------------------------------- graph lists --
+    def list_arguments(self):
+        return [n.name for n in _topo(self._entries)
+                if n.is_var and not n.is_aux]
+
+    def list_auxiliary_states(self):
+        return [n.name for n in _topo(self._entries) if n.is_aux]
+
+    def list_inputs(self):
+        return [n.name for n in _topo(self._entries) if n.is_var]
+
+    def list_outputs(self):
+        return [_output_name(e) for e in self._entries]
+
+    def get_internals(self):
+        """Every output of every node, as one group."""
+        return Symbol([(node, i) for node in _topo(self._entries)
+                       for i in range(node.num_outputs)])
+
+    # -------------------------------------------------------------- shape --
+    def infer_shape(self, **shapes):
+        """Shapes from the given input shapes: ``(arg_shapes, out_shapes,
+        aux_shapes)`` in ``list_arguments()`` / ``list_outputs()`` /
+        ``list_auxiliary_states()`` order. Parameter shapes of layer ops
+        follow from their data input."""
+        try:
+            known = self._infer(shapes)
+        except MXNetError:
+            raise
+        except Exception as exc:  # noqa: BLE001 - name the failing graph
+            raise MXNetError(f"infer_shape failed: {exc}") from exc
+        args = [known["var", n] for n in self.list_arguments()]
+        auxs = [known["var", n] for n in self.list_auxiliary_states()]
+        outs = [known[id(n), i] for n, i in self._entries]
+        return args, outs, auxs
+
+    def _infer(self, shape_hints):
+        """Run the graph on ``meta`` tensors. Returns shapes keyed by
+        ``("var", name)`` for inputs and ``(id(node), out_index)`` for
+        node outputs."""
+        meta = torch.device("meta")
+        shapes, vals = {}, {}
+
+        def put_var(node, shape, dtype):
+            t = torch.empty(tuple(shape), dtype=canonical_dtype(dtype),
+                            device=meta)
+            vals[id(node), 0] = t
+            shapes["var", node.name] = shapes[id(node), 0] = tuple(t.shape)
+
+        for node in _topo(self._entries):
+            if node.is_var:
+                shape = shape_hints.get(node.name, node.attrs.get("__shape__"))
+                if shape is not None and all(int(s) > 0 for s in shape):
+                    put_var(node, shape, node.attrs.get("__dtype__"))
+                continue
+            data = next((vals.get((id(c), oi)) for c, oi in node.inputs
+                         if (id(c), oi) in vals), None)
+            rules = _param_shape_rules(node, data)
+            for child, _ in node.inputs:
+                if (id(child), 0) in vals:
+                    continue
+                if not (child.is_var and child.name in rules):
+                    raise MXNetError(f"cannot infer the shape of input "
+                                     f"{child.name!r} of {node.name!r} "
+                                     f"({node.op})")
+                shape, dtype = rules[child.name]
+                put_var(child, shape, child.attrs.get("__dtype__", dtype))
+            outs = _call(*_op(node.op),
+                         [vals[id(c), oi] for c, oi in node.inputs],
+                         _op_kwargs(node.attrs), False)
+            for i, o in enumerate(outs):
+                vals[id(node), i] = o
+                shapes[id(node), i] = tuple(o.shape)
+        return shapes
+
+    # --------------------------------------------------------------- eval --
+    def _build_eval(self):
+        """The graph as one function ``run(args, auxs=None,
+        training=False) -> [output tensors]`` over ``{name: tensor}``
+        dicts. Each intermediate is dropped after its last consumer, so
+        a forward holds about as much memory as the same ops run
+        imperatively."""
+        order = _topo(self._entries)
+        heads = [(id(n), i) for n, i in self._entries]
+        last_use = {}
+        for step, node in enumerate(order):
+            for c, oi in node.inputs:
+                last_use[id(c), oi] = step
+        steps = []
+        for step, node in enumerate(order):
+            ins = [(id(c), oi) for c, oi in node.inputs]
+            done = {k for k in ins if last_use[k] == step
+                    and k not in heads}
+            op = (None, False) if node.is_var else _op(node.op)
+            steps.append((node, op, _op_kwargs(node.attrs), ins, done))
+
+        def run(args, auxs=None, training=False):
+            vals = {}
+            for node, op, kwargs, ins, done in steps:
+                if node.is_var:
+                    vals[id(node), 0] = (auxs if node.is_aux and auxs
+                                         is not None else args)[node.name]
+                    continue
+                outs = _call(*op, [vals[k] for k in ins], kwargs, training)
+                for k in done:
+                    del vals[k]
+                for i, o in enumerate(outs):
+                    vals[id(node), i] = o
+            return [vals[h] for h in heads]
+
+        return run
+
+    def eval_with(self, feed, param_feed=None, training=False):
+        """Evaluate with ``{name: NDArray}`` feeds (inputs and
+        parameters); returns one NDArray, or a list for several
+        outputs."""
+        from ..ndarray import NDArray
+
+        raw = {k: v._data if isinstance(v, NDArray) else torch.as_tensor(v)
+               for k, v in dict(feed, **(param_feed or {})).items()}
+        missing = [n for n in self.list_inputs() if n not in raw]
+        if missing:
+            raise MXNetError(f"eval is missing inputs: {missing}")
+        outs = [NDArray(o) for o in self._build_eval()(raw, raw, training)]
+        return outs[0] if len(outs) == 1 else outs
+
+    # --------------------------------------------------------------- json --
+    def tojson(self):
+        order = _topo(self._entries)
+        index = {id(n): i for i, n in enumerate(order)}
+        nodes = []
+        for n in order:
+            entry = {"op": n.op or "null", "name": n.name,
+                     "inputs": [[index[id(c)], oi, 0] for c, oi in n.inputs]}
+            if n.attrs:
+                entry["attrs"] = {k: _attr_str(v) for k, v in n.attrs.items()}
+            nodes.append(entry)
+        return json.dumps(
+            {"nodes": nodes,
+             "arg_nodes": [i for i, n in enumerate(order) if n.is_var],
+             "heads": [[index[id(n)], i, 0] for n, i in self._entries],
+             "attrs": {"mxnet_version": ["int", 10800],
+                       "framework": ["str", "mxnet_tpu_torch"]}},
+            indent=2)
+
+    def save(self, fname):
+        with open(fname, "w") as f:
+            f.write(self.tojson())
+
+
+def _op(name):
+    """Op ``name``'s function, and whether it takes the evaluator's
+    ``training`` flag."""
+    fn = _registry.get(name)
+    return fn, "training" in inspect.signature(fn).parameters
+
+
+def _call(fn, takes_training, inputs, kwargs, training):
+    if takes_training:
+        kwargs = dict(kwargs, training=training)
+    out = fn(*inputs, **kwargs)
+    return out if isinstance(out, (tuple, list)) else (out,)
+
+
+def _param_shape_rules(node, data):
+    """``{var name: (shape, dtype or None)}`` of the parameter inputs of
+    ``node`` that follow from the shape of its data input ``data``."""
+    if data is None:
+        return {}
+    dshape, attrs, rules = tuple(data.shape), node.attrs, {}
+
+    def put(idx, shape, dtype=None):
+        if idx < len(node.inputs) and node.inputs[idx][0].is_var:
+            rules[node.inputs[idx][0].name] = (
+                tuple(int(s) for s in shape), dtype)
+
+    def in_units():
+        if attrs.get("flatten", True):
+            return int(torch.Size(dshape[1:]).numel())
+        return dshape[-1]
+
+    if node.op == "FullyConnected":
+        put(1, (attrs["num_hidden"], in_units()))
+        put(2, (attrs["num_hidden"],))
+    elif node.op == "LayerNorm":
+        for i in (1, 2):
+            put(i, (dshape[attrs.get("axis", -1)],))
+    elif node.op == "Embedding":
+        put(1, (attrs["input_dim"], attrs["output_dim"]))
+    elif node.op == "_contrib_quantized_fully_connected":
+        put(1, (attrs["num_hidden"], in_units()), "int8")
+        put(2, (attrs["num_hidden"],))
+        put(3, (attrs["num_hidden"],))
+    elif node.op == "_contrib_quantized_embedding":
+        put(1, (attrs["input_dim"], attrs["output_dim"]), "int8")
+        put(2, (1,))
+        put(3, (1,))
+    return rules
+
+
+def _apply_op(op_name, args, kwargs):
+    """Build an op node from Symbol inputs and static attributes (the
+    composition step behind every ``mx.sym.<op>`` wrapper). Symbols fill
+    the op's array arguments in signature order; missing parameters of
+    layer ops (weights, biases, LayerNorm gains) become variables named
+    ``<node>_<param>``."""
+    from .. import name as _name
+
+    op = _registry.canonical(op_name)
+    kwargs = dict(kwargs)
+    name = kwargs.pop("name", None)
+    kwargs.pop("attr", None)
+    pos_syms = iter([a for a in args if isinstance(a, Symbol)])
+    sym_kwargs = {k: v for k, v in kwargs.items() if isinstance(v, Symbol)}
+    static = {k: v for k, v in kwargs.items()
+              if not isinstance(v, Symbol) and k not in _RUNTIME_PARAMS}
+    name = _name.current().get(name, op_name.lower().lstrip("_"))
+    layer_params = _LAYER_PARAMS.get(op, {})
+    inputs = []
+    for p in _sig_params(_registry.get(op)):
+        if p.kind in (inspect.Parameter.VAR_POSITIONAL,
+                      inspect.Parameter.VAR_KEYWORD):
+            raise MXNetError(f"op {op!r} takes variadic inputs, which the "
+                             "port's graph composition does not take")
+        if p.name in _RUNTIME_PARAMS or p.name in static:
+            continue
+        if p.name in sym_kwargs:
+            inputs.append(sym_kwargs.pop(p.name))
+            continue
+        nxt = next(pos_syms, None)
+        if nxt is not None:
+            inputs.append(nxt)
+        elif p.name in layer_params:
+            suffix, skip = layer_params[p.name]
+            if skip is None or not skip(static):
+                inputs.append(var(f"{name}_{suffix}"))
+        elif p.default is inspect.Parameter.empty:
+            raise MXNetError(f"op {op!r} missing required input {p.name!r}")
+        else:
+            break
+    left = list(pos_syms) + list(sym_kwargs)
+    if left:
+        raise MXNetError(f"op {op!r}: {len(left)} symbol inputs left over")
+    n_out = _registry.num_outputs(op)
+    node = _Node(op, name, static, [s._entries[0] for s in inputs], n_out)
+    return Symbol([(node, i) for i in range(n_out)])
+
+
+def var(name, attr=None, shape=None, dtype=None, is_aux=False, **kwargs):
+    """A named graph input."""
+    attrs = dict(attr or {})
+    if shape is not None:
+        attrs["__shape__"] = tuple(shape)
+    if dtype is not None:
+        attrs["__dtype__"] = dtype_name(dtype)
+    if is_aux:
+        attrs["__is_aux__"] = True
+    attrs.update(kwargs)
+    return Symbol([(_Node(None, name, attrs), 0)])
+
+
+def Group(symbols):  # noqa: N802 - MXNet's name
+    return Symbol([e for s in symbols for e in s._entries])
+
+
+def load_json(json_str):
+    """Rebuild a Symbol from graph JSON, the port's or the JAX
+    package's. Ops the port does not have raise ``MXNetError``."""
+    data = json.loads(json_str)
+    raw_nodes = data["nodes"]
+    built = []
+    for rn in raw_nodes:
+        attrs = {k: _parse_attr(v) for k, v in
+                 (rn.get("attrs") or rn.get("param") or rn.get("attr")
+                  or {}).items()}
+        if rn["op"] == "null":
+            built.append(_Node(None, rn["name"], attrs))
+            continue
+        try:
+            op = _registry.canonical(rn["op"])
+        except KeyError:
+            raise MXNetError(f"node {rn['name']!r}: op {rn['op']!r} is not "
+                             "ported") from None
+        built.append(_Node(op, rn["name"], attrs,
+                           num_outputs=_registry.num_outputs(op)))
+    for rn, node in zip(raw_nodes, built):
+        node.inputs = [(built[i], oi) for i, oi, *_ in rn["inputs"]]
+    heads = data.get("heads")
+    entries = [(built[i], oi) for i, oi, *_ in heads] if heads \
+        else [(built[-1], 0)]
+    return Symbol(entries)
+
+
+def load(fname):
+    with open(fname) as f:
+        return load_json(f.read())

@@ -8,7 +8,9 @@ run on a machine that has only PyTorch:
   the backward kernels, equal the plain dense recompute, and reach the
   q/k/v projections of a MultiHeadAttention;
 * the flash backward kernels against their plain versions;
-* the fused SGD-momentum and Adam kernels bit for bit against theirs.
+* the fused SGD-momentum and Adam kernels bit for bit against theirs;
+* the int8 GEMM kernel bit for bit against its plain version, and a
+  quantized FullyConnected on the card equal to the same op on the CPU.
 """
 import math
 
@@ -19,7 +21,8 @@ import torch
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import kernels, nd
 from mxnet_tpu_torch.gluon.contrib import nn as cnn
-from mxnet_tpu_torch.kernels import flash
+from mxnet_tpu_torch.kernels import flash, int8_gemm
+from mxnet_tpu_torch.ops import registry as reg
 
 F32_TOL, BF16_TOL = 2e-5, 2e-2
 
@@ -142,3 +145,48 @@ def test_optimizer_kernels_are_bitwise_the_plain_versions(
         for a, b in zip(col_g, col_w):
             assert torch.equal(a, b)
     assert not torch.equal(got[0][-1], base[0][-1])
+
+
+def _int8(shape, seed):
+    return torch.from_numpy(np.random.RandomState(seed).randint(
+        -127, 128, shape).astype(np.int8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,k,n", [(4096, 768, 768), (4096, 3072, 768),
+                                   (32, 768, 2), (129, 130, 3), (17, 5, 129),
+                                   (1, 1, 1)])
+@pytest.mark.parametrize("bias,relu,per_channel", [
+    (True, False, True), (False, True, False), (True, True, True)])
+def test_int8_gemm_kernel_is_bitwise_the_plain_version(
+        cuda_device, m, k, n, bias, relu, per_channel):
+    qx, w = _int8((m, k), 1).to(cuda_device), _int8((n, k), 2).to(cuda_device)
+    scale = torch.from_numpy(_rand((n if per_channel else 1,), 3) ** 2
+                             * 1e-3 + 1e-5).to(cuda_device)
+    b = torch.from_numpy(_rand((n,), 4)).to(cuda_device) if bias else None
+    before = int8_gemm.int8_gemm.launches
+    got = int8_gemm.int8_gemm(qx, w, scale, bias=b, relu=relu)
+    torch.cuda.synchronize()
+    assert int8_gemm.int8_gemm.launches == before + 1
+    assert torch.equal(got, int8_gemm.int8_gemm_plain(qx, w, scale, bias=b,
+                                                      relu=relu))
+
+
+@pytest.mark.gpu
+def test_quantized_fully_connected_on_card_equals_cpu(cuda_device):
+    """3-D data through the op: the int8 product is exact on both sides,
+    so the card's answer is the CPU's bit for bit."""
+    x = _rand((4, 128, 768), 5, scale=2.0)
+    w = _int8((3072, 768), 6)
+    scale = torch.from_numpy(_rand((3072,), 7) ** 2 * 1e-3 + 1e-5)
+    b = torch.from_numpy(_rand((3072,), 8))
+    kw = dict(num_hidden=3072, flatten=False, min_calib_range=float(x.min()),
+              max_calib_range=float(x.max()))
+    fc = reg.get("_contrib_quantized_fully_connected")
+    want = fc(torch.from_numpy(x), w, scale, b, **kw)
+    before = kernels.launch_counts()["int8_gemm"]
+    got = fc(*(t.to(cuda_device) for t in (torch.from_numpy(x), w, scale, b)),
+             **kw)
+    assert kernels.launch_counts()["int8_gemm"] == before + 1
+    assert got.shape == (4, 128, 3072)
+    assert torch.equal(got.cpu(), want)
