@@ -65,6 +65,35 @@ Phases, each printing one JSON line:
     block and the int8 graph take turns under the same traffic in one
     server (five bursts each, ABBA order), and a bucket-32 int8 batch is
     profiled (profile_int8).
+12. decode: the decode-attention kernel (K5) through
+    ``mx.nd.contrib.decode_attention`` at BERT-base / GPT-2-small head
+    geometry (q (32, 12, 64) against a (32, 12, 1024, 64) cache, ragged
+    lengths from 1 to 1024), float32 and bfloat16, against its plain
+    version, and on odd shapes (S not a multiple of 128, D of 8, 128 and
+    256, B*H = 1); then times the kernel, the plain version and
+    ``scaled_dot_product_attention`` with a boolean mask (a yardstick).
+13. twobit: the 2-bit compress and decompress kernels (K6, K7) bit for
+    bit (``torch.equal``) against their plain versions on 109 M elements,
+    on odd sizes and unaligned views, and on summed codes; then times
+    them over the classifier's 197 tensors, as one training step
+    launches them.
+14. dist_check: two worker processes on the card (this script with
+    ``--worker``, given the ``MXTPU_COORDINATOR`` / ``MXTPU_NUM_WORKERS``
+    / ``MXTPU_WORKER_ID`` environment of ``tools/launch.py``) each train
+    the classifier at 2 layers and narrow width through
+    ``mx.kv.create("dist_sync")`` with 2-bit compression and
+    ``gluon.Trainer``, 3 "sgd" (momentum) and 3 "adam" steps, and save
+    what they pushed, their codes and residuals, the pulled sums and
+    their weights. This process recomputes every step on the CPU with the
+    plain versions: codes, residuals and pulled sums bit for bit, final
+    weights to 1e-6, and both ranks' weights equal bit for bit.
+15. dist_train: the same two-worker path at full width (12 layers), the
+    MXNet default threshold 0.5, 10 "adam" steps per worker: step time,
+    tokens/s, nonzero codes, bytes on the wire, launches per step (197
+    compress, 197 decompress, 1 Adam per worker), peak memory, a finite,
+    falling loss and equal weights on both ranks at the end; then one
+    more step split on the host clock (forward and backward, pushes,
+    pulls, update) and gloo's all-reduce of the same int8 bytes alone.
 
 Then the ``{"kernels": [...]}`` line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure is an
@@ -74,14 +103,18 @@ build always run) and then prints no result line.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
+import os
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -89,7 +122,8 @@ import torch
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import kernels, serving
 from mxnet_tpu_torch.convert import export_params, load_jax_params
-from mxnet_tpu_torch.kernels import build, flash, opt_step
+from mxnet_tpu_torch.kernels import build, decode_attention, flash, opt_step
+from mxnet_tpu_torch.kernels import twobit
 from mxnet_tpu_torch.parallel import DeviceMesh, ShardedTrainer
 
 BERT_BASE = {"vocab": 30522, "units": 768, "hidden": 3072, "heads": 12,
@@ -124,6 +158,21 @@ STEP_LOSS_RTOL = 1e-4
 STEP_PARAM_RTOL, STEP_PARAM_LR_FRAC = 1e-5, 5e-2
 ADAM_NOISE_SHARE = 1e-5
 TRAIN = {"batch": 32, "steps": 20, "warmup": 3, "lr": 1e-4, "wd": 1e-4}
+# two workers on the card through dist_sync + 2-bit compression +
+# gluon.Trainer (examples/distributed_training/cifar10_dist.py's path);
+# each worker trains on its shard of make_task (rows rank, rank + 2, ...):
+# one fixed batch of 32, so that the loss falls within a few steps
+DIST_TRAIN = {"workers": 2, "batch": 32, "steps": 10, "warmup": 3,
+              "threshold": 0.5, "lr": 1e-4, "wd": 1e-4, "timeout_s": 600}
+# narrow width, 2 layers, a threshold at which codes of both signs fire
+DIST_CHECK = {"workers": 2, "batch": 8, "steps": 3, "threshold": 0.02,
+              "timeout_s": 300,
+              "cfg": dict(BERT_BASE, vocab=1000, units=64, hidden=128,
+                          heads=2, layers=2, seq_len=32),
+              "optimizers": {"sgd": {"learning_rate": 0.05, "momentum": 0.9,
+                                     "wd": 1e-4},
+                             "adam": {"learning_rate": 1e-3, "wd": 1e-4}}}
+DIST_WEIGHT_RTOL = 1e-6   # final weights, card workers vs CPU recompute
 
 
 def build_encoder(args, mx, nn, contrib_nn, exportable=False):
@@ -802,11 +851,12 @@ def phase_train_check():
                     counts = kernels.launch_counts()
             nets[where] = export_params(clf)
         layers = cfg["layers"]
-        want_counts = {"flash_attention": layers,
-                       "flash_attention_bwd_dq": layers,
-                       "flash_attention_bwd_dkv": layers,
-                       "opt_adam": int(opt == "adam"),
-                       "opt_sgd": int(opt == "sgd"), "int8_gemm": 0}
+        want_counts = dict.fromkeys(counts, 0)
+        want_counts.update({"flash_attention": layers,
+                            "flash_attention_bwd_dq": layers,
+                            "flash_attention_bwd_dkv": layers,
+                            "opt_adam": int(opt == "adam"),
+                            "opt_sgd": int(opt == "sgd")})
         if counts != want_counts:
             raise AssertionError(f"train_check {opt}: launches {counts}, "
                                  f"expected {want_counts}")
@@ -865,10 +915,11 @@ def phase_train(smi):
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     layers, steps = cfg["layers"], tr["steps"]
-    want = {"flash_attention": layers * (steps + 1),
-            "flash_attention_bwd_dq": layers * steps,
-            "flash_attention_bwd_dkv": layers * steps,
-            "opt_adam": steps, "opt_sgd": 0, "int8_gemm": 0}
+    want = dict.fromkeys(counts, 0)
+    want.update({"flash_attention": layers * (steps + 1),
+                 "flash_attention_bwd_dq": layers * steps,
+                 "flash_attention_bwd_dkv": layers * steps,
+                 "opt_adam": steps})
     if counts != want:
         raise AssertionError(f"train: launches {counts}, expected {want}")
     if not all(math.isfinite(v) for v in losses) or \
@@ -1162,12 +1213,602 @@ def phase_serve_int8(smi, float_serve=None):
     return dict(summary, int8_launches=got_counts["int8_gemm"]), model
 
 
+# (B, H, S, D), dtype: the main shape in both dtypes, then S not a
+# multiple of 128, every head-dim bucket, B*H = 1
+DECODE_MAIN = (32, 12, 1024, 64)
+DECODE_ODD = [((4, 12, 1000, 64), torch.float32),
+              ((4, 12, 1000, 64), torch.bfloat16),
+              ((3, 5, 77, 8), torch.float32),
+              ((2, 4, 300, 128), torch.float32),
+              ((2, 4, 300, 128), torch.bfloat16),
+              ((2, 2, 129, 256), torch.float32),
+              ((1, 1, 1024, 64), torch.float32),
+              ((1, 1, 1, 64), torch.bfloat16)]
+
+
+def _decode_inputs(b, h, s, d, dtype, gen, dev):
+    """q, k, v from a normal distribution and seeded ragged lengths in
+    [1, s] that include 1 and s."""
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((b, h, d), (b, h, s, d), (b, h, s, d)))
+    lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    lengths[0] = 1
+    lengths[-1] = s
+    return q, k, v, lengths
+
+
+def _decode_check(got, want, dtype, what):
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    err = (got.float() - want.float()).abs().max().item()
+    if got.shape != want.shape or not torch.allclose(
+            got.float(), want.float(), rtol=tol, atol=tol):
+        raise AssertionError(f"decode_attention disagrees with the plain "
+                             f"version at {what}: max abs err {err}")
+    return err, tol
+
+
+def decode_bound_ms(q, k, lengths):
+    """Least time of one decode call: the filled cache rows of k and v
+    (sum(lengths) * H * D each), q, the lengths and the output moved once
+    over HBM, or 4 * D FLOP per filled key and head (q.k and p*v) at the
+    float32 rate."""
+    b, h, d = q.shape
+    filled = int(lengths.clamp(max=k.shape[2]).sum().item()) * h
+    e = q.element_size()
+    nbytes = 2 * filled * d * e + 2 * b * h * d * e + 4 * b
+    return _bound_ms(nbytes, 4 * filled * d, H100_F32_FLOPS)
+
+
+def phase_decode():
+    """K5 through the op on the main shape (the launches counted), then
+    odd shapes against the plain version, then timings."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    b, h, s, d = DECODE_MAIN
+    main = {dt: _decode_inputs(b, h, s, d, dt, gen, dev)
+            for dt in (torch.float32, torch.bfloat16)}
+    kernels.reset_launch_counts()
+    outs = {dt: mx.nd.contrib.decode_attention(
+        *(mx.nd.NDArray(t) for t in args)) for dt, args in main.items()}
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()["decode_attention"]
+    if launches != len(main):
+        raise AssertionError(f"decode: {launches} kernel launches for "
+                             f"{len(main)} op calls")
+    errs = {}
+    for dt, (q, k, v, lengths) in main.items():
+        want = decode_attention.decode_attention_plain(q, k, v, lengths,
+                                                       1.0 / math.sqrt(d))
+        errs[str(dt).replace("torch.", "")] = _decode_check(
+            outs[dt]._data, want, dt, (DECODE_MAIN, dt))[0]
+    for (ob, oh, os_, od), dt in DECODE_ODD:
+        q, k, v, lengths = _decode_inputs(ob, oh, os_, od, dt, gen, dev)
+        scale = 1.0 / math.sqrt(od)
+        got = decode_attention.decode_attention(q, k, v, lengths, scale)
+        torch.cuda.synchronize()
+        want = decode_attention.decode_attention_plain(q, k, v, lengths,
+                                                       scale)
+        err, tol = _decode_check(got, want, dt, ((ob, oh, os_, od), dt))
+        emit({"phase": "decode", "shape": [ob, oh, os_, od],
+              "dtype": str(dt).replace("torch.", ""),
+              "lengths": lengths.tolist(), "max_abs_err": err,
+              "rtol_atol": tol, "ok": True})
+
+    q, k, v, lengths = main[torch.float32]
+    scale = 1.0 / math.sqrt(d)
+    mask = (torch.arange(s, device=dev)[None, None, None, :]
+            < lengths[:, None, None, None]).expand(b, h, 1, s)
+    q4 = q.unsqueeze(2)
+    timing = {
+        "ms": cuda_ms(lambda: decode_attention.decode_attention(
+            q, k, v, lengths, scale)),
+        "plain_ms": cuda_ms(lambda: decode_attention.decode_attention_plain(
+            q, k, v, lengths, scale)),
+        "library_ms": cuda_ms(lambda: torch.nn.functional.
+                              scaled_dot_product_attention(
+                                  q4, k, v, attn_mask=mask, scale=scale))}
+    timing["bound_ms"], timing["bound_by"] = decode_bound_ms(q, k, lengths)
+    timing["max_abs_err"] = errs["float32"]
+    emit({"phase": "decode_timing", "shape": list(DECODE_MAIN),
+          "dtype": "float32", "filled_keys": int(lengths.sum().item()),
+          "launches": launches, "max_abs_err_by_dtype": errs, **timing,
+          "library": "scaled_dot_product_attention, q (B, H, 1, D), boolean "
+                     "mask (B, H, 1, S); a yardstick only"})
+    return dict(timing, launches=launches)
+
+
+def _bitwise_equal(a, b):
+    """``torch.equal``, with NaN equal to NaN at the same positions."""
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a.masked_fill(nan, 0), b.masked_fill(nan, 0))
+
+
+def _twobit_cases(e_c, e_d, grad, res, thr, what):
+    """Compress and decompress (int8 codes, their int8 sum in [-2, 2] and
+    the int32 sum) with the kernels and the plain versions: torch.equal
+    or an AssertionError."""
+    codes, new_res = e_c.kernel(grad, res, thr)
+    want_codes, want_res = e_c.plain(grad, res, thr)
+    summed = torch.clamp(codes.to(torch.int32) + want_codes.flip(0).to(
+        torch.int32), -2, 2)
+    pairs = [("codes", codes, want_codes), ("residual", new_res, want_res)]
+    for label, c in (("int8", codes), ("int8 sum", summed.to(torch.int8)),
+                     ("int32 sum", summed)):
+        pairs.append((f"decompress {label}", e_d.kernel(c, thr),
+                      e_d.plain(c, thr)))
+    torch.cuda.synchronize()
+    for label, got, want in pairs:
+        if not _bitwise_equal(got, want):
+            raise AssertionError(f"twobit {label} differs from the plain "
+                                 f"version at {what}")
+    return codes
+
+
+def phase_twobit():
+    """K6 and K7 with torch.equal against the plain versions, then CUDA-
+    event times over the classifier's 197 tensors (one step's launches)
+    and over one 109 M-element tensor."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    e_c, e_d = kernels.entry("twobit_compress"), kernels.entry(
+        "twobit_decompress")
+    shapes = list(classifier_shapes(BERT_BASE).values())
+    n_full = sum(math.prod(sh) for sh in shapes)
+    thr = 0.5
+    checked = []
+    for n in (n_full, 1, 127, 4097):
+        grad = torch.randn(n, generator=gen, device=dev) * 0.4
+        res = torch.randn(n, generator=gen, device=dev) * 0.2
+        # values exactly at +-thr and a NaN
+        grad[: min(n, 3)] = torch.tensor([0.5, -0.5, float("nan")],
+                                         device=dev)[: min(n, 3)]
+        res[: min(n, 3)] = 0.0
+        codes = _twobit_cases(e_c, e_d, grad, res, thr, n)
+        checked.append(n)
+        if n == n_full:
+            share = (codes != 0).float().mean().item()
+            signs = (int((codes > 0).sum()), int((codes < 0).sum()))
+    for off in (1, 3):  # unaligned views: the scalar path
+        grad = torch.randn(4097 + off, generator=gen, device=dev)[off:]
+        res = torch.randn(4097 + off, generator=gen, device=dev)[off:]
+        _twobit_cases(e_c, e_d, grad, res, 0.3, f"offset {off}")
+        checked.append(f"4097+offset{off}")
+    emit({"phase": "twobit", "sizes": checked, "bitwise_equal": True,
+          "threshold": thr, "nonzero_share_109M": share,
+          "plus_minus_codes_109M": signs})
+
+    grads = [torch.randn(sh, generator=gen, device=dev) * 0.4 for sh in shapes]
+    ress = [torch.randn(sh, generator=gen, device=dev) * 0.2 for sh in shapes]
+    codes = [e_c.kernel(g, r, thr)[0] for g, r in zip(grads, ress)]
+    sums = [c.to(torch.int32).mul(2).clamp(-2, 2).to(torch.int8)
+            for c in codes]
+
+    def per_step(fn, args):
+        return lambda: [fn(*a) for a in args]
+
+    step = {"compress": {
+        "ms": cuda_ms(per_step(e_c.kernel, [(g, r, thr)
+                                            for g, r in zip(grads, ress)])),
+        "plain_ms": cuda_ms(per_step(e_c.plain, [
+            (g, r, thr) for g, r in zip(grads, ress)]), iters=5),
+        "bytes": 13 * n_full},
+        "decompress": {
+        "ms": cuda_ms(per_step(e_d.kernel, [(c, thr) for c in sums])),
+        "plain_ms": cuda_ms(per_step(e_d.plain, [(c, thr) for c in sums]),
+                            iters=5),
+        "bytes": 5 * n_full}}
+    big_g, big_r = torch.cat([g.reshape(-1) for g in grads]), torch.cat(
+        [r.reshape(-1) for r in ress])
+    big_c = torch.cat([c.reshape(-1) for c in sums])
+    step["compress"]["one_launch_ms"] = cuda_ms(
+        lambda: e_c.kernel(big_g, big_r, thr))
+    step["decompress"]["one_launch_ms"] = cuda_ms(
+        lambda: e_d.kernel(big_c, thr))
+    for t in step.values():
+        t["bound_ms"], t["bound_by"] = t.pop("bytes") / H100_BYTES_S * 1e3, \
+            "bytes"
+        t["library_ms"] = None
+    emit({"phase": "twobit_timing", "tensors": len(shapes),
+          "elements": n_full, **step,
+          "library": "none: no single PyTorch call computes either "
+                     "function"})
+    return step
+
+
+# ---- the two-worker dist_sync path -----------------------------------------
+
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _dist_trainer(cfg, optimizer, params, thr):
+    """The classifier on the card, a dist_sync store with 2-bit
+    compression and a gluon.Trainer over it (cifar10_dist.py:60-87)."""
+    clf = _classifier_on(mx.gpu(0), cfg, random_params(cfg, seed=0))
+    kv = mx.kv.create("dist_sync")
+    kv.set_gradient_compression({"type": "2bit", "threshold": thr})
+    trainer = mx.gluon.Trainer(clf.collect_params(), optimizer, dict(params),
+                               kvstore=kv)
+    return clf, kv, trainer
+
+
+def _train_step(clf, trainer, loss_fn, x, y, batch_size):
+    with mx.autograd.record():
+        loss = loss_fn(clf(x), y)
+    loss.backward()
+    trainer.step(batch_size)
+    return loss
+
+
+def _host(t):
+    """A host copy of ``t`` (a copy even when ``t`` is on the CPU: the
+    buffers saved here are overwritten later)."""
+    return t.detach().to("cpu", copy=True)
+
+
+def _worker_check(rank, out_dir):
+    """dist_check's worker: every push, code, residual, pulled sum and
+    the weights, saved for the parent's recompute."""
+    c = DIST_CHECK
+    cfg, n = c["cfg"], c["workers"]
+    x, y = make_task(c["batch"] * n * c["steps"], cfg["seq_len"], cfg["vocab"],
+                     cfg["num_classes"], seed=11)
+    xs, ys = x[rank::n], y[rank::n]
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    records = {}
+    for name, params in c["optimizers"].items():
+        clf, kv, trainer = _dist_trainer(cfg, name, params, c["threshold"])
+        plist = list(clf.collect_params().values())
+        rec = {"initial": [_host(p.data()._data) for p in plist],
+               "steps": []}
+        step = {}
+        push, quantize = kv.push, kv._quantize
+
+        def logged_push(key, value, priority=0, _push=push, _step=step):
+            _step.setdefault("pushed", {})[key] = _host(value._data)
+            return _push(key, value, priority)
+
+        def logged_quantize(key, value, _quantize=quantize, _step=step,
+                            _kv=kv):
+            codes, meta = _quantize(key, value)
+            _step.setdefault("codes", {})[key] = _host(codes._data)
+            _step.setdefault("residuals", {})[key] = \
+                _host(_kv._residuals[key])
+            return codes, meta
+
+        kv.push, kv._quantize = logged_push, logged_quantize
+        for t in range(c["steps"]):
+            sl = slice(t * c["batch"], (t + 1) * c["batch"])
+            step.clear()
+            _train_step(clf, trainer, loss_fn, mx.nd.array(xs[sl]),
+                        mx.nd.array(ys[sl]), c["batch"] * kv.num_workers)
+            step["pulled"] = {i: _host(p.grad()._data)
+                              for i, p in enumerate(plist)}
+            rec["steps"].append(dict(step))
+        rec["final"] = [_host(p.data()._data) for p in plist]
+        rec["num_workers"] = kv.num_workers
+        records[name] = rec
+    torch.save(records, Path(out_dir) / f"rank{rank}.pt")
+    return {"optimizers": list(records)}
+
+
+def _worker_train(rank, out_dir):
+    """dist_train's worker: full width, 10 "adam" steps, timed."""
+    d, cfg = DIST_TRAIN, BERT_BASE
+    clf, kv, trainer = _dist_trainer(cfg, "adam", {"learning_rate": d["lr"],
+                                                   "wd": d["wd"]},
+                                     d["threshold"])
+    n = kv.num_workers
+    x, y = make_task(d["batch"] * n, cfg["seq_len"], cfg["vocab"],
+                     cfg["num_classes"], seed=5)
+    xb, yb = mx.nd.array(x[rank::n]), mx.nd.array(y[rank::n])
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    plist = list(clf.collect_params().values())
+    elements = sum(p.data().size for p in plist)
+    nonzero = torch.zeros((), dtype=torch.int64,
+                          device=plist[0].data()._data.device)
+    quantize = kv._quantize
+
+    def counted_quantize(key, value):
+        codes, meta = quantize(key, value)
+        nonzero.add_(torch.count_nonzero(codes._data))
+        return codes, meta
+
+    kv._quantize = counted_quantize
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, counts, wire = [], [], [], []
+    for _ in range(d["steps"]):
+        kernels.reset_launch_counts()
+        sent = kv._pipeline.stats["bytes"] if kv._pipeline else 0
+        t0 = time.perf_counter()
+        loss = _train_step(clf, trainer, loss_fn, xb, yb, d["batch"] * n)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append(kernels.launch_counts())
+        wire.append((kv._pipeline.stats["bytes"] if kv._pipeline else 0)
+                    - sent)
+        losses.append(loss.mean().asscalar())
+    peak = torch.cuda.max_memory_allocated()
+    # one more step, split on the host clock with a wait for the card
+    # between its parts (not counted above): forward and backward; the
+    # pushes in backward order, as Trainer.allreduce_grads makes them (K6,
+    # the bucket copies, the all-reduces started); the pulls (the waits
+    # for the all-reduces, K7, the copies into the gradients); the
+    # optimizer
+    keys = range(len(plist))
+    split, t0 = {}, time.perf_counter()
+    with mx.autograd.record():
+        loss = loss_fn(clf(xb), yb)
+    loss.backward()
+    for part, fn in (
+            ("forward_backward", None),
+            ("push", lambda: [kv.push(i, plist[i].grad(), priority=-i)
+                              for i in reversed(keys)]),
+            ("pull", lambda: [kv.pull(i, plist[i].grad(), priority=-i)
+                              for i in keys]),
+            ("update", lambda: trainer.update(d["batch"] * n))):
+        if fn is not None:
+            fn()
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        split[part] = (now - t0) * 1e3
+        t0 = now
+    wire_ms = _allreduce_ms(
+        [sum(kv._pipeline.plan.info[k]["nelems"] for k in b["keys"])
+         for b in kv._pipeline.plan.buckets], plist[0].data()._data.device)
+    digest = hashlib.sha256()
+    for p in plist:
+        digest.update(p.data()._data.cpu().numpy().tobytes())
+    median = statistics.median(step_ms[d["warmup"]:])
+    return {"rank": rank, "num_workers": n, "losses": losses,
+            "step_ms": step_ms, "median_step_ms": median,
+            "tokens_per_s": d["batch"] * cfg["seq_len"] / (median / 1e3),
+            "launches_per_step": counts, "wire_bytes_per_step": wire,
+            "f32_bytes_per_step": 4 * elements, "elements": elements,
+            "nonzero_code_share": int(nonzero.item()) / (elements *
+                                                         d["steps"]),
+            "buckets": len(kv._pipeline.plan.buckets) if kv._pipeline else 0,
+            "memory_allocated_before": before, "max_memory_allocated": peak,
+            "split_step_ms": split, "allreduce_int8_ms": wire_ms,
+            "weights_sha256": digest.hexdigest()}
+
+
+def _allreduce_ms(bucket_elems, dev, reps=3):
+    """Median host-clock ms of gloo's all-reduce of int8 zeros on the
+    card with nothing else running: the buckets' sizes started together
+    and waited for (the kvstore's pattern), and one tensor of the same
+    total size."""
+    import torch.distributed as dist
+
+    out = {}
+    for label, sizes in (("buckets", bucket_elems),
+                         ("one_tensor", [sum(bucket_elems)])):
+        bufs = [torch.zeros(s, dtype=torch.int8, device=dev) for s in sizes]
+        times = []
+        for _ in range(reps):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for work in [dist.all_reduce(b, async_op=True) for b in bufs]:
+                work.wait()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[label] = statistics.median(times)
+    return out
+
+
+WORKERS = {"dist_check": _worker_check, "dist_train": _worker_train}
+
+
+def dist_worker(kind, out_dir):
+    """Entry of one worker process (``--worker``): no card is an error."""
+    if not torch.cuda.is_available():
+        raise SystemExit(f"{kind} worker: torch.cuda.is_available() is false")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["MXTPU_WORKER_ID"])
+    result = WORKERS[kind](rank, out_dir)
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(result))
+    print(f"DIST_OK {kind} {rank}", flush=True)
+    return 0
+
+
+def run_workers(kind, out_dir, n, timeout_s):
+    """Start ``n`` workers of ``kind`` on one card with the environment of
+    tools/launch.py; wait for all (killing every one on a timeout) and
+    require exit 0 and the OK line from each. Returns their results."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    coord = f"127.0.0.1:{_free_port()}"
+    procs, logs = [], []
+    for rank in range(n):
+        env = dict(os.environ, MXTPU_COORDINATOR=coord,
+                   MXTPU_NUM_WORKERS=str(n), MXTPU_WORKER_ID=str(rank))
+        log = open(Path(out_dir) / f"rank{rank}.log", "w+")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--worker", kind,
+             "--out", str(out_dir)], env=env, stdout=log,
+            stderr=subprocess.STDOUT, cwd=os.path.dirname(
+                os.path.abspath(__file__))))
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for log in logs:
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0 or f"DIST_OK {kind} {rank}" not in out:
+            raise AssertionError(f"{kind} worker {rank} failed (exit "
+                                 f"{p.returncode}):\n{out[-3000:]}")
+    return [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+            for r in range(n)]
+
+
+def phase_dist_check():
+    """Two workers at 2 layers and narrow width; every step recomputed
+    here on the CPU with the plain versions of K6, K7 and the optimizer
+    (ops/optimizer_op.py)."""
+    c = DIST_CHECK
+    thr = c["threshold"]
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as out_dir:
+        run_workers("dist_check", out_dir, c["workers"], c["timeout_s"])
+        recs = [torch.load(Path(out_dir) / f"rank{r}.pt")
+                for r in range(c["workers"])]
+    result = {}
+    for name, params in c["optimizers"].items():
+        ranks = [r[name] for r in recs]
+        if any(r["num_workers"] != c["workers"] for r in ranks):
+            raise AssertionError(f"dist_check {name}: workers saw "
+                                 f"{[r['num_workers'] for r in ranks]}")
+        initial = ranks[0]["initial"]
+        for r in ranks[1:]:
+            if not all(torch.equal(a, b) for a, b in zip(initial,
+                                                         r["initial"])):
+                raise AssertionError(f"dist_check {name}: initial weights "
+                                     "differ between ranks")
+        with mx.cpu():
+            opt = mx.optimizer.create(name, **params)
+            opt.rescale_grad = 1.0 / (c["batch"] * c["workers"])
+            weights = [mx.nd.NDArray(w.clone()) for w in initial]
+            states = [opt.create_state(i, w) for i, w in enumerate(weights)]
+        keys = list(range(len(weights)))
+        residuals = [[torch.zeros_like(w) for w in initial] for _ in ranks]
+        plus = minus = 0
+        for t in range(c["steps"]):
+            codes_sum = []
+            for key in keys:
+                total = None
+                for ri, r in enumerate(ranks):
+                    step = r["steps"][t]
+                    codes, res = twobit.twobit_compress_plain(
+                        step["pushed"][key], residuals[ri][key], thr)
+                    if not (torch.equal(codes, step["codes"][key]) and
+                            torch.equal(res, step["residuals"][key])):
+                        raise AssertionError(
+                            f"dist_check {name} step {t} key {key} rank "
+                            f"{ri}: codes or residual differ from the plain "
+                            "recompute")
+                    residuals[ri][key] = res
+                    plus += int((codes > 0).sum())
+                    minus += int((codes < 0).sum())
+                    total = codes.to(torch.int32) if total is None else \
+                        total + codes.to(torch.int32)
+                codes_sum.append(total.to(torch.int8))
+            pulled = [twobit.twobit_decompress_plain(cs, thr)
+                      for cs in codes_sum]
+            for ri, r in enumerate(ranks):
+                got = r["steps"][t]["pulled"]
+                if not all(torch.equal(got[k], pulled[k]) for k in keys):
+                    raise AssertionError(f"dist_check {name} step {t} rank "
+                                         f"{ri}: pulled sums differ from the "
+                                         "plain recompute")
+            with mx.cpu():
+                opt.fused_update_multi(keys, weights,
+                                       [mx.nd.NDArray(g) for g in pulled],
+                                       states)
+        finals = [r["final"] for r in ranks]
+        if not all(torch.equal(a, b) for a, b in zip(*finals)):
+            raise AssertionError(f"dist_check {name}: the ranks' weights "
+                                 "differ")
+        worst = 0.0
+        for got, want in zip(finals[0], weights):
+            want = want._data
+            diff = (got - want).abs().max().item()
+            scale = max(want.abs().max().item(), 1e-30)
+            worst = max(worst, diff / scale)
+            if diff > DIST_WEIGHT_RTOL * scale:
+                raise AssertionError(f"dist_check {name}: weights differ "
+                                     f"from the CPU recompute by {diff}")
+        if not plus or not minus:
+            raise AssertionError(f"dist_check {name}: codes of one sign "
+                                 f"only (+{plus}, -{minus}); lower the "
+                                 "threshold")
+        result[name] = {"codes_plus": plus, "codes_minus": minus,
+                        "max_weight_diff_rel": worst,
+                        "ranks_bitwise_equal": True,
+                        "codes_residuals_pulled_bitwise_equal": True}
+    emit({"phase": "dist_check", "config": c["cfg"], "batch": c["batch"],
+          "workers": c["workers"], "steps": c["steps"], "threshold": thr,
+          "weight_rtol": DIST_WEIGHT_RTOL, **result})
+    return result
+
+
+def phase_dist_train(smi):
+    """Two workers at full width, 10 "adam" steps each."""
+    d, cfg = DIST_TRAIN, BERT_BASE
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as out_dir:
+        workers = run_workers("dist_train", out_dir, d["workers"],
+                              d["timeout_s"])
+    n_tensors = len(classifier_shapes(cfg))
+    layers = cfg["layers"]
+    want = dict.fromkeys(workers[0]["launches_per_step"][0], 0)
+    want.update({"twobit_compress": n_tensors,
+                 "twobit_decompress": n_tensors, "opt_adam": 1,
+                 "flash_attention": layers,
+                 "flash_attention_bwd_dq": layers,
+                 "flash_attention_bwd_dkv": layers})
+    for w in workers:
+        if w["num_workers"] != d["workers"]:
+            raise AssertionError(f"dist_train: worker {w['rank']} saw "
+                                 f"{w['num_workers']} workers")
+        for t, counts in enumerate(w["launches_per_step"]):
+            if counts != want:
+                raise AssertionError(f"dist_train worker {w['rank']} step "
+                                     f"{t}: launches {counts}, expected "
+                                     f"{want}")
+        losses = w["losses"]
+        if not all(math.isfinite(v) for v in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"dist_train worker {w['rank']}: loss not "
+                                 f"finite and falling: {losses}")
+    if len({w["weights_sha256"] for w in workers}) != 1:
+        raise AssertionError("dist_train: the workers' final weights differ")
+    totals = {f: sum(sum(c[f] for c in w["launches_per_step"])
+                     for w in workers)
+              for f in ("twobit_compress", "twobit_decompress", "opt_adam")}
+    for w in workers:   # every step's launches were checked above
+        w["launches_per_step"] = w["launches_per_step"][0]
+    emit({"phase": "dist_train", "card": smi, "config": cfg,
+          **{k: v for k, v in d.items() if k != "timeout_s"},
+          "tokens_per_s_total": sum(w["tokens_per_s"] for w in workers),
+          "launches_per_step_per_worker": {
+              f: n_tensors if f != "opt_adam" else 1 for f in totals},
+          "launches_total": totals, "weights_equal": True,
+          "per_worker": workers})
+    return totals
+
+
 PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
-          "int8_gemm", "serve_int8")
+          "int8_gemm", "serve_int8", "decode", "twobit", "dist_check",
+          "dist_train")
 
 
 def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
                  library):
+    """One kernel's entry of the ``{"kernels": [...]}`` line."""
     return {"name": name, "route": "cuda",
             "source": f"mxnet_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms,
@@ -1179,7 +1820,14 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--phases", default=",".join(PHASES),
                    help="comma-separated subset of " + ",".join(PHASES))
-    phases = set(p.parse_args(argv).phases.split(","))
+    p.add_argument("--worker", choices=sorted(WORKERS),
+                   help="run as one worker process of a dist phase (the "
+                        "phase starts these itself)")
+    p.add_argument("--out", help="the worker's output directory")
+    args = p.parse_args(argv)
+    if args.worker:
+        return dist_worker(args.worker, args.out)
+    phases = set(args.phases.split(","))
     if phases - set(PHASES):
         raise SystemExit(f"unknown phases {sorted(phases - set(PHASES))}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1208,6 +1856,14 @@ def main(argv=None):
         done["serve_int8"], model = phase_serve_int8(smi, done.get("serve"))
         phase_profile(model, smi, phase="profile_int8")
         del model
+    if "decode" in phases:
+        done["decode"] = phase_decode()
+    if "twobit" in phases:
+        done["twobit"] = phase_twobit()
+    if "dist_check" in phases:
+        done["dist_check"] = phase_dist_check()
+    if "dist_train" in phases:
+        done["dist_train"] = phase_dist_train(smi)
     if set(done) != set(PHASES):
         print(f"phases run: {sorted(done)}; no result line", flush=True)
         return 1
@@ -1242,6 +1898,19 @@ def main(argv=None):
         "int8_gemm", "int8_gemm.cu", "mxnet_tpu/kernels/int8_gemm.py:86",
         done["serve_int8"]["int8_launches"], 0.0, k4["ms"], k4["plain_ms"],
         (k4["bound_ms"], k4["bound_by"]), k4["library_ms"]))
+    dec = done["decode"]
+    lines.append(_kernel_line(
+        "decode_attention", "decode_attention.cu",
+        "mxnet_tpu/kernels/decode_attention.py:98", dec["launches"],
+        dec["max_abs_err"], dec["ms"], dec["plain_ms"],
+        (dec["bound_ms"], dec["bound_by"]), dec["library_ms"]))
+    for family, part, line in (("twobit_compress", "compress", 73),
+                               ("twobit_decompress", "decompress", 102)):
+        t = done["twobit"][part]
+        lines.append(_kernel_line(
+            family, "twobit.cu", f"mxnet_tpu/kernels/twobit.py:{line}",
+            done["dist_train"][family], 0.0, t["ms"], t["plain_ms"],
+            (t["bound_ms"], t["bound_by"]), None))
     emit({"kernels": lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

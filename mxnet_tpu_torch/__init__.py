@@ -31,6 +31,8 @@ from . import io
 from . import model
 from . import contrib
 from . import optimizer
+from . import kvstore
+from . import kvstore as kv
 from . import parallel
 from . import serving
 from . import convert
@@ -38,5 +40,6 @@ from . import convert
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "autograd", "nd", "ndarray", "NDArray",
            "initializer", "init", "kernels", "name", "symbol", "sym",
-           "gluon", "io", "model", "contrib", "optimizer", "parallel",
+           "gluon", "io", "model", "contrib", "optimizer", "kvstore", "kv",
+           "parallel",
            "serving", "convert", "__version__"]

@@ -9,9 +9,12 @@ scope and ``pause()`` turns it off, so what is computed outside a
 recording builds no graph (MXNet semantics). Serving runs its forward
 under ``pause(train_mode=False)`` inside ``torch.inference_mode()``.
 
-Leaves are NDArrays with ``attach_grad()``. ``backward`` finds the leaves
-a head depends on by walking its ``grad_fn`` graph, and writes each
-leaf's gradient (``grad_req="write"``) or adds to it (``"add"``).
+Leaves are NDArrays with ``attach_grad()`` and, under ``record()``, the
+leaf views that trainable Parameters hand out (``gluon/parameter.py``).
+``backward`` finds the leaves a head depends on by walking its
+``grad_fn`` graph, writes each leaf's gradient into the leaf's own buffer
+(``grad_req="write"``) or adds to it (``"add"``), and marks it fresh for
+``gluon.Trainer``'s stale-gradient check.
 """
 from __future__ import annotations
 
@@ -123,20 +126,30 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
     if any(t.grad_fn is None and not t.requires_grad for t in tensors):
         raise ValueError("cannot differentiate a head that was not "
                          "recorded (did you forget autograd.record()?)")
-    seeds = None if head_grads is None else [
-        None if g is None else g._data for g in head_grads]
+    if head_grads is None:
+        head_grads = [None] * len(tensors)
+    # a head without a seed gets ones (MXNet: d(sum of the head))
+    seeds = [torch.ones_like(t) if g is None else g._data
+             for t, g in zip(tensors, head_grads)]
     leaves = [t for t in tensors if t.grad_fn is None] + _leaves(tensors)
     grads = torch.autograd.grad(tensors, leaves, grad_outputs=seeds,
                                 retain_graph=retain_graph,
                                 allow_unused=True)
-    for leaf, g in zip(leaves, grads):
-        if g is None:
-            continue
-        if getattr(leaf, "_mx_grad_req", "write") == "add" and \
-                leaf.grad is not None:
-            leaf.grad = leaf.grad + g
-        else:
-            leaf.grad = g
+    with torch.no_grad():
+        for leaf, g in zip(leaves, grads):
+            if g is None:
+                continue
+            # the leaf's own buffer, written in place: gradients handed
+            # out by the graph may alias one another or be broadcast views
+            buf = leaf.grad
+            if buf is None:
+                buf = leaf.grad = torch.zeros_like(
+                    leaf, memory_format=torch.contiguous_format)
+            if getattr(leaf, "_mx_grad_req", "write") == "add":
+                buf.add_(g)
+            else:
+                buf.copy_(g)
+            leaf._mx_fresh_grad = True
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,

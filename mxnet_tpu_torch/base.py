@@ -1,15 +1,25 @@
-"""Foundation helpers: the error type and dtype names.
+"""Foundation helpers: the error type, dtype names and the worker
+rendezvous.
 
 Counterpart of ``mxnet_tpu/base.py``. The port keeps its own copy of the
-pieces it needs: ``MXNetError`` and dtype canonicalisation, here mapping
-MXNet dtype names onto ``torch.dtype`` objects.
+pieces it needs: ``MXNetError``, dtype canonicalisation (here mapping
+MXNet dtype names onto ``torch.dtype`` objects) and
+``maybe_init_distributed`` (:285), which joins the worker group of a
+``dist_*`` kvstore.
 """
 from __future__ import annotations
+
+import datetime
+import os
 
 import numpy as _np
 import torch
 
-__all__ = ["MXNetError", "canonical_dtype", "dtype_name", "numpy_dtype"]
+__all__ = ["MXNetError", "canonical_dtype", "dtype_name", "numpy_dtype",
+           "maybe_init_distributed"]
+
+# how long a worker waits for the others at the rendezvous
+RENDEZVOUS_TIMEOUT_S = 300.0
 
 
 class MXNetError(RuntimeError):
@@ -55,3 +65,45 @@ def numpy_dtype(dtype):
     numpy type and widens to float32."""
     name = dtype_name(dtype)
     return _np.dtype("float32" if name == "bfloat16" else name)
+
+
+def maybe_init_distributed():
+    """Join the worker group of the ``dist_*`` kvstores and return
+    ``(rank, num_workers)``.
+
+    Workers are started with the environment that ``tools/launch.py``
+    sets: ``MXTPU_COORDINATOR`` (``host:port`` of rank 0's rendezvous),
+    ``MXTPU_NUM_WORKERS`` and ``MXTPU_WORKER_ID``. With more than one
+    worker this initialises ``torch.distributed`` with the gloo backend
+    over a TCP store at the coordinator (gloo carries CUDA tensors
+    through host memory, as MXNet 1.x's parameter server did; NCCL
+    refuses two ranks on one card). A group that is already initialised
+    is joined as it is. Without ``MXTPU_NUM_WORKERS`` above 1 the group
+    is this process alone. A group of several workers that cannot be
+    formed (no coordinator given, or none reachable within
+    ``RENDEZVOUS_TIMEOUT_S``) raises :class:`MXNetError`; it never
+    shrinks to one worker. Called when a ``dist_*`` store is created,
+    never at import."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    num = int(os.environ.get("MXTPU_NUM_WORKERS", "1"))
+    if num <= 1:
+        return 0, 1
+    coord = os.environ.get("MXTPU_COORDINATOR")
+    rank = int(os.environ.get("MXTPU_WORKER_ID", "0"))
+    if not coord:
+        raise MXNetError(f"MXTPU_NUM_WORKERS={num} but MXTPU_COORDINATOR is "
+                         "not set: a dist kvstore cannot form its group")
+    if not dist.is_available():
+        raise MXNetError("torch.distributed is not available in this build "
+                         "of PyTorch: a dist kvstore cannot form its group")
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://{coord}", world_size=num, rank=rank,
+            timeout=datetime.timedelta(seconds=RENDEZVOUS_TIMEOUT_S))
+    except (RuntimeError, ValueError, OSError) as e:
+        raise MXNetError(f"worker {rank} of {num} could not join the group "
+                         f"at {coord}: {e}") from e
+    return rank, num

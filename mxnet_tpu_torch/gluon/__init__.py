@@ -2,6 +2,7 @@
 from . import contrib, loss, nn
 from .block import Block, HybridBlock, SymbolBlock
 from .parameter import Parameter, ParameterDict
+from .trainer import Trainer
 
 __all__ = ["nn", "contrib", "loss", "Block", "HybridBlock", "SymbolBlock",
-           "Parameter", "ParameterDict"]
+           "Parameter", "ParameterDict", "Trainer"]

@@ -4,6 +4,11 @@ Counterpart of ``mxnet_tpu/gluon/parameter.py``: a Parameter holds one
 NDArray handle over a ``torch.Tensor``; shape dims of 0 are unknown and
 resolved at the first forward (deferred initialization).
 
+A trainable parameter's data is a plain tensor. Under
+``autograd.record()`` ``data()`` returns a leaf view of it that requires
+grad, so ``backward`` writes the parameter's gradient buffer
+(``grad()``) while every other reader sees no autograd state.
+
 ``substitute({param: ndarray})`` makes ``param.data()`` return other
 values on the calling thread only, for the duration of a ``with``. The
 serving layer runs a block on its snapshot of the weights this way
@@ -18,6 +23,7 @@ from contextlib import contextmanager
 import numpy as _np
 import torch
 
+from .. import autograd
 from .. import initializer as init_mod
 from ..base import MXNetError, canonical_dtype
 from ..context import Context, cpu, current_context
@@ -50,18 +56,39 @@ class Parameter:
     forward."""
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
-                 init=None, allow_deferred_init=False, differentiable=True):
+                 lr_mult=1.0, wd_mult=1.0, init=None,
+                 allow_deferred_init=False, differentiable=True):
         self.name = name
+        self._data = None            # NDArray
+        self._deferred_init = None   # (init, ctx, default_init, generator)
+        self._leaf = None            # (data tensor, its gradient leaf)
         self.grad_req = grad_req if differentiable else "null"
         self._differentiable = differentiable
         if isinstance(shape, int):
             shape = (shape,)
         self._shape = tuple(shape) if shape is not None else None
         self.dtype = canonical_dtype(dtype)
+        self.lr_mult = lr_mult
+        self.wd_mult = wd_mult
         self.init = init
         self.allow_deferred_init = allow_deferred_init
-        self._data = None            # NDArray
-        self._deferred_init = None   # (init, ctx, default_init, generator)
+
+    @property
+    def grad_req(self):
+        """``"write"``, ``"add"`` or ``"null"``: how ``backward`` treats
+        this parameter's gradient buffer."""
+        return self._grad_req
+
+    @grad_req.setter
+    def grad_req(self, req):
+        if req not in ("write", "add", "null"):
+            raise ValueError(f"grad_req must be write, add or null, got "
+                             f"{req!r}")
+        self._grad_req = req
+        if req == "null":
+            self._leaf = None
+        elif self._leaf is not None:
+            self._leaf[1]._mx_grad_req = req
 
     @property
     def shape(self):
@@ -130,6 +157,11 @@ class Parameter:
         if subs is not None and self in subs:
             return subs[self]
         if self._data is not None:
+            # a data tensor that already requires grad (the caller runs
+            # autograd on it directly) is its own leaf
+            if self._grad_req != "null" and autograd.is_recording() and \
+                    not self._data._data.requires_grad:
+                return NDArray(self._grad_leaf())
             return self._data
         if self._deferred_init is not None:
             raise DeferredInitializationError(
@@ -137,6 +169,55 @@ class Parameter:
                 "because its shape is unknown; run a forward pass first")
         raise RuntimeError(f"Parameter {self.name!r} has not been "
                            "initialized; call initialize() first")
+
+    def _grad_leaf(self):
+        """The tensor ``backward`` differentiates: a view of the data
+        (same storage, so in-place updates show through) that requires
+        grad and owns the gradient buffer. Made at first use and again
+        when ``set_data`` replaced the data tensor, keeping the buffer.
+        The data tensor itself never carries autograd state."""
+        base = self._data._data
+        if self._leaf is None or self._leaf[0] is not base:
+            leaf = base.detach().requires_grad_(True)
+            leaf._mx_grad_req = self._grad_req
+            if self._leaf is not None:
+                old = self._leaf[1]
+                if old.grad is not None and old.grad.shape == leaf.shape \
+                        and old.grad.dtype == leaf.dtype:
+                    leaf.grad = old.grad
+                leaf._mx_fresh_grad = getattr(old, "_mx_fresh_grad", False)
+            self._leaf = (base, leaf)
+        return self._leaf[1]
+
+    def grad(self, ctx=None) -> NDArray:
+        """The gradient buffer ``backward`` writes into (zeros until the
+        first backward)."""
+        self.data()
+        if self._grad_req == "null" or \
+                not self._data._data.is_floating_point():
+            raise RuntimeError(f"Cannot get gradient array for Parameter "
+                               f"{self.name!r} because grad_req='null'")
+        return NDArray(self._grad_leaf()).grad
+
+    @property
+    def _fresh_grad(self):
+        """Whether ``backward`` wrote the gradient since the last
+        ``gluon.Trainer`` update (the stale-gradient check)."""
+        return self._leaf is not None and \
+            getattr(self._leaf[1], "_mx_fresh_grad", False)
+
+    @_fresh_grad.setter
+    def _fresh_grad(self, value):
+        if self._leaf is not None:
+            self._leaf[1]._mx_fresh_grad = bool(value)
+
+    def list_grad(self):
+        return [self.grad()]
+
+    def zero_grad(self):
+        """Set the gradient buffer to zeros (it stays allocated)."""
+        if self._leaf is not None and self._leaf[1].grad is not None:
+            self._leaf[1].grad.zero_()
 
     def set_data(self, data):
         """Overwrite the value, keeping the parameter's device. A
@@ -147,16 +228,17 @@ class Parameter:
         if self._data is None and self._deferred_init is not None:
             self.shape = tuple(tensor.shape)
             ctx = self._deferred_init[1]
-            self._data = NDArray(tensor.to(device=ctx.torch_device(),
-                                           dtype=self.dtype, copy=True))
+            self._data = NDArray(tensor.detach().to(
+                device=ctx.torch_device(), dtype=self.dtype, copy=True))
             self._deferred_init = None
             return
-        cur = self.data()
+        with autograd.pause():
+            cur = self.data()
         if tuple(tensor.shape) != cur.shape:
             raise ValueError(f"Parameter {self.name!r}: set_data shape "
                              f"{tuple(tensor.shape)} != {cur.shape}")
-        cur._rebind(tensor.to(device=cur._data.device, dtype=self.dtype,
-                              copy=True))
+        cur._rebind(tensor.detach().to(device=cur._data.device,
+                                       dtype=self.dtype, copy=True))
 
     def var(self):
         """This parameter as a graph input (``export`` traces blocks with
@@ -227,6 +309,10 @@ class ParameterDict:
                 raise ValueError("Cannot update self with other because they "
                                  f"have different Parameters named {k!r}")
             self._params[k] = v
+
+    def zero_grad(self):
+        for p in self._params.values():
+            p.zero_grad()
 
     def initialize(self, init=None, ctx=None, generator=None,
                    force_reinit=False):

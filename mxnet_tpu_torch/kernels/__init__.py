@@ -85,3 +85,5 @@ def reset_launch_counts():
 from . import flash  # noqa: E402,F401  (flash_attention, its backward)
 from . import opt_step  # noqa: E402,F401  (opt_sgd, opt_adam)
 from . import int8_gemm  # noqa: E402,F401  (int8_gemm)
+from . import decode_attention  # noqa: E402,F401  (decode_attention)
+from . import twobit  # noqa: E402,F401  (twobit_compress, twobit_decompress)

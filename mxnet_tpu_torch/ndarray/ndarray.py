@@ -37,8 +37,11 @@ def _to_tensor(data, ctx, dtype):
     if not arr.flags.writeable:  # torch.from_numpy shares the buffer
         arr = arr.copy()
     t = torch.from_numpy(arr)
+    # a copy on the CPU too, as MXNet's: updates in place (optimizers,
+    # copyto, the kvstore) must not write into the caller's numpy array
     return t.to(device=device,
-                dtype=canonical_dtype(dtype) if dtype else t.dtype)
+                dtype=canonical_dtype(dtype) if dtype else t.dtype,
+                copy=True)
 
 
 class NDArray:
@@ -85,9 +88,11 @@ class NDArray:
 
     def asnumpy(self) -> _np.ndarray:
         """Copy to host (waits for the device); bfloat16 widens to
-        float32."""
+        float32. A copy on the CPU too: later updates in place do not show
+        through."""
         t = self._data.detach()
-        return t.to("cpu", dtype=canonical_dtype(numpy_dtype(t.dtype))).numpy()
+        return t.to("cpu", dtype=canonical_dtype(numpy_dtype(t.dtype)),
+                    copy=True).numpy()
 
     def asscalar(self):
         """The value of a one-element array as a Python number."""
@@ -106,6 +111,23 @@ class NDArray:
         if ctx == self.context:
             return self
         return NDArray(self._data.to(ctx.torch_device()))
+
+    def copyto(self, other):
+        """Copy the values into ``other``, an NDArray of the same shape,
+        in place (its device and dtype stay), and return it; or onto a
+        Context, as a new array."""
+        if isinstance(other, Context):
+            return NDArray(self._data.detach().to(other.torch_device(),
+                                                  copy=True))
+        if not isinstance(other, NDArray):
+            raise TypeError(f"copyto target must be NDArray or Context, got "
+                            f"{type(other)}")
+        if other.shape != self.shape:
+            raise ValueError(f"copyto: shape {self.shape} into "
+                             f"{other.shape}")
+        with torch.no_grad():
+            other._data.copy_(self._data)
+        return other
 
     def astype(self, dtype) -> "NDArray":
         return NDArray(self._data.to(canonical_dtype(dtype)))
@@ -175,8 +197,14 @@ class NDArray:
 
     @property
     def grad(self):
-        g = self._data.grad if self._data.requires_grad else None
-        return None if g is None else NDArray(g)
+        """The gradient buffer that ``backward`` writes into: zeros until
+        the first backward, None without ``attach_grad``."""
+        if not self._data.requires_grad:
+            return None
+        if self._data.grad is None:
+            self._data.grad = torch.zeros_like(
+                self._data, memory_format=torch.contiguous_format)
+        return NDArray(self._data.grad)
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
         from .. import autograd

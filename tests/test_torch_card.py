@@ -1,4 +1,4 @@
-"""Card tests of the training slice's kernels, marked ``gpu``: they skip
+"""Card tests of the port's kernels, marked ``gpu``: they skip
 without a card (decided in a fixture) and import nothing of JAX, so they
 run on a machine that has only PyTorch:
 
@@ -10,7 +10,10 @@ run on a machine that has only PyTorch:
 * the flash backward kernels against their plain versions;
 * the fused SGD-momentum and Adam kernels bit for bit against theirs;
 * the int8 GEMM kernel bit for bit against its plain version, and a
-  quantized FullyConnected on the card equal to the same op on the CPU.
+  quantized FullyConnected on the card equal to the same op on the CPU;
+* the decode-attention kernel through ``nd.contrib.decode_attention``
+  against its plain version, and the 2-bit compress and decompress
+  kernels bit for bit against theirs.
 """
 import math
 
@@ -21,7 +24,7 @@ import torch
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import kernels, nd
 from mxnet_tpu_torch.gluon.contrib import nn as cnn
-from mxnet_tpu_torch.kernels import flash, int8_gemm
+from mxnet_tpu_torch.kernels import decode_attention, flash, int8_gemm, twobit
 from mxnet_tpu_torch.ops import registry as reg
 
 F32_TOL, BF16_TOL = 2e-5, 2e-2
@@ -190,3 +193,67 @@ def test_quantized_fully_connected_on_card_equals_cpu(cuda_device):
     assert kernels.launch_counts()["int8_gemm"] == before + 1
     assert got.shape == (4, 128, 3072)
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,dtype", [
+    ((32, 12, 1024, 64), torch.float32), ((32, 12, 1024, 64), torch.bfloat16),
+    ((4, 12, 1000, 64), torch.float32), ((3, 5, 77, 8), torch.float32),
+    ((2, 4, 300, 128), torch.bfloat16), ((2, 2, 129, 256), torch.float32),
+    ((1, 1, 1, 64), torch.float32)])
+def test_decode_kernel_matches_plain_on_card(cuda_device, shape, dtype):
+    """K5 through ``nd.contrib.decode_attention`` against the plain
+    version, ragged lengths from 1 to S; cache rows past a length do not
+    reach the output."""
+    b, h, s, d = shape
+    rs = np.random.RandomState(s + d)
+    q, k, v = (torch.from_numpy(rs.randn(*sh).astype(np.float32))
+               .to(cuda_device, dtype)
+               for sh in ((b, h, d), (b, h, s, d), (b, h, s, d)))
+    lengths = torch.from_numpy(rs.randint(1, s + 1, b).astype(np.int32))
+    lengths[0], lengths[-1] = 1, s
+    lengths = lengths.to(cuda_device)
+    before = kernels.launch_counts()["decode_attention"]
+    got = nd.contrib.decode_attention(*(mx.nd.NDArray(t)
+                                        for t in (q, k, v, lengths)))._data
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["decode_attention"] == before + 1
+    want = decode_attention.decode_attention_plain(q, k, v, lengths,
+                                                   1 / math.sqrt(d))
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if s > 1:
+        k2, v2 = k.clone(), v.clone()
+        k2[0, :, 1:], v2[0, :, 1:] = 1e4, -1e4   # row 0 has length 1
+        moved = decode_attention.decode_attention(q, k2, v2,
+                                                  lengths, 1 / math.sqrt(d))
+        assert torch.equal(moved[0], got[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 127, 4097, 1 << 20])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_twobit_kernels_are_bitwise_the_plain_versions(cuda_device, n,
+                                                       offset):
+    """K6 and K7 with torch.equal against their plain versions, aligned
+    (16-byte accesses) and offset by one element (one at a time), on
+    int8 codes, their int8 sum in [-2, 2] and an int32 sum."""
+    rs = np.random.RandomState(n + offset)
+    g, r = (torch.from_numpy((rs.randn(n + offset) * sc).astype(np.float32))
+            .to(cuda_device)[offset:] for sc in (0.4, 0.2))
+    g[0], r[0] = 0.5, 0.0   # exactly at the threshold
+    before = kernels.launch_counts()
+    codes, res = twobit.twobit_compress(g, r, 0.5)
+    want_codes, want_res = twobit.twobit_compress_plain(g, r, 0.5)
+    summed = (codes.to(torch.int32) + want_codes.flip(0).to(torch.int32))
+    outs = [(twobit.twobit_decompress(c, 0.5), twobit.twobit_decompress_plain(
+        c, 0.5)) for c in (codes, summed.to(torch.int8), summed * 3)]
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["twobit_compress"] == before["twobit_compress"] + 1
+    assert after["twobit_decompress"] == before["twobit_decompress"] + 3
+    assert codes.dtype == torch.int8 and int(codes[0]) == 1
+    assert torch.equal(codes, want_codes) and torch.equal(res, want_res)
+    for got, want in outs:
+        assert torch.equal(got, want)
