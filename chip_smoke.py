@@ -48,10 +48,18 @@ Phases, each printing one JSON line:
    ``torch.profiler`` split of one step's device time.
 10. int8_gemm: holds the int8 GEMM kernel (K4) bit for bit
     (``torch.equal``) against its plain version on every product shape
-    of a served int8 batch, on ragged shapes with and without bias and
-    relu, per-channel and scalar scales, and where |acc| passes 2**24;
-    then times the kernel, the plain version and ``torch._int_mm`` +
-    the epilogue (a yardstick only) at each shape of the path.
+    of a served int8 batch, on ragged and tile-edge shapes and operands
+    at a 1-byte offset, with and without bias and relu, per-channel and
+    scalar scales, and where |acc| passes 2**24; each case at both output
+    tile widths and on the path it must take (cp.async copies, or the
+    staged byte loads for ragged K and unaligned operands). Then it
+    times the kernel, its plain version and ``torch._int_mm`` + the
+    epilogue (a yardstick only) at each shape of the path by CUDA events
+    over back-to-back calls (``ms``, ``plain_ms``, ``library_ms``, as
+    every kernel here), the kernel and the yardstick also by the
+    profiler's sum of kernel time (``device_ms``, ``library_device_ms``:
+    where a call's host work outlasts its kernels, events time the
+    host), and both output tile widths at the three layer shapes.
 11. serve_int8: bert_base_sst2_int8_serve. The serve phase's classifier
     with ``gluon.nn.Embedding`` (exportable) is exported, calibrated on
     the card (naive, 64 rows of ``make_task``) and quantized by
@@ -61,10 +69,10 @@ Phases, each printing one JSON line:
     checked against the int8 graph evaluated directly on the card, one
     request against a CPU copy of the int8 graph, and compared with the
     float32 block (class agreement, logit gap); the launch counts must
-    be 74 int8 GEMMs and 12 flash forwards per batch. Then the float32
-    block and the int8 graph take turns under the same traffic in one
-    server (five bursts each, ABBA order), and a bucket-32 int8 batch is
-    profiled (profile_int8).
+    be 74 int8 GEMMs per batch, all on the kernel's cp.async path, and 12
+    flash forwards. Then the float32 block and the int8 graph take turns
+    under the same traffic in one server (five bursts each, ABBA order),
+    and a bucket-32 int8 batch is profiled (profile_int8).
 12. decode: the decode-attention kernel (K5) through
     ``mx.nd.contrib.decode_attention`` at BERT-base / GPT-2-small head
     geometry (q (32, 12, 64) against a (32, 12, 1024, 64) cache, ragged
@@ -107,6 +115,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -122,8 +131,8 @@ import torch
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import kernels, serving
 from mxnet_tpu_torch.convert import export_params, load_jax_params
-from mxnet_tpu_torch.kernels import build, decode_attention, flash, opt_step
-from mxnet_tpu_torch.kernels import twobit
+from mxnet_tpu_torch.kernels import build, decode_attention, flash, int8_gemm
+from mxnet_tpu_torch.kernels import opt_step, twobit
 from mxnet_tpu_torch.parallel import DeviceMesh, ShardedTrainer
 
 BERT_BASE = {"vocab": 30522, "units": 768, "hidden": 3072, "heads": 12,
@@ -288,6 +297,29 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=20, warmup=3):
+    """Mean device milliseconds of ``fn()`` over ``iters`` calls: the
+    summed time of the kernels it launches, from ``torch.profiler``, with
+    neither host time nor the gaps between kernels. Where ``fn`` costs
+    the host more than the card, ``cuda_ms`` measures the host."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    if us <= 0:
+        raise AssertionError("torch.profiler recorded no device time")
+    return us / 1e3 / iters
+
+
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -309,9 +341,15 @@ def phase_build():
     wall = time.perf_counter() - t0
     for name, r in report.items():
         ptxas = [ln.strip() for ln in r["ptxas"].splitlines()
-                 if "registers" in ln or "spill" in ln]
+                 if "registers" in ln or "spill" in ln
+                 or "entry function" in ln]
         emit({"phase": "build", "kernel": name, "seconds": r["seconds"],
               "ptxas": ptxas})
+    spills = [int(b) for b in re.findall(r"(\d+) bytes spill",
+                                         report["int8_gemm"]["ptxas"])]
+    if not spills or any(spills):
+        raise AssertionError(f"int8_gemm spills registers (or ptxas gave "
+                             f"no report): {spills}")
     emit({"phase": "build", "kernels": sorted(report), "wall_s": wall})
 
 
@@ -961,6 +999,11 @@ INT8_LAYER_SHAPES = [(4096, 768, 768)] * 4 + [(4096, 768, 3072),
 INT8_HEAD_SHAPES = [(32, 768, 768), (32, 768, 2)]
 INT8_RAGGED = [(m, k, n) for m in (1, 17, 129) for k in (1, 5, 130)
                for n in (1, 3, 129)]
+# the edges of the kernel's 128-row, 64- or 128-column and 64-byte k tiles
+INT8_TILE_EDGES = [(127, 64, 129), (4095, 784, 768), (256, 3072, 3072),
+                   (128, 16, 128), (128, 48, 8)]
+# (M, K, N) and which operand lies at a 1-byte offset in its buffer
+INT8_UNALIGNED = [((4096, 768, 768), "qx"), ((127, 64, 129), "weight")]
 INT8_LAUNCHES = len(INT8_LAYER_SHAPES) * BERT_BASE["layers"] + \
     len(INT8_HEAD_SHAPES)   # 74 per served batch
 
@@ -1005,64 +1048,120 @@ def _int_mm_epilogue(qx, w, scale, bias):
     return acc.to(torch.float32) * scale + bias
 
 
+def _unaligned(t):
+    """A copy of ``t`` that starts one byte into its buffer."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 def phase_int8_gemm():
     """K4 against its plain version with ``torch.equal`` on the int8
-    batch's shapes and on ragged ones, with and without bias and relu,
-    per-channel and scalar scales, and large |acc|; then CUDA-event times
-    of the kernel, the plain version and ``torch._int_mm`` + epilogue at
-    each distinct shape of the path."""
+    batch's shapes, on ragged and tile-edge shapes and on unaligned
+    operands, with and without bias and relu, per-channel and scalar
+    scales, and large |acc|; each case at both output tile widths, and
+    each on the path it must take (cp.async or staged). Then, at each
+    distinct shape of the path, CUDA-event times of the kernel, the
+    plain version and ``torch._int_mm`` + epilogue, device times
+    (``device_ms``) of the kernel and the yardstick, and both tile
+    widths' times at the layer shapes, in the order 64, 128, 128, 64."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(4)
     e = kernels.entry("int8_gemm")
+    opts3 = [{"bias": bias, "relu": relu, "per_channel": pc}
+             for bias, relu, pc in ((True, False, True), (False, True, False),
+                                    (True, True, True))]
     cases = [(shape, {}) for shape in sorted(set(INT8_LAYER_SHAPES))
              + INT8_HEAD_SHAPES]
-    cases += [(shape, {"bias": bias, "relu": relu, "per_channel": pc})
-              for shape in INT8_RAGGED for bias, relu, pc in
-              ((True, False, True), (False, True, False),
-               (True, True, True))]
+    cases += [(shape, o) for shape in INT8_RAGGED + INT8_TILE_EDGES
+              for o in opts3]
+    cases += [(shape, dict(o, unaligned=which))
+              for shape, which in INT8_UNALIGNED for o in opts3]
     cases += [((129, 3072, 65), {"big": True}),
               ((64, 3072, 64), {"big": True, "relu": True})]
-    n_checked = 0
+    by_path = {"async": 0, "staged": 0}
     for (m, k, n), opts in cases:
         relu = opts.get("relu", False)
         qx, w, scale, b = _int8_inputs(m, k, n, gen, dev,
                                        opts.get("per_channel", True),
                                        opts.get("bias", True),
                                        opts.get("big", False))
-        got = e.kernel(qx, w, scale, bias=b, relu=relu)
-        torch.cuda.synchronize()
+        if opts.get("unaligned") == "qx":
+            qx = _unaligned(qx)
+        elif opts.get("unaligned") == "weight":
+            w = _unaligned(w)
+        path = "async" if k % 16 == 0 and "unaligned" not in opts \
+            else "staged"
         want = e.plain(qx, w, scale, bias=b, relu=relu)
-        if not torch.equal(got, want):
-            raise AssertionError(
-                f"int8_gemm differs from the plain version at {(m, k, n)} "
-                f"{opts}: max abs {(got - want).abs().max().item()}")
-        n_checked += 1
-    emit({"phase": "int8_gemm", "cases": n_checked, "bitwise_equal": True,
-          "shapes": [[m, k, n] for (m, k, n), _ in cases]})
+        for tile_n in (64, 128):
+            before = dict(e.kernel.launches_by_path)
+            got = e.kernel(qx, w, scale, bias=b, relu=relu, tile_n=tile_n)
+            torch.cuda.synchronize()
+            if e.kernel.launches_by_path[path] != before[path] + 1:
+                raise AssertionError(f"int8_gemm at {(m, k, n)} {opts} did "
+                                     f"not take the {path} path")
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"int8_gemm ({path}, tile 128 x {tile_n}) differs from "
+                    f"the plain version at {(m, k, n)} {opts}: max abs "
+                    f"{(got - want).abs().max().item()}")
+            by_path[path] += 1
+    emit({"phase": "int8_gemm", "cases": len(cases),
+          "launches_checked": by_path, "bitwise_equal": True,
+          "shapes": sorted({(m, k, n) for (m, k, n), _ in cases})})
 
     per_shape = {}
     for m, k, n in sorted(set(INT8_LAYER_SHAPES)) + INT8_HEAD_SHAPES:
         qx, w, scale, b = _int8_inputs(m, k, n, gen, dev)
         bound, bound_by = int8_bound(m, k, n)
+        # ms, plain_ms and library_ms by CUDA events over back-to-back
+        # calls, as every kernel of this script is timed; where a call's
+        # host work outlasts its kernels they time the host, so the
+        # profiler's sums of kernel time are reported beside them
         per_shape[(m, k, n)] = {
             "ms": cuda_ms(lambda: e.kernel(qx, w, scale, bias=b)),
+            "device_ms": device_ms(lambda: e.kernel(qx, w, scale, bias=b)),
             "plain_ms": cuda_ms(lambda: e.plain(qx, w, scale, bias=b)),
             "library_ms": cuda_ms(lambda: _int_mm_epilogue(qx, w, scale, b)),
+            "library_device_ms": device_ms(
+                lambda: _int_mm_epilogue(qx, w, scale, b)),
             "bound_ms": bound, "bound_by": bound_by}
-        emit({"phase": "int8_gemm_timing", "shape_mkn": [m, k, n],
-              **per_shape[(m, k, n)],
-              "kernel_tops": 2 * m * n * k / per_shape[(m, k, n)]["ms"] / 1e9})
+        extra = {"config": int8_gemm.tile_config(m, n)}
+        if (m, k, n) in INT8_LAYER_SHAPES:
+            # both tile widths in turns; pick_tile is held to these
+            by_tile = {"128x64": [], "128x128": []}
+            ev_tile = {"128x64": [], "128x128": []}
+            for t in (64, 128, 128, 64):
+                by_tile[f"128x{t}"].append(device_ms(
+                    lambda: e.kernel(qx, w, scale, bias=b, tile_n=t)))
+                ev_tile[f"128x{t}"].append(cuda_ms(
+                    lambda: e.kernel(qx, w, scale, bias=b, tile_n=t)))
+            extra["device_ms_by_tile"] = by_tile
+            extra["ms_by_tile"] = ev_tile
+            extra["blocks_per_sm_by_tile"] = {
+                f"128x{t}": int8_gemm.tile_config(m, n, t)["blocks_per_sm"]
+                for t in (64, 128)}
+        ops = 2 * m * n * k
+        t = per_shape[(m, k, n)]
+        emit({"phase": "int8_gemm_timing", "shape_mkn": [m, k, n], **t,
+              **extra, "kernel_tops": ops / t["device_ms"] / 1e9,
+              "library_tops": ops / t["library_device_ms"] / 1e9})
     # one bucket-32 batch: 12 layers of the six products, pooler and head
     launches = [s for s in INT8_LAYER_SHAPES
                 for _ in range(BERT_BASE["layers"])] + INT8_HEAD_SHAPES
     batch = {key: sum(per_shape[s][key] for s in launches)
-             for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+             for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                         "library_device_ms", "bound_ms")}
     t_ops = sum(2 * m * n * k for m, k, n in launches) / H100_INT8_OPS
     t_bytes = sum(m * k + n * k + 8 * n + 4 * m * n
                   for m, k, n in launches) / H100_BYTES_S
     batch["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     emit({"phase": "int8_gemm_batch", "launches": len(launches), **batch,
+          "ms_over_bound": batch["ms"] / batch["bound_ms"],
+          "ms_over_library": batch["ms"] / batch["library_ms"],
+          "device_ms_over_bound": batch["device_ms"] / batch["bound_ms"],
           "library": "torch._int_mm (cuBLAS int8, N padded to 8) + the "
                      "same epilogue in PyTorch; a yardstick only"})
     return batch
@@ -1131,7 +1230,9 @@ def phase_serve_int8(smi, float_serve=None):
             payloads)
 
     rows = sum(x.shape[0] for row in payloads for x in row)
+    # every int8 product of every served batch on the cp.async path
     want_counts = {"int8_gemm": INT8_LAUNCHES * stats["batches"],
+                   "int8_gemm.async": INT8_LAUNCHES * stats["batches"],
                    "flash_attention": cfg["layers"] * stats["batches"]}
     got_counts = {k: counts[k] for k in want_counts}
     if got_counts != want_counts or calib_counts["int8_gemm"]:

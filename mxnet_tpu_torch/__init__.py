@@ -17,6 +17,7 @@ __version__ = "0.1.0"
 from .base import MXNetError
 from .context import Context, cpu, current_context, gpu, num_gpus
 from . import autograd
+from . import random
 from . import ndarray
 from . import ndarray as nd
 from .ndarray import NDArray
@@ -38,8 +39,7 @@ from . import serving
 from . import convert
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
-           "current_context", "autograd", "nd", "ndarray", "NDArray",
-           "initializer", "init", "kernels", "name", "symbol", "sym",
-           "gluon", "io", "model", "contrib", "optimizer", "kvstore", "kv",
-           "parallel",
-           "serving", "convert", "__version__"]
+           "current_context", "autograd", "random", "nd", "ndarray",
+           "NDArray", "initializer", "init", "kernels", "name", "symbol",
+           "sym", "gluon", "io", "model", "contrib", "optimizer", "kvstore",
+           "kv", "parallel", "serving", "convert", "__version__"]

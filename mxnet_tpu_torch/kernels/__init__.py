@@ -4,7 +4,9 @@ Counterpart of ``mxnet_tpu/kernels/__init__.py``, reduced to one rule.
 Each op family registers
 
 * ``kernel``: the wrapper of a kernel written by hand for Hopper, which
-  takes CUDA tensors only and counts its launches in ``kernel.launches``;
+  takes CUDA tensors only and counts its launches in ``kernel.launches``
+  (and, where the kernel has more than one path, by path in the dict
+  ``kernel.launches_by_path``);
 * ``plain``: a plain PyTorch version of the same function.
 
 ``dispatch(family, *args, ...)`` sends CPU tensors to the plain
@@ -73,13 +75,22 @@ def dispatch(family, *args, **kwargs):
 
 
 def launch_counts():
-    """``{family: launches}`` of every registered kernel wrapper."""
-    return {f: e.kernel.launches for f, e in sorted(_FAMILIES.items())}
+    """``{family: launches}`` of every registered kernel wrapper, and
+    ``{"family.path": launches}`` for a wrapper that counts by path."""
+    counts = {}
+    for f, e in sorted(_FAMILIES.items()):
+        counts[f] = e.kernel.launches
+        for path, n in getattr(e.kernel, "launches_by_path", {}).items():
+            counts[f"{f}.{path}"] = n
+    return counts
 
 
 def reset_launch_counts():
     for e in _FAMILIES.values():
         e.kernel.launches = 0
+        paths = getattr(e.kernel, "launches_by_path", {})
+        for path in paths:
+            paths[path] = 0
 
 
 from . import flash  # noqa: E402,F401  (flash_attention, its backward)

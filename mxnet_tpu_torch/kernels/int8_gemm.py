@@ -32,21 +32,37 @@ import torch
 
 from . import build
 
-__all__ = ["int8_gemm", "int8_gemm_plain"]
+__all__ = ["int8_gemm", "int8_gemm_plain", "tile_config"]
 
-_fn = []
+_lib_cache = []
 
 
-def _launcher():
-    if not _fn:
-        fn = build.library("int8_gemm").mxtt_int8_gemm
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn.append(fn)
-    return _fn[0]
+def _lib():
+    if not _lib_cache:
+        lib = build.library("int8_gemm")
+        ptr, i = ctypes.c_void_p, ctypes.c_int
+        gemm = [ptr, ptr, ptr, i, ptr, i, ptr, i, i, i]
+        for name, args in (("mxtt_int8_gemm", gemm + [ptr]),
+                           ("mxtt_int8_gemm_tile",
+                            gemm + [i, ptr, ctypes.POINTER(i)]),
+                           ("mxtt_int8_gemm_pick_tile", [i, i]),
+                           ("mxtt_int8_gemm_blocks_per_sm", [i])):
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        _lib_cache.append(lib)
+    return _lib_cache[0]
+
+
+def tile_config(m, n, tile_n=0):
+    """The kernel's output tile width for an (m, n) output (``tile_n``
+    when given, else the kernel's own choice) and how many of its blocks
+    fit on one SM at once (the CUDA occupancy calculator, cp.async path).
+    Needs the card."""
+    lib = _lib()
+    tile_n = tile_n or lib.mxtt_int8_gemm_pick_tile(m, n)
+    return {"tile": [128, tile_n],
+            "blocks_per_sm": lib.mxtt_int8_gemm_blocks_per_sm(tile_n)}
 
 
 def int8_gemm_plain(qx, weight, scale_eff, bias=None, relu=False):
@@ -61,19 +77,23 @@ def int8_gemm_plain(qx, weight, scale_eff, bias=None, relu=False):
 
 
 def _check(qx, weight, scale_eff, bias):
-    dev = qx.device
+    # get_device() is the card's index (-1 on the CPU), read without
+    # building a torch.device: this runs 74 times per served int8 batch
+    index = qx.get_device()
     if qx.ndim != 2 or weight.ndim != 2 or qx.shape[1] != weight.shape[1]:
         raise ValueError(f"int8_gemm: expects qx (M, K) and weight (N, K), "
                          f"got {tuple(qx.shape)} and {tuple(weight.shape)}")
     n = weight.shape[0]
-    named = [("qx", qx, torch.int8), ("weight", weight, torch.int8),
-             ("scale_eff", scale_eff, torch.float32)]
-    if bias is not None:
-        named.append(("bias", bias, torch.float32))
-    for name, t, dtype in named:
-        if t.device.type != "cuda" or t.device != dev:
+    for name, t, dtype in (("qx", qx, torch.int8),
+                           ("weight", weight, torch.int8),
+                           ("scale_eff", scale_eff, torch.float32),
+                           ("bias", bias, torch.float32)):
+        if t is None:
+            continue
+        if index < 0 or t.get_device() != index:
             raise ValueError(f"int8_gemm: {name} is on {t.device}; all "
-                             f"tensors must be on one CUDA card ({dev})")
+                             f"tensors must be on one CUDA card "
+                             f"({qx.device})")
         if t.dtype != dtype:
             raise ValueError(f"int8_gemm: {name} is {t.dtype}, the kernel "
                              f"takes {dtype}")
@@ -86,35 +106,58 @@ def _check(qx, weight, scale_eff, bias):
     if max(qx.shape[0], n, qx.shape[1]) >= 2 ** 31:
         raise ValueError(f"int8_gemm: dims {tuple(qx.shape)} x {n} exceed "
                          "the kernel's int range")
+    return index
 
 
-def int8_gemm(qx, weight, scale_eff, bias=None, relu=False):
+def int8_gemm(qx, weight, scale_eff, bias=None, relu=False, tile_n=0):
     """One launch of ``csrc/int8_gemm.cu`` on the current stream; CUDA
-    tensors only."""
-    _check(qx, weight, scale_eff, bias)
+    tensors only. ``tile_n`` (64 or 128) forces the output tile's width,
+    for timing the two against each other; the port leaves it 0, the
+    kernel's own choice. Counts the launch in ``int8_gemm.launches`` and,
+    by the path the launch reports, in ``int8_gemm.launches_by_path``:
+    "async" (cp.async copies into the pipeline: K a multiple of 16 and
+    both operands 16-byte aligned) or "staged" (byte loads through
+    registers).
+
+    The served int8 encoder calls this 74 times a batch, and at its
+    shapes the host's part of a call takes about as long as the kernel:
+    so the wrapper makes one foreign call, reads the raw stream handle,
+    and takes a device guard only when the operands are not on the
+    current card."""
+    index = _check(qx, weight, scale_eff, bias)
     m, k = qx.shape
     n = weight.shape[0]
-    out = torch.empty((m, n), dtype=torch.float32, device=qx.device)
+    out = qx.new_empty((m, n), dtype=torch.float32)
     if m == 0 or n == 0:
         return out
-    qx, weight = qx.contiguous(), weight.contiguous()
-    scale = scale_eff.reshape(-1).contiguous()
-    bias = None if bias is None else bias.reshape(-1).contiguous()
-    with torch.cuda.device(qx.device):
-        rc = _launcher()(
-            qx.data_ptr(), weight.data_ptr(), scale.data_ptr(),
+    # a contiguous scale of 1 or n elements, and bias of n, are read flat
+    qx, weight, scale = qx.contiguous(), weight.contiguous(), \
+        scale_eff.contiguous()
+    lib = _lib()
+    path = ctypes.c_int(-1)
+    args = (qx.data_ptr(), weight.data_ptr(), scale.data_ptr(),
             0 if scale.numel() == 1 else 1,
-            None if bias is None else bias.data_ptr(), int(bool(relu)),
-            out.data_ptr(), m, n, k,
-            torch.cuda.current_stream(qx.device).cuda_stream)
+            None if bias is None else bias.contiguous().data_ptr(),
+            int(bool(relu)), out.data_ptr(), m, n, k, tile_n)
+    if index == torch.cuda.current_device():
+        rc = lib.mxtt_int8_gemm_tile(
+            *args, torch._C._cuda_getCurrentRawStream(index),
+            ctypes.byref(path))
+    else:
+        with torch.cuda.device(index):
+            rc = lib.mxtt_int8_gemm_tile(
+                *args, torch._C._cuda_getCurrentRawStream(index),
+                ctypes.byref(path))
     if rc != 0:
         raise RuntimeError(f"int8_gemm: kernel launch failed with CUDA error "
                            f"{rc} at M={m} N={n} K={k}")
     int8_gemm.launches += 1
+    int8_gemm.launches_by_path["async" if path.value == 1 else "staged"] += 1
     return out
 
 
 int8_gemm.launches = 0
+int8_gemm.launches_by_path = {"async": 0, "staged": 0}
 
 
 def _register():

@@ -155,24 +155,62 @@ def _int8(shape, seed):
         -127, 128, shape).astype(np.int8))
 
 
+def _at_byte_offset(t):
+    """``t`` copied into a buffer one byte past its start."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("m,k,n", [(4096, 768, 768), (4096, 3072, 768),
-                                   (32, 768, 2), (129, 130, 3), (17, 5, 129),
-                                   (1, 1, 1)])
+@pytest.mark.parametrize("m,k,n,unaligned", [
+    (4096, 768, 768, None), (4096, 3072, 768, None), (32, 768, 2, None),
+    (129, 130, 3, None), (17, 5, 129, None), (1, 1, 1, None),
+    # the edges of the 128-row, 64/128-column, 64-byte-k tiles
+    (127, 64, 129, None), (4095, 784, 768, None), (256, 3072, 3072, None),
+    (128, 16, 128, None), (128, 48, 8, None),
+    # an operand one byte into its buffer: the staged path
+    (4096, 768, 768, "qx"), (127, 64, 129, "weight")])
 @pytest.mark.parametrize("bias,relu,per_channel", [
     (True, False, True), (False, True, False), (True, True, True)])
 def test_int8_gemm_kernel_is_bitwise_the_plain_version(
-        cuda_device, m, k, n, bias, relu, per_channel):
+        cuda_device, m, k, n, unaligned, bias, relu, per_channel):
     qx, w = _int8((m, k), 1).to(cuda_device), _int8((n, k), 2).to(cuda_device)
+    if unaligned == "qx":
+        qx = _at_byte_offset(qx)
+    elif unaligned == "weight":
+        w = _at_byte_offset(w)
     scale = torch.from_numpy(_rand((n if per_channel else 1,), 3) ** 2
                              * 1e-3 + 1e-5).to(cuda_device)
     b = torch.from_numpy(_rand((n,), 4)).to(cuda_device) if bias else None
-    before = int8_gemm.int8_gemm.launches
-    got = int8_gemm.int8_gemm(qx, w, scale, bias=b, relu=relu)
+    path = "async" if k % 16 == 0 and unaligned is None else "staged"
+    want = int8_gemm.int8_gemm_plain(qx, w, scale, bias=b, relu=relu)
+    for tile_n in (0, 64, 128):
+        before = int8_gemm.int8_gemm.launches
+        before_path = int8_gemm.int8_gemm.launches_by_path[path]
+        got = int8_gemm.int8_gemm(qx, w, scale, bias=b, relu=relu,
+                                  tile_n=tile_n)
+        torch.cuda.synchronize()
+        assert int8_gemm.int8_gemm.launches == before + 1
+        assert int8_gemm.int8_gemm.launches_by_path[path] == before_path + 1
+        assert torch.equal(got, want), tile_n
+
+
+@pytest.mark.gpu
+def test_int8_gemm_main_shape_takes_the_async_path(cuda_device):
+    """A (4096, 768, 768) product, as the served encoder's q, k, v and
+    projection, launches on the cp.async tensor-core path."""
+    qx, w = _int8((4096, 768), 5).to(cuda_device), \
+        _int8((768, 768), 6).to(cuda_device)
+    scale = torch.full((768,), 1e-4, device=cuda_device)
+    kernels.reset_launch_counts()
+    int8_gemm.int8_gemm(qx, w, scale)
     torch.cuda.synchronize()
-    assert int8_gemm.int8_gemm.launches == before + 1
-    assert torch.equal(got, int8_gemm.int8_gemm_plain(qx, w, scale, bias=b,
-                                                      relu=relu))
+    counts = kernels.launch_counts()
+    assert counts["int8_gemm"] == 1
+    assert counts["int8_gemm.async"] == 1 and counts["int8_gemm.staged"] == 0
+    assert int8_gemm.tile_config(4096, 768)["blocks_per_sm"] >= 1
 
 
 @pytest.mark.gpu

@@ -98,18 +98,26 @@ def test_transpose_flatten_slice_axis():
                   end=3).asnumpy(), x[:, :, 1:3])
 
 
+def _op(name, *arrays, **kw):
+    """The registered op itself, past ``nd``'s overrides."""
+    return nd.invoke(name, *(nd.array(a, ctx=CPU) for a in arrays),
+                     **kw).asnumpy()
+
+
 def test_dropout_identity_unless_training_with_explicit_generator():
+    """The ``Dropout`` op (``nd.Dropout`` is MXNet's imperative override
+    over it: tests/test_torch_random.py)."""
     x = _rand(64, 64)
-    np.testing.assert_array_equal(_port("Dropout", x, p=0.5), x)
+    np.testing.assert_array_equal(_op("Dropout", x, p=0.5), x)
     g1, g2 = torch.Generator().manual_seed(7), torch.Generator().manual_seed(7)
-    a = _port("Dropout", x, p=0.5, training=True, generator=g1)
-    b = _port("Dropout", x, p=0.5, training=True, generator=g2)
+    a = _op("Dropout", x, p=0.5, training=True, generator=g1)
+    b = _op("Dropout", x, p=0.5, training=True, generator=g2)
     np.testing.assert_array_equal(a, b)
     kept = a != 0
     assert 0.4 < kept.mean() < 0.6
     np.testing.assert_allclose(a[kept], x[kept] * 2, rtol=1e-6)
     with pytest.raises(mx.MXNetError, match="Generator"):
-        _port("Dropout", x, p=0.5, training=True)
+        _op("Dropout", x, p=0.5, training=True)
 
 
 def test_ndarray_handle_basics():

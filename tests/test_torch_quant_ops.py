@@ -18,6 +18,8 @@ from mxnet_tpu_torch.ops import registry as reg
 
 RAGGED = [(m, k, n) for m in (1, 17, 129) for k in (1, 5, 130)
           for n in (1, 3, 129)]
+# the edges of the card kernel's 128-row, 64/128-column, 64-byte-k tiles
+RAGGED += [(127, 64, 129), (129, 48, 136), (130, 16, 8)]
 
 
 def _jax(op, *arrays, **kw):
@@ -113,6 +115,27 @@ def test_int8_gemm_plain_rounds_large_sums_as_xla(per_channel):
     want = jkernels.entry("int8_gemm").xla(
         *(jnp.asarray(a) for a in (qx, w, scale, bias[None])))
     _equal(got.numpy(), np.asarray(want))
+
+
+def test_launch_counts_list_int8_gemm_paths_and_reset_zeroes_them():
+    """The kernel wrapper counts its launches in total and by path (the
+    cp.async path and the staged one); ``launch_counts`` lists the paths
+    as ``int8_gemm.<path>`` and ``reset_launch_counts`` zeroes them."""
+    k = int8_gemm.int8_gemm
+    saved = k.launches, dict(k.launches_by_path)
+    try:
+        k.launches, k.launches_by_path["async"] = 3, 2
+        k.launches_by_path["staged"] = 1
+        counts = kernels.launch_counts()
+        assert (counts["int8_gemm"], counts["int8_gemm.async"],
+                counts["int8_gemm.staged"]) == (3, 2, 1)
+        kernels.reset_launch_counts()
+        counts = kernels.launch_counts()
+        assert (counts["int8_gemm"], counts["int8_gemm.async"],
+                counts["int8_gemm.staged"]) == (0, 0, 0)
+    finally:
+        k.launches = saved[0]
+        k.launches_by_path.update(saved[1])
 
 
 def test_dispatch_sends_cpu_tensors_to_the_plain_version():
