@@ -11,12 +11,22 @@ Phases, each printing one JSON line:
    prints no result.
 2. build: compiles every kernel source in ``mxnet_tpu_torch/csrc`` with
    ``nvcc`` (all at once), and prints the build seconds and ptxas's
-   register and shared-memory report.
-3. flash: holds the flash-attention kernel against its plain PyTorch
+   register and shared-memory report; fails if the int8 GEMM or the
+   flash forward's tensor-core kernel spills registers.
+3. flash: holds the flash-attention forward against its plain PyTorch
    version on the serving shape and on ragged, cross-attention and other
-   head-dim shapes, float32 and bfloat16, causal and not; then times the
+   head-dim shapes, float32 and bfloat16, causal and not, on dense
+   inputs, on transposed views of (B, S, H, D) tensors (read in place),
+   on a q whose rows are not 16-byte aligned (one copy) and on a v that
+   alternates in sign from key to key; each case on the path its head
+   dim takes (tensor cores up to D = 128, CUDA cores above), with the
+   output a (B, H, S, D) view of (B, S, H, D) memory. Then it times the
    kernel, the plain version and ``scaled_dot_product_attention`` (a
-   yardstick only: the port never calls it) at the serving shape.
+   yardstick only: the port never calls it) at the serving shape by CUDA
+   events (``kernel_ms``, ``library_ms``) and by the profiler's kernel
+   time (``device_ms``, ``library_device_ms``), names SDPA's kernel, and
+   prints both bounds (float32 rate, ``bound_ms``; three TF32 products,
+   ``bound_tc_ms``) and the forward's blocks per SM.
 4. serve: the BERT-class classifier of
    ``examples/gluon/transformer_finetune.py`` at BERT-base width (vocab
    30522, units 768, FFN 3072, 12 heads, 12 layers, seq 128, 2 classes;
@@ -25,7 +35,8 @@ Phases, each printing one JSON line:
    ladder. Requests of 1-8 rows come from several threads; every answer
    is checked against the same rows run alone through the block, two
    rows against a CPU copy of the model, and the flash kernel's launch
-   count against 12 x batches.
+   count against 12 x batches, every one on the tensor-core path and
+   with no copy of q, k or v.
 5. profile: one batch per bucket on the host clock, and a
    ``torch.profiler`` window over bucket-32 batches (device time by
    kernel group, device busy share).
@@ -138,6 +149,7 @@ from mxnet_tpu_torch.parallel import DeviceMesh, ShardedTrainer
 BERT_BASE = {"vocab": 30522, "units": 768, "hidden": 3072, "heads": 12,
              "layers": 12, "seq_len": 128, "num_classes": 2}
 H100_F32_FLOPS = 67e12    # float32 outside the tensor cores, 700 W part
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak, 700 W part
 H100_BYTES_S = 3.35e12    # HBM3
 H100_INT8_OPS = 1979e12   # dense int8 tensor-core peak, 700 W part
 F32_TOL = 2e-5  # the kernel reassociates the softmax normaliser across k tiles
@@ -297,11 +309,9 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20, warmup=3):
-    """Mean device milliseconds of ``fn()`` over ``iters`` calls: the
-    summed time of the kernels it launches, from ``torch.profiler``, with
-    neither host time nor the gaps between kernels. Where ``fn`` costs
-    the host more than the card, ``cuda_ms`` measures the host."""
+def kernel_device_us(fn, iters=20, warmup=3):
+    """``{kernel name: device µs per call}`` of ``fn()`` over ``iters``
+    calls, from ``torch.profiler``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -313,11 +323,21 @@ def device_ms(fn, iters=20, warmup=3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
+    return {e.key: e.self_device_time_total / iters
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0}
+
+
+def device_ms(fn, iters=20, warmup=3):
+    """Mean device milliseconds of ``fn()`` over ``iters`` calls: the
+    summed time of the kernels it launches, from ``torch.profiler``, with
+    neither host time nor the gaps between kernels. Where ``fn`` costs
+    the host more than the card, ``cuda_ms`` measures the host."""
+    us = sum(kernel_device_us(fn, iters, warmup).values())
     if us <= 0:
         raise AssertionError("torch.profiler recorded no device time")
-    return us / 1e3 / iters
+    return us / 1e3
 
 
 def phase_device():
@@ -335,6 +355,41 @@ def phase_device():
     return dev
 
 
+def ptxas_entries(report):
+    """``{kernel: {"registers", "spill_stores", "spill_loads"}}`` from
+    nvcc's ``-Xptxas -v`` report (mangled kernel names)."""
+    entries, name = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", ln)
+        if m:
+            name = m.group(1)
+            entries.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            entries[name]["spill_stores"] = int(m.group(1))
+            entries[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            entries[name]["registers"] = int(m.group(1))
+    return entries
+
+
+def _no_spills(report, kernel, key):
+    """Fail unless ptxas reported every entry of ``key`` (a substring of
+    the mangled names) with no spill; returns those entries."""
+    found = {n: e for n, e in ptxas_entries(report).items() if key in n}
+    if not found or any("spill_stores" not in e or e["spill_stores"]
+                        or e["spill_loads"] for e in found.values()):
+        raise AssertionError(f"{kernel} spills registers (or ptxas gave no "
+                             f"report): {found}")
+    return found
+
+
 def phase_build():
     t0 = time.perf_counter()
     report = build.build_all(force=True)
@@ -350,6 +405,10 @@ def phase_build():
     if not spills or any(spills):
         raise AssertionError(f"int8_gemm spills registers (or ptxas gave "
                              f"no report): {spills}")
+    mma = _no_spills(report["flash_attention"]["ptxas"], "flash_attention",
+                     "flash_fwd_mma_kernel")
+    emit({"phase": "build", "kernel": "flash_attention",
+          "mma_kernels": mma})
     emit({"phase": "build", "kernels": sorted(report), "wall_s": wall})
 
 
@@ -367,18 +426,71 @@ def attention_bound_ms(q, k, causal, dtype_flops):
                                        else "operations")
 
 
-# (B, H, Sq, Sk, D), dtype, causal: the serving/training shape, ragged S,
-# cross attention (Sq != Sk), every head-dim bucket, bfloat16
-FLASH_CASES = [((32, 12, 128, 128, 64), dt, c)
+def attention_tc_bound_ms(q, k, causal):
+    """``bound_tc_ms``: the same work as three TF32 products (the 3xTF32
+    split of the tensor-core kernel) at the TF32 peak, or the bytes,
+    whichever takes longer."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    nbytes = (2 * b * h * sq * d + 2 * b * h * sk * d) * q.element_size()
+    pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
+    return _bound_ms(nbytes, 3 * 4 * b * h * pairs * d, H100_TF32_FLOPS)
+
+
+# (B, H, Sq, Sk, D), dtype, causal, layout: the serving/training shape,
+# ragged S, cross attention (Sq != Sk), every head-dim bucket, bfloat16;
+# layout "dense" is contiguous (B, H, S, D); "bshd" transposed views of
+# (B, S, H, D) tensors, as MultiHeadAttention hands them over (no copy);
+# "unaligned" a q whose rows start 4 bytes off 16 (one copy); "ramp_v" a
+# v that alternates in sign from key to key and grows along keys and
+# columns, so that a wrong key order in the P V product changes the output
+FLASH_CASES = [((32, 12, 128, 128, 64), dt, c, "dense")
                for dt in (torch.float32, torch.bfloat16) for c in (False, True)]
-FLASH_CASES += [((8, 12, 100, 100, 64), torch.float32, False),
-                ((8, 12, 100, 100, 64), torch.float32, True),
-                ((4, 12, 128, 256, 64), torch.float32, False),
-                ((4, 8, 128, 128, 128), torch.float32, False),
-                ((4, 8, 128, 128, 128), torch.bfloat16, True),
-                ((2, 4, 96, 80, 40), torch.float32, True),
-                ((2, 4, 64, 64, 256), torch.float32, False),
-                ((2, 4, 48, 48, 512), torch.float32, True)]
+FLASH_CASES += [((8, 12, 100, 100, 64), torch.float32, False, "dense"),
+                ((8, 12, 100, 100, 64), torch.float32, True, "dense"),
+                ((4, 12, 128, 256, 64), torch.float32, False, "dense"),
+                ((4, 8, 128, 128, 128), torch.float32, False, "dense"),
+                ((4, 8, 128, 128, 128), torch.bfloat16, True, "dense"),
+                ((2, 4, 96, 80, 40), torch.float32, True, "dense"),
+                ((2, 4, 64, 64, 256), torch.float32, False, "dense"),
+                ((2, 4, 48, 48, 512), torch.float32, True, "dense"),
+                ((32, 12, 128, 128, 64), torch.float32, False, "bshd"),
+                ((32, 12, 128, 128, 64), torch.bfloat16, True, "bshd"),
+                ((4, 8, 100, 100, 128), torch.float32, True, "bshd"),
+                ((2, 4, 96, 80, 40), torch.float32, False, "bshd"),
+                ((2, 4, 64, 64, 256), torch.float32, True, "bshd"),
+                ((4, 12, 128, 128, 64), torch.float32, False, "unaligned"),
+                ((4, 12, 128, 128, 64), torch.float32, False, "ramp_v"),
+                ((4, 12, 128, 128, 64), torch.float32, True, "ramp_v"),
+                ((4, 8, 72, 72, 128), torch.bfloat16, False, "ramp_v")]
+
+
+def flash_inputs(shape, dtype, layout, gen, dev):
+    """q, k, v of one FLASH_CASES entry (see its comment for layouts)."""
+    b, h, sq, sk, d = shape
+
+    def rand(s):
+        if layout == "bshd":
+            return torch.randn((b, s, h, d), generator=gen, device=dev
+                               ).to(dtype).permute(0, 2, 1, 3)
+        return torch.randn((b, h, s, d), generator=gen, device=dev).to(dtype)
+
+    q, k, v = rand(sq), rand(sk), rand(sk)
+    if layout == "unaligned":
+        buf = torch.empty(q.numel() + 1, dtype=dtype, device=dev)
+        q = buf[1:].view(q.shape).copy_(q)
+    elif layout == "ramp_v":
+        keys = torch.arange(sk, device=dev, dtype=torch.float32)
+        cols = torch.arange(d, device=dev, dtype=torch.float32) / d
+        sign = 1.0 - 2.0 * (keys % 2)
+        v = (sign * (1.0 + keys / sk))[:, None] + 0.1 * cols[None, :]
+        v = v.expand(b, h, sk, d).to(dtype).contiguous()
+        q = q * 2.0   # peaked rows, so that each key's weight matters
+    return q, k, v
+
+
+def _flash_path(d):
+    return "mma" if d <= 128 else "simt"
 
 
 def phase_flash():
@@ -387,18 +499,28 @@ def phase_flash():
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-
-    def qkv(b, h, sq, sk, d, dtype):
-        return [torch.randn((b, h, s, d), generator=gen, device=dev,
-                            dtype=torch.float32).to(dtype)
-                for s in (sq, sk, sk)]
+    fwd = flash.flash_forward
 
     slice_err = None
-    for (b, h, sq, sk, d), dtype, causal in FLASH_CASES:
-        q, k, v = qkv(b, h, sq, sk, d, dtype)
+    for shape, dtype, causal, layout in FLASH_CASES:
+        b, h, sq, sk, d = shape
+        q, k, v = flash_inputs(shape, dtype, layout, gen, dev)
         scale = 1.0 / math.sqrt(d)
-        got = flash.flash_forward(q, k, v, scale, causal)
+        path = _flash_path(d)
+        before, copies = dict(fwd.launches_by_path), fwd.copies
+        got = fwd(q, k, v, scale, causal)
         torch.cuda.synchronize()
+        took = [p for p, n in fwd.launches_by_path.items() if n != before[p]]
+        copied = fwd.copies - copies
+        if took != [path] or copied != (layout == "unaligned"):
+            raise AssertionError(f"flash at {shape} {layout}: took {took}, "
+                                 f"copied {copied} inputs; expected "
+                                 f"{path} and {int(layout == 'unaligned')}")
+        if got.shape != q.shape or got.dtype != dtype or \
+                not got.permute(0, 2, 1, 3).is_contiguous():
+            raise AssertionError(f"flash output at {shape}: {got.shape} "
+                                 f"{got.dtype} strides {got.stride()}, not a "
+                                 "(B, H, S, D) view of (B, S, H, D) memory")
         want = flash.flash_attention_plain(q, k, v, scale, causal)
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         diff = (got.float() - want.float()).abs()
@@ -408,28 +530,43 @@ def phase_flash():
                                  atol=tol))
         emit({"phase": "flash", "shape": [b, h, sq, sk, d],
               "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+              "layout": layout, "path": path, "copies": copied,
               "max_abs_err": max_abs, "max_rel_err": max_rel,
               "rtol_atol": tol, "ok": ok})
         if not ok:
             raise AssertionError(f"flash kernel disagrees with the plain "
                                  f"version at {(b, h, sq, sk, d)} {dtype} "
-                                 f"causal={causal}: max abs err {max_abs}")
-        if (b, h, sq, sk, d) == (32, 12, 128, 128, 64) and \
-                dtype == torch.float32 and not causal:
+                                 f"causal={causal} {layout}: max abs err "
+                                 f"{max_abs}")
+        if shape == (32, 12, 128, 128, 64) and dtype == torch.float32 and \
+                not causal and layout == "dense":
             slice_err = max_abs
 
-    q, k, v = qkv(32, 12, 128, 128, 64, torch.float32)
+    shape = (32, 12, 128, 128, 64)
+    q, k, v = flash_inputs(shape, torch.float32, "dense", gen, dev)
+    qs, ks, vs = flash_inputs(shape, torch.float32, "bshd", gen, dev)
     scale = 0.125
-    kernel_ms = cuda_ms(lambda: flash.flash_forward(q, k, v, scale, False))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kernel_ms = cuda_ms(lambda: fwd(q, k, v, scale, False))
     plain_ms = cuda_ms(
         lambda: flash.flash_attention_plain(q, k, v, scale, False))
-    library_ms = cuda_ms(lambda: torch.nn.functional.
-                         scaled_dot_product_attention(q, k, v, scale=scale))
+    library_ms = cuda_ms(lambda: sdpa(q, k, v, scale=scale))
+    kernel_bshd_ms = cuda_ms(lambda: fwd(qs, ks, vs, scale, False))
+    dev_ms = device_ms(lambda: fwd(q, k, v, scale, False))
+    lib_kernels = kernel_device_us(lambda: sdpa(q, k, v, scale=scale))
     bound_ms, bound_by = attention_bound_ms(q, k, False, H100_F32_FLOPS)
-    timing = {"shape": [32, 12, 128, 128, 64], "dtype": "float32",
-              "causal": False, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-              "library_ms": library_ms, "bound_ms": bound_ms,
-              "bound_by": bound_by, "max_abs_err": slice_err}
+    bound_tc_ms, bound_tc_by = attention_tc_bound_ms(q, k, False)
+    timing = {"shape": list(shape), "dtype": "float32", "causal": False,
+              "kernel_ms": kernel_ms, "device_ms": dev_ms,
+              "kernel_bshd_ms": kernel_bshd_ms, "plain_ms": plain_ms,
+              "library_ms": library_ms,
+              "library_device_ms": sum(lib_kernels.values()) / 1e3,
+              "library_kernels": sorted(lib_kernels),
+              "bound_ms": bound_ms, "bound_by": bound_by,
+              "bound_tc_ms": bound_tc_ms, "bound_tc_by": bound_tc_by,
+              "blocks_per_sm": {str(d): flash.forward_blocks_per_sm(d)
+                                for d in (64, 128, 256, 512)},
+              "max_abs_err": slice_err}
     emit({"phase": "flash_timing", **timing})
     return timing
 
@@ -527,16 +664,21 @@ def phase_serve(smi):
     server = serving.ModelServer(serving.ModelContainer([model])).start()
     warm = server.warmup()
     payloads = _traffic(cfg)
+    copies = flash.flash_forward.copies
     answers, wall, counts, stats = _burst(server, model, payloads)
+    copies = flash.flash_forward.copies - copies
     launches = counts["flash_attention"]
     peak = torch.cuda.max_memory_allocated()
     if not server.drain(timeout=60):
         raise RuntimeError("server did not drain")
 
     rows = sum(x.shape[0] for row in payloads for x in row)
-    if launches != cfg["layers"] * stats["batches"]:
-        raise AssertionError(f"flash launches {launches} != "
-                             f"{cfg['layers']} x {stats['batches']} batches")
+    want = cfg["layers"] * stats["batches"]
+    if launches != want or counts["flash_attention.mma"] != want or copies:
+        raise AssertionError(
+            f"flash launches {launches} ({counts['flash_attention.mma']} on "
+            f"the mma path), {copies} input copies; want {cfg['layers']} x "
+            f"{stats['batches']} batches, all mma, no copy")
 
     max_err = 0.0
     for row_p, row_a in zip(payloads, answers):
@@ -566,6 +708,8 @@ def phase_serve(smi):
     emit({"phase": "serve", "card": smi, "params": int(n_params),
           "weights_s": t_weights, "warmup": warm["models"][model.name],
           **summary, "flash_launches": launches,
+          "flash_launches_mma": counts["flash_attention.mma"],
+          "flash_input_copies": copies,
           "max_abs_err_vs_block": max_err, "max_abs_err_vs_cpu": cpu_err})
     return dict(summary, flash_launches=launches), model
 
@@ -573,7 +717,7 @@ def phase_serve(smi):
 def _kernel_group(name):
     low = name.lower()
     for group, keys in (("int8_gemm", ("int8_gemm_kernel",)),
-                        ("flash_attention", ("flash_fwd_kernel",)),
+                        ("flash_attention", ("flash_fwd_",)),
                         ("flash_bwd", ("flash_bwd_",)),
                         ("optimizer", ("opt_step_kernel",)),
                         ("gemm", ("gemm", "cutlass", "sm90_xmma", "cublas")),
@@ -689,7 +833,9 @@ def phase_flash_bwd():
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     train_err = None
-    for (b, h, sq, sk, d), dtype, causal in FLASH_CASES:
+    for (b, h, sq, sk, d), dtype, causal, layout in FLASH_CASES:
+        if layout != "dense":
+            continue
         q, do = rand((b, h, sq, d), dtype), rand((b, h, sq, d), dtype)
         k, v = rand((b, h, sk, d), dtype), rand((b, h, sk, d), dtype)
         scale = 1.0 / math.sqrt(d)
@@ -891,6 +1037,7 @@ def phase_train_check():
         layers = cfg["layers"]
         want_counts = dict.fromkeys(counts, 0)
         want_counts.update({"flash_attention": layers,
+                            "flash_attention.mma": layers,
                             "flash_attention_bwd_dq": layers,
                             "flash_attention_bwd_dkv": layers,
                             "opt_adam": int(opt == "adam"),
@@ -955,6 +1102,7 @@ def phase_train(smi):
     layers, steps = cfg["layers"], tr["steps"]
     want = dict.fromkeys(counts, 0)
     want.update({"flash_attention": layers * (steps + 1),
+                 "flash_attention.mma": layers * (steps + 1),
                  "flash_attention_bwd_dq": layers * steps,
                  "flash_attention_bwd_dkv": layers * steps,
                  "opt_adam": steps})
@@ -1233,7 +1381,8 @@ def phase_serve_int8(smi, float_serve=None):
     # every int8 product of every served batch on the cp.async path
     want_counts = {"int8_gemm": INT8_LAUNCHES * stats["batches"],
                    "int8_gemm.async": INT8_LAUNCHES * stats["batches"],
-                   "flash_attention": cfg["layers"] * stats["batches"]}
+                   "flash_attention": cfg["layers"] * stats["batches"],
+                   "flash_attention.mma": cfg["layers"] * stats["batches"]}
     got_counts = {k: counts[k] for k in want_counts}
     if got_counts != want_counts or calib_counts["int8_gemm"]:
         raise AssertionError(f"serve_int8 launches {got_counts}, expected "
@@ -1868,7 +2017,7 @@ def phase_dist_train(smi):
     want = dict.fromkeys(workers[0]["launches_per_step"][0], 0)
     want.update({"twobit_compress": n_tensors,
                  "twobit_decompress": n_tensors, "opt_adam": 1,
-                 "flash_attention": layers,
+                 "flash_attention": layers, "flash_attention.mma": layers,
                  "flash_attention_bwd_dq": layers,
                  "flash_attention_bwd_dkv": layers})
     for w in workers:

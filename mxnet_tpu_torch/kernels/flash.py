@@ -15,16 +15,21 @@ the ragged last tile itself); ``D`` a multiple of 8 up to 512.
 
 What bounds it on the card: at the serving shape (B=32, H=12, S=128,
 D=64, float32) one call does 4*B*H*S*S*D = 1.61 GFLOP on 50.3 MB of
-q/k/v/o, so float32 arithmetic outside the tensor cores (67 TFLOP/s,
-24 us) bounds it before memory (3.35 TB/s, 15 us). The design
-(``csrc/flash_attention.cu``) keeps the (S, S) score matrix out of
-device memory: one block per (b*h, q tile) loads its q tile once and
-streams k/v tiles through shared memory, so device traffic is one read
-of q, k, v and one write of o; scores and the accumulator live in
-registers, and the float32 products are register-blocked (4 q rows x 8
-columns per thread) so shared-memory reads do not bound the FMA rate.
-Causal tiles wholly above the diagonal are skipped. Tensor cores
-(``wgmma``), TMA and warp specialisation are later work.
+q/k/v/o. The kernel (``csrc/flash_attention.cu``) runs its products on
+the tensor cores (``mma.sync`` m16n8k8 TF32), made float32-accurate by
+the 3xTF32 split (three TF32 products, 4.83 GFLOP, 9.8 us at 495
+TFLOP/s), so bytes bound it (15.0 us at 3.35 TB/s). It keeps the (S, S)
+scores in registers, so device traffic is one read of q, k, v and one
+write of o, and it reads q, k, v and writes o through their (B, H, S)
+strides: the (B, S, H, D) activations of a MultiHeadAttention reach it
+as transposed views and are not copied, and the output is allocated in
+(B, S, H, D) order and returned as its (B, H, S, D) view, so the
+caller's transpose back is a view too. k and v tiles arrive by
+``cp.async`` with the next tile in flight. Head dims above 128 take a
+second kernel of the family (float32 FMAs on the CUDA cores); the path
+follows from D alone, and each launch reports it
+(``flash_forward.launches_by_path``). ``wgmma``, TMA and warp
+specialisation are later work.
 
 Backward (``csrc/flash_attention_bwd.cu``) replaces the JAX package's
 ``_flash_backward``, a blocked recompute in plain JAX with O(S*block)
@@ -122,10 +127,13 @@ def flash_backward_plain(q, k, v, o, do, scale, causal):
     return dq, dk, dv
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                  ctypes.c_longlong)
 _SIGNATURES = {
-    "mxtt_flash_attention_forward": ("flash_attention",
-                                     [_P] * 5 + [_I] * 4 + [_F, _I, _I, _P]),
+    "mxtt_flash_attention_forward": (
+        "flash_attention", [_P] * 5 + [_I] * 5 + [_L] * 12
+        + [_F, _I, _I, _P, ctypes.POINTER(_I)]),
+    "mxtt_flash_attention_blocks_per_sm": ("flash_attention", [_I, _I]),
     "mxtt_flash_attention_bwd_dq": ("flash_attention_bwd",
                                     [_P] * 8 + [_I] * 4 + [_F, _I, _I, _P]),
     "mxtt_flash_attention_bwd_dkv": ("flash_attention_bwd",
@@ -188,26 +196,68 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _readable(t):
+    """Whether the forward kernel reads ``t`` (B, H, S, D) in place: D
+    stride 1 and every row starting on 16 bytes (the pointer and each
+    stride of a dim longer than 1)."""
+    st, size = t.stride(), t.element_size()
+    return st[3] == 1 and t.data_ptr() % 16 == 0 and all(
+        n == 1 or (s * size) % 16 == 0 for s, n in zip(st[:3], t.shape[:3]))
+
+
 def flash_forward(q, k, v, scale, causal=False, with_lse=False):
     """Launch the forward kernel on CUDA tensors (B, H, S, D) on the
     current stream; returns the output, and with ``with_lse`` also its
     (B, H, Sq) float32 log-sum-exp. Raises on anything outside the
-    kernel's domain and on a failed launch."""
+    kernel's domain and on a failed launch.
+
+    q, k and v are read through their strides (transposed views of
+    (B, S, H, D) activations included); one is copied only where the
+    kernel cannot read it (a D stride other than 1, or a row that does
+    not start on 16 bytes), counted in ``flash_forward.copies``. The
+    output is allocated in (B, S, H, D) memory order and returned as its
+    ``permute(0, 2, 1, 3)`` view, of shape (B, H, Sq, D). Each launch
+    counts in ``flash_forward.launches`` and, by the path it reports, in
+    ``flash_forward.launches_by_path`` ("mma": the tensor-core kernel, D
+    <= 128; "simt": D above)."""
     _check(q, k, v)
-    q, k, v = _dense(q), _dense(k), _dense(v)
+    q, k, v = (t if _readable(t) else _copied(t) for t in (q, k, v))
     b, h, sq, d = q.shape
-    out = torch.empty_like(q)
+    out = q.new_empty((b, sq, h, d)).permute(0, 2, 1, 3)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
-    with torch.cuda.device(q.device):
-        rc = _launcher("mxtt_flash_attention_forward")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if with_lse else None, b * h, sq, k.shape[2], d,
-            float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype],
-            _stream(q))
+    path = ctypes.c_int(-1)
+    index = q.get_device()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None, b, h, sq, k.shape[2], d,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], float(scale), int(bool(causal)),
+            _DTYPE_CODES[q.dtype])
+    launch = _launcher("mxtt_flash_attention_forward")
+    # one foreign call; a device guard only off the current card
+    if index == torch.cuda.current_device():
+        rc = launch(*args, torch._C._cuda_getCurrentRawStream(index),
+                    ctypes.byref(path))
+    else:
+        with torch.cuda.device(index):
+            rc = launch(*args, torch._C._cuda_getCurrentRawStream(index),
+                        ctypes.byref(path))
     _raise_on(rc, "flash_forward", q)
     flash_forward.launches += 1
+    flash_forward.launches_by_path["mma" if path.value == 1 else "simt"] += 1
     return (out, lse) if with_lse else out
+
+
+def _copied(t):
+    flash_forward.copies += 1
+    return _dense(t)
+
+
+def forward_blocks_per_sm(d, dtype=torch.float32):
+    """Blocks of the forward kernel that head dim ``d`` takes that fit on
+    one SM at once (the CUDA occupancy calculator). Needs the card."""
+    return _launcher("mxtt_flash_attention_blocks_per_sm")(
+        d, _DTYPE_CODES[dtype])
 
 
 def _check_lse(q, *stats):
@@ -259,6 +309,8 @@ def flash_backward_dkv(q, k, v, lse, dsum, do, scale, causal=False):
 
 
 flash_forward.launches = 0
+flash_forward.launches_by_path = {"mma": 0, "simt": 0}
+flash_forward.copies = 0
 flash_backward_dq.launches = 0
 flash_backward_dkv.launches = 0
 
@@ -271,7 +323,10 @@ class FlashAttentionFunction(torch.autograd.Function):
     def forward(ctx, q, k, v, scale, causal):
         from . import dispatch
 
-        # saved dense, so the backward kernels copy none of them again
+        # saved dense, so the backward kernels copy none of them again; the
+        # output comes back as a (B, H, S, D) view of (B, S, H, D) memory,
+        # which the dq kernel's _dense copies once (in place of the copy
+        # the caller's reshape would otherwise make)
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         out, lse = dispatch("flash_attention", q, k, v, scale, causal,
                             with_lse=True)
