@@ -11,8 +11,9 @@ Phases, each printing one JSON line:
    prints no result.
 2. build: compiles every kernel source in ``mxnet_tpu_torch/csrc`` with
    ``nvcc`` (all at once), and prints the build seconds and ptxas's
-   register and shared-memory report; fails if the int8 GEMM or the
-   flash forward's tensor-core kernel spills registers.
+   register and shared-memory report; fails if the int8 GEMM, the flash
+   forward's tensor-core kernel or either tensor-core backward kernel
+   spills registers.
 3. flash: holds the flash-attention forward against its plain PyTorch
    version on the serving shape and on ragged, cross-attention and other
    head-dim shapes, float32 and bfloat16, causal and not, on dense
@@ -25,8 +26,9 @@ Phases, each printing one JSON line:
    yardstick only: the port never calls it) at the serving shape by CUDA
    events (``kernel_ms``, ``library_ms``) and by the profiler's kernel
    time (``device_ms``, ``library_device_ms``), names SDPA's kernel, and
-   prints both bounds (float32 rate, ``bound_ms``; three TF32 products,
-   ``bound_tc_ms``) and the forward's blocks per SM.
+   prints both bounds (float32 rate, ``bound_ms``; the tensor cores'
+   float32-accurate rate, ``bound_tc_ms``) and the forward's blocks per
+   SM.
 4. serve: the BERT-class classifier of
    ``examples/gluon/transformer_finetune.py`` at BERT-base width (vocab
    30522, units 768, FFN 3072, 12 heads, 12 layers, seq 128, 2 classes;
@@ -41,9 +43,17 @@ Phases, each printing one JSON line:
    ``torch.profiler`` window over bucket-32 batches (device time by
    kernel group, device busy share).
 6. flash_bwd: holds the two flash-attention backward kernels (dq; dk and
-   dv) against the dense float32 recompute on the training shape and on
-   the flash phase's other shapes, then times them, their plain versions
-   and the backward of ``scaled_dot_product_attention`` (a yardstick).
+   dv) against the dense float32 recompute on every case and layout of
+   the flash phase (dO in q's layout): each launch on the path its head
+   dim takes, inputs copied only where the layout needs it (the
+   unaligned q), gradients in their inputs' memory order, and a second
+   call bit-equal to the first. Then it times both kernels (dense and on
+   transposed views), their plain versions and the backward of
+   ``scaled_dot_product_attention`` (a yardstick) at the training shape
+   by CUDA events (``ms``) and by the profiler's kernel time
+   (``device_ms``; SDPA's kernels named), and prints both bounds (float32
+   rate; the tensor cores' float32-accurate rate, ``dq_tc``, ``dkv_tc``)
+   and each kernel's blocks per SM.
 7. opt: holds the fused SGD-momentum and Adam kernels bit for bit
    (``torch.equal``) against their plain versions on the classifier's
    full parameter list and on odd sizes, with and without clip and
@@ -55,7 +65,8 @@ Phases, each printing one JSON line:
    each kernel of the step counts its launches.
 9. train: 20 "adam" steps of the full 12-layer classifier on one batch
    of 32 (``make_task`` of the example): finite, falling loss, launch
-   counts, median step time, tokens/s, peak memory, and a
+   counts (every flash backward launch on the tensor-core path, no input
+   copied), median step time, tokens/s, peak memory, and a
    ``torch.profiler`` split of one step's device time.
 10. int8_gemm: holds the int8 GEMM kernel (K4) bit for bit
     (``torch.equal``) against its plain version on every product shape
@@ -114,7 +125,9 @@ Phases, each printing one JSON line:
     more step split on the host clock (forward and backward, pushes,
     pulls, update) and gloo's all-reduce of the same int8 bytes alone.
 
-Then the ``{"kernels": [...]}`` line, the card's name and power limit,
+Then the ``{"kernels": [...]}`` line (the tensor-core kernels K3 and
+K3-bwd with their tensor-core bound as ``bound_ms`` and the float32-rate
+one as ``bound_f32_ms``), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure is an
 exception and a non-zero exit. ``--phases`` runs a subset (device and
 build always run) and then prints no result line.
@@ -150,6 +163,8 @@ BERT_BASE = {"vocab": 30522, "units": 768, "hidden": 3072, "heads": 12,
              "layers": 12, "seq_len": 128, "num_classes": 2}
 H100_F32_FLOPS = 67e12    # float32 outside the tensor cores, 700 W part
 H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak, 700 W part
+# float32-accurate products on the tensor cores: three TF32 products each
+H100_3XTF32_FLOPS = H100_TF32_FLOPS / 3
 H100_BYTES_S = 3.35e12    # HBM3
 H100_INT8_OPS = 1979e12   # dense int8 tensor-core peak, 700 W part
 F32_TOL = 2e-5  # the kernel reassociates the softmax normaliser across k tiles
@@ -409,6 +424,12 @@ def phase_build():
                      "flash_fwd_mma_kernel")
     emit({"phase": "build", "kernel": "flash_attention",
           "mma_kernels": mma})
+    bwd = {key: _no_spills(report["flash_attention_bwd"]["ptxas"],
+                           "flash_attention_bwd", key)
+           for key in ("flash_bwd_dq_mma_kernel", "flash_bwd_dkv_mma_kernel")}
+    emit({"phase": "build", "kernel": "flash_attention_bwd",
+          "mma_kernels": {n: e for found in bwd.values()
+                          for n, e in found.items()}})
     emit({"phase": "build", "kernels": sorted(report), "wall_s": wall})
 
 
@@ -427,14 +448,15 @@ def attention_bound_ms(q, k, causal, dtype_flops):
 
 
 def attention_tc_bound_ms(q, k, causal):
-    """``bound_tc_ms``: the same work as three TF32 products (the 3xTF32
-    split of the tensor-core kernel) at the TF32 peak, or the bytes,
-    whichever takes longer."""
+    """``bound_tc_ms``: the multiply-adds of :func:`attention_bound_ms` at
+    the tensor cores' float32-accurate rate (each product as three TF32
+    products, the kernel's 3xTF32 split), or the bytes, whichever takes
+    longer."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     nbytes = (2 * b * h * sq * d + 2 * b * h * sk * d) * q.element_size()
     pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
-    return _bound_ms(nbytes, 3 * 4 * b * h * pairs * d, H100_TF32_FLOPS)
+    return _bound_ms(nbytes, 4 * b * h * pairs * d, H100_3XTF32_FLOPS)
 
 
 # (B, H, Sq, Sk, D), dtype, causal, layout: the serving/training shape,
@@ -804,7 +826,9 @@ def flash_bwd_bounds(q, k, causal):
     each input read once and each output written once over HBM, or the
     multiply-adds over the unmasked score pairs at the float32 rate (dq:
     recompute S, dP, dS k = 6 FLOP per pair and head-dim column; dkv: S,
-    dP, P^T dO, dS^T q = 8; the whole backward done once: 10)."""
+    dP, P^T dO, dS^T q = 8; the whole backward done once: 10). ``tc``: the
+    same operations of the two kernels at the tensor cores' float32-accurate
+    rate (their 3xTF32 split), against the same bytes."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     e = q.element_size()
@@ -812,81 +836,151 @@ def flash_bwd_bounds(q, k, causal):
     stats = b * h * sq * 4                  # lse, D: float32 per q row
     pairs = sum(min(i + 1, sk) for i in range(sq)) if causal else sq * sk
     fl = b * h * pairs * d
+    dq_bytes = (4 * rows_q + 2 * rows_k) * e + 2 * stats
+    dkv_bytes = (2 * rows_q + 4 * rows_k) * e + 2 * stats
     return {
-        "dq": _bound_ms((4 * rows_q + 2 * rows_k) * e + 2 * stats, 6 * fl,
-                        H100_F32_FLOPS),
-        "dkv": _bound_ms((2 * rows_q + 4 * rows_k) * e + 2 * stats, 8 * fl,
-                         H100_F32_FLOPS),
+        "dq": _bound_ms(dq_bytes, 6 * fl, H100_F32_FLOPS),
+        "dkv": _bound_ms(dkv_bytes, 8 * fl, H100_F32_FLOPS),
         "whole": _bound_ms((4 * rows_q + 4 * rows_k) * e, 10 * fl,
-                           H100_F32_FLOPS)}
+                           H100_F32_FLOPS),
+        "dq_tc": _bound_ms(dq_bytes, 6 * fl, H100_3XTF32_FLOPS),
+        "dkv_tc": _bound_ms(dkv_bytes, 8 * fl, H100_3XTF32_FLOPS)}
+
+
+def _bwd_once(q, k, v, do, scale, causal):
+    """The forward, then both backward kernels, as the autograd function
+    calls them; returns (dq, dk, dv), the paths the two launches took and
+    the inputs they copied."""
+    fns = (flash.flash_backward_dq, flash.flash_backward_dkv)
+    before = [(dict(f.launches_by_path), f.copies) for f in fns]
+    o, lse = flash.flash_forward(q, k, v, scale, causal, with_lse=True)
+    dq, dsum = flash.flash_backward_dq(q, k, v, o, lse, do, scale, causal)
+    dk, dv = flash.flash_backward_dkv(q, k, v, lse, dsum, do, scale, causal)
+    torch.cuda.synchronize()
+    took = [[p for p, n in f.launches_by_path.items() if n != b[p]]
+            for f, (b, _) in zip(fns, before)]
+    copied = [f.copies - c for f, (_, c) in zip(fns, before)]
+    return (dq, dk, dv), o, took, copied
+
+
+def _same_order(g, t, copied):
+    """Whether gradient ``g`` lies in memory as ``t`` does (dims ordered by
+    stride alike), or, only where the wrapper ``copied`` ``t``, is
+    contiguous as the copy is."""
+    def order(x):
+        return sorted(range(4), key=lambda i: (-x.stride(i), i))
+    return order(g) == order(t) or (copied and g.is_contiguous())
 
 
 def phase_flash_bwd():
     """The backward kernels against the dense float32 recompute
-    (``flash_backward_plain``) on the forward's shapes, then timings at
-    the training shape (32, 12, 128, 64) float32."""
+    (``flash_backward_plain``) on every ``FLASH_CASES`` entry and layout
+    (dO in q's layout), each launch on the path its head dim takes, with
+    the expected input copies, gradients in their inputs' memory order and
+    a second call bit-equal to the first; then timings at the training
+    shape (32, 12, 128, 64) float32."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
-
-    def rand(shape, dtype):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
-
     train_err = None
-    for (b, h, sq, sk, d), dtype, causal, layout in FLASH_CASES:
-        if layout != "dense":
-            continue
-        q, do = rand((b, h, sq, d), dtype), rand((b, h, sq, d), dtype)
-        k, v = rand((b, h, sk, d), dtype), rand((b, h, sk, d), dtype)
+    for shape, dtype, causal, layout in FLASH_CASES:
+        b, h, sq, sk, d = shape
+        q, k, v = flash_inputs(shape, dtype, layout, gen, dev)
+        do = flash_inputs((b, h, sq, sq, d), dtype,
+                          "bshd" if layout == "bshd" else "dense", gen, dev)[0]
         scale = 1.0 / math.sqrt(d)
-        o, lse = flash.flash_forward(q, k, v, scale, causal, with_lse=True)
-        dq, dsum = flash.flash_backward_dq(q, k, v, o, lse, do, scale, causal)
-        dk, dv = flash.flash_backward_dkv(q, k, v, lse, dsum, do, scale,
-                                          causal)
-        torch.cuda.synchronize()
+        grads, o, took, copied = _bwd_once(q, k, v, do, scale, causal)
+        path = _flash_path(d)
+        want_copies = int(layout == "unaligned")
+        if took != [[path], [path]] or copied != [want_copies] * 2:
+            raise AssertionError(
+                f"flash backward at {shape} {layout}: took {took}, copied "
+                f"{copied}; expected {path} and {want_copies} each")
+        # the unaligned layout's q is the one input the wrappers copy
+        for g, t, was_copied in zip(grads, (q, k, v),
+                                    (layout == "unaligned", False, False)):
+            if g.shape != t.shape or g.dtype != dtype or \
+                    not _same_order(g, t, was_copied):
+                raise AssertionError(
+                    f"flash backward at {shape} {layout}: gradient "
+                    f"{tuple(g.shape)} {g.dtype} strides {g.stride()} not in "
+                    f"its input's order {t.stride()}")
+        again = _bwd_once(q, k, v, do, scale, causal)[0]
+        if not all(torch.equal(x, y) for x, y in zip(grads, again)):
+            raise AssertionError(f"flash backward at {shape} {layout}: two "
+                                 "calls differ (it must be deterministic)")
         want = flash.flash_backward_plain(q, k, v, o, do, scale, causal)
         tol = F32_TOL if dtype == torch.float32 else BF16_TOL
         errs = {}
-        for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        for name, g, w in zip(("dq", "dk", "dv"), grads, want):
             errs[name] = (g.float() - w.float()).abs().max().item()
             if not torch.allclose(g.float(), w.float(), rtol=tol, atol=tol):
                 raise AssertionError(
                     f"flash backward {name} disagrees with the plain version "
-                    f"at {(b, h, sq, sk, d)} {dtype} causal={causal}: max "
-                    f"abs err {errs[name]}")
-        emit({"phase": "flash_bwd", "shape": [b, h, sq, sk, d],
+                    f"at {shape} {dtype} causal={causal} {layout}: max abs "
+                    f"err {errs[name]}")
+        emit({"phase": "flash_bwd", "shape": list(shape),
               "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-              "max_abs_err": errs, "rtol_atol": tol, "ok": True})
-        if (b, h, sq, sk, d) == (32, 12, 128, 128, 64) and \
-                dtype == torch.float32 and not causal:
-            train_err = max(errs.values())
+              "layout": layout, "path": path, "copies": copied,
+              "deterministic": True, "max_abs_err": errs, "rtol_atol": tol,
+              "ok": True})
+        if shape == (32, 12, 128, 128, 64) and dtype == torch.float32 and \
+                not causal and layout == "dense":
+            train_err = errs
 
-    q, k, v, do = (rand((32, 12, 128, 64), torch.float32) for _ in range(4))
+    shape = (32, 12, 128, 128, 64)
+    q, k, v = flash_inputs(shape, torch.float32, "dense", gen, dev)
+    do = flash_inputs(shape, torch.float32, "dense", gen, dev)[0]
+    qs, ks, vs = flash_inputs(shape, torch.float32, "bshd", gen, dev)
+    dos = flash_inputs(shape, torch.float32, "bshd", gen, dev)[0]
     scale = 0.125
     o, lse = flash.flash_forward(q, k, v, scale, False, with_lse=True)
     dq, dsum = flash.flash_backward_dq(q, k, v, o, lse, do, scale)
-    ms = {"dq": cuda_ms(lambda: flash.flash_backward_dq(q, k, v, o, lse, do,
-                                                        scale)),
-          "dkv": cuda_ms(lambda: flash.flash_backward_dkv(q, k, v, lse, dsum,
-                                                          do, scale)),
-          "dq_plain": cuda_ms(lambda: flash.flash_backward_dq_plain(
-              q, k, v, o, lse, do, scale, False)),
-          "dkv_plain": cuda_ms(lambda: flash.flash_backward_dkv_plain(
-              q, k, v, lse, dsum, do, scale, False))}
+    os_, lses = flash.flash_forward(qs, ks, vs, scale, False, with_lse=True)
+    dsums = flash.flash_backward_dq(qs, ks, vs, os_, lses, dos, scale)[1]
+
+    def run_dq():
+        flash.flash_backward_dq(q, k, v, o, lse, do, scale)
+
+    def run_dkv():
+        flash.flash_backward_dkv(q, k, v, lse, dsum, do, scale)
+
+    def run_bshd():
+        flash.flash_backward_dq(qs, ks, vs, os_, lses, dos, scale)
+        flash.flash_backward_dkv(qs, ks, vs, lses, dsums, dos, scale)
+
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     out = torch.nn.functional.scaled_dot_product_attention(*leaves,
                                                            scale=scale)
-    ms["library"] = cuda_ms(lambda: torch.autograd.grad(
-        out, leaves, do, retain_graph=True))
+
+    def run_library():
+        torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    ms = {"dq": cuda_ms(run_dq), "dkv": cuda_ms(run_dkv),
+          "bshd": cuda_ms(run_bshd),
+          "dq_plain": cuda_ms(lambda: flash.flash_backward_dq_plain(
+              q, k, v, o, lse, do, scale, False)),
+          "dkv_plain": cuda_ms(lambda: flash.flash_backward_dkv_plain(
+              q, k, v, lse, dsum, do, scale, False)),
+          "library": cuda_ms(run_library)}
+    lib_kernels = kernel_device_us(run_library)
+    device = {"dq": device_ms(run_dq), "dkv": device_ms(run_dkv),
+              "bshd": device_ms(run_bshd),
+              "library": sum(lib_kernels.values()) / 1e3}
     bounds = flash_bwd_bounds(q, k, False)
-    timing = {"shape": [32, 12, 128, 128, 64], "dtype": "float32",
-              "causal": False, "ms": ms,
+    timing = {"shape": list(shape), "dtype": "float32", "causal": False,
+              "ms": ms, "device_ms": device,
+              "library_kernels_us": lib_kernels,
               "bound_ms": {n: b[0] for n, b in bounds.items()},
               "bound_by": {n: b[1] for n, b in bounds.items()},
-              "max_abs_err": train_err}
+              "blocks_per_sm": {str(d): flash.backward_blocks_per_sm(d)
+                                for d in (64, 128, 256, 512)},
+              "max_abs_err": {"dq": train_err["dq"],
+                              "dkv": max(train_err["dk"], train_err["dv"])}}
     emit({"phase": "flash_bwd_timing", **timing,
           "library": "scaled_dot_product_attention backward (dq, dk, dv "
-                     "together) under autograd"})
+                     "together) under autograd; device_ms['library'] sums "
+                     "its own kernels (library_kernels_us)"})
     return timing
 
 
@@ -1039,7 +1133,9 @@ def phase_train_check():
         want_counts.update({"flash_attention": layers,
                             "flash_attention.mma": layers,
                             "flash_attention_bwd_dq": layers,
+                            "flash_attention_bwd_dq.mma": layers,
                             "flash_attention_bwd_dkv": layers,
+                            "flash_attention_bwd_dkv.mma": layers,
                             "opt_adam": int(opt == "adam"),
                             "opt_sgd": int(opt == "sgd")})
         if counts != want_counts:
@@ -1091,6 +1187,8 @@ def phase_train(smi):
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launch_counts()
+    bwd_fns = (flash.flash_backward_dq, flash.flash_backward_dkv)
+    copies = [f.copies for f in bwd_fns]
     losses, step_ms = [], []
     for _ in range(tr["steps"]):
         t0 = time.perf_counter()
@@ -1098,16 +1196,20 @@ def phase_train(smi):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     pred = st.predict(xb).asnumpy()
     counts = kernels.launch_counts()
+    copies = [f.copies - c for f, c in zip(bwd_fns, copies)]
     peak = torch.cuda.max_memory_allocated()
     layers, steps = cfg["layers"], tr["steps"]
     want = dict.fromkeys(counts, 0)
     want.update({"flash_attention": layers * (steps + 1),
                  "flash_attention.mma": layers * (steps + 1),
                  "flash_attention_bwd_dq": layers * steps,
+                 "flash_attention_bwd_dq.mma": layers * steps,
                  "flash_attention_bwd_dkv": layers * steps,
+                 "flash_attention_bwd_dkv.mma": layers * steps,
                  "opt_adam": steps})
-    if counts != want:
-        raise AssertionError(f"train: launches {counts}, expected {want}")
+    if counts != want or copies != [0, 0]:
+        raise AssertionError(f"train: launches {counts}, backward input "
+                             f"copies {copies}; expected {want} and none")
     if not all(math.isfinite(v) for v in losses) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"train: loss not finite and falling: {losses}")
@@ -1129,13 +1231,15 @@ def phase_train(smi):
           "losses": losses, "step_ms": step_ms, "median_step_ms": median,
           "tokens_per_s": tr["batch"] * cfg["seq_len"] / (median / 1e3),
           "memory_allocated_before": before, "max_memory_allocated": peak,
-          "launches": counts,
+          "launches": counts, "flash_bwd_input_copies": copies,
           "accuracy_on_batch": float((pred.argmax(-1) == y).mean()),
           "profiled_step_ms": window_ms,
           "device_ms_per_step": device_ms if groups else "not measured",
           "device_idle_share": 1 - device_ms / window_ms
           if groups else "not measured",
-          "device_us_by_group": groups, "top_kernels_us": top})
+          "device_us_by_group": groups, "top_kernels_us": top,
+          "flash_bwd_us": groups.get("flash_bwd", 0.0),
+          "copy_us": groups.get("copy", 0.0)})
     return counts
 
 
@@ -2019,7 +2123,9 @@ def phase_dist_train(smi):
                  "twobit_decompress": n_tensors, "opt_adam": 1,
                  "flash_attention": layers, "flash_attention.mma": layers,
                  "flash_attention_bwd_dq": layers,
-                 "flash_attention_bwd_dkv": layers})
+                 "flash_attention_bwd_dq.mma": layers,
+                 "flash_attention_bwd_dkv": layers,
+                 "flash_attention_bwd_dkv.mma": layers})
     for w in workers:
         if w["num_workers"] != d["workers"]:
             raise AssertionError(f"dist_train: worker {w['rank']} saw "
@@ -2057,13 +2163,14 @@ PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
 
 
 def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
-                 library):
-    """One kernel's entry of the ``{"kernels": [...]}`` line."""
+                 library, **extra):
+    """One kernel's entry of the ``{"kernels": [...]}`` line; ``extra``
+    keys (a second bound) follow the contract's."""
     return {"name": name, "route": "cuda",
             "source": f"mxnet_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": library}
+            "library_ms": library, **extra}
 
 
 def main(argv=None):
@@ -2124,15 +2231,18 @@ def main(argv=None):
                      "mxnet_tpu/kernels/flash.py:38",
                      done["serve"]["flash_launches"],
                      fwd["max_abs_err"], fwd["kernel_ms"], fwd["plain_ms"],
-                     (fwd["bound_ms"], fwd["bound_by"]), fwd["library_ms"])]
+                     (fwd["bound_tc_ms"], fwd["bound_tc_by"]),
+                     fwd["library_ms"], bound_f32_ms=fwd["bound_ms"])]
+    # K3 and K3-bwd run every product on the tensor cores (3xTF32): their
+    # bound is the tensor-core one; the float32 rate's stays beside it
     for part in ("dq", "dkv"):
         lines.append(_kernel_line(
             f"flash_attention_bwd_{part}", "flash_attention_bwd.cu",
             "mxnet_tpu/kernels/flash.py:134",
-            train[f"flash_attention_bwd_{part}"], bwd["max_abs_err"],
+            train[f"flash_attention_bwd_{part}"], bwd["max_abs_err"][part],
             bwd["ms"][part], bwd["ms"][f"{part}_plain"],
-            (bwd["bound_ms"][part], bwd["bound_by"][part]),
-            bwd["ms"]["library"]))
+            (bwd["bound_ms"][f"{part}_tc"], bwd["bound_by"][f"{part}_tc"]),
+            bwd["ms"]["library"], bound_f32_ms=bwd["bound_ms"][part]))
     for family, replaces, launches in (
             ("opt_sgd", "mxnet_tpu/kernels/opt_step.py:114",
              sgd_launches["opt_sgd"]),

@@ -65,7 +65,6 @@
 // The launch function is plain C: it returns cudaGetLastError() after the
 // launch and never synchronises.
 
-#include <atomic>
 #include <type_traits>
 
 #include "flash_common.cuh"
@@ -74,13 +73,6 @@
 namespace {
 
 using namespace mxtt_flash;
-
-constexpr int kMaxDevices = 64;
-
-// Element strides of a (B, H, S, D) operand; D's stride is 1.
-struct Strides {
-  long long b, h, s;
-};
 
 template <typename T>
 struct Fwd {
@@ -94,62 +86,6 @@ struct Fwd {
   float scale;
   int causal;
 };
-
-// Rows [row0, row0 + ROWS) of one head's (S, D) operand, row r at
-// src + r * stride, into a float tile with leading dimension LD; rows past
-// n and columns [d, DMAX) are zero, so a kernel may multiply over all DMAX
-// columns without a branch. float32: cp.async, 16 bytes a thread,
-// zero-filled by src-size. bfloat16: 8 values a thread through registers,
-// widened.
-template <int ROWS, int DMAX, int LD, int NT>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          long long stride, int row0, int n,
-                                          int d) {
-  constexpr int kChunks = DMAX / 4;
-  const uint32_t base = (uint32_t)__cvta_generic_to_shared(dst);
-#pragma unroll
-  for (int j = 0; j < (ROWS * kChunks + NT - 1) / NT; ++j) {
-    const int i = threadIdx.x + j * NT;
-    if (ROWS * kChunks % NT != 0 && i >= ROWS * kChunks) break;
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 4;
-    const bool in = row0 + r < n && c < d;
-    cp_async16(base + (uint32_t)(r * LD + c) * 4u,
-               in ? src + (row0 + r) * stride + c : src, in ? 16 : 0);
-  }
-}
-
-template <int ROWS, int DMAX, int LD, int NT>
-__device__ __forceinline__ void load_rows(float* dst,
-                                          const __nv_bfloat16* src,
-                                          long long stride, int row0, int n,
-                                          int d) {
-  constexpr int kChunks = DMAX / 8;
-#pragma unroll
-  for (int j = 0; j < (ROWS * kChunks + NT - 1) / NT; ++j) {
-    const int i = threadIdx.x + j * NT;
-    if (ROWS * kChunks % NT != 0 && i >= ROWS * kChunks) break;
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    float w[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    if (row0 + r < n && c < d) {
-      const __nv_bfloat16* p = src + (row0 + r) * stride + c;
-      load4(p, w);
-      load4(p + 4, w + 4);
-    }
-    float4* q = reinterpret_cast<float4*>(dst + r * LD + c);
-    q[0] = make_float4(w[0], w[1], w[2], w[3]);
-    q[1] = make_float4(w[4], w[5], w[6], w[7]);
-  }
-}
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
 
 // ---------------------------------------------------------------------------
 // Tensor-core path (D <= 128)
@@ -170,21 +106,6 @@ struct MmaTiles {
   static constexpr int kMinBlocks = kQRegs ? 3 : 2;
   static_assert(kBQ <= 2 * kBK, "the q tile must fit one stage");
 };
-
-// A fragment of q rows row0 .. row0 + 15, columns 8 kk .. 8 kk + 7, from a
-// float tile; split into hi and lo when kLo, else taken as it is.
-template <int LD, bool kLo>
-__device__ __forceinline__ void a_fragment(const float* Qs, int row0, int kk,
-                                           int g, int t, uint32_t (&hi)[4],
-                                           uint32_t (&lo)[4]) {
-  const float* p = Qs + (row0 + g) * LD + kk * 8 + t;
-  const float x[4] = {p[0], p[8 * LD], p[4], p[8 * LD + 4]};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (kLo) split_tf32(x[i], hi[i], lo[i]);
-    else hi[i] = __float_as_uint(x[i]);
-  }
-}
 
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(kMmaThreads, MmaTiles<DMAX>::kMinBlocks)
@@ -276,22 +197,8 @@ flash_fwd_mma_kernel(const Fwd<T> a) {
         } else {
           a_fragment<LD, kLo>(Qs, wr, kk, g, t, ah, al);
         }
-#pragma unroll
-        for (int nb = 0; nb < NB; ++nb) {
-          // B = K^T: b0 = K[key 8 nb + g][8 kk + t], b1 at column + 4
-          const float* kp = Ks + (nb * 8 + g) * LD + kk * 8 + t;
-          if (kLo) {
-            uint32_t bh0, bl0, bh1, bl1;
-            split_tf32(kp[0], bh0, bl0);
-            split_tf32(kp[4], bh1, bl1);
-            mma_tf32(s[nb], ah, bl0, bl1);   // the small terms first
-            mma_tf32(s[nb], al, bh0, bh1);
-            mma_tf32(s[nb], ah, bh0, bh1);
-          } else {
-            mma_tf32(s[nb], ah, __float_as_uint(kp[0]),
-                     __float_as_uint(kp[4]));
-          }
-        }
+        // B = K^T: b0 = K[key 8 nb + g][8 kk + t], b1 at column + 4
+        qk_step<NB, LD, kLo>(s, ah, al, Ks, kk, g, t);
       }
 
       // online softmax on rows g (h2 = 0) and g + 8 (h2 = 1), in base 2:
@@ -340,30 +247,8 @@ flash_fwd_mma_kernel(const Fwd<T> a) {
       // key 2t and column t + 4 is key 2t + 1, so a = (c0, c2, c1, c3) and
       // V's B fragment comes from V rows 2t (b0) and 2t + 1 (b1)
 #pragma unroll
-      for (int nb = 0; nb < NB; ++nb) {
-        uint32_t ph[4], pl[4];
-        split_tf32(s[nb][0], ph[0], pl[0]);
-        split_tf32(s[nb][2], ph[1], pl[1]);
-        split_tf32(s[nb][1], ph[2], pl[2]);
-        split_tf32(s[nb][3], ph[3], pl[3]);
-        const float* vp = Vs + (nb * 8 + 2 * t) * LD + g;
-#pragma unroll
-        for (int nd = 0; nd < KD; ++nd) {
-          const float v0 = vp[nd * 8];
-          const float v1 = vp[nd * 8 + LD];
-          if (kLo) {
-            uint32_t vh0, vl0, vh1, vl1;
-            split_tf32(v0, vh0, vl0);
-            split_tf32(v1, vh1, vl1);
-            mma_tf32(acc[nd], ph, vl0, vl1);
-            mma_tf32(acc[nd], pl, vh0, vh1);
-            mma_tf32(acc[nd], ph, vh0, vh1);
-          } else {
-            mma_tf32(acc[nd], pl, __float_as_uint(v0), __float_as_uint(v1));
-            mma_tf32(acc[nd], ph, __float_as_uint(v0), __float_as_uint(v1));
-          }
-        }
-      }
+      for (int nb = 0; nb < NB; ++nb)
+        pv_product<KD, LD, kLo>(acc, s[nb], Vs + nb * 8 * LD, g, t);
     }
     __syncthreads();   // every warp is done with this stage before its reuse
   }
@@ -529,22 +414,6 @@ flash_fwd_simt_kernel(const Fwd<T> a) {
 
 // ---------------------------------------------------------------------------
 // Launch
-
-// Lift the 48 KB default limit on dynamic shared memory, once per device
-// for each kernel (Kern).
-template <const void* (*Kern)(), size_t kBytes>
-cudaError_t allow_smem() {
-  static std::atomic<bool> done[kMaxDevices];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (done[dev].load()) return cudaSuccess;
-  e = cudaFuncSetAttribute(Kern(), cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kBytes);
-  if (e == cudaSuccess) done[dev].store(true);
-  return e;
-}
 
 template <typename T, int DMAX>
 const void* mma_kernel() {

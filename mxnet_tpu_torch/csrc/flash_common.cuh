@@ -1,7 +1,7 @@
-// Helpers shared by the flash-attention forward and backward kernels:
-// 4-wide loads that widen float32 or bfloat16 to float, 1-wide stores that
-// narrow back, tile copies into shared memory and the 8-lane row-group
-// reductions. Every kernel here runs 128 threads as 16 row groups of 8.
+// Helpers shared by the flash-attention and decode-attention kernels: 4-wide
+// loads that widen float32 or bfloat16 to float, 1-wide loads and stores,
+// and, for the SIMT kernels (128 threads as 16 row groups of 8), the 8-lane
+// row-group reductions and register-blocked tile dot products.
 
 #pragma once
 
@@ -38,21 +38,6 @@ __device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 
 __device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
-}
-
-// Copy rows [row0, row0 + ROWS) of a row-major (n_rows, d) matrix into a
-// float tile with leading dimension ld; rows past n_rows are zero.
-template <typename T, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, int ld, const T* src,
-                                          int row0, int n_rows, int d) {
-  const int chunks = d >> 2;
-  for (int i = threadIdx.x; i < ROWS * chunks; i += kThreads) {
-    const int r = i / chunks;
-    const int c = (i - r * chunks) << 2;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (row0 + r < n_rows) load4(src + (size_t)(row0 + r) * d + c, v);
-    *reinterpret_cast<float4*>(dst + r * ld + c) = make_float4(v[0], v[1], v[2], v[3]);
-  }
 }
 
 __device__ __forceinline__ float group_max(float x) {

@@ -34,14 +34,25 @@ specialisation are later work.
 Backward (``csrc/flash_attention_bwd.cu``) replaces the JAX package's
 ``_flash_backward``, a blocked recompute in plain JAX with O(S*block)
 memory. The forward also writes each row's log-sum-exp when asked; two
-deterministic kernels then recompute probabilities from q, k and it:
-``dq`` (one block per q tile, which also writes ``D = rowsum(dO*o)``)
-and ``dkv`` (one block per k tile), no atomics, same domain as the
-forward. At the training shape (B=32, H=12, S=128, D=64, float32) the
-pair does 14*B*H*S*S*D = 5.6 GFLOP against 10*B*H*S*S*D = 4.0 GFLOP for
-the whole backward done once (dq, dk, dv and one recompute of P), so
-float32 FMAs bound it (60 us at 67 TFLOP/s) before its 8 x 12.6 MB of
-traffic (30 us).
+deterministic kernels then recompute probabilities from q, k and it, no
+atomics, same domain as the forward: ``dq`` (one block per 64 q rows,
+which also writes ``D = rowsum(dO*o)``), then ``dkv`` (one block per 64
+keys). Up to D = 128 both run every product on the tensor cores as the
+forward does (3xTF32 ``mma.sync``; QK-shaped S and dP, PV-shaped dS k,
+P^T dO and dS^T q with the accumulator relabelled as the A operand),
+stream their tiles by ``cp.async`` and read q, k, v, o and dO through
+their (B, H, S) strides; dq, dk and dv are allocated in their input's
+memory order and written through their strides, so the transposed
+(B, S, H, D) views of a MultiHeadAttention and the gradients that flow
+back to them are copied neither way. Head dims above 128 take a SIMT
+kernel of each family; each launch reports its path
+(``flash_backward_dq.launches_by_path``,
+``flash_backward_dkv.launches_by_path``) and an input the kernels cannot
+read in place is copied and counted (``.copies``). At the training shape
+(B=32, H=12, S=128, D=64, float32) dq does 3 and dkv 4 products of
+2*B*H*S*S*D = 0.81 GFLOP, as three TF32 products 14.6 and 19.5 us at 495
+TFLOP/s, while each kernel moves six 12.6 MB tensors plus lse and D,
+22.7 us at 3.35 TB/s: bytes bound both.
 
 :func:`flash_attention` is the differentiable entry point. When a graph
 is being recorded it runs :class:`FlashAttentionFunction`, whose forward
@@ -60,7 +71,8 @@ from . import build
 
 __all__ = ["flash_attention", "FlashAttentionFunction",
            "flash_attention_plain", "flash_backward_plain", "flash_forward",
-           "flash_backward_dq", "flash_backward_dkv"]
+           "flash_backward_dq", "flash_backward_dkv", "forward_blocks_per_sm",
+           "backward_blocks_per_sm"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _fns = {}
@@ -134,10 +146,14 @@ _SIGNATURES = {
         "flash_attention", [_P] * 5 + [_I] * 5 + [_L] * 12
         + [_F, _I, _I, _P, ctypes.POINTER(_I)]),
     "mxtt_flash_attention_blocks_per_sm": ("flash_attention", [_I, _I]),
-    "mxtt_flash_attention_bwd_dq": ("flash_attention_bwd",
-                                    [_P] * 8 + [_I] * 4 + [_F, _I, _I, _P]),
-    "mxtt_flash_attention_bwd_dkv": ("flash_attention_bwd",
-                                     [_P] * 8 + [_I] * 4 + [_F, _I, _I, _P]),
+    "mxtt_flash_attention_bwd_dq": (
+        "flash_attention_bwd", [_P] * 8 + [_I] * 5 + [_L] * 18
+        + [_F, _I, _I, _P, ctypes.POINTER(_I)]),
+    "mxtt_flash_attention_bwd_dkv": (
+        "flash_attention_bwd", [_P] * 8 + [_I] * 5 + [_L] * 18
+        + [_F, _I, _I, _P, ctypes.POINTER(_I)]),
+    "mxtt_flash_attention_bwd_blocks_per_sm": ("flash_attention_bwd",
+                                               [_I, _I, _I]),
 }
 
 
@@ -152,32 +168,31 @@ def _launcher(symbol):
     return fn
 
 
-def _check(q, k, v, **more):
+def _check(what, q, k, v, **more):
     for name, t in (("q", q), ("k", k), ("v", v), *more.items()):
         if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"flash_forward: {name} is on {t.device}; all "
-                             "of q, k, v must be on one CUDA card")
+            raise ValueError(f"{what}: {name} is on {t.device}; all of q, "
+                             "k, v must be on one CUDA card")
         if t.dtype != q.dtype:
-            raise ValueError(f"flash_forward: {name} is {t.dtype}, q is "
-                             f"{q.dtype}")
+            raise ValueError(f"{what}: {name} is {t.dtype}, q is {q.dtype}")
         if t.ndim != 4:
-            raise ValueError(f"flash_forward: {name} has rank {t.ndim}; "
-                             "expected (B, H, S, D)")
+            raise ValueError(f"{what}: {name} has rank {t.ndim}; expected "
+                             "(B, H, S, D)")
     if q.dtype not in _DTYPE_CODES:
-        raise ValueError(f"flash_forward: dtype {q.dtype} not supported "
+        raise ValueError(f"{what}: dtype {q.dtype} not supported "
                          "(float32, bfloat16)")
     b, h, sq, d = q.shape
     if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d or \
             any(t.shape != q.shape for t in more.values()):
-        raise ValueError(f"flash_forward: shapes q{tuple(q.shape)} "
+        raise ValueError(f"{what}: shapes q{tuple(q.shape)} "
                          f"k{tuple(k.shape)} v{tuple(v.shape)} "
                          f"{[tuple(t.shape) for t in more.values()]} do not "
                          "match")
     if d % 8 or not 0 < d <= 512:
-        raise ValueError(f"flash_forward: head dim {d} outside the "
-                         "kernel's domain (a multiple of 8 up to 512)")
+        raise ValueError(f"{what}: head dim {d} outside the kernel's domain "
+                         "(a multiple of 8 up to 512)")
     if min(b, h, sq, k.shape[2]) < 1:
-        raise ValueError(f"flash_forward: empty input {tuple(q.shape)}")
+        raise ValueError(f"{what}: empty input {tuple(q.shape)}")
 
 
 def _dense(t):
@@ -192,17 +207,47 @@ def _raise_on(rc, what, q):
                            f"{rc} for q{tuple(q.shape)} {q.dtype}")
 
 
-def _stream(t):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def _readable(t):
-    """Whether the forward kernel reads ``t`` (B, H, S, D) in place: D
+    """Whether the kernels read ``t`` (B, H, S, D) in place: D
     stride 1 and every row starting on 16 bytes (the pointer and each
     stride of a dim longer than 1)."""
     st, size = t.stride(), t.element_size()
     return st[3] == 1 and t.data_ptr() % 16 == 0 and all(
         n == 1 or (s * size) % 16 == 0 for s, n in zip(st[:3], t.shape[:3]))
+
+
+def _operands(fn, *ts):
+    """``ts`` as the kernels read them: in place where :func:`_readable`,
+    else a dense 16-byte aligned copy, counted in ``fn.copies``."""
+    out = []
+    for t in ts:
+        if not _readable(t):
+            fn.copies += 1
+            t = _dense(t)
+        out.append(t)
+    return out
+
+
+def _call(symbol, what, q, args):
+    """One foreign call of a launch function on the current stream of q's
+    card (a device guard only off the current card); returns the path the
+    launch reports, "mma" (tensor cores) or "simt"."""
+    path = ctypes.c_int(-1)
+    index = q.get_device()
+    launch = _launcher(symbol)
+    if index == torch.cuda.current_device():
+        rc = launch(*args, torch._C._cuda_getCurrentRawStream(index),
+                    ctypes.byref(path))
+    else:
+        with torch.cuda.device(index):
+            rc = launch(*args, torch._C._cuda_getCurrentRawStream(index),
+                        ctypes.byref(path))
+    _raise_on(rc, what, q)
+    return "mma" if path.value == 1 else "simt"
+
+
+def _strides(*ts):
+    return [s for t in ts for s in t.stride()[:3]]
 
 
 def flash_forward(q, k, v, scale, causal=False, with_lse=False):
@@ -220,37 +265,20 @@ def flash_forward(q, k, v, scale, causal=False, with_lse=False):
     counts in ``flash_forward.launches`` and, by the path it reports, in
     ``flash_forward.launches_by_path`` ("mma": the tensor-core kernel, D
     <= 128; "simt": D above)."""
-    _check(q, k, v)
-    q, k, v = (t if _readable(t) else _copied(t) for t in (q, k, v))
+    _check("flash_forward", q, k, v)
+    q, k, v = _operands(flash_forward, q, k, v)
     b, h, sq, d = q.shape
     out = q.new_empty((b, sq, h, d)).permute(0, 2, 1, 3)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
-    path = ctypes.c_int(-1)
-    index = q.get_device()
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if with_lse else None, b, h, sq, k.shape[2], d,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], float(scale), int(bool(causal)),
+            *_strides(q, k, v, out), float(scale), int(bool(causal)),
             _DTYPE_CODES[q.dtype])
-    launch = _launcher("mxtt_flash_attention_forward")
-    # one foreign call; a device guard only off the current card
-    if index == torch.cuda.current_device():
-        rc = launch(*args, torch._C._cuda_getCurrentRawStream(index),
-                    ctypes.byref(path))
-    else:
-        with torch.cuda.device(index):
-            rc = launch(*args, torch._C._cuda_getCurrentRawStream(index),
-                        ctypes.byref(path))
-    _raise_on(rc, "flash_forward", q)
+    path = _call("mxtt_flash_attention_forward", "flash_forward", q, args)
     flash_forward.launches += 1
-    flash_forward.launches_by_path["mma" if path.value == 1 else "simt"] += 1
+    flash_forward.launches_by_path[path] += 1
     return (out, lse) if with_lse else out
-
-
-def _copied(t):
-    flash_forward.copies += 1
-    return _dense(t)
 
 
 def forward_blocks_per_sm(d, dtype=torch.float32):
@@ -258,6 +286,14 @@ def forward_blocks_per_sm(d, dtype=torch.float32):
     one SM at once (the CUDA occupancy calculator). Needs the card."""
     return _launcher("mxtt_flash_attention_blocks_per_sm")(
         d, _DTYPE_CODES[dtype])
+
+
+def backward_blocks_per_sm(d, dtype=torch.float32):
+    """``{"dq": n, "dkv": n}``: blocks of each backward kernel that head
+    dim ``d`` takes that fit on one SM at once. Needs the card."""
+    fn = _launcher("mxtt_flash_attention_bwd_blocks_per_sm")
+    return {"dq": fn(0, d, _DTYPE_CODES[dtype]),
+            "dkv": fn(1, d, _DTYPE_CODES[dtype])}
 
 
 def _check_lse(q, *stats):
@@ -271,48 +307,60 @@ def _check_lse(q, *stats):
 
 def flash_backward_dq(q, k, v, o, lse, do, scale, causal=False):
     """Launch the dq kernel: returns ``(dq, D)``, ``D = rowsum(dO o)``
-    float32 (B, H, Sq), which :func:`flash_backward_dkv` needs."""
-    _check(q, k, v, o=o, do=do)
+    float32 (B, H, Sq), which :func:`flash_backward_dkv` needs.
+
+    q, k, v, o and dO are read through their strides, as
+    :func:`flash_forward` reads its inputs (a copy only where the kernel
+    cannot, counted in ``flash_backward_dq.copies``); lse is dense. dq is
+    allocated in q's memory order and written through its strides. Each
+    launch counts in ``launches`` and ``launches_by_path`` as the
+    forward's do."""
+    _check("flash_backward_dq", q, k, v, o=o, do=do)
     _check_lse(q, lse)
-    q, k, v, o, do, lse = (_dense(t) for t in (q, k, v, o, do, lse))
+    q, k, v, o, do = _operands(flash_backward_dq, q, k, v, o, do)
+    lse = lse.contiguous()
     b, h, sq, d = q.shape
+    # empty_like keeps the strides of a dense permutation (a transposed
+    # (B, S, H, D) view stays one, so the caller's transpose back is a
+    # view) and makes anything else contiguous; rows start on 16 bytes
     dq = torch.empty_like(q)
     dsum = torch.empty_like(lse)
-    with torch.cuda.device(q.device):
-        rc = _launcher("mxtt_flash_attention_bwd_dq")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dsum.data_ptr(),
-            b * h, sq, k.shape[2], d, float(scale), int(bool(causal)),
-            _DTYPE_CODES[q.dtype], _stream(q))
-    _raise_on(rc, "flash_backward_dq", q)
+            b, h, sq, k.shape[2], d, *_strides(q, k, v, o, do, dq),
+            float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype])
+    path = _call("mxtt_flash_attention_bwd_dq", "flash_backward_dq", q, args)
     flash_backward_dq.launches += 1
+    flash_backward_dq.launches_by_path[path] += 1
     return dq, dsum
 
 
 def flash_backward_dkv(q, k, v, lse, dsum, do, scale, causal=False):
     """Launch the dkv kernel after :func:`flash_backward_dq` on the same
-    stream: returns ``(dk, dv)``."""
-    _check(q, k, v, do=do)
+    stream: returns ``(dk, dv)``, in k's and v's memory order; inputs as
+    for :func:`flash_backward_dq` (copies in
+    ``flash_backward_dkv.copies``)."""
+    _check("flash_backward_dkv", q, k, v, do=do)
     _check_lse(q, lse, dsum)
-    q, k, v, do, lse, dsum = (_dense(t) for t in (q, k, v, do, lse, dsum))
+    q, k, v, do = _operands(flash_backward_dkv, q, k, v, do)
+    lse, dsum = lse.contiguous(), dsum.contiguous()
     b, h, sq, d = q.shape
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        rc = _launcher("mxtt_flash_attention_bwd_dkv")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+    dk, dv = torch.empty_like(k), torch.empty_like(v)  # as dq
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), dsum.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b * h, sq, k.shape[2], d, float(scale), int(bool(causal)),
-            _DTYPE_CODES[q.dtype], _stream(q))
-    _raise_on(rc, "flash_backward_dkv", q)
+            b, h, sq, k.shape[2], d, *_strides(q, k, v, do, dk, dv),
+            float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype])
+    path = _call("mxtt_flash_attention_bwd_dkv", "flash_backward_dkv", q,
+                 args)
     flash_backward_dkv.launches += 1
+    flash_backward_dkv.launches_by_path[path] += 1
     return dk, dv
 
 
-flash_forward.launches = 0
-flash_forward.launches_by_path = {"mma": 0, "simt": 0}
-flash_forward.copies = 0
-flash_backward_dq.launches = 0
-flash_backward_dkv.launches = 0
+for _fn in (flash_forward, flash_backward_dq, flash_backward_dkv):
+    _fn.launches = 0
+    _fn.launches_by_path = {"mma": 0, "simt": 0}
+    _fn.copies = 0
 
 
 class FlashAttentionFunction(torch.autograd.Function):
@@ -323,11 +371,11 @@ class FlashAttentionFunction(torch.autograd.Function):
     def forward(ctx, q, k, v, scale, causal):
         from . import dispatch
 
-        # saved dense, so the backward kernels copy none of them again; the
-        # output comes back as a (B, H, S, D) view of (B, S, H, D) memory,
-        # which the dq kernel's _dense copies once (in place of the copy
-        # the caller's reshape would otherwise make)
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        # q, k and v are saved as they come (a MultiHeadAttention's
+        # transposed (B, S, H, D) views) and the output is a (B, H, S, D)
+        # view of (B, S, H, D) memory: the kernels read them, and dO,
+        # through their strides and write the gradients in their inputs'
+        # memory order, so neither direction copies
         out, lse = dispatch("flash_attention", q, k, v, scale, causal,
                             with_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)

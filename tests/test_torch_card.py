@@ -76,40 +76,95 @@ def test_gradients_flow_through_the_flash_kernel_on_card(cuda_device):
     mha(x)  # resolve deferred shapes
     weights = [getattr(mha, n).weight.data()._data.requires_grad_(True)
                for n in ("query", "key", "value")]
+    fns = (flash.flash_forward, flash.flash_backward_dq,
+           flash.flash_backward_dkv)
+    copies = [f.copies for f in fns]
+    kernels.reset_launch_counts()
     with mx.autograd.record():
         y = mha(x)
     grads = torch.autograd.grad(y._data.square().sum(), weights,
                                 allow_unused=True)
     for g in grads:
         assert g is not None and torch.count_nonzero(g) > 0
+    # the heads' transposed views are read in place both ways
+    assert [f.copies for f in fns] == copies
+    counts = kernels.launch_counts()
+    assert counts["flash_attention_bwd_dq.mma"] == 1
+    assert counts["flash_attention_bwd_dkv.mma"] == 1
+
+
+def _bwd_operand(a, device, dtype, layout):
+    """A numpy (B, H, S, D) array on the card in ``layout``: "dense";
+    "bshd", a transposed view of a (B, S, H, D) tensor; "unaligned", rows
+    starting 4 or 2 bytes off 16."""
+    t = torch.from_numpy(a).to(device, dtype)
+    if layout == "bshd":
+        return t.permute(0, 2, 1, 3).contiguous().permute(0, 2, 1, 3)
+    if layout == "unaligned":
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=device)
+        return buf[1:].view(t.shape).copy_(t)
+    return t
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,dtype,causal", [
-    ((4, 12, 128, 128, 64), torch.float32, False),
-    ((4, 12, 128, 128, 64), torch.bfloat16, True),
-    ((2, 4, 100, 100, 64), torch.float32, True),
-    ((2, 4, 96, 80, 40), torch.float32, True),
-    ((2, 4, 128, 256, 64), torch.float32, False),
-    ((2, 4, 64, 64, 256), torch.float32, False),
-    ((2, 4, 48, 48, 512), torch.bfloat16, False),
+@pytest.mark.parametrize("shape,dtype,causal,layout", [
+    ((4, 12, 128, 128, 64), torch.float32, False, "dense"),
+    ((4, 12, 128, 128, 64), torch.bfloat16, True, "dense"),
+    ((2, 4, 100, 100, 64), torch.float32, True, "dense"),
+    ((2, 4, 96, 80, 40), torch.float32, True, "dense"),
+    ((2, 4, 128, 256, 64), torch.float32, False, "dense"),
+    ((2, 4, 64, 64, 256), torch.float32, False, "dense"),
+    ((2, 4, 48, 48, 512), torch.bfloat16, False, "dense"),
+    ((2, 4, 100, 72, 64), torch.bfloat16, True, "dense"),
+    ((4, 12, 128, 128, 64), torch.float32, False, "bshd"),
+    ((2, 4, 100, 100, 128), torch.float32, True, "bshd"),
+    ((2, 4, 96, 80, 40), torch.bfloat16, True, "bshd"),
+    ((2, 4, 64, 64, 256), torch.float32, True, "bshd"),
+    ((2, 4, 128, 128, 64), torch.float32, False, "unaligned"),
+    ((2, 4, 100, 100, 128), torch.bfloat16, True, "unaligned"),
 ])
 def test_backward_kernels_match_plain_on_card(cuda_device, shape, dtype,
-                                              causal):
+                                              causal, layout):
+    """Each launch on the path its head dim takes, q and dO read in place
+    unless their rows are off 16 bytes (then each is copied once per
+    kernel), the gradients in their inputs' memory order, two calls
+    bit-equal (no atomics), and every gradient within the tolerance of the
+    dense recompute."""
     b, h, sq, sk, d = shape
-    q, do = (torch.from_numpy(_rand((b, h, sq, d), s)).to(cuda_device, dtype)
-             for s in (1, 2))
-    k, v = (torch.from_numpy(_rand((b, h, sk, d), s)).to(cuda_device, dtype)
+    q, do = (_bwd_operand(_rand((b, h, sq, d), s), cuda_device, dtype,
+                          layout) for s in (1, 2))
+    k, v = (_bwd_operand(_rand((b, h, sk, d), s), cuda_device, dtype,
+                         "bshd" if layout == "bshd" else "dense")
             for s in (3, 4))
     scale = 1 / math.sqrt(d)
-    o, lse = flash.flash_forward(q, k, v, scale, causal, with_lse=True)
-    dq, dsum = flash.flash_backward_dq(q, k, v, o, lse, do, scale, causal)
-    dk, dv = flash.flash_backward_dkv(q, k, v, lse, dsum, do, scale, causal)
-    torch.cuda.synchronize()
+    fns = (flash.flash_backward_dq, flash.flash_backward_dkv)
+    path = "mma" if d <= 128 else "simt"
+
+    def backward():
+        before = [(dict(f.launches_by_path), f.copies) for f in fns]
+        o, lse = flash.flash_forward(q, k, v, scale, causal, with_lse=True)
+        dq, dsum = flash.flash_backward_dq(q, k, v, o, lse, do, scale,
+                                           causal)
+        dk, dv = flash.flash_backward_dkv(q, k, v, lse, dsum, do, scale,
+                                          causal)
+        torch.cuda.synchronize()
+        for f, (paths, copies) in zip(fns, before):
+            assert f.launches_by_path[path] == paths[path] + 1
+            assert sum(f.launches_by_path.values()) == sum(paths.values()) + 1
+            assert f.copies == copies + 2 * (layout == "unaligned")
+        return o, (dq, dk, dv)
+
+    o, grads = backward()
+    again = backward()[1]
     want = flash.flash_backward_plain(q, k, v, o, do, scale, causal)
     tol = F32_TOL if dtype == torch.float32 else BF16_TOL
-    for g, w in zip((dq, dk, dv), want):
-        assert g.dtype == dtype
+    for g, g2, w, t in zip(grads, again, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        assert torch.equal(g, g2)
+        if layout == "bshd":
+            assert g.permute(0, 2, 1, 3).is_contiguous()
+        else:
+            assert g.is_contiguous()
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
 
 
