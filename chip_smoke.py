@@ -12,8 +12,8 @@ Phases, each printing one JSON line:
 2. build: compiles every kernel source in ``mxnet_tpu_torch/csrc`` with
    ``nvcc`` (all at once), and prints the build seconds and ptxas's
    register and shared-memory report; fails if the int8 GEMM, the flash
-   forward's tensor-core kernel or either tensor-core backward kernel
-   spills registers.
+   forward's tensor-core kernel, either tensor-core backward kernel or
+   the optimizer kernel spills registers.
 3. flash: holds the flash-attention forward against its plain PyTorch
    version on the serving shape and on ragged, cross-attention and other
    head-dim shapes, float32 and bfloat16, causal and not, on dense
@@ -57,8 +57,16 @@ Phases, each printing one JSON line:
 7. opt: holds the fused SGD-momentum and Adam kernels bit for bit
    (``torch.equal``) against their plain versions on the classifier's
    full parameter list and on odd sizes, with and without clip and
-   weight decay, and times one multi-tensor step beside
-   ``torch.optim``'s fused step (a yardstick with other semantics).
+   weight decay, on operands 4 bytes off their 16-byte alignment (all,
+   or one operand of every other tensor), and through
+   ``Optimizer.fused_update_multi`` with two learning-rate groups (two
+   launches an update, no table rebuilt after the first); each case with
+   every tensor on the path its alignment gives (16-byte or scalar), no
+   gradient copied, and the skip flag honoured. Then it times one
+   multi-tensor step over the classifier's 197 tensors beside
+   ``torch.optim``'s fused step (a yardstick with other semantics) by
+   CUDA events (``ms``), the profiler's kernel time (``device_ms``) and
+   the host's time per call (``host_us``).
 8. train_check: the classifier at full width with 2 layers, one "adam"
    and one "sgd" (momentum) ``ShardedTrainer`` step on the card and on a
    CPU copy from the same weights; loss and every parameter agree, and
@@ -66,7 +74,8 @@ Phases, each printing one JSON line:
 9. train: 20 "adam" steps of the full 12-layer classifier on one batch
    of 32 (``make_task`` of the example): finite, falling loss, launch
    counts (every flash backward launch on the tensor-core path, no input
-   copied), median step time, tokens/s, peak memory, and a
+   copied; all 197 tensors of every Adam step on the 16-byte path, no
+   gradient copied), median step time, tokens/s, peak memory, and a
    ``torch.profiler`` split of one step's device time.
 10. int8_gemm: holds the int8 GEMM kernel (K4) bit for bit
     (``torch.equal``) against its plain version on every product shape
@@ -135,6 +144,7 @@ build always run) and then prints no result line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import math
@@ -338,9 +348,13 @@ def kernel_device_us(fn, iters=20, warmup=3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    # a user annotation (``Optimizer.step#Adam.step``, from
+    # ``torch.optim``'s ``record_function``) is listed as a CUDA range
+    # over the kernels it holds: counting it too would count them twice
     return {e.key: e.self_device_time_total / iters
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
             and e.self_device_time_total > 0}
 
 
@@ -430,6 +444,9 @@ def phase_build():
     emit({"phase": "build", "kernel": "flash_attention_bwd",
           "mma_kernels": {n: e for found in bwd.values()
                           for n, e in found.items()}})
+    emit({"phase": "build", "kernel": "opt_step",
+          "kernels": _no_spills(report["opt_step"]["ptxas"], "opt_step",
+                                "opt_step_kernel")})
     emit({"phase": "build", "kernels": sorted(report), "wall_s": wall})
 
 
@@ -1007,10 +1024,167 @@ def _clone(state):
     return {k: [t.clone() for t in ts] for k, ts in state.items()}
 
 
+def _misaligned(state, family, mixed):
+    """``state`` with operands moved 4 bytes off their 16-byte alignment:
+    every operand (``mixed`` False), or only operand ``(i // 2) % k`` of
+    every odd tensor ``i`` (k operands), so that one list holds aligned
+    tensors and tensors with one misaligned operand among aligned ones.
+    Returns the state and the tensors that must take the scalar path."""
+    keys = ["w", "g", "m"] + (["v"] if family == "opt_adam" else [])
+    out = {k: list(ts) for k, ts in state.items()}
+    scalar = 0
+    for i in range(len(state["w"])):
+        moved = keys if not mixed else \
+            [keys[(i // 2) % len(keys)]] if i % 2 else []
+        for k in moved:
+            out[k][i] = _unaligned(out[k][i])
+        scalar += bool(moved)
+    return out, scalar
+
+
+def _opt_paths(fn, before):
+    return {path: n - before[path]
+            for path, n in fn.tensors_by_path.items()}
+
+
+class _plain_route:
+    """Within the block, ``kernels.dispatch`` sends ``family`` to its
+    plain version on the card too: the same caller's path, run by the
+    version the kernel is held to."""
+
+    def __init__(self, family):
+        self.entry = kernels.entry(family)
+
+    def __enter__(self):
+        self.kernel = self.entry.kernel
+        self.entry.kernel = self.entry.plain
+
+    def __exit__(self, *exc):
+        self.entry.kernel = self.kernel
+
+
+def _opt_lr_groups(family, shapes, gen, dev, steps=3):
+    """``Optimizer.fused_update_multi`` (the ``gluon.Trainer`` and
+    ``Updater`` path) with two learning-rate groups (lr_mult 0.5 on every
+    other tensor) for ``steps`` steps, through the kernel and through the
+    plain version on copies of the same inputs. Fails unless every update
+    launched the kernel twice and only the first built tables. Returns
+    the inputs, both results and the kernel's launches, tables built and
+    tensors by path."""
+    name = "sgd" if family == "opt_sgd" else "adam"
+    params = {"learning_rate": 1e-3, "wd": 1e-4}
+    if name == "sgd":
+        params["momentum"] = 0.9
+    base = _opt_inputs(shapes, gen, dev)
+    n = len(shapes)
+    fn, tables = kernels.entry(family).kernel, opt_step._TABLES[family]
+    out = {}
+    for route in ("kernel", "plain"):
+        state = _clone(base)
+        opt = mx.optimizer.create(name, **params)
+        opt.set_lr_mult({i: 0.5 for i in range(1, n, 2)})
+        nd = mx.nd.NDArray
+        weights = [nd(t) for t in state["w"]]
+        grads = [nd(t) for t in state["g"]]
+        states = [nd(m) for m in state["m"]] if name == "sgd" else \
+            [(nd(m), nd(v)) for m, v in zip(state["m"], state["v"])]
+        builds, launches = [tables.builds], [fn.launches]
+        paths = dict(fn.tensors_by_path)
+        with _plain_route(family) if route == "plain" else \
+                contextlib.nullcontext():
+            for _ in range(steps):
+                opt.fused_update_multi(list(range(n)), weights, grads,
+                                       states)
+                builds.append(tables.builds)
+                launches.append(fn.launches)
+        out[route] = state
+        if route == "kernel":
+            per_update = np.diff(launches).tolist()
+            if per_update != [2] * steps or builds[1] - builds[0] > 2 or \
+                    builds[-1] != builds[1]:
+                raise AssertionError(f"{family} lr groups: launches per "
+                                     f"update {per_update}, tables built "
+                                     f"{np.diff(builds).tolist()}")
+            report = {"launches": launches[-1] - launches[0],
+                      "tables_built": builds[-1] - builds[0],
+                      "tensors_by_path": _opt_paths(fn, paths)}
+    return base, out["kernel"], out["plain"], report
+
+
+def _host_us(fn, iters=50, warmup=3):
+    """Median host microseconds of one ``fn()`` call, each started on an
+    idle card (after ``torch.cuda.synchronize()``): the host's work
+    alone, the kernels' time excluded."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e6
+
+
+def opt_timing(plain=True):
+    """K1 and K2 over the classifier's 197 tensors (109 M float32
+    parameters) beside ``torch.optim``'s fused SGD and Adam over the same
+    tensors: by CUDA events over back-to-back calls (``ms``), by the
+    profiler's kernel time (``device_ms``) and by the host's time per call
+    (``host_us``); the byte bound; the plain version by events
+    (``plain``). Uses only the families' public wrappers, so that
+    another tree's package can be timed with it (``tools/opt_abba.py``).
+    """
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    names = list(classifier_shapes(BERT_BASE))
+    full = [classifier_shapes(BERT_BASE)[n] for n in names]
+    wds = [1e-4 if n.endswith(("weight", "gamma")) else 0.0 for n in names]
+    n = sum(math.prod(s) for s in full)
+    lr = torch.tensor(1e-3, device=dev)
+    state = _opt_inputs(full, gen, dev)
+    params = [torch.nn.Parameter(w.clone()) for w in state["w"]]
+    for p, g in zip(params, state["g"]):
+        p.grad = g.clone()
+    groups = [{"params": [p for p, wd in zip(params, wds) if wd],
+               "weight_decay": 1e-4},
+              {"params": [p for p, wd in zip(params, wds) if not wd],
+               "weight_decay": 0.0}]
+    library = {"opt_adam": torch.optim.Adam(groups, lr=1e-3, fused=True),
+               "opt_sgd": torch.optim.SGD(groups, lr=1e-3, momentum=0.9,
+                                          fused=True)}
+    timing = {}
+    for family, hyper, nbytes in (
+            ("opt_adam", {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8},
+             28 * n),
+            ("opt_sgd", {"momentum": 0.9}, 20 * n)):
+        e = kernels.entry(family)
+
+        def kernel(e=e, family=family, hyper=hyper):
+            _run_opt(family, e.kernel, state, lr, wds, hyper)
+
+        step = library[family].step
+        t = {"ms": cuda_ms(kernel), "device_ms": device_ms(kernel),
+             "host_us": _host_us(kernel),
+             "bound_ms": nbytes / H100_BYTES_S * 1e3, "bound_by": "bytes",
+             "library_ms": cuda_ms(step), "library_device_ms":
+             device_ms(step), "library_host_us": _host_us(step)}
+        if plain:
+            t["plain_ms"] = cuda_ms(
+                lambda: _run_opt(family, e.plain, state, lr, wds, hyper),
+                iters=5)
+        timing[family] = t
+    timing["params"], timing["tensors"] = n, len(full)
+    return timing
+
+
 def phase_opt():
     """The fused optimizer kernels bit for bit against their plain
-    versions, then one timed multi-tensor step over the classifier's 109 M
-    parameters beside ``torch.optim``'s fused step."""
+    versions, each case on the path its alignment gives, then one timed
+    multi-tensor step over the classifier's 109 M parameters beside
+    ``torch.optim``'s fused step."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
@@ -1032,13 +1206,12 @@ def phase_opt():
               {**adam, **clip}),
              ("odd+clip+wd", odd, [1e-2] * len(odd), "opt_sgd",
               {**sgd, **clip})]
-    for label, shapes, wds, family, hyper in cases:
-        base = _opt_inputs(shapes, gen, dev)
-        got, want = _clone(base), _clone(base)
-        e = kernels.entry(family)
-        _run_opt(family, e.kernel, got, lr, wds, hyper)
-        _run_opt(family, e.plain, want, lr, wds, hyper)
-        torch.cuda.synchronize()
+    cases += [(label, odd, [1e-2] * len(odd), family, hyper)
+              for label in ("unaligned", "mixed alignment")
+              for family, hyper in (("opt_sgd", {**sgd, **clip}),
+                                    ("opt_adam", {**adam, **clip}))]
+
+    def check(family, label, got, want, base):
         for key in got:
             for i, (a, b) in enumerate(zip(got[key], want[key])):
                 if not torch.equal(a, b):
@@ -1046,9 +1219,36 @@ def phase_opt():
                         f"{family} {label}: {key}[{i}] {tuple(a.shape)} "
                         "differs from the plain version (max abs "
                         f"{(a - b).abs().max().item()})")
-        if torch.equal(got["w"][0], base["w"][0]):
+        if torch.equal(got["w"][-1], base["w"][-1]):
             raise AssertionError(f"{family} {label}: nothing was updated")
-        skipped = _clone(base)
+
+    for label, shapes, wds, family, hyper in cases:
+        base = _opt_inputs(shapes, gen, dev)
+        misaligned = label in ("unaligned", "mixed alignment")
+
+        def operands(state):
+            """A copy of ``base`` for the kernel, misaligned as the case
+            says, and the number of tensors that must take the scalar
+            path."""
+            if not misaligned:
+                return state, 0
+            return _misaligned(state, family, mixed=label != "unaligned")
+
+        got, scalar = operands(_clone(base))
+        want = _clone(base)
+        e = kernels.entry(family)
+        paths, copies = dict(e.kernel.tensors_by_path), e.kernel.copies
+        _run_opt(family, e.kernel, got, lr, wds, hyper)
+        _run_opt(family, e.plain, want, lr, wds, hyper)
+        torch.cuda.synchronize()
+        check(family, label, got, want, base)
+        paths = _opt_paths(e.kernel, paths)
+        if paths != {"vec4": len(shapes) - scalar, "scalar": scalar} or \
+                e.kernel.copies != copies:
+            raise AssertionError(f"{family} {label}: tensors by path "
+                                 f"{paths}, {scalar} expected scalar; "
+                                 f"{e.kernel.copies - copies} copies")
+        skipped, _ = operands(_clone(base))
         _run_opt(family, e.kernel, skipped, lr, wds, hyper,
                  skip=torch.ones((), device=dev))
         if not all(torch.equal(a, b) for k in base
@@ -1057,33 +1257,19 @@ def phase_opt():
         emit({"phase": "opt", "family": family, "case": label,
               "tensors": len(shapes),
               "elements": sum(math.prod(s) for s in shapes),
-              "hyper": hyper, "bitwise_equal": True})
+              "hyper": hyper, "tensors_by_path": paths,
+              "bitwise_equal": True, "skip_honoured": True})
+    for family in ("opt_sgd", "opt_adam"):
+        base, got, want, report = _opt_lr_groups(family, full, gen, dev)
+        torch.cuda.synchronize()
+        check(family, "two lr groups", got, want, base)
+        emit({"phase": "opt", "family": family, "case": "two lr groups",
+              "path": "Optimizer.fused_update_multi, lr_mult 0.5 on every "
+                      "other tensor, 3 updates", "tensors": len(full),
+              **report, "bitwise_equal": True})
 
-    n = sum(math.prod(s) for s in full)
-    state = _opt_inputs(full, gen, dev)
-    timing = {}
-    for family, hyper, nbytes in (("opt_adam", adam, 28 * n),
-                                  ("opt_sgd", sgd, 20 * n)):
-        e = kernels.entry(family)
-        timing[family] = {
-            "ms": cuda_ms(lambda: _run_opt(family, e.kernel, state, lr,
-                                           wds_full, hyper)),
-            "plain_ms": cuda_ms(lambda: _run_opt(family, e.plain, state, lr,
-                                                 wds_full, hyper), iters=5),
-            "bound_ms": nbytes / H100_BYTES_S * 1e3, "bound_by": "bytes"}
-    params = [torch.nn.Parameter(w.clone()) for w in state["w"]]
-    for p, g in zip(params, state["g"]):
-        p.grad = g.clone()
-    groups = [{"params": [p for p, wd in zip(params, wds_full) if wd],
-               "weight_decay": 1e-4},
-              {"params": [p for p, wd in zip(params, wds_full) if not wd],
-               "weight_decay": 0.0}]
-    torch_adam = torch.optim.Adam(groups, lr=1e-3, fused=True)
-    torch_sgd = torch.optim.SGD(groups, lr=1e-3, momentum=0.9, fused=True)
-    timing["opt_adam"]["library_ms"] = cuda_ms(torch_adam.step)
-    timing["opt_sgd"]["library_ms"] = cuda_ms(torch_sgd.step)
-    emit({"phase": "opt_timing", "params": n, "tensors": len(full),
-          **timing,
+    timing = opt_timing()
+    emit({"phase": "opt_timing", **timing,
           "library": "torch.optim.Adam/SGD(fused=True) over the same "
                      "tensors; yardsticks only: Adam applies eps after "
                      "un-biasing sqrt(v) (MXNet folds the bias correction "
@@ -1189,6 +1375,8 @@ def phase_train(smi):
     kernels.reset_launch_counts()
     bwd_fns = (flash.flash_backward_dq, flash.flash_backward_dkv)
     copies = [f.copies for f in bwd_fns]
+    adam = opt_step.opt_adam
+    adam_paths, adam_copies = dict(adam.tensors_by_path), adam.copies
     losses, step_ms = [], []
     for _ in range(tr["steps"]):
         t0 = time.perf_counter()
@@ -1197,6 +1385,8 @@ def phase_train(smi):
     pred = st.predict(xb).asnumpy()
     counts = kernels.launch_counts()
     copies = [f.copies - c for f, c in zip(bwd_fns, copies)]
+    adam_paths = _opt_paths(adam, adam_paths)
+    adam_copies = adam.copies - adam_copies
     peak = torch.cuda.max_memory_allocated()
     layers, steps = cfg["layers"], tr["steps"]
     want = dict.fromkeys(counts, 0)
@@ -1210,6 +1400,12 @@ def phase_train(smi):
     if counts != want or copies != [0, 0]:
         raise AssertionError(f"train: launches {counts}, backward input "
                              f"copies {copies}; expected {want} and none")
+    n_params = len(classifier_shapes(cfg))
+    if adam_paths != {"vec4": n_params * steps, "scalar": 0} or adam_copies:
+        raise AssertionError(f"train: Adam's tensors by path {adam_paths}, "
+                             f"gradient copies {adam_copies}; expected all "
+                             f"{n_params} a step on the 16-byte path, none "
+                             "copied")
     if not all(math.isfinite(v) for v in losses) or \
             not losses[-1] < losses[0]:
         raise AssertionError(f"train: loss not finite and falling: {losses}")
@@ -1232,6 +1428,9 @@ def phase_train(smi):
           "tokens_per_s": tr["batch"] * cfg["seq_len"] / (median / 1e3),
           "memory_allocated_before": before, "max_memory_allocated": peak,
           "launches": counts, "flash_bwd_input_copies": copies,
+          "adam_tensors_by_path_per_step": {
+              k: v / steps for k, v in adam_paths.items()},
+          "adam_gradient_copies": adam_copies,
           "accuracy_on_batch": float((pred.argmax(-1) == y).mean()),
           "profiled_step_ms": window_ms,
           "device_ms_per_step": device_ms if groups else "not measured",
@@ -1301,7 +1500,8 @@ def _int_mm_epilogue(qx, w, scale, bias):
 
 
 def _unaligned(t):
-    """A copy of ``t`` that starts one byte into its buffer."""
+    """A copy of ``t`` that starts one element into its buffer: 1 byte
+    off for int8, 4 bytes off the 16-byte alignment for float32."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     view = buf[1:].view(t.shape)
     view.copy_(t)
@@ -2165,7 +2365,7 @@ PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
 def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
                  library, **extra):
     """One kernel's entry of the ``{"kernels": [...]}`` line; ``extra``
-    keys (a second bound) follow the contract's."""
+    keys (a second bound, device and host times) follow the contract's."""
     return {"name": name, "route": "cuda",
             "source": f"mxnet_tpu_torch/csrc/{source}", "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms,
@@ -2252,7 +2452,9 @@ def main(argv=None):
         lines.append(_kernel_line(family, "opt_step.cu", replaces, launches,
                                   0.0, t["ms"], t["plain_ms"],
                                   (t["bound_ms"], t["bound_by"]),
-                                  t["library_ms"]))
+                                  t["library_ms"], device_ms=t["device_ms"],
+                                  host_us=t["host_us"],
+                                  library_device_ms=t["library_device_ms"]))
     k4 = done["int8_gemm"]
     lines.append(_kernel_line(
         "int8_gemm", "int8_gemm.cu", "mxnet_tpu/kernels/int8_gemm.py:86",

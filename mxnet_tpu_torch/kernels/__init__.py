@@ -12,39 +12,57 @@ Each op family registers
 ``dispatch(family, *args, ...)`` sends CPU tensors to the plain
 version and CUDA tensors to the kernel; it looks at every tensor among
 the arguments, in lists and tuples too (the optimizer families take
-lists of tensors). There is no opt-out, no
-autotuned table and no fallback: on the card the kernel launches or the
-call raises. ``meta`` tensors, which carry shapes and no data (the
-symbol's shape inference), take the plain version too. Tensors on mixed
-or other devices raise.
+lists of tensors). A family registered with ``checks_devices`` (the
+optimizer families, whose wrappers look at every tensor's device
+anyway) goes to its kernel as soon as its first tensor lies on a CUDA
+card, with no walk over the rest: the wrapper raises
+:class:`DeviceError` on a mix. There is no opt-out, no autotuned table
+and no fallback: on the card the kernel launches or the call raises.
+``meta`` tensors, which carry shapes and no data (the symbol's shape
+inference), take the plain version too. Tensors on mixed or other
+devices raise :class:`DeviceError`, an ``MXNetError``.
 """
 from __future__ import annotations
+
+import itertools
 
 import torch
 
 from ..base import MXNetError
 
 __all__ = ["register_kernel", "dispatch", "entry", "launch_counts",
-           "reset_launch_counts"]
+           "reset_launch_counts", "DeviceError"]
 
 _FAMILIES: dict = {}
 
 
-class KernelEntry:
-    __slots__ = ("family", "kernel", "plain", "tolerance", "replaces")
+class DeviceError(MXNetError, ValueError):
+    """The tensors of one call lie on mixed devices, or not on the device
+    a kernel takes."""
 
-    def __init__(self, family, kernel, plain, tolerance, replaces):
+
+class KernelEntry:
+    __slots__ = ("family", "kernel", "plain", "tolerance", "replaces",
+                 "checks_devices")
+
+    def __init__(self, family, kernel, plain, tolerance, replaces,
+                 checks_devices):
         self.family = family
         self.kernel = kernel
         self.plain = plain
         self.tolerance = tolerance
         self.replaces = replaces
+        self.checks_devices = checks_devices
 
 
-def register_kernel(family, *, kernel, plain, tolerance, replaces):
+def register_kernel(family, *, kernel, plain, tolerance, replaces,
+                    checks_devices=False):
     """Register an op family. ``tolerance`` states the kernel's numeric
-    contract against ``plain``; ``replaces`` names the TPU kernel."""
-    e = KernelEntry(family, kernel, plain, tolerance, replaces)
+    contract against ``plain``; ``replaces`` names the TPU kernel;
+    ``checks_devices``: the kernel's wrapper refuses tensors on mixed
+    devices itself, with :class:`DeviceError`."""
+    e = KernelEntry(family, kernel, plain, tolerance, replaces,
+                    checks_devices)
     _FAMILIES[family] = e
     return e
 
@@ -64,14 +82,20 @@ def _tensors(values):
 def dispatch(family, *args, **kwargs):
     """Route one call by the device of its tensor arguments."""
     e = _FAMILIES[family]
-    devices = {t.device.type
-               for t in _tensors(list(args) + list(kwargs.values()))}
+    tensors = _tensors(list(args) + list(kwargs.values()))
+    if e.checks_devices:
+        first = next(tensors, None)
+        if first is not None and first.device.type == "cuda":
+            return e.kernel(*args, **kwargs)
+        tensors = itertools.chain([first] if first is not None else [],
+                                  tensors)
+    devices = {t.device.type for t in tensors}
     if devices in ({"cpu"}, {"meta"}):
         return e.plain(*args, **kwargs)
     if devices == {"cuda"}:
         return e.kernel(*args, **kwargs)
-    raise MXNetError(f"{family}: tensors on devices {sorted(devices)}; "
-                     "expected all on the CPU or all on one CUDA card")
+    raise DeviceError(f"{family}: tensors on devices {sorted(devices)}; "
+                      "expected all on the CPU or all on one CUDA card")
 
 
 def launch_counts():

@@ -8,7 +8,10 @@ run on a machine that has only PyTorch:
   the backward kernels, equal the plain dense recompute, and reach the
   q/k/v projections of a MultiHeadAttention;
 * the flash backward kernels against their plain versions;
-* the fused SGD-momentum and Adam kernels bit for bit against theirs;
+* the fused SGD-momentum and Adam kernels bit for bit against theirs,
+  aligned and with one operand 4 bytes off (the scalar path), sizes up
+  to 10**7 + 3, the skip flag, and two learning-rate groups through
+  ``Optimizer.fused_update_multi``;
 * the int8 GEMM kernel bit for bit against its plain version, and a
   quantized FullyConnected on the card equal to the same op on the CPU;
 * the decode-attention kernel through ``nd.contrib.decode_attention``
@@ -168,41 +171,112 @@ def test_backward_kernels_match_plain_on_card(cuda_device, shape, dtype,
         torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
 
 
-def _opt_state(shapes, family, device):
+def _opt_state(shapes, family, device, seed=7):
     cols = 3 if family == "opt_sgd" else 4
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
     out = []
     for j, scale in enumerate((0.05, 0.01, 1e-3, 1e-3)[:cols]):
-        col = [torch.from_numpy(_rand(s, seed=7 * i + j, scale=scale))
-               .to(device) for i, s in enumerate(shapes)]
+        col = [torch.randn(s, generator=gen, device=device) * scale
+               for s in shapes]
         out.append([t.square() for t in col] if j == 3 else col)
     return out
 
 
+def _at_4_bytes(t):
+    """``t`` copied into a buffer one float past its start: 4 bytes off
+    the 16-byte alignment (``buf[1:1 + n]``)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:1 + t.numel()].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+OPT_SHAPES = [(1,), (127,), (129,), (40, 33), (16385,), (30522, 7),
+              (10 ** 7 + 3,)]
+# which operand lies 4 bytes off (its tensors take the scalar path), or
+# "lr groups": Optimizer.fused_update_multi with two learning rates
+OPT_LAYOUTS = [("opt_sgd", lay) for lay in
+               ("aligned", "w", "g", "m", "lr groups")] + \
+    [("opt_adam", lay) for lay in
+     ("aligned", "w", "g", "m", "v", "lr groups")]
+
+
+def _opt_via_optimizer(family, cols, wd, hyper, route):
+    """Three ``Optimizer.fused_update_multi`` updates of ``cols`` in
+    place, lr_mult 0.5 on every other tensor: two learning-rate groups;
+    through the kernel or (``route="plain"``) its plain version."""
+    name = "sgd" if family == "opt_sgd" else "adam"
+    kw = {"momentum": 0.9} if name == "sgd" else {}
+    opt = mx.optimizer.create(name, learning_rate=1e-3, wd=wd,
+                              rescale_grad=hyper["rescale_grad"],
+                              clip_gradient=hyper["clip_gradient"], **kw)
+    n = len(cols[0])
+    opt.set_lr_mult({i: 0.5 for i in range(1, n, 2)})
+    weights, grads = [nd.NDArray(t) for t in cols[0]], \
+        [nd.NDArray(t) for t in cols[1]]
+    states = [nd.NDArray(m) for m in cols[2]] if name == "sgd" else \
+        [(nd.NDArray(m), nd.NDArray(v)) for m, v in zip(cols[2], cols[3])]
+    e = kernels.entry(family)
+    kernel = e.kernel
+    if route == "plain":
+        e.kernel = e.plain
+    try:
+        for _ in range(3):
+            opt.fused_update_multi(list(range(n)), weights, grads, states)
+    finally:
+        e.kernel = kernel
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("family", ["opt_sgd", "opt_adam"])
+@pytest.mark.parametrize("family,layout", OPT_LAYOUTS)
 @pytest.mark.parametrize("rescale,clip,wd", [
     (1.0, -1.0, 0.0), (0.5, -1.0, 1e-4), (1.0, 0.004, 1e-2),
     (0.5, 0.004, 1e-4)])
 def test_optimizer_kernels_are_bitwise_the_plain_versions(
-        cuda_device, family, rescale, clip, wd):
-    shapes = [(1,), (127,), (129,), (40, 33), (16385,), (30522, 7)]
-    base = _opt_state(shapes, family, cuda_device)
+        cuda_device, family, layout, rescale, clip, wd):
+    """Every tensor on the path its alignment gives, one launch per call
+    (per learning-rate group through the Optimizer), bit for bit; the
+    skip flag leaves everything as it was."""
+    base = _opt_state(OPT_SHAPES, family, cuda_device)
     got = [[t.clone() for t in col] for col in base]
     want = [[t.clone() for t in col] for col in base]
     lr = torch.tensor(1e-3, device=cuda_device)
-    wds = [wd] * len(shapes)
+    wds = [wd] * len(OPT_SHAPES)
     hyper = {"momentum": 0.9} if family == "opt_sgd" else {}
     hyper.update(rescale_grad=rescale, clip_gradient=clip)
     e = kernels.entry(family)
-    before = e.kernel.launches
-    e.kernel(*got, lr, wds, **hyper)
-    e.plain(*want, lr, wds, **hyper)
+    before, paths = e.kernel.launches, dict(e.kernel.tensors_by_path)
+    if layout == "lr groups":
+        _opt_via_optimizer(family, got, wd, hyper, "kernel")
+        _opt_via_optimizer(family, want, wd, hyper, "plain")
+        launches = 6
+    else:
+        operand = "wgmv".find(layout)
+        if operand >= 0:
+            got[operand] = [_at_4_bytes(t) for t in got[operand]]
+        e.kernel(*got, lr, wds, **hyper)
+        e.plain(*want, lr, wds, **hyper)
+        launches = 1
     torch.cuda.synchronize()
-    assert e.kernel.launches == before + 1
+    assert e.kernel.launches == before + launches
+    n = len(OPT_SHAPES) * (3 if layout == "lr groups" else 1)
+    scalar = n if layout in ("w", "g", "m", "v") else 0
+    assert {k: e.kernel.tensors_by_path[k] - paths[k] for k in paths} == \
+        {"vec4": n - scalar, "scalar": scalar}
     for col_g, col_w in zip(got, want):
         for a, b in zip(col_g, col_w):
             assert torch.equal(a, b)
     assert not torch.equal(got[0][-1], base[0][-1])
+    if layout != "lr groups":
+        skipped = [list(col) for col in got]
+        frozen = [[t.clone() for t in col] for col in got]
+        e.kernel(*skipped, lr, wds, skip=torch.ones((), device=cuda_device),
+                 **hyper)
+        torch.cuda.synchronize()
+        assert e.kernel.launches == before + 2
+        for col_s, col_f in zip(skipped, frozen):
+            assert all(torch.equal(a, b) for a, b in zip(col_s, col_f))
 
 
 def _int8(shape, seed):
