@@ -112,27 +112,42 @@ Phases, each printing one JSON line:
     256, B*H = 1); then times the kernel, the plain version and
     ``scaled_dot_product_attention`` with a boolean mask (a yardstick).
 13. twobit: the 2-bit compress and decompress kernels (K6, K7) bit for
-    bit (``torch.equal``) against their plain versions on 109 M elements,
-    on odd sizes and unaligned views, and on summed codes; then times
-    them over the classifier's 197 tensors, as one training step
-    launches them.
+    bit (``torch.equal``) against their plain versions: the single-tensor
+    compress (the per-key path) and the decompress on 109 M elements, odd
+    sizes, unaligned views and summed codes (int8 and int32); the
+    multi-tensor compress and the decompress of wire ranges (the bucketed
+    path) through the kvstore's flat layout on the classifier's 197
+    shapes, odd sizes
+    (1, 2, 3, 127, 4097), unaligned gradient views, a call over a strict
+    subset of a bucket and values at +-thr and NaN, each tensor on the
+    path its alignment gives and nothing outside the listed slots
+    written. Then twobit_timing: one step's K6 and K7 over the 197
+    tensors by the per-key route (197 launches each and the bucket
+    ``torch.cat``) and by the multi-tensor route (one launch each), by
+    CUDA events, the profiler's kernel time and the host's time per
+    call.
 14. dist_check: two worker processes on the card (this script with
     ``--worker``, given the ``MXTPU_COORDINATOR`` / ``MXTPU_NUM_WORKERS``
     / ``MXTPU_WORKER_ID`` environment of ``tools/launch.py``) each train
     the classifier at 2 layers and narrow width through
     ``mx.kv.create("dist_sync")`` with 2-bit compression and
     ``gluon.Trainer``, 3 "sgd" (momentum) and 3 "adam" steps, and save
-    what they pushed, their codes and residuals, the pulled sums and
-    their weights. This process recomputes every step on the CPU with the
+    what they pushed, their codes (each key's wire slot, copied after the
+    step's one compress call and before the all-reduces) and residuals,
+    the pulled sums and their weights. This process recomputes every
+    step on the CPU with the
     plain versions: codes, residuals and pulled sums bit for bit, final
     weights to 1e-6, and both ranks' weights equal bit for bit.
 15. dist_train: the same two-worker path at full width (12 layers), the
     MXNet default threshold 0.5, 10 "adam" steps per worker: step time,
-    tokens/s, nonzero codes, bytes on the wire, launches per step (197
-    compress, 197 decompress, 1 Adam per worker), peak memory, a finite,
-    falling loss and equal weights on both ranks at the end; then one
-    more step split on the host clock (forward and backward, pushes,
-    pulls, update) and gloo's all-reduce of the same int8 bytes alone.
+    tokens/s, nonzero codes, bytes on the wire (the codes and at most
+    15 bytes of padding per key), launches per step (1 multi-tensor
+    compress with all 197 tensors on the 16-byte path, 1 decompress on
+    the 16-byte path, no per-key K6/K7, 1 Adam per worker; no gradient
+    copied into a bucket), peak memory, a finite, falling loss and equal weights
+    on both ranks at the end; then one more step split on the host clock
+    (forward and backward, the push call, the pull call, update) and
+    gloo's all-reduce of the same int8 bytes alone.
 
 Then the ``{"kernels": [...]}`` line (the tensor-core kernels K3 and
 K3-bwd with their tensor-core bound as ``bound_ms`` and the float32-rate
@@ -167,6 +182,7 @@ from mxnet_tpu_torch import kernels, serving
 from mxnet_tpu_torch.convert import export_params, load_jax_params
 from mxnet_tpu_torch.kernels import build, decode_attention, flash, int8_gemm
 from mxnet_tpu_torch.kernels import opt_step, twobit
+from mxnet_tpu_torch.kvstore import buckets
 from mxnet_tpu_torch.parallel import DeviceMesh, ShardedTrainer
 
 BERT_BASE = {"vocab": 30522, "units": 768, "hidden": 3072, "heads": 12,
@@ -1903,10 +1919,84 @@ def _twobit_cases(e_c, e_d, grad, res, thr, what):
     return codes
 
 
+def _twobit_plan(shapes, cap=4 << 20):
+    """The dist kvstore's bucket plan of ``shapes`` (keys 0, 1, ...
+    registered in order, float32, buckets of ``cap`` bytes)."""
+    plan = buckets.BucketPlan(cap)
+    for i, sh in enumerate(shapes):
+        plan.register(i, sh, "float32")
+    return plan
+
+
+def _multi_case(shapes, gen, dev, thr, what, keys=None, offset=0):
+    """One multi-tensor compress over ``keys`` (default: all) of a flat
+    layout of ``shapes`` with random residuals, its gradients views
+    ``offset`` floats into their buffers, against the plain version on
+    copies of the same buffers: the whole wire and residual buffers
+    torch.equal (so nothing outside the listed slots moved), every tensor
+    on the path its alignment gives. Then the decompress of the wire
+    (the codes and their doubled sum), whole, from its first bucket's end
+    and from one code in (the scalar path). Returns the layout."""
+    lay = buckets.FlatLayout(_twobit_plan(shapes), dev)
+    keys = list(range(len(shapes))) if keys is None else keys
+    lay.residual.copy_(torch.randn(lay.residual.shape, generator=gen,
+                                   device=dev) * 0.2)
+    grads = []
+    for k in keys:
+        n = math.prod(shapes[k])
+        g = (torch.randn(n + offset, generator=gen, device=dev) *
+             0.4)[offset:].view(shapes[k])
+        edge = torch.tensor([thr, -thr, float("nan")], device=dev)[:min(n, 3)]
+        g.view(-1)[:edge.numel()] = edge
+        lay.residuals[k].view(-1)[:edge.numel()] = 0.0
+        grads.append(g)
+    wire, res = lay.wire.clone(), lay.residual.clone()
+    want_codes = [wire[lay.offsets[k]:lay.offsets[k] + lay.codes[k].numel()]
+                  for k in keys]
+    want_res = [res[lay.offsets[k]:lay.offsets[k] + lay.codes[k].numel()]
+                for k in keys]
+    e = kernels.entry("twobit_compress_multi")
+    before = dict(twobit.twobit_compress_multi.tensors_by_path)
+    e.kernel(grads, [lay.residuals[k] for k in keys],
+             [lay.codes[k] for k in keys], thr)
+    e.plain(grads, want_res, want_codes, thr)
+    torch.cuda.synchronize()
+    if not (torch.equal(lay.wire, wire) and
+            _bitwise_equal(lay.residual, res)):
+        raise AssertionError(f"twobit_compress_multi differs from the plain "
+                             f"version at {what}")
+    vec = sum(g.data_ptr() % 16 == 0 for g in grads if g.numel())
+    paths = {p: twobit.twobit_compress_multi.tensors_by_path[p] - before[p]
+             for p in before}
+    if paths != {"vec16": vec, "scalar": sum(1 for g in grads
+                                             if g.numel()) - vec}:
+        raise AssertionError(f"twobit_compress_multi at {what}: paths "
+                             f"{paths}, {vec} aligned gradients")
+    d = kernels.entry("twobit_decompress")
+    summed = (lay.wire.to(torch.int32) * 2).clamp(-2, 2).to(torch.int8)
+    first_hi = lay.ranges[0][1]
+    for codes in (lay.wire, summed):
+        for lo, path in ((0, "vec16"), (first_hi, "vec16"), (1, "scalar")):
+            c = codes[lo:]
+            if not c.numel():
+                continue
+            n0 = twobit.twobit_decompress.launches_by_path[path]
+            got = d.kernel(c, thr)
+            if twobit.twobit_decompress.launches_by_path[path] != n0 + 1:
+                raise AssertionError(f"twobit_decompress at {what} from "
+                                     f"{lo}: not on the {path} path")
+            if not torch.equal(got, d.plain(c, thr)):
+                raise AssertionError(f"twobit_decompress differs from "
+                                     f"the plain version at {what} from {lo}")
+    return lay
+
+
 def phase_twobit():
-    """K6 and K7 with torch.equal against the plain versions, then CUDA-
-    event times over the classifier's 197 tensors (one step's launches)
-    and over one 109 M-element tensor."""
+    """K6 and K7 with torch.equal against the plain versions: the
+    single-tensor compress (the per-key path), the multi-tensor compress
+    (the bucketed path, through the kvstore's flat layout) and the
+    decompress of both; then the
+    timing of one step's worth of both routes (twobit_timing)."""
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(7)
@@ -1928,40 +2018,115 @@ def phase_twobit():
         if n == n_full:
             share = (codes != 0).float().mean().item()
             signs = (int((codes > 0).sum()), int((codes < 0).sum()))
+    del grad, res, codes
     for off in (1, 3):  # unaligned views: the scalar path
         grad = torch.randn(4097 + off, generator=gen, device=dev)[off:]
         res = torch.randn(4097 + off, generator=gen, device=dev)[off:]
         _twobit_cases(e_c, e_d, grad, res, 0.3, f"offset {off}")
         checked.append(f"4097+offset{off}")
-    emit({"phase": "twobit", "sizes": checked, "bitwise_equal": True,
-          "threshold": thr, "nonzero_share_109M": share,
-          "plus_minus_codes_109M": signs})
+    multi = []
+    odd = [(1,), (2,), (3,), (127,), (4097,), (33, 5)]
+    lay = _multi_case(shapes, gen, dev, thr, "classifier")
+    plan = _twobit_plan(shapes)
+    big = max(plan.buckets, key=lambda b: len(b["keys"]))
+    multi.append({"case": "classifier", "tensors": len(shapes),
+                  "buckets": len(plan.buckets), "wire": lay.wire.numel(),
+                  "padding": lay.padding})
+    del lay
+    for what, kw in (
+            ("odd sizes", dict(shapes=odd)),
+            ("odd sizes, thr 0.3", dict(shapes=odd, thr=0.3)),
+            ("unaligned gradients (+1 float)", dict(shapes=odd, offset=1)),
+            ("unaligned gradients (+3 floats)", dict(shapes=shapes[:6],
+                                                     offset=3)),
+            ("a strict subset of a bucket", dict(
+                shapes=shapes, keys=big["keys"][1:-1:2]))):
+        _multi_case(kw.pop("shapes"), gen, dev, kw.pop("thr", thr), what,
+                    **kw)
+        multi.append(what)
+    emit({"phase": "twobit", "sizes": checked, "multi_tensor": multi,
+          "bitwise_equal": True, "threshold": thr,
+          "nonzero_share_109M": share, "plus_minus_codes_109M": signs})
+    torch.cuda.empty_cache()
+    return twobit_timing(shapes, gen, dev, thr)
 
+
+def twobit_timing(shapes, gen, dev, thr):
+    """One step's worth of K6 and K7 over the classifier's 197 tensors,
+    by both routes, in this call: the per-key route (197 single-tensor
+    compress launches and the 86 bucket ``torch.cat`` copies; 197
+    decompress launches on the reduced buckets' slices) and the
+    multi-tensor route (one compress launch into the flat wire, one
+    decompress launch over it). Each by CUDA events over back-to-back
+    calls (``ms``), by the profiler's kernel time (``device_ms``) and by
+    the host's time per call (``host_us``); the plain versions by events;
+    and the single-tensor compress and the decompress over all 109 M
+    elements as one launch."""
+    n_full = sum(math.prod(sh) for sh in shapes)
+    plan = _twobit_plan(shapes)
+    lay = buckets.FlatLayout(plan, dev)
     grads = [torch.randn(sh, generator=gen, device=dev) * 0.4 for sh in shapes]
-    ress = [torch.randn(sh, generator=gen, device=dev) * 0.2 for sh in shapes]
-    codes = [e_c.kernel(g, r, thr)[0] for g, r in zip(grads, ress)]
-    sums = [c.to(torch.int32).mul(2).clamp(-2, 2).to(torch.int8)
-            for c in codes]
+    ress = [r.clone() for r in (torch.randn(sh, generator=gen, device=dev) *
+                                0.2 for sh in shapes)]
+    keys = list(range(len(shapes)))
+    for k in keys:
+        lay.residuals[k].copy_(ress[k])
+    res_views = [lay.residuals[k] for k in keys]
+    code_views = [lay.codes[k] for k in keys]
+    members = [b["keys"] for b in plan.buckets]
+    e_c, e_d = kernels.entry("twobit_compress"), kernels.entry(
+        "twobit_decompress")
+    m_c = kernels.entry("twobit_compress_multi")
 
-    def per_step(fn, args):
-        return lambda: [fn(*a) for a in args]
+    def old_push():   # kvstore.py before the flat layout: _quantize + cat
+        return [torch.cat([e_c.kernel(grads[k], ress[k], thr)[0].reshape(-1)
+                           for k in ks]) for ks in members]
 
+    fused = [c.to(torch.int32).mul(2).clamp(-2, 2).to(torch.int8)
+             for c in old_push()]
+    slices = []
+    for ks, flat in zip(members, fused):
+        off = 0
+        for k in ks:
+            n = math.prod(shapes[k])
+            slices.append(flat[off:off + n].view(shapes[k]))
+            off += n
+
+    def old_pull():   # _apply_reduced: one decompress per key
+        return [e_d.kernel(c, thr) for c in slices]
+
+    def new_push():
+        m_c.kernel(grads, res_views, code_views, thr)
+
+    def new_pull():
+        return e_d.kernel(lay.wire, thr)
+
+    def timed(fn, plain=None):
+        t = {"ms": cuda_ms(fn), "device_ms": device_ms(fn),
+             "host_us": _host_us(fn)}
+        if plain is not None:
+            t["plain_ms"] = cuda_ms(plain, iters=5)
+        return t
+
+    plain_slot = [lay.residual.clone(), lay.wire.clone()]
+    p_res = [plain_slot[0][lay.offsets[k]:lay.offsets[k] + v.numel()]
+             for k, v in zip(keys, code_views)]
+    p_codes = [plain_slot[1][lay.offsets[k]:lay.offsets[k] + v.numel()]
+               for k, v in zip(keys, code_views)]
     step = {"compress": {
-        "ms": cuda_ms(per_step(e_c.kernel, [(g, r, thr)
-                                            for g, r in zip(grads, ress)])),
-        "plain_ms": cuda_ms(per_step(e_c.plain, [
-            (g, r, thr) for g, r in zip(grads, ress)]), iters=5),
-        "bytes": 13 * n_full},
+        **timed(new_push, lambda: m_c.plain(grads, p_res, p_codes, thr)),
+        "old_route": timed(old_push), "bytes": 13 * n_full,
+        "one_launch_ms": None},
         "decompress": {
-        "ms": cuda_ms(per_step(e_d.kernel, [(c, thr) for c in sums])),
-        "plain_ms": cuda_ms(per_step(e_d.plain, [(c, thr) for c in sums]),
-                            iters=5),
-        "bytes": 5 * n_full}}
-    big_g, big_r = torch.cat([g.reshape(-1) for g in grads]), torch.cat(
-        [r.reshape(-1) for r in ress])
-    big_c = torch.cat([c.reshape(-1) for c in sums])
+        **timed(new_pull, lambda: e_d.plain(lay.wire, thr)),
+        "old_route": timed(old_pull), "bytes": 5 * n_full,
+        "one_launch_ms": None}}
+    big_g = torch.cat([g.reshape(-1) for g in grads])
+    big_r = torch.cat([r.reshape(-1) for r in ress])
     step["compress"]["one_launch_ms"] = cuda_ms(
         lambda: e_c.kernel(big_g, big_r, thr))
+    del big_g, big_r
+    big_c = torch.cat([c.reshape(-1) for c in fused])
     step["decompress"]["one_launch_ms"] = cuda_ms(
         lambda: e_d.kernel(big_c, thr))
     for t in step.values():
@@ -1969,7 +2134,8 @@ def phase_twobit():
             "bytes"
         t["library_ms"] = None
     emit({"phase": "twobit_timing", "tensors": len(shapes),
-          "elements": n_full, **step,
+          "elements": n_full, "buckets": len(members),
+          "wire_elements": lay.wire.numel(), "padding": lay.padding, **step,
           "library": "none: no single PyTorch call computes either "
                      "function"})
     return step
@@ -2024,21 +2190,28 @@ def _worker_check(rank, out_dir):
         rec = {"initial": [_host(p.data()._data) for p in plist],
                "steps": []}
         step = {}
-        push, quantize = kv.push, kv._quantize
+        push, compress = kv.push, kv._compress
 
         def logged_push(key, value, priority=0, _push=push, _step=step):
-            _step.setdefault("pushed", {})[key] = _host(value._data)
+            for k, v in zip(key, value) if isinstance(key, list) else \
+                    [(key, value)]:
+                _step.setdefault("pushed", {})[k] = _host(v._data)
             return _push(key, value, priority)
 
-        def logged_quantize(key, value, _quantize=quantize, _step=step,
-                            _kv=kv):
-            codes, meta = _quantize(key, value)
-            _step.setdefault("codes", {})[key] = _host(codes._data)
-            _step.setdefault("residuals", {})[key] = \
-                _host(_kv._residuals[key])
-            return codes, meta
+        def logged_compress(keys, grads, thr, _compress=compress,
+                            _step=step, _kv=kv):
+            # each key's wire slot, copied before its bucket's all-reduce
+            # reduces it in place
+            _compress(keys, grads, thr)
+            _step["compress_calls"] = _step.get("compress_calls", 0) + 1
+            lay = _kv._pipeline.flat
+            for k in keys:
+                _step.setdefault("codes", {})[k] = _host(
+                    lay.codes[k]).view(lay.residuals[k].shape)
+                _step.setdefault("residuals", {})[k] = \
+                    _host(_kv._residuals[k])
 
-        kv.push, kv._quantize = logged_push, logged_quantize
+        kv.push, kv._compress = logged_push, logged_compress
         for t in range(c["steps"]):
             sl = slice(t * c["batch"], (t + 1) * c["batch"])
             step.clear()
@@ -2046,6 +2219,12 @@ def _worker_check(rank, out_dir):
                         mx.nd.array(ys[sl]), c["batch"] * kv.num_workers)
             step["pulled"] = {i: _host(p.grad()._data)
                               for i, p in enumerate(plist)}
+            if step.get("compress_calls") != 1 or \
+                    len(step["codes"]) != len(plist):
+                raise AssertionError(
+                    f"dist_check worker {rank}: {step.get('compress_calls')} "
+                    f"compress calls over {len(step.get('codes', ()))} of "
+                    f"{len(plist)} keys in a step; expected one over all")
             rec["steps"].append(dict(step))
         rec["final"] = [_host(p.data()._data) for p in plist]
         rec["num_workers"] = kv.num_workers
@@ -2069,47 +2248,55 @@ def _worker_train(rank, out_dir):
     elements = sum(p.data().size for p in plist)
     nonzero = torch.zeros((), dtype=torch.int64,
                           device=plist[0].data()._data.device)
-    quantize = kv._quantize
+    compress = kv._compress
 
-    def counted_quantize(key, value):
-        codes, meta = quantize(key, value)
-        nonzero.add_(torch.count_nonzero(codes._data))
-        return codes, meta
+    def counted_compress(keys, grads, thr):
+        compress(keys, grads, thr)
+        if len(keys) != len(plist):
+            raise AssertionError(f"dist_train worker {rank}: a compress "
+                                 f"call over {len(keys)} of {len(plist)} "
+                                 "keys")
+        # every key's codes, before the all-reduces (padding is zero)
+        nonzero.add_(torch.count_nonzero(kv._pipeline.flat.wire))
 
-    kv._quantize = counted_quantize
+    kv._compress = counted_compress
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    losses, step_ms, counts, wire = [], [], [], []
+    losses, step_ms, counts, wire, paths = [], [], [], [], []
+    stats = kv._pipeline.stats
+    copies = stats["copies"]
     for _ in range(d["steps"]):
         kernels.reset_launch_counts()
-        sent = kv._pipeline.stats["bytes"] if kv._pipeline else 0
+        vec = dict(twobit.twobit_compress_multi.tensors_by_path)
+        sent = stats["bytes"]
         t0 = time.perf_counter()
         loss = _train_step(clf, trainer, loss_fn, xb, yb, d["batch"] * n)
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         counts.append(kernels.launch_counts())
-        wire.append((kv._pipeline.stats["bytes"] if kv._pipeline else 0)
-                    - sent)
+        paths.append({p: twobit.twobit_compress_multi.tensors_by_path[p] -
+                      vec[p] for p in vec})
+        wire.append(stats["bytes"] - sent)
         losses.append(loss.mean().asscalar())
     peak = torch.cuda.max_memory_allocated()
+    bucket_copies = stats["copies"] - copies
     # one more step, split on the host clock with a wait for the card
     # between its parts (not counted above): forward and backward; the
-    # pushes in backward order, as Trainer.allreduce_grads makes them (K6,
-    # the bucket copies, the all-reduces started); the pulls (the waits
-    # for the all-reduces, K7, the copies into the gradients); the
+    # push call in backward order, as Trainer.allreduce_grads makes it
+    # (K6 into the wire, the all-reduces started); the pull call (the
+    # waits for the all-reduces, K7, the copies into the gradients); the
     # optimizer
-    keys = range(len(plist))
+    keys = list(range(len(plist)))
     split, t0 = {}, time.perf_counter()
     with mx.autograd.record():
         loss = loss_fn(clf(xb), yb)
     loss.backward()
     for part, fn in (
             ("forward_backward", None),
-            ("push", lambda: [kv.push(i, plist[i].grad(), priority=-i)
-                              for i in reversed(keys)]),
-            ("pull", lambda: [kv.pull(i, plist[i].grad(), priority=-i)
-                              for i in keys]),
+            ("push", lambda: kv.push(keys[::-1], [plist[i].grad()
+                                                   for i in keys[::-1]])),
+            ("pull", lambda: kv.pull(keys, [plist[i].grad() for i in keys])),
             ("update", lambda: trainer.update(d["batch"] * n))):
         if fn is not None:
             fn()
@@ -2128,6 +2315,9 @@ def _worker_train(rank, out_dir):
             "step_ms": step_ms, "median_step_ms": median,
             "tokens_per_s": d["batch"] * cfg["seq_len"] / (median / 1e3),
             "launches_per_step": counts, "wire_bytes_per_step": wire,
+            "compress_tensors_by_path_per_step": paths,
+            "bucket_copies": bucket_copies,
+            "wire_padding_bytes": kv._pipeline.flat.padding,
             "f32_bytes_per_step": 4 * elements, "elements": elements,
             "nonzero_code_share": int(nonzero.item()) / (elements *
                                                          d["steps"]),
@@ -2319,8 +2509,10 @@ def phase_dist_train(smi):
     n_tensors = len(classifier_shapes(cfg))
     layers = cfg["layers"]
     want = dict.fromkeys(workers[0]["launches_per_step"][0], 0)
-    want.update({"twobit_compress": n_tensors,
-                 "twobit_decompress": n_tensors, "opt_adam": 1,
+    # one multi-tensor compress per push call and one decompress per
+    # pull call; no per-key K6/K7
+    want.update({"twobit_compress_multi": 1, "twobit_decompress": 1,
+                 "twobit_decompress.vec16": 1, "opt_adam": 1,
                  "flash_attention": layers, "flash_attention.mma": layers,
                  "flash_attention_bwd_dq": layers,
                  "flash_attention_bwd_dq.mma": layers,
@@ -2335,6 +2527,22 @@ def phase_dist_train(smi):
                 raise AssertionError(f"dist_train worker {w['rank']} step "
                                      f"{t}: launches {counts}, expected "
                                      f"{want}")
+        for t, paths in enumerate(w["compress_tensors_by_path_per_step"]):
+            if paths != {"vec16": n_tensors, "scalar": 0}:
+                raise AssertionError(f"dist_train worker {w['rank']} step "
+                                     f"{t}: compress paths {paths}")
+        if w["bucket_copies"]:
+            raise AssertionError(f"dist_train worker {w['rank']}: "
+                                 f"{w['bucket_copies']} gradients copied "
+                                 "into bucket buffers")
+        codes_bytes = w["elements"]   # one int8 code per element
+        if not w["wire_padding_bytes"] <= 15 * n_tensors or any(
+                b != codes_bytes + w["wire_padding_bytes"]
+                for b in w["wire_bytes_per_step"]):
+            raise AssertionError(f"dist_train worker {w['rank']}: wire bytes "
+                                 f"{w['wire_bytes_per_step']} for "
+                                 f"{codes_bytes} codes and "
+                                 f"{w['wire_padding_bytes']} of padding")
         losses = w["losses"]
         if not all(math.isfinite(v) for v in losses) or \
                 not losses[-1] < losses[0]:
@@ -2344,14 +2552,17 @@ def phase_dist_train(smi):
         raise AssertionError("dist_train: the workers' final weights differ")
     totals = {f: sum(sum(c[f] for c in w["launches_per_step"])
                      for w in workers)
-              for f in ("twobit_compress", "twobit_decompress", "opt_adam")}
+              for f in ("twobit_compress_multi", "twobit_decompress",
+                        "opt_adam")}
     for w in workers:   # every step's launches were checked above
         w["launches_per_step"] = w["launches_per_step"][0]
+        w["compress_tensors_by_path_per_step"] = \
+            w["compress_tensors_by_path_per_step"][0]
     emit({"phase": "dist_train", "card": smi, "config": cfg,
           **{k: v for k, v in d.items() if k != "timeout_s"},
           "tokens_per_s_total": sum(w["tokens_per_s"] for w in workers),
-          "launches_per_step_per_worker": {
-              f: n_tensors if f != "opt_adam" else 1 for f in totals},
+          "launches_per_step_per_worker": dict.fromkeys(totals, 1),
+          "wire_bytes_per_step_before_padding": workers[0]["elements"],
           "launches_total": totals, "weights_equal": True,
           "per_worker": workers})
     return totals
@@ -2466,13 +2677,18 @@ def main(argv=None):
         "mxnet_tpu/kernels/decode_attention.py:98", dec["launches"],
         dec["max_abs_err"], dec["ms"], dec["plain_ms"],
         (dec["bound_ms"], dec["bound_by"]), dec["library_ms"]))
-    for family, part, line in (("twobit_compress", "compress", 73),
+    # K6 and K7 on the main path: the multi-tensor compress (one launch
+    # per push call) and the decompress (one per pull call); the
+    # per-key route's times from the same phase beside them
+    for family, part, line in (("twobit_compress_multi", "compress", 73),
                                ("twobit_decompress", "decompress", 102)):
         t = done["twobit"][part]
         lines.append(_kernel_line(
             family, "twobit.cu", f"mxnet_tpu/kernels/twobit.py:{line}",
             done["dist_train"][family], 0.0, t["ms"], t["plain_ms"],
-            (t["bound_ms"], t["bound_by"]), None))
+            (t["bound_ms"], t["bound_by"]), None, device_ms=t["device_ms"],
+            host_us=t["host_us"], per_key_route_ms=t["old_route"]["ms"],
+            per_key_route_device_ms=t["old_route"]["device_ms"]))
     emit({"kernels": lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

@@ -5,9 +5,10 @@ MXNet 1.x ``python/mxnet/gluon/trainer.py``). After ``loss.backward()``
 under ``autograd.record()``, ``step(batch_size)``
 
 1. reduces the gradients through the kvstore, when there is one: every
-   gradient is pushed first, in backward order (``priority=-index``), so
-   a dist store's buckets reduce while later pushes still stage, and only
-   then pulled back into each Parameter's gradient buffer;
+   gradient is pushed first, in one call in backward order, so a dist
+   store's buckets reduce in that order (with 2-bit compression, after
+   one compress launch over all of them), and then pulled back into each
+   Parameter's gradient buffer in one call;
 2. runs the optimizer once over every parameter whose gradient is fresh
    (``Optimizer.fused_update_multi``: on the card one launch of the fused
    SGD-momentum or Adam kernel), with ``rescale_grad = 1 / batch_size``.
@@ -131,12 +132,16 @@ class Trainer:
     def _allreduce_grads(self):
         if self._kvstore is None:
             return
-        live = [(i, p) for i, p in enumerate(self._params)
+        live = [(i, p.grad()) for i, p in enumerate(self._params)
                 if p.grad_req != "null"]
-        for i, param in reversed(live):
-            self._kvstore.push(i, param.grad(), priority=-i)
-        for i, param in live:
-            self._kvstore.pull(i, param.grad(), priority=-i)
+        if not live:
+            return
+        keys, grads = (list(x) for x in zip(*live))
+        # one push call in backward order, then one pull call: a dist
+        # store compresses every gradient with one launch and scales them
+        # back with one
+        self._kvstore.push(keys[::-1], grads[::-1])
+        self._kvstore.pull(keys, grads)
 
     def update(self, batch_size, ignore_stale_grad=False):
         """The optimizer step alone (after ``allreduce_grads``)."""

@@ -13,8 +13,14 @@ strings:
   rendezvous). A push sums over workers with ``torch.distributed``, by
   key or in fused buckets (``buckets.py``); with 2-bit gradient
   compression (``set_gradient_compression``) each worker sends int8
-  codes with error feedback (``twobit_compress``, K6) and the summed
-  codes are scaled back at resolve (``twobit_decompress``, K7).
+  codes with error feedback (K6) and the summed codes are scaled back
+  (K7). On the bucketed path a push call compresses all its float32 keys
+  with ONE launch (``twobit_compress_multi``) straight into their slots
+  of one flat wire buffer (``buckets.FlatLayout``), and a pull call scales
+  the reduced slices of its keys back with one ``twobit_decompress``
+  launch per contiguous run of buckets. The per-key path, and a bucketed
+  key of another dtype, compress with ``twobit_compress`` per key and
+  scale back per key in the key's dtype.
 
 Pull semantics follow MXNet 1.x's ``KVStoreLocal`` and
 ``KVStoreDistServer`` without an updater: a pull after a push returns
@@ -271,19 +277,24 @@ class _DistKVStore(KVStore):
         """Sum each key over the workers. ``priority`` is accepted for
         MXNet's contract; the bucket pipeline realises it by dispatching
         a bucket as soon as its last key arrives (``gluon.Trainer``
-        pushes in backward order)."""
+        pushes in backward order). Every value is taken at push: a later
+        in-place write to it does not reach the sum."""
         keys, values = self._canonical_push(key, value)
+        compress = bool(self._compression) and self._procs > 1
+        batch = {}   # the float32 2-bit bucketed keys of this call: one launch
         for k, vals in zip(keys, values):
             agg = self._sum(vals)
-            compress = bool(self._compression) and self._procs > 1
             if self._bucketed(k):
-                if compress:
+                if not compress:
+                    self._pipeline.stage_value(k, agg)
+                elif self._pipeline.compressible(k):
+                    if k in batch:   # a key listed twice: two rounds
+                        self._push_compressed(batch)
+                        batch = {}
+                    batch[k] = agg
+                else:   # per key; the codes copied into the wire slot
                     codes, meta = self._quantize(k, NDArray(agg))
-                    self._pipeline.enqueue(k, codes._data.reshape(-1), meta)
-                else:
-                    self._pipeline.enqueue(
-                        k, agg.reshape(-1),
-                        {"shape": tuple(agg.shape), "dtype": agg.dtype})
+                    self._pipeline.stage_value(k, codes._data, meta)
                 continue
             owned = len(vals) > 1
             if self._procs > 1:
@@ -292,6 +303,31 @@ class _DistKVStore(KVStore):
                        )._data
                 owned = True
             self._apply(k, agg, owned)
+        if batch:
+            self._push_compressed(batch)
+
+    def _push_compressed(self, batch):
+        """The 2-bit bucketed push of ``{key: gradient}``: drain the
+        buckets whose slots are staged or in flight, compress every
+        gradient with one launch into the wire, then stage the keys (a
+        bucket dispatches when its last key is staged)."""
+        keys = list(batch)
+        pipe = self._pipeline
+        layout = pipe.layout(next(iter(batch.values())).device)
+        if self._residuals.get(keys[0]) is not layout.residuals[keys[0]]:
+            self._residuals.update(layout.residuals)
+        pipe.drain(keys)
+        thr = float(self._compression.get("threshold", 0.5))
+        self._compress(keys, [batch[k] for k in keys], thr)
+        pipe.stage_codes(keys, {"thr": thr, "dtype": torch.float32})
+
+    def _compress(self, keys, grads, thr):
+        """K6 over the listed keys in one launch: each gradient's codes
+        into its wire slot, its residual slot updated in place."""
+        layout = self._pipeline.flat
+        _kernels.dispatch("twobit_compress_multi", grads,
+                          [layout.residuals[k] for k in keys],
+                          [layout.codes[k] for k in keys], thr)
 
     # ------------------------------------------------- the collectives ---
     def _dispatch_bucket(self, flat):
@@ -336,22 +372,46 @@ class _DistKVStore(KVStore):
         return NDArray(_kernels.dispatch("twobit_decompress", summed,
                                          meta["thr"], dtype=meta["dtype"]))
 
-    def _apply_reduced(self, k, piece, meta):
-        """One key's slice of a resolved bucket back into the store, as
-        the per-key path would apply it."""
-        piece = piece.reshape(meta["shape"])
-        if meta.get("thr") is not None:
-            agg = _kernels.dispatch("twobit_decompress", piece, meta["thr"],
-                                    dtype=meta["dtype"])
-        else:
-            agg = piece.clone()   # a view of the bucket otherwise
-        self._apply(k, agg, owned=True)
+    def _apply_resolved(self, entries):
+        """Resolved buckets back into the store, as the per-key path would
+        apply them: the float32 2-bit buckets scaled back with one K7
+        launch per contiguous run of wire slices of one threshold; the
+        others key by key (2-bit codes scaled back in the key's dtype; a
+        value copied: the buffer is reused)."""
+        layout = self._pipeline.flat
+        coded = []
+        for bid, keys, metas, flat in entries:
+            meta = metas[keys[0]]
+            if "thr" in meta and meta["dtype"] == torch.float32:
+                coded.append((layout.ranges[bid], meta["thr"], keys))
+                continue
+            lo = layout.ranges[bid][0]
+            for k in keys:
+                piece = layout.slot(k, flat, lo)
+                if "thr" in meta:
+                    agg = _kernels.dispatch("twobit_decompress", piece,
+                                            meta["thr"],
+                                            dtype=metas[k]["dtype"])
+                else:
+                    agg = piece.clone()
+                self._apply(k, agg, owned=True)
+        runs = []   # [lo, hi, thr, [keys]], by wire offset
+        for (lo, hi), thr, keys in sorted(coded, key=lambda c: c[0]):
+            if runs and runs[-1][1] == lo and runs[-1][2] == thr:
+                runs[-1][1] = hi
+                runs[-1][3].extend(keys)
+            else:
+                runs.append([lo, hi, thr, list(keys)])
+        for lo, hi, thr, keys in runs:
+            out = _kernels.dispatch("twobit_decompress", layout.wire[lo:hi],
+                                    thr)
+            for k in keys:
+                self._apply(k, layout.slot(k, out, lo), owned=True)
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         """Wait for the reductions of the keys first, then pull."""
         if self._pipeline is not None:
-            for k in _to_list(key):
-                self._pipeline.resolve(k)
+            self._pipeline.resolve(_to_list(key))
         super().pull(key, out=out, priority=priority,
                      ignore_sparse=ignore_sparse)
 

@@ -16,7 +16,10 @@ run on a machine that has only PyTorch:
   quantized FullyConnected on the card equal to the same op on the CPU;
 * the decode-attention kernel through ``nd.contrib.decode_attention``
   against its plain version, and the 2-bit compress and decompress
-  kernels bit for bit against theirs.
+  kernels bit for bit against theirs: the single-tensor pair, and the
+  multi-tensor compress and the decompress of wire ranges through the
+  dist kvstore's flat layout (odd sizes, unaligned gradients, a strict subset of a
+  bucket, values at +-thr and NaN), with their launches by path.
 """
 import math
 
@@ -28,6 +31,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import kernels, nd
 from mxnet_tpu_torch.gluon.contrib import nn as cnn
 from mxnet_tpu_torch.kernels import decode_attention, flash, int8_gemm, twobit
+from mxnet_tpu_torch.kvstore import buckets
 from mxnet_tpu_torch.ops import registry as reg
 
 F32_TOL, BF16_TOL = 2e-5, 2e-2
@@ -424,3 +428,96 @@ def test_twobit_kernels_are_bitwise_the_plain_versions(cuda_device, n,
     assert torch.equal(codes, want_codes) and torch.equal(res, want_res)
     for got, want in outs:
         assert torch.equal(got, want)
+
+
+BERT_LAYER = [(768,), (768,), (768, 768), (768,), (768, 768), (768,),
+              (768, 768), (768,), (768, 768), (768,), (3072, 768), (3072,),
+              (768, 3072), (768,), (2, 768), (2,)]
+ODD = [(1,), (2,), (3,), (127,), (4097,), (33, 5)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shapes,offset,keys", [
+    (ODD, 0, None), (ODD, 1, None), (BERT_LAYER, 3, None),
+    (BERT_LAYER, 0, None), (BERT_LAYER, 0, [1, 3, 10, 14]),
+    ([(4096 * 300 + 17,), (5,)], 0, [0])],
+    ids=["odd", "odd+1", "bert_layer+3", "bert_layer", "subset",
+         "ragged_subset"])
+@pytest.mark.parametrize("thr", [0.5, 0.05])
+def test_twobit_multi_kernels_are_bitwise_the_plain_versions(
+        cuda_device, shapes, offset, keys, thr):
+    """The multi-tensor compress over the listed keys of the kvstore's
+    flat layout (4 MiB buckets) against its plain version on copies of
+    the same buffers: the whole wire and residual buffers equal, so no
+    byte outside the listed slots moved; gradients ``offset`` floats off
+    16-byte alignment take the scalar path. Then the decompress of the
+    wire and of summed codes, aligned (vec16) and one code in (scalar). Values at +-thr and a NaN lead every gradient."""
+    plan = buckets.BucketPlan(4 << 20)
+    for i, sh in enumerate(shapes):
+        plan.register(i, sh, "float32")
+    lay = buckets.FlatLayout(plan, cuda_device)
+    keys = list(range(len(shapes))) if keys is None else keys
+    rs = np.random.RandomState(len(shapes) + offset)
+    lay.residual.copy_(torch.from_numpy(
+        (rs.randn(lay.residual.numel()) * thr).astype(np.float32)))
+    grads = []
+    for k in keys:
+        n = math.prod(shapes[k])
+        g = torch.from_numpy((rs.randn(n + offset) * thr * 2).astype(
+            np.float32)).to(cuda_device)[offset:].view(shapes[k])
+        edge = torch.tensor([thr, -thr, float("nan")])[:min(n, 3)]
+        g.view(-1)[:edge.numel()] = edge.to(cuda_device)
+        lay.residuals[k].view(-1)[:edge.numel()] = 0.0
+        grads.append(g)
+    wire, res = lay.wire.clone(), lay.residual.clone()
+    views = [(res[lay.offsets[k]:lay.offsets[k] + lay.codes[k].numel()],
+              wire[lay.offsets[k]:lay.offsets[k] + lay.codes[k].numel()])
+             for k in keys]
+    fn = twobit.twobit_compress_multi
+    before, paths = fn.launches, dict(fn.tensors_by_path)
+    kernels.dispatch("twobit_compress_multi", grads,
+                     [lay.residuals[k] for k in keys],
+                     [lay.codes[k] for k in keys], thr)
+    twobit.twobit_compress_multi_plain(grads, *zip(*views), thr)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    vec = len(keys) if offset == 0 else 0
+    assert {p: fn.tensors_by_path[p] - paths[p] for p in paths} == \
+        {"vec16": vec, "scalar": len(keys) - vec}
+    assert torch.equal(lay.wire, wire)
+    nan = torch.isnan(lay.residual)
+    assert torch.equal(nan, torch.isnan(res)) and nan.sum() == len(
+        [k for k in keys if math.prod(shapes[k]) >= 3])
+    assert torch.equal(lay.residual.masked_fill(nan, 0), res.masked_fill(
+        nan, 0))
+    assert (lay.wire != 0).any()
+    dec = twobit.twobit_decompress
+    summed = (lay.wire.to(torch.int32) * 2).clamp(-2, 2).to(torch.int8)
+    for codes in (lay.wire, summed):
+        for lo, path in ((0, "vec16"), (1, "scalar")):
+            n0 = dec.launches_by_path[path]
+            got = kernels.dispatch("twobit_decompress", codes[lo:], thr)
+            assert dec.launches_by_path[path] == n0 + 1
+            assert torch.equal(got, twobit.twobit_decompress_plain(
+                codes[lo:], thr))
+
+
+@pytest.mark.gpu
+def test_twobit_multi_compress_caches_its_table_on_card(cuda_device):
+    """A second call over the same tensors reuses the table; a new
+    gradient address builds another."""
+    plan = buckets.BucketPlan(4 << 20)
+    for i, sh in enumerate(BERT_LAYER):
+        plan.register(i, sh, "float32")
+    lay = buckets.FlatLayout(plan, cuda_device)
+    grads = [torch.randn(sh, device=cuda_device) for sh in BERT_LAYER]
+    args = ([lay.residuals[k] for k in range(len(grads))],
+            [lay.codes[k] for k in range(len(grads))], 0.5)
+    builds = twobit._TABLES.builds
+    twobit.twobit_compress_multi(grads, *args)
+    twobit.twobit_compress_multi(grads, *args)
+    assert twobit._TABLES.builds == builds + 1
+    grads[3] = grads[3].clone()
+    twobit.twobit_compress_multi(grads, *args)
+    torch.cuda.synchronize()
+    assert twobit._TABLES.builds == builds + 2

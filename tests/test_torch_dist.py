@@ -101,7 +101,10 @@ _TRAINER_CHILD = textwrap.dedent("""
     push = kv.push
 
     def logged_push(key, value, priority=0):
-        result["pushed"][-1][key] = value.asnumpy().tolist()
+        # the Trainer pushes every key in one call, as lists
+        for k, v in zip(key, value) if isinstance(key, list) else \
+                [(key, value)]:
+            result["pushed"][-1][k] = v.asnumpy().tolist()
         return push(key, value, priority)
 
     kv.push = logged_push
