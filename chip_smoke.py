@@ -148,10 +148,33 @@ Phases, each printing one JSON line:
     on both ranks at the end; then one more step split on the host clock
     (forward and backward, the push call, the pull call, update) and
     gloo's all-reduce of the same int8 bytes alone.
+16. resnet_check: a thumbnail resnet18_v1 (10 classes, batch 8, 32x32)
+    takes 3 ``ShardedTrainer`` "sgd" steps on the card and on a CPU copy
+    (TF32 off), the copy set to the card's weights, momenta and running
+    statistics before each step: loss, every weight, momentum and
+    running statistic within ``RESNET_CHECK_TOL``; K1 exactly 3 launches.
+17. resnet50_v1_train: ``bench.py:275-303`` with BENCH_DTYPE=float32 at
+    full width (resnet50_v1, 1000 classes, batch 128 of 3x224x224 from
+    ``nd.random.uniform``, "sgd" lr 0.05 momentum 0.9 wd 1e-4,
+    ``nan_guard=False``, TF32 off): 3 warm-up and 10 timed steps; step
+    ms (median, min, max), img/s, peak memory, the loss finite and
+    falling, the stem BatchNorm's running mean moved, K1 one launch a
+    step over all 193 tensors (25,575,912 values) on its 16-byte path;
+    one profiled step by kernel group (convolution forward, backward and
+    FFT, BatchNorm, pooling, elementwise, K1, copies) and the idle share;
+    K1 over the same tensors bit for bit against its plain version and
+    timed beside ``torch.optim.SGD(momentum=0.9, fused=True)``.
+
+The twobit phase also holds the single-tensor compress and the
+decompress in float16 and bfloat16 bit for bit against their plain
+versions (thresholds 0.5 and 0.1) and times them over 109 M elements
+(``twobit_half``).
 
 Then the ``{"kernels": [...]}`` line (the tensor-core kernels K3 and
 K3-bwd with their tensor-core bound as ``bound_ms`` and the float32-rate
-one as ``bound_f32_ms``), the card's name and power limit,
+one as ``bound_f32_ms``; K1 with its ResNet-50 numbers, those over the
+classifier beside them; K6 and K7 with their half-precision times), the
+card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure is an
 exception and a non-zero exit. ``--phases`` runs a subset (device and
 build always run) and then prints no result line.
@@ -180,6 +203,7 @@ import torch
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import kernels, serving
 from mxnet_tpu_torch.convert import export_params, load_jax_params
+from mxnet_tpu_torch.gluon.model_zoo import vision
 from mxnet_tpu_torch.kernels import build, decode_attention, flash, int8_gemm
 from mxnet_tpu_torch.kernels import opt_step, twobit
 from mxnet_tpu_torch.kvstore import buckets
@@ -235,6 +259,27 @@ DIST_CHECK = {"workers": 2, "batch": 8, "steps": 3, "threshold": 0.02,
                                      "wd": 1e-4},
                              "adam": {"learning_rate": 1e-3, "wd": 1e-4}}}
 DIST_WEIGHT_RTOL = 1e-6   # final weights, card workers vs CPU recompute
+# the 2-bit kernels in float16 and bfloat16: thresholds the types cannot
+# hold (0.1) and can (0.5)
+TWOBIT_HALF_THRESHOLDS = (0.5, 0.1)
+# bench.py:275-303 with BENCH_DTYPE=float32, at full width and batch
+RESNET50 = {"model": "resnet50_v1", "classes": 1000, "batch": 128,
+            "size": 224, "warmup": 3, "steps": 10, "lr": 0.05,
+            "momentum": 0.9, "wd": 1e-4, "tensors": 193, "aux": 106,
+            "values": 25575912}
+# three steps of a thumbnail resnet18_v1 on the card and on a CPU copy,
+# the CPU copy set to the card's weights, momenta and running statistics
+# before each step. A float32 forward leaves a few ReLU inputs within
+# rounding of zero, and which side they fall on differs between cuDNN
+# and the CPU; each flip moves the gradients upstream of it by up to a
+# few percent (tests/test_torch_resnet_train.py measured 1.94% of a
+# step's L2 norm between the port and the JAX package on the CPU). So:
+# the loss to rtol 1e-4 and the running statistics to 1e-4 of their
+# largest magnitude (forwards, summed in other orders), every weight and
+# momentum tensor within 5% of the L2 norm of the card's step for it.
+RESNET_CHECK = {"model": "resnet18_v1", "classes": 10, "batch": 8,
+                "size": 32, "steps": 3, "tensors": 60, "aux": 38}
+RESNET_CHECK_TOL = {"loss_rtol": 1e-4, "aux": 1e-4, "step_l2": 0.05}
 
 
 def build_encoder(args, mx, nn, contrib_nn, exportable=False):
@@ -1900,8 +1945,8 @@ def _bitwise_equal(a, b):
 
 def _twobit_cases(e_c, e_d, grad, res, thr, what):
     """Compress and decompress (int8 codes, their int8 sum in [-2, 2] and
-    the int32 sum) with the kernels and the plain versions: torch.equal
-    or an AssertionError."""
+    the int32 sum) with the kernels and the plain versions, in the
+    gradient's dtype: torch.equal or an AssertionError."""
     codes, new_res = e_c.kernel(grad, res, thr)
     want_codes, want_res = e_c.plain(grad, res, thr)
     summed = torch.clamp(codes.to(torch.int32) + want_codes.flip(0).to(
@@ -1909,8 +1954,8 @@ def _twobit_cases(e_c, e_d, grad, res, thr, what):
     pairs = [("codes", codes, want_codes), ("residual", new_res, want_res)]
     for label, c in (("int8", codes), ("int8 sum", summed.to(torch.int8)),
                      ("int32 sum", summed)):
-        pairs.append((f"decompress {label}", e_d.kernel(c, thr),
-                      e_d.plain(c, thr)))
+        pairs.append((f"decompress {label}", e_d.kernel(c, thr, grad.dtype),
+                      e_d.plain(c, thr, grad.dtype)))
     torch.cuda.synchronize()
     for label, got, want in pairs:
         if not _bitwise_equal(got, want):
@@ -2048,7 +2093,67 @@ def phase_twobit():
           "bitwise_equal": True, "threshold": thr,
           "nonzero_share_109M": share, "plus_minus_codes_109M": signs})
     torch.cuda.empty_cache()
-    return twobit_timing(shapes, gen, dev, thr)
+    half = twobit_half(n_full, gen, dev)
+    torch.cuda.empty_cache()
+    return dict(twobit_timing(shapes, gen, dev, thr), half=half)
+
+
+def twobit_half(n_full, gen, dev):
+    """K6 and K7 in float16 and bfloat16 (fault C4): the single-tensor
+    compress of a half-precision gradient and the decompress of int8
+    codes, their int8 sum and an int32 sum into that dtype, torch.equal
+    against the plain versions at thresholds 0.5 and 0.1 on 109 M
+    elements, odd sizes and views one element off (the scalar path), with
+    gradients at the threshold rounded to the dtype, at the unrounded
+    one and NaN. Then each kernel by CUDA events and by the profiler's
+    kernel time over 109 M elements against its byte bound: 7 bytes an
+    element for the compress (two halves read, a half and a code
+    written), 3 and 6 for the decompress from int8 and int32 codes."""
+    e_c, e_d = kernels.entry("twobit_compress"), kernels.entry(
+        "twobit_decompress")
+    out = {}
+    for dtype in (torch.float16, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        checked = []
+        for thr in TWOBIT_HALF_THRESHOLDS:
+            t = twobit.round_threshold(thr, dtype)
+            for n, off in ((n_full, 0), (1, 0), (127, 0), (4097, 0),
+                           (4097, 1), (4099, 3)):
+                grad = (torch.randn(n + off, generator=gen, device=dev) *
+                        thr).to(dtype)[off:]
+                res = (torch.randn(n + off, generator=gen, device=dev) *
+                       thr * 0.4).to(dtype)[off:]
+                edge = torch.tensor([t, -t, thr, float("nan")],
+                                    device=dev)[:min(n, 4)]
+                grad[:edge.numel()] = edge.to(dtype)
+                res[:edge.numel()] = 0
+                _twobit_cases(e_c, e_d, grad, res, thr,
+                              f"{name} n={n} offset {off} thr {thr}")
+                checked.append([n, off, thr])
+        del grad, res
+        grad = (torch.randn(n_full, generator=gen, device=dev) * 0.5).to(
+            dtype)
+        res = (torch.randn(n_full, generator=gen, device=dev) * 0.2).to(
+            dtype)
+        codes = e_c.kernel(grad, res, 0.5)[0]
+        summed = codes.to(torch.int32) * 2
+        timing = {}
+        for label, fn, nbytes, plain in (
+                ("compress", lambda: e_c.kernel(grad, res, 0.5), 7 * n_full,
+                 lambda: e_c.plain(grad, res, 0.5)),
+                ("decompress_int8", lambda: e_d.kernel(codes, 0.5, dtype),
+                 3 * n_full, lambda: e_d.plain(codes, 0.5, dtype)),
+                ("decompress_int32", lambda: e_d.kernel(summed, 0.5, dtype),
+                 6 * n_full, lambda: e_d.plain(summed, 0.5, dtype))):
+            timing[label] = {"ms": cuda_ms(fn), "device_ms": device_ms(fn),
+                             "plain_ms": cuda_ms(plain, iters=3),
+                             "bound_ms": nbytes / H100_BYTES_S * 1e3,
+                             "bound_by": "bytes", "library_ms": None}
+        del grad, res, codes, summed
+        out[name] = timing
+        emit({"phase": "twobit_half", "dtype": name, "cases": checked,
+              "bitwise_equal": True, "elements": n_full, **timing})
+    return out
 
 
 def twobit_timing(shapes, gen, dev, thr):
@@ -2568,9 +2673,287 @@ def phase_dist_train(smi):
     return totals
 
 
+# ---- ResNet training ---------------------------------------------------------
+
+def _resnet_trainer(net, ctx, nan_guard):
+    return ShardedTrainer(
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
+        {"learning_rate": RESNET50["lr"], "momentum": RESNET50["momentum"],
+         "wd": RESNET50["wd"]},
+        mesh=DeviceMesh({"dp": 1}, devices=[ctx]), nan_guard=nan_guard)
+
+
+def phase_resnet_check():
+    """A thumbnail resnet18_v1 (10 classes, batch 8, 32x32), 3 "sgd" steps
+    (the ResNet-50 config's lr, momentum and wd) on the card and on a CPU
+    copy with TF32 off, the CPU copy set to the card's weights, momenta
+    and running statistics before each step (``RESNET_CHECK``'s comment
+    says why); the loss, every weight, momentum and running statistic
+    held to ``RESNET_CHECK_TOL``; K1 launched exactly once a step on the
+    card."""
+    cfg = RESNET_CHECK
+    rs = np.random.RandomState(0)
+    x = rs.rand(cfg["steps"], cfg["batch"], 3, cfg["size"],
+                cfg["size"]).astype(np.float32)
+    y = rs.randint(0, cfg["classes"], (cfg["steps"], cfg["batch"])).astype(
+        np.float32)
+    nets, trainers = {}, {}
+    for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        net = vision.get_model(cfg["model"], classes=cfg["classes"],
+                               thumbnail=True)
+        net.initialize(mx.init.Xavier(), ctx=ctx,
+                       generator=torch.Generator().manual_seed(0))
+        net(mx.nd.array(x[0], ctx=ctx))
+        if where == "cpu":
+            load_jax_params(net, export_params(nets["card"]))
+        nets[where], trainers[where] = net, _resnet_trainer(net, ctx, True)
+    card, cpu = trainers["card"], trainers["cpu"]
+    if len(card._param_names) != cfg["tensors"] or \
+            len(card._aux_names) != cfg["aux"]:
+        raise AssertionError(f"resnet_check: {len(card._param_names)} "
+                             f"trainable and {len(card._aux_names)} aux "
+                             "tensors")
+    tol = RESNET_CHECK_TOL
+    before = opt_step.opt_sgd.launches
+    steps = []
+    for i in range(cfg["steps"]):
+        for h, ch in zip(cpu._train_handles, card._train_handles):
+            h._data.copy_(ch._data.cpu())
+        for per, cper in zip(cpu._opt_state, card._opt_state):
+            per[0].copy_(cper[0].cpu())
+        for h, ch in zip(cpu._aux_handles, card._aux_handles):
+            h._rebind(ch._data.cpu())
+        aux0 = [h._data.clone() for h in card._aux_handles]
+        got = card.step(mx.nd.array(x[i], ctx=mx.gpu(0)),
+                        mx.nd.array(y[i], ctx=mx.gpu(0))).asscalar()
+        want = cpu.step(mx.nd.array(x[i], ctx=mx.cpu()),
+                        mx.nd.array(y[i], ctx=mx.cpu())).asscalar()
+        if not abs(got - want) <= tol["loss_rtol"] * abs(want):
+            raise AssertionError(f"resnet_check step {i}: loss {got} on the "
+                                 f"card, {want} on the CPU")
+        aux_err = 0.0
+        for h, ch, old in zip(cpu._aux_handles, card._aux_handles, aux0):
+            ref = h._data
+            scale = max(float(ref.abs().max()), 1.0)
+            err = float((ch._data.cpu() - ref).abs().max()) / scale
+            aux_err = max(aux_err, err)
+            if err > tol["aux"] or torch.equal(ch._data, old):
+                raise AssertionError(f"resnet_check step {i}: a running "
+                                     f"statistic off by {err} or unmoved")
+        step_err = 0.0
+        for name, h, ch, per, cper in zip(
+                card._param_names, cpu._train_handles, card._train_handles,
+                cpu._opt_state, card._opt_state):
+            norm = float(cper[0].norm())
+            for a, b in ((ch._data.cpu(), h._data),
+                         (cper[0].cpu(), per[0])):
+                err = float((a - b).norm()) / max(norm, 1e-30)
+                step_err = max(step_err, err)
+                if err > tol["step_l2"]:
+                    raise AssertionError(f"resnet_check step {i}: {name} "
+                                         f"off by {err} of its step")
+        steps.append({"loss_card": got, "loss_cpu": want,
+                      "max_aux_err": aux_err, "max_step_l2_err": step_err})
+    torch.cuda.synchronize()
+    launches = opt_step.opt_sgd.launches - before
+    if launches != cfg["steps"]:
+        raise AssertionError(f"resnet_check: {launches} K1 launches for "
+                             f"{cfg['steps']} card steps")
+    emit({"phase": "resnet_check", "config": cfg, "tolerance": tol,
+          "tf32": False, "steps": steps, "opt_sgd_launches": launches})
+    return launches
+
+
+def _resnet_group(name):
+    """The ResNet step's kernel groups, by kernel name."""
+    low = name.lower()
+    for group, keys in (
+            ("k1", ("opt_step_kernel",)),
+            ("batchnorm", ("bn_fw", "bn_bw", "batch_norm", "batchnorm",
+                           "welford")),
+            ("conv_backward", ("dgrad", "wgrad", "backward_data",
+                               "backward_filter", "bwd_data", "bwd_filter")),
+            ("layout", ("nchwtonhwc", "nhwctonchw", "transpose")),
+            # cuDNN's FFT convolutions: complex GEMMs and the transforms,
+            # forward or backward by name alone
+            ("conv_fft", ("cf32", "fft")),
+            ("conv_forward", ("fprop", "conv", "xmma", "implicit",
+                              "winograd", "cudnn")),
+            ("pooling", ("pool",)),
+            ("gemm", ("gemm", "cublas", "cutlass")),
+            ("copies", ("memcpy", "memset", "copy")),
+            ("elementwise", ("elementwise", "reduce", "softmax",
+                             "threshold", "fill", "where"))):
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def _resnet_k1_timing(st):
+    """K1 over the trainer's tensors (their shapes and weight decays) on
+    random operands: bit for bit against the plain version, then by CUDA
+    events, the profiler's kernel time and the host's time per call,
+    beside ``torch.optim.SGD(momentum=0.9, fused=True)`` over the same
+    tensors (the library yardstick)."""
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    shapes = [tuple(h.shape) for h in st._train_handles]
+    wds = [st._wd * m for m in st._wd_mult]
+    n = sum(math.prod(sh) for sh in shapes)
+    lr = torch.tensor(RESNET50["lr"], device=dev)
+    hyper = {"momentum": RESNET50["momentum"]}
+    e = kernels.entry("opt_sgd")
+    base = _opt_inputs(shapes, gen, dev)
+    got, want = _clone(base), _clone(base)
+    _run_opt("opt_sgd", e.kernel, got, lr, wds, hyper)
+    _run_opt("opt_sgd", e.plain, want, lr, wds, hyper)
+    torch.cuda.synchronize()
+    err = max(float((a - b).abs().max()) for k in ("w", "m")
+              for a, b in zip(got[k], want[k]))
+    if err != 0.0:
+        raise AssertionError(f"K1 at the ResNet-50 shapes differs from its "
+                             f"plain version by {err}")
+    params = [torch.nn.Parameter(w.clone()) for w in base["w"]]
+    for p, g in zip(params, base["g"]):
+        p.grad = g.clone()
+    groups = [{"params": [p for p, wd in zip(params, wds) if wd],
+               "weight_decay": RESNET50["wd"]},
+              {"params": [p for p, wd in zip(params, wds) if not wd],
+               "weight_decay": 0.0}]
+    library = torch.optim.SGD(groups, lr=RESNET50["lr"],
+                              momentum=RESNET50["momentum"], fused=True)
+
+    def kernel():
+        _run_opt("opt_sgd", e.kernel, got, lr, wds, hyper)
+
+    return {"tensors": len(shapes), "values": n, "max_abs_err": err,
+            "ms": cuda_ms(kernel), "device_ms": device_ms(kernel),
+            "host_us": _host_us(kernel),
+            "plain_ms": cuda_ms(lambda: _run_opt(
+                "opt_sgd", e.plain, want, lr, wds, hyper), iters=3),
+            "bound_ms": 20 * n / H100_BYTES_S * 1e3, "bound_by": "bytes",
+            "library_ms": cuda_ms(library.step),
+            "library_device_ms": device_ms(library.step)}
+
+
+def phase_resnet50_train(smi):
+    """resnet50_v1_train: ``bench.py:275-303`` with BENCH_DTYPE=float32
+    through the port's entry points, at full width: ``mx.random.seed(0)``,
+    ``vision.get_model("resnet50_v1", classes=1000)``, Xavier weights on
+    the card (from a seeded generator), ``nd.random.uniform`` batch of
+    128 x 3 x 224 x 224 with random labels, ``ShardedTrainer`` "sgd" (lr
+    0.05, momentum 0.9, wd 1e-4) on ``DeviceMesh({"dp": 1})`` with
+    ``nan_guard=False``; TF32 off. 3 warm-up and 10 timed steps: step
+    time (host clock to a synchronise), img/s, peak memory, the loss
+    (finite and falling), the stem BatchNorm's running mean off zero, K1
+    one launch a step over all 193 tensors on its 16-byte path; then one
+    profiled step split by kernel group, and K1 timed over the same 193
+    tensors beside ``torch.optim``'s fused SGD."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = RESNET50
+    dev = mx.gpu(0)
+    mx.random.seed(0)
+    net = vision.get_model(cfg["model"], classes=cfg["classes"])
+    net.initialize(mx.init.Xavier(), ctx=dev,
+                   generator=torch.Generator().manual_seed(0))
+    x = mx.nd.random.uniform(shape=(cfg["batch"], 3, cfg["size"],
+                                    cfg["size"]), ctx=dev)
+    y = mx.nd.array(np.random.RandomState(0).randint(
+        0, cfg["classes"], cfg["batch"]).astype(np.float32), ctx=dev)
+    net(x)   # resolve the deferred shapes (eval mode: no statistics move)
+    st = _resnet_trainer(net, dev, False)
+    n_values = sum(h.size for h in st._train_handles)
+    if (len(st._param_names), len(st._aux_names), n_values) != (
+            cfg["tensors"], cfg["aux"], cfg["values"]):
+        raise AssertionError(f"resnet50_v1: {len(st._param_names)} "
+                             f"trainable tensors ({n_values} values), "
+                             f"{len(st._aux_names)} aux")
+    stem = net.features[1].running_mean
+    stem0 = stem.data()._data.clone()
+    steps = cfg["warmup"] + cfg["steps"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    sgd = opt_step.opt_sgd
+    paths, copies = dict(sgd.tensors_by_path), sgd.copies
+    kernels.reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = st.step(x, y)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.asscalar())
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    paths, copies = _opt_paths(sgd, paths), sgd.copies - copies
+    want = dict.fromkeys(counts, 0)
+    want["opt_sgd"] = steps
+    if counts != want:
+        raise AssertionError(f"resnet50_v1_train: launches {counts}, "
+                             f"expected {want}")
+    if paths != {"vec4": cfg["tensors"] * steps, "scalar": 0} or copies:
+        raise AssertionError(f"resnet50_v1_train: K1's tensors by path "
+                             f"{paths}, {copies} gradient copies")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"resnet50_v1_train: loss not finite and "
+                             f"falling: {losses}")
+    stem_mean = stem.data()._data
+    if torch.equal(stem_mean, stem0) or not bool(
+            torch.isfinite(stem_mean).all()):
+        raise AssertionError("resnet50_v1_train: the stem BatchNorm's "
+                             "running mean did not move")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        st.step(x, y)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+
+    groups, top = {}, {}
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA or \
+                ev.self_device_time_total <= 0 or \
+                getattr(ev, "is_user_annotation", False):
+            continue
+        g = _resnet_group(ev.key)
+        groups[g] = groups.get(g, 0.0) + ev.self_device_time_total / 1e3
+        top[ev.key] = top.get(ev.key, 0.0) + ev.self_device_time_total / 1e3
+    busy = sum(groups.values())
+    timed = step_ms[cfg["warmup"]:]
+    median = statistics.median(timed)
+    k1 = _resnet_k1_timing(st)
+    out = {"phase": "resnet50_v1_train", "card": smi, "config": cfg,
+           "tf32": False, "losses": losses, "step_ms": step_ms,
+           "median_step_ms": median, "min_step_ms": min(timed),
+           "max_step_ms": max(timed),
+           "img_per_s": cfg["batch"] / (median / 1e3),
+           "memory_allocated_before": before, "max_memory_allocated": peak,
+           "launches": counts, "k1_tensors_by_path": paths,
+           "stem_running_mean_abs_mean": float(stem_mean.abs().mean()),
+           "profiled_step_ms": window_ms,
+           "device_ms_per_step": busy if groups else "not measured",
+           "device_idle_share": 1 - busy / window_ms if groups
+           else "not measured",
+           "device_ms_by_group": groups,
+           "top_kernels_ms": [[k[:90], v, _resnet_group(k)] for k, v in
+                              sorted(top.items(), key=lambda kv: -kv[1])
+                              [:15]],
+           "k1": k1}
+    emit(out)
+    del st, net, x, y
+    torch.cuda.empty_cache()
+    return out
+
+
 PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "int8_gemm", "serve_int8", "decode", "twobit", "dist_check",
-          "dist_train")
+          "dist_train", "resnet_check", "resnet50_v1_train")
 
 
 def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
@@ -2632,6 +3015,10 @@ def main(argv=None):
         done["dist_check"] = phase_dist_check()
     if "dist_train" in phases:
         done["dist_train"] = phase_dist_train(smi)
+    if "resnet_check" in phases:
+        done["resnet_check"] = phase_resnet_check()
+    if "resnet50_v1_train" in phases:
+        done["resnet50_v1_train"] = phase_resnet50_train(smi)
     if set(done) != set(PHASES):
         print(f"phases run: {sorted(done)}; no result line", flush=True)
         return 1
@@ -2654,18 +3041,31 @@ def main(argv=None):
             bwd["ms"][part], bwd["ms"][f"{part}_plain"],
             (bwd["bound_ms"][f"{part}_tc"], bwd["bound_by"][f"{part}_tc"]),
             bwd["ms"]["library"], bound_f32_ms=bwd["bound_ms"][part]))
-    for family, replaces, launches in (
-            ("opt_sgd", "mxnet_tpu/kernels/opt_step.py:114",
-             sgd_launches["opt_sgd"]),
-            ("opt_adam", "mxnet_tpu/kernels/opt_step.py:131",
-             train["opt_adam"])):
-        t = opt[family]
-        lines.append(_kernel_line(family, "opt_step.cu", replaces, launches,
-                                  0.0, t["ms"], t["plain_ms"],
-                                  (t["bound_ms"], t["bound_by"]),
-                                  t["library_ms"], device_ms=t["device_ms"],
-                                  host_us=t["host_us"],
-                                  library_device_ms=t["library_device_ms"]))
+    # K1 on this slice's path (resnet50_v1_train: one launch a step over
+    # ResNet-50's 193 tensors); its times over the classifier's 197
+    # tensors and its train_check and resnet_check launches beside them
+    rn = done["resnet50_v1_train"]
+    k1, t = rn["k1"], opt["opt_sgd"]
+    lines.append(_kernel_line(
+        "opt_sgd", "opt_step.cu", "mxnet_tpu/kernels/opt_step.py:114",
+        rn["launches"]["opt_sgd"], k1["max_abs_err"], k1["ms"],
+        k1["plain_ms"], (k1["bound_ms"], k1["bound_by"]), k1["library_ms"],
+        device_ms=k1["device_ms"], host_us=k1["host_us"],
+        library_device_ms=k1["library_device_ms"], tensors=k1["tensors"],
+        values=k1["values"],
+        launches_train_check=sgd_launches["opt_sgd"],
+        launches_resnet_check=done["resnet_check"],
+        classifier_197={k: t[k] for k in (
+            "ms", "device_ms", "host_us", "plain_ms", "bound_ms",
+            "library_ms", "library_device_ms")}))
+    t = opt["opt_adam"]
+    lines.append(_kernel_line("opt_adam", "opt_step.cu",
+                              "mxnet_tpu/kernels/opt_step.py:131",
+                              train["opt_adam"], 0.0, t["ms"], t["plain_ms"],
+                              (t["bound_ms"], t["bound_by"]),
+                              t["library_ms"], device_ms=t["device_ms"],
+                              host_us=t["host_us"],
+                              library_device_ms=t["library_device_ms"]))
     k4 = done["int8_gemm"]
     lines.append(_kernel_line(
         "int8_gemm", "int8_gemm.cu", "mxnet_tpu/kernels/int8_gemm.py:86",
@@ -2680,15 +3080,22 @@ def main(argv=None):
     # K6 and K7 on the main path: the multi-tensor compress (one launch
     # per push call) and the decompress (one per pull call); the
     # per-key route's times from the same phase beside them
-    for family, part, line in (("twobit_compress_multi", "compress", 73),
-                               ("twobit_decompress", "decompress", 102)):
+    # the float16 and bfloat16 variants (fault C4; the per-key path of a
+    # half-precision key, which no cell runs) beside them
+    half = done["twobit"]["half"]
+    for family, part, line, parts in (
+            ("twobit_compress_multi", "compress", 73, ("compress",)),
+            ("twobit_decompress", "decompress", 102,
+             ("decompress_int8", "decompress_int32"))):
         t = done["twobit"][part]
         lines.append(_kernel_line(
             family, "twobit.cu", f"mxnet_tpu/kernels/twobit.py:{line}",
             done["dist_train"][family], 0.0, t["ms"], t["plain_ms"],
             (t["bound_ms"], t["bound_by"]), None, device_ms=t["device_ms"],
             host_us=t["host_us"], per_key_route_ms=t["old_route"]["ms"],
-            per_key_route_device_ms=t["old_route"]["device_ms"]))
+            per_key_route_device_ms=t["old_route"]["device_ms"],
+            half_precision={f"{dt}_{p}": half[dt][p] for dt in half
+                            for p in parts}))
     emit({"kernels": lines})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": dev["name"],

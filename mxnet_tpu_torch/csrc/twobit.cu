@@ -1,6 +1,9 @@
 // 2-bit gradient compression with error feedback for Hopper (sm_90a):
-// compress (float32 gradient + residual -> int8 codes + new residual) and
-// decompress (summed codes -> float32 gradient).
+// compress (gradient + residual -> int8 codes + new residual) and
+// decompress (summed codes -> gradient). The multi-tensor compress takes
+// float32; the single-tensor compress and the decompress also float16 and
+// bfloat16, as the reference's store compresses a half-precision key and
+// its decompress writes any float dtype.
 //
 // Replaces the TPU kernels of mxnet_tpu/kernels/twobit.py:
 // _kernel_compress (K6, body _compress_body) and _kernel_decompress (K7,
@@ -59,12 +62,21 @@
 // (kernels/twobit.py) and the JAX package's _xla_compress /
 // _xla_decompress. Every operation is a correctly rounded intrinsic
 // (__fadd_rn, __fmul_rn, __fsub_rn, __int2float_rn), so the -O3 build
-// cannot contract g - code*thr into one FMA. NaN compares false and gives
-// code 0 and a NaN residual, as in the plain versions.
+// cannot contract g - code*thr into one FMA. In float16 and bfloat16 each
+// operation runs in float32 and is rounded to the type at once
+// (__float2half_rn, __float2bfloat16_rn), which is the type's correctly
+// rounded result; the wrapper hands over the threshold rounded to float32
+// and then to the type, as the JAX store's XLA path rounds a weak-typed
+// Python float.
+// A 16-byte vector holds 8 halves, so the half-precision paths move 8
+// elements per 16-byte access where float32 moves 4. NaN compares false
+// and gives code 0 and a NaN residual, as in the plain versions.
 //
 // The launch functions are plain C: each returns cudaGetLastError() after
 // its launch and never synchronises.
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,52 +85,117 @@ namespace {
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 132 * 16;
 
-__device__ __forceinline__ int8_t compress1(float grad, float res, float thr,
-                                            float neg_thr, float* new_res) {
-  const float g = __fadd_rn(grad, res);
+// The gradient's (or the output's) element type: float, __half or
+// __nv_bfloat16. Arithmetic runs in float32 with each +, - and * rounded
+// back to the element type at once, so a half-precision result is the
+// correctly rounded one of that type (float32 carries more than 2p + 2
+// bits of a half's or a bfloat16's p), as the plain versions compute it.
+template <typename T> struct Elem;
+template <> struct Elem<float> {
+  static __device__ __forceinline__ float load(float x) { return x; }
+  static __device__ __forceinline__ float round(float x) { return x; }
+};
+template <> struct Elem<__half> {
+  static __device__ __forceinline__ float load(__half x) {
+    return __half2float(x);
+  }
+  static __device__ __forceinline__ __half round(float x) {
+    return __float2half_rn(x);
+  }
+};
+template <> struct Elem<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(__nv_bfloat16 x) {
+    return __bfloat162float(x);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 round(float x) {
+    return __float2bfloat16_rn(x);
+  }
+};
+
+// thr: the threshold already rounded to T (exact in float32).
+template <typename T>
+__device__ __forceinline__ int8_t compress1(T grad, T res, float thr,
+                                            float neg_thr, T* new_res) {
+  const float g = Elem<T>::load(
+      Elem<T>::round(__fadd_rn(Elem<T>::load(grad), Elem<T>::load(res))));
   const int8_t code = g >= thr ? 1 : (g <= neg_thr ? -1 : 0);
-  *new_res = __fsub_rn(g, __fmul_rn((float)code, thr));
+  *new_res = Elem<T>::round(__fsub_rn(g, __fmul_rn((float)code, thr)));
   return code;
 }
 
+// code (an int8 or int32 sum of codes) x thr in T: the code rounded to T
+// first, as codes.astype(dtype) * thr.
+template <typename T>
+__device__ __forceinline__ T decompress1(int code, float thr) {
+  return Elem<T>::round(__fmul_rn(
+      Elem<T>::load(Elem<T>::round(__int2float_rn(code))), thr));
+}
+
+__device__ __forceinline__ int pack4(const int8_t* c) {
+  return (int)(uint8_t)c[0] | ((int)(uint8_t)c[1] << 8) |
+         ((int)(uint8_t)c[2] << 16) | ((int)(uint8_t)c[3] << 24);
+}
+
+// V codes (4 or 8) with one 4- or 8-byte store.
+template <int V>
+__device__ __forceinline__ void store_codes(int8_t* p, const int8_t* c) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<int*>(p) = pack4(c);
+  } else {
+    *reinterpret_cast<int2*>(p) = make_int2(pack4(c), pack4(c + 4));
+  }
+}
+
+// The single-tensor compress (the per-key path): a grid-stride loop over
+// 16-byte vectors of V = 16 / sizeof(T) elements (4 float32 or 8 halves),
+// the codes of a vector stored with one V-byte store.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-twobit_compress_kernel(const float* __restrict__ grad,
-                       const float* __restrict__ res,
-                       int8_t* __restrict__ codes,
-                       float* __restrict__ new_res, long long n, float thr,
-                       int vec) {
+twobit_compress_kernel(const T* __restrict__ grad, const T* __restrict__ res,
+                       int8_t* __restrict__ codes, T* __restrict__ new_res,
+                       long long n, float thr, int vec) {
+  constexpr int V = 16 / sizeof(T);
   const float neg_thr = -thr;
   const long long stride = (long long)gridDim.x * blockDim.x;
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   long long done = 0;
   if (vec) {
-    const long long n4 = n >> 2;
-    for (long long j = i; j < n4; j += stride) {
-      const float4 g = reinterpret_cast<const float4*>(grad)[j];
-      const float4 r = reinterpret_cast<const float4*>(res)[j];
-      float4 o;
-      char4 c;
-      c.x = compress1(g.x, r.x, thr, neg_thr, &o.x);
-      c.y = compress1(g.y, r.y, thr, neg_thr, &o.y);
-      c.z = compress1(g.z, r.z, thr, neg_thr, &o.z);
-      c.w = compress1(g.w, r.w, thr, neg_thr, &o.w);
-      reinterpret_cast<char4*>(codes)[j] = c;
-      reinterpret_cast<float4*>(new_res)[j] = o;
+    const long long nv = n / V;
+    for (long long j = i; j < nv; j += stride) {
+      const uint4 gv = reinterpret_cast<const uint4*>(grad)[j];
+      const uint4 rv = reinterpret_cast<const uint4*>(res)[j];
+      const T* g = reinterpret_cast<const T*>(&gv);
+      const T* r = reinterpret_cast<const T*>(&rv);
+      uint4 ov;
+      T* o = reinterpret_cast<T*>(&ov);
+      int8_t c[V];
+#pragma unroll
+      for (int k = 0; k < V; ++k)
+        c[k] = compress1<T>(g[k], r[k], thr, neg_thr, &o[k]);
+      store_codes<V>(codes + j * V, c);
+      reinterpret_cast<uint4*>(new_res)[j] = ov;
     }
-    done = n4 << 2;
+    done = nv * V;
   }
   for (long long j = done + i; j < n; j += stride) {
-    float o;
-    codes[j] = compress1(grad[j], res[j], thr, neg_thr, &o);
+    T o;
+    codes[j] = compress1<T>(grad[j], res[j], thr, neg_thr, &o);
     new_res[j] = o;
   }
 }
 
-// int32 codes (the sum of many workers' codes), four a thread.
+template <int Bytes> struct Raw;
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<16> { using type = uint4; };
+
+// int32 codes (the sum of many workers' codes), four a thread: one
+// 16-byte load of codes, one store of four T (16 or 8 bytes).
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 twobit_decompress_i32_kernel(const int* __restrict__ codes,
-                             float* __restrict__ out, long long n, float thr,
+                             T* __restrict__ out, long long n, float thr,
                              int vec) {
+  using R = typename Raw<4 * sizeof(T)>::type;
   const long long stride = (long long)gridDim.x * blockDim.x;
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   long long done = 0;
@@ -126,17 +203,18 @@ twobit_decompress_i32_kernel(const int* __restrict__ codes,
     const long long n4 = n >> 2;
     for (long long j = i; j < n4; j += stride) {
       const int4 c = reinterpret_cast<const int4*>(codes)[j];
-      float4 o;
-      o.x = __fmul_rn(__int2float_rn(c.x), thr);
-      o.y = __fmul_rn(__int2float_rn(c.y), thr);
-      o.z = __fmul_rn(__int2float_rn(c.z), thr);
-      o.w = __fmul_rn(__int2float_rn(c.w), thr);
-      reinterpret_cast<float4*>(out)[j] = o;
+      R ov;
+      T* o = reinterpret_cast<T*>(&ov);
+      o[0] = decompress1<T>(c.x, thr);
+      o[1] = decompress1<T>(c.y, thr);
+      o[2] = decompress1<T>(c.z, thr);
+      o[3] = decompress1<T>(c.w, thr);
+      reinterpret_cast<R*>(out)[j] = ov;
     }
     done = n4 << 2;
   }
   for (long long j = done + i; j < n; j += stride)
-    out[j] = __fmul_rn(__int2float_rn(codes[j]), thr);
+    out[j] = decompress1<T>(codes[j], thr);
 }
 
 // ---- the tiled kernels -----------------------------------------------------
@@ -158,18 +236,14 @@ struct CompressRow {
 };
 static_assert(sizeof(CompressRow) == 48, "table row layout");
 
-__device__ __forceinline__ int pack4(int8_t a, int8_t b, int8_t c, int8_t d) {
-  return (int)(uint8_t)a | ((int)(uint8_t)b << 8) | ((int)(uint8_t)c << 16) |
-         ((int)(uint8_t)d << 24);
-}
-
 __device__ __forceinline__ int compress_word(const float4& g, float4& r,
                                              float thr, float neg_thr) {
-  const int8_t c0 = compress1(g.x, r.x, thr, neg_thr, &r.x);
-  const int8_t c1 = compress1(g.y, r.y, thr, neg_thr, &r.y);
-  const int8_t c2 = compress1(g.z, r.z, thr, neg_thr, &r.z);
-  const int8_t c3 = compress1(g.w, r.w, thr, neg_thr, &r.w);
-  return pack4(c0, c1, c2, c3);
+  int8_t c[4];
+  c[0] = compress1<float>(g.x, r.x, thr, neg_thr, &r.x);
+  c[1] = compress1<float>(g.y, r.y, thr, neg_thr, &r.y);
+  c[2] = compress1<float>(g.z, r.z, thr, neg_thr, &r.z);
+  c[3] = compress1<float>(g.w, r.w, thr, neg_thr, &r.w);
+  return pack4(c);
 }
 
 // A group is kWarpElems elements of one tensor, handled by one warp: lane
@@ -220,31 +294,27 @@ twobit_compress_multi_kernel(const CompressRow* __restrict__ table,
       const long long e1 = e0 + kWarpElems < t.n ? e0 + kWarpElems : t.n;
       for (long long e = e0 + lane; e < e1; e += 32) {
         float o;
-        t.codes[e] = compress1(t.grad[e], t.res[e], thr, neg_thr, &o);
+        t.codes[e] = compress1<float>(t.grad[e], t.res[e], thr, neg_thr, &o);
         t.res[e] = o;
       }
     }
   }
 }
 
-__device__ __forceinline__ float4 decompress_word(int w, float thr) {
-  float4 o;
-  o.x = __fmul_rn(__int2float_rn((int)(int8_t)(w & 0xff)), thr);
-  o.y = __fmul_rn(__int2float_rn((int)(int8_t)((w >> 8) & 0xff)), thr);
-  o.z = __fmul_rn(__int2float_rn((int)(int8_t)((w >> 16) & 0xff)), thr);
-  o.w = __fmul_rn(__int2float_rn((int)(int8_t)((w >> 24) & 0xff)), thr);
-  return o;
-}
-
-// n int8 codes into float32, the same groups and tiles with no table:
-// lane l loads codes 16l..16l+15 of its warp's group with one 16-byte load
-// into the stage, then stores float4 number 32u + l (u = 0..3) from stage
-// word 32u + l. vec: codes and out both
-// 16-byte aligned; else, and for a ragged last group, one code a lane.
+// n int8 codes into T, the same groups and tiles with no table: lane l
+// loads codes 16l..16l+15 of its warp's group with one 16-byte load into
+// the stage, then stores 16-byte vector number 32u + l of the group's
+// output (V = 16 / sizeof(T) elements: u = 0..3 for float32, 0..1 for
+// halves) from the V codes at stage byte (32u + l) * V. vec: codes and
+// out both 16-byte aligned; else, and for a ragged last group, one code a
+// lane.
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 twobit_decompress_kernel(const int8_t* __restrict__ codes,
-                         float* __restrict__ out, long long n, float thr,
+                         T* __restrict__ out, long long n, float thr,
                          int vec) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kStores = kWarpElems / (32 * V);
   __shared__ int4 stage[kWarps][32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int* words = reinterpret_cast<const int*>(stage[warp]);
@@ -257,15 +327,23 @@ twobit_decompress_kernel(const int8_t* __restrict__ codes,
       stage[warp][lane] =
           __ldcs(reinterpret_cast<const int4*>(codes + e0) + lane);
       __syncwarp();
-      float4* __restrict__ op = reinterpret_cast<float4*>(out + e0);
+      uint4* __restrict__ op = reinterpret_cast<uint4*>(out + e0);
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        __stcs(op + 32 * u + lane, decompress_word(words[32 * u + lane], thr));
+      for (int u = 0; u < kStores; ++u) {
+        const int* w = words + (32 * u + lane) * (V / 4);
+        uint4 ov;
+        T* o = reinterpret_cast<T*>(&ov);
+#pragma unroll
+        for (int k = 0; k < V; ++k)
+          o[k] = decompress1<T>((int)(int8_t)((w[k >> 2] >> (8 * (k & 3))) &
+                                              0xff), thr);
+        __stcs(op + 32 * u + lane, ov);
+      }
       __syncwarp();   // the stage is read before the next group writes it
     } else {
       const long long e1 = e0 + kWarpElems < n ? e0 + kWarpElems : n;
       for (long long e = e0 + lane; e < e1; e += 32)
-        out[e] = __fmul_rn(__int2float_rn((int)codes[e]), thr);
+        out[e] = decompress1<T>((int)codes[e], thr);
     }
   }
 }
@@ -279,38 +357,78 @@ int grid_for(long long n, int vec) {
 
 }  // namespace
 
-// vec: non-zero when grad, residual and new_residual are 16-byte aligned
-// and codes 4-byte aligned (the wrapper checks).
-extern "C" int mxtt_twobit_compress(const float* grad, const float* residual,
-                                    int8_t* codes, float* new_residual,
-                                    long long n, float thr, int vec,
-                                    void* stream) {
-  twobit_compress_kernel<<<grid_for(n, vec), kThreads, 0,
-                           (cudaStream_t)stream>>>(grad, residual, codes,
-                                                   new_residual, n, thr, vec);
-  return (int)cudaGetLastError();
-}
-
-// code_bytes: 1 (int8 codes) or 4 (int32 codes). vec: non-zero when codes
-// and out are 16-byte aligned. n_blocks: the int8 kernel's blocks, at most
-// one full wave (mxtt_twobit_wave); the int32 loop sizes its own grid.
-extern "C" int mxtt_twobit_decompress(const void* codes, int code_bytes,
-                                      float* out, long long n, float thr,
-                                      int vec, int n_blocks, void* stream) {
-  if (n < 1) return (int)cudaErrorInvalidValue;
-  if (code_bytes == 1) {
-    if (n_blocks < 1) return (int)cudaErrorInvalidValue;
-    twobit_decompress_kernel<<<n_blocks, kThreads, 0,
-                               (cudaStream_t)stream>>>(
-        (const int8_t*)codes, out, n, thr, vec);
-  } else if (code_bytes == 4) {
-    twobit_decompress_i32_kernel<<<grid_for(n, vec), kThreads, 0,
-                                   (cudaStream_t)stream>>>(
-        (const int*)codes, out, n, thr, vec);
+// dtype: 0 float32, 1 float16, 2 bfloat16 (the gradient's, residual's
+// and new residual's); thr: the threshold rounded to that dtype. vec:
+// non-zero when grad, residual and new_residual are 16-byte aligned and
+// codes aligned to 16 / sizeof(element) bytes (the wrapper checks).
+extern "C" int mxtt_twobit_compress(const void* grad, const void* residual,
+                                    int8_t* codes, void* new_residual,
+                                    int dtype, long long n, float thr,
+                                    int vec, void* stream) {
+  const int grid = grid_for(n, vec);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (dtype == 0) {
+    twobit_compress_kernel<float><<<grid, kThreads, 0, s>>>(
+        (const float*)grad, (const float*)residual, codes,
+        (float*)new_residual, n, thr, vec);
+  } else if (dtype == 1) {
+    twobit_compress_kernel<__half><<<grid, kThreads, 0, s>>>(
+        (const __half*)grad, (const __half*)residual, codes,
+        (__half*)new_residual, n, thr, vec);
+  } else if (dtype == 2) {
+    twobit_compress_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        (const __nv_bfloat16*)grad, (const __nv_bfloat16*)residual, codes,
+        (__nv_bfloat16*)new_residual, n, thr, vec);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+namespace {
+
+template <typename T>
+int decompress_as(const void* codes, int code_bytes, void* out, long long n,
+                  float thr, int vec, int n_blocks, cudaStream_t s) {
+  if (code_bytes == 1) {
+    if (n_blocks < 1) return (int)cudaErrorInvalidValue;
+    twobit_decompress_kernel<T><<<n_blocks, kThreads, 0, s>>>(
+        (const int8_t*)codes, (T*)out, n, thr, vec);
+  } else if (code_bytes == 4) {
+    twobit_decompress_i32_kernel<T><<<grid_for(n, vec), kThreads, 0, s>>>(
+        (const int*)codes, (T*)out, n, thr, vec);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// code_bytes: 1 (int8 codes) or 4 (int32 codes). dtype: the output's, 0
+// float32, 1 float16, 2 bfloat16; thr rounded to it. vec: non-zero when
+// codes and out are 16-byte aligned. n_blocks: the int8 kernel's blocks,
+// at most one full wave (mxtt_twobit_wave); the int32 loop sizes its own
+// grid.
+extern "C" int mxtt_twobit_decompress(const void* codes, int code_bytes,
+                                      void* out, int dtype, long long n,
+                                      float thr, int vec, int n_blocks,
+                                      void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (dtype) {
+    case 0:
+      return decompress_as<float>(codes, code_bytes, out, n, thr, vec,
+                                  n_blocks, s);
+    case 1:
+      return decompress_as<__half>(codes, code_bytes, out, n, thr, vec,
+                                   n_blocks, s);
+    case 2:
+      return decompress_as<__nv_bfloat16>(codes, code_bytes, out, n, thr,
+                                          vec, n_blocks, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Blocks of one full wave on the current device of the multi-tensor
@@ -323,7 +441,7 @@ extern "C" int mxtt_twobit_wave(int which, int* blocks) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = which ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                      &per_sm, twobit_decompress_kernel, kThreads, 0)
+                      &per_sm, twobit_decompress_kernel<float>, kThreads, 0)
                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
                       &per_sm, twobit_compress_multi_kernel, kThreads, 0);
   if (err != cudaSuccess) return (int)err;

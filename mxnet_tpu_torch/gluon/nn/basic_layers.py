@@ -1,9 +1,11 @@
-"""Gluon basic layers the serving path uses.
+"""Gluon basic layers the serving and training paths use.
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: Sequential,
-HybridSequential, Dense, Dropout, Embedding (:236) and LayerNorm. Layers
-manage parameters and hyper-parameters; compute goes through the
-registered ops, so each also traces into a graph (``export``).
+HybridSequential, Dense, Dropout, BatchNorm (:167-233), Embedding (:236),
+LayerNorm, Flatten (:339) and Activation (:391). Layers manage
+parameters and hyper-parameters; compute goes through the registered
+ops, so each also traces into a graph (``export``). ``BatchNorm.cast``
+is not ported (``Block.cast`` is not, ``ROADMAP.md`` section A).
 """
 from __future__ import annotations
 
@@ -12,10 +14,11 @@ import math
 import torch
 
 from ... import autograd, initializer as init_mod
+from ...cached_op import update_state
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
-           "Embedding", "LayerNorm"]
+           "BatchNorm", "Embedding", "LayerNorm", "Flatten", "Activation"]
 
 
 class Sequential(Block):
@@ -121,6 +124,71 @@ class Dropout(HybridBlock):
         return f"Dropout(p = {self._rate}, axes={self._axes})"
 
 
+class BatchNorm(HybridBlock):
+    """Batch normalisation over ``axis`` (the channels). In train mode
+    (``autograd.is_training()``, without ``use_global_stats``) it
+    normalises with the batch's statistics and writes the running ones,
+    ``running * momentum + batch * (1 - momentum)`` with the batch's
+    biased variance, outside the autograd graph (``update_state``);
+    otherwise it normalises with the running statistics. ``scale=False``
+    fixes gamma at one (``fix_gamma``)."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones", running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True, differentiable=scale)
+            self.beta = self.params.get(
+                "beta", shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True, differentiable=center)
+            self.running_mean = self.params.get(
+                "running_mean", shape=(in_channels,), grad_req="null",
+                init=running_mean_initializer, allow_deferred_init=True,
+                differentiable=False)
+            self.running_var = self.params.get(
+                "running_var", shape=(in_channels,), grad_req="null",
+                init=running_variance_initializer, allow_deferred_init=True,
+                differentiable=False)
+
+    def infer_shape(self, x, *args):
+        channels = x.shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean, self.running_var):
+            p.shape = (channels,)
+
+    def hybrid_forward(self, F, x, gamma=None, beta=None, running_mean=None,
+                       running_var=None):
+        training = autograd.is_training() and not self._use_global_stats
+        out, mean, var = F.BatchNorm(
+            x, gamma, beta, running_mean, running_var, eps=self._epsilon,
+            momentum=self._momentum, fix_gamma=not self._scale,
+            use_global_stats=self._use_global_stats, axis=self._axis,
+            training=training)
+        if training:
+            m = self._momentum
+            update_state(running_mean,
+                         running_mean * m + mean.astype(running_mean.dtype)
+                         * (1 - m))
+            update_state(running_var,
+                         running_var * m + var.astype(running_var.dtype)
+                         * (1 - m))
+        return out
+
+    def __repr__(self):
+        return (f"BatchNorm(axis={self._axis}, eps={self._epsilon}, "
+                f"momentum={self._momentum}, in_channels="
+                f"{self.gamma.shape[0] if self.gamma.shape else None})")
+
+
 class Embedding(HybridBlock):
     """Row lookup in a ``(input_dim, output_dim)`` table; ids may be
     floats (truncated to integers)."""
@@ -168,3 +236,31 @@ class LayerNorm(HybridBlock):
     def hybrid_forward(self, F, x, gamma=None, beta=None):
         return F.LayerNorm(x, gamma, beta, axis=self._axis,
                            eps=self._epsilon)
+
+
+class Flatten(HybridBlock):
+    """``(N, ...)`` to ``(N, -1)``."""
+
+    def hybrid_forward(self, F, x):
+        return F.Flatten(x)
+
+    def __repr__(self):
+        return "Flatten"
+
+
+class Activation(HybridBlock):
+    """An elementwise activation (``relu``, ``sigmoid``, ``tanh``,
+    ``softrelu``, ``softsign``) as a layer."""
+
+    def __init__(self, activation, prefix=None, params=None):
+        self._act_type = activation  # before super(): _alias() needs it
+        super().__init__(prefix=prefix, params=params)
+
+    def _alias(self):
+        return self._act_type
+
+    def hybrid_forward(self, F, x):
+        return F.Activation(x, act_type=self._act_type)
+
+    def __repr__(self):
+        return f"Activation({self._act_type})"

@@ -36,9 +36,17 @@ device, contiguity), so a call whose fingerprint was seen (at steady
 state the caching allocator returns the same gradient addresses) skips
 the checks and the upload, with ``opt_step``'s table and cache.
 
+Dtypes: the multi-tensor compress takes float32; the single-tensor
+compress also float16 and bfloat16 gradients, and the decompress writes
+any of the three (the JAX store compresses a half-precision key through
+XLA and scales its codes back in the key's dtype).
+
 Contract: bit-exact against the plain versions and the JAX package's
-``_xla_compress`` / ``_xla_decompress``, for float32 gradients; the
-threshold is rounded once to float32 in both.
+``_xla_compress`` / ``_xla_decompress`` / ``_kernel_decompress``. The
+threshold is rounded to float32 and from there to the gradient's (or
+output's) dtype, as the JAX store's XLA path rounds a weak-typed Python
+float (:func:`round_threshold`); each ``+``, ``-`` and ``*`` is rounded to
+that dtype.
 """
 from __future__ import annotations
 
@@ -56,9 +64,11 @@ from .opt_step import _Table, _Tables
 
 __all__ = ["twobit_compress", "twobit_decompress", "twobit_compress_plain",
            "twobit_decompress_plain", "twobit_compress_multi",
-           "twobit_compress_multi_plain", "plan", "Plan"]
+           "twobit_compress_multi_plain", "plan", "Plan", "round_threshold"]
 
 _CODE_BYTES = {torch.int8: 1, torch.int32: 4}
+# the kernels' dtype codes (csrc/twobit.cu)
+_DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # one 48-byte row per tensor, the layout of CompressRow in csrc/twobit.cu
 _ROW_DTYPE = _np.dtype([("grad", "<u8"), ("res", "<u8"), ("codes", "<u8"),
                         ("n", "<i8"), ("begin", "<i8"), ("vec", "<i4"),
@@ -78,17 +88,29 @@ _fns = {}
 _waves = {}    # (which, device index) -> blocks of one full wave
 
 
-def _thr32(thr, device):
-    """The threshold as the float32 scalar both versions compare with."""
-    return torch.tensor(float(thr), dtype=torch.float32, device=device)
+def round_threshold(thr, dtype):
+    """``thr`` as the JAX package's store uses it in ``dtype`` (float32,
+    float16 or bfloat16): with 64-bit mode off, JAX makes the weak-typed
+    Python float a float32 first and rounds that to the gradient's dtype
+    (``_xla_compress``, ``_xla_decompress``; a float16 tie of the two
+    roundings, such as ``1 + 2**-11 + 2**-40``, goes to 1.0 there). Exact
+    in float32."""
+    return torch.tensor(float(thr), dtype=torch.float32).to(dtype).item()
+
+
+def _thr(thr, dtype, device):
+    """The threshold as the scalar of ``dtype`` both versions use."""
+    return torch.tensor(round_threshold(thr, dtype), dtype=dtype,
+                        device=device)
 
 
 # ---- plain versions (CPU tensors; comparisons on the card) ---------------
 
 def twobit_compress_plain(grad, residual, thr):
     """``(codes int8, new_residual)``, in the op order of
-    ``mxnet_tpu/kernels/twobit.py:_xla_compress``."""
-    t = _thr32(thr, grad.device)
+    ``mxnet_tpu/kernels/twobit.py:_xla_compress``, in the gradient's
+    dtype."""
+    t = _thr(thr, grad.dtype, grad.device)
     g = grad + residual
     one = torch.ones((), dtype=torch.int8, device=grad.device)
     zero = torch.zeros((), dtype=torch.int8, device=grad.device)
@@ -99,7 +121,7 @@ def twobit_compress_plain(grad, residual, thr):
 def twobit_decompress_plain(codes, thr, dtype=torch.float32):
     """``codes.astype(dtype) * thr``."""
     dtype = canonical_dtype(dtype)
-    return codes.to(dtype) * _thr32(thr, codes.device).to(dtype)
+    return codes.to(dtype) * _thr(thr, dtype, codes.device)
 
 
 def twobit_compress_multi_plain(grads, residuals, codes, thr):
@@ -195,15 +217,17 @@ def _stream(t):
 
 
 def twobit_compress(grad, residual, thr):
-    """Launch the compress kernel on CUDA float32 tensors of one shape;
-    returns new ``(codes int8, new_residual)`` tensors."""
+    """Launch the compress kernel on CUDA tensors of one shape and one
+    dtype (float32, float16 or bfloat16); returns new ``(codes int8,
+    new_residual)`` tensors."""
     if grad.device.type != "cuda" or residual.device != grad.device:
         raise ValueError(f"twobit_compress: grad on {grad.device} and "
                          f"residual on {residual.device}; both must be on "
                          "one CUDA card")
-    if grad.dtype != torch.float32 or residual.dtype != torch.float32:
+    if grad.dtype not in _DTYPE_CODE or residual.dtype != grad.dtype:
         raise ValueError(f"twobit_compress: grad {grad.dtype} and residual "
-                         f"{residual.dtype}; the kernel takes float32")
+                         f"{residual.dtype}; the kernel takes one of "
+                         "float32, float16, bfloat16 for both")
     if grad.shape != residual.shape:
         raise ValueError(f"twobit_compress: grad {tuple(grad.shape)} and "
                          f"residual {tuple(residual.shape)} differ")
@@ -213,13 +237,16 @@ def twobit_compress(grad, residual, thr):
     n = grad.numel()
     if n == 0:
         return codes, new_res
-    vec = _aligned(((grad, 16), (residual, 16), (new_res, 16), (codes, 4)))
+    # a 16-byte vector of 4 float32 or 8 halves gives that many codes
+    vec = _aligned(((grad, 16), (residual, 16), (new_res, 16),
+                    (codes, 16 // grad.element_size())))
     with torch.cuda.device(grad.device):
         rc = _launcher("mxtt_twobit_compress", [ctypes.c_void_p] * 4 + [
-            ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_int,
             ctypes.c_void_p])(
             grad.data_ptr(), residual.data_ptr(), codes.data_ptr(),
-            new_res.data_ptr(), n, float(thr), int(vec), _stream(grad))
+            new_res.data_ptr(), _DTYPE_CODE[grad.dtype], n,
+            round_threshold(thr, grad.dtype), int(vec), _stream(grad))
     if rc != 0:
         raise RuntimeError(f"twobit_compress: kernel launch failed with CUDA "
                            f"error {rc} for {n} elements")
@@ -229,18 +256,20 @@ def twobit_compress(grad, residual, thr):
 
 def twobit_decompress(codes, thr, dtype=torch.float32):
     """Launch the decompress kernel on CUDA int8 or int32 codes; returns
-    a new float32 tensor of their shape."""
+    a new tensor of their shape in ``dtype`` (float32, float16 or
+    bfloat16)."""
     if codes.device.type != _DEVICE_TYPE:
         raise ValueError(f"twobit_decompress: codes on {codes.device}; the "
                          "kernel takes a CUDA tensor")
     if codes.dtype not in _CODE_BYTES:
         raise ValueError(f"twobit_decompress: codes are {codes.dtype}; the "
                          "kernel takes int8 or int32")
-    if canonical_dtype(dtype) != torch.float32:
+    dtype = canonical_dtype(dtype)
+    if dtype not in _DTYPE_CODE:
         raise ValueError(f"twobit_decompress: output dtype {dtype}; the "
-                         "kernel writes float32")
+                         "kernel writes float32, float16 or bfloat16")
     codes = codes.contiguous()
-    out = torch.empty(codes.shape, dtype=torch.float32, device=codes.device)
+    out = torch.empty(codes.shape, dtype=dtype, device=codes.device)
     n = codes.numel()
     if n == 0:
         return out
@@ -251,12 +280,13 @@ def twobit_decompress(codes, thr, dtype=torch.float32):
         blocks = min(_wave(1, dev), -(-n // (GROUP * TILE_GROUPS)))
     else:
         path, blocks = "int32", 0
-    args = (codes.data_ptr(), _CODE_BYTES[codes.dtype], out.data_ptr(), n,
-            float(thr), int(vec), blocks,
-            torch.cuda.current_stream(dev).cuda_stream)
+    args = (codes.data_ptr(), _CODE_BYTES[codes.dtype], out.data_ptr(),
+            _DTYPE_CODE[dtype], n, round_threshold(thr, dtype), int(vec),
+            blocks, torch.cuda.current_stream(dev).cuda_stream)
     launcher = _launcher("mxtt_twobit_decompress", [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
-        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p])
     rc = _on(dev, launcher, args)
     if rc != 0:
         raise RuntimeError(f"twobit_decompress: kernel launch failed with "
@@ -373,7 +403,8 @@ def _register():
         "twobit_decompress", kernel=twobit_decompress,
         plain=twobit_decompress_plain,
         replaces="mxnet_tpu/kernels/twobit.py:_kernel_decompress",
-        tolerance="bit-exact (one correctly rounded float32 multiply)")
+        tolerance="bit-exact (the code rounded to the output dtype, one "
+                  "correctly rounded multiply)")
     register_kernel(
         "twobit_compress_multi", kernel=twobit_compress_multi,
         plain=twobit_compress_multi_plain,

@@ -39,6 +39,8 @@ import os
 import numpy as _np
 import torch
 
+from ..base import canonical_dtype
+
 __all__ = ["DEFAULT_BUCKET_BYTES", "bucket_bytes", "bucket_force",
            "BucketPlan", "BucketPipeline"]
 
@@ -84,7 +86,8 @@ class BucketPlan:
         shape = tuple(int(d) for d in shape)
         nelems = int(_np.prod(shape, dtype=_np.int64))
         dtype = str(dtype)
-        nbytes = nelems * _np.dtype(dtype).itemsize
+        # a torch dtype's size: numpy has no bfloat16 of its own
+        nbytes = nelems * canonical_dtype(dtype).itemsize
         if self.buckets and self.buckets[-1]["dtype"] == dtype \
                 and self.buckets[-1]["nbytes"] + nbytes <= self.cap:
             b = self.buckets[-1]

@@ -6,6 +6,7 @@ exposed as a module-level function taking NDArrays positionally and
 hyper-parameters by keyword; ``_contrib_*`` ops appear under
 ``nd.contrib`` without the prefix. ``Dropout`` is overridden, as in the
 JAX package, to draw from ``mx.random``'s generator in train mode.
+``nd.random`` holds the samplers (``uniform``, ``normal``).
 """
 from __future__ import annotations
 
@@ -17,11 +18,11 @@ from .. import ops as _ops  # noqa: F401  (registers every op)
 from .. import random as _random
 from ..ops import registry as _registry
 from .ndarray import NDArray, _invoke, array, invoke, zeros
-from . import utils
+from . import random, utils
 from .utils import load, save
 
-__all__ = ["NDArray", "array", "zeros", "invoke", "contrib", "save", "load",
-           "utils"]
+__all__ = ["NDArray", "array", "zeros", "invoke", "contrib", "random",
+           "save", "load", "utils"]
 
 
 def _make_wrapper(op_name, exposed):

@@ -5,5 +5,6 @@ from . import nn  # noqa: F401
 from . import optimizer_op  # noqa: F401
 from . import pallas_ops  # noqa: F401
 from . import quantization  # noqa: F401
+from . import random_ops  # noqa: F401
 
 __all__ = ["registry"]

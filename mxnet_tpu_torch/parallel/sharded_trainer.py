@@ -5,16 +5,22 @@ compiles the whole step into one sharded XLA executable with donated
 buffers; the port runs it eagerly on the mesh's one device:
 
 1. the forward and the loss under ``autograd.record(train_mode=True)``,
-   with the parameters swapped for leaf views of themselves through
-   ``gluon.parameter.substitute`` (views share storage, so the
-   parameters themselves never carry autograd state);
+   with the trainable parameters swapped for leaf views of themselves
+   through ``gluon.parameter.substitute`` (views share storage, so the
+   parameters themselves never carry autograd state). The
+   ``grad_req="null"`` parameters (aux state: BatchNorm's running
+   statistics) are not substituted: the train-mode forward rewrites them
+   (``cached_op.update_state``), as the JAX step returns them (:188-200);
 2. ``torch.autograd.grad`` for every trainable parameter (attention's
    gradient through the flash backward kernels);
 3. the non-finite guard: one fused all-finite check over the loss and
    every gradient writes a device flag;
 4. the optimizer rule (``opt_rules.py``): one launch of the fused kernel
-   over all parameters, in place, with the learning rate and the step
-   count as device scalars and the flag as its skip switch.
+   over all trainable parameters, in place, with the learning rate and
+   the step count as device scalars and the flag as its skip switch; a
+   skipped step also selects the aux state back to its values from
+   before the step, on the device (:601-602). Aux state never reaches
+   the optimizer.
 
 The host waits for the step only where the JAX package does: reading the
 guard's flag to count skipped steps (``nan_guard=True``, the default).
@@ -137,12 +143,16 @@ class ShardedTrainer:
         self._param_names: List[str] = []
         self._params = []
         self._train_handles: List[NDArray] = []
+        self._aux_names: List[str] = []
+        self._aux_handles: List[NDArray] = []
         for name, p in net.collect_params().items():
             if p._data is None:
                 raise ValueError(
                     f"Parameter {name!r} not initialized; run one forward "
                     "pass (or initialize with explicit shapes) first")
             if p.grad_req == "null":
+                self._aux_names.append(name)
+                self._aux_handles.append(p.data())
                 continue
             if p.dtype != torch.float32:
                 raise _not_ported(f"training {p.dtype} parameters "
@@ -162,9 +172,9 @@ class ShardedTrainer:
         self._one = torch.ones((), dtype=torch.float32, device=self._device)
 
     def _place_params(self):
-        """Every trainable parameter on the mesh's device, contiguous
-        (the fused kernels update them in place)."""
-        for h in self._train_handles:
+        """Every parameter on the mesh's device, contiguous (the fused
+        kernels update the trainable ones in place)."""
+        for h in self._train_handles + self._aux_handles:
             if h._data.device != self._device or \
                     not h._data.is_contiguous():
                 h._rebind(h._data.detach().to(self._device).contiguous())
@@ -198,6 +208,7 @@ class ShardedTrainer:
         self._t_dev.fill_(float(self._t))
         self._lr_dev.fill_(self._lr)
         weights = [h._data for h in self._train_handles]
+        aux_before = [h._data for h in self._aux_handles]
         leaves = [w.detach().requires_grad_(True) for w in weights]
         with substitute({p: NDArray(leaf)
                          for p, leaf in zip(self._params, leaves)}), \
@@ -219,6 +230,10 @@ class ShardedTrainer:
         with torch.no_grad():
             self._rule.update(self._opt, weights, grads, self._opt_state,
                               self._lr_dev, wds, self._t_dev, skip)
+            if skip is not None:
+                for h, old in zip(self._aux_handles, aux_before):
+                    if h._data is not old:
+                        h._rebind(torch.where(skip != 0, old, h._data))
         if self._nan_guard:
             self._account_skip(not bool(skip.item()))  # waits for the step
         return NDArray(loss)

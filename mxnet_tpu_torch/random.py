@@ -9,8 +9,8 @@ the CPU), made on first use from the current seed and reseeded by
 its own draws, not the JAX package's bits.
 
 Ported: ``seed``, ``current_seed`` and ``generator``, which imperative
-random ops draw from (``nd.Dropout``). The ``nd.random.*`` samplers are
-not ported yet (``ROADMAP.md`` A1.1).
+random ops draw from (``nd.Dropout``, ``nd.random.uniform`` and
+``nd.random.normal``).
 """
 from __future__ import annotations
 

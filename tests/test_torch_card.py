@@ -19,7 +19,16 @@ run on a machine that has only PyTorch:
   kernels bit for bit against theirs: the single-tensor pair, and the
   multi-tensor compress and the decompress of wire ranges through the
   dist kvstore's flat layout (odd sizes, unaligned gradients, a strict subset of a
-  bucket, values at +-thr and NaN), with their launches by path.
+  bucket, values at +-thr and NaN), with their launches by path;
+* the single-tensor compress and the decompress in float16 and bfloat16
+  bit for bit against their plain versions, and fault C4's reproduction:
+  a float16 or bfloat16 key of a ``dist_sync`` store under 2-bit
+  compression on the card, equal to the CPU run and to the JAX store's
+  values (``C4_CODES``, ``C4_RESIDUAL``; ``tests/test_torch_twobit_half.py``
+  holds them against the JAX package);
+* Convolution, Pooling, _contrib_AdaptiveAvgPooling2D and BatchNorm on
+  the card (cuDNN, TF32 off) against the same ops on the CPU, forward and
+  gradients.
 """
 import math
 
@@ -31,7 +40,7 @@ import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import kernels, nd
 from mxnet_tpu_torch.gluon.contrib import nn as cnn
 from mxnet_tpu_torch.kernels import decode_attention, flash, int8_gemm, twobit
-from mxnet_tpu_torch.kvstore import buckets
+from mxnet_tpu_torch.kvstore import buckets, kvstore
 from mxnet_tpu_torch.ops import registry as reg
 
 F32_TOL, BF16_TOL = 2e-5, 2e-2
@@ -521,3 +530,207 @@ def test_twobit_multi_compress_caches_its_table_on_card(cuda_device):
     twobit.twobit_compress_multi(grads, *args)
     torch.cuda.synchronize()
     assert twobit._TABLES.builds == builds + 2
+
+
+# ---- 2-bit compression in float16 and bfloat16 (fault C4) ----------------
+
+HALF = [torch.float16, torch.bfloat16]
+
+
+def _same(a, b):
+    """Bit for bit, NaN equal to NaN at the same positions."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a.masked_fill(nan, 0), b.masked_fill(nan, 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", HALF, ids=["float16", "bfloat16"])
+@pytest.mark.parametrize("n", [1, 7, 9, 4097, 1 << 20])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("thr", [0.5, 0.1, 0.3])
+def test_twobit_half_kernels_are_bitwise_the_plain_versions(
+        cuda_device, dtype, n, offset, thr):
+    """K6 on a half-precision gradient and K7 writing half precision,
+    torch.equal against the plain versions, 16-byte aligned (8 halves an
+    access) and one element off (one at a time); gradients at the
+    threshold rounded to the dtype, at the unrounded one, and NaN; codes,
+    their int8 sum and an int32 sum."""
+    rs = np.random.RandomState(n + offset)
+    g, r = (torch.from_numpy((rs.randn(n + offset) * sc).astype(np.float32))
+            .to(cuda_device, dtype)[offset:] for sc in (thr, thr * 0.4))
+    t = twobit.round_threshold(thr, dtype)
+    edge = torch.tensor([t, -t, thr, -thr, float("nan")])[:n]
+    g[:edge.numel()] = edge.to(cuda_device, dtype)
+    r[:edge.numel()] = 0
+    before = twobit.twobit_compress.launches
+    codes, res = twobit.twobit_compress(g, r, thr)
+    want_codes, want_res = twobit.twobit_compress_plain(g, r, thr)
+    torch.cuda.synchronize()
+    assert twobit.twobit_compress.launches == before + 1
+    assert res.dtype == dtype and int(codes[0]) == 1
+    assert torch.equal(codes, want_codes) and _same(res, want_res)
+    summed = codes.to(torch.int32) + want_codes.flip(0).to(torch.int32)
+    for c in (codes, summed.to(torch.int8), summed * 3):
+        got = twobit.twobit_decompress(c[offset:], thr, dtype)
+        assert got.dtype == dtype
+        assert torch.equal(got, twobit.twobit_decompress_plain(
+            c[offset:], thr, dtype))
+
+
+C4_THR = 0.5
+# the JAX package's dist_sync store (one worker's codes as the sum): the
+# pulled values over the threshold in the three rounds of c4_grads(), the
+# same in float16 and bfloat16, and the residual after the third round
+C4_CODES = [
+    [[0, 0, -1, 0], [0, -1, 0, 0], [0, -1, 0, 0], [0, 0, -1, 0]],
+    [[0, 1, 0, 0], [-1, 0, 0, 0], [1, 0, 1, -1], [1, -1, -1, 1]],
+    [[0, -1, 0, 1], [1, 0, 0, 0], [0, 0, 0, 0], [1, 0, 0, 1]],
+]
+C4_RESIDUAL = {
+    "float16": [[-0.304931640625, -0.1865234375, -0.3271484375,
+                 0.44677734375],
+                [0.412109375, 0.130859375, -0.45849609375, 0.111572265625],
+                [0.34716796875, 0.35400390625, 0.078125, -0.225830078125],
+                [0.15771484375, 0.364013671875, -0.26611328125,
+                 0.25732421875]],
+    "bfloat16": [[-0.302734375, -0.1796875, -0.328125, 0.4453125],
+                 [0.40625, 0.134765625, -0.458984375, 0.111328125],
+                 [0.34375, 0.35546875, 0.08203125, -0.224609375],
+                 [0.15625, 0.36328125, -0.267578125, 0.26171875]],
+}
+
+
+def c4_grads():
+    rs = np.random.RandomState(4)
+    return [(rs.randn(4, 4) * 0.6).astype(np.float32) for _ in range(3)]
+
+
+def c4_port_run(ctx, dtype):
+    """Fault C4's reproduction on ``ctx``: a ``(4, 4)`` key of ``dtype``
+    in a ``dist_sync`` store with 2-bit compression (threshold 0.5), three
+    push/pull rounds of ``c4_grads()``. One process stands for two
+    workers (``_procs = 2``, each collective the identity), so the key
+    takes the compressed path. Returns each round's pulled values over
+    the threshold and the final residual, as float64 arrays."""
+    kv = mx.kv.create("dist_sync")
+    kv.set_gradient_compression({"type": "2bit", "threshold": C4_THR})
+    kv._procs = 2
+    kv._dispatch_bucket = lambda flat: kvstore._Reduction(flat, None)
+    kv._cross_host_sum = lambda v: mx.nd.NDArray(v._data.clone())
+    kv.init(0, mx.nd.zeros((4, 4), dtype=dtype, ctx=ctx))
+    rounds = []
+    for g in c4_grads():
+        kv.push(0, mx.nd.array(g, dtype=dtype, ctx=ctx))
+        out = mx.nd.zeros((4, 4), dtype=dtype, ctx=ctx)
+        kv.pull(0, out=out)
+        assert out.dtype == getattr(torch, dtype)
+        rounds.append(out.asnumpy().astype(np.float64) / C4_THR)
+    res = kv._residuals[0]
+    assert res.dtype == getattr(torch, dtype) and res.device == \
+        ctx.torch_device()
+    return rounds, res.float().cpu().numpy().astype(np.float64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float16", "bfloat16"])
+def test_c4_a_half_precision_key_under_2bit_compression_on_card(
+        cuda_device, dtype):
+    """Raised before the half-precision kernels; now the card's pulled
+    values and residual equal the CPU run and the JAX store's bit for
+    bit, and both kernels launched on the card."""
+    before = kernels.launch_counts()
+    rounds, res = c4_port_run(mx.gpu(), dtype)
+    after = kernels.launch_counts()
+    assert after["twobit_compress"] - before["twobit_compress"] == 3
+    assert after["twobit_decompress"] - before["twobit_decompress"] == 3
+    cpu_rounds, cpu_res = c4_port_run(mx.cpu(), dtype)
+    for got, cpu, want in zip(rounds, cpu_rounds, C4_CODES):
+        assert np.array_equal(got, cpu) and np.array_equal(got, want)
+    assert np.array_equal(res, cpu_res)
+    assert np.array_equal(res, np.asarray(C4_RESIDUAL[dtype]))
+
+
+# ---- convolution, pooling and BatchNorm: card against CPU ---------------
+
+# float32 with TF32 off; cuDNN and the CPU sum in other orders: forward
+# 1e-5 and gradients 1e-4 of the reference's largest magnitude
+NN_FWD_TOL, NN_GRAD_TOL = 1e-5, 1e-4
+NN_CASES = [
+    ("Convolution", [(8, 64, 28, 28), (128, 64, 3, 3)],
+     dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), num_filter=128,
+          no_bias=True)),
+    ("Convolution", [(8, 64, 14, 14), (256, 64, 1, 1), (256,)],
+     dict(kernel=(1, 1), num_filter=256)),
+    ("Convolution", [(4, 3, 56, 56), (64, 3, 7, 7)],
+     dict(kernel=(7, 7), stride=(2, 2), pad=(3, 3), num_filter=64,
+          no_bias=True)),
+    ("Convolution", [(2, 8, 15, 13), (12, 4, 3, 2), (12,)],
+     dict(kernel=(3, 2), dilate=(2, 1), pad=(2, 0), num_filter=12,
+          num_group=2)),
+    ("Convolution", [(2, 4, 33), (6, 4, 3), (6,)],
+     dict(kernel=(3,), stride=(2,), pad=(1,), num_filter=6)),
+    ("Convolution", [(1, 3, 6, 7, 8), (4, 3, 3, 3, 3)],
+     dict(kernel=(3, 3, 3), pad=(1, 1, 1), num_filter=4, no_bias=True)),
+    ("Pooling", [(8, 64, 56, 56)],
+     dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="max",
+          relu=True)),
+    ("Pooling", [(4, 16, 11, 10)],
+     dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), pool_type="avg",
+          pooling_convention="full", count_include_pad=False)),
+    ("Pooling", [(4, 16, 11, 10)],
+     dict(kernel=(2, 2), stride=(2, 2), pool_type="max",
+          pooling_convention="same")),
+    ("Pooling", [(8, 256, 7, 7)], dict(pool_type="avg", global_pool=True)),
+    ("_contrib_AdaptiveAvgPooling2D", [(4, 8, 13, 11)],
+     dict(output_size=(3, 4))),
+    ("BatchNorm", "bn", dict(eps=1e-5, fix_gamma=False, training=True)),
+    ("BatchNorm", "bn", dict(eps=1e-3, fix_gamma=True, training=True)),
+    ("BatchNorm", "bn", dict(eps=1e-5, fix_gamma=False, training=False)),
+]
+
+
+def _nn_inputs(op, shapes, rs):
+    if shapes == "bn":
+        x = rs.randn(8, 64, 14, 14).astype(np.float32) * 2 + 1
+        c = x.shape[1]
+        return [x, rs.rand(c).astype(np.float32) + 0.5,
+                rs.randn(c).astype(np.float32),
+                rs.randn(c).astype(np.float32),
+                rs.rand(c).astype(np.float32) + 0.5], [0, 1, 2]
+    arrays = [rs.randn(*s).astype(np.float32) * (0.2 if i else 1.0)
+              for i, s in enumerate(shapes)]
+    return arrays, list(range(len(arrays)))
+
+
+def _nn_run(op, arrays, diff, kw, device, dy):
+    ts = [torch.tensor(a, device=device, requires_grad=i in diff)
+          for i, a in enumerate(arrays)]
+    out = reg.get(op)(*ts, **kw)
+    outs = out if isinstance(out, tuple) else (out,)
+    (outs[0] * torch.from_numpy(dy).to(device)).sum().backward()
+    # with fix_gamma, gamma takes no part: no gradient (the JAX op's is 0)
+    return ([o.detach().cpu().numpy() for o in outs],
+            [np.zeros(ts[i].shape, np.float32) if ts[i].grad is None
+             else ts[i].grad.cpu().numpy() for i in diff])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,shapes,kw", NN_CASES)
+def test_conv_pool_batchnorm_on_card_equal_cpu(cuda_device, op, shapes, kw):
+    torch.backends.cudnn.allow_tf32 = False
+    kw = dict(kw)
+    rs = np.random.RandomState(7)
+    arrays, diff = _nn_inputs(op, shapes, rs)
+    if kw.pop("relu", False):
+        arrays[0] = np.maximum(arrays[0], 0)
+    ref = reg.get(op)(*[torch.from_numpy(a) for a in arrays], **kw)
+    ref = ref[0] if isinstance(ref, tuple) else ref
+    dy = rs.randn(*ref.shape).astype(np.float32)
+    got = _nn_run(op, arrays, diff, kw, cuda_device, dy)
+    want = _nn_run(op, arrays, diff, kw, torch.device("cpu"), dy)
+    for tol, gs, ws in ((NN_FWD_TOL, got[0], want[0]),
+                        (NN_GRAD_TOL, got[1], want[1])):
+        for g, w in zip(gs, ws):
+            scale = max(float(np.abs(w).max()), 1.0)
+            np.testing.assert_allclose(g, w, rtol=tol, atol=tol * scale)

@@ -319,18 +319,27 @@ def test_decompress_launch_and_its_path(card):
     assert out.dtype == torch.float32 and out.shape == wire.shape
     symbol, args = card.launches[-1]
     assert symbol == "mxtt_twobit_decompress"
-    assert args[1] == 1 and args[3] == wire.numel() and args[5] == 1
+    # (codes, code bytes, out, dtype code, n, thr, vec, blocks, stream)
+    assert args[1] == 1 and args[3] == 0 and args[4] == wire.numel() \
+        and args[6] == 1
     groups = -(-wire.numel() // twobit.GROUP)
-    assert args[6] == min(card.wave, -(-groups // twobit.TILE_GROUPS))
+    assert args[7] == min(card.wave, -(-groups // twobit.TILE_GROUPS))
     twobit.twobit_decompress(wire[1:], 0.5)
-    assert card.launches[-1][1][5] == 0
+    assert card.launches[-1][1][6] == 0
     twobit.twobit_decompress(wire.to(torch.int32), 0.5)
     assert card.launches[-1][1][1] == 4
     assert fn.launches_by_path == {p: before[p] + 1 for p in before}
     with pytest.raises(ValueError, match="int8 or int32"):
         twobit.twobit_decompress(wire.to(torch.int16), 0.5)
-    with pytest.raises(ValueError, match="writes float32"):
-        twobit.twobit_decompress(wire, 0.5, dtype="float16")
+    # float16 and bfloat16 outputs since fault C4's repair; float64 is
+    # still refused
+    half = twobit.twobit_decompress(wire, 0.1, dtype="float16")
+    assert half.dtype == torch.float16
+    assert card.launches[-1][1][3] == 1 and card.launches[-1][1][5] == \
+        twobit.round_threshold(0.1, torch.float16)
+    with pytest.raises(ValueError, match="writes float32, float16 or "
+                                         "bfloat16"):
+        twobit.twobit_decompress(wire, 0.5, dtype="float64")
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_nothing():
