@@ -164,6 +164,29 @@ Phases, each printing one JSON line:
     FFT, BatchNorm, pooling, elementwise, K1, copies) and the idle share;
     K1 over the same tensors bit for bit against its plain version and
     timed beside ``torch.optim.SGD(momentum=0.9, fused=True)``.
+18. resnet50_v1_infer_bf16: ``bench.py:199-223`` in bfloat16 (its
+    default dtype): ``net.cast("bfloat16")``, ``hybridize(static_alloc=
+    True, static_shape=True)``, a batch of 128, 2 warm-up and 20 timed
+    forwards: img/s, peak memory; top-1 agreement and the largest logit
+    gap against the float32 forward of the same weights on the same
+    batch; what cuBLAS's reduced-precision bfloat16 reductions (pinned
+    off in every phase) would change.
+19. resnet50_v1_train_bf16: resnet50_v1_train with bench.py's default
+    dtype, no ``multi_precision``: the same figures, the route census
+    (87 bfloat16 tensors through the plain ``sgd_mom_update``, K1 one
+    launch a step over the 106 float32 BatchNorm tensors) and K1's device
+    time inside the profiled step beside its bound.
+20. resnet50_v1_train_bf16_mp: the same with ``"multi_precision": True``:
+    K1 one launch a step over all 193 float32 tensors (87 masters) on its
+    16-byte path, every weight its master rounded, and the two casts
+    around K1 timed alone beside their byte bound.
+21. resnet_check_bf16: resnet_check in bfloat16 with
+    ``multi_precision``, held to ``RESNET_CHECK_BF16_TOL``.
+22. resnet_resume: the thumbnail with a ``MultiFactorScheduler`` and
+    deterministic cuDNN: ``save_checkpoint`` / ``resume`` through a
+    ``CheckpointManager``, the state after resume and the resumed steps
+    bit for bit against the uninterrupted run, and the fallback from a
+    truncated newest file to the previous checkpoint.
 
 The twobit phase also holds the single-tensor compress and the
 decompress in float16 and bfloat16 bit for bit against their plain
@@ -173,7 +196,8 @@ versions (thresholds 0.5 and 0.1) and times them over 109 M elements
 Then the ``{"kernels": [...]}`` line (the tensor-core kernels K3 and
 K3-bwd with their tensor-core bound as ``bound_ms`` and the float32-rate
 one as ``bound_f32_ms``; K1 with its ResNet-50 numbers, those over the
-classifier beside them; K6 and K7 with their half-precision times), the
+classifier beside them, its launches in the bfloat16 cells and checks,
+its device time inside the bfloat16 steps and the casts' time; K6 and K7 with their half-precision times), the
 card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure is an
 exception and a non-zero exit. ``--phases`` runs a subset (device and
@@ -195,6 +219,7 @@ import sys
 import tempfile
 import threading
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -280,6 +305,24 @@ RESNET50 = {"model": "resnet50_v1", "classes": 1000, "batch": 128,
 RESNET_CHECK = {"model": "resnet18_v1", "classes": 10, "batch": 8,
                 "size": 32, "steps": 3, "tensors": 60, "aux": 38}
 RESNET_CHECK_TOL = {"loss_rtol": 1e-4, "aux": 1e-4, "step_l2": 0.05}
+# bench.py's default dtype (BENCH_DTYPE=bfloat16): ``net.cast`` keeps
+# BatchNorm's 106 gamma/beta tensors in float32, so 87 tensors
+# (25,522,792 values: 53 convolution weights, 32 biases, the Dense pair)
+# are bfloat16. Without multi_precision those take the plain
+# sgd_mom_update route in bfloat16 and K1 updates the 106 float32 ones;
+# with it K1 updates all 193 (87 float32 masters among them). The two
+# casts around K1 move 12 B per master value.
+RESNET50_BF16 = {"dtype": "bfloat16", "half": 87, "float32": 106,
+                 "master_values": 25522792, "infer_warmup": 2,
+                 "infer_iters": 20}
+# resnet_check in bfloat16 with multi_precision, the CPU copy set to the
+# card's state before each step: held to tests/test_torch_multi_
+# precision.py's tolerances, which were measured there (one bfloat16 step
+# differs from the float32 step of the same package by up to 59% of its
+# L2 norm in a tensor; port and JAX package by up to 50%)
+RESNET_CHECK_BF16_TOL = {"loss_rtol": 2e-2, "aux": 1e-2, "step_l2": 0.75}
+# checkpoint and resume of the thumbnail with an lr schedule
+RESNET_RESUME = {"steps": 3, "milestones": [2, 4], "factor": 0.1}
 
 
 def build_encoder(args, mx, nn, contrib_nn, exportable=False):
@@ -2675,11 +2718,15 @@ def phase_dist_train(smi):
 
 # ---- ResNet training ---------------------------------------------------------
 
-def _resnet_trainer(net, ctx, nan_guard):
+def _resnet_trainer(net, ctx, nan_guard, mp=False, lr_scheduler=None):
+    params = {"learning_rate": RESNET50["lr"],
+              "momentum": RESNET50["momentum"], "wd": RESNET50["wd"]}
+    if mp:
+        params["multi_precision"] = True
+    if lr_scheduler is not None:
+        params["lr_scheduler"] = lr_scheduler
     return ShardedTrainer(
-        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd",
-        {"learning_rate": RESNET50["lr"], "momentum": RESNET50["momentum"],
-         "wd": RESNET50["wd"]},
+        net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "sgd", params,
         mesh=DeviceMesh({"dp": 1}, devices=[ctx]), nan_guard=nan_guard)
 
 
@@ -2761,6 +2808,214 @@ def phase_resnet_check():
                              f"{cfg['steps']} card steps")
     emit({"phase": "resnet_check", "config": cfg, "tolerance": tol,
           "tf32": False, "steps": steps, "opt_sgd_launches": launches})
+    return launches
+
+
+def _thumbnail_pair(cfg, dtype, mp, lr_scheduler=None):
+    """The thumbnail on the card and a CPU copy of the same weights, cast
+    to ``dtype``, each with its ShardedTrainer (nan_guard on)."""
+    rs = np.random.RandomState(0)
+    x = rs.rand(cfg["steps"], cfg["batch"], 3, cfg["size"],
+                cfg["size"]).astype(np.float32)
+    y = rs.randint(0, cfg["classes"], (cfg["steps"], cfg["batch"])).astype(
+        np.float32)
+    nets, trainers = {}, {}
+    for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        net = vision.get_model(cfg["model"], classes=cfg["classes"],
+                               thumbnail=True)
+        net.initialize(mx.init.Xavier(), ctx=ctx,
+                       generator=torch.Generator().manual_seed(0))
+        net(mx.nd.array(x[0], ctx=ctx))
+        if where == "cpu":
+            load_jax_params(net, export_params(nets["card"]))
+        nets[where] = net
+    for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        nets[where].cast(dtype)
+        trainers[where] = _resnet_trainer(nets[where], ctx, True, mp,
+                                          lr_scheduler)
+    return nets, trainers, x, y
+
+
+def phase_resnet_check_bf16():
+    """resnet_check in bfloat16 with ``multi_precision``: the thumbnail
+    resnet18_v1 cast to bfloat16, 3 steps on the card and on a CPU copy,
+    the copy set to the card's weights, masters, momenta and running
+    statistics before each step; the loss, every float32 master and
+    momentum and every running statistic held to
+    ``RESNET_CHECK_BF16_TOL`` (the CPU tests' measured tolerance), every
+    bfloat16 weight equal to its master rounded, K1 one launch a step over
+    all 60 float32 tensors (22 masters)."""
+    cfg, tol = RESNET_CHECK, RESNET_CHECK_BF16_TOL
+    _, trainers, x, y = _thumbnail_pair(cfg, "bfloat16", True)
+    card, cpu = trainers["card"], trainers["cpu"]
+    census = card._routes.census()
+    if census != {"float32": 38, "master": 22, "half": 0}:
+        raise AssertionError(f"resnet_check_bf16: routes {census}")
+    before = opt_step.opt_sgd.launches
+    paths = dict(opt_step.opt_sgd.tensors_by_path)
+    steps = []
+    for i in range(cfg["steps"]):
+        for h, ch in zip(cpu._train_handles, card._train_handles):
+            h._data.copy_(ch._data.cpu())
+        for per, cper in zip(cpu._opt_state, card._opt_state):
+            for s, cs in zip(per, cper):
+                s.copy_(cs.cpu())
+        for h, ch in zip(cpu._aux_handles, card._aux_handles):
+            h._rebind(ch._data.cpu())
+        got = float(card.step(mx.nd.array(x[i], ctx=mx.gpu(0)).astype(
+            "bfloat16"), mx.nd.array(y[i], ctx=mx.gpu(0)))._data.float())
+        want = float(cpu.step(mx.nd.array(x[i], ctx=mx.cpu()).astype(
+            "bfloat16"), mx.nd.array(y[i], ctx=mx.cpu()))._data.float())
+        if not abs(got - want) <= tol["loss_rtol"] * abs(want):
+            raise AssertionError(f"resnet_check_bf16 step {i}: loss {got} "
+                                 f"on the card, {want} on the CPU")
+        aux_err = max(
+            float((ch._data.cpu() - h._data).abs().max())
+            / max(float(h._data.abs().max()), 1.0)
+            for h, ch in zip(cpu._aux_handles, card._aux_handles))
+        if aux_err > tol["aux"]:
+            raise AssertionError(f"resnet_check_bf16 step {i}: a running "
+                                 f"statistic off by {aux_err}")
+        step_err = 0.0
+        for k, (name, per, cper) in enumerate(zip(
+                card._param_names, cpu._opt_state, card._opt_state)):
+            w = cper[0] if len(cper) == 2 else card._train_handles[k]._data
+            w_cpu = per[0] if len(per) == 2 else cpu._train_handles[k]._data
+            norm = float(cper[-1].float().norm())
+            for a, b in ((w.cpu(), w_cpu), (cper[-1].cpu(), per[-1])):
+                err = float((a.float() - b.float()).norm()) / max(norm,
+                                                                  1e-30)
+                step_err = max(step_err, err)
+                if err > tol["step_l2"]:
+                    raise AssertionError(f"resnet_check_bf16 step {i}: "
+                                         f"{name} off by {err} of its step")
+            if len(cper) == 2 and not torch.equal(
+                    card._train_handles[k]._data, cper[0].to(torch.bfloat16)):
+                raise AssertionError(f"resnet_check_bf16: {name} is not its "
+                                     "master rounded")
+        steps.append({"loss_card": got, "loss_cpu": want,
+                      "max_aux_err": aux_err, "max_step_l2_err": step_err})
+    torch.cuda.synchronize()
+    launches = opt_step.opt_sgd.launches - before
+    paths = _opt_paths(opt_step.opt_sgd, paths)
+    if launches != cfg["steps"] or paths != {"vec4": 60 * cfg["steps"],
+                                             "scalar": 0}:
+        raise AssertionError(f"resnet_check_bf16: {launches} K1 launches, "
+                             f"tensors by path {paths}, for {cfg['steps']} "
+                             "card steps")
+    emit({"phase": "resnet_check_bf16", "config": cfg, "tolerance": tol,
+          "routes_per_step": census, "steps": steps,
+          "opt_sgd_launches": launches, "k1_tensors_by_path": paths})
+    return launches
+
+
+def phase_resnet_resume():
+    """resnet_resume: the thumbnail (bfloat16, ``multi_precision``) with a
+    ``MultiFactorScheduler`` (milestones at steps 2 and 4, factor 0.1) and
+    deterministic cuDNN on the card. A run takes 3 steps, checkpoints
+    through a ``CheckpointManager`` (epoch 1), takes a 4th, checkpoints
+    (epoch 2) and takes 2 more. A fresh net and trainer resume from the
+    manager: the state equals epoch 2's bit for bit. Epoch 2's file is
+    then truncated, and another fresh pair resumes: the fallback to epoch 1
+    is taken, its state equals epoch 1's bit for bit, and 3 steps later
+    the weights, masters, momenta, running statistics, losses and lrs
+    equal the uninterrupted run's bit for bit."""
+    from mxnet_tpu_torch import checkpoint, lr_scheduler
+
+    cfg = dict(RESNET_CHECK, steps=2 * RESNET_RESUME["steps"])
+    rr = RESNET_RESUME
+    torch.backends.cudnn.deterministic = True
+    try:
+        def sched():
+            return lr_scheduler.MultiFactorScheduler(rr["milestones"],
+                                                     rr["factor"])
+
+        _, trainers, x, y = _thumbnail_pair(cfg, "bfloat16", True, sched())
+        run = trainers["card"]
+        launches0 = opt_step.opt_sgd.launches
+        dev = mx.gpu(0)
+
+        def step(st, i):
+            lr = st.learning_rate
+            loss = st.step(mx.nd.array(x[i], ctx=dev).astype("bfloat16"),
+                           mx.nd.array(y[i], ctx=dev))
+            return lr, float(loss._data.float())
+
+        def state(st):
+            return {k: t.clone() for k, t in st._state_tensors().items()}
+
+        def equal(a, b):
+            return set(a) == set(b) and all(torch.equal(a[k], b[k])
+                                            for k in a)
+
+        with tempfile.TemporaryDirectory() as tmp:
+            manager = checkpoint.CheckpointManager(tmp, keep=3)
+            trace = [step(run, i) for i in range(rr["steps"])]
+            run.save_checkpoint(manager, epoch=1)
+            saved1 = state(run)
+            trace.append(step(run, rr["steps"]))
+            run.save_checkpoint(manager, epoch=2)
+            saved2 = state(run)
+            trace += [step(run, i) for i in range(rr["steps"] + 1,
+                                                  cfg["steps"])]
+            final = state(run)
+
+            def fresh():
+                _, pair, _, _ = _thumbnail_pair(cfg, "bfloat16", True,
+                                                sched())
+                return pair["card"]
+
+            resumed = fresh()
+            entry = resumed.resume(manager)
+            if entry["epoch"] != 2 or not equal(state(resumed), saved2):
+                raise AssertionError("resnet_resume: the state after resume "
+                                     "differs from epoch 2's")
+            newest = Path(tmp) / "ckpt-0002.states"
+            newest.write_bytes(newest.read_bytes()[:1000])
+            resumed = fresh()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                entry = resumed.resume(manager)
+            fell_back = any("falling back to epoch 1" in str(w.message)
+                            for w in caught)
+            if entry["epoch"] != 1 or not fell_back or \
+                    not equal(state(resumed), saved1):
+                raise AssertionError(f"resnet_resume: after truncating "
+                                     f"epoch 2, resume gave epoch "
+                                     f"{entry['epoch']} (fallback "
+                                     f"{fell_back})")
+            tail = [step(resumed, i) for i in range(rr["steps"],
+                                                    cfg["steps"])]
+            after = state(resumed)
+            launches = opt_step.opt_sgd.launches - launches0
+        lrs = [t[0] for t in trace]
+        want = sched()
+        want.base_lr = RESNET50["lr"]
+        if [t[0] for t in tail] != lrs[rr["steps"]:] or lrs != [
+                want(t) for t in range(cfg["steps"])]:
+            raise AssertionError(f"resnet_resume: lrs {lrs} then "
+                                 f"{[t[0] for t in tail]}")
+        bitwise = equal(after, final) and \
+            [t[1] for t in tail] == [t[1] for t in trace[rr["steps"]:]]
+        if not bitwise:
+            diffs = {k: float((after[k].float() - final[k].float()).abs()
+                              .max()) for k in final
+                     if not torch.equal(after[k], final[k])}
+            raise AssertionError(f"resnet_resume: the resumed run differs "
+                                 f"from the uninterrupted one: {diffs}")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    out = {"phase": "resnet_resume", "config": cfg, "schedule": rr,
+           "lrs": lrs, "losses": [t[1] for t in trace],
+           "resumed_losses": [t[1] for t in tail],
+           "state_equal_after_resume": True, "fallback_taken": True,
+           "bitwise_equal_to_uninterrupted": bitwise,
+           "rng_key_bytes": int(resumed._state_payload()["__rng_key__"]
+                                .size),
+           "opt_sgd_launches": launches}
+    if launches != 2 * cfg["steps"] - rr["steps"]:
+        raise AssertionError(f"resnet_resume: {launches} K1 launches")
+    emit(out)
     return launches
 
 
@@ -2850,71 +3105,54 @@ def phase_resnet50_train(smi):
     one launch a step over all 193 tensors on its 16-byte path; then one
     profiled step split by kernel group, and K1 timed over the same 193
     tensors beside ``torch.optim``'s fused SGD."""
-    from torch.profiler import ProfilerActivity, profile
+    return _resnet50_train(smi, "resnet50_v1_train", "float32", False)
 
-    cfg = RESNET50
-    dev = mx.gpu(0)
+
+def phase_resnet50_train_bf16(smi, mp):
+    """resnet50_v1_train_bf16 (``mp`` False): bench.py's default dtype,
+    ``net.cast("bfloat16")`` before the first forward and ``x.astype``,
+    else as resnet50_v1_train. Routes: the 87 bfloat16 tensors through
+    the plain ``sgd_mom_update`` in bfloat16, K1 one launch a step over
+    the 106 float32 BatchNorm tensors (the JAX package's bfloat16 step
+    sends those to its Pallas ``opt_sgd`` too). resnet50_v1_train_bf16_mp
+    (``mp`` True): the same with ``"multi_precision": True``: K1 one launch
+    a step over all 193 float32 tensors, the 87 masters among them, and
+    the two casts around it (bfloat16 gradients into float32 buffers,
+    masters into the bfloat16 weights) timed alone at the same shapes."""
+    phase = "resnet50_v1_train_bf16" + ("_mp" if mp else "")
+    return _resnet50_train(smi, phase, "bfloat16", mp)
+
+
+def _resnet50_net(cfg, dev, dtype):
+    """bench.py's set-up: the seeded model, Xavier weights, cast, the
+    ``nd.random.uniform`` batch (cast) and random labels."""
     mx.random.seed(0)
     net = vision.get_model(cfg["model"], classes=cfg["classes"])
     net.initialize(mx.init.Xavier(), ctx=dev,
                    generator=torch.Generator().manual_seed(0))
+    if dtype != "float32":
+        net.cast(dtype)
     x = mx.nd.random.uniform(shape=(cfg["batch"], 3, cfg["size"],
                                     cfg["size"]), ctx=dev)
+    if dtype != "float32":
+        x = x.astype(dtype)
     y = mx.nd.array(np.random.RandomState(0).randint(
         0, cfg["classes"], cfg["batch"]).astype(np.float32), ctx=dev)
-    net(x)   # resolve the deferred shapes (eval mode: no statistics move)
-    st = _resnet_trainer(net, dev, False)
-    n_values = sum(h.size for h in st._train_handles)
-    if (len(st._param_names), len(st._aux_names), n_values) != (
-            cfg["tensors"], cfg["aux"], cfg["values"]):
-        raise AssertionError(f"resnet50_v1: {len(st._param_names)} "
-                             f"trainable tensors ({n_values} values), "
-                             f"{len(st._aux_names)} aux")
-    stem = net.features[1].running_mean
-    stem0 = stem.data()._data.clone()
-    steps = cfg["warmup"] + cfg["steps"]
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    before = torch.cuda.memory_allocated()
-    sgd = opt_step.opt_sgd
-    paths, copies = dict(sgd.tensors_by_path), sgd.copies
-    kernels.reset_launch_counts()
-    losses, step_ms = [], []
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        loss = st.step(x, y)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses.append(loss.asscalar())
-    counts = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    paths, copies = _opt_paths(sgd, paths), sgd.copies - copies
-    want = dict.fromkeys(counts, 0)
-    want["opt_sgd"] = steps
-    if counts != want:
-        raise AssertionError(f"resnet50_v1_train: launches {counts}, "
-                             f"expected {want}")
-    if paths != {"vec4": cfg["tensors"] * steps, "scalar": 0} or copies:
-        raise AssertionError(f"resnet50_v1_train: K1's tensors by path "
-                             f"{paths}, {copies} gradient copies")
-    if not all(math.isfinite(v) for v in losses) or \
-            not losses[-1] < losses[0]:
-        raise AssertionError(f"resnet50_v1_train: loss not finite and "
-                             f"falling: {losses}")
-    stem_mean = stem.data()._data
-    if torch.equal(stem_mean, stem0) or not bool(
-            torch.isfinite(stem_mean).all()):
-        raise AssertionError("resnet50_v1_train: the stem BatchNorm's "
-                             "running mean did not move")
+    return net, x, y
+
+
+def _profile_step(st, x, y):
+    """One step under ``torch.profiler``: the window's host ms, device ms
+    by ``_resnet_group`` and the heaviest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         st.step(x, y)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
-    from torch.autograd import DeviceType
-
     groups, top = {}, {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA or \
@@ -2925,35 +3163,219 @@ def phase_resnet50_train(smi):
         groups[g] = groups.get(g, 0.0) + ev.self_device_time_total / 1e3
         top[ev.key] = top.get(ev.key, 0.0) + ev.self_device_time_total / 1e3
     busy = sum(groups.values())
+    return {"profiled_step_ms": window_ms,
+            "device_ms_per_step": busy if groups else "not measured",
+            "device_idle_share": 1 - busy / window_ms if groups
+            else "not measured",
+            "device_ms_by_group": groups,
+            "top_kernels_ms": [[k[:90], v, _resnet_group(k)] for k, v in
+                               sorted(top.items(), key=lambda kv: -kv[1])
+                               [:15]]}
+
+
+def _cast_timing(st):
+    """The two casts around K1 of a multi-precision step, alone, on the
+    trainer's own buffers: the bfloat16 gradients (random, the weights'
+    shapes) into the float32 gradient buffers, and the masters into the
+    bfloat16 weights (here into scratch copies), by CUDA events and the
+    profiler; 6 bytes a value each."""
+    masters = [st._opt_state[i][0] for i in st._routes.master]
+    halves = [torch.empty_like(st._train_handles[i]._data)
+              for i in st._routes.master]
+    grads = [torch.randn_like(m).to(torch.bfloat16) for m in masters]
+    n = sum(m.numel() for m in masters)
+
+    def grad_cast():
+        torch._foreach_copy_(st._grads32, grads)
+
+    def weight_cast():
+        torch._foreach_copy_(halves, masters)
+
+    out = {"values": n, "bound_ms": 6 * n / H100_BYTES_S * 1e3,
+           "bound_by": "bytes"}
+    for name, fn in (("grad_to_float32", grad_cast),
+                     ("master_to_bfloat16", weight_cast)):
+        out[name] = {"ms": cuda_ms(fn), "device_ms": device_ms(fn),
+                     "kernels_us": kernel_device_us(fn)}
+    return out
+
+
+def _resnet50_train(smi, phase, dtype, mp):
+    cfg = RESNET50
+    dev = mx.gpu(0)
+    net, x, y = _resnet50_net(cfg, dev, dtype)
+    net(x)   # resolve the deferred shapes (eval mode: no statistics move)
+    st = _resnet_trainer(net, dev, False, mp)
+    n_values = sum(h.size for h in st._train_handles)
+    if (len(st._param_names), len(st._aux_names), n_values) != (
+            cfg["tensors"], cfg["aux"], cfg["values"]):
+        raise AssertionError(f"{phase}: {len(st._param_names)} "
+                             f"trainable tensors ({n_values} values), "
+                             f"{len(st._aux_names)} aux")
+    census = st._routes.census()
+    if dtype == "float32":
+        want_census = {"float32": cfg["tensors"], "master": 0, "half": 0}
+    else:
+        b = RESNET50_BF16
+        want_census = {"float32": b["float32"], "master": b["half"] * mp,
+                       "half": b["half"] * (not mp)}
+    if census != want_census:
+        raise AssertionError(f"{phase}: routes {census}, expected "
+                             f"{want_census}")
+    k1_tensors = census["float32"] + census["master"]
+    stem = net.features[1].running_mean
+    stem0 = stem.data()._data.clone()
+    steps = cfg["warmup"] + cfg["steps"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    sgd = opt_step.opt_sgd
+    paths, copies = dict(sgd.tensors_by_path), sgd.copies
+    routes0 = dict(st.route_counts)
+    kernels.reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = st.step(x, y)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss._data.float()))
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    paths, copies = _opt_paths(sgd, paths), sgd.copies - copies
+    routes = {k: v - routes0[k] for k, v in st.route_counts.items()}
+    want = dict.fromkeys(counts, 0)
+    want["opt_sgd"] = steps
+    if counts != want:
+        raise AssertionError(f"{phase}: launches {counts}, expected {want}")
+    if paths != {"vec4": k1_tensors * steps, "scalar": 0} or copies:
+        raise AssertionError(f"{phase}: K1's tensors by path {paths}, "
+                             f"{copies} gradient copies")
+    if routes != {k: v * steps for k, v in want_census.items()}:
+        raise AssertionError(f"{phase}: route counts {routes} over "
+                             f"{steps} steps")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: loss not finite and falling: "
+                             f"{losses}")
+    stem_mean = stem.data()._data
+    if torch.equal(stem_mean, stem0) or not bool(
+            torch.isfinite(stem_mean).all()):
+        raise AssertionError(f"{phase}: the stem BatchNorm's running mean "
+                             "did not move")
+    if mp and not all(torch.equal(st._train_handles[i]._data,
+                                  st._opt_state[i][0].to(torch.bfloat16))
+                      for i in st._routes.master):
+        raise AssertionError(f"{phase}: a bfloat16 weight is not its "
+                             "master rounded")
+    prof = _profile_step(st, x, y)
     timed = step_ms[cfg["warmup"]:]
     median = statistics.median(timed)
-    k1 = _resnet_k1_timing(st)
-    out = {"phase": "resnet50_v1_train", "card": smi, "config": cfg,
-           "tf32": False, "losses": losses, "step_ms": step_ms,
-           "median_step_ms": median, "min_step_ms": min(timed),
-           "max_step_ms": max(timed),
+    out = {"phase": phase, "card": smi, "config": cfg, "dtype": dtype,
+           "multi_precision": mp, "tf32": False, "losses": losses,
+           "step_ms": step_ms, "median_step_ms": median,
+           "min_step_ms": min(timed), "max_step_ms": max(timed),
            "img_per_s": cfg["batch"] / (median / 1e3),
            "memory_allocated_before": before, "max_memory_allocated": peak,
            "launches": counts, "k1_tensors_by_path": paths,
+           "routes_per_step": census,
            "stem_running_mean_abs_mean": float(stem_mean.abs().mean()),
-           "profiled_step_ms": window_ms,
-           "device_ms_per_step": busy if groups else "not measured",
-           "device_idle_share": 1 - busy / window_ms if groups
-           else "not measured",
-           "device_ms_by_group": groups,
-           "top_kernels_ms": [[k[:90], v, _resnet_group(k)] for k, v in
-                              sorted(top.items(), key=lambda kv: -kv[1])
-                              [:15]],
-           "k1": k1}
+           **prof}
+    if dtype == "float32":
+        out["k1"] = _resnet_k1_timing(st)
+    else:
+        out["k1_in_step"] = {
+            "tensors": k1_tensors, "values": sum(
+                st._train_handles[i].size for i in st._routes.fused),
+            "device_ms": prof["device_ms_by_group"].get("k1",
+                                                        "not measured"),
+            "bound_ms": 20 * sum(st._train_handles[i].size
+                                 for i in st._routes.fused)
+            / H100_BYTES_S * 1e3, "bound_by": "bytes"}
+        out["tpu_kernels_on_path"] = (
+            f"K1 over {k1_tensors} float32 tensors a step"
+            + (" (87 masters and the 106 BatchNorm gamma/beta)" if mp else
+               " (the BatchNorm gamma/beta; the 87 bfloat16 tensors take "
+               "the plain sgd_mom_update route, which had no TPU kernel)"))
+    if mp:
+        out["casts"] = _cast_timing(st)
     emit(out)
     del st, net, x, y
     torch.cuda.empty_cache()
     return out
 
 
+def phase_resnet50_infer_bf16(smi):
+    """resnet50_v1_infer_bf16: ``bench.py:199-223`` in bfloat16 through
+    the port: the seeded model, Xavier weights, ``net.cast("bfloat16")``,
+    ``hybridize(static_alloc=True, static_shape=True)``, a batch of 128
+    from ``nd.random.uniform`` cast to bfloat16, 2 warm-up and 20 timed
+    forwards (host clock to a synchronise): img/s and peak memory. Then
+    the same weights widened to float32 in a second net and the same
+    (bfloat16-rounded) batch: top-1 agreement and the largest logit gap;
+    and one forward with cuBLAS's reduced-precision bfloat16 reductions
+    allowed, against the pinned run (only the Dense product reads that
+    switch: cuDNN's convolutions do not)."""
+    cfg, b = RESNET50, RESNET50_BF16
+    dev = mx.gpu(0)
+    net, x, _ = _resnet50_net(cfg, dev, "bfloat16")
+    net.hybridize(static_alloc=True, static_shape=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    for _ in range(b["infer_warmup"]):
+        net(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [net(x) for _ in range(b["infer_iters"])]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    logits = outs[-1]._data.float()
+    if tuple(logits.shape) != (cfg["batch"], cfg["classes"]) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError("resnet50_v1_infer_bf16: logits not finite "
+                             f"of shape {(cfg['batch'], cfg['classes'])}")
+    if not all(torch.equal(o._data, outs[0]._data) for o in outs[1:]):
+        raise AssertionError("resnet50_v1_infer_bf16: forwards of one "
+                             "batch differ")
+    net32 = vision.get_model(cfg["model"], classes=cfg["classes"])
+    net32.initialize(ctx=dev)
+    load_jax_params(net32, export_params(net))
+    ref = net32(x.astype("float32"))._data
+    del net32
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = True
+    try:
+        reduced = net(x)._data.float()
+    finally:
+        torch.backends.cuda.matmul.\
+            allow_bf16_reduced_precision_reduction = False
+    gap = float((logits - ref).abs().max())
+    agree = float((logits.argmax(1) == ref.argmax(1)).float().mean())
+    out = {"phase": "resnet50_v1_infer_bf16", "card": smi,
+           "batch": cfg["batch"], "warmup": b["infer_warmup"],
+           "iters": b["infer_iters"],
+           "img_per_s": cfg["batch"] * b["infer_iters"] / wall,
+           "ms_per_batch": wall / b["infer_iters"] * 1e3,
+           "memory_allocated_before": before, "max_memory_allocated": peak,
+           "top1_agreement_with_float32": agree,
+           "max_logit_gap_vs_float32": gap,
+           "max_abs_logit_float32": float(ref.abs().max()),
+           "reduced_precision_reduction_max_logit_change": float(
+               (reduced - logits).abs().max())}
+    emit(out)
+    del net, x, outs
+    torch.cuda.empty_cache()
+    return out
+
+
 PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "int8_gemm", "serve_int8", "decode", "twobit", "dist_check",
-          "dist_train", "resnet_check", "resnet50_v1_train")
+          "dist_train", "resnet_check", "resnet50_v1_train",
+          "resnet50_v1_infer_bf16", "resnet50_v1_train_bf16",
+          "resnet50_v1_train_bf16_mp", "resnet_check_bf16", "resnet_resume")
 
 
 def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
@@ -2983,6 +3405,8 @@ def main(argv=None):
         raise SystemExit(f"unknown phases {sorted(phases - set(PHASES))}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bfloat16 products accumulate in float32, as XLA's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     dev = phase_device()
     smi = dev["nvidia_smi"]
     phase_build()
@@ -3019,6 +3443,18 @@ def main(argv=None):
         done["resnet_check"] = phase_resnet_check()
     if "resnet50_v1_train" in phases:
         done["resnet50_v1_train"] = phase_resnet50_train(smi)
+    if "resnet50_v1_infer_bf16" in phases:
+        done["resnet50_v1_infer_bf16"] = phase_resnet50_infer_bf16(smi)
+    if "resnet50_v1_train_bf16" in phases:
+        done["resnet50_v1_train_bf16"] = phase_resnet50_train_bf16(smi,
+                                                                   False)
+    if "resnet50_v1_train_bf16_mp" in phases:
+        done["resnet50_v1_train_bf16_mp"] = phase_resnet50_train_bf16(smi,
+                                                                      True)
+    if "resnet_check_bf16" in phases:
+        done["resnet_check_bf16"] = phase_resnet_check_bf16()
+    if "resnet_resume" in phases:
+        done["resnet_resume"] = phase_resnet_resume()
     if set(done) != set(PHASES):
         print(f"phases run: {sorted(done)}; no result line", flush=True)
         return 1
@@ -3046,6 +3482,7 @@ def main(argv=None):
     # tensors and its train_check and resnet_check launches beside them
     rn = done["resnet50_v1_train"]
     k1, t = rn["k1"], opt["opt_sgd"]
+    mp, bf = done["resnet50_v1_train_bf16_mp"], done["resnet50_v1_train_bf16"]
     lines.append(_kernel_line(
         "opt_sgd", "opt_step.cu", "mxnet_tpu/kernels/opt_step.py:114",
         rn["launches"]["opt_sgd"], k1["max_abs_err"], k1["ms"],
@@ -3055,6 +3492,17 @@ def main(argv=None):
         values=k1["values"],
         launches_train_check=sgd_launches["opt_sgd"],
         launches_resnet_check=done["resnet_check"],
+        # this slice: the bfloat16 cells (K1 over the float32 masters and
+        # BatchNorm tensors with multi_precision, over the BatchNorm
+        # tensors alone without), the bfloat16 check and the resume
+        launches_resnet50_v1_train_bf16_mp=mp["launches"]["opt_sgd"],
+        launches_resnet50_v1_train_bf16=bf["launches"]["opt_sgd"],
+        launches_resnet_check_bf16=done["resnet_check_bf16"],
+        launches_resnet_resume=done["resnet_resume"],
+        bf16_mp_in_step=mp["k1_in_step"], bf16_in_step=bf["k1_in_step"],
+        bf16_mp_casts={k: mp["casts"][k]["device_ms"] for k in (
+            "grad_to_float32", "master_to_bfloat16")},
+        bf16_mp_casts_bound_ms=mp["casts"]["bound_ms"],
         classifier_197={k: t[k] for k in (
             "ms", "device_ms", "host_us", "plain_ms", "bound_ms",
             "library_ms", "library_device_ms")}))

@@ -31,15 +31,18 @@ from . import gluon
 from . import io
 from . import model
 from . import contrib
+from . import lr_scheduler
 from . import optimizer
 from . import kvstore
 from . import kvstore as kv
 from . import parallel
 from . import serving
 from . import convert
+from . import checkpoint
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "autograd", "random", "nd", "ndarray",
            "NDArray", "initializer", "init", "kernels", "name", "symbol",
-           "sym", "gluon", "io", "model", "contrib", "optimizer", "kvstore",
-           "kv", "parallel", "serving", "convert", "__version__"]
+           "sym", "gluon", "io", "model", "contrib", "lr_scheduler",
+           "optimizer", "kvstore", "kv", "parallel", "serving", "convert",
+           "checkpoint", "__version__"]

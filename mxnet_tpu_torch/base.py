@@ -16,7 +16,7 @@ import numpy as _np
 import torch
 
 __all__ = ["MXNetError", "canonical_dtype", "dtype_name", "numpy_dtype",
-           "maybe_init_distributed"]
+           "maybe_init_distributed", "HALF_DTYPES"]
 
 # how long a worker waits for the others at the rendezvous
 RENDEZVOUS_TIMEOUT_S = 300.0
@@ -38,6 +38,9 @@ _DTYPES = {
     "bool": torch.bool,
 }
 _NAMES = {v: k for k, v in _DTYPES.items()}
+# the half-precision types: multi_precision keeps a float32 master of
+# these, and BatchNorm stays float32 when a network is cast to them
+HALF_DTYPES = (torch.float16, torch.bfloat16)
 
 
 def canonical_dtype(dtype) -> torch.dtype:

@@ -152,6 +152,14 @@ class Block:
         drawing from the CPU ``torch.Generator`` ``generator``."""
         self.collect_params().initialize(init, ctx, generator, force_reinit)
 
+    def cast(self, dtype):
+        """Cast every parameter of this block and its children to
+        ``dtype`` (a layer may keep some in another type: BatchNorm)."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for p in self._params.values():
+            p.cast(dtype)
+
     def _collect_params_with_structure(self, prefix=""):
         """Parameters by structural (attribute-path) name, e.g.
         ``encoder.1.attn.query.weight``; independent of name counters."""

@@ -5,7 +5,8 @@ HybridSequential, Dense, Dropout, BatchNorm (:167-233), Embedding (:236),
 LayerNorm, Flatten (:339) and Activation (:391). Layers manage
 parameters and hyper-parameters; compute goes through the registered
 ops, so each also traces into a graph (``export``). ``BatchNorm.cast``
-is not ported (``Block.cast`` is not, ``ROADMAP.md`` section A).
+keeps gamma, beta and the running statistics in float32 under a cast to
+float16 or bfloat16, as the JAX layer does.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import math
 import torch
 
 from ... import autograd, initializer as init_mod
+from ...base import HALF_DTYPES, canonical_dtype
 from ...cached_op import update_state
 from ..block import Block, HybridBlock
 
@@ -164,6 +166,13 @@ class BatchNorm(HybridBlock):
         channels = x.shape[self._axis]
         for p in (self.gamma, self.beta, self.running_mean, self.running_var):
             p.shape = (channels,)
+
+    def cast(self, dtype):
+        """gamma, beta and the running statistics stay float32 when the
+        network is cast to float16 or bfloat16 (JAX :207-210)."""
+        if canonical_dtype(dtype) in HALF_DTYPES:
+            dtype = torch.float32
+        super().cast(dtype)
 
     def hybrid_forward(self, F, x, gamma=None, beta=None, running_mean=None,
                        running_var=None):

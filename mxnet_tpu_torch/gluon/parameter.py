@@ -240,6 +240,16 @@ class Parameter:
         cur._rebind(tensor.detach().to(device=cur._data.device,
                                        dtype=self.dtype, copy=True))
 
+    def cast(self, dtype):
+        """Re-create the data in ``dtype`` (JAX :207-215). A parameter
+        not initialized yet is made in ``dtype`` when it is. The gradient
+        buffer is made anew, in the new dtype, at the next backward
+        unless ``grad_req`` is ``"null"``."""
+        self.dtype = canonical_dtype(dtype)
+        self._leaf = None
+        if self._data is not None:
+            self._data._rebind(self._data._data.detach().to(self.dtype))
+
     def var(self):
         """This parameter as a graph input (``export`` traces blocks with
         these); not differentiable means an auxiliary state."""

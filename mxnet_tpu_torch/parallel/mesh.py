@@ -77,6 +77,12 @@ class DeviceMesh:
         """The ``torch.device`` of the mesh's only device."""
         return self.devices[0].torch_device()
 
+    def describe(self):
+        """JSON-able topology record (axis sizes, device count), written
+        into checkpoint manifests as the JAX package writes it."""
+        return {"axes": dict(self.axis_sizes),
+                "num_devices": self.num_devices, "process_indices": [0]}
+
     def __repr__(self):
         return f"DeviceMesh({self.axis_sizes})"
 

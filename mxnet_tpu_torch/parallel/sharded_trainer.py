@@ -15,43 +15,70 @@ buffers; the port runs it eagerly on the mesh's one device:
    gradient through the flash backward kernels);
 3. the non-finite guard: one fused all-finite check over the loss and
    every gradient writes a device flag;
-4. the optimizer rule (``opt_rules.py``): one launch of the fused kernel
-   over all trainable parameters, in place, with the learning rate and
-   the step count as device scalars and the flag as its skip switch; a
-   skipped step also selects the aux state back to its values from
-   before the step, on the device (:601-602). Aux state never reaches
-   the optimizer.
+4. the optimizer rule (``opt_rules.apply``), in place, with the learning
+   rate and the step count as device scalars and the flag as its skip
+   switch: one launch of the fused kernel over every float32 weight and
+   every float32 master copy, and the plain op for half-precision
+   weights without ``multi_precision`` (the routes, chosen by dtype,
+   are counted in ``route_counts``); a skipped step also selects the aux
+   state back to its values from before the step, on the device
+   (:601-602). Aux state never reaches the optimizer.
 
 The host waits for the step only where the JAX package does: reading the
 guard's flag to count skipped steps (``nan_guard=True``, the default).
 
 Hyper-parameter handling follows the JAX trainer (:128-183): an optimizer
-name plus ``optimizer_params`` (``learning_rate`` popped, the rest to the
-optimizer), or an Optimizer instance; weight decay applies to parameters
-whose names end in ``weight`` or ``gamma`` (:224-225), so biases and
-LayerNorm betas get none.
+name plus ``optimizer_params`` (``learning_rate`` and ``lr_scheduler``
+popped, the rest to the optimizer, ``multi_precision`` included), or an
+Optimizer instance, whose scheduler is adopted; the scheduler's
+``base_lr`` is set from the learning rate. Weight decay applies to
+parameters whose names end in ``weight`` or ``gamma`` (:224-225), so
+biases and LayerNorm betas get none.
+
+Checkpoints (:922-1237): ``save_states`` / ``load_states`` write and read
+the ``nd.save`` container with the JAX package's keys (``__t__``,
+``__rng_seed__``, ``__rng_key__``, ``__names__``, ``__sched__``, ``p{i}``,
+``a{i}``, ``s{i}_{j}``, positional in ``collect_params`` order) in host
+layout, so a JAX checkpoint from any mesh loads here. ``__rng_key__`` holds
+the port's own generator state; a JAX file's threefry key restores the
+seed alone (``random.set_state``). ``__sched__`` is a pickled scheduler,
+read through ``lr_scheduler.loads`` (a JAX pickle names
+``mxnet_tpu.lr_scheduler`` classes, which read as the port's). A JAX
+trainer loads the port's files too, without a scheduler: with one, its
+unpickler would import this package. ``save_checkpoint`` / ``resume``
+go through a ``checkpoint.CheckpointManager``.
 
 Not ported yet, and refused with :class:`MXNetError` where the JAX
 package would accept them: ``zero``, ``remat``, ``accum_steps > 1``,
-``donate=False``, sharding ``rules``, lr schedulers, multi-precision and
-bf16 parameters, meshes of more than one device, and the checkpoint,
-model-bus, warmup/AOT and telemetry methods.
+``donate=False``, sharding ``rules``, meshes of more than one device,
+``data_iter=`` of ``save_checkpoint``/``resume`` (no port iterator has a
+``state_dict``), ``reshard=`` of ``resume`` (one device has nothing to
+reshard), and the model-bus, warmup/AOT and telemetry methods.
 """
 from __future__ import annotations
 
+import os
+import pickle
 from typing import List, Optional
 
 import numpy as _np
 import torch
 
 from .. import autograd
+from .. import lr_scheduler as _sched
+from .. import random as _random
 from ..base import MXNetError
+from ..context import cpu
 from ..gluon.parameter import substitute
 from ..ndarray import NDArray
+from ..ndarray import utils as _nd_utils
+from . import opt_rules
 from .mesh import DeviceMesh
 from .opt_rules import RULES
 
 __all__ = ["ShardedTrainer"]
+
+_ALIGN = 4   # float32 elements in 16 bytes
 
 
 def _not_ported(what):
@@ -68,16 +95,24 @@ def _unported_method(name, what):
     return method
 
 
+def _bytes_array(blob):
+    return NDArray(torch.from_numpy(_np.frombuffer(blob, _np.uint8).copy()))
+
+
 class ShardedTrainer:
     """Trainer of a HybridBlock on a DeviceMesh of one device.
 
     Parameters
     ----------
-    net : HybridBlock with initialized parameters.
+    net : HybridBlock with initialized parameters (float32, float16 or
+        bfloat16; ``Block.cast`` keeps BatchNorm's in float32).
     loss_fn : callable (pred NDArray, label NDArray) -> loss NDArray,
         such as a gluon loss block; the step minimises its mean.
     optimizer : ``"sgd"`` (the default) or ``"adam"``, or an Optimizer
         instance of those.
+    optimizer_params : ``learning_rate``, ``lr_scheduler``,
+        ``multi_precision`` (float32 master copies of half-precision
+        weights) and the optimizer's own.
     mesh : DeviceMesh (default: ``DeviceMesh()``, every card on dp).
     nan_guard : a non-finite loss or gradient skips the whole update
         (parameters and optimizer state stay bit-identical) and counts
@@ -110,8 +145,7 @@ class ShardedTrainer:
         self.consecutive_skips = 0   # current skip streak
 
         opt_params = dict(optimizer_params or {})
-        if opt_params.pop("lr_scheduler", None) is not None:
-            raise _not_ported("lr_scheduler")
+        self._lr_scheduler = opt_params.pop("lr_scheduler", None)
         self._lr = float(opt_params.pop("learning_rate", 0.01))
         from .. import optimizer as _opt_mod
 
@@ -124,6 +158,8 @@ class ShardedTrainer:
                     f"instance: {sorted(opt_params)}")
             if "learning_rate" not in (optimizer_params or {}):
                 self._lr = float(self._opt.lr)
+            if self._lr_scheduler is None:
+                self._lr_scheduler = self._opt.lr_scheduler
         else:
             try:
                 self._opt = _opt_mod.create(
@@ -132,6 +168,8 @@ class ShardedTrainer:
                 raise ValueError(
                     f"unsupported optimizer params for {optimizer!r}: "
                     f"{e}") from None
+        if self._lr_scheduler is not None:
+            self._lr_scheduler.base_lr = self._lr
         self._opt_name = type(self._opt).__name__.lower()
         if self._opt_name not in RULES:
             raise ValueError(
@@ -154,17 +192,20 @@ class ShardedTrainer:
                 self._aux_names.append(name)
                 self._aux_handles.append(p.data())
                 continue
-            if p.dtype != torch.float32:
-                raise _not_ported(f"training {p.dtype} parameters "
-                                  f"({name!r}; multi-precision)")
             self._param_names.append(name)
             self._params.append(p)
             self._train_handles.append(p.data())
         self._wd_mult = [1.0 if (n.endswith("weight") or n.endswith("gamma"))
                          else 0.0 for n in self._param_names]
         self._place_params()
-        self._opt_state = [self._rule.init(self._opt, h._data)
-                           for h in self._train_handles]
+        mp = bool(getattr(self._opt, "multi_precision", False))
+        self._routes = opt_rules.Routes(
+            [h._data.dtype for h in self._train_handles], mp)
+        self._opt_state = [
+            opt_rules.init_state(self._rule, self._opt, h._data, mp)
+            for h in self._train_handles]
+        self._grads32 = self._master_grad_buffers()
+        self.route_counts = dict.fromkeys(self._routes.census(), 0)
         self._t = 0
         self._t_dev = torch.zeros((), dtype=torch.float32, device=self._device)
         self._lr_dev = torch.zeros((), dtype=torch.float32,
@@ -179,14 +220,42 @@ class ShardedTrainer:
                     not h._data.is_contiguous():
                 h._rebind(h._data.detach().to(self._device).contiguous())
 
+    def _master_grad_buffers(self):
+        """One float32 view per master, into which its gradient is cast
+        each step: slices of one buffer, each starting on a 16-byte
+        boundary, so the fused kernel reads them on its 16-byte path and
+        its parameter-set table (keyed by pointers) is built once."""
+        sizes = [self._train_handles[i].size for i in self._routes.master]
+        if not sizes:
+            return []
+        padded = [-(-n // _ALIGN) * _ALIGN for n in sizes]
+        flat = torch.empty(sum(padded), dtype=torch.float32,
+                           device=self._device)
+        views, at = [], 0
+        for i, n, pad in zip(self._routes.master, sizes, padded):
+            views.append(flat[at:at + n].view(self._train_handles[i].shape))
+            at += pad
+        return views
+
     @property
     def learning_rate(self):
-        """The lr of the next step; settable between steps (the step
-        reads it from a device scalar, so nothing is rebuilt)."""
+        """The lr the scheduler gives at the current step, else the set
+        one; settable between steps (the step reads it from a device
+        scalar, so nothing is rebuilt)."""
+        if self._lr_scheduler is not None:
+            return float(self._lr_scheduler(self._t))
         return self._lr
 
     @learning_rate.setter
     def learning_rate(self, lr):
+        self.set_learning_rate(lr)
+
+    def set_learning_rate(self, lr):
+        """Change the lr between steps; raises UserWarning when a
+        scheduler drives it, as ``Optimizer.set_learning_rate`` does."""
+        if self._lr_scheduler is not None:
+            raise UserWarning("LRScheduler of the optimizer has already "
+                              "been defined.")
         self._lr = float(lr)
 
     def _put_batch(self, x):
@@ -205,8 +274,10 @@ class ShardedTrainer:
         a row raise RuntimeError."""
         x_raw, y_raw = self._put_batch(x), self._put_batch(y)
         self._t += 1
+        lr = self._lr if self._lr_scheduler is None \
+            else float(self._lr_scheduler(self._t))
         self._t_dev.fill_(float(self._t))
-        self._lr_dev.fill_(self._lr)
+        self._lr_dev.fill_(lr)
         weights = [h._data for h in self._train_handles]
         aux_before = [h._data for h in self._aux_handles]
         leaves = [w.detach().requires_grad_(True) for w in weights]
@@ -219,24 +290,40 @@ class ShardedTrainer:
         grads = [torch.zeros_like(w) if g is None else g
                  for w, g in zip(weights, grads)]
         loss = loss.detach()
-        skip = None
-        if self._nan_guard:
-            skip = torch.zeros(1, dtype=torch.float32, device=self._device)
-            # scales by 1.0 (exact) and sets skip when any value is not
-            # finite: one fused pass over the loss and every gradient
-            torch._amp_foreach_non_finite_check_and_unscale_(
-                [loss.reshape(1)] + grads, skip, self._one)
+        skip = self._non_finite(loss, grads) if self._nan_guard else None
         wds = [self._wd * m for m in self._wd_mult]
         with torch.no_grad():
-            self._rule.update(self._opt, weights, grads, self._opt_state,
-                              self._lr_dev, wds, self._t_dev, skip)
+            opt_rules.apply(self._rule, self._opt, self._routes, weights,
+                            grads, self._opt_state, self._grads32,
+                            self._lr_dev, wds, self._t_dev, skip)
             if skip is not None:
                 for h, old in zip(self._aux_handles, aux_before):
                     if h._data is not old:
                         h._rebind(torch.where(skip != 0, old, h._data))
+        for route, n in self._routes.census().items():
+            self.route_counts[route] += n
         if self._nan_guard:
             self._account_skip(not bool(skip.item()))  # waits for the step
         return NDArray(loss)
+
+    def _non_finite(self, loss, grads):
+        """A float32 device flag, non-zero when the loss or a gradient
+        holds a value that is not finite. Float32 tensors go through one
+        fused check (scaling by 1.0, exact); PyTorch's CUDA version of it
+        takes no bfloat16, so half-precision ones go through one
+        multi-tensor max-norm each, which is not finite exactly when a
+        value is not."""
+        skip = torch.zeros(1, dtype=torch.float32, device=self._device)
+        tensors = [loss.reshape(1)] + grads
+        full = [t for t in tensors if t.dtype == torch.float32]
+        half = [t for t in tensors if t.dtype != torch.float32]
+        if full:
+            torch._amp_foreach_non_finite_check_and_unscale_(full, skip,
+                                                             self._one)
+        if half:
+            norms = torch._foreach_norm(half, float("inf"))
+            skip.add_(~torch.stack(norms).isfinite().all())
+        return skip
 
     def _account_skip(self, ok):
         if ok:
@@ -249,8 +336,9 @@ class ShardedTrainer:
                 f"ShardedTrainer: {self.consecutive_skips} consecutive "
                 "steps produced non-finite loss/gradients and were "
                 f"skipped (step {self._t}, {self.skipped_steps} skipped "
-                "total): the run has diverged; lower the learning rate or "
-                "check the data pipeline")
+                "total): the run has diverged; lower the learning rate, "
+                "check the data pipeline, or resume from the last good "
+                "checkpoint")
 
     def predict(self, x):
         """Inference forward (train mode off, nothing recorded)."""
@@ -258,14 +346,143 @@ class ShardedTrainer:
             out = self._net.forward(NDArray(self._put_batch(x)))
         return NDArray(out._data)
 
+    # -------------------------------------------------------- checkpoint ---
+    def _state_tensors(self):
+        """``{key: tensor}`` of every array entry, in key order."""
+        out = {}
+        for i, h in enumerate(self._train_handles):
+            out[f"p{i}"] = h._data
+        for i, h in enumerate(self._aux_handles):
+            out[f"a{i}"] = h._data
+        for i, per in enumerate(self._opt_state):
+            for j, s in enumerate(per):
+                out[f"s{i}_{j}"] = s
+        return out
+
+    def _ckpt_keys(self):
+        """The entry keys, positional (``collect_params`` order), so that
+        a fresh process with other gluon prefixes can resume."""
+        keys = ["__t__", "__rng_seed__", "__rng_key__", "__names__"]
+        if self._lr_scheduler is not None:
+            keys.append("__sched__")
+        return keys + list(self._state_tensors())
+
+    def _state_payload(self):
+        """The checkpoint as ``{key: NDArray}`` on the host."""
+        names = "\n".join(self._param_names + self._aux_names)
+        payload = {
+            "__t__": NDArray(torch.tensor(self._t, dtype=torch.int32)),
+            "__rng_seed__": NDArray(torch.tensor(_random.current_seed(),
+                                                 dtype=torch.int32)),
+            "__rng_key__": NDArray(_random.get_state(self._device)),
+            "__names__": _bytes_array(names.encode()),
+        }
+        if self._lr_scheduler is not None:
+            # schedulers are pure, but base_lr and the milestones ride along
+            payload["__sched__"] = _bytes_array(
+                pickle.dumps(self._lr_scheduler))
+        for key, t in self._state_tensors().items():
+            payload[key] = NDArray(t.detach().to("cpu", copy=True))
+        return payload
+
+    def save_states(self, fname):
+        """Write parameters, aux state, optimizer state, the step count,
+        the random state and the scheduler to one file in the
+        ``mx.nd.save`` container (bfloat16 as its uint16 bits), with an
+        atomic write (tmp + fsync + ``os.replace``)."""
+        from ..checkpoint import atomic_write
+
+        payload = self._state_payload()
+        atomic_write(fname, lambda tmp: _nd_utils.save(tmp, payload))
+
+    def load_states(self, fname):
+        """Restore a ``save_states`` file of this package or the JAX
+        package, into this trainer's tensors and dtypes. The key set and
+        every shape are checked before anything changes, so a failed load
+        leaves the trainer as it was."""
+        if not os.path.exists(fname):
+            raise FileNotFoundError(
+                f"trainer state file not found: {fname!r}")
+        try:
+            arrays = _nd_utils.load(fname, ctx=cpu())
+        except Exception as e:
+            raise ValueError(
+                f"corrupt trainer state file {fname!r}: "
+                f"{type(e).__name__}: {e} (truncated write? load through "
+                "CheckpointManager.resume to fall back to the previous "
+                "good checkpoint)") from e
+        expected, got = set(self._ckpt_keys()), set(arrays)
+        if expected != got:
+            raise ValueError(
+                "checkpoint does not match this trainer: missing "
+                f"{sorted(expected - got)[:5]}, unexpected "
+                f"{sorted(got - expected)[:5]} (param count or optimizer "
+                "differs)")
+        targets = self._state_tensors()
+        for key, t in targets.items():
+            if tuple(arrays[key].shape) != tuple(t.shape):
+                names = bytes(arrays["__names__"]._data.numpy()).decode()
+                raise ValueError(
+                    f"checkpoint does not match this trainer: entry "
+                    f"{key!r} has shape {tuple(arrays[key].shape)}, trainer "
+                    f"expects {tuple(t.shape)} (saved param order: {names})")
+        sched = None
+        if self._lr_scheduler is not None:
+            sched = _sched.loads(arrays["__sched__"]._data.numpy())
+        with torch.no_grad():
+            for key, t in targets.items():
+                t.copy_(arrays[key]._data)
+        self._t = int(arrays["__t__"].asscalar())
+        if sched is not None:
+            self._lr_scheduler = sched
+        _random.set_state(int(arrays["__rng_seed__"].asscalar()),
+                          arrays["__rng_key__"]._data, self._device)
+
+    def topology_meta(self):
+        """The JSON-able topology record of a checkpoint's manifest entry
+        (``meta.topology``), in the JAX package's schema. Arrays are
+        saved in host layout, so the record describes and never
+        interprets."""
+        from .. import checkpoint as _ckpt
+
+        return {"format": "canonical-host-v1",
+                "mesh": self._mesh.describe(),
+                "param_sharding": {n: [] for n in self._param_names},
+                "zero": False, "host": _ckpt.host_metadata()}
+
+    def save_checkpoint(self, manager, epoch, meta=None, data_iter=None):
+        """Write the trainer's state through a ``checkpoint.
+        CheckpointManager`` (atomic write, CRC-checked manifest entry with
+        ``meta.topology``, keep-N rotation). Returns ``{name: path}``."""
+        if data_iter is not None:
+            raise _not_ported("data_iter= (an iterator's state_dict)")
+        payload = self._state_payload()
+        meta = dict(meta or {})
+        meta.setdefault("topology", self.topology_meta())
+        return manager.save(
+            epoch, {"states": lambda tmp: _nd_utils.save(tmp, payload)},
+            step=self._t, meta=meta)
+
+    def resume(self, manager, reshard=None, data_iter=None):
+        """Restore the latest good checkpoint of ``manager`` (a corrupt
+        newest file falls back to the previous good one). Returns the
+        manifest entry, or None when none is recorded. A checkpoint from
+        any mesh of either package loads: its arrays are in host
+        layout."""
+        if reshard is not None:
+            raise _not_ported("reshard= (a mesh of one device)")
+        if data_iter is not None:
+            raise _not_ported("data_iter= (an iterator's state_dict)")
+        res = manager.resume()
+        if res is None:
+            return None
+        entry, paths = res
+        self.load_states(paths["states"])
+        return entry
+
     warmup = _unported_method("warmup", "warmup (AOT compile)")
     aot_lower = _unported_method("aot_lower", "aot_lower")
     step_report = _unported_method("step_report", "step telemetry")
     publish_to = _unported_method("publish_to", "the model bus")
     publish_update = _unported_method("publish_update", "the model bus")
-    save_states = _unported_method("save_states", "checkpoints")
-    load_states = _unported_method("load_states", "checkpoints")
-    save_checkpoint = _unported_method("save_checkpoint", "checkpoints")
-    resume = _unported_method("resume", "checkpoints")
-    topology_meta = _unported_method("topology_meta", "checkpoints")
     unshard = _unported_method("unshard", "unshard")

@@ -10,7 +10,13 @@ its own draws, not the JAX package's bits.
 
 Ported: ``seed``, ``current_seed`` and ``generator``, which imperative
 random ops draw from (``nd.Dropout``, ``nd.random.uniform`` and
-``nd.random.normal``).
+``nd.random.normal``); ``get_state`` and ``set_state``, which
+``ShardedTrainer`` checkpoints write and read under ``__rng_seed__`` and
+``__rng_key__``. The port writes its generator's own state there (uint8:
+Philox's seed and offset on the card, mt19937's state on the CPU). A
+checkpoint of the JAX package holds a threefry key instead, which no
+torch generator can continue: reading one restores the seed alone, so the
+sample stream does not cross between the packages (weights do, by name).
 """
 from __future__ import annotations
 
@@ -20,7 +26,7 @@ import torch
 
 from .context import Context
 
-__all__ = ["seed", "current_seed", "generator"]
+__all__ = ["seed", "current_seed", "generator", "get_state", "set_state"]
 
 _lock = threading.Lock()
 _seed = 0
@@ -57,3 +63,24 @@ def generator(device) -> torch.Generator:
             gen = _generators[device] = torch.Generator(device=device)
             gen.manual_seed(_seed)
         return gen
+
+
+def get_state(device) -> torch.Tensor:
+    """The state of ``device``'s generator, a uint8 CPU tensor."""
+    return generator(device).get_state()
+
+
+def set_state(seed_state, key, device) -> None:
+    """Restore what :func:`current_seed` and :func:`get_state` returned.
+    ``key`` (a tensor or numpy array) of another dtype than uint8 is a
+    JAX package's threefry key: then only the seed is restored, as by
+    :func:`seed`, and the sample stream restarts from it."""
+    global _seed
+    key = torch.as_tensor(key)
+    if key.dtype != torch.uint8:
+        seed(seed_state)
+        return
+    gen = generator(device)
+    with _lock:
+        _seed = int(seed_state)
+        gen.set_state(key.to("cpu").contiguous())

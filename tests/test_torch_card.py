@@ -28,7 +28,11 @@ run on a machine that has only PyTorch:
   holds them against the JAX package);
 * Convolution, Pooling, _contrib_AdaptiveAvgPooling2D and BatchNorm on
   the card (cuDNN, TF32 off) against the same ops on the CPU, forward and
-  gradients.
+  gradients; the ResNet path's ops on bfloat16 data against the CPU;
+* bfloat16 ``ShardedTrainer`` steps on their routes (K1 over the float32
+  tensors and masters, the plain op for bfloat16 weights without
+  ``multi_precision``), and a bfloat16 checkpoint saved and resumed on
+  the card bit for bit.
 """
 import math
 
@@ -734,3 +738,166 @@ def test_conv_pool_batchnorm_on_card_equal_cpu(cuda_device, op, shapes, kw):
         for g, w in zip(gs, ws):
             scale = max(float(np.abs(w).max()), 1.0)
             np.testing.assert_allclose(g, w, rtol=tol, atol=tol * scale)
+
+
+# ---- bfloat16 training: ops, the three routes, checkpoints ---------------
+# one bfloat16 ulp of the largest output (2**-7 of it) and two for the
+# products, whose float32 sums cuDNN and the CPU take in other orders
+BF16_ULP = 2.0 ** -7
+BF16_CASES = [
+    ("Convolution", dict(kernel=(3, 3), pad=(1, 1), num_filter=16), 2),
+    ("Pooling", dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                     pool_type="max"), 0),
+    ("Pooling", dict(kernel=(1, 1), global_pool=True, pool_type="avg"), 1),
+    ("FullyConnected", dict(num_hidden=5), 2),
+    ("BatchNorm", dict(eps=1e-5, fix_gamma=False, training=True), 1),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("op,kw,ulps", BF16_CASES)
+def test_bfloat16_ops_on_card_equal_cpu(cuda_device, op, kw, ulps):
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    rs = np.random.RandomState(11)
+    x = rs.randn(4, 8, 10, 10).astype(np.float32)
+    extra = {"Convolution": [rs.randn(16, 8, 3, 3) * 0.2, rs.randn(16)],
+             "FullyConnected": [rs.randn(5, 800) * 0.05, rs.randn(5)],
+             "BatchNorm": [rs.rand(8) + 0.5, rs.randn(8), np.zeros(8),
+                           np.ones(8)]}.get(op, [])
+    outs = []
+    for device in (cuda_device, torch.device("cpu")):
+        args = [torch.tensor(x, device=device).to(torch.bfloat16)]
+        for a in extra:
+            t = torch.tensor(np.asarray(a, np.float32), device=device)
+            args.append(t if op == "BatchNorm" else t.to(torch.bfloat16))
+        out = reg.get(op)(*args, **kw)
+        outs.append(out[0] if isinstance(out, tuple) else out)
+    got, want = (o.float().cpu().numpy() for o in outs)
+    assert outs[0].dtype == torch.bfloat16
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=ulps * BF16_ULP * np.abs(want).max())
+
+
+def _bf16_trainer(device, mp, scheduler=None):
+    from mxnet_tpu_torch.parallel import DeviceMesh, ShardedTrainer
+
+    ctx = mx.gpu(0) if device.type == "cuda" else mx.cpu()
+    net = mx.gluon.nn.HybridSequential()
+    with net.name_scope():
+        net.add(mx.gluon.nn.Conv2D(8, 3, padding=1, in_channels=3,
+                                   use_bias=False),
+                mx.gluon.nn.BatchNorm(in_channels=8),
+                mx.gluon.nn.Activation("relu"),
+                mx.gluon.nn.GlobalAvgPool2D(),
+                mx.gluon.nn.Dense(4, in_units=8))
+    net.initialize(mx.init.Xavier(), ctx=ctx,
+                   generator=torch.Generator().manual_seed(0))
+    net.cast("bfloat16")
+    params = {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4,
+              "multi_precision": mp}
+    if scheduler is not None:
+        params["lr_scheduler"] = scheduler
+    return ShardedTrainer(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                          "sgd", params,
+                          mesh=DeviceMesh({"dp": 1}, devices=[ctx]))
+
+
+def _bf16_batch(device, seed=0):
+    rs = np.random.RandomState(seed)
+    x = torch.tensor(rs.rand(8, 3, 12, 12).astype(np.float32),
+                     device=device).to(torch.bfloat16)
+    return mx.nd.NDArray(x), mx.nd.NDArray(torch.tensor(
+        rs.randint(0, 4, 8).astype(np.float32), device=device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mp", [True, False])
+def test_bfloat16_sharded_steps_take_their_routes_on_card(cuda_device, mp):
+    """K1 launches once a step over the float32 tensors (the masters
+    among them with ``multi_precision``), each on its 16-byte path; the
+    bfloat16 weights take the plain route otherwise; every weight stays
+    its master rounded."""
+    x, y = _bf16_batch(cuda_device)
+    st = _bf16_trainer(cuda_device, mp)
+    st.step(x, y)   # the first step builds K1's table
+    sgd = kernels.entry("opt_sgd").kernel
+    launches, paths = sgd.launches, dict(sgd.tensors_by_path)
+    for _ in range(3):
+        loss = st.step(x, y)
+    torch.cuda.synchronize()
+    census = st._routes.census()
+    assert census == {"float32": 2, "master": 3 * mp, "half": 3 * (not mp)}
+    assert sgd.launches - launches == 3
+    assert sgd.tensors_by_path["vec4"] - paths["vec4"] == \
+        3 * (census["float32"] + census["master"])
+    assert sgd.tensors_by_path["scalar"] == paths["scalar"]
+    assert bool(torch.isfinite(loss._data))
+    for i in st._routes.master:
+        assert torch.equal(st._train_handles[i]._data,
+                           st._opt_state[i][0].to(torch.bfloat16))
+    for g in st._grads32:
+        assert g.data_ptr() % 16 == 0
+
+
+@pytest.mark.gpu
+def test_bfloat16_checkpoint_round_trips_and_resumes_on_card(cuda_device,
+                                                             tmp_path):
+    """``save_states`` of a card trainer loads into a fresh one bit for
+    bit, with the Philox state (16 bytes) under ``__rng_key__``; with
+    deterministic cuDNN the next step of both is the same."""
+    from mxnet_tpu_torch import lr_scheduler
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        x, y = _bf16_batch(cuda_device, 1)
+        st = _bf16_trainer(cuda_device, True,
+                           lr_scheduler.MultiFactorScheduler([2], 0.1))
+        for _ in range(3):
+            st.step(x, y)
+        fname = str(tmp_path / "card.states")
+        st.save_states(fname)
+        assert st._state_payload()["__rng_key__"].size == 16
+        fresh = _bf16_trainer(cuda_device, True,
+                              lr_scheduler.MultiFactorScheduler([2], 0.1))
+        fresh.load_states(fname)
+        for a, b in zip(st._state_tensors().values(),
+                        fresh._state_tensors().values()):
+            assert a.device == b.device and torch.equal(a, b)
+        assert fresh._t == 3 and fresh.learning_rate == st.learning_rate
+        la, lb = st.step(x, y), fresh.step(x, y)
+        assert torch.equal(la._data, lb._data)
+        for a, b in zip(st._state_tensors().values(),
+                        fresh._state_tensors().values()):
+            assert torch.equal(a, b)
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+@pytest.mark.gpu
+def test_the_guard_flags_nan_and_inf_in_bfloat16_gradients_on_card(
+        cuda_device):
+    """PyTorch's fused finite check takes no bfloat16 on the card; the
+    half-precision gradients go through a multi-tensor max-norm, which
+    must carry a NaN or an infinity in any one element to the flag; and a
+    bfloat16 step on a NaN batch is skipped with nothing changed."""
+    st = _bf16_trainer(cuda_device, True)
+    loss = torch.tensor(1.0, device=cuda_device, dtype=torch.bfloat16)
+    grads = [torch.ones(33, 7, device=cuda_device, dtype=torch.bfloat16),
+             torch.ones(5, device=cuda_device)]
+    assert float(st._non_finite(loss, grads)) == 0
+    for bad in (float("nan"), float("inf"), -float("inf")):
+        g = [t.clone() for t in grads]
+        g[0][17, 3] = bad
+        assert float(st._non_finite(loss, g)) != 0, bad
+        g = [t.clone() for t in grads]
+        g[1][2] = bad
+        assert float(st._non_finite(loss, g)) != 0, bad
+    x, y = _bf16_batch(cuda_device)
+    st.step(x, y)
+    before = [t.clone() for t in st._state_tensors().values()]
+    bad = x._data.clone()
+    bad[1, 0, 2, 2] = float("nan")
+    st.step(mx.nd.NDArray(bad), y)
+    assert st.skipped_steps == 1
+    assert all(torch.equal(a, b) for a, b in
+               zip(before, st._state_tensors().values()))

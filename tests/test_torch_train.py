@@ -204,27 +204,21 @@ def test_unported_optimizers_meshes_and_methods_raise():
         ShardedTrainer(net, mx.gluon.loss.L2Loss(), "rmsprop", mesh=mesh)
     with pytest.raises(ValueError, match="Cannot find"):
         ShardedTrainer(net, mx.gluon.loss.L2Loss(), "no-such", mesh=mesh)
-    with pytest.raises(mx.MXNetError, match="lr_scheduler"):
-        ShardedTrainer(net, mx.gluon.loss.L2Loss(), "sgd",
-                       {"lr_scheduler": object()}, mesh=mesh)
-    with pytest.raises(mx.MXNetError, match="multi_precision"):
-        mx.optimizer.Adam(multi_precision=True)
     with pytest.raises(mx.MXNetError, match="NCCL"):
         DeviceMesh({"dp": 2}, devices=[CPU, mx.cpu(1)])
     with pytest.raises(ValueError, match="require 2 devices"):
         DeviceMesh({"dp": 2}, devices=[CPU])
     st = ShardedTrainer(net, mx.gluon.loss.L2Loss(), mesh=mesh)
-    for name in ("save_checkpoint", "publish_to", "warmup", "resume"):
+    for name in ("publish_to", "warmup"):
         with pytest.raises(mx.MXNetError, match="not ported"):
             getattr(st, name)(None, None)
     # the eager Optimizer.update is ported (tests/test_torch_trainer.py);
-    # the dist_async kvstore is not
+    # the dist_async kvstore is not. lr schedulers, multi_precision,
+    # bfloat16 parameters and checkpoints are ported
+    # (tests/test_torch_lr_scheduler.py, test_torch_multi_precision.py,
+    # test_torch_checkpoint.py)
     with pytest.raises(mx.MXNetError, match="dist_async"):
         mx.kv.create("dist_async")
-    bf = mx.gluon.nn.Dense(3, in_units=4, dtype="bfloat16")
-    bf.initialize(ctx=CPU)
-    with pytest.raises(mx.MXNetError, match="bfloat16"):
-        ShardedTrainer(bf, mx.gluon.loss.L2Loss(), mesh=mesh)
 
 
 def test_mesh_defaults_to_the_card_and_to_the_cpu_scope(monkeypatch):
