@@ -41,7 +41,8 @@ Phases, each printing one JSON line:
    with no copy of q, k or v.
 5. profile: one batch per bucket on the host clock, and a
    ``torch.profiler`` window over bucket-32 batches (device time by
-   kernel group, device busy share).
+   kernel group, device busy share), with the buckets' CUDA graphs
+   replayed; profile_eager: the same with the compile service off.
 6. flash_bwd: holds the two flash-attention backward kernels (dq; dk and
    dv) against the dense float32 recompute on every case and layout of
    the flash phase (dO in q's layout): each launch on the path its head
@@ -103,7 +104,19 @@ Phases, each printing one JSON line:
     be 74 int8 GEMMs per batch, all on the kernel's cp.async path, and 12
     flash forwards. Then the float32 block and the int8 graph take turns
     under the same traffic in one server (five bursts each, ABBA order),
-    and a bucket-32 int8 batch is profiled (profile_int8).
+    and a bucket-32 int8 batch is profiled (profile_int8, and
+    profile_int8_eager with the compile service off). Every bucket of
+    both served models runs as a CUDA graph captured at warmup; the
+    paired bursts run each model captured and eager (``compile.
+    set_enabled(False)``), A B B A over the four variants.
+11b. capture: the served float32 and int8 models and the classifier
+    block hybridized and called directly, each replay against the same
+    forward run eagerly on the same inputs (bit for bit), launches per
+    replayed batch (12 flash; 74 int8 GEMMs), no capture after warmup
+    under a burst, a ``set_data`` that captures anew and changes the
+    output, an in-place weight write that
+    the next replay reads, and the hybridized block's ms per call
+    captured and eager (A B B A).
 12. decode: the decode-attention kernel (K5) through
     ``mx.nd.contrib.decode_attention`` at BERT-base / GPT-2-small head
     geometry (q (32, 12, 64) against a (32, 12, 1024, 64) cache, ragged
@@ -166,11 +179,14 @@ Phases, each printing one JSON line:
     timed beside ``torch.optim.SGD(momentum=0.9, fused=True)``.
 18. resnet50_v1_infer_bf16: ``bench.py:199-223`` in bfloat16 (its
     default dtype): ``net.cast("bfloat16")``, ``hybridize(static_alloc=
-    True, static_shape=True)``, a batch of 128, 2 warm-up and 20 timed
-    forwards: img/s, peak memory; top-1 agreement and the largest logit
+    True, static_shape=True)`` (the forward captured as one CUDA graph),
+    a batch of 128, 2 warm-up and 20 timed forwards, captured and eager
+    in A B B A order, the replay against the eager forward: img/s both
+    ways, peak memory; top-1 agreement and the largest logit
     gap against the float32 forward of the same weights on the same
     batch; what cuBLAS's reduced-precision bfloat16 reductions (pinned
-    off in every phase) would change.
+    off in every phase) would change; three rounds of a training-mode
+    forward and an evaluation, which keep one graph and flat pools.
 19. resnet50_v1_train_bf16: resnet50_v1_train with bench.py's default
     dtype, no ``multi_precision``: the same figures, the route census
     (87 bfloat16 tensors through the plain ``sgd_mom_update``, K1 one
@@ -226,6 +242,7 @@ import numpy as np
 import torch
 
 import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import compile as compile_service
 from mxnet_tpu_torch import kernels, serving
 from mxnet_tpu_torch.convert import export_params, load_jax_params
 from mxnet_tpu_torch.gluon.model_zoo import vision
@@ -756,28 +773,63 @@ def _burst(server, model, payloads):
     return answers, wall, counts, stats
 
 
+def _pool_bytes():
+    """Device bytes the caching allocator holds beyond live tensors once
+    its unused cached blocks are released: with CUDA graphs captured,
+    mostly their private memory pools."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+
+
+def _eager(fn, *args):
+    """``fn(*args)`` with the compile service off: the forwards run
+    eagerly, op by op (the explicit eager route)."""
+    prev = compile_service.set_enabled(False)
+    try:
+        return fn(*args)
+    finally:
+        compile_service.set_enabled(prev)
+
+
 def _paired_bursts(models, payloads, pairs=5):
-    """Alternating bursts (ABBA order) of the same traffic through one
-    server over ``models``: rows/s, p50 and p99 of each burst, and the
-    median of each model's bursts."""
+    """Alternating bursts of the same traffic through one server over
+    ``models``, each model with its buckets' graphs replayed
+    ("captured") and with the compile service off ("eager"), in A B B A
+    order over the variants: rows/s, p50 and p99 of each burst, the
+    median of each variant's bursts, and the serving site's new entries
+    over all the bursts (0: every bucket was captured by warmup)."""
     from mxnet_tpu_torch.serving.metrics import percentile
 
     server = serving.ModelServer(serving.ModelContainer(models)).start()
+    pools = _pool_bytes()
     server.warmup()
+    pools = _pool_bytes() - pools
+    misses = compile_service.stats()["serving"]["misses"]
     rows = sum(x.shape[0] for row in payloads for x in row)
-    runs = {m.name: [] for m in models}
+    variants = [(m, mode) for m in models for mode in ("captured", "eager")]
+    runs = {f"{m.name}/{mode}": [] for m, mode in variants}
     for i in range(pairs):
-        for m in (models if i % 2 == 0 else models[::-1]):
-            _, wall, _, stats = _burst(server, m, payloads)
+        for m, mode in (variants if i % 2 == 0 else variants[::-1]):
+            if mode == "eager":
+                _, wall, _, stats = _eager(_burst, server, m, payloads)
+            else:
+                _, wall, _, stats = _burst(server, m, payloads)
             lat = stats["burst_latency_ms"]
-            runs[m.name].append({"rows_per_s": rows / wall,
-                                 "p50_ms": percentile(lat, 50),
-                                 "p99_ms": percentile(lat, 99)})
+            runs[f"{m.name}/{mode}"].append({"rows_per_s": rows / wall,
+                                             "p50_ms": percentile(lat, 50),
+                                             "p99_ms": percentile(lat, 99)})
     if not server.drain(timeout=60):
         raise RuntimeError("server did not drain")
-    return {name: {"bursts": r, **{k: statistics.median(b[k] for b in r)
-                                   for k in r[0]}}
-            for name, r in runs.items()}
+    out = {name: {"bursts": r, **{k: statistics.median(b[k] for b in r)
+                                  for k in r[0]}}
+           for name, r in runs.items()}
+    out["serving_misses_during_bursts"] = \
+        compile_service.stats()["serving"]["misses"] - misses
+    out["graph_pool_bytes_added_by_warmup"] = pools
+    if out["serving_misses_during_bursts"]:
+        raise AssertionError(f"paired bursts captured after warmup: {out}")
+    return out
 
 
 def _serve_summary(stats, rows, wall, peak, before):
@@ -800,12 +852,14 @@ def phase_serve(smi):
     load_jax_params(clf, weights)
     t_weights = time.perf_counter() - t0
 
+    pools = _pool_bytes()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     model = serving.ServedModel.from_block("bert_base_sst2", clf,
                                            example_shape=(cfg["seq_len"],))
     server = serving.ModelServer(serving.ModelContainer([model])).start()
     warm = server.warmup()
+    pools = _pool_bytes() - pools
     payloads = _traffic(cfg)
     copies = flash.flash_forward.copies
     answers, wall, counts, stats = _burst(server, model, payloads)
@@ -850,6 +904,8 @@ def phase_serve(smi):
     summary = _serve_summary(stats, rows, wall, peak, before)
     emit({"phase": "serve", "card": smi, "params": int(n_params),
           "weights_s": t_weights, "warmup": warm["models"][model.name],
+          "capture": model.capture_stats(), "graph_pool_bytes": pools,
+          "memory_reserved_after": torch.cuda.memory_reserved(),
           **summary, "flash_launches": launches,
           "flash_launches_mma": counts["flash_attention.mma"],
           "flash_input_copies": copies,
@@ -901,11 +957,16 @@ def _device_split(prof, reps):
     return groups, [[k[:80], v] for k, v in top]
 
 
-def phase_profile(model, smi, reps=3, phase="profile"):
+def phase_profile(model, smi, reps=3, phase="profile", eager=False):
     """Where a served batch's time goes: host-clock ms of one batch per
     bucket (``ServedModel.run``, which waits for the answer), then a
     ``torch.profiler`` window over ``reps`` bucket-32 batches: device
-    time by kernel group and the device's busy share of the window."""
+    time by kernel group and the device's busy share of the window. By
+    default the buckets replay their graphs; ``eager`` runs them op by op
+    (the compile service off). ``kernel_groups_seen`` says which groups
+    the profiler saw (inside a replay, the graph's kernels)."""
+    if eager:
+        return _eager(phase_profile, model, smi, reps, phase)
     from torch.profiler import ProfilerActivity, profile
 
     bucket_ms = {}
@@ -925,12 +986,14 @@ def phase_profile(model, smi, reps=3, phase="profile"):
         window_ms = (time.perf_counter() - t0) * 1e3
     groups, top = _device_split(prof, reps)
     device_ms = sum(groups.values()) / 1e3
-    out = {"bucket_ms": bucket_ms, "bucket": model.max_bucket,
+    out = {"captured": compile_service.enabled(),
+           "bucket_ms": bucket_ms, "bucket": model.max_bucket,
            "window_ms_per_batch": window_ms / reps,
            "device_ms_per_batch": device_ms if groups else "not measured",
            "device_busy_share": device_ms * reps / window_ms
            if groups else "not measured",
            "device_us_by_group": groups, "top_kernels_us": top,
+           "kernel_groups_seen": sorted(groups),
            "top_host_ops_us_calls": _host_split(prof, reps)}
     emit({"phase": phase, "card": smi, "model": model.name, **out})
     return out
@@ -1765,6 +1828,7 @@ def phase_serve_int8(smi, float_serve=None):
         census = quantization.last_quantization()["ops"]
         calib = quantization.last_calibration()
 
+        pools = _pool_bytes()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_allocated()
         container = serving.ModelContainer()
@@ -1772,6 +1836,7 @@ def phase_serve_int8(smi, float_serve=None):
                                          example_shape=(cfg["seq_len"],))
         server = serving.ModelServer(container).start()
         warm = server.warmup()
+        pools = _pool_bytes() - pools
         info = server.model_info()[model.name]
         payloads = _traffic(cfg)
         answers, wall, counts, stats = _burst(server, model, payloads)
@@ -1780,10 +1845,11 @@ def phase_serve_int8(smi, float_serve=None):
             raise RuntimeError("server did not drain")
         with mx.cpu():
             _, cpu_args, _ = mx.model.load_checkpoint(prefix, 0)
-        # the float32 block and the int8 graph, same traffic, one server
-        paired = _paired_bursts([serving.ServedModel.from_block(
-            "float32", clf, example_shape=(cfg["seq_len"],)), model],
-            payloads)
+        # the float32 block and the int8 graph, same traffic, one server,
+        # each captured and eager
+        float_model = serving.ServedModel.from_block(
+            "float32", clf, example_shape=(cfg["seq_len"],))
+        paired = _paired_bursts([float_model, model], payloads)
 
     rows = sum(x.shape[0] for row in payloads for x in row)
     # every int8 product of every served batch on the cp.async path
@@ -1851,6 +1917,9 @@ def phase_serve_int8(smi, float_serve=None):
                           "launches": {k: v for k, v in calib_counts.items()
                                        if v}},
           "census": census, "warmup": warm["models"][model.name],
+          "capture": model.capture_stats(),
+          "float32_capture": float_model.capture_stats(),
+          "graph_pool_bytes": pools,
           "weight_dtype": stats["weight_dtype"], "model_info": info,
           **summary, "launches": got_counts,
           "launches_per_batch": {k: v / stats["batches"]
@@ -1868,7 +1937,145 @@ def phase_serve_int8(smi, float_serve=None):
                                           "fill_ratio",
                                           "memory_allocated_before",
                                           "max_memory_allocated")}})
-    return dict(summary, int8_launches=got_counts["int8_gemm"]), model
+    return dict(summary, int8_launches=got_counts["int8_gemm"],
+                paired=paired), model, float_model, clf
+
+
+def _held(got, want, what):
+    """A replay against the eager forward on the same inputs: bit for
+    bit (the same shapes on the same card run the same kernels)."""
+    if not torch.equal(got, want):
+        diff = float((got.float() - want.float()).abs().max())
+        raise AssertionError(f"{what}: replay differs from the eager "
+                             f"forward by {diff}")
+    return {"bit_equal": True}
+
+
+def _launches_per_call(fn, calls=3):
+    """Kernel launches of one call of ``fn`` (the mean over ``calls``)."""
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return {k: v / calls for k, v in kernels.launch_counts().items() if v}
+
+
+def _abba_ms(fns, iters=10):
+    """Mean ms per call of each of ``fns`` (name -> callable), by CUDA
+    events, in A B B A order (two rounds of ``iters`` calls each)."""
+    times = {name: [] for name in fns}
+    order = list(fns)
+    for names in (order, order[::-1]):
+        for name in names:
+            times[name].append(cuda_ms(fns[name], iters=iters, warmup=2))
+    return {name: statistics.mean(t) for name, t in times.items()}
+
+
+def phase_capture(smi, float_model, int8_model, clf):
+    """The captured forwards against the same forwards run eagerly
+    (``compile.set_enabled(False)``), on the same inputs: the float32 and
+    int8 served models at every bucket (their graphs captured by the
+    serve_int8 phase's warmups), and the classifier block hybridized and
+    called directly. Bit for bit; launches per replayed batch (12 flash,
+    74 int8 GEMMs); no capture after warmup under a burst; a
+    ``set_data`` that captures anew in place of the old entry and
+    changes the output; an in-place write the replay reads."""
+    cfg = BERT_BASE
+    rows, _ = make_task(32, cfg["seq_len"], cfg["vocab"], cfg["num_classes"],
+                        seed=2)
+    flash12 = {"flash_attention": cfg["layers"],
+               "flash_attention.mma": cfg["layers"]}
+    out = {"phase": "capture", "card": smi}
+    for model, want in (
+            (float_model, flash12),
+            (int8_model,
+             dict(flash12, **{"int8_gemm": INT8_LAUNCHES,
+                              "int8_gemm.async": INT8_LAUNCHES}))):
+        misses = compile_service.stats()["serving"]["misses"]
+        held = {}
+        for b in model.buckets:
+            got = model.run(rows[:b])[0]
+            eager = _eager(model.run, rows[:b])[0]
+            held[b] = _held(torch.from_numpy(got), torch.from_numpy(eager),
+                            f"{model.name} bucket {b}")
+        x = model.host_batch(model.max_bucket)
+        replay = _launches_per_call(lambda: model.run(x))
+        eager = _launches_per_call(lambda: _eager(model.run, x))
+        if replay != want or eager != want:
+            raise AssertionError(f"{model.name}: launches per batch "
+                                 f"{replay} replayed, {eager} eager; want "
+                                 f"{want}")
+        if compile_service.stats()["serving"]["misses"] != misses:
+            raise AssertionError(f"{model.name}: a bucket captured anew")
+        out[model.name] = {"replay_vs_eager": held,
+                           "launches_per_replayed_batch": replay,
+                           "capture": model.capture_stats()}
+
+    # no capture after warmup, under a burst of each model
+    server = serving.ModelServer(serving.ModelContainer(
+        [float_model, int8_model])).start()
+    server.warmup()
+    misses = compile_service.stats()["serving"]["misses"]
+    payloads = _traffic(cfg)
+    for model in (float_model, int8_model):
+        _, _, counts, stats = _burst(server, model, payloads)
+        want = cfg["layers"] * stats["batches"]
+        if counts["flash_attention"] != want:
+            raise AssertionError(f"{model.name}: {counts} for "
+                                 f"{stats['batches']} replayed batches")
+    if not server.drain(timeout=60):
+        raise RuntimeError("server did not drain")
+    out["serving_misses_after_warmup_under_bursts"] = \
+        compile_service.stats()["serving"]["misses"] - misses
+    if out["serving_misses_after_warmup_under_bursts"]:
+        raise AssertionError("a burst captured after warmup")
+
+    # the classifier block, hybridized and called directly
+    clf.hybridize()
+    site0 = dict(compile_service.stats().get("cachedop", {"captures": 0}))
+    block = {}
+    for b in (2, 32):
+        x = mx.nd.array(rows[:b])
+        first, again = clf(x)._data, clf(x)._data
+        eager = _eager(clf, x)._data
+        block[b] = _held(first, eager, f"hybridized classifier batch {b}")
+        if not torch.equal(first, again):
+            raise AssertionError("two replays of one batch differ")
+    x = mx.nd.array(rows)
+    replay = _launches_per_call(lambda: clf(x))
+    if replay != flash12:
+        raise AssertionError(f"hybridized classifier: {replay} per call")
+    ms = _abba_ms({"captured": lambda: clf(x),
+                   "eager": lambda: _eager(clf, x)})
+    st1 = dict(compile_service.stats()["cachedop"])
+    y0 = clf(x)._data
+    w = clf.out.weight
+    w.set_data(w.data().asnumpy() * 2.0)            # a new tensor
+    y1 = clf(x)._data
+    st2 = dict(compile_service.stats()["cachedop"])
+    rebind = _held(y1, _eager(clf, x)._data, "after set_data")
+    with torch.no_grad():
+        clf.pool.weight.data()._data.mul_(0.5)      # the same tensor
+    y2 = clf(x)._data
+    st3 = dict(compile_service.stats()["cachedop"])
+    in_place = _held(y2, _eager(clf, x)._data, "after an in-place write")
+    if st2["captures"] - st1["captures"] != 1 or torch.equal(y0, y1):
+        raise AssertionError(f"set_data: {st1} -> {st2}")
+    if st3["captures"] != st2["captures"] or torch.equal(y1, y2):
+        raise AssertionError(f"in-place write: {st2} -> {st3}")
+    clf.hybridize(False)
+    out["hybridized_classifier"] = {
+        "replay_vs_eager": block, "launches_per_call": replay,
+        "ms_per_call_batch_32": ms,
+        "captures": st3["captures"] - site0["captures"],
+        "set_data": {"captures_added": st2["captures"] - st1["captures"],
+                     **rebind},
+        "in_place_write": {"captures_added": 0, "hits_added":
+                           st3["hits"] - st2["hits"], **in_place}}
+    out["compile_stats"] = compile_service.stats()
+    emit(out)
+    return out
 
 
 # (B, H, S, D), dtype: the main shape in both dtypes, then S not a
@@ -3306,34 +3513,90 @@ def _resnet50_train(smi, phase, dtype, mp):
     return out
 
 
+def _train_then_evaluate(net, x, graph_bytes, rounds=3):
+    """Rounds of a training-mode forward (BatchNorm rebinds its running
+    statistics) and an evaluation of the hybridized ``net``: each
+    evaluation captures anew in place of the stale graph, so the op
+    keeps one entry and the allocator's graph pools stay within half a
+    graph (``graph_bytes``) of where they started; each replay equals
+    the eager forward with the new statistics."""
+    op = net._cached_op
+    st0, pool0 = op.stats(), _pool_bytes()
+    pool = []
+    for i in range(rounds):
+        with mx.autograd.train_mode():
+            net(x)
+        _held(net(x)._data, _eager(net, x)._data,
+              f"evaluation after training round {i}")
+        pool.append(_pool_bytes())
+    st = op.stats()
+    grew = max(pool) - pool0
+    if len(st["entries"]) != 1 or st["captures"] - st0["captures"] != \
+            rounds or grew > graph_bytes / 2:
+        raise AssertionError(
+            f"train then evaluate: {len(st['entries'])} entries, "
+            f"{st['captures'] - st0['captures']} captures in {rounds} "
+            f"rounds, graph pools grew by {grew} bytes (one graph: "
+            f"{graph_bytes})")
+    return {"rounds": rounds, "entries": len(st["entries"]),
+            "captures": st["captures"] - st0["captures"],
+            "capture_ms": st["capture_ms"] - st0["capture_ms"],
+            "pool_bytes_before": pool0, "pool_bytes_after_each": pool}
+
+
 def phase_resnet50_infer_bf16(smi):
     """resnet50_v1_infer_bf16: ``bench.py:199-223`` in bfloat16 through
     the port: the seeded model, Xavier weights, ``net.cast("bfloat16")``,
     ``hybridize(static_alloc=True, static_shape=True)``, a batch of 128
-    from ``nd.random.uniform`` cast to bfloat16, 2 warm-up and 20 timed
-    forwards (host clock to a synchronise): img/s and peak memory. Then
-    the same weights widened to float32 in a second net and the same
+    from ``nd.random.uniform`` cast to bfloat16, 2 warm-up forwards (the
+    first resolves the deferred shapes eagerly, the second captures the
+    forward as one CUDA graph) and 20 timed ones (host clock to a
+    synchronise): img/s and peak memory. The same 20 forwards eagerly
+    (``compile.set_enabled(False)``), in A B B A order with the replays,
+    and the replay against the eager forward, bit for bit. Then the same
+    weights widened to float32 in a second net and the same
     (bfloat16-rounded) batch: top-1 agreement and the largest logit gap;
-    and one forward with cuBLAS's reduced-precision bfloat16 reductions
+    one forward with cuBLAS's reduced-precision bfloat16 reductions
     allowed, against the pinned run (only the Dense product reads that
-    switch: cuDNN's convolutions do not)."""
+    switch: cuDNN's convolutions do not); and three rounds of a
+    training-mode forward and an evaluation (``_train_then_evaluate``:
+    one graph kept, pools flat)."""
     cfg, b = RESNET50, RESNET50_BF16
     dev = mx.gpu(0)
     net, x, _ = _resnet50_net(cfg, dev, "bfloat16")
     net.hybridize(static_alloc=True, static_shape=True)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    pools = _pool_bytes()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     for _ in range(b["infer_warmup"]):
         net(x)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outs = [net(x) for _ in range(b["infer_iters"])]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    peak_warmup = torch.cuda.max_memory_allocated()
+    pools = _pool_bytes() - pools
+    torch.cuda.reset_peak_memory_stats()
+    capture = net._cached_op.stats()
+    if capture["captures"] != 1:
+        raise AssertionError(f"resnet50_v1_infer_bf16: {capture}")
+
+    def timed(outs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[:] = [net(x) for _ in range(b["infer_iters"])]
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    walls = {"captured": [], "eager": []}
+    outs, eager_outs = [], []
+    for mode in ("captured", "eager", "eager", "captured"):
+        if mode == "eager":
+            walls[mode].append(_eager(timed, eager_outs))
+        else:
+            walls[mode].append(timed(outs))
+    wall = statistics.mean(walls["captured"])
+    wall_eager = statistics.mean(walls["eager"])
     peak = torch.cuda.max_memory_allocated()
     logits = outs[-1]._data.float()
+    held = _held(outs[-1]._data, eager_outs[-1]._data,
+                 "resnet50_v1_infer_bf16")
     if tuple(logits.shape) != (cfg["batch"], cfg["classes"]) or \
             not bool(torch.isfinite(logits).all()):
         raise AssertionError("resnet50_v1_infer_bf16: logits not finite "
@@ -3352,6 +3615,7 @@ def phase_resnet50_infer_bf16(smi):
     finally:
         torch.backends.cuda.matmul.\
             allow_bf16_reduced_precision_reduction = False
+    train_eval = _train_then_evaluate(net, x, pools)
     gap = float((logits - ref).abs().max())
     agree = float((logits.argmax(1) == ref.argmax(1)).float().mean())
     out = {"phase": "resnet50_v1_infer_bf16", "card": smi,
@@ -3359,6 +3623,12 @@ def phase_resnet50_infer_bf16(smi):
            "iters": b["infer_iters"],
            "img_per_s": cfg["batch"] * b["infer_iters"] / wall,
            "ms_per_batch": wall / b["infer_iters"] * 1e3,
+           "img_per_s_eager": cfg["batch"] * b["infer_iters"] / wall_eager,
+           "ms_per_batch_eager": wall_eager / b["infer_iters"] * 1e3,
+           "walls_s_abba": walls, "capture": capture,
+           "replay_vs_eager": held, "graph_pool_bytes": pools,
+           "train_then_evaluate": train_eval,
+           "max_memory_allocated_warmup_and_capture": peak_warmup,
            "memory_allocated_before": before, "max_memory_allocated": peak,
            "top1_agreement_with_float32": agree,
            "max_logit_gap_vs_float32": gap,
@@ -3366,13 +3636,14 @@ def phase_resnet50_infer_bf16(smi):
            "reduced_precision_reduction_max_logit_change": float(
                (reduced - logits).abs().max())}
     emit(out)
-    del net, x, outs
+    del net, x, outs, eager_outs
     torch.cuda.empty_cache()
     return out
 
 
 PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
-          "int8_gemm", "serve_int8", "decode", "twobit", "dist_check",
+          "int8_gemm", "serve_int8", "capture", "decode", "twobit",
+          "dist_check",
           "dist_train", "resnet_check", "resnet50_v1_train",
           "resnet50_v1_infer_bf16", "resnet50_v1_train_bf16",
           "resnet50_v1_train_bf16_mp", "resnet_check_bf16", "resnet_resume")
@@ -3415,7 +3686,10 @@ def main(argv=None):
         done["flash"] = phase_flash()
     if "serve" in phases:
         done["serve"], model = phase_serve(smi)
-        phase_profile(model, smi)
+        done["profile"] = phase_profile(model, smi)
+        done["profile_eager"] = phase_profile(model, smi,
+                                              phase="profile_eager",
+                                              eager=True)
         del model  # its weights would count in the train phase's peak
     if "flash_bwd" in phases:
         done["flash_bwd"] = phase_flash_bwd()
@@ -3428,9 +3702,19 @@ def main(argv=None):
     if "int8_gemm" in phases:
         done["int8_gemm"] = phase_int8_gemm()
     if "serve_int8" in phases:
-        done["serve_int8"], model = phase_serve_int8(smi, done.get("serve"))
-        phase_profile(model, smi, phase="profile_int8")
-        del model
+        done["serve_int8"], model, float_model, clf = phase_serve_int8(
+            smi, done.get("serve"))
+        done["profile_int8"] = phase_profile(model, smi,
+                                             phase="profile_int8")
+        done["profile_int8_eager"] = phase_profile(
+            model, smi, phase="profile_int8_eager", eager=True)
+        if "capture" in phases:
+            done["capture"] = phase_capture(smi, float_model, model, clf)
+        del model, float_model, clf
+        torch.cuda.empty_cache()
+    elif "capture" in phases:
+        raise SystemExit("the capture phase needs serve_int8's models: "
+                         "run it with --phases serve_int8,capture")
     if "decode" in phases:
         done["decode"] = phase_decode()
     if "twobit" in phases:
@@ -3455,18 +3739,24 @@ def main(argv=None):
         done["resnet_check_bf16"] = phase_resnet_check_bf16()
     if "resnet_resume" in phases:
         done["resnet_resume"] = phase_resnet_resume()
-    if set(done) != set(PHASES):
+    if not set(PHASES) <= set(done):
         print(f"phases run: {sorted(done)}; no result line", flush=True)
         return 1
     fwd, bwd, opt = done["flash"], done["flash_bwd"], done["opt"]
     train, sgd_launches = done["train"], done["train_check"]
+    # K3 and K4 run inside the served buckets' CUDA graphs (this slice):
+    # their launches are the replays' counts
+    cap = done["capture"]
     lines = [
         _kernel_line("flash_attention", "flash_attention.cu",
                      "mxnet_tpu/kernels/flash.py:38",
                      done["serve"]["flash_launches"],
                      fwd["max_abs_err"], fwd["kernel_ms"], fwd["plain_ms"],
                      (fwd["bound_tc_ms"], fwd["bound_tc_by"]),
-                     fwd["library_ms"], bound_f32_ms=fwd["bound_ms"])]
+                     fwd["library_ms"], bound_f32_ms=fwd["bound_ms"],
+                     captured=True, launches_per_replayed_batch=cap[
+                         "float32"]["launches_per_replayed_batch"][
+                         "flash_attention"])]
     # K3 and K3-bwd run every product on the tensor cores (3xTF32): their
     # bound is the tensor-core one; the float32 rate's stays beside it
     for part in ("dq", "dkv"):
@@ -3518,7 +3808,9 @@ def main(argv=None):
     lines.append(_kernel_line(
         "int8_gemm", "int8_gemm.cu", "mxnet_tpu/kernels/int8_gemm.py:86",
         done["serve_int8"]["int8_launches"], 0.0, k4["ms"], k4["plain_ms"],
-        (k4["bound_ms"], k4["bound_by"]), k4["library_ms"]))
+        (k4["bound_ms"], k4["bound_by"]), k4["library_ms"], captured=True,
+        launches_per_replayed_batch=cap["bert_base_sst2_int8"][
+            "launches_per_replayed_batch"]["int8_gemm"]))
     dec = done["decode"]
     lines.append(_kernel_line(
         "decode_attention", "decode_attention.cu",

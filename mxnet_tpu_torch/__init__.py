@@ -39,10 +39,12 @@ from . import parallel
 from . import serving
 from . import convert
 from . import checkpoint
+from . import compile
+from . import cached_op
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "autograd", "random", "nd", "ndarray",
            "NDArray", "initializer", "init", "kernels", "name", "symbol",
            "sym", "gluon", "io", "model", "contrib", "lr_scheduler",
            "optimizer", "kvstore", "kv", "parallel", "serving", "convert",
-           "checkpoint", "__version__"]
+           "checkpoint", "compile", "cached_op", "__version__"]

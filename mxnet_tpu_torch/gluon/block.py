@@ -3,9 +3,19 @@
 Counterpart of ``mxnet_tpu/gluon/block.py``: name scopes and prefixes,
 child and parameter registration by attribute assignment,
 ``collect_params`` and the structural (attribute-path) parameter names
-of ``_collect_params_with_structure``. ``HybridBlock.hybridize()`` only
-sets a flag in this slice: the forward always runs eagerly. Capturing
-it (CUDA graphs, a compile service) is later work.
+of ``_collect_params_with_structure``.
+
+``HybridBlock.hybridize()`` (JAX :231-300) attaches a
+:class:`~mxnet_tpu_torch.cached_op.CachedOp` at the next call: on a CUDA
+card each input signature's inference forward is captured into one CUDA
+graph and replayed (``compile.py``, site ``"cachedop"``); on the CPU it
+is a plain call with the same keys. It stays eager for the first call
+of a block whose parameter shapes are deferred (as in JAX; here its
+children too, where the JAX package compiles the ones that have no
+deferred parameters), for calls
+under ``autograd.record()`` or in training mode (the training slice
+captures those), inside an outer capture (the child runs into the
+parent's graph) and when ``compile.set_enabled(False)``.
 
 A HybridBlock called on a Symbol traces its ``hybrid_forward`` over the
 ``mx.sym`` namespace into a graph (:301-315); ``export`` (:332) writes
@@ -19,6 +29,8 @@ import re
 import threading
 from collections import OrderedDict
 
+from .. import compile as _compile
+from ..cached_op import CachedOp
 from .parameter import DeferredInitializationError, Parameter, ParameterDict
 
 __all__ = ["Block", "HybridBlock", "SymbolBlock"]
@@ -191,14 +203,52 @@ class HybridBlock(Block):
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._active = False
+        self._cached_op = None
 
     def hybridize(self, active=True, **kwargs):
-        """Records the flag on this block and its children; the forward
-        still runs eagerly in this slice."""
+        """Turn captured execution on (or off) for this block and its
+        children, dropping any cached op. ``static_alloc`` and
+        ``static_shape`` are accepted and change nothing: a CUDA graph
+        always runs on static memory and shapes."""
         self._active = active
+        self._cached_op = None
         for child in self._children.values():
             if isinstance(child, HybridBlock):
                 child.hybridize(active, **kwargs)
+
+    def _clear_cached_op(self):
+        self._cached_op = None
+        for child in self._children.values():
+            if isinstance(child, HybridBlock):
+                child._clear_cached_op()
+
+    def cast(self, dtype):
+        self._clear_cached_op()
+        super().cast(dtype)
+
+    def __call__(self, *args):
+        from ..symbol import Symbol
+
+        if any(isinstance(a, Symbol) for a in args):
+            return self.forward(*args)  # tracing a graph
+        if self._active and not _compile.inside():
+            if self._cached_op is not None:  # hot path: no tree walk
+                return self._cached_op(*args)
+            tree_params = self.collect_params()
+            if any(p._data is None for p in tree_params.values()):
+                # the first call resolves deferred shapes eagerly, children
+                # included (one without parameters would capture itself);
+                # capture from the next call
+                with _compile.nested():
+                    return self.forward(*args)
+            self._build_cache(tree_params)
+            return self._cached_op(*args)
+        return self.forward(*args)
+
+    def _build_cache(self, tree_params):
+        """JAX :290-300: this block's forward as a CachedOp over its
+        tree's parameters."""
+        self._cached_op = CachedOp(self.forward, list(tree_params.values()))
 
     def infer_shape(self, *args):
         """Resolve deferred parameter shapes from the inputs; layers

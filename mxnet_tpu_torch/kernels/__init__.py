@@ -21,19 +21,31 @@ and no fallback: on the card the kernel launches or the call raises.
 ``meta`` tensors, which carry shapes and no data (the symbol's shape
 inference), take the plain version too. Tensors on mixed or other
 devices raise :class:`DeviceError`, an ``MXNetError``.
+
+Every counter on a wrapper (``launches``, ``launches_by_path``,
+``copies``, ``tensors_by_path``) moves through :func:`count`. On a
+thread that is capturing a CUDA graph (``compile.py``) nothing is
+launched: inside :func:`recording` the counts go to the capture's
+record, and each replay of the graph adds that record to the counters
+(:func:`add_counts`). So the counters always count what ran on the card.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
+import threading
 
 import torch
 
 from ..base import MXNetError
 
 __all__ = ["register_kernel", "dispatch", "entry", "launch_counts",
-           "reset_launch_counts", "DeviceError"]
+           "reset_launch_counts", "count", "recording", "add_counts",
+           "DeviceError"]
 
 _FAMILIES: dict = {}
+_tls = threading.local()
+_count_lock = threading.Lock()  # wrappers count from several threads
 
 
 class DeviceError(MXNetError, ValueError):
@@ -107,6 +119,40 @@ def launch_counts():
         for path, n in getattr(e.kernel, "launches_by_path", {}).items():
             counts[f"{f}.{path}"] = n
     return counts
+
+
+def count(fn, attr="launches", path=None, n=1):
+    """Add ``n`` to the wrapper ``fn``'s counter ``attr`` (to its entry
+    ``path`` when the counter is a dict), or to this thread's capture
+    record inside :func:`recording`."""
+    record = getattr(_tls, "record", None)
+    if record is not None:
+        key = (fn, attr, path)
+        record[key] = record.get(key, 0) + n
+        return
+    with _count_lock:
+        if path is None:
+            setattr(fn, attr, getattr(fn, attr) + n)
+        else:
+            getattr(fn, attr)[path] += n
+
+
+@contextlib.contextmanager
+def recording():
+    """Within the scope, this thread's counts go to the dict it yields,
+    ``{(wrapper, counter, path): n}``, instead of the counters."""
+    prev = getattr(_tls, "record", None)
+    _tls.record = {}
+    try:
+        yield _tls.record
+    finally:
+        _tls.record = prev
+
+
+def add_counts(record):
+    """Add a :func:`recording`'s counts to the counters (one replay)."""
+    for (fn, attr, path), n in record.items():
+        count(fn, attr, path, n)
 
 
 def reset_launch_counts():

@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, count
 
 __all__ = ["decode_attention", "decode_attention_plain"]
 
@@ -107,7 +107,7 @@ def decode_attention(q, k, v, lengths, scale):
         raise RuntimeError(f"decode_attention: kernel launch failed with "
                            f"CUDA error {rc} for q{tuple(q.shape)} "
                            f"k{tuple(k.shape)} {q.dtype}")
-    decode_attention.launches += 1
+    count(decode_attention)
     return out
 
 

@@ -67,7 +67,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, count
 
 __all__ = ["flash_attention", "FlashAttentionFunction",
            "flash_attention_plain", "flash_backward_plain", "flash_forward",
@@ -222,7 +222,7 @@ def _operands(fn, *ts):
     out = []
     for t in ts:
         if not _readable(t):
-            fn.copies += 1
+            count(fn, "copies")
             t = _dense(t)
         out.append(t)
     return out
@@ -276,8 +276,8 @@ def flash_forward(q, k, v, scale, causal=False, with_lse=False):
             *_strides(q, k, v, out), float(scale), int(bool(causal)),
             _DTYPE_CODES[q.dtype])
     path = _call("mxtt_flash_attention_forward", "flash_forward", q, args)
-    flash_forward.launches += 1
-    flash_forward.launches_by_path[path] += 1
+    count(flash_forward)
+    count(flash_forward, "launches_by_path", path)
     return (out, lse) if with_lse else out
 
 
@@ -330,8 +330,8 @@ def flash_backward_dq(q, k, v, o, lse, do, scale, causal=False):
             b, h, sq, k.shape[2], d, *_strides(q, k, v, o, do, dq),
             float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype])
     path = _call("mxtt_flash_attention_bwd_dq", "flash_backward_dq", q, args)
-    flash_backward_dq.launches += 1
-    flash_backward_dq.launches_by_path[path] += 1
+    count(flash_backward_dq)
+    count(flash_backward_dq, "launches_by_path", path)
     return dq, dsum
 
 
@@ -352,8 +352,8 @@ def flash_backward_dkv(q, k, v, lse, dsum, do, scale, causal=False):
             float(scale), int(bool(causal)), _DTYPE_CODES[q.dtype])
     path = _call("mxtt_flash_attention_bwd_dkv", "flash_backward_dkv", q,
                  args)
-    flash_backward_dkv.launches += 1
-    flash_backward_dkv.launches_by_path[path] += 1
+    count(flash_backward_dkv)
+    count(flash_backward_dkv, "launches_by_path", path)
     return dk, dv
 
 

@@ -30,7 +30,7 @@ import ctypes
 
 import torch
 
-from . import build
+from . import build, count
 
 __all__ = ["int8_gemm", "int8_gemm_plain", "tile_config"]
 
@@ -151,8 +151,9 @@ def int8_gemm(qx, weight, scale_eff, bias=None, relu=False, tile_n=0):
     if rc != 0:
         raise RuntimeError(f"int8_gemm: kernel launch failed with CUDA error "
                            f"{rc} at M={m} N={n} K={k}")
-    int8_gemm.launches += 1
-    int8_gemm.launches_by_path["async" if path.value == 1 else "staged"] += 1
+    count(int8_gemm)
+    count(int8_gemm, "launches_by_path",
+          "async" if path.value == 1 else "staged")
     return out
 
 

@@ -63,7 +63,7 @@ import numpy as _np
 import torch
 
 from ..ops import optimizer_op as _op
-from . import DeviceError, build
+from . import DeviceError, build, count
 
 __all__ = ["opt_sgd", "opt_adam", "opt_sgd_plain", "opt_adam_plain", "plan",
            "Plan"]
@@ -318,7 +318,8 @@ def _step(fn, family, symbol, floats, lists, lr, wds, skip):
         # a copy only for a gradient that is not contiguous, counted;
         # alive until the launch
         grads = [g if g.is_contiguous() else g.contiguous() for g in grads]
-        fn.copies += sum(a is not b for a, b in zip(grads, lists[1]))
+        count(fn, "copies",
+              n=sum(a is not b for a, b in zip(grads, lists[1])))
         lists = [weights, grads, *lists[2:]]
     flat = list(itertools.chain(*lists))
     inplace = itertools.chain(weights, *lists[2:])
@@ -355,9 +356,9 @@ def _step(fn, family, symbol, floats, lists, lr, wds, skip):
     if rc != 0:
         raise RuntimeError(f"{family}: kernel launch failed with CUDA error "
                            f"{rc} over {table.n_tensors} tensors")
-    fn.launches += 1
-    fn.tensors_by_path["vec4"] += table.n_vec
-    fn.tensors_by_path["scalar"] += table.n_scalar
+    count(fn)
+    count(fn, "tensors_by_path", "vec4", table.n_vec)
+    count(fn, "tensors_by_path", "scalar", table.n_scalar)
 
 
 def opt_sgd(weights, grads, moms, lr, wds, *, momentum, rescale_grad=1.0,

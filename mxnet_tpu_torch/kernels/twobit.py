@@ -59,7 +59,7 @@ import numpy as _np
 import torch
 
 from ..base import canonical_dtype
-from . import DeviceError, build
+from . import DeviceError, build, count
 from .opt_step import _Table, _Tables
 
 __all__ = ["twobit_compress", "twobit_decompress", "twobit_compress_plain",
@@ -250,7 +250,7 @@ def twobit_compress(grad, residual, thr):
     if rc != 0:
         raise RuntimeError(f"twobit_compress: kernel launch failed with CUDA "
                            f"error {rc} for {n} elements")
-    twobit_compress.launches += 1
+    count(twobit_compress)
     return codes, new_res
 
 
@@ -291,8 +291,8 @@ def twobit_decompress(codes, thr, dtype=torch.float32):
     if rc != 0:
         raise RuntimeError(f"twobit_decompress: kernel launch failed with "
                            f"CUDA error {rc} for {n} elements")
-    twobit_decompress.launches += 1
-    twobit_decompress.launches_by_path[path] += 1
+    count(twobit_decompress)
+    count(twobit_decompress, "launches_by_path", path)
     return out
 
 
@@ -346,7 +346,8 @@ def twobit_compress_multi(grads, residuals, codes, thr):
         # a copy only for a gradient that is not contiguous, counted;
         # alive until the launch
         grads = [g if g.is_contiguous() else g.contiguous() for g in grads]
-        fn.copies += sum(a is not b for a, b in zip(grads, given))
+        count(fn, "copies",
+              n=sum(a is not b for a, b in zip(grads, given)))
     flat = list(itertools.chain(grads, residuals, codes))
     key = (tuple(map(_PTR, flat)), tuple(map(_NUMEL, flat)),
            frozenset(map(_DTYPE, flat)), frozenset(map(_DEVICE_INDEX, flat)),
@@ -372,9 +373,9 @@ def twobit_compress_multi(grads, residuals, codes, thr):
         raise RuntimeError(f"twobit_compress_multi: kernel launch failed "
                            f"with CUDA error {rc} over {table.n_tensors} "
                            "tensors")
-    fn.launches += 1
-    fn.tensors_by_path["vec16"] += table.n_vec
-    fn.tensors_by_path["scalar"] += table.n_scalar
+    count(fn)
+    count(fn, "tensors_by_path", "vec16", table.n_vec)
+    count(fn, "tensors_by_path", "scalar", table.n_scalar)
 
 
 twobit_compress.launches = 0

@@ -12,6 +12,16 @@ two daemon threads:
 * the **runner** waits for the copy on its own stream, runs the batch,
   slices the outputs back per request and fulfils the futures.
 
+On a card the runner replays the bucket's CUDA graph
+(``ServedModel.run``); a bucket first met under traffic is captured
+there, on the runner thread, while the collector goes on staging. The
+collector stages into a fresh pinned host batch and a fresh device
+tensor, never into a graph's static input: the replay copies the staged
+tensor in on the runner's stream, after its ``ready`` event and after
+the previous replay's copies. Captures run in ``thread_local`` error
+mode under one process-wide lock (``compile.py``), so the runners of two
+models may capture and replay at once.
+
 Admission control: ``submit`` fast-rejects with
 :class:`~mxnet_tpu_torch.serving.errors.ServerBusyError` once the
 queued rows reach ``max_queue`` and with ``ServerDrainingError`` once a
@@ -166,9 +176,10 @@ class BucketBatcher:
 
     def warmup(self, timeout=300.0):
         """Run one zero batch per bucket through the runner thread before
-        traffic, so the first requests find its cuBLAS handle, the copy
-        stream and the memory pools ready (PyTorch keeps cuBLAS handles
-        per thread). Needs :meth:`start`; returns the ladder and the
+        traffic: on a card this captures every bucket's graph there, and
+        the first requests find its cuBLAS handle, the copy stream and
+        the memory pools ready (PyTorch keeps cuBLAS handles per
+        thread). Needs :meth:`start`; returns the ladder and the
         milliseconds it took."""
         if not self._threads:
             raise RuntimeError(f"batcher for {self.model.name!r} not started")

@@ -21,6 +21,16 @@ input dtype stays float.
 Requests carry a leading batch dim ``(k,) + example_shape``; the batcher
 coalesces rows into the smallest bucket that holds them. The smallest
 default bucket is 2, as in the JAX package.
+
+Each bucket's forward goes through :func:`mxnet_tpu_torch.compile.jit`
+under the site ``"serving"`` (JAX :70-118): on a card, one CUDA graph per
+bucket, captured at its first batch (:meth:`ServedModel.warmup` captures
+them all) and replayed for every batch after, the whole block or graph
+(its 74 int8 GEMMs and 12 flash launches included) in one launch; on the
+CPU a plain call with the same keys and statistics. The key holds the
+snapshot's data pointers, so a model keeps one graph per bucket. Only
+``compile.set_enabled(False)`` runs a bucket eagerly on the card; a
+capture that fails raises (``compile.CaptureError``).
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ import numpy as _np
 import torch
 
 from .. import autograd
+from .. import compile as _compile
 from ..base import canonical_dtype, dtype_name, numpy_dtype
 from ..context import current_context
 from ..gluon.parameter import substitute
@@ -46,7 +57,10 @@ class ServedModel:
     and dtype, and its padded-bucket ladder."""
 
     def __init__(self, name, forward, example_shape, dtype="float32",
-                 buckets=None, device=None, weight_dtype=None):
+                 buckets=None, device=None, weight_dtype=None, reads=()):
+        """``forward(tensor) -> tuple of tensors``; ``reads``: the tensors
+        it reads beside its input (the loaders' snapshot), whose data
+        pointers each bucket's entry holds."""
         self.name = str(name)
         self.example_shape = tuple(int(s) for s in example_shape)
         self.dtype = dtype_name(dtype)
@@ -54,7 +68,12 @@ class ServedModel:
         self.buckets = coerce("buckets", buckets or DEFAULTS["buckets"])
         self.device = device if device is not None else \
             current_context().torch_device()
-        self._fwd = forward
+        reads = tuple(reads)
+        self._fwd = _compile.jit(
+            forward, site="serving",
+            token=("serving", self.name, self.example_shape, self.dtype,
+                   self.weight_dtype, id(self)),
+            reads=lambda: reads)
         self._h2d = None  # side stream for host-to-device copies
 
     @property
@@ -116,8 +135,11 @@ class ServedModel:
     def run(self, x, rows=None, ready=None):
         """Run the forward on a (padded) batch and return the outputs as
         host numpy arrays sliced to ``rows``. ``x`` is a host array or a
-        device tensor from :meth:`stage` with its ``ready`` event. Waits
-        for the device (the copy to host)."""
+        device tensor from :meth:`stage` with its ``ready`` event. On a
+        card the current stream waits for that event, copies ``x`` into
+        the bucket's static input and replays the bucket's graph (the
+        first batch of a bucket captures it). Waits for the device (the
+        copy to host)."""
         if not isinstance(x, torch.Tensor):
             x = torch.as_tensor(_np.asarray(x))
         x = x.to(self.device)
@@ -132,14 +154,25 @@ class ServedModel:
             numpy_dtype(o.dtype))).numpy() for o in outs]
 
     def warmup(self):
-        """Run every bucket once on the calling thread; returns the
-        ladder and the milliseconds it took. (A ModelServer warms up on
-        its runner threads instead.)"""
+        """Run every bucket once on the calling thread, which captures
+        each bucket's graph on a card; returns the ladder and the
+        milliseconds it took. After it, traffic captures nothing
+        (``compile.stats()["serving"]["misses"]`` stays). (A ModelServer
+        warms up on its runner threads instead.)"""
         t0 = time.perf_counter()
         for b in self.buckets:
             self.run(self.host_batch(b), 0)
         return {"buckets": list(self.buckets),
                 "ms": (time.perf_counter() - t0) * 1e3}
+
+    def capture_stats(self):
+        """This model's captures: ``{captures, capture_ms, hits, misses,
+        replays, ...}`` and ``capture_ms_by_bucket`` (host ms to build each
+        bucket's entry: on a card its eager warm-up and capture)."""
+        st = self._fwd.stats()
+        by_bucket = {e["shapes"][0][0]: e["ms"] for e in st.pop("entries")
+                     if e["shapes"]}
+        return dict(st, capture_ms_by_bucket=by_bucket)
 
     def __repr__(self):
         return (f"ServedModel({self.name!r}, example={self.example_shape}, "
@@ -171,9 +204,9 @@ class ServedModel:
             outs = out if isinstance(out, (tuple, list)) else (out,)
             return tuple(o._data for o in outs)
 
+        tensors = [a._data for a in snapshot.values()]
         return cls(name, fwd, example_shape, dtype, buckets, device,
-                   _weight_dtype([a._data for a in snapshot.values()],
-                                 dtype))
+                   _weight_dtype(tensors, dtype), reads=tensors)
 
     @classmethod
     def from_symbol(cls, name, sym, arg_params=None, aux_params=None,
@@ -221,7 +254,8 @@ class ServedModel:
             return tuple(run(dict(args, **{input_name: x}), auxs))
 
         return cls(name, fwd, example_shape, dtype, buckets, device,
-                   _weight_dtype(args.values(), dtype))
+                   _weight_dtype(args.values(), dtype),
+                   reads=list(args.values()) + list(auxs.values()))
 
     @classmethod
     def from_checkpoint(cls, name, prefix, epoch, example_shape,

@@ -72,12 +72,14 @@ class ModelServer:
 
     def model_info(self):
         """Per-model metadata: input dtype, weight dtype (``"int8"`` for
-        quantized models), bucket ladder, example shape."""
+        quantized models), bucket ladder, example shape, and the
+        bucket graphs captured so far with their host milliseconds."""
         return {m.name: {"dtype": m.dtype,
                          "weight_dtype": m.weight_dtype,
                          "quantized": m.quantized,
                          "buckets": list(m.buckets),
-                         "example_shape": list(m.example_shape)}
+                         "example_shape": list(m.example_shape),
+                         **_captures(m)}
                 for m in self._container}
 
     def _batcher(self, model):
@@ -128,7 +130,7 @@ class ModelServer:
             queue_depth=b.queue_depth(), buckets=list(b.model.buckets),
             dtype=b.model.dtype, weight_dtype=b.model.weight_dtype,
             device=str(b.model.device),
-            draining=b.draining)
+            draining=b.draining, **_captures(b.model))
             for name, b in self._batchers.items()}
         return {"name": self.name, "started": self._started,
                 "draining": self._draining,
@@ -139,3 +141,14 @@ class ModelServer:
     def __repr__(self):
         return (f"ModelServer({self.name!r}, models={self.models()}, "
                 f"started={self._started})")
+
+
+def _captures(model):
+    """A model's bucket graphs: how many were captured (CUDA graphs; 0 on
+    the CPU, where buckets run plainly), their host milliseconds in all
+    and by bucket, and the replays so far."""
+    st = model.capture_stats()
+    return {"captures": st["captures"], "capture_ms": st["capture_ms"],
+            "capture_ms_by_bucket": st["capture_ms_by_bucket"]
+            if st["captures"] else {},
+            "replays": st["replays"]}

@@ -41,6 +41,7 @@ import pytest
 import torch
 
 import mxnet_tpu_torch as mx
+from chip_smoke import _eager, _launches_per_call
 from mxnet_tpu_torch import kernels, nd
 from mxnet_tpu_torch.gluon.contrib import nn as cnn
 from mxnet_tpu_torch.kernels import decode_attention, flash, int8_gemm, twobit
@@ -901,3 +902,265 @@ def test_the_guard_flags_nan_and_inf_in_bfloat16_gradients_on_card(
     assert st.skipped_steps == 1
     assert all(torch.equal(a, b) for a, b in
                zip(before, st._state_tensors().values()))
+
+
+# ------------------------------------------------------ captured forwards
+# hybridize() and the served buckets as CUDA graphs (compile.py): every
+# replay against the same forward run eagerly (compile.set_enabled(False))
+# on the same inputs, bit for bit, and the launches each replay adds.
+
+CAPTURE_CFG = {"vocab": 128, "units": 64, "hidden": 128, "heads": 4,
+               "layers": 2, "seq_len": 16, "num_classes": 2}
+CAPTURE_FC = 6 * CAPTURE_CFG["layers"] + 2  # int8 GEMMs a forward
+
+
+def _capture_clf(exportable=False):
+    from chip_smoke import build_classifier, random_params
+    from mxnet_tpu_torch.convert import load_jax_params
+
+    clf = build_classifier(mx, CAPTURE_CFG, exportable=exportable)
+    clf.initialize(mx.init.Zero())
+    load_jax_params(clf, random_params(CAPTURE_CFG, seed=0))
+    return clf
+
+
+def _capture_tokens(n, seed):
+    rs = np.random.RandomState(seed)
+    return rs.randint(0, CAPTURE_CFG["vocab"],
+                      (n, CAPTURE_CFG["seq_len"])).astype(np.float32)
+
+
+@pytest.mark.gpu
+def test_a_hybridized_block_replays_its_eager_forward_on_card(cuda_device):
+    from mxnet_tpu_torch import compile as mxc
+
+    clf = _capture_clf()
+    clf.hybridize()
+    before = mxc.stats().get("cachedop", {"captures": 0})["captures"]
+    for n in (2, 5):
+        x = mx.nd.array(_capture_tokens(n, seed=n))
+        first = clf(x)._data     # captures, then replays
+        again = clf(x)._data     # replays
+        want = _eager(clf, x)._data
+        assert torch.equal(first, want) and torch.equal(again, want)
+        assert first.data_ptr() != again.data_ptr()
+    assert mxc.stats()["cachedop"]["captures"] - before == 2
+    replay = _launches_per_call(lambda: clf(x))
+    eager = _launches_per_call(lambda: _eager(clf, x))
+    assert replay == eager == {"flash_attention": 2,
+                               "flash_attention.mma": 2}
+
+
+@pytest.mark.gpu
+def test_a_rebind_captures_anew_and_in_place_writes_replay_on_card(
+        cuda_device):
+    from mxnet_tpu_torch import compile as mxc
+
+    clf = _capture_clf()
+    clf.hybridize()
+    x = mx.nd.array(_capture_tokens(3, seed=1))
+    y0 = clf(x)._data.clone()
+    st0 = dict(mxc.stats()["cachedop"])
+    w = clf.out.weight
+    w.set_data(w.data().asnumpy() * 2.0)            # a new tensor
+    y1 = clf(x)._data
+    st1 = dict(mxc.stats()["cachedop"])
+    assert st1["captures"] - st0["captures"] == 1
+    assert not torch.equal(y0, y1) and torch.equal(y1, _eager(clf, x)._data)
+    with torch.no_grad():
+        clf.pool.weight.data()._data.mul_(0.5)      # the same tensor
+    y2 = clf(x)._data
+    st2 = dict(mxc.stats()["cachedop"])
+    assert st2["captures"] == st1["captures"]
+    assert st2["hits"] - st1["hits"] == 1
+    assert not torch.equal(y1, y2) and torch.equal(y2, _eager(clf, x)._data)
+
+
+@pytest.mark.gpu
+def test_train_then_evaluate_keeps_one_graph_on_card(cuda_device):
+    """Each training step rebinds BatchNorm's running statistics, so the
+    evaluation after it captures anew: the new graph replaces the stale
+    one, the op keeps one entry, the memory the allocator holds stays
+    within one graph of where it started (a graph kept per round would
+    add one each), and each replay equals the eager forward with the
+    new statistics."""
+    from mxnet_tpu_torch import compile as mxc
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    net = vision.get_model("resnet18_v1", classes=10, thumbnail=True)
+    net.initialize(mx.init.Xavier())
+    rs = np.random.RandomState(0)
+    x = mx.nd.array(rs.rand(16, 3, 32, 32).astype(np.float32))
+    batches = [mx.nd.array(rs.rand(16, 3, 32, 32).astype(np.float32))
+               for _ in range(5)]
+    net(x)                       # resolves the deferred shapes
+    net.hybridize()
+    torch.cuda.synchronize()
+    reserved0 = torch.cuda.memory_reserved()
+    net(x)                       # the first capture
+    torch.cuda.synchronize()
+    graph_bytes = torch.cuda.memory_reserved() - reserved0
+    assert graph_bytes > 0
+    op, captures0 = net._cached_op, mxc.stats()["cachedop"]["captures"]
+    reserved, allocated, outs = [], [], []
+    for batch in batches:
+        with mx.autograd.record():
+            loss = net(batch).sum()
+        loss.backward()
+        y = net(x)._data
+        assert torch.equal(y, _eager(net, x)._data)
+        outs.append(y)
+        torch.cuda.synchronize()
+        reserved.append(torch.cuda.memory_reserved())
+        allocated.append(torch.cuda.memory_allocated())
+    assert net._cached_op is op and len(op.stats()["entries"]) == 1
+    assert mxc.stats()["cachedop"]["captures"] - captures0 == len(batches)
+    assert max(reserved) - reserved[0] < graph_bytes, (reserved,
+                                                       graph_bytes)
+    assert max(allocated) - allocated[0] < graph_bytes, (allocated,
+                                                         graph_bytes)
+    assert not torch.equal(outs[0], outs[-1])
+
+
+def _served_pair(tmp_path):
+    """The exportable classifier served from its block, and its exported
+    graph quantized to int8 on the card (naive calibration), served from
+    the symbol."""
+    from chip_smoke import make_task
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.contrib import quantization
+
+    clf = _capture_clf(exportable=True)
+    clf.export(str(tmp_path / "float"))
+    sym, args, auxs = mx.model.load_checkpoint(str(tmp_path / "float"), 0)
+    calib, _ = make_task(64, CAPTURE_CFG["seq_len"], CAPTURE_CFG["vocab"],
+                         2, seed=1)
+    qsym, qargs, qauxs = quantization.quantize_model(
+        sym, args, auxs, data_names=("data",), calib_mode="naive",
+        calib_data=mx.io.NDArrayIter(calib, batch_size=32, label_name=None),
+        num_calib_examples=64)
+    shape = (CAPTURE_CFG["seq_len"],)
+    return (serving.ServedModel.from_block("f32", clf, example_shape=shape),
+            serving.ServedModel.from_symbol("sym", sym, args, auxs,
+                                            example_shape=shape),
+            serving.ServedModel.from_symbol("int8", qsym, qargs, qauxs,
+                                            example_shape=shape))
+
+
+@pytest.mark.gpu
+def test_served_buckets_replay_their_eager_forward_on_card(cuda_device,
+                                                           tmp_path):
+    """The block path, the symbol path and the int8 graph: every bucket
+    captured by warmup, each replay equal to the eager forward, and the
+    launches each replay adds (flash per layer; int8 GEMMs per quantized
+    FullyConnected)."""
+    from mxnet_tpu_torch import compile as mxc
+
+    f32, sym, int8 = _served_pair(tmp_path)
+    assert int8.quantized
+    for model in (f32, sym, int8):
+        model.warmup()
+        st = model.capture_stats()
+        assert st["captures"] == len(model.buckets)
+        assert sorted(st["capture_ms_by_bucket"]) == list(model.buckets)
+        misses = mxc.stats()["serving"]["misses"]
+        for rows in (1, 3, 7, 16, 30):
+            bucket = model.bucket_for(rows)
+            x = np.zeros((bucket, CAPTURE_CFG["seq_len"]), np.float32)
+            x[:rows] = _capture_tokens(rows, seed=rows)
+            got = model.run(x, rows)[0]
+            want = _eager(model.run, x, rows)[0]
+            np.testing.assert_array_equal(got, want, err_msg=model.name)
+        assert mxc.stats()["serving"]["misses"] == misses
+    x = int8.host_batch(32)
+    want = {"flash_attention": 2, "flash_attention.mma": 2,
+            "int8_gemm": CAPTURE_FC, "int8_gemm.async": CAPTURE_FC}
+    assert _launches_per_call(lambda: int8.run(x)) == want
+    assert _launches_per_call(lambda: _eager(int8.run, x)) == want
+
+
+@pytest.mark.gpu
+def test_two_models_capture_and_serve_at_once_on_card(cuda_device, tmp_path):
+    """One model's runner captures its ladder (warmup) while the other
+    model, not warmed up, takes traffic and captures its buckets under
+    it; every answer equals its model's eager forward."""
+    import threading
+
+    from mxnet_tpu_torch import serving
+
+    f32, _, int8 = _served_pair(tmp_path)
+    server = serving.ModelServer(serving.ModelContainer([f32, int8]),
+                                 max_wait_ms=1.0).start()
+    payloads = [_capture_tokens(k, seed=60 + k) for k in (1, 2, 3, 5, 9, 17)]
+    answers, errors = {}, []
+
+    def traffic():
+        try:
+            for i, x in enumerate(payloads):
+                answers[i] = server.predict("int8", x, timeout=120)
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    try:
+        t = threading.Thread(target=traffic)
+        t.start()
+        server._batcher("f32").warmup()
+        t.join(timeout=300)
+        assert not t.is_alive() and not errors, errors
+        again = [server.predict("int8", x, timeout=120) for x in payloads]
+        for i, x in enumerate(payloads):
+            bucket = int8.bucket_for(x.shape[0])
+            padded = np.zeros((bucket, x.shape[1]), np.float32)
+            padded[:x.shape[0]] = x
+            want = _eager(int8.run, padded, x.shape[0])[0]
+            np.testing.assert_array_equal(answers[i], want)
+            np.testing.assert_array_equal(again[i], want)
+        assert int8.capture_stats()["captures"] == 5   # first met live
+        assert f32.capture_stats()["captures"] == len(f32.buckets)
+        info = server.model_info()
+        assert info["int8"]["captures"] == 5 and info["int8"]["capture_ms"] > 0
+    finally:
+        assert server.drain(timeout=60)
+
+
+@pytest.mark.gpu
+def test_a_failed_capture_raises_naming_the_op_on_card(cuda_device):
+    """A forward that waits for the card inside the captured region
+    (``.item()``) fails the capture with ``CaptureError`` naming the op;
+    no eager result comes back, and the process goes on using the card.
+    Run in a child process, so the failed capture cannot touch the other
+    tests' state."""
+    import subprocess
+    import sys
+
+    script = "\n".join([
+        "import torch",
+        "import mxnet_tpu_torch as mx",
+        "from mxnet_tpu_torch import compile as mxc",
+        "from mxnet_tpu_torch.gluon import nn",
+        "from mxnet_tpu_torch.ops.registry import register",
+        "@register('_test_host_sync')",
+        "def _host_sync(x):",
+        "    return x * float(x.sum().item())",
+        "class Net(nn.HybridBlock):",
+        "    def hybrid_forward(self, F, x):",
+        "        return F.invoke('_test_host_sync', x)",
+        "net = Net()",
+        "net.hybridize()",
+        "x = mx.nd.array([[1.0, 2.0]])",
+        "try:",
+        "    net(x)",
+        "    print('NO ERROR')",
+        "except mxc.CaptureError as e:",
+        "    print('CAPTURE ERROR', e)",
+        "y = mx.nd.array([[3.0]])._data * 2",
+        "torch.cuda.synchronize()",
+        "print('CARD OK', float(y.sum()))"])
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, timeout=300,
+                         cwd=str(__import__("pathlib").Path(
+                             __file__).resolve().parents[1]))
+    assert "CAPTURE ERROR" in out.stdout, out.stdout + out.stderr
+    assert "op '_test_host_sync'" in out.stdout, out.stdout
+    assert "NO ERROR" not in out.stdout
+    assert "CARD OK 6.0" in out.stdout, out.stdout + out.stderr

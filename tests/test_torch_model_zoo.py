@@ -45,12 +45,22 @@ def _weights(jnet):
             for n, p in jnet._collect_params_with_structure().items()}
 
 
-@pytest.mark.parametrize("name", ["resnet18_v1", "resnet50_v1",
-                                  "resnet50_v2"])
-def test_collect_params_names_and_shapes_equal_jax(name):
+@pytest.fixture
+def fresh_names(monkeypatch):
+    """Both packages number unprefixed top-level blocks (``resnetv10_``)
+    from per-thread counters, which other tests in the same process
+    advance: start both from zero."""
+    from mxnet_tpu_torch.gluon.block import _BlockScope
+
+    monkeypatch.setattr(_BlockScope._tls, "top", {}, raising=False)
+    with jmx.name.NameManager():
+        yield
+
+
+def _params_equal_jax(name, **kw):
     x = np.zeros((1, 3, 32, 32), np.float32)
-    jnet = _jax_net(name, x, classes=10)
-    net = vision.get_model(name, classes=10)
+    jnet = _jax_net(name, x, classes=10, **kw)
+    net = vision.get_model(name, classes=10, **kw)
     net.initialize(mx.init.Xavier(), ctx=CPU)
     net(mx.nd.array(x, ctx=CPU))
     want = jnet.collect_params()
@@ -64,6 +74,22 @@ def test_collect_params_names_and_shapes_equal_jax(name):
     assert sum(k.endswith(("running_mean", "running_var")) for k in struct) \
         == sum(k.endswith(("running_mean", "running_var"))
                for k in jnet._collect_params_with_structure())
+    return list(got.keys())
+
+
+@pytest.mark.parametrize("name", ["resnet18_v1", "resnet50_v1",
+                                  "resnet50_v2"])
+def test_collect_params_names_and_shapes_equal_jax(name, fresh_names):
+    """Default prefixes, made from the class name and the counter."""
+    keys = _params_equal_jax(name)
+    assert keys[0].startswith(f"resnetv{name[-1]}0_"), keys[0]
+
+
+@pytest.mark.parametrize("name", ["resnet18_v1", "resnet50_v1",
+                                  "resnet50_v2"])
+def test_collect_params_names_and_shapes_equal_jax_with_a_prefix(name):
+    keys = _params_equal_jax(name, prefix="net_")
+    assert keys[0].startswith("net_"), keys[0]
 
 
 @pytest.fixture(scope="module")
@@ -206,11 +232,12 @@ def test_what_is_not_ported_raises():
                                            (1, 101), (1, 152), (2, 18),
                                            (2, 34), (2, 50), (2, 101),
                                            (2, 152)])
-def test_every_resnet_depth_builds_with_the_jax_parameter_count(version,
-                                                                depth):
+def test_every_resnet_depth_builds_with_the_jax_parameter_count(
+        version, depth, fresh_names):
     name = f"resnet{depth}_v{version}"
-    net = vision.get_model(name, classes=7, thumbnail=True)
-    jnet = jvision.get_model(name, classes=7, thumbnail=True)
-    assert list(net.collect_params().keys()) == \
-        list(jnet.collect_params().keys())
+    for kw in ({}, {"prefix": "net_"}):   # default and given prefixes
+        net = vision.get_model(name, classes=7, thumbnail=True, **kw)
+        jnet = jvision.get_model(name, classes=7, thumbnail=True, **kw)
+        assert list(net.collect_params().keys()) == \
+            list(jnet.collect_params().keys())
     assert vision.get_model_names().count(name) == 1

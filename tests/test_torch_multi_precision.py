@@ -316,10 +316,14 @@ def _batches(steps=3, batch=8):
 def _pair(mp, nan_guard=True, seed=0):
     x, _ = _batches()
     jmx.random.seed(seed)
-    jnet = jvision.get_model("resnet18_v1", classes=10, thumbnail=True)
+    # one prefix for both: each package numbers unprefixed blocks with a
+    # per-process counter, which other files in the same worker advance
+    jnet = jvision.get_model("resnet18_v1", classes=10, thumbnail=True,
+                             prefix="thumb_")
     jnet.initialize(jmx.init.Xavier())
     jnet(jmx.nd.array(x[0]))
-    net = vision.get_model("resnet18_v1", classes=10, thumbnail=True)
+    net = vision.get_model("resnet18_v1", classes=10, thumbnail=True,
+                           prefix="thumb_")
     net.initialize(ctx=CPU)
     load_jax_params(net, {n: p.data().asnumpy() for n, p in
                           jnet._collect_params_with_structure().items()})

@@ -53,10 +53,14 @@ def _batches():
 def _pair(nan_guard):
     x, _ = _batches()
     jmx.random.seed(0)
-    jnet = jvision.get_model("resnet18_v1", classes=CLASSES, thumbnail=True)
+    # one prefix for both: each package numbers unprefixed blocks with a
+    # per-process counter, which other files in the same worker advance
+    jnet = jvision.get_model("resnet18_v1", classes=CLASSES, thumbnail=True,
+                             prefix="thumb_")
     jnet.initialize(jmx.init.Xavier())
     jnet(jmx.nd.array(x[0]))
-    net = vision.get_model("resnet18_v1", classes=CLASSES, thumbnail=True)
+    net = vision.get_model("resnet18_v1", classes=CLASSES, thumbnail=True,
+                           prefix="thumb_")
     net.initialize(ctx=CPU)
     load_jax_params(net, {n: p.data().asnumpy() for n, p in
                           jnet._collect_params_with_structure().items()})
