@@ -203,6 +203,27 @@ Phases, each printing one JSON line:
     ``CheckpointManager``, the state after resume and the resumed steps
     bit for bit against the uninterrupted run, and the fallback from a
     truncated newest file to the previous checkpoint.
+23. resnet50_v1_module_fit: ``python examples/image_classification/
+    train_imagenet.py --benchmark 1 --network resnet50_v1`` through the
+    port's ``Module.fit`` (``get_network``, ``SyntheticDataIter`` and
+    ``fit.fit``'s wiring copied here, ``MODULE_FIT``): batch 128 of
+    3x224x224, 1000 classes, "sgd" lr 0.1 momentum 0.9 wd 1e-4 under a
+    ``MultiFactorScheduler``, a ``local`` kvstore, accuracy,
+    ``Speedometer(128, 10)``; 13 batches (the cut). The median batch
+    over batches 4-13, img/s, Speedometer's img/s, peak memory, the host
+    ms of ``update()`` and ``update_metric()``, launches by family (K1
+    one a batch over 193 tensors on its 16-byte path, nothing else),
+    a finite loss and the training accuracy, one profiled batch (kernel
+    groups, the executor's gradient copies, the store's pull copies,
+    SoftmaxOutput, K1, idle share) and the excess over
+    resnet50_v1_train's step from the same call.
+24. module_check: the thumbnail resnet18_v1 symbol through ``Module``
+    on the card and on a CPU copy, synchronised before each of 3 steps
+    and held to ``MODULE_CHECK_TOL``; K1 one launch a card step, and
+    from the second step on bit for bit against the plain
+    ``sgd_mom_update`` over the same operands (the Module's wd table,
+    ``rescale_grad`` 1 / batch); ``save_checkpoint`` -> ``Module.load``
+    -> one step bit for bit.
 
 The twobit phase also holds the single-tensor compress and the
 decompress in float16 and bfloat16 bit for bit against their plain
@@ -212,7 +233,7 @@ versions (thresholds 0.5 and 0.1) and times them over 109 M elements
 Then the ``{"kernels": [...]}`` line (the tensor-core kernels K3 and
 K3-bwd with their tensor-core bound as ``bound_ms`` and the float32-rate
 one as ``bound_f32_ms``; K1 with its ResNet-50 numbers, those over the
-classifier beside them, its launches in the bfloat16 cells and checks,
+classifier beside them, its launches in the bfloat16 cells and checks and on the Module path,
 its device time inside the bfloat16 steps and the casts' time; K6 and K7 with their half-precision times), the
 card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure is an
@@ -225,6 +246,7 @@ import argparse
 import contextlib
 import hashlib
 import json
+import logging
 import math
 import os
 import re
@@ -340,6 +362,28 @@ RESNET50_BF16 = {"dtype": "bfloat16", "half": 87, "float32": 106,
 RESNET_CHECK_BF16_TOL = {"loss_rtol": 2e-2, "aux": 1e-2, "step_l2": 0.75}
 # checkpoint and resume of the thumbnail with an lr schedule
 RESNET_RESUME = {"steps": 3, "milestones": [2, 4], "factor": 0.1}
+# examples/image_classification/train_imagenet.py --benchmark 1
+# --network resnet50_v1 (its parser defaults, :62-68, and fit.fit's
+# wiring, common/fit.py:106-163): batch 128 of 3x224x224 from
+# SyntheticDataIter, 1000 classes, "sgd" lr 0.1 momentum 0.9 wd 1e-4
+# with a MultiFactorScheduler at epochs 30, 60 and 80 of
+# num_examples / batch_size batches, float32, TF32 off. The one cut:
+# epoch_size 13 batches (3 warm-up, 10 timed) instead of 10009.
+MODULE_FIT = {"network": "resnet50_v1", "num_classes": 1000, "batch": 128,
+              "image_shape": (3, 224, 224), "lr": 0.1, "lr_factor": 0.1,
+              "lr_step_epochs": "30,60,80", "mom": 0.9, "wd": 1e-4,
+              "num_examples": 1281167, "disp_batches": 10,
+              "epoch_size": 13, "warmup": 3, "tensors": 193, "aux": 106,
+              "reduced": "epoch_size 13 batches (3 warm-up, 10 timed), "
+                         "not num_examples // batch_size = 10009"}
+# the thumbnail of resnet_check through Module on the card and on a CPU
+# copy, the copy set to the card's state before each step; held as
+# resnet_check is (RESNET_CHECK's comment says why), the outputs of the
+# training forward to 1e-4 (probabilities)
+MODULE_CHECK = {"model": "resnet18_v1", "classes": 10, "batch": 8,
+                "size": 32, "steps": 3, "tensors": 60, "aux": 38,
+                "lr": 0.05, "momentum": 0.9, "wd": 1e-4}
+MODULE_CHECK_TOL = {"out": 1e-4, "aux": 1e-4, "step_l2": 0.05}
 
 
 def build_encoder(args, mx, nn, contrib_nn, exportable=False):
@@ -3351,7 +3395,6 @@ def _resnet50_net(cfg, dev, dtype):
 def _profile_step(st, x, y):
     """One step under ``torch.profiler``: the window's host ms, device ms
     by ``_resnet_group`` and the heaviest kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -3360,6 +3403,14 @@ def _profile_step(st, x, y):
         st.step(x, y)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
+    return {"profiled_step_ms": window_ms, **_kernel_groups(prof, window_ms)}
+
+
+def _kernel_groups(prof, window_ms):
+    """A profiled window's device ms by ``_resnet_group``, its busy and
+    idle shares and its heaviest kernels."""
+    from torch.autograd import DeviceType
+
     groups, top = {}, {}
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA or \
@@ -3370,8 +3421,7 @@ def _profile_step(st, x, y):
         groups[g] = groups.get(g, 0.0) + ev.self_device_time_total / 1e3
         top[ev.key] = top.get(ev.key, 0.0) + ev.self_device_time_total / 1e3
     busy = sum(groups.values())
-    return {"profiled_step_ms": window_ms,
-            "device_ms_per_step": busy if groups else "not measured",
+    return {"device_ms_per_step": busy if groups else "not measured",
             "device_idle_share": 1 - busy / window_ms if groups
             else "not measured",
             "device_ms_by_group": groups,
@@ -3641,12 +3691,527 @@ def phase_resnet50_infer_bf16(smi):
     return out
 
 
+# ------------------------------------------------------ the Module path --
+class SyntheticDataIter(mx.io.DataIter):
+    """``examples/image_classification/common/data.py:45-74`` over the
+    port: ONE device-resident random batch yielded ``epoch_size`` times,
+    so the measured img/s is the training step's with no input pipeline
+    in the loop."""
+
+    def __init__(self, num_classes, data_shape, epoch_size, dtype="float32"):
+        super().__init__(batch_size=data_shape[0])
+        self.batch_size = data_shape[0]
+        self.epoch_size = epoch_size
+        rs = np.random.RandomState(0)
+        x = rs.uniform(-1, 1, data_shape).astype(np.float32)
+        y = rs.randint(0, num_classes, data_shape[0]).astype(np.float32)
+        self._data = mx.nd.array(x).astype(dtype)
+        self._label = mx.nd.array(y)
+        self._cur = 0
+        self.provide_data = [mx.io.DataDesc("data", data_shape, dtype)]
+        self.provide_label = [mx.io.DataDesc("softmax_label",
+                                             (data_shape[0],), "float32")]
+
+    def reset(self):
+        self._cur = 0
+
+    def next(self):
+        if self._cur >= self.epoch_size:
+            raise StopIteration
+        self._cur += 1
+        return mx.io.DataBatch(data=[self._data], label=[self._label],
+                               pad=0, provide_data=self.provide_data,
+                               provide_label=self.provide_label)
+
+
+def get_network(name, num_classes, image_shape):
+    """``examples/image_classification/train_imagenet.py:29-45`` over the
+    port: the model zoo's network exported as a Symbol (its weights, from
+    a seeded draw, are dropped: ``fit`` initializes every parameter) with
+    a SoftmaxOutput head."""
+    net = vision.get_model(name, classes=num_classes)
+    net.initialize(mx.init.Xavier(), generator=torch.Generator().manual_seed(0))
+    net(mx.nd.zeros((1,) + tuple(image_shape)))
+    with tempfile.TemporaryDirectory() as d:
+        net.export(os.path.join(d, "net"), 0)
+        sym, _, _ = mx.model.load_checkpoint(os.path.join(d, "net"), 0)
+    return mx.sym.SoftmaxOutput(sym, mx.sym.var("softmax_label"),
+                                name="softmax")
+
+
+def _lr_scheduler(cfg):
+    """``common/fit.py:20-39`` (``_get_lr_scheduler``) from epoch 0: the
+    factor schedule at ``lr_step_epochs`` of ``num_examples //
+    batch_size`` batches."""
+    epoch_size = cfg["num_examples"] // cfg["batch"]
+    steps = [epoch_size * int(e) for e in cfg["lr_step_epochs"].split(",")]
+    return cfg["lr"], mx.lr_scheduler.MultiFactorScheduler(
+        step=steps, factor=cfg["lr_factor"], base_lr=cfg["lr"])
+
+
+def module_fit(cfg, model, train, batch_end_callbacks):
+    """``common/fit.py:106-163`` (``fit``) for ``--benchmark 1``: a
+    ``local`` kvstore object, "sgd" with momentum and weight decay under
+    the lr schedule, ``Xavier(rnd_type="gaussian", factor_type="in",
+    magnitude=2)``, the "accuracy" metric, ``Speedometer(batch_size,
+    disp_batches)`` (then ``batch_end_callbacks``), no checkpoint prefix,
+    no validation data, ``allow_missing=True``, one epoch."""
+    kv = mx.kv.create("local")
+    lr, lr_scheduler = _lr_scheduler(cfg)
+    optimizer_params = {"learning_rate": lr, "wd": cfg["wd"],
+                        "lr_scheduler": lr_scheduler,
+                        "momentum": cfg["mom"]}
+    initializer = mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                 magnitude=2)
+    model.fit(train, begin_epoch=0, num_epoch=1, eval_data=None,
+              eval_metric=["accuracy"], kvstore=kv, optimizer="sgd",
+              optimizer_params=optimizer_params, initializer=initializer,
+              arg_params=None, aux_params=None,
+              batch_end_callback=[mx.callback.Speedometer(
+                  cfg["batch"], cfg["disp_batches"])] + batch_end_callbacks,
+              epoch_end_callback=None, allow_missing=True, monitor=None)
+
+
+class _LogLines(logging.Handler):
+    """The root logger's INFO lines of a run, and ``Speedometer``'s
+    samples/sec among them."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines, self.speeds = [], []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        self.lines.append(msg)
+        m = re.search(r"Speed: ([0-9.]+) samples/sec", msg)
+        if m:
+            self.speeds.append(float(m.group(1)))
+
+
+@contextlib.contextmanager
+def _captured_log():
+    root, handler = logging.getLogger(), _LogLines()
+    level = root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    try:
+        yield handler
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+
+
+def _softmax_loss(probs, label):
+    """Mean cross-entropy of SoftmaxOutput's probabilities."""
+    p = probs._data.gather(1, label._data.long().view(-1, 1))
+    return float(-torch.log(p.clamp_min(1e-30)).mean())
+
+
+def _module_split(prof):
+    """Device ms of the Module path's own work in a profiled batch, by
+    the op that launched each kernel (``FunctionEvent.kernels`` and its
+    ``cpu_parent`` chain): the executor's gradient copies (the
+    ``_foreach_copy_`` under ``module.forward_backward``), the kvstore's
+    pull copies (the ``_foreach_copy_`` under ``module.update``) and
+    SoftmaxOutput (its softmax kernel and its backward node). K1 is
+    launched through ctypes, outside any op the profiler records: its
+    time is the ``k1`` kernel group's."""
+    out = dict.fromkeys(("executor_grad_copies", "kvstore_pull_copies",
+                         "softmax_output"), 0.0)
+    seen = False
+    for e in prof.events():
+        kernels = getattr(e, "kernels", None) or []
+        if not kernels:
+            continue
+        seen = True
+        chain, p = [], e
+        while p is not None:
+            chain.append(p.name)
+            p = p.cpu_parent
+        for k in kernels:
+            ms = k.duration / 1e3
+            if "_foreach_copy" in e.name and \
+                    "module.forward_backward" in chain:
+                out["executor_grad_copies"] += ms
+            elif "_foreach_copy" in e.name and "module.update" in chain:
+                out["kvstore_pull_copies"] += ms
+            elif "softmax" in k.name.lower() or any(
+                    "SoftmaxOutput" in c for c in chain):
+                out["softmax_output"] += ms
+    return out if seen else dict.fromkeys(out, "not measured")
+
+
+def _profile_module_batch(mod, batch, metric):
+    """One Module batch (``forward_backward``, ``update``,
+    ``update_metric``, the calls ``fit`` makes) under ``torch.profiler``:
+    device ms by kernel group, the Module path's own work
+    (``_module_split``) and the idle share."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with record_function("module.forward_backward"):
+            mod.forward_backward(batch)
+        with record_function("module.update"):
+            mod.update()
+        with record_function("module.update_metric"):
+            mod.update_metric(metric, batch.label)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    groups = _kernel_groups(prof, window_ms)
+    split = _module_split(prof)
+    split["k1"] = groups["device_ms_by_group"].get("k1", "not measured")
+    return {"profiled_batch_ms": window_ms, **groups,
+            "module_path_device_ms": split}
+
+
+def phase_resnet50_module_fit(smi, gluon=None):
+    """resnet50_v1_module_fit: ``python train_imagenet.py --benchmark 1
+    --network resnet50_v1`` through the port's ``Module.fit``
+    (``MODULE_FIT``; epoch_size cut to 13 batches): ``get_network``,
+    ``SyntheticDataIter`` and ``fit.fit``'s wiring copied above. Per
+    batch: the host clock at each batch end (card synchronised), and
+    the host ms of ``update()`` and of ``update_metric()`` (which waits
+    for the batch's device work: the metric's one copy to the host);
+    Speedometer's own samples/sec; peak memory; launches by family (K1
+    one a batch over all 193 tensors on its 16-byte path, nothing else);
+    a finite loss and the training accuracy; one more batch profiled.
+    ``gluon`` (resnet50_v1_train's line, same call) gives the excess of
+    the Module batch over the gluon step."""
+    t_phase = time.perf_counter()
+    cfg = MODULE_FIT
+    dev = mx.gpu(0)
+    mx.random.seed(0)
+    net = get_network(cfg["network"], cfg["num_classes"], cfg["image_shape"])
+    train = SyntheticDataIter(cfg["num_classes"],
+                              (cfg["batch"],) + tuple(cfg["image_shape"]),
+                              cfg["epoch_size"])
+    model = mx.mod.Module(context=dev, symbol=net)
+    if (len(model._param_names), len(model._aux_names)) != (
+            cfg["tensors"], cfg["aux"]):
+        raise AssertionError(f"module_fit: {len(model._param_names)} "
+                             f"parameters, {len(model._aux_names)} aux")
+    host = {"update": [], "update_metric": []}
+    for name in host:
+        def timed(*a, _fn=getattr(model, name), _ms=host[name], **k):
+            t0 = time.perf_counter()
+            out = _fn(*a, **k)
+            _ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(model, name, timed)
+    stamps, probe = [], {}
+
+    def stamp(param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    def probe_batch(param):
+        if param.nbatch in (0, cfg["epoch_size"] - 1):
+            probe[param.nbatch] = _softmax_loss(model.get_outputs()[0],
+                                                train._label)
+            probe["accuracy"] = dict(
+                param.eval_metric.get_global_name_value())["accuracy"]
+
+    sgd = opt_step.opt_sgd
+    paths, copies = dict(sgd.tensors_by_path), sgd.copies
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    kernels.reset_launch_counts()
+    t_fit = time.perf_counter()
+    with _captured_log() as log:
+        module_fit(cfg, model, train, [stamp, probe_batch])
+    fit_s = time.perf_counter() - t_fit
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    paths, copies = _opt_paths(sgd, paths), sgd.copies - copies
+    batches = cfg["epoch_size"]
+    want = dict.fromkeys(counts, 0)
+    want["opt_sgd"] = batches
+    if counts != want:
+        raise AssertionError(f"module_fit: launches {counts}, expected "
+                             f"{want}")
+    if paths != {"vec4": cfg["tensors"] * batches, "scalar": 0} or copies:
+        raise AssertionError(f"module_fit: K1's tensors by path {paths}, "
+                             f"{copies} gradient copies")
+    if not (model._update_on_kvstore and model._kvstore.type == "local"):
+        raise AssertionError("module_fit: the update did not run on the "
+                             "local kvstore")
+    if model._optimizer.rescale_grad != 1.0 / cfg["batch"]:
+        raise AssertionError(f"module_fit: rescale_grad "
+                             f"{model._optimizer.rescale_grad}")
+    losses = [probe[0], probe[batches - 1]]
+    if not all(math.isfinite(v) for v in losses) or len(stamps) != batches \
+            or not log.speeds:
+        raise AssertionError(f"module_fit: losses {losses}, {len(stamps)} "
+                             f"batch ends, Speedometer {log.speeds}")
+    batch_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    timed = batch_ms[cfg["warmup"] - 1:]   # batches 4..13
+    median = statistics.median(timed)
+    metric = mx.metric.create(["accuracy"])
+    train.reset()
+    prof = _profile_module_batch(model, train.next(), metric)
+    out = {"phase": "resnet50_v1_module_fit", "card": smi, "config": cfg,
+           "source": "examples/image_classification/train_imagenet.py "
+                     "--benchmark 1 --network resnet50_v1",
+           "tf32": False, "batches": batches,
+           "batch_ms": batch_ms, "median_batch_ms": median,
+           "min_batch_ms": min(timed), "max_batch_ms": max(timed),
+           "img_per_s": cfg["batch"] / (median / 1e3),
+           "speedometer_img_per_s": log.speeds, "fit_s": fit_s,
+           "update_host_ms": statistics.median(host["update"][
+               cfg["warmup"]:]),
+           "update_metric_host_ms": statistics.median(host["update_metric"][
+               cfg["warmup"]:]),
+           "memory_allocated_before": before, "max_memory_allocated": peak,
+           "launches": counts, "k1_tensors_by_path": paths,
+           "rescale_grad": model._optimizer.rescale_grad,
+           "loss_first": losses[0], "loss_last": losses[1],
+           "train_accuracy": probe["accuracy"],
+           "log_tail": log.lines[-3:], **prof,
+           "phase_s": time.perf_counter() - t_phase}
+    if gluon is not None:
+        out["gluon_median_step_ms"] = gluon["median_step_ms"]
+        out["excess_over_gluon_step_ms"] = median - gluon["median_step_ms"]
+    emit(out)
+    del model, net, train
+    torch.cuda.empty_cache()
+    return out
+
+
+def _thumbnail_symbol(cfg):
+    """The thumbnail of ``cfg`` exported (built on the CPU) with a
+    SoftmaxOutput head, as ``get_network`` makes it."""
+    net = vision.get_model(cfg["model"], classes=cfg["classes"],
+                           thumbnail=True, prefix="modcheck_")
+    net.initialize(mx.init.Xavier(), ctx=mx.cpu(),
+                   generator=torch.Generator().manual_seed(0))
+    net(mx.nd.zeros((1, 3, cfg["size"], cfg["size"]), ctx=mx.cpu()))
+    with tempfile.TemporaryDirectory() as d:
+        net.export(os.path.join(d, "net"), 0)
+        sym = mx.sym.load(os.path.join(d, "net-symbol.json"))
+    return mx.sym.SoftmaxOutput(sym, mx.sym.var("softmax_label"),
+                                name="softmax")
+
+
+def _check_module(sym, ctx, cfg, arg_params=None, aux_params=None):
+    """A Module of ``sym`` on ``ctx``, bound, initialized (Xavier from
+    ``mx.random``, or the given parameters) and with the "sgd" optimizer
+    on a local kvstore (``rescale_grad`` 1 / batch, the C8 default)."""
+    mod = mx.mod.Module(sym, context=ctx)
+    mod.bind([("data", (cfg["batch"], 3, cfg["size"], cfg["size"]))],
+             [("softmax_label", (cfg["batch"],))])
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2),
+                    arg_params=arg_params, aux_params=aux_params)
+    mod.init_optimizer(kvstore=mx.kv.create("local"), optimizer="sgd",
+                       optimizer_params={"learning_rate": cfg["lr"],
+                                         "momentum": cfg["momentum"],
+                                         "wd": cfg["wd"]})
+    return mod
+
+
+def _module_state(mod):
+    """The tensors a Module's step reads and writes: the bound weights,
+    the store's weights, the momenta and the running statistics."""
+    kv = mod._kvstore
+    names = mod._param_names
+    return {"w": [mod._exec.arg_dict[n]._data for n in names],
+            "store": [kv._store[n]._data for n in names],
+            "m": [kv._updater.states[n]._data for n in names
+                  if n in kv._updater.states],
+            "aux": [mod._exec.aux_dict[n]._data for n in mod._aux_names]}
+
+
+def _module_batch(cfg, x, y, ctx):
+    return mx.io.DataBatch(data=[mx.nd.array(x, ctx=ctx)],
+                           label=[mx.nd.array(y, ctx=ctx)])
+
+
+def phase_module_check():
+    """module_check: the thumbnail resnet18_v1 symbol through ``Module``
+    on the card and on a CPU copy of its weights, ``forward_backward`` +
+    ``update`` a step, the copy set to the card's state (weights,
+    momenta, running statistics) before each step; the training forward's
+    outputs, the running statistics and every weight and momentum held
+    to ``MODULE_CHECK_TOL``; K1 one launch a card step, its result from
+    the second step on (when the momenta exist) bit for bit the plain
+    ``sgd_mom_update``'s over the same operands. Then
+    ``save_checkpoint`` (with the optimizer states), ``Module.load`` and
+    one more step resume bit for bit (deterministic cuDNN) against the
+    step the saved module takes."""
+    t_phase = time.perf_counter()
+    cfg, tol = MODULE_CHECK, MODULE_CHECK_TOL
+    rs = np.random.RandomState(0)
+    x = rs.rand(cfg["steps"] + 1, cfg["batch"], 3, cfg["size"],
+                cfg["size"]).astype(np.float32)
+    y = rs.randint(0, cfg["classes"], (cfg["steps"] + 1, cfg["batch"])
+                   ).astype(np.float32)
+    sym = _thumbnail_symbol(cfg)
+    mx.random.seed(0)
+    card = _check_module(sym, mx.gpu(0), cfg)
+    arg, aux = card.get_params()
+    cpu = _check_module(sym, mx.cpu(), cfg, arg_params=arg, aux_params=aux)
+    if (len(card._param_names), len(card._aux_names)) != (cfg["tensors"],
+                                                          cfg["aux"]):
+        raise AssertionError(f"module_check: {len(card._param_names)} "
+                             f"parameters, {len(card._aux_names)} aux")
+    before = opt_step.opt_sgd.launches
+    steps, k1_bitwise = [], []
+    for i in range(cfg["steps"]):
+        st_card, st_cpu = _module_state(card), _module_state(cpu)
+        with torch.no_grad():
+            for k in st_card:
+                for a, b in zip(st_cpu[k], st_card[k]):
+                    a.copy_(b.cpu())
+        aux0 = [t.clone() for t in st_card["aux"]]
+        outs = []
+        for mod, ctx in ((card, mx.gpu(0)), (cpu, mx.cpu())):
+            mod.forward_backward(_module_batch(cfg, x[i], y[i], ctx))
+            outs.append(mod.get_outputs()[0]._data.cpu())
+            want = _module_k1_plain(mod) if mod is card and i > 0 else None
+            mod.update()
+            if want is not None:
+                k1_bitwise.append(_module_k1_equal(mod, want, i))
+        out_err = float((outs[0] - outs[1]).abs().max())
+        if out_err > tol["out"]:
+            raise AssertionError(f"module_check step {i}: outputs off by "
+                                 f"{out_err}")
+        st_card, st_cpu = _module_state(card), _module_state(cpu)
+        aux_err = 0.0
+        for a, b, old in zip(st_card["aux"], st_cpu["aux"], aux0):
+            err = float((a.cpu() - b).abs().max()) / max(
+                float(b.abs().max()), 1.0)
+            aux_err = max(aux_err, err)
+            if err > tol["aux"] or torch.equal(a, old):
+                raise AssertionError(f"module_check step {i}: a running "
+                                     f"statistic off by {err} or unmoved")
+        step_err = 0.0
+        for name, w, cw, m, cm in zip(card._param_names, st_cpu["w"],
+                                      st_card["w"], st_cpu["m"],
+                                      st_card["m"]):
+            norm = float(cm.norm())
+            for a, b in ((cw.cpu(), w), (cm.cpu(), m)):
+                err = float((a - b).norm()) / max(norm, 1e-30)
+                step_err = max(step_err, err)
+                if err > tol["step_l2"]:
+                    raise AssertionError(f"module_check step {i}: {name} "
+                                         f"off by {err} of its step")
+        steps.append({"max_out_err": out_err, "max_aux_err": aux_err,
+                      "max_step_l2_err": step_err})
+    torch.cuda.synchronize()
+    launches = opt_step.opt_sgd.launches - before
+    if launches != cfg["steps"]:
+        raise AssertionError(f"module_check: {launches} K1 launches for "
+                             f"{cfg['steps']} card steps")
+    resume = _module_resume(card, sym, cfg, x[-1], y[-1])
+    emit({"phase": "module_check", "config": cfg, "tolerance": tol,
+          "tf32": False, "steps": steps, "opt_sgd_launches": launches,
+          "k1_bitwise_vs_plain": k1_bitwise, "resume": resume,
+          "phase_s": time.perf_counter() - t_phase})
+    return opt_step.opt_sgd.launches - before
+
+
+def _module_k1_plain(mod):
+    """K1's plain version (``sgd_mom_update`` a tensor) over clones of
+    the operands that ``mod.update()`` hands K1 on the store: the store's
+    weights and momenta, the executor's gradients (one device, so the
+    push's sum is the gradient itself), and the Module's optimizer's lr,
+    wd table (``wd_mult`` 0 off the weights), ``rescale_grad`` (1 /
+    batch) and clip. Returns the weights and momenta it leaves."""
+    kv, opt = mod._kvstore, mod._optimizer
+    names = mod._param_names
+    idx = [kv._key_index(n) for n in names]
+    lrs = set(opt._get_lrs(idx))
+    if len(lrs) != 1 or len(kv._updater.states) != len(names):
+        raise AssertionError(f"module_check: {len(lrs)} learning rates, "
+                             f"{len(kv._updater.states)} momenta")
+    state = {"w": [kv._store[n]._data.clone() for n in names],
+             "g": [mod._exec.grad_dict[n]._data.clone() for n in names],
+             "m": [kv._updater.states[n]._data.clone() for n in names]}
+    lr = torch.tensor(lrs.pop(), dtype=torch.float32,
+                      device=state["w"][0].device)
+    _run_opt("opt_sgd", kernels.entry("opt_sgd").plain, state, lr,
+             opt._get_wds(idx), {"momentum": opt.momentum,
+                                 "rescale_grad": opt.rescale_grad,
+                                 "clip_gradient": opt._clip()})
+    return state
+
+
+def _module_k1_equal(mod, want, step):
+    """The store's weights and momenta after ``mod.update()`` (one K1
+    launch) bit for bit against ``_module_k1_plain``'s, and the bound
+    weights pulled from them."""
+    kv, names = mod._kvstore, mod._param_names
+    got = {"w": [kv._store[n]._data for n in names],
+           "m": [kv._updater.states[n]._data for n in names],
+           "pulled": [mod._exec.arg_dict[n]._data for n in names]}
+    for k, ref in (("w", want["w"]), ("m", want["m"]),
+                   ("pulled", want["w"])):
+        if not all(torch.equal(a, b) for a, b in zip(got[k], ref)):
+            raise AssertionError(f"module_check step {step}: K1's {k} "
+                                 "differ from the plain sgd_mom_update's")
+    wds = mod._optimizer._get_wds([kv._key_index(n) for n in names])
+    return {"step": step, "bitwise_equal": True, "tensors": len(names),
+            "rescale_grad": mod._optimizer.rescale_grad,
+            "tensors_without_wd": sum(1 for wd in wds if not wd)}
+
+
+def _module_resume(card, sym, cfg, x, y):
+    """``save_checkpoint(..., save_optimizer_states=True)``, one more
+    step of ``card``, then ``Module.load(..., load_optimizer_states=
+    True)`` and the same step: every weight, momentum, running statistic
+    and output bit for bit, with cuDNN deterministic."""
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            prefix = os.path.join(d, "module_check")
+            card.save_checkpoint(prefix, cfg["steps"],
+                                 save_optimizer_states=True)
+            res = mx.mod.Module.load(prefix, cfg["steps"],
+                                     load_optimizer_states=True,
+                                     context=mx.gpu(0))
+            res.bind(card.data_shapes, card.label_shapes)
+            res.init_optimizer(kvstore=mx.kv.create("local"),
+                               optimizer="sgd",
+                               optimizer_params={
+                                   "learning_rate": cfg["lr"],
+                                   "momentum": cfg["momentum"],
+                                   "wd": cfg["wd"]})
+            got = {}
+            for name, mod in (("saved", card), ("resumed", res)):
+                mod.forward_backward(_module_batch(cfg, x, y, mx.gpu(0)))
+                mod.update()
+                got[name] = dict(_module_state(mod),
+                                 out=[mod.get_outputs()[0]._data])
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = flags
+    torch.cuda.synchronize()
+    counts = {k: len(v) for k, v in got["saved"].items()}
+    for k, tensors in got["saved"].items():
+        if len(got["resumed"][k]) != len(tensors) or not all(
+                torch.equal(a, b) for a, b in zip(tensors,
+                                                  got["resumed"][k])):
+            raise AssertionError(f"module_check: the resumed step's {k} "
+                                 "differ from the saved module's")
+    return {"bitwise_equal": True, "tensors": counts}
+
+
 PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "int8_gemm", "serve_int8", "capture", "decode", "twobit",
           "dist_check",
           "dist_train", "resnet_check", "resnet50_v1_train",
           "resnet50_v1_infer_bf16", "resnet50_v1_train_bf16",
-          "resnet50_v1_train_bf16_mp", "resnet_check_bf16", "resnet_resume")
+          "resnet50_v1_train_bf16_mp", "resnet_check_bf16", "resnet_resume",
+          "resnet50_v1_module_fit", "module_check")
 
 
 def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
@@ -3739,6 +4304,11 @@ def main(argv=None):
         done["resnet_check_bf16"] = phase_resnet_check_bf16()
     if "resnet_resume" in phases:
         done["resnet_resume"] = phase_resnet_resume()
+    if "resnet50_v1_module_fit" in phases:
+        done["resnet50_v1_module_fit"] = phase_resnet50_module_fit(
+            smi, done.get("resnet50_v1_train"))
+    if "module_check" in phases:
+        done["module_check"] = phase_module_check()
     if not set(PHASES) <= set(done):
         print(f"phases run: {sorted(done)}; no result line", flush=True)
         return 1
@@ -3789,6 +4359,11 @@ def main(argv=None):
         launches_resnet50_v1_train_bf16=bf["launches"]["opt_sgd"],
         launches_resnet_check_bf16=done["resnet_check_bf16"],
         launches_resnet_resume=done["resnet_resume"],
+        # this slice: Module.fit (one launch a batch through the local
+        # kvstore's update_multi) and the Module checks
+        launches_resnet50_v1_module_fit=done["resnet50_v1_module_fit"][
+            "launches"]["opt_sgd"],
+        launches_module_check=done["module_check"],
         bf16_mp_in_step=mp["k1_in_step"], bf16_in_step=bf["k1_in_step"],
         bf16_mp_casts={k: mp["casts"][k]["device_ms"] for k in (
             "grad_to_float32", "master_to_bfloat16")},

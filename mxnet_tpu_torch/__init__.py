@@ -27,6 +27,7 @@ from . import kernels
 from . import name
 from . import symbol
 from . import symbol as sym
+from . import executor
 from . import gluon
 from . import io
 from . import model
@@ -41,10 +42,16 @@ from . import convert
 from . import checkpoint
 from . import compile
 from . import cached_op
+from . import metric
+from . import callback
+from . import monitor
+from . import module
+from . import module as mod
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "autograd", "random", "nd", "ndarray",
            "NDArray", "initializer", "init", "kernels", "name", "symbol",
            "sym", "gluon", "io", "model", "contrib", "lr_scheduler",
            "optimizer", "kvstore", "kv", "parallel", "serving", "convert",
-           "checkpoint", "compile", "cached_op", "__version__"]
+           "checkpoint", "compile", "cached_op", "executor", "metric",
+           "callback", "monitor", "module", "mod", "__version__"]

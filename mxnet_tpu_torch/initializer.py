@@ -1,7 +1,8 @@
 """Weight initializers.
 
 Counterpart of ``mxnet_tpu/initializer.py``: Zero, One, Uniform, Normal
-and Xavier, with the same name-suffix dispatch (``*bias``/``*beta`` get
+and Xavier, and ``InitDesc`` (a name with graph attributes, as
+``Module.init_params`` passes it), with the same name-suffix dispatch (``*bias``/``*beta`` get
 zeros, ``*gamma`` ones, unless the Parameter forces its own initializer)
 and the same string aliases. Draws come from an explicit CPU
 ``torch.Generator`` passed by the caller; the Parameter then moves the
@@ -18,8 +19,8 @@ import torch
 
 from .base import canonical_dtype
 
-__all__ = ["Initializer", "register", "create", "Zero", "One", "Uniform",
-           "Normal", "Xavier"]
+__all__ = ["Initializer", "register", "create", "InitDesc", "Zero", "One",
+           "Uniform", "Normal", "Xavier"]
 
 _INIT_REGISTRY = {}
 
@@ -45,6 +46,17 @@ def create(init, **kwargs):
                              f"{sorted(_INIT_REGISTRY)}")
         return _INIT_REGISTRY[key](**kwargs)
     raise TypeError(f"cannot create initializer from {init!r}")
+
+
+class InitDesc(str):
+    """A parameter's name, with its graph attributes (``attrs``), as
+    ``Module.init_params`` hands it to an initializer."""
+
+    def __new__(cls, name, attrs=None, global_init=None):
+        obj = super().__new__(cls, name)
+        obj.attrs = attrs or {}
+        obj.global_init = global_init
+        return obj
 
 
 class Initializer:

@@ -101,8 +101,18 @@ class KVStore(KVStoreBase):
 
     def push(self, key, value, priority=0):
         """Sum each key's value(s); with an optimizer set, update the
-        stored weight with the sum, else keep it for the next pull."""
+        stored weight with the sum, else keep it for the next pull. A
+        push of several distinct keys with an optimizer set updates them
+        all in one ``Updater.update_multi`` (one fused launch per
+        learning-rate group); each key's result is its single push's."""
         keys, values = self._canonical_push(key, value)
+        if self._updater is not None and len(keys) > 1 and \
+                len(set(keys)) == len(keys):
+            self._updater.update_multi(
+                [self._key_index(k) for k in keys],
+                [NDArray(self._sum(vals)) for vals in values],
+                [self._store[k] for k in keys])
+            return
         for k, vals in zip(keys, values):
             self._apply(k, self._sum(vals), owned=len(vals) > 1)
 
@@ -121,12 +131,20 @@ class KVStore(KVStoreBase):
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
         """Copy each key's current value into ``out`` (an NDArray or a
-        list of them)."""
+        list of them) in place, each target keeping its device and dtype:
+        one multi-tensor copy for all the keys."""
         keys, outs = self._canonical(key, out)
+        srcs, dsts = [], []
         for k, o in zip(keys, outs):
             src = self._value_for_pull(k)
             for target in _to_list(o):
-                src.copyto(target)
+                if target.shape != src.shape:
+                    raise ValueError(f"pull of {k!r}: shape {src.shape} "
+                                     f"into {target.shape}")
+                srcs.append(src._data)
+                dsts.append(target._data)
+        with torch.no_grad():
+            torch._foreach_copy_(dsts, srcs)
 
     def pushpull(self, key, value, out=None, priority=0):
         self.push(key, value, priority)
@@ -148,6 +166,22 @@ class KVStore(KVStoreBase):
         optimizer-on-server)."""
         self._optimizer = optimizer
         self._updater = opt_mod.get_updater(optimizer)
+
+    def save_optimizer_states(self, fname, dump_optimizer=False):
+        """Write the store's optimizer states (and, with
+        ``dump_optimizer``, the optimizer) to ``fname``."""
+        if self._updater is None:
+            raise MXNetError("no optimizer is set on this kvstore")
+        with open(fname, "wb") as f:
+            f.write(self._updater.get_states(dump_optimizer))
+
+    def load_optimizer_states(self, fname):
+        """Read optimizer states written by :meth:`save_optimizer_states`
+        (a pickle: only files this program wrote)."""
+        if self._updater is None:
+            raise MXNetError("no optimizer is set on this kvstore")
+        with open(fname, "rb") as f:
+            self._updater.set_states(f.read())
 
     @staticmethod
     def _key_index(key):

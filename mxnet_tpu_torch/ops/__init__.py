@@ -2,6 +2,7 @@
 from . import registry
 from . import tensor  # noqa: F401
 from . import nn  # noqa: F401
+from . import output_ops  # noqa: F401
 from . import optimizer_op  # noqa: F401
 from . import pallas_ops  # noqa: F401
 from . import quantization  # noqa: F401

@@ -3,7 +3,8 @@
 Counterpart of ``mxnet_tpu/ops/nn.py`` (FullyConnected :29, Convolution
 :60, Pooling :118, _contrib_AdaptiveAvgPooling2D :180, BatchNorm :202,
 LayerNorm :226, softmax :283, log_softmax :294, Activation :377,
-LeakyReLU :391, Dropout :424). These were plain XLA in the JAX package,
+LeakyReLU :391, Dropout :424, SoftmaxOutput :317-374). These were plain
+XLA in the JAX package,
 so here they are plain PyTorch (cuBLAS for the matrix products, cuDNN for
 convolutions and BatchNorm on the card). Layouts are the JAX package's:
 channels first (NCW, NCHW, NCDHW), convolution weights ``(num_filter,
@@ -255,3 +256,70 @@ def _log_softmax(data, axis=-1, temperature=None):
     if temperature:
         data = data / temperature
     return torch.log_softmax(data, dim=axis)
+
+
+def _one_hot(label, num_classes, dtype):
+    """``onehot(label)`` over a new last axis; an index outside
+    ``[0, num_classes)`` (an ignored label such as -1) gives a row of
+    zeros, as ``jax.nn.one_hot`` does. A float label is truncated to an
+    integer first."""
+    classes = torch.arange(num_classes, device=label.device)
+    return (label.to(torch.int64).unsqueeze(-1) == classes).to(dtype)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Forward softmax; backward MXNet's hand-written cross-entropy
+    gradient (``softmax_output-inl.h``), the JAX op's ``custom_vjp``."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, use_ignore,
+                normalization, out_grad, smooth_alpha, axis):
+        out = torch.softmax(data, dim=axis)
+        ctx.save_for_backward(out, label)
+        ctx.hyper = (grad_scale, ignore_label, use_ignore, normalization,
+                     out_grad, smooth_alpha, axis)
+        return out
+
+    @staticmethod
+    def backward(ctx, cot):
+        out, label = ctx.saved_tensors
+        (grad_scale, ignore_label, use_ignore, normalization, out_grad,
+         smooth_alpha, axis) = ctx.hyper
+        num_classes = out.shape[axis]
+        onehot = _one_hot(label, num_classes, out.dtype).movedim(-1, axis)
+        if smooth_alpha:
+            onehot = onehot * (1.0 - smooth_alpha) + smooth_alpha / max(
+                num_classes - 1, 1) * (1.0 - onehot)
+        g = out - onehot
+        valid = None
+        if use_ignore:
+            valid = (label != ignore_label).to(out.dtype)
+            g = g * valid.unsqueeze(axis)
+        if normalization == "batch":
+            g = g / label.shape[0]
+        elif normalization == "valid":
+            count = valid.sum() if valid is not None else torch.tensor(
+                float(label.numel()), dtype=out.dtype, device=out.device)
+            g = g / torch.clamp(count, min=1.0)
+        g = g * grad_scale
+        if out_grad:
+            g = g * cot
+        return (g.to(out.dtype),) + (None,) * 8
+
+
+@register("SoftmaxOutput", aliases=("Softmax",))
+def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                    multi_output=False, use_ignore=False, preserve_shape=False,
+                    normalization="null", out_grad=False, smooth_alpha=0.0):
+    """Softmax over the last axis (axis 1 with ``multi_output``); its
+    gradient is ``(softmax - onehot(label)) * grad_scale``, whatever the
+    head gradient (unless ``out_grad``), masked where ``use_ignore`` and
+    the label is ``ignore_label``, divided by the batch
+    (``normalization="batch"``) or by the count of valid labels
+    (``"valid"``); ``"null"`` sums over the batch. The label gets no
+    gradient. ``preserve_shape`` is accepted and, as in the JAX op,
+    changes nothing."""
+    axis = 1 if multi_output else -1
+    return _SoftmaxOutput.apply(data, label, grad_scale, ignore_label,
+                                use_ignore, normalization, out_grad,
+                                smooth_alpha, axis)

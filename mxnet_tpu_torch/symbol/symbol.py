@@ -1,21 +1,25 @@
 """Symbol: the op graph that ``HybridBlock.export`` traces, the
-quantization pass rewrites and the symbol loaders serve.
+quantization pass rewrites, the symbol loaders serve and ``bind`` /
+``simple_bind`` turn into an :class:`~mxnet_tpu_torch.executor.Executor`.
 
 Counterpart of the core of ``mxnet_tpu/symbol/symbol.py``: ``_Node``
 :94, ``_topo`` :115, ``Symbol`` :133 (lists of arguments, auxiliary
 states and outputs, ``get_internals`` :189, ``infer_shape`` :258,
-``_build_eval`` :409, ``eval_with`` :506, ``tojson`` :597, ``save``),
-``_apply_op`` :858, ``var`` :949, ``Group`` :970, ``load_json`` :993 and
-``load`` :1043, over the port's op registry. Graph JSON is the JAX
-package's format both ways (attributes as Python literals, ``_attr_str``
-/ ``_parse_attr``), so a graph written by either package loads in the
-other, calibration floats exactly.
+``infer_shape_partial`` :282, ``infer_type`` :288-333, ``_build_eval``
+:409 with the BatchNorm statistics' writeback ``_bn_aux_update`` :692,
+``eval_with`` :506, ``eval`` :528, ``simple_bind`` :533, ``bind`` :574,
+``tojson`` :597, ``save``), ``_apply_op`` :858, ``var`` :949, ``Group``
+:970, ``load_json`` :993 and ``load`` :1043, over the port's op
+registry. Graph JSON is the JAX package's format both ways (attributes
+as Python literals, ``_attr_str`` / ``_parse_attr``), so a graph written
+by either package loads in the other, calibration floats exactly.
 
 Evaluation walks the nodes in topological order and calls each op's
 PyTorch function on the tensors (there is no ``jit``: PyTorch runs
 eagerly), so on a card every kernel family launches as it does in the
-imperative path. Shape inference runs the same walk on ``meta`` tensors,
-which carry shapes and no data.
+imperative path. Shape and type inference run the same walk on ``meta``
+tensors, which carry shapes and dtypes and no data. Types are
+``torch.dtype``s, as the port's ``NDArray.dtype`` is.
 """
 from __future__ import annotations
 
@@ -30,12 +34,27 @@ from ..ops import registry as _registry
 
 __all__ = ["Symbol", "var", "Group", "load", "load_json"]
 
-# auto-created parameter inputs of layer ops: arg name -> (suffix, skip_if)
+# auto-created parameter inputs of layer ops:
+# arg name -> (suffix, skip_if, is_aux)
 _LAYER_PARAMS = {
-    "FullyConnected": {"weight": ("weight", None),
-                       "bias": ("bias", lambda a: a.get("no_bias", False))},
-    "LayerNorm": {"gamma": ("gamma", None), "beta": ("beta", None)},
-    "Embedding": {"weight": ("weight", None)},
+    "FullyConnected": {"weight": ("weight", None, False),
+                       "bias": ("bias", lambda a: a.get("no_bias", False),
+                                False)},
+    "Convolution": {"weight": ("weight", None, False),
+                    "bias": ("bias", lambda a: a.get("no_bias", False),
+                             False)},
+    "BatchNorm": {"gamma": ("gamma", None, False),
+                  "beta": ("beta", None, False),
+                  "moving_mean": ("moving_mean", None, True),
+                  "moving_var": ("moving_var", None, True)},
+    "LayerNorm": {"gamma": ("gamma", None, False),
+                  "beta": ("beta", None, False)},
+    "Embedding": {"weight": ("weight", None, False)},
+    # loss heads make their label input "<name>_label" when not given
+    # (mx.sym.SoftmaxOutput(net, name="softmax") has "softmax_label")
+    **{head: {"label": ("label", None, False)} for head in (
+        "SoftmaxOutput", "SVMOutput", "LinearRegressionOutput",
+        "LogisticRegressionOutput", "MAERegressionOutput")},
 }
 # arguments the evaluator supplies, never node attributes or inputs
 _RUNTIME_PARAMS = frozenset({"training", "generator"})
@@ -163,35 +182,89 @@ class Symbol:
         return Symbol([(node, i) for node in _topo(self._entries)
                        for i in range(node.num_outputs)])
 
-    # -------------------------------------------------------------- shape --
+    # --------------------------------------------------------- shape/type --
     def infer_shape(self, **shapes):
         """Shapes from the given input shapes: ``(arg_shapes, out_shapes,
         aux_shapes)`` in ``list_arguments()`` / ``list_outputs()`` /
         ``list_auxiliary_states()`` order. Parameter shapes of layer ops
         follow from their data input."""
+        shapes, _ = self._checked_infer(shapes, {})
+        return self._ordered(shapes)
+
+    def infer_shape_partial(self, **shapes):
+        """:meth:`infer_shape`, or ``(None, None, None)`` where the given
+        shapes do not determine the graph's."""
         try:
-            known = self._infer(shapes)
+            return self.infer_shape(**shapes)
+        except MXNetError:
+            return None, None, None
+
+    def infer_type(self, **dtypes):
+        """Types from the given input types: ``(arg_types, out_types,
+        aux_types)``, as ``torch.dtype``s. With every shape known (from
+        the variables' ``__shape__``) the ops run on ``meta`` tensors;
+        otherwise each node takes its ``dtype`` attribute or the promoted
+        type of its inputs, as the JAX package's fallback does."""
+        hints = {k: canonical_dtype(v) for k, v in dtypes.items()}
+        try:
+            _, types = self._infer_meta({}, hints)
+            return self._ordered(types)
+        except (MXNetError, KeyError, RuntimeError, TypeError,
+                ValueError):
+            return self._infer_type_only(hints)
+
+    def _ordered(self, known):
+        return ([known["var", n] for n in self.list_arguments()],
+                [known[id(n), i] for n, i in self._entries],
+                [known["var", n] for n in self.list_auxiliary_states()])
+
+    def _infer_type_only(self, hints):
+        types = {}
+        for node in _topo(self._entries):
+            if node.is_var:
+                dt = hints.get(node.name, canonical_dtype(
+                    node.attrs.get("__dtype__")))
+                types["var", node.name] = types[id(node), 0] = dt
+                continue
+            if node.attrs.get("dtype") is not None:
+                dt = canonical_dtype(node.attrs["dtype"])
+            else:
+                ins = [types[id(c), oi] for c, oi in node.inputs]
+                dt = ins[0] if ins else torch.float32
+                for other in ins[1:]:
+                    dt = torch.promote_types(dt, other)
+            for i in range(node.num_outputs):
+                types[id(node), i] = dt
+        return self._ordered(types)
+
+    def _checked_infer(self, shape_hints, dtype_hints, fallback=None):
+        try:
+            return self._infer_meta(shape_hints, dtype_hints, fallback)
         except MXNetError:
             raise
         except Exception as exc:  # noqa: BLE001 - name the failing graph
             raise MXNetError(f"infer_shape failed: {exc}") from exc
-        args = [known["var", n] for n in self.list_arguments()]
-        auxs = [known["var", n] for n in self.list_auxiliary_states()]
-        outs = [known[id(n), i] for n, i in self._entries]
-        return args, outs, auxs
 
     def _infer(self, shape_hints):
-        """Run the graph on ``meta`` tensors. Returns shapes keyed by
-        ``("var", name)`` for inputs and ``(id(node), out_index)`` for
-        node outputs."""
+        """Shapes keyed by ``("var", name)`` for inputs and ``(id(node),
+        out_index)`` for node outputs."""
+        return self._infer_meta(shape_hints, {})[0]
+
+    def _infer_meta(self, shape_hints, dtype_hints, fallback=None):
+        """Run the graph on ``meta`` tensors. Returns ``(shapes, dtypes)``
+        keyed as :meth:`_infer`'s. An input that no hint, ``__shape__``
+        or layer rule sizes takes its shape in ``fallback``."""
+        fallback = fallback or {}
         meta = torch.device("meta")
-        shapes, vals = {}, {}
+        shapes, dtypes, vals = {}, {}, {}
 
         def put_var(node, shape, dtype):
+            dtype = dtype_hints.get(node.name, dtype)
             t = torch.empty(tuple(shape), dtype=canonical_dtype(dtype),
                             device=meta)
             vals[id(node), 0] = t
             shapes["var", node.name] = shapes[id(node), 0] = tuple(t.shape)
+            dtypes["var", node.name] = dtypes[id(node), 0] = t.dtype
 
         for node in _topo(self._entries):
             if node.is_var:
@@ -205,6 +278,9 @@ class Symbol:
             for child, _ in node.inputs:
                 if (id(child), 0) in vals:
                     continue
+                if child.is_var and child.name not in rules and \
+                        child.name in fallback:
+                    rules[child.name] = (fallback[child.name], None)
                 if not (child.is_var and child.name in rules):
                     raise MXNetError(f"cannot infer the shape of input "
                                      f"{child.name!r} of {node.name!r} "
@@ -217,15 +293,21 @@ class Symbol:
             for i, o in enumerate(outs):
                 vals[id(node), i] = o
                 shapes[id(node), i] = tuple(o.shape)
-        return shapes
+                dtypes[id(node), i] = o.dtype
+        return shapes, dtypes
 
     # --------------------------------------------------------------- eval --
-    def _build_eval(self):
+    def _build_eval(self, update_aux=False):
         """The graph as one function ``run(args, auxs=None,
         training=False) -> [output tensors]`` over ``{name: tensor}``
         dicts. Each intermediate is dropped after its last consumer, so
         a forward holds about as much memory as the same ops run
-        imperatively."""
+        imperatively. With ``update_aux`` a training run writes each
+        BatchNorm's running statistics (its auxiliary inputs) in place,
+        ``old * momentum + batch * (1 - momentum)`` from the op's batch
+        mean and biased variance, outside autograd: the executor's aux
+        arrays keep their storage (the JAX ``_bn_aux_update``
+        returns new arrays that its executor rebinds)."""
         order = _topo(self._entries)
         heads = [(id(n), i) for n, i in self._entries]
         last_use = {}
@@ -238,11 +320,19 @@ class Symbol:
             done = {k for k in ins if last_use[k] == step
                     and k not in heads}
             op = (None, False) if node.is_var else _op(node.op)
-            steps.append((node, op, _op_kwargs(node.attrs), ins, done))
+            kwargs = _op_kwargs(node.attrs)
+            stats = None
+            if update_aux and node.op == "BatchNorm" and \
+                    not kwargs.get("use_global_stats", False):
+                stats = [(out, node.inputs[slot][0].name)
+                         for out, slot in ((1, 3), (2, 4))
+                         if node.inputs[slot][0].is_aux]
+                stats = (kwargs.get("momentum", 0.9), stats)
+            steps.append((node, op, kwargs, ins, done, stats))
 
         def run(args, auxs=None, training=False):
             vals = {}
-            for node, op, kwargs, ins, done in steps:
+            for node, op, kwargs, ins, done, stats in steps:
                 if node.is_var:
                     vals[id(node), 0] = (auxs if node.is_aux and auxs
                                          is not None else args)[node.name]
@@ -252,6 +342,8 @@ class Symbol:
                     del vals[k]
                 for i, o in enumerate(outs):
                     vals[id(node), i] = o
+                if training and stats is not None:
+                    _bn_aux_update(stats, outs, auxs)
             return [vals[h] for h in heads]
 
         return run
@@ -269,6 +361,74 @@ class Symbol:
             raise MXNetError(f"eval is missing inputs: {missing}")
         outs = [NDArray(o) for o in self._build_eval()(raw, raw, training)]
         return outs[0] if len(outs) == 1 else outs
+
+    def eval(self, ctx=None, **kwargs):
+        """Evaluate with the inputs as keywords; a list of NDArrays."""
+        out = self.eval_with(kwargs)
+        return out if isinstance(out, list) else [out]
+
+    # --------------------------------------------------------------- bind --
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    **shapes):
+        """An :class:`~mxnet_tpu_torch.executor.Executor` over arrays
+        of zeros on ``ctx`` (default: the current context), their shapes
+        and types inferred from the given input ``shapes`` and
+        ``type_dict``."""
+        from ..executor import Executor
+
+        ctx = _one_context(ctx)
+        args, auxs = self._bind_arrays(ctx, shapes, type_dict or {})
+        return Executor(self, ctx, args, auxs, grad_req)
+
+    def _bind_arrays(self, ctx, shapes, type_dict, fallback=None):
+        """``({arg name: zeros}, {aux name: zeros})`` on ``ctx``, shapes
+        and types inferred from the hints; an input that neither a hint
+        nor a layer rule sizes takes its ``fallback`` shape."""
+        known, types = self._checked_infer(
+            {k: tuple(v) for k, v in shapes.items()},
+            {k: canonical_dtype(v) for k, v in type_dict.items()},
+            fallback)
+        device = ctx.torch_device()
+
+        def alloc(names):
+            out = {}
+            for name in names:
+                if ("var", name) not in known:
+                    raise MXNetError(f"simple_bind: the shape of {name!r} "
+                                     "is not known")
+                out[name] = torch.zeros(known["var", name],
+                                        dtype=types["var", name],
+                                        device=device)
+            return out
+
+        return (alloc(self.list_arguments()),
+                alloc(self.list_auxiliary_states()))
+
+    def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
+             aux_states=None):
+        """An Executor over the caller's arrays: ``args`` (and
+        ``args_grad``, ``aux_states``) as lists in ``list_arguments()``
+        (``list_auxiliary_states()``) order or as dicts by name. The
+        executor computes in those arrays' storage."""
+        from ..executor import Executor
+
+        ctx = _one_context(ctx)
+        arg_names = self.list_arguments()
+        aux_names = self.list_auxiliary_states()
+
+        def by_name(values, names):
+            if values is None:
+                return {}
+            if isinstance(values, (list, tuple)):
+                return dict(zip(names, values))
+            return {n: values[n] for n in names if n in values}
+
+        args = by_name(args, arg_names)
+        missing = [n for n in arg_names if n not in args]
+        if missing:
+            raise MXNetError(f"bind is missing arguments {missing}")
+        return Executor(self, ctx, args, by_name(aux_states, aux_names),
+                        grad_req, grad_arrays=by_name(args_grad, arg_names))
 
     # --------------------------------------------------------------- json --
     def tojson(self):
@@ -292,6 +452,32 @@ class Symbol:
     def save(self, fname):
         with open(fname, "w") as f:
             f.write(self.tojson())
+
+
+def _one_context(ctx):
+    """The one Context an executor runs on (default: the current one).
+    A list of several is data parallelism over cards, which is not
+    ported."""
+    from ..context import current_context
+
+    if isinstance(ctx, (list, tuple)):
+        if len(ctx) != 1:
+            raise MXNetError(f"an executor over {len(ctx)} contexts (data "
+                             "parallelism over cards) is not ported yet; "
+                             "see ROADMAP.md A4")
+        ctx = ctx[0]
+    return ctx if ctx is not None else current_context()
+
+
+def _bn_aux_update(stats, outs, auxs):
+    """Write a training BatchNorm's running statistics in place:
+    ``stats`` is ``(momentum, [(output index, aux name)])``."""
+    momentum, pairs = stats
+    with torch.no_grad():
+        for out, name in pairs:
+            old = auxs[name]
+            old.copy_(old * momentum
+                      + outs[out].to(old.dtype) * (1 - momentum))
 
 
 def _op(name):
@@ -333,6 +519,21 @@ def _param_shape_rules(node, data):
             put(i, (dshape[attrs.get("axis", -1)],))
     elif node.op == "Embedding":
         put(1, (attrs["input_dim"], attrs["output_dim"]))
+    elif node.op == "Convolution":
+        kernel = tuple(attrs.get("kernel", ()))
+        put(1, (attrs["num_filter"], dshape[1] // attrs.get("num_group", 1))
+            + kernel)
+        put(2, (attrs["num_filter"],))
+    elif node.op == "BatchNorm":
+        for i in (1, 2, 3, 4):
+            put(i, (dshape[attrs.get("axis", 1)],), "float32")
+    elif node.op in ("SoftmaxOutput", "SVMOutput"):
+        # class-index labels: the data's shape without the class axis
+        axis = 1 if attrs.get("multi_output", False) else len(dshape) - 1
+        put(1, dshape[:axis] + dshape[axis + 1:])
+    elif node.op in ("LinearRegressionOutput", "LogisticRegressionOutput",
+                     "MAERegressionOutput"):
+        put(1, dshape)
     elif node.op == "_contrib_quantized_fully_connected":
         put(1, (attrs["num_hidden"], in_units()), "int8")
         put(2, (attrs["num_hidden"],))
@@ -377,9 +578,9 @@ def _apply_op(op_name, args, kwargs):
         if nxt is not None:
             inputs.append(nxt)
         elif p.name in layer_params:
-            suffix, skip = layer_params[p.name]
+            suffix, skip, is_aux = layer_params[p.name]
             if skip is None or not skip(static):
-                inputs.append(var(f"{name}_{suffix}"))
+                inputs.append(var(f"{name}_{suffix}", is_aux=is_aux))
         elif p.default is inspect.Parameter.empty:
             raise MXNetError(f"op {op!r} missing required input {p.name!r}")
         else:

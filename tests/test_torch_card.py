@@ -996,6 +996,9 @@ def test_train_then_evaluate_keeps_one_graph_on_card(cuda_device):
     net(x)                       # resolves the deferred shapes
     net.hybridize()
     torch.cuda.synchronize()
+    # release the cached blocks earlier tests left, so the first
+    # capture's pool shows in memory_reserved
+    torch.cuda.empty_cache()
     reserved0 = torch.cuda.memory_reserved()
     net(x)                       # the first capture
     torch.cuda.synchronize()
@@ -1164,3 +1167,38 @@ def test_a_failed_capture_raises_naming_the_op_on_card(cuda_device):
     assert "op '_test_host_sync'" in out.stdout, out.stdout
     assert "NO ERROR" not in out.stdout
     assert "CARD OK 6.0" in out.stdout, out.stdout + out.stderr
+
+
+@pytest.mark.gpu
+def test_module_fit_trains_a_thumbnail_on_card(cuda_device):
+    """``Module.fit`` (the symbolic path of ``train_imagenet.py``) on the
+    thumbnail resnet18_v1 symbol for two batches on the card: a finite
+    loss each batch, one K1 launch a batch (the local kvstore's
+    ``update_multi``) and running statistics that moved off their
+    initial zeros and ones."""
+    from chip_smoke import (MODULE_CHECK, SyntheticDataIter,
+                            _softmax_loss, _thumbnail_symbol)
+
+    cfg = MODULE_CHECK
+    sym = _thumbnail_symbol(cfg)
+    mx.random.seed(0)
+    train = SyntheticDataIter(cfg["classes"], (cfg["batch"], 3, cfg["size"],
+                                               cfg["size"]), 2)
+    mod = mx.mod.Module(sym, context=mx.gpu(0))
+    losses = []
+    before = kernels.entry("opt_sgd").kernel.launches
+    mod.fit(train, num_epoch=1, kvstore=mx.kv.create("local"),
+            optimizer="sgd",
+            optimizer_params={"learning_rate": cfg["lr"],
+                              "momentum": cfg["momentum"], "wd": cfg["wd"]},
+            initializer=mx.init.Xavier(rnd_type="gaussian",
+                                       factor_type="in", magnitude=2),
+            batch_end_callback=lambda p: losses.append(_softmax_loss(
+                mod.get_outputs()[0], train._label)))
+    torch.cuda.synchronize()
+    assert kernels.entry("opt_sgd").kernel.launches - before == 2
+    assert len(losses) == 2 and all(math.isfinite(v) for v in losses)
+    _, aux = mod.get_params()
+    for name, arr in aux.items():
+        init = 0.0 if name.endswith("mean") else 1.0
+        assert not bool((arr._data == init).all()), name
