@@ -73,11 +73,31 @@ Phases, each printing one JSON line:
    CPU copy from the same weights; loss and every parameter agree, and
    each kernel of the step counts its launches.
 9. train: 20 "adam" steps of the full 12-layer classifier on one batch
-   of 32 (``make_task`` of the example): finite, falling loss, launch
+   of 32 (``make_task`` of the example), the step captured as one CUDA
+   graph (compile site ``trainer``: the first step eager, then a
+   capture and 19 replays): finite, falling loss, launch
    counts (every flash backward launch on the tensor-core path, no input
    copied; all 197 tensors of every Adam step on the 16-byte path, no
    gradient copied), median step time, tokens/s, peak memory, and a
    ``torch.profiler`` split of one step's device time.
+9b. train_capture: the train phase's trainer from one synchronised
+   state in four blocks of 20 steps, captured, eager
+   (``compile.set_enabled(False)``), eager, captured: step ms per mode
+   and per block, 20 updates per block (``_t``), each tensor after 3 and
+   after 20 steps captured against eager (bit for bit, else within
+   ``CAPTURE_STEP_L2`` of the update's L2 norm), launches per replayed
+   step (K2 1, K3 12, K3-bwd 12 + 12), capture ms, graph pool bytes,
+   peak memory of each mode and a profiled step of each (busy share).
+9c. gluon_hybrid_train: ``examples/distributed_training/cifar10_dist.py
+   :71-87``'s loop on one card (``hybridize()``, ``record()``,
+   ``backward()``, ``gluon.Trainer`` "adam" on a ``local`` store) over
+   the classifier at BERT-base width: the ``cachedop`` pair's replayed
+   gradients against eager from the same weights, K3 and K3-bwd per
+   replayed forward and backward, 20 steps of each mode (A B B A).
+9d. dropout_capture: a hybridized Dense + Dropout(0.5) trained 5
+   captured steps, twice after ``mx.random.seed(11)``: masks differ
+   between replays, each drops a share within 3 sigma of 0.5, and the
+   two runs draw the same masks.
 10. int8_gemm: holds the int8 GEMM kernel (K4) bit for bit
     (``torch.equal``) against its plain version on every product shape
     of a served int8 batch, on ragged and tile-edge shapes and operands
@@ -176,7 +196,15 @@ Phases, each printing one JSON line:
     one profiled step by kernel group (convolution forward, backward and
     FFT, BatchNorm, pooling, elementwise, K1, copies) and the idle share;
     K1 over the same tensors bit for bit against its plain version and
-    timed beside ``torch.optim.SGD(momentum=0.9, fused=True)``.
+    timed beside ``torch.optim.SGD(momentum=0.9, fused=True)``. The step
+    runs captured (site ``trainer``): K1 one launch per replay, the
+    running statistics' storage kept over the timed steps; then eager
+    beside it (one step of each from one state within
+    ``CAPTURE_RESNET_STEP_L2``, A B B A step times, peak memory with the
+    graph's pool at most ``CAPTURE_PEAK_RATIO`` times eager's, a profiled
+    eager step) and a ``nan_guard`` trainer's replayed step on a batch
+    holding a NaN, after which every weight, momentum, master and
+    statistic is bit for bit as before (the bfloat16 cells as well).
 18. resnet50_v1_infer_bf16: ``bench.py:199-223`` in bfloat16 (its
     default dtype): ``net.cast("bfloat16")``, ``hybridize(static_alloc=
     True, static_shape=True)`` (the forward captured as one CUDA graph),
@@ -186,7 +214,8 @@ Phases, each printing one JSON line:
     gap against the float32 forward of the same weights on the same
     batch; what cuBLAS's reduced-precision bfloat16 reductions (pinned
     off in every phase) would change; three rounds of a training-mode
-    forward and an evaluation, which keep one graph and flat pools.
+    forward (the op's pair) and an evaluation, which keep two entries,
+    the statistics' storage and flat pools.
 19. resnet50_v1_train_bf16: resnet50_v1_train with bench.py's default
     dtype, no ``multi_precision``: the same figures, the route census
     (87 bfloat16 tensors through the plain ``sgd_mom_update``, K1 one
@@ -209,7 +238,9 @@ Phases, each printing one JSON line:
     ``fit.fit``'s wiring copied here, ``MODULE_FIT``): batch 128 of
     3x224x224, 1000 classes, "sgd" lr 0.1 momentum 0.9 wd 1e-4 under a
     ``MultiFactorScheduler``, a ``local`` kvstore, accuracy,
-    ``Speedometer(128, 10)``; 13 batches (the cut). The median batch
+    ``Speedometer(128, 10)``; 13 batches (the cut); four fits, the
+    executor captured (site ``executor``: the training pair replayed
+    each batch), eager, eager, captured. The median batch
     over batches 4-13, img/s, Speedometer's img/s, peak memory, the host
     ms of ``update()`` and ``update_metric()``, launches by family (K1
     one a batch over 193 tensors on its 16-byte path, nothing else),
@@ -223,7 +254,7 @@ Phases, each printing one JSON line:
     from the second step on bit for bit against the plain
     ``sgd_mom_update`` over the same operands (the Module's wd table,
     ``rescale_grad`` 1 / batch); ``save_checkpoint`` -> ``Module.load``
-    -> one step bit for bit.
+    -> two steps (the first eager, the second captured) bit for bit.
 
 The twobit phase also holds the single-tensor compress and the
 decompress in float16 and bfloat16 bit for bit against their plain
@@ -234,7 +265,8 @@ Then the ``{"kernels": [...]}`` line (the tensor-core kernels K3 and
 K3-bwd with their tensor-core bound as ``bound_ms`` and the float32-rate
 one as ``bound_f32_ms``; K1 with its ResNet-50 numbers, those over the
 classifier beside them, its launches in the bfloat16 cells and checks and on the Module path,
-its device time inside the bfloat16 steps and the casts' time; K6 and K7 with their half-precision times), the
+its device time inside the bfloat16 steps and the casts' time; K1, K2,
+K3 and K3-bwd with their launches per replayed training graph; K6 and K7 with their half-precision times), the
 card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure is an
 exception and a non-zero exit. ``--phases`` runs a subset (device and
@@ -244,6 +276,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import hashlib
 import json
 import logging
@@ -308,6 +341,23 @@ STEP_LOSS_RTOL = 1e-4
 STEP_PARAM_RTOL, STEP_PARAM_LR_FRAC = 1e-5, 5e-2
 ADAM_NOISE_SHARE = 1e-5
 TRAIN = {"batch": 32, "steps": 20, "warmup": 3, "lr": 1e-4, "wd": 1e-4}
+# training capture (compile sites trainer, executor, cachedop's pair):
+# captured against eager from one synchronised state, each tensor's
+# update within 1e-3 of its L2 norm (or bit for bit, which the phase
+# reports); float32 ResNet-50 steps within 5% (cuDNN's weight gradients
+# may sum in another order: tests/test_torch_resnet_train.py's bound),
+# a captured step's memory (the graph's pool and what a replay
+# allocates) at most 1.25 times what an eager step allocates beyond the
+# trainer's own state
+CAPTURE_STEP_L2 = 1e-3
+CAPTURE_RESNET_STEP_L2 = 0.05
+CAPTURE_PEAK_RATIO = 1.25
+TRAIN_CAPTURE = {"steps": 20, "warmup": 3, "bit_steps": 3}
+# cifar10_dist.py:71-87's loop (hybridize, record, backward, a
+# gluon.Trainer) on one card at BERT-base width, Adam on a local store
+GLUON_HYBRID = {"steps": 20, "lr": 1e-4, "wd": 1e-4}
+DROPOUT_CAPTURE = {"units": 1024, "batch": 64, "rate": 0.5, "steps": 5,
+                   "seed": 11}
 # two workers on the card through dist_sync + 2-bit compression +
 # gluon.Trainer (examples/distributed_training/cifar10_dist.py's path);
 # each worker trains on its shard of make_task (rows rank, rank + 2, ...):
@@ -499,39 +549,69 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+PROFILE_ATTEMPTS = 3  # windows tried before a profiled time falls back
+
+
+def _caller():
+    """``function:line`` of the measurement's caller, for its miss line."""
+    frame = sys._getframe(1)
+    while frame.f_code.co_name in ("kernel_device_us", "device_ms"):
+        frame = frame.f_back
+    return f"{frame.f_code.co_name}:{frame.f_lineno}"
+
+
 def kernel_device_us(fn, iters=20, warmup=3):
     """``{kernel name: device µs per call}`` of ``fn()`` over ``iters``
-    calls, from ``torch.profiler``."""
+    calls, from ``torch.profiler``. A window in which the profiler
+    recorded no kernel at all (seen once on the H100, after the capture
+    phases, for kernels it had timed before) is tried again, up to
+    ``PROFILE_ATTEMPTS`` windows, each miss printed as a
+    ``profiler_miss`` line; an empty dict if every window missed."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    # a user annotation (``Optimizer.step#Adam.step``, from
-    # ``torch.optim``'s ``record_function``) is listed as a CUDA range
-    # over the kernels it holds: counting it too would count them twice
-    return {e.key: e.self_device_time_total / iters
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)
-            and e.self_device_time_total > 0}
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        # a user annotation (``Optimizer.step#Adam.step``, from
+        # ``torch.optim``'s ``record_function``) is listed as a CUDA range
+        # over the kernels it holds: counting it too would count them
+        # twice
+        us = {e.key: e.self_device_time_total / iters for e in events
+              if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)
+              and e.self_device_time_total > 0}
+        if us:
+            return us
+        emit({"phase": "profiler_miss", "at": _caller(), "attempt": attempt,
+              "events": len(events),
+              "cuda_events": sum(e.device_type == DeviceType.CUDA
+                                 for e in events)})
+    return {}
 
 
 def device_ms(fn, iters=20, warmup=3):
     """Mean device milliseconds of ``fn()`` over ``iters`` calls: the
     summed time of the kernels it launches, from ``torch.profiler``, with
     neither host time nor the gaps between kernels. Where ``fn`` costs
-    the host more than the card, ``cuda_ms`` measures the host."""
+    the host more than the card, ``cuda_ms`` measures the host. Where
+    every profiler window missed (``kernel_device_us``), the time is
+    taken by CUDA events instead and a ``profiler_fallback`` line says
+    so."""
     us = sum(kernel_device_us(fn, iters, warmup).values())
-    if us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return us / 1e3
+    if us > 0:
+        return us / 1e3
+    ms = cuda_ms(fn, iters, warmup)
+    emit({"phase": "profiler_fallback", "at": _caller(),
+          "cuda_events_ms": ms})
+    return ms
 
 
 def phase_device():
@@ -820,7 +900,10 @@ def _burst(server, model, payloads):
 def _pool_bytes():
     """Device bytes the caching allocator holds beyond live tensors once
     its unused cached blocks are released: with CUDA graphs captured,
-    mostly their private memory pools."""
+    mostly their private memory pools. Unreachable trainers and blocks
+    are collected first (a trainer and its step function refer to each
+    other, so their graphs go with Python's cyclic collector)."""
+    gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
@@ -1573,7 +1656,8 @@ def phase_train(smi):
     from torch.profiler import ProfilerActivity, profile
 
     cfg, tr = BERT_BASE, TRAIN
-    clf = _classifier_on(mx.gpu(0), cfg, random_params(cfg, seed=0))
+    weights = random_params(cfg, seed=0)
+    clf = _classifier_on(mx.gpu(0), cfg, weights)
     st = ShardedTrainer(clf, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
                         {"learning_rate": tr["lr"], "wd": tr["wd"]},
                         mesh=DeviceMesh({"dp": 1}))
@@ -1593,16 +1677,21 @@ def phase_train(smi):
         t0 = time.perf_counter()
         losses.append(st.step(xb, yb).asscalar())
         step_ms.append((time.perf_counter() - t0) * 1e3)
-    pred = st.predict(xb).asnumpy()
     counts = kernels.launch_counts()
+    pred = st.predict(xb).asnumpy()
+    # predict: a captured forward's first call (eager; the capture after
+    # it launches nothing)
+    predict_launches = {k: v - counts[k] for k, v in
+                        kernels.launch_counts().items() if v != counts[k]}
     copies = [f.copies - c for f, c in zip(bwd_fns, copies)]
     adam_paths = _opt_paths(adam, adam_paths)
     adam_copies = adam.copies - adam_copies
     peak = torch.cuda.max_memory_allocated()
     layers, steps = cfg["layers"], tr["steps"]
     want = dict.fromkeys(counts, 0)
-    want.update({"flash_attention": layers * (steps + 1),
-                 "flash_attention.mma": layers * (steps + 1),
+    # the eager first step, then a capture and 19 replays
+    want.update({"flash_attention": layers * steps,
+                 "flash_attention.mma": layers * steps,
                  "flash_attention_bwd_dq": layers * steps,
                  "flash_attention_bwd_dq.mma": layers * steps,
                  "flash_attention_bwd_dkv": layers * steps,
@@ -1638,7 +1727,8 @@ def phase_train(smi):
           "losses": losses, "step_ms": step_ms, "median_step_ms": median,
           "tokens_per_s": tr["batch"] * cfg["seq_len"] / (median / 1e3),
           "memory_allocated_before": before, "max_memory_allocated": peak,
-          "launches": counts, "flash_bwd_input_copies": copies,
+          "launches": counts, "predict_launches": predict_launches,
+          "flash_bwd_input_copies": copies,
           "adam_tensors_by_path_per_step": {
               k: v / steps for k, v in adam_paths.items()},
           "adam_gradient_copies": adam_copies,
@@ -1650,7 +1740,400 @@ def phase_train(smi):
           "device_us_by_group": groups, "top_kernels_us": top,
           "flash_bwd_us": groups.get("flash_bwd", 0.0),
           "copy_us": groups.get("copy", 0.0)})
-    return counts
+    return counts, {"st": st, "xb": xb, "yb": yb, "y": y, "weights": weights}
+
+
+def _site_stats(site):
+    """The compile service's statistics of ``site`` (zeros before its
+    first call)."""
+    return dict(compile_service.stats().get(site, {
+        "hits": 0, "misses": 0, "compiles": 0, "compile_ms": 0.0,
+        "captures": 0, "capture_ms": 0.0, "replays": 0}))
+
+
+def _snapshot(st):
+    """A copy of every tensor a trainer's step writes, and its step
+    count."""
+    return [t.clone() for t in st._state_tensors().values()], st._t
+
+
+def _restore(st, snap):
+    """Write a snapshot back in place (the step's entry stays)."""
+    tensors, t = snap
+    with torch.no_grad():
+        for dst, src in zip(st._state_tensors().values(), tensors):
+            dst.copy_(src)
+    st._t = t
+
+
+def _step_agreement(got, want, start, names, scales=None):
+    """Per tensor, ``|got - want|`` over the L2 norm of its step (``|want
+    - start|``, or ``scales[name]``): how far one run's update is from
+    the other's, as a share of the update. Bit for bit where the two are
+    equal."""
+    shares, equal = {}, 0
+    for name, g, w, s0 in zip(names, got, want, start):
+        if torch.equal(g, w):
+            equal += 1
+            shares[name] = 0.0
+            continue
+        step = scales[name] if scales and name in scales else \
+            float((w.float() - s0.float()).norm())
+        shares[name] = float((g.float() - w.float()).norm()) / max(step,
+                                                                    1e-30)
+    worst = sorted(shares, key=shares.get, reverse=True)
+    return {"tensors": len(shares), "bit_equal_tensors": equal,
+            "bit_equal": equal == len(shares),
+            "max_share": shares[worst[0]], "max_share_tensor": worst[0],
+            "largest_shares": {n: shares[n] for n in worst[:6]}}
+
+
+def _trainer_blocks(st, x, y, blocks, start=None, snaps=()):
+    """Steps of ``st`` in blocks of ``(mode, steps)``, "captured" (the
+    compile service on) or "eager" (off), each block from the snapshot
+    ``start`` when given: per block the step ms (host clock to the
+    loss on the host: the step's guard reads its flag, or the caller
+    waits), launches, peak allocation (and the part of it the block's
+    steps added), the trainer site's captures and replays, and
+    ``snaps``: {step number: the state tensors after it} for each
+    block's first run of its mode (whose copies then count in that
+    block's peak)."""
+    out, kept = [], {}
+    for mode, steps in blocks:
+        if start is not None:
+            _restore(st, start)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.reset_launch_counts()
+        site0 = _site_stats("trainer")
+        prev = compile_service.set_enabled(mode == "captured")
+        ms, taken = [], {}
+        try:
+            for k in range(steps):
+                t0 = time.perf_counter()
+                float(st.step(x, y)._data.float())
+                ms.append((time.perf_counter() - t0) * 1e3)
+                if k + 1 in snaps and mode not in kept:
+                    taken[k + 1] = [t.clone() for t in
+                                    st._state_tensors().values()]
+        finally:
+            compile_service.set_enabled(prev)
+        torch.cuda.synchronize()
+        site = _site_stats("trainer")
+        if mode not in kept:
+            kept[mode] = taken
+        out.append({"mode": mode, "step_ms": ms,
+                    "launches": {k: v for k, v in
+                                 kernels.launch_counts().items() if v},
+                    "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                    # the block's own peak: what its steps allocated
+                    # beyond what was live when it began
+                    "peak_added": torch.cuda.max_memory_allocated() - base,
+                    "captures": site["captures"] - site0["captures"],
+                    "capture_ms": site["capture_ms"] - site0["capture_ms"],
+                    "replays": site["replays"] - site0["replays"]})
+    return out, kept
+
+
+def _abba_summary(blocks, warmup):
+    """Median step ms per mode over its blocks (``warmup`` steps of each
+    block dropped), each block's median (the spread over the pairs), and
+    the captured median as a share of the eager one."""
+    per = {}
+    for b in blocks:
+        per.setdefault(b["mode"], []).append(
+            statistics.median(b["step_ms"][warmup:]))
+    med = {m: statistics.median(
+        [v for b in blocks if b["mode"] == m for v in b["step_ms"][warmup:]])
+        for m in per}
+    return {"median_step_ms": med, "block_medians_ms": per,
+            "captured_over_eager": med["captured"] / med["eager"]}
+
+
+def _profiled_step(st, x, y, eager):
+    """One step (replayed, or eager with the service off) under
+    ``torch.profiler``: its device ms by group and its busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prev = compile_service.set_enabled(not eager)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            float(st.step(x, y)._data.float())
+            window_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        compile_service.set_enabled(prev)
+    groups, top = _device_split(prof, 1)
+    busy = sum(groups.values()) / 1e3
+    return {"window_ms": window_ms,
+            "device_ms": busy if groups else "not measured",
+            "busy_share": busy / window_ms if groups else "not measured",
+            "device_us_by_group": groups, "top_kernels_us": top}
+
+
+def phase_gluon_hybrid_train(smi, weights, xb, yb):
+    """gluon_hybrid_train: ``examples/distributed_training/cifar10_dist.py
+    :71-87``'s loop (``hybridize()``, ``autograd.record()``,
+    ``backward()``, ``gluon.Trainer(..., "adam")``) on one card with a
+    ``local`` store, over the classifier at BERT-base width from the
+    train phase's weights and batch. The hybridized classifier under
+    ``record()`` is the ``cachedop`` pair: its first call eager, its
+    second captured, then a forward graph and a backward graph replayed
+    each step; the loss and the Trainer's update stay eager. Holds each
+    parameter's gradient of the first replayed step against the eager
+    forward and backward from the same weights (each tensor within 1e-3
+    of its L2 norm, or bit for bit), counts K3 and K3-bwd per replayed
+    forward and backward, and times 20 steps of each mode in blocks of
+    10, captured, eager, eager, captured."""
+    cfg, g = BERT_BASE, GLUON_HYBRID
+    clf = _classifier_on(mx.gpu(0), cfg, weights)
+    clf.hybridize()
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    trainer = mx.gluon.Trainer(clf.collect_params(), "adam",
+                               {"learning_rate": g["lr"], "wd": g["wd"]},
+                               kvstore="local")
+    batch = xb.shape[0]
+    params = [(n, p) for n, p in clf._collect_params_with_structure().items()
+              if p.grad_req != "null"]
+
+    def fwd_bwd():
+        with mx.autograd.record():
+            out = clf(xb)
+            loss = loss_fn(out, yb)
+        loss.backward()
+        return loss
+
+    def step():
+        loss = fwd_bwd()
+        trainer.step(batch)
+        return float(loss.mean().asscalar())
+
+    def grads():
+        return [p.grad()._data.clone() for _, p in params]
+
+    site0 = _site_stats("cachedop")
+    fwd_bwd()                           # the pair's eager first call
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    fwd_bwd()                           # captured, then replayed
+    torch.cuda.synchronize()
+    first_replay = {k: v for k, v in kernels.launch_counts().items() if v}
+    captured = grads()
+    _eager(fwd_bwd)
+    eager = grads()
+    site1 = _site_stats("cachedop")
+    shares = {}
+    top = max(float(e.norm()) for e in eager)
+    for (name, _), c, e in zip(params, captured, eager):
+        # the attention key biases' true gradient is zero (a bias on
+        # every key shifts a whole row of scores): their norm is
+        # rounding noise, so they are held to the largest gradient's
+        scale = top if name.endswith("attn.key.bias") else float(e.norm())
+        shares[name] = 0.0 if torch.equal(c, e) else \
+            float((c - e).norm()) / max(scale, 1e-30)
+    worst = max(shares, key=shares.get)
+    if shares[worst] > CAPTURE_STEP_L2:
+        raise AssertionError(f"gluon_hybrid_train: gradient of {worst} "
+                             f"{shares[worst]} of its norm from eager's")
+    layers = cfg["layers"]
+    blocks = []
+    per = g["steps"] // 2
+    for mode in ("captured", "eager", "eager", "captured"):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        c0 = _site_stats("cachedop")
+        prev = compile_service.set_enabled(mode == "captured")
+        ms, losses = [], []
+        try:
+            for _ in range(per):
+                t0 = time.perf_counter()
+                losses.append(step())
+                ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            compile_service.set_enabled(prev)
+        c1 = _site_stats("cachedop")
+        blocks.append({"mode": mode, "step_ms": ms, "losses": losses,
+                       "launches": {k: v / per for k, v in
+                                    kernels.launch_counts().items() if v},
+                       "replays": c1["replays"] - c0["replays"],
+                       "captures": c1["captures"] - c0["captures"]})
+    per_replay = blocks[0]["launches"]
+    want = {"flash_attention": layers, "flash_attention.mma": layers,
+            "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dq.mma": layers,
+            "flash_attention_bwd_dkv": layers,
+            "flash_attention_bwd_dkv.mma": layers}
+    if {k: per_replay.get(k) for k in want} != want or \
+            blocks[0]["replays"] != 2 * per or blocks[0]["captures"] or \
+            blocks[1]["replays"] or \
+            site1["captures"] - site0["captures"] != 1:
+        raise AssertionError(f"gluon_hybrid_train: per replayed step "
+                             f"{per_replay}, blocks {blocks}")
+    losses = [v for b in blocks for v in b["losses"]]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"gluon_hybrid_train: losses {losses}")
+    out = {"phase": "gluon_hybrid_train", "card": smi,
+           "source": "examples/distributed_training/cifar10_dist.py:71-87 "
+                     "on one card, local store, BERT-base width",
+           "config": cfg, "batch": batch, **g,
+           **_abba_summary(blocks, 1),
+           "abba_order": [b["mode"] for b in blocks],
+           "step_ms_by_block": [b["step_ms"] for b in blocks],
+           "launches_per_step_by_block": [b["launches"] for b in blocks],
+           "launches_first_replayed_step": first_replay,
+           "gradients_vs_eager": {
+               "tensors": len(shares),
+               "bit_equal_tensors": sum(v == 0.0 for v in shares.values()),
+               "max_share": shares[worst], "max_share_tensor": worst,
+               "tol": CAPTURE_STEP_L2},
+           "losses": losses}
+    emit(out)
+    del clf, trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dropout_capture(smi):
+    """dropout_capture: a hybridized Dense + Dropout(0.5) block trained 5
+    steps (``gluon.Trainer`` "sgd") under ``record()`` through its
+    ``cachedop`` pair, twice from the same weights after
+    ``mx.random.seed(11)``: each graph registers ``mx.random``'s
+    generator, so every replay draws a new mask (each pair of
+    consecutive masks differs), each mask drops a share within 3 sigma
+    of 0.5, and the two runs draw the same 5 masks."""
+    d = DROPOUT_CAPTURE
+    dev = mx.gpu(0)
+    net = mx.gluon.nn.HybridSequential()
+    with net.name_scope():
+        net.add(mx.gluon.nn.Dense(d["units"], in_units=d["units"]),
+                mx.gluon.nn.Dropout(d["rate"]))
+    net.initialize(mx.init.Xavier(), ctx=dev,
+                   generator=torch.Generator().manual_seed(0))
+    net.hybridize()
+    x = mx.nd.array(np.random.RandomState(0).rand(
+        d["batch"], d["units"]).astype(np.float32), ctx=dev)
+    trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                               {"learning_rate": 0.01})
+    params = list(net.collect_params().values())
+    start = [p.data()._data.clone() for p in params]
+    site0 = _site_stats("cachedop")
+
+    def run():
+        with torch.no_grad():
+            for p, w in zip(params, start):
+                p.data()._data.copy_(w)
+        mx.random.seed(d["seed"])
+        masks = []
+        for _ in range(d["steps"]):
+            with mx.autograd.record():
+                out = net(x)
+                loss = (out * out).mean()
+            loss.backward()
+            trainer.step(d["batch"])
+            masks.append(out._data == 0)
+        torch.cuda.synchronize()
+        return masks
+
+    runs = [run(), run()]
+    site = _site_stats("cachedop")
+    n = runs[0][0].numel()
+    sigma = math.sqrt(d["rate"] * (1 - d["rate"]) / n)
+    shares = [float(m.float().mean()) for m in runs[0]]
+    differ = [not torch.equal(a, b) for a, b in zip(runs[0], runs[0][1:])]
+    same = [torch.equal(a, b) for a, b in zip(*runs)]
+    checks = {"masks_differ_between_replays": all(differ),
+              "dropped_share_within_3_sigma": all(
+                  abs(v - d["rate"]) <= 3 * sigma for v in shares),
+              "seed_repeats_the_masks": all(same)}
+    out = {"phase": "dropout_capture", "card": smi, **d,
+           "dropped_shares": shares, "sigma": sigma,
+           "consecutive_masks_differ": differ, "runs_equal_per_step": same,
+           "captures": site["captures"] - site0["captures"],
+           "replays": site["replays"] - site0["replays"], **checks}
+    emit(out)
+    if not all(checks.values()) or out["captures"] != 1:
+        raise AssertionError(f"dropout_capture: {out}")
+    return out
+
+
+def phase_train_capture(smi, st, xb, yb, y, weights):
+    """train_capture: the bert_base_sst2_finetune trainer of the train
+    phase (site ``trainer``: one CUDA graph for the whole step), from one
+    synchronised state (the weights and Adam's moments copied back before
+    each block): four blocks of 20 steps, captured, eager
+    (``compile.set_enabled(False)``), eager, captured. Holds the first
+    captured block to the first eager one (20 updates each, ``_t``; each
+    tensor after 3 and after 20 steps: bit for bit, else within 1e-3 of
+    the update's L2 norm), launches per replayed step (K2 1, K3 12,
+    K3-bwd 12 + 12), the capture's ms and graph pool bytes, the peak
+    memory of each mode, and a profiled step of each mode."""
+    cfg, tc = BERT_BASE, TRAIN_CAPTURE
+    names = list(st._state_tensors())
+    start = _snapshot(st)
+    steps, bit = tc["steps"], tc["bit_steps"]
+    st._step_fn.clear()      # the first captured block captures anew
+    pool0 = _pool_bytes()
+    blocks, kept = _trainer_blocks(
+        st, xb, yb, [("captured", steps), ("eager", steps),
+                     ("eager", steps), ("captured", steps)],
+        start=start, snaps=(bit, steps))
+    pool = _pool_bytes() - pool0
+    if st._t != start[1] + steps:
+        raise AssertionError(f"train_capture: _t {st._t} after {steps} "
+                             f"steps from {start[1]}")
+    agree = {n: _step_agreement(kept["captured"][n], kept["eager"][n],
+                                start[0], names) for n in (bit, steps)}
+    for n, a in agree.items():
+        if a["max_share"] > CAPTURE_STEP_L2:
+            raise AssertionError(f"train_capture: after {n} steps, "
+                                 f"captured against eager {a}")
+    layers = cfg["layers"]
+    per_replay = {k: v / steps for k, v in blocks[3]["launches"].items()}
+    want = {"opt_adam": 1, "flash_attention": layers,
+            "flash_attention.mma": layers, "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dq.mma": layers,
+            "flash_attention_bwd_dkv": layers,
+            "flash_attention_bwd_dkv.mma": layers}
+    if per_replay != want or blocks[3]["replays"] != steps or \
+            blocks[0]["captures"] != 1 or blocks[0]["replays"] != steps - 1:
+        raise AssertionError(f"train_capture: per replayed step "
+                             f"{per_replay} (want {want}), blocks {blocks}")
+    if blocks[1]["launches"] != blocks[0]["launches"]:
+        raise AssertionError(f"train_capture: eager launches "
+                             f"{blocks[1]['launches']}, captured "
+                             f"{blocks[0]['launches']}")
+    # the blocks without snapshots: what a step adds beyond the trainer's
+    # own state, the captured one with its graph's pool
+    peak = {"captured_added": blocks[3]["peak_added"],
+            "captured_with_pool": blocks[3]["peak_added"] + pool,
+            "eager_added": blocks[2]["peak_added"],
+            "max_memory_allocated": {b["mode"] + str(i): b[
+                "max_memory_allocated"] for i, b in enumerate(blocks)}}
+    prof = {"captured": _profiled_step(st, xb, yb, eager=False),
+            "eager": _profiled_step(st, xb, yb, eager=True)}
+    pred = st.predict(xb).asnumpy()
+    if not np.isfinite(pred).all():
+        raise AssertionError("train_capture: predictions not finite")
+    out = {"phase": "train_capture", "card": smi,
+           "config": "bert_base_sst2_finetune", **tc,
+           **_abba_summary(blocks, tc["warmup"]),
+           "abba_order": [b["mode"] for b in blocks],
+           "step_ms_by_block": [b["step_ms"] for b in blocks],
+           "capture_ms": blocks[0]["capture_ms"],
+           "graph_pool_bytes": pool,
+           "launches_per_replayed_step": per_replay,
+           "updates_captured": steps, "t_after": st._t,
+           "captured_vs_eager": agree, "step_l2_tol": CAPTURE_STEP_L2,
+           "peak_memory": peak,
+           "peak_captured_over_eager": peak["captured_with_pool"]
+           / peak["eager_added"],
+           "profiled_step": prof,
+           "accuracy_on_batch": float((pred.argmax(-1) == y).mean())}
+    emit(out)
+    return out
 
 
 # (M, K, N) of every int8 product of a bucket-32 int8 batch at BERT-base
@@ -3483,16 +3966,21 @@ def _resnet50_train(smi, phase, dtype, mp):
     stem = net.features[1].running_mean
     stem0 = stem.data()._data.clone()
     steps = cfg["warmup"] + cfg["steps"]
+    pool0 = _pool_bytes()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
+    site0 = _site_stats("trainer")
     sgd = opt_step.opt_sgd
     paths, copies = dict(sgd.tensors_by_path), sgd.copies
     routes0 = dict(st.route_counts)
     kernels.reset_launch_counts()
     losses, step_ms = [], []
-    for _ in range(steps):
+    for k in range(steps):
+        if k == cfg["warmup"]:
+            aux_ptrs = [h._data.data_ptr() for h in st._aux_handles]
+            counts_warm = kernels.launch_counts()
         t0 = time.perf_counter()
         loss = st.step(x, y)
         torch.cuda.synchronize()
@@ -3500,6 +3988,22 @@ def _resnet50_train(smi, phase, dtype, mp):
         losses.append(float(loss._data.float()))
     counts = kernels.launch_counts()
     peak = torch.cuda.max_memory_allocated()
+    pool = _pool_bytes() - pool0
+    site = _site_stats("trainer")
+    captured = {"captures": site["captures"] - site0["captures"],
+                "capture_ms": site["capture_ms"] - site0["capture_ms"],
+                "replays": site["replays"] - site0["replays"],
+                "graph_pool_bytes": pool,
+                "k1_launches_per_replay": (counts["opt_sgd"]
+                                           - counts_warm["opt_sgd"])
+                / cfg["steps"],
+                "statistics_data_ptr_kept": [
+                    h._data.data_ptr() for h in st._aux_handles]
+                == aux_ptrs}
+    if captured["captures"] != 1 or captured["replays"] != steps - 1 or \
+            captured["k1_launches_per_replay"] != 1 or \
+            not captured["statistics_data_ptr_kept"]:
+        raise AssertionError(f"{phase}: captured steps {captured}")
     paths, copies = _opt_paths(sgd, paths), sgd.copies - copies
     routes = {k: v - routes0[k] for k, v in st.route_counts.items()}
     want = dict.fromkeys(counts, 0)
@@ -3527,6 +4031,8 @@ def _resnet50_train(smi, phase, dtype, mp):
         raise AssertionError(f"{phase}: a bfloat16 weight is not its "
                              "master rounded")
     prof = _profile_step(st, x, y)
+    captured.update(_resnet_eager_beside(st, x, y, phase, cfg, step_ms,
+                                         pool, mp))
     timed = step_ms[cfg["warmup"]:]
     median = statistics.median(timed)
     out = {"phase": phase, "card": smi, "config": cfg, "dtype": dtype,
@@ -3538,7 +4044,7 @@ def _resnet50_train(smi, phase, dtype, mp):
            "launches": counts, "k1_tensors_by_path": paths,
            "routes_per_step": census,
            "stem_running_mean_abs_mean": float(stem_mean.abs().mean()),
-           **prof}
+           "captured": captured, **prof}
     if dtype == "float32":
         out["k1"] = _resnet_k1_timing(st)
     else:
@@ -3563,15 +4069,110 @@ def _resnet50_train(smi, phase, dtype, mp):
     return out
 
 
+def _resnet_eager_beside(st, x, y, phase, cfg, captured_ms, pool, mp):
+    """The captured ResNet-50 step beside the eager one (the compile
+    service off), on the same trainer: one step of each from one state
+    (each tensor within 5% of the eager update's L2 norm); eager blocks
+    of 3 + 10 and 10 steps, then 10 captured (with the phase's first
+    3 + 10 captured ones, A B B A); each mode's peak memory (the
+    captured one's with its graph pool, at most 1.25 times eager's);
+    a profiled eager step; then the guard: a second trainer
+    (``nan_guard=True``) over the same network, a good step and a
+    replayed step on a batch holding a NaN, after which every weight,
+    momentum, master and statistic is ``torch.equal`` to before."""
+    names = list(st._state_tensors())
+    start = _snapshot(st)
+    pair, kept = _trainer_blocks(st, x, y, [("captured", 1), ("eager", 1)],
+                                 start=start, snaps=(1,))
+    # a weight's step and its momentum's are held to the L2 norm of the
+    # new momentum, which SGD with momentum adds to the weight
+    # (tests/test_torch_resnet_train.py's measure): the momentum's own
+    # change nears zero as a repeated batch's momentum settles
+    want = dict(zip(names, kept["eager"][1]))
+    moms = [float(want[f"s{i}_{len(per) - 1}"].float().norm())
+            for i, per in enumerate(st._opt_state)]
+    scales = {}
+    for i, per in enumerate(st._opt_state):
+        # a convolution's bias that feeds BatchNorm (the bottlenecks'
+        # 1x1 convolutions) has a true gradient of zero: BatchNorm
+        # subtracts the batch mean. Its step is rounding noise in either
+        # run, so it is held to the largest step of any tensor
+        name = st._param_names[i]
+        mom = max(moms) if "conv" in name and name.endswith("bias") \
+            else moms[i]
+        scales[f"p{i}"] = mom
+        scales.update((f"s{i}_{j}", mom) for j in range(len(per)))
+    agree = _step_agreement(kept["captured"][1], kept["eager"][1], start[0],
+                            names, scales)
+    if agree["max_share"] > CAPTURE_RESNET_STEP_L2:
+        raise AssertionError(f"{phase}: captured against eager {agree}")
+    blocks, _ = _trainer_blocks(st, x, y, [
+        ("eager", cfg["warmup"] + cfg["steps"]), ("eager", cfg["steps"]),
+        ("captured", cfg["steps"])])
+    eager_ms = blocks[0]["step_ms"][cfg["warmup"]:] + blocks[1]["step_ms"]
+    captured_ms = captured_ms[cfg["warmup"]:] + blocks[2]["step_ms"]
+    peak = {"captured_added": blocks[2]["peak_added"],
+            "captured_with_pool": blocks[2]["peak_added"] + pool,
+            "eager_added": blocks[0]["peak_added"],
+            "max_memory_allocated": [b["max_memory_allocated"]
+                                     for b in blocks]}
+    ratio = peak["captured_with_pool"] / peak["eager_added"]
+    if ratio > CAPTURE_PEAK_RATIO:
+        raise AssertionError(f"{phase}: captured peak {peak}")
+    eager_prof = _eager(_profile_step, st, x, y)
+    guard = _resnet_trainer(st._net, mx.gpu(0), True, mp)
+    guard.step(x, y)                         # eager, then captured
+    bad = mx.nd.NDArray(x._data.clone())
+    bad._data[3, 1, 5, 7] = float("nan")
+    before = _snapshot(guard)[0]
+    ptrs = [t.data_ptr() for t in guard._state_tensors().values()]
+    site0 = compile_service.stats()["trainer"]["replays"]
+    loss = float(guard.step(bad, y)._data.float())
+    after = list(guard._state_tensors().values())
+    restored = all(torch.equal(a, b) for a, b in zip(before, after)) and \
+        [t.data_ptr() for t in after] == ptrs
+    replayed = compile_service.stats()["trainer"]["replays"] - site0
+    if math.isfinite(loss) or guard.skipped_steps != 1 or not restored \
+            or replayed != 1:
+        raise AssertionError(f"{phase}: the NaN step: loss {loss}, "
+                             f"skipped {guard.skipped_steps}, restored "
+                             f"{restored}, replays {replayed}")
+    del guard, before, after, kept
+    return {"vs_eager_one_step": agree, "step_l2_tol": CAPTURE_RESNET_STEP_L2,
+            "median_step_ms_abba": {"captured": statistics.median(
+                captured_ms), "eager": statistics.median(eager_ms)},
+            "block_medians_ms": {
+                "captured": [statistics.median(captured_ms[:cfg["steps"]]),
+                             statistics.median(blocks[2]["step_ms"])],
+                "eager": [statistics.median(blocks[0]["step_ms"][
+                    cfg["warmup"]:]), statistics.median(
+                        blocks[1]["step_ms"])]},
+            "abba_order": ["captured", "eager", "eager", "captured"],
+            "eager_step_ms": [b["step_ms"] for b in blocks[:2]],
+            "captured_step_ms_last_block": blocks[2]["step_ms"],
+            "peak_memory": peak, "peak_captured_over_eager": ratio,
+            "eager_profiled_step": {k: eager_prof[k] for k in (
+                "profiled_step_ms", "device_ms_per_step",
+                "device_idle_share")},
+            "nan_step": {"loss": loss, "skipped_steps": 1,
+                         "restored_bit_for_bit": restored,
+                         "replayed": replayed == 1}}
+
+
 def _train_then_evaluate(net, x, graph_bytes, rounds=3):
-    """Rounds of a training-mode forward (BatchNorm rebinds its running
-    statistics) and an evaluation of the hybridized ``net``: each
-    evaluation captures anew in place of the stale graph, so the op
-    keeps one entry and the allocator's graph pools stay within half a
-    graph (``graph_bytes``) of where they started; each replay equals
-    the eager forward with the new statistics."""
+    """Rounds of a training-mode forward (BatchNorm writes its running
+    statistics in place) and an evaluation of the hybridized ``net``:
+    the training forward is the op's pair (eager in round 0, captured in
+    round 1, replayed after), the evaluation keeps its graph and replays
+    with the new statistics (each replay equals the eager forward); the
+    op ends with two entries, the statistics keep their storage, and the
+    allocator's graph pools stay within half a graph (``graph_bytes``)
+    of where they were after the pair's capture."""
     op = net._cached_op
     st0, pool0 = op.stats(), _pool_bytes()
+    stats = [p.data()._data for p in net.collect_params().values()
+             if p.grad_req == "null"]
+    ptrs = [t.data_ptr() for t in stats]
     pool = []
     for i in range(rounds):
         with mx.autograd.train_mode():
@@ -3580,17 +4181,19 @@ def _train_then_evaluate(net, x, graph_bytes, rounds=3):
               f"evaluation after training round {i}")
         pool.append(_pool_bytes())
     st = op.stats()
-    grew = max(pool) - pool0
-    if len(st["entries"]) != 1 or st["captures"] - st0["captures"] != \
-            rounds or grew > graph_bytes / 2:
+    grew = max(pool[1:]) - pool[1]
+    kept = [t.data_ptr() for t in stats] == ptrs
+    if len(st["entries"]) != 2 or st["captures"] - st0["captures"] != 1 \
+            or grew > graph_bytes / 2 or not kept:
         raise AssertionError(
             f"train then evaluate: {len(st['entries'])} entries, "
             f"{st['captures'] - st0['captures']} captures in {rounds} "
-            f"rounds, graph pools grew by {grew} bytes (one graph: "
-            f"{graph_bytes})")
+            f"rounds, graph pools grew by {grew} bytes after the pair's "
+            f"capture (one graph: {graph_bytes}), statistics kept {kept}")
     return {"rounds": rounds, "entries": len(st["entries"]),
             "captures": st["captures"] - st0["captures"],
             "capture_ms": st["capture_ms"] - st0["capture_ms"],
+            "statistics_data_ptr_kept": kept,
             "pool_bytes_before": pool0, "pool_bytes_after_each": pool}
 
 
@@ -3608,7 +4211,9 @@ def phase_resnet50_infer_bf16(smi):
     (bfloat16-rounded) batch: top-1 agreement and the largest logit gap;
     one forward with cuBLAS's reduced-precision bfloat16 reductions
     allowed, against the pinned run (only the Dense product reads that
-    switch: cuDNN's convolutions do not); and three rounds of a
+    switch: cuDNN's convolutions do not; the switch is part of the
+    graph's key, so that forward runs eagerly and captures anew, and so
+    does the next pinned one); and three rounds of a
     training-mode forward and an evaluation (``_train_then_evaluate``:
     one graph kept, pools flat)."""
     cfg, b = RESNET50, RESNET50_BF16
@@ -3665,6 +4270,7 @@ def phase_resnet50_infer_bf16(smi):
     finally:
         torch.backends.cuda.matmul.\
             allow_bf16_reduced_precision_reduction = False
+    net(x)                      # the pinned forward, captured anew
     train_eval = _train_then_evaluate(net, x, pools)
     gap = float((logits - ref).abs().max())
     agree = float((logits.argmax(1) == ref.argmax(1)).float().mean())
@@ -3867,27 +4473,13 @@ def _profile_module_batch(mod, batch, metric):
             "module_path_device_ms": split}
 
 
-def phase_resnet50_module_fit(smi, gluon=None):
-    """resnet50_v1_module_fit: ``python train_imagenet.py --benchmark 1
-    --network resnet50_v1`` through the port's ``Module.fit``
-    (``MODULE_FIT``; epoch_size cut to 13 batches): ``get_network``,
-    ``SyntheticDataIter`` and ``fit.fit``'s wiring copied above. Per
-    batch: the host clock at each batch end (card synchronised), and
-    the host ms of ``update()`` and of ``update_metric()`` (which waits
-    for the batch's device work: the metric's one copy to the host);
-    Speedometer's own samples/sec; peak memory; launches by family (K1
-    one a batch over all 193 tensors on its 16-byte path, nothing else);
-    a finite loss and the training accuracy; one more batch profiled.
-    ``gluon`` (resnet50_v1_train's line, same call) gives the excess of
-    the Module batch over the gluon step."""
-    t_phase = time.perf_counter()
-    cfg = MODULE_FIT
-    dev = mx.gpu(0)
-    mx.random.seed(0)
-    net = get_network(cfg["network"], cfg["num_classes"], cfg["image_shape"])
-    train = SyntheticDataIter(cfg["num_classes"],
-                              (cfg["batch"],) + tuple(cfg["image_shape"]),
-                              cfg["epoch_size"])
+def _module_fit_once(cfg, net, train, dev):
+    """One ``module_fit`` of ``cfg["epoch_size"]`` batches (the compile
+    service on or off, as the caller set it): the host clock at each
+    batch end (card synchronised), the host ms of ``update()`` and
+    ``update_metric()``, Speedometer's samples/sec, peak memory,
+    launches, K1's tensors by path, the loss at the first and last batch
+    and the training accuracy; the Module and its log."""
     model = mx.mod.Module(context=dev, symbol=net)
     if (len(model._param_names), len(model._aux_names)) != (
             cfg["tensors"], cfg["aux"]):
@@ -3917,68 +4509,161 @@ def phase_resnet50_module_fit(smi, gluon=None):
 
     sgd = opt_step.opt_sgd
     paths, copies = dict(sgd.tensors_by_path), sgd.copies
+    train.reset()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
+    site0 = _site_stats("executor")
     kernels.reset_launch_counts()
     t_fit = time.perf_counter()
     with _captured_log() as log:
         module_fit(cfg, model, train, [stamp, probe_batch])
     fit_s = time.perf_counter() - t_fit
-    counts = kernels.launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    paths, copies = _opt_paths(sgd, paths), sgd.copies - copies
+    site = _site_stats("executor")
     batches = cfg["epoch_size"]
-    want = dict.fromkeys(counts, 0)
-    want["opt_sgd"] = batches
-    if counts != want:
-        raise AssertionError(f"module_fit: launches {counts}, expected "
-                             f"{want}")
-    if paths != {"vec4": cfg["tensors"] * batches, "scalar": 0} or copies:
-        raise AssertionError(f"module_fit: K1's tensors by path {paths}, "
-                             f"{copies} gradient copies")
-    if not (model._update_on_kvstore and model._kvstore.type == "local"):
-        raise AssertionError("module_fit: the update did not run on the "
-                             "local kvstore")
-    if model._optimizer.rescale_grad != 1.0 / cfg["batch"]:
-        raise AssertionError(f"module_fit: rescale_grad "
-                             f"{model._optimizer.rescale_grad}")
-    losses = [probe[0], probe[batches - 1]]
-    if not all(math.isfinite(v) for v in losses) or len(stamps) != batches \
-            or not log.speeds:
-        raise AssertionError(f"module_fit: losses {losses}, {len(stamps)} "
-                             f"batch ends, Speedometer {log.speeds}")
     batch_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
     timed = batch_ms[cfg["warmup"] - 1:]   # batches 4..13
-    median = statistics.median(timed)
-    metric = mx.metric.create(["accuracy"])
-    train.reset()
-    prof = _profile_module_batch(model, train.next(), metric)
+    return model, log, {
+        "batch_ms": batch_ms, "median_batch_ms": statistics.median(timed),
+        "min_batch_ms": min(timed), "max_batch_ms": max(timed),
+        "fit_s": fit_s, "batch_ends": len(stamps),
+        "speedometer_img_per_s": log.speeds,
+        "update_host_ms": statistics.median(host["update"][cfg["warmup"]:]),
+        "update_metric_host_ms": statistics.median(
+            host["update_metric"][cfg["warmup"]:]),
+        "memory_allocated_before": before,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": kernels.launch_counts(),
+        "k1_tensors_by_path": _opt_paths(sgd, paths),
+        "k1_gradient_copies": sgd.copies - copies,
+        "executor_site": {k: site[k] - site0[k] for k in (
+            "misses", "hits", "captures", "capture_ms", "replays")},
+        "losses": [probe.get(0), probe.get(batches - 1)],
+        "train_accuracy": probe.get("accuracy")}
+
+
+def phase_resnet50_module_fit(smi, gluon=None):
+    """resnet50_v1_module_fit: ``python train_imagenet.py --benchmark 1
+    --network resnet50_v1`` through the port's ``Module.fit``
+    (``MODULE_FIT``; epoch_size cut to 13 batches): ``get_network``,
+    ``SyntheticDataIter`` and ``fit.fit``'s wiring copied above. Four
+    fits, the executor captured (site ``executor``: the training pair's
+    forward and backward graphs replayed each batch), eager
+    (``compile.set_enabled(False)``), eager, captured; each: the host
+    clock at each batch end (card synchronised), the host ms of
+    ``update()`` and of ``update_metric()`` (which waits for the batch's
+    device work: the metric's one copy to the host), Speedometer's own
+    samples/sec, peak memory, launches by family (K1 one a batch over
+    all 193 tensors on its 16-byte path, nothing else), a finite loss
+    and the training accuracy; one more batch of the first fit of each
+    mode profiled. ``gluon`` (resnet50_v1_train's line, same call) gives
+    the excess of the Module batch over the gluon step."""
+    t_phase = time.perf_counter()
+    cfg = MODULE_FIT
+    dev = mx.gpu(0)
+    mx.random.seed(0)
+    net = get_network(cfg["network"], cfg["num_classes"], cfg["image_shape"])
+    train = SyntheticDataIter(cfg["num_classes"],
+                              (cfg["batch"],) + tuple(cfg["image_shape"]),
+                              cfg["epoch_size"])
+    batches = cfg["epoch_size"]
+    runs, profs, first = [], {}, {}
+    for mode in ("captured", "eager", "eager", "captured"):
+        prev = compile_service.set_enabled(mode == "captured")
+        try:
+            mx.random.seed(0)
+            model, log, run = _module_fit_once(cfg, net, train, dev)
+            if mode not in profs:
+                metric = mx.metric.create(["accuracy"])
+                train.reset()
+                profs[mode] = _profile_module_batch(model, train.next(),
+                                                    metric)
+        finally:
+            compile_service.set_enabled(prev)
+        run["mode"] = mode
+        runs.append(run)
+        want = dict.fromkeys(run["launches"], 0)
+        want["opt_sgd"] = batches
+        site = run["executor_site"]
+        want_site = {"misses": 1, "hits": batches - 1, "captures": 1,
+                     "replays": 2 * (batches - 1)} if mode == "captured" \
+            else {"misses": 0, "hits": 0, "captures": 0, "replays": 0}
+        if run["launches"] != want:
+            raise AssertionError(f"module_fit {mode}: launches "
+                                 f"{run['launches']}, expected {want}")
+        if run["k1_tensors_by_path"] != {"vec4": cfg["tensors"] * batches,
+                                         "scalar": 0} or \
+                run["k1_gradient_copies"]:
+            raise AssertionError(f"module_fit {mode}: K1's tensors by "
+                                 f"path {run['k1_tensors_by_path']}, "
+                                 f"{run['k1_gradient_copies']} copies")
+        if {k: site[k] for k in want_site} != want_site:
+            raise AssertionError(f"module_fit {mode}: executor site "
+                                 f"{site}, expected {want_site}")
+        if not (model._update_on_kvstore and
+                model._kvstore.type == "local"):
+            raise AssertionError("module_fit: the update did not run on "
+                                 "the local kvstore")
+        if model._optimizer.rescale_grad != 1.0 / cfg["batch"]:
+            raise AssertionError(f"module_fit: rescale_grad "
+                                 f"{model._optimizer.rescale_grad}")
+        if not all(v is not None and math.isfinite(v)
+                   for v in run["losses"]) or \
+                run["batch_ends"] != batches or not log.speeds:
+            raise AssertionError(f"module_fit {mode}: losses "
+                                 f"{run['losses']}, {run['batch_ends']} "
+                                 f"batch ends, Speedometer {log.speeds}")
+        first.setdefault(mode, {"log_tail": log.lines[-3:],
+                                "loss_first": run["losses"][0],
+                                "loss_last": run["losses"][1]})
+        del model
+        torch.cuda.empty_cache()
+    timed = {m: [v for r in runs if r["mode"] == m
+                 for v in r["batch_ms"][cfg["warmup"] - 1:]]
+             for m in ("captured", "eager")}
+    median = statistics.median(timed["captured"])
+    median_eager = statistics.median(timed["eager"])
+    cap = runs[0]
     out = {"phase": "resnet50_v1_module_fit", "card": smi, "config": cfg,
            "source": "examples/image_classification/train_imagenet.py "
                      "--benchmark 1 --network resnet50_v1",
            "tf32": False, "batches": batches,
-           "batch_ms": batch_ms, "median_batch_ms": median,
-           "min_batch_ms": min(timed), "max_batch_ms": max(timed),
+           "abba_order": [r["mode"] for r in runs],
+           "median_batch_ms": median, "median_batch_ms_eager": median_eager,
+           "block_medians_ms": {m: [r["median_batch_ms"] for r in runs
+                                    if r["mode"] == m]
+                                for m in ("captured", "eager")},
            "img_per_s": cfg["batch"] / (median / 1e3),
-           "speedometer_img_per_s": log.speeds, "fit_s": fit_s,
-           "update_host_ms": statistics.median(host["update"][
-               cfg["warmup"]:]),
-           "update_metric_host_ms": statistics.median(host["update_metric"][
-               cfg["warmup"]:]),
-           "memory_allocated_before": before, "max_memory_allocated": peak,
-           "launches": counts, "k1_tensors_by_path": paths,
-           "rescale_grad": model._optimizer.rescale_grad,
-           "loss_first": losses[0], "loss_last": losses[1],
-           "train_accuracy": probe["accuracy"],
-           "log_tail": log.lines[-3:], **prof,
+           "img_per_s_eager": cfg["batch"] / (median_eager / 1e3),
+           "batch_ms": cap["batch_ms"],
+           "min_batch_ms": cap["min_batch_ms"],
+           "max_batch_ms": cap["max_batch_ms"],
+           "speedometer_img_per_s": cap["speedometer_img_per_s"],
+           "speedometer_img_per_s_eager": runs[1]["speedometer_img_per_s"],
+           "fit_s": [r["fit_s"] for r in runs],
+           "update_host_ms": cap["update_host_ms"],
+           "update_metric_host_ms": cap["update_metric_host_ms"],
+           "update_metric_host_ms_eager": runs[1]["update_metric_host_ms"],
+           "memory_allocated_before": cap["memory_allocated_before"],
+           "max_memory_allocated": cap["max_memory_allocated"],
+           "max_memory_allocated_eager": runs[1]["max_memory_allocated"],
+           "launches": cap["launches"],
+           "k1_tensors_by_path": cap["k1_tensors_by_path"],
+           "executor_site": cap["executor_site"],
+           "rescale_grad": 1.0 / cfg["batch"],
+           "loss_first": first["captured"]["loss_first"],
+           "loss_last": first["captured"]["loss_last"],
+           "train_accuracy": cap["train_accuracy"],
+           "log_tail": first["captured"]["log_tail"],
+           **profs["captured"],
+           "eager_profiled_batch": profs["eager"],
            "phase_s": time.perf_counter() - t_phase}
     if gluon is not None:
         out["gluon_median_step_ms"] = gluon["median_step_ms"]
         out["excess_over_gluon_step_ms"] = median - gluon["median_step_ms"]
     emit(out)
-    del model, net, train
+    del net, train
     torch.cuda.empty_cache()
     return out
 
@@ -4165,7 +4850,10 @@ def _module_resume(card, sym, cfg, x, y):
     """``save_checkpoint(..., save_optimizer_states=True)``, one more
     step of ``card``, then ``Module.load(..., load_optimizer_states=
     True)`` and the same step: every weight, momentum, running statistic
-    and output bit for bit, with cuDNN deterministic."""
+    and output bit for bit after two steps, with cuDNN deterministic:
+    the flags are part of the training pair's key, so both modules' first
+    step runs eagerly and their second is captured and replayed under
+    the deterministic algorithms."""
     flags = (torch.backends.cudnn.deterministic,
              torch.backends.cudnn.benchmark)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
@@ -4187,8 +4875,10 @@ def _module_resume(card, sym, cfg, x, y):
                                    "wd": cfg["wd"]})
             got = {}
             for name, mod in (("saved", card), ("resumed", res)):
-                mod.forward_backward(_module_batch(cfg, x, y, mx.gpu(0)))
-                mod.update()
+                for _ in range(2):
+                    mod.forward_backward(_module_batch(cfg, x, y,
+                                                       mx.gpu(0)))
+                    mod.update()
                 got[name] = dict(_module_state(mod),
                                  out=[mod.get_outputs()[0]._data])
     finally:
@@ -4206,6 +4896,7 @@ def _module_resume(card, sym, cfg, x, y):
 
 
 PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
+          "train_capture", "gluon_hybrid_train", "dropout_capture",
           "int8_gemm", "serve_int8", "capture", "decode", "twobit",
           "dist_check",
           "dist_train", "resnet_check", "resnet50_v1_train",
@@ -4263,7 +4954,22 @@ def main(argv=None):
     if "train_check" in phases:
         done["train_check"] = phase_train_check()
     if "train" in phases:
-        done["train"] = phase_train(smi)
+        done["train"], train_ctx = phase_train(smi)
+        if "train_capture" in phases:
+            done["train_capture"] = phase_train_capture(smi, **train_ctx)
+        weights, xb, yb = (train_ctx[k] for k in ("weights", "xb", "yb"))
+        del train_ctx
+        torch.cuda.empty_cache()
+        if "gluon_hybrid_train" in phases:
+            done["gluon_hybrid_train"] = phase_gluon_hybrid_train(
+                smi, weights, xb, yb)
+        del weights
+    elif {"train_capture", "gluon_hybrid_train"} & phases:
+        raise SystemExit("the train_capture and gluon_hybrid_train phases "
+                         "need the train phase's trainer and weights: run "
+                         "them with --phases train,...")
+    if "dropout_capture" in phases:
+        done["dropout_capture"] = phase_dropout_capture(smi)
     if "int8_gemm" in phases:
         done["int8_gemm"] = phase_int8_gemm()
     if "serve_int8" in phases:
@@ -4317,6 +5023,11 @@ def main(argv=None):
     # K3 and K4 run inside the served buckets' CUDA graphs (this slice):
     # their launches are the replays' counts
     cap = done["capture"]
+    # this slice: K1, K2, K3 and K3-bwd run inside the training graphs
+    # (train_capture's step, gluon_hybrid_train's pair, the ResNet-50
+    # steps): their launches per replay beside the run's totals
+    tcap = done["train_capture"]["launches_per_replayed_step"]
+    hyb = done["gluon_hybrid_train"]["launches_per_step_by_block"][0]
     lines = [
         _kernel_line("flash_attention", "flash_attention.cu",
                      "mxnet_tpu/kernels/flash.py:38",
@@ -4326,6 +5037,10 @@ def main(argv=None):
                      fwd["library_ms"], bound_f32_ms=fwd["bound_ms"],
                      captured=True, launches_per_replayed_batch=cap[
                          "float32"]["launches_per_replayed_batch"][
+                         "flash_attention"],
+                     launches_per_replayed_train_step=tcap[
+                         "flash_attention"],
+                     launches_per_replayed_hybrid_forward=hyb[
                          "flash_attention"])]
     # K3 and K3-bwd run every product on the tensor cores (3xTF32): their
     # bound is the tensor-core one; the float32 rate's stays beside it
@@ -4336,7 +5051,11 @@ def main(argv=None):
             train[f"flash_attention_bwd_{part}"], bwd["max_abs_err"][part],
             bwd["ms"][part], bwd["ms"][f"{part}_plain"],
             (bwd["bound_ms"][f"{part}_tc"], bwd["bound_by"][f"{part}_tc"]),
-            bwd["ms"]["library"], bound_f32_ms=bwd["bound_ms"][part]))
+            bwd["ms"]["library"], bound_f32_ms=bwd["bound_ms"][part],
+            launches_per_replayed_train_step=tcap[
+                f"flash_attention_bwd_{part}"],
+            launches_per_replayed_hybrid_backward=hyb[
+                f"flash_attention_bwd_{part}"]))
     # K1 on this slice's path (resnet50_v1_train: one launch a step over
     # ResNet-50's 193 tensors); its times over the classifier's 197
     # tensors and its train_check and resnet_check launches beside them
@@ -4364,6 +5083,11 @@ def main(argv=None):
         launches_resnet50_v1_module_fit=done["resnet50_v1_module_fit"][
             "launches"]["opt_sgd"],
         launches_module_check=done["module_check"],
+        # this slice: one launch per replayed step of each ResNet-50 cell
+        launches_per_replay={p: done[p]["captured"][
+            "k1_launches_per_replay"] for p in (
+                "resnet50_v1_train", "resnet50_v1_train_bf16",
+                "resnet50_v1_train_bf16_mp")},
         bf16_mp_in_step=mp["k1_in_step"], bf16_in_step=bf["k1_in_step"],
         bf16_mp_casts={k: mp["casts"][k]["device_ms"] for k in (
             "grad_to_float32", "master_to_bfloat16")},
@@ -4378,7 +5102,11 @@ def main(argv=None):
                               (t["bound_ms"], t["bound_by"]),
                               t["library_ms"], device_ms=t["device_ms"],
                               host_us=t["host_us"],
-                              library_device_ms=t["library_device_ms"]))
+                              library_device_ms=t["library_device_ms"],
+                              launches_per_replayed_train_step=tcap[
+                                  "opt_adam"],
+                              launches_gluon_hybrid_train_per_step=hyb.get(
+                                  "opt_adam", 0)))
     k4 = done["int8_gemm"]
     lines.append(_kernel_line(
         "int8_gemm", "int8_gemm.cu", "mxnet_tpu/kernels/int8_gemm.py:86",

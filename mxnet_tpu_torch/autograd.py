@@ -155,7 +155,10 @@ def backward(heads, head_grads=None, retain_graph=False, train_mode=True):
 def grad(heads, variables, head_grads=None, retain_graph=None,
          create_graph=False, train_mode=True):
     """Gradients of ``heads`` with respect to ``variables`` (NDArrays),
-    returned as a list of NDArrays; nothing is written to ``.grad``."""
+    returned as a list of NDArrays; nothing is written to ``.grad``. A
+    gradient that a captured hybridized call hands out in its own buffer
+    (``compile.holds``) is returned as a copy."""
+    from . import compile as _compile
     from .ndarray import NDArray
 
     if isinstance(heads, NDArray):
@@ -170,4 +173,4 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                               grad_outputs=seeds,
                               retain_graph=retain_graph,
                               create_graph=create_graph)
-    return [NDArray(g) for g in out]
+    return [NDArray(g.clone() if _compile.holds(g) else g) for g in out]

@@ -1,39 +1,48 @@
-"""CachedOp: the captured-forward unit behind ``hybridize()``, and the
+"""CachedOp: the captured unit behind ``hybridize()``, and the in-place
 write-back of stateful buffers.
 
 Counterpart of ``mxnet_tpu/cached_op.py``. The JAX ``CachedOp``
 (:123-318) traces a block's forward once per input signature into one
-compiled executable. Here its inference calls go through
+compiled executable, and under ``autograd.record()`` its forward and
+backward (:166-226, :282-318). Here every call goes through
 :func:`mxnet_tpu_torch.compile.jit` under the site ``"cachedop"``: on a
-CUDA card one CUDA graph per signature, captured once and replayed; on
-the CPU a plain call with the same keys and statistics.
+CUDA card CUDA graphs, captured once per signature and replayed; on the
+CPU a plain call with the same keys and statistics.
 
+* **Inference calls** (not recording, not in training mode): one
+  ``"forward"`` entry per signature, a graph whose replay returns fresh
+  copies of its outputs.
+* **Recording and training-mode calls**: one ``"pair"`` entry per
+  signature and mode (recording, training): the forward graph and the
+  backward graph on one pool, replayed by one ``autograd.Function``
+  whose inputs are the arguments and the parameters' gradient leaves
+  (``Parameter.data()`` under ``record()``). So ``backward`` writes each
+  parameter's gradient buffer by its ``grad_req`` and marks it fresh,
+  exactly as for an unhybridized block (``autograd.backward``). A
+  training forward's BatchNorm statistics are written in place in the
+  graph (:func:`update_state`) and Dropout draws from the registered
+  generator, anew at each replay.
 * **Arguments and outputs** keep their structure, as in the JAX package
   (:90-121): each NDArray, possibly in nested lists, tuples and dicts,
   is handed to ``compile.jit`` as its tensor, and ``jit``'s own pytree
   makes the key (other leaves are static and reach the forward as they
-  are). Outputs come back as fresh NDArrays, copied out of the graph's
-  static outputs.
+  are). Outputs come back as fresh NDArrays.
 * **Parameters** are read through their handles at call time
   (``Parameter.data()``, which honours ``gluon.parameter.substitute``).
-  The entry of an input signature holds their data pointers: a
-  rebinding (``set_data``, ``cast``, BatchNorm's running statistics
-  after a training forward) replaces it with a new capture, an in-place
-  write (an optimizer step) is seen by the next replay.
-* **Eager in this slice:** calls under ``autograd.record()`` and calls in
-  training mode run the forward eagerly (children included), so
-  gradients flow through PyTorch's autograd as in an unhybridized block.
-  Capturing them needs the backward as a second graph, BatchNorm's
-  running statistics written in place and the per-device generator
-  registered with the graph: the training slice.
+  An entry holds their data pointers: a rebinding (``set_data``,
+  ``cast``) replaces it with a new capture, an in-place write (an
+  optimizer step, the running statistics) is seen by the next replay.
 * **Nested:** inside an outer capture (a served model's bucket, a
-  hybridized parent), the forward runs plainly into the outer graph.
+  hybridized parent, a trainer's step), the forward runs plainly into
+  the outer graph.
 
-``update_state`` (JAX :77-86) is the one piece the training path needs:
-BatchNorm's running statistics are ``grad_req="null"`` parameters that a
-training forward rewrites. The port rebinds the handle, outside the
-autograd graph. ``ShardedTrainer`` keeps the values from before the step
-and selects them back when its non-finite guard skips the step.
+``update_state`` (JAX :77-86): BatchNorm's running statistics are
+``grad_req="null"`` parameters that a training forward rewrites. The
+port writes the new values into the handle's tensor in place (so the
+tensor keeps its storage, which a graph reads and writes), outside the
+autograd graph; only a value of another shape or dtype rebinds the
+handle. ``ShardedTrainer`` copies the values from before the step and
+selects them back when its non-finite guard skips the step.
 """
 from __future__ import annotations
 
@@ -46,10 +55,16 @@ __all__ = ["CachedOp", "update_state"]
 
 
 def update_state(handle, new_value):
-    """Rebind ``handle`` (a parameter's NDArray) to ``new_value``
-    (an NDArray or a tensor), detached from any autograd graph."""
+    """Write ``new_value`` (an NDArray or a tensor) into ``handle`` (a
+    parameter's NDArray) in place, detached from any autograd graph; a
+    value of another shape or dtype rebinds the handle instead."""
     new_raw = new_value._data if hasattr(new_value, "_data") else new_value
-    handle._rebind(new_raw.detach())
+    old = handle._data
+    if old.shape != new_raw.shape or old.dtype != new_raw.dtype:
+        handle._rebind(new_raw.detach())
+    elif old is not new_raw:
+        with torch.no_grad():
+            old.copy_(new_raw)
 
 
 def _map(obj, fn, kind):
@@ -82,6 +97,9 @@ class CachedOp:
         self._jit = _compile.jit(self._run, site="cachedop",
                                  token=(self._site, id(self)),
                                  reads=self._param_tensors)
+        self._pair = _compile.jit(self._run_mode, site="cachedop",
+                                  token=(self._site, id(self), "pair"),
+                                  reads=self._param_tensors, kind="pair")
 
     def _param_tensors(self):
         return [p.data()._data for p in self._params]
@@ -94,15 +112,23 @@ class CachedOp:
         return _map(self._fn(*_map(raws, NDArray, torch.Tensor)), _raw,
                     NDArray)
 
+    def _run_mode(self, mode, *raws):
+        """The pair's body; ``mode`` (recording, training) only keys it."""
+        return self._run(*raws)
+
     def __call__(self, *args):
         from .ndarray import NDArray
 
-        if autograd.is_recording() or autograd.is_training():
-            with _compile.nested():
-                return self._fn(*args)
-        return _map(self._jit(*_map(args, _raw, NDArray)), NDArray,
-                    torch.Tensor)
+        raws = _map(args, _raw, NDArray)
+        recording, training = autograd.is_recording(), autograd.is_training()
+        if recording or training:
+            out = self._pair((recording, training), *raws)
+        else:
+            out = self._jit(*raws)
+        return _map(out, NDArray, torch.Tensor)
 
     def stats(self):
-        """This op's capture statistics (``ServiceFunction.stats``)."""
-        return self._jit.stats()
+        """This op's capture statistics (``ServiceFunction.stats``), the
+        inference entries' and the pairs' together."""
+        a, b = self._jit.stats(), self._pair.stats()
+        return {k: a[k] + b[k] for k in a}

@@ -1,54 +1,102 @@
-"""Compile service: one seam for the port's captured forwards.
+"""Compile service: one seam for the port's captured forwards and steps.
 
 Counterpart of the in-memory service of ``mxnet_tpu/compile.py``. There,
 ``jit`` traces a function once per call signature into one XLA
 executable; here, on a CUDA card, it captures the function once per
-signature into a ``torch.cuda.CUDAGraph`` and replays it, so a forward
-of hundreds of ops costs one graph launch instead of one host dispatch
-per op. ``CachedOp`` (``hybridize()``) calls it under the site
-``"cachedop"`` and ``ServedModel`` under ``"serving"``, one entry per
-bucket.
+signature into ``torch.cuda.CUDAGraph``s and replays them, so a forward
+or a training step of hundreds of ops costs one graph launch instead of
+one host dispatch per op. Sites: ``"cachedop"`` (``hybridize()``: the
+inference forward, and the forward/backward pair under
+``autograd.record()`` or in training mode), ``"serving"``
+(``ServedModel``, one entry per bucket), ``"trainer"``
+(``ShardedTrainer``: the whole step, and ``predict``) and
+``"executor"`` (``Executor``: the training pair and the inference
+forward of ``Module``).
 
 * **Signature.** The pytree structure of the arguments; each tensor's
-  shape, dtype and device; every other leaf by value (by ``repr`` when
-  it cannot be hashed); and the data pointer, shape and dtype of each
-  tensor the function reads beside its arguments (``reads``, a
-  callable: a block's parameters, a served model's snapshot).
+  shape, dtype, device and whether it requires grad; every other leaf
+  by value (by ``repr`` when it cannot be hashed); and the data pointer,
+  shape, dtype and grad requirement of each tensor the function reads
+  beside its arguments (``reads``, a callable: a block's parameters, a
+  trainer's weights and optimizer state, an executor's bound arrays).
 * **One entry per argument signature**, as the JAX package keeps one
   executable per argument signature. The reads' pointers are stored in
-  the entry: a parameter rebound to a new tensor (``set_data``,
-  ``cast``, BatchNorm's running statistics after a training forward)
-  makes the entry stale, and the next call drops it (its graph and
-  memory pool with it) and captures anew in its place; so a
-  train-then-evaluate loop holds one graph per input signature, not one
-  per evaluation. A parameter written in place (an optimizer step)
-  keeps the entry, and the replay reads its new values.
-* **Entry on a card.** The arguments are copied into static input
-  buffers; the function runs once eagerly on a side stream (lazy
-  initialisation: cuBLAS workspaces, kernel attributes, the hand-written
-  kernels' libraries), is captured on that stream with
-  ``capture_error_mode="thread_local"`` (another thread may launch or
-  stage meanwhile; captures themselves take one process-wide lock), and
-  is replayed. A call copies its arguments into the static inputs on
-  the current stream, replays, and returns fresh copies of the static
-  outputs: a caller's earlier result never changes under a later call.
-  Each call waits for the previous one's copies to finish, so two
-  threads may share an entry.
+  the entry: a tensor rebound to a new one (``set_data``, ``cast``)
+  makes the entry stale, and the next call drops it (its graphs and
+  memory pool with it) and captures anew in its place; so a loop holds
+  one graph per input signature. A tensor written in place (an
+  optimizer step, BatchNorm's running statistics) keeps the entry, and
+  the replay reads its new values.
+* **Backend flags.** The entry also holds the flags that choose the
+  kernels a capture bakes in (cuDNN's ``deterministic``, ``benchmark``
+  and ``allow_tf32``; cuBLAS's ``allow_tf32`` and reduced-precision
+  reductions; ``torch.use_deterministic_algorithms``): a change of
+  flags makes the entry stale, as a rebound read does, and the next
+  call captures anew under the new flags.
+* **Two kinds of entry on a card** (``jit(kind=...)``), each made by a
+  first call that runs the function for real, eagerly on this thread's
+  capture stream (lazy initialisation: cuBLAS workspaces, kernel
+  attributes, the hand-written kernels' libraries and tables), and
+  returns its result:
+
+  - ``"forward"``, a function run by one graph: an inference forward,
+    or a training step that writes its state in place. After the first
+    call the function is captured over static input buffers, which
+    executes nothing; each later call copies its arguments in, replays
+    and returns fresh copies of the static outputs, so a caller's
+    earlier result never changes under a later call, and N calls of a
+    step apply N steps. The first call and the capture run under
+    ``no_grad``: a body that differentiates opens its own scope
+    (``autograd.record()``).
+  - ``"pair"``, a function called under ``autograd.record()``: the
+    second call captures a forward graph and a backward graph
+    (``torch.autograd.grad`` of the outputs with respect to the
+    differentiable arguments and reads, from static output gradients)
+    on one memory pool, so the forward's residuals stay in the pool for
+    the backward, as in ``torch.cuda.make_graphed_callables``. Each
+    call from the second on is one ``autograd.Function`` whose forward
+    replays the forward graph and whose backward replays the backward
+    graph. It hands autograd copies of its static gradients for the
+    arguments, and its static gradients for the reads (a parameter's,
+    which ``autograd.backward`` copies into the gradient buffer and
+    ``autograd.grad`` copies out: :func:`holds`), so a gradient a
+    caller gets never changes under a later replay. The pair is
+    differentiable once: a backward with ``create_graph=True`` through
+    it raises ``NotImplementedError``, as the JAX package does for a
+    hybridized node. A call made while an earlier replayed forward's
+    backward is still due (a block called twice under one
+    ``record()``) runs eagerly on the caller's stream, since the pool
+    holds one forward's residuals, and is counted under ``eager`` in
+    :func:`stats`.
+
+  Each graph registers the device's ``mx.random`` generator
+  (``CUDAGraph.register_generator_state``), so a replayed Dropout draws
+  anew, and ``mx.random.seed`` repeats the draws. The first calls and
+  the captures of all threads take one lock (``_capture_lock``), so no
+  thread's eager first call runs while another thread captures. Each
+  replay waits for the previous one's copies to finish, so two threads
+  may share an entry.
 * **Entry on the CPU.** A plain call of the function: the "plain
   version" of capture, as the kernels' plain versions are of their
   kernels. Keys and statistics are the same.
 * **Launch counts.** A replay calls no kernel wrapper. What the wrappers
-  counted during the capture (``kernels.recording``) is added to the
-  counters at every replay, so ``kernels.launch_counts()`` keeps
-  counting the launches that ran on the card.
-* **Nesting.** While a jitted function runs (warm-up, capture or a plain
+  counted during a capture (``kernels.recording``, on the capturing
+  thread and on the capture stream: the backward runs on autograd's
+  thread) is added to the counters at every replay, so
+  ``kernels.launch_counts()`` keeps counting the launches that ran on
+  the card. The buffers the captured kernels read (``kernels.keep``:
+  the optimizer kernels' tables) live as long as the graph, and a
+  table a kernel first meets inside a capture is uploaded when the
+  capture ends (``kernels.after_capture``).
+* **Nesting.** While a jitted function runs (first call, capture or a plain
   call), other jitted functions called on the same thread run their
   function plainly into it: a hybridized child inside a captured parent
-  is part of the parent's graph.
+  is part of the parent's graph, and so is a hybridized network inside
+  a trainer's step.
 
 There is no fallback: a capture that fails raises
 :class:`CaptureError`, naming the op that refused, and never runs the
-eager forward instead. ``set_enabled(False)`` is the explicit eager
+eager function instead. ``set_enabled(False)`` is the explicit eager
 route (the port's reading of ``MXNET_TPU_COMPILE_SERVICE=0``): calls go
 straight to the function, with no signature and no accounting.
 
@@ -61,6 +109,7 @@ holds device addresses of one process and does not serialize.
 from __future__ import annotations
 
 import contextlib
+import gc
 import hashlib
 import threading
 import time
@@ -73,6 +122,7 @@ from .base import MXNetError
 
 __all__ = ["jit", "stats", "totals", "reset_stats", "set_enabled",
            "enabled", "clear_memory", "registered", "inside", "nested",
+           "holds",
            "cache_dir", "configure", "fingerprint", "warmup", "manifest",
            "save_manifest", "clear_manifest", "last_warmup", "disk_report",
            "gc_cache", "CaptureError"]
@@ -81,12 +131,12 @@ _lock = threading.RLock()
 # the statistics' read-modify-writes (runner threads of several models
 # count at once)
 _stats_lock = threading.Lock()
-# one capture at a time in the process (a capture's warm-up, begin and
-# end; replays and eager work of other threads go on meanwhile)
+# one capture at a time in the process (an entry's eager first call, the
+# capture's begin and end; replays and other eager work go on meanwhile)
 _capture_lock = threading.Lock()
 _ENABLED = True
 # site -> [hits, misses, compiles, compile_ms, captures, capture_ms,
-#          replays]
+#          replays, eager]
 _SITES: dict = {}
 _REGISTRY: dict = {}  # token key -> weakref(ServiceFunction)
 _tls = threading.local()
@@ -182,32 +232,36 @@ def _site_stats(site):
     with _lock:
         st = _SITES.get(site)
         if st is None:
-            st = _SITES[site] = [0, 0, 0, 0.0, 0, 0.0, 0]
+            st = _SITES[site] = _zeros()
         return st
+
+
+def _zeros():
+    return [0, 0, 0, 0.0, 0, 0.0, 0, 0]
 
 
 def _as_dict(st):
     return {"hits": st[0], "misses": st[1], "compiles": st[2],
             "compile_ms": st[3], "captures": st[4], "capture_ms": st[5],
-            "replays": st[6]}
+            "replays": st[6], "eager": st[7]}
 
 
 def stats():
     """Per-site statistics ``{site: {hits, misses, compiles, compile_ms,
-    captures, capture_ms, replays}}`` of sites that saw traffic.
+    captures, capture_ms, replays, eager}}`` of sites that saw traffic.
     ``misses``: calls that made an entry; ``compiles``: entries made
     (``captures`` of them CUDA graphs); ``compile_ms``: host
-    milliseconds spent making them (on a card the eager warm-up, the
+    milliseconds spent making them (on a card the eager first call, the
     capture and its synchronisation; on the CPU the first plain call);
-    ``replays``: graph launches, the first after each capture
-    included."""
+    ``replays``: graph launches; ``eager``: hits that ran eagerly (a
+    pair called again while its replayed forward's backward was due)."""
     return {site: _as_dict(st) for site, st in sorted(_SITES.items())
             if st[0] or st[1]}
 
 
 def totals():
     """The statistics summed over sites."""
-    agg = [0, 0, 0, 0.0, 0, 0.0, 0]
+    agg = _zeros()
     for st in list(_SITES.values()):
         for i, v in enumerate(st):
             agg[i] += v
@@ -219,7 +273,7 @@ def reset_stats():
     site's list)."""
     with _stats_lock:
         for st in _SITES.values():
-            st[0] = st[1] = st[2] = st[4] = st[6] = 0
+            st[0] = st[1] = st[2] = st[4] = st[6] = st[7] = 0
             st[3] = st[5] = 0.0
 
 
@@ -279,7 +333,7 @@ def _sig_node(obj):
     if t is dict:
         return ("D", tuple((k, _sig_node(v)) for k, v in obj.items()))
     if isinstance(obj, torch.Tensor):
-        return (obj.shape, obj.dtype, obj.device)
+        return (obj.shape, obj.dtype, obj.device, obj.requires_grad)
     try:
         hash(obj)
         return (t, obj)
@@ -335,7 +389,7 @@ class _Plain:
     def __init__(self, fn):
         self._fn = fn
 
-    def __call__(self, args):
+    def __call__(self, args, reads=()):
         with nested():
             return self._fn(*args)
 
@@ -355,68 +409,307 @@ def _capture_stream(device):
     return s
 
 
-class _Graph:
-    """A card entry: the function captured into a CUDA graph over static
-    input and output buffers."""
+def _new_graph(device):
+    """A CUDA graph with the device's ``mx.random`` generator registered:
+    each replay advances its offset by what the capture drew."""
+    from . import random as _random
 
-    kind = "graph"
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(_random.generator(device))
+    return graph
 
-    def __init__(self, fn, args, device, what):
-        from . import kernels
 
-        self.device = device
-        leaves = []
-        spec = _flatten(args, leaves)
-        cur = torch.cuda.current_stream(device)
-        # normal tensors, so that calls outside inference mode may write
-        # them too
-        with torch.inference_mode(False):
-            self._static_in = [torch.empty(t.shape, dtype=t.dtype,
-                                           device=t.device) for t in leaves]
-        with torch.no_grad():
-            for s, t in zip(self._static_in, leaves):
-                s.copy_(t)
-        stream = _capture_stream(device)
-        stream.wait_stream(cur)
-        with torch.cuda.stream(stream), torch.no_grad(), nested():
-            fn(*_rebuild(spec, iter(self._static_in)))
-        cur.wait_stream(stream)
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with kernels.recording() as counts, torch.no_grad(), nested(), \
-                    torch.cuda.graph(graph, stream=stream,
-                                     capture_error_mode="thread_local"):
-                out = fn(*_rebuild(spec, iter(self._static_in)))
-        except Exception as e:
-            raise CaptureError(
-                f"{what}: the CUDA graph capture failed in {_where(e)}: "
-                f"{type(e).__name__}: {e}") from e
-        out_leaves = []
-        self._out_spec = _flatten(out, out_leaves)
-        self._static_out = out_leaves
-        self._counts = dict(counts)
+@contextlib.contextmanager
+def _capturing(graph, stream, what, pool=None):
+    """Capture onto ``graph`` on ``stream``; yields the launch-count
+    record, whose deferred work (``kernels.after_capture``: a table's
+    upload) runs once the capture ends. A failure raises
+    :class:`CaptureError` naming the op.
+
+    Python's cyclic garbage collector is off for the capture (the
+    ``torch.cuda.graph`` scope collects before it begins): an
+    unreachable trainer or block freed by it mid-capture would destroy
+    its own graphs, which the CUDA runtime refuses while a stream
+    captures, and the capture would be lost."""
+    from . import kernels
+
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        with kernels.recording(stream) as record, nested(), \
+                torch.cuda.graph(graph, pool=pool, stream=stream,
+                                 capture_error_mode="thread_local"):
+            yield record
+        for work in record.after:
+            work()
+    except CaptureError:
+        raise
+    except Exception as e:
+        raise CaptureError(
+            f"{what}: the CUDA graph capture failed in {_where(e)}: "
+            f"{type(e).__name__}: {e}") from e
+    finally:
+        if collecting:
+            gc.enable()
+
+
+def _static_copies(leaves):
+    """Static input buffers holding ``leaves``' values: normal tensors
+    (calls outside inference mode may write them too), leaves that
+    require grad where the argument does."""
+    with torch.inference_mode(False), torch.no_grad():
+        out = [torch.empty(t.shape, dtype=t.dtype, device=t.device).copy_(t)
+               for t in leaves]
+    for s, t in zip(out, leaves):
+        if t.requires_grad:
+            s.requires_grad_(True)
+    return out
+
+
+def _copy_in(static, leaves):
+    with torch.no_grad():
+        for s, t in zip(static, leaves):
+            s.copy_(t)
+
+
+def _eager_on(stream, device, fn, args):
+    """``fn(*args)`` run plainly on ``stream`` (a warm-up that is a real
+    call): ordered after the current stream's work, and its outputs
+    handed back to the current stream."""
+    cur = torch.cuda.current_stream(device)
+    stream.wait_stream(cur)
+    with torch.cuda.stream(stream), nested():
+        out = fn(*args)
+    cur.wait_stream(stream)
+    leaves = []
+    _flatten(out, leaves)
+    for t in leaves:
+        t.record_stream(cur)
+    return out
+
+
+class _Replayer:
+    """A captured graph over static input and output buffers: a replay
+    copies the inputs in, launches the graph and returns fresh copies of
+    the outputs; each waits for the previous one's copies, so threads
+    may share it."""
+
+    def _ready(self, graph, counts, static_out):
         self._graph = graph
+        self._counts = counts
+        self._static_out = [t.detach() for t in static_out]
         self._done = torch.cuda.Event()
         self._recorded = False
         self._lock = threading.Lock()
 
-    def __call__(self, args):
+    def _replay(self, leaves):
+        """The caller holds ``self._lock``."""
         from . import kernels
 
-        leaves = []
-        _flatten(args, leaves)
-        with self._lock, torch.no_grad():
+        with torch.no_grad():
             cur = torch.cuda.current_stream(self.device)
             if self._recorded:  # the previous call's copies are done
                 cur.wait_event(self._done)
-            for s, t in zip(self._static_in, leaves):
-                s.copy_(t)
+            _copy_in(self._static_in, leaves)
             self._graph.replay()
             outs = [o.clone() for o in self._static_out]
             self._done.record(cur)
             self._recorded = True
         kernels.add_counts(self._counts)
+        return outs
+
+
+class _Graph(_Replayer):
+    """A card entry of kind ``"forward"``: made by the function's first
+    call, run for real (eagerly on the capture stream) and kept in
+    ``first``, then captured, which executes nothing; both under
+    ``no_grad``."""
+
+    kind = "graph"
+
+    def __init__(self, fn, args, device, what):
+        self.device = device
+        leaves = []
+        spec = _flatten(args, leaves)
+        self._static_in = _static_copies(leaves)
+        stream = _capture_stream(device)
+        graph = _new_graph(device)
+        with torch.no_grad():
+            self.first = _eager_on(stream, device, fn,
+                                   _rebuild(spec, iter(self._static_in)))
+            with _capturing(graph, stream, what) as counts:
+                out = fn(*_rebuild(spec, iter(self._static_in)))
+        out_leaves = []
+        self._out_spec = _flatten(out, out_leaves)
+        self._ready(graph, counts, out_leaves)
+
+    def __call__(self, args, reads=()):
+        leaves = []
+        _flatten(args, leaves)
+        with self._lock:
+            outs = self._replay(leaves)
         return _rebuild(self._out_spec, iter(outs))
+
+
+class _Due:
+    """The mark of one replayed forward of a pair: alive while its
+    autograd node is, ``done`` once its backward replayed."""
+
+    __slots__ = ("done", "__weakref__")
+
+    def __init__(self):
+        self.done = False
+
+
+class _PairFunction(torch.autograd.Function):
+    """One call of a captured pair: the forward graph replayed in
+    ``forward``, the backward graph in ``backward``. Differentiable
+    once: the backward graph computes first-order gradients only, so a
+    backward with ``create_graph=True`` (run with grad mode on) raises
+    rather than hand back gradients cut off from the graph."""
+
+    @staticmethod
+    def forward(ctx, pair, due, n_in, *tensors):
+        ctx.pair, ctx.due = pair, due
+        outs = pair.replay_forward(tensors[:n_in])
+        ctx.mark_non_differentiable(*[o for o, req in
+                                      zip(outs, pair.out_req) if not req])
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        if torch.is_grad_enabled():
+            raise NotImplementedError(
+                f"{ctx.pair._what}: create_graph=True cannot differentiate "
+                "through a captured hybridized call (its backward graph "
+                "computes first-order gradients only); run the forward "
+                "un-hybridized or with compile.set_enabled(False)")
+        return (None, None, None) + ctx.pair.replay_backward(ctx.due, grads)
+
+
+class _Pair(_Replayer):
+    """A card entry of kind ``"pair"``: a forward graph and a backward
+    graph on one memory pool, replayed through :class:`_PairFunction`.
+    Made eager (the first call), captured at the next call."""
+
+    kind = "pair"
+
+    def __init__(self, fn, device, what, count):
+        self.device = device
+        self._fn = fn
+        self._what = what
+        self._count = count  # the owning function's statistics
+        self.captured = False
+        self._due = None     # weakref to the last replayed forward's mark
+        self._lock = threading.Lock()
+
+    def eager(self, args):
+        """The function's first call, run plainly on the capture stream
+        (the caller holds ``_capture_lock``)."""
+        return _eager_on(_capture_stream(self.device), self.device,
+                         self._fn, args)
+
+    def busy(self):
+        """Whether a replayed forward's backward is still due."""
+        due = self._due() if self._due is not None else None
+        return due is not None and not due.done
+
+    def capture(self, args, reads):
+        """Capture the forward and the backward over static copies of
+        ``args`` and the differentiable ``reads``; executes nothing."""
+        leaves = []
+        spec = _flatten(args, leaves)
+        self._static_in = _static_copies(leaves)
+        diff = [s for s in self._static_in if s.requires_grad] + \
+            [r for r in reads if r.requires_grad]
+        self._arg_req = [t.requires_grad for t in leaves]
+        self._n_reads = sum(r.requires_grad for r in reads)
+        stream = _capture_stream(self.device)
+        fwd = _new_graph(self.device)
+        pool = torch.cuda.graph_pool_handle()
+        with _capturing(fwd, stream, self._what, pool=pool) as fcounts:
+            out = self._fn(*_rebuild(spec, iter(self._static_in)))
+        out_leaves = []
+        self._out_spec = _flatten(out, out_leaves)
+        self.out_req = [o.requires_grad for o in out_leaves]
+        heads = [o for o in out_leaves if o.requires_grad]
+        self._cots = [torch.empty_like(o) for o in heads]
+        self._bwd, self._grads, bcounts = None, [], {}
+        if heads and diff:
+            bwd = _new_graph(self.device)
+            with _capturing(bwd, stream, self._what + " backward",
+                            pool=pool) as bcounts:
+                grads = torch.autograd.grad(heads, diff, self._cots,
+                                            allow_unused=True)
+            self._bwd = bwd
+            self._grads = [None if g is None else g.detach() for g in grads]
+        self.held = {g.data_ptr() for g in self._grads[sum(self._arg_req):]
+                     if g is not None}
+        _PAIRS.add(self)
+        self._ready(fwd, fcounts, out_leaves)
+        self._bcounts = bcounts
+        self.captured = True
+
+    def __call__(self, args, reads=()):
+        leaves = []
+        _flatten(args, leaves)
+        due = _Due()
+        with self._lock:
+            self._due = weakref.ref(due)
+        outs = _PairFunction.apply(
+            self, due, len(leaves), *leaves,
+            *[r for r in reads if r.requires_grad])
+        return _rebuild(self._out_spec, iter(outs))
+
+    def replay_forward(self, leaves):
+        with self._lock:
+            outs = self._replay(leaves)
+        self._count(6)
+        return outs
+
+    def replay_backward(self, due, grads):
+        """The backward graph replayed for the forward marked ``due``:
+        gradients for the function's inputs (None where one takes
+        none): copies of the graph's static ones for the arguments, the
+        static ones themselves for the reads (:func:`holds`)."""
+        from . import kernels
+
+        with self._lock:
+            if self._due is None or self._due() is not due:
+                raise MXNetError(
+                    f"{self._what}: the captured forward was replayed "
+                    "again before this backward ran, so its saved "
+                    "activations are gone (a backward with "
+                    "retain_graph=True after a later forward of the same "
+                    "block); call backward before the next forward, or "
+                    "run this block eagerly (compile.set_enabled(False))")
+            if self._bwd is not None:
+                with torch.no_grad():
+                    heads = [g for g, req in zip(grads, self.out_req) if req]
+                    for c, g in zip(self._cots, heads):
+                        c.copy_(g)
+                    self._bwd.replay()
+            it = iter(self._grads)
+            args = tuple(_cloned(next(it)) if req else None
+                         for req in self._arg_req)
+            due.done = True
+        if self._bwd is not None:
+            kernels.add_counts(self._bcounts)
+            self._count(6)
+        return args + tuple(next(it) for _ in range(self._n_reads))
+
+
+def _flags():
+    """The backend flags that choose the kernels a capture bakes in."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    return (cudnn.deterministic, cudnn.benchmark, cudnn.allow_tf32,
+            matmul.allow_tf32, matmul.allow_fp16_reduced_precision_reduction,
+            matmul.allow_bf16_reduced_precision_reduction,
+            torch.are_deterministic_algorithms_enabled())
+
+
+def _cloned(t):
+    return None if t is None else t.clone()
 
 
 def _device_of(tensors):
@@ -428,18 +721,47 @@ def _device_of(tensors):
 
 # --------------------------------------------------------------- service ---
 
+_PAIRS = weakref.WeakSet()  # captured pairs
+
+
+def holds(tensor):
+    """Whether ``tensor`` is a captured pair's static gradient of a read
+    (a buffer its next replayed backward overwrites): a caller keeping
+    it must copy it."""
+    ptr = tensor.data_ptr()
+    return any(ptr in pair.held for pair in list(_PAIRS))
+
+
+_KINDS = ("forward", "pair")
+
+
+def _counter(*lists):
+    """A function adding ``n`` to entry ``i`` of each of ``lists`` (a
+    site's and a function's statistics), holding nothing else: an entry
+    counts its replays without a reference to its function."""
+    def count(i, n=1):
+        with _stats_lock:
+            for st in lists:
+                st[i] += n
+    return count
+
+
 class ServiceFunction:
     """A callable owned by the service: one entry per call signature."""
 
-    def __init__(self, fn, site, token_key, reads):
+    def __init__(self, fn, site, token_key, reads, kind="forward"):
+        if kind not in _KINDS:
+            raise ValueError(f"kind must be one of {_KINDS}, got {kind!r}")
         self._fn = fn
         self._site = site
         self._token_key = token_key
         self._reads = reads
+        self._kind = kind
         self._st = _site_stats(site)
         # this function's own statistics (as its site's) and its
         # entries' build records
-        self._own = [0, 0, 0, 0.0, 0, 0.0, 0]
+        self._own = _zeros()
+        self._count = _counter(self._st, self._own)
         self._seen = {}  # argument signature -> entry
         self._miss_lock = threading.Lock()
         self.__name__ = getattr(fn, "__qualname__", None) or getattr(
@@ -447,18 +769,14 @@ class ServiceFunction:
         with _lock:
             _REGISTRY[token_key] = weakref.ref(self)
 
-    def _count(self, i, n=1):
-        with _stats_lock:
-            self._st[i] += n
-            self._own[i] += n
-
     def __call__(self, *args):
         if not _ENABLED or inside():
             with nested():
                 return self._fn(*args)
-        reads = self._reads() if self._reads is not None else ()
+        reads = list(self._reads()) if self._reads is not None else []
         sig = _sig_node(args)
-        rkey = tuple((t.data_ptr(), t.shape, t.dtype) for t in reads)
+        rkey = (_flags(), tuple((t.data_ptr(), t.shape, t.dtype,
+                                 t.requires_grad) for t in reads))
         entry = self._fresh(sig, rkey)
         if entry is None:
             with self._miss_lock:
@@ -466,51 +784,79 @@ class ServiceFunction:
                 if entry is None:
                     return self._miss(sig, rkey, args, reads)
         self._count(0)
-        return self._run(entry, args)
+        return self._run(entry, args, reads)
 
     def _fresh(self, sig, rkey):
-        """The entry of ``sig`` if it was built over the same reads."""
+        """The entry of ``sig`` if it was built over the same reads and
+        backend flags."""
         entry = self._seen.get(sig)
         return entry if entry is not None and entry.reads == rkey else None
 
-    def _run(self, entry, args):
+    def _what(self):
+        return f"{self._site}[{self.__name__}]"
+
+    def _run(self, entry, args, reads):
         if entry.kind == "graph":
             self._count(6)
-        return entry(args)
+        elif entry.kind == "pair":
+            if entry.busy():  # a backward is due: this call runs eagerly
+                self._count(7)
+                with nested():
+                    return self._fn(*args)
+            if not entry.captured:
+                with self._miss_lock, _capture_lock:
+                    if not entry.captured:
+                        t0 = time.perf_counter()
+                        entry.capture(args, reads)
+                        self._built(entry, t0, True)
+        return entry(args, reads)
+
+    def _built(self, entry, t0, captured):
+        ms = (time.perf_counter() - t0) * 1e3
+        self._count(2)
+        self._count(3, ms)
+        if captured:
+            self._count(4)
+            self._count(5, ms)
+        entry.record["ms"] = ms
 
     def _miss(self, sig, rkey, args, reads):
-        """Make the entry for ``sig`` over the reads ``rkey`` and run it
-        on ``args`` (the first call on the CPU, the first replay on a
-        card). A stale entry of ``sig`` is dropped first, so that the
-        capture (which empties the allocator's cache) frees its pool."""
+        """Make the entry for ``sig`` over the reads ``rkey`` and return
+        the function's first call (on the CPU a plain call; on a card run
+        eagerly on the capture stream, a forward then captured). A stale
+        entry of ``sig`` is dropped first, so that the capture (which
+        empties the allocator's cache) frees its pool."""
         self._count(1)
         self._seen.pop(sig, None)
         leaves = []
         _flatten(args, leaves)
         device = _device_of(leaves) or _device_of(reads)
         t0 = time.perf_counter()
+        kind = "plain" if device is None else self._kind
+        record = {"kind": kind, "ms": 0.0,
+                  "shapes": [tuple(t.shape) for t in leaves]}
         if device is None:
             entry = _Plain(self._fn)
             out = entry(args)
+        elif kind == "pair":
+            entry = _Pair(self._fn, device, self._what(), self._count)
+            with _capture_lock:
+                out = entry.eager(args)
         else:
             with _capture_lock:
-                entry = _Graph(self._fn, args, device,
-                               f"{self._site}[{self.__name__}]")
-        ms = (time.perf_counter() - t0) * 1e3
-        self._count(2)
-        self._count(3, ms)
-        if device is not None:
-            self._count(4)
-            self._count(5, ms)
+                entry = _Graph(self._fn, args, device, self._what())
+            out, entry.first = entry.first, None
         entry.reads = rkey
-        entry.record = {"kind": entry.kind, "ms": ms,
-                        "shapes": [tuple(t.shape) for t in leaves]}
+        entry.record = record
+        if kind != "pair":
+            self._built(entry, t0, device is not None)
         self._seen[sig] = entry
-        return out if device is None else self._run(entry, args)
+        return out
 
     def stats(self):
         """This function's statistics (as :func:`stats` per site) and
-        each live entry's ``{kind, ms, shapes}`` (its input shapes)."""
+        each live entry's ``{kind, ms, shapes}`` (its input shapes; ``ms``
+        the time its capture took)."""
         return dict(_as_dict(self._own), entries=[
             dict(e.record) for e in list(self._seen.values())])
 
@@ -527,17 +873,24 @@ def _token_key(site, token):
     return site + "|" + hashlib.sha1(repr(token).encode()).hexdigest()[:20]
 
 
-def jit(fn, *, site, token, reads=None):
+def jit(fn, *, site, token, reads=None, kind="forward"):
     """The port's counterpart of ``mxnet_tpu.compile.jit``.
 
     fn : a function of tensors (in tuples, lists and dicts; other
         arguments are static and part of the key) returning tensors in
         such a structure.
-    site : metric bucket, ``"cachedop"`` or ``"serving"``.
+    site : metric bucket: ``"cachedop"``, ``"serving"``, ``"trainer"``
+        or ``"executor"``.
     token : the function's identity (hashable); one registry entry per
         token.
     reads : None, or a callable returning the tensors ``fn`` reads
-        beside its arguments; an entry holds their data pointers, shapes
-        and dtypes, and is built anew when they change.
+        beside its arguments; an entry holds their data pointers, shapes,
+        dtypes and grad requirements, and is built anew when they
+        change. For a ``"pair"``, the reads that require grad are
+        differentiated (a block's parameter leaves).
+    kind : ``"forward"`` (one graph: an inference forward, or a step
+        that writes its state in place) or ``"pair"`` (forward and
+        backward under ``autograd.record()``); see the module's
+        docstring.
     """
-    return ServiceFunction(fn, site, _token_key(site, token), reads)
+    return ServiceFunction(fn, site, _token_key(site, token), reads, kind)

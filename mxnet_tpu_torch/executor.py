@@ -5,20 +5,28 @@ Counterpart of ``mxnet_tpu/executor.py`` (MXNet 1.x
 simple_bind`` allocates the arrays, ``Symbol.bind`` takes the caller's.
 
 * ``forward(is_train, **feed)`` copies each fed array into its bound
-  array, so every bound array keeps its storage from bind to the end
-  (what a later capture of the executor as a CUDA graph needs), then
-  runs the graph eagerly (``Symbol._build_eval``). A training forward
+  array, so every bound array keeps its storage from bind to the end,
+  then runs the graph (``Symbol._build_eval``). A training forward
   records the graph for autograd over the arguments whose ``grad_req``
-  is not ``"null"`` (leaves that share the bound storage) and writes
-  BatchNorm's running statistics into the aux arrays in place.
+  is not ``"null"`` (leaves that share the bound storage, made once)
+  and writes BatchNorm's running statistics into the aux arrays in
+  place.
 * ``backward(out_grads)`` runs ``torch.autograd.grad`` from the
   outputs (head gradients of ones when none are given: loss heads such
   as ``SoftmaxOutput`` ignore them) and copies the gradients into the
   bound gradient arrays (``"write"``) or adds them (``"add"``), one
   multi-tensor call each.
 
-The JAX executor compiles the forward with its VJP into one XLA
-executable; here the ops launch one by one, as in the imperative path.
+The JAX executor compiles ``fwd_train`` and its pullback (:130-173) under
+the compile service's site ``executor``. Here both go through
+``compile.jit`` under the site ``"executor"``: a training forward is a
+``"pair"`` entry (its first call eager, then a forward graph and a
+backward graph over the bound arrays, which ``backward`` replays through
+``torch.autograd.grad``), an inference forward a ``"forward"`` entry (a
+captured graph whose outputs are copied out). On the CPU both are plain
+calls with the same keys; ``compile.set_enabled(False)`` runs them
+eagerly. The entries read the bound arrays, whose storage never changes,
+so one entry per mode serves every batch.
 A context list of more than one card (data parallelism over cards)
 raises :class:`MXNetError`: see ROADMAP.md A4.
 """
@@ -28,6 +36,7 @@ from collections import OrderedDict
 
 import torch
 
+from . import compile as _compile
 from .base import MXNetError
 from .ndarray import NDArray
 
@@ -66,6 +75,13 @@ class Executor:
                 else NDArray(torch.zeros_like(self._arg_dict[name]._data))
         self._run = symbol._build_eval(update_aux=True)
         self._graph = None     # (outputs, {name: leaf}) of a train forward
+        self._leaves = {}      # name -> (bound tensor, its gradient leaf)
+        self._fwd_train = _compile.jit(
+            self._train_body, site="executor", token=("fwd_train", id(self)),
+            reads=self._train_reads, kind="pair")
+        self._fwd = _compile.jit(
+            self._infer_body, site="executor", token=("fwd", id(self)),
+            reads=self._bound)
         self.outputs = []
 
     def _normalize_req(self, grad_req):
@@ -95,21 +111,57 @@ class Executor:
                                  f"{dst.shape}, fed {tuple(src.shape)}")
             with torch.no_grad():
                 dst._data.copy_(src)
-        args = {n: a._data for n, a in self._arg_dict.items()}
-        auxs = {n: a._data for n, a in self._aux_dict.items()}
         self._graph = None   # drop the last step's graph before this one
-        diff = [n for n in self.arg_names if self._grad_req[n] != "null"]
+        diff = self._diff()
         if is_train and diff:
-            leaves = {n: args[n].detach().requires_grad_(True) for n in diff}
-            args.update(leaves)
             with torch.enable_grad():
-                outs = self._run(args, auxs, True)
-            self._graph = (outs, leaves)
+                outs = self._fwd_train()
+            self._graph = (outs, {n: self._leaf(n) for n in diff})
+        elif is_train:
+            with torch.no_grad():
+                outs = self._fwd_train()
         else:
             with torch.no_grad():
-                outs = self._run(args, auxs, bool(is_train))
+                outs = self._fwd()
         self.outputs = [NDArray(o.detach()) for o in outs]
         return self.outputs
+
+    def _diff(self):
+        return [n for n in self.arg_names if self._grad_req[n] != "null"]
+
+    def _leaf(self, name):
+        """The gradient leaf of argument ``name``: a view of its bound
+        tensor that requires grad, made once (and again only if the
+        bound array was rebound)."""
+        base = self._arg_dict[name]._data
+        got = self._leaves.get(name)
+        if got is None or got[0] is not base:
+            got = self._leaves[name] = (base,
+                                        base.detach().requires_grad_(True))
+        return got[1]
+
+    def _bound(self):
+        return [a._data for a in self._arg_dict.values()] + \
+            [a._data for a in self._aux_dict.values()]
+
+    def _train_reads(self):
+        diff = self._diff()
+        return [self._leaf(n) for n in diff] + [
+            self._arg_dict[n]._data for n in self.arg_names
+            if n not in set(diff)] + [a._data for a in self._aux_dict.values()]
+
+    def _train_body(self):
+        """The training forward over the bound arrays, the differentiable
+        arguments as their leaves; the statistics written in place."""
+        args = {n: a._data for n, a in self._arg_dict.items()}
+        args.update((n, self._leaf(n)) for n in self._diff())
+        auxs = {n: a._data for n, a in self._aux_dict.items()}
+        return self._run(args, auxs, True)
+
+    def _infer_body(self):
+        args = {n: a._data for n, a in self._arg_dict.items()}
+        auxs = {n: a._data for n, a in self._aux_dict.items()}
+        return self._run(args, auxs, False)
 
     # ----------------------------------------------------------- backward --
     def backward(self, out_grads=None):

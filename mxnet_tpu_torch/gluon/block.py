@@ -8,14 +8,14 @@ of ``_collect_params_with_structure``.
 ``HybridBlock.hybridize()`` (JAX :231-300) attaches a
 :class:`~mxnet_tpu_torch.cached_op.CachedOp` at the next call: on a CUDA
 card each input signature's inference forward is captured into one CUDA
-graph and replayed (``compile.py``, site ``"cachedop"``); on the CPU it
-is a plain call with the same keys. It stays eager for the first call
-of a block whose parameter shapes are deferred (as in JAX; here its
-children too, where the JAX package compiles the ones that have no
-deferred parameters), for calls
-under ``autograd.record()`` or in training mode (the training slice
-captures those), inside an outer capture (the child runs into the
-parent's graph) and when ``compile.set_enabled(False)``.
+graph and replayed, and a call under ``autograd.record()`` or in
+training mode into a forward graph and a backward graph that one
+``autograd.Function`` replays (``compile.py``, site ``"cachedop"``); on
+the CPU it is a plain call with the same keys. It stays eager for the
+first call of a block whose parameter shapes are deferred (as in JAX;
+here its children too, where the JAX package compiles the ones that
+have no deferred parameters), inside an outer capture (the child runs
+into the parent's graph) and when ``compile.set_enabled(False)``.
 
 A HybridBlock called on a Symbol traces its ``hybrid_forward`` over the
 ``mx.sym`` namespace into a graph (:301-315); ``export`` (:332) writes

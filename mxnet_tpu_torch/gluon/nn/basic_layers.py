@@ -15,6 +15,7 @@ import math
 import torch
 
 from ... import autograd, initializer as init_mod
+from ... import random as _random
 from ...base import HALF_DTYPES, canonical_dtype
 from ...cached_op import update_state
 from ..block import Block, HybridBlock
@@ -103,8 +104,12 @@ class Dense(HybridBlock):
 class Dropout(HybridBlock):
     """Active only in train mode (``autograd.is_training()``). Its keep
     masks come from ``generator``, a ``torch.Generator`` on the input's
-    device; without one, a randomly seeded generator is made at the
-    first training call."""
+    device; without one, from ``mx.random``'s generator of the input's
+    device (the JAX layer draws from ``mx.random``'s key), which
+    ``mx.random.seed`` reseeds and every CUDA graph registers, so a
+    captured training forward draws anew at each replay. A CUDA
+    ``generator`` of the caller's own is not registered: a capture that
+    draws from it raises ``CaptureError``."""
 
     def __init__(self, rate, axes=(), generator=None, prefix=None,
                  params=None):
@@ -116,11 +121,10 @@ class Dropout(HybridBlock):
     def hybrid_forward(self, F, x):
         if self._rate <= 0 or not autograd.is_training():
             return x
-        if self._generator is None:
-            self._generator = torch.Generator(device=x._data.device)
-            self._generator.seed()
+        gen = self._generator if self._generator is not None else \
+            _random.generator(x._data.device)
         return F.Dropout(x, p=self._rate, axes=self._axes, training=True,
-                         generator=self._generator)
+                         generator=gen)
 
     def __repr__(self):
         return f"Dropout(p = {self._rate}, axes={self._axes})"
@@ -131,8 +135,9 @@ class BatchNorm(HybridBlock):
     (``autograd.is_training()``, without ``use_global_stats``) it
     normalises with the batch's statistics and writes the running ones,
     ``running * momentum + batch * (1 - momentum)`` with the batch's
-    biased variance, outside the autograd graph (``update_state``);
-    otherwise it normalises with the running statistics. ``scale=False``
+    biased variance, in place and outside the autograd graph
+    (``update_state``: the tensors keep their storage, which a captured
+    training step or pair reads and writes); otherwise it normalises with the running statistics. ``scale=False``
     fixes gamma at one (``fix_gamma``)."""
 
     def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,

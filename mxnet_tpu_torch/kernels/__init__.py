@@ -23,11 +23,20 @@ inference), take the plain version too. Tensors on mixed or other
 devices raise :class:`DeviceError`, an ``MXNetError``.
 
 Every counter on a wrapper (``launches``, ``launches_by_path``,
-``copies``, ``tensors_by_path``) moves through :func:`count`. On a
-thread that is capturing a CUDA graph (``compile.py``) nothing is
-launched: inside :func:`recording` the counts go to the capture's
-record, and each replay of the graph adds that record to the counters
+``copies``, ``tensors_by_path``) moves through :func:`count`. While a
+CUDA graph is being captured (``compile.py``) nothing is launched:
+inside :func:`recording` the counts go to the capture's record, and each
+replay of the graph adds that record to the counters
 (:func:`add_counts`). So the counters always count what ran on the card.
+A capture's record is found by thread (the capturing thread) and, when
+:func:`recording` is given the capture stream, by that stream too: a
+backward captured through ``torch.autograd`` runs on the autograd
+engine's own thread, on the stream of its forward. A wrapper whose
+kernel reads a buffer it keeps (a table) hands that buffer to
+:func:`keep`: the record holds it for as long as the graph lives. Work
+that cannot run inside a capture but that the graph needs before its
+first replay (filling a table from the host) goes to
+:func:`after_capture`, which the capture runs when it ends.
 """
 from __future__ import annotations
 
@@ -41,11 +50,13 @@ from ..base import MXNetError
 
 __all__ = ["register_kernel", "dispatch", "entry", "launch_counts",
            "reset_launch_counts", "count", "recording", "add_counts",
-           "DeviceError"]
+           "keep", "after_capture", "DeviceError"]
 
 _FAMILIES: dict = {}
 _tls = threading.local()
 _count_lock = threading.Lock()  # wrappers count from several threads
+# raw CUDA stream of a capture in progress -> its record
+_by_stream: dict = {}
 
 
 class DeviceError(MXNetError, ValueError):
@@ -121,11 +132,32 @@ def launch_counts():
     return counts
 
 
+class Record(dict):
+    """A capture's counts ``{(wrapper, counter, path): n}``; ``kept``
+    holds the buffers its kernels read (:func:`keep`), ``after`` the
+    work to run when the capture ends (:func:`after_capture`)."""
+
+    def __init__(self):
+        super().__init__()
+        self.kept = []
+        self.after = []
+
+
+def _record():
+    """The record this call counts into: this thread's, else that of
+    the capture on the current stream, else None."""
+    record = getattr(_tls, "record", None)
+    if record is None and _by_stream:
+        record = _by_stream.get(torch._C._cuda_getCurrentRawStream(
+            torch.cuda.current_device()))
+    return record
+
+
 def count(fn, attr="launches", path=None, n=1):
     """Add ``n`` to the wrapper ``fn``'s counter ``attr`` (to its entry
-    ``path`` when the counter is a dict), or to this thread's capture
-    record inside :func:`recording`."""
-    record = getattr(_tls, "record", None)
+    ``path`` when the counter is a dict), or to the record of the capture
+    it launches into (:func:`recording`)."""
+    record = _record()
     if record is not None:
         key = (fn, attr, path)
         record[key] = record.get(key, 0) + n
@@ -137,16 +169,40 @@ def count(fn, attr="launches", path=None, n=1):
             getattr(fn, attr)[path] += n
 
 
+def keep(obj):
+    """Hold ``obj`` (a buffer a kernel launched now reads) in the record
+    of the capture the launch goes into; nothing outside a capture."""
+    record = _record()
+    if record is not None:
+        record.kept.append(obj)
+
+
+def after_capture(work):
+    """Defer ``work()`` to the end of the capture the current launch goes
+    into; False (and nothing deferred) outside a :func:`recording`."""
+    record = _record()
+    if record is None:
+        return False
+    record.after.append(work)
+    return True
+
+
 @contextlib.contextmanager
-def recording():
-    """Within the scope, this thread's counts go to the dict it yields,
-    ``{(wrapper, counter, path): n}``, instead of the counters."""
+def recording(stream=None):
+    """Within the scope, this thread's counts, and those of any thread
+    launching on ``stream`` (a capture stream), go to the
+    :class:`Record` it yields instead of the counters."""
     prev = getattr(_tls, "record", None)
-    _tls.record = {}
+    record = _tls.record = Record()
+    key = stream.cuda_stream if stream is not None else None
+    if key is not None:
+        _by_stream[key] = record
     try:
-        yield _tls.record
+        yield record
     finally:
         _tls.record = prev
+        if key is not None:
+            _by_stream.pop(key, None)
 
 
 def add_counts(record):

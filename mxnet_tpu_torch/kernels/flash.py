@@ -365,7 +365,12 @@ for _fn in (flash_forward, flash_backward_dq, flash_backward_dkv):
 
 class FlashAttentionFunction(torch.autograd.Function):
     """Attention whose forward and backward go through the kernel
-    families (the JAX package's ``_flash`` custom_vjp)."""
+    families (the JAX package's ``_flash`` custom_vjp). Each launch goes
+    to the current stream of q's card: in a backward, the stream that
+    autograd's engine runs it on, which is the forward's (inside a
+    captured training step or pair, the capture stream, so K3-bwd is part
+    of the backward graph and its saved tensors live in the graph's
+    pool). The wrappers keep no table or scratch buffer between calls."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale, causal):

@@ -48,6 +48,18 @@ is built. Gradients come fresh from autograd every step, but the caching
 allocator returns the same addresses, so at steady state every call hits,
 and so do the alternating calls of several learning-rate groups.
 
+Under CUDA graph capture (``compile.py``) a table's upload cannot run
+as it does eagerly: it waits on an event and copies from a shared
+pinned buffer, which a graph would replay from a host address whose
+bytes have changed. So a table first met inside a capture is allocated
+there, outside the capture's memory pool, and filled from the host when
+the capture ends (``kernels.after_capture``), before the graph's first
+replay; the captured kernel reads it at every replay. A miss inside a
+capture that is not the compile service's (no record to defer to) raises
+:class:`~mxnet_tpu_torch.compile.CaptureError` naming ``opt_step``. A
+launch inside a capture hands its table to ``kernels.keep``, so a graph
+holds every table it reads even after the cache evicts it.
+
 Contract: bit-exact against the plain versions for float32 (the kernel
 uses correctly rounded intrinsics in the op order of
 ``ops/optimizer_op.py``); only float32 tensors are taken.
@@ -55,6 +67,7 @@ uses correctly rounded intrinsics in the op order of
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import itertools
 import operator
@@ -63,7 +76,7 @@ import numpy as _np
 import torch
 
 from ..ops import optimizer_op as _op
-from . import DeviceError, build, count
+from . import DeviceError, after_capture, build, count, keep
 
 __all__ = ["opt_sgd", "opt_adam", "opt_sgd_plain", "opt_adam_plain", "plan",
            "Plan"]
@@ -221,9 +234,54 @@ class _Staging:
 _STAGING = _Staging()
 
 
+_SIDE = {}  # device -> a stream that never captures
+_CAPTURE_MODE_RELAXED = 2  # CU_STREAM_CAPTURE_MODE_RELAXED
+
+
+@contextlib.contextmanager
+def _relaxed_capture_mode():
+    """This thread's stream-capture mode relaxed for the scope (the
+    driver's ``cuThreadExchangeStreamCaptureMode``), as PyTorch's
+    allocator relaxes it around a ``cudaMalloc`` during a capture: a
+    capture in ``thread_local`` mode refuses this thread's
+    ``cudaMalloc``, which allocates outside any stream's order."""
+    exchange = ctypes.CDLL("libcuda.so.1").cuThreadExchangeStreamCaptureMode
+    mode = ctypes.c_int(_CAPTURE_MODE_RELAXED)
+    rc = exchange(ctypes.byref(mode))
+    if rc != 0:
+        raise RuntimeError(f"opt_step: cuThreadExchangeStreamCaptureMode "
+                           f"failed with CUDA error {rc}")
+    try:
+        yield
+    finally:
+        exchange(ctypes.byref(mode))
+
+
 def _upload(data, device):
-    """``data`` (uint8 numpy) as a tensor on ``device``."""
-    return _STAGING.upload(data, device)
+    """``data`` (uint8 numpy) as a tensor on ``device``; inside a capture
+    the tensor is filled when the capture ends. It is allocated on a
+    stream that is not capturing, so from the card's ordinary memory: a
+    block of the capture's own pool may be one that the graph writes
+    earlier in each replay (memory the capture freed and reused)."""
+    if not torch.cuda.is_current_stream_capturing():
+        return _STAGING.upload(data, device)
+    with _relaxed_capture_mode():
+        side = _SIDE.get(device)
+        if side is None:
+            side = _SIDE[device] = torch.cuda.Stream(device)
+        with torch.cuda.stream(side):
+            out = torch.empty(data.size, dtype=torch.uint8, device=device)
+    host = torch.from_numpy(data.copy())
+    if not after_capture(lambda: out.copy_(host)):
+        from ..compile import CaptureError
+
+        raise CaptureError(
+            "opt_step: a parameter set's table cannot be uploaded inside a "
+            "CUDA graph capture (the copy would bake a host address into "
+            "the graph); capture through mxnet_tpu_torch.compile.jit, "
+            "which fills it when the capture ends, or run the same "
+            "operands once eagerly first")
+    return out
 
 
 class _Table:
@@ -342,6 +400,7 @@ def _step(fn, family, symbol, floats, lists, lr, wds, skip):
         tables.put(key, table)
     if table.n_tensors == 0:
         return
+    keep(table)
     base = table.buf.data_ptr()
     args = (base, base + table.first_offset, table.n_tensors,
             table.n_groups, table.n_blocks, lr.data_ptr(),

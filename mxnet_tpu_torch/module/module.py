@@ -28,7 +28,10 @@ pulls every weight in one ``pull`` call (the JAX ``Module`` pushes and
 pulls key by key): the local store hands the list to
 ``Updater.update_multi`` (one fused K1 launch per learning-rate group
 for SGD with momentum) and copies the weights back with one
-multi-tensor copy.
+multi-tensor copy. It stays eager, as the JAX ``Module``'s does; the
+executor's forward and backward replay CUDA graphs on the card
+(compile site ``executor``), and the metric's one host copy a batch
+stays outside them.
 """
 from __future__ import annotations
 

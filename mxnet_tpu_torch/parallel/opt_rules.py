@@ -32,7 +32,11 @@ routes, chosen by dtype before any launch (:class:`Routes`):
   ``plain`` call each.
 
 No route is reached by catching an error: on the card the fused kernel
-launches or raises.
+launches or raises. Nothing here touches the host, so a step is captured
+whole (``compile.jit``): ``_adam_lr`` works on the device
+scalars, and the route census (:meth:`Routes.census`), fixed by dtype,
+is added to ``ShardedTrainer.route_counts`` on the host at every call,
+replayed or not.
 """
 from __future__ import annotations
 

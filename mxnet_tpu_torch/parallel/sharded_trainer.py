@@ -2,15 +2,21 @@
 
 Counterpart of ``mxnet_tpu/parallel/sharded_trainer.py``. The JAX package
 compiles the whole step into one sharded XLA executable with donated
-buffers; the port runs it eagerly on the mesh's one device:
+buffers (site ``trainer``, :550-628); the port captures it, on the mesh's
+one device, into one CUDA graph per batch signature
+(``compile.jit``, site ``"trainer"``): the first step of a
+signature runs eagerly and is then captured, every later one copies the
+batch in and replays. On the CPU the step is a plain call with the same
+keys. The step:
 
 1. the forward and the loss under ``autograd.record(train_mode=True)``,
    with the trainable parameters swapped for leaf views of themselves
    through ``gluon.parameter.substitute`` (views share storage, so the
    parameters themselves never carry autograd state). The
    ``grad_req="null"`` parameters (aux state: BatchNorm's running
-   statistics) are not substituted: the train-mode forward rewrites them
-   (``cached_op.update_state``), as the JAX step returns them (:188-200);
+   statistics) are not substituted: the train-mode forward writes them
+   in place (``cached_op.update_state``), as the JAX step returns them
+   (:188-200);
 2. ``torch.autograd.grad`` for every trainable parameter (attention's
    gradient through the flash backward kernels);
 3. the non-finite guard: one fused all-finite check over the loss and
@@ -22,10 +28,24 @@ buffers; the port runs it eagerly on the mesh's one device:
    weights without ``multi_precision`` (the routes, chosen by dtype,
    are counted in ``route_counts``); a skipped step also selects the aux
    state back to its values from before the step, on the device
-   (:601-602). Aux state never reaches the optimizer.
+   (:601-602), from copies taken before the forward. Aux state never
+   reaches the optimizer. The fused kernel reads the gradients where
+   autograd left them (in the graph's pool, under capture); its
+   parameter-set table over them is filled when the capture ends.
+
+The step's reads (an entry is built anew when one is rebound) are the
+weights, the aux state, every optimizer state tensor (the masters
+among them) and the masters' gradient buffers. The learning rate, the
+step count and the scheduler stay outside the graph: ``_lr_dev`` and
+``_t_dev`` are filled before each replay. ``load_states`` and ``resume`` drop the
+entries; ``Block.cast`` and ``set_data`` rebind reads, so the next step
+captures anew. ``predict`` is a captured forward under the same site
+(token ``predict``, JAX :826-836). ``compile.set_enabled(False)`` runs
+the same step eagerly.
 
 The host waits for the step only where the JAX package does: reading the
-guard's flag to count skipped steps (``nan_guard=True``, the default).
+guard's flag, after the replay, to count skipped steps
+(``nan_guard=True``, the default).
 
 Hyper-parameter handling follows the JAX trainer (:128-183): an optimizer
 name plus ``optimizer_params`` (``learning_rate`` and ``lr_scheduler``
@@ -65,6 +85,7 @@ import numpy as _np
 import torch
 
 from .. import autograd
+from .. import compile as _compile
 from .. import lr_scheduler as _sched
 from .. import random as _random
 from ..base import MXNetError
@@ -205,12 +226,23 @@ class ShardedTrainer:
             opt_rules.init_state(self._rule, self._opt, h._data, mp)
             for h in self._train_handles]
         self._grads32 = self._master_grad_buffers()
+        # the aux state as it was before the step (the guard's
+        # select-back reads these after the forward wrote the live ones)
+        self._aux_before = [torch.empty_like(h._data)
+                            for h in self._aux_handles] \
+            if self._nan_guard else []
         self.route_counts = dict.fromkeys(self._routes.census(), 0)
         self._t = 0
         self._t_dev = torch.zeros((), dtype=torch.float32, device=self._device)
         self._lr_dev = torch.zeros((), dtype=torch.float32,
                                    device=self._device)
         self._one = torch.ones((), dtype=torch.float32, device=self._device)
+        self._step_fn = _compile.jit(self._step_body, site="trainer",
+                                     token=("step", id(self)),
+                                     reads=self._step_reads)
+        self._predict_fn = _compile.jit(self._predict_body, site="trainer",
+                                        token=("predict", id(self)),
+                                        reads=self._predict_reads)
 
     def _place_params(self):
         """Every parameter on the mesh's device, contiguous (the fused
@@ -236,6 +268,15 @@ class ShardedTrainer:
             views.append(flat[at:at + n].view(self._train_handles[i].shape))
             at += pad
         return views
+
+    def _step_reads(self):
+        return ([h._data for h in self._train_handles]
+                + [h._data for h in self._aux_handles]
+                + [s for per in self._opt_state for s in per]
+                + self._grads32)
+
+    def _predict_reads(self):
+        return [h._data for h in self._train_handles + self._aux_handles]
 
     @property
     def learning_rate(self):
@@ -278,8 +319,20 @@ class ShardedTrainer:
             else float(self._lr_scheduler(self._t))
         self._t_dev.fill_(float(self._t))
         self._lr_dev.fill_(lr)
+        loss, skip = self._step_fn(x_raw, y_raw)
+        for route, n in self._routes.census().items():
+            self.route_counts[route] += n
+        if self._nan_guard:
+            self._account_skip(not bool(skip.item()))  # waits for the step
+        return NDArray(loss)
+
+    def _step_body(self, x_raw, y_raw):
+        """The step on the device: ``(loss, skip flag or None)``. The
+        graph a capture records (nothing here touches the host)."""
         weights = [h._data for h in self._train_handles]
-        aux_before = [h._data for h in self._aux_handles]
+        auxs = [h._data for h in self._aux_handles]
+        if self._aux_before:
+            torch._foreach_copy_(self._aux_before, auxs)
         leaves = [w.detach().requires_grad_(True) for w in weights]
         with substitute({p: NDArray(leaf)
                          for p, leaf in zip(self._params, leaves)}), \
@@ -297,14 +350,9 @@ class ShardedTrainer:
                             grads, self._opt_state, self._grads32,
                             self._lr_dev, wds, self._t_dev, skip)
             if skip is not None:
-                for h, old in zip(self._aux_handles, aux_before):
-                    if h._data is not old:
-                        h._rebind(torch.where(skip != 0, old, h._data))
-        for route, n in self._routes.census().items():
-            self.route_counts[route] += n
-        if self._nan_guard:
-            self._account_skip(not bool(skip.item()))  # waits for the step
-        return NDArray(loss)
+                for live, old in zip(auxs, self._aux_before):
+                    live.copy_(torch.where(skip != 0, old, live))
+        return loss, skip
 
     def _non_finite(self, loss, grads):
         """A float32 device flag, non-zero when the loss or a gradient
@@ -341,10 +389,13 @@ class ShardedTrainer:
                 "checkpoint")
 
     def predict(self, x):
-        """Inference forward (train mode off, nothing recorded)."""
+        """Inference forward (train mode off, nothing recorded); a
+        captured forward per batch signature."""
+        return NDArray(self._predict_fn(self._put_batch(x)))
+
+    def _predict_body(self, x_raw):
         with autograd.pause(train_mode=False):
-            out = self._net.forward(NDArray(self._put_batch(x)))
-        return NDArray(out._data)
+            return self._net.forward(NDArray(x_raw))._data
 
     # -------------------------------------------------------- checkpoint ---
     def _state_tensors(self):
@@ -433,6 +484,7 @@ class ShardedTrainer:
             for key, t in targets.items():
                 t.copy_(arrays[key]._data)
         self._t = int(arrays["__t__"].asscalar())
+        self._step_fn.clear()   # the next step captures anew
         if sched is not None:
             self._lr_scheduler = sched
         _random.set_state(int(arrays["__rng_seed__"].asscalar()),

@@ -17,6 +17,14 @@ Philox's seed and offset on the card, mt19937's state on the CPU). A
 checkpoint of the JAX package holds a threefry key instead, which no
 torch generator can continue: reading one restores the seed alone, so the
 sample stream does not cross between the packages (weights do, by name).
+
+Every CUDA graph the compile service captures registers the card's
+generator (``CUDAGraph.register_generator_state``): a replay reads the
+generator's seed and offset at launch and advances the offset by what
+the capture drew, so each replayed Dropout draws a new mask, ``seed``
+restarts the stream for replays and eager calls alike, and
+``get_state`` / ``set_state`` keep working between replays (not inside
+a capture).
 """
 from __future__ import annotations
 

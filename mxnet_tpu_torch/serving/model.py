@@ -168,7 +168,7 @@ class ServedModel:
     def capture_stats(self):
         """This model's captures: ``{captures, capture_ms, hits, misses,
         replays, ...}`` and ``capture_ms_by_bucket`` (host ms to build each
-        bucket's entry: on a card its eager warm-up and capture)."""
+        bucket's entry: on a card its eager first call and capture)."""
         st = self._fwd.stats()
         by_bucket = {e["shapes"][0][0]: e["ms"] for e in st.pop("entries")
                      if e["shapes"]}

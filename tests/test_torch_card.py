@@ -939,7 +939,7 @@ def test_a_hybridized_block_replays_its_eager_forward_on_card(cuda_device):
     before = mxc.stats().get("cachedop", {"captures": 0})["captures"]
     for n in (2, 5):
         x = mx.nd.array(_capture_tokens(n, seed=n))
-        first = clf(x)._data     # captures, then replays
+        first = clf(x)._data     # the eager first call, then a capture
         again = clf(x)._data     # replays
         want = _eager(clf, x)._data
         assert torch.equal(first, want) and torch.equal(again, want)
@@ -978,12 +978,13 @@ def test_a_rebind_captures_anew_and_in_place_writes_replay_on_card(
 
 @pytest.mark.gpu
 def test_train_then_evaluate_keeps_one_graph_on_card(cuda_device):
-    """Each training step rebinds BatchNorm's running statistics, so the
-    evaluation after it captures anew: the new graph replaces the stale
-    one, the op keeps one entry, the memory the allocator holds stays
-    within one graph of where it started (a graph kept per round would
-    add one each), and each replay equals the eager forward with the
-    new statistics."""
+    """Each training step writes BatchNorm's running statistics in place,
+    so the evaluation after it keeps its graph and replays with the new
+    statistics (equal to the eager forward); the training calls run as
+    the op's pair (eager at the first, captured at the second): the op
+    keeps one inference entry and one pair, no round captures anew
+    after the second, and the memory the allocator holds stays within
+    one graph of where the third round started."""
     from mxnet_tpu_torch import compile as mxc
     from mxnet_tpu_torch.gluon.model_zoo import vision
 
@@ -1005,7 +1006,10 @@ def test_train_then_evaluate_keeps_one_graph_on_card(cuda_device):
     graph_bytes = torch.cuda.memory_reserved() - reserved0
     assert graph_bytes > 0
     op, captures0 = net._cached_op, mxc.stats()["cachedop"]["captures"]
-    reserved, allocated, outs = [], [], []
+    stats = [p.data()._data for p in net.collect_params().values()
+             if p.grad_req == "null"]
+    ptrs = [t.data_ptr() for t in stats]
+    reserved, allocated, outs, captures = [], [], [], []
     for batch in batches:
         with mx.autograd.record():
             loss = net(batch).sum()
@@ -1016,12 +1020,14 @@ def test_train_then_evaluate_keeps_one_graph_on_card(cuda_device):
         torch.cuda.synchronize()
         reserved.append(torch.cuda.memory_reserved())
         allocated.append(torch.cuda.memory_allocated())
-    assert net._cached_op is op and len(op.stats()["entries"]) == 1
-    assert mxc.stats()["cachedop"]["captures"] - captures0 == len(batches)
-    assert max(reserved) - reserved[0] < graph_bytes, (reserved,
-                                                       graph_bytes)
-    assert max(allocated) - allocated[0] < graph_bytes, (allocated,
-                                                         graph_bytes)
+        captures.append(mxc.stats()["cachedop"]["captures"] - captures0)
+    assert net._cached_op is op and len(op.stats()["entries"]) == 2
+    assert [t.data_ptr() for t in stats] == ptrs
+    assert captures == [0, 1, 1, 1, 1]
+    assert max(reserved[2:]) - reserved[2] < graph_bytes, (reserved,
+                                                           graph_bytes)
+    assert max(allocated[2:]) - allocated[2] < graph_bytes, (allocated,
+                                                             graph_bytes)
     assert not torch.equal(outs[0], outs[-1])
 
 
@@ -1202,3 +1208,251 @@ def test_module_fit_trains_a_thumbnail_on_card(cuda_device):
     for name, arr in aux.items():
         init = 0.0 if name.endswith("mean") else 1.0
         assert not bool((arr._data == init).all()), name
+
+
+# ---- training capture: steps, tables, the pair, the pair's generator ------
+
+@pytest.mark.gpu
+def test_a_captured_step_applies_one_update_per_call_on_card(cuda_device):
+    """Five ``ShardedTrainer`` steps through site ``trainer`` (the first
+    eager, then a capture that executes nothing, then four replays) and
+    five eager steps from the same weights: the step counter, one K1
+    launch and one flash backward pair per layer and step, and weights
+    and momenta within 1e-3 of each tensor's L2 step of the eager run."""
+    from mxnet_tpu_torch import compile as mxc
+    from mxnet_tpu_torch.parallel import DeviceMesh, ShardedTrainer
+
+    x = mx.nd.array(_capture_tokens(8, seed=3))
+    y = mx.nd.array(np.arange(8, dtype=np.float32) % 2)
+    runs = {}
+    for mode in ("captured", "eager"):
+        clf = _capture_clf()
+        st = ShardedTrainer(clf, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                            "sgd", {"learning_rate": 0.05, "momentum": 0.9,
+                                    "wd": 1e-4}, mesh=DeviceMesh({"dp": 1}))
+        w0 = [h._data.clone() for h in st._train_handles]
+        prev = mxc.set_enabled(mode == "captured")
+        before = dict(mxc.stats().get("trainer", {"captures": 0,
+                                                  "replays": 0}))
+        kernels.reset_launch_counts()
+        try:
+            for _ in range(5):
+                st.step(x, y)
+        finally:
+            mxc.set_enabled(prev)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        after = mxc.stats().get("trainer", {"captures": 0, "replays": 0})
+        runs[mode] = ([h._data.clone() for h in st._train_handles],
+                      [per[0].clone() for per in st._opt_state], w0)
+        layers = CAPTURE_CFG["layers"]
+        assert st._t == 5 and counts["opt_sgd"] == 5
+        assert counts["flash_attention_bwd_dq"] == 5 * layers
+        assert counts["flash_attention_bwd_dkv"] == 5 * layers
+        assert (after["captures"] - before["captures"],
+                after["replays"] - before["replays"]) == \
+            ((1, 4) if mode == "captured" else (0, 0))
+    for i, (a, b) in enumerate(zip(runs["captured"][0] + runs["captured"][1],
+                                   runs["eager"][0] + runs["eager"][1])):
+        ref = b - runs["eager"][2][i % len(runs["eager"][2])] \
+            if i < len(runs["eager"][0]) else b
+        scale = max(float(ref.norm()), 1e-12)
+        assert float((a - b).norm()) <= 1e-3 * scale, i
+
+
+@pytest.mark.gpu
+def test_a_graph_holds_its_table_past_nine_parameter_sets_on_card(
+        cuda_device):
+    """A captured step launching K1 keeps its table (``kernels.keep``):
+    after nine other parameter sets evict it from the family's cache of
+    eight, each replay still updates the graph's tensors as the plain
+    version does."""
+    from mxnet_tpu_torch import compile as mxc
+    from mxnet_tpu_torch.kernels import opt_step
+
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    shapes = [(1000,), (33, 7), (4096,)]
+
+    def operands():
+        return [[torch.randn(sh, device=cuda_device, generator=gen)
+                 for sh in shapes] for _ in range(3)]
+
+    ws, gs, ms = operands()
+    lr = torch.tensor(0.1, device=cuda_device)
+    wds = [1e-4] * len(shapes)
+
+    def step():
+        kernels.dispatch("opt_sgd", ws, gs, ms, lr, wds, momentum=0.9)
+        return lr * 1
+
+    fn = mxc.jit(step, site="test_card_step", token=("tables",),
+                 reads=lambda: ws + gs + ms)
+    want = [[t.clone() for t in group] for group in (ws, gs, ms)]
+    fn()                               # eager: builds the table
+    (entry,) = fn._seen.values()
+    table = entry._counts.kept[0]
+    tables = opt_step._TABLES["opt_sgd"]
+    assert table in tables.by_key.values()
+    others = [operands() for _ in range(9)]   # alive: nine new pointers
+    for other in others:
+        kernels.dispatch("opt_sgd", *other, lr, wds, momentum=0.9)
+    assert table not in tables.by_key.values()
+    plain = kernels.entry("opt_sgd").plain
+    for _ in range(3):
+        plain(want[0], want[1], want[2], lr, wds, momentum=0.9)
+    fn()
+    fn()                               # two replays over the held table
+    torch.cuda.synchronize()
+    for got, ref in zip(ws + ms, want[0] + want[2]):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+def test_a_table_miss_inside_a_capture_fills_the_table_after_it_on_card(
+        cuda_device):
+    """A step whose fused update reads a gradient allocated in the step
+    (another address in the capture than in the eager first call) misses
+    K1's table while capturing: through ``compile.jit`` the table is
+    filled when the capture ends, and each replay updates as the plain
+    version does; in a bare ``torch.cuda.graph`` capture, with no record
+    to defer the upload to, the miss raises ``CaptureError`` naming
+    ``opt_step``."""
+    from mxnet_tpu_torch import compile as mxc
+
+    w = torch.linspace(-1.0, 1.0, 64, device=cuda_device)
+    m = torch.zeros(64, device=cuda_device)
+    lr = torch.tensor(0.1, device=cuda_device)
+    want = [w.clone(), m.clone()]
+
+    def step():
+        g = w * 0.5 + 1.0
+        kernels.dispatch("opt_sgd", [w], [g], [m], lr, [1e-4], momentum=0.9)
+        return w.sum()
+
+    fn = mxc.jit(step, site="test_card_step", token=("miss",),
+                 reads=lambda: [w, m])
+    plain = kernels.entry("opt_sgd").plain
+    for _ in range(4):
+        fn()                           # eager, then a capture and replays
+        plain([want[0]], [want[0] * 0.5 + 1.0], [want[1]], lr, [1e-4],
+              momentum=0.9)
+    torch.cuda.synchronize()
+    assert torch.equal(w, want[0]) and torch.equal(m, want[1])
+
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(mxc.CaptureError, match="opt_step"):
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            g = torch.full_like(w, 2.0)
+            kernels.dispatch("opt_sgd", [w], [g], [m], lr, [0.0],
+                             momentum=0.9)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_create_graph_through_a_captured_pair_raises_on_card(cuda_device):
+    """The captured pair is differentiable once, as the JAX package's
+    hybridized node: ``autograd.grad(..., create_graph=True)`` through
+    a replayed forward raises instead of returning gradients cut off
+    from the graph; a first-order backward after it still works."""
+    from mxnet_tpu_torch.gluon import nn
+
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(32, in_units=16, activation="tanh"),
+                nn.Dense(1, in_units=32))
+    net.initialize(mx.init.Xavier())
+    net.hybridize()
+    x = mx.nd.array(np.random.RandomState(0).rand(8, 16).astype(np.float32))
+    x.attach_grad()
+    for _ in range(2):                 # the eager first call, the capture
+        with mx.autograd.record():
+            out = net(x).sum()
+        out.backward()
+    with mx.autograd.record():
+        out = net(x).sum()
+    with pytest.raises(NotImplementedError, match="create_graph"):
+        mx.autograd.grad(out, [x], create_graph=True)
+    with mx.autograd.record():
+        out = net(x).sum()
+    out.backward()
+    assert bool(torch.isfinite(x.grad._data).all())
+
+
+@pytest.mark.gpu
+def test_a_returned_input_gradient_survives_the_next_step_on_card(
+        cuda_device):
+    """``autograd.grad`` with respect to a replayed pair's input and to a
+    parameter returns tensors of the caller's own: the next replayed
+    backward, on another batch, leaves them as they were, and each
+    equals the eager gradient."""
+    from mxnet_tpu_torch import compile as mxc
+    from mxnet_tpu_torch.gluon import nn
+
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(32, in_units=16, activation="tanh"),
+                nn.Dense(4, in_units=32))
+    net.initialize(mx.init.Xavier())
+    weight = next(p for p in net.collect_params().values()
+                  if p.name.endswith("weight"))
+    rs = np.random.RandomState(1)
+    xs = [mx.nd.array(rs.rand(8, 16).astype(np.float32)) for _ in range(4)]
+
+    def grads():
+        got = []
+        for x in xs:
+            x.attach_grad()
+            with mx.autograd.record():
+                y = net(x)
+                out = (y * y).sum()
+                w = weight.data()
+            got += [g._data for g in mx.autograd.grad(out, [x, w])]
+        return got
+
+    prev = mxc.set_enabled(False)
+    try:
+        want = [g.clone() for g in grads()]
+    finally:
+        mxc.set_enabled(prev)
+    net.hybridize()
+    replays0 = mxc.stats().get("cachedop", {"replays": 0})["replays"]
+    got = grads()              # eager, then captured and replayed
+    torch.cuda.synchronize()
+    assert mxc.stats()["cachedop"]["replays"] - replays0 == 2 * 3
+    assert len({g.data_ptr() for g in got}) == len(got)
+    for g, ref in zip(got, want):
+        assert torch.allclose(g, ref, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_dropout_draws_anew_at_each_replay_on_card(cuda_device):
+    """A hybridized block with Dropout(0.5) under ``record()``: the pair
+    replays draw a new mask each call from the registered generator;
+    ``mx.random.seed`` twice gives the same masks."""
+    from mxnet_tpu_torch import compile as mxc
+    from mxnet_tpu_torch.gluon import nn
+
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(nn.Dense(256, in_units=256), nn.Dropout(0.5))
+    net.initialize(mx.init.One())
+    net.hybridize()
+    x = mx.nd.array(np.ones((64, 256), np.float32))
+    runs = []
+    for _ in range(2):
+        mx.random.seed(7)
+        masks = []
+        for _ in range(5):
+            with mx.autograd.record():
+                out = net(x)
+            out.backward()
+            masks.append((out._data == 0).clone())
+        runs.append(masks)
+    assert mxc.stats()["cachedop"]["replays"] > 0
+    for a, b in zip(runs[0], runs[1]):
+        assert torch.equal(a, b)
+    for a, b in zip(runs[0], runs[0][1:]):
+        assert not torch.equal(a, b)
+    for mk in runs[0]:
+        share = float(mk.float().mean())
+        assert abs(share - 0.5) < 3 * math.sqrt(0.25 / mk.numel())

@@ -9,8 +9,10 @@ need a card: the keys (input signature, static arguments, parameter
 data pointers), the statistics, ``set_enabled``, re-keying on a rebind,
 a ``cast`` and a ``substitute``, one entry per input signature through
 rounds of training and evaluation, an unhashable static argument, in-place
-writes seen without a new entry, recording and training-mode calls staying eager with correct
-gradients, results never aliased by a later call, the launch-count
+writes seen without a new entry, recording and training-mode calls
+making their own entries (the forward/backward pair) with the
+unhybridized block's gradients, results never aliased by a later call,
+the launch-count
 record that replays add, and the not-ported disk cache raising. The
 graphs themselves are held against the eager forward on the card
 (``tests/test_torch_card.py``, ``chip_smoke.py``'s capture phase)."""
@@ -242,35 +244,55 @@ def test_substitute_is_seen_by_the_key(eager):
 
 
 def test_recording_and_training_calls_stay_eager_with_gradients():
+    """A recording call of a hybridized block makes a ``cachedop`` entry
+    (the pair of its forward and backward: a miss, then hits), and so
+    does a training-mode call (its own signature); the gradients equal
+    the unhybridized block's, for ``grad_req`` "write" and "add". (The
+    name is older than the training capture: on the CPU an entry is
+    still a plain, eager call.)"""
     net = _mlp()
     x = _x()
-    grads = []
-    for active in (False, True):
-        net.hybridize(active)
-        net(x)  # an inference call: an entry when hybridized
-        before = _site()
-        with mx.autograd.record():
-            loss = (net(x) * net(x)).sum()
-        loss.backward()
-        with mx.autograd.train_mode():
-            net(x)
-        assert _moved(before, _site()) == (0, 0)
-        grads.append({n: p.grad().asnumpy().copy()
-                      for n, p in net.collect_params().items()})
-        net.collect_params().zero_grad()
-    assert grads[0].keys() == grads[1].keys()
-    for name in grads[0]:
-        assert np.abs(grads[0][name]).max() > 0, name
-        np.testing.assert_array_equal(grads[1][name], grads[0][name],
-                                      err_msg=name)
+    grads = {}
+    for req in ("write", "add"):
+        for p in net.collect_params().values():
+            p.grad_req = req
+        for active in (False, True):
+            net.hybridize(active)
+            net(x)  # an inference call: an entry when hybridized
+            net.collect_params().zero_grad()
+            before = _site()
+            for _ in range(2):
+                with mx.autograd.record():
+                    loss = (net(x) * net(x)).sum()
+                loss.backward()
+            with mx.autograd.train_mode():
+                net(x)
+            moved = _moved(before, _site())
+            if active:
+                assert moved == (2, 3)
+                assert {e["kind"] for e in
+                        net._cached_op.stats()["entries"]} == {"plain"}
+            else:
+                assert moved == (0, 0)
+            grads[req, active] = {n: p.grad().asnumpy().copy()
+                                  for n, p in net.collect_params().items()}
+    for req in ("write", "add"):
+        assert grads[req, False].keys() == grads[req, True].keys()
+        for name, want in grads[req, False].items():
+            assert np.abs(want).max() > 0, name
+            np.testing.assert_array_equal(grads[req, True][name], want,
+                                          err_msg=f"{req} {name}")
+    for name, want in grads["write", False].items():
+        np.testing.assert_allclose(grads["add", False][name], 2 * want,
+                                   rtol=1e-6, err_msg=name)
 
 
 def test_train_then_evaluate_keeps_one_entry_per_signature(eager):
-    """BatchNorm's training forward rebinds its running statistics
-    (``update_state``), so every evaluation after it builds its entry
-    anew: the new entry replaces the stale one, and rounds of training
-    and evaluation at two input signatures leave two entries, each
-    reading the latest statistics."""
+    """BatchNorm's training forward writes its running statistics in
+    place (``update_state``), so the evaluations after it keep their
+    entries and read the latest statistics: rounds of training and
+    evaluation at two input signatures leave three entries (the two
+    inference signatures and the training pair), each made once."""
     net = nn.HybridSequential()
     with net.name_scope():
         net.add(nn.Dense(8), nn.BatchNorm(), nn.Dense(3))
@@ -291,8 +313,8 @@ def test_train_then_evaluate_keeps_one_entry_per_signature(eager):
         assert torch.equal(y._data, eager(net, x)._data)
         outs.append(y.asnumpy())
     assert net._cached_op is op
-    assert _moved(before, _site()) == (2 * rounds, 0)
-    assert len(op.stats()["entries"]) == 2
+    assert _moved(before, _site()) == (2, 3 * rounds - 2)
+    assert len(op.stats()["entries"]) == 3
     assert not np.array_equal(outs[0], outs[-1])
 
 
