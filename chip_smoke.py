@@ -255,6 +255,28 @@ Phases, each printing one JSON line:
     ``sgd_mom_update`` over the same operands (the Module's wd table,
     ``rescale_grad`` 1 / batch); ``save_checkpoint`` -> ``Module.load``
     -> two steps (the first eager, the second captured) bit for bit.
+25. transformer_lm: ``examples/gluon/transformer_lm.py``'s causal LM
+    rebuilt from the port (``build_lm``: ``TransformerLM``, ``LMLoss``,
+    ``WithPos``, ``nd.arange`` positions, the synthetic bigram corpus of
+    ``RandomState(42)``), ``ShardedTrainer`` with "adam", float32, TF32
+    off. The example's defaults (``LM_DEFAULTS``) train 60 steps in four
+    runs from one state (captured, eager, eager, captured): the loss at
+    steps 0, 20, 40 and 59, finite and falling. Then ``LM_GPT2S`` (GPT-2
+    small width: 12 layers, 768 units, 12 heads, seq 1024, batch 8,
+    vocab 50257, about 163 M parameters): captured and eager in A B B A
+    blocks (3 warm-ups, 4 blocks of 5 steps per mode), step ms, tokens/s,
+    a profiled replayed and eager step (device ms by group, busy share),
+    peak memory and the graph pool, launches per replay (K2 1, K3 12,
+    K3-bwd 12 + 12), 3 captured steps against 3 eager ones from one
+    state; the gradient of step 1 with ``remat=True`` (bit for bit, or
+    within 1e-6 of each tensor's L2 norm) and with ``accum_steps=2``
+    (within 1e-5) against the plain one from the initial weights; then 10
+    captured steps of each (K3 24 a step with remat; K3 and K3-bwd 24
+    and 24 + 24 with accumulation; K2 once): step ms, peak memory.
+    The flash and flash_bwd phases hold K3 and K3-bwd at the LM's shape
+    (8, 12, 1024, 1024, 64) causal in float32 and bfloat16 and time them
+    there beside the plain versions, causal SDPA and the bounds
+    (``lm_shape``).
 
 The twobit phase also holds the single-tensor compress and the
 decompress in float16 and bfloat16 bit for bit against their plain
@@ -266,7 +288,9 @@ K3-bwd with their tensor-core bound as ``bound_ms`` and the float32-rate
 one as ``bound_f32_ms``; K1 with its ResNet-50 numbers, those over the
 classifier beside them, its launches in the bfloat16 cells and checks and on the Module path,
 its device time inside the bfloat16 steps and the casts' time; K1, K2,
-K3 and K3-bwd with their launches per replayed training graph; K6 and K7 with their half-precision times), the
+K3 and K3-bwd with their launches per replayed training graph, K2, K3
+and K3-bwd with their launches per replayed LM step and K3 and K3-bwd
+with their times at the LM's shape; K6 and K7 with their half-precision times), the
 card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure is an
 exception and a non-zero exit. ``--phases`` runs a subset (device and
@@ -436,6 +460,18 @@ MODULE_CHECK = {"model": "resnet18_v1", "classes": 10, "batch": 8,
 MODULE_CHECK_TOL = {"out": 1e-4, "aux": 1e-4, "step_l2": 0.05}
 
 
+# examples/gluon/transformer_lm.py's defaults, and the same LM at
+# GPT-2-small width (12 layers, 768 units, 3072 FFN, 12 heads, 1024
+# positions, GPT-2's 50257-token vocabulary; about 163 M parameters)
+LM_DEFAULTS = {"vocab": 128, "units": 64, "hidden": 128, "layers": 2,
+               "heads": 4, "seq_len": 32, "batch": 16, "lr": 3e-3,
+               "steps": 60, "corpus_tokens": 20000}
+LM_GPT2S = {"vocab": 50257, "units": 768, "hidden": 3072, "layers": 12,
+            "heads": 12, "seq_len": 1024, "batch": 8, "lr": 3e-4,
+            "corpus_tokens": 20000, "warmup": 3, "blocks": 4,
+            "block_steps": 5, "bit_steps": 3, "variant_steps": 10}
+
+
 def build_encoder(args, mx, nn, contrib_nn, exportable=False):
     """``examples/gluon/transformer_finetune.py:build_encoder``, verbatim;
     ``exportable`` puts ``gluon.nn.Embedding`` (a HybridBlock, same
@@ -517,6 +553,88 @@ def random_params(cfg, seed):
             a = rs.uniform(-scale, scale, shape)
         out[name] = a.astype(np.float32)
     return out
+
+
+def lm_corpus(vocab, tokens, seed=42):
+    """``examples/gluon/transformer_lm.py:66-75``'s synthetic bigram
+    corpus, verbatim: Zipf-distributed tokens, each followed by a fixed
+    successor with probability 0.8."""
+    rng = np.random.RandomState(seed)
+    ranks = np.arange(1, vocab)
+    probs = (1.0 / ranks) / (1.0 / ranks).sum()
+    succ = rng.permutation(vocab)
+    ids = [int(rng.choice(ranks, p=probs))]
+    for _ in range(tokens - 1):
+        ids.append(int(succ[ids[-1]]) if rng.rand() < 0.8
+                   else int(rng.choice(ranks, p=probs)))
+    return np.asarray(ids, np.int32)
+
+
+def lm_windows(ids, seq_len):
+    """(windows, next-token labels), each ``(n, seq_len)`` (the
+    example's :105-108)."""
+    n_win = (len(ids) - 1) // seq_len
+    return (ids[: n_win * seq_len].reshape(n_win, seq_len),
+            ids[1: n_win * seq_len + 1].reshape(n_win, seq_len))
+
+
+def build_lm(mx, cfg, dropout=0.0, ctx=None):
+    """``examples/gluon/transformer_lm.py:78-140`` from package ``mx``'s
+    blocks: ``TransformerLM`` (token and position embeddings, a stack of
+    causal ``TransformerEncoderCell``s, a ``Dense`` head over the
+    vocabulary), ``LMLoss`` (softmax CE over the flattened logits) and
+    the ``WithPos`` adapter that feeds ``nd.arange(seq_len)`` positions.
+    ``cfg`` holds ``LM_DEFAULTS``' keys; ``dropout`` goes to each cell
+    (the example's cells have none). Returns ``(net, adapter, loss)``;
+    the net is not initialized."""
+    import importlib
+
+    gluon, nn = mx.gluon, mx.gluon.nn
+    contrib_nn = importlib.import_module(mx.__name__ + ".gluon.contrib.nn")
+    vocab, seq_len = cfg["vocab"], cfg["seq_len"]
+    cell_kw = {"dropout": dropout} if dropout else {}
+
+    class TransformerLM(gluon.HybridBlock):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            with self.name_scope():
+                self.embed = nn.Embedding(vocab, cfg["units"])
+                self.pos = nn.Embedding(seq_len, cfg["units"])
+                self.body = nn.HybridSequential()
+                for _ in range(cfg["layers"]):
+                    self.body.add(contrib_nn.TransformerEncoderCell(
+                        cfg["units"], cfg["hidden"], cfg["heads"],
+                        causal=True, **cell_kw))
+                self.head = nn.Dense(vocab, flatten=False)
+
+        def hybrid_forward(self, F, tokens, positions):
+            h = self.embed(tokens) + self.pos(positions)
+            return self.head(self.body(h))
+
+    pos_nd = mx.nd.arange(seq_len, ctx=ctx)
+
+    class LMLoss(gluon.loss.Loss):
+        """Softmax CE over the flattened (B*T, V) logits."""
+
+        def __init__(self):
+            super().__init__(weight=None, batch_axis=0)
+            self._ce = gluon.loss.SoftmaxCrossEntropyLoss()
+
+        def hybrid_forward(self, F, pred, label):
+            return self._ce(pred.reshape((-1, vocab)), label.reshape((-1,)))
+
+    class WithPos(gluon.HybridBlock):
+        """Adapter: ShardedTrainer drives fn(x); positions are constant."""
+
+        def __init__(self, inner, **kw):
+            super().__init__(**kw)
+            self.inner = inner
+
+        def hybrid_forward(self, F, x):
+            return self.inner(x, pos_nd)
+
+    net = TransformerLM()
+    return net, WithPos(net), LMLoss()
 
 
 def make_task(num_samples, seq_len, vocab, num_classes, seed=0):
@@ -747,6 +865,11 @@ FLASH_CASES += [((8, 12, 100, 100, 64), torch.float32, False, "dense"),
                 ((4, 12, 128, 128, 64), torch.float32, False, "ramp_v"),
                 ((4, 12, 128, 128, 64), torch.float32, True, "ramp_v"),
                 ((4, 8, 72, 72, 128), torch.bfloat16, False, "ramp_v")]
+# transformer_lm's GPT-2-small attention, causal, in the (B, S, H, D)
+# views MultiHeadAttention hands over (the slice's path)
+LM_FLASH = (8, 12, 1024, 1024, 64)
+FLASH_CASES += [(LM_FLASH, dt, True, "bshd")
+                for dt in (torch.float32, torch.bfloat16)]
 
 
 def flash_inputs(shape, dtype, layout, gen, dev):
@@ -851,8 +974,59 @@ def phase_flash():
               "blocks_per_sm": {str(d): flash.forward_blocks_per_sm(d)
                                 for d in (64, 128, 256, 512)},
               "max_abs_err": slice_err}
+    timing["lm_shape"] = _flash_lm_timing(gen, dev)
     emit({"phase": "flash_timing", **timing})
     return timing
+
+
+def _flash_lm_timing(gen, dev):
+    """K3 at transformer_lm's shape (``LM_FLASH``, causal, float32, the
+    (B, S, H, D) views the LM passes): kernel, plain version and causal
+    SDPA by CUDA events, and the bounds."""
+    q, k, v = flash_inputs(LM_FLASH, torch.float32, "bshd", gen, dev)
+    scale = 1.0 / math.sqrt(LM_FLASH[-1])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    fwd = flash.flash_forward
+    bound, by = attention_tc_bound_ms(q, k, True)
+    return {"shape": list(LM_FLASH), "dtype": "float32", "causal": True,
+            "layout": "bshd",
+            "kernel_ms": cuda_ms(lambda: fwd(q, k, v, scale, True)),
+            "plain_ms": cuda_ms(lambda: flash.flash_attention_plain(
+                q, k, v, scale, True), iters=5),
+            "library_ms": cuda_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                               scale=scale)),
+            "bound_tc_ms": bound, "bound_tc_by": by,
+            "bound_ms": attention_bound_ms(q, k, True, H100_F32_FLOPS)[0]}
+
+
+def _flash_bwd_lm_timing(gen, dev):
+    """K3-bwd at transformer_lm's shape (``LM_FLASH``, causal, float32,
+    (B, S, H, D) views): dq and dkv, their plain versions and causal
+    SDPA's backward by CUDA events, and the bounds."""
+    q, k, v = flash_inputs(LM_FLASH, torch.float32, "bshd", gen, dev)
+    do = flash_inputs(LM_FLASH, torch.float32, "bshd", gen, dev)[0]
+    scale = 1.0 / math.sqrt(LM_FLASH[-1])
+    o, lse = flash.flash_forward(q, k, v, scale, True, with_lse=True)
+    dsum = flash.flash_backward_dq(q, k, v, o, lse, do, scale, True)[1]
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *leaves, is_causal=True, scale=scale)
+    bounds = flash_bwd_bounds(q, k, True)
+    return {"shape": list(LM_FLASH), "dtype": "float32", "causal": True,
+            "layout": "bshd",
+            "ms": {"dq": cuda_ms(lambda: flash.flash_backward_dq(
+                       q, k, v, o, lse, do, scale, True)),
+                   "dkv": cuda_ms(lambda: flash.flash_backward_dkv(
+                       q, k, v, lse, dsum, do, scale, True)),
+                   "dq_plain": cuda_ms(lambda: flash.flash_backward_dq_plain(
+                       q, k, v, o, lse, do, scale, True), iters=5),
+                   "dkv_plain": cuda_ms(
+                       lambda: flash.flash_backward_dkv_plain(
+                           q, k, v, lse, dsum, do, scale, True), iters=5),
+                   "library": cuda_ms(lambda: torch.autograd.grad(
+                       out, leaves, do, retain_graph=True))},
+            "bound_ms": {n: b[0] for n, b in bounds.items()},
+            "bound_by": {n: b[1] for n, b in bounds.items()}}
 
 
 def _traffic(cfg):
@@ -900,9 +1074,8 @@ def _burst(server, model, payloads):
 def _pool_bytes():
     """Device bytes the caching allocator holds beyond live tensors once
     its unused cached blocks are released: with CUDA graphs captured,
-    mostly their private memory pools. Unreachable trainers and blocks
-    are collected first (a trainer and its step function refer to each
-    other, so their graphs go with Python's cyclic collector)."""
+    mostly their private memory pools (a dropped trainer or block frees
+    its graphs at once; other unreachable cycles are collected first)."""
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1288,6 +1461,7 @@ def phase_flash_bwd():
                                 for d in (64, 128, 256, 512)},
               "max_abs_err": {"dq": train_err["dq"],
                               "dkv": max(train_err["dk"], train_err["dv"])}}
+    timing["lm_shape"] = _flash_bwd_lm_timing(gen, dev)
     emit({"phase": "flash_bwd_timing", **timing,
           "library": "scaled_dot_product_attention backward (dq, dk, dv "
                      "together) under autograd; device_ms['library'] sums "
@@ -4895,6 +5069,342 @@ def _module_resume(card, sym, cfg, x, y):
     return {"bitwise_equal": True, "tensors": counts}
 
 
+# ---------------------------------------------------------- transformer_lm --
+
+def _lm_build(cfg, dev, dropout=0.0):
+    """``build_lm`` on ``dev``: Xavier weights from ``mx.random.seed(0)``,
+    deferred shapes resolved by one forward of a single window."""
+    mx.random.seed(0)
+    net, adapter, loss = build_lm(mx, cfg, dropout=dropout, ctx=dev)
+    net.initialize(mx.init.Xavier(), ctx=dev)
+    with mx.autograd.pause():
+        net(mx.nd.zeros((1, cfg["seq_len"]), ctx=dev),
+            mx.nd.arange(cfg["seq_len"], ctx=dev))
+    return net, adapter, loss
+
+
+def _lm_batches(cfg, n, dev):
+    """``n`` batches as the example draws them (``RandomState(0)``
+    windows of the corpus, next-token labels), on ``dev``."""
+    windows, labels = lm_windows(lm_corpus(cfg["vocab"],
+                                           cfg["corpus_tokens"]),
+                                 cfg["seq_len"])
+    rng = np.random.RandomState(0)
+    out = []
+    for _ in range(n):
+        sel = rng.randint(0, len(windows), cfg["batch"])
+        out.append((mx.nd.array(windows[sel].astype(np.float32), ctx=dev),
+                    mx.nd.array(labels[sel].astype(np.float32), ctx=dev)))
+    return out
+
+
+def _lm_trainer(cfg, adapter, loss, **kw):
+    return ShardedTrainer(adapter, loss, "adam",
+                          {"learning_rate": cfg["lr"]}, **kw)
+
+
+def _lm_launches(layers, fwd=1, bwd=1):
+    """K2, K3 and K3-bwd launches in one LM step: ``fwd`` flash forwards
+    and ``bwd`` backward pairs per layer."""
+    return {"opt_adam": 1, "flash_attention": fwd * layers,
+            "flash_attention.mma": fwd * layers,
+            "flash_attention_bwd_dq": bwd * layers,
+            "flash_attention_bwd_dq.mma": bwd * layers,
+            "flash_attention_bwd_dkv": bwd * layers,
+            "flash_attention_bwd_dkv.mma": bwd * layers}
+
+
+def _lm_group(name):
+    """The LM step's kernel groups: GEMMs, flash forward and backward,
+    softmax and cross-entropy over the logits, LayerNorm/GELU and other
+    elementwise passes, the fused Adam step (K2)."""
+    low = name.lower()
+    for group, keys in (("flash", ("flash_fwd_",)),
+                        ("flash_backward", ("flash_bwd_",)),
+                        ("k2_adam", ("opt_step_kernel",)),
+                        ("gemm", ("gemm", "cutlass", "sm90_xmma", "cublas")),
+                        ("softmax_cross_entropy", ("softmax", "nll_loss",
+                                                   "cross_entropy")),
+                        ("embedding", ("embedding", "index")),
+                        ("layernorm_gelu_elementwise", (
+                            "layer_norm", "gelu", "elementwise", "vectorized",
+                            "reduce", "foreach", "fill"))):
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def _lm_profiled_step(st, x, y, eager):
+    """One step (replayed, or eager) under ``torch.profiler``: device ms
+    by ``_lm_group``, the busy share of the window, the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prev = compile_service.set_enabled(not eager)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            float(st.step(x, y)._data.float())
+            window_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        compile_service.set_enabled(prev)
+    groups, per = {}, {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        ms = e.self_device_time_total / 1e3
+        per[e.key] = per.get(e.key, 0.0) + ms
+        g = _lm_group(e.key)
+        groups[g] = groups.get(g, 0.0) + ms
+    busy = sum(groups.values())
+    return {"window_ms": window_ms,
+            "device_ms": busy if groups else "not measured",
+            "busy_share": busy / window_ms if groups else "not measured",
+            "device_ms_by_group": groups,
+            "top_kernels_ms": [[k[:80], v] for k, v in sorted(
+                per.items(), key=lambda kv: -kv[1])[:10]]}
+
+
+def _lm_defaults(dev):
+    """The example's defaults, 60 steps from one state in each of four
+    runs (captured, eager, eager, captured), ``mx.random.seed(0)`` and
+    the example's batches each: the loss at steps 0, 20, 40 and 59,
+    finite and falling, and whether the runs agree bit for bit."""
+    cfg = LM_DEFAULTS
+    net, adapter, loss = _lm_build(cfg, dev)
+    start = [p.data()._data.clone() for p in net.collect_params().values()]
+    batches = _lm_batches(cfg, cfg["steps"], dev)
+    runs = []
+    for mode in ("captured", "eager", "eager", "captured"):
+        with torch.no_grad():
+            for p, s in zip(net.collect_params().values(), start):
+                p.data()._data.copy_(s)
+        st = _lm_trainer(cfg, adapter, loss)
+        prev = compile_service.set_enabled(mode == "captured")
+        mx.random.seed(0)
+        losses, ms = [], []
+        try:
+            for x, y in batches:
+                t0 = time.perf_counter()
+                losses.append(float(st.step(x, y).asscalar()))
+                ms.append((time.perf_counter() - t0) * 1e3)
+        finally:
+            compile_service.set_enabled(prev)
+        runs.append({"mode": mode, "loss": losses,
+                     "median_step_ms": statistics.median(ms[3:])})
+        del st
+    at = (0, 20, 40, cfg["steps"] - 1)
+    for r in runs:
+        shown = [r["loss"][i] for i in at]
+        if not all(math.isfinite(v) for v in r["loss"]) or \
+                not shown[0] > shown[1] > shown[3] or \
+                not shown[0] > shown[2] > shown[3]:
+            raise AssertionError(f"transformer_lm defaults: loss not "
+                                 f"finite and falling in the {r['mode']} "
+                                 f"run: steps {at}: {shown}")
+    return {"config": "lm_defaults", **{k: cfg[k] for k in cfg},
+            "loss_at": {m + str(i): {s: r["loss"][s] for s in at}
+                        for i, (m, r) in enumerate(
+                            (r["mode"], r) for r in runs)},
+            "median_step_ms": {r["mode"] + str(i): r["median_step_ms"]
+                               for i, r in enumerate(runs)},
+            "captured_equals_eager": runs[0]["loss"] == runs[1]["loss"],
+            "runs_repeat": runs[0]["loss"] == runs[3]["loss"] and
+            runs[1]["loss"] == runs[2]["loss"]}
+
+
+def _grad_agreement(got, want, names):
+    """Per tensor ``|got - want|`` over ``|want|`` (L2 norms), and over
+    all tensors together (``global_share``): bit for bit where equal. The
+    attention key biases' true gradient is zero (a
+    bias on every key shifts a whole row of scores, which softmax
+    ignores): both runs hold rounding noise there, so their difference is
+    taken over the largest gradient norm of the step instead."""
+    shares, equal = {}, 0
+    norms = [float(w.float().norm()) for w in want]
+    diffs = [float((g.float() - w.float()).norm())
+             for g, w in zip(got, want)]
+    for n, g, w, norm, diff in zip(names, got, want, norms, diffs):
+        if torch.equal(g, w):
+            equal += 1
+            shares[n] = 0.0
+            continue
+        scale = max(norms) if n.endswith("attn.key.bias") else norm
+        shares[n] = diff / max(scale, 1e-30)
+    worst = sorted(shares, key=shares.get, reverse=True)
+    return {"tensors": len(shares), "bit_equal_tensors": equal,
+            "global_share": math.sqrt(sum(d * d for d in diffs)
+                                      / max(sum(v * v for v in norms),
+                                            1e-30)),
+            "bit_equal": equal == len(shares), "max_share": shares[worst[0]],
+            "max_share_tensor": worst[0],
+            "largest_shares": {n: shares[n] for n in worst[:5]}}
+
+
+def _lm_variant(st, x, y, steps, layers, fwd, bwd):
+    """``steps`` captured steps of a variant trainer (the first eager,
+    then a capture and replays): step ms, peak memory, and launches per
+    replay, which must be ``_lm_launches(layers, fwd, bwd)``."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms, losses = [], []
+    for i in range(steps):
+        if i == 2:
+            kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        losses.append(float(st.step(x, y).asscalar()))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    per = {k: v / (steps - 2) for k, v in kernels.launch_counts().items()
+           if v}
+    want = _lm_launches(layers, fwd, bwd)
+    if per != want or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"transformer_lm variant: launches per replay "
+                             f"{per} (want {want}), losses {losses}")
+    return {"step_ms": ms, "median_step_ms": statistics.median(ms[2:]),
+            "loss": losses, "launches_per_replay": per,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "peak_added": torch.cuda.max_memory_allocated() - base}
+
+
+LM_VARIANTS = {"remat": {"remat": True}, "accum_steps_2": {"accum_steps": 2}}
+
+
+def _lm_step1_gradients(cfg, net, adapter, loss, st, x, y):
+    """The gradient of step 1 (from the initial weights) of each variant
+    trainer (``LM_VARIANTS``) against the plain trainer ``st``'s: with
+    ``remat`` bit for bit or within 1e-6 of each tensor's L2 norm; with
+    ``accum_steps=2`` within 1e-5 of each tensor's. (Later, after steps
+    on one batch, the gradient shrinks while its bias and LayerNorm
+    entries still sum 8192 tokens' terms that mostly cancel, and two
+    float32 sums of 4096 round apart from one of 8192 by up to 1.8e-4 of
+    such a tensor's norm.)"""
+    by_param = {p: n for n, p in
+                net._collect_params_with_structure().items()}
+    pnames = [by_param[p] for p in st._params]
+    want_loss, want = st._loss_and_grads(x._data, y._data)
+    grads = {}
+    for k, kw in LM_VARIANTS.items():
+        got_loss, got = _lm_trainer(cfg, adapter, loss,
+                                    **kw)._loss_and_grads(x._data, y._data)
+        grads[k] = {"loss": float(got_loss), "plain_loss": float(want_loss),
+                    **_grad_agreement(got, want, pnames)}
+        del got
+    del want
+    acc = grads["accum_steps_2"]
+    if not grads["remat"]["max_share"] <= 1e-6 or \
+            not acc["max_share"] <= 1e-5:
+        raise AssertionError(f"transformer_lm: step 1's gradients {grads}")
+    torch.cuda.empty_cache()
+    return grads
+
+
+def phase_transformer_lm(smi):
+    """transformer_lm: ``examples/gluon/transformer_lm.py``'s causal LM
+    rebuilt from the port (``build_lm``), float32 with TF32 off. First
+    the example's defaults (``_lm_defaults``). Then ``lm_gpt2s`` (GPT-2
+    small width, ``LM_GPT2S``): one trainer, captured against eager in
+    A B B A blocks from one state (``_trainer_blocks``; 3 warm-up steps
+    and 4 blocks of 5 per mode), 3 captured steps against 3 eager ones
+    from one state, a profiled replayed and eager step, launches per
+    replay (K2 1, K3 12, K3-bwd 12 + 12), peak memory and the graph
+    pool; the gradient of step 1 with ``remat=True`` and with
+    ``accum_steps=2`` against the plain one (``_lm_step1_gradients``);
+    then 10
+    captured steps of each variant (K3 24 a step with remat; K3 and
+    K3-bwd twice as often with accumulation; K2 once)."""
+    dev = mx.gpu(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"phase": "transformer_lm", "card": smi,
+           "defaults": _lm_defaults(dev)}
+    emit({"phase": "transformer_lm_defaults", **out["defaults"]})
+    torch.cuda.empty_cache()
+
+    cfg = LM_GPT2S
+    t0 = time.perf_counter()
+    net, adapter, loss = _lm_build(cfg, dev)
+    (x, y), = _lm_batches(cfg, 1, dev)
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.data().size for p in net.collect_params().values())
+    st = _lm_trainer(cfg, adapter, loss)
+    grads = _lm_step1_gradients(cfg, net, adapter, loss, st, x, y)
+    names = list(st._state_tensors())
+    pool0 = _pool_bytes()
+    warm, n, per = cfg["warmup"], cfg["blocks"], cfg["block_steps"]
+    plan, seen = [], set()
+    for mode in (["captured", "eager", "eager", "captured"] * n)[:2 * n]:
+        plan.append((mode, per + (0 if mode in seen else warm)))
+        seen.add(mode)
+    blocks, _ = _trainer_blocks(st, x, y, plan)
+    pool = _pool_bytes() - pool0
+    for b in blocks:
+        b["step_ms"] = b["step_ms"][-per:]
+    summary = _abba_summary(blocks, 0)
+    captured = [b for b in blocks if b["mode"] == "captured"]
+    eager = [b for b in blocks if b["mode"] == "eager"]
+    per_replay = {k: v / per for k, v in captured[-1]["launches"].items()}
+    want = _lm_launches(cfg["layers"])
+    if per_replay != want or captured[-1]["replays"] != per:
+        raise AssertionError(f"transformer_lm: per replayed step "
+                             f"{per_replay} (want {want}), blocks {blocks}")
+    start = _snapshot(st)
+    bit = cfg["bit_steps"]
+    pair, kept = _trainer_blocks(st, x, y, [("captured", bit),
+                                            ("eager", bit)],
+                                 start=start, snaps=(bit,))
+    agree = _step_agreement(kept["captured"][bit], kept["eager"][bit],
+                            start[0], names)
+    if agree["max_share"] > CAPTURE_STEP_L2:
+        raise AssertionError(f"transformer_lm: captured against eager "
+                             f"after {bit} steps: {agree}")
+    prof = {"captured": _lm_profiled_step(st, x, y, eager=False),
+            "eager": _lm_profiled_step(st, x, y, eager=True)}
+    step_ms = summary["median_step_ms"]
+    tokens = cfg["batch"] * cfg["seq_len"]
+    gpt2s = {"config": "lm_gpt2s", **cfg, "parameters": n_params,
+             "trainable_tensors": len(st._params),
+             "build_s": build_s, **summary,
+             "abba_order": [b["mode"] for b in blocks],
+             "step_ms_by_block": [b["step_ms"] for b in blocks],
+             "tokens_per_s": {m: tokens / (v / 1e3)
+                              for m, v in step_ms.items()},
+             "capture_ms": captured[0]["capture_ms"],
+             "graph_pool_bytes": pool,
+             "launches_per_replayed_step": per_replay,
+             "peak_memory": {
+                 "captured_max_allocated": max(
+                     b["max_memory_allocated"] for b in captured),
+                 "eager_max_allocated": max(
+                     b["max_memory_allocated"] for b in eager),
+                 "captured_added": captured[-1]["peak_added"],
+                 "captured_added_with_pool": captured[-1]["peak_added"]
+                 + pool,
+                 "eager_added": eager[-1]["peak_added"]},
+             "captured_vs_eager_3_steps": agree,
+             "step_l2_tol": CAPTURE_STEP_L2,
+             "profiled_step": prof}
+    gpt2s["pool_over_eager_added"] = pool / max(eager[-1]["peak_added"], 1)
+    emit({"phase": "transformer_lm_gpt2s", **gpt2s})
+
+    del start, kept, pair
+    del st
+    torch.cuda.empty_cache()
+    runs = {}
+    for k, (fwd, bwd) in (("accum_steps_2", (2, 2)), ("remat", (2, 1))):
+        runs[k] = _lm_variant(_lm_trainer(cfg, adapter, loss,
+                                          **LM_VARIANTS[k]), x, y,
+                              cfg["variant_steps"], cfg["layers"], fwd, bwd)
+        torch.cuda.empty_cache()
+    variants_out = {k: {**runs[k], "gradient_vs_plain": grads[k]}
+                    for k in runs}
+    emit({"phase": "transformer_lm_variants", **variants_out})
+    out.update(gpt2s=gpt2s, variants=variants_out)
+    return out
+
+
 PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "train_capture", "gluon_hybrid_train", "dropout_capture",
           "int8_gemm", "serve_int8", "capture", "decode", "twobit",
@@ -4902,7 +5412,7 @@ PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "dist_train", "resnet_check", "resnet50_v1_train",
           "resnet50_v1_infer_bf16", "resnet50_v1_train_bf16",
           "resnet50_v1_train_bf16_mp", "resnet_check_bf16", "resnet_resume",
-          "resnet50_v1_module_fit", "module_check")
+          "resnet50_v1_module_fit", "module_check", "transformer_lm")
 
 
 def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
@@ -5015,6 +5525,8 @@ def main(argv=None):
             smi, done.get("resnet50_v1_train"))
     if "module_check" in phases:
         done["module_check"] = phase_module_check()
+    if "transformer_lm" in phases:
+        done["transformer_lm"] = phase_transformer_lm(smi)
     if not set(PHASES) <= set(done):
         print(f"phases run: {sorted(done)}; no result line", flush=True)
         return 1
@@ -5028,6 +5540,11 @@ def main(argv=None):
     # steps): their launches per replay beside the run's totals
     tcap = done["train_capture"]["launches_per_replayed_step"]
     hyb = done["gluon_hybrid_train"]["launches_per_step_by_block"][0]
+    # this slice: transformer_lm's GPT-2-small step (K2 once over its
+    # tensors, K3 and K3-bwd 12 each, causal) and its variants
+    lm, lmv = done["transformer_lm"]["gpt2s"], \
+        done["transformer_lm"]["variants"]
+    lm_tensors = lm["trainable_tensors"]
     lines = [
         _kernel_line("flash_attention", "flash_attention.cu",
                      "mxnet_tpu/kernels/flash.py:38",
@@ -5041,7 +5558,15 @@ def main(argv=None):
                      launches_per_replayed_train_step=tcap[
                          "flash_attention"],
                      launches_per_replayed_hybrid_forward=hyb[
-                         "flash_attention"])]
+                         "flash_attention"],
+                     # this slice: transformer_lm at GPT-2-small width,
+                     # causal, its launches per replayed step and the
+                     # kernel at its shape
+                     launches_per_replayed_lm_step=lm[
+                         "launches_per_replayed_step"]["flash_attention"],
+                     launches_per_replayed_lm_remat_step=lmv["remat"][
+                         "launches_per_replay"]["flash_attention"],
+                     lm_shape=fwd["lm_shape"])]
     # K3 and K3-bwd run every product on the tensor cores (3xTF32): their
     # bound is the tensor-core one; the float32 rate's stays beside it
     for part in ("dq", "dkv"):
@@ -5055,7 +5580,15 @@ def main(argv=None):
             launches_per_replayed_train_step=tcap[
                 f"flash_attention_bwd_{part}"],
             launches_per_replayed_hybrid_backward=hyb[
-                f"flash_attention_bwd_{part}"]))
+                f"flash_attention_bwd_{part}"],
+            launches_per_replayed_lm_step=lm["launches_per_replayed_step"][
+                f"flash_attention_bwd_{part}"],
+            lm_shape={"ms": bwd["lm_shape"]["ms"][part],
+                      "plain_ms": bwd["lm_shape"]["ms"][f"{part}_plain"],
+                      "library_ms": bwd["lm_shape"]["ms"]["library"],
+                      "bound_tc_ms": bwd["lm_shape"]["bound_ms"][
+                          f"{part}_tc"],
+                      "bound_ms": bwd["lm_shape"]["bound_ms"][part]}))
     # K1 on this slice's path (resnet50_v1_train: one launch a step over
     # ResNet-50's 193 tensors); its times over the classifier's 197
     # tensors and its train_check and resnet_check launches beside them
@@ -5106,7 +5639,10 @@ def main(argv=None):
                               launches_per_replayed_train_step=tcap[
                                   "opt_adam"],
                               launches_gluon_hybrid_train_per_step=hyb.get(
-                                  "opt_adam", 0)))
+                                  "opt_adam", 0),
+                              launches_per_replayed_lm_step=lm[
+                                  "launches_per_replayed_step"]["opt_adam"],
+                              lm_tensors=lm_tensors))
     k4 = done["int8_gemm"]
     lines.append(_kernel_line(
         "int8_gemm", "int8_gemm.cu", "mxnet_tpu/kernels/int8_gemm.py:86",

@@ -37,6 +37,20 @@ def is_training() -> bool:
     return getattr(_tls, "training", False)
 
 
+def is_recomputing() -> bool:
+    """Whether this thread is recomputing a checkpointed forward in its
+    backward (``ShardedTrainer``'s ``remat``): state written by a forward
+    (BatchNorm's running statistics) was written the first time."""
+    return getattr(_tls, "recomputing", False)
+
+
+def set_recomputing(on: bool) -> bool:
+    """Set the flag on this thread; returns the previous value."""
+    prev = is_recomputing()
+    _tls.recomputing = bool(on)
+    return prev
+
+
 def set_recording(is_record: bool) -> bool:
     """Set the flag on this thread; returns the previous value."""
     prev = is_recording()

@@ -50,6 +50,7 @@ import torch
 
 from . import autograd
 from . import compile as _compile
+from .base import MXNetError
 
 __all__ = ["CachedOp", "update_state"]
 
@@ -57,7 +58,11 @@ __all__ = ["CachedOp", "update_state"]
 def update_state(handle, new_value):
     """Write ``new_value`` (an NDArray or a tensor) into ``handle`` (a
     parameter's NDArray) in place, detached from any autograd graph; a
-    value of another shape or dtype rebinds the handle instead."""
+    value of another shape or dtype rebinds the handle instead. Nothing
+    is written while a checkpointed forward is recomputed
+    (``autograd.is_recomputing``): its first run wrote it."""
+    if autograd.is_recomputing():
+        return
     new_raw = new_value._data if hasattr(new_value, "_data") else new_value
     old = handle._data
     if old.shape != new_raw.shape or old.dtype != new_raw.dtype:
@@ -87,10 +92,13 @@ class CachedOp:
 
     ``forward_fn(*args)`` is a function of NDArrays (nested lists ok)
     that reads the Parameters in ``params`` through ``Parameter.data()``,
-    exactly what a HybridBlock's forward does."""
+    exactly what a HybridBlock's forward does. A bound method (the
+    block's ``forward``) is held weakly, as ``compile.jit`` holds this
+    op's own methods: the block owns its CachedOp, and dropping the block
+    frees the op, its entries and their graph pools at once."""
 
     def __init__(self, forward_fn, params=None):
-        self._fn = forward_fn
+        self._fn_ref = _compile._weak(forward_fn)
         self._params = list(params or [])
         self._site = "CachedOp[%s]" % getattr(
             forward_fn, "__qualname__", type(forward_fn).__name__)
@@ -109,8 +117,11 @@ class CachedOp:
         its outputs as tensors."""
         from .ndarray import NDArray
 
-        return _map(self._fn(*_map(raws, NDArray, torch.Tensor)), _raw,
-                    NDArray)
+        fn = self._fn_ref()
+        if fn is None:
+            raise MXNetError(f"{self._site}: the block whose forward this "
+                             "op runs is gone")
+        return _map(fn(*_map(raws, NDArray, torch.Tensor)), _raw, NDArray)
 
     def _run_mode(self, mode, *raws):
         """The pair's body; ``mode`` (recording, training) only keys it."""

@@ -344,11 +344,17 @@ def _sig_node(obj):
 # ------------------------------------------------------------- failures ----
 
 def _op_names():
+    """``{code object: op name}`` of the registered ops; a code object
+    that several ops share (the unary, binary and scalar tables' wrappers)
+    names none of them."""
     from .ops import registry
 
-    return {fn.__code__: registry.canonical(name)
-            for name, fn in registry._REGISTRY.items()
-            if hasattr(fn, "__code__")}
+    names = {}
+    for name, op in registry._REGISTRY.items():
+        fn = getattr(op, "__wrapped__", op)
+        if hasattr(fn, "__code__"):
+            names.setdefault(fn.__code__, set()).add(registry.canonical(name))
+    return {code: ops.pop() for code, ops in names.items() if len(ops) == 1}
 
 
 def _where(exc):
@@ -386,12 +392,9 @@ class _Plain:
 
     kind = "plain"
 
-    def __init__(self, fn):
-        self._fn = fn
-
-    def __call__(self, args, reads=()):
+    def __call__(self, fn, args, reads=()):
         with nested():
-            return self._fn(*args)
+            return fn(*args)
 
 
 _streams = threading.local()
@@ -410,12 +413,17 @@ def _capture_stream(device):
 
 
 def _new_graph(device):
-    """A CUDA graph with the device's ``mx.random`` generator registered:
-    each replay advances its offset by what the capture drew."""
+    """A CUDA graph with the device's ``mx.random`` generator registered
+    (each replay advances its offset by what the capture drew), and the
+    state recomputed forwards draw from once there is one
+    (``random.recompute_generator``)."""
     from . import random as _random
 
     graph = torch.cuda.CUDAGraph()
     graph.register_generator_state(_random.generator(device))
+    again = _random.recompute_generator(device)
+    if again is not None:
+        graph.register_generator_state(again)
     return graph
 
 
@@ -427,9 +435,9 @@ def _capturing(graph, stream, what, pool=None):
     :class:`CaptureError` naming the op.
 
     Python's cyclic garbage collector is off for the capture (the
-    ``torch.cuda.graph`` scope collects before it begins): an
-    unreachable trainer or block freed by it mid-capture would destroy
-    its own graphs, which the CUDA runtime refuses while a stream
+    ``torch.cuda.graph`` scope collects before it begins): a collection
+    mid-capture may free other garbage that holds CUDA graphs or their
+    pools, which the CUDA runtime refuses to destroy while a stream
     captures, and the capture would be lost."""
     from . import kernels
 
@@ -511,6 +519,8 @@ class _Replayer:
             if self._recorded:  # the previous call's copies are done
                 cur.wait_event(self._done)
             _copy_in(self._static_in, leaves)
+            for work in self._counts.before.values():
+                work()
             self._graph.replay()
             outs = [o.clone() for o in self._static_out]
             self._done.record(cur)
@@ -533,17 +543,19 @@ class _Graph(_Replayer):
         spec = _flatten(args, leaves)
         self._static_in = _static_copies(leaves)
         stream = _capture_stream(device)
-        graph = _new_graph(device)
         with torch.no_grad():
             self.first = _eager_on(stream, device, fn,
                                    _rebuild(spec, iter(self._static_in)))
+            # after the first call, which may make the generator state a
+            # recomputation draws from (it is registered from then on)
+            graph = _new_graph(device)
             with _capturing(graph, stream, what) as counts:
                 out = fn(*_rebuild(spec, iter(self._static_in)))
         out_leaves = []
         self._out_spec = _flatten(out, out_leaves)
         self._ready(graph, counts, out_leaves)
 
-    def __call__(self, args, reads=()):
+    def __call__(self, fn, args, reads=()):
         leaves = []
         _flatten(args, leaves)
         with self._lock:
@@ -594,29 +606,29 @@ class _Pair(_Replayer):
 
     kind = "pair"
 
-    def __init__(self, fn, device, what, count):
+    def __init__(self, device, what, count):
         self.device = device
-        self._fn = fn
         self._what = what
         self._count = count  # the owning function's statistics
         self.captured = False
         self._due = None     # weakref to the last replayed forward's mark
         self._lock = threading.Lock()
 
-    def eager(self, args):
+    def eager(self, fn, args):
         """The function's first call, run plainly on the capture stream
         (the caller holds ``_capture_lock``)."""
         return _eager_on(_capture_stream(self.device), self.device,
-                         self._fn, args)
+                         fn, args)
 
     def busy(self):
         """Whether a replayed forward's backward is still due."""
         due = self._due() if self._due is not None else None
         return due is not None and not due.done
 
-    def capture(self, args, reads):
-        """Capture the forward and the backward over static copies of
-        ``args`` and the differentiable ``reads``; executes nothing."""
+    def capture(self, fn, args, reads):
+        """Capture the forward and the backward of ``fn`` over static
+        copies of ``args`` and the differentiable ``reads``; executes
+        nothing."""
         leaves = []
         spec = _flatten(args, leaves)
         self._static_in = _static_copies(leaves)
@@ -628,7 +640,7 @@ class _Pair(_Replayer):
         fwd = _new_graph(self.device)
         pool = torch.cuda.graph_pool_handle()
         with _capturing(fwd, stream, self._what, pool=pool) as fcounts:
-            out = self._fn(*_rebuild(spec, iter(self._static_in)))
+            out = fn(*_rebuild(spec, iter(self._static_in)))
         out_leaves = []
         self._out_spec = _flatten(out, out_leaves)
         self.out_req = [o.requires_grad for o in out_leaves]
@@ -650,7 +662,7 @@ class _Pair(_Replayer):
         self._bcounts = bcounts
         self.captured = True
 
-    def __call__(self, args, reads=()):
+    def __call__(self, fn, args, reads=()):
         leaves = []
         _flatten(args, leaves)
         due = _Due()
@@ -688,6 +700,8 @@ class _Pair(_Replayer):
                     heads = [g for g, req in zip(grads, self.out_req) if req]
                     for c, g in zip(self._cots, heads):
                         c.copy_(g)
+                    for work in self._bcounts.before.values():
+                        work()
                     self._bwd.replay()
             it = iter(self._grads)
             args = tuple(_cloned(next(it)) if req else None
@@ -746,16 +760,34 @@ def _counter(*lists):
     return count
 
 
+def _weak(fn):
+    """A callable returning ``fn``: through a ``weakref.WeakMethod`` for
+    a bound method (the owner's jitted function must not keep its owner
+    alive), else ``fn`` itself."""
+    if fn is None:
+        return None
+    if hasattr(fn, "__self__") and hasattr(fn, "__func__"):
+        return weakref.WeakMethod(fn)
+    return lambda: fn
+
+
 class ServiceFunction:
-    """A callable owned by the service: one entry per call signature."""
+    """A callable owned by the service: one entry per call signature.
+
+    A bound method given as ``fn`` or ``reads`` is held weakly: the
+    owner (a trainer, a hybridized block's ``CachedOp``, an executor)
+    holds this function, its entries hold their graphs and memory pools,
+    and the owner's last reference dropping frees all of them at once,
+    with no wait for Python's cyclic collector. A call after the owner
+    is gone raises :class:`~mxnet_tpu_torch.base.MXNetError`."""
 
     def __init__(self, fn, site, token_key, reads, kind="forward"):
         if kind not in _KINDS:
             raise ValueError(f"kind must be one of {_KINDS}, got {kind!r}")
-        self._fn = fn
+        self._fn_ref = _weak(fn)
         self._site = site
         self._token_key = token_key
-        self._reads = reads
+        self._reads_ref = _weak(reads)
         self._kind = kind
         self._st = _site_stats(site)
         # this function's own statistics (as its site's) and its
@@ -769,11 +801,20 @@ class ServiceFunction:
         with _lock:
             _REGISTRY[token_key] = weakref.ref(self)
 
+    def _target(self, ref, what):
+        fn = ref()
+        if fn is None:
+            raise MXNetError(f"{self._what()}: the object that owns this "
+                             f"compiled function ({what}) is gone")
+        return fn
+
     def __call__(self, *args):
+        fn = self._target(self._fn_ref, "its body")
         if not _ENABLED or inside():
             with nested():
-                return self._fn(*args)
-        reads = list(self._reads()) if self._reads is not None else []
+                return fn(*args)
+        reads = [] if self._reads_ref is None else \
+            list(self._target(self._reads_ref, "its reads")())
         sig = _sig_node(args)
         rkey = (_flags(), tuple((t.data_ptr(), t.shape, t.dtype,
                                  t.requires_grad) for t in reads))
@@ -782,9 +823,9 @@ class ServiceFunction:
             with self._miss_lock:
                 entry = self._fresh(sig, rkey)
                 if entry is None:
-                    return self._miss(sig, rkey, args, reads)
+                    return self._miss(fn, sig, rkey, args, reads)
         self._count(0)
-        return self._run(entry, args, reads)
+        return self._run(fn, entry, args, reads)
 
     def _fresh(self, sig, rkey):
         """The entry of ``sig`` if it was built over the same reads and
@@ -795,21 +836,21 @@ class ServiceFunction:
     def _what(self):
         return f"{self._site}[{self.__name__}]"
 
-    def _run(self, entry, args, reads):
+    def _run(self, fn, entry, args, reads):
         if entry.kind == "graph":
             self._count(6)
         elif entry.kind == "pair":
             if entry.busy():  # a backward is due: this call runs eagerly
                 self._count(7)
                 with nested():
-                    return self._fn(*args)
+                    return fn(*args)
             if not entry.captured:
                 with self._miss_lock, _capture_lock:
                     if not entry.captured:
                         t0 = time.perf_counter()
-                        entry.capture(args, reads)
+                        entry.capture(fn, args, reads)
                         self._built(entry, t0, True)
-        return entry(args, reads)
+        return entry(fn, args, reads)
 
     def _built(self, entry, t0, captured):
         ms = (time.perf_counter() - t0) * 1e3
@@ -820,7 +861,7 @@ class ServiceFunction:
             self._count(5, ms)
         entry.record["ms"] = ms
 
-    def _miss(self, sig, rkey, args, reads):
+    def _miss(self, fn, sig, rkey, args, reads):
         """Make the entry for ``sig`` over the reads ``rkey`` and return
         the function's first call (on the CPU a plain call; on a card run
         eagerly on the capture stream, a forward then captured). A stale
@@ -836,15 +877,15 @@ class ServiceFunction:
         record = {"kind": kind, "ms": 0.0,
                   "shapes": [tuple(t.shape) for t in leaves]}
         if device is None:
-            entry = _Plain(self._fn)
-            out = entry(args)
+            entry = _Plain()
+            out = entry(fn, args)
         elif kind == "pair":
-            entry = _Pair(self._fn, device, self._what(), self._count)
+            entry = _Pair(device, self._what(), self._count)
             with _capture_lock:
-                out = entry.eager(args)
+                out = entry.eager(fn, args)
         else:
             with _capture_lock:
-                entry = _Graph(self._fn, args, device, self._what())
+                entry = _Graph(fn, args, device, self._what())
             out, entry.first = entry.first, None
         entry.reads = rkey
         entry.record = record
@@ -878,7 +919,9 @@ def jit(fn, *, site, token, reads=None, kind="forward"):
 
     fn : a function of tensors (in tuples, lists and dicts; other
         arguments are static and part of the key) returning tensors in
-        such a structure.
+        such a structure. A bound method is held weakly (so is
+        ``reads``): the owner keeps the returned function, not the
+        other way round.
     site : metric bucket: ``"cachedop"``, ``"serving"``, ``"trainer"``
         or ``"executor"``.
     token : the function's identity (hashable); one registry entry per

@@ -21,6 +21,10 @@ from .base import MXNetError
 __all__ = ["Context", "cpu", "gpu", "num_gpus", "current_context"]
 
 
+# the cards a context resolved to (``nd.waitall`` synchronises them)
+_TOUCHED: set = set()
+
+
 class Context:
     """A device context. Acts as a context manager (``with mx.cpu():``)
     that sets the thread-local default device."""
@@ -66,6 +70,7 @@ class Context:
             raise MXNetError(
                 f"context {self} needs a CUDA card but {n} are visible; "
                 "pass ctx=mx.cpu() to run on the CPU")
+        _TOUCHED.add(self.device_id)
         return torch.device("cuda", self.device_id)
 
     @staticmethod

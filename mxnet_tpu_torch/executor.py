@@ -28,7 +28,8 @@ calls with the same keys; ``compile.set_enabled(False)`` runs them
 eagerly. The entries read the bound arrays, whose storage never changes,
 so one entry per mode serves every batch.
 A context list of more than one card (data parallelism over cards)
-raises :class:`MXNetError`: see ROADMAP.md A4.
+raises :class:`MXNetError`: see ROADMAP.md, multi-card data
+parallelism.
 """
 from __future__ import annotations
 

@@ -43,8 +43,12 @@ class _BlockScope:
     _tls = threading.local()
 
     def __init__(self, block):
+        # made anew by each name_scope(), alive only inside its ``with``:
+        # a block holding its scope would make a reference cycle and wait
+        # for the cyclic collector (and with it a hybridized block's
+        # graph pools); the child counters live on the block
         self._block = block
-        self._counter = {}
+        self._counter = block._scope_counter
         self._old_scope = None
 
     @staticmethod
@@ -99,7 +103,7 @@ class Block:
                                                         self._alias())
         self._name = self._prefix[:-1] if self._prefix.endswith("_") \
             else self._prefix
-        self._scope = _BlockScope(self)
+        self._scope_counter = {}
         self._children = OrderedDict()
         self._reg_params = OrderedDict()
 
@@ -137,7 +141,7 @@ class Block:
         return self._name
 
     def name_scope(self):
-        return self._scope
+        return _BlockScope(self)
 
     @property
     def params(self):

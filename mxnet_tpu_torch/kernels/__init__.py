@@ -50,7 +50,7 @@ from ..base import MXNetError
 
 __all__ = ["register_kernel", "dispatch", "entry", "launch_counts",
            "reset_launch_counts", "count", "recording", "add_counts",
-           "keep", "after_capture", "DeviceError"]
+           "keep", "after_capture", "before_replay", "DeviceError"]
 
 _FAMILIES: dict = {}
 _tls = threading.local()
@@ -135,12 +135,15 @@ def launch_counts():
 class Record(dict):
     """A capture's counts ``{(wrapper, counter, path): n}``; ``kept``
     holds the buffers its kernels read (:func:`keep`), ``after`` the
-    work to run when the capture ends (:func:`after_capture`)."""
+    work to run when the capture ends (:func:`after_capture`),
+    ``before`` the work to run before each replay
+    (:func:`before_replay`)."""
 
     def __init__(self):
         super().__init__()
         self.kept = []
         self.after = []
+        self.before = {}
 
 
 def _record():
@@ -184,6 +187,17 @@ def after_capture(work):
     if record is None:
         return False
     record.after.append(work)
+    return True
+
+
+def before_replay(key, work):
+    """Run ``work()`` on the host before every replay of the graph being
+    captured (once per ``key``); False (and nothing kept) outside a
+    :func:`recording`."""
+    record = _record()
+    if record is None:
+        return False
+    record.before.setdefault(key, work)
     return True
 
 

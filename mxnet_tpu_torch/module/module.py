@@ -7,7 +7,8 @@ Counterpart of ``mxnet_tpu/module/module.py`` (MXNet 1.x
 ``forward``, ``backward``, ``update``, ``update_metric``,
 ``install_monitor``, ``save_checkpoint`` / ``load`` and the optimizer
 states. One :class:`~mxnet_tpu_torch.executor.Executor` on one card
-holds the graph; a context list of several cards raises (ROADMAP.md A4).
+holds the graph; a context list of several cards raises (ROADMAP.md, multi-card
+data parallelism).
 
 Where the JAX package and MXNet 1.x differ, the port follows MXNet 1.x:
 
@@ -63,14 +64,15 @@ class Module(BaseModule):
         if compression_params:
             raise MXNetError("gradient compression in Module needs a dist "
                              "kvstore, which Module does not drive yet; see "
-                             "ROADMAP.md A4")
+                             "ROADMAP.md, multi-card data parallelism")
         if work_load_list is not None and len(work_load_list) != 1:
             raise MXNetError("work_load_list splits a batch over several "
-                             "contexts; Module binds one; see ROADMAP.md A4")
+                             "contexts; Module binds one; see ROADMAP.md, "
+                             "multi-card data parallelism")
         if group2ctxs is not None:
             raise MXNetError("group2ctxs (placing ctx_group parts of the "
                              "graph on their own contexts) is not ported; "
-                             "see ROADMAP.md A5")
+                             "see ROADMAP.md, ctx_group placement")
         self._context = _one_context(context)
         self._context.torch_device()   # no card: raise here, not at bind
         self._symbol = symbol
@@ -107,7 +109,8 @@ class Module(BaseModule):
             return
         if shared_module is not None:
             raise MXNetError("bind(shared_module=) serves BucketingModule, "
-                             "which is not ported yet; see ROADMAP.md A6")
+                             "which is not ported yet; see ROADMAP.md, "
+                             "BucketingModule")
         old = self._exec if self.params_initialized else None
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad

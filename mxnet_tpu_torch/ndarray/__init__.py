@@ -17,11 +17,15 @@ from .. import autograd as _autograd
 from .. import ops as _ops  # noqa: F401  (registers every op)
 from .. import random as _random
 from ..ops import registry as _registry
-from .ndarray import NDArray, _invoke, array, invoke, zeros
+from .ndarray import (NDArray, _invoke, arange, array, concat, dot, empty,
+                      eye, full, invoke, moveaxis, ones, ones_like, split,
+                      stack, waitall, zeros, zeros_like)
 from . import random, utils
 from .utils import load, save
 
-__all__ = ["NDArray", "array", "zeros", "invoke", "contrib", "random",
+__all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
+           "eye", "zeros_like", "ones_like", "concat", "stack", "split",
+           "moveaxis", "dot", "waitall", "invoke", "contrib", "random",
            "save", "load", "utils"]
 
 

@@ -1,5 +1,6 @@
 """Op definitions; importing this package registers every op."""
 from . import registry
+from . import math  # noqa: F401
 from . import tensor  # noqa: F401
 from . import nn  # noqa: F401
 from . import output_ops  # noqa: F401

@@ -6,30 +6,66 @@ registered under its MXNet name with its number of outputs. The
 ``nd.<op>`` / ``F.<op>`` wrappers, ``F.invoke(name, ...)``
 (``ndarray/__init__.py``) and the ``mx.sym.<op>`` graph composers
 (``symbol/__init__.py``) are generated from this table.
+
+* ``num_outputs``: an int, or a callable ``(n_inputs, kwargs) -> int``
+  for ops whose output count follows their hyper-parameters
+  (``SliceChannel``, ``split_v2``), as in the JAX registry.
+* ``differentiable=False``: the op's outputs are detached, so nothing
+  recorded flows back through it (``argmax``, ``argsort``, ``topk``, the
+  creation ops), as the JAX ``Operator`` keeps such ops off its tape.
+* An op the port does not have raises :class:`OpNotPorted`, an
+  ``MXNetError`` (and a ``KeyError``) naming it.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict
 
+from ..base import MXNetError
+
 __all__ = ["register", "get", "canonical", "list_ops", "aliases",
-           "num_outputs"]
+           "num_outputs", "differentiable", "OpNotPorted"]
 
 _REGISTRY: Dict[str, Callable] = {}
 _ALIASES: Dict[str, tuple] = {}
 _CANONICAL: Dict[str, str] = {}
-_NUM_OUTPUTS: Dict[str, int] = {}
+_NUM_OUTPUTS: Dict[str, object] = {}
+_NON_DIFF: set = set()
 
 
-def register(name: str, aliases=(), num_outputs=1):
+class OpNotPorted(MXNetError, KeyError):
+    """The op is not in the port's registry."""
+
+    def __str__(self):
+        return self.args[0]
+
+
+def _detached(fn):
+    @functools.wraps(fn)
+    def op(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        if isinstance(out, (tuple, list)):
+            return type(out)(o.detach() for o in out)
+        return out.detach()
+
+    return op
+
+
+def register(name: str, aliases=(), num_outputs=1, differentiable=True):
     """Decorator: register ``fn`` as op ``name`` (and its aliases); it
-    returns a tuple of ``num_outputs`` tensors when that is above 1."""
+    returns a tuple of ``num_outputs`` tensors when that is above 1 (or
+    is a callable). Returns ``fn`` itself."""
 
     def deco(fn: Callable) -> Callable:
-        _REGISTRY[name] = fn
+        op = fn if differentiable else _detached(fn)
+        _REGISTRY[name] = op
         _ALIASES[name] = tuple(aliases)
-        _NUM_OUTPUTS[name] = int(num_outputs)
+        _NUM_OUTPUTS[name] = num_outputs if callable(num_outputs) \
+            else int(num_outputs)
+        if not differentiable:
+            _NON_DIFF.add(name)
         for n in (name,) + tuple(aliases):
-            _REGISTRY[n] = fn
+            _REGISTRY[n] = op
             _CANONICAL[n] = name
         return fn
 
@@ -40,8 +76,8 @@ def get(name: str) -> Callable:
     try:
         return _REGISTRY[name]
     except KeyError:
-        raise KeyError(f"operator {name!r} is not registered in the port "
-                       f"({len(_ALIASES)} ops available)") from None
+        raise OpNotPorted(f"operator {name!r} is not ported "
+                          f"({len(_ALIASES)} ops available)") from None
 
 
 def canonical(name: str) -> str:
@@ -59,5 +95,14 @@ def aliases(name: str) -> tuple:
     return _ALIASES[name]
 
 
-def num_outputs(name: str) -> int:
-    return _NUM_OUTPUTS[canonical(name)]
+def num_outputs(name: str, n_inputs=0, kwargs=None) -> int:
+    """The op's number of outputs for a node with ``n_inputs`` inputs and
+    the hyper-parameters ``kwargs``."""
+    n = _NUM_OUTPUTS[canonical(name)]
+    if callable(n):
+        n = n(n_inputs, dict(kwargs or {}))
+    return int(n) or 1
+
+
+def differentiable(name: str) -> bool:
+    return canonical(name) not in _NON_DIFF

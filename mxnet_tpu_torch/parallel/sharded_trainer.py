@@ -68,15 +68,21 @@ trainer loads the port's files too, without a scheduler: with one, its
 unpickler would import this package. ``save_checkpoint`` / ``resume``
 go through a ``checkpoint.CheckpointManager``.
 
+``remat=True`` runs each step's forward and loss under
+``torch.utils.checkpoint`` (recomputed in the backward, Dropout masks
+included), and ``accum_steps = k`` accumulates ``k`` microbatches'
+gradients inside the one step (:meth:`_step_body`); both are part of
+the step's entry key, as in the JAX trainer's (:386).
+
 Not ported yet, and refused with :class:`MXNetError` where the JAX
-package would accept them: ``zero``, ``remat``, ``accum_steps > 1``,
-``donate=False``, sharding ``rules``, meshes of more than one device,
+package would accept them: ``zero``, ``donate=False``, sharding ``rules``, meshes of more than one device,
 ``data_iter=`` of ``save_checkpoint``/``resume`` (no port iterator has a
 ``state_dict``), ``reshard=`` of ``resume`` (one device has nothing to
 reshard), and the model-bus, warmup/AOT and telemetry methods.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 from typing import List, Optional
@@ -116,6 +122,70 @@ def _unported_method(name, what):
     return method
 
 
+class _RecomputeScopes:
+    """``torch.utils.checkpoint``'s ``context_fn`` for a trainer's
+    forward: the first scope notes this thread's port state when the
+    forward starts, the second puts it back for the recomputation, which
+    on a card runs on autograd's engine thread. That state is the
+    recording and training flags, the parameters' leaf views
+    (``gluon.parameter.substitute``), the current context, the nesting
+    that runs hybridized blocks plainly inside a captured step, and
+    ``mx.random``'s generator (:func:`random.snapshot`), so a Dropout
+    draws the same mask twice; and BatchNorm's statistics are not
+    written twice (``autograd.set_recomputing``)."""
+
+    def __init__(self, device):
+        self._device = device
+        self._state = None
+
+    @contextlib.contextmanager
+    def forward(self):
+        from ..context import Context
+        from ..gluon import parameter
+
+        self._state = (autograd.is_recording(), autograd.is_training(),
+                       getattr(parameter._tls, "subs", None),
+                       list(getattr(Context._tls, "stack", None) or []),
+                       _random.snapshot(self._device))
+        yield
+
+    @contextlib.contextmanager
+    def again(self):
+        from ..context import Context
+        from ..gluon import parameter
+
+        recording, training, subs, stack, snap = self._state
+        prev = (autograd.set_recording(recording),
+                autograd.set_training(training),
+                autograd.set_recomputing(True),
+                getattr(parameter._tls, "subs", None),
+                getattr(Context._tls, "stack", None))
+        parameter._tls.subs = subs
+        Context._tls.stack = stack
+        try:
+            with _compile.nested(), snap.again():
+                yield
+        finally:
+            autograd.set_recording(prev[0])
+            autograd.set_training(prev[1])
+            autograd.set_recomputing(prev[2])
+            parameter._tls.subs = prev[3]
+            Context._tls.stack = prev[4]
+
+
+def _recomputed(run, x_raw, y_raw):
+    """``run(x_raw, y_raw)`` whose activations are not kept: recomputed
+    in the backward (``use_reentrant=False``, so it captures into a CUDA
+    graph; torch's own generator states are not stashed, as the port
+    draws from ``mx.random``'s)."""
+    from torch.utils.checkpoint import checkpoint
+
+    scopes = _RecomputeScopes(x_raw.device)
+    return checkpoint(run, x_raw, y_raw, use_reentrant=False,
+                      preserve_rng_state=False,
+                      context_fn=lambda: (scopes.forward(), scopes.again()))
+
+
 def _bytes_array(blob):
     return NDArray(torch.from_numpy(_np.frombuffer(blob, _np.uint8).copy()))
 
@@ -135,6 +205,11 @@ class ShardedTrainer:
         ``multi_precision`` (float32 master copies of half-precision
         weights) and the optimizer's own.
     mesh : DeviceMesh (default: ``DeviceMesh()``, every card on dp).
+    remat : recompute the forward (and the loss) in the backward instead
+        of keeping its activations (``torch.utils.checkpoint``, Dropout
+        masks drawn again as they were).
+    accum_steps : split each batch into this many microbatches whose
+        gradients are summed inside the step; the batch must divide.
     nan_guard : a non-finite loss or gradient skips the whole update
         (parameters and optimizer state stay bit-identical) and counts
         in ``skipped_steps`` / ``consecutive_skips``; after
@@ -148,8 +223,6 @@ class ShardedTrainer:
         if int(accum_steps) < 1:
             raise ValueError("accum_steps must be >= 1")
         for on, what in ((zero, "zero (ZeRO-1 sharded optimizer state)"),
-                         (remat, "remat (activation recomputation)"),
-                         (int(accum_steps) > 1, "accum_steps > 1"),
                          (not donate, "donate=False (the port updates "
                                       "parameters in place)"),
                          (any(rules.values()) if rules else False,
@@ -158,6 +231,8 @@ class ShardedTrainer:
                 raise _not_ported(what)
         self._net = net
         self._loss_fn = loss_fn
+        self._remat = bool(remat)
+        self._accum = int(accum_steps)
         self._mesh = mesh or DeviceMesh()
         self._device = self._mesh.device
         self._nan_guard = bool(nan_guard)
@@ -237,9 +312,10 @@ class ShardedTrainer:
         self._lr_dev = torch.zeros((), dtype=torch.float32,
                                    device=self._device)
         self._one = torch.ones((), dtype=torch.float32, device=self._device)
-        self._step_fn = _compile.jit(self._step_body, site="trainer",
-                                     token=("step", id(self)),
-                                     reads=self._step_reads)
+        self._step_fn = _compile.jit(
+            self._step_body, site="trainer",
+            token=("step", id(self), self._remat, self._accum),
+            reads=self._step_reads)
         self._predict_fn = _compile.jit(self._predict_body, site="trainer",
                                         token=("predict", id(self)),
                                         reads=self._predict_reads)
@@ -326,23 +402,66 @@ class ShardedTrainer:
             self._account_skip(not bool(skip.item()))  # waits for the step
         return NDArray(loss)
 
+    def _micro(self, x_raw, y_raw, weights, leaves, subs):
+        """The mean loss of one (micro)batch and every trainable
+        parameter's gradient; with ``remat`` the forward and the loss run
+        under ``torch.utils.checkpoint`` and are recomputed in the
+        backward (the JAX step's ``jax.checkpoint(run_net)``, :492-494)."""
+        def run(x, y):
+            out = self._net.forward(NDArray(x))
+            return self._loss_fn(out, NDArray(y)).mean()._data
+
+        with substitute(subs), autograd.record(train_mode=True):
+            loss = _recomputed(run, x_raw, y_raw) if self._remat \
+                else run(x_raw, y_raw)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(w) if g is None else g
+                 for w, g in zip(weights, grads)]
+        return loss.detach(), grads
+
+    def _loss_and_grads(self, x_raw, y_raw):
+        """The batch's mean loss and the trainable parameters' gradients,
+        as the step feeds them to the guard and the update.
+
+        With ``accum_steps = k`` the batch is cut into ``k`` microbatches
+        (views of the batch, which nothing in the step overwrites); each
+        runs its forward and backward in turn, its gradients added in
+        float32 to accumulators zeroed here, and BatchNorm's statistics
+        carry from one to the next, as the JAX scan's carry (:502-541).
+        The summed gradients and loss are divided by ``k`` once."""
+        weights = [h._data for h in self._train_handles]
+        leaves = [w.detach().requires_grad_(True) for w in weights]
+        subs = {p: NDArray(leaf) for p, leaf in zip(self._params, leaves)}
+        k = self._accum
+        if k == 1:
+            return self._micro(x_raw, y_raw, weights, leaves, subs)
+        b = x_raw.shape[0]
+        if b % k:
+            raise ValueError(f"batch {b} not divisible by accum_steps {k}")
+        xs = x_raw.reshape((k, b // k) + tuple(x_raw.shape[1:]))
+        ys = y_raw.reshape((k, b // k) + tuple(y_raw.shape[1:]))
+        acc = [torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+               for w in weights]
+        loss = torch.zeros((), dtype=torch.float32, device=x_raw.device)
+        for i in range(k):
+            part, grads = self._micro(xs[i], ys[i], weights, leaves, subs)
+            torch._foreach_add_(acc, [g.float() for g in grads])
+            loss = loss + part.float()
+            del grads
+        torch._foreach_div_(acc, float(k))
+        return loss / k, [a if w.dtype == torch.float32 else a.to(w.dtype)
+                          for a, w in zip(acc, weights)]
+
     def _step_body(self, x_raw, y_raw):
         """The step on the device: ``(loss, skip flag or None)``. The
-        graph a capture records (nothing here touches the host)."""
+        graph a capture records (nothing here touches the host): the
+        loss and gradients (:meth:`_loss_and_grads`), the guard, and one
+        optimizer launch."""
         weights = [h._data for h in self._train_handles]
         auxs = [h._data for h in self._aux_handles]
         if self._aux_before:
             torch._foreach_copy_(self._aux_before, auxs)
-        leaves = [w.detach().requires_grad_(True) for w in weights]
-        with substitute({p: NDArray(leaf)
-                         for p, leaf in zip(self._params, leaves)}), \
-                autograd.record(train_mode=True):
-            out = self._net.forward(NDArray(x_raw))
-            loss = self._loss_fn(out, NDArray(y_raw)).mean()._data
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(w) if g is None else g
-                 for w, g in zip(weights, grads)]
-        loss = loss.detach()
+        loss, grads = self._loss_and_grads(x_raw, y_raw)
         skip = self._non_finite(loss, grads) if self._nan_guard else None
         wds = [self._wd * m for m in self._wd_mult]
         with torch.no_grad():

@@ -11,8 +11,14 @@ states and outputs, ``get_internals`` :189, ``infer_shape`` :258,
 ``tojson`` :597, ``save``), ``_apply_op`` :858, ``var`` :949, ``Group``
 :970, ``load_json`` :993 and ``load`` :1043, over the port's op
 registry. Graph JSON is the JAX package's format both ways (attributes
-as Python literals, ``_attr_str`` / ``_parse_attr``), so a graph written
-by either package loads in the other, calibration floats exactly.
+as Python literals, ``_attr_str`` / ``_parse_attr``, then brought to the
+types of the op's defaults as the JAX schema does, ``_coerce_attrs``), so
+a graph written by either package loads in the other, calibration floats
+exactly. Composition takes variadic ops (``Concat``, ``stack``,
+``add_n``: every positional Symbol), output counts that follow the
+hyper-parameters (``SliceChannel``, ``split_v2``) and the JAX package's
+Symbol arithmetic (``+ - * /`` with a Symbol or a number, ``**``,
+negation).
 
 Evaluation walks the nodes in topological order and calls each op's
 PyTorch function on the tensors (there is no ``jit``: PyTorch runs
@@ -133,6 +139,38 @@ def _parse_attr(s):
         return s
 
 
+_BOOL_TEXT = {"true": True, "false": False, "1": True, "0": False}
+
+
+def _coerce_attrs(op, attrs):
+    """Node attributes parsed from JSON strings, brought to the types of
+    the op's defaults as the JAX package's schema does
+    (``mxnet_tpu/ops/schema.py`` ``ParamSpec.coerce``): an int where a
+    float is the default becomes a float, 0/1 or ``"true"``/``"false"``
+    where a bool is a bool, a list where a tuple is a tuple, an integral
+    float where an int is an int. ``dtype`` names stay strings."""
+    defaults = {p.name: p.default for p in _sig_params(_registry.get(op))
+                if p.default is not inspect.Parameter.empty}
+    out = {}
+    for k, v in attrs.items():
+        d = defaults.get(k, inspect.Parameter.empty)
+        if _is_dunder(k) or d is inspect.Parameter.empty or d is None:
+            out[k] = v
+        elif isinstance(d, bool):
+            out[k] = _BOOL_TEXT.get(v.lower(), v) if isinstance(v, str) \
+                else bool(v) if isinstance(v, int) else v
+        elif isinstance(d, float) and isinstance(v, int) \
+                and not isinstance(v, bool):
+            out[k] = float(v)
+        elif isinstance(d, int) and isinstance(v, float) and v.is_integer():
+            out[k] = int(v)
+        elif isinstance(d, tuple) and isinstance(v, list):
+            out[k] = tuple(v)
+        else:
+            out[k] = v
+    return out
+
+
 class Symbol:
     """A list of outputs ``(node, out_index)`` over the graph."""
 
@@ -157,11 +195,41 @@ class Symbol:
     def __repr__(self):
         return f"<Symbol {self.name or 'group'}>"
 
+    # ------------------------------------------------------- operators --
+    def _binary(self, other, elemwise_op, scalar_op):
+        if isinstance(other, Symbol):
+            return _apply_op(elemwise_op, [self, other], {})
+        return _apply_op(scalar_op, [self], {"scalar": float(other)})
+
     def __add__(self, other):
-        if not isinstance(other, Symbol):
-            raise TypeError("only Symbol + Symbol (elemwise_add) is ported; "
-                            f"got {type(other).__name__}")
-        return _apply_op("elemwise_add", [self, other], {})
+        return self._binary(other, "elemwise_add", "_plus_scalar")
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary(other, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return self._binary(other, "elemwise_sub", "_rminus_scalar")
+
+    def __mul__(self, other):
+        return self._binary(other, "elemwise_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binary(other, "elemwise_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        return self._binary(other, "elemwise_div", "_rdiv_scalar")
+
+    def __neg__(self):
+        return _apply_op("_mul_scalar", [self], {"scalar": -1.0})
+
+    def __pow__(self, other):
+        if isinstance(other, Symbol):
+            return _apply_op("broadcast_power", [self, other], {})
+        return _apply_op("_power_scalar", [self], {"scalar": other})
 
     # ------------------------------------------------------- graph lists --
     def list_arguments(self):
@@ -287,9 +355,13 @@ class Symbol:
                                      f"({node.op})")
                 shape, dtype = rules[child.name]
                 put_var(child, shape, child.attrs.get("__dtype__", dtype))
+            kwargs = _op_kwargs(node.attrs)
+            if not node.inputs and "ctx" in inspect.signature(
+                    _registry.get(node.op)).parameters:
+                kwargs["ctx"] = meta   # a creation op: shapes only
             outs = _call(*_op(node.op),
                          [vals[id(c), oi] for c, oi in node.inputs],
-                         _op_kwargs(node.attrs), False)
+                         kwargs, False)
             for i, o in enumerate(outs):
                 vals[id(node), i] = o
                 shapes[id(node), i] = tuple(o.shape)
@@ -464,7 +536,7 @@ def _one_context(ctx):
         if len(ctx) != 1:
             raise MXNetError(f"an executor over {len(ctx)} contexts (data "
                              "parallelism over cards) is not ported yet; "
-                             "see ROADMAP.md A4")
+                             "see ROADMAP.md, multi-card data parallelism")
         ctx = ctx[0]
     return ctx if ctx is not None else current_context()
 
@@ -565,10 +637,12 @@ def _apply_op(op_name, args, kwargs):
     layer_params = _LAYER_PARAMS.get(op, {})
     inputs = []
     for p in _sig_params(_registry.get(op)):
-        if p.kind in (inspect.Parameter.VAR_POSITIONAL,
-                      inspect.Parameter.VAR_KEYWORD):
-            raise MXNetError(f"op {op!r} takes variadic inputs, which the "
-                             "port's graph composition does not take")
+        if p.kind is inspect.Parameter.VAR_KEYWORD:
+            continue
+        if p.kind is inspect.Parameter.VAR_POSITIONAL:
+            # *arrays (Concat, stack, add_n): every positional symbol left
+            inputs.extend(pos_syms)
+            continue
         if p.name in _RUNTIME_PARAMS or p.name in static:
             continue
         if p.name in sym_kwargs:
@@ -588,7 +662,7 @@ def _apply_op(op_name, args, kwargs):
     left = list(pos_syms) + list(sym_kwargs)
     if left:
         raise MXNetError(f"op {op!r}: {len(left)} symbol inputs left over")
-    n_out = _registry.num_outputs(op)
+    n_out = _registry.num_outputs(op, len(inputs), static)
     node = _Node(op, name, static, [s._entries[0] for s in inputs], n_out)
     return Symbol([(node, i) for i in range(n_out)])
 
@@ -628,10 +702,12 @@ def load_json(json_str):
         except KeyError:
             raise MXNetError(f"node {rn['name']!r}: op {rn['op']!r} is not "
                              "ported") from None
-        built.append(_Node(op, rn["name"], attrs,
-                           num_outputs=_registry.num_outputs(op)))
+        built.append(_Node(op, rn["name"], _coerce_attrs(op, attrs)))
     for rn, node in zip(raw_nodes, built):
         node.inputs = [(built[i], oi) for i, oi, *_ in rn["inputs"]]
+        if not node.is_var:
+            node.num_outputs = _registry.num_outputs(
+                node.op, len(node.inputs), _op_kwargs(node.attrs))
     heads = data.get("heads")
     entries = [(built[i], oi) for i, oi, *_ in heads] if heads \
         else [(built[-1], 0)]

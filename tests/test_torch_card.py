@@ -32,7 +32,11 @@ run on a machine that has only PyTorch:
 * bfloat16 ``ShardedTrainer`` steps on their routes (K1 over the float32
   tensors and masters, the plain op for bfloat16 weights without
   ``multi_precision``), and a bfloat16 checkpoint saved and resumed on
-  the card bit for bit.
+  the card bit for bit;
+* the causal flash forward and backward at ``transformer_lm``'s
+  GPT-2-small shape against their plain versions, a dropped captured
+  trainer returning its graph pool without a collection (fault C10),
+  and a captured ``remat`` step drawing the eager steps' Dropout masks.
 """
 import math
 
@@ -1456,3 +1460,133 @@ def test_dropout_draws_anew_at_each_replay_on_card(cuda_device):
     for mk in runs[0]:
         share = float(mk.float().mean())
         assert abs(share - 0.5) < 3 * math.sqrt(0.25 / mk.numel())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_causal_flash_at_the_lm_shape_matches_plain_on_card(cuda_device,
+                                                             dtype):
+    """K3 and K3-bwd causal at ``transformer_lm``'s GPT-2-small shape
+    (8, 12, 1024, 1024, 64), on the tensor-core path, against their plain
+    versions (f32 2e-5, bf16 2e-2); the first and the last query tiles
+    (the least and the most causal work) are held on their own too."""
+    b, h, s, d = 8, 12, 1024, 64
+    q, k, v, do = (torch.from_numpy(_rand((b, h, s, d), seed)).to(
+        cuda_device, dtype) for seed in (21, 22, 23, 24))
+    scale = 1 / math.sqrt(d)
+    fwd_paths = dict(flash.flash_forward.launches_by_path)
+    o, lse = flash.flash_forward(q, k, v, scale, True, with_lse=True)
+    dq, dsum = flash.flash_backward_dq(q, k, v, o, lse, do, scale, True)
+    dk, dv = flash.flash_backward_dkv(q, k, v, lse, dsum, do, scale, True)
+    torch.cuda.synchronize()
+    assert flash.flash_forward.launches_by_path["mma"] == \
+        fwd_paths["mma"] + 1
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    want_o = flash.flash_attention_plain(q, k, v, scale, True)
+    torch.testing.assert_close(o.float(), want_o.float(), rtol=tol, atol=tol)
+    for rows in (slice(0, 64), slice(s - 64, s)):
+        torch.testing.assert_close(o[:, :, rows].float(),
+                                   want_o[:, :, rows].float(), rtol=tol,
+                                   atol=tol)
+    want = flash.flash_backward_plain(q, k, v, o, do, scale, True)
+    for g, w in zip((dq, dk, dv), want):
+        torch.testing.assert_close(g.float(), w.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_c10_a_dropped_captured_trainer_returns_its_pool_on_card(
+        cuda_device):
+    """Fault C10: with the cyclic collector off, dropping a captured
+    trainer (and its network) frees its step's graph and memory pool:
+    ``memory_reserved`` falls after ``empty_cache``, with no
+    ``gc.collect``."""
+    import gc
+
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.parallel import DeviceMesh, ShardedTrainer
+
+    def trainer():
+        net = nn.HybridSequential()
+        net.add(nn.Dense(2048, in_units=2048, activation="relu"),
+                nn.Dense(2048, in_units=2048))
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        return ShardedTrainer(net, mx.gluon.loss.L2Loss(), "adam",
+                              {"learning_rate": 1e-3},
+                              mesh=DeviceMesh({"dp": 1}))
+
+    x = mx.nd.array(_rand((4096, 2048), 31), ctx=mx.gpu(0))
+    gc.collect()
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_reserved()
+        st = trainer()
+        for _ in range(3):   # eager first call, capture, replays
+            st.step(x, x)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_reserved()
+        pools = st._step_fn.stats()["entries"]
+        del st
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        after = torch.cuda.memory_reserved()
+    finally:
+        if was:
+            gc.enable()
+    assert pools and pools[0]["kind"] == "forward"
+    assert held - base > 64 << 20
+    assert after - base < (held - base) / 8, (base, held, after)
+
+
+@pytest.mark.gpu
+def test_a_captured_remat_step_draws_the_eager_steps_dropout_masks_on_card(
+        cuda_device):
+    """``transformer_lm``'s LM (2 small causal cells, Dropout 0.1) with
+    ``remat=True``: three captured steps (the first eager, then a
+    capture and two replays, the recomputed forward drawing from the
+    recomputation state) against three eager ``remat=True`` steps and
+    three eager ``remat=False`` steps from the same weights and seed: the
+    same losses and weights, bit for bit, so every recomputed Dropout
+    mask was the forward's."""
+    from chip_smoke import build_lm
+    from mxnet_tpu_torch import compile as mxc
+    from mxnet_tpu_torch.parallel import ShardedTrainer
+
+    cfg = {"vocab": 96, "units": 64, "hidden": 128, "layers": 2, "heads": 4,
+           "seq_len": 64}
+    rs = np.random.RandomState(3)
+    xs = [(mx.nd.array(rs.randint(0, 96, (4, 64)).astype(np.float32),
+                       ctx=mx.gpu(0)),
+           mx.nd.array(rs.randint(0, 96, (4, 64)).astype(np.float32),
+                       ctx=mx.gpu(0))) for _ in range(3)]
+    ref = None
+    runs = []
+    for remat, captured in ((True, True), (True, False), (False, False)):
+        net, adapter, loss = build_lm(mx, cfg, dropout=0.1, ctx=mx.gpu(0))
+        net.initialize(mx.init.Xavier(), ctx=mx.gpu(0))
+        net(xs[0][0], mx.nd.arange(64, ctx=mx.gpu(0)))
+        if ref is None:
+            ref = {n: p.data().asnumpy()
+                   for n, p in net._collect_params_with_structure().items()}
+        for n, p in net._collect_params_with_structure().items():
+            p.set_data(mx.nd.array(ref[n], ctx=mx.gpu(0)))
+        st = ShardedTrainer(adapter, loss, "adam", {"learning_rate": 1e-3},
+                            remat=remat)
+        prev = mxc.set_enabled(captured)
+        try:
+            mx.random.seed(5)
+            losses = [float(st.step(x, y).asscalar()) for x, y in xs]
+        finally:
+            mxc.set_enabled(prev)
+        if captured:
+            assert st._step_fn.stats()["replays"] == 2
+        runs.append((losses, {n: p.data().asnumpy() for n, p in
+                              net._collect_params_with_structure().items()}))
+    for losses, params in runs[1:]:
+        assert losses == runs[0][0]
+        for n in params:
+            np.testing.assert_array_equal(params[n], runs[0][1][n],
+                                          err_msg=n)

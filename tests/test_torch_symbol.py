@@ -90,3 +90,153 @@ def test_traced_encoder_lists_and_shapes_match_jax():
         final = clf(mx.nd.array(x)).asnumpy()
     assert len(outs) == len(port.get_internals().list_outputs())
     np.testing.assert_array_equal(outs[-1].asnumpy(), final)
+
+
+# ------------------------------------------------- the tensor/math ops ----
+
+def _new_ops_graph(sym):
+    """A graph of this slice's ops: aliases, callable output counts
+    (SliceChannel, split_v2), variadic inputs (Concat, add_n), ops with
+    no gradient (argmax, topk) and the scalar family."""
+    data, other = sym.var("data"), sym.var("other")
+    a = sym.broadcast_add(data, other, name="badd")
+    b = sym.clip(a, a_min=-0.5, a_max=0.75, name="clip")
+    c = sym._mul_scalar(b, scalar=2.0, name="twice")
+    parts = sym.SliceChannel(c, num_outputs=2, axis=1, name="halves")
+    d = sym.Concat(parts[1], parts[0], sym.tanh(c, name="t"), dim=1,
+                   name="cat")
+    e = sym.sum(d, axis=1, keepdims=True, name="s")
+    f = sym.topk(d, k=2, ret_typ="value", name="top")
+    g = sym.expand_dims(sym.argmax(d, axis=1, name="am"), axis=1,
+                        name="ed")
+    h = sym.split_v2(d, indices=(1, 3), axis=1, name="sp")
+    i = sym.add_n(h[0], sym._greater_scalar(h[0], scalar=0.0, name="gt"),
+                  name="an")
+    j = sym.Cast(sym.one_hot(sym.argmax(other, axis=1, name="am2"),
+                             depth=5, name="oh"), dtype="int32", name="c32")
+    k = sym.SequenceMask(sym.swapaxes(d, dim1=0, dim2=1, name="sw"),
+                         name="sm")
+    return sym.Group([e, f, g, i, h[2], j, k])
+
+
+def _feeds():
+    rs = np.random.RandomState(3)
+    return {"data": rs.randn(3, 4).astype(np.float32),
+            "other": rs.randn(1, 4).astype(np.float32)}
+
+
+def _eval_port(s, feeds):
+    out = s.eval_with({k: mx.nd.array(v, ctx=mx.cpu())
+                       for k, v in feeds.items()})
+    return [o.asnumpy() for o in (out if isinstance(out, list) else [out])]
+
+
+def _eval_jax(s, feeds):
+    out = s.eval_with({k: jmx.nd.array(v) for k, v in feeds.items()})
+    return [o.asnumpy() for o in (out if isinstance(out, list) else [out])]
+
+
+def _same(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.astype(np.float64),
+                                   w.astype(np.float64), rtol=RTOL,
+                                   atol=ATOL)
+
+
+def test_a_jax_graph_of_the_new_ops_loads_and_evaluates_in_the_port():
+    jsym = _new_ops_graph(jmx.sym)
+    psym = mx.sym.load_json(jsym.tojson())
+    assert psym.list_outputs() == jsym.list_outputs()
+    assert psym.list_arguments() == jsym.list_arguments()
+    feeds = _feeds()
+    _same(_eval_port(psym, feeds), _eval_jax(jsym, feeds))
+    _, outs, _ = psym.infer_shape(data=(3, 4), other=(1, 4))
+    assert outs == [tuple(s) for s in jsym.infer_shape(
+        data=(3, 4), other=(1, 4))[1]]
+    _, types, _ = psym.infer_type(data="float32", other="float32")
+    assert [str(t).replace("torch.", "") for t in types] == [
+        np.dtype(t).name for t in jsym.infer_type(data="float32",
+                                                  other="float32")[1]]
+
+
+def test_the_ports_graph_of_the_new_ops_loads_and_evaluates_in_jax():
+    psym = _new_ops_graph(mx.sym)
+    jsym = jmx.sym.load_json(psym.tojson())
+    assert jsym.list_outputs() == psym.list_outputs()
+    assert _nodes(psym) == _nodes(_new_ops_graph(jmx.sym))
+    feeds = _feeds()
+    _same(_eval_jax(jsym, feeds), _eval_port(psym, feeds))
+
+
+def test_mxnet_style_string_attributes_are_parsed_as_the_schema_does():
+    """Attributes as MXNet writes them: numbers, tuples, booleans and
+    None as strings, an int where the default is a float."""
+    graph = {"nodes": [
+        {"op": "null", "name": "x", "inputs": []},
+        {"op": "SliceChannel", "name": "sc", "inputs": [[0, 0, 0]],
+         "attrs": {"num_outputs": "2", "axis": "1",
+                   "squeeze_axis": "False"}},
+        {"op": "_plus_scalar", "name": "p", "inputs": [[1, 1, 0]],
+         "attrs": {"scalar": "2"}},
+        {"op": "clip", "name": "c", "inputs": [[2, 0, 0]],
+         "attrs": {"a_min": "None", "a_max": "2.5"}},
+        {"op": "slice", "name": "sl", "inputs": [[3, 0, 0]],
+         "attrs": {"begin": "(0, None)", "end": "[2, None]",
+                   "step": "(1, -1)"}},
+        {"op": "sort", "name": "so", "inputs": [[4, 0, 0]],
+         "attrs": {"is_ascend": "false"}}],
+        "arg_nodes": [0], "heads": [[5, 0, 0], [1, 0, 0]]}
+    s = mx.sym.load_json(json.dumps(graph))
+    node = s._entries[0][0]
+    assert node.attrs == {"is_ascend": False}
+    assert node.inputs[0][0].attrs["end"] == (2, None)
+    sc = s._entries[1][0]
+    assert sc.num_outputs == 2 and sc.attrs["squeeze_axis"] is False
+    x = np.arange(12, dtype=np.float32).reshape(3, 4)
+    got, first = _eval_port(s, {"x": x})
+    want = np.sort(np.clip(x[:, 2:] + 2.0, None, 2.5)[0:2, ::-1],
+                   axis=-1)[:, ::-1]
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(first, x[:, :2])
+
+
+class _UsesNewOps(mx.gluon.HybridBlock):
+    """``F.<op>`` inside ``hybrid_forward``: aliases, a callable output
+    count and an op with no gradient, eager, hybridized and traced."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        with self.name_scope():
+            self.dense = mx.gluon.nn.Dense(6, flatten=False)
+
+    def hybrid_forward(self, F, x):
+        h = self.dense(x)
+        a, b = F.split(h, num_outputs=2, axis=-1)
+        idx = F.argmax(a, axis=-1, keepdims=True)
+        return F.concat(F.relu(a) * 2.0, F.square(b),
+                        F.broadcast_mul(idx, F.ones_like(b)), dim=-1)
+
+
+def test_ops_through_f_inside_hybrid_forward():
+    x = np.random.RandomState(5).randn(2, 3, 4).astype(np.float32)
+    with mx.cpu():
+        net = _UsesNewOps(prefix="uses_")
+        net.initialize(mx.init.Xavier())
+        xs = mx.nd.array(x)
+        eager = net(xs).asnumpy()
+        xs.attach_grad()
+        with mx.autograd.record():
+            out = net(xs)
+        out.backward()
+        grad = xs.grad.asnumpy()
+        net.hybridize()
+        net(xs)
+        hyb = net(xs).asnumpy()
+        traced = net(mx.sym.var("data"))
+        params = {p.name: p.data() for p in net.collect_params().values()}
+        sym_out = traced.eval_with({"data": xs}, params).asnumpy()
+    np.testing.assert_array_equal(hyb, eager)
+    np.testing.assert_allclose(sym_out, eager, rtol=RTOL, atol=ATOL)
+    assert np.isfinite(grad).all() and np.abs(grad).sum() > 0
