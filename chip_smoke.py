@@ -278,6 +278,38 @@ Phases, each printing one JSON line:
     there beside the plain versions, causal SDPA and the bounds
     (``lm_shape``).
 
+26. native_io (runs right after build): the native IO library
+    (``mxnet_tpu_torch/native``) built on this machine with ``g++``,
+    ``native.status()``, held bit for bit against its plain versions on
+    64 seeded images: RecordIO pack, scan and read, the normalisation,
+    the PNG unfilter (every filter type) and conversion to RGB, Pillow's
+    BILINEAR resample, the augmenter and the fused PNG decode. A JPEG
+    payload must raise naming libjpeg where the build has none. A probe
+    line for a later JPEG decoder: ``os.cpu_count()``, nvJPEG's header
+    and library under the CUDA home, whether ``zlib.h`` and ``jpeglib.h``
+    compile.
+27. imagenet_rec: the cell resnet50_v1_module_fit_rec,
+    ``train_imagenet.py --data-train <rec> --network resnet50_v1`` at the
+    example's defaults: 2,560 PNG records (256 x 341 and 341 x 256
+    smooth random fields with noise, 1000 classes, ``RandomState(0)``)
+    packed here by ``recordio.pack_img`` (seconds, bytes a record), read
+    by ``ImageRecordIter(shuffle, rand_crop, rand_mirror)`` with 4 decode
+    threads and 2 batches of prefetch. The iterator alone (20 batches
+    after 2 warm-ups, at 4 threads and at ``os.cpu_count()``): img/s and
+    ms a batch by stage (read, draws, inflate, unfilter + resample +
+    augment, normalise, the copy to the card). Then ``Module.fit`` with
+    resnet50_v1_module_fit's wiring (executor captured, 13 batches), four
+    fits A B B A: records, synthetic, synthetic, records: the median batch
+    over batches 4-13, img/s, Speedometer's img/s, ``data_wait``, K1 one
+    launch a batch and nothing else, a finite loss. Then the iterator's
+    ``state_dict`` after 5 batches resumes the next 3 bit for bit;
+    ``ShardedTrainer.save_checkpoint``/``resume`` with ``data_iter`` on
+    the ResNet thumbnail gives the same next batches and weights bit for
+    bit (deterministic cuDNN); the first two card batches equal the CPU
+    run over the plain versions. ``--dtype bfloat16`` is left out: a
+    float32 record batch into a bfloat16 graph is refused at bind by the
+    JAX Module and the port's.
+
 The twobit phase also holds the single-tensor compress and the
 decompress in float16 and bfloat16 bit for bit against their plain
 versions (thresholds 0.5 and 0.1) and times them over 109 M elements
@@ -286,7 +318,8 @@ versions (thresholds 0.5 and 0.1) and times them over 109 M elements
 Then the ``{"kernels": [...]}`` line (the tensor-core kernels K3 and
 K3-bwd with their tensor-core bound as ``bound_ms`` and the float32-rate
 one as ``bound_f32_ms``; K1 with its ResNet-50 numbers, those over the
-classifier beside them, its launches in the bfloat16 cells and checks and on the Module path,
+classifier beside them, its launches in the bfloat16 cells and checks, on the Module path and
+on the record-fed Module path,
 its device time inside the bfloat16 steps and the casts' time; K1, K2,
 K3 and K3-bwd with their launches per replayed training graph, K2, K3
 and K3-bwd with their launches per replayed LM step and K3 and K3-bwd
@@ -459,6 +492,31 @@ MODULE_CHECK = {"model": "resnet18_v1", "classes": 10, "batch": 8,
                 "lr": 0.05, "momentum": 0.9, "wd": 1e-4}
 MODULE_CHECK_TOL = {"out": 1e-4, "aux": 1e-4, "step_l2": 0.05}
 
+
+# the data plane's phases. native_io holds the native IO library built on
+# the card's machine against its plain versions on NATIVE_IO["images"]
+# seeded images (sizes as im2rec --resize 256 leaves ImageNet photos, and
+# odd ones), bit for bit. imagenet_rec is the cell
+# resnet50_v1_module_fit_rec: train_imagenet.py --data-train <rec>
+# --network resnet50_v1 at the example's defaults (MODULE_FIT's wiring)
+# over IMAGENET_REC["images"] PNG records packed at run time by the port's
+# pack_img (1000 classes; 256 x 341 landscape and 341 x 256 portrait
+# smooth random fields plus noise, from RandomState(0)), read by
+# ImageRecordIter(shuffle, rand_crop, rand_mirror) with the JAX package's
+# defaults (4 decode threads, 2 batches of prefetch). The cut: 13 batches
+# a fit, as the synthetic cell.
+NATIVE_IO = {"images": 64, "sizes": [(256, 341), (341, 256), (37, 53),
+                                     (64, 48)]}
+IMAGENET_REC = {"images": 2560, "classes": 1000, "landscape": (256, 341),
+                "noise": 4.0, "data_shape": (3, 224, 224), "batch": 128,
+                "threads": 4, "prefetch": 2, "warmup": 2, "timed": 20,
+                "plain_batches": 2, "resume_at": 5, "resume_next": 3,
+                "thumbnail": {"model": "resnet18_v1", "classes": 1000,
+                              "batch": 8, "size": 32, "steps": 3,
+                              "after": 2},
+                "reduced": "2,560 images packed at run time (not the "
+                           "1,281,167 of ImageNet's train set); 13 "
+                           "batches a fit"}
 
 # examples/gluon/transformer_lm.py's defaults, and the same LM at
 # GPT-2-small width (12 layers, 768 units, 3072 FFN, 12 heads, 1024
@@ -4676,8 +4734,9 @@ def _module_fit_once(cfg, net, train, dev):
 
     def probe_batch(param):
         if param.nbatch in (0, cfg["epoch_size"] - 1):
-            probe[param.nbatch] = _softmax_loss(model.get_outputs()[0],
-                                                train._label)
+            probe[param.nbatch] = _softmax_loss(
+                model.get_outputs()[0],
+                param.locals["data_batch"].label[0])
             probe["accuracy"] = dict(
                 param.eval_metric.get_global_name_value())["accuracy"]
 
@@ -5071,6 +5130,477 @@ def _module_resume(card, sym, cfg, x, y):
 
 # ---------------------------------------------------------- transformer_lm --
 
+# ------------------------------------------------------- the data plane --
+
+def _header_found(name, cxx="g++"):
+    """Whether ``#include <name>`` compiles with the host's compiler."""
+    try:
+        proc = subprocess.run([cxx, "-E", "-x", "c++", "-", "-o",
+                               os.devnull], input=f"#include <{name}>\n",
+                              text=True, capture_output=True, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return False
+    return proc.returncode == 0
+
+
+def _nvjpeg_probe():
+    """Where nvJPEG's header and library are under the CUDA home (a probe
+    for a later JPEG decoder on the card; nothing here uses nvJPEG)."""
+    home = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    libs = sorted(str(p) for d in ("lib64", "lib", "targets")
+                  for p in (home / d).rglob("libnvjpeg.so*")) \
+        if home.exists() else []
+    headers = sorted(str(p) for p in home.rglob("nvjpeg.h")) \
+        if home.exists() else []
+    return {"cuda_home": str(home), "nvjpeg_h": headers[:3],
+            "libnvjpeg_so": libs[:3]}
+
+
+def smooth_image(seed, h, w, noise):
+    """A smooth random field (bilinear over a coarse grid of random
+    colours) plus Gaussian noise: PNG compresses it as it does a
+    photograph, not as white noise."""
+    rs = np.random.RandomState(seed)
+    gh, gw = max(2, h // 28), max(2, w // 28)
+    lo = rs.uniform(0, 255, (gh, gw, 3))
+    ay = np.maximum(0, 1 - np.abs(np.linspace(0, gh - 1, h)[:, None]
+                                  - np.arange(gh)[None]))
+    ax = np.maximum(0, 1 - np.abs(np.linspace(0, gw - 1, w)[:, None]
+                                  - np.arange(gw)[None]))
+    f = np.stack([ay @ lo[:, :, c] @ ax.T for c in range(3)], -1)
+    f += rs.normal(0, noise, f.shape)
+    return np.clip(f, 0, 255).astype(np.uint8)
+
+
+def _io_held(name, got, want):
+    """A case of native_io: equal bit for bit, or an AssertionError."""
+    same = all(np.array_equal(a, b) for a, b in zip(got, want)) \
+        if isinstance(got, (list, tuple)) else np.array_equal(got, want)
+    if not same:
+        raise AssertionError(f"native_io: {name} differs from its plain "
+                             "version")
+    return name
+
+
+def phase_native_io():
+    """native_io: the native IO library built here (``native.status()``,
+    the build seconds) held bit for bit against its plain versions on
+    ``NATIVE_IO["images"]`` seeded images: RecordIO pack, scan and read;
+    the float32 normalisation; the PNG unfilter (every filter type, on
+    random scanlines) and conversion to RGB, from the port's encoder too;
+    Pillow's BILINEAR resample; the augmenter; the fused PNG decode. A
+    JPEG payload must raise on a build without libjpeg (or, with it, the
+    JPEG batch decode is held against its plain version). Also a probe
+    for a later PR: the CPU count, whether nvJPEG's header and library
+    are under the CUDA home, and whether zlib.h and jpeglib.h compile."""
+    import zlib
+
+    from mxnet_tpu_torch import native
+
+    t0 = time.perf_counter()
+    st = native.status()
+    build_s = time.perf_counter() - t0
+    if not st["available"]:
+        raise AssertionError(f"native_io: the library did not build: "
+                             f"{st['error']}")
+    cfg = NATIVE_IO
+    rs = np.random.RandomState(0)
+    imgs = [smooth_image(int(rs.randint(1 << 30)), *cfg["sizes"][
+        i % len(cfg["sizes"])], IMAGENET_REC["noise"])
+        for i in range(cfg["images"])]
+    cases = []
+    with tempfile.TemporaryDirectory() as tmp:
+        payloads = [native.png_encode(im, i % 2) for i, im in
+                    enumerate(imgs)]
+        framed = native.recordio_pack(payloads)
+        cases.append(_io_held(
+            "recordio_pack", np.frombuffer(framed, np.uint8),
+            np.frombuffer(native.recordio_pack_plain(payloads), np.uint8)))
+        path = os.path.join(tmp, "x.rec")
+        with open(path, "wb") as f:
+            f.write(framed)
+        scan = native.recordio_scan(path)
+        cases.append(_io_held("recordio_scan", scan,
+                              native.recordio_scan_plain(path)))
+        got = native.recordio_read(path, *scan)
+        if got != payloads or got != native.recordio_read_plain(path,
+                                                                *scan):
+            raise AssertionError("native_io: recordio_read differs")
+        cases.append("recordio_read")
+    crops = [im[:224, :224] for im in imgs if im.shape[0] >= 224]
+    batch = np.stack(crops[:16])
+    mean = np.asarray([123.68, 116.28, 103.53], np.float32)
+    std = np.asarray([58.395, 57.12, 57.375], np.float32)
+    cases.append(_io_held("normalize",
+                          native.normalize_batch(batch, mean, std),
+                          native.normalize_batch_plain(batch, mean, std)))
+    for i, (im, buf) in enumerate(zip(imgs, payloads)):
+        info = native.png_info(buf)
+        raw = zlib.decompress(info.idat)
+        rgb = native.png_to_rgb(raw, info)
+        _io_held("png_to_rgb", rgb, native.png_to_rgb_plain(raw, info))
+        _io_held("png_roundtrip", rgb, im)
+        h, w = im.shape[:2]
+        dh, dw = (252, 252) if h >= 224 else (h + 5, w - 3)
+        oh, ow = (224, 224) if h >= 224 else (h - 4, w - 9)
+        y, x, m = i % (dh - oh + 1), (3 * i) % (dw - ow + 1), i % 2
+        jit = rs.uniform(0.6, 1.4, 3).astype(np.float32) if i % 3 else None
+        sized = native.resample_bilinear(im, dh, dw)
+        _io_held("resample_bilinear", sized,
+                 native.resample_bilinear_plain(im, dh, dw))
+        _io_held("augment", native.augment(sized, y, x, oh, ow, m, jit),
+                 native.augment_plain(sized, y, x, oh, ow, m, jit))
+        _io_held("png_decode_augment", native.png_decode_augment(
+            raw, info, dh, dw, oh, ow, y, x, m, jit),
+            native.augment_plain(native.resample_bilinear_plain(
+                native.png_to_rgb_plain(raw, info), dh, dw), y, x, oh, ow,
+                m, jit))
+    cases += ["png_to_rgb", "resample_bilinear", "augment",
+              "png_decode_augment"]
+    # every filter type: random scanlines, each with a random filter byte
+    for ct, ch in ((2, 3), (6, 4), (0, 1), (4, 2)):
+        h, w = 17, 23
+        raw = bytearray(rs.randint(0, 256, h * (w * ch + 1)).astype(
+            np.uint8).tobytes())
+        for yy in range(h):
+            raw[yy * (w * ch + 1)] = yy % 5
+        info = native.PngInfo(w, h, 8, ct, 0, b"", b"")
+        _io_held(f"png_unfilter_color_type_{ct}", native.png_to_rgb(
+            bytes(raw), info), native.png_to_rgb_plain(bytes(raw), info))
+    cases.append("png_unfilter_all_filter_types")
+    cases.append(_io_held(
+        "png_filter_sub", np.frombuffer(native.png_filter(imgs[0], 1),
+                                        np.uint8),
+        np.frombuffer(native.png_filter_plain(imgs[0], 1), np.uint8)))
+    jpeg = {"built": st["jpeg"]}
+    fake = b"\xff\xd8\xff\xe0" + bytes(64)
+    if not st["jpeg"]:
+        try:
+            native.decode_jpeg_batch([fake], 8, 8)
+        except mx.MXNetError as e:
+            if "libjpeg" not in str(e):
+                raise
+            jpeg["raises"] = str(e)[:120]
+        else:
+            raise AssertionError("native_io: a JPEG payload did not raise "
+                                 "on a build without libjpeg")
+    else:
+        jb = native.jpeg_encode(imgs[0], 90)
+        got, _ = native.decode_jpeg_batch([jb, fake], 64, 80)
+        want, _ = native.decode_jpeg_batch_plain([jb, fake], 64, 80)
+        cases.append(_io_held("decode_jpeg_batch", got, want))
+    probe = {"cpu_count": os.cpu_count(), **_nvjpeg_probe(),
+             "zlib_h": _header_found("zlib.h"),
+             "jpeglib_h": _header_found("jpeglib.h"),
+             "zlib_runtime": __import__("zlib").ZLIB_RUNTIME_VERSION}
+    out = {"phase": "native_io", "status": st, "build_s": build_s,
+           "cases": cases, "images": cfg["images"], "jpeg": jpeg,
+           "probe": probe, "phase_s": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def pack_imagenet_rec(path, cfg, workers=None):
+    """``cfg["images"]`` PNG records from ``RandomState(0)`` through the
+    port's ``recordio.pack_img`` into ``path`` (with its ``.idx``):
+    seconds, bytes a record."""
+    rs = np.random.RandomState(0)
+    n = cfg["images"]
+    seeds = rs.randint(0, 2 ** 31 - 1, n)
+    labels = rs.randint(0, cfg["classes"], n)
+    portrait = rs.rand(n) < 0.5
+    lh, lw = cfg["landscape"]
+
+    def encode(i):
+        h, w = (lw, lh) if portrait[i] else (lh, lw)
+        bgr = smooth_image(int(seeds[i]), h, w, cfg["noise"])[:, :, ::-1]
+        return mx.recordio.pack_img((0, float(labels[i]), i, 0), bgr,
+                                    img_fmt=".png")
+
+    t0 = time.perf_counter()
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(workers or os.cpu_count()) as pool:
+        bodies = list(pool.map(encode, range(n)))
+    writer = mx.recordio.MXIndexedRecordIO(path[:-4] + ".idx", path, "w")
+    for i, body in enumerate(bodies):
+        writer.write_idx(i, body)
+    writer.close()
+    return {"pack_s": time.perf_counter() - t0,
+            "bytes_per_record": float(np.mean([len(b) for b in bodies])),
+            "raw_bytes_per_image": lh * lw * 3, "labels": labels}
+
+
+def _rec_iter(path, cfg, ctx, threads=None, **over):
+    kw = dict(path_imgrec=path, data_shape=cfg["data_shape"],
+              batch_size=cfg["batch"], shuffle=True, rand_crop=True,
+              rand_mirror=True, preprocess_threads=threads or cfg["threads"],
+              prefetch_buffer=cfg["prefetch"], ctx=ctx)
+    kw.update(over)
+    return mx.io.ImageRecordIter(**kw)
+
+
+def _iterator_alone(path, cfg, threads):
+    """The iterator by itself on the card: ``timed`` batches after
+    ``warmup`` (an epoch's end resets it, as fit does), img/s, and each
+    stage's ms a batch (median; the decode threads' sums, and those
+    divided by the threads: the wall time the stage would take alone)."""
+    it = _rec_iter(path, cfg, mx.gpu(0), threads)
+
+    def batch():
+        try:
+            return it.next()
+        except StopIteration:
+            it.reset()
+            return it.next()
+
+    for _ in range(cfg["warmup"]):
+        batch()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(cfg["timed"]):
+        b = batch()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    x = b.data[0]
+    if tuple(x.shape) != (cfg["batch"],) + tuple(cfg["data_shape"]) or \
+            not torch.isfinite(x._data).all():
+        raise AssertionError(f"imagenet_rec: a batch of {x.shape}")
+    rows = it.stage_ms()[cfg["warmup"]:]
+    keys = ("read", "draws", "inflate", "decode", "normalize",
+            "records_wall", "produce", "h2d")
+    med = {k: statistics.median(r.get(k, 0.0) for r in rows) for k in keys}
+    threaded = ("read", "draws", "inflate", "decode", "normalize")
+    waits = it.data_wait_ms[cfg["warmup"]:]
+    it.close()
+    return {"threads": threads, "img_per_s": cfg["timed"] * cfg["batch"]
+            / wall, "batch_ms": wall * 1e3 / cfg["timed"],
+            "stage_ms_median": med,
+            "stage_ms_per_thread": {k: med[k] / threads for k in threaded},
+            "data_wait_ms_median": statistics.median(waits),
+            "data_wait_ms_max": max(waits)}
+
+
+def _rec_resume(path, cfg):
+    """An iterator's ``state_dict`` after ``resume_at`` batches, loaded
+    into a new one: its next ``resume_next`` batches are the uninterrupted
+    run's, bit for bit (on the card)."""
+    ref = _rec_iter(path, cfg, mx.gpu(0))
+    want = [ref.next().data[0]._data.clone()
+            for _ in range(cfg["resume_at"] + cfg["resume_next"])]
+    cut = _rec_iter(path, cfg, mx.gpu(0))
+    for _ in range(cfg["resume_at"]):
+        cut.next()
+    state = cut.state_dict()
+    fresh = _rec_iter(path, cfg, mx.gpu(0))
+    fresh.load_state_dict(json.loads(json.dumps(state)))
+    got = [fresh.next().data[0]._data for _ in range(cfg["resume_next"])]
+    if not all(torch.equal(a, b) for a, b in zip(got, want[
+            cfg["resume_at"]:])):
+        raise AssertionError("imagenet_rec: the resumed iterator's batches "
+                             "differ from the uninterrupted run's")
+    for it in (ref, cut, fresh):
+        it.close()
+    return {"state": state, "batches_equal": cfg["resume_next"]}
+
+
+def _trainer_resume(path, cfg):
+    """``ShardedTrainer.save_checkpoint(data_iter=)`` / ``resume(data_iter=)``
+    on the ResNet thumbnail over the records, deterministic cuDNN: after
+    ``steps`` steps the run checkpoints and takes ``after`` more; a fresh
+    trainer resumed from the manager gets the same next batch and, after
+    the same steps, the same weights, bit for bit."""
+    from mxnet_tpu_torch import checkpoint
+
+    th = cfg["thumbnail"]
+    shape = (3, th["size"], th["size"])
+    dev = mx.gpu(0)
+
+    def make():
+        net = vision.get_model(th["model"], classes=th["classes"],
+                               thumbnail=True)
+        net.initialize(mx.init.Xavier(), ctx=dev,
+                       generator=torch.Generator().manual_seed(0))
+        net(mx.nd.zeros((1,) + shape, ctx=dev))
+        it = _rec_iter(path, cfg, dev, data_shape=shape,
+                       batch_size=th["batch"])
+        return _resnet_trainer(net, dev, False), it
+
+    def step(st, it):
+        b = it.next()
+        st.step(b.data[0], b.label[0])
+        return b.data[0]._data.clone()
+
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            manager = checkpoint.CheckpointManager(tmp, keep=2)
+            run, it = make()
+            for _ in range(th["steps"]):
+                step(run, it)
+            run.save_checkpoint(manager, epoch=1, data_iter=it)
+            nxt = [step(run, it) for _ in range(th["after"])]
+            final = {k: t.clone() for k, t in run._state_tensors().items()}
+            fresh, it2 = make()
+            entry = fresh.resume(manager, data_iter=it2)
+            got = [step(fresh, it2) for _ in range(th["after"])]
+            after = fresh._state_tensors()
+            it.close()
+            it2.close()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    same_batch = all(torch.equal(a, b) for a, b in zip(got, nxt))
+    same_state = set(after) == set(final) and all(
+        torch.equal(after[k], final[k]) for k in final)
+    if not (same_batch and same_state):
+        raise AssertionError(f"imagenet_rec: trainer resume with data_iter: "
+                             f"batches equal {same_batch}, state equal "
+                             f"{same_state}")
+    return {"data_state": entry["meta"]["data_state"],
+            "next_batches_equal": th["after"], "state_equal": True,
+            "tensors": len(final)}
+
+
+def _first_batches_equal_plain(path, cfg):
+    """The card iterator's first ``plain_batches`` batches against the
+    same iterator with ``ctx=mx.cpu()`` over the plain versions, bit for
+    bit."""
+    from mxnet_tpu_torch import native
+
+    card = _rec_iter(path, cfg, mx.gpu(0))
+    got = [card.next() for _ in range(cfg["plain_batches"])]
+    got = [(b.data[0].asnumpy(), b.label[0].asnumpy()) for b in got]
+    card.close()
+    t0 = time.perf_counter()
+    with native.plain_versions():
+        cpu = _rec_iter(path, cfg, mx.cpu())
+        want = [cpu.next() for _ in range(cfg["plain_batches"])]
+        want = [(b.data[0].asnumpy(), b.label[0].asnumpy()) for b in want]
+        cpu.close()
+    if not all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+               for a, b in zip(got, want)):
+        raise AssertionError("imagenet_rec: the card's first batches differ "
+                             "from the CPU run over the plain versions")
+    return {"batches_equal": cfg["plain_batches"],
+            "plain_s": time.perf_counter() - t0}
+
+
+def phase_imagenet_rec(smi):
+    """imagenet_rec, the cell resnet50_v1_module_fit_rec:
+    ``train_imagenet.py --data-train <rec> --network resnet50_v1`` at the
+    example's defaults over PNG records packed here (``IMAGENET_REC``).
+    The iterator alone (4 decode threads, then ``os.cpu_count()``): img/s
+    and ms a batch by stage. ``Module.fit`` as resnet50_v1_module_fit
+    wires it (``MODULE_FIT``, the executor captured), 13 batches, four
+    fits A B B A: records, synthetic, synthetic, records; each the median
+    batch ms over batches 4-13, img/s, Speedometer's img/s, the ms
+    ``next()`` waited (``data_wait``), launches (K1 one a batch, nothing
+    else) and a finite loss. Then the iterator's ``state_dict`` resume,
+    the trainer's checkpoint with ``data_iter``, and the first batches
+    against the CPU run over the plain versions. The bfloat16 run is left
+    out: a float32 record batch into a bfloat16 graph is refused at bind
+    by the JAX Module and by the port's (tests/
+    test_torch_image_record_iter.py)."""
+    t_phase = time.perf_counter()
+    cfg = IMAGENET_REC
+    mcfg = MODULE_FIT
+    dev = mx.gpu(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train.rec")
+        packed = pack_imagenet_rec(path, cfg)
+        labels = packed.pop("labels")
+        emit({"phase": "imagenet_rec_pack", **packed,
+              "images": cfg["images"]})
+        alone = [_iterator_alone(path, cfg, cfg["threads"])]
+        if os.cpu_count() != cfg["threads"]:
+            alone.append(_iterator_alone(path, cfg, os.cpu_count()))
+        emit({"phase": "imagenet_rec_iterator", "card": smi,
+              "runs": alone})
+        mx.random.seed(0)
+        net = get_network(mcfg["network"], mcfg["num_classes"],
+                          mcfg["image_shape"])
+        synthetic = SyntheticDataIter(
+            mcfg["num_classes"], (mcfg["batch"],) + tuple(
+                mcfg["image_shape"]), mcfg["epoch_size"])
+        rec = _rec_iter(path, cfg, dev)
+        records = mx.io.ResizeIter(rec, mcfg["epoch_size"])
+        runs = []
+        for source in ("records", "synthetic", "synthetic", "records"):
+            train = records if source == "records" else synthetic
+            waits0 = len(rec.data_wait_ms)
+            mx.random.seed(0)
+            model, log, run = _module_fit_once(mcfg, net, train, dev)
+            want = dict.fromkeys(run["launches"], 0)
+            want["opt_sgd"] = mcfg["epoch_size"]
+            if run["launches"] != want or not all(
+                    v is not None and math.isfinite(v)
+                    for v in run["losses"]) or not log.speeds:
+                raise AssertionError(f"imagenet_rec {source}: launches "
+                                     f"{run['launches']}, losses "
+                                     f"{run['losses']}, Speedometer "
+                                     f"{log.speeds}")
+            if source == "records":
+                waits = rec.data_wait_ms[waits0:]
+                run["data_wait_ms"] = waits
+                run["data_wait_ms_median_timed"] = statistics.median(
+                    waits[mcfg["warmup"]:])
+                run["stage_ms_median"] = {
+                    k: statistics.median(r.get(k, 0.0) for r in rec.stage_ms()[
+                        -mcfg["epoch_size"]:]) for k in (
+                        "inflate", "decode", "normalize", "records_wall",
+                        "produce", "h2d")}
+            run["source"] = source
+            runs.append(run)
+            del model
+            torch.cuda.empty_cache()
+        rec.close()
+        medians = {s: statistics.median(v for r in runs if r["source"] == s
+                                        for v in r["batch_ms"][
+                                            mcfg["warmup"] - 1:])
+                   for s in ("records", "synthetic")}
+        rec_runs = [r for r in runs if r["source"] == "records"]
+        wait = statistics.median(v for r in rec_runs
+                                 for v in r["data_wait_ms"][mcfg["warmup"]:])
+        resume = _rec_resume(path, cfg)
+        trainer_resume = _trainer_resume(path, cfg)
+        plain = _first_batches_equal_plain(path, cfg)
+    out = {"phase": "imagenet_rec", "cell": "resnet50_v1_module_fit_rec",
+           "card": smi, "config": cfg, "module_config": mcfg,
+           "source": "examples/image_classification/train_imagenet.py "
+                     "--data-train <packed .rec> --network resnet50_v1",
+           "label_classes_present": int(len(np.unique(labels))),
+           "iterator_alone": alone,
+           "iterator_img_per_s_4_threads": alone[0]["img_per_s"],
+           "abba_order": [r["source"] for r in runs],
+           "median_batch_ms": medians["records"],
+           "median_batch_ms_synthetic": medians["synthetic"],
+           "record_batch_excess": medians["records"] / medians["synthetic"]
+           - 1, "img_per_s": mcfg["batch"] / (medians["records"] / 1e3),
+           "img_per_s_synthetic": mcfg["batch"]
+           / (medians["synthetic"] / 1e3),
+           "block_medians_ms": {s: [r["median_batch_ms"] for r in runs
+                                    if r["source"] == s]
+                                for s in ("records", "synthetic")},
+           "speedometer_img_per_s": [r["speedometer_img_per_s"]
+                                     for r in runs],
+           "data_wait_ms_median": wait,
+           "data_wait_share": wait / medians["records"],
+           "records_stage_ms_median": [r["stage_ms_median"]
+                                       for r in rec_runs],
+           "launches": rec_runs[0]["launches"],
+           "k1_tensors_by_path": rec_runs[0]["k1_tensors_by_path"],
+           "losses": [r["losses"] for r in runs],
+           "max_memory_allocated": rec_runs[0]["max_memory_allocated"],
+           "iterator_resume": resume, "trainer_resume": trainer_resume,
+           "plain_check": plain,
+           "bfloat16": "left out: refused at bind by both packages",
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    del net, synthetic
+    torch.cuda.empty_cache()
+    return out
+
+
 def _lm_build(cfg, dev, dropout=0.0):
     """``build_lm`` on ``dev``: Xavier weights from ``mx.random.seed(0)``,
     deferred shapes resolved by one forward of a single window."""
@@ -5412,7 +5942,8 @@ PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "dist_train", "resnet_check", "resnet50_v1_train",
           "resnet50_v1_infer_bf16", "resnet50_v1_train_bf16",
           "resnet50_v1_train_bf16_mp", "resnet_check_bf16", "resnet_resume",
-          "resnet50_v1_module_fit", "module_check", "transformer_lm")
+          "resnet50_v1_module_fit", "module_check", "transformer_lm",
+          "native_io", "imagenet_rec")
 
 
 def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
@@ -5448,6 +5979,8 @@ def main(argv=None):
     smi = dev["nvidia_smi"]
     phase_build()
     done = {}
+    if "native_io" in phases:
+        done["native_io"] = phase_native_io()
     if "flash" in phases:
         done["flash"] = phase_flash()
     if "serve" in phases:
@@ -5527,6 +6060,8 @@ def main(argv=None):
         done["module_check"] = phase_module_check()
     if "transformer_lm" in phases:
         done["transformer_lm"] = phase_transformer_lm(smi)
+    if "imagenet_rec" in phases:
+        done["imagenet_rec"] = phase_imagenet_rec(smi)
     if not set(PHASES) <= set(done):
         print(f"phases run: {sorted(done)}; no result line", flush=True)
         return 1
@@ -5614,6 +6149,9 @@ def main(argv=None):
         # this slice: Module.fit (one launch a batch through the local
         # kvstore's update_multi) and the Module checks
         launches_resnet50_v1_module_fit=done["resnet50_v1_module_fit"][
+            "launches"]["opt_sgd"],
+        # this slice: Module.fit fed by ImageRecordIter over PNG records
+        launches_resnet50_v1_module_fit_rec=done["imagenet_rec"][
             "launches"]["opt_sgd"],
         launches_module_check=done["module_check"],
         # this slice: one launch per replayed step of each ResNet-50 cell

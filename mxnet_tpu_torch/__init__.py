@@ -29,7 +29,11 @@ from . import symbol
 from . import symbol as sym
 from . import executor
 from . import gluon
+from . import native
+from . import recordio
 from . import io
+from . import image
+from . import image as img
 from . import model
 from . import contrib
 from . import lr_scheduler
@@ -51,7 +55,8 @@ from . import module as mod
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "autograd", "random", "nd", "ndarray",
            "NDArray", "initializer", "init", "kernels", "name", "symbol",
-           "sym", "gluon", "io", "model", "contrib", "lr_scheduler",
-           "optimizer", "kvstore", "kv", "parallel", "serving", "convert",
-           "checkpoint", "compile", "cached_op", "executor", "metric",
-           "callback", "monitor", "module", "mod", "__version__"]
+           "sym", "gluon", "io", "native", "recordio", "image", "img",
+           "model", "contrib", "lr_scheduler", "optimizer", "kvstore", "kv",
+           "parallel", "serving", "convert", "checkpoint", "compile",
+           "cached_op", "executor", "metric", "callback", "monitor",
+           "module", "mod", "__version__"]

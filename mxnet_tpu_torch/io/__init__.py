@@ -1,4 +1,10 @@
-"""``mx.io``: data iterators (the in-memory ones, so far)."""
-from .io import DataBatch, DataDesc, DataIter, NDArrayIter
+"""``mx.io``: data iterators."""
+from .io import (CSVIter, DataBatch, DataDesc, DataIter, DeviceStager,
+                 ImageRecordIter, LibSVMIter, MNISTIter, NDArrayIter,
+                 PrefetchingIter, ResizeIter, TokenRecordIter,
+                 write_token_shard)
 
-__all__ = ["DataBatch", "DataDesc", "DataIter", "NDArrayIter"]
+__all__ = ["DataBatch", "DataDesc", "DataIter", "NDArrayIter", "ResizeIter",
+           "PrefetchingIter", "MNISTIter", "CSVIter", "LibSVMIter",
+           "ImageRecordIter", "TokenRecordIter", "DeviceStager",
+           "write_token_shard"]

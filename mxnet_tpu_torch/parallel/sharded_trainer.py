@@ -76,9 +76,8 @@ the step's entry key, as in the JAX trainer's (:386).
 
 Not ported yet, and refused with :class:`MXNetError` where the JAX
 package would accept them: ``zero``, ``donate=False``, sharding ``rules``, meshes of more than one device,
-``data_iter=`` of ``save_checkpoint``/``resume`` (no port iterator has a
-``state_dict``), ``reshard=`` of ``resume`` (one device has nothing to
-reshard), and the model-bus, warmup/AOT and telemetry methods.
+``reshard=`` of ``resume`` (one device has nothing to reshard), and the
+model-bus, warmup/AOT and telemetry methods.
 """
 from __future__ import annotations
 
@@ -624,12 +623,15 @@ class ShardedTrainer:
     def save_checkpoint(self, manager, epoch, meta=None, data_iter=None):
         """Write the trainer's state through a ``checkpoint.
         CheckpointManager`` (atomic write, CRC-checked manifest entry with
-        ``meta.topology``, keep-N rotation). Returns ``{name: path}``."""
-        if data_iter is not None:
-            raise _not_ported("data_iter= (an iterator's state_dict)")
+        ``meta.topology``, keep-N rotation). ``data_iter`` (an iterator
+        with ``state_dict()``: ImageRecordIter, TokenRecordIter,
+        NDArrayIter, PrefetchingIter) has its stream position recorded as
+        ``meta.data_state``. Returns ``{name: path}``."""
         payload = self._state_payload()
         meta = dict(meta or {})
         meta.setdefault("topology", self.topology_meta())
+        if data_iter is not None and "data_state" not in meta:
+            meta["data_state"] = data_iter.state_dict()
         return manager.save(
             epoch, {"states": lambda tmp: _nd_utils.save(tmp, payload)},
             step=self._t, meta=meta)
@@ -639,16 +641,19 @@ class ShardedTrainer:
         newest file falls back to the previous good one). Returns the
         manifest entry, or None when none is recorded. A checkpoint from
         any mesh of either package loads: its arrays are in host
-        layout."""
+        layout. ``data_iter`` is set to the entry's ``meta.data_state``
+        where it has one: the next batch is the first one the saved run
+        had not seen."""
         if reshard is not None:
             raise _not_ported("reshard= (a mesh of one device)")
-        if data_iter is not None:
-            raise _not_ported("data_iter= (an iterator's state_dict)")
         res = manager.resume()
         if res is None:
             return None
         entry, paths = res
         self.load_states(paths["states"])
+        data_state = (entry.get("meta") or {}).get("data_state")
+        if data_iter is not None and data_state is not None:
+            data_iter.load_state_dict(data_state)
         return entry
 
     warmup = _unported_method("warmup", "warmup (AOT compile)")

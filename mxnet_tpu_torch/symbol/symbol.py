@@ -460,6 +460,7 @@ class Symbol:
             {k: tuple(v) for k, v in shapes.items()},
             {k: canonical_dtype(v) for k, v in type_dict.items()},
             fallback)
+        _check_conv_dtypes(self._entries, types)
         device = ctx.torch_device()
 
         def alloc(names):
@@ -524,6 +525,22 @@ class Symbol:
     def save(self, fname):
         with open(fname, "w") as f:
             f.write(self.tojson())
+
+
+def _check_conv_dtypes(entries, types):
+    """Refuse, at bind, a convolution whose inputs differ in dtype (float32
+    data into a bfloat16 graph), as the JAX package's graph verification
+    does: ``lax.conv_general_dilated`` takes one dtype."""
+    for node in _topo(entries):
+        if node.op not in ("Convolution", "Deconvolution"):
+            continue
+        dts = [types[id(c), oi] for c, oi in node.inputs
+               if (id(c), oi) in types]
+        if len(set(dts)) > 1:
+            raise MXNetError(
+                f"graph verification failed: node {node.name!r} (op "
+                f"{node.op}): its inputs must have one dtype, got "
+                f"{', '.join(dtype_name(d) for d in dts)}")
 
 
 def _one_context(ctx):

@@ -1590,3 +1590,66 @@ def test_a_captured_remat_step_draws_the_eager_steps_dropout_masks_on_card(
         for n in params:
             np.testing.assert_array_equal(params[n], runs[0][1][n],
                                           err_msg=n)
+
+
+@pytest.mark.gpu
+def test_native_io_build_holds_its_plain_versions(cuda_device, tmp_path):
+    """The native IO library as built on the card's machine: each entry
+    point bit for bit against its plain version; a JPEG payload raises
+    naming libjpeg where the build has none; the card's ImageRecordIter
+    batches (pinned copies on the consumer's stream) equal the CPU run over
+    the plain versions."""
+    import zlib
+
+    from chip_smoke import smooth_image
+    from mxnet_tpu_torch import native
+
+    st = native.status()
+    assert st["available"], st["error"]
+    rs = np.random.RandomState(1)
+    imgs = [smooth_image(int(rs.randint(1 << 30)), h, w, 4.0)
+            for h, w in ((64, 85), (85, 64), (31, 47))]
+    for i, im in enumerate(imgs):
+        buf = native.png_encode(im, i % 2)
+        info = native.png_info(buf)
+        raw = zlib.decompress(info.idat)
+        assert np.array_equal(native.png_to_rgb(raw, info), im)
+        assert np.array_equal(native.png_to_rgb_plain(raw, info), im)
+        h, w = im.shape[:2]
+        assert np.array_equal(native.resample_bilinear(im, h - 5, w + 3),
+                              native.resample_bilinear_plain(im, h - 5,
+                                                             w + 3))
+        jit = np.asarray([0.8, 1.0, 1.2], np.float32)
+        assert np.array_equal(
+            native.png_decode_augment(raw, info, 40, 40, 32, 32, 3, 5, 1,
+                                      jit),
+            native.augment_plain(native.resample_bilinear_plain(
+                im, 40, 40), 3, 5, 32, 32, True, jit))
+    batch = np.stack([im[:31, :47] for im in imgs])
+    mean = np.asarray([1.0, 2.0, 3.0], np.float32)
+    std = np.asarray([58.4, 57.1, 57.4], np.float32)
+    assert np.array_equal(native.normalize_batch(batch, mean, std),
+                          native.normalize_batch_plain(batch, mean, std))
+    if not st["jpeg"]:
+        with pytest.raises(mx.MXNetError, match="libjpeg"):
+            native.decode_jpeg_batch([b"\xff\xd8\xff\xe0" + bytes(32)], 8, 8)
+    path = str(tmp_path / "r.rec")
+    w = mx.recordio.MXIndexedRecordIO(path[:-4] + ".idx", path, "w")
+    for i in range(12):
+        w.write_idx(i, mx.recordio.pack_img(
+            (0, float(i), i, 0), smooth_image(i, 40 + i, 50 - i, 4.0),
+            img_fmt=".png"))
+    w.close()
+    kw = dict(path_imgrec=path, data_shape=(3, 32, 32), batch_size=4,
+              shuffle=True, rand_crop=True, rand_mirror=True,
+              color_jitter=0.2, mean_r=123.0, std_b=57.0)
+    card = [(b.data[0], b.label[0]) for b in mx.io.ImageRecordIter(
+        ctx=mx.gpu(0), **kw)]
+    assert all(d.context == mx.gpu(0) for d, _ in card)
+    with native.plain_versions():
+        cpu = [(b.data[0].asnumpy(), b.label[0].asnumpy())
+               for b in mx.io.ImageRecordIter(ctx=mx.cpu(), **kw)]
+    assert len(card) == len(cpu) == 3
+    for (d, lb), (dc, lc) in zip(card, cpu):
+        assert np.array_equal(d.asnumpy(), dc)
+        assert np.array_equal(lb.asnumpy(), lc)

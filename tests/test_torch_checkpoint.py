@@ -304,14 +304,28 @@ def test_resume_is_bit_exact_against_an_uninterrupted_run(tmp_path):
 
 
 def test_data_iter_and_reshard_stay_refused(tmp_path):
+    """``reshard=`` stays refused; ``data_iter=`` is ported (the data
+    plane's iterators have ``state_dict``): the checkpoint carries the
+    stream position and resume restores it."""
     _, st = _port_trainer()
     manager = ckpt.CheckpointManager(tmp_path)
-    for call in (lambda: st.save_checkpoint(manager, 0, data_iter=[]),
-                 lambda: st.resume(manager, data_iter=[]),
-                 lambda: st.resume(manager, reshard=True)):
-        with pytest.raises(mx.MXNetError, match="ROADMAP.md section A"):
-            call()
+    with pytest.raises(mx.MXNetError, match="ROADMAP.md section A"):
+        st.resume(manager, reshard=True)
     assert st.resume(manager) is None
+    with mx.cpu():
+        it = mx.io.NDArrayIter(np.arange(12, dtype=np.float32).reshape(
+            12, 1), batch_size=3, shuffle=True,
+            rng=np.random.RandomState(0))
+        it.next()
+        st.save_checkpoint(manager, 0, data_iter=it)
+        rest = [b.data[0].asnumpy() for b in it]
+        fresh = mx.io.NDArrayIter(np.arange(12, dtype=np.float32).reshape(
+            12, 1), batch_size=3)
+        entry = st.resume(manager, data_iter=fresh)
+        assert entry["meta"]["data_state"]["kind"] == "NDArrayIter"
+        got = [b.data[0].asnumpy() for b in fresh]
+    assert len(got) == len(rest) == 3
+    assert all(np.array_equal(a, b) for a, b in zip(got, rest))
 
 
 def test_a_process_with_only_the_port_reads_a_jax_checkpoint(tmp_path):
