@@ -294,14 +294,18 @@ Phases, each printing one JSON line:
     smooth random fields with noise, 1000 classes, ``RandomState(0)``)
     packed here by ``recordio.pack_img`` (seconds, bytes a record), read
     by ``ImageRecordIter(shuffle, rand_crop, rand_mirror)`` with 4 decode
-    threads and 2 batches of prefetch. The iterator alone (20 batches
-    after 2 warm-ups, at 4 threads and at ``os.cpu_count()``): img/s and
-    ms a batch by stage (read, draws, inflate, unfilter + resample +
-    augment, normalise, the copy to the card). Then ``Module.fit`` with
-    resnet50_v1_module_fit's wiring (executor captured, 13 batches), four
-    fits A B B A: records, synthetic, synthetic, records: the median batch
-    over batches 4-13, img/s, Speedometer's img/s, ``data_wait``, K1 one
-    launch a batch and nothing else, a finite loss. Then the iterator's
+    threads and 2 batches of prefetch. The iterator alone (3 readings
+    of 20 batches after 2 warm-ups, at 4 threads and at
+    ``os.cpu_count()``; one of 4 batches at 1 thread, each stage's cost
+    without contention): img/s and ms a batch by stage (read, draws,
+    inflate, unfilter + resample + augment, normalise, the copy to the
+    card). Then ``Module.fit`` with resnet50_v1_module_fit's wiring
+    (executor captured), 60 batches a fit (three passes over the
+    records), four fits A B B A: records, synthetic, synthetic, records:
+    over batches 4-60, all images over all wall time (img/s), the mean
+    batch, the share of that time ``next()`` waited (``data_wait``),
+    Speedometer's img/s, K1 one launch a batch and nothing else, a
+    finite loss. Then the iterator's
     ``state_dict`` after 5 batches resumes the next 3 bit for bit;
     ``ShardedTrainer.save_checkpoint``/``resume`` with ``data_iter`` on
     the ResNet thumbnail gives the same next batches and weights bit for
@@ -503,20 +507,24 @@ MODULE_CHECK_TOL = {"out": 1e-4, "aux": 1e-4, "step_l2": 0.05}
 # pack_img (1000 classes; 256 x 341 landscape and 341 x 256 portrait
 # smooth random fields plus noise, from RandomState(0)), read by
 # ImageRecordIter(shuffle, rand_crop, rand_mirror) with the JAX package's
-# defaults (4 decode threads, 2 batches of prefetch). The cut: 13 batches
-# a fit, as the synthetic cell.
+# defaults (4 decode threads, 2 batches of prefetch). The cut: 60 batches
+# a fit (3 warm-up, 57 timed; three passes over the records, so the
+# prefetched batches drain and the producer's pace shows), for the
+# synthetic batch too in this phase.
 NATIVE_IO = {"images": 64, "sizes": [(256, 341), (341, 256), (37, 53),
                                      (64, 48)]}
 IMAGENET_REC = {"images": 2560, "classes": 1000, "landscape": (256, 341),
                 "noise": 4.0, "data_shape": (3, 224, 224), "batch": 128,
                 "threads": 4, "prefetch": 2, "warmup": 2, "timed": 20,
+                "reps": 3, "alone_timed": 4, "fit_batches": 60,
                 "plain_batches": 2, "resume_at": 5, "resume_next": 3,
                 "thumbnail": {"model": "resnet18_v1", "classes": 1000,
                               "batch": 8, "size": 32, "steps": 3,
                               "after": 2},
                 "reduced": "2,560 images packed at run time (not the "
-                           "1,281,167 of ImageNet's train set); 13 "
-                           "batches a fit"}
+                           "1,281,167 of ImageNet's train set); 60 "
+                           "batches a fit (three passes over the set), "
+                           "not 10009"}
 
 # examples/gluon/transformer_lm.py's defaults, and the same LM at
 # GPT-2-small width (12 layers, 768 units, 3072 FFN, 12 heads, 1024
@@ -5236,7 +5244,13 @@ def phase_native_io():
                           native.normalize_batch_plain(batch, mean, std)))
     for i, (im, buf) in enumerate(zip(imgs, payloads)):
         info = native.png_info(buf)
-        raw = zlib.decompress(info.idat)
+        if info._replace(idat=bytes(info.idat)) != native.png_info_plain(
+                buf):
+            raise AssertionError("native_io: png_info differs from its "
+                                 "plain version")
+        raw = native.png_inflate(info)
+        _io_held("png_inflate", np.frombuffer(raw, np.uint8), np.frombuffer(
+            zlib.decompress(info.idat), np.uint8))
         rgb = native.png_to_rgb(raw, info)
         _io_held("png_to_rgb", rgb, native.png_to_rgb_plain(raw, info))
         _io_held("png_roundtrip", rgb, im)
@@ -5255,8 +5269,8 @@ def phase_native_io():
             native.augment_plain(native.resample_bilinear_plain(
                 native.png_to_rgb_plain(raw, info), dh, dw), y, x, oh, ow,
                 m, jit))
-    cases += ["png_to_rgb", "resample_bilinear", "augment",
-              "png_decode_augment"]
+    cases += ["png_info", "png_inflate", "png_to_rgb", "resample_bilinear",
+              "augment", "png_decode_augment"]
     # every filter type: random scanlines, each with a random filter byte
     for ct, ch in ((2, 3), (6, 4), (0, 1), (4, 2)):
         h, w = 17, 23
@@ -5340,11 +5354,25 @@ def _rec_iter(path, cfg, ctx, threads=None, **over):
     return mx.io.ImageRecordIter(**kw)
 
 
-def _iterator_alone(path, cfg, threads):
-    """The iterator by itself on the card: ``timed`` batches after
-    ``warmup`` (an epoch's end resets it, as fit does), img/s, and each
-    stage's ms a batch (median; the decode threads' sums, and those
-    divided by the threads: the wall time the stage would take alone)."""
+def _stage_reading(it, first, images_per_batch, threads):
+    """Stage times of the batches handed out from ``first`` on: each
+    threaded stage's thread-ms an image (median over the batches), and
+    ``records_wall``, ``produce`` and the copy's ms a batch (median)."""
+    rows = it.stage_ms()[first:]
+    med = {k: statistics.median(r.get(k, 0.0) for r in rows)
+           for k in ("read", "draws", "inflate", "decode", "normalize",
+                     "records_wall", "produce", "h2d")}
+    per_image = {k: med[k] / images_per_batch for k in (
+        "read", "draws", "inflate", "decode", "normalize")}
+    return {"stage_ms_median": med, "thread_ms_per_image": per_image,
+            "thread_ms_per_image_sum": sum(per_image.values()),
+            "ceiling_img_per_s": threads * 1e3 / sum(per_image.values())}
+
+
+def _iterator_alone(path, cfg, threads, reps, timed):
+    """The iterator by itself on the card: ``reps`` readings of ``timed``
+    batches each after ``warmup`` (an epoch's end resets it, as fit
+    does): img/s, and each stage's ms (``_stage_reading``)."""
     it = _rec_iter(path, cfg, mx.gpu(0), threads)
 
     def batch():
@@ -5356,29 +5384,28 @@ def _iterator_alone(path, cfg, threads):
 
     for _ in range(cfg["warmup"]):
         batch()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(cfg["timed"]):
-        b = batch()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    x = b.data[0]
-    if tuple(x.shape) != (cfg["batch"],) + tuple(cfg["data_shape"]) or \
-            not torch.isfinite(x._data).all():
-        raise AssertionError(f"imagenet_rec: a batch of {x.shape}")
-    rows = it.stage_ms()[cfg["warmup"]:]
-    keys = ("read", "draws", "inflate", "decode", "normalize",
-            "records_wall", "produce", "h2d")
-    med = {k: statistics.median(r.get(k, 0.0) for r in rows) for k in keys}
-    threaded = ("read", "draws", "inflate", "decode", "normalize")
-    waits = it.data_wait_ms[cfg["warmup"]:]
+    readings = []
+    for _ in range(reps):
+        first = len(it.data_wait_ms)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            b = batch()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        x = b.data[0]
+        if tuple(x.shape) != (cfg["batch"],) + tuple(cfg["data_shape"]) or \
+                not torch.isfinite(x._data).all():
+            raise AssertionError(f"imagenet_rec: a batch of {x.shape}")
+        readings.append({"img_per_s": timed * cfg["batch"] / wall,
+                         "batch_ms": wall * 1e3 / timed,
+                         **_stage_reading(it, first, cfg["batch"],
+                                          threads)})
     it.close()
-    return {"threads": threads, "img_per_s": cfg["timed"] * cfg["batch"]
-            / wall, "batch_ms": wall * 1e3 / cfg["timed"],
-            "stage_ms_median": med,
-            "stage_ms_per_thread": {k: med[k] / threads for k in threaded},
-            "data_wait_ms_median": statistics.median(waits),
-            "data_wait_ms_max": max(waits)}
+    rates = [r["img_per_s"] for r in readings]
+    return {"threads": threads, "timed": timed, "img_per_s": rates,
+            "img_per_s_median": statistics.median(rates),
+            "readings": readings}
 
 
 def _rec_resume(path, cfg):
@@ -5489,13 +5516,16 @@ def phase_imagenet_rec(smi):
     """imagenet_rec, the cell resnet50_v1_module_fit_rec:
     ``train_imagenet.py --data-train <rec> --network resnet50_v1`` at the
     example's defaults over PNG records packed here (``IMAGENET_REC``).
-    The iterator alone (4 decode threads, then ``os.cpu_count()``): img/s
-    and ms a batch by stage. ``Module.fit`` as resnet50_v1_module_fit
-    wires it (``MODULE_FIT``, the executor captured), 13 batches, four
-    fits A B B A: records, synthetic, synthetic, records; each the median
-    batch ms over batches 4-13, img/s, Speedometer's img/s, the ms
-    ``next()`` waited (``data_wait``), launches (K1 one a batch, nothing
-    else) and a finite loss. Then the iterator's ``state_dict`` resume,
+    The iterator alone (3 readings at 4 decode threads and at
+    ``os.cpu_count()``, one at 1 thread): img/s and ms by stage.
+    ``Module.fit`` as resnet50_v1_module_fit wires it (``MODULE_FIT``, the
+    executor captured) but over ``fit_batches`` (60) batches, so that the
+    two prefetched batches cannot cover the producer's pace; four fits A
+    B B A: records, synthetic, synthetic, records; over batches 4-60 of
+    each: all images over all wall time, the mean batch, the sum of the
+    ms ``next()`` waited (``data_wait``) over the sum of batch time,
+    Speedometer's img/s, launches (K1 one a batch, nothing else) and a
+    finite loss. Then the iterator's ``state_dict`` resume,
     the trainer's checkpoint with ``data_iter``, and the first batches
     against the CPU run over the plain versions. The bfloat16 run is left
     out: a float32 record batch into a bfloat16 graph is refused at bind
@@ -5511,27 +5541,30 @@ def phase_imagenet_rec(smi):
         labels = packed.pop("labels")
         emit({"phase": "imagenet_rec_pack", **packed,
               "images": cfg["images"]})
-        alone = [_iterator_alone(path, cfg, cfg["threads"])]
-        if os.cpu_count() != cfg["threads"]:
-            alone.append(_iterator_alone(path, cfg, os.cpu_count()))
+        alone = [_iterator_alone(path, cfg, t, cfg["reps"], cfg["timed"])
+                 for t in dict.fromkeys((cfg["threads"], os.cpu_count()))]
+        alone.append(_iterator_alone(path, cfg, 1, 1, cfg["alone_timed"]))
         emit({"phase": "imagenet_rec_iterator", "card": smi,
               "runs": alone})
+        fcfg = dict(mcfg, epoch_size=cfg["fit_batches"],
+                    reduced=cfg["reduced"])
         mx.random.seed(0)
-        net = get_network(mcfg["network"], mcfg["num_classes"],
-                          mcfg["image_shape"])
+        net = get_network(fcfg["network"], fcfg["num_classes"],
+                          fcfg["image_shape"])
         synthetic = SyntheticDataIter(
-            mcfg["num_classes"], (mcfg["batch"],) + tuple(
-                mcfg["image_shape"]), mcfg["epoch_size"])
+            fcfg["num_classes"], (fcfg["batch"],) + tuple(
+                fcfg["image_shape"]), fcfg["epoch_size"])
         rec = _rec_iter(path, cfg, dev)
-        records = mx.io.ResizeIter(rec, mcfg["epoch_size"])
+        records = mx.io.ResizeIter(rec, fcfg["epoch_size"])
+        epoch = cfg["images"] // cfg["batch"]
         runs = []
         for source in ("records", "synthetic", "synthetic", "records"):
             train = records if source == "records" else synthetic
             waits0 = len(rec.data_wait_ms)
             mx.random.seed(0)
-            model, log, run = _module_fit_once(mcfg, net, train, dev)
+            model, log, run = _module_fit_once(fcfg, net, train, dev)
             want = dict.fromkeys(run["launches"], 0)
-            want["opt_sgd"] = mcfg["epoch_size"]
+            want["opt_sgd"] = fcfg["epoch_size"]
             if run["launches"] != want or not all(
                     v is not None and math.isfinite(v)
                     for v in run["losses"]) or not log.speeds:
@@ -5539,54 +5572,75 @@ def phase_imagenet_rec(smi):
                                      f"{run['launches']}, losses "
                                      f"{run['losses']}, Speedometer "
                                      f"{log.speeds}")
+            # batches warmup..end: batch_ms[k] is batch k + 1's time
+            window = run["batch_ms"][fcfg["warmup"] - 1:]
+            run["window_ms"] = sum(window)
+            run["window_batches"] = len(window)
+            run["mean_batch_ms"] = sum(window) / len(window)
             if source == "records":
                 waits = rec.data_wait_ms[waits0:]
+                if len(waits) != fcfg["epoch_size"]:
+                    raise AssertionError(f"imagenet_rec: {len(waits)} "
+                                         "waits recorded")
                 run["data_wait_ms"] = waits
-                run["data_wait_ms_median_timed"] = statistics.median(
-                    waits[mcfg["warmup"]:])
-                run["stage_ms_median"] = {
-                    k: statistics.median(r.get(k, 0.0) for r in rec.stage_ms()[
-                        -mcfg["epoch_size"]:]) for k in (
-                        "inflate", "decode", "normalize", "records_wall",
-                        "produce", "h2d")}
+                run["data_wait_window_ms"] = sum(waits[fcfg["warmup"]:])
+                run["data_wait_ms_epoch_starts"] = waits[epoch::epoch]
+                run["stages"] = _stage_reading(
+                    rec, waits0 + fcfg["warmup"], cfg["batch"],
+                    cfg["threads"])
+                run["producer_img_per_s"] = cfg["batch"] * 1e3 / run[
+                    "stages"]["stage_ms_median"]["produce"]
             run["source"] = source
             runs.append(run)
             del model
             torch.cuda.empty_cache()
         rec.close()
-        medians = {s: statistics.median(v for r in runs if r["source"] == s
-                                        for v in r["batch_ms"][
-                                            mcfg["warmup"] - 1:])
-                   for s in ("records", "synthetic")}
-        rec_runs = [r for r in runs if r["source"] == "records"]
-        wait = statistics.median(v for r in rec_runs
-                                 for v in r["data_wait_ms"][mcfg["warmup"]:])
+        pooled = {s: [r for r in runs if r["source"] == s]
+                  for s in ("records", "synthetic")}
+        window = {s: sum(r["window_ms"] for r in v)
+                  for s, v in pooled.items()}
+        batches = {s: sum(r["window_batches"] for r in v)
+                   for s, v in pooled.items()}
+        mean_ms = {s: window[s] / batches[s] for s in window}
+        medians = {s: statistics.median(v for r in rs for v in r[
+            "batch_ms"][fcfg["warmup"] - 1:]) for s, rs in pooled.items()}
+        rec_runs = pooled["records"]
+        wait_ms = sum(r["data_wait_window_ms"] for r in rec_runs)
         resume = _rec_resume(path, cfg)
         trainer_resume = _trainer_resume(path, cfg)
         plain = _first_batches_equal_plain(path, cfg)
     out = {"phase": "imagenet_rec", "cell": "resnet50_v1_module_fit_rec",
-           "card": smi, "config": cfg, "module_config": mcfg,
+           "card": smi, "config": cfg, "module_config": fcfg,
            "source": "examples/image_classification/train_imagenet.py "
                      "--data-train <packed .rec> --network resnet50_v1",
            "label_classes_present": int(len(np.unique(labels))),
            "iterator_alone": alone,
-           "iterator_img_per_s_4_threads": alone[0]["img_per_s"],
+           "iterator_img_per_s_4_threads_median": alone[0][
+               "img_per_s_median"],
+           "fit_batches": fcfg["epoch_size"],
+           "timed_batches_per_fit": rec_runs[0]["window_batches"],
            "abba_order": [r["source"] for r in runs],
+           "mean_batch_ms": mean_ms["records"],
+           "mean_batch_ms_synthetic": mean_ms["synthetic"],
+           "record_batch_excess": mean_ms["records"]
+           / mean_ms["synthetic"] - 1,
+           "img_per_s": fcfg["batch"] * batches["records"]
+           / (window["records"] / 1e3),
+           "img_per_s_synthetic": fcfg["batch"] * batches["synthetic"]
+           / (window["synthetic"] / 1e3),
            "median_batch_ms": medians["records"],
            "median_batch_ms_synthetic": medians["synthetic"],
-           "record_batch_excess": medians["records"] / medians["synthetic"]
-           - 1, "img_per_s": mcfg["batch"] / (medians["records"] / 1e3),
-           "img_per_s_synthetic": mcfg["batch"]
-           / (medians["synthetic"] / 1e3),
-           "block_medians_ms": {s: [r["median_batch_ms"] for r in runs
-                                    if r["source"] == s]
-                                for s in ("records", "synthetic")},
+           "block_mean_ms": {s: [r["mean_batch_ms"] for r in v]
+                             for s, v in pooled.items()},
            "speedometer_img_per_s": [r["speedometer_img_per_s"]
                                      for r in runs],
-           "data_wait_ms_median": wait,
-           "data_wait_share": wait / medians["records"],
-           "records_stage_ms_median": [r["stage_ms_median"]
-                                       for r in rec_runs],
+           "data_wait_ms_per_batch": wait_ms / batches["records"],
+           "data_wait_share": wait_ms / window["records"],
+           "data_wait_ms_epoch_starts": [r["data_wait_ms_epoch_starts"]
+                                         for r in rec_runs],
+           "records_stages": [r["stages"] for r in rec_runs],
+           "producer_img_per_s": [r["producer_img_per_s"]
+                                  for r in rec_runs],
            "launches": rec_runs[0]["launches"],
            "k1_tensors_by_path": rec_runs[0]["k1_tensors_by_path"],
            "losses": [r["losses"] for r in runs],

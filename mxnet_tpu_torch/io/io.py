@@ -32,7 +32,6 @@ import threading
 import time
 import warnings
 import weakref
-import zlib
 from collections import namedtuple
 from concurrent.futures import ThreadPoolExecutor
 
@@ -733,6 +732,7 @@ class LibSVMIter(DataIter):
 # ------------------------------------------------------ ImageRecordIter --
 
 _HostBatch = namedtuple("_HostBatch", ["data", "label", "slot", "stages"])
+_RUNS_PER_THREAD = 4
 
 
 class _PinnedSlots:
@@ -884,14 +884,16 @@ class ImageRecordIter(_ShardedEpochMixin, DataIter):
         read without a lock, and the payload is not copied."""
         from .. import recordio
 
-        with self._fd_lock:       # opened once, by the first reader
-            if self._fd is None:
-                fd = os.open(self._rec.uri, os.O_RDONLY)
-                offs = sorted(self._rec.idx.values()) + [
-                    os.fstat(fd).st_size]
-                self._span = {a: b - a for a, b in zip(offs, offs[1:])}
-                self._fd = fd
-            fd, span = self._fd, self._span
+        fd, span = self._fd, self._span
+        if fd is None:
+            with self._fd_lock:       # opened once, by the first reader
+                if self._fd is None:
+                    fd = os.open(self._rec.uri, os.O_RDONLY)
+                    offs = sorted(self._rec.idx.values()) + [
+                        os.fstat(fd).st_size]
+                    self._span = {a: b - a for a, b in zip(offs, offs[1:])}
+                    self._fd = fd
+                fd, span = self._fd, self._span
         off = self._rec.idx[key]
         body = memoryview(os.pread(fd, span[off], off))
         magic, lrec = struct.unpack_from("<II", body) if len(body) >= 8 \
@@ -924,12 +926,12 @@ class ImageRecordIter(_ShardedEpochMixin, DataIter):
         y, x, m, jit = draws
         try:
             info = native.png_info(buf)
-            raw = zlib.decompress(info.idat)
+            raw = native.png_inflate(info)
             t3 = time.perf_counter()
             native.png_decode_augment(
                 raw, info, dh, dw, h, w, y, x, m, jit, planes=data[i],
                 normalize=(self._mean, self._std, self._scale))
-        except (ValueError, struct.error, zlib.error):
+        except ValueError:
             return None, None, label, draws, times
         times.update(inflate=t3 - t2, decode=time.perf_counter() - t3)
         return "png", None, label, draws, times
@@ -950,8 +952,12 @@ class ImageRecordIter(_ShardedEpochMixin, DataIter):
             if self._executor is None:
                 self._executor = ThreadPoolExecutor(
                     self._threads, thread_name_prefix="mxnet-decode")
-            results = list(self._executor.map(
-                lambda a: self._record_one(*a), args))
+            # a few runs of records a thread, not one task a record: fewer
+            # hand-offs through the pool's queue under the GIL
+            step = -(-n // (self._threads * _RUNS_PER_THREAD))
+            results = [r for run in self._executor.map(
+                lambda lo: [self._record_one(*a) for a in args[lo:lo + step]],
+                range(0, n, step)) for r in run]
         else:
             results = [self._record_one(*a) for a in args]
         stages = {"records_wall": time.perf_counter() - t0}
@@ -999,12 +1005,9 @@ class ImageRecordIter(_ShardedEpochMixin, DataIter):
         """A host batch as a DataBatch on the iterator's context; on a
         card the copy runs on the consumer's current stream."""
         self.data_wait_ms.append(wait_s * 1e3)
-        if item.slot is None:
+        if item.slot is None:     # the CPU
             data = NDArray(torch.from_numpy(item.data))
             label = NDArray(torch.from_numpy(item.label))
-            if self._device.type != "cpu":   # prefetch_buffer=0 on a card
-                data, label = (NDArray(a._data.to(self._device))
-                               for a in (data, label))
         else:
             stream = torch.cuda.current_stream(self._device)
             start = torch.cuda.Event(enable_timing=True)

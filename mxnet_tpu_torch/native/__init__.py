@@ -4,9 +4,9 @@ Counterpart of ``mxnet_tpu/native/__init__.py``: RecordIO scan, read and
 pack, the uint8 HWC -> float32 CHW normalisation, the OpenMP JPEG batch
 decode (align-corners bilinear resize) with its fused crop, mirror and
 jitter. Three parts take the place of the JAX package's PIL calls: the
-PNG decoder (the container is parsed here and inflated by the standard
-library's ``zlib``, which releases the GIL; the unfiltering and the
-conversion to RGB run in C++), a copy of Pillow's ``BILINEAR`` resample
+PNG decoder (the chunk walk, the unfiltering and the conversion to RGB
+in C++; the stream inflated in one call of the standard library's
+``zlib``, which releases the GIL), a copy of Pillow's ``BILINEAR`` resample
 (``Resample.c``), and the PNG and JPEG encoders of ``recordio.pack_img``.
 
 The library is built with ``g++`` at first use into
@@ -48,9 +48,10 @@ from ..base import MXNetError
 __all__ = ["status", "build", "plain_versions",
            "recordio_scan", "recordio_read", "recordio_pack",
            "normalize_batch", "resample_bilinear", "augment",
-           "png_info", "png_decode", "png_decode_augment", "png_encode",
-           "png_filter", "jpeg_decode", "jpeg_encode", "decode_jpeg_batch",
-           "decode_augment_batch", "is_png", "is_jpeg", "PngInfo"]
+           "png_info", "png_inflate", "png_decode", "png_decode_augment",
+           "png_encode", "png_filter", "jpeg_decode", "jpeg_encode",
+           "decode_jpeg_batch", "decode_augment_batch", "is_png", "is_jpeg",
+           "PngInfo"]
 
 _SRC = Path(__file__).resolve().with_name("mxtpu_io.cc")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "mxnet_tpu_torch"
@@ -133,7 +134,7 @@ _U8, _U64, _I32, _F32, _LL = (_P(ctypes.c_uint8), _P(ctypes.c_uint64),
                               _P(ctypes.c_longlong))
 _SIGNATURES = {
     "mxtpu_recordio_scan": (ctypes.c_longlong, [ctypes.c_char_p, _U64, _U64,
-                                                ctypes.c_longlong]),
+                                                ctypes.c_longlong, _LL]),
     "mxtpu_recordio_read": (ctypes.c_int, [ctypes.c_char_p, _U64, _U64,
                                            ctypes.c_longlong, _U8]),
     "mxtpu_normalize_hwc_u8_to_chw_f32": (
@@ -145,10 +146,15 @@ _SIGNATURES = {
     "mxtpu_augment": (None, [_U8] + [ctypes.c_int] * 6 + [_F32, _U8]),
     "mxtpu_png_to_rgb": (ctypes.c_int, [_U8, ctypes.c_longlong]
                          + [ctypes.c_int] * 4 + [_U8, ctypes.c_int, _U8]),
+    # the per-record PNG calls take addresses (``ndarray.ctypes.data``) and
+    # bytes: cheaper to convert than POINTER arguments
+    "mxtpu_png_info": (ctypes.c_longlong, [ctypes.c_void_p, ctypes.c_longlong,
+                                           _P(ctypes.c_int), _LL, _LL,
+                                           ctypes.c_longlong, _LL]),
     "mxtpu_png_decode_augment": (
-        ctypes.c_int, [_U8, ctypes.c_longlong] + [ctypes.c_int] * 4
-        + [_U8] + [ctypes.c_int] * 8 + [_F32, _U8, _F32, _F32,
-                                        ctypes.c_float, _F32]),
+        ctypes.c_int, [ctypes.c_char_p, ctypes.c_longlong]
+        + [ctypes.c_int] * 4 + [ctypes.c_char_p] + [ctypes.c_int] * 8
+        + [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p]),
     "mxtpu_png_filter": (None, [_U8] + [ctypes.c_int] * 4 + [_U8]),
     "mxtpu_has_jpeg": (ctypes.c_int, []),
     "mxtpu_jpeg_size": (ctypes.c_int, [_U8, ctypes.c_uint64,
@@ -240,23 +246,29 @@ def _ptr(a, kind=_U8):
 
 def recordio_scan(path):
     """``(offsets, lengths)`` (uint64) of every record's payload of a
-    ``.rec`` file; ValueError on bad framing or a multi-part record."""
+    ``.rec`` file; ValueError on bad framing or a multi-part record,
+    OSError when the file cannot be opened."""
     if _plain:
         return recordio_scan_plain(path)
     lib = _load()
     cap = 1024
+    where = ctypes.c_longlong(0)
     while True:
         offs = _np.zeros(cap, _np.uint64)
         lens = _np.zeros(cap, _np.uint64)
         n = lib.mxtpu_recordio_scan(os.fsencode(path), _ptr(offs, _U64),
-                                    _ptr(lens, _U64), cap)
+                                    _ptr(lens, _U64), cap,
+                                    ctypes.byref(where))
         if n >= 0:
             return offs[:n].copy(), lens[:n].copy()
         if n == -1:
-            # bad magic, a multi-part record, or an unreadable file: the
-            # plain walk names which
-            return recordio_scan_plain(path)
-        cap = -int(n) * 2
+            raise OSError(where.value, os.strerror(where.value), path)
+        if n == -2:
+            raise ValueError(f"{path}: bad RecordIO magic at {where.value}")
+        if n == -3:
+            raise ValueError(f"{path}: multi-part RecordIO record at "
+                             f"{where.value} (cflag != 0) cannot be indexed")
+        cap *= 2
 
 
 def recordio_scan_plain(path):
@@ -492,34 +504,48 @@ def is_jpeg(buf):
     return bytes(buf[:3]) == b"\xff\xd8\xff"
 
 
+_PNG_WALK_ERRORS = {-1: "not a PNG (bad signature)",
+                    -2: "truncated PNG chunk",
+                    -4: "PNG without IHDR or IDAT",
+                    -5: "PNG IHDR of the wrong length"}
+
+
 def png_info(buf):
-    """The header, palette and deflated IDAT stream of a PNG. ValueError
-    for a damaged file; :class:`MXNetError` for a valid format that is not
-    ported (interlaced, 16-bit samples)."""
-    mv = memoryview(buf)
-    if bytes(mv[:8]) != PNG_SIGNATURE:
-        raise ValueError("not a PNG (bad signature)")
-    pos, ihdr, palette, idat = 8, None, None, []
-    while pos + 8 <= len(mv):
-        length, kind = struct.unpack(">I4s", mv[pos:pos + 8])
-        data = mv[pos + 8:pos + 8 + length]
-        if len(data) < length or pos + 12 + length > len(mv):
-            raise ValueError(f"truncated PNG chunk {kind!r}")
-        if kind in (b"IHDR", b"PLTE"):
-            crc = struct.unpack(">I", mv[pos + 8 + length:pos + 12 + length])
-            if zlib.crc32(data, zlib.crc32(kind)) != crc[0]:
-                raise ValueError(f"PNG chunk {kind!r}: CRC mismatch")
-        if kind == b"IHDR":
-            ihdr = struct.unpack(">IIBBBBB", data)
-        elif kind == b"PLTE":
-            palette = bytes(data)
-        elif kind == b"IDAT":
-            idat.append(data)
-        elif kind == b"IEND":
+    """The header, palette and deflated IDAT stream of a PNG (the chunk
+    walk in C; the stream is a view of ``buf`` when it is one chunk).
+    ValueError for a damaged file; :class:`MXNetError` for a valid format
+    that is not ported (interlaced, 16-bit samples)."""
+    if _plain:
+        return png_info_plain(buf)
+    src = _np.frombuffer(buf, _np.uint8)
+    ihdr = (ctypes.c_int * 7)()
+    plte = (ctypes.c_longlong * 2)()
+    cap = 8
+    while True:
+        idat = (ctypes.c_longlong * (2 * cap))()
+        where = ctypes.c_longlong(0)
+        n = _load().mxtpu_png_info(src.ctypes.data, len(src), ihdr, plte,
+                                   idat, cap, ctypes.byref(where))
+        if n <= cap:
             break
-        pos += 12 + length
-    if ihdr is None or not idat:
-        raise ValueError("PNG without IHDR or IDAT")
+        cap = n
+    if n == -3:
+        kind = bytes(src[where.value + 4:where.value + 8])
+        raise ValueError(f"PNG chunk {kind!r}: CRC mismatch")
+    if n < 0:
+        raise ValueError(_PNG_WALK_ERRORS.get(n, f"PNG walk error {n}"))
+    mv = memoryview(src)
+    if n == 1:
+        data = mv[idat[0]:idat[0] + idat[1]]
+    else:
+        data = b"".join(mv[idat[2 * i]:idat[2 * i] + idat[2 * i + 1]]
+                        for i in range(n))
+    palette = bytes(mv[plte[0]:plte[0] + plte[1]]) if plte[1] else None
+    return _png_checked(tuple(ihdr), palette, data)
+
+
+def _png_checked(ihdr, palette, idat):
+    """A PngInfo from IHDR's fields, or the error png_info raises."""
     w, h, depth, ctype, comp, filt, interlace = ihdr
     if ctype not in _CHANNELS or comp or filt or w <= 0 or h <= 0:
         raise ValueError(f"bad PNG header {ihdr}")
@@ -532,14 +558,47 @@ def png_info(buf):
         raise ValueError(f"bad PNG bit depth {depth} for color type {ctype}")
     if ctype == 3 and palette is None:
         raise ValueError("palette PNG without PLTE")
-    return PngInfo(w, h, depth, ctype, interlace, palette or b"",
-                   b"".join(idat))
+    return PngInfo(w, h, depth, ctype, interlace, palette or b"", idat)
 
 
-def _png_raw(info):
-    """The inflated scanlines (stdlib zlib, which releases the GIL)."""
+def png_info_plain(buf):
+    mv = memoryview(buf)
+    if bytes(mv[:8]) != PNG_SIGNATURE:
+        raise ValueError("not a PNG (bad signature)")
+    pos, ihdr, palette, idat = 8, None, None, []
+    while pos + 8 <= len(mv):
+        length, kind = struct.unpack(">I4s", mv[pos:pos + 8])
+        data = mv[pos + 8:pos + 8 + length]
+        if len(data) < length or pos + 12 + length > len(mv):
+            raise ValueError("truncated PNG chunk")
+        if kind in (b"IHDR", b"PLTE"):
+            crc = struct.unpack(">I", mv[pos + 8 + length:pos + 12 + length])
+            if zlib.crc32(data, zlib.crc32(kind)) != crc[0]:
+                raise ValueError(f"PNG chunk {kind!r}: CRC mismatch")
+        if kind == b"IHDR":
+            if length != 13:
+                raise ValueError("PNG IHDR of the wrong length")
+            ihdr = struct.unpack(">IIBBBBB", data)
+        elif kind == b"PLTE":
+            palette = bytes(data)
+        elif kind == b"IDAT":
+            idat.append(data)
+        elif kind == b"IEND":
+            break
+        pos += 12 + length
+    if ihdr is None or not idat:
+        raise ValueError("PNG without IHDR or IDAT")
+    return _png_checked(ihdr, palette, b"".join(idat))
+
+
+def png_inflate(info):
+    """The inflated scanlines of ``info``'s IDAT stream (stdlib zlib,
+    which releases the GIL), into a buffer of the image's size: one
+    inflate call."""
+    ch = _CHANNELS[info.color_type]
+    size = info.height * ((info.width * ch * info.depth + 7) // 8 + 1)
     try:
-        return zlib.decompress(info.idat)
+        return zlib.decompress(info.idat, 15, size)
     except zlib.error as e:
         raise ValueError(f"PNG IDAT stream: {e}") from None
 
@@ -571,7 +630,7 @@ def png_to_rgb(raw, info):
 def png_decode(buf):
     """A PNG payload -> (h, w, 3) uint8 RGB."""
     info = png_info(buf)
-    return png_to_rgb(_png_raw(info), info)
+    return png_to_rgb(png_inflate(info), info)
 
 
 def png_decode_augment(raw, info, dh, dw, oh, ow, y=0, x=0, mirror=False,
@@ -590,8 +649,7 @@ def png_decode_augment(raw, info, dh, dw, oh, ow, y=0, x=0, mirror=False,
             return res
         planes[...] = normalize_batch_plain(res[None], *normalize)[0]
         return planes
-    src = _np.frombuffer(raw, _np.uint8)
-    pal = _np.frombuffer(info.palette or b"\0", _np.uint8)
+    raw = raw if isinstance(raw, bytes) else bytes(raw)
     out = m = s = None
     scale = 1.0
     if planes is None:
@@ -606,14 +664,14 @@ def png_decode_augment(raw, info, dh, dw, oh, ow, y=0, x=0, mirror=False,
     jit = None if jitter is None else \
         _np.ascontiguousarray(jitter, _np.float32)
     _png_check(_load().mxtpu_png_decode_augment(
-        _ptr(src), len(src), info.width, info.height, info.depth,
-        info.color_type, _ptr(pal), len(info.palette) // 3, dh, dw, oh, ow,
-        int(y), int(x), int(bool(mirror)),
-        None if jit is None else _ptr(jit, _F32),
-        None if out is None else _ptr(out),
-        None if m is None else _ptr(m, _F32),
-        None if s is None else _ptr(s, _F32), ctypes.c_float(scale),
-        None if planes is None else _ptr(planes, _F32)))
+        raw, len(raw), info.width, info.height, info.depth,
+        info.color_type, info.palette or b"\0", len(info.palette) // 3, dh,
+        dw, oh, ow, int(y), int(x), int(bool(mirror)),
+        None if jit is None else jit.ctypes.data,
+        None if out is None else out.ctypes.data,
+        None if m is None else m.ctypes.data,
+        None if s is None else s.ctypes.data, scale,
+        None if planes is None else planes.ctypes.data))
     return out if planes is None else planes
 
 

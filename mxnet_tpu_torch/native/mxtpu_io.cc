@@ -15,6 +15,7 @@
 // -march=native and no contraction: a fused multiply-add would part the
 // float resizes and the normalisation from the plain versions.
 
+#include <cerrno>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
@@ -42,23 +43,27 @@ static const uint32_t kMagic = 0xced7230a;
 static const uint32_t kLRecBits = 29;
 
 // The number of records of a RecordIO file, each record's payload offset
-// and length in caller arrays of capacity `cap`; -1 on an IO or framing
-// error (or a multi-part record), -(needed) when cap is too small.
+// and length in caller arrays of capacity `cap`. Errors are negative:
+// -1 the file cannot be opened (errno in *where), -2 bad magic and -3 a
+// multi-part record (cflag != 0), both at the byte offset in *where, -4
+// more than `cap` records.
 long long mxtpu_recordio_scan(const char* path, uint64_t* offsets,
-                              uint64_t* lengths, long long cap) {
+                              uint64_t* lengths, long long cap,
+                              long long* where) {
   FILE* f = fopen(path, "rb");
-  if (!f) return -1;
+  if (!f) { *where = errno; return -1; }
   long long n = 0;
   uint32_t header[2];
   for (;;) {
     long pos = ftell(f);
     size_t got = fread(header, sizeof(uint32_t), 2, f);
     if (got != 2) break;  // EOF
-    if (header[0] != kMagic) { fclose(f); return -1; }
+    long long rc = 0;
+    if (header[0] != kMagic) rc = -2;
+    else if (header[1] >> kLRecBits) rc = -3;
+    else if (n >= cap) rc = -4;
+    if (rc) { *where = pos; fclose(f); return rc; }
     uint64_t len = header[1] & ((1u << kLRecBits) - 1);
-    uint32_t cflag = header[1] >> kLRecBits;
-    if (cflag != 0) { fclose(f); return -1; }
-    if (n >= cap) { fclose(f); return -(n + 1); }
     offsets[n] = (uint64_t)pos + 2 * sizeof(uint32_t);
     lengths[n] = len;
     ++n;
@@ -375,6 +380,28 @@ void resample_bilinear(const uint8_t* src, int h, int w, int oh, int ow,
 // unpackers do), a palette index is looked up (an index past the palette
 // reads black), alpha is dropped. 8-bit samples, and palettes of 1-8 bits.
 
+inline uint32_t be32(const uint8_t* p) {
+  return (uint32_t(p[0]) << 24) | (uint32_t(p[1]) << 16) |
+         (uint32_t(p[2]) << 8) | uint32_t(p[3]);
+}
+
+// CRC-32 (zlib's polynomial) of `n` bytes, as zlib.crc32(bytes).
+uint32_t crc32_of(const uint8_t* p, uint64_t n) {
+  static uint32_t table[256];
+  static const bool ready = [] {
+    for (uint32_t i = 0; i < 256; ++i) {
+      uint32_t c = i;
+      for (int k = 0; k < 8; ++k) c = c & 1 ? 0xedb88320u ^ (c >> 1) : c >> 1;
+      table[i] = c;
+    }
+    return true;
+  }();
+  (void)ready;
+  uint32_t c = 0xffffffffu;
+  for (uint64_t i = 0; i < n; ++i) c = table[(c ^ p[i]) & 0xff] ^ (c >> 8);
+  return c ^ 0xffffffffu;
+}
+
 inline int paeth(int a, int b, int c) {
   const int p = a + b - c;
   const int pa = abs(p - a), pb = abs(p - b), pc = abs(p - c);
@@ -562,6 +589,62 @@ int mxtpu_png_decode_augment(const uint8_t* raw, long long raw_len, int w,
   resample_window(rgb.get(), h, w, dh, dw, cy, cx, oh, ow, mirror, jit,
                   out, planes, mean, std_inv, scale);
   return 0;
+}
+
+// The chunks of a PNG payload of `len` bytes, walked as png_info_plain
+// walks them (up to IEND): IHDR's seven fields into `ihdr` (width,
+// height, depth, color type, compression, filter, interlace), PLTE's
+// offset and length into `plte` (0, 0 without one), each IDAT's offset
+// and length into `idat` (pairs, the first `idat_cap` of them), the CRCs
+// of IHDR and PLTE checked. Returns the number of IDAT chunks, or -1 a
+// bad signature, -2 a truncated chunk, -3 a CRC mismatch in IHDR or PLTE
+// (the chunk's offset in *where), -4 no IHDR or no IDAT, -5 an IHDR of
+// the wrong length.
+long long mxtpu_png_info(const uint8_t* buf, long long len, int* ihdr,
+                         long long* plte, long long* idat,
+                         long long idat_cap, long long* where) {
+  static const uint8_t kSig[8] = {0x89, 'P', 'N', 'G', '\r', '\n', 0x1a,
+                                  '\n'};
+  if (len < 8 || memcmp(buf, kSig, 8) != 0) return -1;
+  bool have_ihdr = false;
+  long long n_idat = 0;
+  plte[0] = plte[1] = 0;
+  long long pos = 8;
+  while (pos + 8 <= len) {
+    const uint32_t length = be32(buf + pos);
+    const uint8_t* kind = buf + pos + 4;
+    if (pos + 12 + (long long)length > len) return -2;
+    const uint8_t* data = buf + pos + 8;
+    const bool is_ihdr = memcmp(kind, "IHDR", 4) == 0;
+    const bool is_plte = memcmp(kind, "PLTE", 4) == 0;
+    if (is_ihdr || is_plte) {
+      if (crc32_of(kind, 4 + length) != be32(data + length)) {
+        *where = pos;
+        return -3;
+      }
+    }
+    if (is_ihdr) {
+      if (length != 13) return -5;
+      ihdr[0] = int(be32(data));
+      ihdr[1] = int(be32(data + 4));
+      for (int i = 0; i < 5; ++i) ihdr[2 + i] = data[8 + i];
+      have_ihdr = true;
+    } else if (is_plte) {
+      plte[0] = pos + 8;
+      plte[1] = length;
+    } else if (memcmp(kind, "IDAT", 4) == 0) {
+      if (n_idat < idat_cap) {
+        idat[2 * n_idat] = pos + 8;
+        idat[2 * n_idat + 1] = length;
+      }
+      ++n_idat;
+    } else if (memcmp(kind, "IEND", 4) == 0) {
+      break;
+    }
+    pos += 12 + (long long)length;
+  }
+  if (!have_ihdr || !n_idat) return -4;
+  return n_idat;
 }
 
 // The encoder's filtered scanlines of an (h, w, c) uint8 image: each row

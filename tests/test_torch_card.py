@@ -1612,7 +1612,10 @@ def test_native_io_build_holds_its_plain_versions(cuda_device, tmp_path):
     for i, im in enumerate(imgs):
         buf = native.png_encode(im, i % 2)
         info = native.png_info(buf)
-        raw = zlib.decompress(info.idat)
+        assert info._replace(idat=bytes(info.idat)) == \
+            native.png_info_plain(buf)
+        raw = native.png_inflate(info)
+        assert raw == zlib.decompress(info.idat)
         assert np.array_equal(native.png_to_rgb(raw, info), im)
         assert np.array_equal(native.png_to_rgb_plain(raw, info), im)
         h, w = im.shape[:2]

@@ -199,6 +199,57 @@ def test_png_damage_is_a_value_error_and_unported_variants_raise():
         native.png_info(laced)
 
 
+def _damaged_pngs():
+    """PNG payloads, valid and damaged, for the chunk walk."""
+    good = native.png_encode(_rgb(4, 9, 11))
+    ihdr_crc = bytearray(good)
+    ihdr_crc[29] ^= 1
+    pal = _pil_png("P", 3, 16)
+    plte = pal.index(b"PLTE")
+    plte_crc = bytearray(pal)
+    plte_crc[plte + 4] ^= 1
+    no_idat = good[:33] + good[-12:]
+    short_ihdr = good[:8] + (12).to_bytes(4, "big") + b"IHDR" + good[16:28] \
+        + zlib.crc32(good[16:28], zlib.crc32(b"IHDR")).to_bytes(4, "big") \
+        + good[33:]
+    # PIL cuts the stream into several IDAT chunks for a large image
+    many = _pil_bytes(Image.fromarray(_rgb(5, 300, 300)), "PNG")
+    return {"good": good, "palette": pal, "many_idat": many,
+            "signature": b"\x89PNX" + good[4:], "truncated": good[:45],
+            "ihdr_crc": bytes(ihdr_crc), "plte_crc": bytes(plte_crc),
+            "no_idat": no_idat, "short_ihdr": short_ihdr,
+            "nothing": good[:8]}
+
+
+@pytest.mark.parametrize("case", ["good", "palette", "many_idat",
+                                  "signature", "truncated", "ihdr_crc",
+                                  "plte_crc", "no_idat", "short_ihdr",
+                                  "nothing"])
+def test_png_chunk_walk_matches_its_plain_version(case):
+    """The C chunk walk gives the plain walk's PngInfo, or its error."""
+    buf = _damaged_pngs()[case]
+    try:
+        want = native.png_info_plain(buf)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            native.png_info(buf)
+        assert str(got.value) == str(e)
+        return
+    got = native.png_info(buf)
+    assert got._replace(idat=bytes(got.idat)) == want
+    assert native.png_inflate(got) == zlib.decompress(want.idat)
+    if case == "many_idat":
+        assert buf.count(b"IDAT") > 1
+        assert np.array_equal(native.png_decode(buf), np.asarray(
+            Image.open(io.BytesIO(buf)).convert("RGB")))
+
+
+def test_png_inflate_reports_a_damaged_stream():
+    info = native.png_info(native.png_encode(_rgb(6, 8, 8)))
+    with pytest.raises(ValueError, match="IDAT stream"):
+        native.png_inflate(info._replace(idat=bytes(info.idat)[:-9]))
+
+
 @pytest.mark.parametrize("jitter", [False, True])
 def test_augment_matches_the_jax_native_augmenter(jitter):
     """The fused augmenter through the JPEG batch entry of both libraries
@@ -288,8 +339,37 @@ def test_recordio_scan_read_pack_against_the_jax_functions(tmp_path):
         native.recordio_read_plain(path, offs, lens)
     with open(path, "ab") as f:
         f.write(b"\x00" * 8)
-    with pytest.raises(ValueError, match="bad RecordIO magic"):
+    with pytest.raises(ValueError, match=f"bad RecordIO magic at "
+                                         f"{len(framed)}$"):
         native.recordio_scan(path)
+
+
+@pytest.mark.parametrize("case", ["missing", "magic", "multi_part",
+                                  "many"])
+def test_recordio_scan_errors_match_the_plain_walk(tmp_path, case):
+    """Each failure of the C scan raises what the plain walk raises, and
+    a file of more records than the first capacity scans whole."""
+    path = str(tmp_path / "x.rec")
+    payloads = [bytes([i % 251]) * (i % 5) for i in range(
+        3000 if case == "many" else 4)]
+    framed = bytearray(native.recordio_pack(payloads))
+    if case == "magic":
+        framed[8:12] = b"\0\0\0\0"
+    elif case == "multi_part":
+        framed[4:8] = ((1 << 29) | 0).to_bytes(4, "little")
+    if case != "missing":
+        with open(path, "wb") as f:
+            f.write(framed)
+    try:
+        want = native.recordio_scan_plain(path)
+    except (OSError, ValueError) as e:
+        with pytest.raises(type(e)) as got:
+            native.recordio_scan(path)
+        assert str(got.value) == str(e) or case == "missing"
+        return
+    got = native.recordio_scan(path)
+    assert len(got[0]) == len(payloads)
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
 
 
 def test_a_build_without_libjpeg_raises_on_jpeg(monkeypatch, tmp_path):
