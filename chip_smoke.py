@@ -137,6 +137,41 @@ Phases, each printing one JSON line:
     output, an in-place weight write that
     the next replay reads, and the hybridized block's ms per call
     captured and eager (A B B A).
+11c. online_update: the cell bert_base_sst2_online_update. The train
+    phase's fine-tune (a fresh "adam" ``ShardedTrainer``, batch 32, its
+    step captured) publishes to a model bus in a temporary directory
+    every 10 steps (``publish_to``; only the 30522 x 768 embedding rides
+    int8 per row) while a second block instance of the classifier, from
+    the same weights, is served by ``ServedModel.from_block`` +
+    ``ModelServer(cache=True)`` on the default ladder (every bucket
+    captured by ``warmup()``), subscribed with ``watch_bus(poll=0.05)``
+    and behind ``HttpFrontEnd`` on 127.0.0.1. Four ``http.client``
+    threads send requests of 1-8 rows in a closed loop (interactive:batch
+    4:1, a deadline on the batch class, 30% of them one of 16 hot
+    payloads: a smoke load chosen to drive each mechanism, not a
+    measured deployment's traffic) over four windows: traffic alone, steps 1-20, steps 21-40,
+    traffic alone (A B B A). After version 2 the next record is poisoned
+    (``modelbus.publish:nan@1``), and the publish after it rolls back;
+    then an in-process overload burst past the queue bound. Fails unless
+    no request failed (deadline drops counted per class); every response
+    carries 0 or an applied version, non-decreasing per client; for every
+    applied version at least 4 responses (cache hits among them) equal
+    the same rows run eagerly through a block loaded with
+    ``decode_update`` of that version (``SERVE_TOL``) and lie more than
+    ``VERSION_MARGIN`` x ``SERVE_TOL`` from the neighbouring versions'
+    outputs (a rollback holds its source's values); no serving capture
+    or miss after warmup; K3 12 launches per served batch and per step,
+    K3-bwd 12 + 12 and K2 one per step; the poisoned version has a
+    ``reject-v*`` file, is never served and a rollback follows it; cache
+    hits, each an answer its version computed bit for bit; and under
+    overload the batch class's answered share at most the interactive
+    class's. Prints rows/s and p50/p99 by class per window, step ms with
+    and without a publish and the trainer alone, per version the publish
+    (device-to-host copy, encode, atomic writes) and apply (read + CRC,
+    decode, finite check, staging, the flip's host and device time, lock
+    wait) seconds and ``age_steps``, bytes per record, the largest gap
+    between two served batches across a flip against the median gap,
+    peak memory and the staging set's bytes.
 12. decode: the decode-attention kernel (K5) through
     ``mx.nd.contrib.decode_attention`` at BERT-base / GPT-2-small head
     geometry (q (32, 12, 64) against a (32, 12, 1024, 64) cache, ragged
@@ -327,7 +362,8 @@ on the record-fed Module path,
 its device time inside the bfloat16 steps and the casts' time; K1, K2,
 K3 and K3-bwd with their launches per replayed training graph, K2, K3
 and K3-bwd with their launches per replayed LM step and K3 and K3-bwd
-with their times at the LM's shape; K6 and K7 with their half-precision times), the
+with their times at the LM's shape; K2, K3 and K3-bwd with their
+launches in online_update; K6 and K7 with their half-precision times), the
 card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure is an
 exception and a non-zero exit. ``--phases`` runs a subset (device and
@@ -378,6 +414,9 @@ H100_INT8_OPS = 1979e12   # dense int8 tensor-core peak, 700 W part
 F32_TOL = 2e-5  # the kernel reassociates the softmax normaliser across k tiles
 BF16_TOL = 2e-2  # the plain version rounds scores and probabilities to bf16
 SERVE_TOL = 1e-4  # float32 logits; cuBLAS may pick another algorithm per batch size
+# online_update: how many times SERVE_TOL a response must lie from the
+# output of the neighbouring versions it was not stamped with
+VERSION_MARGIN = 10.0
 # int8 logits, served batch vs the graph evaluated on the request alone:
 # the int8 products are exact and every other op is row-independent
 INT8_EVAL_TOL = 1e-5
@@ -2843,6 +2882,608 @@ def phase_capture(smi, float_model, int8_model, clf):
     out["compile_stats"] = compile_service.stats()
     emit(out)
     return out
+
+
+# bert_base_sst2_online_update: bert_base_sst2_finetune's trainer (a
+# fresh "adam" ShardedTrainer, batch 32, its step captured) publishes to a
+# model bus every 10 steps (only the 30522 x 768 embedding rides int8 per
+# row: the threshold lies between its 23,440,896 values and the FFN's
+# 2,359,296) while bert_base_sst2_serve's classifier, a second block
+# instance from the same RandomState(0) weights, serves HTTP traffic from
+# its captured bucket ladder (ServedModel.from_block + ModelServer with the
+# prediction cache, HttpFrontEnd on 127.0.0.1) and applies each version
+# between batches (watch_bus, poll 0.05 s). Traffic, a smoke load chosen
+# to drive each mechanism (no published trace stands behind its numbers,
+# so its cache hits and per-class figures say nothing of a deployment):
+# 4 http.client threads in a closed loop, requests of 1-8 rows,
+# interactive:batch 4:1 with a deadline on the batch class, 30% of
+# requests one of 16 hot payloads; windows A B B A (traffic alone, the
+# first and second 20 steps, alone). After version 2 the next record is
+# poisoned (modelbus.publish:nan@1): the watcher must quarantine it and
+# the next publish roll back. Then an in-process overload burst of 200
+# requests of 8 rows (4:1) past the queue bound. The cut: 40 steps on one
+# fixed batch of make_task, 4 publishes.
+ONLINE_UPDATE = {"batch": 32, "steps": 40, "every": 10, "lr": 1e-4,
+                 "wd": 1e-4, "compress_threshold": 1 << 22, "poll": 0.05,
+                 "clients": 4, "interactive_per_batch": 4, "hot": 16,
+                 "hot_share": 0.3, "max_rows": 8, "deadline_ms": 100.0,
+                 "poison_after": 2, "alone_s": 4.0, "checked": 4,
+                 "overload_requests": 200, "overload_rows": 8,
+                 "alone_steps": 10,
+                 "wait_s": 120.0,
+                 "reduced": "40 steps on one batch (4 publishes), not an "
+                            "epoch of SST-2; 4 closed-loop clients"}
+
+
+def _http_client(i, port, cfg, hot, stop, window, log):
+    """One closed-loop HTTP client: requests of 1-8 rows, every
+    ``interactive_per_batch + 1``-th of the batch class with a deadline,
+    ``hot_share`` of them one of the hot payloads; each response logged
+    (or the error that ended the thread)."""
+    import http.client
+
+    rs = np.random.RandomState(100 + i)
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    path = "/v1/models/bert_base_sst2:predict"
+    seq = 0
+    try:
+        while not stop.is_set():
+            prio = "batch" if seq % (cfg["interactive_per_batch"] + 1) == \
+                cfg["interactive_per_batch"] else "interactive"
+            if rs.rand() < cfg["hot_share"]:
+                key = int(rs.randint(len(hot)))
+                x = hot[key]
+            else:
+                key = None
+                x = rs.randint(0, BERT_BASE["vocab"], (
+                    rs.randint(1, cfg["max_rows"] + 1),
+                    BERT_BASE["seq_len"])).astype(np.float32)
+            body = {"data": x.tolist(), "priority": prio}
+            if prio == "batch":
+                body["deadline_ms"] = cfg["deadline_ms"]
+            win = window[0]
+            t0 = time.perf_counter()
+            conn.request("POST", path, json.dumps(body),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            payload = json.loads(resp.read())
+            t1 = time.perf_counter()
+            rec = {"thread": i, "seq": seq, "t0": t0, "t1": t1,
+                   "window": win, "priority": prio, "rows": x.shape[0],
+                   "status": resp.status, "hot": key}
+            if resp.status == 200:
+                rec.update(version=payload["model_version"],
+                           hit=bool(payload.get("cache_hit")),
+                           out=np.asarray(payload["outputs"][0],
+                                          np.float32))
+                if key is None:
+                    rec["x"] = x
+            else:
+                rec.update(error=payload.get("error"),
+                           dropped=bool(payload.get("dropped")))
+            log.append(rec)
+            seq += 1
+    except Exception as e:  # reported by the phase
+        log.append({"thread": i, "seq": seq, "status": "client_error",
+                    "error": f"{type(e).__name__}: {e}"})
+    finally:
+        conn.close()
+
+
+def _await(cond, what, timeout):
+    end = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > end:
+            raise AssertionError(f"online_update: {what} within {timeout} s")
+        time.sleep(0.01)
+
+
+class _Timed:
+    """Wrap ``owner.name`` (an instance or a module attribute) so each
+    call's seconds go to ``sink(seconds, result, args)`` when ``only()``
+    is true (default: always); ``restore()`` puts the original back."""
+
+    def __init__(self, owner, name, sink, only=None):
+        self.owner, self.name = owner, name
+        self.real = getattr(owner, name)
+        self.had = name in vars(owner)
+
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = self.real(*args, **kw)
+            if only is None or only():
+                sink(time.perf_counter() - t0, out, args)
+            return out
+
+        setattr(owner, name, call)
+
+    def restore(self):
+        if self.had:
+            setattr(self.owner, self.name, self.real)
+        else:
+            delattr(self.owner, self.name)
+
+
+def _window_stats(log, windows):
+    """Per window: wall seconds, rows/s answered, and per class the
+    requests, rows, deadline drops, p50 and p99 of the client-side
+    latency (ms)."""
+    from mxnet_tpu_torch.serving.metrics import percentile
+
+    out = {}
+    for name, (t_start, t_end) in windows.items():
+        recs = [r for r in log if r.get("window") == name]
+        ok = [r for r in recs if r["status"] == 200]
+        by = {}
+        for prio in serving.PRIORITIES:
+            lat = [(r["t1"] - r["t0"]) * 1e3 for r in ok
+                   if r["priority"] == prio]
+            by[prio] = {"requests": sum(r["priority"] == prio
+                                        for r in recs),
+                        "answered": len(lat),
+                        "rows": sum(r["rows"] for r in ok
+                                    if r["priority"] == prio),
+                        "dropped": sum(r.get("dropped", False) for r in recs
+                                       if r["priority"] == prio),
+                        "p50_ms": percentile(lat, 50),
+                        "p99_ms": percentile(lat, 99)}
+        wall = t_end - t_start
+        out[name] = {"wall_s": wall,
+                     "rows_per_s": sum(r["rows"] for r in ok) / wall,
+                     "cache_hits": sum(r["hit"] for r in ok),
+                     "by_class": by}
+    return out
+
+
+def _bus_work_split(log, busy):
+    """p50/p99 (ms) of the B windows' answered requests that overlapped
+    a publish or an apply (host clock), and of the others."""
+    from mxnet_tpu_torch.serving.metrics import percentile
+
+    out = {}
+    for name, during in (("during_publish_or_apply", True),
+                         ("otherwise", False)):
+        lat = [(r["t1"] - r["t0"]) * 1e3 for r in log
+               if r["status"] == 200 and r.get("window") in ("B1", "B2")
+               and any(r["t0"] < b and r["t1"] > a for a, b in busy)
+               == during]
+        out[name] = {"answered": len(lat), "p50_ms": percentile(lat, 50),
+                     "p99_ms": percentile(lat, 99)}
+    return out
+
+
+def _overload(server, cfg, rs):
+    """``overload_requests`` requests of ``overload_rows`` rows submitted
+    at once in process (interactive:batch 4:1, the batch class with the
+    deadline): per class the rows offered, answered, dropped by deadline
+    and rejected at admission, and the answered share."""
+    futs, out = [], {p: {"offered_rows": 0, "answered_rows": 0,
+                         "dropped": 0, "rejected": 0}
+                     for p in serving.PRIORITIES}
+    n_rows = cfg["overload_rows"]
+    for k in range(cfg["overload_requests"]):
+        prio = "batch" if k % (cfg["interactive_per_batch"] + 1) == \
+            cfg["interactive_per_batch"] else "interactive"
+        x = rs.randint(0, BERT_BASE["vocab"], (n_rows, BERT_BASE[
+            "seq_len"])).astype(np.float32)
+        out[prio]["offered_rows"] += n_rows
+        try:
+            futs.append((prio, server.submit(
+                "bert_base_sst2", x, priority=prio,
+                deadline_ms=cfg["deadline_ms"] if prio == "batch" else None)))
+        except serving.DeadlineExceeded:
+            out[prio]["dropped"] += 1
+        except serving.ServerBusyError:
+            out[prio]["rejected"] += 1
+    for prio, fut in futs:
+        try:
+            fut.result(timeout=300)
+            out[prio]["answered_rows"] += n_rows
+        except serving.DeadlineExceeded:
+            out[prio]["dropped"] += 1
+    for st in out.values():
+        st["answered_share"] = st["answered_rows"] / st["offered_rows"]
+    return out
+
+
+def phase_online_update(smi):
+    """The cell bert_base_sst2_online_update (``ONLINE_UPDATE``'s
+    comment). Fails unless every admitted request is answered (or dropped
+    by its deadline: counted per class, not a failure); every response
+    carries version 0 or an applied version, non-decreasing per client;
+    for every applied version at least ``checked`` responses stamped with
+    it (cache hits among them) equal the same rows run eagerly through a
+    block loaded with ``decode_update`` of that version (SERVE_TOL); no
+    serving capture or miss after warmup; K3 12 launches per served batch
+    and per step, K3-bwd 12 + 12 and K2 1 per step; the poisoned version
+    quarantined, never served and followed by a rollback; cache hits, none
+    answered from another version; and the batch class's answered share
+    under overload at most the interactive class's."""
+    import shutil
+
+    from mxnet_tpu_torch import checkpoint as _ckpt
+    from mxnet_tpu_torch import faults, modelbus
+
+    cfg, ou = BERT_BASE, ONLINE_UPDATE
+    dev = mx.gpu(0)
+    weights = random_params(cfg, seed=0)
+    x, y = make_task(ou["batch"], cfg["seq_len"], cfg["vocab"],
+                     cfg["num_classes"], seed=5)
+    xb, yb = mx.nd.array(x), mx.nd.array(y)
+    busdir = tempfile.mkdtemp(prefix="mxtt-bus-")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wrapped = []
+    try:
+        clf_t = _classifier_on(dev, cfg, weights)
+        st = ShardedTrainer(clf_t, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                            "adam", {"learning_rate": ou["lr"],
+                                     "wd": ou["wd"]},
+                            mesh=DeviceMesh({"dp": 1}))
+        bus = st.publish_to(busdir, every=ou["every"],
+                            compress_threshold=ou["compress_threshold"])
+        clf_s = _classifier_on(dev, cfg, weights)
+        model = serving.ServedModel.from_block(
+            "bert_base_sst2", clf_s, example_shape=(cfg["seq_len"],))
+        del clf_s   # the model holds its own snapshot
+        server = serving.ModelServer(serving.ModelContainer([model]),
+                                     cache=True).start()
+        warm = server.warmup()
+        site0 = _site_stats("serving")
+        captures0 = model.capture_stats()["captures"]
+        front = serving.HttpFrontEnd(server).start()
+        watcher = server.watch_bus(busdir, poll=ou["poll"])
+
+        # measurement wrappers (the port's code is untouched): batches,
+        # the watcher's applies and their parts, the publishes and theirs
+        main_thread = threading.current_thread()
+        batches, applies, publishes = [], {}, {}
+        busy = []   # (start, end) of each publish and apply, host clock
+        acc = {"apply": None, "publish": None, "d2h_s": None}
+
+        def on_watcher():
+            return threading.current_thread() is watcher._thread
+
+        def on_main():
+            return threading.current_thread() is main_thread
+
+        def add(kind, key):
+            def sink(s, out, args):
+                if acc[kind] is not None:
+                    acc[kind][key] = acc[kind].get(key, 0.0) + s
+            return sink
+
+        def batch_sink(s, out, args):
+            t1 = time.perf_counter()
+            batches.append((t1 - s, t1, out[1]))
+
+        real_flip, real_apply, real_publish = \
+            model._flip, watcher._apply, bus.publish
+
+        def flip(staged, targets, version):
+            stream = model.replay_stream
+            ev = [torch.cuda.Event(enable_timing=True) for _ in "ab"] \
+                if stream is not None else None
+            if ev:
+                ev[0].record(stream)
+            t0 = time.perf_counter()
+            real_flip(staged, targets, version)
+            acc["apply"]["flip_host_s"] = time.perf_counter() - t0
+            if ev:
+                ev[1].record(stream)
+                acc["apply"]["flip_events"] = ev
+
+        def apply(m):
+            acc["apply"] = {}
+            t0 = time.perf_counter()
+            ok = real_apply(m)
+            t1 = time.perf_counter()
+            busy.append((t0, t1))
+            applies[m["version"]] = dict(
+                acc["apply"], total_s=t1 - t0, applied=bool(ok),
+                step=m.get("step"), age_steps=watcher.age_steps())
+            return ok
+
+        def publish(*a, **kw):
+            # the step's device-to-host copy belongs to its own record,
+            # not to a rollback's re-publication before it
+            acc["publish"] = {}
+            if not (kw.get("meta") or {}).get("rollback_of"):
+                acc["publish"]["d2h_s"] = acc["d2h_s"]
+            t0 = time.perf_counter()
+            version = real_publish(*a, **kw)
+            t1 = time.perf_counter()
+            busy.append((t0, t1))
+            if version is not None:
+                publishes[version] = dict(
+                    acc["publish"], total_s=t1 - t0,
+                    bytes=os.path.getsize(bus.payload_path(version)) +
+                    os.path.getsize(bus.manifest_path(version)))
+            acc["publish"] = None
+            return version
+
+        def d2h_sink(s, out, args):
+            acc["d2h_s"] = s
+
+        model._flip, watcher._apply, bus.publish = flip, apply, publish
+        wrapped += [
+            _Timed(model, "run_versioned", batch_sink),
+            _Timed(model, "_stage_swap", add("apply", "stage_s")),
+            _Timed(model, "swap_params", add("apply", "swap_s")),
+            _Timed(modelbus, "decode_update", add("apply", "decode_s"),
+                   on_watcher),
+            _Timed(modelbus, "_is_finite", add("apply", "finite_s"),
+                   on_watcher),
+            _Timed(modelbus, "_encode_param", add("publish", "encode_s"),
+                   on_main),
+            _Timed(_ckpt, "atomic_write", add("publish", "write_s"),
+                   on_main),
+            _Timed(st, "_publish_host_copy", d2h_sink)]
+
+        hot_rs = np.random.RandomState(2)
+        hot = [hot_rs.randint(0, cfg["vocab"], (
+            hot_rs.randint(1, ou["max_rows"] + 1), cfg["seq_len"])).astype(
+                np.float32) for _ in range(ou["hot"])]
+        stop, window, log = threading.Event(), ["A1"], []
+        clients = [threading.Thread(
+            target=_http_client, args=(i, front.port, ou, hot, stop,
+                                       window, log))
+            for i in range(ou["clients"])]
+        trainer0 = _site_stats("trainer")
+        kernels.reset_launch_counts()
+        windows = {}
+        t_win = time.perf_counter()
+        for c in clients:
+            c.start()
+        time.sleep(ou["alone_s"])
+        step_ms, losses, events = [], [], []
+        half = ou["steps"] // 2
+        for step in range(1, ou["steps"] + 1):
+            if step in (1, half + 1):
+                now = time.perf_counter()
+                windows[window[0]] = (t_win, now)
+                window[0], t_win = ("B1", now) if step == 1 else ("B2", now)
+            n_pub = len(st.published_versions)
+            t0 = time.perf_counter()
+            losses.append(st.step(xb, yb).asscalar())
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if len(st.published_versions) == n_pub:
+                continue
+            v = st.published_versions[-1]
+            events.append({"step": step, "published": list(
+                st.published_versions[n_pub:])})
+            if step // ou["every"] == ou["poison_after"] + 1:
+                faults.reset()
+                _await(lambda: v in bus.quarantined(),
+                       f"the poisoned version {v} quarantined",
+                       ou["wait_s"])
+                events[-1]["poisoned"] = v
+            else:
+                _await(lambda: watcher.applied_version >= v,
+                       f"version {v} applied", ou["wait_s"])
+            if step // ou["every"] == ou["poison_after"]:
+                # in-transit poison of the next record: the watcher, not
+                # the publisher's finite gate, must catch it
+                faults.configure("modelbus.publish:nan@1")
+        now = time.perf_counter()
+        windows[window[0]] = (t_win, now)
+        window[0], t_win = "A2", now
+        time.sleep(ou["alone_s"])
+        windows["A2"] = (t_win, time.perf_counter())
+        window[0] = None
+        stop.set()
+        for c in clients:
+            c.join(timeout=300)
+            if c.is_alive():
+                raise RuntimeError("an HTTP client did not finish")
+        overload = _overload(server, ou, np.random.RandomState(3))
+        counts = kernels.launch_counts()
+        n_batches = len(batches)
+        stats = server.stats()
+        site1 = _site_stats("serving")
+        trainer1 = _site_stats("trainer")
+        peak = torch.cuda.max_memory_allocated()
+        if not server.drain(timeout=120):
+            raise RuntimeError("server did not drain")
+        front.close()
+        for w in wrapped:
+            w.restore()
+        wrapped = []
+        del model._flip, watcher._apply, bus.publish
+        torch.cuda.synchronize()
+        for rec in applies.values():
+            ev = rec.pop("flip_events", None)
+            if ev is not None:
+                rec["flip_device_ms"] = ev[0].elapsed_time(ev[1])
+            if "flip_host_s" in rec:
+                rec["swap_lock_wait_s"] = rec["swap_s"] - rec["stage_s"] - \
+                    rec["flip_host_s"]
+            # what is left of the apply: reading the payload and its CRC
+            rec["read_crc_s"] = rec["total_s"] - sum(
+                rec.get(k, 0.0) for k in ("decode_s", "finite_s", "swap_s"))
+
+        # the trainer alone, publishing off, no traffic
+        st._bus = None
+        alone_ms = []
+        for _ in range(ou["alone_steps"]):
+            t0 = time.perf_counter()
+            st.step(xb, yb).asscalar()
+            alone_ms.append((time.perf_counter() - t0) * 1e3)
+
+        # ---------------------------------------------------- checks --
+        failures = [r for r in log if r["status"] not in (200, 504)
+                    or (r["status"] == 504 and not r.get("dropped"))]
+        if failures or stats["models"]["bert_base_sst2"]["failed"]:
+            raise AssertionError(f"online_update: failed requests "
+                                 f"{failures[:3]}")
+        applied = sorted(v for v, r in applies.items() if r["applied"])
+        rejected = sorted(v for v, r in applies.items() if not r["applied"])
+        poisoned = [e["poisoned"] for e in events if "poisoned" in e]
+        ok = [r for r in log if r["status"] == 200]
+        served = {r["version"] for r in ok}
+        if not served <= set(applied) | {0} or set(poisoned) & served:
+            raise AssertionError(f"online_update: versions served {served}, "
+                                 f"applied {applied}, poisoned {poisoned}")
+        for i in range(ou["clients"]):
+            seen = [r["version"] for r in sorted(
+                (r for r in ok if r["thread"] == i), key=lambda r: r["seq"])]
+            if seen != sorted(seen):
+                raise AssertionError(f"online_update: client {i} saw "
+                                     f"versions out of order: {seen}")
+        if len(poisoned) != 1 or not os.path.exists(bus.reject_path(
+                poisoned[0], watcher.worker)):
+            raise AssertionError(f"online_update: poisoned {poisoned}, "
+                                 f"rejected {rejected}")
+        rollback = [m for m in bus.manifests()
+                    if m["meta"].get("rollback_of") == poisoned[0]]
+        if len(rollback) != 1 or rollback[0]["version"] <= poisoned[0]:
+            raise AssertionError("online_update: no rollback after the "
+                                 f"poisoned version {poisoned[0]}")
+        if site1["captures"] != site0["captures"] or \
+                site1["misses"] != site0["misses"] or \
+                model.capture_stats()["captures"] != captures0:
+            raise AssertionError(f"online_update: serving captured after "
+                                 f"warmup: {site0} -> {site1}")
+        steps = ou["steps"]
+        want = dict.fromkeys(counts, 0)
+        want.update({"flash_attention": cfg["layers"] * (n_batches + steps),
+                     "flash_attention.mma": cfg["layers"] * (n_batches +
+                                                             steps),
+                     "flash_attention_bwd_dq": cfg["layers"] * steps,
+                     "flash_attention_bwd_dq.mma": cfg["layers"] * steps,
+                     "flash_attention_bwd_dkv": cfg["layers"] * steps,
+                     "flash_attention_bwd_dkv.mma": cfg["layers"] * steps,
+                     "opt_adam": steps})
+        if counts != want:
+            raise AssertionError(f"online_update: launches {counts} for "
+                                 f"{n_batches} batches and {steps} steps; "
+                                 f"want {want}")
+        if trainer1["replays"] - trainer0["replays"] != steps - 1:
+            raise AssertionError(f"online_update: trainer site {trainer0} "
+                                 f"-> {trainer1}")
+        hits = [r for r in ok if r["hit"]]
+        if not hits:
+            raise AssertionError("online_update: no cache hit")
+        if overload["batch"]["answered_share"] > \
+                overload["interactive"]["answered_share"]:
+            raise AssertionError(f"online_update: overload shares "
+                                 f"{overload}")
+
+        # one batch, one version: each checked response against the same
+        # rows run eagerly through a block holding that version's values,
+        # and against its neighbours' values, which must lie further off
+        # than SERVE_TOL by VERSION_MARGIN (else a response computed on a
+        # neighbour would pass); a rollback holds its source's values
+        ref = _classifier_on(dev, cfg, weights)
+        ref_params = list(ref.collect_params().values())
+        base = [p.data().asnumpy() for p in ref_params]
+        holds = {m["version"]: m["meta"].get("source_version", m["version"])
+                 for m in bus.manifests()}
+        computed = {}   # (hot payload, version) -> the answers computed
+        for r in ok:
+            if r["hot"] is not None and not r["hit"]:
+                computed.setdefault((r["hot"], r["version"]), []).append(
+                    r["out"])
+        seq = [0] + applied
+        picks = {}
+        for v in seq:
+            mine = [r for r in ok if r["version"] == v]
+            picks[v] = [r for r in mine if r["hit"]][:ou["checked"]] + \
+                [r for r in mine if not r["hit"]][:ou["checked"]]
+            if v and len(picks[v]) < ou["checked"]:
+                raise AssertionError(f"online_update: {len(picks[v])} "
+                                     f"responses of applied version {v}")
+        max_err, min_apart = 0.0, float("inf")
+        for i, u in enumerate(seq):
+            vals = modelbus.decode_update(*bus.read(u))[0] if u else base
+            for p, a in zip(ref_params, vals):
+                p.set_data(a)
+            for v in seq[max(i - 1, 0):i + 2]:
+                for r in picks[v]:
+                    xr = hot[r["hot"]] if r["hot"] is not None else r["x"]
+                    with torch.inference_mode():
+                        want_out = ref(mx.nd.array(xr)).asnumpy()
+                    d = float(np.abs(r["out"] - want_out).max())
+                    if holds.get(v, v) != holds.get(u, u):
+                        min_apart = min(min_apart, d)
+                        continue
+                    max_err = max(max_err, d)
+                    np.testing.assert_allclose(r["out"], want_out,
+                                               rtol=SERVE_TOL, atol=SERVE_TOL)
+        if not min_apart > VERSION_MARGIN * SERVE_TOL:
+            raise AssertionError(
+                f"online_update: a response lies {min_apart} from a "
+                f"neighbouring version's output, not above "
+                f"{VERSION_MARGIN} x SERVE_TOL")
+        checked = {}
+        for v in seq:
+            mine = [r for r in ok if r["version"] == v]
+            # a hit is an answer its version computed, bit for bit
+            for r in mine:
+                if r["hit"] and not any(np.array_equal(r["out"], c) for c in
+                                        computed.get((r["hot"], v), ())):
+                    raise AssertionError(
+                        f"online_update: a cache hit of version {v} is no "
+                        "answer that version computed")
+            checked[v] = {"responses": len(mine),
+                          "hits": sum(r["hit"] for r in mine),
+                          "checked": len(picks[v])}
+
+        # the largest gap between two served batches' ends (a flip's
+        # lock wait falls inside the second) across a flip
+        order = sorted(batches, key=lambda b: b[1])
+        gaps = [(b[1] - a[1], a[2] != b[2]) for a, b in zip(order,
+                                                          order[1:])]
+        flip_gaps = [g for g, flipped in gaps if flipped]
+        per_version = {v: {"publish": publishes.get(v),
+                           "apply": applies.get(v)} for v in sorted(
+                               set(publishes) | set(applies))}
+        staging = model._staging
+        summary = {
+            "phase": "online_update", "card": smi, "config": cfg, **ou,
+            "warmup": warm["models"][model.name],
+            "windows": _window_stats(log, windows),
+            "b_latency_by_bus_work": _bus_work_split(log, busy),
+            "step_ms": step_ms, "losses": losses,
+            "step_ms_median_no_publish": statistics.median(
+                ms for i, ms in enumerate(step_ms, 1) if i % ou["every"]),
+            "step_ms_publishing": [ms for i, ms in enumerate(step_ms, 1)
+                                   if i % ou["every"] == 0],
+            "step_ms_alone_median": statistics.median(alone_ms),
+            "events": events, "applied": applied, "rejected": rejected,
+            "poisoned": poisoned, "rollback": rollback[0]["version"],
+            "per_version": per_version,
+            "gap_ms_median": statistics.median(g for g, _ in gaps) * 1e3,
+            "gap_ms_max_across_flip": max(flip_gaps) * 1e3
+            if flip_gaps else None,
+            "gap_ms_max": max(g for g, _ in gaps) * 1e3,
+            "batches": n_batches, "responses": len(ok),
+            "checked_by_version": checked,
+            "max_abs_err_vs_block": max_err,
+            "min_abs_dist_to_neighbour_version": min_apart,
+            "cache": stats["models"]["bert_base_sst2"]["cache"],
+            "deadline_dropped": stats["models"]["bert_base_sst2"][
+                "deadline_dropped"],
+            "overload": overload, "launches": counts,
+            "serving_site_after_warmup": {"captures": site1["captures"] -
+                                          site0["captures"],
+                                          "misses": site1["misses"] -
+                                          site0["misses"]},
+            "trainer_replays": trainer1["replays"] - trainer0["replays"],
+            "max_memory_allocated": peak,
+            "staging_bytes": {
+                "device": sum(t.numel() * t.element_size()
+                              for t in staging[1]) if staging else 0,
+                "pinned_host": sum(t.numel() * t.element_size()
+                                   for t in staging[0]) if staging else 0},
+            "model_bus": stats["model_bus"]}
+        emit(summary)
+        return {"launches": counts, "batches": n_batches, "steps": steps}
+    finally:
+        for w in wrapped:
+            w.restore()
+        faults.reset()
+        shutil.rmtree(busdir, ignore_errors=True)
 
 
 # (B, H, S, D), dtype: the main shape in both dtypes, then S not a
@@ -5991,7 +6632,8 @@ def phase_transformer_lm(smi):
 
 PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "train_capture", "gluon_hybrid_train", "dropout_capture",
-          "int8_gemm", "serve_int8", "capture", "decode", "twobit",
+          "int8_gemm", "serve_int8", "capture", "online_update", "decode",
+          "twobit",
           "dist_check",
           "dist_train", "resnet_check", "resnet50_v1_train",
           "resnet50_v1_infer_bf16", "resnet50_v1_train_bf16",
@@ -6083,6 +6725,10 @@ def main(argv=None):
     elif "capture" in phases:
         raise SystemExit("the capture phase needs serve_int8's models: "
                          "run it with --phases serve_int8,capture")
+    if "online_update" in phases:
+        done["online_update"] = phase_online_update(smi)
+        gc.collect()
+        torch.cuda.empty_cache()
     if "decode" in phases:
         done["decode"] = phase_decode()
     if "twobit" in phases:
@@ -6134,6 +6780,9 @@ def main(argv=None):
     lm, lmv = done["transformer_lm"]["gpt2s"], \
         done["transformer_lm"]["variants"]
     lm_tensors = lm["trainable_tensors"]
+    # this slice: online_update's served batches (K3) and captured
+    # fine-tune steps (K3, K3-bwd, K2) beside the bus and the HTTP traffic
+    ou = done["online_update"]["launches"]
     lines = [
         _kernel_line("flash_attention", "flash_attention.cu",
                      "mxnet_tpu/kernels/flash.py:38",
@@ -6155,7 +6804,11 @@ def main(argv=None):
                          "launches_per_replayed_step"]["flash_attention"],
                      launches_per_replayed_lm_remat_step=lmv["remat"][
                          "launches_per_replay"]["flash_attention"],
-                     lm_shape=fwd["lm_shape"])]
+                     lm_shape=fwd["lm_shape"],
+                     launches_online_update=ou["flash_attention"],
+                     online_update_batches_and_steps=[
+                         done["online_update"]["batches"],
+                         done["online_update"]["steps"]])]
     # K3 and K3-bwd run every product on the tensor cores (3xTF32): their
     # bound is the tensor-core one; the float32 rate's stays beside it
     for part in ("dq", "dkv"):
@@ -6172,6 +6825,7 @@ def main(argv=None):
                 f"flash_attention_bwd_{part}"],
             launches_per_replayed_lm_step=lm["launches_per_replayed_step"][
                 f"flash_attention_bwd_{part}"],
+            launches_online_update=ou[f"flash_attention_bwd_{part}"],
             lm_shape={"ms": bwd["lm_shape"]["ms"][part],
                       "plain_ms": bwd["lm_shape"]["ms"][f"{part}_plain"],
                       "library_ms": bwd["lm_shape"]["ms"]["library"],
@@ -6234,7 +6888,8 @@ def main(argv=None):
                                   "opt_adam", 0),
                               launches_per_replayed_lm_step=lm[
                                   "launches_per_replayed_step"]["opt_adam"],
-                              lm_tensors=lm_tensors))
+                              lm_tensors=lm_tensors,
+                              launches_online_update=ou["opt_adam"]))
     k4 = done["int8_gemm"]
     lines.append(_kernel_line(
         "int8_gemm", "int8_gemm.cu", "mxnet_tpu/kernels/int8_gemm.py:86",

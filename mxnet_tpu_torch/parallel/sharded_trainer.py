@@ -77,7 +77,11 @@ the step's entry key, as in the JAX trainer's (:386).
 Not ported yet, and refused with :class:`MXNetError` where the JAX
 package would accept them: ``zero``, ``donate=False``, sharding ``rules``, meshes of more than one device,
 ``reshard=`` of ``resume`` (one device has nothing to reshard), and the
-model-bus, warmup/AOT and telemetry methods.
+warmup/AOT and telemetry methods.
+
+``publish_to`` / ``publish_update`` stream the weights into a model bus
+(:mod:`mxnet_tpu_torch.modelbus`) every K steps, in the JAX package's
+record format.
 """
 from __future__ import annotations
 
@@ -307,6 +311,14 @@ class ShardedTrainer:
             if self._nan_guard else []
         self.route_counts = dict.fromkeys(self._routes.census(), 0)
         self._t = 0
+        # the model bus (publish_to): none armed
+        self._bus = None
+        self._bus_every = 1
+        self._bus_rollback = True
+        self._bus_model = None
+        self._bus_topk = None
+        self._bus_host = None
+        self.published_versions = []
         self._t_dev = torch.zeros((), dtype=torch.float32, device=self._device)
         self._lr_dev = torch.zeros((), dtype=torch.float32,
                                    device=self._device)
@@ -399,6 +411,8 @@ class ShardedTrainer:
             self.route_counts[route] += n
         if self._nan_guard:
             self._account_skip(not bool(skip.item()))  # waits for the step
+        if self._bus is not None and self._t % self._bus_every == 0:
+            self.publish_update()
         return NDArray(loss)
 
     def _micro(self, x_raw, y_raw, weights, leaves, subs):
@@ -659,6 +673,82 @@ class ShardedTrainer:
     warmup = _unported_method("warmup", "warmup (AOT compile)")
     aot_lower = _unported_method("aot_lower", "aot_lower")
     step_report = _unported_method("step_report", "step telemetry")
-    publish_to = _unported_method("publish_to", "the model bus")
-    publish_update = _unported_method("publish_update", "the model bus")
+    # --------------------------------------------------------- model bus ---
+    def publish_to(self, bus, every=1, compress_threshold=None,
+                   model=None, topk=None, rollback=True):
+        """Stream live weight updates into a model bus: every ``every``-th
+        step publishes a version-stamped record of the current parameters
+        (and aux state) into ``bus`` (a directory path or a
+        :class:`~mxnet_tpu_torch.modelbus.ModelBus`) for serving
+        processes to apply between batches.
+
+        Small parameters ride as full tensors; those of at least
+        ``compress_threshold`` elements ride int8 per-row compressed;
+        ``topk`` ({param_name: k}) publishes only the k most-changed rows
+        of the named parameters. A non-finite update is never published.
+        With ``rollback`` (the default), a publish that finds the bus head
+        quarantined by a subscriber first re-publishes the newest good
+        version. Returns the :class:`~mxnet_tpu_torch.modelbus.ModelBus`.
+        """
+        from ..modelbus import ModelBus
+
+        self._bus = bus if isinstance(bus, ModelBus) \
+            else ModelBus(bus, compress_threshold=compress_threshold)
+        self._bus_every = max(1, int(every))
+        self._bus_rollback = bool(rollback)
+        self._bus_model = model
+        self._bus_topk = dict(topk) if topk else None
+        return self._bus
+
+    def publish_update(self):
+        """Publish the current weights to the armed bus now (the step
+        calls this every ``every`` steps; explicit calls are fine too).
+        Returns the published version, or None (a non-finite update, or
+        no bus armed)."""
+        if self._bus is None:
+            return None
+        params, aux = self._publish_host_copy()
+        if self._bus_topk:
+            # the bus keeps the values it published as the next record's
+            # base: those must not be the host buffers the next copy reuses
+            params = [(n, a.copy() if n in self._bus_topk else a)
+                      for n, a in params]
+        if self._bus_rollback:
+            self._bus.auto_rollback(worker="publisher")
+        version = self._bus.publish(params, step=self._t, aux=aux,
+                                    model=self._bus_model,
+                                    topk=self._bus_topk)
+        if version is not None:
+            self.published_versions.append(version)
+        return version
+
+    def _publish_host_copy(self):
+        """``(params, aux)`` as ``[(name, host array)]``: every tensor
+        copied to the host by one synchronised device-to-host copy after
+        the step (into pinned buffers kept from one publish to the next,
+        on a card)."""
+        handles = self._train_handles + self._aux_handles
+        for h in handles:
+            if h._data.dtype == torch.bfloat16:
+                raise MXNetError(
+                    "ShardedTrainer.publish_update: bfloat16 parameters "
+                    "have no numpy dtype in mxnet_tpu_torch, so the bus "
+                    "cannot carry them")
+        if self._device.type != "cuda":
+            arrays = [h._data.detach().to("cpu", copy=True).numpy()
+                      for h in handles]
+        else:
+            if self._bus_host is None:
+                self._bus_host = [torch.empty(h._data.shape,
+                                              dtype=h._data.dtype,
+                                              pin_memory=True)
+                                  for h in handles]
+            torch._foreach_copy_(self._bus_host, [h._data for h in handles],
+                                 non_blocking=True)
+            torch.cuda.current_stream(self._device).synchronize()
+            arrays = [buf.numpy() for buf in self._bus_host]
+        n = len(self._train_handles)
+        return (list(zip(self._param_names, arrays[:n])),
+                list(zip(self._aux_names, arrays[n:])))
+
     unshard = _unported_method("unshard", "unshard")

@@ -2,12 +2,16 @@
 
 Admission rejects are fast (raised at ``submit``, never after
 queueing), execution failures carry their cause, and every client wait
-is bounded (:class:`RequestTimeout`).
+is bounded (:class:`RequestTimeout`). The HTTP front end maps them to
+404 (ModelNotFound), 429 (ServerBusyError), 503 (ServerDrainingError),
+504 (RequestTimeout, and DeadlineExceeded with ``"dropped": true``) and
+500 (RequestError).
 """
 from __future__ import annotations
 
 __all__ = ["ServingError", "ModelNotFound", "ServerBusyError",
-           "ServerDrainingError", "RequestError", "RequestTimeout"]
+           "ServerDrainingError", "RequestError", "RequestTimeout",
+           "DeadlineExceeded"]
 
 
 class ServingError(RuntimeError):
@@ -58,3 +62,25 @@ class RequestError(ServingError):
 
 class RequestTimeout(ServingError):
     """``ServingFuture.result()`` waited longer than its timeout."""
+
+
+class DeadlineExceeded(ServingError):
+    """The request's own deadline cannot be met, so it was dropped before
+    it took a batch slot (HTTP 504 analogue; no compute was spent on it).
+    Raised at submit time when the measured batch time already overshoots
+    the deadline, or by the collector when the deadline expired (or the
+    estimate overshoots) while the request waited. Attributes: ``model``,
+    ``deadline_ms``, ``estimate_ms`` (the batcher's estimate, when known),
+    ``where`` (``"submit"`` | ``"queue"``)."""
+
+    def __init__(self, model, deadline_ms, estimate_ms=None, where="queue"):
+        self.model = model
+        self.deadline_ms = deadline_ms
+        self.estimate_ms = estimate_ms
+        self.where = where
+        est = (f"; estimated completion {estimate_ms:.1f}ms"
+               if estimate_ms is not None else "")
+        super().__init__(
+            f"model {model!r} request dropped at {where}: cannot meet "
+            f"{deadline_ms:.1f}ms deadline{est} (HTTP 504 analogue, "
+            "no batch slot was consumed)")

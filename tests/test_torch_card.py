@@ -36,7 +36,11 @@ run on a machine that has only PyTorch:
 * the causal flash forward and backward at ``transformer_lm``'s
   GPT-2-small shape against their plain versions, a dropped captured
   trainer returning its graph pool without a collection (fault C10),
-  and a captured ``remat`` step drawing the eager steps' Dropout masks.
+  and a captured ``remat`` step drawing the eager steps' Dropout masks;
+* ``ServedModel.swap_params`` on a captured bucket ladder: the output
+  changes, nothing is captured again and the copy runs on the replay
+  stream; swaps racing replays never give a batch that matches neither
+  version.
 """
 import math
 
@@ -1656,3 +1660,144 @@ def test_native_io_build_holds_its_plain_versions(cuda_device, tmp_path):
     for (d, lb), (dc, lc) in zip(card, cpu):
         assert np.array_equal(d.asnumpy(), dc)
         assert np.array_equal(lb.asnumpy(), lc)
+
+
+def _swap_model():
+    from mxnet_tpu_torch import serving
+
+    model = serving.ServedModel.from_block(
+        "swap", _capture_clf(), example_shape=(CAPTURE_CFG["seq_len"],),
+        buckets=(2, 4, 8))
+    model.warmup()
+    return model
+
+
+def _scaled(model, factor):
+    """The model's parameters times ``factor``, as host arrays."""
+    return [t.detach().cpu().numpy() * np.float32(factor)
+            for t in model.pinned()[0]]
+
+
+@pytest.mark.gpu
+def test_swap_params_on_a_captured_ladder_on_card(cuda_device, monkeypatch):
+    """A swap writes new values into the tensors the bucket graphs read:
+    the output changes to that of a block holding the new values, no
+    bucket is captured again, the snapshot keeps its storage, and the
+    copy into it runs on the replay stream; swapping the old values back
+    gives the old output bit for bit."""
+    from mxnet_tpu_torch import compile as mxc
+
+    model = _swap_model()
+    captures = model.capture_stats()["captures"]
+    misses = mxc.stats()["serving"]["misses"]
+    x = np.zeros((4, CAPTURE_CFG["seq_len"]), np.float32)
+    x[:3] = _capture_tokens(3, seed=41)
+    before = model.run(x, 3)[0]
+    old, new = _scaled(model, 1.0), _scaled(model, 1.25)
+    ptrs = [t.data_ptr() for t in model.pinned()[0]]
+    streams, real = [], torch._foreach_copy_
+
+    def spy(dst, src, **kw):
+        if [t.data_ptr() for t in dst] == ptrs:   # a copy into the snapshot
+            streams.append(torch.cuda.current_stream())
+        return real(dst, src, **kw)
+
+    monkeypatch.setattr(torch, "_foreach_copy_", spy)
+    model.swap_params(new, 1)
+    after, version = model.run_versioned(x, 3)
+    assert streams == [model.replay_stream] and version == 1
+    assert not np.allclose(after[0], before)
+    ref = _capture_clf()
+    for p, a in zip(ref.collect_params().values(), new):
+        p.set_data(a)
+    with torch.inference_mode():
+        want = ref(mx.nd.array(x[:3])).asnumpy()
+    np.testing.assert_allclose(after[0], want, rtol=1e-4, atol=1e-4)
+    model.swap_params(old, 2)
+    np.testing.assert_array_equal(model.run(x, 3)[0], before)
+    assert [t.data_ptr() for t in model.pinned()[0]] == ptrs
+    assert model.capture_stats()["captures"] == captures
+    assert mxc.stats()["serving"]["misses"] == misses
+    assert (model.version, model.swaps) == (2, 2)
+
+
+@pytest.mark.gpu
+def test_swaps_racing_replays_never_tear_a_batch_on_card(cuda_device):
+    """Two threads replay a bucket while the main thread swaps two value
+    sets back and forth: every batch equals, bit for bit, the output of
+    the set its stamped version names (odd versions the scaled set, even
+    the original)."""
+    import threading
+
+    model = _swap_model()
+    x = np.zeros((8, CAPTURE_CFG["seq_len"]), np.float32)
+    x[:7] = _capture_tokens(7, seed=42)
+    sets = {0: _scaled(model, 1.0), 1: _scaled(model, 1.25)}
+    want = {}
+    for v in (1, 2):
+        model.swap_params(sets[v % 2], v)
+        want[v % 2] = model.run(x, 7)[0]
+    assert not np.array_equal(want[0], want[1])
+    stop, bad, seen = threading.Event(), [], [0]
+
+    def replays():
+        while not stop.is_set():
+            out, v = model.run_versioned(x, 7)
+            if not np.array_equal(out[0], want[v % 2]):
+                bad.append(v)
+            seen[0] += 1
+
+    threads = [threading.Thread(target=replays) for _ in range(2)]
+    for t in threads:
+        t.start()
+    for v in range(3, 43):
+        model.swap_params(sets[v % 2], v)
+    stop.set()
+    for t in threads:
+        t.join(timeout=120)
+    assert not bad and seen[0] > 0 and model.version == 42
+
+
+@pytest.mark.gpu
+def test_two_swappers_racing_replays_never_mix_versions_on_card(
+        cuda_device):
+    """Two threads swap two value sets (odd versions the scaled set, even
+    the original) into the shared staging sets while two threads replay a
+    bucket: every batch equals, bit for bit, the output of the set its
+    stamped version names, and the last stamp names the values left."""
+    import threading
+
+    model = _swap_model()
+    x = np.zeros((8, CAPTURE_CFG["seq_len"]), np.float32)
+    x[:7] = _capture_tokens(7, seed=43)
+    sets = {0: _scaled(model, 1.0), 1: _scaled(model, 1.25)}
+    want = {}
+    for v in (1, 2):
+        model.swap_params(sets[v % 2], v)
+        want[v % 2] = model.run(x, 7)[0]
+    assert not np.array_equal(want[0], want[1])
+    stop, bad, seen = threading.Event(), [], [0]
+
+    def replays():
+        while not stop.is_set():
+            out, v = model.run_versioned(x, 7)
+            if not np.array_equal(out[0], want[v % 2]):
+                bad.append(v)
+            seen[0] += 1
+
+    def swaps(first):
+        for v in range(first, 83, 2):
+            model.swap_params(sets[v % 2], v)
+
+    readers = [threading.Thread(target=replays) for _ in range(2)]
+    swappers = [threading.Thread(target=swaps, args=(f,)) for f in (3, 4)]
+    for t in readers + swappers:
+        t.start()
+    for t in swappers:
+        t.join(timeout=120)
+    stop.set()
+    for t in readers:
+        t.join(timeout=120)
+    assert not bad and seen[0] > 0 and model.swaps == 82
+    out, v = model.run_versioned(x, 7)
+    assert np.array_equal(out[0], want[v % 2])

@@ -212,9 +212,10 @@ def test_unported_optimizers_meshes_and_methods_raise():
     with pytest.raises(ValueError, match="require 2 devices"):
         DeviceMesh({"dp": 2}, devices=[CPU])
     st = ShardedTrainer(net, mx.gluon.loss.L2Loss(), mesh=mesh)
-    for name in ("publish_to", "warmup"):
+    for name in ("aot_lower", "warmup"):
         with pytest.raises(mx.MXNetError, match="not ported"):
             getattr(st, name)(None, None)
+    # publish_to / publish_update are ported (tests/test_torch_modelbus.py);
     # the eager Optimizer.update is ported (tests/test_torch_trainer.py);
     # the dist_async kvstore is not. lr schedulers, multi_precision,
     # bfloat16 parameters and checkpoints are ported
