@@ -348,6 +348,41 @@ Phases, each printing one JSON line:
     run over the plain versions. ``--dtype bfloat16`` is left out: a
     float32 record batch into a bfloat16 graph is refused at bind by the
     JAX Module and the port's.
+28. lstm_lm_ptb_medium: ``examples/gluon/word_lm.py --vocab-size 10000
+    --embed-dim 650 --hidden 650 --layers 2 --bptt 35 --batch-size 20 --lr
+    20 --clip 0.25 --tied --corpus-tokens 84000`` (``WORD_LM``, the
+    medium configuration of Zaremba et al. 2014; 13.3 M parameters, the
+    example's dropout 0.2), its model and loop copied here
+    (``word_lm_model``, ``word_lm_step``), hybridized. First the RNN op's
+    cuDNN route against its per-step form at the run's shape (35, 20,
+    650, 650) for every mode, 1 and 2 layers and a bidirectional GRU
+    (forward within ``RNN_TOL`` element by element, gradients within it
+    of each tensor's largest value), both routes timed beside
+    ``torch.nn.LSTM`` with its weights in one cuDNN buffer and the flat
+    vector's concat. Then one pass of 119 steps, the ``cachedop`` pair
+    captured once (every RNN layer run through cuDNN, the clipped
+    gradients' norm at most 0.25 x 35 x 20 at every step, perplexity over
+    the last 20 steps below the first 20), 5 captured steps against 5
+    eager ones from one state and seed (the same Dropout masks), the tied
+    matrix's replayed gradient against its embedding and decoder parts
+    computed apart, step ms captured and eager (A B B A), tokens/s, the
+    host's synchronizing calls per step by call site, a profiled step of
+    each mode (device ms by kernel group and, eager, by op; busy share),
+    peak memory and the pair's pool.
+29. lstm_ptb_bucketing: ``examples/rnn/train_ptb.py --num-embed 200
+    --num-hidden 200 --vocab-size 10000 --batch-size 32 --num-sentences
+    4000`` (``PTB_BUCKETING``; its ``synthetic_corpus``,
+    ``BucketSentenceIter`` and ``sym_gen`` copied here):
+    ``BucketingModule.fit`` with "adam", Xavier, ``Perplexity`` and
+    ``Speedometer(32, 20)``, one epoch over buckets 10/20/30/40. Fails
+    unless exactly 4 ``executor`` captures (each at its bucket's second
+    batch, none after), one storage for every parameter, gradient and
+    Adam state across the buckets, K2 one launch a batch, falling
+    perplexity, and a fresh ``Module`` bound at bucket 20 with the same
+    parameters giving that bucket's outputs within ``RNN_MODULE_TOL``.
+    Then batch ms by bucket captured and eager (A B B A) with the
+    metric's share, samples/s, a profiled batch of each bucket (K2's
+    device ms), each bucket's graph pool and the total.
 
 The twobit phase also holds the single-tensor compress and the
 decompress in float16 and bfloat16 bit for bit against their plain
@@ -363,7 +398,8 @@ its device time inside the bfloat16 steps and the casts' time; K1, K2,
 K3 and K3-bwd with their launches per replayed training graph, K2, K3
 and K3-bwd with their launches per replayed LM step and K3 and K3-bwd
 with their times at the LM's shape; K2, K3 and K3-bwd with their
-launches in online_update; K6 and K7 with their half-precision times), the
+launches in online_update; K2 with its launches and device ms a batch in
+lstm_ptb_bucketing; K6 and K7 with their half-precision times), the
 card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure is an
 exception and a non-zero exit. ``--phases`` runs a subset (device and
@@ -6630,6 +6666,923 @@ def phase_transformer_lm(smi):
     return out
 
 
+# examples/gluon/word_lm.py at the medium configuration of Zaremba et al.
+# 2014 (arXiv:1409.2329; MXNet's example/gluon/word_language_model
+# --emsize 650 --nhid 650 --tied): 2 LSTM layers of 650 units, 35
+# unrolled steps, batch 20, PTB's 10,000 words, the example's synthetic
+# bigram corpus of 84,000 tokens (one pass of 119 steps, the cut)
+WORD_LM = {"vocab_size": 10000, "embed_dim": 650, "hidden": 650,
+           "layers": 2, "bptt": 35, "batch_size": 20, "lr": 20.0,
+           "clip": 0.25, "tied": True, "corpus_tokens": 84000,
+           "dropout": 0.2, "check_steps": 5, "abba_steps": 10,
+           "ppl_window": 20}
+# examples/rnn/train_ptb.py at MXNet 1.x's example/rnn/bucketing/
+# lstm_bucketing.py defaults (200 units, batch 32; its 2 layers cannot be
+# set, train_ptb.py:118 fixes 1), one epoch of 4,000 synthetic sentences
+PTB_BUCKETING = {"num_embed": 200, "num_hidden": 200, "vocab_size": 10000,
+                 "batch_size": 32, "num_sentences": 4000,
+                 "buckets": [10, 20, 30, 40], "lr": 0.01, "num_epochs": 1,
+                 "abba_batches": 5, "ppl_window": 20}
+RNN_TOL = 2e-5           # float32 rtol = atol, cuDNN against the per-step form
+RNN_TIED_RTOL = 1e-5     # the tied gradient against its two parts' sum
+RNN_MODULE_TOL = 1e-6    # a fresh Module against the bucket's executor
+PAIR_CAPTURE_CALL = 2    # a pair's first call runs eagerly, its second captures
+
+
+def word_lm_model(mx):
+    """``examples/gluon/word_lm.py:29-59``'s ``RNNModel``, verbatim, over
+    package ``mx``'s blocks."""
+    gluon = mx.gluon
+    nn, rnn = mx.gluon.nn, mx.gluon.rnn
+
+    class RNNModel(gluon.HybridBlock):
+        """embedding -> LSTM -> dropout -> dense decoder; optional weight
+        tying (decoder shares the embedding matrix)."""
+
+        def __init__(self, vocab_size, embed_dim, hidden, layers,
+                     dropout=0.2, tie_weights=False, **kwargs):
+            super().__init__(**kwargs)
+            self.hidden = hidden
+            with self.name_scope():
+                self.drop = nn.Dropout(dropout)
+                self.encoder = nn.Embedding(vocab_size, embed_dim)
+                self.rnn = rnn.LSTM(hidden, num_layers=layers,
+                                    dropout=dropout, input_size=embed_dim)
+                if tie_weights:
+                    if embed_dim != hidden:
+                        raise ValueError("weight tying needs embed_dim == "
+                                         "hidden")
+                    self.decoder = nn.Dense(vocab_size, flatten=False,
+                                            params=self.encoder.params)
+                else:
+                    self.decoder = nn.Dense(vocab_size, flatten=False)
+
+        def hybrid_forward(self, F, inputs, state):
+            emb = self.drop(self.encoder(inputs))          # (T, B, E)
+            out, state = self.rnn(emb, state)
+            out = self.drop(out)
+            return self.decoder(out), state
+
+        def begin_state(self, batch_size, ctx):
+            return self.rnn.begin_state(batch_size=batch_size, ctx=ctx)
+
+    return RNNModel
+
+
+def batchify(ids, batch_size):
+    """``word_lm.py:62-66``, verbatim: the token stream folded into
+    (num_steps, batch_size) columns."""
+    n = len(ids) // batch_size
+    ids = np.asarray(ids[: n * batch_size], np.float32)
+    return ids.reshape(batch_size, n).T
+
+
+def word_lm_corpus(vocab_size, corpus_tokens):
+    """``word_lm.py:77-88``'s synthetic corpus, verbatim: Zipf draws, each
+    followed by a fixed successor with probability 0.8."""
+    rng = np.random.RandomState(42)
+    ranks = np.arange(1, vocab_size)
+    probs = (1.0 / ranks) / (1.0 / ranks).sum()
+    succ = rng.permutation(vocab_size)
+    ids = [int(rng.choice(ranks, p=probs))]
+    for _ in range(corpus_tokens - 1):
+        if rng.rand() < 0.8:
+            ids.append(int(succ[ids[-1]]))
+        else:
+            ids.append(int(rng.choice(ranks, p=probs)))
+    return ids, vocab_size
+
+
+def detach(state):
+    """``word_lm.py:91-94``, verbatim."""
+    if isinstance(state, (list, tuple)):
+        return [detach(s) for s in state]
+    return state.detach()
+
+
+def word_lm_step(mx, model, trainer, loss_fn, cfg, vocab_size, x, y, state,
+                 ctx, clip_check=None):
+    """One pass of ``word_lm.py:138-152``'s loop body, verbatim; returns
+    ``(state, nll sum, clip total, tokens)``. ``clip_check(grads)`` sees
+    the clipped gradients before the trainer steps on them."""
+    state = detach(state)  # truncated BPTT boundary
+    with mx.autograd.record():
+        out, state = model(x, state)
+        loss = loss_fn(out.reshape((-1, vocab_size)), y.reshape((-1,)))
+    loss.backward()
+    grads = [p.grad(ctx) for p in model.collect_params().values()
+             if p.grad_req != "null"]
+    total = mx.gluon.utils.clip_global_norm(
+        grads, cfg["clip"] * cfg["bptt"] * cfg["batch_size"])
+    if clip_check is not None:
+        clip_check(grads)
+    trainer.step(cfg["bptt"] * cfg["batch_size"])
+    return state, float(loss.sum().asscalar()), total, loss.size
+
+
+def synthetic_corpus(num_sentences, vocab_size, seed):
+    """``examples/rnn/train_ptb.py:38-55``, verbatim: Zipf-distributed
+    token sequences with a simple bigram structure."""
+    rng = np.random.RandomState(seed)
+    ranks = np.arange(1, vocab_size)
+    probs = 1.0 / ranks
+    probs /= probs.sum()
+    sentences = []
+    for _ in range(num_sentences):
+        length = int(rng.randint(5, 35))
+        toks = [int(rng.choice(ranks, p=probs))]
+        for _ in range(length - 1):
+            # bigram: next token correlates with previous (learnable)
+            prev = toks[-1]
+            toks.append((prev * 7 + int(rng.choice(ranks, p=probs)))
+                        % (vocab_size - 1) + 1)
+        sentences.append(toks + [0])
+    return sentences
+
+
+def bucket_sentence_iter(mx):
+    """``train_ptb.py:58-104``'s ``BucketSentenceIter``, verbatim, over
+    package ``mx``: pads each sentence to its bucket length and yields
+    batches tagged with ``bucket_key``."""
+
+    class BucketSentenceIter(mx.io.DataIter):
+        def __init__(self, sentences, batch_size, buckets, vocab_size):
+            super().__init__(batch_size)
+            self.buckets = sorted(buckets)
+            self.data = {b: [] for b in self.buckets}
+            for s in sentences:
+                for b in self.buckets:
+                    if len(s) <= b:
+                        self.data[b].append(s + [0] * (b - len(s)))
+                        break
+            self.vocab_size = vocab_size
+            self.default_bucket_key = max(self.buckets)
+            # sequences feed as (tokens[:-1] -> tokens[1:]): length key-1
+            self.provide_data = [mx.io.DataDesc(
+                "data", (batch_size, self.default_bucket_key - 1))]
+            self.provide_label = [mx.io.DataDesc(
+                "softmax_label", (batch_size, self.default_bucket_key - 1))]
+            self.reset()
+
+        def reset(self):
+            self._plan = []
+            for b in self.buckets:
+                arr = np.asarray(self.data[b], np.float32)
+                for s in range(0, len(arr) - self.batch_size + 1,
+                               self.batch_size):
+                    self._plan.append((b, arr[s:s + self.batch_size]))
+            self._cursor = 0
+
+        def next(self):
+            if self._cursor >= len(self._plan):
+                raise StopIteration
+            bucket, chunk = self._plan[self._cursor]
+            self._cursor += 1
+            data = mx.nd.array(chunk[:, :-1])
+            label = mx.nd.array(chunk[:, 1:])
+            batch = mx.io.DataBatch(
+                data=[data], label=[label], pad=0, index=None)
+            batch.bucket_key = bucket
+            batch.provide_data = [mx.io.DataDesc("data", data.shape)]
+            batch.provide_label = [mx.io.DataDesc("softmax_label",
+                                                  label.shape)]
+            return batch
+
+    return BucketSentenceIter
+
+
+def sym_gen_factory(mx, vocab_size, num_embed, num_hidden, batch_size):
+    """``train_ptb.py:107-131``'s ``sym_gen_factory``, verbatim, over
+    package ``mx``: one LSTM layer through ``mx.sym.RNN``."""
+    def sym_gen(bucket_key):
+        seq_len = bucket_key - 1  # noqa: F841 - the example's
+        data = mx.sym.var("data")
+        label = mx.sym.var("softmax_label")
+        embed = mx.sym.Embedding(data, input_dim=vocab_size,
+                                 output_dim=num_embed, name="embed")
+        state = mx.sym.var("lstm_init_state", init=mx.init.Zero(),
+                           shape=(1, batch_size, num_hidden))
+        cell = mx.sym.var("lstm_init_cell", init=mx.init.Zero(),
+                          shape=(1, batch_size, num_hidden))
+        rnn_out = mx.sym.RNN(mx.sym.transpose(embed, axes=(1, 0, 2)),
+                             state=state, state_cell=cell,
+                             state_size=num_hidden, num_layers=1,
+                             mode="lstm", name="lstm")
+        flat = mx.sym.Reshape(rnn_out, shape=(-1, num_hidden))
+        pred = mx.sym.FullyConnected(flat, num_hidden=vocab_size,
+                                     name="pred")
+        lab_flat = mx.sym.Reshape(label, shape=(-1,))
+        sm = mx.sym.SoftmaxOutput(pred, lab_flat, name="softmax")
+        return sm, ("data",), ("softmax_label",)
+
+    return sym_gen
+
+
+def _rnn_inputs(mode, layers, bidirectional, shape, dev, seed):
+    """Seeded ``(x, params, h0, c0)`` for the RNN op at ``shape`` =
+    (T, B, I, H) on ``dev``, each requiring grad (``c0`` None outside
+    LSTM): uniform weights of scale 1/sqrt(H), as PyTorch's RNNs draw."""
+    from mxnet_tpu_torch.ops import nn as nn_ops
+
+    t, b, i, h = shape
+    ndir = 2 if bidirectional else 1
+    gen = torch.Generator().manual_seed(seed)
+    dev = dev.torch_device() if isinstance(dev, mx.Context) else dev
+    n = nn_ops.rnn_param_size(i, h, layers, mode, bidirectional)
+
+    def rand(*s, scale=1.0):
+        return ((torch.rand(s, generator=gen) * 2 - 1) * scale).to(dev) \
+            .requires_grad_(True)
+
+    c0 = rand(layers * ndir, b, h) if mode == "lstm" else None
+    return (rand(t, b, i), rand(n, scale=h ** -0.5),
+            rand(layers * ndir, b, h), c0)
+
+
+def rnn_route_pair(mode, layers, bidirectional, shape, dev, seed=0):
+    """The RNN op's cuDNN route and its per-step form (the plain
+    version) on the same inputs: ``(outputs, gradients)`` of each, the
+    gradients of a seeded weighted sum of ``out``, ``hn`` and ``cn``
+    with respect to data, parameters and states."""
+    from mxnet_tpu_torch.ops import nn as nn_ops
+
+    ins = _rnn_inputs(mode, layers, bidirectional, shape, dev, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    dev = ins[0].device
+    runs = []
+    for route in ("cudnn", "steps"):
+        outs = nn_ops.rnn_run(route, *ins, shape[3], layers, mode,
+                              bidirectional)
+        outs = [o for o in outs if o is not None]
+        if not runs:
+            weights = [torch.randn(o.shape, generator=gen).to(dev)
+                       for o in outs]
+        loss = sum((o * w).sum() for o, w in zip(outs, weights))
+        grads = torch.autograd.grad(loss, [t for t in ins if t is not None])
+        runs.append(([o.detach() for o in outs], list(grads)))
+    return runs
+
+
+def _rnn_errors(got, want, per_tensor=False):
+    """Largest ``|got - want|`` over tensor lists, and its largest ratio
+    to the tolerance (at most 1 within it): ``atol + rtol |want|``
+    element by element, or with ``per_tensor`` ``rtol max |want|`` over
+    each tensor (``RNN_TOL`` both). Gradients take the second: each
+    element of a weight's gradient is a float32 sum over T x B products
+    whose rounding follows the tensor's largest values, not its own (the
+    per-element test fails for rnn_tanh's gradients at the word LM's
+    shape by 1.5x on an H100, TF32 off)."""
+    err, ratio = 0.0, 0.0
+    for g, w in zip(got, want):
+        d = (g - w).abs()
+        err = max(err, float(d.max()))
+        if per_tensor:
+            r = float(d.max()) / max(RNN_TOL * float(w.abs().max()), 1e-30)
+        else:
+            r = float((d / (RNN_TOL + RNN_TOL * w.abs())).max())
+        ratio = max(ratio, r)
+    return err, ratio
+
+
+RNN_ROUTE_CASES = [(m, layers, False) for m in ("lstm", "gru", "rnn_tanh",
+                                                "rnn_relu")
+                   for layers in (1, 2)] + [("gru", 2, True)]
+
+
+def _rnn_route_checks(dev, cfg):
+    """The RNN op's cuDNN route against its per-step form at the word
+    LM's shape (35, 20, 650, 650) for every ``RNN_ROUTE_CASES`` case,
+    forward and gradients within ``RNN_TOL``; then both routes' forward
+    and forward + backward ms (CUDA events) for the LSTM of the run, the
+    same LSTM through ``torch.nn.LSTM`` with its weights in one cuDNN
+    buffer (a yardstick: the difference is the compaction of the views
+    at each call) and the gluon layer's concat of its 16 tensors into
+    the flat vector."""
+    from mxnet_tpu_torch.ops import nn as nn_ops
+
+    shape = (cfg["bptt"], cfg["batch_size"], cfg["embed_dim"],
+             cfg["hidden"])
+    cases, bad = [], []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for mode, layers, bi in RNN_ROUTE_CASES:
+            (o_c, g_c), (o_s, g_s) = rnn_route_pair(mode, layers, bi, shape,
+                                                    dev)
+            fe, fr = _rnn_errors(o_c, o_s)
+            ge, gr = _rnn_errors(g_c, g_s, per_tensor=True)
+            case = {"mode": mode, "layers": layers, "bidirectional": bi,
+                    "forward_max_abs_err": fe, "forward_tol_ratio": fr,
+                    "grad_max_abs_err": ge, "grad_tol_ratio": gr,
+                    "grad_max_abs": max(float(g.abs().max()) for g in g_s)}
+            cases.append(case)
+            if fr > 1 or gr > 1:
+                bad.append(case)
+    warned = sorted({str(w.message)[:160] for w in caught})
+    x, params, h0, c0 = _rnn_inputs("lstm", cfg["layers"], False, shape,
+                                    dev, 0)
+    t, h = shape[0], shape[3]
+
+    def run(route, backward):
+        def go():
+            out, hn, cn = nn_ops.rnn_run(route, x, params, h0, c0, h,
+                                         cfg["layers"], "lstm", False)
+            if backward:
+                torch.autograd.grad(out.sum() + hn.sum() + cn.sum(),
+                                    [x, params, h0, c0])
+        return go
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        times = {f"{route}_{what}_ms": cuda_ms(run(route, bwd), iters=10)
+                 for route in ("cudnn", "steps")
+                 for what, bwd in (("forward", False),
+                                   ("forward_backward", True))}
+    lib = torch.nn.LSTM(shape[2], h, cfg["layers"]).to(x.device)
+    with torch.no_grad():
+        for layer, (wx, wh, bx, bh) in enumerate(nn_ops.rnn_weights(
+                params, "lstm", cfg["layers"], 1, shape[2], h)):
+            for name, v in (("weight_ih", wx), ("weight_hh", wh),
+                            ("bias_ih", bx), ("bias_hh", bh)):
+                getattr(lib, f"{name}_l{layer}").copy_(v)
+    lib.flatten_parameters()
+
+    def lib_run(backward):
+        def go():
+            out, (hn, cn) = lib(x, (h0, c0))
+            if backward:
+                torch.autograd.grad(out.sum() + hn.sum() + cn.sum(),
+                                    [x, h0, c0] + list(lib.parameters()))
+        return go
+
+    times["one_buffer_forward_ms"] = cuda_ms(lib_run(False), iters=10)
+    times["one_buffer_forward_backward_ms"] = cuda_ms(lib_run(True),
+                                                      iters=10)
+    pieces = [w.detach().clone() for layer in nn_ops.rnn_weights(
+        params, "lstm", cfg["layers"], 1, shape[2], h) for w in layer]
+    times["concat_ms"] = cuda_ms(lambda: torch.cat(
+        [p.reshape(-1) for p in pieces]), iters=20)
+    out = {"shape_tbih": list(shape), "tol": RNN_TOL, "cases": cases,
+           "torch_warnings": warned, "lstm_times": times,
+           "flat_vector_bytes": params.numel() * 4}
+    if bad:
+        raise AssertionError(f"lstm_lm_ptb_medium: the cuDNN route and the "
+                             f"per-step form differ past {RNN_TOL}: {bad}")
+    return out
+
+
+def _rnn_group(name):
+    """Kernel groups of the recurrent steps: cuDNN's RNN kernels, the
+    GEMMs (cuDNN's own and the decoder's), the fused Adam step (K2),
+    softmax and cross-entropy, copies (the flat vector's concat and the
+    compaction of its views), other elementwise passes."""
+    low = name.lower()
+    for group, keys in (("k2_adam", ("opt_step_kernel",)),
+                        ("cudnn_rnn", ("rnn", "lstm", "persist")),
+                        ("gemm", ("gemm", "cutlass", "sm90_xmma", "cublas")),
+                        ("softmax_cross_entropy", ("softmax", "nll_loss",
+                                                   "cross_entropy")),
+                        ("copy_concat", ("copy", "cat", "memcpy")),
+                        ("reduce_norm", ("reduce", "norm")),
+                        ("elementwise", ("elementwise", "vectorized",
+                                         "foreach", "fill", "index"))):
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+# aten ops of an eager word-LM step whose device time (their kernels')
+# the profile reports: the cuDNN RNN (its forward holds the compaction
+# copy), the flat vector's concat, the decoder's products, softmax-CE,
+# the clip and the SGD update
+_RNN_OPS = ("aten::_cudnn_rnn", "aten::_cudnn_rnn_backward", "aten::cat",
+            "aten::addmm", "aten::mm", "aten::matmul", "aten::_log_softmax",
+            "aten::_log_softmax_backward_data", "aten::nll_loss_forward",
+            "aten::nll_loss_backward", "aten::linalg_vector_norm",
+            "aten::_foreach_mul_", "aten::embedding_dense_backward",
+            "aten::index_select", "aten::copy_")
+
+
+def _rnn_profile(fn, reps, eager):
+    """``reps`` calls of ``fn`` under ``torch.profiler`` (the compile
+    service on, or off with ``eager``): the window's host ms per call,
+    device ms by ``_rnn_group`` and the busy share, the top kernels, and
+    for an eager window the device ms of the ``_RNN_OPS`` ops."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prev = compile_service.set_enabled(not eager)
+    try:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            window_ms = (time.perf_counter() - t0) * 1e3 / reps
+    finally:
+        compile_service.set_enabled(prev)
+    groups, top, ops = {}, {}, {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and \
+                e.self_device_time_total > 0 and \
+                not getattr(e, "is_user_annotation", False):
+            ms = e.self_device_time_total / 1e3 / reps
+            g = _rnn_group(e.key)
+            groups[g] = groups.get(g, 0.0) + ms
+            top[e.key] = top.get(e.key, 0.0) + ms
+        elif e.key in _RNN_OPS and e.device_time_total > 0:
+            ops[e.key] = {"device_ms": e.device_time_total / 1e3 / reps,
+                          "calls": e.count / reps}
+    busy = sum(groups.values())
+    out = {"window_ms_per_call": window_ms,
+           "device_ms_per_call": busy if groups else "not measured",
+           "busy_share": busy / window_ms if groups else "not measured",
+           "device_ms_by_group": groups,
+           "top_kernels_ms": [[k[:90], v, _rnn_group(k)] for k, v in sorted(
+               top.items(), key=lambda kv: -kv[1])[:15]]}
+    if eager:
+        out["device_ms_by_op"] = ops
+    return out
+
+
+def _sync_count(fn):
+    """``{file:line of the Python call: count}`` of the synchronizing
+    CUDA calls ``fn()`` makes (the host waiting on the card), as
+    ``torch.cuda.set_sync_debug_mode("warn")`` flags them."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    where = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            key = f"{os.path.basename(w.filename)}:{w.lineno}"
+            where[key] = where.get(key, 0) + 1
+    return where
+
+
+def _structured_grads(model, ctx):
+    """``{structural name: gradient copy}`` of the model's parameters."""
+    return {n: p.grad(ctx)._data.detach().clone() for n, p in
+            model._collect_params_with_structure().items()
+            if p.grad_req != "null"}
+
+
+def _tied_check(model, untied, cfg, vocab_size, x, y, dev):
+    """The tied matrix's gradient from the captured pair (one forward and
+    backward, dropout masks from ``mx.random.seed(5)``) against the sum
+    of its embedding and decoder parts, computed eagerly by an untied
+    copy of the same weights under the same seed."""
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    grads = {}
+    for name, net, eager in (("tied", model, False), ("untied", untied,
+                                                      True)):
+        prev = compile_service.set_enabled(not eager)
+        try:
+            mx.random.seed(5)
+            state = net.begin_state(cfg["batch_size"], dev)
+            with mx.autograd.record():
+                out, _ = net(x, state)
+                loss = loss_fn(out.reshape((-1, vocab_size)),
+                               y.reshape((-1,)))
+            loss.backward()
+        finally:
+            compile_service.set_enabled(prev)
+        grads[name] = _structured_grads(net, dev)
+    tied = grads["tied"]["encoder.weight"]
+    parts = grads["untied"]["encoder.weight"] + \
+        grads["untied"]["decoder.weight"]
+    rel = float((tied - parts).norm() / parts.norm())
+    if not rel <= RNN_TIED_RTOL:
+        raise AssertionError(f"lstm_lm_ptb_medium: the tied gradient is "
+                             f"{rel} (relative L2) from the sum of its parts")
+    return {"relative_l2": rel, "rtol": RNN_TIED_RTOL,
+            "parts_norms": [float(grads["untied"][k].norm()) for k in (
+                "encoder.weight", "decoder.weight")]}
+
+
+def _param_tensors(model):
+    return [p.data()._data for p in model.collect_params().values()]
+
+
+def phase_lstm_lm_ptb_medium(smi):
+    """lstm_lm_ptb_medium: ``examples/gluon/word_lm.py --vocab-size 10000
+    --embed-dim 650 --hidden 650 --layers 2 --bptt 35 --batch-size 20
+    --lr 20 --clip 0.25 --tied --corpus-tokens 84000`` (``WORD_LM``),
+    hybridized, on the card: the RNN op's routes held against each other
+    (``_rnn_route_checks``), one pass of 119 captured steps (one pair
+    capture, then replays; perplexity of the last 20 steps below the
+    first 20; every step's clipped gradients at most the clip norm), 5
+    captured steps against 5 eager ones from one state and seed, the tied
+    gradient against its parts, captured and eager blocks A B B A,
+    profiled steps, host reads per step, peak memory and the pool."""
+    cfg = WORD_LM
+    dev = mx.gpu(0)
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from mxnet_tpu_torch.ops import nn as nn_ops
+
+    routes = _rnn_route_checks(dev, cfg)
+    emit({"phase": "lstm_lm_ptb_medium_routes", "card": smi, **routes})
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    mx.random.seed(1)
+    ids, vocab_size = word_lm_corpus(cfg["vocab_size"], cfg["corpus_tokens"])
+    data = batchify(ids, cfg["batch_size"])   # (T_total, B)
+    corpus_s = time.perf_counter() - t0
+    RNNModel = word_lm_model(mx)
+    pool0 = _pool_bytes()
+    model = RNNModel(vocab_size, cfg["embed_dim"], cfg["hidden"],
+                     cfg["layers"], tie_weights=cfg["tied"])
+    model.initialize(mx.init.Xavier(), ctx=dev)
+    model.hybridize()
+    trainer = mx.gluon.Trainer(model.collect_params(), "sgd",
+                               {"learning_rate": cfg["lr"]})
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    n_params = sum(p.data().size for p in model.collect_params().values())
+    starts = list(range(0, data.shape[0] - 1 - cfg["bptt"], cfg["bptt"]))
+    limit = cfg["clip"] * cfg["bptt"] * cfg["batch_size"]
+    clipped = []
+
+    def clip_check(grads):
+        norm = float(torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g._data) for g in grads])))
+        clipped.append(norm)
+
+    def batch(i):
+        i = starts[i % len(starts)]
+        return (mx.nd.array(data[i:i + cfg["bptt"]], ctx=dev),
+                mx.nd.array(data[i + 1:i + 1 + cfg["bptt"]], ctx=dev))
+
+    def run(steps, first=0, check=None, state=None, stamps=None):
+        state = model.begin_state(cfg["batch_size"], dev) \
+            if state is None else state
+        nll, tok, totals = [], 0, []
+        for k in range(first, first + steps):
+            x, y = batch(k)
+            state, s, total, n = word_lm_step(
+                mx, model, trainer, loss_fn, cfg, vocab_size, x, y, state,
+                dev, check)
+            nll.append(s)
+            tok = n
+            totals.append(total)
+            if stamps is not None:
+                torch.cuda.synchronize()
+                stamps.append(time.perf_counter())
+        return state, nll, tok, totals
+
+    site0 = _site_stats("cachedop")
+    kernels.reset_launch_counts()
+    nn_ops.rnn_routes.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, nll, tok, totals = run(len(starts), check=clip_check)
+    pass_s = time.perf_counter() - t0
+    site = _site_stats("cachedop")
+    peak = torch.cuda.max_memory_allocated()
+    pool = _pool_bytes() - pool0
+    steps = len(starts)
+    routes_run = dict(nn_ops.rnn_routes.calls)
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    pair = {k: site.get(k, 0) - site0.get(k, 0) for k in (
+        "misses", "hits", "captures", "replays", "eager")}
+    w = cfg["ppl_window"]
+    ppl = [math.exp(sum(nll[:w]) / (w * tok)),
+           math.exp(sum(nll[-w:]) / (w * tok))]
+    if pair["captures"] != 1 or pair["misses"] != 1:
+        raise AssertionError(f"lstm_lm_ptb_medium: the pair captured "
+                             f"{pair} times over {steps} steps; want one "
+                             "miss and one capture")
+    if routes_run != {"cudnn": cfg["layers"] * steps, "steps": 0}:
+        raise AssertionError(f"lstm_lm_ptb_medium: RNN layer runs by route "
+                             f"{routes_run} over {steps} steps")
+    if max(clipped) > limit * (1 + 1e-5):
+        raise AssertionError(f"lstm_lm_ptb_medium: clipped gradient norm "
+                             f"{max(clipped)} above {limit}")
+    if not (all(math.isfinite(v) for v in nll) and ppl[1] < ppl[0]):
+        raise AssertionError(f"lstm_lm_ptb_medium: perplexity {ppl}")
+    emit({"phase": "lstm_lm_ptb_medium_pass", "steps": steps,
+          "pass_s": pass_s, "perplexity_first_last_20": ppl,
+          "clip_totals_first_last": [totals[0], totals[-1]],
+          "clipped_norm_max": max(clipped), "clip_limit": limit,
+          "pair": pair, "rnn_layer_runs": routes_run,
+          "kernel_launches": launches})
+
+    # 5 captured steps against 5 eager ones from one state and one seed
+    start = [t.clone() for t in _param_tensors(model)]
+    names = list(model.collect_params().keys())
+    kept = {}
+    for mode in ("captured", "eager"):
+        with torch.no_grad():
+            for t, s in zip(_param_tensors(model), start):
+                t.copy_(s)
+        prev = compile_service.set_enabled(mode == "captured")
+        try:
+            mx.random.seed(7)
+            run(cfg["check_steps"])
+        finally:
+            compile_service.set_enabled(prev)
+        kept[mode] = [t.clone() for t in _param_tensors(model)]
+    agree = _step_agreement(kept["captured"], kept["eager"], start, names)
+    if agree["max_share"] > CAPTURE_STEP_L2:
+        raise AssertionError(f"lstm_lm_ptb_medium: {cfg['check_steps']} "
+                             f"captured steps against eager: {agree}")
+    del kept, start
+
+    x, y = batch(0)
+    untied = RNNModel(vocab_size, cfg["embed_dim"], cfg["hidden"],
+                      cfg["layers"], tie_weights=False)
+    untied.initialize(ctx=dev)
+    src = model._collect_params_with_structure()
+    for name, p in untied._collect_params_with_structure().items():
+        p.set_data(src[name].data())
+    tied = _tied_check(model, untied, cfg, vocab_size, x, y, dev)
+    del untied
+    torch.cuda.empty_cache()
+
+    state = model.begin_state(cfg["batch_size"], dev)
+    blocks, at = [], 0
+    for mode in ("captured", "eager", "eager", "captured"):
+        stamps = [None]
+        prev = compile_service.set_enabled(mode == "captured")
+        try:
+            torch.cuda.synchronize()
+            stamps[0] = time.perf_counter()
+            state, _, _, _ = run(cfg["abba_steps"], at, state=state,
+                                 stamps=stamps)
+        finally:
+            compile_service.set_enabled(prev)
+        at += cfg["abba_steps"]
+        blocks.append({"mode": mode, "step_ms": [
+            (b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]})
+    tokens = cfg["bptt"] * cfg["batch_size"]
+    median = {m: statistics.median([v for b in blocks if b["mode"] == m
+                                    for v in b["step_ms"][1:]])
+              for m in ("captured", "eager")}
+
+    holder = {"state": model.begin_state(cfg["batch_size"], dev), "k": 0}
+
+    def one_step():
+        xb, yb = batch(holder["k"])
+        holder["k"] += 1
+        holder["state"] = word_lm_step(mx, model, trainer, loss_fn, cfg,
+                                       vocab_size, xb, yb, holder["state"],
+                                       dev)[0]
+
+    reads = _sync_count(one_step)
+    prof = {"captured": _rnn_profile(one_step, 3, eager=False),
+            "eager": _rnn_profile(one_step, 3, eager=True)}
+    out = {"phase": "lstm_lm_ptb_medium", "card": smi,
+           "config": dict(cfg), "parameters": n_params,
+           "reduced": "one pass of 119 steps over the example's synthetic "
+                      "84,000-token corpus (PTB's train set: 929 k tokens)",
+           "corpus_s": corpus_s, "steps": steps,
+           "perplexity_first_last_20": ppl,
+           "captured_vs_eager_5_steps": agree,
+           "step_l2_tol": CAPTURE_STEP_L2, "tied_gradient": tied,
+           "abba_order": [b["mode"] for b in blocks],
+           "step_ms_by_block": [b["step_ms"] for b in blocks],
+           "median_step_ms": median,
+           "tokens_per_s": {m: tokens / (v / 1e3) for m, v in
+                            median.items()},
+           "host_syncs_per_step": sum(reads.values()),
+           "host_syncs_by_call": reads, "profiled_step": prof,
+           "peak_memory_allocated": peak, "graph_pool_bytes": pool,
+           "pair": pair, "rnn_layer_runs": routes_run,
+           "kernel_launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    del model, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _bucket_storage(model):
+    """Whether every bucket's parameters, gradients and auxiliary states
+    are the default bucket's tensors, and every bucket's updater (with
+    its optimizer states) the default's; and how many of each."""
+    default = model._buckets[model.default_bucket_key]
+    ok, n = True, {"parameters": 0, "gradients": 0, "adam_states": 0}
+    for mod in model._buckets.values():
+        for key, mine, theirs in (
+                ("parameters", mod._exec.arg_dict, default._exec.arg_dict),
+                ("gradients", mod._exec.grad_dict, default._exec.grad_dict)):
+            for name in mod._param_names:
+                if name in mine:
+                    ok &= mine[name]._data.data_ptr() == \
+                        theirs[name]._data.data_ptr()
+                    n[key] += mod is default
+        ok &= mod._updater is default._updater
+    for state in default._updater.states.values():
+        n["adam_states"] += len(state) if isinstance(state, tuple) else 1
+    return ok, n
+
+
+def phase_lstm_ptb_bucketing(smi):
+    """lstm_ptb_bucketing: ``examples/rnn/train_ptb.py --num-embed 200
+    --num-hidden 200 --vocab-size 10000 --batch-size 32 --num-sentences
+    4000`` (``PTB_BUCKETING``): ``BucketingModule.fit`` with "adam",
+    Xavier, ``Perplexity`` and ``Speedometer(32, 20)`` over buckets
+    10/20/30/40 for one epoch on the card, each bucket's executor pair
+    captured at its second batch. Fails unless exactly 4 ``executor``
+    captures (none after), one storage for every parameter, gradient and
+    Adam state across the buckets, K2 one launch a batch, falling
+    perplexity, and a fresh ``Module`` bound at bucket 20 with the same
+    parameters giving the bucket's outputs (``RNN_MODULE_TOL``). Then
+    batch ms by bucket captured and eager (A B B A), a profiled batch
+    of each bucket, each bucket's graph pool."""
+    cfg = PTB_BUCKETING
+    dev = mx.gpu(0)
+    t_phase = time.perf_counter()
+    b = cfg["batch_size"]
+    t0 = time.perf_counter()
+    sentences = synthetic_corpus(cfg["num_sentences"], cfg["vocab_size"],
+                                 seed=0)
+    corpus_s = time.perf_counter() - t0
+    it = bucket_sentence_iter(mx)(sentences, b, cfg["buckets"],
+                                  cfg["vocab_size"])
+    sym_gen = sym_gen_factory(mx, cfg["vocab_size"], cfg["num_embed"],
+                              cfg["num_hidden"], b)
+    model = mx.mod.BucketingModule(sym_gen,
+                                   default_bucket_key=it.default_bucket_key,
+                                   context=dev)
+    log, last = [], {"captures": 0, "pool": _pool_bytes()}
+    pools = {}
+
+    def recorder(param):
+        torch.cuda.synchronize()
+        caps = _site_stats("executor")["captures"]
+        m = param.eval_metric
+        key = param.locals["data_batch"].bucket_key
+        log.append({"bucket": key, "t": time.perf_counter(),
+                    "captures": caps,
+                    "nll": m.global_sum_metric + m.sum_metric,
+                    "n": m.global_num_inst + m.num_inst})
+        if caps != last["captures"]:
+            pool = _pool_bytes()
+            pools[key] = pool - last["pool"]
+            last.update(captures=caps, pool=pool)
+
+    site0 = _site_stats("executor")
+    last["captures"] = site0["captures"]
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _captured_log() as lines:
+        model.fit(it, eval_metric=mx.metric.Perplexity(),
+                  optimizer="adam",
+                  optimizer_params={"learning_rate": cfg["lr"]},
+                  initializer=mx.init.Xavier(),
+                  num_epoch=cfg["num_epochs"],
+                  batch_end_callback=[recorder, mx.callback.Speedometer(
+                      b, 20)])
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    batches = len(log)
+    site = _site_stats("executor")
+    captures = site["captures"] - site0["captures"]
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    per_batch = [(e["nll"] - p["nll"], e["n"] - p["n"]) for p, e in zip(
+        [{"nll": 0.0, "n": 0}] + log, log)]
+    w = cfg["ppl_window"]
+    ppl = [math.exp(sum(v for v, _ in per_batch[:w]) /
+                    sum(n for _, n in per_batch[:w])),
+           math.exp(sum(v for v, _ in per_batch[-w:]) /
+                    sum(n for _, n in per_batch[-w:]))]
+    seen, capture_at = {}, []
+    prev_caps = site0["captures"]
+    for i, e in enumerate(log):
+        seen[e["bucket"]] = seen.get(e["bucket"], 0) + 1
+        if e["captures"] != prev_caps:
+            capture_at.append((e["bucket"], seen[e["bucket"]]))
+            prev_caps = e["captures"]
+    shared, counts = _bucket_storage(model)
+    problems = []
+    if captures != len(cfg["buckets"]) or sorted(capture_at) != sorted(
+            (k, PAIR_CAPTURE_CALL) for k in cfg["buckets"]):
+        problems.append(f"{captures} executor captures at (bucket, its "
+                        f"batch) {capture_at}")
+    if not shared:
+        problems.append("the buckets do not share one storage")
+    if launches.get("opt_adam") != batches:
+        problems.append(f"K2 launches {launches} over {batches} batches")
+    if not ppl[1] < ppl[0]:
+        problems.append(f"perplexity {ppl}")
+    if problems:
+        raise AssertionError(f"lstm_ptb_bucketing: {problems}")
+    emit({"phase": "lstm_ptb_bucketing_fit", "batches": batches,
+          "fit_s": fit_s, "perplexity_first_last_20": ppl,
+          "captures": captures, "capture_at_bucket_batch": capture_at,
+          "shared_storage": counts, "launches": launches,
+          "speedometer_samples_per_s": lines.speeds})
+
+    by_bucket = {k: [] for k in cfg["buckets"]}
+    it.reset()
+    for batch in it:
+        if len(by_bucket[batch.bucket_key]) < cfg["abba_batches"]:
+            by_bucket[batch.bucket_key].append(batch)
+    metric = mx.metric.Perplexity()
+    abba = []
+    for mode in ("captured", "eager", "eager", "captured"):
+        ms = {k: [] for k in cfg["buckets"]}
+        metric_ms = {k: [] for k in cfg["buckets"]}
+        prev = compile_service.set_enabled(mode == "captured")
+        try:
+            for k in cfg["buckets"]:
+                for batch in by_bucket[k]:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    model.forward_backward(batch)
+                    model.update()
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    model.update_metric(metric, batch.label)
+                    t2 = time.perf_counter()
+                    ms[k].append((t2 - t0) * 1e3)
+                    metric_ms[k].append((t2 - t1) * 1e3)
+        finally:
+            compile_service.set_enabled(prev)
+        abba.append({"mode": mode, "batch_ms": ms,
+                     "update_metric_ms": metric_ms})
+
+    def medians(key, mode):
+        return {k: statistics.median([v for blk in abba
+                                      if blk["mode"] == mode
+                                      for v in blk[key][k][1:]])
+                for k in cfg["buckets"]}
+
+    median = {m: medians("batch_ms", m) for m in ("captured", "eager")}
+    metric_median = {m: medians("update_metric_ms", m)
+                     for m in ("captured", "eager")}
+    if _site_stats("executor")["captures"] != site["captures"]:
+        raise AssertionError("lstm_ptb_bucketing: a capture after the "
+                             "buckets' first batches")
+    cycle = [by_bucket[k][0] for k in cfg["buckets"]]
+    holder = {"i": 0}
+
+    def one_batch():
+        batch = cycle[holder["i"] % len(cycle)]
+        holder["i"] += 1
+        model.forward_backward(batch)
+        model.update()
+
+    prof = _rnn_profile(one_batch, len(cycle), eager=False)
+    k2 = prof["device_ms_by_group"].get("k2_adam", 0.0)
+
+    check = by_bucket[20][0]
+    arg, aux = model.get_params()
+    sym, data_names, label_names = sym_gen(20)
+    fresh = mx.mod.Module(sym, data_names=data_names,
+                          label_names=label_names, context=dev)
+    fresh.bind(check.provide_data, check.provide_label, for_training=False)
+    fresh.init_params(arg_params=arg, aux_params=aux)
+    fresh.forward(check, is_train=False)
+    model.forward(check, is_train=False)
+    got, want = model.get_outputs()[0]._data, fresh.get_outputs()[0]._data
+    fresh_err = float((got - want).abs().max())
+    if not fresh_err <= RNN_MODULE_TOL:
+        raise AssertionError(f"lstm_ptb_bucketing: a fresh Module at bucket "
+                             f"20 differs by {fresh_err}")
+    out = {"phase": "lstm_ptb_bucketing", "card": smi, "config": cfg,
+           "reduced": "one epoch of 4,000 synthetic sentences; 1 LSTM "
+                      "layer (train_ptb.py:118 fixes it; "
+                      "lstm_bucketing.py has 2)",
+           "corpus_s": corpus_s, "batches": batches, "fit_s": fit_s,
+           "batches_by_bucket": seen,
+           "perplexity_first_last_20": ppl, "captures": captures,
+           "capture_at_bucket_batch": capture_at,
+           "shared_storage": counts,
+           "launches": launches, "speedometer_samples_per_s": lines.speeds,
+           "abba_order": [blk["mode"] for blk in abba],
+           "batch_ms_by_block": [blk["batch_ms"] for blk in abba],
+           "median_batch_ms": median,
+           "median_update_metric_ms": metric_median,
+           "samples_per_s": {m: {k: b / (v / 1e3) for k, v in d.items()}
+                             for m, d in median.items()},
+           "graph_pool_bytes_by_bucket": pools,
+           "graph_pool_bytes_total": sum(pools.values()),
+           "peak_memory_allocated": peak, "profiled_batches": prof,
+           "k2_device_ms_per_batch": k2,
+           "fresh_module_max_abs_err": fresh_err,
+           "fresh_module_tol": RNN_MODULE_TOL,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    del model, fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "train_capture", "gluon_hybrid_train", "dropout_capture",
           "int8_gemm", "serve_int8", "capture", "online_update", "decode",
@@ -6639,7 +7592,8 @@ PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "resnet50_v1_infer_bf16", "resnet50_v1_train_bf16",
           "resnet50_v1_train_bf16_mp", "resnet_check_bf16", "resnet_resume",
           "resnet50_v1_module_fit", "module_check", "transformer_lm",
-          "native_io", "imagenet_rec")
+          "native_io", "imagenet_rec", "lstm_lm_ptb_medium",
+          "lstm_ptb_bucketing")
 
 
 def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
@@ -6762,6 +7716,10 @@ def main(argv=None):
         done["transformer_lm"] = phase_transformer_lm(smi)
     if "imagenet_rec" in phases:
         done["imagenet_rec"] = phase_imagenet_rec(smi)
+    if "lstm_lm_ptb_medium" in phases:
+        done["lstm_lm_ptb_medium"] = phase_lstm_lm_ptb_medium(smi)
+    if "lstm_ptb_bucketing" in phases:
+        done["lstm_ptb_bucketing"] = phase_lstm_ptb_bucketing(smi)
     if not set(PHASES) <= set(done):
         print(f"phases run: {sorted(done)}; no result line", flush=True)
         return 1
@@ -6783,6 +7741,7 @@ def main(argv=None):
     # this slice: online_update's served batches (K3) and captured
     # fine-tune steps (K3, K3-bwd, K2) beside the bus and the HTTP traffic
     ou = done["online_update"]["launches"]
+    bkt = done["lstm_ptb_bucketing"]
     lines = [
         _kernel_line("flash_attention", "flash_attention.cu",
                      "mxnet_tpu/kernels/flash.py:38",
@@ -6889,7 +7848,15 @@ def main(argv=None):
                               launches_per_replayed_lm_step=lm[
                                   "launches_per_replayed_step"]["opt_adam"],
                               lm_tensors=lm_tensors,
-                              launches_online_update=ou["opt_adam"]))
+                              launches_online_update=ou["opt_adam"],
+                              # this slice: BucketingModule.fit's Adam,
+                              # one launch a batch over the buckets' one
+                              # set of parameters and states
+                              launches_lstm_ptb_bucketing=bkt["launches"][
+                                  "opt_adam"],
+                              lstm_ptb_bucketing_batches=bkt["batches"],
+                              lstm_ptb_bucketing_device_ms_per_batch=bkt[
+                                  "k2_device_ms_per_batch"]))
     k4 = done["int8_gemm"]
     lines.append(_kernel_line(
         "int8_gemm", "int8_gemm.cu", "mxnet_tpu/kernels/int8_gemm.py:86",

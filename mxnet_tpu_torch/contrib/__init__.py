@@ -1,4 +1,4 @@
-"""``mx.contrib``: post-training int8 quantization."""
-from . import quantization
+"""``mx.contrib``: post-training int8 quantization and text utilities."""
+from . import quantization, text
 
-__all__ = ["quantization"]
+__all__ = ["quantization", "text"]

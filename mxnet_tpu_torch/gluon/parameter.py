@@ -310,7 +310,13 @@ class ParameterDict:
         if param is None:
             param = self._params[name] = Parameter(name, **kwargs)
         elif kwargs.get("shape") is not None:
-            param.shape = kwargs["shape"]
+            shape = tuple(kwargs["shape"])
+            if param.shape is not None and len(param.shape) == len(shape):
+                # a dim the request leaves unknown (0) keeps the known one,
+                # as MXNet 1.x's get merges them (a tied Dense over an
+                # Embedding's weight; the JAX get refuses: ROADMAP.md C13)
+                shape = tuple(n or s for n, s in zip(shape, param.shape))
+            param.shape = shape
         return param
 
     def update(self, other):

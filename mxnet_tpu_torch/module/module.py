@@ -24,6 +24,10 @@ Where the JAX package and MXNet 1.x differ, the port follows MXNet 1.x:
   gradients, pull the weights); a type name with one card and no
   ``dist`` uses no store and updates in place.
 
+``bind(shared_module=)`` binds the parameters, their gradients and the
+auxiliary states to the arrays of another module (one storage for
+every bucket of a ``BucketingModule``) and borrows its optimizer.
+
 ``update`` pushes every parameter's gradient in one ``push`` call and
 pulls every weight in one ``pull`` call (the JAX ``Module`` pushes and
 pulls key by key): the local store hands the list to
@@ -107,11 +111,13 @@ class Module(BaseModule):
         if self.binded and not force_rebind:
             self.logger.warning("Already bound, ignoring bind()")
             return
-        if shared_module is not None:
-            raise MXNetError("bind(shared_module=) serves BucketingModule, "
-                             "which is not ported yet; see ROADMAP.md, "
-                             "BucketingModule")
-        old = self._exec if self.params_initialized else None
+        if shared_module is not None and not (
+                isinstance(shared_module, Module) and shared_module.binded
+                and shared_module.params_initialized):
+            raise MXNetError("bind(shared_module=) needs a bound Module "
+                             "with initialized parameters")
+        old = self._exec if self.params_initialized and \
+            shared_module is None else None
         self.for_training = for_training
         self.inputs_need_grad = inputs_need_grad
         self._data_shapes = [_as_desc(d, self._data_names, i)
@@ -134,13 +140,51 @@ class Module(BaseModule):
             type_dict={d.name: d.dtype for d in inputs},
             **{d.name: d.shape for d in inputs})
         self.binded = True
-        if old is not None:
+        if shared_module is not None:
+            self._share(shared_module)
+        elif old is not None:
             self._exec.copy_params_from(
                 {n: old.arg_dict[n] for n in self._param_names},
                 {n: old.aux_dict[n] for n in self._aux_names})
         elif self._arg_params is not None:
             self._exec.copy_params_from(self._arg_params, self._aux_params,
                                         allow_extra_params=True)
+
+    def _share(self, shared):
+        """Bind this executor's parameters, their gradients and the
+        auxiliary states to ``shared``'s arrays wherever ``shared`` has
+        one of that name (MXNet 1.x's ``shared_module``: one storage for
+        every bucket of a ``BucketingModule``), and borrow its optimizer
+        when it has one."""
+        mine, theirs = self._exec, shared._exec
+        for dst, src, names in (
+                (mine.arg_dict, theirs.arg_dict, self._param_names),
+                (mine.grad_dict, theirs.grad_dict, self._param_names),
+                (mine.aux_dict, theirs.aux_dict, self._aux_names)):
+            for name in names:
+                if name not in dst or name not in src:
+                    continue
+                if dst[name].shape != src[name].shape:
+                    raise MXNetError(
+                        f"shared_module: {name!r} has shape "
+                        f"{dst[name].shape} here and {src[name].shape} in "
+                        "the shared module")
+                dst[name] = src[name]
+        self.params_initialized = True
+        if shared.optimizer_initialized:
+            self.borrow_optimizer(shared)
+
+    def borrow_optimizer(self, shared_module):
+        """Use ``shared_module``'s optimizer, kvstore and updater (and
+        with them its optimizer states)."""
+        if not shared_module.optimizer_initialized:
+            raise MXNetError("borrow_optimizer: the shared module has no "
+                             "optimizer")
+        self._optimizer = shared_module._optimizer
+        self._kvstore = shared_module._kvstore
+        self._update_on_kvstore = shared_module._update_on_kvstore
+        self._updater = shared_module._updater
+        self.optimizer_initialized = True
 
     def reshape(self, data_shapes, label_shapes=None):
         """Rebind for new input shapes, sharing the parameters (growing

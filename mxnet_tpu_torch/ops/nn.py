@@ -3,10 +3,11 @@
 Counterpart of ``mxnet_tpu/ops/nn.py`` (FullyConnected :29, Convolution
 :60, Pooling :118, _contrib_AdaptiveAvgPooling2D :180, BatchNorm :202,
 LayerNorm :226, softmax :283, log_softmax :294, Activation :377,
-LeakyReLU :391, Dropout :424, SoftmaxOutput :317-374). These were plain
-XLA in the JAX package,
+LeakyReLU :391, Dropout :424, SoftmaxOutput :317-374, RNN :518). These
+were plain XLA in the JAX package,
 so here they are plain PyTorch (cuBLAS for the matrix products, cuDNN for
-convolutions and BatchNorm on the card). Layouts are the JAX package's:
+convolutions, BatchNorm and the fused RNN on the card). Layouts are the
+JAX package's:
 channels first (NCW, NCHW, NCDHW), convolution weights ``(num_filter,
 C / num_group, *kernel)``. Dropout takes an explicit ``torch.Generator``
 where the JAX op took a PRNG key. Deconvolution is not ported yet.
@@ -18,7 +19,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .. import random as _random
 from ..base import MXNetError
+from ..kernels import DeviceError, count
 from .registry import register
 
 
@@ -323,3 +326,237 @@ def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
     return _SoftmaxOutput.apply(data, label, grad_scale, ignore_label,
                                 use_ignore, normalization, out_grad,
                                 smooth_alpha, axis)
+
+
+# ------------------------------------------------------------------- RNN ---
+
+_GATES = {"rnn_relu": 1, "rnn_tanh": 1, "gru": 3, "lstm": 4}
+
+
+class _RNNRoutes:
+    """Layer runs of the RNN op on the card, by route: ``"cudnn"`` (one
+    ``torch._VF`` call, over one layer or all of them) and ``"steps"``
+    (one layer and direction of the per-step form). Counted through
+    ``kernels.count``, so a captured run counts at each replay."""
+
+    def __init__(self):
+        self.calls = {"cudnn": 0, "steps": 0}
+
+    def reset(self):
+        self.calls = dict.fromkeys(self.calls, 0)
+
+
+rnn_routes = _RNNRoutes()
+
+
+def rnn_param_size(input_size, state_size, num_layers=1, mode="lstm",
+                   bidirectional=False):
+    """Length of the flat parameter vector (MXNet's ``GetRnnParamSize``;
+    the JAX package's ``symbol._rnn_param_size``)."""
+    ng, ndir, total = _GATES[mode], 2 if bidirectional else 1, 0
+    for layer in range(num_layers):
+        isz = input_size if layer == 0 else state_size * ndir
+        # W_x, W_h, b_x and b_h of each direction
+        total += ndir * ng * state_size * (isz + state_size + 2)
+    return total
+
+
+def rnn_weights(params, mode, num_layers, ndir, input_size, state_size):
+    """``[(w_x, w_h, b_x, b_h)]`` per layer and direction (layer-major),
+    views into the flat vector ``params``, which holds every layer's and
+    direction's ``[W_x, W_h]`` first, then every ``[b_x, b_h]`` (the
+    JAX op's order, ``mxnet_tpu/ops/nn.py:547-560``); no copy."""
+    ng, h = _GATES[mode], state_size
+    want = rnn_param_size(input_size, h, num_layers, mode, ndir == 2)
+    if params.ndim != 1 or params.numel() != want:
+        raise MXNetError(f"RNN: the parameter vector has shape "
+                         f"{tuple(params.shape)}; {mode} with {num_layers} "
+                         f"layer(s), {ndir} direction(s), input {input_size} "
+                         f"and state {h} needs ({want},)")
+    offset = 0
+
+    def take(*shape):
+        nonlocal offset
+        n = math.prod(shape)
+        view = params[offset:offset + n].view(shape)
+        offset += n
+        return view
+
+    ws = [(take(ng * h, input_size if layer == 0 else h * ndir),
+           take(ng * h, h))
+          for layer in range(num_layers) for _ in range(ndir)]
+    bs = [(take(ng * h), take(ng * h)) for _ in range(num_layers * ndir)]
+    return [w + b for w, b in zip(ws, bs)]
+
+
+def _rnn_one_way(x, weights, h, c, mode, clip):
+    """One layer and direction of the per-step form over ``x`` (T, B,
+    I): the input projection of every step in one product, then per
+    step ``h @ W_h^T + b_h`` and the gates (LSTM ``i, f, g, o``; GRU
+    ``r, z, n`` with ``n = tanh(W_n x + b_n + r * (W_hn h + b_hn))``).
+    Returns ``(outputs (T, B, H), h, c)``."""
+    wx, wh, bx, bh = weights
+    steps, batch = x.shape[0], x.shape[1]
+    gx = torch.addmm(bx, x.reshape(steps * batch, -1), wx.t()).view(
+        steps, batch, -1)
+    outs = []
+    for t in range(steps):
+        gh = torch.addmm(bh, h, wh.t())
+        if mode == "lstm":
+            i, f, g, o = (gx[t] + gh).chunk(4, dim=-1)
+            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+            if clip is not None:
+                c = c.clamp(*clip)
+            h = torch.sigmoid(o) * torch.tanh(c)
+        elif mode == "gru":
+            rx, zx, nx = gx[t].chunk(3, dim=-1)
+            rh, zh, nh = gh.chunk(3, dim=-1)
+            r = torch.sigmoid(rx + rh)
+            z = torch.sigmoid(zx + zh)
+            n = torch.tanh(nx + r * nh)
+            h = (1 - z) * n + z * h
+        else:
+            pre = gx[t] + gh
+            h = torch.tanh(pre) if mode == "rnn_tanh" else torch.relu(pre)
+        outs.append(h)
+    return torch.stack(outs), h, c
+
+
+def _rnn_steps(x, weights, h0, c0, mode, ndir, clip):
+    """Layers ``weights`` (a list per direction) of the per-step form;
+    ``h0``/``c0`` hold one state per direction. Returns ``(out, [h],
+    [c])``."""
+    outs, hs, cs = [], [], []
+    for d in range(ndir):
+        seq = x.flip(0) if d == 1 else x
+        c = c0[d] if c0 is not None else None
+        y, h, c = _rnn_one_way(seq, weights[d], h0[d], c, mode, clip)
+        outs.append(y.flip(0) if d == 1 else y)
+        hs.append(h)
+        cs.append(c)
+    return (torch.cat(outs, dim=-1) if ndir == 2 else outs[0]), hs, cs
+
+
+def _rnn_cudnn(x, weights, h0, c0, mode, ndir):
+    """Layers ``weights`` (layer-major, one tuple per layer and
+    direction) in one cuDNN RNN call through ``torch._VF``, which takes
+    the per-layer views as its weight list (and compacts them into its
+    own buffer at each call: the flat vector is in MXNet's order, not
+    cuDNN's). Returns ``(out, hn, cn)`` over those layers."""
+    flat = [w for layer in weights for w in layer]
+    num_layers = len(weights) // ndir
+    train = torch.is_grad_enabled() and any(
+        t.requires_grad for t in [x, h0] + flat +
+        ([c0] if c0 is not None else []))
+    fn = getattr(torch._VF, mode)   # lstm, gru, rnn_tanh, rnn_relu
+    count(rnn_routes, "calls", "cudnn")
+    if mode == "lstm":
+        out, hn, cn = fn(x, (h0, c0), flat, True, num_layers, 0.0, train,
+                         ndir == 2, False)
+        return out, hn, cn
+    out, hn = fn(x, h0, flat, True, num_layers, 0.0, train, ndir == 2,
+                 False)
+    return out, hn, None
+
+
+def _rnn_route(tensors, clip):
+    """``"plain"`` for CPU (or ``meta``) tensors, on the card
+    ``"cudnn"``, or ``"steps"`` where cuDNN cannot do the op (LSTM state
+    clipping): ``kernels.dispatch``'s rule."""
+    devices = {t.device.type for t in tensors}
+    if devices in ({"cpu"}, {"meta"}):
+        return "plain"
+    if devices == {"cuda"}:
+        return "steps" if clip is not None else "cudnn"
+    raise DeviceError(f"RNN: tensors on devices {sorted(devices)}; expected "
+                      "all on the CPU or all on one CUDA card")
+
+
+def rnn_run(route, data, params, state, state_cell, state_size, num_layers,
+            mode, bidirectional, clip=None, p=0.0, generator=None):
+    """The RNN op's layers on ``route``: ``"cudnn"`` (``torch._VF``, on
+    any device torch runs it on), ``"steps"`` (the per-step form,
+    counted as a card route) or ``"plain"`` (the per-step form). ``p >
+    0`` drops between layers with masks from ``generator``; ``clip`` is
+    LSTM's ``(min, max)`` cell clip, which only the per-step form does.
+    Returns ``(out, hn, cn)``, ``cn`` None outside LSTM."""
+    ndir = 2 if bidirectional else 1
+    lstm = mode == "lstm"
+    weights = rnn_weights(params, mode, num_layers, ndir, data.shape[2],
+                          state_size)
+    drop = p > 0 and num_layers > 1
+    x, hs, cs = data, [], []
+    # cuDNN takes every layer in one call unless dropout comes between
+    groups = [range(num_layers)] if route == "cudnn" and not drop else \
+        [range(layer, layer + 1) for layer in range(num_layers)]
+    for g in groups:
+        rows = slice(g[0] * ndir, (g[-1] + 1) * ndir)
+        c0 = state_cell[rows] if lstm else None
+        if route == "cudnn":
+            x, h, c = _rnn_cudnn(x, weights[rows], state[rows], c0, mode,
+                                 ndir)
+            hs.append(h)
+            cs.append(c)
+        else:
+            if route == "steps":
+                count(rnn_routes, "calls", "steps", ndir)
+            x, h, c = _rnn_steps(x, weights[rows], state[rows], c0, mode,
+                                 ndir, clip)
+            hs.append(torch.stack(h))
+            cs.append(torch.stack(c) if lstm else None)
+        if drop and g[-1] < num_layers - 1:
+            x = _dropout(x, p, True, generator)
+    hn = torch.cat(hs) if len(hs) > 1 else hs[0]
+    cn = (torch.cat(cs) if len(cs) > 1 else cs[0]) if lstm else None
+    return x, hn, cn
+
+
+@register("RNN", num_outputs=3)
+def _rnn(data, params, state, state_cell=None, state_size=0, num_layers=1,
+         mode="lstm", bidirectional=False, p=0.0, state_outputs=False,
+         projection_size=None, lstm_state_clip_min=None,
+         lstm_state_clip_max=None, lstm_state_clip_nan=False,
+         use_sequence_length=False, sequence_length=None, training=False,
+         generator=None):
+    """The fused multi-layer RNN (MXNet's ``src/operator/rnn.cc``; the
+    JAX op ``mxnet_tpu/ops/nn.py:518-623``) over ``data`` (T, B, I),
+    modes ``lstm``, ``gru``, ``rnn_tanh`` and ``rnn_relu``, the flat
+    ``params`` vector (every layer's and direction's weights, then every
+    bias), ``state`` (and ``state_cell`` for LSTM) of shape
+    (layers * directions, B, H). Returns ``(out, hn, cn)`` always, ``cn``
+    zeros outside LSTM, as the JAX op does.
+
+    On the card the layers run through cuDNN (``torch._VF``) on views of
+    ``params``; LSTM state clipping, which cuDNN does not do, runs the
+    per-step form there. On the CPU the per-step form is the plain
+    version. ``p`` is applied as MXNet 1.x does and the JAX op does not
+    (ROADMAP.md C12): in training, dropout on each layer's output but
+    the last, the layers then run one call each with the mask drawn
+    between them from ``generator`` (``mx.random``'s generator of the
+    data's device by default, which every CUDA graph registers).
+    ``projection_size`` and ``use_sequence_length`` raise;
+    ``lstm_state_clip_nan`` is ignored, as in the JAX op."""
+    if projection_size:
+        raise MXNetError("RNN: projection_size (LSTMP) is not ported; the "
+                         "JAX op ignores it")
+    if use_sequence_length:
+        raise MXNetError("RNN: use_sequence_length is not ported; the JAX "
+                         "op ignores it")
+    if mode not in _GATES:
+        raise MXNetError(f"RNN: mode must be one of {sorted(_GATES)}, got "
+                         f"{mode!r}")
+    lstm = mode == "lstm"
+    if lstm and state_cell is None:
+        raise MXNetError("RNN: mode lstm needs state_cell")
+    clip = None
+    if lstm and lstm_state_clip_min is not None:
+        clip = (lstm_state_clip_min, lstm_state_clip_max)
+    route = _rnn_route([data, params, state] +
+                       ([state_cell] if lstm else []), clip)
+    drop = p if training else 0.0
+    if drop > 0 and num_layers > 1 and generator is None:
+        generator = _random.generator(data.device)
+    out, hn, cn = rnn_run(route, data, params, state, state_cell, state_size,
+                          num_layers, mode, bidirectional, clip, drop,
+                          generator)
+    return out, hn, cn if lstm else torch.zeros_like(hn)

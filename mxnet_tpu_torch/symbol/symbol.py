@@ -37,6 +37,7 @@ import torch
 
 from ..base import MXNetError, canonical_dtype, dtype_name
 from ..ops import registry as _registry
+from ..ops.nn import rnn_param_size
 
 __all__ = ["Symbol", "var", "Group", "load", "load_json"]
 
@@ -56,6 +57,9 @@ _LAYER_PARAMS = {
     "LayerNorm": {"gamma": ("gamma", None, False),
                   "beta": ("beta", None, False)},
     "Embedding": {"weight": ("weight", None, False)},
+    # the fused RNN's flat vector: "<name>_params", as in the JAX package
+    # (MXNet 1.x names it "<name>_parameters")
+    "RNN": {"params": ("params", None, False)},
     # loss heads make their label input "<name>_label" when not given
     # (mx.sym.SoftmaxOutput(net, name="softmax") has "softmax_label")
     **{head: {"label": ("label", None, False)} for head in (
@@ -613,6 +617,11 @@ def _param_shape_rules(node, data):
         put(1, (attrs["num_filter"], dshape[1] // attrs.get("num_group", 1))
             + kernel)
         put(2, (attrs["num_filter"],))
+    elif node.op == "RNN":
+        put(1, (rnn_param_size(dshape[2], attrs["state_size"],
+                               attrs.get("num_layers", 1),
+                               attrs.get("mode", "lstm"),
+                               attrs.get("bidirectional", False)),))
     elif node.op == "BatchNorm":
         for i in (1, 2, 3, 4):
             put(i, (dshape[attrs.get("axis", 1)],), "float32")
@@ -684,13 +693,18 @@ def _apply_op(op_name, args, kwargs):
     return Symbol([(node, i) for i in range(n_out)])
 
 
-def var(name, attr=None, shape=None, dtype=None, is_aux=False, **kwargs):
-    """A named graph input."""
+def var(name, attr=None, shape=None, dtype=None, init=None, is_aux=False,
+        **kwargs):
+    """A named graph input. ``init`` is kept as the ``__init__``
+    attribute (a name, or an initializer's ``repr``), as the JAX
+    package keeps it."""
     attrs = dict(attr or {})
     if shape is not None:
         attrs["__shape__"] = tuple(shape)
     if dtype is not None:
         attrs["__dtype__"] = dtype_name(dtype)
+    if init is not None:
+        attrs["__init__"] = init if isinstance(init, str) else repr(init)
     if is_aux:
         attrs["__is_aux__"] = True
     attrs.update(kwargs)

@@ -1801,3 +1801,182 @@ def test_two_swappers_racing_replays_never_mix_versions_on_card(
     assert not bad and seen[0] > 0 and model.swaps == 82
     out, v = model.run_versioned(x, 7)
     assert np.array_equal(out[0], want[v % 2])
+
+
+# ------------------------------------------------------ recurrent stack ---
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["lstm", "gru", "rnn_tanh", "rnn_relu"])
+def test_rnn_cudnn_route_matches_the_per_step_form_on_card(cuda_device,
+                                                           mode):
+    """The RNN op's cuDNN route against its per-step form (the plain
+    version) on the card, TF32 off: 1 and 2 layers, one and two
+    directions, forward within chip_smoke.RNN_TOL (rtol = atol) and
+    gradients within RNN_TOL of each tensor's largest value."""
+    from chip_smoke import RNN_TOL, _rnn_errors, rnn_route_pair
+
+    torch.backends.cudnn.allow_tf32 = False
+    for layers, bi in ((1, False), (2, False), (2, True)):
+        (o_c, g_c), (o_s, g_s) = rnn_route_pair(mode, layers, bi,
+                                                (7, 3, 5, 16), cuda_device)
+        for what, got, want in (("forward", o_c, o_s),
+                                ("gradients", g_c, g_s)):
+            err, ratio = _rnn_errors(got, want, what == "gradients")
+            assert ratio <= 1, (mode, layers, bi, what, err, RNN_TOL)
+
+
+@pytest.mark.gpu
+def test_rnn_op_routes_by_device_on_card(cuda_device):
+    """CUDA tensors take cuDNN, or the per-step form with LSTM state
+    clipping (counted in ``rnn_routes``); CPU tensors the plain version;
+    a mix raises."""
+    from mxnet_tpu_torch.ops import nn as nn_ops
+
+    x, p = torch.randn(4, 2, 3), torch.randn(
+        nn_ops.rnn_param_size(3, 5)) * 0.3
+    h, c = torch.zeros(1, 2, 5), torch.zeros(1, 2, 5)
+    want = nn_ops._rnn(x, p, h, c, state_size=5,
+                       lstm_state_clip_min=-0.1, lstm_state_clip_max=0.1)
+    nn_ops.rnn_routes.reset()
+    torch.backends.cudnn.allow_tf32 = False
+    on = [t.to(cuda_device) for t in (x, p, h, c)]
+    plain = nn_ops._rnn(*on, state_size=5)
+    clipped = nn_ops._rnn(*on, state_size=5, lstm_state_clip_min=-0.1,
+                          lstm_state_clip_max=0.1)
+    assert nn_ops.rnn_routes.calls == {"cudnn": 1, "steps": 1}
+    for g, w in zip(clipped, want):
+        torch.testing.assert_close(g.cpu(), w, rtol=2e-5, atol=2e-5)
+    assert plain[0].shape == (4, 2, 5)
+    with pytest.raises(kernels.DeviceError):
+        nn_ops._rnn(on[0], p, h, c, state_size=5)
+
+
+def _lstm_net(cuda_device):
+    from mxnet_tpu_torch.gluon import rnn
+
+    mx.random.seed(0)
+    layer = rnn.LSTM(32, num_layers=2, input_size=16)
+    layer.initialize(mx.init.Xavier(), ctx=mx.gpu(0),
+                     generator=torch.Generator().manual_seed(0))
+    return layer
+
+
+@pytest.mark.gpu
+def test_a_hybridized_lstm_captures_and_replays_its_pair_on_card(
+        cuda_device):
+    """cuDNN's RNN forward and backward inside the ``cachedop`` pair: the
+    second call captures, later calls replay, and a replay's outputs,
+    states and gradients equal the eager forward and backward of the
+    same weights (no tolerance: the same kernels on the same inputs).
+    The eager call keeps no autograd graph alive: one alive from the
+    default stream makes the capture's backward wait on that stream,
+    which CUDA refuses during a capture."""
+    from mxnet_tpu_torch import compile as compile_service
+
+    torch.backends.cudnn.allow_tf32 = False
+    layer = _lstm_net(cuda_device)
+    layer.hybridize()
+    gen = torch.Generator().manual_seed(1)
+    x = nd.array(torch.randn(10, 4, 16, generator=gen), ctx=mx.gpu(0))
+    st = [nd.array(torch.randn(4, 4, 32, generator=gen), ctx=mx.gpu(0))
+          for _ in range(2)]
+
+    def call():
+        with mx.autograd.record():
+            out, states = layer(x, st)
+            loss = (out * out).sum() + states[0].sum() + states[1].sum()
+        loss.backward()
+        grads = [p.grad()._data.clone()
+                 for p in layer.collect_params().values()]
+        return [t._data.detach().clone() for t in [out] + states], grads
+
+    want = _eager(call)
+    before = compile_service.stats().get("cachedop", {}).get("captures", 0)
+    got = [call() for _ in range(4)]
+    stats = compile_service.stats()["cachedop"]
+    assert stats["captures"] - before == 1
+    for outs, grads in got[1:]:
+        for g, w in zip(outs + grads, want[0] + want[1]):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+def test_the_tied_gradient_sums_both_parts_in_a_captured_pair_on_card(
+        cuda_device):
+    """word_lm.py's tied RNNModel hybridized: the replayed pair's
+    gradient of the shared matrix equals the embedding's and the
+    decoder's parts computed apart by an untied copy (dropout 0)."""
+    from chip_smoke import word_lm_model
+    from mxnet_tpu_torch import gluon
+
+    torch.backends.cudnn.allow_tf32 = False
+    RNNModel = word_lm_model(mx)
+    dev = mx.gpu(0)
+    tied = RNNModel(50, 16, 16, 2, dropout=0.0, tie_weights=True)
+    tied.initialize(mx.init.Xavier(), ctx=dev,
+                    generator=torch.Generator().manual_seed(0))
+    untied = RNNModel(50, 16, 16, 2, dropout=0.0)
+    untied.initialize(ctx=dev)
+    tied.hybridize()
+    loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+    rng = np.random.RandomState(0)
+    x = nd.array(rng.randint(0, 50, (5, 4)).astype(np.float32), ctx=dev)
+    y = nd.array(rng.randint(0, 50, (5, 4)).astype(np.float32), ctx=dev)
+
+    def grads(net):
+        with mx.autograd.record():
+            out, _ = net(x, net.begin_state(4, dev))
+            loss = loss_fn(out.reshape((-1, 50)), y.reshape((-1,)))
+        loss.backward()
+        return {n: p.grad(dev)._data.clone() for n, p in
+                net._collect_params_with_structure().items()}
+
+    for _ in range(3):           # eager, capture, replay
+        got = grads(tied)["encoder.weight"]
+    src = tied._collect_params_with_structure()
+    for name, p in untied._collect_params_with_structure().items():
+        p.set_data(src[name].data())
+    parts = grads(untied)
+    torch.testing.assert_close(
+        got, parts["encoder.weight"] + parts["decoder.weight"],
+        rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_four_buckets_capture_over_one_storage_on_card(cuda_device):
+    """train_ptb.py's sym_gen at a small width through BucketingModule:
+    each of four buckets captures its executor pair once (at its second
+    batch), every bucket computes in the default bucket's parameter and
+    gradient tensors, one updater serves all, and K2 launches once a
+    batch."""
+    from chip_smoke import bucket_sentence_iter, sym_gen_factory
+    from mxnet_tpu_torch import compile as compile_service
+
+    dev = mx.gpu(0)
+    rng = np.random.RandomState(0)
+    sentences = [list(rng.randint(1, 50, n)) + [0]
+                 for n in rng.randint(5, 35, 160)]
+    it = bucket_sentence_iter(mx)(sentences, 4, [10, 20, 30, 40], 50)
+    model = mx.mod.BucketingModule(sym_gen_factory(mx, 50, 8, 16, 4),
+                                   default_bucket_key=40, context=dev)
+    model.bind(it.provide_data, it.provide_label)
+    model.init_params(mx.init.Xavier())
+    model.init_optimizer(optimizer="adam",
+                         optimizer_params={"learning_rate": 0.01})
+    before = compile_service.stats().get("executor", {}).get("captures", 0)
+    kernels.reset_launch_counts()
+    n = 0
+    for batch in it:
+        model.forward_backward(batch)
+        model.update()
+        n += 1
+    caps = compile_service.stats()["executor"]["captures"] - before
+    assert caps == 4 and sorted(model._buckets) == [10, 20, 30, 40]
+    assert kernels.launch_counts()["opt_adam"] == n
+    default = model._buckets[40]
+    for mod in model._buckets.values():
+        assert mod._updater is default._updater
+        for name in mod._param_names:
+            for d in ("arg_dict", "grad_dict"):
+                assert getattr(mod._exec, d)[name]._data.data_ptr() == \
+                    getattr(default._exec, d)[name]._data.data_ptr()
