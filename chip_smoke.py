@@ -384,6 +384,48 @@ Phases, each printing one JSON line:
     metric's share, samples/s, a profiled batch of each bucket (K2's
     device ms), each bucket's graph pool and the total.
 
+30. mobilenet_v2_1_0_module_fit: ``train_imagenet.py --benchmark 1
+    --network mobilenet_v2_1_0`` through ``Module.fit`` with
+    resnet50_v1_module_fit's wiring (``MOBILENET_FIT``: batch 128 of
+    3x224x224, 1000 classes, "sgd" lr 0.1 momentum 0.9 wd 1e-4, 13
+    batches a fit), four fits captured, eager, eager, captured: batch ms,
+    img/s, Speedometer's img/s, peak memory, K1 one launch a batch over
+    all 160 trainable tensors on its 16-byte path and nothing else, one
+    capture then replays, a finite loss falling from the first batch to
+    the last, a profiled batch of each mode by kernel group (PyTorch's
+    depthwise forward and backward kernels, the other convolutions,
+    BatchNorm, the ReLU6 clamp, K1, the rest; busy share); then a captured
+    fit with ``--optimizer nag``: no K1 launch, NAG's ``_foreach`` update
+    in its place.
+31. bert_base_sst2_finetune_lamb: the train phase's fine-tune (BERT-base,
+    batch 32, seq 128) under ``ShardedTrainer(..., "lamb")`` at the JAX
+    defaults: four blocks of 20 steps from one state (captured, eager,
+    eager, captured), step ms against an "adam" block of the same call,
+    the loss finite and falling, one capture then replays, launches (K3
+    12, K3-bwd 12 + 12 a step; LAMB's update is plain PyTorch), the
+    captured state after 3 and 20 steps against the eager one, LAMB's
+    kernels and device ms a step against K2's, and no host sync over 5
+    replays (the guard off: its flag is the one read a step makes).
+32. dcgan: ``examples/gluon/dcgan.py`` at its defaults (``DCGAN``; its
+    ``build_nets`` and loop copied here): two iterations on the card and
+    on a CPU copy from one set of weights and one numpy batch of images
+    and noise (``DCGAN_TOL``), then 3 epochs of 16 iterations: iteration
+    ms, K2 two launches an iteration (96), finite losses each epoch and 4
+    finite samples.
+33. zoo_check: each model-zoo family's default constructor (AlexNet,
+    DenseNet-121, Inception v3 at 299, MobileNet 1.0 v1 and v2,
+    SqueezeNet 1.0 and 1.1, VGG-16 with and without BatchNorm) at batch 2:
+    one training forward and backward on the card and on a CPU copy from
+    the same weights (Dropout at rate 0 in both), held to
+    ``ZOO_CHECK_TOL``; parameter counts.
+34. surface_check: every new optimizer through ``Updater.update_multi``
+    (float32, and float16 under ``multi_precision``) and through
+    ``ShardedTrainer``'s rules, Deconvolution (grouped, with
+    ``target_shape``), CTCLoss (``torch.nn.functional.ctc_loss`` against
+    the plain recursion on the card and the CPU), LRN, UpSampling,
+    InstanceNorm, GroupNorm and the LeakyReLU modes, card against CPU
+    (``SURFACE_TOL``).
+
 The twobit phase also holds the single-tensor compress and the
 decompress in float16 and bfloat16 bit for bit against their plain
 versions (thresholds 0.5 and 0.1) and times them over 109 M elements
@@ -399,7 +441,9 @@ K3 and K3-bwd with their launches per replayed training graph, K2, K3
 and K3-bwd with their launches per replayed LM step and K3 and K3-bwd
 with their times at the LM's shape; K2, K3 and K3-bwd with their
 launches in online_update; K2 with its launches and device ms a batch in
-lstm_ptb_bucketing; K6 and K7 with their half-precision times), the
+lstm_ptb_bucketing; K1 with its launches in the MobileNet v2 fit and
+none in its NAG fit; K2 with its launches in dcgan and none under
+"lamb"; K6 and K7 with their half-precision times), the
 card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure is an
 exception and a non-zero exit. ``--phases`` runs a subset (device and
@@ -2123,11 +2167,11 @@ def _trainer_blocks(st, x, y, blocks, start=None, snaps=()):
         kernels.reset_launch_counts()
         site0 = _site_stats("trainer")
         prev = compile_service.set_enabled(mode == "captured")
-        ms, taken = [], {}
+        ms, taken, losses = [], {}, []
         try:
             for k in range(steps):
                 t0 = time.perf_counter()
-                float(st.step(x, y)._data.float())
+                losses.append(float(st.step(x, y)._data.float()))
                 ms.append((time.perf_counter() - t0) * 1e3)
                 if k + 1 in snaps and mode not in kept:
                     taken[k + 1] = [t.clone() for t in
@@ -2138,7 +2182,7 @@ def _trainer_blocks(st, x, y, blocks, start=None, snaps=()):
         site = _site_stats("trainer")
         if mode not in kept:
             kept[mode] = taken
-        out.append({"mode": mode, "step_ms": ms,
+        out.append({"mode": mode, "step_ms": ms, "losses": losses,
                     "launches": {k: v for k, v in
                                  kernels.launch_counts().items() if v},
                     "max_memory_allocated": torch.cuda.max_memory_allocated(),
@@ -4806,9 +4850,10 @@ def _profile_step(st, x, y):
     return {"profiled_step_ms": window_ms, **_kernel_groups(prof, window_ms)}
 
 
-def _kernel_groups(prof, window_ms):
-    """A profiled window's device ms by ``_resnet_group``, its busy and
-    idle shares and its heaviest kernels."""
+def _kernel_groups(prof, window_ms, group=None):
+    """A profiled window's device ms by ``group`` (``_resnet_group``
+    unless given), its busy and idle shares and its heaviest kernels."""
+    group = group or _resnet_group
     from torch.autograd import DeviceType
 
     groups, top = {}, {}
@@ -4817,7 +4862,7 @@ def _kernel_groups(prof, window_ms):
                 ev.self_device_time_total <= 0 or \
                 getattr(ev, "is_user_annotation", False):
             continue
-        g = _resnet_group(ev.key)
+        g = group(ev.key)
         groups[g] = groups.get(g, 0.0) + ev.self_device_time_total / 1e3
         top[ev.key] = top.get(ev.key, 0.0) + ev.self_device_time_total / 1e3
     busy = sum(groups.values())
@@ -4825,7 +4870,7 @@ def _kernel_groups(prof, window_ms):
             "device_idle_share": 1 - busy / window_ms if groups
             else "not measured",
             "device_ms_by_group": groups,
-            "top_kernels_ms": [[k[:90], v, _resnet_group(k)] for k, v in
+            "top_kernels_ms": [[k[:90], v, group(k)] for k, v in
                                sorted(top.items(), key=lambda kv: -kv[1])
                                [:15]]}
 
@@ -5274,20 +5319,23 @@ def _lr_scheduler(cfg):
 
 def module_fit(cfg, model, train, batch_end_callbacks):
     """``common/fit.py:106-163`` (``fit``) for ``--benchmark 1``: a
-    ``local`` kvstore object, "sgd" with momentum and weight decay under
-    the lr schedule, ``Xavier(rnd_type="gaussian", factor_type="in",
+    ``local`` kvstore object, ``cfg["optimizer"]`` ("sgd" by default; with
+    momentum for sgd, nag, signum and lbsgd, as fit.py:131) and weight
+    decay under the lr schedule, ``Xavier(rnd_type="gaussian", factor_type="in",
     magnitude=2)``, the "accuracy" metric, ``Speedometer(batch_size,
     disp_batches)`` (then ``batch_end_callbacks``), no checkpoint prefix,
     no validation data, ``allow_missing=True``, one epoch."""
     kv = mx.kv.create("local")
     lr, lr_scheduler = _lr_scheduler(cfg)
+    optimizer = cfg.get("optimizer", "sgd")
     optimizer_params = {"learning_rate": lr, "wd": cfg["wd"],
-                        "lr_scheduler": lr_scheduler,
-                        "momentum": cfg["mom"]}
+                        "lr_scheduler": lr_scheduler}
+    if optimizer in ("sgd", "nag", "signum", "lbsgd"):
+        optimizer_params["momentum"] = cfg["mom"]
     initializer = mx.init.Xavier(rnd_type="gaussian", factor_type="in",
                                  magnitude=2)
     model.fit(train, begin_epoch=0, num_epoch=1, eval_data=None,
-              eval_metric=["accuracy"], kvstore=kv, optimizer="sgd",
+              eval_metric=["accuracy"], kvstore=kv, optimizer=optimizer,
               optimizer_params=optimizer_params, initializer=initializer,
               arg_params=None, aux_params=None,
               batch_end_callback=[mx.callback.Speedometer(
@@ -5364,7 +5412,7 @@ def _module_split(prof):
     return out if seen else dict.fromkeys(out, "not measured")
 
 
-def _profile_module_batch(mod, batch, metric):
+def _profile_module_batch(mod, batch, metric, group=None, extra=None):
     """One Module batch (``forward_backward``, ``update``,
     ``update_metric``, the calls ``fit`` makes) under ``torch.profiler``:
     device ms by kernel group, the Module path's own work
@@ -5383,9 +5431,11 @@ def _profile_module_batch(mod, batch, metric):
             mod.update_metric(metric, batch.label)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
-    groups = _kernel_groups(prof, window_ms)
+    groups = _kernel_groups(prof, window_ms, group)
     split = _module_split(prof)
     split["k1"] = groups["device_ms_by_group"].get("k1", "not measured")
+    for name, fn in (extra or {}).items():
+        split[name] = fn(prof)
     return {"profiled_batch_ms": window_ms, **groups,
             "module_path_device_ms": split}
 
@@ -7121,7 +7171,9 @@ def _sync_count(fn):
             torch.cuda.set_sync_debug_mode(0)
     where = {}
     for w in caught:
-        if "synchroniz" in str(w.message):
+        # the flagged calls only: setting the mode also warns, once, that
+        # the mode is a prototype ("Synchronization debug mode is ...")
+        if "called a synchronizing" in str(w.message):
             key = f"{os.path.basename(w.filename)}:{w.lineno}"
             where[key] = where.get(key, 0) + 1
     return where
@@ -7583,6 +7635,911 @@ def phase_lstm_ptb_bucketing(smi):
     return out
 
 
+# ------------------------------------------------ the twentieth slice ------
+# examples/image_classification/train_imagenet.py --benchmark 1 --network
+# mobilenet_v2_1_0 at the parser's defaults (MODULE_FIT's wiring: batch 128
+# of 3x224x224, 1000 classes, "sgd" lr 0.1 momentum 0.9 wd 1e-4 under the
+# MultiFactorScheduler, a local kvstore, Xavier, float32, TF32 off): 160
+# trainable tensors (54 convolution weights, 53 BatchNorm gammas and betas)
+# and 106 running statistics. The one cut, as for ResNet-50: 13 batches a
+# fit. Four fits (captured, eager, eager, captured) and one captured fit
+# with --optimizer nag.
+MOBILENET_FIT = dict(MODULE_FIT, network="mobilenet_v2_1_0", tensors=160,
+                     aux=106, nag_fits=1)
+# the train phase's fine-tune (BERT-base, batch 32, seq 128, lr 1e-4, wd
+# 1e-4, 20 steps) under "lamb" at the JAX defaults (beta1 0.9, beta2 0.999,
+# epsilon 1e-6, bias correction, no bounds): four blocks of 20 steps from
+# one state, captured, eager, eager, captured; an "adam" block beside it;
+# replays counted for host syncs with the guard off (its flag is the one
+# read the step makes by design)
+LAMB_TRAIN = {"steps": 20, "warmup": 3, "adam_steps": 10, "sync_replays": 5}
+# examples/gluon/dcgan.py at its defaults (3 epochs of 512 // 32 = 16
+# iterations, batch 32, nz 16, "adam" lr 2e-3 beta1 0.5 in two
+# gluon.Trainers); the check: two iterations from one set of weights and
+# one numpy batch of images and noise on the card and on a CPU copy, the
+# losses to rtol 1e-4 and each parameter's change within 5% of its step's
+# L2 norm (Adam's first steps move every weight by about lr whatever its
+# gradient, so a gradient near zero whose rounding differs moves by up to
+# 2 lr; 5% of a tensor's step is many such elements)
+DCGAN = {"epochs": 3, "batch": 32, "nz": 16, "lr": 2e-3,
+         "num_examples": 512, "check_iters": 2}
+DCGAN_TOL = {"loss_rtol": 1e-4, "step_l2": 0.05}
+# every family's default constructor at batch 2 (Inception v3 at 299, the
+# rest at 224), one training forward and backward on the card and on a CPU
+# copy from the same weights, TF32 off; Dropout's rate set to 0 in both
+# copies for the check (the card's and the CPU's generators draw different
+# masks; Dropout itself is held by dropout_capture). Logits to 1e-3 of
+# their largest magnitude; each gradient within 10% of its L2 norm, or of
+# a thousandth of the model's largest gradient norm where that is larger:
+# at batch 2 the train-mode BatchNorm backward subtracts means over as few
+# as 2 x 7 x 7 values in float32 and the cancellation grows through the
+# stack (measured worst on an H100 80GB HBM3: 4.6% in Inception v3, 1.8% in
+# DenseNet-121, 1.6% in MobileNet v1, 0.8% in SqueezeNet 1.0), and a bias
+# or beta that feeds a train-mode BatchNorm has a true gradient of 0, so
+# the card and the CPU compute rounding noise there (VGG-16-BN's conv biases,
+# MobileNet v2's last beta of each non-residual bottleneck)
+ZOO_CHECK = {"batch": 2, "classes": 1000,
+             "models": {"alexnet": 224, "densenet121": 224,
+                        "inception_v3": 299, "mobilenet1_0": 224,
+                        "mobilenet_v2_1_0": 224, "squeezenet1_0": 224,
+                        "squeezenet1_1": 224, "vgg16": 224, "vgg16_bn": 224}}
+ZOO_CHECK_TOL = {"out": 1e-3, "grad_l2": 0.1, "grad_floor": 1e-3}
+# the surface held card against CPU at small shapes: values at rtol 1e-5,
+# atol 1e-6 of float32 (op for op the same expressions; cuDNN and the CPU
+# sum convolutions in other orders: 1e-5 there), and the gradients that
+# sum over about a thousand terms or more (a deconvolution's bias and
+# weight, a norm's gamma and beta) at atol 1e-4: float32 sums of 1,296
+# unit terms in two orders differed by 2.3e-5 (H100 against the CPU)
+# CTC's gradients (softmax less the label posterior: torch's kernel forms
+# the posterior from alpha and beta, the plain recursion's comes through
+# autograd of 50 log-space steps) at rtol 1e-4, atol 1e-5: they differed
+# by up to 5.7e-5 of a value (on an H100)
+SURFACE_TOL = {"rtol": 1e-5, "atol": 1e-6, "conv_atol": 1e-5,
+               "sum_atol": 1e-4, "ctc_grad_rtol": 1e-4}
+
+
+def _mobilenet_group(name):
+    """MobileNet v2's kernel groups: PyTorch's depthwise kernels (float32
+    NCHW with ``groups == channels`` does not go to cuDNN), the
+    multi-tensor ``_foreach`` kernels (NAG's update), then the ResNet
+    groups (every other convolution is a 1x1 pointwise one but the 3x3
+    stem). ReLU6's kernels are elementwise ones among others; the eager
+    batch's ``module_path_device_ms["clip"]`` attributes them by op."""
+    low = name.lower()
+    if "depthwise" in low:
+        return "depthwise_forward" if "forward" in low else \
+            "depthwise_backward"
+    if "multi_tensor_apply" in low or "foreach" in low:
+        return "foreach"
+    return _resnet_group(name)
+
+
+_CLIP_OPS = ("aten::maximum", "aten::minimum", "MaximumBackward0",
+             "MinimumBackward0")
+
+
+def _clip_device_ms(prof):
+    """Device ms of the kernels launched under ReLU6's ops (``clip`` is
+    ``maximum`` then ``minimum``, as ``jnp.clip``, and their backward
+    nodes), by each event's ``cpu_parent`` chain: an eager window only
+    (a replay's kernels have no op)."""
+    ms, seen = 0.0, False
+    for e in prof.events():
+        kern = getattr(e, "kernels", None) or []
+        if not kern:
+            continue
+        seen = True
+        p = e
+        while p is not None and not any(k in p.name for k in _CLIP_OPS):
+            p = p.cpu_parent
+        if p is not None:
+            ms += sum(k.duration for k in kern) / 1e3
+    return ms if seen else "not measured"
+
+
+def phase_mobilenet_module_fit(smi):
+    """mobilenet_v2_1_0_module_fit: ``train_imagenet.py --benchmark 1
+    --network mobilenet_v2_1_0`` through ``Module.fit`` (``MOBILENET_FIT``,
+    13 batches a fit), four fits captured, eager, eager, captured, as
+    resnet50_v1_module_fit: K1 one launch a batch over all 160 trainable
+    tensors on its 16-byte path and nothing else, one capture then replays,
+    a finite loss falling from the first to the last batch; one profiled
+    batch of each mode by kernel group (depthwise forward and backward,
+    pointwise and other convolutions, BatchNorm, clip, K1, the rest). Then
+    one captured fit with ``--optimizer nag``: no K1 launch, NAG's
+    ``_foreach`` update in K1's place (its device ms from a profiled
+    batch)."""
+    t_phase = time.perf_counter()
+    cfg = MOBILENET_FIT
+    dev = mx.gpu(0)
+    mx.random.seed(0)
+    net = get_network(cfg["network"], cfg["num_classes"], cfg["image_shape"])
+    train = SyntheticDataIter(cfg["num_classes"],
+                              (cfg["batch"],) + tuple(cfg["image_shape"]),
+                              cfg["epoch_size"])
+    batches = cfg["epoch_size"]
+    runs, profs = [], {}
+    modes = [("captured", "sgd"), ("eager", "sgd"), ("eager", "sgd"),
+             ("captured", "sgd")] + [("captured", "nag")] * cfg["nag_fits"]
+    for mode, optimizer in modes:
+        fcfg = dict(cfg, optimizer=optimizer)
+        prev = compile_service.set_enabled(mode == "captured")
+        try:
+            mx.random.seed(0)
+            model, log, run = _module_fit_once(fcfg, net, train, dev)
+            key = mode if optimizer == "sgd" else optimizer
+            if key not in profs:
+                train.reset()
+                profs[key] = _profile_module_batch(
+                    model, train.next(), mx.metric.create(["accuracy"]),
+                    _mobilenet_group, {"clip": _clip_device_ms})
+        finally:
+            compile_service.set_enabled(prev)
+        run.update(mode=mode, optimizer=optimizer)
+        runs.append(run)
+        want = dict.fromkeys(run["launches"], 0)
+        if optimizer == "sgd":
+            want["opt_sgd"] = batches
+        site = run["executor_site"]
+        want_site = {"misses": 1, "hits": batches - 1, "captures": 1,
+                     "replays": 2 * (batches - 1)} if mode == "captured" \
+            else {"misses": 0, "hits": 0, "captures": 0, "replays": 0}
+        vec4 = cfg["tensors"] * batches if optimizer == "sgd" else 0
+        losses = run["losses"]
+        if run["launches"] != want or \
+                run["k1_tensors_by_path"] != {"vec4": vec4, "scalar": 0} or \
+                run["k1_gradient_copies"] or \
+                {k: site[k] for k in want_site} != want_site or \
+                not all(v is not None and math.isfinite(v) for v in losses) \
+                or not losses[1] < losses[0] or not log.speeds:
+            raise AssertionError(
+                f"mobilenet fit {mode} {optimizer}: launches "
+                f"{run['launches']} (expected {want}), K1 paths "
+                f"{run['k1_tensors_by_path']}, executor site {site}, "
+                f"losses {losses}, Speedometer {log.speeds}")
+        if type(model._optimizer).__name__.lower() != optimizer:
+            raise AssertionError(f"mobilenet fit: optimizer "
+                                 f"{type(model._optimizer).__name__}")
+        run["log_tail"] = log.lines[-2:]
+        del model
+        torch.cuda.empty_cache()
+    sgd = [r for r in runs if r["optimizer"] == "sgd"]
+    timed = {m: [v for r in sgd if r["mode"] == m
+                 for v in r["batch_ms"][cfg["warmup"] - 1:]]
+             for m in ("captured", "eager")}
+    med = {m: statistics.median(v) for m, v in timed.items()}
+    nag = [r for r in runs if r["optimizer"] == "nag"]
+    nag_med = statistics.median([v for r in nag
+                                 for v in r["batch_ms"][cfg["warmup"] - 1:]])
+    cap = sgd[0]
+    out = {"phase": "mobilenet_v2_1_0_module_fit", "card": smi,
+           "config": cfg,
+           "source": "examples/image_classification/train_imagenet.py "
+                     "--benchmark 1 --network mobilenet_v2_1_0",
+           "tf32": False, "batches": batches,
+           "order": [f"{r['mode']}/{r['optimizer']}" for r in runs],
+           "median_batch_ms": med["captured"],
+           "median_batch_ms_eager": med["eager"],
+           "img_per_s": cfg["batch"] / (med["captured"] / 1e3),
+           "img_per_s_eager": cfg["batch"] / (med["eager"] / 1e3),
+           "block_medians_ms": {m: [r["median_batch_ms"] for r in sgd
+                                    if r["mode"] == m]
+                                for m in ("captured", "eager")},
+           "speedometer_img_per_s": cap["speedometer_img_per_s"],
+           "speedometer_img_per_s_eager": sgd[1]["speedometer_img_per_s"],
+           "max_memory_allocated": cap["max_memory_allocated"],
+           "max_memory_allocated_eager": sgd[1]["max_memory_allocated"],
+           "memory_allocated_before": cap["memory_allocated_before"],
+           "update_host_ms": cap["update_host_ms"],
+           "launches": cap["launches"],
+           "k1_tensors_by_path": cap["k1_tensors_by_path"],
+           "executor_site": cap["executor_site"],
+           "losses": {f"{r['mode']}/{r['optimizer']}": r["losses"]
+                      for r in runs},
+           "train_accuracy": cap["train_accuracy"],
+           "profiled_batch": profs["captured"],
+           "eager_profiled_batch": profs["eager"],
+           "nag": {"median_batch_ms": nag_med,
+                   "launches": nag[0]["launches"],
+                   "executor_site": nag[0]["executor_site"],
+                   "losses": nag[0]["losses"],
+                   "update_host_ms": nag[0]["update_host_ms"],
+                   "profiled_batch": profs["nag"]},
+           "log_tail": cap["log_tail"],
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    del net, train
+    torch.cuda.empty_cache()
+    return out
+
+
+def _kernels_under(prof, label):
+    """``(kernels, device ms)`` launched under the ``record_function``
+    ``label`` of a profiled window."""
+    n, ms = 0, 0.0
+    for e in prof.events():
+        kern = getattr(e, "kernels", None) or []
+        if not kern:
+            continue
+        p = e
+        while p is not None and p.name != label:
+            p = p.cpu_parent
+        if p is None:
+            continue
+        n += len(kern)
+        ms += sum(k.duration for k in kern) / 1e3
+    return n, ms
+
+
+@contextlib.contextmanager
+def _labelled_update():
+    """Every ``opt_rules.apply`` under a ``record_function`` named
+    ``opt_rules.apply``."""
+    from torch.profiler import record_function
+
+    from mxnet_tpu_torch.parallel import opt_rules
+
+    real = opt_rules.apply
+
+    def apply(*a, **k):
+        with record_function("opt_rules.apply"):
+            return real(*a, **k)
+
+    opt_rules.apply = apply
+    try:
+        yield
+    finally:
+        opt_rules.apply = real
+
+
+def _eager_update_profile(st, x, y):
+    """One eager step under the profiler: the optimizer update's kernel
+    count and device ms (the kernels a replay of the captured step runs
+    for it: the graph holds the same launches), K1/K2's device ms by
+    kernel name (launched through ctypes, outside any op), the step's
+    window and busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prev = compile_service.set_enabled(False)
+    try:
+        torch.cuda.synchronize()
+        with _labelled_update(), profile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            float(st.step(x, y)._data.float())
+            window_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        compile_service.set_enabled(prev)
+    n, ms = _kernels_under(prof, "opt_rules.apply")
+    groups, _ = _device_split(prof, 1)
+    fused = groups.get("optimizer", 0.0) / 1e3
+    busy = sum(groups.values()) / 1e3
+    return {"update_kernels": n, "update_device_ms": ms,
+            "fused_kernel_device_ms": fused, "window_ms": window_ms,
+            "device_ms": busy if groups else "not measured",
+            "busy_share": busy / window_ms if groups else "not measured",
+            "device_us_by_group": groups}
+
+
+def phase_bert_lamb(smi):
+    """bert_base_sst2_finetune_lamb: the train phase's captured
+    ``ShardedTrainer`` step with "lamb" (``LAMB_TRAIN``): four blocks of 20
+    steps from one state (captured, eager, eager, captured): step ms, the
+    loss finite and falling, one capture then replays, launches (K3 12,
+    K3-bwd 12 + 12, no K1/K2), the captured state after 3 and 20 steps
+    against the eager one; LAMB's kernels and device ms per step (an eager
+    step under the profiler: the same launches a replay makes) beside
+    K2's in an "adam" step; the "adam" step's ms from the same call; and
+    the host's synchronizing calls over 5 replays with the guard off
+    (none expected)."""
+    t_phase = time.perf_counter()
+    cfg, tr, lt = BERT_BASE, TRAIN, LAMB_TRAIN
+    weights = random_params(cfg, seed=0)
+    x, y = make_task(tr["batch"], cfg["seq_len"], cfg["vocab"],
+                     cfg["num_classes"], seed=5)
+    xb, yb = mx.nd.array(x), mx.nd.array(y)
+
+    def trainer(name, **kw):
+        clf = _classifier_on(mx.gpu(0), cfg, weights)
+        return ShardedTrainer(clf, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                              name, {"learning_rate": tr["lr"],
+                                     "wd": tr["wd"]},
+                              mesh=DeviceMesh({"dp": 1}), **kw)
+
+    st = trainer("lamb")
+    opt = st._opt
+    if (opt.beta1, opt.beta2, opt.epsilon, opt.bias_correction,
+            opt.lower_bound, opt.upper_bound) != (0.9, 0.999, 1e-6, True,
+                                                   None, None):
+        raise AssertionError("lamb: not at the JAX defaults")
+    start = _snapshot(st)
+    n = lt["steps"]
+    blocks, kept = _trainer_blocks(
+        st, xb, yb, [("captured", n), ("eager", n), ("eager", n),
+                     ("captured", n)], start=start, snaps=(3, n))
+    layers = cfg["layers"]
+    for b in blocks:
+        want = {"flash_attention": layers * n,
+                "flash_attention.mma": layers * n,
+                "flash_attention_bwd_dq": layers * n,
+                "flash_attention_bwd_dq.mma": layers * n,
+                "flash_attention_bwd_dkv": layers * n,
+                "flash_attention_bwd_dkv.mma": layers * n}
+        if b["launches"] != want or not all(map(math.isfinite,
+                                                b["losses"])) \
+                or not b["losses"][-1] < b["losses"][0]:
+            raise AssertionError(f"lamb {b['mode']}: launches "
+                                 f"{b['launches']}, losses {b['losses']}")
+    if (blocks[0]["captures"], blocks[0]["replays"]) != (1, n - 1) or \
+            (blocks[3]["captures"], blocks[3]["replays"]) != (0, n):
+        raise AssertionError(f"lamb: captures/replays {blocks}")
+    if st.skipped_steps:
+        raise AssertionError(f"lamb: {st.skipped_steps} steps skipped")
+    names = list(st._state_tensors())
+    agreement = {k: _step_agreement(kept["captured"][k], kept["eager"][k],
+                                    start[0], names) for k in (3, n)}
+    _restore(st, start)
+    lamb_prof = _eager_update_profile(st, xb, yb)
+    replayed = _profiled_step(st, xb, yb, eager=False)
+    del kept
+    # the "adam" step of the same call, and K2's device time in it
+    adam = trainer("adam")
+    adam_blocks, _ = _trainer_blocks(adam, xb, yb,
+                                     [("captured", lt["adam_steps"])])
+    adam_prof = _eager_update_profile(adam, xb, yb)
+    del adam
+    torch.cuda.empty_cache()
+    # host syncs over replays, the guard off
+    quiet = trainer("lamb", nan_guard=False)
+    for _ in range(2):   # the eager first step, then the capture
+        quiet.step(xb, yb)
+    torch.cuda.synchronize()
+    syncs = _sync_count(lambda: [quiet.step(xb, yb)
+                                 for _ in range(lt["sync_replays"])])
+    torch.cuda.synchronize()
+    if syncs:
+        raise AssertionError(f"lamb: host syncs in replays: {syncs}")
+    del quiet
+    summary = _abba_summary(blocks, lt["warmup"])
+    adam_ms = statistics.median(adam_blocks[0]["step_ms"][lt["warmup"]:])
+    out = {"phase": "bert_base_sst2_finetune_lamb", "card": smi,
+           "config": cfg, **tr, "lamb": {
+               "beta1": opt.beta1, "beta2": opt.beta2,
+               "epsilon": opt.epsilon, "bias_correction": True},
+           "blocks": [{k: b[k] for k in (
+               "mode", "step_ms", "losses", "launches",
+               "max_memory_allocated", "captures", "capture_ms",
+               "replays")} for b in blocks],
+           **summary,
+           "tokens_per_s": tr["batch"] * cfg["seq_len"] / (
+               summary["median_step_ms"]["captured"] / 1e3),
+           "adam_median_step_ms": adam_ms,
+           "lamb_over_adam_step": summary["median_step_ms"]["captured"]
+           / adam_ms,
+           "lamb_update_kernels_per_step": lamb_prof["update_kernels"],
+           "lamb_update_device_ms": lamb_prof["update_device_ms"],
+           "adam_update_device_ms_k2": adam_prof["fused_kernel_device_ms"],
+           "adam_update_kernels_per_step": adam_prof["update_kernels"],
+           "trainable_tensors": len(st._param_names),
+           "eager_step_profile": lamb_prof,
+           "replayed_step_profile": replayed,
+           "captured_vs_eager": agreement,
+           "host_syncs_per_replays": syncs,
+           "sync_replays": lt["sync_replays"],
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    del st
+    torch.cuda.empty_cache()
+    return out
+
+
+def dcgan_nets(nn, ngf=16, ndf=16, nc=1):
+    """``examples/gluon/dcgan.py:25-44`` (``build_nets``) over the port."""
+    netG = nn.HybridSequential(prefix="gen_")
+    with netG.name_scope():
+        # latent (B, nz, 1, 1) -> (B, nc, 16, 16)
+        netG.add(nn.Conv2DTranspose(ngf * 2, 4, 1, 0, use_bias=False),
+                 nn.BatchNorm(), nn.Activation("relu"),
+                 nn.Conv2DTranspose(ngf, 4, 2, 1, use_bias=False),
+                 nn.BatchNorm(), nn.Activation("relu"),
+                 nn.Conv2DTranspose(nc, 4, 2, 1, use_bias=False),
+                 nn.Activation("tanh"))
+    netD = nn.HybridSequential(prefix="disc_")
+    with netD.name_scope():
+        netD.add(nn.Conv2D(ndf, 4, 2, 1, use_bias=False),
+                 nn.LeakyReLU(0.2),
+                 nn.Conv2D(ndf * 2, 4, 2, 1, use_bias=False),
+                 nn.BatchNorm(), nn.LeakyReLU(0.2),
+                 nn.Conv2D(1, 4, 1, 0, use_bias=False))
+    return netG, netD
+
+
+def dcgan_images(num_examples, rs):
+    """``dcgan.py:62-69``: 16x16 gaussian bumps in [-1, 1]."""
+    yy, xx = np.mgrid[0:16, 0:16] / 15.0
+    centers = rs.rand(num_examples, 2)
+    real = np.tanh(3.0 * np.exp(
+        -(((xx[None] - centers[:, 0, None, None]) ** 2 +
+           (yy[None] - centers[:, 1, None, None]) ** 2) / 0.05)) - 0.5)
+    return real[:, None].astype(np.float32)
+
+
+def _dcgan_iteration(mx_, netG, netD, trainerG, trainerD, bce, data, noise,
+                     ones, zeros, b):
+    """One iteration of ``dcgan.py:84-97``: the D step on the real and the
+    detached fake batch, then the G step."""
+    autograd = mx_.autograd
+    fake = netG(noise)
+    with autograd.record():
+        out_real = netD(data).reshape((-1,))
+        out_fake = netD(fake.detach()).reshape((-1,))
+        lossD = bce(out_real, ones) + bce(out_fake, zeros)
+    lossD.backward()
+    trainerD.step(b)
+    with autograd.record():
+        out = netD(netG(noise)).reshape((-1,))
+        lossG = bce(out, ones)
+    lossG.backward()
+    trainerG.step(b)
+    return lossD, lossG
+
+
+def _dcgan_setup(cfg, ctx, weights=None):
+    nn = mx.gluon.nn
+    netG, netD = dcgan_nets(nn)
+    netG.initialize(mx.init.Normal(0.02), ctx=ctx,
+                    generator=torch.Generator().manual_seed(1))
+    netD.initialize(mx.init.Normal(0.02), ctx=ctx,
+                    generator=torch.Generator().manual_seed(2))
+    netD(netG(mx.nd.zeros((2, cfg["nz"], 1, 1), ctx=ctx)))
+    if weights is not None:
+        for net, w in zip((netG, netD), weights):
+            load_jax_params(net, w)
+    trainerG = mx.gluon.Trainer(netG.collect_params(), "adam",
+                                {"learning_rate": cfg["lr"], "beta1": 0.5})
+    trainerD = mx.gluon.Trainer(netD.collect_params(), "adam",
+                                {"learning_rate": cfg["lr"], "beta1": 0.5})
+    return netG, netD, trainerG, trainerD
+
+
+def phase_dcgan(smi):
+    """dcgan: ``examples/gluon/dcgan.py`` at its defaults (``DCGAN``),
+    ``build_nets`` and the loop copied here. First two iterations from one
+    set of weights and one numpy batch of images and noise on the card and
+    on a CPU copy (``DCGAN_TOL``); then the example's run: 3 epochs of 16
+    iterations, iteration ms, K2 two launches an iteration (the two
+    trainers' steps), the D and G losses finite each epoch, 4 finite
+    samples of 1x16x16."""
+    t_phase = time.perf_counter()
+    cfg = DCGAN
+    b = cfg["batch"]
+    rs = np.random.RandomState(0)
+    real = dcgan_images(cfg["num_examples"], rs)
+    # the check: card against a CPU copy
+    check_noise = rs.randn(cfg["check_iters"], b, cfg["nz"], 1, 1).astype(
+        np.float32)
+    card = _dcgan_setup(cfg, mx.gpu(0))
+    start = [export_params(n) for n in card[:2]]
+    nets = {"card": card, "cpu": _dcgan_setup(cfg, mx.cpu(), start)}
+    losses = {}
+    for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        netG, netD, tG, tD = nets[where]
+        bce = mx.gluon.loss.SigmoidBinaryCrossEntropyLoss()
+        ones, zeros = mx.nd.ones((b,), ctx=ctx), mx.nd.zeros((b,), ctx=ctx)
+        losses[where] = []
+        for i in range(cfg["check_iters"]):
+            lD, lG = _dcgan_iteration(
+                mx, netG, netD, tG, tD, bce,
+                mx.nd.array(real[i * b:(i + 1) * b], ctx=ctx),
+                mx.nd.array(check_noise[i], ctx=ctx), ones, zeros, b)
+            losses[where].append([float(lD.mean().asscalar()),
+                                  float(lG.mean().asscalar())])
+    got, want = np.array(losses["card"]), np.array(losses["cpu"])
+    if not np.allclose(got, want, rtol=DCGAN_TOL["loss_rtol"], atol=0):
+        raise AssertionError(f"dcgan check: losses {got} on the card, "
+                             f"{want} on the CPU")
+    worst = 0.0
+    for k, net in enumerate(("G", "D")):
+        card_p = export_params(nets["card"][k])
+        cpu_p = export_params(nets["cpu"][k])
+        for name, s0 in start[k].items():
+            step = float(np.linalg.norm(cpu_p[name] - s0))
+            err = float(np.linalg.norm(card_p[name] - cpu_p[name]))
+            share = err / max(step, 1e-30) if err else 0.0
+            worst = max(worst, share)
+            if share > DCGAN_TOL["step_l2"]:
+                raise AssertionError(f"dcgan check: {net} {name} off by "
+                                     f"{share} of its step")
+    check = {"losses_card": losses["card"], "losses_cpu": losses["cpu"],
+             "max_step_l2_share": worst}
+    del nets
+    # the example's run (dcgan.py:55-105), on the card
+    mx.random.seed(0)
+    netG, netD, trainerG, trainerD = _dcgan_setup(cfg, mx.gpu(0))
+    bce = mx.gluon.loss.SigmoidBinaryCrossEntropyLoss()
+    ones, zeros = mx.nd.ones((b,)), mx.nd.zeros((b,))
+    nbatch = cfg["num_examples"] // b
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    epochs, it_ms = [], []
+    for epoch in range(cfg["epochs"]):
+        perm = rs.permutation(cfg["num_examples"])
+        d_tot = g_tot = 0.0
+        for i in range(nbatch):
+            t0 = time.perf_counter()
+            data = mx.nd.array(real[perm[i * b:(i + 1) * b]])
+            noise = mx.nd.random.normal(shape=(b, cfg["nz"], 1, 1))
+            lossD, lossG = _dcgan_iteration(mx, netG, netD, trainerG,
+                                            trainerD, bce, data, noise,
+                                            ones, zeros, b)
+            d_tot += float(lossD.mean().asscalar())
+            g_tot += float(lossG.mean().asscalar())
+            it_ms.append((time.perf_counter() - t0) * 1e3)
+        epochs.append([d_tot / nbatch, g_tot / nbatch])
+    samples = netG(mx.nd.random.normal(shape=(4, cfg["nz"], 1, 1))).asnumpy()
+    launches = {k: v for k, v in kernels.launch_counts().items() if v}
+    iters = cfg["epochs"] * nbatch
+    if launches != {"opt_adam": 2 * iters} or \
+            not np.isfinite(np.array(epochs)).all() or \
+            samples.shape != (4, 1, 16, 16) or \
+            not np.isfinite(samples).all():
+        raise AssertionError(f"dcgan: launches {launches} (expected "
+                             f"opt_adam {2 * iters}), epoch losses {epochs}, "
+                             f"samples {samples.shape}")
+    out = {"phase": "dcgan", "card": smi, "config": cfg,
+           "source": "examples/gluon/dcgan.py", "check": check,
+           "tolerance": DCGAN_TOL, "iterations": iters,
+           "epoch_losses": epochs,
+           "median_iteration_ms": statistics.median(it_ms[nbatch:]),
+           "iteration_ms_first_epoch": it_ms[:nbatch],
+           "launches": launches,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+def _no_dropout(net):
+    """Dropout's rate set to 0 in every Dropout block of ``net`` (the
+    names of those blocks)."""
+    names = []
+
+    def walk(block):
+        if isinstance(block, mx.gluon.nn.Dropout):
+            block._rate = 0.0
+            names.append(block.name)
+        for child in block._children.values():
+            walk(child)
+
+    walk(net)
+    return names
+
+
+def phase_zoo_check():
+    """zoo_check: each family's default constructor (``ZOO_CHECK``), one
+    training forward (BatchNorm on batch statistics) and backward of the
+    summed logits times a fixed head, on the card and on a CPU copy from
+    the same weights (Dropout at rate 0 in both), held to
+    ``ZOO_CHECK_TOL`` (every model measured before the check fails);
+    parameter counts."""
+    cfg, tol = ZOO_CHECK, ZOO_CHECK_TOL
+    out = {}
+    for name, size in cfg["models"].items():
+        t0 = time.perf_counter()
+        rs = np.random.RandomState(0)
+        x = rs.uniform(-1, 1, (cfg["batch"], 3, size, size)).astype(
+            np.float32)
+        head = rs.randn(cfg["batch"], cfg["classes"]).astype(np.float32)
+        res = {}
+        weights = None
+        for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+            net = vision.get_model(name, classes=cfg["classes"])
+            net.initialize(mx.init.Xavier(), ctx=ctx,
+                           generator=torch.Generator().manual_seed(0))
+            net(mx.nd.array(x[:1], ctx=ctx))
+            if weights is None:
+                weights = export_params(net)
+            else:
+                load_jax_params(net, weights)
+            dropped = _no_dropout(net)
+            xs = mx.nd.array(x, ctx=ctx)
+            with mx.autograd.record():
+                y = net(xs)
+                loss = (y * mx.nd.array(head, ctx=ctx)).sum()
+            loss.backward()
+            res[where] = (y.asnumpy(), {
+                n: p.grad().asnumpy() for n, p in
+                net._collect_params_with_structure().items()
+                if p.grad_req != "null"})
+            count = sum(int(np.prod(p.shape)) for p in
+                        net.collect_params().values())
+            del net
+        (yc, gc), (yh, gh) = res["card"], res["cpu"]
+        out_err = float(np.abs(yc - yh).max()) / max(
+            float(np.abs(yh).max()), 1e-30)
+        norms = {n: float(np.linalg.norm(gh[n])) for n in gh}
+        floor = tol["grad_floor"] * max(norms.values())
+        shares = {n: float(np.linalg.norm(gc[n] - gh[n]))
+                  / max(norms[n], floor, 1e-30) for n in gh}
+        worst = sorted(shares, key=shares.get, reverse=True)[:3]
+        out[name] = {"size": size, "parameters": count,
+                     "tensors": len(gh), "max_logit_err": out_err,
+                     "max_grad_l2_err": shares[worst[0]],
+                     "worst_grads": {n: [shares[n], norms[n]]
+                                     for n in worst},
+                     "finite": bool(np.isfinite(yc).all()),
+                     "dropout_rate_0": dropped,
+                     "seconds": time.perf_counter() - t0}
+        torch.cuda.empty_cache()
+    line = {"phase": "zoo_check", "config": cfg, "tolerance": tol,
+            "tf32": False, "models": out}
+    emit(line)
+    bad = {n: (m["max_logit_err"], m["max_grad_l2_err"])
+           for n, m in out.items() if m["max_logit_err"] > tol["out"]
+           or m["max_grad_l2_err"] > tol["grad_l2"] or not m["finite"]}
+    if bad:
+        raise AssertionError(f"zoo_check: logits and gradient errors "
+                             f"{bad} beyond {tol}")
+    return line
+
+
+def _surface_close(what, got, want, atol=None, rtol=None):
+    """``got`` (the card's) against ``want`` (the CPU's) at
+    ``SURFACE_TOL``; the largest absolute difference."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    torch.testing.assert_close(
+        got, want, rtol=rtol or SURFACE_TOL["rtol"],
+        atol=atol or SURFACE_TOL["atol"], msg=lambda m: f"{what}: {m}")
+    return err
+
+
+def _surface_rules_mp(errs):
+    """Every new rule on the master route (float16 weights under
+    ``multi_precision``) through ``opt_rules.apply`` itself, 3 steps from
+    the same weights and gradients on the card and on the CPU: the
+    float32 masters, and each weight its master rounded."""
+    from mxnet_tpu_torch.optimizer import optimizer as popt
+    from mxnet_tpu_torch.parallel import opt_rules
+
+    shapes = [(64, 33), (129,), (8, 3, 3, 3)]
+    rs = np.random.RandomState(4)
+    w0 = [rs.randn(*sh).astype(np.float16) for sh in shapes]
+    gs = [[(rs.randn(*sh) * 0.5).astype(np.float16) for sh in shapes]
+          for _ in range(3)]
+    names = sorted(set(opt_rules.RULES) - {"signsgd", "sgd", "adam",
+                                            "sgld"})
+    for name in names:
+        kw = dict(wd=1e-3, clip_gradient=0.5, multi_precision=True,
+                  **_SURFACE_EXTRA.get(name, {}))
+        if name in _SURFACE_MOMENTUM:
+            kw["momentum"] = 0.9
+        res = {}
+        for where, dev in (("card", mx.gpu(0).torch_device()),
+                           ("cpu", torch.device("cpu"))):
+            opt = popt.create(name, **kw)
+            rule = opt_rules.RULES[name]
+            ws = [torch.tensor(w, device=dev) for w in w0]
+            routes = opt_rules.Routes([w.dtype for w in ws], True)
+            states = [opt_rules.init_state(rule, opt, w, True) for w in ws]
+            grads32 = [torch.empty(w.shape, device=dev) for w in ws]
+            lr = torch.tensor(0.02, device=dev)
+            with torch.no_grad():
+                for step, g in enumerate(gs, 1):
+                    opt_rules.apply(rule, opt, routes, ws, [
+                        torch.tensor(x, device=dev) for x in g], states,
+                        grads32, lr, [1e-3] * len(ws),
+                        torch.tensor(float(step), device=dev), None)
+            res[where] = [st[0] for st in states], ws
+        for i, (a, b) in enumerate(zip(res["card"][0], res["cpu"][0])):
+            errs[f"rule_master/{name}"] = max(
+                errs.get(f"rule_master/{name}", 0.0),
+                _surface_close(f"rule {name} master {i}", a, b))
+        for m, w in zip(*res["card"]):
+            if not torch.equal(w, m.to(w.dtype)):
+                raise AssertionError(f"surface rule {name}: a float16 "
+                                     "weight is not its master rounded")
+
+
+# the optimizers' hyper-parameters in the surface checks beyond rate,
+# decay and clip: momentum where the optimizer has one, LBSGD's warm-up
+# with accumulation, RMSProp's centred form
+_SURFACE_EXTRA = {"lbsgd": dict(batch_scale=2, warmup_epochs=1,
+                                updates_per_epoch=2),
+                  "rmsprop": dict(centered=True)}
+_SURFACE_MOMENTUM = {"nag", "signum", "lars", "lbsgd", "dcasgd"}
+
+
+def _surface_optimizers(errs):
+    """Every optimizer of the zoo through ``Updater.update_multi`` (3
+    steps; float32, and float16 under ``multi_precision``: the masters)
+    and through ``ShardedTrainer`` (3 steps of a 2-layer tanh MLP), card
+    against CPU."""
+    from mxnet_tpu_torch.optimizer import optimizer as popt
+
+    shapes = [(64, 33), (129,), (8, 3, 3, 3)]
+    rs = np.random.RandomState(0)
+    w0 = [rs.randn(*s).astype(np.float32) for s in shapes]
+    gs = [[rs.randn(*s).astype(np.float32) for s in shapes]
+          for _ in range(3)]
+    names = sorted(set(popt._ZOO) - {"sgd", "adam"})
+    for name in names:
+        kw = dict(learning_rate=0.05, wd=0.01, clip_gradient=0.5,
+                  rescale_grad=0.5, **_SURFACE_EXTRA.get(name, {}))
+        if name in _SURFACE_MOMENTUM:
+            kw["momentum"] = 0.9
+        for dtype, mp in (("float32", False), ("float16", True)):
+            res = {}
+            for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+                mx.random.seed(3)
+                up = popt.get_updater(popt.create(name, multi_precision=mp,
+                                                  **kw))
+                ws = [mx.nd.array(w, ctx=ctx).astype(dtype) for w in w0]
+                for step in gs:
+                    up.update_multi([0, 1, 2], [mx.nd.array(
+                        g, ctx=ctx).astype(dtype) for g in step], ws)
+                masters = [up.states[i][0] if mp else ws[i]
+                           for i in range(3)]
+                res[where] = [m._data for m in masters]
+            if name == "sgld":
+                # the noise differs by generator: its size only
+                for a, b in zip(res["card"], res["cpu"]):
+                    if not torch.isfinite(a).all() or float(
+                            (a.cpu() - b).std()) > 3 * math.sqrt(0.05):
+                        raise AssertionError("surface sgld: noise")
+                continue
+            for i, (a, b) in enumerate(zip(res["card"], res["cpu"])):
+                errs[f"updater/{name}/{dtype}"] = max(
+                    errs.get(f"updater/{name}/{dtype}", 0.0),
+                    _surface_close(f"updater {name} {dtype} {i}", a, b))
+    from mxnet_tpu_torch.parallel.opt_rules import RULES
+
+    for name in sorted(set(RULES) - {"signsgd", "sgd", "adam", "sgld"}):
+        kw = dict(learning_rate=0.02, wd=1e-3, clip_gradient=0.5,
+                  **_SURFACE_EXTRA.get(name, {}))
+        if name in _SURFACE_MOMENTUM:
+            kw["momentum"] = 0.9
+        res = {}
+        for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+            net = mx.gluon.nn.HybridSequential(prefix="s_")
+            with net.name_scope():
+                net.add(mx.gluon.nn.Dense(32, activation="tanh",
+                                          in_units=16),
+                        mx.gluon.nn.Dense(4, in_units=32))
+            net.initialize(mx.init.Xavier(), ctx=ctx,
+                           generator=torch.Generator().manual_seed(0))
+            st = ShardedTrainer(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                                name, dict(kw), mesh=DeviceMesh(
+                                    {"dp": 1}, devices=[ctx]))
+            rs = np.random.RandomState(1)
+            for _ in range(3):
+                st.step(mx.nd.array(rs.randn(8, 16).astype(np.float32),
+                                    ctx=ctx),
+                        mx.nd.array(rs.randint(0, 4, 8).astype(np.float32),
+                                    ctx=ctx))
+            res[where] = [h._data for h in st._train_handles]
+        for i, (a, b) in enumerate(zip(res["card"], res["cpu"])):
+            errs[f"rule/{name}"] = max(errs.get(f"rule/{name}", 0.0),
+                                       _surface_close(f"rule {name} {i}",
+                                                      a, b, atol=1e-5))
+
+
+def _surface_op(errs, what, name, arrays, kw, argnums, atol=None,
+                grad_atol=None):
+    """Op ``name`` forward and the gradient of a fixed head over
+    ``argnums``, card against CPU (the gradients at ``grad_atol``, else
+    ``atol``)."""
+    from mxnet_tpu_torch.ops import registry as reg
+
+    res = {}
+    rs = np.random.RandomState(9)
+    for where, dev in (("card", mx.gpu(0).torch_device()), ("cpu", "cpu")):
+        ts = [torch.tensor(a, device=dev) for a in arrays]
+        for i in argnums:
+            ts[i].requires_grad_(True)
+        out = reg.get(name)(*ts, **kw)
+        out = out[0] if isinstance(out, tuple) else out
+        head = torch.tensor(rs.randn(*out.shape).astype(np.float32),
+                            device=dev) if where == "card" else \
+            res["card"][2].cpu()
+        grads = torch.autograd.grad(out, [ts[i] for i in argnums],
+                                    head) if argnums else []
+        res[where] = (out, grads, head)
+    errs[what] = _surface_close(what, res["card"][0], res["cpu"][0],
+                                atol=atol)
+    for i, (a, b) in enumerate(zip(res["card"][1], res["cpu"][1])):
+        errs[what] = max(errs[what], _surface_close(
+            f"{what} grad {i}", a, b, atol=grad_atol or atol))
+
+
+def phase_surface_check():
+    """surface_check: the slice's surface on the card against the CPU
+    (``SURFACE_TOL``): every new optimizer through ``Updater.update_multi``
+    and through ``ShardedTrainer``'s rules (float32 weights, and float16
+    ones with float32 masters through ``opt_rules.apply``); Deconvolution (grouped, and
+    with ``target_shape``); CTCLoss (the card's ``torch.nn.functional.
+    ctc_loss`` against the plain recursion on the card and the CPU,
+    values and gradients); LRN, UpSampling, InstanceNorm, GroupNorm and
+    the LeakyReLU modes."""
+    from mxnet_tpu_torch.ops import nn as nn_ops
+
+    t0 = time.perf_counter()
+    errs = {}
+    _surface_optimizers(errs)
+    _surface_rules_mp(errs)
+    rs = np.random.RandomState(2)
+    f32 = lambda *s: rs.randn(*s).astype(np.float32)  # noqa: E731
+    conv, sums = SURFACE_TOL["conv_atol"], SURFACE_TOL["sum_atol"]
+    _surface_op(errs, "deconvolution", "Deconvolution",
+                [f32(4, 8, 9, 9), f32(8, 6, 4, 4), f32(6)],
+                dict(kernel=(4, 4), stride=(2, 2), pad=(1, 1), adj=(1, 1),
+                     num_filter=6, no_bias=False), (0, 1, 2), atol=conv, grad_atol=sums)
+    _surface_op(errs, "deconvolution_grouped", "Deconvolution",
+                [f32(4, 8, 9, 9), f32(8, 3, 3, 3)],
+                dict(kernel=(3, 3), stride=(2, 2), num_filter=6,
+                     num_group=2, dilate=(2, 2)), (0, 1), atol=conv, grad_atol=sums)
+    _surface_op(errs, "deconvolution_target_shape", "Deconvolution",
+                [f32(2, 4, 5, 5), f32(4, 3, 4, 4)],
+                dict(kernel=(4, 4), stride=(2, 2), num_filter=3,
+                     target_shape=(10, 9)), (0, 1), atol=conv, grad_atol=sums)
+    _surface_op(errs, "lrn", "LRN", [np.abs(f32(4, 16, 7, 7)) + 0.1],
+                dict(alpha=1e-2, nsize=5), (0,))
+    _surface_op(errs, "upsampling_nearest", "UpSampling",
+                [f32(2, 3, 5, 5)], dict(scale=2), (0,))
+    _surface_op(errs, "upsampling_bilinear", "UpSampling",
+                [f32(2, 3, 5, 5), f32(3, 1, 4, 4)],
+                dict(scale=2, sample_type="bilinear", num_filter=3), (0,))
+    _surface_op(errs, "instance_norm", "InstanceNorm",
+                [f32(4, 6, 8, 8), f32(6), f32(6)], {}, (0, 1, 2),
+                atol=conv, grad_atol=sums)
+    _surface_op(errs, "group_norm", "GroupNorm",
+                [f32(4, 6, 8, 8), f32(6), f32(6)], dict(num_groups=3),
+                (0, 1, 2), atol=conv, grad_atol=sums)
+    for act in ("leaky", "elu", "selu", "gelu", "rrelu"):
+        _surface_op(errs, f"leaky_relu_{act}", "LeakyReLU", [f32(8, 33)],
+                    dict(act_type=act, slope=0.3), (0,))
+    _surface_op(errs, "leaky_relu_prelu", "LeakyReLU",
+                [f32(4, 3, 5, 5), f32(3)], dict(act_type="prelu"), (0, 1))
+    # CTC: the card's torch op against the recursion on the card and the
+    # CPU, values and gradients (the route by device, decided up front)
+    data = f32(50, 8, 20)
+    label = rs.randint(1, 20, (8, 10)).astype(np.float32)
+    for i, n in enumerate((10, 7, 3, 10, 1, 5, 8, 9)):
+        label[i, n:] = 0
+    res = {}
+    for route in ("card_torch", "card_plain", "cpu_plain"):
+        dev = "cpu" if route == "cpu_plain" else mx.gpu(0).torch_device()
+        d = torch.tensor(data, device=dev, requires_grad=True)
+        lab = torch.tensor(label, device=dev)
+        if route == "card_plain":
+            logp = torch.log_softmax(d, -1)
+            lens = nn_ops.ctc_lengths(lab.to(torch.int64), "first")
+            loss = nn_ops.ctc_plain(logp, lab.to(torch.int64), lens,
+                                    torch.full((8,), 50, device=dev), 0)
+        else:
+            loss = mx.nd.CTCLoss(mx.nd.NDArray(d), mx.nd.NDArray(lab))._data
+        (grad,) = torch.autograd.grad(loss.sum(), [d])
+        res[route] = (loss, grad)
+    for route in ("card_plain", "cpu_plain"):
+        errs[f"ctc_torch_vs_{route}"] = max(
+            _surface_close(f"ctc {route}", res["card_torch"][0],
+                           res[route][0], atol=1e-4),
+            _surface_close(f"ctc {route} grad", res["card_torch"][1],
+                           res[route][1], atol=1e-5,
+                           rtol=SURFACE_TOL["ctc_grad_rtol"]))
+    # torch takes cuDNN's CTC only for int32 targets on the host; the op
+    # passes int64 targets on the card, so torch's own CUDA kernel runs
+    line = {"phase": "surface_check", "tolerance": SURFACE_TOL,
+            "max_abs_err": errs, "ctc_route": {
+                "card": "torch.nn.functional.ctc_loss, torch's CUDA kernel",
+                "cpu": "plain recursion"},
+            "seconds": time.perf_counter() - t0}
+    emit(line)
+    return line
+
+
 PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "train_capture", "gluon_hybrid_train", "dropout_capture",
           "int8_gemm", "serve_int8", "capture", "online_update", "decode",
@@ -7593,7 +8550,9 @@ PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "resnet50_v1_train_bf16_mp", "resnet_check_bf16", "resnet_resume",
           "resnet50_v1_module_fit", "module_check", "transformer_lm",
           "native_io", "imagenet_rec", "lstm_lm_ptb_medium",
-          "lstm_ptb_bucketing")
+          "lstm_ptb_bucketing", "mobilenet_v2_1_0_module_fit",
+          "bert_base_sst2_finetune_lamb", "dcgan", "zoo_check",
+          "surface_check")
 
 
 def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
@@ -7720,6 +8679,16 @@ def main(argv=None):
         done["lstm_lm_ptb_medium"] = phase_lstm_lm_ptb_medium(smi)
     if "lstm_ptb_bucketing" in phases:
         done["lstm_ptb_bucketing"] = phase_lstm_ptb_bucketing(smi)
+    if "mobilenet_v2_1_0_module_fit" in phases:
+        done["mobilenet_v2_1_0_module_fit"] = phase_mobilenet_module_fit(smi)
+    if "bert_base_sst2_finetune_lamb" in phases:
+        done["bert_base_sst2_finetune_lamb"] = phase_bert_lamb(smi)
+    if "dcgan" in phases:
+        done["dcgan"] = phase_dcgan(smi)
+    if "zoo_check" in phases:
+        done["zoo_check"] = phase_zoo_check()
+    if "surface_check" in phases:
+        done["surface_check"] = phase_surface_check()
     if not set(PHASES) <= set(done):
         print(f"phases run: {sorted(done)}; no result line", flush=True)
         return 1
@@ -7821,6 +8790,16 @@ def main(argv=None):
         launches_resnet50_v1_module_fit_rec=done["imagenet_rec"][
             "launches"]["opt_sgd"],
         launches_module_check=done["module_check"],
+        # this slice: MobileNet v2's Module.fit (one launch a batch over
+        # its 160 tensors); none in the NAG fit, whose _foreach update
+        # takes K1's place
+        launches_mobilenet_v2_1_0_module_fit=done[
+            "mobilenet_v2_1_0_module_fit"]["launches"]["opt_sgd"],
+        mobilenet_v2_1_0_batches=done["mobilenet_v2_1_0_module_fit"][
+            "batches"],
+        launches_mobilenet_v2_1_0_nag_fit=done[
+            "mobilenet_v2_1_0_module_fit"]["nag"]["launches"].get(
+                "opt_sgd", 0),
         # this slice: one launch per replayed step of each ResNet-50 cell
         launches_per_replay={p: done[p]["captured"][
             "k1_launches_per_replay"] for p in (
@@ -7856,7 +8835,21 @@ def main(argv=None):
                                   "opt_adam"],
                               lstm_ptb_bucketing_batches=bkt["batches"],
                               lstm_ptb_bucketing_device_ms_per_batch=bkt[
-                                  "k2_device_ms_per_batch"]))
+                                  "k2_device_ms_per_batch"],
+                              # this slice: dcgan.py's two gluon.Trainers
+                              # (two launches an iteration); none under
+                              # "lamb", whose update is plain PyTorch
+                              launches_dcgan=done["dcgan"]["launches"].get(
+                                  "opt_adam", 0),
+                              dcgan_iterations=done["dcgan"]["iterations"],
+                              launches_bert_lamb=sum(
+                                  b["launches"].get("opt_adam", 0)
+                                  for b in done[
+                                      "bert_base_sst2_finetune_lamb"][
+                                      "blocks"]),
+                              bert_adam_update_device_ms=done[
+                                  "bert_base_sst2_finetune_lamb"][
+                                  "adam_update_device_ms_k2"]))
     k4 = done["int8_gemm"]
     lines.append(_kernel_line(
         "int8_gemm", "int8_gemm.cu", "mxnet_tpu/kernels/int8_gemm.py:86",

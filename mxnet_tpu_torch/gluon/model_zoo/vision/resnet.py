@@ -250,6 +250,14 @@ resnet_block_versions = [
 ]
 
 
+def refuse_pretrained():
+    """Every family's ``pretrained=True``: the model store downloads."""
+    raise MXNetError("pretrained=True needs the model store's download, "
+                     "which mxnet_tpu_torch does not do; initialize the "
+                     "network and carry weights in with "
+                     "convert.load_jax_params")
+
+
 def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
                **kwargs):
     """ResNet ``version`` (1 or 2) of depth ``num_layers``; ``kwargs``
@@ -261,10 +269,7 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
         raise ValueError(f"Invalid resnet version: {version}. Options are 1 "
                          "and 2")
     if pretrained:
-        raise MXNetError("pretrained=True needs the model store's download, "
-                         "which mxnet_tpu_torch does not do; initialize the "
-                         "network and carry weights in with "
-                         "convert.load_jax_params")
+        refuse_pretrained()
     block_type, layers, channels = resnet_spec[num_layers]
     net_class = resnet_net_versions[version - 1]
     block_class = resnet_block_versions[version - 1][block_type]

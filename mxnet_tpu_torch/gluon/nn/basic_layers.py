@@ -2,7 +2,10 @@
 
 Counterpart of ``mxnet_tpu/gluon/nn/basic_layers.py``: Sequential,
 HybridSequential, Dense, Dropout, BatchNorm (:167-233), Embedding (:236),
-LayerNorm, Flatten (:339) and Activation (:391). Layers manage
+LayerNorm, InstanceNorm (:285), GroupNorm (:309), Flatten (:339), Lambda
+(:348), HybridLambda (:366) and the activations (:391-454: Activation,
+LeakyReLU, PReLU with its learned ``alpha``, ELU, SELU, Swish, GELU).
+Layers manage
 parameters and hyper-parameters; compute goes through the registered
 ops, so each also traces into a graph (``export``). ``BatchNorm.cast``
 keeps gamma, beta and the running statistics in float32 under a cast to
@@ -21,7 +24,9 @@ from ...cached_op import update_state
 from ..block import Block, HybridBlock
 
 __all__ = ["Sequential", "HybridSequential", "Dense", "Dropout",
-           "BatchNorm", "Embedding", "LayerNorm", "Flatten", "Activation"]
+           "BatchNorm", "Embedding", "LayerNorm", "InstanceNorm",
+           "GroupNorm", "Flatten", "Lambda", "HybridLambda", "Activation",
+           "LeakyReLU", "PReLU", "ELU", "SELU", "Swish", "GELU"]
 
 
 class Sequential(Block):
@@ -252,6 +257,58 @@ class LayerNorm(HybridBlock):
                            eps=self._epsilon)
 
 
+class _ChannelNorm(HybridBlock):
+    """gamma and beta of one value per channel of axis 1, deferred to the
+    first forward when ``in_channels`` is 0."""
+
+    def __init__(self, epsilon, center, scale, beta_initializer,
+                 gamma_initializer, in_channels, prefix, params):
+        super().__init__(prefix=prefix, params=params)
+        self._epsilon = epsilon
+        with self.name_scope():
+            self.gamma = self.params.get(
+                "gamma", shape=(in_channels,), init=gamma_initializer,
+                allow_deferred_init=True, differentiable=scale)
+            self.beta = self.params.get(
+                "beta", shape=(in_channels,), init=beta_initializer,
+                allow_deferred_init=True, differentiable=center)
+
+    def infer_shape(self, x, *args):
+        self.gamma.shape = (x.shape[1],)
+        self.beta.shape = (x.shape[1],)
+
+
+class InstanceNorm(_ChannelNorm):
+    """Normalise each channel of each sample over its spatial dims.
+    ``axis`` is accepted and, as in the JAX layer, the op normalises
+    around axis 1."""
+
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, prefix, params)
+        self._axis = axis
+
+    def hybrid_forward(self, F, x, gamma=None, beta=None):
+        return F.invoke("InstanceNorm", x, gamma, beta, eps=self._epsilon)
+
+
+class GroupNorm(_ChannelNorm):
+    """Normalise over ``num_groups`` groups of the channels (axis 1)."""
+
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, prefix=None, params=None):
+        super().__init__(epsilon, center, scale, beta_initializer,
+                         gamma_initializer, in_channels, prefix, params)
+        self._num_groups = num_groups
+
+    def hybrid_forward(self, F, x, gamma=None, beta=None):
+        return F.invoke("GroupNorm", x, gamma, beta,
+                        num_groups=self._num_groups, eps=self._epsilon)
+
+
 class Flatten(HybridBlock):
     """``(N, ...)`` to ``(N, -1)``."""
 
@@ -260,6 +317,48 @@ class Flatten(HybridBlock):
 
     def __repr__(self):
         return "Flatten"
+
+
+class Lambda(Block):
+    """A function as a Block: a callable, or the name of an ``mx.nd``
+    function (or of a registered op)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            from ... import ndarray as F
+
+            fn = getattr(F, function, None)
+            if fn is None:
+                def fn(*a, _n=function, **k):
+                    return F.invoke(_n, *a, **k)
+            self._fn = fn
+        else:
+            self._fn = function
+
+    def forward(self, *args):
+        return self._fn(*args)
+
+
+class HybridLambda(HybridBlock):
+    """A function ``fn(F, *inputs)`` (or the name of an op) as a
+    HybridBlock: it traces into a graph under ``export`` like any layer
+    (MobileNet's ``clip`` becomes a ``clip`` node)."""
+
+    def __init__(self, function, prefix=None):
+        super().__init__(prefix=prefix)
+        if isinstance(function, str):
+            self._fn_name, self._fn = function, None
+        else:
+            self._fn_name, self._fn = None, function
+
+    def hybrid_forward(self, F, *args):
+        if self._fn is not None:
+            return self._fn(F, *args)
+        fn = getattr(F, self._fn_name, None)
+        if fn is None:
+            return F.invoke(self._fn_name, *args)
+        return fn(*args)
 
 
 class Activation(HybridBlock):
@@ -278,3 +377,65 @@ class Activation(HybridBlock):
 
     def __repr__(self):
         return f"Activation({self._act_type})"
+
+
+class LeakyReLU(HybridBlock):
+    """``alpha * x`` below zero."""
+
+    def __init__(self, alpha=0.01, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.invoke("LeakyReLU", x, act_type="leaky", slope=self._alpha)
+
+
+class PReLU(HybridBlock):
+    """LeakyReLU with a learned slope ``alpha`` (``in_channels`` values,
+    one per channel of axis 1, or one for all)."""
+
+    def __init__(self, alpha_initializer=init_mod.Constant(0.25),
+                 in_channels=1, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        with self.name_scope():
+            self.alpha = self.params.get("alpha", shape=(in_channels,),
+                                         init=alpha_initializer)
+
+    def hybrid_forward(self, F, x, alpha=None):
+        return F.invoke("LeakyReLU", x, alpha, act_type="prelu")
+
+
+class ELU(HybridBlock):
+    """``alpha * (exp(x) - 1)`` below zero."""
+
+    def __init__(self, alpha=1.0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._alpha = alpha
+
+    def hybrid_forward(self, F, x):
+        return F.invoke("LeakyReLU", x, act_type="elu", slope=self._alpha)
+
+
+class SELU(HybridBlock):
+    """Scaled ELU (Klambauer et al. 2017)."""
+
+    def hybrid_forward(self, F, x):
+        return F.invoke("LeakyReLU", x, act_type="selu")
+
+
+class Swish(HybridBlock):
+    """``x * sigmoid(beta * x)``."""
+
+    def __init__(self, beta=1.0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._beta = beta
+
+    def hybrid_forward(self, F, x):
+        return x * F.invoke("sigmoid", x * self._beta)
+
+
+class GELU(HybridBlock):
+    """Exact (erf) GELU."""
+
+    def hybrid_forward(self, F, x):
+        return F.invoke("LeakyReLU", x, act_type="gelu")

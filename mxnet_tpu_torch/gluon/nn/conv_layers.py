@@ -1,13 +1,15 @@
 """Gluon convolution and pooling layers.
 
 Counterpart of ``mxnet_tpu/gluon/nn/conv_layers.py``: ``_Conv`` with
-Conv1D, Conv2D and Conv3D (:27-122), which infer ``in_channels`` at the
-first forward, and ``_Pooling`` with the max, average, global max and
-global average pooling layers in 1-D, 2-D and 3-D (:162-270), over the
-``Convolution`` and ``Pooling`` ops. Layouts are channels first. The
-transposed convolutions (``Conv1DTranspose`` to ``Conv3DTranspose``, the
-``Deconvolution`` op) and ``ReflectionPad2D`` are not ported yet: they
-raise :class:`MXNetError` when constructed.
+Conv1D, Conv2D and Conv3D (:27-122) and the transposed convolutions
+Conv1DTranspose, Conv2DTranspose and Conv3DTranspose (:124-160, the
+``Deconvolution`` op: weight ``(in_channels, channels // groups,
+*kernel)``, ``output_padding`` as its ``adj``), which infer
+``in_channels`` at the first forward, ``_Pooling`` with the max,
+average, global max and global average pooling layers in 1-D, 2-D and
+3-D (:162-270), over the ``Convolution`` and ``Pooling`` ops, and
+``ReflectionPad2D`` (:271-281, the ``pad`` op). Layouts are channels
+first.
 """
 from __future__ import annotations
 
@@ -42,8 +44,8 @@ class _Conv(HybridBlock):
 
     def __init__(self, channels, kernel_size, strides, padding, dilation,
                  groups, in_channels, activation, use_bias,
-                 weight_initializer, bias_initializer, prefix=None,
-                 params=None):
+                 weight_initializer, bias_initializer, op_name="Convolution",
+                 adj=None, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         ndim = len(kernel_size)
         self._channels = channels
@@ -53,9 +55,15 @@ class _Conv(HybridBlock):
             "dilate": _pair(dilation, ndim), "pad": _pair(padding, ndim),
             "num_filter": channels, "num_group": groups,
         }
+        if adj is not None:
+            self._kwargs["adj"] = _pair(adj, ndim)
+        self._op_name = op_name
         self._act_type = activation
-        wshape = (channels, in_channels // groups if in_channels else 0) \
-            + kernel_size
+        if op_name == "Convolution":
+            wshape = (channels, in_channels // groups if in_channels else 0) \
+                + kernel_size
+        else:   # Deconvolution: (in, out // groups, *kernel)
+            wshape = (in_channels, channels // groups) + kernel_size
         with self.name_scope():
             self.weight = self.params.get("weight", shape=wshape,
                                           init=weight_initializer,
@@ -69,14 +77,23 @@ class _Conv(HybridBlock):
 
     def infer_shape(self, x, *args):
         w = list(self.weight.shape)
-        w[1] = x.shape[1] // self._kwargs["num_group"]
+        if self._op_name == "Convolution":
+            w[1] = x.shape[1] // self._kwargs["num_group"]
+        else:
+            w[0] = x.shape[1]
         self.weight.shape = tuple(w)
 
     def hybrid_forward(self, F, x, weight=None, bias=None):
+        op = getattr(F, self._op_name)
         if bias is None:
-            out = F.Convolution(x, weight, no_bias=True, **self._kwargs)
+            out = op(x, weight, no_bias=True, **self._kwargs)
+        elif self._op_name == "Deconvolution":
+            # the op's no_bias defaults to True, as MXNet's; MXNet's layer
+            # passes no_bias=not use_bias (fault C19: the JAX layer passes
+            # nothing, so its transposed convolutions drop their bias)
+            out = op(x, weight, bias, no_bias=False, **self._kwargs)
         else:
-            out = F.Convolution(x, weight, bias, **self._kwargs)
+            out = op(x, weight, bias, **self._kwargs)
         if self._act_type:
             out = F.Activation(out, act_type=self._act_type)
         return out
@@ -121,20 +138,45 @@ class Conv3D(_Conv):
                          weight_initializer, bias_initializer, **kwargs)
 
 
-def _not_ported(name, what):
-    def __init__(self, *args, **kwargs):
-        raise MXNetError(f"{name} ({what}) is not ported to "
-                         "mxnet_tpu_torch yet; see ROADMAP.md section A")
+class Conv1DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=1, padding=0,
+                 output_padding=0, dilation=1, groups=1, layout="NCW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        _channels_first(layout, "NCW")
+        super().__init__(channels, _pair(kernel_size, 1), strides, padding,
+                         dilation, groups, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer,
+                         op_name="Deconvolution", adj=output_padding,
+                         **kwargs)
 
-    return type(name, (HybridBlock,), {
-        "__init__": __init__,
-        "__doc__": f"Not ported yet ({what}); raises MXNetError."})
+
+class Conv2DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1),
+                 padding=(0, 0), output_padding=(0, 0), dilation=(1, 1),
+                 groups=1, layout="NCHW", activation=None, use_bias=True,
+                 weight_initializer=None, bias_initializer="zeros",
+                 in_channels=0, **kwargs):
+        _channels_first(layout, "NCHW")
+        super().__init__(channels, _pair(kernel_size, 2), strides, padding,
+                         dilation, groups, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer,
+                         op_name="Deconvolution", adj=output_padding,
+                         **kwargs)
 
 
-Conv1DTranspose = _not_ported("Conv1DTranspose", "the Deconvolution op")
-Conv2DTranspose = _not_ported("Conv2DTranspose", "the Deconvolution op")
-Conv3DTranspose = _not_ported("Conv3DTranspose", "the Deconvolution op")
-ReflectionPad2D = _not_ported("ReflectionPad2D", "the pad op")
+class Conv3DTranspose(_Conv):
+    def __init__(self, channels, kernel_size, strides=(1, 1, 1),
+                 padding=(0, 0, 0), output_padding=(0, 0, 0),
+                 dilation=(1, 1, 1), groups=1, layout="NCDHW",
+                 activation=None, use_bias=True, weight_initializer=None,
+                 bias_initializer="zeros", in_channels=0, **kwargs):
+        _channels_first(layout, "NCDHW")
+        super().__init__(channels, _pair(kernel_size, 3), strides, padding,
+                         dilation, groups, in_channels, activation, use_bias,
+                         weight_initializer, bias_initializer,
+                         op_name="Deconvolution", adj=output_padding,
+                         **kwargs)
 
 
 class _Pooling(HybridBlock):
@@ -246,3 +288,18 @@ class GlobalAvgPool2D(_Pooling):
 class GlobalAvgPool3D(_Pooling):
     def __init__(self, layout="NCDHW", **kwargs):
         super().__init__((1, 1, 1), None, 0, True, True, "avg", **kwargs)
+
+
+class ReflectionPad2D(HybridBlock):
+    """Reflection padding of the two spatial dims of NCHW: ``padding``
+    on every side, or MXNet's flat 8-tuple of ``(before, after)`` per
+    axis."""
+
+    def __init__(self, padding=0, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        if isinstance(padding, int):
+            padding = (0, 0, 0, 0, padding, padding, padding, padding)
+        self._padding = tuple(padding)
+
+    def hybrid_forward(self, F, x):
+        return F.invoke("pad", x, mode="reflect", pad_width=self._padding)

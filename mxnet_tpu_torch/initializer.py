@@ -1,7 +1,7 @@
 """Weight initializers.
 
-Counterpart of ``mxnet_tpu/initializer.py``: Zero, One, Uniform, Normal
-and Xavier, and ``InitDesc`` (a name with graph attributes, as
+Counterpart of ``mxnet_tpu/initializer.py``: Zero, One, Constant
+(PReLU's slope), Uniform, Normal and Xavier, and ``InitDesc`` (a name with graph attributes, as
 ``Module.init_params`` passes it), with the same name-suffix dispatch (``*bias``/``*beta`` get
 zeros, ``*gamma`` ones, unless the Parameter forces its own initializer)
 and the same string aliases. Draws come from an explicit CPU
@@ -20,7 +20,7 @@ import torch
 from .base import canonical_dtype
 
 __all__ = ["Initializer", "register", "create", "InitDesc", "Zero", "One",
-           "Uniform", "Normal", "Xavier"]
+           "Constant", "Uniform", "Normal", "Xavier"]
 
 _INIT_REGISTRY = {}
 
@@ -108,6 +108,18 @@ class One(Initializer):
 
 
 _INIT_REGISTRY["ones"] = One
+
+
+@register
+class Constant(Initializer):
+    """Every value ``value``."""
+
+    def __init__(self, value=0.0):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, name, shape, generator):
+        return torch.full(shape, float(self.value))
 
 
 @register

@@ -1,16 +1,31 @@
 """Neural-net ops the serving and training paths use.
 
-Counterpart of ``mxnet_tpu/ops/nn.py`` (FullyConnected :29, Convolution
-:60, Pooling :118, _contrib_AdaptiveAvgPooling2D :180, BatchNorm :202,
-LayerNorm :226, softmax :283, log_softmax :294, Activation :377,
-LeakyReLU :391, Dropout :424, SoftmaxOutput :317-374, RNN :518). These
-were plain XLA in the JAX package,
-so here they are plain PyTorch (cuBLAS for the matrix products, cuDNN for
+Counterpart of ``mxnet_tpu/ops/nn.py``, all 29 names (FullyConnected
+:29, Convolution :60, Deconvolution :86, Pooling :118,
+_contrib_AdaptiveAvgPooling2D :180, BatchNorm :202, LayerNorm :226,
+GroupNorm :236, InstanceNorm :249, L2Normalization :259, LRN :272,
+softmax :283, log_softmax :294, softmin :301, SoftmaxActivation :306,
+SoftmaxOutput :317-374, Activation :377, LeakyReLU :391 in every mode,
+Dropout :424, MakeLoss :443, smooth_l1 :448, CTCLoss :456, RNN :518,
+UpSampling :626, Crop :657, make_loss :674, relu6 :681,
+_contrib_BatchNormWithReLU :686, _contrib_SparseEmbedding :702). These
+were plain XLA in the JAX package, so here they are plain PyTorch
+(cuBLAS for the matrix products, cuDNN for convolutions, transposed
 convolutions, BatchNorm and the fused RNN on the card). Layouts are the
-JAX package's:
-channels first (NCW, NCHW, NCDHW), convolution weights ``(num_filter,
-C / num_group, *kernel)``. Dropout takes an explicit ``torch.Generator``
-where the JAX op took a PRNG key. Deconvolution is not ported yet.
+JAX package's: channels first (NCW, NCHW, NCDHW), convolution weights
+``(num_filter, C / num_group, *kernel)``, deconvolution weights ``(C,
+num_filter / num_group, *kernel)`` (MXNet's, which is also
+``conv_transpose``'s). Dropout and LeakyReLU's ``rrelu`` take an explicit
+``torch.Generator`` where the JAX ops took a PRNG key.
+
+Where the JAX ops depart from MXNet 1.x the port follows MXNet, each with
+a test that asserts both behaviours (``ROADMAP.md`` C): grouped
+Deconvolution (C15: the JAX op raises), Deconvolution's ``target_shape``
+(C18: the JAX op ignores it), CTCLoss's padding value with
+``blank_label="first"`` (C16: MXNet pads with 0, the JAX op counts 0 as
+a label) and MakeLoss / make_loss's backward (C17: MXNet writes
+``grad_scale`` normalised by ``normalization``, or ones for make_loss,
+whatever the head gradient; the JAX ops are the identity).
 """
 from __future__ import annotations
 
@@ -213,14 +228,44 @@ def _activation(data, act_type="relu"):
     return _ACTIVATIONS[act_type](data)
 
 
+_SELU_ALPHA, _SELU_LAMBDA = 1.6732632423543772, 1.0507009873554805
+
+
 @register("LeakyReLU")
-def _leaky_relu(data, act_type="leaky", slope=0.25):
-    """Only the ``gelu`` mode is ported: exact erf GELU, as the JAX op's
-    ``jax.nn.gelu(approximate=False)``."""
-    if act_type != "gelu":
-        raise MXNetError(f"LeakyReLU act_type {act_type!r} is not ported "
-                         "yet (only 'gelu'); see ROADMAP.md")
-    return F.gelu(data, approximate="none")
+def _leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
+                lower_bound=0.125, upper_bound=0.334, training=False,
+                generator=None):
+    """The JAX op's modes: ``leaky`` (``slope * x`` below zero),
+    ``prelu`` (the learned ``gamma``, one slope per channel of axis 1 or
+    one for all), ``elu`` (``slope * expm1(x)``), ``selu``, ``gelu``
+    (exact erf, ``jax.nn.gelu(approximate=False)``) and ``rrelu``: in
+    training, with ``generator`` (a ``torch.Generator`` on ``data``'s
+    device), a slope drawn from ``U(lower_bound, upper_bound)`` per
+    element, otherwise their midpoint."""
+    neg = data > 0
+    if act_type == "rrelu" and training and generator is not None:
+        slopes = torch.rand(data.shape, generator=generator,
+                            device=data.device, dtype=data.dtype)
+        slopes = slopes * (upper_bound - lower_bound) + lower_bound
+        return torch.where(neg, data, slopes * data)
+    if act_type == "leaky":
+        return torch.where(neg, data, slope * data)
+    if act_type == "prelu":
+        g = gamma
+        if g.ndim < data.ndim and data.ndim > 1:
+            g = g.reshape((1, -1) + (1,) * (data.ndim - 2))
+        return torch.where(neg, data, g * data)
+    if act_type == "elu":
+        return torch.where(neg, data, slope * torch.expm1(data))
+    if act_type == "selu":
+        return _SELU_LAMBDA * torch.where(neg, data,
+                                          _SELU_ALPHA * torch.expm1(data))
+    if act_type == "gelu":
+        return F.gelu(data, approximate="none")
+    if act_type == "rrelu":
+        mid = (lower_bound + upper_bound) / 2.0
+        return torch.where(neg, data, mid * data)
+    raise ValueError(f"unknown LeakyReLU act_type {act_type}")
 
 
 @register("Dropout")
@@ -560,3 +605,330 @@ def _rnn(data, params, state, state_cell=None, state_size=0, num_layers=1,
                           num_layers, mode, bidirectional, clip, drop,
                           generator)
     return out, hn, cn if lstm else torch.zeros_like(hn)
+
+
+# ------------------------------------------------------- Deconvolution ---
+
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def deconv_pads(in_spatial, kernel, stride, dilate, pad, adj, target_shape):
+    """``(pad, adj)`` per spatial dim. With a ``target_shape`` (any
+    non-zero entry) they follow from it as MXNet 1.x derives them
+    (``deconvolution-inl.h``, ``InferPad``): the full output ``stride *
+    (in - 1) + dilate * (k - 1) + 1`` less the target, split into ``pad =
+    (excess + 1) // 2`` and ``adj = excess % 2``; otherwise they are the
+    given ones."""
+    if not target_shape or not any(target_shape):
+        return pad, adj
+    pads, adjs = [], []
+    for i, target in enumerate(target_shape):
+        full = stride[i] * (in_spatial[i] - 1) + dilate[i] * (
+            kernel[i] - 1) + 1
+        if full < target:
+            raise MXNetError(f"Deconvolution: target_shape {target} is "
+                             f"larger than the full output {full}")
+        excess = full - target
+        pads.append((excess + 1) // 2)
+        adjs.append(excess % 2)
+    return tuple(pads), tuple(adjs)
+
+
+@register("Deconvolution")
+def _deconvolution(data, weight, bias=None, kernel=(), stride=(), dilate=(),
+                   pad=(), adj=(), target_shape=(), num_filter=1,
+                   num_group=1, no_bias=True, layout=None, cudnn_off=False,
+                   workspace=1024, cudnn_tune=None):
+    """The transposed convolution (``conv_transpose{1,2,3}d``, cuDNN on
+    the card) with weight ``(C, num_filter / num_group, *kernel)``, ``adj``
+    as ``output_padding`` and ``num_group`` groups (fault C15: the JAX op
+    raises for ``num_group > 1``); ``target_shape`` sets ``pad`` and
+    ``adj`` as MXNet does (fault C18: the JAX op ignores it)."""
+    n = len(kernel) if kernel else weight.ndim - 2
+    kernel = tuple(kernel) if kernel else tuple(weight.shape[2:])
+    stride = _tuplize(stride or 1, n)
+    dilate = _tuplize(dilate or 1, n)
+    pad, adj = deconv_pads(tuple(data.shape[2:]), kernel, stride, dilate,
+                           _tuplize(pad or 0, n), _tuplize(adj or 0, n),
+                           tuple(target_shape or ()))
+    return _CONV_T[n](data, weight, None if no_bias else bias, stride, pad,
+                      adj, num_group, dilate)
+
+
+# ------------------------------------------------------------- norms -----
+
+def _channel_shape(data):
+    return (1, data.shape[1]) + (1,) * (data.ndim - 2)
+
+
+@register("GroupNorm")
+def _group_norm(data, gamma, beta, num_groups=1, eps=1e-5,
+                output_mean_var=False):
+    """Normalise over each group of ``C / num_groups`` channels and the
+    spatial dims (biased variance), then scale and shift per channel."""
+    b, c = data.shape[:2]
+    x = data.reshape((b, num_groups, c // num_groups) + data.shape[2:])
+    red = tuple(range(2, x.ndim))
+    mean = torch.mean(x, dim=red, keepdim=True)
+    var = torch.var(x, dim=red, keepdim=True, unbiased=False)
+    x = ((x - mean) * torch.rsqrt(var + eps)).reshape(data.shape)
+    return x * gamma.reshape(_channel_shape(data)) + \
+        beta.reshape(_channel_shape(data))
+
+
+@register("InstanceNorm")
+def _instance_norm(data, gamma, beta, eps=1e-3):
+    """Normalise each channel of each sample over its spatial dims."""
+    red = tuple(range(2, data.ndim))
+    mean = torch.mean(data, dim=red, keepdim=True)
+    var = torch.var(data, dim=red, keepdim=True, unbiased=False)
+    out = (data - mean) * torch.rsqrt(var + eps)
+    return out * gamma.reshape(_channel_shape(data)) + \
+        beta.reshape(_channel_shape(data))
+
+
+@register("L2Normalization")
+def _l2_normalization(data, eps=1e-10, mode="instance"):
+    """``data / sqrt(sum(data^2) + eps)`` over every non-batch dim
+    (``instance``), the channels (``channel``) or the spatial dims
+    (``spatial``)."""
+    if mode == "instance":
+        red = tuple(range(1, data.ndim))
+    elif mode == "channel":
+        red = (1,)
+    else:
+        red = tuple(range(2, data.ndim))
+    norm = torch.sqrt(torch.sum(torch.square(data), dim=red, keepdim=True)
+                      + eps)
+    return data / norm
+
+
+@register("LRN")
+def _lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response normalisation across ``nsize`` channels (NCHW)."""
+    sq = torch.square(data)
+    half = nsize // 2
+    padded = F.pad(sq, (0, 0, 0, 0, half, half))
+    windows = padded[:, 0:data.shape[1]]
+    for i in range(1, nsize):
+        windows = windows + padded[:, i:i + data.shape[1]]
+    return data / torch.pow(knorm + alpha / nsize * windows, beta)
+
+
+@register("softmin")
+def _softmin(data, axis=-1):
+    return torch.softmax(-data, dim=axis)
+
+
+@register("SoftmaxActivation")
+def _softmax_activation(data, mode="instance"):
+    """Softmax over the channels (``channel``) or over each sample's
+    flattened values (``instance``)."""
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1).reshape(
+        data.shape)
+
+
+# -------------------------------------------------------------- losses ---
+
+class _MakeLoss(torch.autograd.Function):
+    """Identity forward; the backward writes ``grad_scale`` (divided by
+    the batch or by the count of values above ``valid_thresh``) whatever
+    the head gradient, as MXNet 1.x's ``make_loss-inl.h``."""
+
+    @staticmethod
+    def forward(ctx, data, grad_scale, valid_thresh, normalization):
+        ctx.hyper = (grad_scale, valid_thresh, normalization)
+        ctx.save_for_backward(data)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, cot):
+        (data,) = ctx.saved_tensors
+        grad_scale, valid_thresh, normalization = ctx.hyper
+        g = torch.full_like(data, grad_scale)
+        if normalization == "batch":
+            g = g / data.shape[0]
+        elif normalization == "valid":
+            valid = (data > valid_thresh).sum().to(data.dtype)
+            g = g / torch.clamp(valid, min=1.0)
+        return g, None, None, None
+
+
+@register("MakeLoss")
+def _make_loss(data, grad_scale=1.0, valid_thresh=0.0, normalization="null"):
+    """A loss head: the forward is ``data``; the gradient is
+    ``grad_scale`` (``normalization``: ``"null"``, ``"batch"`` or
+    ``"valid"``), not the head gradient (fault C17: the JAX op is the
+    identity)."""
+    return _MakeLoss.apply(data, grad_scale, valid_thresh, normalization)
+
+
+@register("make_loss")
+def _make_loss_op(data):
+    """MXNet's ``make_loss``: the forward is ``data``, the gradient ones
+    (fault C17)."""
+    return _MakeLoss.apply(data, 1.0, 0.0, "null")
+
+
+@register("smooth_l1")
+def _smooth_l1(data, scalar=1.0):
+    s2 = scalar * scalar
+    return torch.where(torch.abs(data) < 1.0 / s2,
+                       0.5 * s2 * torch.square(data),
+                       torch.abs(data) - 0.5 / s2)
+
+
+def ctc_lengths(label, blank_label, label_lengths=None):
+    """The label lengths as MXNet 1.x reads a padded label: up to the
+    first padding value, 0 when the blank is ``"first"`` and -1 when it
+    is ``"last"`` (fault C16: the JAX op counts every label >= 0, so a
+    0-padded label keeps its padding as labels)."""
+    lab = label.to(torch.int64)
+    if label_lengths is not None:
+        return label_lengths.to(torch.int64)
+    pad = 0 if blank_label == "first" else -1
+    is_pad = (lab == pad).to(torch.int64)
+    # index of the first padding value, or L
+    first = torch.where(is_pad.cumsum(1) > 0, 0, 1).sum(1)
+    return first
+
+
+def ctc_plain(logp, lab, lab_len, dat_len, blank):
+    """The negative log-likelihood by the log-space alpha recursion, op
+    for op the JAX op's ``lax.scan`` (``mxnet_tpu/ops/nn.py:480-515``), as
+    a loop over time: the CPU route and the card's check of torch's."""
+    t_len, b, _ = logp.shape
+    s = 2 * lab.shape[1] + 1
+    pos = torch.arange(lab.shape[1], device=lab.device)
+    ext = torch.full((b, s), blank, dtype=torch.int64, device=lab.device)
+    ext[:, 1::2] = torch.where(pos < lab_len[:, None], lab, blank)
+    neg_inf = torch.tensor(-1e30, dtype=logp.dtype, device=logp.device)
+    a0 = torch.full((b, s), -1e30, dtype=logp.dtype, device=logp.device)
+    a0[:, 0] = logp[0, :, blank]
+    a0[:, 1] = torch.gather(logp[0], 1, ext[:, 1:2])[:, 0]
+
+    def lse3(x, y, z):
+        m = torch.maximum(torch.maximum(x, y), z)
+        m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        return m + torch.log(torch.exp(x - m) + torch.exp(y - m)
+                             + torch.exp(z - m))
+
+    same = (ext == torch.roll(ext, 2, dims=1)) | (ext == blank)
+    alphas = [a0]
+    alpha = a0
+    for t in range(1, t_len):
+        shift1 = torch.cat([neg_inf.expand(b, 1), alpha[:, :-1]], dim=1)
+        shift2 = torch.cat([neg_inf.expand(b, 2), alpha[:, :-2]], dim=1)
+        shift2 = torch.where(same, neg_inf, shift2)
+        alpha = lse3(alpha, shift1, shift2) + torch.gather(logp[t], 1, ext)
+        alphas.append(alpha)
+    alphas = torch.stack(alphas)
+    a_last = alphas[dat_len - 1, torch.arange(b, device=logp.device)]
+    end1 = torch.gather(a_last, 1, (2 * lab_len)[:, None])[:, 0]
+    end2 = torch.gather(a_last, 1, torch.clamp(2 * lab_len - 1,
+                                               min=0)[:, None])[:, 0]
+    m = torch.maximum(end1, end2)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    return -(m + torch.log(torch.exp(end1 - m) + torch.exp(end2 - m)))
+
+
+@register("CTCLoss", aliases=("ctc_loss",))
+def _ctc_loss(data, label, data_lengths=None, label_lengths=None,
+              use_data_lengths=False, use_label_lengths=False,
+              blank_label="first"):
+    """CTC's negative log-likelihood per sequence. ``data`` is ``(T, B,
+    V)`` unnormalised activations; the blank is channel 0 (``"first"``)
+    or V - 1 (``"last"``); ``label`` is ``(B, L)``, padded with 0 or -1
+    as ``ctc_lengths`` reads it. The route follows the device, decided
+    before any launch: on the card ``torch.nn.functional.ctc_loss``
+    (``reduction="none"``, no clamp of infinite losses, as the JAX op has
+    none), on the CPU the plain recursion (``ctc_plain``)."""
+    t_len, b, v = data.shape
+    logp = torch.log_softmax(data, dim=-1)
+    blank = 0 if blank_label == "first" else v - 1
+    lab = label.to(torch.int64)
+    lab_len = ctc_lengths(lab, blank_label, label_lengths
+                          if use_label_lengths else None)
+    dat_len = data_lengths.to(torch.int64) if (
+        use_data_lengths and data_lengths is not None) else torch.full(
+        (b,), t_len, dtype=torch.int64, device=data.device)
+    if data.device.type == "cuda":
+        pos = torch.arange(lab.shape[1], device=lab.device)
+        targets = torch.where(pos < lab_len[:, None], lab,
+                              torch.zeros_like(lab)).clamp_(min=0)
+        return F.ctc_loss(logp, targets, dat_len, lab_len, blank=blank,
+                          reduction="none", zero_infinity=False)
+    return ctc_plain(logp, lab, lab_len, dat_len, blank)
+
+
+# --------------------------------------------------- resizing and crop ---
+
+@register("UpSampling")
+def _upsampling(*args, scale=1, sample_type="nearest", num_filter=0,
+                multi_input_mode="concat", num_args=1, workspace=512):
+    """Nearest-neighbour upsampling by ``scale`` (several inputs: each to
+    the first one's upsampled size, then concatenated on the channels or
+    summed); ``bilinear`` interpolates the first input (half-pixel
+    centres, as ``jax.image.resize``'s ``linear``) and ignores the
+    deconvolution weight, as the JAX op does."""
+    if sample_type != "nearest":
+        return F.interpolate(args[0], scale_factor=scale, mode="bilinear",
+                             align_corners=False)
+    out_h, out_w = args[0].shape[2] * scale, args[0].shape[3] * scale
+    ups = []
+    for i, d in enumerate(args):
+        if out_h % d.shape[2] or out_w % d.shape[3]:
+            raise ValueError(
+                f"UpSampling: input {i} spatial {tuple(d.shape[2:])} does "
+                f"not divide the target size ({out_h}, {out_w})")
+        fh, fw = out_h // d.shape[2], out_w // d.shape[3]
+        ups.append(d.repeat_interleave(fh, dim=2).repeat_interleave(fw,
+                                                                    dim=3))
+    if len(ups) == 1:
+        return ups[0]
+    if multi_input_mode == "sum":
+        return sum(ups[1:], ups[0])
+    return torch.cat(ups, dim=1)
+
+
+@register("Crop")
+def _crop(data, like=None, offset=(0, 0), h_w=(0, 0), num_args=1,
+          center_crop=False):
+    """Crop to ``like``'s spatial size (or ``h_w``) at ``offset`` or in
+    the centre."""
+    th, tw = (like.shape[2], like.shape[3]) if like is not None else h_w
+    h, w = data.shape[2], data.shape[3]
+    oy, ox = ((h - th) // 2, (w - tw) // 2) if center_crop else offset
+    return data[:, :, oy:oy + th, ox:ox + tw]
+
+
+@register("relu6")
+def _relu6(data):
+    return torch.clamp(data, 0.0, 6.0)
+
+
+@register("_contrib_BatchNormWithReLU", num_outputs=3)
+def _batch_norm_with_relu(data, gamma, beta, moving_mean, moving_var,
+                          eps=1e-3, momentum=0.9, fix_gamma=True,
+                          use_global_stats=False, output_mean_var=False,
+                          axis=1, cudnn_off=False, training=True):
+    """BatchNorm followed by ReLU on its output."""
+    out, mean, var = _batch_norm(
+        data, gamma, beta, moving_mean, moving_var, eps=eps,
+        momentum=momentum, fix_gamma=fix_gamma,
+        use_global_stats=use_global_stats, axis=axis, training=training)
+    return torch.relu(out), mean, var
+
+
+def _register_sparse_embedding():
+    """``_contrib_SparseEmbedding`` is the Embedding op (a dense
+    gradient, as in the JAX package)."""
+    from .registry import _REGISTRY
+
+    register("_contrib_SparseEmbedding")(_REGISTRY["Embedding"])
+
+
+_register_sparse_embedding()

@@ -5,8 +5,12 @@ base (:28) with ``learning_rate``, ``wd``, ``rescale_grad`` and
 ``clip_gradient``, per-parameter ``lr_mult`` / ``wd_mult`` (from the
 ``param_dict`` of Parameters that ``gluon.Trainer`` passes, else the
 ``set_lr_mult`` / ``set_wd_mult`` tables), the update counts, the
-registry (``register`` / ``create``), ``SGD`` (:288) and ``Adam``
-(:685), and the ``Updater`` of update-on-kvstore (:928-979).
+registry (``register`` / ``create``), all 17 optimizers of the JAX zoo
+(``SGD`` :288, ``SGLD`` :370, ``Signum`` :389, ``FTML`` :420, ``LARS``
+:451, ``LBSGD`` :483, ``LAMB`` :581, ``DCASGD`` :622, ``NAG`` :654,
+``Adam`` :685, ``AdaGrad`` :737, ``RMSProp`` :759, ``AdaDelta`` :800,
+``Ftrl`` :825, ``Adamax`` :851, ``Nadam`` :878, ``Test`` :917), and the
+``Updater`` of update-on-kvstore (:928-979).
 
 An optimizer is the source of hyper-parameters for
 :class:`mxnet_tpu_torch.parallel.ShardedTrainer` and updates weights
@@ -40,8 +44,23 @@ multi-precision, the port batches the masters into the one launch: the
 update is elementwise and the kernel bit-exact, so the values are the
 loop's.
 
-Not ported yet, and refused with :class:`MXNetError` rather than
-accepted: the other 15 optimizers of the JAX package's zoo.
+The other fifteen update one parameter at a time (``update``), as the
+JAX package's eager ones do, through the ops of ``ops/optimizer_op.py``
+(or, where the JAX optimizer composes NDArray arithmetic, the same
+arithmetic in the same order), in place; their ``fused_update_multi``
+loops over ``update_multi_precision``, except NAG's, which runs its
+momentum step over every float32 tensor of a learning-rate group with
+``torch._foreach_*`` (the JAX package jits it over all of them,
+``_fused_sgd_like``). Under ``multi_precision`` a half-precision
+weight's update runs on its float32 master with the gradient cast to
+float32, and the weight is then rewritten from the master (JAX
+:91-98). Host state stays on the host as in the JAX optimizers: the
+update counts (FTML, LAMB, Adamax and Nadam's bias corrections), Nadam's
+``m_schedule`` (one float advanced by every update, the JAX
+optimizer's order-dependent form) and LBSGD's accumulated gradients;
+the compiled trainer's rules (``parallel/opt_rules.py``) keep them as
+device scalars instead. SGLD's noise comes from ``mx.random``'s
+generator of the weight's device.
 """
 from __future__ import annotations
 
@@ -51,23 +70,19 @@ import pickle
 import torch
 
 from .. import kernels as _kernels
-from ..base import HALF_DTYPES, MXNetError
+from ..base import HALF_DTYPES
 from ..ndarray import NDArray
 from ..ops import optimizer_op as _ops
 
-__all__ = ["Optimizer", "register", "create", "SGD", "Adam", "Updater",
-           "get_updater"]
+__all__ = ["Optimizer", "register", "create", "SGD", "Signum", "SignSGD",
+           "FTML", "LARS", "LBSGD", "LAMB", "DCASGD", "NAG", "SGLD", "Adam",
+           "AdaGrad", "RMSProp", "AdaDelta", "Ftrl", "Adamax", "Nadam",
+           "Test", "Updater", "get_updater"]
 
-# every optimizer the JAX package registers; those not registered here
-# are not ported yet
+# every optimizer the JAX package registers, all of them registered here
 _ZOO = ("sgd", "signum", "ftml", "lars", "lbsgd", "lamb", "dcasgd", "nag",
         "sgld", "adam", "adagrad", "rmsprop", "adadelta", "ftrl", "adamax",
         "nadam", "test")
-
-
-def _not_ported(what):
-    return MXNetError(f"{what} is not ported to mxnet_tpu_torch yet; see "
-                      "ROADMAP.md section A")
 
 
 class Optimizer:
@@ -111,8 +126,6 @@ class Optimizer:
         key = name.lower()
         if key in Optimizer.opt_registry:
             return Optimizer.opt_registry[key](**kwargs)
-        if key in _ZOO:
-            raise _not_ported(f"optimizer {name!r}")
         raise ValueError(f"Cannot find optimizer {name}; registered: "
                          f"{sorted(Optimizer.opt_registry)}")
 
@@ -131,16 +144,32 @@ class Optimizer:
 
     def update(self, index, weight, grad, state):
         """Update one parameter in place (NDArrays)."""
-        self.fused_update_multi([index], [weight], [grad], [state])
+        raise NotImplementedError
 
     def update_multi_precision(self, index, weight, grad, state):
-        """:meth:`update`, through the master copy where ``state`` holds
-        one."""
-        self.fused_update_multi([index], [weight], [grad], [state])
+        """:meth:`update`, on the float32 master where ``state`` holds one
+        (the gradient cast to float32), the weight then rewritten from
+        it."""
+        if self.multi_precision and weight._data.dtype in HALF_DTYPES:
+            master, inner = state
+            self.update(index, master, NDArray(grad._data.to(torch.float32)),
+                        inner)
+            with torch.no_grad():
+                weight._data.copy_(master._data)
+        else:
+            self.update(index, weight, grad, state)
 
     def fused_update_multi(self, indices, weights, grads, states):
-        """Update many parameters at once, in place."""
-        raise NotImplementedError
+        """Update many parameters at once, in place: one
+        :meth:`update_multi_precision` after another, unless the optimizer
+        has a multi-tensor step."""
+        for i, w, g, s in zip(indices, weights, grads, states):
+            self.update_multi_precision(i, w, g, s)
+
+    def _fused_one(self, index, weight, grad, state):
+        """``update`` of an optimizer whose step is multi-tensor: the
+        step over one parameter, masters included."""
+        self.fused_update_multi([index], [weight], [grad], [state])
 
     def _routes(self, weights, grads, states):
         """The update's operands by route, chosen by dtype: ``fused``, the
@@ -225,6 +254,12 @@ class Optimizer:
     def _get_wds(self, indices):
         return self._mults(indices, self.wd, self.wd_mult, "wd_mult")
 
+    def _get_lr(self, index):
+        return self._get_lrs([index])[0]
+
+    def _get_wd(self, index):
+        return self._get_wds([index])[0]
+
     @property
     def learning_rate(self):
         """The base learning rate at ``num_update`` (the scheduler's, when
@@ -272,6 +307,11 @@ register = Optimizer.register
 create = Optimizer.create_optimizer
 
 
+def _zeros(weight, dtype=None):
+    w = weight._data.detach()
+    return NDArray(torch.zeros_like(w, dtype=dtype))
+
+
 def _raw(state):
     """An optimizer state (None, an NDArray or a tuple of them) as a
     tuple of tensors."""
@@ -286,6 +326,8 @@ def _raw(state):
 class SGD(Optimizer):
     """SGD, with momentum when ``momentum`` is non-zero."""
 
+    update = update_multi_precision = Optimizer._fused_one
+
     def __init__(self, momentum=0.0, lazy_update=True, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
@@ -293,7 +335,7 @@ class SGD(Optimizer):
 
     def create_state(self, index, weight):
         if self.momentum != 0.0:
-            return NDArray(torch.zeros_like(weight._data.detach()))
+            return _zeros(weight)
         return None
 
     def fused_update_multi(self, indices, weights, grads, states):
@@ -332,6 +374,8 @@ class SGD(Optimizer):
 class Adam(Optimizer):
     """Adam; the bias correction is folded into the learning rate."""
 
+    update = update_multi_precision = Optimizer._fused_one
+
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, lazy_update=True, **kwargs):
         super().__init__(learning_rate=learning_rate, **kwargs)
@@ -341,8 +385,7 @@ class Adam(Optimizer):
         self.lazy_update = lazy_update
 
     def create_state(self, index, weight):
-        w = weight._data.detach()
-        return (NDArray(torch.zeros_like(w)), NDArray(torch.zeros_like(w)))
+        return (_zeros(weight), _zeros(weight))
 
     def fused_update_multi(self, indices, weights, grads, states):
         """Adam through the ``opt_adam`` family (K2) on the fused route,
@@ -369,6 +412,521 @@ class Adam(Optimizer):
         with torch.no_grad():
             self._update_routes(indices, weights, grads, states, lrs, kernel,
                                 plain)
+
+
+def _hyper(opt):
+    return dict(rescale_grad=opt.rescale_grad, clip_gradient=opt._clip())
+
+
+def _write(pairs):
+    """Copy each new tensor into its NDArray's storage."""
+    for nd_arr, new in pairs:
+        nd_arr._data.copy_(new)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: half an SGD step plus
+    ``N(0, lr)`` noise from ``mx.random``'s generator."""
+
+    def update(self, index, weight, grad, state):
+        from ..ndarray import random as _nd_random
+
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        w = weight._data
+        with torch.no_grad():
+            g = _ops._prep_grad(grad._data, self.rescale_grad, self._clip())
+            noise = _nd_random.normal(0, math.sqrt(lr), shape=w.shape,
+                                      dtype=w.dtype, ctx=weight.context)
+            w.copy_(w - lr / 2 * (g + wd * w) + noise._data)
+
+
+@register
+class Signum(Optimizer):
+    """The sign of the momentum (signSGD without it)."""
+
+    def __init__(self, learning_rate=0.01, momentum=0.9, wd_lh=0.0,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.momentum = momentum
+        self.wd_lh = wd_lh
+
+    def create_state(self, index, weight):
+        return _zeros(weight) if self.momentum != 0.0 else None
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        hyper = dict(lr=self._get_lr(index), wd=self._get_wd(index),
+                     **_hyper(self))
+        with torch.no_grad():
+            if state is not None:
+                w, m = _ops.signum_update(
+                    weight._data, grad._data, state._data,
+                    momentum=self.momentum, wd_lh=self.wd_lh, **hyper)
+                _write([(weight, w), (state, m)])
+            else:
+                _write([(weight, _ops.signsgd_update(
+                    weight._data, grad._data, **hyper))])
+
+
+SignSGD = Signum
+
+
+@register
+class FTML(Optimizer):
+    """Follow the moving leader; its state is ``(d, v, z)``."""
+
+    def __init__(self, beta1=0.6, beta2=0.999, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        with torch.no_grad():
+            outs = _ops.ftml_update(
+                weight._data, grad._data, *(s._data for s in state),
+                lr=self._get_lr(index), wd=self._get_wd(index),
+                beta1=self.beta1, beta2=self.beta2, epsilon=self.epsilon,
+                rescale_grad=self.rescale_grad, clip_grad=self._clip(),
+                t=self._index_update_count[index])
+            _write(zip((weight,) + tuple(state), outs))
+
+
+@register
+class LARS(Optimizer):
+    """Layer-wise adaptive rate scaling; the norms stay on the device."""
+
+    def __init__(self, momentum=0.0, eta=0.001, epsilon=1e-8, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.eta = eta
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return _zeros(weight) if self.momentum != 0.0 else None
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        hyper = dict(lr=self._get_lr(index), eta=self.eta,
+                     epsilon=self.epsilon, wd=self._get_wd(index),
+                     **_hyper(self))
+        with torch.no_grad():
+            if state is not None:
+                w, m = _ops.lars_sgd_mom_update(
+                    weight._data, grad._data, state._data,
+                    momentum=self.momentum, **hyper)
+                _write([(weight, w), (state, m)])
+            else:
+                _write([(weight, _ops.lars_sgd_update(
+                    weight._data, grad._data, **hyper))])
+
+
+@register
+class LBSGD(Optimizer):
+    """Large-batch SGD: gradients accumulated over ``batch_scale`` calls
+    and a warm-up multiplier of the rate (``linear``, ``power2``,
+    ``sqrt``) or a per-layer LARS rate (``lars``)."""
+
+    def __init__(self, momentum=0.0, multi_precision=False,
+                 warmup_strategy="linear", warmup_epochs=5, batch_scale=1,
+                 updates_per_epoch=32, begin_epoch=0, num_epochs=60,
+                 **kwargs):
+        super().__init__(multi_precision=multi_precision, **kwargs)
+        self.momentum = momentum
+        self.warmup_strategy = warmup_strategy
+        self.warmup_epochs = warmup_epochs
+        self.batch_scale = batch_scale
+        self.updates_per_epoch = updates_per_epoch
+        self.init_updates = begin_epoch * updates_per_epoch
+        self.num_epochs = num_epochs
+        self.cumgrads = {}
+
+    def create_state(self, index, weight):
+        return _zeros(weight) if self.momentum != 0.0 else None
+
+    def _get_lbmult(self, nup):
+        """The warm-up multiplier, from 1 to ``batch_scale``."""
+        nwup = self.warmup_epochs * self.updates_per_epoch
+        maxmult = float(self.batch_scale)
+        if nup >= nwup:
+            return maxmult
+        if nwup <= 1:
+            return 1.0
+        if self.warmup_strategy == "linear":
+            return 1.0 + (maxmult - 1) * nup / nwup
+        if self.warmup_strategy == "power2":
+            return 1.0 + (maxmult - 1) * (nup * nup) / (nwup * nwup)
+        if self.warmup_strategy == "sqrt":
+            return 1.0 + (maxmult - 1) * math.sqrt(float(nup) / nwup)
+        return 1.0
+
+    @staticmethod
+    def _get_lars(weight, g, wd):
+        """The layer's LARS multiplier, a device scalar."""
+        weight2 = (weight * weight).sum()
+        grad2 = (g * g).sum()
+        lars = (weight2 / (grad2 + wd * weight2 + 1e-18)) ** 0.5
+        return lars.clamp(0.01, 100.0)
+
+    def update(self, index, weight, grad, state):
+        # the rate is read before the count moves, as in the JAX optimizer
+        lr = self._get_lr(index)
+        wd = self._get_wd(index)
+        self._update_count(index)
+        w = weight._data
+        with torch.no_grad():
+            cgrad = self.cumgrads.get(index)
+            if cgrad and cgrad["num_cums"] > 0:
+                cgrad = {"cum_grad": cgrad["cum_grad"] + grad._data,
+                         "num_cums": cgrad["num_cums"] + 1}
+            else:
+                cgrad = {"cum_grad": grad._data.clone(),
+                         "num_cums": self.init_updates + 1}
+            self.cumgrads[index] = cgrad
+            if cgrad["num_cums"] % self.batch_scale != 0:
+                return   # inside a macro-batch: the weight waits
+            g = cgrad["cum_grad"] / self.batch_scale \
+                if self.batch_scale > 1 else cgrad["cum_grad"]
+            if self.warmup_strategy == "lars":
+                lbmult = self._get_lars(w, g, wd)
+                gr = _ops._prep_grad(g, self.rescale_grad, self._clip())
+                step = (lr * lbmult) * (gr + wd * w)
+                if self.momentum != 0.0 and state is not None:
+                    mom = self.momentum * state._data - step
+                    _write([(state, mom), (weight, w + mom)])
+                else:
+                    w.copy_(w - step)
+            else:
+                hyper = dict(lr=lr * self._get_lbmult(cgrad["num_cums"]),
+                             wd=wd, **_hyper(self))
+                if self.momentum != 0.0 and state is not None:
+                    w2, m2 = _ops.sgd_mom_update(w, g, state._data,
+                                                 momentum=self.momentum,
+                                                 **hyper)
+                    _write([(weight, w2), (state, m2)])
+                else:
+                    w.copy_(_ops.sgd_update(w, g, **hyper))
+            self.cumgrads[index]["cum_grad"] = 0
+
+
+@register
+class LAMB(Optimizer):
+    """Layer-wise adaptive moments: Adam's direction scaled by the trust
+    ratio ``||w|| / ||update||``."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-6, lower_bound=None, upper_bound=None,
+                 bias_correction=True, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.lower_bound = lower_bound
+        self.upper_bound = upper_bound
+        self.bias_correction = bias_correction
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        mean, var = state
+        w = weight._data
+        with torch.no_grad():
+            g, m2, v2 = _ops.lamb_update_phase1(
+                w, grad._data, mean._data, var._data, beta1=self.beta1,
+                beta2=self.beta2, epsilon=self.epsilon,
+                t=self._index_update_count[index],
+                bias_correction=self.bias_correction, wd=wd,
+                **_hyper(self))
+            _write([(mean, m2), (var, v2)])
+            w.copy_(_ops.lamb_update_phase2(
+                w, g, _ops._norm(w), _ops._norm(g), lr=lr,
+                lower_bound=self.lower_bound or -1.0,
+                upper_bound=self.upper_bound or -1.0))
+
+
+@register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD; its state is ``(momentum or
+    None, the previous weight)``."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        prev = NDArray(weight._data.detach().clone())
+        return (None if self.momentum == 0.0 else _zeros(weight), prev)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        mom, previous_weight = state
+        w = weight._data
+        with torch.no_grad():
+            g = _ops._prep_grad(grad._data, self.rescale_grad, self._clip())
+            delta = -lr * (g + wd * w + self.lamda * g * g
+                           * (w - previous_weight._data))
+            if mom is not None:
+                mom._data.copy_(self.momentum * mom._data + delta)
+                delta = mom._data
+            new_w = w + delta
+            previous_weight._data.copy_(w)
+            w.copy_(new_w)
+
+
+@register
+class NAG(Optimizer):
+    """Nesterov momentum SGD. ``fused_update_multi`` runs the momentum
+    step over every float32 tensor (and master) of a learning-rate group
+    with ``torch._foreach_*`` in ``nag_mom_update``'s order of
+    operations; without momentum it is ``sgd_update``."""
+
+    update = update_multi_precision = Optimizer._fused_one
+
+    def __init__(self, momentum=0.0, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return _zeros(weight) if self.momentum != 0.0 else None
+
+    def fused_update_multi(self, indices, weights, grads, states):
+        self._update_count(list(indices))
+        hyper = _hyper(self)
+
+        def kernel(lr, wds, group):
+            if self.momentum == 0.0:
+                for (_, w, g, _), wd in zip(group, wds):
+                    plain(w, g, (), lr, wd)
+                return
+            _nag_foreach([f[1] for f in group], [f[2] for f in group],
+                         [f[3][0] for f in group], lr, wds, self.momentum,
+                         **hyper)
+
+        def plain(w, g, st, lr, wd):
+            if self.momentum != 0.0:
+                w2, m2 = _ops.nag_mom_update(w, g, st[0], lr=lr, wd=wd,
+                                             momentum=self.momentum, **hyper)
+                st[0].copy_(m2)
+            else:
+                w2 = _ops.sgd_update(w, g, lr=lr, wd=wd, **hyper)
+            w.copy_(w2)
+
+        with torch.no_grad():
+            self._update_routes(indices, weights, grads, states,
+                                self._get_lrs(indices), kernel, plain)
+
+
+def _nag_foreach(ws, gs, moms, lr, wds, momentum, rescale_grad,
+                 clip_gradient):
+    """``nag_mom_update`` over lists, in place, one ``_foreach`` op per
+    op of the single-tensor form (so each element rounds as there)."""
+    g = torch._foreach_mul(gs, rescale_grad)
+    if clip_gradient is not None and clip_gradient > 0:
+        torch._foreach_clamp_min_(g, -clip_gradient)
+        torch._foreach_clamp_max_(g, clip_gradient)
+    torch._foreach_add_(g, torch._foreach_mul(ws, list(wds)))
+    torch._foreach_mul_(moms, momentum)
+    torch._foreach_add_(moms, g)
+    step = torch._foreach_mul(moms, momentum)
+    torch._foreach_add_(step, g)
+    torch._foreach_mul_(step, lr)
+    torch._foreach_sub_(ws, step)
+
+
+@register
+class AdaGrad(Optimizer):
+    """AdaGrad; ``eps`` is its stability constant."""
+
+    def __init__(self, eps=1e-7, **kwargs):
+        super().__init__(**kwargs)
+        self.float_stable_eps = eps
+
+    def create_state(self, index, weight):
+        return _zeros(weight)
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        with torch.no_grad():
+            w, h = _ops.adagrad_update(
+                weight._data, grad._data, state._data,
+                lr=self._get_lr(index), wd=self._get_wd(index),
+                epsilon=self.float_stable_eps, **_hyper(self))
+            _write([(weight, w), (state, h)])
+
+
+@register
+class RMSProp(Optimizer):
+    """RMSProp; ``centered=True`` is Graves' form (``rmspropalex``)."""
+
+    def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
+                 epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.gamma1 = gamma1
+        self.gamma2 = gamma2
+        self.centered = centered
+        self.epsilon = epsilon
+        self.clip_weights = clip_weights
+
+    def create_state(self, index, weight):
+        return tuple(_zeros(weight) for _ in range(3 if self.centered else 1))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        common = dict(lr=self._get_lr(index), wd=self._get_wd(index),
+                      gamma1=self.gamma1, epsilon=self.epsilon,
+                      clip_weights=self.clip_weights or -1.0, **_hyper(self))
+        raw = tuple(s._data for s in state)
+        with torch.no_grad():
+            if self.centered:
+                outs = _ops.rmspropalex_update(weight._data, grad._data,
+                                               *raw, gamma2=self.gamma2,
+                                               **common)
+            else:
+                outs = _ops.rmsprop_update(weight._data, grad._data, *raw,
+                                           **common)
+            _write(zip((weight,) + tuple(state), outs))
+
+
+@register
+class AdaDelta(Optimizer):
+    """AdaDelta; no learning rate enters the step."""
+
+    def __init__(self, rho=0.90, epsilon=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self.rho = rho
+        self.epsilon = epsilon
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        with torch.no_grad():
+            outs = _ops.adadelta_update(
+                weight._data, grad._data, *(s._data for s in state),
+                rho=self.rho, epsilon=self.epsilon, wd=self._get_wd(index),
+                **_hyper(self))
+            _write(zip((weight,) + tuple(state), outs))
+
+
+@register
+class Ftrl(Optimizer):
+    """FTRL-proximal; its state is ``(z, n)``."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        with torch.no_grad():
+            outs = _ops.ftrl_update(
+                weight._data, grad._data, *(s._data for s in state),
+                lr=self._get_lr(index), wd=self._get_wd(index),
+                lamda1=self.lamda1, beta=self.beta, **_hyper(self))
+            _write(zip((weight,) + tuple(state), outs))
+
+
+@register
+class Adamax(Optimizer):
+    """Adam with the infinity norm."""
+
+    def __init__(self, learning_rate=0.002, beta1=0.9, beta2=0.999,
+                 **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        lr /= (1.0 - self.beta1 ** self._index_update_count[index])
+        w = weight._data
+        with torch.no_grad():
+            g = _ops._prep_grad_wd(grad._data, w, self.rescale_grad,
+                                   self._clip(), wd)
+            m_t, u_t = state
+            m_t._data.copy_(self.beta1 * m_t._data + (1.0 - self.beta1) * g)
+            u_t._data.copy_(torch.maximum(self.beta2 * u_t._data,
+                                          torch.abs(g)))
+            w.copy_(w - lr * m_t._data / (u_t._data + 1e-8))
+
+
+@register
+class Nadam(Optimizer):
+    """Adam with Nesterov momentum and the momentum schedule of Dozat
+    (2016); ``m_schedule`` is one host float, advanced by every update."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, schedule_decay=0.004, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.beta1 = beta1
+        self.beta2 = beta2
+        self.epsilon = epsilon
+        self.schedule_decay = schedule_decay
+        self.m_schedule = 1.0
+
+    def create_state(self, index, weight):
+        return (_zeros(weight), _zeros(weight))
+
+    def update(self, index, weight, grad, state):
+        self._update_count(index)
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        t = self._index_update_count[index]
+        w = weight._data
+        momentum_t = self.beta1 * (1.0 - 0.5 * 0.96 ** (
+            t * self.schedule_decay))
+        momentum_t_1 = self.beta1 * (1.0 - 0.5 * 0.96 ** (
+            (t + 1) * self.schedule_decay))
+        self.m_schedule = self.m_schedule * momentum_t
+        m_schedule_next = self.m_schedule * momentum_t_1
+        with torch.no_grad():
+            g = _ops._prep_grad_wd(grad._data, w, self.rescale_grad,
+                                   self._clip(), wd)
+            m_t, v_t = state
+            m_t._data.copy_(self.beta1 * m_t._data + (1.0 - self.beta1) * g)
+            v_t._data.copy_(self.beta2 * v_t._data
+                            + (1.0 - self.beta2) * g * g)
+            grad_prime = g / (1.0 - self.m_schedule)
+            m_t_prime = m_t._data / (1.0 - m_schedule_next)
+            v_t_prime = v_t._data / (1.0 - self.beta2 ** t)
+            m_t_bar = (1.0 - momentum_t) * grad_prime \
+                + momentum_t_1 * m_t_prime
+            w.copy_(w - lr * m_t_bar / (v_t_prime.sqrt() + self.epsilon))
+
+
+@register
+class Test(Optimizer):
+    """``weight -= grad * rescale_grad * lr``, the new weight kept as the
+    state: for tests."""
+
+    def create_state(self, index, weight):
+        return _zeros(weight, dtype=torch.float32)
+
+    def update(self, index, weight, grad, state):
+        w = weight._data
+        with torch.no_grad():
+            w.copy_(w - grad._data * self.rescale_grad * self.lr)
+            state._data.copy_(w)
 
 
 class Updater:

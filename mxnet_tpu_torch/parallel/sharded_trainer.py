@@ -202,8 +202,9 @@ class ShardedTrainer:
         bfloat16; ``Block.cast`` keeps BatchNorm's in float32).
     loss_fn : callable (pred NDArray, label NDArray) -> loss NDArray,
         such as a gluon loss block; the step minimises its mean.
-    optimizer : ``"sgd"`` (the default) or ``"adam"``, or an Optimizer
-        instance of those.
+    optimizer : the name of any of the 17 optimizers (``"sgd"``, the
+        default, ``"adam"``, ``"lamb"``, ``"rmsprop"``, ...), or an
+        Optimizer instance of one.
     optimizer_params : ``learning_rate``, ``lr_scheduler``,
         ``multi_precision`` (float32 master copies of half-precision
         weights) and the optimizer's own.
@@ -275,6 +276,15 @@ class ShardedTrainer:
                 f"no update rule for optimizer {self._opt_name!r}; "
                 f"available: {sorted(RULES)}")
         self._rule = RULES[self._opt_name]
+        if self._opt_name == "lbsgd" and self._opt.batch_scale > 1 and \
+                self._accum == 1:
+            import warnings
+
+            warnings.warn(
+                "LBSGD batch_scale>1: the step applies the large-batch lr "
+                "warmup every step but does NOT accumulate gradients; pass "
+                "accum_steps (or feed the full macro-batch) for the "
+                "accumulation half", stacklevel=2)
         self._wd = float(self._opt.wd)
 
         self._param_names: List[str] = []

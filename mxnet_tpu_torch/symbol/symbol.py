@@ -50,6 +50,17 @@ _LAYER_PARAMS = {
     "Convolution": {"weight": ("weight", None, False),
                     "bias": ("bias", lambda a: a.get("no_bias", False),
                              False)},
+    "Deconvolution": {"weight": ("weight", None, False),
+                      "bias": ("bias", lambda a: a.get("no_bias", True),
+                               False)},
+    "GroupNorm": {"gamma": ("gamma", None, False),
+                  "beta": ("beta", None, False)},
+    "InstanceNorm": {"gamma": ("gamma", None, False),
+                     "beta": ("beta", None, False)},
+    # PReLU's learned slope
+    "LeakyReLU": {"gamma": ("gamma",
+                            lambda a: a.get("act_type", "leaky") != "prelu",
+                            False)},
     "BatchNorm": {"gamma": ("gamma", None, False),
                   "beta": ("beta", None, False),
                   "moving_mean": ("moving_mean", None, True),
@@ -617,6 +628,14 @@ def _param_shape_rules(node, data):
         put(1, (attrs["num_filter"], dshape[1] // attrs.get("num_group", 1))
             + kernel)
         put(2, (attrs["num_filter"],))
+    elif node.op == "Deconvolution":
+        kernel = tuple(attrs.get("kernel", ()))
+        put(1, (dshape[1], attrs["num_filter"] // attrs.get("num_group", 1))
+            + kernel)
+        put(2, (attrs["num_filter"],))
+    elif node.op in ("GroupNorm", "InstanceNorm", "LeakyReLU"):
+        for i in (1, 2):
+            put(i, (dshape[1],))
     elif node.op == "RNN":
         put(1, (rnn_param_size(dshape[2], attrs["state_size"],
                                attrs.get("num_layers", 1),

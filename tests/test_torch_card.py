@@ -40,7 +40,14 @@ run on a machine that has only PyTorch:
 * ``ServedModel.swap_params`` on a captured bucket ladder: the output
   changes, nothing is captured again and the copy runs on the replay
   stream; swaps racing replays never give a batch that matches neither
-  version.
+  version;
+* a captured "lamb" and a captured "nadam" ``ShardedTrainer`` step
+  replayed 5 times under ``torch.cuda.set_sync_debug_mode("error")`` (no
+  host sync; their norms, step counts and Nadam's schedule are device
+  scalars) against the same steps run eagerly; grouped ``Deconvolution``
+  (and ``target_shape``) on the card against the CPU; ``CTCLoss`` on the
+  card (``torch.nn.functional.ctc_loss``) against the plain recursion on
+  the card and on the CPU, values and gradients.
 """
 import math
 
@@ -1980,3 +1987,130 @@ def test_four_buckets_capture_over_one_storage_on_card(cuda_device):
             for d in ("arg_dict", "grad_dict"):
                 assert getattr(mod._exec, d)[name]._data.data_ptr() == \
                     getattr(default._exec, d)[name]._data.data_ptr()
+
+
+def _rule_trainer(name, device, seed=0):
+    from mxnet_tpu_torch.parallel import DeviceMesh, ShardedTrainer
+
+    ctx = mx.gpu(0) if device.type == "cuda" else mx.cpu()
+    net = mx.gluon.nn.HybridSequential(prefix="r_")
+    with net.name_scope():
+        net.add(mx.gluon.nn.Dense(64, activation="tanh", in_units=32),
+                mx.gluon.nn.Dense(8, in_units=64))
+    net.initialize(mx.init.Xavier(), ctx=ctx,
+                   generator=torch.Generator().manual_seed(seed))
+    return ShardedTrainer(net, mx.gluon.loss.SoftmaxCrossEntropyLoss(), name,
+                          {"learning_rate": 0.01, "wd": 1e-3,
+                           "clip_gradient": 1.0},
+                          mesh=DeviceMesh({"dp": 1}, devices=[ctx]),
+                          nan_guard=False)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["lamb", "nadam"])
+def test_captured_rule_steps_replay_without_host_syncs(cuda_device, name):
+    """Steps 3-7 of a captured trainer (the first eager, the second
+    captured) replay with the host never waiting on the card, and equal
+    the same seven steps run eagerly from the same weights within 1e-6 of
+    each tensor's L2 norm (a replay runs the eager step's kernels on the
+    same operands; bit for bit is what is expected)."""
+    from mxnet_tpu_torch import compile as compile_service
+
+    rs = np.random.RandomState(1)
+    batches = [(rs.randn(16, 32).astype(np.float32),
+                rs.randint(0, 8, 16).astype(np.float32)) for _ in range(7)]
+    ctx = mx.gpu(0)
+    runs = {}
+    for mode in ("captured", "eager"):
+        st = _rule_trainer(name, cuda_device)
+        prev = compile_service.set_enabled(mode == "captured")
+        try:
+            for i, (x, y) in enumerate(batches):
+                xb, yb = mx.nd.array(x, ctx=ctx), mx.nd.array(y, ctx=ctx)
+                if mode == "captured" and i >= 2:
+                    torch.cuda.synchronize()
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        st.step(xb, yb)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                else:
+                    st.step(xb, yb)
+        finally:
+            compile_service.set_enabled(prev)
+        torch.cuda.synchronize()
+        runs[mode] = [t.clone() for t in st._state_tensors().values()]
+    for got, want in zip(runs["captured"], runs["eager"]):
+        err = float((got - want).norm())
+        assert err <= 1e-6 * max(float(want.norm()), 1e-30)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kw", [
+    dict(kernel=(3, 3), stride=(2, 2), pad=(1, 1), adj=(1, 1), num_filter=6,
+         num_group=2),
+    dict(kernel=(4, 4), stride=(2, 2), num_filter=3, num_group=1,
+         target_shape=(10, 9)),
+    dict(kernel=(3, 3), stride=(1, 1), dilate=(2, 2), num_filter=8,
+         num_group=8),
+])
+def test_deconvolution_on_card_equals_cpu(cuda_device, kw):
+    torch.backends.cudnn.allow_tf32 = False
+    cin = 8 if kw["num_group"] == 8 else (4 if kw["num_group"] == 2 else 2)
+    x = _rand((2, cin, 5, 5), 1)
+    w = _rand((cin, kw["num_filter"] // kw["num_group"]) + kw["kernel"], 2)
+    head = None
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        xt = torch.tensor(x, device=dev, requires_grad=True)
+        wt = torch.tensor(w, device=dev, requires_grad=True)
+        out = reg.get("Deconvolution")(xt, wt, **kw)
+        if head is None:
+            head = torch.tensor(_rand(tuple(out.shape), 3))
+        out.backward(head.to(dev))
+        grads[str(dev)] = [out.detach().cpu(), xt.grad.cpu(), wt.grad.cpu()]
+    for a, b in zip(grads[str(cuda_device)], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.gpu
+def test_ctc_loss_on_card_matches_the_plain_recursion(cuda_device):
+    """The card's route (``torch.nn.functional.ctc_loss``, no clamp of
+    infinite losses) against the plain log-space recursion on the card
+    and on the CPU, losses and gradients, with the blank first (labels
+    padded with 0) and last (padded with -1), data lengths and label
+    lengths."""
+    from mxnet_tpu_torch.ops import nn as nn_ops
+
+    rs = np.random.RandomState(0)
+    data = rs.randn(40, 6, 12).astype(np.float32)
+    for blank_label in ("first", "last"):
+        pad = 0 if blank_label == "first" else -1
+        label = rs.randint(1, 11, (6, 8)).astype(np.float32)
+        if blank_label == "last":
+            label -= 1
+        for i, n in enumerate((8, 5, 1, 3, 8, 6)):
+            label[i, n:] = pad
+        dlen = np.array([40, 33, 20, 40, 38, 25], np.float32)
+        res = []
+        for dev, route in ((cuda_device, "torch"), (cuda_device, "plain"),
+                           ("cpu", "plain")):
+            d = torch.tensor(data, device=dev, requires_grad=True)
+            lab = torch.tensor(label, device=dev)
+            dl = torch.tensor(dlen, device=dev)
+            if route == "torch":
+                loss = reg.get("CTCLoss")(d, lab, dl, use_data_lengths=True,
+                                          blank_label=blank_label)
+            else:
+                blank = 0 if blank_label == "first" else 11
+                lab64 = lab.to(torch.int64)
+                loss = nn_ops.ctc_plain(
+                    torch.log_softmax(d, -1), lab64,
+                    nn_ops.ctc_lengths(lab64, blank_label), dl.to(
+                        torch.int64), blank)
+            (g,) = torch.autograd.grad(loss.sum(), [d])
+            res.append((loss.detach().cpu(), g.cpu()))
+        for loss, g in res[1:]:
+            torch.testing.assert_close(res[0][0], loss, rtol=1e-5,
+                                       atol=1e-4)
+            torch.testing.assert_close(res[0][1], g, rtol=1e-4, atol=1e-5)

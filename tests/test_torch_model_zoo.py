@@ -211,21 +211,28 @@ def test_flatten_and_activation_layers():
 
 
 def test_what_is_not_ported_raises():
+    """The transposed convolutions, ReflectionPad2D and the other six
+    families are ported (``tests/test_torch_layers_losses.py``,
+    ``tests/test_torch_zoo_families.py``): they construct. What is still
+    not ported raises: ``pretrained=True`` (a download) and layouts other
+    than channels first."""
     for ctor in (lambda: nn.Conv2DTranspose(4, 3), lambda: nn.Conv1DTranspose(
             4, 3), lambda: nn.Conv3DTranspose(4, 3),
             lambda: nn.ReflectionPad2D(1)):
-        with pytest.raises(mx.MXNetError, match="not ported"):
-            ctor()
+        assert isinstance(ctor(), nn.HybridBlock)
     for name in ("vgg16", "mobilenet_v2_1_0", "densenet121", "alexnet",
                  "squeezenet1_0", "inception_v3"):
-        with pytest.raises(mx.MXNetError, match="ROADMAP"):
-            vision.get_model(name)
+        assert isinstance(vision.get_model(name), nn.HybridBlock)
+        with pytest.raises(mx.MXNetError, match="download"):
+            vision.get_model(name, pretrained=True)
     with pytest.raises(ValueError, match="not supported"):
         vision.get_model("resnet51_v1")
     with pytest.raises(mx.MXNetError, match="download"):
         vision.get_model("resnet18_v1", pretrained=True)
     with pytest.raises(mx.MXNetError, match="layout"):
         nn.Conv2D(4, 3, layout="NHWC")
+    with pytest.raises(mx.MXNetError, match="layout"):
+        nn.Conv2DTranspose(4, 3, layout="NHWC")
 
 
 @pytest.mark.parametrize("version,depth", [(1, 18), (1, 34), (1, 50),
