@@ -606,6 +606,22 @@ MODULE_FIT = {"network": "resnet50_v1", "num_classes": 1000, "batch": 128,
               "epoch_size": 13, "warmup": 3, "tensors": 193, "aux": 106,
               "reduced": "epoch_size 13 batches (3 warm-up, 10 timed), "
                          "not num_examples // batch_size = 10009"}
+# resnet50_v1_module_fit_custom: each tensor's change (weights and
+# BatchNorm statistics) after the first batch with the Custom head against
+# its change with SoftmaxOutput, as a share of the latter's L2 norm, on a
+# floor of a thousandth of the largest tensor's change (ResNet-50 v1's
+# bottleneck convolutions have biases that feed train-mode BatchNorm: their
+# true gradient is 0 and rounding alone moves them). The two heads compute
+# one gradient (the host's numpy softmax against the card's), so within
+# 1e-3; a head that moved nothing reads 1. The 13-batch change is printed
+# and not held: at lr 0.1 two SoftmaxOutput fits from one seed drift apart
+# by 119-146% of a tensor's change (cuDNN's weight gradients sum in varying
+# order; an H100 80GB HBM3, 700 W). The loss: the first update lowers the
+# repeated batch's loss by at least a tenth (7.94 to 6.33 in every call on
+# that card); the 13 batches' losses spike to about 10 and end at 6.9-8.2,
+# above the first in some calls, so they are printed and not held
+CUSTOM_FIT_TOL = {"first_batch": 1e-3, "floor": 1e-3,
+                  "first_update_loss_drop": 0.1}
 # the thumbnail of resnet_check through Module on the card and on a CPU
 # copy, the copy set to the card's state before each step; held as
 # resnet_check is (RESNET_CHECK's comment says why), the outputs of the
@@ -863,13 +879,36 @@ def _caller():
     return f"{frame.f_code.co_name}:{frame.f_lineno}"
 
 
+# substrings of the hand-written kernels' names (``csrc/*.cu``): one
+# wrapper launch is one launch of one of them
+HANDWRITTEN_KERNELS = ("flash_fwd_", "flash_bwd_", "int8_gemm_kernel",
+                       "opt_step_kernel", "twobit_", "decode_attention_kernel")
+
+
+def _handwritten(name):
+    return any(k in name for k in HANDWRITTEN_KERNELS)
+
+
+def _wrapper_launches():
+    """Launches the kernel wrappers have counted so far, all families."""
+    return sum(n for k, n in kernels.launch_counts().items() if "." not in k)
+
+
 def kernel_device_us(fn, iters=20, warmup=3):
     """``{kernel name: device µs per call}`` of ``fn()`` over ``iters``
-    calls, from ``torch.profiler``. A window in which the profiler
-    recorded no kernel at all (seen once on the H100, after the capture
-    phases, for kernels it had timed before) is tried again, up to
-    ``PROFILE_ATTEMPTS`` windows, each miss printed as a
-    ``profiler_miss`` line; an empty dict if every window missed."""
+    calls, from ``torch.profiler``: each kernel's summed time over the
+    window divided by ``iters``, the window recorded after a warm-up
+    cycle of ``iters`` calls. A window is refused and tried again, up
+    to ``PROFILE_ATTEMPTS`` windows, when the profiler recorded no kernel
+    at all (seen once on the H100, after the capture phases: a
+    ``profiler_miss`` line) or when its recorded launch counts are not
+    those of ``iters`` calls: the hand-written kernels' together must
+    equal the launches their wrappers counted in the window (``iters``
+    times one call's), and every kernel's must be a multiple of
+    ``iters`` (a ``profiler_count`` line naming each such kernel with
+    both counts). An accepted window prints a ``device_window`` line with
+    each kernel's µs per call beside its recorded count. An empty dict
+    if every window was refused."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -877,26 +916,57 @@ def kernel_device_us(fn, iters=20, warmup=3):
         fn()
     torch.cuda.synchronize()
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        # a warm-up cycle of the profiler before the recorded one: a
+        # window that starts recording cold lost its first launches on
+        # the H100 (5 to 8 of 20 after the capture phases)
         with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+                                 ProfilerActivity.CUDA],
+                     schedule=torch.profiler.schedule(
+                         wait=0, warmup=1, active=1, repeat=1)) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
+            prof.step()
+            before = _wrapper_launches()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            launched = _wrapper_launches() - before
+            prof.step()
         events = prof.key_averages()
         # a user annotation (``Optimizer.step#Adam.step``, from
         # ``torch.optim``'s ``record_function``) is listed as a CUDA range
         # over the kernels it holds: counting it too would count them
         # twice
-        us = {e.key: e.self_device_time_total / iters for e in events
-              if e.device_type == DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False)
-              and e.self_device_time_total > 0}
-        if us:
-            return us
-        emit({"phase": "profiler_miss", "at": _caller(), "attempt": attempt,
-              "events": len(events),
-              "cuda_events": sum(e.device_type == DeviceType.CUDA
-                                 for e in events)})
+        got = {e.key: (e.self_device_time_total / iters, e.count)
+               for e in events
+               if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
+               and e.self_device_time_total > 0}
+        if not got:
+            emit({"phase": "profiler_miss", "at": _caller(),
+                  "attempt": attempt, "events": len(events),
+                  "cuda_events": sum(e.device_type == DeviceType.CUDA
+                                     for e in events)})
+            continue
+        mine = {k: n for k, (_, n) in got.items() if _handwritten(k)}
+        bad = {k: {"recorded": n, "expected": f"a multiple of {iters}"}
+               for k, (_, n) in got.items() if n % iters}
+        if sum(mine.values()) != launched:
+            bad.update((k, {"recorded": n, "expected_all_handwritten":
+                            launched, "recorded_all_handwritten":
+                            sum(mine.values())}) for k, n in mine.items())
+            if not mine:
+                bad["hand-written kernels"] = {
+                    "recorded": 0, "expected": launched}
+        if bad:
+            emit({"phase": "profiler_count", "at": _caller(),
+                  "attempt": attempt, "iters": iters, "kernels": bad})
+            continue
+        emit({"phase": "device_window", "at": _caller(), "iters": iters,
+              "kernels": {k: {"us": us, "count": n}
+                          for k, (us, n) in got.items()}})
+        return {k: us for k, (us, _) in got.items()}
     return {}
 
 
@@ -5292,19 +5362,75 @@ class SyntheticDataIter(mx.io.DataIter):
                                provide_label=self.provide_label)
 
 
-def get_network(name, num_classes, image_shape):
+def get_network(name, num_classes, image_shape, heads=("SoftmaxOutput",)):
     """``examples/image_classification/train_imagenet.py:29-45`` over the
     port: the model zoo's network exported as a Symbol (its weights, from
     a seeded draw, are dropped: ``fit`` initializes every parameter) with
-    a SoftmaxOutput head."""
+    a SoftmaxOutput head. With several ``heads``, ``{head: symbol}`` over
+    the one exported network; ``"Custom"`` is MXNet's
+    ``example/numpy-ops/custom_softmax.py`` head, ``mx.sym.Custom(net,
+    op_type="softmax", name="softmax")`` (its label input the variable
+    ``softmax_label``, as SoftmaxOutput's)."""
     net = vision.get_model(name, classes=num_classes)
     net.initialize(mx.init.Xavier(), generator=torch.Generator().manual_seed(0))
     net(mx.nd.zeros((1,) + tuple(image_shape)))
     with tempfile.TemporaryDirectory() as d:
         net.export(os.path.join(d, "net"), 0)
         sym, _, _ = mx.model.load_checkpoint(os.path.join(d, "net"), 0)
-    return mx.sym.SoftmaxOutput(sym, mx.sym.var("softmax_label"),
-                                name="softmax")
+    out = {}
+    for head in heads:
+        if head == "Custom":
+            register_custom_softmax()
+            out[head] = mx.sym.Custom(sym, op_type="softmax", name="softmax")
+        else:
+            out[head] = mx.sym.SoftmaxOutput(sym, mx.sym.var("softmax_label"),
+                                             name="softmax")
+    return out if len(heads) > 1 else out[heads[0]]
+
+
+class Softmax(mx.operator.CustomOp):
+    """MXNet 1.x's ``example/numpy-ops/custom_softmax.py`` operator, as
+    that example writes it: numpy on the host."""
+
+    def forward(self, is_train, req, in_data, out_data, aux):
+        x = in_data[0].asnumpy()
+        y = np.exp(x - x.max(axis=1).reshape((x.shape[0], 1)))
+        y /= y.sum(axis=1).reshape((x.shape[0], 1))
+        self.assign(out_data[0], req[0], mx.nd.array(y))
+
+    def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+        label = in_data[1].asnumpy().ravel().astype(int)
+        y = out_data[0].asnumpy()
+        y[np.arange(label.shape[0]), label] -= 1.0
+        self.assign(in_grad[0], req[0], mx.nd.array(y))
+
+
+class SoftmaxProp(mx.operator.CustomOpProp):
+    """The example's prop: a loss head (``need_top_grad=False``) with a
+    label argument of shape ``(batch,)``."""
+
+    def __init__(self):
+        super().__init__(need_top_grad=False)
+
+    def list_arguments(self):
+        return ["data", "label"]
+
+    def list_outputs(self):
+        return ["output"]
+
+    def infer_shape(self, in_shape):
+        data_shape = in_shape[0]
+        label_shape = (in_shape[0][0],)
+        output_shape = in_shape[0]
+        return [data_shape, label_shape], [output_shape], []
+
+    def create_operator(self, ctx, shapes, dtypes):
+        return Softmax()
+
+
+def register_custom_softmax():
+    """``mx.operator.register("softmax")`` of :class:`SoftmaxProp`."""
+    mx.operator.register("softmax")(SoftmaxProp)
 
 
 def _lr_scheduler(cfg):
@@ -5440,7 +5566,7 @@ def _profile_module_batch(mod, batch, metric, group=None, extra=None):
             "module_path_device_ms": split}
 
 
-def _module_fit_once(cfg, net, train, dev):
+def _module_fit_once(cfg, net, train, dev, callbacks=()):
     """One ``module_fit`` of ``cfg["epoch_size"]`` batches (the compile
     service on or off, as the caller set it): the host clock at each
     batch end (card synchronised), the host ms of ``update()`` and
@@ -5486,7 +5612,7 @@ def _module_fit_once(cfg, net, train, dev):
     kernels.reset_launch_counts()
     t_fit = time.perf_counter()
     with _captured_log() as log:
-        module_fit(cfg, model, train, [stamp, probe_batch])
+        module_fit(cfg, model, train, [stamp, probe_batch] + list(callbacks))
     fit_s = time.perf_counter() - t_fit
     site = _site_stats("executor")
     batches = cfg["epoch_size"]
@@ -5632,6 +5758,247 @@ def phase_resnet50_module_fit(smi, gluon=None):
         out["excess_over_gluon_step_ms"] = median - gluon["median_step_ms"]
     emit(out)
     del net, train
+    torch.cuda.empty_cache()
+    return out
+
+
+class _HostOpMeter:
+    """Within the scope, the host ms of each call of ``Softmax.forward``
+    and ``Softmax.backward`` (the card synchronised before and after, so
+    neither the preceding device work nor the tail of its own copies is
+    another call's) and the bytes their ``asnumpy()`` calls read to the
+    host and their ``mx.nd.array`` calls write to the card."""
+
+    def __init__(self):
+        self.ms = {"forward": [], "backward": []}
+        self.bytes = {"forward": {"to_host": 0, "to_card": 0},
+                      "backward": {"to_host": 0, "to_card": 0}}
+        self._in = None
+
+    def __enter__(self):
+        self._saved = (Softmax.forward, Softmax.backward,
+                       mx.nd.NDArray.asnumpy, mx.nd.array)
+        meter = self
+        fwd, bwd, asnumpy, array = self._saved
+
+        def timed(name, fn):
+            def run(op, *args, **kwargs):
+                torch.cuda.synchronize()
+                meter._in = name
+                t0 = time.perf_counter()
+                try:
+                    return fn(op, *args, **kwargs)
+                finally:
+                    torch.cuda.synchronize()
+                    meter.ms[name].append((time.perf_counter() - t0) * 1e3)
+                    meter._in = None
+            return run
+
+        def counted_asnumpy(a):
+            out = asnumpy(a)
+            if meter._in is not None and a._data.is_cuda:
+                meter.bytes[meter._in]["to_host"] += out.nbytes
+            return out
+
+        def counted_array(source, *args, **kwargs):
+            out = array(source, *args, **kwargs)
+            if meter._in is not None and out._data.is_cuda:
+                meter.bytes[meter._in]["to_card"] += \
+                    out._data.numel() * out._data.element_size()
+            return out
+
+        Softmax.forward = timed("forward", fwd)
+        Softmax.backward = timed("backward", bwd)
+        mx.nd.NDArray.asnumpy = counted_asnumpy
+        mx.nd.array = counted_array
+        return self
+
+    def __exit__(self, *exc):
+        (Softmax.forward, Softmax.backward, mx.nd.NDArray.asnumpy,
+         mx.nd.array) = self._saved
+
+    def summary(self, skip):
+        """Medians after the first ``skip`` calls, and bytes a call."""
+        out = {}
+        for name in ("forward", "backward"):
+            ms = self.ms[name]
+            out[name] = {"calls": len(ms),
+                         "median_host_ms": statistics.median(ms[skip:]),
+                         "bytes_per_call": {k: v // max(len(ms), 1)
+                                            for k, v in
+                                            self.bytes[name].items()}}
+        return out
+
+
+def _params_now(model):
+    """Host copies of a Module's parameters and aux states by name."""
+    args, auxs = model.get_params()
+    return {n: a.asnumpy() for n, a in dict(args, **auxs).items()}
+
+
+def _update_agreement(got, want, start, floor):
+    """Per tensor, ``|got - want| / max(|want - start|, floor * the
+    largest |want - start|)`` (L2 norms): how far one fit's change of
+    each tensor lies from another's, on a floor for tensors that hardly
+    move (a convolution's bias feeding a train-mode BatchNorm has a true
+    gradient of 0, so two runs move it by rounding noise alone); the
+    largest, the three worst, and the largest among tensors above the
+    floor."""
+    steps = {n: float(np.linalg.norm(want[n] - start[n])) for n in want}
+    bar = floor * max(steps.values())
+    shares = {n: float(np.linalg.norm(got[n] - want[n]))
+              / max(steps[n], bar, 1e-30) for n in want}
+    worst = sorted(shares, key=shares.get, reverse=True)[:3]
+    moved = [shares[n] for n in want if steps[n] > bar]
+    return {"max": shares[worst[0]],
+            "worst": {n: [shares[n], steps[n]] for n in worst},
+            "max_above_floor": max(moved) if moved else 0.0,
+            "tensors_below_floor": len(want) - len(moved)}
+
+
+def phase_resnet50_module_fit_custom(smi):
+    """resnet50_v1_module_fit_custom: resnet50_v1_module_fit's fit
+    (``MODULE_FIT``: ``train_imagenet.py --benchmark 1 --network
+    resnet50_v1``, 13 batches) with the exported symbol's SoftmaxOutput
+    head replaced by ``mx.sym.Custom(fc, op_type="softmax",
+    name="softmax")``, whose operator is ``custom_softmax.py``'s numpy
+    softmax on the host (``Softmax`` above). Four fits from one seed,
+    Custom, SoftmaxOutput, SoftmaxOutput, Custom (A B B A, the compile
+    service on): the median batch ms of each head; the Custom op's host
+    ms forward and backward and the bytes each call copies each way
+    (``_HostOpMeter``); the executor uncaptured for its named reason with
+    the Custom head (no capture, no replay, 13 calls under the reason)
+    and captured with SoftmaxOutput; K1 one launch a batch; the first
+    update lowering the loss; each tensor's change after the first batch
+    within ``CUSTOM_FIT_TOL`` of the SoftmaxOutput fit's (MXNet's custom
+    softmax gradient, ``y - onehot(label)``, is SoftmaxOutput's with
+    ``normalization="null"``, train_imagenet.py's default). The 13-batch
+    change and losses are printed beside the two SoftmaxOutput fits' own
+    agreement, and not held (``CUSTOM_FIT_TOL``'s comment)."""
+    t_phase = time.perf_counter()
+    cfg = MODULE_FIT
+    dev = mx.gpu(0)
+    nets = get_network(cfg["network"], cfg["num_classes"], cfg["image_shape"],
+                       heads=("Custom", "SoftmaxOutput"))
+    reason = "host op Custom(op_type='softmax')"
+    if nets["Custom"].list_arguments() != \
+            nets["SoftmaxOutput"].list_arguments():
+        raise AssertionError("custom fit: the two heads' arguments differ")
+    train = SyntheticDataIter(cfg["num_classes"],
+                              (cfg["batch"],) + tuple(cfg["image_shape"]),
+                              cfg["epoch_size"])
+    # the weights every fit starts from (fit initializes from mx.random
+    # after the same seed)
+    mx.random.seed(0)
+    probe = mx.mod.Module(context=dev, symbol=nets["SoftmaxOutput"])
+    probe.bind(data_shapes=train.provide_data,
+               label_shapes=train.provide_label)
+    probe.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                     magnitude=2))
+    start = _params_now(probe)
+    del probe
+    batches = cfg["epoch_size"]
+    runs, finals, firsts, meters = [], {}, {}, []
+    for head in ("Custom", "SoftmaxOutput", "SoftmaxOutput", "Custom"):
+        uncap0 = dict(_site_stats("executor").get("uncaptured", {}))
+        meter = _HostOpMeter()
+        mx.random.seed(0)
+
+        losses = []
+
+        def after_first(param, _head=head, _losses=losses):
+            model_ = param.locals["self"]
+            _losses.append(_softmax_loss(
+                model_.get_outputs()[0], param.locals["data_batch"].label[0]))
+            if param.nbatch == 0:
+                firsts.setdefault(_head, []).append(_params_now(model_))
+
+        with meter:
+            model, log, run = _module_fit_once(cfg, nets[head], train, dev,
+                                               [after_first])
+        uncap = dict(_site_stats("executor").get("uncaptured", {}))
+        run["head"] = head
+        run["uncaptured"] = {k: v - uncap0.get(k, 0)
+                             for k, v in uncap.items()
+                             if v - uncap0.get(k, 0)}
+        finals.setdefault(head, []).append(_params_now(model))
+        want = dict.fromkeys(run["launches"], 0)
+        want["opt_sgd"] = batches
+        if run["launches"] != want:
+            raise AssertionError(f"custom fit {head}: launches "
+                                 f"{run['launches']}, expected {want}")
+        site = run["executor_site"]
+        if head == "Custom":
+            meters.append(meter.summary(cfg["warmup"]))
+            ok = site["captures"] == site["replays"] == 0 and \
+                run["uncaptured"] == {reason: batches}
+        else:
+            ok = site["captures"] == 1 and not run["uncaptured"]
+        if not ok:
+            raise AssertionError(f"custom fit {head}: executor site {site}, "
+                                 f"uncaptured {run['uncaptured']}")
+        run["batch_losses"] = losses
+        # the first update lowers the one repeated batch's loss; the later
+        # ones at lr 0.1 from scratch spike it (CUSTOM_FIT_TOL's comment)
+        drop = CUSTOM_FIT_TOL["first_update_loss_drop"]
+        if not (all(math.isfinite(v) for v in losses)
+                and losses[1] < (1 - drop) * losses[0]):
+            raise AssertionError(f"custom fit {head}: losses {losses}, the "
+                                 f"first update lowered the loss by less "
+                                 f"than {drop} of it")
+        runs.append(run)
+        del model
+        torch.cuda.empty_cache()
+    agree = {}
+    floor = CUSTOM_FIT_TOL["floor"]
+    for when, got in (("first_batch", firsts), ("fit", finals)):
+        agree[when] = {
+            "custom_vs_softmax_output": _update_agreement(
+                got["Custom"][0], got["SoftmaxOutput"][0], start, floor),
+            "softmax_output_vs_itself": _update_agreement(
+                got["SoftmaxOutput"][1], got["SoftmaxOutput"][0], start,
+                floor),
+            "custom_vs_itself": _update_agreement(
+                got["Custom"][1], got["Custom"][0], start, floor)}
+    tol = {"first_batch": CUSTOM_FIT_TOL["first_batch"]}
+    timed = {h: [v for r in runs if r["head"] == h
+                 for v in r["batch_ms"][cfg["warmup"] - 1:]]
+             for h in ("Custom", "SoftmaxOutput")}
+    med = {h: statistics.median(v) for h, v in timed.items()}
+    out = {"phase": "resnet50_v1_module_fit_custom", "card": smi,
+           "config": cfg, "tf32": False, "batches": batches,
+           "source": "examples/image_classification/train_imagenet.py "
+                     "--benchmark 1 --network resnet50_v1, head: MXNet "
+                     "1.x example/numpy-ops/custom_softmax.py",
+           "abba_order": [r["head"] for r in runs],
+           "median_batch_ms_custom": med["Custom"],
+           "median_batch_ms_softmax_output": med["SoftmaxOutput"],
+           "custom_minus_softmax_output_ms": med["Custom"]
+           - med["SoftmaxOutput"],
+           "block_medians_ms": {h: [r["median_batch_ms"] for r in runs
+                                    if r["head"] == h] for h in med},
+           "img_per_s_custom": cfg["batch"] / (med["Custom"] / 1e3),
+           "custom_op_host": meters,
+           "executor_site": {r["head"]: dict(r["executor_site"],
+                                             uncaptured=r["uncaptured"])
+                             for r in runs[:2]},
+           "launches": runs[0]["launches"],
+           "batch_losses": {r["head"]: r["batch_losses"] for r in runs},
+           "first_losses_custom_vs_softmax_output": [
+               abs(a - b) / b for a, b in zip(runs[0]["batch_losses"][:3],
+                                              runs[1]["batch_losses"][:3])],
+           "max_memory_allocated": {r["head"]: r["max_memory_allocated"]
+                                    for r in runs[:2]},
+           "update_agreement": agree, "tolerance": tol,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    bad = {w: agree[w]["custom_vs_softmax_output"] for w in tol
+           if agree[w]["custom_vs_softmax_output"]["max"] > tol[w]}
+    if bad:
+        raise AssertionError(f"custom fit: the Custom head's updates "
+                             f"differ from SoftmaxOutput's by {bad} of each "
+                             f"tensor's change, beyond {tol}")
+    del nets, train
     torch.cuda.empty_cache()
     return out
 
@@ -7682,7 +8049,9 @@ ZOO_CHECK = {"batch": 2, "classes": 1000,
              "models": {"alexnet": 224, "densenet121": 224,
                         "inception_v3": 299, "mobilenet1_0": 224,
                         "mobilenet_v2_1_0": 224, "squeezenet1_0": 224,
-                        "squeezenet1_1": 224, "vgg16": 224, "vgg16_bn": 224}}
+                        "squeezenet1_1": 224, "vgg16": 224, "vgg16_bn": 224},
+             # MXNet 1.x's Inception v3 (fault C20 repaired in the port)
+             "trainable": {"inception_v3": 23834568}}
 ZOO_CHECK_TOL = {"out": 1e-3, "grad_l2": 0.1, "grad_floor": 1e-3}
 # the surface held card against CPU at small shapes: values at rtol 1e-5,
 # atol 1e-6 of float32 (op for op the same expressions; cuDNN and the CPU
@@ -7696,6 +8065,21 @@ ZOO_CHECK_TOL = {"out": 1e-3, "grad_l2": 0.1, "grad_floor": 1e-3}
 # by up to 5.7e-5 of a value (on an H100)
 SURFACE_TOL = {"rtol": 1e-5, "atol": 1e-6, "conv_atol": 1e-5,
                "sum_atol": 1e-4, "ctc_grad_rtol": 1e-4}
+# the samplers on the card and the CPU: 4 M draws each, the sample mean
+# and variance within 6 standard errors of the closed form (a false alarm
+# in about 1e-9 of checks); multinomial over lstm_lm_ptb_medium's decoder
+# (20 rows x 10000 words, 20,000 draws a row); graphs over 65,536 draws
+SAMPLER_CHECK = {"draws": 1 << 22, "sigmas": 6.0, "multinomial": (20, 10000),
+                 "per_row": 20000, "capture_draws": 1 << 16}
+# the linalg ops on a batch of SPD matrices (M M^T / n + I, so every
+# eigenvalue lies in [1, 5]), the card against the CPU: each output
+# within rtol of its largest magnitude (sums of 512 products in other
+# orders, cuSOLVER's and LAPACK's algorithms); syevd and gelqf through
+# their reconstructions and orthonormality, whose factors' signs differ
+# between solvers; det and slogdet on 16 x 16 blocks (a 512 x 512 det
+# overflows float32)
+LINALG_CHECK = {"batch": 32, "n": 512, "det_n": 16,
+                "rtol": {"float32": 2e-3, "float64": 1e-9}}
 
 
 def _mobilenet_group(name):
@@ -8255,6 +8639,9 @@ def phase_zoo_check():
                 if p.grad_req != "null"})
             count = sum(int(np.prod(p.shape)) for p in
                         net.collect_params().values())
+            trainable = sum(int(np.prod(p.shape)) for p in
+                            net.collect_params().values()
+                            if p.grad_req != "null")
             del net
         (yc, gc), (yh, gh) = res["card"], res["cpu"]
         out_err = float(np.abs(yc - yh).max()) / max(
@@ -8265,6 +8652,7 @@ def phase_zoo_check():
                   / max(norms[n], floor, 1e-30) for n in gh}
         worst = sorted(shares, key=shares.get, reverse=True)[:3]
         out[name] = {"size": size, "parameters": count,
+                     "trainable": trainable,
                      "tensors": len(gh), "max_logit_err": out_err,
                      "max_grad_l2_err": shares[worst[0]],
                      "worst_grads": {n: [shares[n], norms[n]]
@@ -8279,6 +8667,9 @@ def phase_zoo_check():
     bad = {n: (m["max_logit_err"], m["max_grad_l2_err"])
            for n, m in out.items() if m["max_logit_err"] > tol["out"]
            or m["max_grad_l2_err"] > tol["grad_l2"] or not m["finite"]}
+    bad.update((n, ("trainable", out[n]["trainable"], want))
+               for n, want in cfg["trainable"].items()
+               if n in out and out[n]["trainable"] != want)
     if bad:
         raise AssertionError(f"zoo_check: logits and gradient errors "
                              f"{bad} beyond {tol}")
@@ -8531,13 +8922,421 @@ def phase_surface_check():
                            rtol=SURFACE_TOL["ctc_grad_rtol"]))
     # torch takes cuDNN's CTC only for int32 targets on the host; the op
     # passes int64 targets on the card, so torch's own CUDA kernel runs
+    samplers = _surface_samplers()
+    linalg = _surface_linalg(errs)
+    _surface_function(errs)
     line = {"phase": "surface_check", "tolerance": SURFACE_TOL,
             "max_abs_err": errs, "ctc_route": {
                 "card": "torch.nn.functional.ctc_loss, torch's CUDA kernel",
                 "cpu": "plain recursion"},
+            "samplers": samplers, "linalg": linalg,
             "seconds": time.perf_counter() - t0}
     emit(line)
     return line
+
+
+def _surface_linalg(errs):
+    """The ``linalg_*`` ops and ``khatri_rao`` on ``LINALG_CHECK``'s SPD
+    batch in float32 and float64, the card against the CPU, every op but
+    ``linalg_syevd`` with no host sync on the card (``_sync_count``);
+    ``linalg_potrf`` inside a ``compile.jit`` graph (``cholesky_ex``: no
+    host sync) on a batch with one matrix that is not positive definite:
+    NaN there, the others' factors; a ``compile.jit`` body holding
+    ``linalg_syevd`` (a host op: eigh reads cuSOLVER's status back)
+    uncaptured under its reason."""
+    cfg = LINALG_CHECK
+    rs = np.random.RandomState(4)
+    n, bsz, dn = cfg["n"], cfg["batch"], cfg["det_n"]
+    m = rs.randn(bsz, n, n)
+    spd = m @ m.transpose(0, 2, 1) / n + np.eye(n)
+    rhs = rs.randn(bsz, n, 64)
+    out = {}
+    nd = mx.nd
+
+    def others(a, b, lam, eye):
+        """Every op but ``linalg_syevd``."""
+        low = nd.linalg_potrf(a)
+        q, lq = nd.linalg_gelqf(a[:, :64, :])
+        return {
+            "potrf": low, "potri": nd.linalg_potri(low),
+            "trmm": nd.linalg_trmm(low, b),
+            "trsm": nd.linalg_trsm(low, b),
+            "trsm_right": nd._linalg_trsm(low, b.transpose((0, 2, 1)),
+                                          rightside=True, transpose=True),
+            "gemm": nd.linalg_gemm(a, b, b, alpha=0.5, beta=2.0),
+            "gemm2": nd.linalg_gemm2(b, b, transpose_a=True),
+            "syrk": nd.linalg_syrk(b, transpose=True, alpha=0.5),
+            "gelqf_reconstruction": nd.linalg_gemm2(lq, q),
+            "gelqf_orthonormality": nd.linalg_gemm2(
+                q, q, transpose_b=True) - eye,
+            "sumlogdiag": nd.linalg_sumlogdiag(low),
+            "extractdiag": nd.linalg_extractdiag(a, offset=1),
+            "makediag": nd.linalg_makediag(lam[:, :32], offset=-1),
+            "extracttrian": nd.linalg_extracttrian(low[:, :64, :64]),
+            "maketrian": nd.linalg_maketrian(
+                nd.linalg_extracttrian(low[:, :64, :64])),
+            "inverse": nd.linalg_inverse(a),
+            "det": nd.linalg_det(a[:, :dn, :dn]),
+            "slogdet": nd.linalg_slogdet(a)[1],
+            "khatri_rao": nd.khatri_rao(b[0, :8, :], b[1, :16, :])}
+
+    op_syncs = {}
+    for dtype in ("float32", "float64"):
+        rtol = cfg["rtol"][dtype]
+        res = {}
+        for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+            a = nd.array(spd, ctx=ctx, dtype=dtype)
+            b = nd.array(rhs, ctx=ctx, dtype=dtype)
+            u, lam = nd.linalg_syevd(a)
+            eye = nd.array(np.eye(64), ctx=ctx, dtype=dtype)
+            res[where] = dict(others(a, b, lam, eye), syevd_values=lam,
+                              syevd_reconstruction=nd.linalg_gemm2(
+                                  u * lam.expand_dims(2), u,
+                                  transpose_a=True))
+            if where == "card":
+                op_syncs[dtype] = _sync_count(
+                    lambda: others(a, b, lam, eye))
+        worst = 0.0
+        for k, got in res["card"].items():
+            want = res["cpu"][k]._data
+            scale = max(float(want.abs().max()), 1.0) if k.endswith(
+                "orthonormality") else float(want.abs().max())
+            err = float((got._data.cpu() - want).abs().max())
+            errs[f"linalg_{k}_{dtype}"] = err
+            worst = max(worst, err / scale)
+            if not err <= rtol * scale:
+                raise AssertionError(f"linalg {k} {dtype}: card against "
+                                     f"CPU {err} of {scale}, beyond {rtol}")
+        out[dtype] = {"max_share_of_largest": worst, "ops": len(res["card"])}
+    # inside a graph: cholesky_ex reads no status back to the host
+    bad = spd[:4].copy()
+    bad[2] = -bad[2]
+    x = torch.tensor(bad, dtype=torch.float32, device=mx.gpu(0).torch_device())
+    f = compile_service.jit(lambda t: mx.nd.linalg_potrf(mx.nd.NDArray(t))
+                            ._data, site="surface", token=("potrf",))
+    f(x)
+    got = f(x)
+    syncs = _sync_count(lambda: mx.nd.linalg_potrf(mx.nd.NDArray(x)))
+    want = torch.linalg.cholesky(torch.tensor(spd[[0, 1, 3]],
+                                              dtype=torch.float64))
+    lower = torch.ones_like(got[2], dtype=torch.bool).tril()
+    nan_ok = bool(torch.equal(torch.isnan(got[2]), lower))
+    good = float((got[[0, 1, 3]].double().cpu() - want).abs().max())
+    if not nan_ok or good > 1e-3 or syncs:
+        raise AssertionError(f"potrf in a graph: NaN factor {nan_ok}, the "
+                             f"others {good} off, host syncs {syncs}")
+    out["potrf_in_graph"] = {"not_positive_definite_gives_nan": nan_ok,
+                             "others_max_abs_err": good, "host_syncs": syncs,
+                             "captures": f.stats()["captures"]}
+    if any(op_syncs.values()):
+        raise AssertionError(f"linalg: the ops but syevd synced {op_syncs}")
+    out["host_syncs_but_syevd"] = op_syncs
+    # syevd: a host op, so a body holding it runs uncaptured
+    e = compile_service.jit(lambda t: mx.nd.linalg_syevd(mx.nd.NDArray(t))[1]
+                            ._data, site="surface", token=("syevd",))
+    a = torch.tensor(spd[:4], dtype=torch.float32,
+                     device=mx.gpu(0).torch_device())
+    for _ in range(3):
+        lam = e(a)
+    st = e.stats()
+    reasons = [x.get("reason") for x in st["entries"]]
+    want = torch.linalg.eigvalsh(torch.tensor(spd[:4]))
+    err = float((lam.double().cpu() - want).abs().max())
+    if st["captures"] or reasons != ["host op linalg_syevd"] or \
+            err > 1e-3 * float(want.abs().max()):
+        raise AssertionError(f"syevd in a jit body: {st}, {err} off")
+    out["syevd_in_jit"] = {"captures": st["captures"], "reasons": reasons,
+                           "max_abs_err": err}
+    return out
+
+
+def _surface_function(errs):
+    """An ``autograd.Function`` (a sigmoid with its own backward) forward
+    and gradient, the card against the CPU."""
+    class Sigmoid(mx.autograd.Function):
+        def forward(self, x):
+            y = 1 / (1 + mx.nd.exp(-x))
+            self.save_for_backward(y)
+            return y
+
+        def backward(self, dy):
+            (y,) = self.saved_tensors
+            return dy * y * (1 - y)
+
+    x_np = np.random.RandomState(6).randn(64, 1000).astype(np.float32)
+    res = {}
+    for where, ctx in (("card", mx.gpu(0)), ("cpu", mx.cpu())):
+        x = mx.nd.array(x_np, ctx=ctx)
+        x.attach_grad()
+        with mx.autograd.record():
+            y = Sigmoid()(x)
+            loss = (y * y).sum()
+        loss.backward()
+        res[where] = (y._data, x.grad._data)
+    errs["autograd_function"] = _surface_close(
+        "autograd.Function", res["card"][0], res["cpu"][0])
+    errs["autograd_function_grad"] = _surface_close(
+        "autograd.Function grad", res["card"][1], res["cpu"][1])
+
+
+def build_relu_lib(out_dir):
+    """``examples/extensions/lib_custom_op/relu_lib.cc`` built with the
+    system ``g++`` into ``out_dir`` (the source's own build line); the
+    library's path."""
+    src = Path(__file__).resolve().parent / "examples" / "extensions" / \
+        "lib_custom_op" / "relu_lib.cc"
+    os.makedirs(out_dir, exist_ok=True)
+    out = os.path.join(out_dir, "librelu_lib.so")
+    subprocess.run(["g++", "-shared", "-fPIC", "-O2", "-o", out, str(src)],
+                   check=True, timeout=120)
+    return out
+
+
+LIBRARY_OPS = {"relu": (4096, 1024), "gemm": (256, 512, 384),
+               "block_calls": 3, "reps": 5}
+
+
+def phase_library_ops():
+    """library_ops: ``relu_lib.cc`` built with ``g++`` into
+    ``build/mxnet_tpu_torch/ext`` and loaded by ``mx.library.load``;
+    ``my_relu`` (on ``LIBRARY_OPS["relu"]``) and ``my_gemm`` (on
+    ``["gemm"]``) on card arrays against ``torch.relu`` and a float64
+    product, with the host ms a call (the copies to the host and back
+    included) and the bytes each way; a hybridized block calling
+    ``my_relu`` runs uncaptured, each call counted under its reason in
+    ``compile.stats()["cachedop"]``."""
+    cfg = LIBRARY_OPS
+    t0 = time.perf_counter()
+    path = build_relu_lib(os.path.join(build.BUILD_DIR, "ext"))
+    info = mx.library.load(path, verbose=False)
+    if info["ops"] != ["my_relu", "my_gemm"]:
+        raise AssertionError(f"library_ops: loaded {info['ops']}")
+    ctx = mx.gpu(0)
+    rs = np.random.RandomState(8)
+    x = mx.nd.array(rs.randn(*cfg["relu"]).astype(np.float32), ctx=ctx)
+    m, k, n = cfg["gemm"]
+    a = mx.nd.array(rs.randn(m, k).astype(np.float32), ctx=ctx)
+    b = mx.nd.array(rs.randn(k, n).astype(np.float32), ctx=ctx)
+    relu = mx.nd.my_relu(x)
+    gemm = mx.nd.my_gemm(a, b)
+    want = (a._data.double() @ b._data.double()).float()
+    res = {"relu_bit_equal": bool(torch.equal(relu._data,
+                                              torch.relu(x._data))),
+           "relu_device": str(relu._data.device),
+           "gemm_max_abs_err": float((gemm._data - want).abs().max()),
+           "gemm_max_abs": float(want.abs().max())}
+    if not res["relu_bit_equal"] or relu._data.device != x._data.device or \
+            res["gemm_max_abs_err"] > 1e-4 * res["gemm_max_abs"]:
+        raise AssertionError(f"library_ops: {res}")
+
+    def host_ms(fn):
+        times = []
+        for _ in range(cfg["reps"]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    res["relu_host_ms"] = host_ms(lambda: mx.nd.my_relu(x))
+    res["relu_torch_ms"] = cuda_ms(lambda: torch.relu(x._data))
+    res["gemm_host_ms"] = host_ms(lambda: mx.nd.my_gemm(a, b))
+    res["bytes_each_way"] = {
+        "my_relu": {"to_host": x.size * 4, "to_card": x.size * 4},
+        "my_gemm": {"to_host": (a.size + b.size) * 4, "to_card": m * n * 4}}
+
+    class ReluBlock(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, data):
+            return F.my_relu(data) * 2
+
+    block = ReluBlock()
+    block.hybridize()
+    site0 = _site_stats("cachedop")
+    before = dict(site0.get("uncaptured", {}))
+    for _ in range(cfg["block_calls"]):
+        y = block(x)
+    site = _site_stats("cachedop")
+    reason = "host op my_relu"
+    uncaptured = site.get("uncaptured", {}).get(reason, 0) - \
+        before.get(reason, 0)
+    res["block"] = {"uncaptured": {reason: uncaptured},
+                    "captures": site["captures"] - site0["captures"],
+                    "replays": site["replays"] - site0["replays"],
+                    "bit_equal": bool(torch.equal(y._data,
+                                                  torch.relu(x._data) * 2))}
+    if res["block"] != {"uncaptured": {reason: cfg["block_calls"]},
+                        "captures": 0, "replays": 0, "bit_equal": True}:
+        raise AssertionError(f"library_ops block: {res['block']}")
+    line = {"phase": "library_ops", "config": cfg, "library": path,
+            "ops": info["ops"], **res, "seconds": time.perf_counter() - t0}
+    emit(line)
+    return line
+
+
+def _moments(mean, var, kurt_excess):
+    """A distribution's mean, variance and the variance of one draw's
+    squared deviation (``kappa4 + 2 var**2``), for the standard errors
+    of the sample mean and variance."""
+    return mean, var, kurt_excess * var * var + 2 * var * var
+
+
+def _sampler_cases():
+    """``{name: (draw(ctx, n), closed-form moments)}`` of the eight
+    samplers at the parameters the checks use."""
+    nd = mx.nd.random
+    a, b, lam, k, p, lo, hi, pb = 2.5, 1.5, 3.0, 4, 0.3, -3, 7, 0.2
+    n_int = hi - lo
+    nb_var = k * (1 - p) / p ** 2
+    return {
+        "gamma": (lambda c, n: nd.gamma(a, b, shape=(n,), ctx=c),
+                  _moments(a * b, a * b * b, 6 / a)),
+        "exponential": (lambda c, n: nd.exponential(lam, shape=(n,), ctx=c),
+                        _moments(1 / lam, 1 / lam ** 2, 6.0)),
+        "poisson": (lambda c, n: nd.poisson(lam, shape=(n,), ctx=c),
+                    _moments(lam, lam, 1 / lam)),
+        "negative_binomial": (
+            lambda c, n: nd.negative_binomial(k, p, shape=(n,), ctx=c),
+            _moments(k * (1 - p) / p, nb_var,
+                     6 / k + p * p / (k * (1 - p)))),
+        "randint": (lambda c, n: nd.randint(lo, hi, shape=(n,), ctx=c),
+                    _moments((lo + hi - 1) / 2, (n_int ** 2 - 1) / 12,
+                             -6 * (n_int ** 2 + 1) / (5 * (n_int ** 2 - 1)))),
+        "bernoulli": (lambda c, n: nd.bernoulli(pb, shape=(n,), ctx=c),
+                      _moments(pb, pb * (1 - pb),
+                               (1 - 6 * pb * (1 - pb)) / (pb * (1 - pb)))),
+        "uniform": (lambda c, n: nd.uniform(-1, 2, shape=(n,), ctx=c),
+                    _moments(0.5, 9 / 12, -1.2)),
+        "normal": (lambda c, n: nd.normal(1, 2, shape=(n,), ctx=c),
+                   _moments(1.0, 4.0, 0.0)),
+    }
+
+
+def _held_to_moments(name, draws, moments):
+    """The sample mean and variance of ``draws`` (float64) against the
+    closed form, in standard errors; raises beyond
+    ``SAMPLER_CHECK["sigmas"]``."""
+    mean, var, var4 = moments
+    x = draws.double()
+    n = x.numel()
+    m = float(x.mean())
+    v = float(x.var(unbiased=False))
+    z = {"mean": (m - mean) / math.sqrt(var / n),
+         "var": (v - var) / math.sqrt(var4 / n)}
+    if max(abs(t) for t in z.values()) > SAMPLER_CHECK["sigmas"]:
+        raise AssertionError(f"sampler {name}: mean {m} and variance {v} "
+                             f"lie {z} standard errors from {mean}, {var}")
+    return {"mean": m, "var": v, "z": z}
+
+
+def _surface_samplers():
+    """Each sampler at ``SAMPLER_CHECK["draws"]`` draws on the card and on
+    the CPU, held to its closed-form mean and variance (the two
+    generators differ); on the card: the host syncs of a draw
+    (``_sync_count``), and a ``compile.jit`` graph of the draw replayed
+    from a generator state against the eager draw from the same state,
+    bit for bit, and the next replay drawing anew; raises if a sampler
+    syncs or does not capture. Multinomial over ``lstm_lm_ptb_medium``'s decoder width
+    (rows of a softmax over 10000 words): each row's mean word index
+    against the row's own, the log-probabilities returned with
+    ``get_prob`` against the row's; shuffle of 4 M values a permutation."""
+    cfg = SAMPLER_CHECK
+    card = mx.gpu(0)
+    gen = mx.random.generator(card)
+    mx.random.seed(5)
+    out = {}
+    zero = torch.zeros((), device=card.torch_device())
+    cases = dict(_sampler_cases())
+    rows, vocab = cfg["multinomial"]
+    rs = np.random.RandomState(3)
+    probs_np = np.exp(rs.randn(rows, vocab).astype(np.float32))
+    probs_np /= probs_np.sum(1, keepdims=True)
+    probs = mx.nd.array(probs_np, ctx=card)
+    cases["multinomial"] = (lambda c, n: mx.nd.random.multinomial(
+        probs.as_in_context(c), shape=(cfg["per_row"],)), None)
+    cases["shuffle"] = (lambda c, n: mx.nd.random.shuffle(
+        mx.nd.arange(n, ctx=c)), None)
+    for name, (draw, moments) in cases.items():
+        res = {"takes_generator": True}
+        for where, ctx in (("card", card), ("cpu", mx.cpu())):
+            got = draw(ctx, cfg["draws"])._data
+            if moments is not None:
+                res[where] = _held_to_moments(f"{name} {where}", got, moments)
+            elif name == "shuffle":
+                perm = bool(torch.equal(got.sort().values, torch.arange(
+                    cfg["draws"], device=got.device, dtype=got.dtype)))
+                moved = float((got != torch.arange(
+                    cfg["draws"], device=got.device, dtype=got.dtype)).float()
+                    .mean())
+                if not perm or moved < 0.99:
+                    raise AssertionError(f"shuffle {where}: a permutation "
+                                         f"{perm}, moved {moved}")
+                res[where] = {"permutation": perm, "moved_share": moved}
+            else:
+                idx = torch.arange(vocab, dtype=torch.float64)
+                p64 = torch.tensor(probs_np, dtype=torch.float64)
+                mean = (p64 * idx).sum(1)
+                var = (p64 * idx * idx).sum(1) - mean * mean
+                got_m = got.double().cpu().mean(1)
+                z = ((got_m - mean) / (var / cfg["per_row"]).sqrt()).abs()
+                if float(z.max()) > cfg["sigmas"] or got.shape != (
+                        rows, cfg["per_row"]):
+                    raise AssertionError(f"multinomial {where}: shape "
+                                         f"{tuple(got.shape)}, row means "
+                                         f"{float(z.max())} standard errors "
+                                         "off")
+                res[where] = {"shape": list(got.shape),
+                              "max_row_mean_z": float(z.max())}
+        if name == "multinomial":
+            draws, logp = mx.nd.random.multinomial(probs, shape=(64,),
+                                                   get_prob=True)
+            want = torch.log(probs._data).gather(1, draws._data.long())
+            res["get_prob_max_abs_err"] = float(
+                (logp._data - want).abs().max())
+            if res["get_prob_max_abs_err"] > 1e-5:
+                raise AssertionError(f"multinomial get_prob: "
+                                     f"{res['get_prob_max_abs_err']}")
+        n = cfg["capture_draws"]
+        res["host_syncs"] = _sync_count(lambda: draw(card, n))
+        res["graph"] = _sampler_graph(name, draw, n, gen, zero)
+        # every sampler captures and draws with no host sync (PERF.md)
+        if res["host_syncs"] or not res["graph"]["graph_safe"]:
+            raise AssertionError(f"sampler {name}: host syncs "
+                                 f"{res['host_syncs']}, graph {res['graph']}")
+        if not res["graph"]["bit_equal"] or not \
+                res["graph"]["replays_differ"]:
+            raise AssertionError(f"sampler {name}: a replay from a saved "
+                                 "generator state differs from the eager "
+                                 "draw from it, or two replays drew the "
+                                 f"same: {res['graph']}")
+        out[name] = res
+    emit({"phase": "surface_samplers", "draws": cfg["draws"],
+          "samplers": out})
+    return {k: {"graph": v["graph"].get("bit_equal"),
+                "host_syncs": sum(v["host_syncs"].values())}
+            for k, v in out.items()}
+
+
+def _sampler_graph(name, draw, n, gen, zero):
+    """A ``compile.jit`` graph of ``draw(card, n)`` (its first call
+    eager, then a capture), replayed from a saved generator state against
+    the eager draw from that state."""
+    card = mx.gpu(0)
+
+    def body(t):
+        return draw(card, n)._data
+
+    f = compile_service.jit(body, site="surface", token=("sampler", name))
+    try:
+        f(zero)
+        state = gen.get_state()
+        eager = body(zero)
+        gen.set_state(state)
+        replay = f(zero)
+    except compile_service.CaptureError as e:
+        return {"graph_safe": False, "error": str(e)[:300]}
+    return {"graph_safe": True, "bit_equal": bool(torch.equal(eager, replay)),
+            "replays_differ": bool(not torch.equal(replay, f(zero)))}
 
 
 PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
@@ -8552,7 +9351,7 @@ PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "native_io", "imagenet_rec", "lstm_lm_ptb_medium",
           "lstm_ptb_bucketing", "mobilenet_v2_1_0_module_fit",
           "bert_base_sst2_finetune_lamb", "dcgan", "zoo_check",
-          "surface_check")
+          "surface_check", "library_ops", "resnet50_v1_module_fit_custom")
 
 
 def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
@@ -8564,6 +9363,52 @@ def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
             "library_ms": library, **extra}
+
+
+# the phase that is running, for the warnings hook (a warning raised on
+# autograd's engine thread is charged to the main thread's phase)
+_RUNNING = ["startup"]
+_WARNED: dict = {}   # phase -> {first line of a warning: times raised}
+
+
+def _tracked(name, fn):
+    def run(*args, **kwargs):
+        _RUNNING.append(name)
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _RUNNING.pop()
+
+    run.__name__ = run.__qualname__ = fn.__name__
+    return run
+
+
+def _record_warning(message, category, filename, lineno, file=None,
+                    line=None):
+    """``warnings.showwarning`` for the run: every warning counted under
+    the phase that raised it; the first of each text in a phase printed
+    as a ``warning`` line."""
+    phase = _RUNNING[-1]
+    text = str(message).strip().splitlines()[0][:240]
+    seen = _WARNED.setdefault(phase, {})
+    seen[text] = seen.get(text, 0) + 1
+    if seen[text] == 1:
+        emit({"phase": "warning", "during": phase,
+              "category": category.__name__, "at": f"{filename}:{lineno}",
+              "message": str(message)[:1000]})
+
+
+def _watch_warnings():
+    """Charge each warning of the run to its phase: every ``phase_*``
+    function names itself while it runs, and every warning reaches
+    :func:`_record_warning` (``always``: a warning the default filter
+    would show once per place is counted each time)."""
+    g = globals()
+    for name, fn in list(g.items()):
+        if name.startswith("phase_") and callable(fn):
+            g[name] = _tracked(name[len("phase_"):], fn)
+    warnings.simplefilter("always")
+    warnings.showwarning = _record_warning
 
 
 def main(argv=None):
@@ -8584,6 +9429,20 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     # bfloat16 products accumulate in float32, as XLA's do
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    _watch_warnings()
+    try:
+        return _run(phases)
+    except BaseException:
+        if _WARNED:
+            _emit_warnings()
+        raise
+
+
+def _emit_warnings():
+    emit({"phase": "warnings", "by_phase": _WARNED})
+
+
+def _run(phases):
     dev = phase_device()
     smi = dev["nvidia_smi"]
     phase_build()
@@ -8689,6 +9548,12 @@ def main(argv=None):
         done["zoo_check"] = phase_zoo_check()
     if "surface_check" in phases:
         done["surface_check"] = phase_surface_check()
+    if "library_ops" in phases:
+        done["library_ops"] = phase_library_ops()
+    if "resnet50_v1_module_fit_custom" in phases:
+        done["resnet50_v1_module_fit_custom"] = \
+            phase_resnet50_module_fit_custom(smi)
+    _emit_warnings()
     if not set(PHASES) <= set(done):
         print(f"phases run: {sorted(done)}; no result line", flush=True)
         return 1
@@ -8800,6 +9665,11 @@ def main(argv=None):
         launches_mobilenet_v2_1_0_nag_fit=done[
             "mobilenet_v2_1_0_module_fit"]["nag"]["launches"].get(
                 "opt_sgd", 0),
+        # this slice: Module.fit with MXNet's custom_softmax.py head (the
+        # executor uncaptured: the Custom op runs on the host), one launch
+        # a batch
+        launches_resnet50_v1_module_fit_custom=done[
+            "resnet50_v1_module_fit_custom"]["launches"]["opt_sgd"],
         # this slice: one launch per replayed step of each ResNet-50 cell
         launches_per_replay={p: done[p]["captured"][
             "k1_launches_per_replay"] for p in (

@@ -51,6 +51,8 @@ from . import callback
 from . import monitor
 from . import module
 from . import module as mod
+from . import operator
+from . import library
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "autograd", "random", "nd", "ndarray",
@@ -59,4 +61,4 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "model", "contrib", "lr_scheduler", "optimizer", "kvstore", "kv",
            "parallel", "serving", "convert", "checkpoint", "compile",
            "cached_op", "executor", "metric", "callback", "monitor",
-           "module", "mod", "__version__"]
+           "module", "mod", "operator", "library", "__version__"]

@@ -3,7 +3,8 @@
 Counterpart of ``mxnet_tpu/autograd.py``: the thread-local recording and
 training flags (``is_recording`` :40, ``is_training``), the ``record`` /
 ``pause`` / ``train_mode`` / ``predict_mode`` scopes, ``backward`` (:189)
-and ``grad`` (:365). The JAX package keeps its own tape; here the tape is
+and ``grad`` (:365), ``mark_variables`` (:402), ``get_symbol`` (:433) and
+``Function`` (:439). The JAX package keeps its own tape; here the tape is
 ``torch.autograd``. ``record()`` turns PyTorch's grad mode on for the
 scope and ``pause()`` turns it off, so what is computed outside a
 recording builds no graph (MXNet semantics). Serving runs its forward
@@ -14,7 +15,13 @@ leaf views that trainable Parameters hand out (``gluon/parameter.py``).
 ``backward`` finds the leaves a head depends on by walking its
 ``grad_fn`` graph, writes each leaf's gradient into the leaf's own buffer
 (``grad_req="write"``) or adds to it (``"add"``), and marks it fresh for
-``gluon.Trainer``'s stale-gradient check.
+``gluon.Trainer``'s stale-gradient check. ``mark_variables`` makes
+leaves whose gradient buffers the caller supplies.
+
+A :class:`Function` is one ``torch.autograd.Function`` node: its
+``forward`` runs the user's ``forward`` on NDArrays under :func:`pause`,
+and its ``backward`` the user's ``backward`` with the output gradients
+as NDArrays.
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ import torch
 
 __all__ = ["record", "pause", "train_mode", "predict_mode", "is_recording",
            "is_training", "set_recording", "set_training", "backward",
-           "grad"]
+           "grad", "mark_variables", "get_symbol", "Function"]
 
 _tls = threading.local()
 
@@ -188,3 +195,88 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
                               retain_graph=retain_graph,
                               create_graph=create_graph)
     return [NDArray(g.clone() if _compile.holds(g) else g) for g in out]
+
+
+def mark_variables(variables, gradients, grad_reqs="write"):
+    """Make each NDArray of ``variables`` a leaf whose gradient
+    ``backward`` writes into (or, with ``grad_req="add"``, adds to) the
+    NDArray of ``gradients`` beside it (MXNet's
+    ``MXAutogradMarkVariables``)."""
+    from .ndarray import NDArray
+
+    if isinstance(variables, NDArray):
+        variables, gradients = [variables], [gradients]
+    if isinstance(grad_reqs, str):
+        grad_reqs = [grad_reqs] * len(variables)
+    for var, g, req in zip(variables, gradients, grad_reqs):
+        var.attach_grad(req)
+        if req != "null":
+            if g.shape != var.shape or g.dtype != var.dtype:
+                raise ValueError(f"mark_variables: a gradient of shape "
+                                 f"{g.shape} and {g.dtype} for a variable "
+                                 f"of {var.shape} and {var.dtype}")
+            var._data.grad = g._data
+
+
+def get_symbol(x):
+    """Raises, as the JAX package does: the tape is PyTorch's and holds
+    no Symbol (trace a block with ``export`` instead)."""
+    raise NotImplementedError(
+        "autograd.get_symbol: the imperative tape does not materialise a "
+        "Symbol; use mxnet_tpu_torch.symbol tracing instead")
+
+
+class _FunctionNode(torch.autograd.Function):
+    """The autograd node of one :class:`Function` call."""
+
+    @staticmethod
+    def forward(ctx, fn, *tensors):
+        from .ndarray import NDArray
+
+        ctx.fn = fn
+        with pause():
+            outs = fn.forward(*[NDArray(t) for t in tensors])
+        fn._single = isinstance(outs, NDArray)   # read back by __call__
+        return tuple(o._data for o in ([outs] if fn._single else outs))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        from .ndarray import NDArray
+
+        with pause():
+            got = ctx.fn.backward(*[NDArray(g) for g in grads])
+        if isinstance(got, NDArray):
+            got = (got,)
+        return (None,) + tuple(None if g is None else g._data for g in got)
+
+
+class Function:
+    """A differentiable function written as ``forward`` and ``backward``
+    on NDArrays (MXNet's ``mx.autograd.Function``): subclass it, call an
+    instance on NDArrays. Under :func:`record`, its outputs hold one
+    autograd node whose backward calls ``backward`` with the gradients of
+    the outputs and takes the gradients of the inputs it returns (one
+    NDArray, or one per input; None for an input without one)."""
+
+    def __init__(self):
+        self._saved = ()
+
+    def save_for_backward(self, *args):
+        self._saved = args
+
+    @property
+    def saved_tensors(self):
+        return self._saved
+
+    def forward(self, *inputs):
+        raise NotImplementedError
+
+    def backward(self, *output_grads):
+        raise NotImplementedError
+
+    def __call__(self, *inputs):
+        from .ndarray import NDArray
+
+        outs = [NDArray(o) for o in
+                _FunctionNode.apply(self, *[x._data for x in inputs])]
+        return outs[0] if self._single else outs

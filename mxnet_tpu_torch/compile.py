@@ -94,6 +94,19 @@ forward of ``Module``).
   is part of the parent's graph, and so is a hybridized network inside
   a trainer's step.
 
+* **Host ops.** A body that calls a host op (``Custom``, a library op
+  of ``mx.library.load``, ``linalg_syevd``: ``ops/registry.py``) waits
+  on the host in the middle of its work, which a CUDA graph cannot
+  hold. The service decides before any capture that such a body runs
+  uncaptured, from the body's first call, which runs eagerly in any case
+  (a symbol graph, a hybridized block or a trainer's step has no branch
+  that call could miss) and notes every host op it calls
+  (``registry.watching_host_ops``). Such an entry calls the function
+  plainly at every call, on the card as on the CPU, and each call
+  counts under its reason in :func:`stats` (``uncaptured``:
+  ``{reason: calls}``). Whether to capture the segments between host
+  ops is left open (``ROADMAP.md``).
+
 There is no fallback: a capture that fails raises
 :class:`CaptureError`, naming the op that refused, and never runs the
 eager function instead. ``set_enabled(False)`` is the explicit eager
@@ -138,6 +151,7 @@ _ENABLED = True
 # site -> [hits, misses, compiles, compile_ms, captures, capture_ms,
 #          replays, eager]
 _SITES: dict = {}
+_UNCAPTURED: dict = {}  # site -> {reason: calls run uncaptured}
 _REGISTRY: dict = {}  # token key -> weakref(ServiceFunction)
 _tls = threading.local()
 
@@ -254,9 +268,12 @@ def stats():
     milliseconds spent making them (on a card the eager first call, the
     capture and its synchronisation; on the CPU the first plain call);
     ``replays``: graph launches; ``eager``: hits that ran eagerly (a
-    pair called again while its replayed forward's backward was due)."""
-    return {site: _as_dict(st) for site, st in sorted(_SITES.items())
-            if st[0] or st[1]}
+    pair called again while its replayed forward's backward was due);
+    ``uncaptured``: ``{reason: calls}`` of entries that run their
+    function plainly by the host-op rule (the module's docstring)."""
+    return {site: dict(_as_dict(st),
+                       uncaptured=dict(_UNCAPTURED.get(site, {})))
+            for site, st in sorted(_SITES.items()) if st[0] or st[1]}
 
 
 def totals():
@@ -275,6 +292,8 @@ def reset_stats():
         for st in _SITES.values():
             st[0] = st[1] = st[2] = st[4] = st[6] = st[7] = 0
             st[3] = st[5] = 0.0
+        for reasons in _UNCAPTURED.values():
+            reasons.clear()
 
 
 def clear_memory():
@@ -395,6 +414,26 @@ class _Plain:
     def __call__(self, fn, args, reads=()):
         with nested():
             return fn(*args)
+
+
+class _Host:
+    """An entry whose function holds a host op: called plainly at every
+    call, on the card as on the CPU, and counted under ``reason``."""
+
+    kind = "host"
+
+    def __init__(self, reason):
+        self.reason = reason
+
+    def __call__(self, fn, args, reads=()):
+        with nested():
+            return fn(*args)
+
+
+def _host_reason(seen):
+    """The reason an entry whose first call ran the host ops ``seen``
+    stays uncaptured, or None."""
+    return "host op " + ", ".join(seen) if seen else None
 
 
 _streams = threading.local()
@@ -538,14 +577,21 @@ class _Graph(_Replayer):
     kind = "graph"
 
     def __init__(self, fn, args, device, what):
+        from .ops import registry
+
         self.device = device
         leaves = []
         spec = _flatten(args, leaves)
         self._static_in = _static_copies(leaves)
         stream = _capture_stream(device)
         with torch.no_grad():
-            self.first = _eager_on(stream, device, fn,
-                                   _rebuild(spec, iter(self._static_in)))
+            with registry.watching_host_ops() as seen:
+                self.first = _eager_on(stream, device, fn,
+                                       _rebuild(spec, iter(self._static_in)))
+            # a body that called a host op is not captured (_Host)
+            self.host = _host_reason(seen)
+            if self.host is not None:
+                return
             # after the first call, which may make the generator state a
             # recomputation draws from (it is registered from then on)
             graph = _new_graph(device)
@@ -836,8 +882,15 @@ class ServiceFunction:
     def _what(self):
         return f"{self._site}[{self.__name__}]"
 
+    def _count_uncaptured(self, reason):
+        with _stats_lock:
+            reasons = _UNCAPTURED.setdefault(self._site, {})
+            reasons[reason] = reasons.get(reason, 0) + 1
+
     def _run(self, fn, entry, args, reads):
-        if entry.kind == "graph":
+        if entry.kind == "host":
+            self._count_uncaptured(entry.reason)
+        elif entry.kind == "graph":
             self._count(6)
         elif entry.kind == "pair":
             if entry.busy():  # a backward is due: this call runs eagerly
@@ -867,6 +920,8 @@ class ServiceFunction:
         eagerly on the capture stream, a forward then captured). A stale
         entry of ``sig`` is dropped first, so that the capture (which
         empties the allocator's cache) frees its pool."""
+        from .ops import registry
+
         self._count(1)
         self._seen.pop(sig, None)
         leaves = []
@@ -874,22 +929,30 @@ class ServiceFunction:
         device = _device_of(leaves) or _device_of(reads)
         t0 = time.perf_counter()
         kind = "plain" if device is None else self._kind
-        record = {"kind": kind, "ms": 0.0,
-                  "shapes": [tuple(t.shape) for t in leaves]}
         if device is None:
-            entry = _Plain()
-            out = entry(fn, args)
+            with registry.watching_host_ops() as seen:
+                out = _Plain()(fn, args)
+            entry = _Host(_host_reason(seen)) if seen else _Plain()
         elif kind == "pair":
             entry = _Pair(device, self._what(), self._count)
-            with _capture_lock:
+            with _capture_lock, registry.watching_host_ops() as seen:
                 out = entry.eager(fn, args)
+            if seen:
+                entry = _Host(_host_reason(seen))
         else:
             with _capture_lock:
                 entry = _Graph(fn, args, device, self._what())
             out, entry.first = entry.first, None
+            if entry.host is not None:
+                entry = _Host(entry.host)
         entry.reads = rkey
-        entry.record = record
-        if kind != "pair":
+        entry.record = {"kind": entry.kind if entry.kind == "host" else kind,
+                        "ms": 0.0,
+                        "shapes": [tuple(t.shape) for t in leaves]}
+        if entry.kind == "host":
+            entry.record["reason"] = entry.reason
+            self._count_uncaptured(entry.reason)
+        elif kind != "pair":
             self._built(entry, t0, device is not None)
         self._seen[sig] = entry
         return out

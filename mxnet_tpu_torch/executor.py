@@ -25,8 +25,11 @@ backward graph over the bound arrays, which ``backward`` replays through
 ``torch.autograd.grad``), an inference forward a ``"forward"`` entry (a
 captured graph whose outputs are copied out). On the CPU both are plain
 calls with the same keys; ``compile.set_enabled(False)`` runs them
-eagerly. The entries read the bound arrays, whose storage never changes,
-so one entry per mode serves every batch.
+eagerly. A symbol with a host node (``Custom``, a library op of
+``mx.library.load``) is never captured: the compile service's host-op
+rule runs both entries plainly from their first call on.
+The entries read the bound arrays, whose storage never changes, so one
+entry per mode serves every batch.
 A context list of more than one card (data parallelism over cards)
 raises :class:`MXNetError`: see ROADMAP.md, multi-card data
 parallelism.

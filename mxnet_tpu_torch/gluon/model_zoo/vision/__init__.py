@@ -30,9 +30,22 @@ _models = {name: getattr(mod, name)
            and not name.startswith("get_")}
 
 
+# MXNet 1.x's registry names of the models the JAX registry names after
+# their constructors (``get_model_names()`` stays the JAX list)
+_MXNET_NAMES = {"inceptionv3": "inception_v3",
+                "squeezenet1.0": "squeezenet1_0",
+                "squeezenet1.1": "squeezenet1_1"}
+for _w in ("1.0", "0.75", "0.5", "0.25"):
+    _MXNET_NAMES["mobilenet" + _w] = "mobilenet" + _w.replace(".", "_")
+    _MXNET_NAMES["mobilenetv2_" + _w] = "mobilenet_v2_" + _w.replace(".", "_")
+
+
 def get_model(name, **kwargs):
-    """Create a model of the zoo by its registry name."""
+    """Create a model of the zoo by its registry name, or by MXNet 1.x's
+    name for it (``inceptionv3``, ``mobilenet1.0``, ``mobilenetv2_0.5``,
+    ``squeezenet1.1``, ...)."""
     name = name.lower()
+    name = _MXNET_NAMES.get(name, name)
     if name not in _models:
         raise ValueError(
             f"Model {name!r} is not supported. Available: {sorted(_models)}")

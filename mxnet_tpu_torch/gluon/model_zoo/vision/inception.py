@@ -119,8 +119,10 @@ def _make_E(prefix):
             _make_basic_conv(channels=384, kernel_size=1),
             [_make_basic_conv(channels=384, kernel_size=(1, 3), padding=(0, 1)),
              _make_basic_conv(channels=384, kernel_size=(3, 1), padding=(1, 0))]),
+        # MXNet 1.x's branch_3x3dbl: 1x1 to 448 and 3x3 to 384 before the
+        # split (the JAX package's block reads its input directly here)
         _SplitConcat(
-            nn.HybridSequential(),
+            _make_branch(None, (448, 1, None, None), (384, 3, None, 1)),
             [_make_basic_conv(channels=384, kernel_size=(1, 3), padding=(0, 1)),
              _make_basic_conv(channels=384, kernel_size=(3, 1), padding=(1, 0))]),
         _make_branch("avg", (192, 1, None, None)),

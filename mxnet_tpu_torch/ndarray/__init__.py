@@ -6,7 +6,7 @@ exposed as a module-level function taking NDArrays positionally and
 hyper-parameters by keyword; ``_contrib_*`` ops appear under
 ``nd.contrib`` without the prefix. ``Dropout`` is overridden, as in the
 JAX package, to draw from ``mx.random``'s generator in train mode.
-``nd.random`` holds the samplers (``uniform``, ``normal``).
+``nd.random`` holds the samplers (``uniform``, ``normal``, ``gamma``, ...).
 """
 from __future__ import annotations
 

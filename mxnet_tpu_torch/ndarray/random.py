@@ -1,16 +1,18 @@
 """``mx.nd.random``: the stateful sampling front end.
 
 Counterpart of ``mxnet_tpu/ndarray/random.py`` over the ops of
-``ops/random_ops.py``: ``uniform``, ``normal`` and ``randn`` draw from
+``ops/random_ops.py``, with its signatures: ``uniform``, ``normal``,
+``randn``, ``gamma``, ``exponential``, ``poisson``,
+``negative_binomial``, ``randint`` and ``bernoulli`` draw from
 ``mx.random``'s generator of ``ctx``'s device (the current context by
-default, the card unless a ``with mx.cpu():`` says otherwise), so
-repeated calls advance the stream and ``mx.random.seed`` repeats it. The
-other samplers raise :class:`MXNetError` (``ROADMAP.md`` section A).
+default, the card unless a ``with mx.cpu():`` says otherwise);
+``multinomial`` and ``shuffle`` from the generator of their data's
+device. Repeated calls advance the stream and ``mx.random.seed`` repeats
+it.
 """
 from __future__ import annotations
 
 from .. import random as _random
-from ..base import MXNetError
 from ..context import current_context
 from .ndarray import _invoke
 
@@ -48,22 +50,63 @@ def randn(*shape, loc=0.0, scale=1.0, dtype="float32", ctx=None):
     return normal(loc, scale, shape or (1,), dtype, ctx)
 
 
-def _not_ported(name):
-    def sampler(*args, **kwargs):
-        raise MXNetError(f"nd.random.{name} is not ported to mxnet_tpu_torch "
-                         "yet (only uniform, normal and randn); see "
-                         "ROADMAP.md section A")
-
-    sampler.__name__ = sampler.__qualname__ = name
-    sampler.__doc__ = "Not ported yet; raises MXNetError."
-    return sampler
+def gamma(alpha=1.0, beta=1.0, shape=(1,), dtype="float32", ctx=None,
+          out=None):
+    """Samples of Gamma(shape ``alpha``, scale ``beta``)."""
+    return _draw("_random_gamma", ctx, out, alpha=alpha, beta=beta,
+                 shape=shape, dtype=dtype)
 
 
-gamma = _not_ported("gamma")
-exponential = _not_ported("exponential")
-poisson = _not_ported("poisson")
-negative_binomial = _not_ported("negative_binomial")
-randint = _not_ported("randint")
-multinomial = _not_ported("multinomial")
-shuffle = _not_ported("shuffle")
-bernoulli = _not_ported("bernoulli")
+def exponential(lam=1.0, shape=(1,), dtype="float32", ctx=None, out=None):
+    """Samples of the exponential distribution of rate ``lam``."""
+    return _draw("_random_exponential", ctx, out, lam=lam, shape=shape,
+                 dtype=dtype)
+
+
+def poisson(lam=1.0, shape=(1,), dtype="float32", ctx=None, out=None):
+    """Poisson samples of mean ``lam``."""
+    return _draw("_random_poisson", ctx, out, lam=lam, shape=shape,
+                 dtype=dtype)
+
+
+def negative_binomial(k=1, p=1.0, shape=(1,), dtype="float32", ctx=None,
+                      out=None):
+    """Failures before the ``k``-th success, each of probability ``p``."""
+    return _draw("_random_negative_binomial", ctx, out, k=k, p=p,
+                 shape=shape, dtype=dtype)
+
+
+def randint(low, high, shape=(1,), dtype="int32", ctx=None, out=None):
+    """Integers drawn uniformly from ``[low, high)``."""
+    return _draw("_random_randint", ctx, out, low=low, high=high,
+                 shape=shape, dtype=dtype)
+
+
+def bernoulli(p=0.5, shape=(1,), dtype="float32", ctx=None, out=None):
+    """1 with probability ``p``, else 0."""
+    return _draw("_random_bernoulli", ctx, out, p=p, shape=shape,
+                 dtype=dtype)
+
+
+def _on_data(op, data, out, **params):
+    res = _invoke(op, [data], dict(params, generator=_random.generator(
+        data._data.device)))
+    if out is None:
+        return res
+    if isinstance(res, tuple):
+        return tuple(r.copyto(o) for r, o in zip(res, out))
+    return res.copyto(out)
+
+
+def multinomial(data, shape=(), get_prob=False, dtype="int32", out=None):
+    """Category indices drawn from each row of ``data`` (probabilities
+    over its last axis) on ``data``'s device; with ``get_prob`` also the
+    log-probability of each draw."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    return _on_data("_sample_multinomial", data, out, shape=shape,
+                    get_prob=get_prob, dtype=dtype)
+
+
+def shuffle(data, out=None):
+    """``data`` with its first axis permuted at random."""
+    return _on_data("_shuffle", data, out)

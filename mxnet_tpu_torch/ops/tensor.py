@@ -26,9 +26,15 @@ they differ from MXNet's documentation:
 Creation ops take ``ctx`` (a Context, a torch device or a string such as
 ``"cpu(0)"`` from symbol JSON); None is the current context.
 
-Not here: ``linalg_gemm2``, ``linalg_potrf``, ``linalg_syrk`` and
-``khatri_rao``, which come with ``la_op.py``; ``cast_storage`` and
-``_sparse_retain``, which come with row-sparse arrays.
+``linalg_gemm2``, ``linalg_potrf`` and ``linalg_syrk`` (JAX
+``tensor.py:126-151``) get their ``_linalg_*`` aliases with the ops of
+``la_op.py``. ``linalg_potrf`` factors through ``cholesky_ex``, which
+does not read its status back to the host, so it runs inside a CUDA
+graph: a matrix that is not positive definite gives NaN in its lower
+triangle, as the JAX op does, and raises nothing.
+
+Not here: ``cast_storage`` and ``_sparse_retain``, which come with
+row-sparse arrays.
 """
 from __future__ import annotations
 
@@ -243,6 +249,43 @@ def _batch_dot(lhs, rhs, transpose_a=False, transpose_b=False):
     if transpose_b:
         rhs = rhs.transpose(-1, -2)
     return torch.matmul(lhs, rhs)
+
+
+@register("linalg_gemm2")
+def _linalg_gemm2(a, b, transpose_a=False, transpose_b=False, alpha=1.0):
+    """``alpha * op(a) @ op(b)`` over the leading (batch) axes."""
+    if transpose_a:
+        a = a.transpose(-1, -2)
+    if transpose_b:
+        b = b.transpose(-1, -2)
+    return alpha * torch.matmul(a, b)
+
+
+@register("linalg_potrf")
+def _potrf(a):
+    """The lower Cholesky factor of each matrix; NaN in the lower
+    triangle of one that is not positive definite (no host sync)."""
+    low, info = torch.linalg.cholesky_ex(a)
+    ok = (info == 0).unsqueeze(-1).unsqueeze(-1)
+    return torch.where(ok, low, torch.full_like(low, float("nan"))).tril()
+
+
+@register("linalg_syrk")
+def _syrk(a, transpose=False, alpha=1.0):
+    """``alpha * a @ a^T`` (``a^T @ a`` with ``transpose``)."""
+    at = a.transpose(-1, -2)
+    return alpha * (torch.matmul(at, a) if transpose else torch.matmul(a, at))
+
+
+@register("khatri_rao")
+def _khatri_rao(*mats):
+    """The column-wise Kronecker product of matrices with one number of
+    columns."""
+    out = mats[0]
+    for m in mats[1:]:
+        out = torch.einsum("i...,j...->ij...", out, m).reshape(
+            -1, out.shape[-1])
+    return out
 
 
 # ------------------------------------------------------------- indexing ----

@@ -357,7 +357,8 @@ class Symbol:
                 continue
             data = next((vals.get((id(c), oi)) for c, oi in node.inputs
                          if (id(c), oi) in vals), None)
-            rules = _param_shape_rules(node, data)
+            rules = _custom_shape_rules(node, vals) if node.op == "Custom" \
+                else _param_shape_rules(node, data)
             for child, _ in node.inputs:
                 if (id(child), 0) in vals:
                     continue
@@ -662,6 +663,25 @@ def _param_shape_rules(node, data):
     return rules
 
 
+def _custom_shape_rules(node, vals):
+    """The shapes a ``Custom`` node's prop infers for its variable inputs
+    from the shapes known so far (an unknown one passed as ``[]``, as
+    MXNet passes it)."""
+    from ..ops.custom import _node_prop
+
+    prop = _node_prop(_op_kwargs(node.attrs))
+    known = [list(vals[id(c), oi].shape) if (id(c), oi) in vals else []
+             for c, oi in node.inputs]
+    n = len(prop.list_arguments())
+    arg_shapes, _, aux_shapes = prop.infer_shape(known[:n])
+    rules = {}
+    for (child, _), shape in zip(node.inputs,
+                                 list(arg_shapes) + list(aux_shapes)):
+        if child.is_var and shape and all(int(d) > 0 for d in shape):
+            rules[child.name] = (tuple(int(d) for d in shape), None)
+    return rules
+
+
 def _apply_op(op_name, args, kwargs):
     """Build an op node from Symbol inputs and static attributes (the
     composition step behind every ``mx.sym.<op>`` wrapper). Symbols fill
@@ -685,8 +705,20 @@ def _apply_op(op_name, args, kwargs):
         if p.kind is inspect.Parameter.VAR_KEYWORD:
             continue
         if p.kind is inspect.Parameter.VAR_POSITIONAL:
-            # *arrays (Concat, stack, add_n): every positional symbol left
-            inputs.extend(pos_syms)
+            declared = _registry.input_names(op)
+            if declared is None:
+                # *arrays (Concat, stack, add_n): every positional symbol
+                inputs.extend(pos_syms)
+                continue
+            # an op whose hyper-parameters name its inputs (Custom): by
+            # keyword or in order, a variable "<node>_<name>" for each
+            # one not given (MXNet's "softmax_label")
+            args_, auxs_ = declared(static)
+            for arg in list(args_) + list(auxs_):
+                given = sym_kwargs.pop(arg) if arg in sym_kwargs \
+                    else next(pos_syms, None)
+                inputs.append(given if given is not None else
+                              var(f"{name}_{arg}", is_aux=arg in auxs_))
             continue
         if p.name in _RUNTIME_PARAMS or p.name in static:
             continue

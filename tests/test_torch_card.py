@@ -47,7 +47,15 @@ run on a machine that has only PyTorch:
   scalars) against the same steps run eagerly; grouped ``Deconvolution``
   (and ``target_shape``) on the card against the CPU; ``CTCLoss`` on the
   card (``torch.nn.functional.ctc_loss``) against the plain recursion on
-  the card and on the CPU, values and gradients.
+  the card and on the CPU, values and gradients;
+* the samplers of ``nd.random`` inside a ``compile.jit`` graph: a replay
+  from a saved generator state draws what the eager call draws from it,
+  bit for bit, and the next replay draws anew; ``linalg_potrf``
+  (``cholesky_ex``) of a batch with a matrix that is not positive
+  definite inside a graph, under ``set_sync_debug_mode("error")``: NaN
+  in that factor's lower triangle, the others right; a hybridized block
+  holding a ``Custom`` op runs uncaptured, counted under its reason, with
+  no capture attempted.
 """
 import math
 
@@ -2114,3 +2122,229 @@ def test_ctc_loss_on_card_matches_the_plain_recursion(cuda_device):
             torch.testing.assert_close(res[0][0], loss, rtol=1e-5,
                                        atol=1e-4)
             torch.testing.assert_close(res[0][1], g, rtol=1e-4, atol=1e-5)
+
+
+SAMPLERS = {
+    "gamma": lambda n: nd.random.gamma(2.5, 1.5, shape=(n,)),
+    "exponential": lambda n: nd.random.exponential(3.0, shape=(n,)),
+    "poisson": lambda n: nd.random.poisson(3.0, shape=(n,)),
+    "negative_binomial": lambda n: nd.random.negative_binomial(
+        4, 0.3, shape=(n,)),
+    "randint": lambda n: nd.random.randint(-3, 7, shape=(n,)),
+    "bernoulli": lambda n: nd.random.bernoulli(0.2, shape=(n,)),
+    "multinomial": lambda n: nd.random.multinomial(
+        nd.ones((4, 50)), shape=(n // 4,)),
+    "shuffle": lambda n: nd.random.shuffle(nd.arange(n)),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", sorted(SAMPLERS))
+def test_sampler_replay_draws_what_the_eager_call_draws(name, cuda_device):
+    from mxnet_tpu_torch import compile as mxc
+
+    draw = SAMPLERS[name]
+    gen = mx.random.generator(cuda_device)
+    zero = torch.zeros((), device=cuda_device)
+
+    def body(t):
+        return draw(4096)._data
+
+    with mx.gpu(0):
+        f = mxc.jit(body, site="card_test", token=("sampler", name))
+        f(zero)                       # eager, then the capture
+        state = gen.get_state()
+        eager = body(zero)
+        gen.set_state(state)
+        replay = f(zero)
+        again = f(zero)
+    assert f.stats()["captures"] == 1 and f.stats()["replays"] == 2
+    assert torch.equal(replay, eager)
+    assert not torch.equal(again, replay)
+
+
+@pytest.mark.gpu
+def test_potrf_of_a_matrix_not_positive_definite_inside_a_graph(cuda_device):
+    from mxnet_tpu_torch import compile as mxc
+
+    rs = np.random.RandomState(0)
+    m = rs.randn(3, 32, 32)
+    spd = m @ m.transpose(0, 2, 1) / 32 + np.eye(32)
+    spd[1] = -spd[1]
+    x = torch.tensor(spd, dtype=torch.float32, device=cuda_device)
+    f = mxc.jit(lambda t: nd.linalg_potrf(nd.NDArray(t))._data,
+                site="card_test", token=("potrf",))
+    f(x)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = f(x)
+        direct = nd.linalg_potrf(nd.NDArray(x))._data
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert f.stats()["captures"] == 1
+    lower = torch.ones(32, 32, dtype=torch.bool, device=cuda_device).tril()
+    for out in (got, direct):
+        assert torch.equal(torch.isnan(out[1]), lower)
+        want = torch.linalg.cholesky(torch.tensor(spd[[0, 2]]))
+        torch.testing.assert_close(out[[0, 2]].double().cpu(), want,
+                                   rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_a_hybridized_custom_op_runs_uncaptured_on_the_card(cuda_device):
+    from mxnet_tpu_torch import compile as mxc
+
+    class Twice(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            x = in_data[0].asnumpy()           # a host read
+            self.assign(out_data[0], req[0], nd.array(2 * x))
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0], out_grad[0] * 2)
+
+    @mx.operator.register("card_test_twice")
+    class TwiceProp(mx.operator.CustomOpProp):
+        def create_operator(self, ctx, shapes, dtypes):
+            return Twice()
+
+    class Block(mx.gluon.HybridBlock):
+        def hybrid_forward(self, F, x):
+            return F.Custom(x + 1, op_type="card_test_twice")
+
+    block = Block()
+    block.hybridize()
+    x = nd.array(np.arange(6, dtype=np.float32), ctx=mx.gpu(0))
+    before = dict(mxc.stats().get("cachedop", {}).get("uncaptured", {}))
+    for _ in range(3):
+        y = block(x)
+    x.attach_grad()
+    with mx.autograd.record():
+        z = block(x)
+    z.backward()
+    st = mxc.stats()["cachedop"]
+    reason = "host op Custom(op_type='card_test_twice')"
+    assert st["uncaptured"][reason] - before.get(reason, 0) == 4
+    assert y._data.device.type == "cuda"
+    assert torch.equal(y._data.cpu(), 2 * (torch.arange(6.0) + 1))
+    assert torch.equal(x.grad._data.cpu(), torch.full((6,), 2.0))
+
+
+def _la_cases(dev, dtype):
+    """``{op: (inputs, hyper-parameters)}``: every ``la_op`` op and
+    ``tensor.py``'s linear-algebra ops on a batch of 4 SPD 64 x 64
+    matrices, their Cholesky factors and right-hand sides."""
+    rs = np.random.RandomState(0)
+    m = rs.randn(4, 64, 64)
+    spd = m @ m.transpose(0, 2, 1) / 64 + np.eye(64)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=dev)  # noqa: E731
+    a, low = t(spd), t(np.linalg.cholesky(spd))
+    rhs = t(rs.randn(4, 64, 16))
+    return {
+        "linalg_gemm": ((a, rhs, rhs), {}),
+        "linalg_gemm2": ((rhs, rhs), {"transpose_a": True}),
+        "linalg_potrf": ((a,), {}),
+        "linalg_potri": ((low,), {}),
+        "linalg_trmm": ((low, rhs), {}),
+        "linalg_trsm": ((low, rhs), {"transpose": True}),
+        "linalg_syrk": ((rhs,), {"transpose": True}),
+        "linalg_gelqf": ((a[:, :16, :],), {}),
+        "linalg_syevd": ((a,), {}),
+        "linalg_sumlogdiag": ((low,), {}),
+        "linalg_extractdiag": ((a,), {"offset": 1}),
+        "linalg_makediag": ((rhs[:, :, 0],), {"offset": -1}),
+        "linalg_extracttrian": ((low,), {}),
+        "linalg_maketrian": ((t(rs.randn(4, 2080)),), {}),
+        "linalg_det": ((a[:, :16, :16],), {}),
+        "linalg_slogdet": ((a,), {}),
+        "linalg_inverse": ((a,), {}),
+        "khatri_rao": ((rhs[0, :8], rhs[1, :12]), {}),
+    }
+
+
+def _la_forward_backward(name, args, kwargs):
+    """The op's outputs and the gradients of their sum (weighted by 1 +
+    each element's index, so no gradient is trivially uniform) with
+    respect to every input."""
+    from mxnet_tpu_torch.ops import registry as reg
+
+    ins = [a.detach().clone().requires_grad_(True) for a in args]
+    outs = reg.get(name)(*ins, **kwargs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    total = sum((o * torch.arange(o.numel(), device=o.device,
+                                  dtype=o.dtype).reshape(o.shape).add(1)
+                 / o.numel()).sum() for o in outs)
+    grads = torch.autograd.grad(total, ins, allow_unused=True)
+    return list(outs) + [g for g in grads if g is not None]
+
+
+LA_OPS = [n for n in _la_cases("cpu", torch.float64) if n != "linalg_syevd"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", LA_OPS)
+def test_la_op_captures_forward_and_backward_with_no_host_sync(
+        name, dtype, cuda_device):
+    """Each linear-algebra op but ``linalg_syevd`` (the next test), forward
+    and gradient, eagerly under ``set_sync_debug_mode("error")`` and
+    inside a raw CUDA graph: the replay equals the eager result."""
+    args, kwargs = _la_cases(cuda_device, dtype)[name]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _la_forward_backward(name, args, kwargs)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            eager = _la_forward_backward(name, args, kwargs)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            captured = _la_forward_backward(name, args, kwargs)
+        graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert len(captured) == len(eager)
+    for got, want in zip(captured, eager):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_syevd_is_a_host_op_that_runs_uncaptured(cuda_device):
+    """``linalg_syevd`` (``torch.linalg.eigh``) syncs with the host, so it
+    is a host op: a ``compile.jit`` body holding it runs uncaptured under
+    its reason, and a raw capture that meets it raises
+    ``HostOpInCapture`` before cuSOLVER is called."""
+    from mxnet_tpu_torch import compile as mxc
+    from mxnet_tpu_torch.ops import registry as reg
+
+    args, _ = _la_cases(cuda_device, torch.float32)["linalg_syevd"]
+    a = args[0]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with pytest.raises(RuntimeError, match="synchronizing"):
+            torch.linalg.eigh(a)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    f = mxc.jit(lambda t: nd.linalg_syevd(nd.NDArray(t))[1]._data * 2,
+                site="card_test", token=("syevd",))
+    got = [f(a) for _ in range(3)]
+    st = f.stats()
+    assert st["captures"] == 0 and st["replays"] == 0
+    assert mxc.stats()["card_test"]["uncaptured"].get(
+        "host op linalg_syevd", 0) >= 3
+    want = 2 * torch.linalg.eigvalsh(a.double())
+    torch.testing.assert_close(got[2].double(), want, rtol=1e-4, atol=1e-4)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        x = a.clone()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with pytest.raises(reg.HostOpInCapture, match="linalg_syevd"):
+        with torch.cuda.graph(graph):
+            reg.get("_linalg_syevd")(x)
+    torch.cuda.synchronize()

@@ -181,11 +181,9 @@ def test_boolean_mask_is_eager_and_detached():
 # ------------------------------------------------------------ registry ----
 
 _REF = os.path.join(os.path.dirname(__file__), "..", "mxnet_tpu", "ops")
-# wait for la_op.py and row-sparse arrays
-# (_contrib_SparseEmbedding is registered by ops/nn.py)
-LEFT_OUT = {"_sparse_retain", "cast_storage",
-            "linalg_gemm2", "_linalg_gemm2", "linalg_potrf",
-            "_linalg_potrf", "linalg_syrk", "_linalg_syrk", "khatri_rao"}
+# wait for row-sparse arrays (the linalg ops and khatri_rao came with
+# ops/la_op.py; _contrib_SparseEmbedding is registered by ops/nn.py)
+LEFT_OUT = {"_sparse_retain", "cast_storage"}
 # registered by numpy_ops.py as aliases of tensor.py's ops
 NUMPY_ALIASES = {"_split_v2", "_unravel_index", "_ravel_multi_index"}
 

@@ -232,7 +232,15 @@ def test_one_seed_repeats_the_draws_and_the_stream_advances():
 
 
 def test_the_samplers_not_ported_raise():
-    for name in ("gamma", "exponential", "poisson", "negative_binomial",
-                 "randint", "multinomial", "shuffle", "bernoulli"):
-        with pytest.raises(mx.MXNetError, match="not ported"):
-            getattr(mx.nd.random, name)(shape=(2,))
+    """Named when these samplers raised: now ported, each draws on the
+    current context (``tests/test_torch_random_samplers.py`` holds them
+    against the JAX package)."""
+    with CPU:
+        for name in ("gamma", "exponential", "poisson", "negative_binomial",
+                     "bernoulli"):
+            out = getattr(mx.nd.random, name)(shape=(2,))
+            assert out.shape == (2,) and out.context == CPU
+        assert mx.nd.random.randint(0, 3, shape=(2,)).shape == (2,)
+        data = mx.nd.ones((2, 3))
+        assert mx.nd.random.multinomial(data).shape == (2,)
+        assert mx.nd.random.shuffle(data).shape == (2, 3)
