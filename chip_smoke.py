@@ -424,7 +424,19 @@ Phases, each printing one JSON line:
     ``target_shape``), CTCLoss (``torch.nn.functional.ctc_loss`` against
     the plain recursion on the card and the CPU), LRN, UpSampling,
     InstanceNorm, GroupNorm and the LeakyReLU modes, card against CPU
-    (``SURFACE_TOL``).
+    (``SURFACE_TOL``); every contrib op card against CPU and captured
+    with its gradient in a raw CUDA graph under
+    ``set_sync_debug_mode("error")`` (``boolean_mask``, a host op,
+    uncaptured in a ``compile.jit`` body), and ``foreach``,
+    ``while_loop`` and ``cond`` in a hybridized block captured.
+35. ssd512_resnet50_v1_module_fit: MXNet 1.x's ``example/ssd``
+    ``train.py --network resnet50 --data-shape 512`` through
+    ``Module.fit`` (``SSD512``): four fits captured and eager (A B B A),
+    the replayed update against the eager one, a profiled batch of each
+    mode (device ms by group: backbone, extra layers and heads,
+    MultiBoxTarget, MultiBoxDetection with its NMS, SoftmaxOutput and
+    smooth-L1, K1), no host sync in a replay, then ``deploy.py``'s
+    detection graph at batch 32 captured against eager.
 
 The twobit phase also holds the single-tensor compress and the
 decompress in float16 and bfloat16 bit for bit against their plain
@@ -5362,6 +5374,19 @@ class SyntheticDataIter(mx.io.DataIter):
                                provide_label=self.provide_label)
 
 
+def export_symbol(name, num_classes, image_shape):
+    """The model zoo's network ``name`` exported as a Symbol (its weights,
+    from a seeded draw, are dropped: ``fit`` initializes every
+    parameter)."""
+    net = vision.get_model(name, classes=num_classes)
+    net.initialize(mx.init.Xavier(), generator=torch.Generator().manual_seed(0))
+    net(mx.nd.zeros((1,) + tuple(image_shape)))
+    with tempfile.TemporaryDirectory() as d:
+        net.export(os.path.join(d, "net"), 0)
+        sym, _, _ = mx.model.load_checkpoint(os.path.join(d, "net"), 0)
+    return sym
+
+
 def get_network(name, num_classes, image_shape, heads=("SoftmaxOutput",)):
     """``examples/image_classification/train_imagenet.py:29-45`` over the
     port: the model zoo's network exported as a Symbol (its weights, from
@@ -5371,12 +5396,7 @@ def get_network(name, num_classes, image_shape, heads=("SoftmaxOutput",)):
     ``example/numpy-ops/custom_softmax.py`` head, ``mx.sym.Custom(net,
     op_type="softmax", name="softmax")`` (its label input the variable
     ``softmax_label``, as SoftmaxOutput's)."""
-    net = vision.get_model(name, classes=num_classes)
-    net.initialize(mx.init.Xavier(), generator=torch.Generator().manual_seed(0))
-    net(mx.nd.zeros((1,) + tuple(image_shape)))
-    with tempfile.TemporaryDirectory() as d:
-        net.export(os.path.join(d, "net"), 0)
-        sym, _, _ = mx.model.load_checkpoint(os.path.join(d, "net"), 0)
+    sym = export_symbol(name, num_classes, image_shape)
     out = {}
     for head in heads:
         if head == "Custom":
@@ -8062,7 +8082,10 @@ ZOO_CHECK_TOL = {"out": 1e-3, "grad_l2": 0.1, "grad_floor": 1e-3}
 # CTC's gradients (softmax less the label posterior: torch's kernel forms
 # the posterior from alpha and beta, the plain recursion's comes through
 # autograd of 50 log-space steps) at rtol 1e-4, atol 1e-5: they differed
-# by up to 5.7e-5 of a value (on an H100)
+# by up to 5.7e-5 of a value (on an H100). The contrib ops: values at rtol
+# 1e-4, atol 1e-5 (the card contracts a bilinear sample's four products
+# into FMAs: ROIAlign's outputs differed by 4.4e-6 on an H100), gradients
+# at atol 1e-4 (atomic sums in the gathers' backward)
 SURFACE_TOL = {"rtol": 1e-5, "atol": 1e-6, "conv_atol": 1e-5,
                "sum_atol": 1e-4, "ctc_grad_rtol": 1e-4}
 # the samplers on the card and the CPU: 4 M draws each, the sample mean
@@ -8925,11 +8948,13 @@ def phase_surface_check():
     samplers = _surface_samplers()
     linalg = _surface_linalg(errs)
     _surface_function(errs)
+    contrib = _surface_contrib(errs)
+    contrib["control_flow"] = _surface_control_flow()
     line = {"phase": "surface_check", "tolerance": SURFACE_TOL,
             "max_abs_err": errs, "ctc_route": {
                 "card": "torch.nn.functional.ctc_loss, torch's CUDA kernel",
                 "cpu": "plain recursion"},
-            "samplers": samplers, "linalg": linalg,
+            "samplers": samplers, "linalg": linalg, "contrib": contrib,
             "seconds": time.perf_counter() - t0}
     emit(line)
     return line
@@ -9077,6 +9102,331 @@ def _surface_function(errs):
         "autograd.Function", res["card"][0], res["cpu"][0])
     errs["autograd_function_grad"] = _surface_close(
         "autograd.Function grad", res["card"][1], res["cpu"][1])
+
+
+def _contrib_cases(rs):
+    """``(what, op, arrays, kwargs, differentiable input indices)`` of the
+    contrib surface on the card: every op of ``ops/contrib_ops.py`` at
+    moderate shapes, ties in the scores of NMS and ``MultiBoxTarget``."""
+    f32 = lambda *s: rs.randn(*s).astype(np.float32)  # noqa: E731
+
+    def boxes(*lead):
+        xy = rs.uniform(0, 0.7, lead + (2,))
+        return np.concatenate([xy, xy + rs.uniform(0.05, 0.3, lead + (2,))],
+                              -1).astype(np.float32)
+
+    def rois(r, b, h, w):
+        x1, y1 = rs.uniform(-1, w - 4, r), rs.uniform(-1, h - 4, r)
+        return np.stack([rs.randint(0, b, r), x1, y1,
+                         x1 + rs.uniform(1, 8, r), y1 + rs.uniform(1, 8, r)],
+                        1).astype(np.float32)
+
+    anchors = np.asarray(_contrib_prior(16), np.float32)
+    n = anchors.shape[1]
+    label = np.full((8, 6, 5), -1, np.float32)
+    for i in range(8):
+        k = rs.randint(1, 7)
+        label[i, :k, 0] = rs.randint(0, 20, k)
+        label[i, :k, 1:] = boxes(k)
+    det = np.concatenate([rs.randint(0, 4, (8, 500, 1)),
+                          np.round(rs.uniform(0, 1, (8, 500, 1)), 1),
+                          boxes(8, 500)], -1).astype(np.float32)
+    det[:, 1] = det[:, 0]                        # duplicate boxes and scores
+    logits = f32(8, 21, n) * 2
+    prob = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    ys, xs = np.meshgrid(np.linspace(-1, 1, 24), np.linspace(-1, 1, 20),
+                         indexing="ij")
+    centres = np.stack([xs, ys])[None].repeat(4, 0).astype(np.float32)
+    img = rs.randint(0, 256, (4, 48, 64, 3)).astype(np.uint8)
+    bn = [f32(8, 16, 12, 12), rs.uniform(.5, 1.5, 16).astype(np.float32),
+          f32(16), f32(16) * .1, rs.uniform(.5, 1.5, 16).astype(np.float32)]
+    return [
+        ("fft", "_contrib_fft", [f32(64, 256)], {}, (0,)),
+        ("ifft", "_contrib_ifft", [f32(64, 512)], {}, (0,)),
+        ("multibox_prior", "MultiBoxPrior", [f32(2, 8, 32, 32)],
+         dict(sizes=(.1, .141), ratios=(1, 2, .5), clip=True), ()),
+        ("box_iou", "_contrib_box_iou", [boxes(4, 100), boxes(4, 30)], {},
+         (0, 1)),
+        ("box_nms", "box_nms", [det],
+         dict(overlap_thresh=.5, valid_thresh=.1, topk=100, id_index=0),
+         (0,)),
+        ("box_nms_center", "box_nms", [det],
+         dict(overlap_thresh=.3, force_suppress=True, in_format="center"),
+         (0,)),
+        ("multibox_target", "MultiBoxTarget",
+         [anchors, label, np.round(prob * 8) / 8],
+         dict(negative_mining_ratio=3, negative_mining_thresh=.5), ()),
+        ("multibox_detection", "MultiBoxDetection",
+         [prob, f32(8, n * 4) * .2, anchors],
+         dict(nms_threshold=.45, nms_topk=100), (0, 1)),
+        ("box_encode", "_contrib_box_encode",
+         [(rs.uniform(0, 1, (4, 64)) > .5).astype(np.float32),
+          rs.randint(-1, 6, (4, 64)).astype(np.float32), boxes(4, 64),
+          boxes(4, 6)], {}, (2, 3)),
+        ("box_decode", "_contrib_box_decode", [f32(4, 64, 4), boxes(1, 64)],
+         dict(clip=2.0), (0, 1)),
+        ("bipartite_matching", "_contrib_bipartite_matching",
+         [np.round(rs.uniform(0, 1, (4, 30, 20)) * 8) / 8], {}, ()),
+        ("roi_pooling", "ROIPooling",
+         [f32(2, 16, 32, 32), rois(64, 2, 32, 32)],
+         dict(pooled_size=(7, 7), spatial_scale=1.0), (0,)),
+        ("roi_align", "_contrib_ROIAlign",
+         [f32(2, 16, 32, 32), rois(64, 2, 32, 32)],
+         dict(pooled_size=(7, 7), sample_ratio=2), (0, 1)),
+        ("grid_generator", "GridGenerator", [f32(4, 6)],
+         dict(transform_type="affine", target_shape=(24, 20)), (0,)),
+        ("grid_generator_warp", "GridGenerator", [f32(4, 2, 24, 20)],
+         dict(transform_type="warp"), (0,)),
+        ("bilinear_sampler", "BilinearSampler",
+         [f32(4, 8, 24, 20), rs.uniform(-1.2, 1.2, (4, 2, 16, 16))
+          .astype(np.float32)], {}, (0, 1)),
+        ("bilinear_sampler_centres", "BilinearSampler",
+         [f32(4, 8, 24, 20), centres], {}, (0, 1)),
+        ("spatial_transformer", "SpatialTransformer",
+         [f32(4, 8, 24, 20), (np.array([[.9, .1, .05, -.1, 1.1, 0]] * 4)
+                              + f32(4, 6) * .05).astype(np.float32)],
+         dict(target_shape=(16, 16)), (0, 1)),
+        ("bilinear_resize_up", "_contrib_BilinearResize2D",
+         [f32(2, 8, 16, 20)], dict(height=40, width=33), (0,)),
+        ("bilinear_resize_down", "_contrib_BilinearResize2D",
+         [f32(2, 8, 40, 33)], dict(height=16, width=20), (0,)),
+        ("correlation", "Correlation",
+         [f32(2, 16, 24, 24), f32(2, 16, 24, 24)],
+         dict(max_displacement=4, stride2=2, pad_size=1), (0, 1)),
+        ("index_copy", "_contrib_index_copy",
+         [f32(64, 32), rs.permutation(64)[:16].astype(np.int64), f32(16, 32)],
+         {}, (0, 2)),
+        ("arange_like", "_contrib_arange_like", [f32(8, 30)],
+         dict(axis=1, repeat=3, start=2.0, step=.5), ()),
+        ("multi_all_finite", "multi_all_finite",
+         [f32(100), np.array([1, np.inf], np.float32)], dict(num_arrays=2),
+         ()),
+        ("count_sketch", "_contrib_count_sketch",
+         [f32(32, 256), rs.randint(0, 64, (1, 256)).astype(np.float32),
+          np.sign(f32(1, 256))], dict(out_dim=64), (0,)),
+        ("im2col", "im2col", [f32(4, 8, 20, 20)],
+         dict(kernel=(3, 3), stride=(2, 2), dilate=(1, 2), pad=(1, 1)), (0,)),
+        ("block_grad", "BlockGrad", [f32(64, 64)], {}, ()),
+        ("interleaved_selfatt_qk", "_contrib_interleaved_matmul_selfatt_qk",
+         [f32(32, 4, 3 * 8 * 16)], dict(heads=8), (0,)),
+        ("interleaved_selfatt_valatt",
+         "_contrib_interleaved_matmul_selfatt_valatt",
+         [f32(32, 4, 3 * 8 * 16), f32(32, 32, 32)], dict(heads=8), (0, 1)),
+        ("interleaved_encdec_qk", "_contrib_interleaved_matmul_encdec_qk",
+         [f32(24, 4, 8 * 16), f32(32, 4, 2 * 8 * 16)], dict(heads=8),
+         (0, 1)),
+        ("interleaved_encdec_valatt",
+         "_contrib_interleaved_matmul_encdec_valatt",
+         [f32(32, 4, 2 * 8 * 16), f32(32, 24, 32)], dict(heads=8), (0, 1)),
+        ("quadratic", "_contrib_quadratic", [f32(64, 64)],
+         dict(a=.5, b=-2, c=1), (0,)),
+        ("allclose", "_contrib_allclose", [f32(64), f32(64)],
+         dict(rtol=10.0, atol=10.0), ()),
+        ("index_array", "_contrib_index_array", [f32(4, 6, 8)],
+         dict(axes=(2, 0)), ()),
+        ("batchnorm_v1", "BatchNorm_v1", bn, dict(fix_gamma=False), (0, 1, 2)),
+        ("sync_batchnorm", "_contrib_SyncBatchNorm", bn,
+         dict(fix_gamma=False, ndev=1), (0, 1, 2)),
+        ("image_to_tensor", "_image_to_tensor", [img], {}, ()),
+        ("image_normalize", "_image_normalize", [f32(4, 3, 48, 64)],
+         dict(mean=(.485, .456, .406), std=(.229, .224, .225)), (0,)),
+        ("image_resize", "_image_resize", [img], dict(size=(40, 30)), ()),
+        ("image_resize_nearest", "_image_resize", [img[0]],
+         dict(size=(100, 70), interp=0), ()),
+        ("image_crop", "_image_crop", [img], dict(x=3, y=5, width=32,
+                                                   height=20), ()),
+    ]
+
+
+def _contrib_prior(size):
+    """SSD anchors ``(1, size * size * 4, 4)`` on the CPU."""
+    from mxnet_tpu_torch.ops import registry as reg
+
+    return reg.get("MultiBoxPrior")(torch.zeros(1, 1, size, size),
+                                    sizes=(.2, .3), ratios=(1, 2, .5))
+
+
+def _contrib_run(name, ts, kw, argnums, heads):
+    """Op ``name``'s outputs and the gradients of its differentiable
+    outputs' head ``heads`` over ``argnums``, from fresh leaves over
+    ``ts`` (an autograd leaf first used on another stream would make a
+    capture's backward wait on that stream)."""
+    from mxnet_tpu_torch.ops import registry as reg
+
+    ts = [t.detach().requires_grad_(i in argnums) for i, t in enumerate(ts)]
+    out = reg.get(name)(*ts, **kw)
+    outs = list(out) if isinstance(out, (tuple, list)) else [out]
+    if not argnums:
+        return outs
+    pairs = [(o, h) for o, h in zip(outs, heads) if o.requires_grad]
+    return outs + list(torch.autograd.grad(
+        [o for o, _ in pairs], [ts[i] for i in argnums],
+        [h for _, h in pairs], allow_unused=True))
+
+
+def _surface_contrib(errs):
+    """Every contrib op (``_contrib_cases``) on the card against the CPU,
+    forward and gradient (``SURFACE_TOL``; sums and the atomic-add
+    backward passes at ``sum_atol``), and each but the host op
+    ``boolean_mask`` captured with its gradient in a raw CUDA graph under
+    ``set_sync_debug_mode("error")``, the replay equal to the eager run;
+    ``boolean_mask`` in a ``compile.jit`` body, which runs uncaptured under
+    its reason."""
+    rs = np.random.RandomState(8)
+    card = mx.gpu(0).torch_device()
+    captured, failed = [], {}
+    for what, name, arrays, kw, argnums in _contrib_cases(rs):
+        res, heads = {}, None
+        for where, dev in (("card", card), ("cpu", "cpu")):
+            ts = [torch.tensor(a, device=dev) for a in arrays]
+            if heads is None:
+                outs = _contrib_run(name, ts, kw, (), None)
+                heads = [torch.tensor(np.asarray(rs.randn(*o.shape),
+                                                 np.float32)) for o in outs]
+            res[where] = (ts, _contrib_run(
+                name, ts, kw, argnums, [h.to(dev) for h in heads]))
+        errs[f"contrib_{what}"] = 0.0
+        if what.startswith(("box_nms", "multibox")):
+            # the discrete decisions (kept rows, class targets) agree
+            a, b = res["card"][1][-1 if what == "multibox_target" else 0], \
+                res["cpu"][1][-1 if what == "multibox_target" else 0]
+            kept = (a.detach().cpu() == -1).all(-1) if a.ndim == 3 else \
+                a.detach().cpu()
+            if not torch.equal(kept, (b.detach() == -1).all(-1)
+                               if b.ndim == 3 else b.detach()):
+                failed[what] = "the card kept or labelled other anchors " \
+                    "than the CPU"
+        n_out = len(_contrib_run(name, res["cpu"][0], kw, (), None))
+        for i, (a, b) in enumerate(zip(res["card"][1], res["cpu"][1])):
+            if a is None:
+                continue
+            if not a.is_floating_point():
+                # an image op's uint8 output truncates a float that the card
+                # and the CPU may round to either side of an integer
+                off = (a.cpu().long() - b.long()).abs().max() if a.numel() \
+                    else 0
+                if off > (1 if what.startswith("image_") else 0):
+                    failed[what] = f"output {i}: card and CPU differ by {off}"
+                continue
+            try:
+                errs[f"contrib_{what}"] = max(
+                    errs[f"contrib_{what}"], _surface_close(
+                        f"contrib {what} {i}", a, b, rtol=1e-4,
+                        atol=SURFACE_TOL["conv_atol" if i < n_out
+                                         else "sum_atol"]))
+            except AssertionError as exc:   # named below, with the rest
+                failed[what] = str(exc).splitlines()[0][:300]
+        # the replay of the same work, captured with no host sync
+        ts = res["card"][0]
+        cheads = [h.to(card) for h in heads]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                eager = _contrib_run(name, ts, kw, argnums, cheads)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                got = _contrib_run(name, ts, kw, argnums, cheads)
+            graph.replay()
+        except RuntimeError as exc:    # named below, after every op ran
+            failed[what] = str(exc).splitlines()[0][:200]
+            continue
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        for i, (a, b) in enumerate(zip(got, eager)):
+            if a is not None and not torch.allclose(
+                    a.float(), b.float(), rtol=1e-5, atol=1e-5,
+                    equal_nan=True):
+                failed[what] = f"the replay's output {i} is not the eager one"
+        if what not in failed:
+            captured.append(what)
+    if failed:
+        raise AssertionError(f"contrib ops that did not capture or replay: "
+                             f"{failed}")
+    # boolean_mask: a host op, uncaptured in a compile.jit body
+    x = torch.tensor(rs.randn(64, 8).astype(np.float32), device=card)
+    m = torch.tensor((rs.uniform(0, 1, 64) > .5).astype(np.float32),
+                     device=card)
+    f = compile_service.jit(lambda a, b: mx.nd.contrib.boolean_mask(
+        mx.nd.NDArray(a), mx.nd.NDArray(b))._data, site="surface",
+        token=("boolean_mask",))
+    for _ in range(3):
+        got = f(x, m)
+    st = f.stats()
+    reasons = [e.get("reason") for e in st["entries"]]
+    if st["captures"] or reasons != ["host op _contrib_boolean_mask"] or \
+            not torch.equal(got.cpu(), x.cpu()[m.cpu() > 0]):
+        raise AssertionError(f"boolean_mask in a jit body: {st}")
+    return {"ops_captured": captured,
+            "boolean_mask": {"captures": st["captures"],
+                             "reasons": reasons}}
+
+
+class _ControlFlowNet(mx.gluon.HybridBlock):
+    """``foreach``, ``while_loop`` and ``cond`` in one hybridized body (the
+    untaken branch of ``cond`` NaN: ``sqrt`` of negative numbers)."""
+
+    def hybrid_forward(self, F, x, w):
+        def body(xi, states):
+            return xi * states[0] + w, [states[0] * 0.5 + F.sum(xi)]
+
+        outs, states = F.contrib.foreach(body, x, [F.ones_like(
+            F.sum(x, axis=0))])
+        loop, (i, s) = F.contrib.while_loop(
+            lambda i, s: i < 3,
+            lambda i, s: ([s * F.sum(x, axis=0)], [i + 1, s * 0.9]),
+            [F.zeros_like(F.sum(x, axis=(0, 1), keepdims=True)[0]),
+             F.ones_like(F.sum(x, axis=(0, 1), keepdims=True)[0])],
+            max_iterations=5)
+        neg = -F.abs(x)
+        branch = F.contrib.cond(F.sum(neg) < 0, lambda: F.sum(neg * w),
+                                lambda: F.sum(F.sqrt(neg)))
+        return F.sum(outs * outs) + F.sum(states[0]) + F.sum(loop[0]) + \
+            F.sum(s) + branch
+
+
+def _surface_control_flow():
+    """``_ControlFlowNet`` hybridized on the card under ``record()``: the
+    pair's first call eager, then captured and replayed; the replays'
+    value and gradients against the same block with the compile service
+    off, and a replay with no host sync."""
+    rs = np.random.RandomState(10)
+    x_np = rs.uniform(0.2, 1.5, (6, 32)).astype(np.float32)
+    w_np = rs.uniform(0.5, 1.5, 32).astype(np.float32)
+    net = _ControlFlowNet()
+    net.hybridize()
+    x, w = mx.nd.array(x_np), mx.nd.array(w_np)
+    x.attach_grad()
+    w.attach_grad()
+
+    def step():
+        with mx.autograd.record():
+            y = net(x, w)
+        y.backward()
+        # detached: a kept tensor that requires grad would hold an eager
+        # autograd graph on the default stream while the pair captures
+        return (y._data.detach().clone(), x.grad._data.clone(),
+                w.grad._data.clone())
+
+    site0 = _site_stats("cachedop")
+    for _ in range(3):
+        got = step()
+    syncs = _sync_count(step)
+    site = _site_stats("cachedop")
+    want = _eager(step)
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    counts = {k: site[k] - site0[k] for k in ("captures", "replays")}
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    if counts["captures"] != 1 or counts["replays"] < 6 or syncs or \
+            not finite or max(errs) > 1e-4:
+        raise AssertionError(f"control flow in a hybridized block: site "
+                             f"{counts}, syncs {syncs}, finite {finite}, "
+                             f"replay against eager {errs}")
+    return {"site": counts, "host_syncs": syncs, "max_abs_err": errs}
 
 
 def build_relu_lib(out_dir):
@@ -9339,6 +9689,720 @@ def _sampler_graph(name, draw, n, gen, zero):
             "replays_differ": bool(not torch.equal(replay, f(zero)))}
 
 
+# ssd512_resnet50_v1_module_fit: MXNet 1.x's example/ssd at
+# symbol/symbol_factory.py's "resnet50" config and data_shape 512
+# (``SSD512``): the zoo's resnet50_v1 exported as a symbol, its last block
+# outputs at strides 16 (32 x 32) and 32 (16 x 16) as the first two
+# feature layers (the example's '_plus12' and '_plus15' of its resnet50),
+# common.py's multi_layer_feature (1x1 + 3x3 conv-ReLU pairs, stride 2, pad
+# 1: 8 x 8, 4 x 4, 2 x 2, 1 x 1) and multibox_layer (6132 anchors),
+# symbol_builder.get_symbol_train's heads, train_net.py's Module.fit
+# ("sgd" lr 0.002, momentum 0.9, wd 5e-4, rescale_grad 1, Xavier, the
+# "local" kvstore, the lr steps at epochs 80 and 160 of 16551 VOC07+12
+# images) and train/metric.py's MultiBoxMetric. The cuts: synthetic
+# normalized images N(0, 1) and 1-8 boxes an image (classes 0-19, sides
+# 0.1-0.6, padded to 8 with -1) from RandomState(0), one batch yielded 13
+# times (3 warm-up, 10 timed), the backbone from the initializer, no frozen
+# layers, Speedometer every 10 batches (train.py: 20). The example's head
+# biases carry ``__lr_mult__ = 2``, which neither package's optimizer reads
+# (so K1 runs one learning-rate group: one launch a batch).
+SSD512 = {"network": "resnet50_v1", "data_shape": 512, "num_classes": 20,
+          "batch": 32, "max_objects": 8,
+          "num_filters": (-1, -1, 512, 256, 256, 128),
+          "strides": (-1, -1, 2, 2, 2, 2), "pads": (-1, -1, 1, 1, 1, 1),
+          "sizes": ((.1, .141), (.2, .272), (.37, .447), (.54, .619),
+                    (.71, .79), (.88, .961)),
+          "ratios": ((1, 2, .5), (1, 2, .5, 3, 1. / 3),
+                     (1, 2, .5, 3, 1. / 3), (1, 2, .5, 3, 1. / 3),
+                     (1, 2, .5), (1, 2, .5)),
+          "nms_thresh": 0.45, "nms_topk": 400, "force_suppress": False,
+          "lr": 0.002, "mom": 0.9, "wd": 5e-4, "lr_step_epochs": "80, 160",
+          "lr_factor": 0.1, "num_examples": 16551, "frequent": 10,
+          "epoch_size": 13, "warmup": 3, "anchors": 6132, "tensors": 231,
+          "aux": 106, "infer_iters": 10,
+          "reduced": "synthetic images and boxes; 13 batches a fit, not "
+                     "16551 // 32 = 517 a epoch for 240 epochs; backbone "
+                     "from the initializer; Speedometer every 10 batches"}
+# the replayed update (batch 1 of a captured fit, the first replayed
+# step: batch 0 runs eagerly) against batch 1 of an eager fit from the same
+# seed, each tensor's change as a share of the eager change's L2 norm on a
+# floor of a thousandth of the largest change (``_update_agreement``), held
+# to three times the larger spread of two fits of one mode (eager against
+# eager, captured against captured), and at least to 1e-3: cuDNN's weight
+# gradients sum in varying order, and a BatchNorm gamma's gradient is a
+# sum of 2 M terms that nearly cancel (the first layers' gammas moved
+# 2.3% apart between a captured and an eager fit, call 1 of this phase); a
+# replay that computed something else would differ by order one. The
+# captured inference forward against the eager one at 1e-5 (same kernels,
+# one order)
+SSD_FIT_TOL = {"noise_factor": 3.0, "at_least": 1e-3, "floor": 1e-3,
+               "infer": 1e-5}
+
+
+def ssd_conv_act(m, data, name, num_filter, kernel, pad, stride):
+    """``example/ssd/symbol/common.py`` conv_act_layer (no BatchNorm)."""
+    conv = m.sym.Convolution(data=data, kernel=kernel, pad=pad, stride=stride,
+                             num_filter=num_filter, name=f"{name}_conv")
+    return m.sym.Activation(data=conv, act_type="relu", name=f"{name}_relu")
+
+
+def ssd_multi_layer_feature(m, body, from_layers, num_filters, strides, pads,
+                            min_filter=128):
+    """``common.py`` multi_layer_feature: a named internal output of
+    ``body`` for each non-empty ``from_layers`` entry, else a 1x1 and a
+    3x3 conv-ReLU pair on the previous feature layer."""
+    internals = body.get_internals()
+    layers = []
+    for k, (from_layer, num_filter, s, p) in enumerate(
+            zip(from_layers, num_filters, strides, pads)):
+        if from_layer.strip():
+            layers.append(internals[from_layer.strip() + "_output"])
+            continue
+        num_1x1 = max(min_filter, num_filter // 2)
+        conv_1x1 = ssd_conv_act(m, layers[-1], f"multi_feat_{k}_conv_1x1",
+                                num_1x1, (1, 1), (0, 0), (1, 1))
+        layers.append(ssd_conv_act(m, conv_1x1, f"multi_feat_{k}_conv_3x3",
+                                   num_filter, (3, 3), (p, p), (s, s)))
+    return layers
+
+
+def ssd_multibox_layer(m, from_layers, num_classes, sizes, ratios,
+                       clip=False, steps=()):
+    """``common.py`` multibox_layer (no normalization, no intermediate
+    layer): per feature layer a 3x3 location and class prediction conv
+    (bias variables as the example declares them) and its anchors (the
+    example's ``Flatten``/``Reshape`` take ``data=``; both packages name
+    that input ``x``, so it goes positionally);
+    returns ``loc_preds (B, N * 4)``, ``cls_preds (B, classes + 1, N)``
+    and ``anchor_boxes (1, N, 4)``."""
+    num_classes += 1                      # background
+    loc_layers, cls_layers, anchor_layers = [], [], []
+    for k, layer in enumerate(from_layers):
+        name = layer.name
+        size, ratio = tuple(sizes[k]), tuple(ratios[k])
+        num_anchors = len(size) - 1 + len(ratio)
+        preds = []
+        for what, width in (("loc", 4), ("cls", num_classes)):
+            bias = m.sym.var(f"{name}_{what}_pred_conv_bias",
+                             init=m.init.Constant(0.0),
+                             attr={"__lr_mult__": "2.0"})
+            pred = m.sym.Convolution(
+                data=layer, bias=bias, kernel=(3, 3), stride=(1, 1),
+                pad=(1, 1), num_filter=num_anchors * width,
+                name=f"{name}_{what}_pred_conv")
+            pred = m.sym.transpose(pred, axes=(0, 2, 3, 1))
+            preds.append(m.sym.Flatten(pred))
+        loc_layers.append(preds[0])
+        cls_layers.append(preds[1])
+        step = (steps[k], steps[k]) if steps else (-1.0, -1.0)
+        anchors = m.sym.contrib.MultiBoxPrior(
+            layer, sizes=size, ratios=ratio, clip=clip,
+            name=f"{name}_anchors", steps=step)
+        anchor_layers.append(m.sym.Flatten(anchors))
+    loc_preds = m.sym.Concat(*loc_layers, num_args=len(loc_layers), dim=1,
+                             name="multibox_loc_pred")
+    cls_preds = m.sym.Concat(*cls_layers, num_args=len(cls_layers), dim=1)
+    cls_preds = m.sym.Reshape(cls_preds, shape=(0, -1, num_classes))
+    cls_preds = m.sym.transpose(cls_preds, axes=(0, 2, 1),
+                                name="multibox_cls_pred")
+    anchor_boxes = m.sym.Concat(*anchor_layers, num_args=len(anchor_layers),
+                                dim=1)
+    anchor_boxes = m.sym.Reshape(anchor_boxes, shape=(0, -1, 4),
+                                 name="multibox_anchors")
+    return loc_preds, cls_preds, anchor_boxes
+
+
+def ssd_symbol_train(m, layers, num_classes, sizes, ratios, nms_thresh=0.5,
+                     force_suppress=False, nms_topk=400):
+    """``symbol_builder.py`` get_symbol_train on the feature ``layers``:
+    ``Group([cls_prob, loc_loss, cls_label, det])``."""
+    label = m.sym.var("label")
+    loc_preds, cls_preds, anchor_boxes = ssd_multibox_layer(
+        m, layers, num_classes, sizes, ratios)
+    tmp = m.sym.contrib.MultiBoxTarget(
+        *[anchor_boxes, label, cls_preds], overlap_threshold=.5,
+        ignore_label=-1, negative_mining_ratio=3, minimum_negative_samples=0,
+        negative_mining_thresh=.5, variances=(0.1, 0.1, 0.2, 0.2),
+        name="multibox_target")
+    loc_target, loc_target_mask, cls_target = tmp[0], tmp[1], tmp[2]
+    cls_prob = m.sym.SoftmaxOutput(
+        data=cls_preds, label=cls_target, ignore_label=-1, use_ignore=True,
+        grad_scale=1., multi_output=True, normalization="valid",
+        name="cls_prob")
+    loc_loss_ = m.sym.smooth_l1(
+        name="loc_loss_", data=loc_target_mask * (loc_preds - loc_target),
+        scalar=1.0)
+    loc_loss = m.sym.MakeLoss(loc_loss_, grad_scale=1.,
+                              normalization="valid", name="loc_loss")
+    cls_label = m.sym.MakeLoss(data=cls_target, grad_scale=0,
+                               name="cls_label")
+    det = m.sym.contrib.MultiBoxDetection(
+        *[cls_prob, loc_preds, anchor_boxes], name="detection",
+        nms_threshold=nms_thresh, force_suppress=force_suppress,
+        variances=(0.1, 0.1, 0.2, 0.2), nms_topk=nms_topk)
+    det = m.sym.MakeLoss(data=det, grad_scale=0, name="det_out")
+    return m.sym.Group([cls_prob, loc_loss, cls_label, det])
+
+
+def ssd_symbol_deploy(m, layers, num_classes, sizes, ratios, nms_thresh=0.5,
+                      force_suppress=False, nms_topk=400):
+    """``symbol_builder.py`` get_symbol (what ``deploy.py`` saves): the
+    detections alone."""
+    loc_preds, cls_preds, anchor_boxes = ssd_multibox_layer(
+        m, layers, num_classes, sizes, ratios)
+    cls_prob = m.sym.softmax(data=cls_preds, axis=1, name="cls_prob")
+    return m.sym.contrib.MultiBoxDetection(
+        *[cls_prob, loc_preds, anchor_boxes], name="detection",
+        nms_threshold=nms_thresh, force_suppress=force_suppress,
+        variances=(0.1, 0.1, 0.2, 0.2), nms_topk=nms_topk)
+
+
+class MultiBoxMetric(mx.metric.EvalMetric):
+    """``example/ssd/train/metric.py``: the cross-entropy of the valid
+    class targets and the summed smooth-L1 loss, each over the count of
+    valid targets, as two values (the window's, and the epoch's in
+    ``get_global``)."""
+
+    def __init__(self, eps=1e-8):
+        super().__init__("MultiBox")
+        self.eps = eps
+        self.num = 2
+        self.name = ["CrossEntropy", "SmoothL1"]
+        self.reset()
+
+    def reset(self):
+        n = getattr(self, "num", None) or 1
+        self.num_inst, self.sum_metric = [0] * n, [0.0] * n
+        self.global_num_inst, self.global_sum_metric = [0] * n, [0.0] * n
+
+    def reset_local(self):
+        self.global_num_inst = [a + b for a, b in zip(self.global_num_inst,
+                                                      self.num_inst)]
+        self.global_sum_metric = [a + b for a, b in zip(
+            self.global_sum_metric, self.sum_metric)]
+        self.num_inst, self.sum_metric = [0] * self.num, [0.0] * self.num
+
+    def update(self, labels, preds):
+        ce, l1, valid_count = ssd_losses(preds)
+        self.sum_metric[0] += ce
+        self.num_inst[0] += valid_count
+        self.sum_metric[1] += l1
+        self.num_inst[1] += valid_count
+
+    @staticmethod
+    def _values(sums, nums):
+        return [x / y if y != 0 else float("nan") for x, y in zip(sums, nums)]
+
+    def get(self):
+        return self.name, self._values(self.sum_metric, self.num_inst)
+
+    def get_global(self):
+        return self.name, self._values(
+            [a + b for a, b in zip(self.global_sum_metric, self.sum_metric)],
+            [a + b for a, b in zip(self.global_num_inst, self.num_inst)])
+
+
+def ssd_losses(preds, eps=1e-8):
+    """``MultiBoxMetric.update``'s sums from the outputs ``[cls_prob,
+    loc_loss, cls_label, ...]``: the cross-entropy summed over the valid
+    class targets, the summed smooth-L1 loss and the valid count."""
+    cls_prob = preds[0].asnumpy()
+    loc_loss = preds[1].asnumpy()
+    cls_label = preds[2].asnumpy()
+    valid_count = int(np.sum(cls_label >= 0))
+    label = cls_label.flatten()
+    mask = np.where(label >= 0)[0]
+    indices = np.int64(label[mask])
+    prob = cls_prob.transpose((0, 2, 1)).reshape((-1, cls_prob.shape[1]))
+    prob = prob[mask, indices]
+    return float((-np.log(prob + eps)).sum()), float(np.sum(loc_loss)), \
+        valid_count
+
+
+def ssd_loss(preds):
+    """The SSD loss of one batch's outputs: the cross-entropy and the
+    smooth-L1 sum, each over the valid count (``MultiBoxMetric``'s two
+    values added)."""
+    ce, l1, n = ssd_losses(preds)
+    return (ce + l1) / max(n, 1)
+
+
+def ssd_batch(batch, data_shape, num_classes, max_objects, seed=0):
+    """Synthetic normalized images ``(batch, 3, S, S)`` from N(0, 1) and
+    labels ``(batch, max_objects, 5)``: 1 to ``max_objects`` boxes an image,
+    rows ``[class, x1, y1, x2, y2]`` (classes below ``num_classes``, sides
+    0.1-0.6 of the image), padded with -1."""
+    rs = np.random.RandomState(seed)
+    x = rs.randn(batch, 3, data_shape, data_shape).astype(np.float32)
+    label = np.full((batch, max_objects, 5), -1.0, np.float32)
+    for i in range(batch):
+        k = rs.randint(1, max_objects + 1)
+        wh = rs.uniform(0.1, 0.6, (k, 2))
+        xy = rs.uniform(0.0, 1.0, (k, 2)) * (1.0 - wh)
+        label[i, :k, 0] = rs.randint(0, num_classes, k)
+        label[i, :k, 1:3] = xy
+        label[i, :k, 3:5] = xy + wh
+    return x, label
+
+
+class SSDDataIter(mx.io.DataIter):
+    """One device-resident batch of :func:`ssd_batch` yielded
+    ``epoch_size`` times, its label named ``label`` as ``train_net.py``'s
+    iterator names it."""
+
+    def __init__(self, cfg, seed=0):
+        b, s = cfg["batch"], cfg["data_shape"]
+        super().__init__(batch_size=b)
+        self.batch_size = b
+        self.epoch_size = cfg["epoch_size"]
+        x, y = ssd_batch(b, s, cfg["num_classes"], cfg["max_objects"], seed)
+        self._data, self._label = mx.nd.array(x), mx.nd.array(y)
+        self._cur = 0
+        self.provide_data = [mx.io.DataDesc("data", (b, 3, s, s))]
+        self.provide_label = [mx.io.DataDesc("label", y.shape)]
+
+    def reset(self):
+        self._cur = 0
+
+    def next(self):
+        if self._cur >= self.epoch_size:
+            raise StopIteration
+        self._cur += 1
+        return mx.io.DataBatch(data=[self._data], label=[self._label],
+                               pad=0, provide_data=self.provide_data,
+                               provide_label=self.provide_label)
+
+
+def ssd_backbone(network, data_shape):
+    """The zoo's ``network`` exported as a symbol, and the names of its
+    last block outputs at strides 16 and 32 (the last ReLU outputs of
+    stages 3 and 4), found by shape inference at ``data_shape``."""
+    sym = export_symbol(network, 1000, (3, 224, 224))
+    internals = sym.get_internals()
+    _, shapes, _ = internals.infer_shape(data=(1, 3, data_shape, data_shape))
+    ends = {}
+    for name, shape in zip(internals.list_outputs(), shapes):
+        if name.startswith("activation") and len(shape) == 4:
+            ends[shape[2]] = name[:-len("_output")]
+    return sym, [ends[data_shape // 16], ends[data_shape // 32]]
+
+
+def ssd_symbols(cfg):
+    """The training and the deploy symbol of ``cfg``, and the names of the
+    backbone's nodes."""
+    body, from_names = ssd_backbone(cfg["network"], cfg["data_shape"])
+    layers = ssd_multi_layer_feature(
+        mx, body, from_names + [""] * (len(cfg["num_filters"]) - 2),
+        cfg["num_filters"], cfg["strides"], cfg["pads"])
+    kw = dict(nms_thresh=cfg["nms_thresh"], nms_topk=cfg["nms_topk"],
+              force_suppress=cfg["force_suppress"])
+    train = ssd_symbol_train(mx, layers, cfg["num_classes"], cfg["sizes"],
+                             cfg["ratios"], **kw)
+    deploy = ssd_symbol_deploy(mx, layers, cfg["num_classes"], cfg["sizes"],
+                               cfg["ratios"], **kw)
+    backbone = {n["name"] for n in json.loads(
+        mx.sym.Group(layers[:2]).tojson())["nodes"]}
+    return train, deploy, backbone
+
+
+def valid_detections(det):
+    """Whether every row of ``det (B, N, 6)`` is ``[id, score, x1, y1, x2,
+    y2]`` with an integer id, a score in (0, 1] and corners in [0, 1]
+    (x1 <= x2, y1 <= y2), or all -1 (suppressed); and the kept rows per
+    image."""
+    d = det.asnumpy() if hasattr(det, "asnumpy") else det
+    dropped = (d == -1).all(-1)
+    k = d[~dropped]
+    ok = bool(((k[:, 0] >= 0) & (k[:, 0] == np.round(k[:, 0]))
+               & (k[:, 1] > 0) & (k[:, 1] <= 1)
+               & (k[:, 2:] >= 0).all(-1) & (k[:, 2:] <= 1).all(-1)
+               & (k[:, 2] <= k[:, 4]) & (k[:, 3] <= k[:, 5])).all())
+    return ok, (~dropped).sum(-1).tolist()
+
+
+def _ssd_group(backbone, ops):
+    """Node name -> the phase's device-time group."""
+    loss = {"SoftmaxOutput", "smooth_l1", "MakeLoss", "elemwise_mul",
+            "elemwise_sub", "broadcast_mul", "broadcast_sub"}
+
+    def group(node):
+        op = ops.get(node)
+        if node in backbone:
+            return "backbone"
+        if op == "MultiBoxTarget":
+            return "multibox_target"
+        if op == "MultiBoxDetection":
+            return "multibox_detection_nms"
+        if op in loss:
+            return "softmax_output_smooth_l1"
+        return "extra_layers_and_heads"
+
+    return group
+
+
+def _chain(e):
+    out = []
+    while e is not None:
+        out.append(e)
+        e = e.cpu_parent
+    return out
+
+
+def _ssd_split(prof, group):
+    """Device ms and launches of a profiled eager batch by group: a kernel
+    launched inside the evaluator's ``node:<name>`` range goes to that
+    node's group, one of autograd's backward functions to the group of the
+    forward op with its sequence number (a custom Function's backward,
+    which has none, by its name). Kernels launched outside any op (K1,
+    through ctypes) are not among them."""
+    fwd = {}
+    for e in prof.events():
+        if e.sequence_nr is None or e.sequence_nr < 0:
+            continue
+        node = next((p.name[5:] for p in _chain(e)
+                     if p.name.startswith("node:")), None)
+        if node is not None:
+            fwd[e.sequence_nr] = group(node)
+    ms, launches = {}, {}
+    for e in prof.events():
+        for k in getattr(e, "kernels", None) or []:
+            chain = _chain(e)
+            node = next((p.name[5:] for p in chain
+                         if p.name.startswith("node:")), None)
+            back = next((p for p in chain if p.name.startswith(
+                "autograd::engine::evaluate_function")), None)
+            if node is not None:
+                g = group(node)
+            elif back is not None:
+                g = fwd.get(back.sequence_nr)
+                if g is None:
+                    heads = ("SoftmaxOutput", "MakeLoss")
+                    g = "softmax_output_smooth_l1" if any(
+                        t in back.name for t in heads) \
+                        else "backward_unattributed"
+            elif any(p.name == "module.update" for p in chain):
+                g = "update_other"
+            else:
+                g = "other"
+            ms[g] = ms.get(g, 0.0) + k.duration / 1e3
+            launches[g] = launches.get(g, 0) + 1
+    return ms, launches
+
+
+def _profile_ssd_batch(mod, batch, metric, group=None):
+    """One Module batch (``forward_backward``, ``update``,
+    ``update_metric``) under ``torch.profiler``: window ms, device busy ms
+    and idle share, the kernels launched in ``forward_backward`` and in
+    all, and with ``group`` (an eager batch) the device ms and launches
+    by group."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with record_function("module.forward_backward"):
+            mod.forward_backward(batch)
+        with record_function("module.update"):
+            mod.update()
+        with record_function("module.update_metric"):
+            mod.update_metric(metric, batch.label)
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+
+    # every kernel of the window, K1's too (launched through ctypes, it has
+    # no op event to hang from)
+    busy, n_all, k1 = 0.0, 0, [0.0, 0]
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False) or \
+                e.self_device_time_total <= 0:
+            continue
+        busy += e.self_device_time_total / 1e3
+        n_all += e.count
+        if "opt_step_kernel" in e.key:
+            k1 = [k1[0] + e.self_device_time_total / 1e3, k1[1] + e.count]
+    n_fb = sum(len(getattr(e, "kernels", None) or []) for e in prof.events()
+               if any(p.name == "module.forward_backward"
+                      for p in _chain(e)))
+    out = {"profiled_batch_ms": window_ms,
+           "device_ms": busy if n_all else "not measured",
+           "device_idle_share": 1 - busy / window_ms if n_all
+           else "not measured",
+           "launches_forward_backward": n_fb if n_all else "not measured",
+           "launches_batch": n_all if n_all else "not measured",
+           "k1_device_ms": k1[0] if k1[1] else "not measured",
+           "k1_launches": k1[1]}
+    if group is not None:
+        ms, launches = _ssd_split(prof, group)
+        if k1[1]:
+            ms["k1"], launches["k1"] = k1
+        out["device_ms_by_group"] = ms if n_all else "not measured"
+        out["launches_by_group"] = launches if n_all else "not measured"
+    return out
+
+
+def _uncaptured(site):
+    """``{reason: calls}`` the compile service ran uncaptured at ``site``
+    so far in the process."""
+    return dict(compile_service.stats().get(site, {}).get("uncaptured", {}))
+
+
+def _ssd_fit_once(cfg, net, train, dev):
+    """One ``train_net.py`` fit of ``cfg["epoch_size"]`` batches (the
+    compile service on or off, as the caller set it): the host clock at
+    each batch end (card synchronised), the loss of batches 0, 1 and the
+    last (one batch repeated: batch 1's is after the first update), each
+    tensor's change in batch 1 (host copies after batches 0 and 1),
+    launches, peak memory and the executor site's counts."""
+    model = mx.mod.Module(net, label_names=("label",), context=dev)
+    stamps, losses, snaps = [], {}, {}
+
+    def stamp(param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    def probe(param):
+        if param.nbatch in (0, 1, cfg["epoch_size"] - 1):
+            losses[param.nbatch] = ssd_loss(model.get_outputs())
+        if param.nbatch in (0, 1):
+            snaps[param.nbatch] = _params_now(model)
+
+    train.reset()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    site0 = _site_stats("executor")
+    unc0 = _uncaptured("executor")
+    kernels.reset_launch_counts()
+    t_fit = time.perf_counter()
+    with _captured_log() as log:
+        model.fit(train, eval_data=None, eval_metric=MultiBoxMetric(),
+                  batch_end_callback=[mx.callback.Speedometer(
+                      cfg["batch"], cfg["frequent"]), stamp, probe],
+                  kvstore=mx.kv.create("local"), optimizer="sgd",
+                  optimizer_params={
+                      "learning_rate": cfg["lr"], "momentum": cfg["mom"],
+                      "wd": cfg["wd"], "lr_scheduler": _lr_scheduler(cfg)[1],
+                      "clip_gradient": None, "rescale_grad": 1.0},
+                  begin_epoch=0, num_epoch=1, initializer=mx.init.Xavier(),
+                  arg_params=None, aux_params=None, allow_missing=True,
+                  monitor=None)
+    fit_s = time.perf_counter() - t_fit
+    site = _site_stats("executor")
+    pool = _pool_bytes()    # the model's graphs alive
+    batch_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    timed = batch_ms[cfg["warmup"] - 1:]
+    update = {n: snaps[1][n] - snaps[0][n] for n in snaps[1]}
+    return model, log, update, {
+        "batch_ms": batch_ms, "median_batch_ms": statistics.median(timed),
+        "fit_s": fit_s, "batch_ends": len(stamps),
+        "speedometer_img_per_s": log.speeds,
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "graph_pool_bytes": pool,
+        "launches": kernels.launch_counts(),
+        "executor_site": {k: site[k] - site0[k] for k in (
+            "misses", "hits", "captures", "capture_ms", "replays")},
+        "uncaptured": {k: n - unc0.get(k, 0) for k, n in
+                       _uncaptured("executor").items() if n != unc0.get(k, 0)},
+        "losses": [losses.get(0), losses.get(1),
+                   losses.get(cfg["epoch_size"] - 1)]}
+
+
+def _ssd_infer(cfg, deploy, model, dev, data):
+    """``deploy.py``'s graph bound for inference at the fit's batch with
+    the fitted weights, its forward captured and eager (A B B A): ms a
+    batch by CUDA events, the detections of each mode."""
+    dmod = mx.mod.Module(deploy, label_names=None, context=dev)
+    dmod.bind(data_shapes=[("data", data.shape)], for_training=False)
+    arg, aux = model.get_params()
+    dmod.set_params(arg, aux)
+    batch = mx.io.DataBatch(data=[data], label=None, pad=0)
+    ms, dets = {"captured": [], "eager": []}, {}
+    site0 = _site_stats("executor")
+    for mode in ("captured", "eager", "eager", "captured"):
+        prev = compile_service.set_enabled(mode == "captured")
+        try:
+            def run():
+                dmod.forward(batch, is_train=False)
+                return dmod.get_outputs()[0]
+
+            dets.setdefault(mode, run().asnumpy())
+            ms[mode].append(cuda_ms(run, iters=cfg["infer_iters"], warmup=2))
+            if mode == "captured" and "syncs" not in dets:
+                dets["syncs"] = _sync_count(run)
+        finally:
+            compile_service.set_enabled(prev)
+    site = _site_stats("executor")
+    return ms, dets, {k: site[k] - site0[k] for k in ("captures", "replays")}
+
+
+def phase_ssd512_module_fit(smi):
+    """ssd512_resnet50_v1_module_fit: MXNet 1.x's ``example/ssd``
+    ``train.py --network resnet50 --data-shape 512`` through the port's
+    ``Module.fit`` (``SSD512``; its cuts listed there). Four fits from one
+    seed, captured (site ``executor``: the training pair replayed from
+    batch 1), eager, eager, captured. Each: the host clock at each batch
+    end, launches by family (K1 one a batch over all 231 tensors, nothing
+    else), the loss, peak memory. The first captured fit also: one more
+    replayed ``forward_backward`` under ``set_sync_debug_mode`` (no host
+    sync), a profiled batch (launches, busy share); the first eager fit a
+    profiled batch split by group (backbone, extra layers and heads,
+    MultiBoxTarget, MultiBoxDetection with its NMS, SoftmaxOutput and
+    smooth-L1, K1). The replayed update of batch 1 against the eager one
+    (``SSD_FIT_TOL``). Then ``deploy.py``'s graph (detections alone) at the
+    same batch, captured against eager. Fails unless the executor
+    captured with no uncaptured call, a replay syncs nothing, K1 launched
+    once a batch, the replayed update matches, the first update lowered
+    the loss and every detection row is valid."""
+    t_phase = time.perf_counter()
+    cfg = SSD512
+    dev = mx.gpu(0)
+    mx.random.seed(0)
+    net, deploy, backbone = ssd_symbols(cfg)
+    s = cfg["data_shape"]
+    _, outs, _ = net.infer_shape(data=(cfg["batch"], 3, s, s),
+                                 label=(cfg["batch"], cfg["max_objects"], 5))
+    anchors = outs[3][1]
+    if anchors != cfg["anchors"]:
+        raise AssertionError(f"ssd: {anchors} anchors, expected "
+                             f"{cfg['anchors']}")
+    ops = {n["name"]: n["op"] for n in json.loads(net.tojson())["nodes"]}
+    group = _ssd_group(backbone, ops)
+    train = SSDDataIter(cfg)
+    batches = cfg["epoch_size"]
+    runs, profs, updates = [], {}, []
+    extra = {}
+    for mode in ("captured", "eager", "eager", "captured"):
+        prev = compile_service.set_enabled(mode == "captured")
+        try:
+            mx.random.seed(0)
+            model, log, update, run = _ssd_fit_once(cfg, net, train, dev)
+            updates.append(update)
+            if mode not in profs:
+                train.reset()
+                batch = train.next()
+                if mode == "captured":
+                    extra["replay_syncs"] = _sync_count(
+                        lambda: model.forward_backward(batch))
+                    extra["update_syncs"] = _sync_count(model.update)
+                profs[mode] = _profile_ssd_batch(
+                    model, batch, MultiBoxMetric(),
+                    group if mode == "eager" else None)
+        finally:
+            compile_service.set_enabled(prev)
+        run["mode"] = mode
+        runs.append(run)
+        want = dict.fromkeys(run["launches"], 0)
+        want["opt_sgd"] = batches
+        if run["launches"] != want:
+            raise AssertionError(f"ssd {mode}: launches {run['launches']}, "
+                                 f"expected {want}")
+        if (len(model._param_names), len(model._aux_names)) != (
+                cfg["tensors"], cfg["aux"]):
+            raise AssertionError(f"ssd: {len(model._param_names)} "
+                                 f"parameters, {len(model._aux_names)} aux")
+        site = run["executor_site"]
+        want_site = {"misses": 1, "hits": batches - 1, "captures": 1,
+                     "replays": 2 * (batches - 1)} if mode == "captured" \
+            else {"misses": 0, "hits": 0, "captures": 0, "replays": 0}
+        if {k: site[k] for k in want_site} != want_site or \
+                run["uncaptured"]:
+            raise AssertionError(f"ssd {mode}: executor site {site}, "
+                                 f"uncaptured {run['uncaptured']}, "
+                                 f"expected {want_site}")
+        loss0, loss1, _ = run["losses"]
+        if not (loss0 is not None and loss1 is not None and
+                math.isfinite(loss0) and loss1 < loss0):
+            raise AssertionError(f"ssd {mode}: the first update did not "
+                                 f"lower the loss: {run['losses']}")
+        if run["batch_ends"] != batches:
+            raise AssertionError(f"ssd {mode}: {run['batch_ends']} batches")
+        if mode == "captured" and len(runs) == 4:
+            last = model
+        else:
+            del model
+        torch.cuda.empty_cache()
+    if extra["replay_syncs"]:
+        raise AssertionError(f"ssd: a replayed forward_backward synced the "
+                             f"host: {extra['replay_syncs']}")
+    zero = dict.fromkeys(updates[0], 0.0)
+    agree = {name: _update_agreement(updates[a], updates[b], zero,
+                                     SSD_FIT_TOL["floor"])
+             for name, (a, b) in (("captured_vs_eager", (0, 1)),
+                                  ("eager_vs_eager", (2, 1)),
+                                  ("captured_vs_captured", (3, 0)))}
+    limit = max(SSD_FIT_TOL["at_least"], SSD_FIT_TOL["noise_factor"] * max(
+        agree["eager_vs_eager"]["max"], agree["captured_vs_captured"]["max"]))
+    agree["limit"] = limit
+    if agree["captured_vs_eager"]["max"] > limit:
+        raise AssertionError(f"ssd: the replayed update differs from the "
+                             f"eager one beyond the fits' spread: {agree}")
+    del updates
+    # deploy.py's graph at the fit's batch, with the last fit's weights
+    ms, dets, infer_site = _ssd_infer(cfg, deploy, last, dev, train._data)
+    infer_err = float(np.abs(dets["captured"] - dets["eager"]).max())
+    valid = {m: valid_detections(dets[m]) for m in ("captured", "eager")}
+    if infer_err > SSD_FIT_TOL["infer"] or not all(
+            v[0] for v in valid.values()) or dets["syncs"] or \
+            not infer_site["captures"]:
+        raise AssertionError(f"ssd inference: captured against eager "
+                             f"{infer_err}, valid {valid}, syncs "
+                             f"{dets['syncs']}, site {infer_site}")
+    train.reset()
+    last.forward(train.next(), is_train=False)
+    det_ok, det_kept = valid_detections(last.get_outputs()[3])
+    if not det_ok:
+        raise AssertionError("ssd: a training graph's detection row is "
+                             "not valid")
+    timed = {m: [v for r in runs if r["mode"] == m
+                 for v in r["batch_ms"][cfg["warmup"] - 1:]]
+             for m in ("captured", "eager")}
+    median = {m: statistics.median(v) for m, v in timed.items()}
+    cap = runs[0]
+    out = {"phase": "ssd512_resnet50_v1_module_fit", "card": smi,
+           "config": cfg, "tolerance": SSD_FIT_TOL, "tf32": False,
+           "source": "apache/incubator-mxnet example/ssd train.py "
+                     "--network resnet50 --data-shape 512 "
+                     "(symbol_factory.py resnet50)",
+           "anchors": anchors, "batches": batches,
+           "abba_order": [r["mode"] for r in runs],
+           "median_batch_ms": median["captured"],
+           "median_batch_ms_eager": median["eager"],
+           "img_per_s": cfg["batch"] / (median["captured"] / 1e3),
+           "img_per_s_eager": cfg["batch"] / (median["eager"] / 1e3),
+           "block_medians_ms": {m: [r["median_batch_ms"] for r in runs
+                                    if r["mode"] == m]
+                                for m in ("captured", "eager")},
+           "batch_ms": cap["batch_ms"], "fit_s": [r["fit_s"] for r in runs],
+           "speedometer_img_per_s": cap["speedometer_img_per_s"],
+           "max_memory_allocated": cap["max_memory_allocated"],
+           "max_memory_allocated_eager": runs[1]["max_memory_allocated"],
+           "graph_pool_bytes": cap["graph_pool_bytes"],
+           "graph_pool_bytes_eager": runs[1]["graph_pool_bytes"],
+           "launches": cap["launches"], "executor_site": cap["executor_site"],
+           "losses_first_second_last": {r["mode"] + str(i): r["losses"]
+                                        for i, r in enumerate(runs)},
+           "replay_host_syncs": extra["replay_syncs"],
+           "update_host_syncs": extra["update_syncs"],
+           "replayed_update_vs_eager": agree,
+           "profiled_captured": profs["captured"],
+           "profiled_eager": profs["eager"],
+           "detections_kept_per_image": det_kept,
+           "infer": {"ms_captured": ms["captured"], "ms_eager": ms["eager"],
+                     "img_per_s": cfg["batch"] / (statistics.median(
+                         ms["captured"]) / 1e3),
+                     "captured_vs_eager_max_abs": infer_err,
+                     "kept_per_image": valid["captured"][1],
+                     "host_syncs": dets["syncs"], "site": infer_site},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    del last, train
+    torch.cuda.empty_cache()
+    return out
+
+
 PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "train_capture", "gluon_hybrid_train", "dropout_capture",
           "int8_gemm", "serve_int8", "capture", "online_update", "decode",
@@ -9351,7 +10415,8 @@ PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "native_io", "imagenet_rec", "lstm_lm_ptb_medium",
           "lstm_ptb_bucketing", "mobilenet_v2_1_0_module_fit",
           "bert_base_sst2_finetune_lamb", "dcgan", "zoo_check",
-          "surface_check", "library_ops", "resnet50_v1_module_fit_custom")
+          "surface_check", "library_ops", "resnet50_v1_module_fit_custom",
+          "ssd512_resnet50_v1_module_fit")
 
 
 def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
@@ -9553,6 +10618,8 @@ def _run(phases):
     if "resnet50_v1_module_fit_custom" in phases:
         done["resnet50_v1_module_fit_custom"] = \
             phase_resnet50_module_fit_custom(smi)
+    if "ssd512_resnet50_v1_module_fit" in phases:
+        done["ssd512_resnet50_v1_module_fit"] = phase_ssd512_module_fit(smi)
     _emit_warnings()
     if not set(PHASES) <= set(done):
         print(f"phases run: {sorted(done)}; no result line", flush=True)
@@ -9670,6 +10737,10 @@ def _run(phases):
         # a batch
         launches_resnet50_v1_module_fit_custom=done[
             "resnet50_v1_module_fit_custom"]["launches"]["opt_sgd"],
+        # this slice: SSD-512 on ResNet-50 through Module.fit, one launch
+        # a batch over its 231 tensors
+        launches_ssd512_resnet50_v1_module_fit=done[
+            "ssd512_resnet50_v1_module_fit"]["launches"]["opt_sgd"],
         # this slice: one launch per replayed step of each ResNet-50 cell
         launches_per_replay={p: done[p]["captured"][
             "k1_launches_per_replay"] for p in (

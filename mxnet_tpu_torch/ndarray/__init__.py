@@ -4,14 +4,14 @@
 Counterpart of ``mxnet_tpu/ndarray/__init__.py``: every registered op is
 exposed as a module-level function taking NDArrays positionally and
 hyper-parameters by keyword; ``_contrib_*`` ops appear under
-``nd.contrib`` without the prefix. ``Dropout`` is overridden, as in the
+``nd.contrib`` without the prefix (``ndarray/contrib.py``, with the
+control flow). ``Dropout`` is overridden, as in the
 JAX package, to draw from ``mx.random``'s generator in train mode.
 ``nd.random`` holds the samplers (``uniform``, ``normal``, ``gamma``, ...).
 """
 from __future__ import annotations
 
 import sys as _sys
-import types as _types
 
 from .. import autograd as _autograd
 from .. import ops as _ops  # noqa: F401  (registers every op)
@@ -47,16 +47,14 @@ def _make_wrapper(op_name, exposed):
 
 
 _mod = _sys.modules[__name__]
-contrib = _types.ModuleType(__name__ + ".contrib",
-                            "Contrib ops (``_contrib_<name>`` as ``<name>``).")
 for _name in _registry.list_ops():
     if _name.startswith("_contrib_"):
-        _short = _name[len("_contrib_"):]
-        setattr(contrib, _short, _make_wrapper(_name, _short))
         continue
     for _exposed in (_name,) + _registry.aliases(_name):
         if not hasattr(_mod, _exposed):
             setattr(_mod, _exposed, _make_wrapper(_name, _exposed))
+
+from . import contrib  # noqa: E402  (needs _make_wrapper)
 
 
 def Dropout(data, p=0.5, mode="training", axes=(), generator=None,

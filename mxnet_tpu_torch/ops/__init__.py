@@ -9,6 +9,7 @@ from . import pallas_ops  # noqa: F401
 from . import quantization  # noqa: F401
 from . import random_ops  # noqa: F401
 from . import custom  # noqa: F401
+from . import contrib_ops  # noqa: F401
 from . import la_op  # noqa: F401  (last: aliases every linalg_* op)
 
 __all__ = ["registry"]

@@ -4,13 +4,12 @@
 Counterpart of ``mxnet_tpu/symbol/__init__.py`` and ``symbol/contrib.py``:
 every registered op is a function that composes a node from Symbol
 inputs and keyword attributes; ``_contrib_*`` ops appear under
-``sym.contrib`` without the prefix; ``invoke(name, ...)`` composes any
-op by name.
+``sym.contrib`` without the prefix (``symbol/contrib.py``);
+``invoke(name, ...)`` composes any op by name.
 """
 from __future__ import annotations
 
 import sys as _sys
-import types as _types
 
 from .. import ops as _ops  # noqa: F401  (registers every op)
 from ..ops import registry as _registry
@@ -35,13 +34,11 @@ def _make_wrapper(op_name, exposed):
 
 
 _mod = _sys.modules[__name__]
-contrib = _types.ModuleType(__name__ + ".contrib",
-                            "Contrib ops (``_contrib_<name>`` as ``<name>``).")
 for _name in _registry.list_ops():
     if _name.startswith("_contrib_"):
-        _short = _name[len("_contrib_"):]
-        setattr(contrib, _short, _make_wrapper(_name, _short))
         continue
     for _exposed in (_name,) + _registry.aliases(_name):
         if not hasattr(_mod, _exposed):
             setattr(_mod, _exposed, _make_wrapper(_name, _exposed))
+
+from . import contrib  # noqa: E402  (needs _make_wrapper)

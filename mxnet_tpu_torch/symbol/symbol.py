@@ -41,6 +41,9 @@ from ..ops.nn import rnn_param_size
 
 __all__ = ["Symbol", "var", "Group", "load", "load_json"]
 
+# the ops whose training forward writes running statistics into their
+# auxiliary inputs 3 and 4
+_BATCH_NORMS = ("BatchNorm", "BatchNorm_v1", "_contrib_SyncBatchNorm")
 # auto-created parameter inputs of layer ops:
 # arg name -> (suffix, skip_if, is_aux)
 _LAYER_PARAMS = {
@@ -61,10 +64,11 @@ _LAYER_PARAMS = {
     "LeakyReLU": {"gamma": ("gamma",
                             lambda a: a.get("act_type", "leaky") != "prelu",
                             False)},
-    "BatchNorm": {"gamma": ("gamma", None, False),
-                  "beta": ("beta", None, False),
-                  "moving_mean": ("moving_mean", None, True),
-                  "moving_var": ("moving_var", None, True)},
+    **{bn: {"gamma": ("gamma", None, False),
+            "beta": ("beta", None, False),
+            "moving_mean": ("moving_mean", None, True),
+            "moving_var": ("moving_var", None, True)}
+       for bn in _BATCH_NORMS},
     "LayerNorm": {"gamma": ("gamma", None, False),
                   "beta": ("beta", None, False)},
     "Embedding": {"weight": ("weight", None, False)},
@@ -395,7 +399,11 @@ class Symbol:
         ``old * momentum + batch * (1 - momentum)`` from the op's batch
         mean and biased variance, outside autograd: the executor's aux
         arrays keep their storage (the JAX ``_bn_aux_update``
-        returns new arrays that its executor rebinds)."""
+        returns new arrays that its executor rebinds). While
+        ``torch.profiler`` records, each node's op call runs inside a
+        ``record_function("node:<name>")`` range, so a trace attributes
+        the forward's kernels (and, by sequence number, the backward's)
+        to graph nodes; otherwise that costs one flag read a run."""
         order = _topo(self._entries)
         heads = [(id(n), i) for n, i in self._entries]
         last_use = {}
@@ -410,7 +418,7 @@ class Symbol:
             op = (None, False) if node.is_var else _op(node.op)
             kwargs = _op_kwargs(node.attrs)
             stats = None
-            if update_aux and node.op == "BatchNorm" and \
+            if update_aux and node.op in _BATCH_NORMS and \
                     not kwargs.get("use_global_stats", False):
                 stats = [(out, node.inputs[slot][0].name)
                          for out, slot in ((1, 3), (2, 4))
@@ -420,12 +428,20 @@ class Symbol:
 
         def run(args, auxs=None, training=False):
             vals = {}
+            labelled = torch._C._autograd._profiler_enabled()
             for node, op, kwargs, ins, done, stats in steps:
                 if node.is_var:
                     vals[id(node), 0] = (auxs if node.is_aux and auxs
                                          is not None else args)[node.name]
                     continue
-                outs = _call(*op, [vals[k] for k in ins], kwargs, training)
+                if labelled:
+                    with torch.profiler.record_function(
+                            f"node:{node.name}"):
+                        outs = _call(*op, [vals[k] for k in ins], kwargs,
+                                     training)
+                else:
+                    outs = _call(*op, [vals[k] for k in ins], kwargs,
+                                 training)
                 for k in done:
                     del vals[k]
                 for i, o in enumerate(outs):
@@ -642,7 +658,7 @@ def _param_shape_rules(node, data):
                                attrs.get("num_layers", 1),
                                attrs.get("mode", "lstm"),
                                attrs.get("bidirectional", False)),))
-    elif node.op == "BatchNorm":
+    elif node.op in _BATCH_NORMS:
         for i in (1, 2, 3, 4):
             put(i, (dshape[attrs.get("axis", 1)],), "float32")
     elif node.op in ("SoftmaxOutput", "SVMOutput"):

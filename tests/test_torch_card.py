@@ -2348,3 +2348,118 @@ def test_syevd_is_a_host_op_that_runs_uncaptured(cuda_device):
         with torch.cuda.graph(graph):
             reg.get("_linalg_syevd")(x)
     torch.cuda.synchronize()
+
+
+def _small_ssd():
+    """``chip_smoke``'s SSD builders on a narrow backbone: three conv-ReLU
+    layers (strides 2, 4, 8), two feature layers from it and one extra,
+    at 64 x 64."""
+    import chip_smoke as cs
+
+    x = mx.sym.var("data")
+    for i, (f, s) in enumerate(((8, 2), (16, 2), (16, 2))):
+        x = mx.sym.Convolution(x, kernel=(3, 3), pad=(1, 1), stride=(s, s),
+                               num_filter=f, name=f"body{i}")
+        x = mx.sym.Activation(x, act_type="relu", name=f"body{i}_relu")
+    layers = cs.ssd_multi_layer_feature(
+        mx, x, ["body1_relu", "body2_relu", ""], (-1, -1, 32), (-1, -1, 2),
+        (-1, -1, 1), min_filter=16)
+    sym = cs.ssd_symbol_train(
+        mx, layers, 3, ((.2, .3), (.4, .5), (.6, .8)),
+        ((1, 2, .5), (1, 2, .5, 3, 1. / 3), (1, 2, .5)), nms_thresh=0.45,
+        nms_topk=20)
+    return sym, cs.ssd_batch(4, 64, 3, 4, seed=0)
+
+
+def _bound_ssd(sym, batch, ctx):
+    x, y = batch
+    ex = sym.simple_bind(ctx, grad_req="write", data=x.shape, label=y.shape)
+    rs = np.random.RandomState(1)
+    for name, arr in sorted(ex.arg_dict.items()):
+        v = x if name == "data" else y if name == "label" else \
+            (rs.randn(*arr.shape) * 0.1).astype(np.float32)
+        arr._data.copy_(torch.from_numpy(v))
+    return ex
+
+
+def _ssd_step(ex):
+    outs = [o._data.clone() for o in ex.forward(is_train=True)]
+    ex.backward()
+    return outs, {n: g._data.clone() for n, g in ex.grad_dict.items()
+                  if n not in ("data", "label")}
+
+
+@pytest.mark.gpu
+def test_ssd_executor_replays_with_no_host_sync_and_equals_eager(
+        cuda_device):
+    """The SSD training graph (MultiBoxTarget, SoftmaxOutput, smooth-L1,
+    MakeLoss, MultiBoxDetection with its NMS) as the executor's captured
+    pair: the first call eager, the second captured, the third a replay
+    that syncs nothing with the host (``set_sync_debug_mode("error")``)
+    and equals the eager step from the same weights (cuDNN's weight
+    gradients sum in varying order: rtol 1e-4)."""
+    from mxnet_tpu_torch import compile as mxc
+
+    sym, batch = _small_ssd()
+    want_outs, want_grads = _eager(
+        lambda: _ssd_step(_bound_ssd(sym, batch, mx.gpu(0))))
+    ex = _bound_ssd(sym, batch, mx.gpu(0))
+    before = dict(mxc.stats().get("executor", {"captures": 0, "replays": 0}))
+    for _ in range(2):
+        _ssd_step(ex)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs, grads = _ssd_step(ex)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    st = mxc.stats()["executor"]
+    assert st["captures"] - before["captures"] == 1
+    assert st["replays"] - before["replays"] >= 4
+    assert not st["uncaptured"]
+    for got, want in zip(outs, want_outs):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    for name, want in want_grads.items():
+        torch.testing.assert_close(grads[name], want, rtol=1e-4, atol=1e-6,
+                                   msg=name)
+
+
+@pytest.mark.gpu
+def test_nms_and_multibox_target_match_the_cpu_on_ties(cuda_device):
+    """At SSD-512's 6132 anchors, with exact duplicates and tied scores:
+    NMS keeps the same rows on the card as on the CPU (the stable sort
+    keeps the first of equal boxes), and ``MultiBoxTarget`` picks the same
+    hard negatives among equal confidences."""
+    rs = np.random.RandomState(5)
+    n = 6132
+    xy = rs.uniform(0, 0.7, (4, n, 2))
+    boxes = np.concatenate([xy, xy + rs.uniform(0.05, 0.3, (4, n, 2))], -1)
+    boxes[:, 1::2] = boxes[:, ::2]
+    scores = np.round(rs.uniform(0, 1, (4, n, 1)), 1)
+    ids = rs.randint(0, 5, (4, n, 1))
+    det = np.concatenate([ids, scores, boxes], -1).astype(np.float32)
+    kw = dict(overlap_thresh=0.45, valid_thresh=0.01, topk=400, id_index=0)
+    nms = reg.get("box_nms")
+    got = nms(torch.tensor(det, device=cuda_device), **kw).cpu()
+    want = nms(torch.tensor(det), **kw)
+    assert torch.equal(got, want)
+    assert ((want == -1).all(-1)).any() and ((want != -1).all(-1)).any()
+    anchors = reg.get("MultiBoxPrior")(torch.zeros(1, 1, 32, 32),
+                                       sizes=(.1, .141), ratios=(1, 2, .5))
+    anchors = torch.cat([anchors] * 2, 1)[:, :n]
+    label = np.full((4, 8, 5), -1, np.float32)
+    for i in range(4):
+        k = i + 2
+        label[i, :k, 0] = rs.randint(0, 20, k)
+        xy = rs.uniform(0, 0.5, (k, 2))
+        label[i, :k, 1:] = np.concatenate([xy, xy + 0.3], -1)
+    pred = np.full((4, 21, n), 0.5, np.float32)
+    target = reg.get("MultiBoxTarget")
+    args = [anchors, torch.tensor(label), torch.tensor(pred)]
+    mkw = dict(negative_mining_ratio=3, negative_mining_thresh=0.5)
+    got = target(*[a.to(cuda_device) for a in args], **mkw)
+    want = target(*args, **mkw)
+    assert torch.equal(got[2].cpu(), want[2])
+    assert torch.equal(got[1].cpu(), want[1])
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-5)
+    assert (want[2] == 0).any() and (want[2] == -1).any()
