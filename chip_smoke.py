@@ -330,14 +330,14 @@ Phases, each printing one JSON line:
     packed here by ``recordio.pack_img`` (seconds, bytes a record), read
     by ``ImageRecordIter(shuffle, rand_crop, rand_mirror)`` with 4 decode
     threads and 2 batches of prefetch. The iterator alone (3 readings
-    of 20 batches after 2 warm-ups, at 4 threads and at
+    of 12 batches after 2 warm-ups, at 4 threads and at
     ``os.cpu_count()``; one of 4 batches at 1 thread, each stage's cost
     without contention): img/s and ms a batch by stage (read, draws,
     inflate, unfilter + resample + augment, normalise, the copy to the
     card). Then ``Module.fit`` with resnet50_v1_module_fit's wiring
-    (executor captured), 60 batches a fit (three passes over the
+    (executor captured), 40 batches a fit (two passes over the
     records), four fits A B B A: records, synthetic, synthetic, records:
-    over batches 4-60, all images over all wall time (img/s), the mean
+    over batches 4-40, all images over all wall time (img/s), the mean
     batch, the share of that time ``next()`` waited (``data_wait``),
     Speedometer's img/s, K1 one launch a batch and nothing else, a
     finite loss. Then the iterator's
@@ -437,6 +437,28 @@ Phases, each printing one JSON line:
     MultiBoxTarget, MultiBoxDetection with its NMS, SoftmaxOutput and
     smooth-L1, K1), no host sync in a replay, then ``deploy.py``'s
     detection graph at batch 32 captured against eager.
+36. bert_base_sst2_finetune_zero: the fine-tune cell (BERT-base, "adam",
+    batch 32, seq 128, float32, TF32 off) under ``ShardedTrainer(...,
+    mesh=DeviceMesh({"dp": 1}), zero=True, rules=sharding_rules(...))``:
+    ``warmup`` before the first batch (one capture, no replay, the state
+    and the generator untouched; the first step a replay), the warmed
+    trainer after 3 and 5 steps bit for bit against a cold ``zero=False``
+    one, 20 steps with ``step_report()`` (step ms, the phases plus
+    ``other`` summing to ``duration_ms``, ``flops`` equal to
+    ``classifier_step_flops``, ``mfu_xla`` against 989.4 TFLOP/s, the
+    fine-tune's launches), ``mxtpu_device_memory_peak_bytes`` against
+    ``torch.cuda.max_memory_allocated()``, telemetry on against off (A B
+    B A, 10 steps a block), ``donate=False`` against ``donate=True`` (A B
+    B A: step ms, the peak a block adds, the trainer's persistent bytes;
+    a parameter's and a state's tensor taken before a step keep their
+    values), ``unshard(ctx=mx.cpu())`` and the block's CPU forward
+    against the card's ``predict`` (``CPU_TOL``), then the classifier
+    served behind ``HttpFrontEnd`` with tracing on: 48 requests from 4
+    threads (half with the caller's ``X-Request-Id``), each answer with
+    its id and five phases and equal to the block's output
+    (``SERVE_TOL``), ``GET /metrics`` against ``ModelServer.stats()``
+    (requests, batches, rows), K3 12 launches a batch, and
+    ``trace.dump()`` a valid Chrome trace.
 
 The twobit phase also holds the single-tensor compress and the
 decompress in float16 and bfloat16 bit for bit against their plain
@@ -455,7 +477,8 @@ with their times at the LM's shape; K2, K3 and K3-bwd with their
 launches in online_update; K2 with its launches and device ms a batch in
 lstm_ptb_bucketing; K1 with its launches in the MobileNet v2 fit and
 none in its NAG fit; K2 with its launches in dcgan and none under
-"lamb"; K6 and K7 with their half-precision times), the
+"lamb"; K6 and K7 with their half-precision times; K2, K3 and K3-bwd
+with their launches in bert_base_sst2_finetune_zero), the
 card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure is an
 exception and a non-zero exit. ``--phases`` runs a subset (device and
@@ -654,23 +677,25 @@ MODULE_CHECK_TOL = {"out": 1e-4, "aux": 1e-4, "step_l2": 0.05}
 # pack_img (1000 classes; 256 x 341 landscape and 341 x 256 portrait
 # smooth random fields plus noise, from RandomState(0)), read by
 # ImageRecordIter(shuffle, rand_crop, rand_mirror) with the JAX package's
-# defaults (4 decode threads, 2 batches of prefetch). The cut: 60 batches
-# a fit (3 warm-up, 57 timed; three passes over the records, so the
+# defaults (4 decode threads, 2 batches of prefetch). The cut: 40 batches
+# a fit (3 warm-up, 37 timed; two passes over the records, so the
 # prefetched batches drain and the producer's pace shows), for the
-# synthetic batch too in this phase.
+# synthetic batch too in this phase; 40 and 12 batches (the iterator
+# alone's readings) since bert_base_sst2_finetune_zero joined the script,
+# which keeps its time.
 NATIVE_IO = {"images": 64, "sizes": [(256, 341), (341, 256), (37, 53),
                                      (64, 48)]}
 IMAGENET_REC = {"images": 2560, "classes": 1000, "landscape": (256, 341),
                 "noise": 4.0, "data_shape": (3, 224, 224), "batch": 128,
-                "threads": 4, "prefetch": 2, "warmup": 2, "timed": 20,
-                "reps": 3, "alone_timed": 4, "fit_batches": 60,
+                "threads": 4, "prefetch": 2, "warmup": 2, "timed": 12,
+                "reps": 3, "alone_timed": 4, "fit_batches": 40,
                 "plain_batches": 2, "resume_at": 5, "resume_next": 3,
                 "thumbnail": {"model": "resnet18_v1", "classes": 1000,
                               "batch": 8, "size": 32, "steps": 3,
                               "after": 2},
                 "reduced": "2,560 images packed at run time (not the "
-                           "1,281,167 of ImageNet's train set); 60 "
-                           "batches a fit (three passes over the set), "
+                           "1,281,167 of ImageNet's train set); 40 "
+                           "batches a fit (two passes over the set), "
                            "not 10009"}
 
 # examples/gluon/transformer_lm.py's defaults, and the same LM at
@@ -6633,9 +6658,9 @@ def phase_imagenet_rec(smi):
     The iterator alone (3 readings at 4 decode threads and at
     ``os.cpu_count()``, one at 1 thread): img/s and ms by stage.
     ``Module.fit`` as resnet50_v1_module_fit wires it (``MODULE_FIT``, the
-    executor captured) but over ``fit_batches`` (60) batches, so that the
+    executor captured) but over ``fit_batches`` (40) batches, so that the
     two prefetched batches cannot cover the producer's pace; four fits A
-    B B A: records, synthetic, synthetic, records; over batches 4-60 of
+    B B A: records, synthetic, synthetic, records; over batches 4-40 of
     each: all images over all wall time, the mean batch, the sum of the
     ms ``next()`` waited (``data_wait``) over the sum of batch time,
     Speedometer's img/s, launches (K1 one a batch, nothing else) and a
@@ -10403,6 +10428,468 @@ def phase_ssd512_module_fit(smi):
     return out
 
 
+# bert_base_sst2_finetune_zero: the fine-tune cell's trainer under the
+# options of ShardedTrainer this slice ports, and the telemetry stack
+FINETUNE_ZERO = {"bit_steps": 5, "warm_check": 3, "report_steps": 20,
+                 "abba_steps": 10, "warmup": 2, "predict_rows": 4}
+# phases plus "other" against duration_ms: each of the six is rounded to
+# 1e-3 ms, so they may differ by up to 6 x 5e-4 ms
+PHASE_SUM_TOL_MS = 3.5e-3
+H100_BF16_TFLOPS = 989.4   # NVIDIA's dense bf16 peak of the SXM H100
+
+
+def classifier_step_flops(cfg, batch):
+    """The flops of one "adam" ``ShardedTrainer`` step of
+    :func:`build_classifier` as the port counts them
+    (``telemetry.costs``): each Dense 2·rows·in·out forward and twice
+    that backward (every Dense's input gradient is needed: the encoder's
+    input is the trainable embedding's output), K3 4·B·S·S·U and K3-bwd
+    10·B·S·S·U a layer (the heads' B·H·S·S·D with U = H·D), K2 15 a
+    parameter element. Elementwise aten ops are not counted."""
+    b, s, u, h = batch, cfg["seq_len"], cfg["units"], cfg["hidden"]
+    rows = b * s
+    dense = cfg["layers"] * (4 * 2 * rows * u * u + 2 * 2 * rows * u * h)
+    dense += 2 * b * u * u + 2 * b * u * cfg["num_classes"]
+    attention = cfg["layers"] * (4 + 10) * b * s * s * u
+    params = sum(int(np.prod(v)) for v in classifier_shapes(cfg).values())
+    return 3 * dense + attention + 15 * params
+
+
+def _states_equal(a, b):
+    """Whether two trainers' weights, aux and optimizer state are equal
+    bit for bit."""
+    return all(torch.equal(u, v) for u, v in zip(
+        a._state_tensors().values(), b._state_tensors().values()))
+
+
+def _tsteps_begin_end(rec):
+    """Open and close one step record shaped like ``rec`` (its phases
+    and flops): the step timeline's host work alone."""
+    from mxnet_tpu_torch.telemetry import steps as tsteps
+
+    tsteps.begin_step(rec["step"] + 1)
+    for name, ms in rec["phases"].items():
+        if name != "other":
+            tsteps.phase(name, ms)
+    tsteps.end_step(flops=rec.get("flops"))
+
+
+def _median_ms(st, x, y, steps):
+    ms = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        float(st.step(x, y)._data.float())
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ms), ms
+
+
+def _traced_post(port, x, rid):
+    """One predict request through the HTTP front end, with
+    ``X-Request-Id`` when ``rid`` is given: ``(status, body, header
+    id)``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        headers = {"Content-Type": "application/json"}
+        if rid is not None:
+            headers["X-Request-Id"] = rid
+        conn.request("POST", "/v1/models/bert_base_sst2_zero:predict",
+                     json.dumps({"data": x.tolist()}), headers)
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read()), \
+            resp.getheader("X-Request-Id")
+    finally:
+        conn.close()
+
+
+def _scraped(text, name, **labels):
+    """A metric's value in a Prometheus text, or None."""
+    for line in text.splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            if all(f'{k}="{v}"' in line for k, v in labels.items()):
+                return float(line.rsplit(" ", 1)[1])
+    return None
+
+
+def _chrome_events(path):
+    """The events of a Chrome-trace JSON file, each checked for the
+    fields a viewer needs."""
+    with open(path) as f:
+        payload = json.load(f)
+    events = payload["traceEvents"]
+    if payload.get("displayTimeUnit") != "ms" or not events:
+        raise AssertionError(f"trace dump {path}: no events")
+    for ev in events:
+        if not {"name", "ph", "ts", "pid", "tid"} <= set(ev) or \
+                ev["ph"] not in ("X", "i", "M") or \
+                (ev["ph"] == "X" and ev["dur"] < 0):
+            raise AssertionError(f"trace dump: bad event {ev}")
+    return events
+
+
+def _finetune_zero_serving(cfg, weights):
+    """Item 8: the classifier served behind the HTTP front end, tracing
+    on, 48 requests from 4 threads (half with the caller's
+    ``X-Request-Id``); every answer carries its id and five phases and
+    equals the block's output; ``GET /metrics`` against ``stats()``; the
+    trace dump."""
+    from mxnet_tpu_torch.telemetry import trace
+
+    trace.clear()
+    clf = _classifier_on(mx.gpu(0), cfg, weights)
+    model = serving.ServedModel.from_block("bert_base_sst2_zero", clf,
+                                           example_shape=(cfg["seq_len"],))
+    server = serving.ModelServer(serving.ModelContainer([model])).start()
+    front = None
+    try:
+        server.warmup()
+        front = serving.HttpFrontEnd(server).start()
+        payloads = _traffic(cfg)
+        answers = [[None] * len(row) for row in payloads]
+        kernels.reset_launch_counts()
+
+        def client(i):
+            for j, x in enumerate(payloads[i]):
+                rid = f"zero-{i}-{j}" if j % 2 == 0 else None
+                answers[i][j] = (rid,) + _traced_post(front.port, x, rid)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(payloads))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            if t.is_alive():
+                raise RuntimeError("an HTTP client did not finish")
+        launches = kernels.launch_counts()["flash_attention"]
+        ids, worst = set(), 0.0
+        for row_p, row_a in zip(payloads, answers):
+            for x, (rid, status, body, hdr) in zip(row_p, row_a):
+                phases = body.get("phases") or {}
+                if status != 200 or body["request_id"] != hdr or \
+                        (rid is not None and hdr != rid) or \
+                        any(phases.get(k) is None
+                            for k in trace.REQUEST_PHASES) or \
+                        not phases.get("total_ms", 0) > 0:
+                    raise AssertionError(f"finetune_zero serving: answer "
+                                         f"{status} {hdr} {body.keys()} "
+                                         f"{phases}")
+                ids.add(hdr)
+                got = np.asarray(body["outputs"][0], np.float32)
+                with torch.inference_mode():
+                    want = clf(mx.nd.array(x)).asnumpy()
+                np.testing.assert_allclose(got, want, rtol=SERVE_TOL,
+                                           atol=SERVE_TOL)
+                worst = max(worst, float(np.abs(got - want).max()))
+        n = sum(len(row) for row in payloads)
+        if len(ids) != n:
+            raise AssertionError(f"{len(ids)} request ids for {n} answers")
+        import urllib.request
+
+        with urllib.request.urlopen(front.url + "/metrics",
+                                    timeout=60) as resp:
+            status, text = resp.status, resp.read().decode()
+        stats = server.stats()["models"][model.name]
+        scraped = {k: _scraped(text, name, model=model.name, **lab)
+                   for k, name, lab in (
+                       ("completed", "mxtpu_serving_requests_total",
+                        {"outcome": "completed"}),
+                       ("batches", "mxtpu_serving_batches_total", {}),
+                       ("rows", "mxtpu_serving_rows_total", {}))}
+        rows = sum(x.shape[0] for row in payloads for x in row)
+        if status != 200 or scraped != {
+                k: float(stats[k]) for k in scraped} or \
+                stats["completed"] != n or stats["rows"] != rows:
+            raise AssertionError(f"/metrics {status} {scraped} against "
+                                 f"stats {stats}")
+        if launches != cfg["layers"] * stats["batches"]:
+            raise AssertionError(f"finetune_zero serving: {launches} flash "
+                                 f"launches for {stats['batches']} batches")
+        breakdowns = [b["phases"] for row in answers for (_, _, b, _) in row]
+        with tempfile.TemporaryDirectory() as d:
+            events = _chrome_events(trace.dump(os.path.join(d,
+                                                            "trace.json")))
+        cats = {e.get("cat") for e in events}
+        if not {"trace.request", "trace.phase"} <= cats:
+            raise AssertionError(f"trace dump categories {cats}")
+        return {"requests": n, "rows": rows, "batches": stats["batches"],
+                "scraped": scraped, "flash_launches": launches,
+                "max_abs_err_vs_block": worst,
+                "median_phase_ms": {k: statistics.median(
+                    b[k] for b in breakdowns)
+                    for k in (*trace.REQUEST_PHASES, "total_ms")},
+                "trace_events": len(events), "trace_categories": sorted(
+                    c for c in cats if c)}
+    finally:
+        if front is not None:
+            front.close()
+        server.drain(timeout=60)
+        server.stop()
+
+
+def phase_bert_finetune_zero(smi):
+    """bert_base_sst2_finetune_zero: the fine-tune cell (BERT-base, "adam",
+    batch 32, seq 128) under ``ShardedTrainer(..., zero=True,
+    rules=sharding_rules(...))`` on ``DeviceMesh({"dp": 1})``:
+    ``warmup`` (one capture, no step, the state untouched; the first step
+    a replay; 3 steps bit for bit a cold trainer's), ``zero=True`` against
+    ``zero=False`` (5 steps, bit for bit), 20 steps with
+    ``step_report()`` (phases summing to the duration, the flops equal to
+    :func:`classifier_step_flops`, ``mfu_xla`` against 989.4 TFLOP/s, the
+    fine-tune's launches), the peak-memory gauge against
+    ``torch.cuda.max_memory_allocated()``, ``donate=False`` against
+    ``donate=True`` (A B B A: step ms, peak added, its persistent bytes; a
+    tensor taken before a step keeps its values), telemetry on against off
+    (A B B A), ``unshard(ctx=mx.cpu())`` and the CPU forward against the
+    card's ``predict``, and the served classifier over HTTP with tracing
+    on (:func:`_finetune_zero_serving`)."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch import random as mx_random
+    from mxnet_tpu_torch.parallel import sharding_rules
+    from mxnet_tpu_torch.telemetry import costs, memory, registry
+
+    t_phase = time.perf_counter()
+    # the modules the flop count and aot_lower import at their first use
+    # (already imported when an earlier phase made a compiled entry)
+    import torch.utils.flop_counter  # noqa: F401
+    import torch._subclasses.fake_tensor  # noqa: F401
+    import_ms = (time.perf_counter() - t_phase) * 1e3
+    cfg, tr, fz = BERT_BASE, TRAIN, FINETUNE_ZERO
+    layers, steps = cfg["layers"], fz["report_steps"]
+    weights = random_params(cfg, seed=0)
+    x, y = make_task(tr["batch"], cfg["seq_len"], cfg["vocab"],
+                     cfg["num_classes"], seed=5)
+    xb, yb = mx.nd.array(x), mx.nd.array(y)
+    mesh = DeviceMesh({"dp": 1})
+
+    def trainer(clf=None, **kw):
+        clf = clf or _classifier_on(mx.gpu(0), cfg, weights)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        st = ShardedTrainer(clf, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                            "adam", {"learning_rate": tr["lr"],
+                                     "wd": tr["wd"]}, mesh=mesh, **kw)
+        torch.cuda.synchronize()
+        return clf, st, torch.cuda.memory_allocated() - before
+
+    # 1. warmup: one capture and no step
+    clf = _classifier_on(mx.gpu(0), cfg, weights)
+    rules = sharding_rules(clf.collect_params(), mesh)
+    clf, st, _ = trainer(clf, zero=True, rules=rules)
+    if st.topology_meta()["zero"] is not True or any(rules.values()):
+        raise AssertionError("finetune_zero: zero not recorded, or a rule "
+                             "that shards on one device")
+    start = _snapshot(st)
+    gen = mx_random.generator(st._device).get_state()
+    site0 = _site_stats("trainer")
+    t0 = time.perf_counter()
+    report = st.warmup(xb, yb)
+    warmup_ms = (time.perf_counter() - t0) * 1e3
+    site1 = _site_stats("trainer")
+    untouched = all(torch.equal(a, b) for a, b in zip(
+        start[0], st._state_tensors().values())) and st._t == 0 and \
+        torch.equal(gen, mx_random.generator(st._device).get_state())
+    kernels.reset_launch_counts()
+    st.step(xb, yb)
+    site2 = _site_stats("trainer")
+    first = {k: v for k, v in kernels.launch_counts().items() if v}
+    warm = {"captures": site1["captures"] - site0["captures"],
+            "replays": site1["replays"] - site0["replays"],
+            "first_step_captures": site2["captures"] - site1["captures"],
+            "first_step_replays": site2["replays"] - site1["replays"],
+            "ms": warmup_ms, "report": report, "state_untouched": untouched,
+            "first_step_launches": first}
+    if (warm["captures"], warm["replays"], warm["first_step_captures"],
+            warm["first_step_replays"]) != (1, 0, 0, 1) or not untouched:
+        raise AssertionError(f"finetune_zero warmup: {warm}")
+    # 1 and 3: against a cold zero=False trainer, bit for bit
+    _, cold, cold_bytes = trainer()
+    cold.step(xb, yb)
+    bitwise = {}
+    for k in range(2, fz["bit_steps"] + 1):
+        st.step(xb, yb)
+        cold.step(xb, yb)
+        if k in (fz["warm_check"], fz["bit_steps"]):
+            bitwise[k] = _states_equal(st, cold)
+    if not all(bitwise.values()):
+        raise AssertionError(f"finetune_zero: warmed zero=True against "
+                             f"cold zero=False: bit for bit {bitwise}")
+    del cold
+    torch.cuda.empty_cache()
+
+    # 2. twenty steps with step_report
+    kernels.reset_launch_counts()
+    reports = []
+    for _ in range(steps):
+        st.step(xb, yb)
+        reports.append(st.step_report())
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    want_counts = {"opt_adam": steps}
+    for f in ("flash_attention", "flash_attention_bwd_dq",
+              "flash_attention_bwd_dkv"):
+        want_counts[f] = want_counts[f + ".mma"] = layers * steps
+    flops = classifier_step_flops(cfg, tr["batch"])
+    peak = costs.peak_tflops()
+    sums = [abs(sum(r["phases"].values()) - r["duration_ms"])
+            for r in reports]
+    # mfu_xla from the unrounded duration, rounded to 5 places: 1e-5
+    bad = [r for r in reports if r.get("flops") != flops or
+           abs(r["mfu_xla"] - costs.mfu_xla(
+               flops, 1e3 / r["duration_ms"], peak=H100_BF16_TFLOPS)) > 1e-5]
+    if counts != want_counts or peak != H100_BF16_TFLOPS or bad or \
+            max(sums) > PHASE_SUM_TOL_MS:
+        raise AssertionError(f"finetune_zero reports: launches {counts} "
+                             f"(want {want_counts}), peak {peak}, flops "
+                             f"{flops}, off {bad[:1]}, phase sums {sums}")
+    report_ms = [r["duration_ms"] for r in reports]
+
+    # 5. the peak-memory gauge against the allocator's peak
+    memory.sample()
+    gauge = registry.get("mxtpu_device_memory_peak_bytes").series()
+    torch_peak = torch.cuda.max_memory_allocated(0)
+    if gauge.get(("gpu:0",)) != float(torch_peak):
+        raise AssertionError(f"peak gauge {gauge} against {torch_peak}")
+
+    # 6. telemetry on against off, A B B A over the captured step
+    n = fz["abba_steps"]
+    tele = []
+    for on in (True, False, False, True):
+        prev = telemetry.set_enabled(on)
+        try:
+            med, ms = _median_ms(st, xb, yb, n)
+        finally:
+            telemetry.set_enabled(prev)
+        tele.append({"telemetry": on, "median_ms": med, "step_ms": ms})
+    on_ms = [b["median_ms"] for b in tele if b["telemetry"]]
+    off_ms = [b["median_ms"] for b in tele if not b["telemetry"]]
+    # the hooks' parts on the host: a memory sample, and the step record
+    # closed with everything else (end_step, its span, gauges, flight)
+    t0 = time.perf_counter()
+    for _ in range(100):
+        memory.device_memory()
+    memory_sample_us = (time.perf_counter() - t0) * 1e4
+    last = dict(reports[-1])
+    prev_every = os.environ.get("MXNET_TPU_TELEMETRY_MEMSAMPLE")
+    os.environ["MXNET_TPU_TELEMETRY_MEMSAMPLE"] = "0"
+    try:
+        t0 = time.perf_counter()
+        for _ in range(100):
+            _tsteps_begin_end(last)
+        record_us = (time.perf_counter() - t0) * 1e4
+    finally:
+        if prev_every is None:
+            del os.environ["MXNET_TPU_TELEMETRY_MEMSAMPLE"]
+        else:
+            os.environ["MXNET_TPU_TELEMETRY_MEMSAMPLE"] = prev_every
+    donate_profile = _profiled_step(st, xb, yb, eager=False)
+
+    # 4. donate=False against donate=True, A B B A
+    _, kept, kept_bytes = trainer(zero=True, donate=False)
+    t0 = time.perf_counter()
+    kept.warmup(xb, yb)   # a second warmup: the first one's one-time costs
+    warm["second_trainer_ms"] = (time.perf_counter() - t0) * 1e3
+    p_before = kept._train_handles[0]._data
+    s_before = kept._opt_state[0][0]
+    p_val, s_val = p_before.clone(), s_before.clone()
+    kept.step(xb, yb)
+    keeps = torch.equal(p_before, p_val) and torch.equal(s_before, s_val) \
+        and not torch.equal(kept._train_handles[0]._data, p_val)
+    del p_before, s_before, p_val, s_val
+    if not keeps:
+        raise AssertionError("finetune_zero: donate=False changed a tensor "
+                             "taken before the step")
+    donate = []
+    for which, tr_ in (("donate", st), ("keep", kept), ("keep", kept),
+                       ("donate", st)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        med, ms = _median_ms(tr_, xb, yb, n)
+        torch.cuda.synchronize()
+        donate.append({"trainer": which, "median_ms": med, "step_ms": ms,
+                       "peak_added": torch.cuda.max_memory_allocated()
+                       - base})
+    kept_profile = _profiled_step(kept, xb, yb, eager=False)
+    # donate=False's host work around the replay: the check of what was
+    # handed out, and the fresh copies (allocation and enqueue only)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        kept._adopt()
+    adopt_us = (time.perf_counter() - t0) * 5e4
+    t0 = time.perf_counter()
+    for _ in range(20):
+        kept._hand_out()
+    hand_out_us = (time.perf_counter() - t0) * 5e4
+    torch.cuda.synchronize()
+    del kept
+    torch.cuda.empty_cache()
+
+    # 7. unshard, then the block's forward on the CPU against predict
+    rows = mx.nd.array(x[:fz["predict_rows"]])
+    card = st.predict(rows).asnumpy()
+    st.unshard(ctx=mx.cpu())
+    on_cpu = all(h._data.device.type == "cpu"
+                 for h in st._train_handles + st._aux_handles)
+    with mx.cpu(), torch.inference_mode():
+        cpu = clf(mx.nd.array(x[:fz["predict_rows"]])).asnumpy()
+    np.testing.assert_allclose(cpu, card, rtol=CPU_TOL, atol=CPU_TOL)
+    if not on_cpu:
+        raise AssertionError("finetune_zero: unshard left a handle on the "
+                             "card")
+    unshard_err = float(np.abs(cpu - card).max())
+    n_tensors = len(st._param_names)
+    del st, clf
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8. the served classifier over HTTP, traced
+    served = _finetune_zero_serving(cfg, weights)
+
+    med = statistics.median(report_ms[tr["warmup"]:])
+    phase_med = {k: statistics.median(r["phases"][k] for r in reports)
+                 for k in reports[0]["phases"]}
+    out = {"phase": "bert_base_sst2_finetune_zero", "card": smi,
+           "config": cfg, **tr, "zero": True, "rules": "sharding_rules",
+           "trainable_tensors": n_tensors, "warmup": warm,
+           "bitwise_vs_cold_zero_false": bitwise,
+           "report_step_ms": report_ms, "median_step_ms": med,
+           "tokens_per_s": tr["batch"] * cfg["seq_len"] / (med / 1e3),
+           "median_phases_ms": phase_med, "last_report": reports[-1],
+           "flops": flops, "flops_reported": reports[-1]["flops"],
+           "peak_tflops": peak,
+           "mfu_xla_median": statistics.median(r["mfu_xla"]
+                                               for r in reports),
+           "max_phase_sum_gap_ms": max(sums),
+           "launches": counts, "peak_gauge_bytes": gauge[("gpu:0",)],
+           "max_memory_allocated": torch_peak,
+           "telemetry_abba": tele,
+           "telemetry_on_minus_off_ms": statistics.mean(on_ms)
+           - statistics.mean(off_ms),
+           "telemetry_spread_ms": {"on": abs(on_ms[0] - on_ms[1]),
+                                   "off": abs(off_ms[0] - off_ms[1])},
+           "donate_abba": donate,
+           "donate_false_minus_true_ms": statistics.mean(
+               b["median_ms"] for b in donate if b["trainer"] == "keep")
+           - statistics.mean(b["median_ms"] for b in donate
+                             if b["trainer"] == "donate"),
+           "donate_false_extra_bytes": kept_bytes - cold_bytes,
+           "donate_false_profiled_step": kept_profile,
+           "donate_true_profiled_step": donate_profile,
+           "donate_false_host_us": {"adopt": adopt_us,
+                                    "hand_out": hand_out_us},
+           "telemetry_host_us": {"memory_sample": memory_sample_us,
+                                 "step_record": record_us},
+           "flop_counter_import_ms": import_ms,
+           "trainer_bytes": {"donate_true": cold_bytes,
+                             "donate_false": kept_bytes},
+           "unshard_max_abs_err_vs_card": unshard_err,
+           "serving": served, "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "train_capture", "gluon_hybrid_train", "dropout_capture",
           "int8_gemm", "serve_int8", "capture", "online_update", "decode",
@@ -10416,7 +10903,7 @@ PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "lstm_ptb_bucketing", "mobilenet_v2_1_0_module_fit",
           "bert_base_sst2_finetune_lamb", "dcgan", "zoo_check",
           "surface_check", "library_ops", "resnet50_v1_module_fit_custom",
-          "ssd512_resnet50_v1_module_fit")
+          "ssd512_resnet50_v1_module_fit", "bert_base_sst2_finetune_zero")
 
 
 def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
@@ -10620,6 +11107,8 @@ def _run(phases):
             phase_resnet50_module_fit_custom(smi)
     if "ssd512_resnet50_v1_module_fit" in phases:
         done["ssd512_resnet50_v1_module_fit"] = phase_ssd512_module_fit(smi)
+    if "bert_base_sst2_finetune_zero" in phases:
+        done["bert_base_sst2_finetune_zero"] = phase_bert_finetune_zero(smi)
     _emit_warnings()
     if not set(PHASES) <= set(done):
         print(f"phases run: {sorted(done)}; no result line", flush=True)
@@ -10643,6 +11132,8 @@ def _run(phases):
     # fine-tune steps (K3, K3-bwd, K2) beside the bus and the HTTP traffic
     ou = done["online_update"]["launches"]
     bkt = done["lstm_ptb_bucketing"]
+    # this slice: the 20 reported steps of bert_base_sst2_finetune_zero
+    fzl = done["bert_base_sst2_finetune_zero"]["launches"]
     lines = [
         _kernel_line("flash_attention", "flash_attention.cu",
                      "mxnet_tpu/kernels/flash.py:38",
@@ -10666,6 +11157,12 @@ def _run(phases):
                          "launches_per_replay"]["flash_attention"],
                      lm_shape=fwd["lm_shape"],
                      launches_online_update=ou["flash_attention"],
+                     # this slice: the fine-tune under zero=True and the
+                     # traced served batches of the same phase
+                     launches_finetune_zero=fzl["flash_attention"],
+                     launches_finetune_zero_served=done[
+                         "bert_base_sst2_finetune_zero"]["serving"][
+                         "flash_launches"],
                      online_update_batches_and_steps=[
                          done["online_update"]["batches"],
                          done["online_update"]["steps"]])]
@@ -10686,6 +11183,7 @@ def _run(phases):
             launches_per_replayed_lm_step=lm["launches_per_replayed_step"][
                 f"flash_attention_bwd_{part}"],
             launches_online_update=ou[f"flash_attention_bwd_{part}"],
+            launches_finetune_zero=fzl[f"flash_attention_bwd_{part}"],
             lm_shape={"ms": bwd["lm_shape"]["ms"][part],
                       "plain_ms": bwd["lm_shape"]["ms"][f"{part}_plain"],
                       "library_ms": bwd["lm_shape"]["ms"]["library"],
@@ -10769,6 +11267,7 @@ def _run(phases):
                                   "launches_per_replayed_step"]["opt_adam"],
                               lm_tensors=lm_tensors,
                               launches_online_update=ou["opt_adam"],
+                              launches_finetune_zero=fzl["opt_adam"],
                               # this slice: BucketingModule.fit's Adam,
                               # one launch a batch over the buckets' one
                               # set of parameters and states

@@ -15,7 +15,8 @@ import os
 import numpy as _np
 import torch
 
-__all__ = ["MXNetError", "canonical_dtype", "dtype_name", "numpy_dtype",
+__all__ = ["MXNetError", "did_you_mean", "canonical_dtype", "dtype_name",
+           "numpy_dtype",
            "maybe_init_distributed", "HALF_DTYPES"]
 
 # how long a worker waits for the others at the rendezvous
@@ -24,6 +25,21 @@ RENDEZVOUS_TIMEOUT_S = 300.0
 
 class MXNetError(RuntimeError):
     """Error raised by the framework (parity: dmlc error -> MXNetError)."""
+
+
+def did_you_mean(name, candidates, n=1):
+    """A ``" (did you mean ...?)"`` suffix for a near-miss name, or ``""``
+    (``mxnet_tpu/base.py:22``: the one difflib helper of the naming
+    errors, such as a mesh's axis names)."""
+    import difflib
+
+    close = difflib.get_close_matches(str(name),
+                                      [str(c) for c in candidates], n=n)
+    if not close:
+        return ""
+    if len(close) == 1:
+        return f" (did you mean {close[0]!r}?)"
+    return f" (did you mean one of {close}?)"
 
 
 _DTYPES = {

@@ -94,6 +94,18 @@ forward of ``Module``).
   is part of the parent's graph, and so is a hybridized network inside
   a trainer's step.
 
+* **Costs.** With telemetry on, the call that makes an entry (the eager
+  first call on a card, the first plain call on the CPU) runs under
+  ``telemetry.costs.counting``: its flops (aten products, and the
+  hand-written kernels' formulas, so the CPU and the card count the
+  same) go to ``telemetry.costs.record_executable`` under the function's
+  token, with the bytes the capture's private memory pool took
+  (``temp_bytes``; the allocator's reserved bytes across the capture) in
+  the entry's record (``pool_bytes`` in :meth:`ServiceFunction.stats`).
+  A pair's first call is its forward alone: its record counts the
+  forward's flops. ``ShardedTrainer.step_report`` reads a step's flops
+  from there (``costs.flops_for``); a replay's are its capture's.
+
 * **Host ops.** A body that calls a host op (``Custom``, a library op
   of ``mx.library.load``, ``linalg_syevd``: ``ops/registry.py``) waits
   on the host in the middle of its work, which a CUDA graph cannot
@@ -486,7 +498,13 @@ def _capturing(graph, stream, what, pool=None):
         with kernels.recording(stream) as record, nested(), \
                 torch.cuda.graph(graph, pool=pool, stream=stream,
                                  capture_error_mode="thread_local"):
+            # what the graph's pool takes: the reserved bytes across the
+            # capture, from the cache torch.cuda.graph released on entry
+            # (a host read of the allocator's counters, no CUDA call)
+            reserved = torch.cuda.memory_reserved(stream.device)
             yield record
+        record.pool_bytes = torch.cuda.memory_reserved(stream.device) - \
+            reserved
         for work in record.after:
             work()
     except CaptureError:
@@ -585,9 +603,10 @@ class _Graph(_Replayer):
         self._static_in = _static_copies(leaves)
         stream = _capture_stream(device)
         with torch.no_grad():
-            with registry.watching_host_ops() as seen:
+            with registry.watching_host_ops() as seen, _counting() as cost:
                 self.first = _eager_on(stream, device, fn,
                                        _rebuild(spec, iter(self._static_in)))
+            self.cost = cost
             # a body that called a host op is not captured (_Host)
             self.host = _host_reason(seen)
             if self.host is not None:
@@ -600,6 +619,7 @@ class _Graph(_Replayer):
         out_leaves = []
         self._out_spec = _flatten(out, out_leaves)
         self._ready(graph, counts, out_leaves)
+        self.pool_bytes = counts.pool_bytes
 
     def __call__(self, fn, args, reads=()):
         leaves = []
@@ -706,6 +726,8 @@ class _Pair(_Replayer):
         _PAIRS.add(self)
         self._ready(fwd, fcounts, out_leaves)
         self._bcounts = bcounts
+        self.pool_bytes = fcounts.pool_bytes + getattr(bcounts,
+                                                       "pool_bytes", 0)
         self.captured = True
 
     def __call__(self, fn, args, reads=()):
@@ -770,6 +792,20 @@ def _flags():
 
 def _cloned(t):
     return None if t is None else t.clone()
+
+
+@contextlib.contextmanager
+def _counting():
+    """``telemetry.costs.counting()`` with telemetry on; yields the
+    :class:`~mxnet_tpu_torch.telemetry.costs.FlopCount`, or None (and
+    counts nothing) with telemetry off."""
+    from .telemetry import _state, costs
+
+    if not _state.enabled:
+        yield None
+        return
+    with costs.counting() as count:
+        yield count
 
 
 def _device_of(tensors):
@@ -859,11 +895,8 @@ class ServiceFunction:
         if not _ENABLED or inside():
             with nested():
                 return fn(*args)
-        reads = [] if self._reads_ref is None else \
-            list(self._target(self._reads_ref, "its reads")())
+        reads, rkey = self._reads()
         sig = _sig_node(args)
-        rkey = (_flags(), tuple((t.data_ptr(), t.shape, t.dtype,
-                                 t.requires_grad) for t in reads))
         entry = self._fresh(sig, rkey)
         if entry is None:
             with self._miss_lock:
@@ -872,6 +905,21 @@ class ServiceFunction:
                     return self._miss(fn, sig, rkey, args, reads)
         self._count(0)
         return self._run(fn, entry, args, reads)
+
+    def cached(self, *args):
+        """Whether a call with ``args`` now would find its signature's
+        entry built over the same reads and backend flags (a replay on a
+        card) rather than make one."""
+        return self._fresh(_sig_node(args), self._reads()[1]) is not None
+
+    def _reads(self):
+        """``(reads, key)``: the tensors read beside the arguments, and
+        their pointers, shapes, dtypes and grad requirements with the
+        backend flags, which an entry must have been built over."""
+        reads = [] if self._reads_ref is None else \
+            list(self._target(self._reads_ref, "its reads")())
+        return reads, (_flags(), tuple((t.data_ptr(), t.shape, t.dtype,
+                                        t.requires_grad) for t in reads))
 
     def _fresh(self, sig, rkey):
         """The entry of ``sig`` if it was built over the same reads and
@@ -903,6 +951,8 @@ class ServiceFunction:
                         t0 = time.perf_counter()
                         entry.capture(fn, args, reads)
                         self._built(entry, t0, True)
+                        entry.record["pool_bytes"] = entry.pool_bytes
+                        self._cost(entry)
         return entry(fn, args, reads)
 
     def _built(self, entry, t0, captured):
@@ -929,38 +979,62 @@ class ServiceFunction:
         device = _device_of(leaves) or _device_of(reads)
         t0 = time.perf_counter()
         kind = "plain" if device is None else self._kind
+        pool_bytes = 0
         if device is None:
-            with registry.watching_host_ops() as seen:
+            with registry.watching_host_ops() as seen, _counting() as cost:
                 out = _Plain()(fn, args)
             entry = _Host(_host_reason(seen)) if seen else _Plain()
         elif kind == "pair":
             entry = _Pair(device, self._what(), self._count)
-            with _capture_lock, registry.watching_host_ops() as seen:
+            with _capture_lock, registry.watching_host_ops() as seen, \
+                    _counting() as cost:
                 out = entry.eager(fn, args)
             if seen:
                 entry = _Host(_host_reason(seen))
         else:
             with _capture_lock:
                 entry = _Graph(fn, args, device, self._what())
-            out, entry.first = entry.first, None
+            out, entry.first, cost = entry.first, None, entry.cost
             if entry.host is not None:
                 entry = _Host(entry.host)
+            else:
+                pool_bytes = entry.pool_bytes
         entry.reads = rkey
+        entry.cost = cost
         entry.record = {"kind": entry.kind if entry.kind == "host" else kind,
                         "ms": 0.0,
-                        "shapes": [tuple(t.shape) for t in leaves]}
+                        "shapes": [tuple(t.shape) for t in leaves],
+                        "pool_bytes": pool_bytes}
+        if cost is not None:
+            entry.record["flops"] = cost.flops
+            entry.record["int_ops"] = cost.int_ops
         if entry.kind == "host":
             entry.record["reason"] = entry.reason
             self._count_uncaptured(entry.reason)
         elif kind != "pair":
             self._built(entry, t0, device is not None)
+        self._cost(entry)
         self._seen[sig] = entry
         return out
 
+    def _cost(self, entry):
+        """Record ``entry``'s counted flops and pool bytes under this
+        function's token (``telemetry.costs``)."""
+        if entry.cost is None:
+            return
+        from .telemetry import costs
+
+        costs.record_executable(
+            self._site, self._token_key, cost=entry.cost.cost(),
+            mem={"temp_size_in_bytes": entry.record["pool_bytes"]},
+            source="capture" if entry.record["pool_bytes"] else "first_call")
+
     def stats(self):
         """This function's statistics (as :func:`stats` per site) and
-        each live entry's ``{kind, ms, shapes}`` (its input shapes; ``ms``
-        the time its capture took)."""
+        each live entry's ``{kind, ms, shapes, pool_bytes}`` (its input
+        shapes; ``ms`` the time its capture took; ``pool_bytes`` what its
+        graphs' memory pool took, 0 on the CPU), with ``flops`` and
+        ``int_ops`` where telemetry counted them."""
         return dict(_as_dict(self._own), entries=[
             dict(e.record) for e in list(self._seen.values())])
 

@@ -17,10 +17,11 @@ mx.cpu():`` says otherwise); ``ImageRecordIter`` and ``PrefetchingIter``
 take the context at construction (``ctx=`` / ``device=``). Not ported:
 ``LibSVMIter`` (its CSR batches wait for the sparse arrays), the
 multi-card staging of ``DeviceStager`` (``mesh=``, ``shardings=``), and
-the JAX package's fault-injection points (``faults.point``/``retry``),
-watchdog deadlines and telemetry counters, which wait for the port's
-``faults``/``telemetry`` modules; the iterators keep their own
-``data_wait`` and stage times instead.
+the JAX package's fault-injection points (``faults.point``/``retry``) and
+watchdog deadlines. ``PrefetchingIter`` and ``ImageRecordIter`` keep
+their ``data_wait_ms`` and stage times, and report each wait to the step
+timeline as the next step's ``data_wait`` phase
+(:mod:`mxnet_tpu_torch.telemetry.steps`, JAX :696-708 and :1254-1266).
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from .. import ndarray as nd
 from ..base import MXNetError
 from ..context import Context, current_context
 from ..ndarray import NDArray
+from ..telemetry import steps as _tsteps
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "NDArrayIter", "ResizeIter",
            "PrefetchingIter", "MNISTIter", "CSVIter", "LibSVMIter",
@@ -588,6 +590,7 @@ class PrefetchingIter(DataIter):
             t0 = time.perf_counter()
             self._join()
             self.data_wait_ms.append((time.perf_counter() - t0) * 1e3)
+            _tsteps.phase("data_wait", self.data_wait_ms[-1])
             batches = list(self._next_batches)
             for b in batches:
                 if isinstance(b, BaseException):
@@ -1005,6 +1008,7 @@ class ImageRecordIter(_ShardedEpochMixin, DataIter):
         """A host batch as a DataBatch on the iterator's context; on a
         card the copy runs on the consumer's current stream."""
         self.data_wait_ms.append(wait_s * 1e3)
+        _tsteps.phase("data_wait", wait_s * 1e3)
         if item.slot is None:     # the CPU
             data = NDArray(torch.from_numpy(item.data))
             label = NDArray(torch.from_numpy(item.label))

@@ -18,9 +18,22 @@ anyway) goes to its kernel as soon as its first tensor lies on a CUDA
 card, with no walk over the rest: the wrapper raises
 :class:`DeviceError` on a mix. There is no opt-out, no autotuned table
 and no fallback: on the card the kernel launches or the call raises.
-``meta`` tensors, which carry shapes and no data (the symbol's shape
-inference), take the plain version too. Tensors on mixed or other
-devices raise :class:`DeviceError`, an ``MXNetError``.
+Tensors that carry shapes and no data take a third branch, shape
+inference: ``meta`` tensors (the symbol's shape inference) and the fake
+tensors of a ``FakeTensorMode`` (``ShardedTrainer.aot_lower``) go to the
+family's ``infer``, which returns the outputs' shapes and computes
+nothing (the plain version run on those tensors; nothing for the
+in-place families). Tensors on mixed or other devices raise
+:class:`DeviceError`, an ``MXNetError``.
+
+Each family also states its work, ``flops(*args, **kwargs) -> (n,
+kind)`` (``kind`` ``"float"`` or ``"int"``). A ctypes launch is
+invisible to a ``TorchDispatchMode``, so while one that listens for
+kernels is active (``telemetry.costs.counting``, ``aot_lower``'s
+recorder: a mode with an ``on_kernel`` method), :func:`dispatch` hands
+it the family, its count and kind, on every route, and pauses its
+counting of aten ops while the plain version or the shape inference
+runs: a call counts the same on the CPU and on the card.
 
 Every counter on a wrapper (``launches``, ``launches_by_path``,
 ``copies``, ``tensors_by_path``) moves through :func:`count`. While a
@@ -66,28 +79,61 @@ class DeviceError(MXNetError, ValueError):
 
 class KernelEntry:
     __slots__ = ("family", "kernel", "plain", "tolerance", "replaces",
-                 "checks_devices")
+                 "checks_devices", "flops", "infer")
 
     def __init__(self, family, kernel, plain, tolerance, replaces,
-                 checks_devices):
+                 checks_devices, flops, infer):
         self.family = family
         self.kernel = kernel
         self.plain = plain
         self.tolerance = tolerance
         self.replaces = replaces
         self.checks_devices = checks_devices
+        self.flops = flops
+        self.infer = infer
 
 
-def register_kernel(family, *, kernel, plain, tolerance, replaces,
-                    checks_devices=False):
+def register_kernel(family, *, kernel, plain, tolerance, replaces, flops,
+                    checks_devices=False, infer=None):
     """Register an op family. ``tolerance`` states the kernel's numeric
     contract against ``plain``; ``replaces`` names the TPU kernel;
+    ``flops`` counts a call's work (``(n, "float" | "int")``);
     ``checks_devices``: the kernel's wrapper refuses tensors on mixed
-    devices itself, with :class:`DeviceError`."""
+    devices itself, with :class:`DeviceError`; ``infer``: the shape
+    inference of meta and fake tensors (default: ``plain``)."""
     e = KernelEntry(family, kernel, plain, tolerance, replaces,
-                    checks_devices)
+                    checks_devices, flops, infer or plain)
     _FAMILIES[family] = e
     return e
+
+
+def _listeners():
+    """The active dispatch modes that listen for kernel calls (an
+    ``on_kernel`` method): none, at the cost of one C call, when no
+    Python dispatch mode is active."""
+    if not torch._C._len_torch_dispatch_stack():
+        return ()
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    return [m for m in _get_current_dispatch_mode_stack()
+            if hasattr(m, "on_kernel")]
+
+
+def _is_fake(t):
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return isinstance(t, FakeTensor)
+
+
+@contextlib.contextmanager
+def _paused(listeners):
+    for m in listeners:
+        m.paused += 1
+    try:
+        yield
+    finally:
+        for m in listeners:
+            m.paused -= 1
 
 
 def entry(family) -> KernelEntry:
@@ -103,18 +149,34 @@ def _tensors(values):
 
 
 def dispatch(family, *args, **kwargs):
-    """Route one call by the device of its tensor arguments."""
+    """Route one call by the device of its tensor arguments: the kernel
+    on a card, the plain version on the CPU, the shape inference for
+    meta and fake tensors."""
     e = _FAMILIES[family]
+    listeners = _listeners()
+    if listeners:
+        n, kind = e.flops(*args, **kwargs)
+        for m in listeners:
+            m.on_kernel(family, n, kind)
     tensors = _tensors(list(args) + list(kwargs.values()))
-    if e.checks_devices:
+    if listeners:   # a fake tensor reports its device: look for one first
+        tensors = list(tensors)
+        if any(_is_fake(t) for t in tensors):
+            with _paused(listeners):
+                return e.infer(*args, **kwargs)
+    elif e.checks_devices:
         first = next(tensors, None)
         if first is not None and first.device.type == "cuda":
             return e.kernel(*args, **kwargs)
         tensors = itertools.chain([first] if first is not None else [],
                                   tensors)
     devices = {t.device.type for t in tensors}
-    if devices in ({"cpu"}, {"meta"}):
-        return e.plain(*args, **kwargs)
+    if devices == {"meta"}:
+        with _paused(listeners):
+            return e.infer(*args, **kwargs)
+    if devices == {"cpu"}:
+        with _paused(listeners):
+            return e.plain(*args, **kwargs)
     if devices == {"cuda"}:
         return e.kernel(*args, **kwargs)
     raise DeviceError(f"{family}: tensors on devices {sorted(devices)}; "

@@ -114,12 +114,20 @@ def decode_attention(q, k, v, lengths, scale):
 decode_attention.launches = 0
 
 
+def _flops(q, k, v, lengths, scale):
+    """K5, elementwise over the cache: 4·B·H·S·D (a multiply and an add
+    for each of q·k and p·v, per cached key). The lengths live on the
+    device, so the count takes the whole cache, not the valid keys."""
+    b, h, s, d = k.shape
+    return 4 * b * h * s * d, "float"
+
+
 def _register():
     from . import register_kernel
 
     register_kernel(
         "decode_attention", kernel=decode_attention,
-        plain=decode_attention_plain,
+        plain=decode_attention_plain, flops=_flops,
         replaces="mxnet_tpu/kernels/decode_attention.py:_kernel",
         tolerance="f32 rtol=atol=2e-5, bf16 rtol=atol=2e-2 vs the plain "
                   "version (normaliser reassociated across warps; bf16: "

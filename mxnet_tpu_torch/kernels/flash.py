@@ -412,11 +412,37 @@ def flash_attention(q, k, v, scale, causal=False):
                     causal=bool(causal))
 
 
+def _attention_flops(q, k, causal, per_pair):
+    """``per_pair`` flops per (query, key, head-dim) triple of (B, H, S,
+    D) ``q`` and ``k``, halved under the causal mask."""
+    b, h, sq, d = q.shape
+    n = per_pair * b * h * sq * k.shape[2] * d
+    return (n // 2 if causal else n), "float"
+
+
+def _forward_flops(q, k, v, scale, causal=False, with_lse=False):
+    """K3: 4·B·H·Sq·Sk·D, its two products (QKᵀ and P·V)."""
+    return _attention_flops(q, k, causal, 4)
+
+
+def _dq_flops(q, k, v, o, lse, do, scale, causal=False):
+    """K3-bwd, dq's share: 4·B·H·Sq·Sk·D (dO·Vᵀ and dS·K)."""
+    return _attention_flops(q, k, causal, 4)
+
+
+def _dkv_flops(q, k, v, lse, dsum, do, scale, causal=False):
+    """K3-bwd, dkv's share: 6·B·H·Sq·Sk·D (QKᵀ, Pᵀ·dO and dSᵀ·Q): the
+    backward's five products, 10·B·H·Sq·Sk·D, over dq + dkv; the products
+    each kernel recomputes for itself are not counted twice."""
+    return _attention_flops(q, k, causal, 6)
+
+
 def _register():
     from . import register_kernel
 
     register_kernel(
         "flash_attention", kernel=flash_forward, plain=flash_attention_plain,
+        flops=_forward_flops,
         replaces="mxnet_tpu/kernels/flash.py:_flash_kernel",
         tolerance="f32 rtol=atol=2e-5, bf16 rtol=atol=2e-2 vs the plain "
                   "version (softmax normaliser reassociated across k tiles; "
@@ -427,12 +453,12 @@ def _register():
                "probabilities from the saved log-sum-exp)")
     register_kernel(
         "flash_attention_bwd_dq", kernel=flash_backward_dq,
-        plain=flash_backward_dq_plain,
+        plain=flash_backward_dq_plain, flops=_dq_flops,
         replaces="mxnet_tpu/kernels/flash.py:_flash_backward",
         tolerance=bwd_tol)
     register_kernel(
         "flash_attention_bwd_dkv", kernel=flash_backward_dkv,
-        plain=flash_backward_dkv_plain,
+        plain=flash_backward_dkv_plain, flops=_dkv_flops,
         replaces="mxnet_tpu/kernels/flash.py:_flash_backward",
         tolerance=bwd_tol)
 

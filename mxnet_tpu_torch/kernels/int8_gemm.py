@@ -161,11 +161,17 @@ int8_gemm.launches = 0
 int8_gemm.launches_by_path = {"async": 0, "staged": 0}
 
 
+def _flops(qx, weight, scale_eff, bias=None, relu=False, tile_n=0):
+    """K4: 2·M·N·K integer operations (the int8 products and their int32
+    sums; the float epilogue is not counted)."""
+    return 2 * qx.shape[0] * weight.shape[0] * qx.shape[1], "int"
+
+
 def _register():
     from . import register_kernel
 
     register_kernel(
-        "int8_gemm", kernel=int8_gemm, plain=int8_gemm_plain,
+        "int8_gemm", kernel=int8_gemm, plain=int8_gemm_plain, flops=_flops,
         replaces="mxnet_tpu/kernels/int8_gemm.py:86 (_kernel, body "
                  "_gemm_body)",
         tolerance="bit-exact vs the plain version (exact int32 "

@@ -448,6 +448,34 @@ for _fn in (opt_sgd, opt_adam):
     _fn.copies = 0
 
 
+def _elements(weights):
+    return sum(w.numel() for w in weights)
+
+
+def _sgd_flops(weights, grads, moms, lr, wds, *, momentum,
+               rescale_grad=1.0, clip_gradient=-1.0, skip=None):
+    """K1, elementwise: 7 per element (``sgd_mom_update``: the rescale,
+    the weight decay's multiply and add, the momentum's multiply, the
+    learning rate's multiply and subtract, the weight's add), 2 more with
+    clipping (a min and a max)."""
+    return _elements(weights) * (9 if clip_gradient > 0 else 7), "float"
+
+
+def _adam_flops(weights, grads, means, variances, lr, wds, *, beta1=0.9,
+                beta2=0.999, epsilon=1e-8, rescale_grad=1.0,
+                clip_gradient=-1.0, skip=None):
+    """K2, elementwise: 15 per element (``adam_update``: the rescale, 2
+    for the weight decay, 3 for the mean, 4 for the variance, and the
+    update's square root, epsilon add, learning-rate multiply, divide and
+    subtract), 2 more with clipping."""
+    return _elements(weights) * (17 if clip_gradient > 0 else 15), "float"
+
+
+def _in_place(*args, **kwargs):
+    """The shape inference of an in-place family: no output."""
+    return None
+
+
 def _register():
     from . import register_kernel
 
@@ -455,10 +483,12 @@ def _register():
            "intrinsics in the same op order)")
     register_kernel("opt_sgd", kernel=opt_sgd, plain=opt_sgd_plain,
                     replaces="mxnet_tpu/kernels/opt_step.py:_kernel_sgd",
-                    tolerance=tol, checks_devices=True)
+                    tolerance=tol, checks_devices=True, flops=_sgd_flops,
+                    infer=_in_place)
     register_kernel("opt_adam", kernel=opt_adam, plain=opt_adam_plain,
                     replaces="mxnet_tpu/kernels/opt_step.py:_kernel_adam",
-                    tolerance=tol, checks_devices=True)
+                    tolerance=tol, checks_devices=True, flops=_adam_flops,
+                    infer=_in_place)
 
 
 _register()

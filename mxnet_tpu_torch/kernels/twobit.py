@@ -391,24 +391,46 @@ twobit_compress_multi.tensors_by_path = {"vec16": 0, "scalar": 0}
 twobit_compress_multi.copies = 0
 
 
+def _compress_flops(grad, residual, thr):
+    """K6, elementwise: 5 per element (the residual's add, two compares,
+    the code's multiply by the threshold, the subtract)."""
+    return 5 * grad.numel(), "float"
+
+
+def _decompress_flops(codes, thr, dtype=torch.float32):
+    """K7, elementwise: 1 per element (the multiply)."""
+    return codes.numel(), "float"
+
+
+def _compress_multi_flops(grads, residuals, codes, thr):
+    """K6 over every listed gradient: 5 per element."""
+    return 5 * sum(g.numel() for g in grads), "float"
+
+
+def _in_place(*args, **kwargs):
+    """The shape inference of the in-place compress: no output."""
+    return None
+
+
 def _register():
     from . import register_kernel
 
     register_kernel(
         "twobit_compress", kernel=twobit_compress,
-        plain=twobit_compress_plain,
+        plain=twobit_compress_plain, flops=_compress_flops,
         replaces="mxnet_tpu/kernels/twobit.py:_kernel_compress",
         tolerance="bit-exact vs the plain version and _xla_compress "
                   "(correctly rounded add, multiply and subtract)")
     register_kernel(
         "twobit_decompress", kernel=twobit_decompress,
-        plain=twobit_decompress_plain,
+        plain=twobit_decompress_plain, flops=_decompress_flops,
         replaces="mxnet_tpu/kernels/twobit.py:_kernel_decompress",
         tolerance="bit-exact (the code rounded to the output dtype, one "
                   "correctly rounded multiply)")
     register_kernel(
         "twobit_compress_multi", kernel=twobit_compress_multi,
-        plain=twobit_compress_multi_plain,
+        plain=twobit_compress_multi_plain, flops=_compress_multi_flops,
+        infer=_in_place,
         replaces="mxnet_tpu/kernels/twobit.py:_kernel_compress",
         tolerance="bit-exact vs the per-tensor plain version and "
                   "_xla_compress (correctly rounded add, multiply and "

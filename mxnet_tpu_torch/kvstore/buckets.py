@@ -1,8 +1,10 @@
 """Bucketed, asynchronous cross-worker gradient reduction.
 
 Counterpart of ``mxnet_tpu/kvstore/buckets.py``: ``BucketPlan`` (:69) and
-``BucketPipeline`` (:143), without the JAX package's watchdog, trace
-spans and telemetry views, which wait for their modules.
+``BucketPipeline`` (:143) and ``comm_stats`` (:381, the telemetry
+collector's view: reductions dispatched, bytes sent and reductions in
+flight; the port times no wait, so it has no overlap ratio), without
+the JAX package's watchdog and trace spans.
 
 * **Bucketing.** Pushed gradients (or their 2-bit codes) are staged into
   size-capped buckets (``MXNET_TPU_BUCKET_BYTES``, default 4 MiB of the
@@ -35,6 +37,7 @@ from __future__ import annotations
 
 import functools
 import os
+import weakref
 
 import numpy as _np
 import torch
@@ -42,9 +45,10 @@ import torch
 from ..base import canonical_dtype
 
 __all__ = ["DEFAULT_BUCKET_BYTES", "bucket_bytes", "bucket_force",
-           "BucketPlan", "BucketPipeline"]
+           "BucketPlan", "BucketPipeline", "comm_stats"]
 
 DEFAULT_BUCKET_BYTES = 4 << 20
+_LIVE = weakref.WeakSet()   # live pipelines, for comm_stats
 
 
 def bucket_bytes():
@@ -200,6 +204,7 @@ class BucketPipeline:
         # copied into the layout's slots (the snapshots of the uncompressed
         # path, and of 2-bit codes made per key)
         self.stats = {"fused": 0, "bytes": 0, "copies": 0}
+        _LIVE.add(self)
 
     def register(self, key, shape, dtype):
         return self.plan.register(key, shape, dtype)
@@ -308,3 +313,16 @@ class BucketPipeline:
             entries.append((bid, keys, metas, handle.result()))
         if entries:
             self._kv._apply_resolved(entries)
+
+
+def comm_stats():
+    """``{pipelines, fused, bytes, copies, pending}`` summed over the live
+    pipelines (the telemetry collector's source)."""
+    agg = {"pipelines": 0, "fused": 0, "bytes": 0, "copies": 0,
+           "pending": 0}
+    for p in list(_LIVE):
+        agg["pipelines"] += 1
+        for k in ("fused", "bytes", "copies"):
+            agg[k] += p.stats[k]
+        agg["pending"] += len(p._inflight)
+    return agg

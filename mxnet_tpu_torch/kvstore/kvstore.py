@@ -31,10 +31,15 @@ stored value accumulates across rounds (ROADMAP.md section C).
 Not ported yet: ``dist_async`` (its optimizer-on-store needs an
 all-gather, which gloo does not do on CUDA tensors) and row-sparse
 arrays (``row_sparse_pull``); both raise :class:`MXNetError`. The JAX
-package's collective-schedule checker, watchdog, fault points and
-telemetry wait for their modules.
+package's collective-schedule checker, watchdog and fault points wait
+for their modules. Telemetry: ``OP_COUNTS`` feeds
+``mxtpu_kvstore_ops_total``, and a dist store's pull reports the time it
+waits for its reductions as the step timeline's ``sync`` phase
+(``mxnet_tpu/kvstore/kvstore.py:461-465``).
 """
 from __future__ import annotations
+
+import time
 
 import torch
 
@@ -42,10 +47,16 @@ from .. import kernels as _kernels
 from .. import optimizer as opt_mod
 from ..base import MXNetError, dtype_name, maybe_init_distributed
 from ..ndarray import NDArray
+from ..telemetry import steps as _tsteps
 from . import buckets as _buckets
 from .base import KVStoreBase
 
-__all__ = ["KVStore", "create"]
+__all__ = ["KVStore", "create", "OP_COUNTS"]
+
+# operation counts, read by the telemetry collector at scrape time
+# (mxtpu_kvstore_ops_total{op=...}): plain int bumps, nil per push
+OP_COUNTS = {"init": 0, "push": 0, "pull": 0, "barrier": 0,
+             "allreduce": 0, "fused": 0}
 
 _LOCAL_TYPES = ("local", "local_update_cpu", "local_allreduce_cpu", "device",
                 "local_allreduce_device", "nccl")
@@ -85,6 +96,7 @@ class KVStore(KVStoreBase):
     def init(self, key, value):
         """Store a copy of each value under its key; a key already
         initialized keeps its value."""
+        OP_COUNTS["init"] += 1
         keys, values = self._canonical(key, value)
         for k, v in zip(keys, values):
             if k not in self._store:
@@ -105,6 +117,7 @@ class KVStore(KVStoreBase):
         push of several distinct keys with an optimizer set updates them
         all in one ``Updater.update_multi`` (one fused launch per
         learning-rate group); each key's result is its single push's."""
+        OP_COUNTS["push"] += 1
         keys, values = self._canonical_push(key, value)
         if self._updater is not None and len(keys) > 1 and \
                 len(set(keys)) == len(keys):
@@ -133,6 +146,7 @@ class KVStore(KVStoreBase):
         """Copy each key's current value into ``out`` (an NDArray or a
         list of them) in place, each target keeping its device and dtype:
         one multi-tensor copy for all the keys."""
+        OP_COUNTS["pull"] += 1
         keys, outs = self._canonical(key, out)
         srcs, dsts = [], []
         for k, o in zip(keys, outs):
@@ -220,6 +234,7 @@ class KVStore(KVStoreBase):
 
     def barrier(self):
         """Wait for the card's queued work (one process has no peers)."""
+        OP_COUNTS["barrier"] += 1
         if torch.cuda.is_available() and torch.cuda.is_initialized():
             torch.cuda.synchronize()
 
@@ -313,6 +328,7 @@ class _DistKVStore(KVStore):
         a bucket as soon as its last key arrives (``gluon.Trainer``
         pushes in backward order). Every value is taken at push: a later
         in-place write to it does not reach the sum."""
+        OP_COUNTS["push"] += 1
         keys, values = self._canonical_push(key, value)
         compress = bool(self._compression) and self._procs > 1
         batch = {}   # the float32 2-bit bucketed keys of this call: one launch
@@ -369,6 +385,7 @@ class _DistKVStore(KVStore):
         ``flat``)."""
         import torch.distributed as dist
 
+        OP_COUNTS["fused"] += 1
         if self._procs == 1:
             return _Reduction(flat, None)
         return _Reduction(flat, dist.all_reduce(flat, op=dist.ReduceOp.SUM,
@@ -380,6 +397,7 @@ class _DistKVStore(KVStore):
 
         wire = value._data.clone()
         if self._procs > 1:
+            OP_COUNTS["allreduce"] += 1
             dist.all_reduce(wire, op=dist.ReduceOp.SUM)
         return NDArray(wire)
 
@@ -443,9 +461,12 @@ class _DistKVStore(KVStore):
                 self._apply(k, layout.slot(k, out, lo), owned=True)
 
     def pull(self, key, out=None, priority=0, ignore_sparse=True):
-        """Wait for the reductions of the keys first, then pull."""
+        """Wait for the reductions of the keys first (the step timeline's
+        ``sync`` phase), then pull."""
         if self._pipeline is not None:
+            t0 = time.perf_counter()
             self._pipeline.resolve(_to_list(key))
+            _tsteps.phase("sync", (time.perf_counter() - t0) * 1e3)
         super().pull(key, out=out, priority=priority,
                      ignore_sparse=ignore_sparse)
 

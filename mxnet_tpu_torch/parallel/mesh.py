@@ -68,6 +68,17 @@ class DeviceMesh:
     def size(self, axis: str) -> int:
         return self.axis_sizes.get(axis, 1)
 
+    def axis_error(self, axis) -> str:
+        """The diagnostic for an axis this mesh does not have: a
+        did-you-mean hint and the valid axes (``mxnet_tpu/parallel/
+        mesh.py:72``). The trainer's sharding rules and ``resume``'s
+        topology check name axes through it."""
+        from ..base import did_you_mean
+
+        return (f"axis {axis!r} is not an axis of this mesh"
+                f"{did_you_mean(axis, self.axis_names)}; valid axes: "
+                f"{list(self.axis_names)}")
+
     @property
     def num_devices(self) -> int:
         return len(self.devices)

@@ -74,10 +74,43 @@ included), and ``accum_steps = k`` accumulates ``k`` microbatches'
 gradients inside the one step (:meth:`_step_body`); both are part of
 the step's entry key, as in the JAX trainer's (:386).
 
-Not ported yet, and refused with :class:`MXNetError` where the JAX
-package would accept them: ``zero``, ``donate=False``, sharding ``rules``, meshes of more than one device,
-``reshard=`` of ``resume`` (one device has nothing to reshard), and the
-warmup/AOT and telemetry methods.
+The JAX trainer's options on a mesh of one device (meshes of more
+devices raise in :class:`DeviceMesh`):
+
+* ``rules`` merge over :func:`sharding_rules` (:31-47, :201-203). A rule
+  naming an axis the mesh lacks, one axis twice, or more dimensions than
+  its array raises ``ValueError`` naming the parameter (the JAX package
+  checks this in ``analysis.distcheck``, which is not ported: the check
+  lives here); a rule naming no parameter warns. On one device every
+  valid rule places its parameter whole; ``topology_meta()`` records the
+  rules as given.
+* ``zero=True``: ZeRO-1 over a ``dp`` axis of size 1 is the plain
+  layout, so the step is the ``zero=False`` step bit for bit;
+  ``topology_meta()["zero"]`` records it, and checkpoints of either
+  setting load into the other (host layout).
+* ``donate=False``: a tensor taken from a parameter's or an optimizer
+  state's ``_data`` before a step keeps its values after it. The
+  captured step updates a private working set in place (its graph's
+  reads keep their addresses); after each step every handle and
+  optimizer-state slot gets a fresh device copy of it, and before a step
+  a handed-out tensor that was rebound or written in place since is
+  copied back in. It costs one device copy of every parameter and state a
+  step and twice their memory. ``donate=True`` (the default) updates the
+  handles' tensors in place.
+* :meth:`warmup` captures the step for a batch signature without taking
+  a step; :meth:`aot_lower` traces the step on fake tensors and runs
+  nothing; :meth:`step_report` is the step timeline's last record
+  (:mod:`~mxnet_tpu_torch.telemetry.steps`: ``h2d`` the batch's
+  placement, ``compute`` the replay or the eager call, ``sync`` the
+  nan-guard's read; ``flops`` counted when the step's entry was made,
+  and ``mfu_xla``); :meth:`unshard` copies the weights to one context;
+  ``resume(reshard=)`` compares the checkpoint's topology with this
+  trainer's (:1070-1140).
+
+Not ported: the JAX trainer's checkpoint-on-drain hooks
+(``_remember_manager``, ``_final_checkpoint``, :1002-1037), which need
+``preempt.py``, and the HLO collective census of ``aot_lower``'s result
+(``analysis.distcheck``); both wait for ROADMAP.md item A11.
 
 ``publish_to`` / ``publish_update`` stream the weights into a model bus
 (:mod:`mxnet_tpu_torch.modelbus`) every K steps, in the JAX package's
@@ -88,7 +121,9 @@ from __future__ import annotations
 import contextlib
 import os
 import pickle
-from typing import List, Optional
+import time
+import warnings
+from typing import Dict, List, Optional
 
 import numpy as _np
 import torch
@@ -102,27 +137,144 @@ from ..context import cpu
 from ..gluon.parameter import substitute
 from ..ndarray import NDArray
 from ..ndarray import utils as _nd_utils
+from ..telemetry import steps as _tsteps
 from . import opt_rules
 from .mesh import DeviceMesh
 from .opt_rules import RULES
 
-__all__ = ["ShardedTrainer"]
+__all__ = ["ShardedTrainer", "sharding_rules"]
 
 _ALIGN = 4   # float32 elements in 16 bytes
 
 
-def _not_ported(what):
-    return MXNetError(f"ShardedTrainer: {what} is not ported to "
-                      "mxnet_tpu_torch yet; see ROADMAP.md section A")
+def sharding_rules(params, mesh: DeviceMesh) -> Dict[str, tuple]:
+    """Default per-parameter PartitionSpecs (``mxnet_tpu/parallel/
+    sharded_trainer.py:31``): everything replicated except, on a mesh
+    whose tp axis is larger than 1, matmul and convolution weights whose
+    output dimension divides it, split on that dimension."""
+    tp = mesh.size("tp")
+    rules: Dict[str, tuple] = {}
+    for name, p in params.items():
+        shape = p.shape
+        spec: tuple = ()
+        if tp > 1 and shape and len(shape) >= 2 and shape[0] % tp == 0 \
+                and name.endswith("weight"):
+            spec = ("tp",) + (None,) * (len(shape) - 1)
+        rules[name] = spec
+    return rules
 
 
-def _unported_method(name, what):
-    def method(self, *args, **kwargs):
-        raise _not_ported(what)
+def _check_rules(rules, shapes, mesh):
+    """The JAX package's sharding check (``analysis.distcheck.
+    check_sharding``, its errors and its dead-rule warning) over ``rules``
+    ({name: spec}) against ``mesh``: a ``ValueError`` naming the
+    parameter."""
+    from ..base import did_you_mean
 
-    method.__name__ = name
-    method.__doc__ = f"Not ported yet ({what}); raises MXNetError."
-    return method
+    axes = tuple(mesh.axis_names)
+    for name, spec in rules.items():
+        spec = tuple(spec or ())
+        shape = shapes.get(name)
+        if shape is None:
+            warnings.warn(f"ShardedTrainer: sharding rule {name!r} names no "
+                          f"known parameter{did_you_mean(name, shapes)}; "
+                          "the rule is dead", stacklevel=3)
+        seen = set()
+        for ax in spec:
+            for ax_name in (ax if isinstance(ax, (tuple, list)) else (ax,)):
+                if ax_name is None:
+                    continue
+                if ax_name not in axes:
+                    raise ValueError(
+                        f"ShardedTrainer: sharding rule of parameter "
+                        f"{name!r}: PartitionSpec {spec} on {mesh!r}: "
+                        f"{mesh.axis_error(ax_name)}")
+                if ax_name in seen:
+                    raise ValueError(
+                        f"ShardedTrainer: sharding rule of parameter "
+                        f"{name!r}: PartitionSpec {spec} uses mesh axis "
+                        f"{ax_name!r} for more than one dimension")
+                seen.add(ax_name)
+        if shape is not None and len(spec) > len(shape):
+            raise ValueError(
+                f"ShardedTrainer: sharding rule of parameter {name!r}: "
+                f"PartitionSpec {spec} has {len(spec)} entries for an "
+                f"array of shape {tuple(shape)}")
+
+
+def _batch_spec(x, device):
+    """``(shape, torch dtype)`` of a batch given as an NDArray, a tensor,
+    a numpy array or a ``(shape, dtype)`` pair (the port's
+    ``jax.ShapeDtypeStruct``)."""
+    if isinstance(x, NDArray):
+        x = x._data
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), x.dtype
+    if isinstance(x, _np.ndarray):
+        return tuple(x.shape), torch.from_numpy(x[:0]).dtype
+    shape, dtype = x
+    from ..base import canonical_dtype
+
+    return tuple(int(d) for d in shape), canonical_dtype(dtype)
+
+
+class Lowered:
+    """What :meth:`ShardedTrainer.aot_lower` returns (the port's reading
+    of ``jax.stages.Lowered``): the step traced on fake tensors.
+
+    ``ops`` lists, in dispatch order, each aten op the step dispatched
+    and each hand-written kernel family it reached (``kernel <family>``:
+    the family's own aten ops are not listed); ``flops`` and ``int_ops``
+    are the step's counts (as ``telemetry.costs`` counts them when the
+    step's entry is made)."""
+
+    def __init__(self, trainer, x_spec, y_spec, ops, count):
+        self._trainer = trainer
+        self.x_spec, self.y_spec = x_spec, y_spec
+        self.ops = ops
+        self.flops, self.int_ops = count.flops, count.int_ops
+        self.kernels = dict(count.kernels)
+
+    def as_text(self):
+        """The traced step as text: a header with the batch signature,
+        then one line per dispatched op."""
+        head = (f"# ShardedTrainer step on {self._trainer._device}: "
+                f"x {self.x_spec[0]} {self.x_spec[1]}, y {self.y_spec[0]} "
+                f"{self.y_spec[1]}; {len(self.ops)} ops, flops "
+                f"{self.flops}, kernels {self.kernels}")
+        return "\n".join([head] + self.ops) + "\n"
+
+    def compile(self):
+        """Capture the step for this signature (:meth:`ShardedTrainer.
+        warmup` on zero batches of these shapes); returns its report."""
+        dev = self._trainer._device
+        return self._trainer.warmup(
+            torch.zeros(self.x_spec[0], dtype=self.x_spec[1], device=dev),
+            torch.zeros(self.y_spec[0], dtype=self.y_spec[1], device=dev))
+
+
+def _recorder_class():
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class _Recorder(TorchDispatchMode):
+        """Lists each aten op dispatched (but those of a kernel family's
+        plain version or shape inference: ``paused``) and each kernel
+        family reached (``on_kernel``)."""
+
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+            self.paused = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not self.paused:
+                self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+        def on_kernel(self, family, flops, kind):
+            self.ops.append(f"kernel {family}")
+
+    return _Recorder
 
 
 class _RecomputeScopes:
@@ -218,6 +370,12 @@ class ShardedTrainer:
         (parameters and optimizer state stay bit-identical) and counts
         in ``skipped_steps`` / ``consecutive_skips``; after
         ``max_consecutive_skips`` skips in a row ``step`` raises.
+    rules : ``{param_name: PartitionSpec tuple}`` over
+        :func:`sharding_rules`' defaults (checked against the mesh).
+    donate : False hands every parameter and optimizer-state slot a fresh
+        tensor after each step, leaving the earlier ones as they were
+        (the module's docstring).
+    zero : ZeRO-1; on a dp axis of size 1 the plain layout.
     """
 
     def __init__(self, net, loss_fn, optimizer="sgd", optimizer_params=None,
@@ -226,19 +384,14 @@ class ShardedTrainer:
                  max_consecutive_skips=8):
         if int(accum_steps) < 1:
             raise ValueError("accum_steps must be >= 1")
-        for on, what in ((zero, "zero (ZeRO-1 sharded optimizer state)"),
-                         (not donate, "donate=False (the port updates "
-                                      "parameters in place)"),
-                         (any(rules.values()) if rules else False,
-                          "sharding rules")):
-            if on:
-                raise _not_ported(what)
         self._net = net
         self._loss_fn = loss_fn
         self._remat = bool(remat)
         self._accum = int(accum_steps)
         self._mesh = mesh or DeviceMesh()
         self._device = self._mesh.device
+        self._donate = bool(donate)
+        self._zero = bool(zero)
         self._nan_guard = bool(nan_guard)
         self._max_consecutive_skips = int(max_consecutive_skips)
         self.skipped_steps = 0       # total updates skipped by the guard
@@ -304,6 +457,13 @@ class ShardedTrainer:
             self._param_names.append(name)
             self._params.append(p)
             self._train_handles.append(p.data())
+        params = net.collect_params()
+        self._rules = dict(sharding_rules(params, self._mesh))
+        if rules:
+            self._rules.update(rules)
+        _check_rules({n: self._rules.get(n, ()) for n in self._rules},
+                     {n: tuple(p.shape) for n, p in params.items()},
+                     self._mesh)
         self._wd_mult = [1.0 if (n.endswith("weight") or n.endswith("gamma"))
                          else 0.0 for n in self._param_names]
         self._place_params()
@@ -329,13 +489,22 @@ class ShardedTrainer:
         self._bus_topk = None
         self._bus_host = None
         self.published_versions = []
+        # donate=False: the working set the step updates (its graph's
+        # reads) and the tensors handed out, with their version counters
+        self._work = None
+        self._handed = None
+        if not self._donate:
+            self._work = ([h._data for h in self._train_handles
+                           + self._aux_handles], self._opt_state)
+            self._hand_out()
         self._t_dev = torch.zeros((), dtype=torch.float32, device=self._device)
         self._lr_dev = torch.zeros((), dtype=torch.float32,
                                    device=self._device)
         self._one = torch.ones((), dtype=torch.float32, device=self._device)
         self._step_fn = _compile.jit(
             self._step_body, site="trainer",
-            token=("step", id(self), self._remat, self._accum),
+            token=("step", id(self), self._remat, self._accum, self._donate,
+                   self._zero),
             reads=self._step_reads)
         self._predict_fn = _compile.jit(self._predict_body, site="trainer",
                                         token=("predict", id(self)),
@@ -348,6 +517,79 @@ class ShardedTrainer:
             if h._data.device != self._device or \
                     not h._data.is_contiguous():
                 h._rebind(h._data.detach().to(self._device).contiguous())
+        self._placed = True
+
+    # ------------------------------------------------------ donate=False ---
+    def _public(self):
+        """The tensors handed out: every handle's, then every optimizer
+        state slot's."""
+        return [h._data for h in self._train_handles + self._aux_handles] \
+            + [s for per in self._opt_state for s in per]
+
+    def _hand_out(self):
+        """Give every handle and optimizer-state slot a fresh copy of the
+        working set (donate=False), and note what was handed out. The
+        tensors handed out before are let go first, so that the copies
+        take their memory; after a step this runs once the replay is
+        enqueued, so the host's work overlaps the card's."""
+        self._handed = None
+        handles, states = self._work
+        with torch.no_grad():
+            fresh = [torch.empty_like(t) for t in handles]
+            torch._foreach_copy_(fresh, handles)
+            per = [[torch.empty_like(s) for s in st] for st in states]
+            flat = [s for st in per for s in st]
+            if flat:
+                torch._foreach_copy_(flat, [s for st in states for s in st])
+        for h, t in zip(self._train_handles + self._aux_handles, fresh):
+            h._data = t
+        self._opt_state = per
+        self._handed = [(t, t._version) for t in self._public()]
+
+    def _adopt(self):
+        """Copy into the working set each handed-out tensor that was
+        rebound or written in place since :meth:`_hand_out`
+        (donate=False)."""
+        handles, states = self._work
+        work = list(handles) + [s for st in states for s in st]
+        with torch.no_grad():
+            for w, t, (given, version) in zip(work, self._public(),
+                                             self._handed):
+                if t is given and t._version == version:
+                    continue
+                if t.shape != w.shape:
+                    raise ValueError(
+                        f"ShardedTrainer: a parameter or optimizer state "
+                        f"was rebound to shape {tuple(t.shape)}; the "
+                        f"trainer holds {tuple(w.shape)}")
+                w.copy_(t)
+
+    @contextlib.contextmanager
+    def _bound(self, hand_out):
+        """The handles and optimizer-state slots bound to the working set
+        for one call (donate=False; nothing with donate=True); after it,
+        fresh copies are handed out (``hand_out``: the call wrote it) or
+        the same tensors bound again."""
+        if self._donate:
+            yield
+            return
+        self._adopt()
+        public = None if hand_out else (list(self._public()),
+                                        self._opt_state)
+        handles, states = self._work
+        for h, t in zip(self._train_handles + self._aux_handles, handles):
+            h._data = t
+        self._opt_state = states
+        try:
+            yield
+        finally:
+            if hand_out:
+                self._hand_out()
+            else:
+                for h, t in zip(self._train_handles + self._aux_handles,
+                                public[0]):
+                    h._data = t
+                self._opt_state = public[1]
 
     def _master_grad_buffers(self):
         """One float32 view per master, into which its gradient is cast
@@ -409,21 +651,163 @@ class ShardedTrainer:
         With ``nan_guard`` a step whose loss or gradients are not finite
         leaves parameters and optimizer state untouched (the step
         counter still advances); ``max_consecutive_skips`` such steps in
-        a row raise RuntimeError."""
+        a row raise RuntimeError.
+
+        The step's record of the telemetry timeline (``h2d``,
+        ``compute``, ``sync``; :meth:`step_report`) opens here, and a step
+        that raises abandons it (JAX :662-679)."""
+        _tsteps.begin_step(self._t + 1)
+        try:
+            out = self._step_exec(x, y)
+        except BaseException:
+            _tsteps.abort()
+            raise
+        _tsteps.end_step(flops=self._step_flops(),
+                         devices=self._mesh.num_devices)
+        if self._bus is not None and self._t % self._bus_every == 0:
+            self.publish_update()
+        return out
+
+    def _step_exec(self, x, y):
+        if not self._placed:   # after unshard
+            self._place_params()
+        t0 = time.perf_counter()
         x_raw, y_raw = self._put_batch(x), self._put_batch(y)
+        _tsteps.phase("h2d", (time.perf_counter() - t0) * 1e3)
         self._t += 1
-        lr = self._lr if self._lr_scheduler is None \
-            else float(self._lr_scheduler(self._t))
-        self._t_dev.fill_(float(self._t))
-        self._lr_dev.fill_(lr)
-        loss, skip = self._step_fn(x_raw, y_raw)
+        self._fill_scalars(self._t)
+        t0 = time.perf_counter()
+        with self._bound(hand_out=True):
+            loss, skip = self._step_fn(x_raw, y_raw)
+        # the update runs inside the step: "optimizer" stays 0
+        _tsteps.phase("compute", (time.perf_counter() - t0) * 1e3)
         for route, n in self._routes.census().items():
             self.route_counts[route] += n
         if self._nan_guard:
+            t0 = time.perf_counter()
             self._account_skip(not bool(skip.item()))  # waits for the step
-        if self._bus is not None and self._t % self._bus_every == 0:
-            self.publish_update()
+            _tsteps.phase("sync", (time.perf_counter() - t0) * 1e3)
         return NDArray(loss)
+
+    def _fill_scalars(self, t):
+        lr = self._lr if self._lr_scheduler is None \
+            else float(self._lr_scheduler(t))
+        self._t_dev.fill_(float(t))
+        self._lr_dev.fill_(lr)
+
+    def _step_flops(self):
+        """The flops of one call of the step, counted when its entry was
+        made (the ``mfu_xla`` numerator), or None."""
+        from ..telemetry import costs
+
+        return costs.flops_for(self._step_fn._token_key)
+
+    def step_report(self):
+        """The most recent step's telemetry record (JAX :690-697):
+        ``step``, ``duration_ms``, ``phases`` (``data_wait``, ``h2d``,
+        ``compute``, ``optimizer``, ``sync``, and ``other``, the rest of
+        the duration), ``t_wall`` and, once the step's flops are counted,
+        ``flops`` and ``mfu_xla``. None before the first step, or with
+        telemetry off."""
+        return _tsteps.last()
+
+    def warmup(self, x, y):
+        """Capture the step for batches shaped like ``x`` / ``y`` (an
+        NDArray, a tensor, a numpy array or a ``(shape, dtype)`` pair)
+        without taking a step (JAX :395-414). The capture's eager first
+        call updates the state, so the parameters, aux state, optimizer
+        state, step count, skip counters and ``mx.random``'s generator are
+        snapshotted first and put back after; the next :meth:`step` of
+        this signature is a replay. A signature already captured is left
+        as it is. Returns the JAX package's warm-up report with an empty
+        manifest (the port has none: a CUDA graph does not serialize)."""
+        if not self._placed:   # after unshard
+            self._place_params()
+        x_raw = self._placeholder(x)
+        y_raw = self._placeholder(y)
+        with self._bound(hand_out=False):
+            if not self._step_fn.cached(x_raw, y_raw):
+                self._warm(x_raw, y_raw)
+        return {"entries": 0, "compiled": 0, "disk": 0, "cached": 0,
+                "pending": 0, "errors": [], "time": time.time()}
+
+    def _warm(self, x_raw, y_raw):
+        """The step's entry made for ``(x_raw, y_raw)`` and every state
+        its first call changed put back."""
+        gen = _random.generator(self._device)
+        rng = (_random.current_seed(), gen.get_state())
+        counters = (self._t, self.skipped_steps, self.consecutive_skips)
+        state = list(self._state_tensors().values())
+        snap = [t.clone() for t in state]
+        try:
+            self._fill_scalars(self._t + 1)
+            self._step_fn(x_raw, y_raw)
+        finally:
+            with torch.no_grad():
+                torch._foreach_copy_(state, snap)
+            _random.set_state(rng[0], rng[1], self._device)
+            self._t, self.skipped_steps, self.consecutive_skips = counters
+
+    def _placeholder(self, x):
+        """A batch on the device: ``x`` itself, or zeros of a
+        ``(shape, dtype)`` pair's shape."""
+        if isinstance(x, tuple):
+            shape, dtype = _batch_spec(x, self._device)
+            return torch.zeros(shape, dtype=dtype, device=self._device)
+        return self._put_batch(x)
+
+    def aot_lower(self, x, y):
+        """Trace the step for batches shaped like ``x`` / ``y`` (an
+        NDArray, a tensor, a numpy array or a ``(shape, dtype)`` pair)
+        on fake tensors (``FakeTensorMode``) without running it: nothing
+        runs on the device, no kernel launches, no state changes and no
+        random draw (JAX :416-455). Returns a :class:`Lowered`:
+        ``as_text()`` lists the ops the step dispatches (the hand-written
+        kernels by family), ``flops`` counts them, ``compile()`` captures
+        it (:meth:`warmup`). JAX's HLO collective census waits
+        for ``analysis.distcheck`` (ROADMAP.md item A11)."""
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        from ..telemetry import costs
+
+        x_spec = _batch_spec(x, self._device)
+        y_spec = _batch_spec(y, self._device)
+        handles = self._train_handles + self._aux_handles
+        gen = _random.generator(self._device)
+        rng = gen.get_state()
+        with self._bound(hand_out=False):
+            saved = ([h._data for h in handles], self._opt_state,
+                     self._grads32, self._aux_before, self._t_dev,
+                     self._lr_dev, self._one)
+            try:
+                with FakeTensorMode(allow_non_fake_inputs=True) as fake:
+                    def f(t):
+                        return fake.from_tensor(t)
+
+                    for h in handles:
+                        h._data = f(h._data)
+                    self._opt_state = [[f(t) for t in per]
+                                       for per in self._opt_state]
+                    self._grads32 = [f(t) for t in self._grads32]
+                    self._aux_before = [f(t) for t in self._aux_before]
+                    self._t_dev, self._lr_dev, self._one = (
+                        f(self._t_dev), f(self._lr_dev), f(self._one))
+                    fx = torch.empty(x_spec[0], dtype=x_spec[1],
+                                     device=self._device)
+                    fy = torch.empty(y_spec[0], dtype=y_spec[1],
+                                     device=self._device)
+                    with _recorder_class()() as rec, \
+                            costs.counting() as count, _compile.nested():
+                        self._step_body(fx, fy)
+            finally:
+                for h, t in zip(handles, saved[0]):
+                    h._data = t
+                (self._opt_state, self._grads32, self._aux_before,
+                 self._t_dev, self._lr_dev, self._one) = saved[1:]
+        if not torch.equal(gen.get_state(), rng):
+            raise MXNetError("ShardedTrainer.aot_lower: the traced step "
+                             "drew from mx.random's generator")
+        return Lowered(self, x_spec, y_spec, rec.ops, count)
 
     def _micro(self, x_raw, y_raw, weights, leaves, subs):
         """The mean loss of one (micro)batch and every trainable
@@ -533,7 +917,10 @@ class ShardedTrainer:
     def predict(self, x):
         """Inference forward (train mode off, nothing recorded); a
         captured forward per batch signature."""
-        return NDArray(self._predict_fn(self._put_batch(x)))
+        if not self._placed:   # after unshard
+            self._place_params()
+        with self._bound(hand_out=False):
+            return NDArray(self._predict_fn(self._put_batch(x)))
 
     def _predict_body(self, x_raw):
         with autograd.pause(train_mode=False):
@@ -625,6 +1012,9 @@ class ShardedTrainer:
         with torch.no_grad():
             for key, t in targets.items():
                 t.copy_(arrays[key]._data)
+        if not self._donate:   # the copies went to the handed-out tensors
+            with self._bound(hand_out=True):
+                pass
         self._t = int(arrays["__t__"].asscalar())
         self._step_fn.clear()   # the next step captures anew
         if sched is not None:
@@ -641,8 +1031,9 @@ class ShardedTrainer:
 
         return {"format": "canonical-host-v1",
                 "mesh": self._mesh.describe(),
-                "param_sharding": {n: [] for n in self._param_names},
-                "zero": False, "host": _ckpt.host_metadata()}
+                "param_sharding": {n: list(self._rules.get(n, ()))
+                                   for n in self._param_names},
+                "zero": self._zero, "host": _ckpt.host_metadata()}
 
     def save_checkpoint(self, manager, epoch, meta=None, data_iter=None):
         """Write the trainer's state through a ``checkpoint.
@@ -660,29 +1051,74 @@ class ShardedTrainer:
             epoch, {"states": lambda tmp: _nd_utils.save(tmp, payload)},
             step=self._t, meta=meta)
 
+    @staticmethod
+    def _topology_changed(saved, current):
+        """The differences between two topology records, as text (none:
+        a resume on the saved topology; JAX :1070-1084)."""
+        diffs = []
+        sm, cm = saved.get("mesh") or {}, current.get("mesh") or {}
+        if sm.get("axes") != cm.get("axes"):
+            diffs.append(f"mesh axes {sm.get('axes')} -> {cm.get('axes')}")
+        if sm.get("num_devices") != cm.get("num_devices"):
+            diffs.append(f"device count {sm.get('num_devices')} -> "
+                         f"{cm.get('num_devices')}")
+        sh, ch = saved.get("host") or {}, current.get("host") or {}
+        if sh.get("process_count") != ch.get("process_count"):
+            diffs.append(f"process count {sh.get('process_count')} -> "
+                         f"{ch.get('process_count')}")
+        return diffs
+
     def resume(self, manager, reshard=None, data_iter=None):
         """Restore the latest good checkpoint of ``manager`` (a corrupt
         newest file falls back to the previous good one). Returns the
-        manifest entry, or None when none is recorded. A checkpoint from
-        any mesh of either package loads: its arrays are in host
-        layout. ``data_iter`` is set to the entry's ``meta.data_state``
-        where it has one: the next batch is the first one the saved run
-        had not seen."""
-        if reshard is not None:
-            raise _not_ported("reshard= (a mesh of one device)")
+        manifest entry, or None when none is recorded. ``data_iter`` is
+        set to the entry's ``meta.data_state`` where it has one: the next
+        batch is the first one the saved run had not seen.
+
+        The entry's ``meta.topology`` is compared with this trainer's
+        (JAX :1086-1157): on a mismatch (a JAX checkpoint from an
+        8-device mesh, say) the host-layout arrays load onto this mesh
+        with a warning, unless ``reshard=False`` (or, when ``reshard`` is
+        None, ``MXNET_TPU_PREEMPT_RESHARD=0``), which raises a
+        ``ValueError`` naming both meshes."""
         res = manager.resume()
         if res is None:
             return None
         entry, paths = res
+        saved_topo = (entry.get("meta") or {}).get("topology")
+        diffs = self._topology_changed(saved_topo, self.topology_meta()) \
+            if saved_topo else []
+        if diffs:
+            if reshard is None:
+                reshard = os.environ.get("MXNET_TPU_PREEMPT_RESHARD",
+                                         "1") != "0"
+            saved_mesh = (saved_topo.get("mesh") or {}).get("axes")
+            if not reshard:
+                axis_notes = "".join(
+                    "; saved " + self._mesh.axis_error(a)
+                    for a in sorted(saved_mesh or {})
+                    if a not in self._mesh.axis_sizes)
+                raise ValueError(
+                    f"checkpoint epoch {entry['epoch']} was written on "
+                    f"DeviceMesh({saved_mesh}) but this trainer runs on "
+                    f"{self._mesh!r} ({'; '.join(diffs)}{axis_notes}) and "
+                    "resharding is disabled: resume on the original "
+                    "topology, or allow resharding (reshard=True / unset "
+                    "MXNET_TPU_PREEMPT_RESHARD=0) to place the host-layout "
+                    "arrays on this mesh")
+            warnings.warn(
+                f"resuming checkpoint epoch {entry['epoch']} across a "
+                f"topology change ({'; '.join(diffs)}): arrays reshard "
+                f"from DeviceMesh({saved_mesh}) onto {self._mesh!r}; "
+                "numerics match the original trajectory up to reduction "
+                "order (bit-exact only on the saved topology)",
+                stacklevel=2)
         self.load_states(paths["states"])
         data_state = (entry.get("meta") or {}).get("data_state")
         if data_iter is not None and data_state is not None:
             data_iter.load_state_dict(data_state)
         return entry
 
-    warmup = _unported_method("warmup", "warmup (AOT compile)")
-    aot_lower = _unported_method("aot_lower", "aot_lower")
-    step_report = _unported_method("step_report", "step telemetry")
     # --------------------------------------------------------- model bus ---
     def publish_to(self, bus, every=1, compress_threshold=None,
                    model=None, topk=None, rollback=True):
@@ -761,4 +1197,20 @@ class ShardedTrainer:
         return (list(zip(self._param_names, arrays[:n])),
                 list(zip(self._aux_names, arrays[n:])))
 
-    unshard = _unported_method("unshard", "unshard")
+    def unshard(self, ctx=None):
+        """Copy every parameter and aux state to ``ctx`` (default: the
+        current context) and rebind the handles, for eager use or export
+        (JAX :1239-1247). The next :meth:`step` or :meth:`predict` puts
+        them back on the mesh's device."""
+        from ..context import current_context
+
+        dev = (ctx or current_context()).torch_device()
+        for h in self._train_handles + self._aux_handles:
+            h._data = h._data.detach().to(dev, copy=True)
+        self._placed = False
+        if not self._donate:   # the copies are what was handed out
+            self._handed = [(t, t._version) for t in self._public()]
+
+    @property
+    def mesh(self):
+        return self._mesh

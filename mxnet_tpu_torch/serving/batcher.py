@@ -47,10 +47,18 @@ to one already queued or running rides on it as a follower. An answer
 is inserted only under the version its batch ran on, so a live weight
 swap never serves a stale answer.
 
+Tracing: with :mod:`mxnet_tpu_torch.telemetry.trace` on, every request
+carries a :class:`~mxnet_tpu_torch.telemetry.trace.RequestTrace` with
+the id the HTTP front end bound to the submitting thread (or a fresh
+one); the collector marks ``collected`` when it pops the batch,
+``assembled`` when the rows are in the pinned host batch and ``staged``
+when its copy to the card is started, the runner ``run_begin`` and
+``run_end`` around the bucket's run, and fulfilment closes the five
+phases (``ServingFuture.request_id``, ``breakdown()``).
+
 Not ported: the watchdog deadline around a batch (a batch runs without
-one, as the JAX package's does with no watchdog configured) and request
-tracing (``ServingFuture.request_id`` and ``breakdown()`` return None, as
-the JAX package's do with tracing off). Every wait carries a timeout.
+one, as the JAX package's does with no watchdog configured). Every wait
+carries a timeout.
 """
 from __future__ import annotations
 
@@ -62,6 +70,7 @@ from collections import deque
 import torch
 
 from .. import faults as _faults
+from ..telemetry import trace as _trace
 from . import cache as _pcache
 from . import config as _config
 from .errors import (DeadlineExceeded, RequestError, RequestTimeout,
@@ -78,8 +87,8 @@ class ServingFuture:
     no timeout given, the configured ``timeout_ms`` applies."""
 
     __slots__ = ("model", "t_submit", "t_done", "_event", "_result",
-                 "_error", "model_version", "priority", "deadline_ms",
-                 "cache_hit")
+                 "_error", "_trace", "model_version", "priority",
+                 "deadline_ms", "cache_hit")
 
     def __init__(self, model, priority="interactive", deadline_ms=None):
         self.model = model
@@ -88,6 +97,7 @@ class ServingFuture:
         self._event = threading.Event()
         self._result = None
         self._error = None
+        self._trace = None   # the RequestTrace, with tracing on
         # the version of the weights the answering batch ran on (stamped
         # at fulfilment; None until then and on failure)
         self.model_version = None
@@ -118,14 +128,20 @@ class ServingFuture:
 
     @property
     def request_id(self):
-        """The propagated request id: None (request tracing is not
-        ported)."""
-        return None
+        """The propagated request id (None with tracing off)."""
+        return self._trace.request_id if self._trace is not None else None
 
     def breakdown(self):
-        """The per-request phase breakdown: None (request tracing is not
-        ported)."""
-        return None
+        """The five-phase breakdown of an answered request
+        (``queue_wait_ms`` ... ``respond_ms``, ``total_ms``), or None
+        (tracing off, or not answered yet)."""
+        return self._trace.breakdown if self._trace is not None else None
+
+    def _finish(self, **kw):
+        """Close the request's trace; called before the future is
+        answered, so a caller woken by the answer finds its breakdown."""
+        if self._trace is not None:
+            self._trace.finish(**kw)
 
     def _fulfill(self, result):
         self.t_done = time.monotonic()
@@ -241,6 +257,7 @@ class BucketBatcher:
         for r in leftovers:
             err = ServerDrainingError(self.model.name, "stopped")
             for fut in (r.fut, *r.followers):
+                fut._finish(error="ServerDrainingError")
                 fut._fail(err)
                 self.metrics.record_fail()
 
@@ -275,6 +292,9 @@ class BucketBatcher:
         deadline_ms = None if deadline_ms is None else float(deadline_ms)
         fut = ServingFuture(self.model.name, priority=priority,
                             deadline_ms=deadline_ms)
+        if _trace.enabled():
+            # the HTTP front end binds X-Request-Id on this thread
+            fut._trace = _trace.request_begin(self.model.name, rows=n)
         deadline = (fut.t_submit + deadline_ms / 1e3
                     if deadline_ms is not None else None)
         key = key_version = None
@@ -289,6 +309,7 @@ class BucketBatcher:
                 self.metrics.record_submit()
                 fut.cache_hit = True
                 fut.model_version = key_version
+                fut._finish()   # before the answer: a waiter reads it
                 fut._fulfill(hit)
                 self.metrics.record_complete(fut.latency_ms(), priority)
                 if deadline_ms is not None:
@@ -352,6 +373,7 @@ class BucketBatcher:
         err = DeadlineExceeded(self.model.name, r.fut.deadline_ms,
                                self._est_ms, where="queue")
         for fut in (r.fut, *r.followers):
+            fut._finish(error="DeadlineExceeded")
             fut._fail(err)
             self.metrics.record_deadline_drop("queue")
 
@@ -393,6 +415,10 @@ class BucketBatcher:
                 if self._stopping and not self._qi and not self._qb:
                     return None
             self._inflight += 1
+            t_pop = time.monotonic()
+            for r in reqs:   # queue_wait ends here for the whole batch
+                if r.fut._trace is not None:
+                    r.fut._trace.mark("collected", t_pop)
             return reqs, rows
 
     def _assemble(self, reqs, bucket):
@@ -416,7 +442,14 @@ class BucketBatcher:
             reqs, rows = batch
             bucket = self.model.bucket_for(rows)
             try:
-                x, ready = self._put(self._assemble(reqs, bucket))
+                host = self._assemble(reqs, bucket)
+                t_host = time.monotonic()
+                x, ready = self._put(host)
+                t_staged = time.monotonic()
+                for r in reqs:   # batch_collect = assemble; h2d = stage
+                    if r.fut._trace is not None:
+                        r.fut._trace.mark("assembled", t_host)
+                        r.fut._trace.mark("staged", t_staged)
             except Exception as e:  # fail this batch, keep serving
                 self._fail_batch(reqs, RequestError(
                     f"model {self.model.name!r}: staging {rows} rows "
@@ -447,6 +480,7 @@ class BucketBatcher:
         n = 0
         for r in reqs:
             for fut in (r.fut, *r.followers):
+                fut._finish(error=type(err).__name__)
                 fut._fail(err)
                 n += 1
         self.metrics.record_fail(n)
@@ -465,6 +499,9 @@ class BucketBatcher:
                     return
                 continue
             t0 = time.monotonic()
+            for r in reqs:
+                if r.fut._trace is not None:
+                    r.fut._trace.mark("run_begin", t0)
             try:
                 if warm is None:
                     # 'serving.batch' injection: raise fails the batch,
@@ -493,6 +530,8 @@ class BucketBatcher:
             for r in reqs:
                 sliced = [o[off:off + r.n] for o in outs]
                 value = sliced[0] if len(sliced) == 1 else sliced
+                if r.fut._trace is not None:
+                    r.fut._trace.mark("run_end", now)
                 if self.cache is not None and r.key is not None \
                         and model_version == r.key_version:
                     # only under the version the key names: a flip while
@@ -501,6 +540,7 @@ class BucketBatcher:
                     self.cache.put(r.key, value, model_version)
                 for fut in (r.fut, *r.followers):
                     fut.model_version = model_version
+                    fut._finish(bucket=bucket)
                     fut._fulfill(value)
                     lat = (now - fut.t_submit) * 1e3
                     self.metrics.record_complete(lat, fut.priority)

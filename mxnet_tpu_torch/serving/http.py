@@ -8,7 +8,8 @@ Endpoints (the JAX package's paths and JSON keys)::
                                       "deadline_ms": <F>}
                                      (priority and deadline_ms optional)
                                      -> {"model":..., "outputs": [[...]],
-                                     "model_version":..., "request_id":...}
+                                     "model_version":..., "request_id":...,
+                                     "phases": {...}}
                                      ("model_version": the bus version
                                      the answering batch ran on, 0 until
                                      a live weight update lands;
@@ -16,32 +17,36 @@ Endpoints (the JAX package's paths and JSON keys)::
                                      came from the prediction cache; the
                                      request id is the caller's
                                      X-Request-Id header or one minted
-                                     here, echoed back as a header)
+                                     here, echoed back as a header and
+                                     propagated to the batcher; "phases"
+                                     is the traced queue_wait /
+                                     batch_collect / h2d / compute /
+                                     respond split and total_ms, with
+                                     tracing on)
     GET  /v1/models                  -> {"models": [...], "detail": {...}}
     GET  /v1/stats                   -> ModelServer.stats()
+    GET  /metrics                    -> Prometheus text (telemetry.export)
+    GET  /metrics.json               -> the same metrics as JSON
     GET  /healthz                    -> {"status": "ok"|"draining"}
 
 Errors become the status codes a load balancer expects: unknown model
 404, admission fast-reject 429 (with Retry-After), draining 503, request
 deadline 504 (the client-wait RequestTimeout, and a DeadlineExceeded
 drop with ``"dropped": true`` since no compute ran), bad body 400, failed
-batch 500. ``GET /metrics`` and ``/metrics.json`` answer 501: the
-telemetry export behind them is not ported, and neither are the traced
-phases of a response. Each request is one bounded ``server.submit`` and
-``result``; the handler threads (ThreadingHTTPServer) never wait
-unbounded.
+batch 500. Each request is one bounded ``server.submit`` and ``result``;
+the handler threads (ThreadingHTTPServer) never wait unbounded.
 """
 from __future__ import annotations
 
-import itertools
 import json
-import os
 import re
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as _np
 
+from ..telemetry import export as _export
+from ..telemetry import trace as _trace
 from .errors import (DeadlineExceeded, ModelNotFound, RequestError,
                      RequestTimeout, ServerBusyError, ServerDrainingError)
 
@@ -49,12 +54,6 @@ __all__ = ["HttpFrontEnd"]
 
 _PREDICT_RE = re.compile(r"^/(?:v1/models|models|predict)/([^/:]+)"
                          r"(?::predict)?$")
-_ids = itertools.count(1)
-
-
-def _new_request_id():
-    """A process-unique request id (pid-prefixed counter)."""
-    return f"{os.getpid():x}-{next(_ids):x}"
 
 
 class HttpFrontEnd:
@@ -75,15 +74,18 @@ class HttpFrontEnd:
             def log_message(self, *args):  # stay quiet under load
                 pass
 
-            def _json(self, code, payload, extra_headers=()):
-                body = json.dumps(payload).encode()
+            def _send(self, code, body, ctype, extra_headers=()):
                 self.send_response(code)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(body)))
                 for k, v in extra_headers:
                     self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(body)
+
+            def _json(self, code, payload, extra_headers=()):
+                self._send(code, json.dumps(payload).encode(),
+                           "application/json", extra_headers)
 
             def do_GET(self):
                 srv = front._server
@@ -95,9 +97,12 @@ class HttpFrontEnd:
                                      "detail": srv.model_info()})
                 elif self.path in ("/v1/stats", "/stats"):
                     self._json(200, srv.stats())
-                elif self.path in ("/metrics", "/metrics.json"):
-                    self._json(501, {"error": "the telemetry export is not "
-                                     "ported to mxnet_tpu_torch"})
+                elif self.path == "/metrics":
+                    self._send(200, _export.render_prometheus().encode(),
+                               _export.PROMETHEUS_CONTENT_TYPE)
+                elif self.path == "/metrics.json":
+                    self._send(200, _export.render_json().encode(),
+                               "application/json")
                 else:
                     self._json(404, {"error": f"no route {self.path!r}"})
 
@@ -119,11 +124,15 @@ class HttpFrontEnd:
                 except (ValueError, KeyError, TypeError) as e:
                     self._json(400, {"error": f"bad request body: {e}"})
                     return
-                rid = self.headers.get("X-Request-Id") or _new_request_id()
+                # the caller's X-Request-Id, else a minted one: bound to
+                # this thread, the batcher's trace picks it up
+                rid = self.headers.get("X-Request-Id") \
+                    or _trace.new_request_id()
                 rid_hdr = [("X-Request-Id", rid)]
                 try:
-                    fut = srv.submit(name, arr, priority=priority,
-                                     deadline_ms=deadline_ms)
+                    with _trace.context(rid):
+                        fut = srv.submit(name, arr, priority=priority,
+                                         deadline_ms=deadline_ms)
                     out = fut.result(front._timeout)
                 except ModelNotFound as e:
                     self._json(404, {"error": str(e)},
@@ -156,6 +165,12 @@ class HttpFrontEnd:
                             "request_id": fut.request_id or rid}
                     if fut.cache_hit:
                         body["cache_hit"] = True
+                    bd = fut.breakdown()
+                    if bd is not None:
+                        body["phases"] = {
+                            k: bd.get(f"{k}_ms")
+                            for k in _trace.REQUEST_PHASES}
+                        body["phases"]["total_ms"] = bd["total_ms"]
                     self._json(200, body, extra_headers=rid_hdr)
 
         self._httpd = ThreadingHTTPServer((host, port), Handler)

@@ -3,8 +3,11 @@
 check in :func:`mxnet_tpu_torch.telemetry.flight.rec` reads as a single
 attribute load.
 
-``MXNET_TPU_TELEMETRY=0`` disables the flight recorder at process start;
-:func:`set_enabled` flips it at runtime.
+``MXNET_TPU_TELEMETRY=0`` disables every push instrumentation point (the
+flight recorder, the step timeline, memory sampling, the flop count of a
+new compiled entry, spans) at process start; :func:`set_enabled` flips it
+at runtime. Pull-based exports (the registry's collectors) answer a
+scrape either way.
 """
 from __future__ import annotations
 

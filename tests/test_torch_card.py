@@ -55,7 +55,13 @@ run on a machine that has only PyTorch:
   definite inside a graph, under ``set_sync_debug_mode("error")``: NaN
   in that factor's lower triangle, the others right; a hybridized block
   holding a ``Custom`` op runs uncaptured, counted under its reason, with
-  no capture attempted.
+  no capture attempted;
+* ``ShardedTrainer``'s options and the telemetry stack: a captured
+  step's flops (the backward's among them, counted on autograd's engine
+  thread) equal the same step's count on the CPU and
+  ``chip_smoke.classifier_step_flops``; ``warmup`` makes one capture and
+  takes no step; the memory gauges equal ``torch.cuda.memory_stats()``;
+  ``aot_lower`` on fake CUDA tensors launches no kernel.
 """
 import math
 
@@ -2463,3 +2469,119 @@ def test_nms_and_multibox_target_match_the_cpu_on_ties(cuda_device):
     assert torch.equal(got[1].cpu(), want[1])
     torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-5)
     assert (want[2] == 0).any() and (want[2] == -1).any()
+
+
+# ---------------------------------------- trainer options and telemetry ---
+
+TELEMETRY_CFG = {"vocab": 500, "units": 64, "hidden": 128, "heads": 4,
+                 "layers": 2, "seq_len": 16, "num_classes": 2}
+
+
+def _small_trainer(ctx, **kw):
+    from chip_smoke import build_classifier, random_params
+    from mxnet_tpu_torch.convert import load_jax_params
+    from mxnet_tpu_torch.parallel import DeviceMesh, ShardedTrainer
+
+    with ctx:
+        clf = build_classifier(mx, TELEMETRY_CFG)
+        clf.initialize(mx.init.Zero())
+        load_jax_params(clf, random_params(TELEMETRY_CFG, seed=0))
+        return ShardedTrainer(clf, mx.gluon.loss.SoftmaxCrossEntropyLoss(),
+                              "adam", {"learning_rate": 1e-3},
+                              mesh=DeviceMesh({"dp": 1}, devices=[ctx]),
+                              **kw)
+
+
+def _small_task(batch=8):
+    from chip_smoke import make_task
+
+    return make_task(batch, TELEMETRY_CFG["seq_len"], TELEMETRY_CFG["vocab"],
+                     TELEMETRY_CFG["num_classes"], seed=5)
+
+
+@pytest.mark.gpu
+def test_captured_step_flops_equal_the_cpu_count(cuda_device):
+    """The flops counted when the card's step entry is made (its eager
+    first call: aten products on this thread and on autograd's engine
+    thread, K3, K3-bwd and K2 by their formulas) equal the same step's
+    count on the CPU (the plain versions) and the analytic count; each
+    replay reports them."""
+    from chip_smoke import classifier_step_flops
+    from mxnet_tpu_torch.telemetry import costs
+
+    x, y = _small_task()
+    got = {}
+    for ctx in (mx.gpu(0), mx.cpu()):
+        st = _small_trainer(ctx)
+        for _ in range(3):
+            st.step(x, y)
+        got[ctx.device_type] = (costs.flops_for(st._step_fn._token_key),
+                                st.step_report()["flops"])
+    want = classifier_step_flops(TELEMETRY_CFG, 8)
+    assert got["gpu"] == got["cpu"] == (want, want)
+
+
+@pytest.mark.gpu
+def test_warmup_captures_once_and_takes_no_step(cuda_device):
+    from mxnet_tpu_torch import compile as C
+
+    x, y = _small_task()
+    st = _small_trainer(mx.gpu(0))
+    before = [t.clone() for t in st._state_tensors().values()]
+    site = dict(C.stats().get("trainer", {"captures": 0, "replays": 0}))
+    st.warmup(mx.nd.array(x), mx.nd.array(y))
+    torch.cuda.synchronize()
+    now = C.stats()["trainer"]
+    assert now["captures"] - site.get("captures", 0) == 1
+    assert now["replays"] == site.get("replays", 0) and st._t == 0
+    assert all(torch.equal(a, b) for a, b in
+               zip(before, st._state_tensors().values()))
+    st.step(x, y)
+    after = C.stats()["trainer"]
+    assert (after["captures"], after["replays"]) == \
+        (now["captures"], now["replays"] + 1)
+
+
+@pytest.mark.gpu
+def test_memory_gauges_equal_the_allocator_statistics(cuda_device):
+    from mxnet_tpu_torch.telemetry import memory, registry
+
+    keep = torch.empty(1 << 20, device=cuda_device)
+    torch.cuda.synchronize()
+    recs = memory.sample()
+    stats = torch.cuda.memory_stats(0)
+    rec = recs[0]
+    assert rec["device"] == "gpu:0" and rec["source"] == "memory_stats"
+    assert rec["live_bytes"] == stats["allocated_bytes.all.current"]
+    assert rec["peak_bytes"] == stats["allocated_bytes.all.peak"] == \
+        torch.cuda.max_memory_allocated(0)
+    live = registry.get("mxtpu_device_memory_live_bytes").series()
+    peak = registry.get("mxtpu_device_memory_peak_bytes").series()
+    assert live[("gpu:0",)] == rec["live_bytes"]
+    assert peak[("gpu:0",)] == rec["peak_bytes"]
+    del keep
+
+
+@pytest.mark.gpu
+def test_aot_lower_on_fake_cuda_tensors_launches_nothing(cuda_device):
+    from mxnet_tpu_torch import compile as C
+
+    x, y = _small_task()
+    st = _small_trainer(mx.gpu(0))
+    before = [t.clone() for t in st._state_tensors().values()]
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    site = dict(C.stats().get("trainer", {}))
+    low = st.aot_lower(((8, 16), "float32"), ((8,), "float32"))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts() == launches
+    assert dict(C.stats().get("trainer", {})) == site
+    assert all(torch.equal(a, b) for a, b in
+               zip(before, st._state_tensors().values()))
+    text = low.as_text()
+    assert "cuda:0" in text.splitlines()[0]
+    for family in ("opt_adam", "flash_attention", "flash_attention_bwd_dq",
+                   "flash_attention_bwd_dkv"):
+        assert f"kernel {family}" in text
+    st.step(x, y)
+    assert st.step_report()["flops"] == low.flops

@@ -304,13 +304,15 @@ def test_resume_is_bit_exact_against_an_uninterrupted_run(tmp_path):
 
 
 def test_data_iter_and_reshard_stay_refused(tmp_path):
-    """``reshard=`` stays refused; ``data_iter=`` is ported (the data
-    plane's iterators have ``state_dict``): the checkpoint carries the
-    stream position and resume restores it."""
+    """``reshard=`` is ported (tests/test_torch_trainer_options.py holds
+    it against a JAX checkpoint from another mesh): with no checkpoint
+    recorded it returns None, and on the saving topology
+    ``reshard=False`` resumes. ``data_iter=`` is ported (the data plane's
+    iterators have ``state_dict``): the checkpoint carries the stream
+    position and resume restores it."""
     _, st = _port_trainer()
     manager = ckpt.CheckpointManager(tmp_path)
-    with pytest.raises(mx.MXNetError, match="ROADMAP.md section A"):
-        st.resume(manager, reshard=True)
+    assert st.resume(manager, reshard=True) is None
     assert st.resume(manager) is None
     with mx.cpu():
         it = mx.io.NDArrayIter(np.arange(12, dtype=np.float32).reshape(
@@ -321,7 +323,7 @@ def test_data_iter_and_reshard_stay_refused(tmp_path):
         rest = [b.data[0].asnumpy() for b in it]
         fresh = mx.io.NDArrayIter(np.arange(12, dtype=np.float32).reshape(
             12, 1), batch_size=3)
-        entry = st.resume(manager, data_iter=fresh)
+        entry = st.resume(manager, reshard=False, data_iter=fresh)
         assert entry["meta"]["data_state"]["kind"] == "NDArrayIter"
         got = [b.data[0].asnumpy() for b in fresh]
     assert len(got) == len(rest) == 3

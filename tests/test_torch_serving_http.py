@@ -10,9 +10,9 @@ predict, an unknown model's 404, stats), a bad body (400), a full queue
 (429 with Retry-After), a deadline drop (504 with ``"dropped": true``), a
 failed batch (500), a draining server (503), priority and deadline in the
 body, the request id echoed, and the prediction cache's ``cache_hit``.
-The JAX front end adds ``"phases"`` to a response when its request
-tracing is on (the default); the port has no tracing, so that key is
-left out of the comparison.
+Both front ends add ``"phases"`` to a response when request tracing is
+on (the default), so the JSON keys compare whole; the phase times are
+the two processes' own.
 """
 import json
 import urllib.error
@@ -104,11 +104,11 @@ def _call(front, path, body=None, headers=None, raw=None):
 
 def _both(pairs, path, body=None, **kw):
     """The same request to both front ends: ``(port, jax)`` results,
-    with equal status codes and equal JSON keys (but ``phases``)."""
+    with equal status codes and equal JSON keys."""
     got = _call(pairs[mx][0], path, body, **kw)
     want = _call(pairs[jmx][0], path, body, **kw)
     assert got[0] == want[0], (got, want)
-    assert set(got[1]) == set(want[1]) - {"phases"}, (got[1], want[1])
+    assert set(got[1]) == set(want[1]), (got[1], want[1])
     return got, want
 
 
@@ -167,8 +167,12 @@ def test_unknown_get_route_is_404(fronts):
     pairs = fronts()
     got, _ = _both(pairs, "/nothing/here")
     assert got[0] == 404
-    code, body, _ = _call(pairs[mx][0], "/metrics")
-    assert code == 501 and "not ported" in body["error"]
+    # /metrics is ported (tests/test_torch_telemetry.py holds its values)
+    url = pairs[mx][0].url + "/metrics"
+    with urllib.request.urlopen(url, timeout=30.0) as r:
+        assert r.status == 200
+        assert r.headers["Content-Type"].startswith("text/plain")
+        assert "mxtpu_serving_requests_total" in r.read().decode()
 
 
 def test_full_queue_is_429_with_retry_after(fronts):

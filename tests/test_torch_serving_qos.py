@@ -344,8 +344,9 @@ def test_priority_is_validated_and_futures_carry_it():
         fut = b.submit(_row(1), priority="batch", deadline_ms=250)
         assert (fut.priority, fut.deadline_ms) == ("batch", 250.0)
         assert fut.model_version is None and fut.cache_hit is False
-        if pkg is mx:  # request tracing is not ported (JAX: on by default)
-            assert fut.request_id is None and fut.breakdown() is None
+        # request tracing is on by default in both packages: an id at
+        # submit, the breakdown once answered
+        assert fut.request_id and fut.breakdown() is None
     assert serving.PRIORITIES == jserving.PRIORITIES
 
 

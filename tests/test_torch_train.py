@@ -184,19 +184,30 @@ def test_sgd_without_momentum_and_an_optimizer_instance():
 
 
 # remat and accum_steps are ported (tests/test_torch_transformer_lm.py);
-# the other cases keep their ids
+# zero, donate=False and sharding rules are ported too
+# (tests/test_torch_trainer_options.py): on a mesh of one device each
+# builds a trainer, and a rule naming an axis the mesh lacks raises,
+# naming the parameter. The cases keep their ids.
 @pytest.mark.parametrize("kwargs,match", [
-    pytest.param({"zero": True}, "zero", id="kwargs0-zero"),
-    pytest.param({"donate": False}, "donate", id="kwargs3-donate"),
-    pytest.param({"rules": {"weight": ("tp",)}}, "rules",
+    pytest.param({"zero": True}, None, id="kwargs0-zero"),
+    pytest.param({"donate": False}, None, id="kwargs3-donate"),
+    pytest.param({"rules": {"weight": ("tp",)}}, "axis 'tp' is not an axis",
                  id="kwargs4-rules"),
 ])
 def test_unported_trainer_options_raise(kwargs, match):
     net = mx.gluon.nn.Dense(3, in_units=4)
     net.initialize(ctx=CPU)
-    with pytest.raises(mx.MXNetError, match=match):
-        ShardedTrainer(net, mx.gluon.loss.L2Loss(),
-                       mesh=DeviceMesh({"dp": 1}, devices=[CPU]), **kwargs)
+    mesh = DeviceMesh({"dp": 1}, devices=[CPU])
+    if match is not None:
+        name = next(iter(net.collect_params()))
+        with pytest.raises(ValueError, match=match):
+            ShardedTrainer(net, mx.gluon.loss.L2Loss(), mesh=mesh,
+                           rules={name: kwargs["rules"]["weight"]})
+        return
+    st = ShardedTrainer(net, mx.gluon.loss.L2Loss(), mesh=mesh, **kwargs)
+    assert st.topology_meta()["zero"] is bool(kwargs.get("zero", False))
+    st.step(np.ones((2, 4), np.float32), np.zeros((2, 3), np.float32))
+    assert st._t == 1
 
 
 def test_unported_optimizers_meshes_and_methods_raise():
@@ -214,9 +225,10 @@ def test_unported_optimizers_meshes_and_methods_raise():
     with pytest.raises(ValueError, match="require 2 devices"):
         DeviceMesh({"dp": 2}, devices=[CPU])
     st = ShardedTrainer(net, mx.gluon.loss.L2Loss(), mesh=mesh)
-    for name in ("aot_lower", "warmup"):
-        with pytest.raises(mx.MXNetError, match="not ported"):
-            getattr(st, name)(None, None)
+    # aot_lower and warmup are ported (tests/test_torch_trainer_options.py)
+    spec = ((2, 4), "float32"), ((2, 3), "float32")
+    assert "aten" in st.aot_lower(*spec).as_text()
+    assert st.warmup(*spec)["entries"] == 0 and st._t == 0
     # publish_to / publish_update are ported (tests/test_torch_modelbus.py);
     # the eager Optimizer.update is ported (tests/test_torch_trainer.py);
     # the dist_async kvstore is not. lr schedulers, multi_precision,
