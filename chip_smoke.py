@@ -460,6 +460,34 @@ Phases, each printing one JSON line:
     (requests, batches, rows), K3 12 launches a batch, and
     ``trace.dump()`` a valid Chrome trace.
 
+37. fm_criteo_row_sparse: ``examples/sparse/factorization_machine.py``
+    through the port (its flow in ``sparse_fm_example``): at its defaults
+    on the card (acc > 0.75 after 15 epochs; each epoch against the same
+    flow on the CPU), then at the width of LIBSVM's criteo set
+    (``FM_CRITEO``: 1,000,000 hashed features, 39 a row, factor 16,
+    batch 1000, "sgd" on a local store) from a 100,000-row LibSVM file
+    read by ``LibSVMIter`` (the CSR parts taken as they are): per batch
+    the ms of the row pulls, the host math and the pushes (row union and
+    lazy update), the unique rows touched, the loop's peak memory above
+    the tables (below one (1e6 x 16) table), and after 100 batches ``w``
+    and ``v`` bit for bit against dense tables given the same pushes by
+    ``index_add_``.
+38. sparse_linear_mf: ``linear_classification.py`` and
+    ``matrix_factorization.py`` at their defaults on the card, their
+    thresholds (acc > 0.8, RMSE < 1.5) and each epoch against the CPU
+    within 1e-4.
+39. dist_sparse_async: two workers on the card over gloo (this script
+    with ``--worker``): the criteo-width FM under ``dist_sync`` for 20
+    batches, each worker half a batch (the rows and bytes each
+    row-sparse push gathers; both workers' tables bit for bit against one
+    process given the summed pushes); then ``train_imagenet.py --kv-store
+    dist_async --network resnet50_v1 --benchmark 1`` at batch 128 a
+    worker for 13 batches (batch ms, push and pull ms, the gather's ms and
+    bytes in both forms, K1 two launches a batch on each worker, the
+    weights equal on both workers after every batch, and after 2 batches
+    equal to one process's K1 updates with rank 0's then rank 1's
+    gradients).
+
 The twobit phase also holds the single-tensor compress and the
 decompress in float16 and bfloat16 bit for bit against their plain
 versions (thresholds 0.5 and 0.1) and times them over 109 M elements
@@ -476,7 +504,8 @@ and K3-bwd with their launches per replayed LM step and K3 and K3-bwd
 with their times at the LM's shape; K2, K3 and K3-bwd with their
 launches in online_update; K2 with its launches and device ms a batch in
 lstm_ptb_bucketing; K1 with its launches in the MobileNet v2 fit and
-none in its NAG fit; K2 with its launches in dcgan and none under
+none in its NAG fit, its launches under dist_async and none in the
+row-sparse FM; K2 with its launches in dcgan and none under
 "lamb"; K6 and K7 with their half-precision times; K2, K3 and K3-bwd
 with their launches in bert_base_sst2_finetune_zero), the
 card's name and power limit,
@@ -3770,6 +3799,9 @@ def phase_decode():
                               scaled_dot_product_attention(
                                   q4, k, v, attn_mask=mask, scale=scale))}
     timing["bound_ms"], timing["bound_by"] = decode_bound_ms(q, k, lengths)
+    # the kernel's own time: 20 calls after the profiler's warm-up cycle
+    timing["device_ms"] = device_ms(lambda: decode_attention.decode_attention(
+        q, k, v, lengths, scale))
     timing["max_abs_err"] = errs["float32"]
     emit({"phase": "decode_timing", "shape": list(DECODE_MAIN),
           "dtype": "float32", "filled_keys": int(lengths.sum().item()),
@@ -5490,13 +5522,14 @@ def _lr_scheduler(cfg):
 
 def module_fit(cfg, model, train, batch_end_callbacks):
     """``common/fit.py:106-163`` (``fit``) for ``--benchmark 1``: a
-    ``local`` kvstore object, ``cfg["optimizer"]`` ("sgd" by default; with
+    kvstore object of ``cfg["kv_store"]`` (``local`` by default; fit.py:70
+    creates ``args.kv_store``), ``cfg["optimizer"]`` ("sgd" by default; with
     momentum for sgd, nag, signum and lbsgd, as fit.py:131) and weight
     decay under the lr schedule, ``Xavier(rnd_type="gaussian", factor_type="in",
     magnitude=2)``, the "accuracy" metric, ``Speedometer(batch_size,
     disp_batches)`` (then ``batch_end_callbacks``), no checkpoint prefix,
     no validation data, ``allow_missing=True``, one epoch."""
-    kv = mx.kv.create("local")
+    kv = mx.kv.create(cfg.get("kv_store", "local"))
     lr, lr_scheduler = _lr_scheduler(cfg)
     optimizer = cfg.get("optimizer", "sgd")
     optimizer_params = {"learning_rate": lr, "wd": cfg["wd"],
@@ -10890,6 +10923,834 @@ def phase_bert_finetune_zero(smi):
     return out
 
 
+# ------------------------------------------------------- sparse phases --
+# examples/sparse/'s three flows over the port, as the examples write them
+# (their synthetic data copied here: the examples live beside the JAX
+# package and are not imported); each returns its per-epoch numbers.
+
+
+def synthetic_fm_data(num_samples, num_features, factor_size, nnz, seed=0):
+    """``examples/sparse/factorization_machine.py:32-51``: sparse rows
+    labelled by a planted FM."""
+    rs = np.random.RandomState(seed)
+    true_w = 0.5 * rs.randn(num_features).astype(np.float32)
+    true_v = 0.8 * rs.randn(num_features, factor_size).astype(np.float32)
+    rows, vals, labels = [], [], []
+    for _ in range(num_samples):
+        idx = rs.choice(num_features, nnz, replace=False)
+        x = rs.rand(nnz).astype(np.float32)
+        lin = float((true_w[idx] * x).sum())
+        s = (x[:, None] * true_v[idx]).sum(0)
+        inter = 0.5 * float((s * s).sum() -
+                            ((x ** 2)[:, None] * true_v[idx] ** 2).sum())
+        rows.append(idx)
+        vals.append(x)
+        labels.append(1.0 if lin + inter > 0 else 0.0)
+    return np.stack(rows), np.stack(vals), np.asarray(labels, np.float32)
+
+
+def synthetic_sparse_data(num_samples=2000, num_features=1000, nnz=12,
+                          seed=0):
+    """``examples/sparse/linear_classification.py:26-38``."""
+    rs = np.random.RandomState(seed)
+    true_w = rs.randn(num_features).astype(np.float32)
+    rows, vals, labels = [], [], []
+    for _ in range(num_samples):
+        idx = rs.choice(num_features, nnz, replace=False)
+        v = rs.rand(nnz).astype(np.float32)
+        rows.append(idx)
+        vals.append(v)
+        labels.append(1.0 if (true_w[idx] * v).sum() > 0 else 0.0)
+    return np.stack(rows), np.stack(vals), np.asarray(labels, np.float32)
+
+
+def synthetic_ratings(num_users, num_items, factor, num_ratings, seed=0):
+    """``examples/sparse/matrix_factorization.py:28-35``."""
+    rs = np.random.RandomState(seed)
+    true_u = rs.randn(num_users, factor).astype(np.float32)
+    true_i = rs.randn(num_items, factor).astype(np.float32)
+    users = rs.randint(0, num_users, num_ratings)
+    items = rs.randint(0, num_items, num_ratings)
+    ratings = (true_u[users] * true_i[items]).sum(1).astype(np.float32)
+    return users, items, ratings
+
+
+def _pull_rows(kv, key, uniq, width, nrows):
+    """The examples' ``pull_rows``: a row-sparse ``out`` of the touched
+    rows, ``row_sparse_pull``, its values on the host."""
+    out = mx.nd.sparse.row_sparse_array(
+        (np.zeros((len(uniq), width), np.float32), uniq.astype(np.int64)),
+        shape=(nrows, width))
+    kv.row_sparse_pull(key, out=out, row_ids=mx.nd.array(uniq))
+    return out.data.asnumpy()
+
+
+def fm_math(x, y, inv, w_rows, v_rows, w0, batch_norm):
+    """The example's host math for one batch (``:130-157``): the FM's
+    logits, loss and correct count, and the gradients of the touched rows
+    (``gw``, ``gv``) and of ``w0``, each batch row's term divided by
+    ``batch_norm``."""
+    fs = v_rows.shape[1]
+    wb = w_rows[inv]
+    vb = v_rows[inv]
+    s = (x[:, :, None] * vb).sum(1)
+    lin = (x * wb).sum(1)
+    inter = 0.5 * ((s * s).sum(1) -
+                   ((x ** 2)[:, :, None] * vb ** 2).sum((1, 2)))
+    prob = 1.0 / (1.0 + np.exp(-(w0 + lin + inter)))
+    loss = float(-np.mean(y * np.log(prob + 1e-8) +
+                          (1 - y) * np.log(1 - prob + 1e-8)))
+    correct = int(((prob > 0.5) == (y > 0.5)).sum())
+    g = (prob - y) / batch_norm
+    n_rows = w_rows.shape[0]
+    gw = np.zeros((n_rows,), np.float32)
+    np.add.at(gw, inv.reshape(-1), (g[:, None] * x).reshape(-1))
+    gv = np.zeros((n_rows, fs), np.float32)
+    gv_rows = (g[:, None, None] *
+               (x[:, :, None] * s[:, None, :] - (x ** 2)[:, :, None] * vb))
+    np.add.at(gv, inv.reshape(-1), gv_rows.reshape(-1, fs))
+    return loss, correct, gw, gv, np.array([g.sum()], np.float32)
+
+
+def fm_store(nf, fs, lr, kvstore="local"):
+    """The example's store (``:99-107``): ``w`` (nf, 1), ``v`` (nf, fs)
+    from ``RandomState(1)``, ``w0``, and "sgd" on it."""
+    rs = np.random.RandomState(1)
+    kv = mx.kv.create(kvstore)
+    kv.init("w", mx.nd.array(0.01 * rs.randn(nf, 1).astype(np.float32)))
+    kv.init("v", mx.nd.array(0.1 * rs.randn(nf, fs).astype(np.float32)))
+    kv.init("w0", mx.nd.zeros((1,)))
+    kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=lr))
+    return kv
+
+
+def fm_pull(kv, uniq, nf, fs):
+    """``w``'s and ``v``'s touched rows and ``w0``, on the host."""
+    w_rows = _pull_rows(kv, "w", uniq, 1, nf)[:, 0]
+    v_rows = _pull_rows(kv, "v", uniq, fs, nf)
+    out0 = mx.nd.zeros((1,))
+    kv.pull("w0", out=out0)
+    return w_rows, v_rows, float(out0.asnumpy()[0])
+
+
+def fm_push(kv, uniq, gw, gv, g0, nf, fs):
+    idx = uniq.astype(np.int64)
+    kv.push("w", mx.nd.sparse.row_sparse_array((gw[:, None], idx),
+                                               shape=(nf, 1)))
+    kv.push("v", mx.nd.sparse.row_sparse_array((gv, idx), shape=(nf, fs)))
+    kv.push("w0", mx.nd.array(g0))
+
+
+def sparse_fm_example(ctx, num_epoch=15, batch_size=64, input_size=2000,
+                      factor_size=8, lr=1.0, kvstore="local",
+                      num_examples=2000, nnz=10):
+    """``examples/sparse/factorization_machine.py``'s ``main`` on its
+    synthetic data, on ``ctx``: per epoch the training accuracy and
+    logloss it prints."""
+    nf, fs = input_size, factor_size
+    rows, vals, labels = synthetic_fm_data(num_examples, nf, fs, nnz)
+    n = rows.shape[0]
+    nbatch = n // batch_size
+    epochs = []
+    with ctx:
+        kv = fm_store(nf, fs, lr, kvstore)
+        for epoch in range(num_epoch):
+            perm = np.random.RandomState(epoch).permutation(n)
+            total_loss, correct = 0.0, 0
+            for b in range(nbatch):
+                sel = perm[b * batch_size:(b + 1) * batch_size]
+                idx, x, y = rows[sel], vals[sel], labels[sel]
+                uniq, inv = np.unique(idx, return_inverse=True)
+                inv = inv.reshape(idx.shape)
+                w_rows, v_rows, w0 = fm_pull(kv, uniq, nf, fs)
+                loss, ok, gw, gv, g0 = fm_math(x, y, inv, w_rows, v_rows, w0,
+                                               len(sel))
+                total_loss += loss
+                correct += ok
+                fm_push(kv, uniq, gw, gv, g0, nf, fs)
+            epochs.append({"accuracy": correct / (nbatch * batch_size),
+                           "logloss": total_loss / nbatch})
+    return epochs
+
+
+def sparse_linear_example(ctx, num_epoch=8, batch_size=64,
+                          num_features=1000, lr=4.0, kvstore="local"):
+    """``examples/sparse/linear_classification.py``'s ``main``: per
+    epoch the accuracy and logloss it prints."""
+    rows, vals, labels = synthetic_sparse_data(num_features=num_features)
+    n = rows.shape[0]
+    nbatch = n // batch_size
+    epochs = []
+    with ctx:
+        kv = mx.kv.create(kvstore)
+        kv.init("weight", mx.nd.zeros((num_features, 1)))
+        kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=lr))
+        for epoch in range(num_epoch):
+            perm = np.random.RandomState(epoch).permutation(n)
+            total_loss, correct = 0.0, 0
+            for b in range(nbatch):
+                sel = perm[b * batch_size:(b + 1) * batch_size]
+                idx, val, y = rows[sel], vals[sel], labels[sel]
+                uniq = np.unique(idx)
+                pulled = mx.nd.sparse.row_sparse_array(
+                    (np.zeros((len(uniq), 1), np.float32),
+                     uniq.astype(np.int64)), shape=(num_features, 1))
+                kv.row_sparse_pull("weight", out=pulled,
+                                   row_ids=mx.nd.array(uniq))
+                w = np.zeros((num_features,), np.float32)
+                w[np.asarray(pulled.indices.asnumpy(), np.int64)] = \
+                    pulled.data.asnumpy()[:, 0]
+                logits = (val * w[idx]).sum(axis=1)
+                prob = 1.0 / (1.0 + np.exp(-logits))
+                total_loss += float(-np.mean(
+                    y * np.log(prob + 1e-8) +
+                    (1 - y) * np.log(1 - prob + 1e-8)))
+                correct += int(((prob > 0.5) == (y > 0.5)).sum())
+                gscale = (prob - y) / len(sel)
+                gw = np.zeros((num_features,), np.float32)
+                np.add.at(gw, idx.reshape(-1),
+                          (gscale[:, None] * val).reshape(-1))
+                kv.push("weight", mx.nd.sparse.row_sparse_array(
+                    (gw[uniq][:, None], uniq.astype(np.int64)),
+                    shape=(num_features, 1)))
+            epochs.append({"accuracy": correct / (nbatch * batch_size),
+                           "logloss": total_loss / nbatch})
+    return epochs
+
+
+def sparse_mf_example(ctx, num_epoch=10, batch_size=128, num_users=500,
+                      num_items=400, factor_size=8, num_ratings=8000,
+                      lr=0.02, kvstore="local"):
+    """``examples/sparse/matrix_factorization.py``'s ``main``: per epoch
+    the RMSE it prints."""
+    nu, ni, fs = num_users, num_items, factor_size
+    users, items, ratings = synthetic_ratings(nu, ni, fs, num_ratings)
+    n = len(ratings)
+    nbatch = n // batch_size
+    epochs = []
+    with ctx:
+        rs = np.random.RandomState(1)
+        kv = mx.kv.create(kvstore)
+        kv.init("user", mx.nd.array(0.5 * rs.randn(nu, fs).astype(
+            np.float32)))
+        kv.init("item", mx.nd.array(0.5 * rs.randn(ni, fs).astype(
+            np.float32)))
+        kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=lr))
+        for epoch in range(num_epoch):
+            perm = np.random.RandomState(epoch).permutation(n)
+            sq = 0.0
+            for b in range(nbatch):
+                sel = perm[b * batch_size:(b + 1) * batch_size]
+                u, i, y = users[sel], items[sel], ratings[sel]
+                uu, uinv = np.unique(u, return_inverse=True)
+                ii, iinv = np.unique(i, return_inverse=True)
+                U = _pull_rows(kv, "user", uu, fs, nu)  # noqa: N806
+                V = _pull_rows(kv, "item", ii, fs, ni)  # noqa: N806
+                err = (U[uinv] * V[iinv]).sum(1) - y
+                sq += float((err ** 2).sum())
+                g = err[:, None]
+                gU = np.zeros_like(U)  # noqa: N806
+                np.add.at(gU, uinv, g * V[iinv])
+                gV = np.zeros_like(V)  # noqa: N806
+                np.add.at(gV, iinv, g * U[uinv])
+                kv.push("user", mx.nd.sparse.row_sparse_array(
+                    (gU, uu.astype(np.int64)), shape=(nu, fs)))
+                kv.push("item", mx.nd.sparse.row_sparse_array(
+                    (gV, ii.astype(np.int64)), shape=(ni, fs)))
+            epochs.append({"rmse": float(np.sqrt(sq / (nbatch *
+                                                       batch_size)))})
+    return epochs
+
+
+# fm_criteo_row_sparse (b): the factorization machine at the width of
+# LIBSVM's "criteo" set (1,000,000 hashed features, 39 non-zeros a row),
+# factor 16, batch 1000, "sgd" at the example's lr on a local store. The
+# data: 100,000 rows with synthetic_fm_data's planted-FM labels, written
+# as a LibSVM file and read back by LibSVMIter. The cut: 100,000 rows and
+# 100 batches, not the set's 45.8 M rows
+FM_CRITEO = {"features": 1_000_000, "nnz": 39, "factor": 16, "batch": 1000,
+             "rows": 100_000, "batches": 100, "lr": 1.0, "seed": 7,
+             "source": "LIBSVM datasets, binary: criteo (1,000,000 hashed "
+                       "features, 39 a row)",
+             "reduced": "100,000 synthetic rows and 100 batches, not "
+                        "45,840,617 rows"}
+# dist_sparse_async (a): FM_CRITEO's width under dist_sync on two workers,
+# each half of every batch; (b): train_imagenet.py --kv-store dist_async
+# --network resnet50_v1 --benchmark 1 on two workers of batch 128 each
+DIST_SPARSE = {"workers": 2, "fm_batches": 20, "timeout_s": 420,
+               "check_batches": 2, "gather_reps": 3}
+FM_EXAMPLE_TOL = 1e-4   # each epoch's number, card against the CPU
+
+
+def criteo_fm_data(cfg):
+    """``cfg["rows"]`` rows of ``cfg["nnz"]`` distinct features (sorted)
+    of ``cfg["features"]``, values in [0, 1), labelled by a planted FM as
+    ``synthetic_fm_data`` does, made vectorised: a row's features drawn
+    with replacement and redrawn while any repeats (``choice(...,
+    replace=False)`` would permute every feature on every row)."""
+    nf, nnz, fs, n = cfg["features"], cfg["nnz"], cfg["factor"], cfg["rows"]
+    rs = np.random.RandomState(cfg["seed"])
+    true_w = 0.5 * rs.randn(nf).astype(np.float32)
+    true_v = 0.8 * rs.randn(nf, fs).astype(np.float32)
+    idx = np.sort(rs.randint(0, nf, (n, nnz)), axis=1)
+    while True:
+        dup = (np.diff(idx, axis=1) == 0).any(axis=1)
+        if not dup.any():
+            break
+        idx[dup] = np.sort(rs.randint(0, nf, (int(dup.sum()), nnz)), axis=1)
+    x = rs.rand(n, nnz).astype(np.float32)
+    labels = np.empty(n, np.float32)
+    for lo in range(0, n, 10_000):
+        xi, ii = x[lo:lo + 10_000], idx[lo:lo + 10_000]
+        lin = (true_w[ii] * xi).sum(1)
+        tv = true_v[ii]
+        s = (xi[:, :, None] * tv).sum(1)
+        inter = 0.5 * ((s * s).sum(1) - ((xi ** 2)[:, :, None] *
+                                         tv ** 2).sum((1, 2)))
+        labels[lo:lo + 10_000] = (lin + inter > 0).astype(np.float32)
+    return idx, x, labels
+
+
+def criteo_libsvm(cfg):
+    """The LibSVM file of :func:`criteo_fm_data` under the build
+    directory (written once a run): ``<label> <idx>:<value> ...``, each
+    value with 9 significant digits (a float32 read back exactly)."""
+    path = build.BUILD_DIR / f"criteo_fm_{cfg['rows']}_{cfg['seed']}.libsvm"
+    if path.exists():
+        return path
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    idx, x, labels = criteo_fm_data(cfg)
+    tmp = path.with_suffix(".tmp")
+    with open(tmp, "w") as f:
+        for lo in range(0, len(labels), 10_000):
+            ii, xi = idx[lo:lo + 10_000], x[lo:lo + 10_000]
+            pairs = np.char.add(np.char.add(ii.astype(str), ":"),
+                                np.char.mod("%.9g", xi))
+            lines = [f"{int(y)} " + " ".join(p) for y, p in
+                     zip(labels[lo:lo + 10_000], pairs)]
+            f.write("\n".join(lines) + "\n")
+    tmp.rename(path)
+    return path
+
+
+def _csr_batch(csr, nnz, lo=None, hi=None):
+    """A LibSVM batch's rows (``lo:hi``) as the example's ``(idx, x)``,
+    read from the CSR parts (every row holds ``nnz`` values): the example
+    densifies with ``csr.asnumpy()``, a (batch x 1,000,000) host array at
+    this width."""
+    idx = csr.indices.asnumpy().reshape(-1, nnz)
+    x = csr.data.asnumpy().reshape(-1, nnz)
+    return idx[lo:hi], x[lo:hi]
+
+
+def _fm_table_bytes(nf, fs):
+    return (nf * fs + nf + 1) * 4
+
+
+def phase_fm_criteo(smi):
+    """fm_criteo_row_sparse: (a) the FM example at its defaults on the
+    card (acc > 0.75 after 15 epochs, each epoch's numbers against the
+    same flow on the CPU); (b) at Criteo's width from a LibSVM file read
+    by ``LibSVMIter``: per batch the ms of the two ``row_sparse_pull``
+    and the ``w0`` pull, of the host math and of the pushes (the row
+    union and the lazy update), and the unique rows touched; the loop's
+    peak memory above the tables; after 100 batches ``w`` and ``v`` bit
+    for bit against dense tables on the card given the same pushes by
+    ``index_add_``."""
+    dev = mx.gpu(0)
+    t0 = time.perf_counter()
+    card = sparse_fm_example(dev)
+    card_s = time.perf_counter() - t0
+    cpu = sparse_fm_example(mx.cpu())
+    worst = max(abs(a[k] - b[k]) for a, b in zip(card, cpu) for k in a)
+    if worst > FM_EXAMPLE_TOL:
+        raise AssertionError(f"fm_criteo_row_sparse: the defaults' epochs "
+                             f"differ card to CPU by {worst}")
+    if not card[-1]["accuracy"] > 0.75:
+        raise AssertionError(f"fm_criteo_row_sparse: the defaults learnt "
+                             f"{card[-1]['accuracy']}, not above 0.75")
+    emit({"phase": "fm_criteo_row_sparse", "part": "defaults",
+          "epochs": card, "final_accuracy": card[-1]["accuracy"],
+          "card_s": card_s, "card_vs_cpu_max_diff": worst,
+          "tolerance": FM_EXAMPLE_TOL})
+
+    c = FM_CRITEO
+    nf, fs, nnz, bsz, lr = (c[k] for k in ("features", "factor", "nnz",
+                                           "batch", "lr"))
+    t0 = time.perf_counter()
+    path = criteo_libsvm(c)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    it = mx.io.LibSVMIter(data_libsvm=str(path), data_shape=(nf,),
+                          batch_size=bsz, ctx=dev)
+    parse_s = time.perf_counter() - t0
+    with dev:
+        kv = fm_store(nf, fs, lr)
+    w_ref = kv._store["w"]._data.clone()
+    v_ref = kv._store["v"]._data.clone()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    split = {"pull": [], "math": [], "push": []}
+    touched, losses, correct, launches = [], [], 0, None
+    kernels.reset_launch_counts()
+    with dev:
+        for b, batch in enumerate(it):
+            if b == c["batches"]:
+                break
+            t0 = time.perf_counter()
+            idx, x = _csr_batch(batch.data[0], nnz)
+            y = batch.label[0].asnumpy()
+            uniq, inv = np.unique(idx, return_inverse=True)
+            inv = inv.reshape(idx.shape)
+            w_rows, v_rows, w0 = fm_pull(kv, uniq, nf, fs)
+            t1 = time.perf_counter()
+            loss, ok, gw, gv, g0 = fm_math(x, y, inv, w_rows, v_rows, w0,
+                                           len(y))
+            t2 = time.perf_counter()
+            fm_push(kv, uniq, gw, gv, g0, nf, fs)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            for name, (a, z) in (("pull", (t0, t1)), ("math", (t1, t2)),
+                                 ("push", (t2, t3))):
+                split[name].append((z - a) * 1e3)
+            touched.append(len(uniq))
+            losses.append(loss)
+            correct += ok
+            rows = torch.from_numpy(uniq).to(w_ref.device)
+            w_ref.index_add_(0, rows, -lr * torch.from_numpy(
+                gw[:, None]).to(w_ref.device))
+            v_ref.index_add_(0, rows, -lr * torch.from_numpy(gv).to(
+                v_ref.device))
+    launches = kernels.launch_counts()
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - base
+    table = _fm_table_bytes(nf, fs)
+    if growth >= nf * fs * 4:
+        raise AssertionError(f"fm_criteo_row_sparse: the loop's peak grew "
+                             f"{growth} bytes, an (nf x factor) temporary "
+                             f"is {nf * fs * 4}")
+    same = {k: torch.equal(kv._store[k]._data, ref)
+            for k, ref in (("w", w_ref), ("v", v_ref))}
+    if not all(same.values()):
+        raise AssertionError(f"fm_criteo_row_sparse: the store's tables "
+                             f"differ from the index_add_ reference: {same}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("fm_criteo_row_sparse: a loss is not finite")
+    batches = len(touched)
+    out = {"phase": "fm_criteo_row_sparse", "part": "criteo_width",
+           "config": {k: v for k, v in c.items()}, "nvidia_smi": smi,
+           "libsvm_write_s": write_s, "libsvm_parse_s": parse_s,
+           "batches": batches,
+           "ms_per_batch_median": {k: statistics.median(v)
+                                   for k, v in split.items()},
+           "ms_per_batch_mean": {k: statistics.fmean(v)
+                                 for k, v in split.items()},
+           "batch_ms_median": statistics.median(
+               [sum(t) for t in zip(*split.values())]),
+           "unique_rows_touched": {"median": statistics.median(touched),
+                                   "min": min(touched), "max": max(touched)},
+           "table_bytes": table,
+           "loop_peak_growth_bytes": growth,
+           "loop_peak_growth_over_table": growth / table,
+           "dense_temporary_bytes": nf * fs * 4,
+           "tables_bitwise_equal_index_add_reference": True,
+           "loss_first_last": [losses[0], losses[-1]],
+           "train_accuracy": correct / (batches * bsz),
+           "launches": {k: n for k, n in launches.items() if n}}
+    emit(out)
+    del kv, w_ref, v_ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_sparse_linear_mf(smi):
+    """sparse_linear_mf: ``linear_classification.py`` and
+    ``matrix_factorization.py`` at their defaults on the card, their own
+    thresholds (acc > 0.8, RMSE < 1.5), and each epoch's numbers against
+    the same flow on the port's CPU within ``FM_EXAMPLE_TOL``."""
+    out = {}
+    for name, fn, check in (
+            ("linear_classification", sparse_linear_example,
+             lambda e: e[-1]["accuracy"] > 0.8),
+            ("matrix_factorization", sparse_mf_example,
+             lambda e: e[-1]["rmse"] < 1.5)):
+        t0 = time.perf_counter()
+        card = fn(mx.gpu(0))
+        card_s = time.perf_counter() - t0
+        cpu = fn(mx.cpu())
+        worst = max(abs(a[k] - b[k]) for a, b in zip(card, cpu) for k in a)
+        if worst > FM_EXAMPLE_TOL or not check(card):
+            raise AssertionError(f"sparse_linear_mf {name}: final "
+                                 f"{card[-1]}, card to CPU {worst}")
+        out[name] = {"epochs": card, "card_s": card_s,
+                     "card_vs_cpu_max_diff": worst}
+    emit({"phase": "sparse_linear_mf", "tolerance": FM_EXAMPLE_TOL, **out})
+    return out
+
+
+def _sha(tensors):
+    digest = hashlib.sha256()
+    for t in tensors:
+        digest.update(t.detach().cpu().contiguous().view(torch.uint8)
+                      .numpy().tobytes())
+    return digest.hexdigest()
+
+
+def _worker_fm_dist(rank, out_dir):
+    """dist_sparse_async (a)'s worker: FM_CRITEO's FM under dist_sync,
+    half of every batch, 20 batches; its pushes and final tables saved."""
+    c, d = FM_CRITEO, DIST_SPARSE
+    nf, fs, nnz, bsz, lr = (c[k] for k in ("features", "factor", "nnz",
+                                           "batch", "lr"))
+    dev = mx.gpu(0)
+    it = mx.io.LibSVMIter(data_libsvm=str(criteo_libsvm(c)),
+                          data_shape=(nf,), batch_size=bsz, ctx=dev)
+    with dev:
+        kv = fm_store(nf, fs, lr, "dist_sync")
+    n = kv.num_workers
+    lo, hi = rank * bsz // n, (rank + 1) * bsz // n
+    pushes, batch_ms, stats = [], [], []
+    with dev:
+        for b, batch in enumerate(it):
+            if b == d["fm_batches"]:
+                break
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            idx, x = _csr_batch(batch.data[0], nnz, lo, hi)
+            y = batch.label[0].asnumpy()[lo:hi]
+            uniq, inv = np.unique(idx, return_inverse=True)
+            inv = inv.reshape(idx.shape)
+            w_rows, v_rows, w0 = fm_pull(kv, uniq, nf, fs)
+            # each worker's terms over the whole batch: the workers' sum
+            # is the batch mean
+            _, _, gw, gv, g0 = fm_math(x, y, inv, w_rows, v_rows, w0, bsz)
+            before = dict(kv.sparse_stats)
+            fm_push(kv, uniq, gw, gv, g0, nf, fs)
+            torch.cuda.synchronize()
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+            stats.append({k: kv.sparse_stats[k] - before[k]
+                          for k in before})
+            pushes.append((uniq, gw, gv, g0))
+    kv.barrier()
+    tables = [kv._store[k]._data for k in ("w", "v", "w0")]
+    torch.save({"pushes": pushes}, Path(out_dir) / f"fm_rank{rank}.pt")
+    return {"rank": rank, "num_workers": n, "rows": hi - lo,
+            "batch_ms": batch_ms, "push_stats": stats,
+            "tables_sha256": _sha(tables),
+            "tables": {k: _sha([kv._store[k]._data]) for k in
+                       ("w", "v", "w0")}}
+
+
+def _checksum(tensors):
+    """A device checksum of the tensors' bits: the sum of their int32
+    words and the sum weighted by position (mod 65521)."""
+    flat = torch.cat([t.detach().reshape(-1).view(torch.int32)
+                      for t in tensors]).to(torch.int64)
+    pos = torch.arange(flat.numel(), device=flat.device) % 65521 + 1
+    return [int(flat.sum()), int((flat * pos).sum())]
+
+
+def _allreduce_rows_ms(flat, reps):
+    """The gather's other form, measured only: an ``all_reduce`` of a
+    zero-filled ``(workers, n)`` buffer on the card in which this worker
+    fills its row (gloo stages it through the host)."""
+    import torch.distributed as dist
+
+    n, rank = dist.get_world_size(), dist.get_rank()
+    times = []
+    for _ in range(reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        buf = torch.zeros((n, flat.numel()), dtype=flat.dtype,
+                          device=flat.device)
+        buf[rank].copy_(flat)
+        dist.all_reduce(buf)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times), buf.numel() * buf.element_size()
+
+
+def _worker_resnet_async(rank, out_dir):
+    """dist_sparse_async (b)'s worker: ``train_imagenet.py --kv-store
+    dist_async`` through ``module_fit``: per batch its ms, the push and
+    pull host ms, K1's launches and a checksum of the weights; the first
+    two batches' gradients (and rank 0's weights before the first update
+    and after the second) saved for the parent's recompute; then both
+    forms of the gather over the whole model timed: the store's (pinned
+    host staging, ``all_gather``) and an all-reduce of a zero-filled
+    card buffer."""
+    cfg = dict(MODULE_FIT, kv_store="dist_async")
+    dev = mx.gpu(0)
+    with dev:
+        net = get_network(cfg["network"], cfg["num_classes"],
+                          cfg["image_shape"])
+        train = SyntheticDataIter(cfg["num_classes"],
+                                  (cfg["batch"],) + tuple(cfg["image_shape"]),
+                                  cfg["epoch_size"])
+    model = mx.mod.Module(context=dev, symbol=net)
+    names = model._param_names
+    saved = {"grads": [], "names": names}
+    timing = {"push": [], "pull": []}
+    state = {"kv": None}
+
+    def watch(kv):
+        push, pull = kv.push, kv.pull
+
+        def timed_push(key, value, priority=0):
+            t = len(timing["push"])
+            if t < DIST_SPARSE["check_batches"]:
+                saved["grads"].append([v._data.detach().cpu().clone()
+                                       for v in value])
+            if rank == 0 and t in (0, DIST_SPARSE["check_batches"]):
+                saved[f"weights_{t}"] = [model._exec.arg_dict[k]._data
+                                         .detach().cpu().clone()
+                                         for k in key]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            push(key, value, priority)
+            torch.cuda.synchronize()
+            timing["push"].append((time.perf_counter() - t0) * 1e3)
+
+        def timed_pull(key, out=None, priority=0, ignore_sparse=True):
+            t0 = time.perf_counter()
+            pull(key, out=out, priority=priority)
+            torch.cuda.synchronize()
+            timing["pull"].append((time.perf_counter() - t0) * 1e3)
+
+        kv.push, kv.pull = timed_push, timed_pull
+        state["kv"] = kv
+
+    create = mx.kv.create
+
+    def creating(name):
+        kv = create(name)
+        watch(kv)
+        return kv
+
+    stamps, k1, sums = [], [], []
+
+    def end(param):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        k1.append(kernels.launch_counts().get("opt_sgd", 0))
+        sums.append(_checksum([model._exec.arg_dict[k]._data
+                               for k in names]))
+
+    mx.kv.create = creating
+    try:
+        kernels.reset_launch_counts()
+        t_fit = time.perf_counter()
+        module_fit(cfg, model, train, [end])
+        fit_s = time.perf_counter() - t_fit
+    finally:
+        mx.kv.create = create
+    kv = state["kv"]
+    gathered = dict(kv.gather_stats)   # the fit's, before the timings
+    torch.save(saved, Path(out_dir) / f"resnet_rank{rank}.pt")
+    per_batch = [b - a for a, b in zip([0] + k1, k1)]
+    flat = torch.cat([model._exec.arg_dict[k]._data.detach().reshape(-1)
+                      for k in names])
+    reps, times = DIST_SPARSE["gather_reps"], []
+    import torch.distributed as dist
+
+    for _ in range(reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kv._gather(flat).result()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    allreduce_ms, allreduce_bytes = _allreduce_rows_ms(flat, reps)
+    n = kv.num_workers
+    elems = flat.numel()
+    return {"rank": rank, "num_workers": n, "fit_s": fit_s,
+            "batch_ms": [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])],
+            "push_host_ms": timing["push"], "pull_host_ms": timing["pull"],
+            "k1_launches_per_batch": per_batch,
+            "checksums": sums, "params": len(names), "elements": elems,
+            "rescale_grad": model._optimizer.rescale_grad,
+            "gather_stats": gathered,
+            "pipeline_buckets": len(kv._pipeline.plan.buckets)
+            if kv._pipeline else 0,
+            "gather": {
+                "pinned_allgather": {
+                    "ms": statistics.median(times),
+                    "buffer_bytes": n * elems * 4,
+                    "ring_bytes_sent_per_worker": (n - 1) * elems * 4},
+                "allreduce_of_rows": {
+                    "ms": allreduce_ms, "buffer_bytes": allreduce_bytes,
+                    "ring_bytes_sent_per_worker":
+                        2 * (n - 1) * elems * 4}},
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "weights_sha256": _sha([model._exec.arg_dict[k]._data
+                                    for k in names])}
+
+
+WORKERS.update({"fm_dist": _worker_fm_dist,
+                "resnet_async": _worker_resnet_async})
+
+
+def _fm_dist_check(out_dir, workers):
+    """One process's FM under the summed pushes: the tables of
+    ``fm_store`` given each batch's workers' rows summed by row union in
+    rank order (``sparse_add``) and applied by ``index_add_``, ``w0`` by
+    the optimizer's dense update; the digests against both workers'."""
+    c = FM_CRITEO
+    nf, fs, lr = c["features"], c["factor"], c["lr"]
+    recs = [torch.load(Path(out_dir) / f"fm_rank{r}.pt", weights_only=False)
+            for r in range(len(workers))]
+    dev = mx.gpu(0)
+    with dev:
+        kv = fm_store(nf, fs, lr)
+        w, v, w0 = (kv._store[k] for k in ("w", "v", "w0"))
+        opt = mx.optimizer.create("sgd", learning_rate=lr)
+        for step in zip(*[r["pushes"] for r in recs]):
+            for key, table, col in (("w", w, 1), ("v", v, 2)):
+                agg = None
+                for uniq, gw, gv, _ in step:
+                    vals = gw[:, None] if col == 1 else gv
+                    part = mx.nd.sparse.row_sparse_array(
+                        (vals, uniq.astype(np.int64)), shape=table.shape)
+                    agg = part if agg is None else \
+                        mx.nd.sparse.sparse_add(agg, part)
+                with torch.no_grad():
+                    table._data.index_add_(0, agg.indices._data,
+                                           -lr * agg.data._data)
+            g0 = sum(torch.from_numpy(s[3]) for s in step)
+            opt.update(0, w0, mx.nd.array(g0.numpy()), None)
+    want = _sha([w._data, v._data, w0._data])
+    got = [r["tables_sha256"] for r in workers]
+    if any(g != want for g in got):
+        raise AssertionError(f"dist_sparse_async fm: tables {got} against "
+                             f"one process's {want} (by table: "
+                             f"{[r['tables'] for r in workers]} against "
+                             f"{[_sha([t._data]) for t in (w, v, w0)]})")
+    return want
+
+
+def _resnet_async_check(out_dir, workers):
+    """Rank 0's weights after two batches against one process that
+    applies rank 0's and then rank 1's gradients of each batch with K1
+    (the Module's optimizer: "sgd" with its schedule, wd by name,
+    ``rescale_grad`` 1 / batch)."""
+    cfg = MODULE_FIT
+    recs = [torch.load(Path(out_dir) / f"resnet_rank{r}.pt",
+                       weights_only=False) for r in range(len(workers))]
+    names = recs[0]["names"]
+    dev = mx.gpu(0).torch_device()
+    lr, sched = _lr_scheduler(cfg)
+    opt = mx.optimizer.create(
+        "sgd", param_idx2name=dict(enumerate(names)),
+        rescale_grad=1.0 / cfg["batch"], learning_rate=lr, wd=cfg["wd"],
+        momentum=cfg["mom"], lr_scheduler=sched)
+    weights = [mx.nd.NDArray(t.to(dev)) for t in recs[0]["weights_0"]]
+    states = [opt.create_state(i, w) for i, w in enumerate(weights)]
+    before = kernels.launch_counts().get("opt_sgd", 0)
+    for t in range(DIST_SPARSE["check_batches"]):
+        for r in recs:
+            opt.fused_update_multi(list(range(len(names))), weights,
+                                   [mx.nd.NDArray(g.to(dev))
+                                    for g in r["grads"][t]], states)
+    torch.cuda.synchronize()
+    launched = kernels.launch_counts().get("opt_sgd", 0) - before
+    want = recs[0][f"weights_{DIST_SPARSE['check_batches']}"]
+    bad = [n for n, a, b in zip(names, weights, want)
+           if not torch.equal(a._data.cpu(), b)]
+    if bad:
+        raise AssertionError(f"dist_sparse_async resnet: after 2 batches "
+                             f"{len(bad)} tensors differ from rank 0's then "
+                             f"rank 1's K1 updates: {bad[:5]}")
+    return launched
+
+
+def phase_dist_sparse_async(smi):
+    """dist_sparse_async: two workers on the card over gloo. (a)
+    FM_CRITEO's FM under dist_sync, each worker half of every batch, 20
+    batches: the row-sparse pushes' rows and bytes, and both workers'
+    tables bit for bit against one process given the summed pushes. (b)
+    ``train_imagenet.py --kv-store dist_async --network resnet50_v1
+    --benchmark 1`` at batch 128 a worker, 13 batches: batch ms, push and
+    pull ms, both forms of the gather, K1 two launches a batch on each
+    worker, the weights' checksums equal on both workers after every
+    batch and their digests at the end, and after 2 batches rank 0's
+    weights equal to one process's K1 updates with rank 0's then rank
+    1's gradients."""
+    d = DIST_SPARSE
+    criteo_libsvm(FM_CRITEO)   # written once, before the workers read it
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = {}
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as out_dir:
+        t0 = time.perf_counter()
+        fm = run_workers("fm_dist", out_dir, d["workers"], d["timeout_s"])
+        fm_s = time.perf_counter() - t0
+        digest = _fm_dist_check(out_dir, fm)
+        stats = [s for r in fm for s in r["push_stats"]]
+        out["fm_dist_sync"] = {
+            "workers_s": fm_s, "batches": len(fm[0]["batch_ms"]),
+            "rows_per_worker": [r["rows"] for r in fm],
+            "batch_ms_median": [statistics.median(r["batch_ms"])
+                                for r in fm],
+            "row_sparse_pushes_per_batch": fm[0]["push_stats"][0]["pushes"],
+            "gathered_rows_per_batch_median": statistics.median(
+                s["rows"] for s in stats),
+            "gathered_bytes_per_batch_median": statistics.median(
+                s["bytes"] for s in stats),
+            "dense_bytes_per_batch_if_sent_densely": d["workers"] * (
+                _fm_table_bytes(FM_CRITEO["features"],
+                                FM_CRITEO["factor"]) - 4),
+            "tables_sha256": digest,
+            "tables_bitwise_equal_one_process": True}
+        emit({"phase": "dist_sparse_async", "part": "fm_dist_sync",
+              **out["fm_dist_sync"]})
+        t0 = time.perf_counter()
+        rn = run_workers("resnet_async", out_dir, d["workers"],
+                         d["timeout_s"])
+        rn_s = time.perf_counter() - t0
+        launched = _resnet_async_check(out_dir, rn)
+    if rn[0]["checksums"] != rn[1]["checksums"] or \
+            rn[0]["weights_sha256"] != rn[1]["weights_sha256"]:
+        raise AssertionError("dist_sparse_async resnet: the workers' "
+                             "weights differ")
+    for r in rn:
+        if r["k1_launches_per_batch"] != [2] * MODULE_FIT["epoch_size"]:
+            raise AssertionError(f"dist_sparse_async resnet: K1 launches a "
+                                 f"batch {r['k1_launches_per_batch']} on "
+                                 f"worker {r['rank']}")
+        if r["rescale_grad"] != 1.0 / MODULE_FIT["batch"]:
+            raise AssertionError("dist_sparse_async resnet: rescale_grad "
+                                 f"{r['rescale_grad']}")
+    warm = MODULE_FIT["warmup"]
+    out["resnet50_v1_dist_async"] = {
+        "workers_s": rn_s, "nvidia_smi": smi,
+        "batch_ms_median": [statistics.median(r["batch_ms"][warm - 1:])
+                            for r in rn],
+        "push_host_ms_median": [statistics.median(r["push_host_ms"][warm:])
+                                for r in rn],
+        "pull_host_ms_median": [statistics.median(r["pull_host_ms"][warm:])
+                                for r in rn],
+        "img_per_s_per_worker": [MODULE_FIT["batch"] / (statistics.median(
+            r["batch_ms"][warm - 1:]) / 1e3) for r in rn],
+        "k1_launches_per_batch": rn[0]["k1_launches_per_batch"],
+        "k1_launches": sum(rn[0]["k1_launches_per_batch"]),
+        "gather_bytes_per_batch": rn[0]["gather_stats"]["bytes"] /
+        MODULE_FIT["epoch_size"],
+        "gathers_per_batch": rn[0]["gather_stats"]["gathers"] /
+        MODULE_FIT["epoch_size"],
+        "buckets": rn[0]["pipeline_buckets"],
+        "gather_forms": [r["gather"] for r in rn],
+        "elements": rn[0]["elements"], "tensors": rn[0]["params"],
+        "max_memory_allocated": [r["max_memory_allocated"] for r in rn],
+        "weights_checksums_equal_every_batch": True,
+        "weights_sha256": rn[0]["weights_sha256"],
+        "two_batches_equal_rank_order_k1": True,
+        "check_k1_launches": launched}
+    emit({"phase": "dist_sparse_async", "part": "resnet50_v1_dist_async",
+          **out["resnet50_v1_dist_async"]})
+    return out
+
+
 PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "train_capture", "gluon_hybrid_train", "dropout_capture",
           "int8_gemm", "serve_int8", "capture", "online_update", "decode",
@@ -10903,7 +11764,8 @@ PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "lstm_ptb_bucketing", "mobilenet_v2_1_0_module_fit",
           "bert_base_sst2_finetune_lamb", "dcgan", "zoo_check",
           "surface_check", "library_ops", "resnet50_v1_module_fit_custom",
-          "ssd512_resnet50_v1_module_fit", "bert_base_sst2_finetune_zero")
+          "ssd512_resnet50_v1_module_fit", "bert_base_sst2_finetune_zero",
+          "fm_criteo_row_sparse", "sparse_linear_mf", "dist_sparse_async")
 
 
 def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
@@ -11109,6 +11971,12 @@ def _run(phases):
         done["ssd512_resnet50_v1_module_fit"] = phase_ssd512_module_fit(smi)
     if "bert_base_sst2_finetune_zero" in phases:
         done["bert_base_sst2_finetune_zero"] = phase_bert_finetune_zero(smi)
+    if "fm_criteo_row_sparse" in phases:
+        done["fm_criteo_row_sparse"] = phase_fm_criteo(smi)
+    if "sparse_linear_mf" in phases:
+        done["sparse_linear_mf"] = phase_sparse_linear_mf(smi)
+    if "dist_sparse_async" in phases:
+        done["dist_sparse_async"] = phase_dist_sparse_async(smi)
     _emit_warnings()
     if not set(PHASES) <= set(done):
         print(f"phases run: {sorted(done)}; no result line", flush=True)
@@ -11239,6 +12107,15 @@ def _run(phases):
         # a batch over its 231 tensors
         launches_ssd512_resnet50_v1_module_fit=done[
             "ssd512_resnet50_v1_module_fit"]["launches"]["opt_sgd"],
+        # this slice: train_imagenet.py under dist_async, one launch per
+        # worker's gradients (two a batch on each of two workers), on
+        # worker 0; the row-sparse phases' lazy SGD launches none
+        launches_resnet50_v1_dist_async=done["dist_sparse_async"][
+            "resnet50_v1_dist_async"]["k1_launches"],
+        launches_per_batch_resnet50_v1_dist_async=done["dist_sparse_async"][
+            "resnet50_v1_dist_async"]["k1_launches_per_batch"][0],
+        launches_fm_criteo_row_sparse=done["fm_criteo_row_sparse"][
+            "launches"].get("opt_sgd", 0),
         # this slice: one launch per replayed step of each ResNet-50 cell
         launches_per_replay={p: done[p]["captured"][
             "k1_launches_per_replay"] for p in (
@@ -11302,7 +12179,8 @@ def _run(phases):
         "decode_attention", "decode_attention.cu",
         "mxnet_tpu/kernels/decode_attention.py:98", dec["launches"],
         dec["max_abs_err"], dec["ms"], dec["plain_ms"],
-        (dec["bound_ms"], dec["bound_by"]), dec["library_ms"]))
+        (dec["bound_ms"], dec["bound_by"]), dec["library_ms"],
+        device_ms=dec["device_ms"]))
     # K6 and K7 on the main path: the multi-tensor compress (one launch
     # per push call) and the decompress (one per pull call); the
     # per-key route's times from the same phase beside them

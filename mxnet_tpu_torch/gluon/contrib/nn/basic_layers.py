@@ -9,6 +9,8 @@ launches the hand-written CUDA kernel (``kernels/flash.py``).
 """
 from __future__ import annotations
 
+import torch
+
 from .... import ndarray as nd
 from ...block import Block, HybridBlock
 from ...nn import (BatchNorm, Dense, Dropout, HybridSequential, LayerNorm,
@@ -55,7 +57,9 @@ class Identity(HybridBlock):
 
 class SparseEmbedding(Block):
     """Embedding for large vocabularies. Its forward is the plain row
-    gather; the row-sparse gradient comes with the training slice."""
+    gather and its gradient the dense buffer that backward fills;
+    :meth:`grad_rows` gives the row-sparse view of it for the lazy SGD
+    and the kvstore's row paths (JAX :71-81)."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
                  weight_initializer=None, **kwargs):
@@ -67,6 +71,16 @@ class SparseEmbedding(Block):
 
     def forward(self, x):
         return nd.Embedding(x, self.weight.data(), **self._kwargs)
+
+    def grad_rows(self, x):
+        """The weight's gradient restricted to the rows ``x`` looks up, a
+        row-sparse array (sorted unique rows) on the gradient's device."""
+        from ....ndarray.sparse import row_sparse_array
+
+        g = self.weight.grad()._data
+        rows = torch.unique(x._data.detach().to(g.device).long())
+        return row_sparse_array((g.index_select(0, rows), rows),
+                                shape=tuple(g.shape))
 
 
 class SyncBatchNorm(BatchNorm):

@@ -210,10 +210,12 @@ class BatchNorm(HybridBlock):
 
 class Embedding(HybridBlock):
     """Row lookup in a ``(input_dim, output_dim)`` table; ids may be
-    floats (truncated to integers)."""
+    floats (truncated to integers). ``sparse_grad`` is accepted and the
+    gradient stays dense, as in the JAX package (``ops/tensor.py:184``)."""
 
     def __init__(self, input_dim, output_dim, dtype="float32",
-                 weight_initializer=None, prefix=None, params=None):
+                 weight_initializer=None, sparse_grad=False, prefix=None,
+                 params=None):
         super().__init__(prefix=prefix, params=params)
         self._input_dim = input_dim
         self._output_dim = output_dim

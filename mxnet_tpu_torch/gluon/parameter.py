@@ -57,8 +57,12 @@ class Parameter:
 
     def __init__(self, name, grad_req="write", shape=None, dtype="float32",
                  lr_mult=1.0, wd_mult=1.0, init=None,
-                 allow_deferred_init=False, differentiable=True):
+                 allow_deferred_init=False, differentiable=True,
+                 stype="default", grad_stype="default"):
         self.name = name
+        # accepted as the JAX Parameter does (:42-57): data and gradient
+        # stay dense (SparseEmbedding.grad_rows gives a row-sparse view)
+        self._stype, self._grad_stype = stype, grad_stype
         self._data = None            # NDArray
         self._deferred_init = None   # (init, ctx, default_init, generator)
         self._leaf = None            # (data tensor, its gradient leaf)

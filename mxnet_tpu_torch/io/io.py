@@ -14,10 +14,10 @@ tile it.
 
 Batches are NDArrays on the current context (the card unless a ``with
 mx.cpu():`` says otherwise); ``ImageRecordIter`` and ``PrefetchingIter``
-take the context at construction (``ctx=`` / ``device=``). Not ported:
-``LibSVMIter`` (its CSR batches wait for the sparse arrays), the
-multi-card staging of ``DeviceStager`` (``mesh=``, ``shardings=``), and
-the JAX package's fault-injection points (``faults.point``/``retry``) and
+take the context at construction (``ctx=`` / ``device=``).
+``LibSVMIter`` (JAX :846) yields CSR batches (``ndarray/sparse.py``).
+Not ported: the multi-card staging of ``DeviceStager`` (``mesh=``,
+``shardings=``), and the JAX package's fault-injection points (``faults.point``/``retry``) and
 watchdog deadlines. ``PrefetchingIter`` and ``ImageRecordIter`` keep
 their ``data_wait_ms`` and stage times, and report each wait to the step
 timeline as the next step's ``data_wait`` phase
@@ -724,12 +724,86 @@ class CSVIter(NDArrayIter):
 
 
 class LibSVMIter(DataIter):
-    """Not ported: its batches are CSR arrays, which wait for the sparse
-    NDArrays."""
+    """LibSVM text (``<label> <idx>:<val> ...`` a line, indices 0-based)
+    in batches of CSR features and a dense label (JAX :846-924; MXNet 1.x
+    ``src/io/iter_libsvm.cc``).
 
-    def __init__(self, *args, **kwargs):
-        raise MXNetError("LibSVMIter is not ported: it yields CSR sparse "
-                         "batches, and the port has no sparse NDArray yet")
+    ``data_shape`` is the feature count; ``label_libsvm`` names a file
+    whose lines' first values replace the labels. With ``round_batch``
+    the last batch wraps to the epoch's first rows and ``pad`` counts
+    them, else a short last batch is dropped. The file is read once at
+    construction. Each batch is a :class:`~mxnet_tpu_torch.ndarray.sparse.
+    CSRNDArray` of ``(batch_size, features)`` and a float32 label on
+    ``ctx`` (the current context when the batch is made, by default)."""
+
+    def __init__(self, data_libsvm, data_shape, label_libsvm=None,
+                 label_shape=(1,), batch_size=128, round_batch=True,
+                 ctx=None, **kwargs):
+        super().__init__(batch_size)
+        if isinstance(data_shape, int):
+            data_shape = (data_shape,)
+        self._num_features = int(data_shape[-1])
+        labels, counts, pairs = [], [], []
+        with open(data_libsvm) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                labels.append(float(parts[0]))
+                counts.append(len(parts) - 1)
+                pairs.extend(parts[1:])
+        # "i:v" pairs parsed in one pass: indices exact below 2**53, each
+        # value a double rounded once to float32, as float(v) would be
+        flat = _np.array(" ".join(pairs).replace(":", " ").split(),
+                         dtype=_np.float64).reshape(-1, 2)
+        if label_libsvm is not None:
+            with open(label_libsvm) as f:
+                labels = [float(ln.split()[0]) for ln in f if ln.strip()]
+        self._labels = _np.asarray(labels, _np.float32)
+        self._indptr = _np.concatenate(
+            [[0], _np.cumsum(counts, dtype=_np.int64)]).astype(_np.int64)
+        self._indices = flat[:, 0].astype(_np.int64)
+        self._values = flat[:, 1].astype(_np.float32)
+        self._num = len(self._labels)
+        self._round_batch = round_batch
+        self._ctx = ctx
+        self._cursor = 0
+        self.provide_data = [DataDesc("data",
+                                      (batch_size, self._num_features))]
+        self.provide_label = [DataDesc("label",
+                                       (batch_size,) + tuple(label_shape))]
+
+    def reset(self):
+        self._cursor = 0
+
+    def _gather_rows(self, rows):
+        """``(values, indices, indptr)`` of ``rows``, in that order."""
+        lo, hi = self._indptr[rows], self._indptr[rows + 1]
+        lens = hi - lo
+        ptr = _np.concatenate([[0], _np.cumsum(lens)]).astype(_np.int64)
+        pos = _np.repeat(lo - ptr[:-1], lens) + _np.arange(ptr[-1])
+        return self._values[pos], self._indices[pos], ptr
+
+    def next(self):
+        from ..ndarray.sparse import CSRNDArray
+
+        if self._cursor >= self._num:
+            raise StopIteration
+        s, e = self._cursor, self._cursor + self.batch_size
+        pad = 0
+        if e > self._num:
+            if not self._round_batch:
+                raise StopIteration
+            pad, e = e - self._num, self._num   # wrap to the epoch start
+        rows = _np.concatenate([_np.arange(s, e), _np.arange(pad)]) \
+            .astype(_np.int64)
+        self._cursor = s + self.batch_size
+        vals, ind, ptr = self._gather_rows(rows)
+        ctx = self._ctx or current_context()
+        csr = CSRNDArray(vals, ind, ptr, (self.batch_size, self._num_features),
+                         ctx=ctx)
+        label = NDArray(self._labels[rows], ctx=ctx)
+        return DataBatch(data=[csr], label=[label], pad=pad, index=None)
 
 
 # ------------------------------------------------------ ImageRecordIter --

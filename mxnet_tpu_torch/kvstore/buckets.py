@@ -19,6 +19,9 @@ the JAX package's watchdog and trace spans.
   gradient is copied into its slot of the value buffer of its dtype; with
   2-bit compression the store's compress kernel writes the codes straight
   into the key's slot of the wire buffer, in stream order, at push.
+* **Row-sparse keys.** A key initialised with a row-sparse value is not
+  registered, and a row-sparse push never stages: the store sends its
+  rows itself (JAX :352-377).
 * **Dispatch.** A bucket's one ``all_reduce`` starts, asynchronously and
   in place on its buffer, the moment its last member is staged; buckets
   still staged at a flush dispatch in descending registration order
@@ -186,7 +189,9 @@ class BucketPipeline:
     """Staging, dispatch and resolution for one dist kvstore.
 
     The store provides ``_dispatch_bucket(flat)`` (starts the in-place
-    reduction and returns a handle whose ``result()`` waits for it) and
+    reduction, or under ``dist_async`` with an optimizer the gather into
+    a ``(workers, n)`` host buffer, and returns a handle whose ``tensor``
+    is what the collective fills and whose ``result()`` waits for it) and
     ``_apply_resolved(entries)``, which takes ``(bid, keys, metas, flat)``
     for each resolved bucket: its reduced slice of the layout's buffer and
     the keys pushed into it this round, in registration order. A key
@@ -288,7 +293,8 @@ class BucketPipeline:
         handle = self._kv._dispatch_bucket(buf)
         self._inflight[bid] = (keys, metas, handle)
         self.stats["fused"] += 1
-        self.stats["bytes"] += buf.numel() * buf.element_size()
+        sent = handle.tensor   # the bucket, or a gather's (workers, n)
+        self.stats["bytes"] += sent.numel() * sent.element_size()
 
     # ------------------------------------------------------- resolution ---
     def resolve(self, keys=None):

@@ -22,7 +22,10 @@ Where the JAX package and MXNet 1.x differ, the port follows MXNet 1.x:
 * The kvstore follows MXNet's ``_create_kvstore``: a store object (as
   ``common/fit.py`` passes) updates the weights on the store (push the
   gradients, pull the weights); a type name with one card and no
-  ``dist`` uses no store and updates in place.
+  ``dist`` uses no store and updates in place. ``rescale_grad`` is
+  ``1 / (batch_size * num_workers)`` only for a ``_sync`` dist store, as
+  in MXNet: under ``dist_async`` every worker's gradients are their own
+  update, so they keep ``1 / batch_size``.
 
 ``bind(shared_module=)`` binds the parameters, their gradients and the
 auxiliary states to the arrays of another module (one storage for
@@ -33,7 +36,9 @@ pulls every weight in one ``pull`` call (the JAX ``Module`` pushes and
 pulls key by key): the local store hands the list to
 ``Updater.update_multi`` (one fused K1 launch per learning-rate group
 for SGD with momentum) and copies the weights back with one
-multi-tensor copy. It stays eager, as the JAX ``Module``'s does; the
+multi-tensor copy; a ``dist_async`` store gathers every worker's list
+and hands each to ``update_multi`` in rank order (one K1 launch per
+worker's gradients). It stays eager, as the JAX ``Module``'s does; the
 executor's forward and backward replay CUDA graphs on the card
 (compile site ``executor``), and the metric's one host copy a batch
 stays outside them.

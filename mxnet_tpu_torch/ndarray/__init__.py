@@ -7,7 +7,8 @@ hyper-parameters by keyword; ``_contrib_*`` ops appear under
 ``nd.contrib`` without the prefix (``ndarray/contrib.py``, with the
 control flow). ``Dropout`` is overridden, as in the
 JAX package, to draw from ``mx.random``'s generator in train mode.
-``nd.random`` holds the samplers (``uniform``, ``normal``, ``gamma``, ...).
+``nd.random`` holds the samplers (``uniform``, ``normal``, ``gamma``, ...),
+``nd.sparse`` the row-sparse and CSR arrays.
 """
 from __future__ import annotations
 
@@ -20,13 +21,13 @@ from ..ops import registry as _registry
 from .ndarray import (NDArray, _invoke, arange, array, concat, dot, empty,
                       eye, full, invoke, moveaxis, ones, ones_like, split,
                       stack, waitall, zeros, zeros_like)
-from . import random, utils
+from . import random, sparse, utils
 from .utils import load, save
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
            "eye", "zeros_like", "ones_like", "concat", "stack", "split",
            "moveaxis", "dot", "waitall", "invoke", "contrib", "random",
-           "save", "load", "utils"]
+           "sparse", "save", "load", "utils"]
 
 
 def _make_wrapper(op_name, exposed):

@@ -34,23 +34,27 @@ the card captured into a CUDA graph).
   traced branches are, and valid for either value of ``pred``.
 * ``isfinite``, ``isnan`` and ``isinf`` give 1/0 in the input's dtype.
 
-Left out: the DGL graph functions (``dgl_csr_neighbor_uniform_sample``,
-``dgl_csr_neighbor_non_uniform_sample``, ``dgl_subgraph``, ``edge_id``,
-``dgl_adjacency``, ``dgl_graph_compact``) and ``getnnz`` work on CSR
-arrays, which the port does not have yet; each raises
-:class:`~mxnet_tpu_torch.base.MXNetError` (``ROADMAP.md`` item A4).
+* The DGL graph functions (``dgl_csr_neighbor_uniform_sample``,
+  ``dgl_csr_neighbor_non_uniform_sample``, ``dgl_subgraph``, ``edge_id``,
+  ``dgl_adjacency``, ``dgl_graph_compact``; JAX :262-507) are host numpy
+  over a CSR array's parts, as the JAX functions, with their outputs on
+  the graph's device. The samplers seed their numpy ``RandomState`` from
+  ``mx.random``'s generator of that device, so they repeat under
+  ``mx.random.seed``; the JAX package seeds from its threefry key, so the
+  two packages draw different samples. ``getnnz`` is the op
+  ``_contrib_getnnz``.
 """
 from __future__ import annotations
 
 import sys as _sys
 
+import numpy as _np
 import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._pytree import tree_flatten, tree_map
 
 from .. import autograd as _autograd
 from .. import compile as _compile
-from ..base import MXNetError
 from ..ops import registry as _registry
 from .ndarray import NDArray, array, stack, zeros_like
 
@@ -222,21 +226,224 @@ def isinf(data):
     return NDArray(torch.isinf(data._data).to(data._data.dtype))
 
 
-def _waiting(name):
-    def fn(*args, **kwargs):
-        raise MXNetError(
-            f"nd.contrib.{name} is not ported: it works on CSR sparse "
-            "arrays, which come with the port's sparse arrays (ROADMAP.md, "
-            "item A4)")
+# ------------------------------------------------------------ DGL ops -----
+# JAX ndarray/contrib.py:262-507 (MXNet 1.x src/operator/contrib/
+# dgl_graph.cc): host work over the CSR parts, as there; the outputs go to
+# the graph's device.
 
-    fn.__name__ = fn.__qualname__ = name
-    return fn
+def _csr_parts(csr):
+    return (csr.data.asnumpy(), csr.indices.asnumpy().astype(_np.int64),
+            csr.indptr.asnumpy().astype(_np.int64))
 
 
-for _name in ("dgl_csr_neighbor_uniform_sample",
-              "dgl_csr_neighbor_non_uniform_sample", "dgl_subgraph",
-              "edge_id", "dgl_adjacency", "dgl_graph_compact", "getnnz"):
-    setattr(_sys.modules[__name__], _name, _waiting(_name))
+def _dgl_sample_one(data, indices, indptr, seed, probability, num_hops,
+                    num_neighbor, max_num_vertices, rng):
+    """Breadth-first sampling from ``seed`` for ``num_hops`` hops, at
+    most ``num_neighbor`` neighbours a vertex (uniform, or weighted by
+    ``probability``), at most ``max_num_vertices`` vertices."""
+    sampled = {}  # vertex -> layer
+    edges = {}    # expanded vertex -> (sampled neighbour columns, values)
+    frontier = []
+    for v in (int(v) for v in seed if v >= 0):
+        if v not in sampled and len(sampled) < max_num_vertices:
+            sampled[v] = 0
+            frontier.append(v)
+    for hop in range(1, num_hops + 1):
+        nxt = []
+        for u in frontier:
+            row = slice(indptr[u], indptr[u + 1])
+            neigh, vals = indices[row], data[row]
+            if len(neigh) == 0:
+                edges[u] = ([], [])
+                continue
+            if probability is not None:
+                pos = probability[neigh] > 0
+                if int(pos.sum()) <= num_neighbor:
+                    pick = _np.nonzero(pos)[0]
+                else:
+                    p = probability[neigh]
+                    pick = rng.choice(len(neigh), num_neighbor,
+                                      replace=False, p=p / p.sum())
+            elif len(neigh) > num_neighbor:
+                pick = rng.choice(len(neigh), num_neighbor, replace=False)
+            else:
+                pick = _np.arange(len(neigh))
+            edges[u] = ([int(neigh[i]) for i in pick],
+                        [vals[i] for i in pick])
+            for i in pick:
+                v = int(neigh[i])
+                if v not in sampled:
+                    if len(sampled) >= max_num_vertices:
+                        break
+                    sampled[v] = hop
+                    nxt.append(v)
+        frontier = nxt
+    verts = _np.sort(_np.asarray(list(sampled), _np.int64))
+    n = len(verts)
+    # the sampled edges between sampled vertices, rows and columns local
+    # positions into verts (the local -> global map)
+    local = {int(v): i for i, v in enumerate(verts)}
+    sub_ptr = _np.zeros(max_num_vertices + 1, _np.int64)
+    sub_idx, sub_val = [], []
+    for i, u in enumerate(verts):
+        for col, val in zip(*edges.get(int(u), ([], []))):
+            j = local.get(col)
+            if j is not None:
+                sub_idx.append(j)
+                sub_val.append(val)
+        sub_ptr[i + 1] = len(sub_idx)
+    sub_ptr[n + 1:] = sub_ptr[n]
+    out_verts = _np.full(max_num_vertices + 1, -1, _np.int64)
+    out_verts[:n] = verts
+    out_verts[-1] = n
+    layer = _np.full(max_num_vertices, -1, _np.int64)
+    layer[:n] = [sampled[int(v)] for v in verts]
+    return out_verts, (sub_val, sub_idx, sub_ptr), layer
+
+
+def _dgl_sample(csr, seeds, probability, num_hops, num_neighbor,
+                max_num_vertices):
+    from .. import random as _random
+    from .sparse import csr_matrix
+
+    data, indices, indptr = _csr_parts(csr)
+    ctx = csr.context
+    dev = ctx.torch_device()
+    # the numpy stream's seed from mx.random's generator of the graph's
+    # device: repeated under mx.random.seed (the JAX package draws it from
+    # its threefry key, so the samples differ between the packages)
+    rng = _np.random.RandomState(int(torch.randint(
+        0, 2 ** 31 - 1, (1,), device=dev,
+        generator=_random.generator(dev)).item()))
+    vert_out, prob_out, csr_out, layer_out = [], [], [], []
+    for s in seeds:
+        verts, (sval, sidx, sptr), layer = _dgl_sample_one(
+            data, indices, indptr, s.asnumpy().astype(_np.int64),
+            probability, num_hops, num_neighbor, max_num_vertices, rng)
+        vert_out.append(array(verts, ctx=ctx))
+        if probability is not None:
+            p = _np.zeros(max_num_vertices, _np.float32)
+            nv = int(verts[-1])
+            p[:nv] = probability[verts[:nv]]
+            prob_out.append(array(p, ctx=ctx))
+        csr_out.append(csr_matrix(
+            (_np.asarray(sval, data.dtype), _np.asarray(sidx, _np.int64),
+             sptr), shape=(max_num_vertices, max_num_vertices), ctx=ctx))
+        layer_out.append(array(layer, ctx=ctx))
+    return vert_out + prob_out + csr_out + layer_out
+
+
+def dgl_csr_neighbor_uniform_sample(csr, *seeds, num_args=None, num_hops=1,
+                                    num_neighbor=2, max_num_vertices=100):
+    """Uniform neighbour sampling over a CSR graph. For each seed array:
+    the sampled vertex ids (``max_num_vertices + 1`` long, the count in
+    the last slot), then the sampled sub-CSRs (the original edge values),
+    then each vertex's hop."""
+    return _dgl_sample(csr, seeds, None, num_hops, num_neighbor,
+                       max_num_vertices)
+
+
+def dgl_csr_neighbor_non_uniform_sample(csr, probability, *seeds,
+                                        num_args=None, num_hops=1,
+                                        num_neighbor=2,
+                                        max_num_vertices=100):
+    """Neighbour sampling weighted by ``probability``; the sampled
+    vertices' probabilities come as a second set of outputs."""
+    p = probability.asnumpy().astype(_np.float64)
+    return _dgl_sample(csr, seeds, p, num_hops, num_neighbor,
+                       max_num_vertices)
+
+
+def dgl_subgraph(graph, *vids, return_mapping=False, num_args=None):
+    """The subgraph each vertex array induces, a CSR of ones; with
+    ``return_mapping`` also a CSR of the original edge values."""
+    from .sparse import csr_matrix
+
+    data, indices, indptr = _csr_parts(graph)
+    ctx = graph.context
+    subs, maps = [], []
+    for vid_arr in vids:
+        verts = vid_arr.asnumpy().astype(_np.int64)
+        local = {int(v): i for i, v in enumerate(verts)}
+        n = len(verts)
+        sptr = _np.zeros(n + 1, _np.int64)
+        sidx, smap = [], []
+        for i, u in enumerate(verts):
+            for pos in range(indptr[u], indptr[u + 1]):
+                j = local.get(int(indices[pos]))
+                if j is not None:
+                    sidx.append(j)
+                    smap.append(data[pos])
+            sptr[i + 1] = len(sidx)
+        sidx = _np.asarray(sidx, _np.int64)
+        subs.append(csr_matrix((_np.ones(len(sidx), _np.int64), sidx, sptr),
+                               shape=(n, n), ctx=ctx))
+        if return_mapping:
+            maps.append(csr_matrix(
+                (_np.asarray(smap, data.dtype), sidx, sptr.copy()),
+                shape=(n, n), ctx=ctx))
+    return subs + maps
+
+
+def edge_id(csr, u, v):
+    """The stored value at ``(u[i], v[i])`` for each pair, -1 where there
+    is no edge, in the values' dtype."""
+    data, indices, indptr = _csr_parts(csr)
+    us = u.asnumpy().astype(_np.int64)
+    vs = v.asnumpy().astype(_np.int64)
+    out = _np.full(len(us), -1, data.dtype)
+    for i, (a, b) in enumerate(zip(us, vs)):
+        hit = _np.nonzero(indices[indptr[a]:indptr[a + 1]] == b)[0]
+        if len(hit):
+            out[i] = data[indptr[a] + hit[0]]
+    return array(out, ctx=csr.context)
+
+
+def dgl_adjacency(csr):
+    """The graph's adjacency, a CSR of float32 ones."""
+    from .sparse import csr_matrix
+
+    return csr_matrix((torch.ones(csr.data.shape[0], dtype=torch.float32,
+                                  device=csr.data._data.device),
+                       csr.indices, csr.indptr), shape=csr.shape)
+
+
+def dgl_graph_compact(*graphs, return_mapping=False, graph_sizes=(),
+                      num_args=None):
+    """Each sampled graph cut to its first ``graph_sizes[i]`` vertices
+    (the sampler's padding dropped). With ``return_mapping`` the inputs
+    are the graphs followed by their edge-value CSRs, and both are
+    cut."""
+    from .sparse import csr_matrix
+
+    n_graphs = len(graphs) // 2 if return_mapping else len(graphs)
+    if return_mapping and len(graphs) != 2 * n_graphs:
+        raise ValueError(
+            "return_mapping=True needs graphs followed by an equal "
+            f"number of mapping CSRs, got {len(graphs)} inputs")
+    if len(graph_sizes) != n_graphs:
+        raise ValueError(
+            f"graph_sizes must name one size per graph: got "
+            f"{len(graph_sizes)} sizes for {n_graphs} graph(s)")
+
+    def compact(g, size):
+        data, indices, indptr = _csr_parts(g)
+        size = int(size)
+        sptr = indptr[:size + 1].copy()
+        keep = int(sptr[-1])
+        return csr_matrix((data[:keep], indices[:keep], sptr),
+                          shape=(size, size), ctx=g.context)
+
+    out = [compact(g, s) for g, s in zip(graphs[:n_graphs], graph_sizes)]
+    if return_mapping:
+        out += [compact(g, s)
+                for g, s in zip(graphs[n_graphs:], graph_sizes)]
+    return out
+
+
+__all__ += ["dgl_csr_neighbor_uniform_sample",
+            "dgl_csr_neighbor_non_uniform_sample", "dgl_subgraph",
+            "edge_id", "dgl_adjacency", "dgl_graph_compact"]
 
 
 def _expose(module, make_wrapper):

@@ -23,10 +23,11 @@ The module functions are ``array``, ``zeros``, ``ones``, ``full``,
 ``moveaxis``, ``dot``, ``waitall`` and ``invoke``; creation functions
 take ``ctx``, default ``current_context()`` (the card).
 
-Left out: ``stype``/``tostype`` (row-sparse arrays, ROADMAP.md
-"kvstore leftovers"), ``as_np_ndarray``/``as_nd_ndarray`` (``mx.np``,
-"the remaining surface"), ``__reduce__`` (pickling; ``nd.save`` is the
-port's format) and ``asnumpy_or_self``.
+``stype`` is ``"default"`` for a dense array and ``tostype`` converts
+through ``sparse.cast_storage`` (``ndarray/sparse.py`` holds the
+row-sparse and CSR subclasses). Left out: ``as_np_ndarray``/
+``as_nd_ndarray`` (``mx.np``, "the remaining surface"), ``__reduce__``
+(pickling; ``nd.save`` is the port's format) and ``asnumpy_or_self``.
 """
 from __future__ import annotations
 
@@ -96,6 +97,19 @@ class NDArray:
         return Context.from_device(self._data.device)
 
     ctx = context
+
+    @property
+    def stype(self):
+        """The storage type: ``"default"`` (dense)."""
+        return "default"
+
+    def tostype(self, stype):
+        """This array in storage ``stype`` (``"default"``: itself)."""
+        if stype == "default":
+            return self
+        from .sparse import cast_storage
+
+        return cast_storage(self, stype)
 
     def __len__(self):
         return self.shape[0]
@@ -482,10 +496,11 @@ class NDArray:
         return _invoke("ones_like", [self], {})
 
     # ------------------------------------------------------ autograd -----
-    def attach_grad(self, grad_req="write"):
+    def attach_grad(self, grad_req="write", stype=None):
         """Make this array a leaf whose gradient ``backward`` fills:
         ``"write"`` overwrites it, ``"add"`` accumulates, ``"null"``
-        detaches."""
+        detaches. ``stype`` is accepted and ignored, as by the JAX
+        package: the gradient is dense."""
         if grad_req not in ("write", "add", "null"):
             raise ValueError(f"grad_req must be write, add or null, got "
                              f"{grad_req!r}")

@@ -7,8 +7,9 @@ Counterpart of ``mxnet_tpu/ops/contrib_ops.py`` (MXNet 1.x
 ``src/operator/contrib/``): the same names, aliases, output counts,
 ``differentiable=False`` flags and keyword defaults. The JAX ops are
 plain XLA; these are torch ops (cuBLAS, cuFFT and torch's own kernels on
-a card), differentiated by autograd. ``_contrib_getnnz`` waits for the
-sparse arrays (``ROADMAP.md`` item A4).
+a card), differentiated by autograd. ``_contrib_getnnz`` counts the
+non-zero entries of its input's dense view, as the JAX op does (a CSR
+array reaches an op as its dense view).
 
 On a card every op here but ``_contrib_boolean_mask`` runs inside a
 CUDA graph with no host sync, forward and backward: no ``.item()``, no
@@ -737,6 +738,12 @@ def _allclose(a, b, rtol=1e-5, atol=1e-8, equal_nan=False):
     float32 on the device; ``torch.allclose`` would read it back)."""
     return torch.isclose(a, b, rtol=rtol, atol=atol, equal_nan=equal_nan) \
         .all().to(torch.float32)
+
+
+@register("_contrib_getnnz", differentiable=False)
+def _getnnz(data, axis=None):
+    """The count of non-zero entries (over ``axis``), int64."""
+    return (data != 0).sum(dim=axis).to(torch.int64)
 
 
 @register("_contrib_index_array", differentiable=False)

@@ -33,8 +33,10 @@ does not read its status back to the host, so it runs inside a CUDA
 graph: a matrix that is not positive definite gives NaN in its lower
 triangle, as the JAX op does, and raises nothing.
 
-Not here: ``cast_storage`` and ``_sparse_retain``, which come with
-row-sparse arrays.
+``cast_storage`` is the dense identity at the op layer, as the JAX op
+(``tensor.py:600-606``): the storage types are the NDArray layer's
+(``ndarray/sparse.py``), and an op reads a sparse input's dense view.
+``_sparse_retain`` zeroes every row that ``indices`` does not list.
 """
 from __future__ import annotations
 
@@ -810,6 +812,22 @@ def _rnn_param_concat(*args, dim=0, num_args=None):
 @register("_identity_with_attr_like_rhs")
 def _identity_with_attr_like_rhs(lhs, rhs):
     return lhs
+
+
+@register("cast_storage")
+def _cast_storage(data, stype="default"):
+    """The dense identity: the storage types live at the NDArray layer."""
+    return data
+
+
+@register("_sparse_retain")
+def _sparse_retain(data, indices):
+    """``data`` with the rows that ``indices`` does not list zeroed."""
+    keep = torch.zeros(data.shape[0], dtype=torch.bool, device=data.device)
+    keep[indices.long()] = True
+    keep = keep.reshape((-1,) + (1,) * (data.ndim - 1))
+    return torch.where(keep, data, torch.zeros((), dtype=data.dtype,
+                                               device=data.device))
 
 
 # -------------------------------------------------------------- creation ---

@@ -24,6 +24,15 @@ itself for ``gluon.Trainer`` and the kvstore:
   (``ops/optimizer_op.py``);
 * ``update(index, weight, grad, state)`` is the same for one parameter.
 
+A row-sparse gradient (``ndarray/sparse.py``) given to SGD takes the
+lazy update of its rows (``SGD._sparse_update``, JAX :318-355) and never
+reaches K1: ``fused_update_multi``, which ``update``, ``Updater`` and
+``Updater.update_multi`` all reach, splits such keys off and keeps the
+dense rest on one launch. Every other optimizer reads its dense view, as
+the JAX optimizers do (JAX ``Adam.update`` :701-718 ignores
+``lazy_update``, so Adam updates every row's moments where MXNet 1.x's
+lazy Adam would leave untouched rows alone; ROADMAP.md section C).
+
 The learning rate reaches the kernels as a float32 device scalar; Adam's
 bias correction is folded into it on the host in double precision, as
 the JAX package does (:725), and rounded once to float32. An
@@ -341,8 +350,19 @@ class SGD(Optimizer):
     def fused_update_multi(self, indices, weights, grads, states):
         """SGD-momentum through the ``opt_sgd`` family (K1) on the fused
         route, ``sgd_mom_update`` on the plain one; plain SGD, which had
-        no TPU kernel, through ``sgd_update``."""
+        no TPU kernel, through ``sgd_update``. A row-sparse gradient
+        leaves the list before any of them sees it: with ``lazy_update``
+        (the default) it takes :meth:`_sparse_update`, else it is
+        densified, as the JAX ``SGD.update`` does; the dense rest is still
+        one launch per learning-rate group."""
         self._update_count(list(indices))
+        rest = self._lazy_rows(indices, weights, grads, states)
+        if len(rest) < len(weights):
+            if not rest:
+                return
+            indices, weights, grads, states = (
+                [xs[p] for p in rest] for xs in (indices, weights, grads,
+                                                 states))
         hyper = dict(rescale_grad=self.rescale_grad,
                      clip_gradient=self._clip())
 
@@ -368,6 +388,50 @@ class SGD(Optimizer):
         with torch.no_grad():
             self._update_routes(indices, weights, grads, states,
                                 self._get_lrs(indices), kernel, plain)
+
+    def _lazy_rows(self, indices, weights, grads, states):
+        """Apply the lazy update to every row-sparse gradient of the list
+        that takes it; return the positions of the others."""
+        from ..ndarray.sparse import RowSparseNDArray
+
+        lazy = [p for p, (w, g) in enumerate(zip(weights, grads))
+                if isinstance(g, RowSparseNDArray) and self.lazy_update
+                and not (self.multi_precision
+                         and w._data.dtype in HALF_DTYPES)]
+        if not lazy:
+            return list(range(len(weights)))
+        keys = [indices[p] for p in lazy]
+        for p, lr, wd in zip(lazy, self._get_lrs(keys), self._get_wds(keys)):
+            self._sparse_update(weights[p], grads[p], states[p], lr, wd)
+        skip = set(lazy)
+        return [p for p in range(len(weights)) if p not in skip]
+
+    def _sparse_update(self, weight, grad, state, lr, wd):
+        """Lazy row-sparse SGD (JAX ``SGD._sparse_update`` :318-355, MXNet
+        1.x ``SGDUpdateRowSparse``): only the gradient's rows are read and
+        written, weight decay and momentum included. Duplicate rows are
+        merged first (``index_add_`` on a card is exact only for unique
+        indices); then ``g = clip(rescale_grad * rows) + wd * w[idx]`` and
+        ``w[idx] -= lr * g`` without momentum, else ``m_rows = momentum *
+        m[idx] - lr * g``, ``w[idx] += m_rows`` and ``m[idx] = m_rows``,
+        in the weight's dtype with ``lr`` and ``wd`` rounded to it."""
+        from ..ndarray.sparse import merge_duplicates
+
+        grad = merge_duplicates(grad)
+        w = weight._data
+        idx = grad.indices._data
+        with torch.no_grad():
+            g = grad.data._data.to(w.dtype) * self.rescale_grad
+            if self.clip_gradient and self.clip_gradient > 0:
+                g = g.clamp(-self.clip_gradient, self.clip_gradient)
+            g = g + wd * w.index_select(0, idx)
+            if state is None:
+                w.index_add_(0, idx, -lr * g)
+                return
+            m = state._data
+            m_rows = self.momentum * m.index_select(0, idx) - lr * g
+            w.index_add_(0, idx, m_rows)
+            m.index_copy_(0, idx, m_rows)
 
 
 @register

@@ -5,20 +5,12 @@ Counterpart of ``mxnet_tpu/symbol/contrib.py``: every op whose name or
 an alias starts with ``_contrib_`` (``MultiBoxPrior``, ``box_nms``,
 ``ROIAlign``, ...). The control flow of ``mx.nd.contrib`` runs inside a
 hybridized block's captured body instead of as graph nodes, as in the
-JAX package. ``getnnz`` waits for the sparse arrays and raises
-(``ROADMAP.md`` item A4).
+JAX package. ``getnnz`` counts the non-zero entries of its input (the
+op ``_contrib_getnnz``).
 """
 from __future__ import annotations
 
 import sys as _sys
-
-from ..base import MXNetError
-
-
-def getnnz(*args, **kwargs):
-    raise MXNetError("sym.contrib.getnnz is not ported: it counts the "
-                     "stored values of a CSR sparse array, which come with "
-                     "the port's sparse arrays (ROADMAP.md, item A4)")
 
 
 def _expose_ops():

@@ -61,7 +61,13 @@ run on a machine that has only PyTorch:
   thread) equal the same step's count on the CPU and
   ``chip_smoke.classifier_step_flops``; ``warmup`` makes one capture and
   takes no step; the memory gauges equal ``torch.cuda.memory_stats()``;
-  ``aot_lower`` on fake CUDA tensors launches no kernel.
+  ``aot_lower`` on fake CUDA tensors launches no kernel;
+* row-sparse and CSR arrays on the card: the dense views, ``sparse_add``,
+  ``merge_duplicates``, ``retain``, ``row_sparse_pull`` and the lazy SGD
+  (with momentum, weight decay and clip) bit for bit against the CPU;
+  ``LibSVMIter`` batches made on the card; a row-sparse gradient pushed
+  with dense ones never reaching K1 (one launch over the dense keys, the
+  embedding's untouched rows and momentum unchanged).
 """
 import math
 
@@ -2585,3 +2591,131 @@ def test_aot_lower_on_fake_cuda_tensors_launches_nothing(cuda_device):
         assert f"kernel {family}" in text
     st.step(x, y)
     assert st.step_report()["flops"] == low.flops
+
+
+def _sparse_pair(seed, n, nnz, width, dev, dup=False):
+    from mxnet_tpu_torch.ndarray import sparse as sp
+
+    rs = np.random.RandomState(seed)
+    idx = rs.choice(n, nnz, replace=dup).astype(np.int64)
+    vals = rs.randn(nnz, width).astype(np.float32)
+    return tuple(sp.row_sparse_array((vals, idx), shape=(n, width), ctx=c)
+                 for c in (mx.gpu(0), mx.cpu()))
+
+
+@pytest.mark.gpu
+def test_sparse_arrays_and_lazy_sgd_on_card_equal_the_cpu(cuda_device):
+    from mxnet_tpu_torch.ndarray import sparse as sp
+
+    a, ac = _sparse_pair(0, 5000, 700, 16, cuda_device)
+    b, bc = _sparse_pair(1, 5000, 900, 16, cuda_device)
+    assert a.context == mx.gpu(0) and a.indices._data.is_cuda
+    for got, want in ((sp.sparse_add(a, b), sp.sparse_add(ac, bc)),
+                      (a.retain(mx.nd.array(np.arange(0, 5000, 3),
+                                            ctx=mx.gpu(0))),
+                       ac.retain(mx.nd.array(np.arange(0, 5000, 3),
+                                             ctx=mx.cpu())))):
+        assert torch.equal(got.indices._data.cpu(), want.indices._data)
+        assert torch.equal(got.data._data.cpu(), want.data._data)
+    d, dc = _sparse_pair(2, 300, 900, 4, cuda_device, dup=True)
+    m, mc = sp.merge_duplicates(d), sp.merge_duplicates(dc)
+    assert torch.equal(m.indices._data.cpu(), mc.indices._data)
+    assert torch.equal(m.data._data.cpu(), mc.data._data)
+    assert torch.equal(m.tostype("default")._data.cpu(),
+                       mc.tostype("default")._data)
+    dense = np.random.RandomState(3).randn(40, 30).astype(np.float32)
+    dense[dense < 0.8] = 0
+    c = sp.csr_matrix(dense, ctx=mx.gpu(0))
+    assert torch.equal(c.tostype("default")._data.cpu(),
+                       torch.from_numpy(dense))
+    for cfg in ({"momentum": 0.9, "wd": 0.01},
+                {"clip_gradient": 0.5, "rescale_grad": 0.5, "wd": 0.1}):
+        ws = []
+        for ctx in (mx.gpu(0), mx.cpu()):
+            with ctx:
+                kv = mx.kv.create("local")
+                kv.init("e", mx.nd.array(_rand((5000, 16), 4)))
+                kv.set_optimizer(mx.optimizer.create(
+                    "sgd", learning_rate=0.3, **cfg))
+                for step in range(3):
+                    g, gc = _sparse_pair(10 + step, 5000, 800, 16,
+                                         cuda_device, dup=step == 1)
+                    kv.push("e", [g if ctx == mx.gpu(0) else gc])
+                rows = np.arange(0, 5000, 7)
+                out = sp.row_sparse_array(
+                    (np.zeros((1, 16), np.float32), [0]), shape=(5000, 16))
+                kv.row_sparse_pull("e", out=out, row_ids=mx.nd.array(rows))
+                full = mx.nd.zeros((5000, 16))
+                kv.pull("e", out=full)
+                ws.append((out.data._data.cpu(), full._data.cpu()))
+        assert torch.equal(ws[0][0], ws[1][0])
+        assert torch.equal(ws[0][1], ws[1][1])
+
+
+@pytest.mark.gpu
+def test_libsvm_batches_on_card(cuda_device, tmp_path):
+    path = tmp_path / "x.libsvm"
+    rs = np.random.RandomState(0)
+    with open(path, "w") as f:
+        for _ in range(37):
+            idx = np.sort(rs.choice(1000, 9, replace=False))
+            f.write(f"{rs.randint(2)} " + " ".join(
+                f"{i}:{v:.6g}" for i, v in zip(idx, rs.rand(9))) + "\n")
+    kw = dict(data_libsvm=str(path), data_shape=(1000,), batch_size=16)
+    card = list(mx.io.LibSVMIter(ctx=mx.gpu(0), **kw))
+    cpu = list(mx.io.LibSVMIter(ctx=mx.cpu(), **kw))
+    assert len(card) == len(cpu) == 3 and card[-1].pad == 11
+    for b, bc in zip(card, cpu):
+        csr = b.data[0]
+        assert csr.stype == "csr" and csr.data._data.is_cuda
+        assert csr.indptr._data.is_cuda and b.label[0]._data.is_cuda
+        for part in ("data", "indices", "indptr"):
+            assert torch.equal(getattr(csr, part)._data.cpu(),
+                               getattr(bc.data[0], part)._data)
+        assert torch.equal(csr.tostype("default")._data.cpu(),
+                           bc.data[0].tostype("default")._data)
+
+
+@pytest.mark.gpu
+def test_row_sparse_gradient_never_reaches_k1(cuda_device):
+    from mxnet_tpu_torch.kernels import opt_step
+    from mxnet_tpu_torch.ndarray import sparse as sp
+
+    shapes = {"a": (64, 32), "emb": (10000, 8), "b": (1000,)}
+    with mx.gpu(0):
+        kv = mx.kv.create("local")
+        for i, (k, s) in enumerate(shapes.items()):
+            kv.init(k, mx.nd.array(_rand(s, i)))
+        kv.set_optimizer(mx.optimizer.create("sgd", learning_rate=0.1,
+                                             momentum=0.9, wd=0.01))
+        emb0 = kv._store["emb"]._data.clone()
+        seen = []
+        sgd = opt_step.opt_sgd
+        entry = kernels.entry("opt_sgd")
+        kernel = entry.kernel
+
+        def watched(weights, grads, *args, **kwargs):
+            seen.append([tuple(g.shape) for g in grads])
+            return kernel(weights, grads, *args, **kwargs)
+
+        entry.kernel = watched
+        try:
+            before = sgd.launches
+            rows = np.array([5, 77, 9000], np.int64)
+            g = sp.row_sparse_array((np.ones((3, 8), np.float32), rows),
+                                    shape=(10000, 8))
+            for _ in range(2):
+                kv.push(list(shapes), [mx.nd.ones((64, 32)), g,
+                                       mx.nd.ones((1000,))])
+            torch.cuda.synchronize()
+            launched = sgd.launches - before
+        finally:
+            entry.kernel = kernel
+    assert seen == [[(64, 32), (1000,)]] * 2 and launched == 2
+    assert g._dense_cache is None
+    emb = kv._store["emb"]._data
+    mom = kv._updater.states["emb"]._data
+    keep = torch.ones(10000, dtype=torch.bool, device=emb.device)
+    keep[torch.from_numpy(rows).to(emb.device)] = False
+    assert torch.equal(emb[keep], emb0[keep])
+    assert not mom[keep].any() and mom[~keep].all()

@@ -349,8 +349,8 @@ def test_value_and_gradient_match_jax(case):
 
 
 def test_the_contrib_ops_are_registered_with_the_jax_names_and_flags():
-    """Every name of the JAX ``contrib_ops.py`` but ``_contrib_getnnz``
-    (sparse arrays, ROADMAP A4), with its aliases, output count and
+    """Every name of the JAX ``contrib_ops.py`` (``_contrib_getnnz`` came
+    with the sparse arrays), with its aliases, output count and
     differentiability."""
     import mxnet_tpu.ops.contrib_ops as jc
 
@@ -358,15 +358,14 @@ def test_the_contrib_ops_are_registered_with_the_jax_names_and_flags():
              if jreg.get(n).fn.__module__ == jc.__name__
              or n in ("BatchNorm_v1", "_contrib_SyncBatchNorm")}
     assert len(names) == 38, sorted(names)
-    for name in sorted(names - {"_contrib_getnnz"}):
+    for name in sorted(names):
         jop = jreg.get(name)
         assert reg.canonical(name) == name
         assert set(reg.aliases(name)) == set(jop.aliases), name
         assert reg.differentiable(name) == jop.differentiable, name
         n_out = jop.num_outputs if isinstance(jop.num_outputs, int) else 1
         assert reg.num_outputs(name) == max(n_out, 1), name
-    with pytest.raises(MXNetError, match="not ported"):
-        reg.get("_contrib_getnnz")
+    assert callable(reg.get("_contrib_getnnz"))
 
 
 def test_nms_keeps_the_first_of_equal_boxes_in_input_order():
@@ -463,7 +462,8 @@ def test_nd_and_sym_contrib_hold_every_jax_contrib_name():
     """``mx.nd.contrib`` and ``mx.sym.contrib`` hold every name that the
     JAX package's hold, the ops reached only through a ``_contrib_`` alias
     (``MultiBoxPrior``, ``box_nms``) among them. ``getnnz`` and the DGL
-    functions raise, naming the sparse arrays they wait for. The JAX
+    functions came with the sparse arrays and run (tests/test_torch_dgl.py
+    holds them against the JAX ones). The JAX
     ``quantization.py`` ops that the port has not ported yet (ROADMAP item
     A5) are left out of the comparison."""
     import mxnet_tpu.ops.quantization as jq
@@ -485,10 +485,12 @@ def test_nd_and_sym_contrib_hold_every_jax_contrib_name():
         assert callable(getattr(mx.nd.contrib, name))
         assert callable(getattr(mx.sym.contrib, name))
     for name in sorted(waiting):
-        with pytest.raises(MXNetError, match="sparse"):
-            getattr(mx.nd.contrib, name)()
-    with pytest.raises(MXNetError, match="sparse"):
-        mx.sym.contrib.getnnz()
+        assert callable(getattr(mx.nd.contrib, name))
+    csr = mx.nd.sparse.csr_matrix(([1.0, 2.0], [0, 1], [0, 1, 2]),
+                                  shape=(2, 2), ctx=mx.cpu())
+    assert mx.nd.contrib.getnnz(csr).asnumpy() == 2
+    assert mx.nd.contrib.dgl_adjacency(csr).stype == "csr"
+    assert callable(mx.sym.contrib.getnnz)
 
 
 def _node_attrs(js):

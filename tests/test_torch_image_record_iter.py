@@ -287,8 +287,12 @@ def test_resize_and_prefetching_iters_match(tmp_path):
         mx.io.PrefetchingIter(mx.io.NDArrayIter(x, batch_size=2), mesh=1)
     with pytest.raises(MXNetError, match="multi-card data parallelism"):
         mx.io.DeviceStager(shardings=(1, 2))
-    with pytest.raises(MXNetError, match="LibSVMIter is not ported"):
-        mx.io.LibSVMIter("x.libsvm", (4,))
+    # LibSVMIter is ported (tests/test_torch_libsvm.py): a CSR batch
+    (tmp_path / "x.libsvm").write_text("1 0:0.5 3:2\n0 2:1\n")
+    svm = next(iter(mx.io.LibSVMIter(str(tmp_path / "x.libsvm"), (4,),
+                                     batch_size=2, ctx=CPU)))
+    assert svm.data[0].stype == "csr"
+    assert svm.data[0].asnumpy().tolist() == [[0.5, 0, 0, 2], [0, 0, 1, 0]]
 
 
 def test_mnist_and_csv_iters_match(tmp_path):

@@ -239,12 +239,16 @@ def test_dist_sync_pull_returns_this_rounds_sum_unlike_the_jax_package():
 
 
 def test_unported_stores_and_sparse_pull_raise():
-    with pytest.raises(mx.MXNetError, match="dist_async"):
-        mx.kv.create("dist_async")
+    """dist_async and row_sparse_pull are ported (this slice's
+    tests/test_torch_sparse_kvstore.py and test_torch_sparse_dist.py):
+    an unknown store type and a row pull without row ids still raise."""
+    assert mx.kv.create("dist_async").type == "dist_async"
     with pytest.raises(ValueError, match="unknown"):
         mx.kv.create("no-such-store")
+    with pytest.raises(ValueError, match="unknown"):
+        mx.kv.create("dist_no_such_mode")
     kv = mx.kv.create("local")
-    with pytest.raises(mx.MXNetError, match="row-sparse"):
+    with pytest.raises(ValueError, match="row_ids"):
         kv.row_sparse_pull(0, out=None, row_ids=None)
 
 

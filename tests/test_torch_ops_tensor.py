@@ -181,9 +181,10 @@ def test_boolean_mask_is_eager_and_detached():
 # ------------------------------------------------------------ registry ----
 
 _REF = os.path.join(os.path.dirname(__file__), "..", "mxnet_tpu", "ops")
-# wait for row-sparse arrays (the linalg ops and khatri_rao came with
-# ops/la_op.py; _contrib_SparseEmbedding is registered by ops/nn.py)
-LEFT_OUT = {"_sparse_retain", "cast_storage"}
+# none left out: _sparse_retain and cast_storage came with the row-sparse
+# arrays, the linalg ops and khatri_rao with ops/la_op.py;
+# _contrib_SparseEmbedding is registered by ops/nn.py
+LEFT_OUT = set()
 # registered by numpy_ops.py as aliases of tensor.py's ops
 NUMPY_ALIASES = {"_split_v2", "_unravel_index", "_ravel_multi_index"}
 

@@ -57,7 +57,7 @@ def test_composed_graph_is_the_jax_graph():
         port.eval_with({"data": mx.nd.array(vals["data"], ctx=mx.cpu())})
     with pytest.raises(mx.MXNetError, match="not ported"):
         mx.sym.load_json(json.dumps({"nodes": [
-            {"op": "_sparse_retain", "name": "c", "inputs": []}]}))
+            {"op": "_contrib_requantize", "name": "c", "inputs": []}]}))
 
 
 def test_traced_encoder_lists_and_shapes_match_jax():

@@ -231,12 +231,12 @@ def test_unported_optimizers_meshes_and_methods_raise():
     assert st.warmup(*spec)["entries"] == 0 and st._t == 0
     # publish_to / publish_update are ported (tests/test_torch_modelbus.py);
     # the eager Optimizer.update is ported (tests/test_torch_trainer.py);
-    # the dist_async kvstore is not. lr schedulers, multi_precision,
-    # bfloat16 parameters and checkpoints are ported
-    # (tests/test_torch_lr_scheduler.py, test_torch_multi_precision.py,
-    # test_torch_checkpoint.py)
-    with pytest.raises(mx.MXNetError, match="dist_async"):
-        mx.kv.create("dist_async")
+    # so is the dist_async kvstore (tests/test_torch_sparse_dist.py). lr
+    # schedulers, multi_precision, bfloat16 parameters and checkpoints
+    # are ported (tests/test_torch_lr_scheduler.py,
+    # test_torch_multi_precision.py, test_torch_checkpoint.py)
+    kv = mx.kv.create("dist_async")
+    assert (kv.type, kv.num_workers) == ("dist_async", 1)
 
 
 def test_mesh_defaults_to_the_card_and_to_the_cpu_scope(monkeypatch):
