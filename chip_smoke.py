@@ -517,6 +517,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import hashlib
 import json
@@ -536,6 +537,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import compile as compile_service
@@ -11751,6 +11753,862 @@ def phase_dist_sparse_async(smi):
     return out
 
 
+# ------------------------------------------------------------------------
+# The twenty-fifth slice: the int8 convolution on K4, AMP.
+
+QUANTIZE_MNIST = {"num_examples": 2048, "num_val_examples": 512,
+                  "batch": 64, "epochs": 3, "lr": 0.1, "calib_batches": 5,
+                  "calib_mode": "entropy", "buckets": (2, 4, 8),
+                  "requests": 32, "max_gap": 0.05}
+# examples/quantization/quantize_mnist.py's network: conv1, fc1 and fc2
+MNIST_INT8_PRODUCTS = 3
+
+
+def mnist_sym(m):
+    """``examples/quantization/quantize_mnist.py:build_sym`` (:32-42),
+    verbatim, over package ``m``."""
+    data = m.sym.var("data")
+    net = m.sym.Convolution(data, kernel=(3, 3), num_filter=8, name="conv1")
+    net = m.sym.Activation(net, act_type="relu")
+    net = m.sym.Pooling(net, kernel=(2, 2), stride=(2, 2), pool_type="max")
+    net = m.sym.Flatten(net)
+    net = m.sym.FullyConnected(net, num_hidden=64, name="fc1")
+    net = m.sym.Activation(net, act_type="relu")
+    net = m.sym.FullyConnected(net, num_hidden=10, name="fc2")
+    return m.sym.SoftmaxOutput(net, m.sym.var("softmax_label"),
+                               name="softmax")
+
+
+def mnist_synthetic(num, sample_seed):
+    """``examples/image_classification/common/data.py:_synthetic``
+    (:29-42) at MNIST's shape, as ``get_mnist_iter`` (:105-123) draws it
+    when no idx files are given: class centers from seed 1, training
+    samples from seed 42, validation from 43."""
+    centers = 0.3 * np.random.RandomState(1).randn(10, 1, 28, 28).astype(
+        np.float32)
+    rng = np.random.RandomState(sample_seed)
+    y = rng.randint(0, 10, num).astype(np.float32)
+    x = centers[y.astype(np.int32)] + \
+        0.15 * rng.randn(num, 1, 28, 28).astype(np.float32)
+    return x, y
+
+
+def _counts():
+    return {k: v for k, v in kernels.launch_counts().items() if v}
+
+
+def phase_quantize_mnist(smi):
+    """quantize_mnist: ``examples/quantization/quantize_mnist.py:45-139``
+    at its defaults, copied (the example imports the JAX package): the
+    example's synthetic MNIST (2048 / 512 examples, batch 64),
+    ``Module.fit`` for 3 epochs at lr 0.1, ``quantize_model(calib_mode=
+    "entropy")`` over 5 calibration batches, the int8 ``Module.score``
+    (the gap to float32 under 5%), and the int8 graph's ``fc2_output``
+    served by ``ModelContainer.add_symbol`` + ``ModelServer`` on buckets
+    (2, 4, 8) with the example's 32 requests. Every served answer must
+    equal the same graph and parameters on the CPU bit for bit: each op
+    on that route is exact (the int8 products, relu, max pooling,
+    flatten) or correctly rounded in the same order (quantize, the
+    epilogue). K4 launches 3 times an int8 batch (conv1 through the int8
+    im2col, fc1, fc2)."""
+    from mxnet_tpu_torch.contrib import quantization
+
+    cfg = QUANTIZE_MNIST
+    t_phase = time.perf_counter()
+    dev = mx.gpu(0)
+    mx.random.seed(0)
+    x, y = mnist_synthetic(cfg["num_examples"], 42)
+    xv, yv = mnist_synthetic(cfg["num_val_examples"], 43)
+    batch = cfg["batch"]
+    with dev:
+        train = mx.io.NDArrayIter(x, y, batch, shuffle=True)
+        val = mx.io.NDArrayIter(xv, yv, batch)
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        mod = mx.mod.Module(mnist_sym(mx), context=dev)
+        mod.fit(train, num_epoch=cfg["epochs"],
+                initializer=mx.init.Xavier(),
+                optimizer_params=(("learning_rate", cfg["lr"]),
+                                  ("rescale_grad", 1.0 / batch)))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        fit_launches = _counts()
+        fp32_acc = dict(mod.score(val, "acc"))["accuracy"]
+        arg_params, aux_params = mod.get_params()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        qsym, qarg, qaux = quantization.quantize_model(
+            mnist_sym(mx), arg_params, aux_params, calib_data=train,
+            num_calib_examples=cfg["calib_batches"] * batch,
+            calib_mode=cfg["calib_mode"])
+        quantize_s = time.perf_counter() - t0
+        calib = quantization.last_calibration()
+        census = quantization.last_quantization()["ops"]
+        qmod = mx.mod.Module(qsym, context=dev)
+        qmod.bind(val.provide_data, val.provide_label, for_training=False)
+        qmod.init_params(arg_params=qarg, aux_params=qaux,
+                         allow_missing=False)
+        kernels.reset_launch_counts()
+        int8_acc = dict(qmod.score(val, "acc"))["accuracy"]
+        torch.cuda.synchronize()
+        score_launches = _counts()
+    val_batches = cfg["num_val_examples"] // batch
+    if census != {"_contrib_quantized_conv": 1,
+                  "_contrib_quantized_fully_connected": 2}:
+        raise AssertionError(f"quantize_mnist: census {census}")
+    if score_launches.get("int8_gemm") != MNIST_INT8_PRODUCTS * val_batches:
+        raise AssertionError(f"quantize_mnist: int8 score launched "
+                             f"{score_launches}, expected K4 "
+                             f"{MNIST_INT8_PRODUCTS} x {val_batches}")
+    if not fp32_acc - int8_acc < cfg["max_gap"]:
+        raise AssertionError(f"quantize_mnist: int8 accuracy {int8_acc} "
+                             f"against float32 {fp32_acc}: gap over "
+                             f"{cfg['max_gap']}")
+    served = _serve_mnist_int8(cfg, qsym, qarg, qaux)
+    out = {"phase": "quantize_mnist", "card": smi,
+           "source": "examples/quantization/quantize_mnist.py:45-139 at "
+                     "its defaults; data: common/data.py:105-123's "
+                     "synthetic MNIST (no idx files in the repository)",
+           "config": cfg, "fit_s": fit_s, "quantize_s": quantize_s,
+           "fp32_accuracy": fp32_acc, "int8_accuracy": int8_acc,
+           "gap": fp32_acc - int8_acc, "census": census,
+           "calibration": {"mode": calib["mode"], "bins": calib["num_bins"],
+                           "examples": calib["examples"],
+                           "thresholds": {n: t["threshold"] for n, t in
+                                          calib["tensors"].items()},
+                           "seen": {n: [t["min_seen"], t["max_seen"]]
+                                    for n, t in calib["tensors"].items()}},
+           "fit_launches": fit_launches,
+           "score_launches": score_launches,
+           "k4_launches_per_int8_batch": MNIST_INT8_PRODUCTS, **served,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+def _serve_mnist_int8(cfg, qsym, qarg, qaux):
+    """The example's ``serve_int8_demo`` (:102-139): ``fc2_output`` of the
+    int8 graph served on buckets (2, 4, 8) and the example's 32 requests
+    (rows 1-8 from ``RandomState(0)``), each answer held bit for bit
+    against the same graph and parameters evaluated on the CPU."""
+    example_shape = (1, 28, 28)
+    serve_sym = qsym.get_internals()["fc2_output"]
+    container = serving.ModelContainer()
+    container.add_symbol("mnist_int8", serve_sym, dict(qarg), dict(qaux),
+                         example_shape=example_shape, buckets=cfg["buckets"],
+                         ctx=mx.gpu(0))
+    server = serving.ModelServer(container, max_wait_ms=1.0).start()
+    cpu_args = {k: v.as_in_context(mx.cpu()) for k, v in qarg.items()}
+    answers = []
+    try:
+        server.warmup()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        rng = np.random.RandomState(0)
+        t0 = time.perf_counter()
+        for _ in range(cfg["requests"]):
+            rows = int(rng.randint(1, 9))
+            xr = rng.rand(rows, *example_shape).astype(np.float32)
+            got = server.predict("mnist_int8", xr, timeout=30.0)
+            if got.shape[0] != rows:
+                raise AssertionError(f"quantize_mnist: {rows} rows in, "
+                                     f"{got.shape} out")
+            answers.append((xr, got))
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = _counts()
+        stats = server.stats()["models"]["mnist_int8"]
+    finally:
+        if not server.drain(timeout=30.0):
+            raise AssertionError("quantize_mnist: the server did not drain")
+    equal = 0
+    for xr, got in answers:
+        want = serve_sym.eval_with({"data": mx.nd.array(xr, ctx=mx.cpu()),
+                                    **cpu_args}).asnumpy()
+        equal += int(np.array_equal(got, want))
+        if not np.array_equal(got, want):
+            raise AssertionError(
+                f"quantize_mnist: a served answer of {xr.shape[0]} rows "
+                f"differs from the CPU's by up to {np.abs(got - want).max()}")
+    batches = sum(stats["bucket_census"].values())
+    if launches.get("int8_gemm") != MNIST_INT8_PRODUCTS * batches:
+        raise AssertionError(f"quantize_mnist: served {batches} batches, "
+                             f"launches {launches}")
+    return {"served": {"requests": len(answers), "batches": batches,
+                       "equal_to_cpu": equal, "wall_s": wall,
+                       "weight_dtype": stats.get("weight_dtype"),
+                       "bucket_census": stats["bucket_census"],
+                       "p50_ms": stats.get("p50_ms"),
+                       "p99_ms": stats.get("p99_ms"),
+                       "launches": launches}}
+
+
+RESNET50_INT8 = {"network": "resnet50_v1", "classes": 1000,
+                 "image_shape": (3, 224, 224), "batch": 32,
+                 "calib_batches": 2, "calib_mode": "entropy",
+                 "granularity": "channel-wise", "timed": 20, "warmup": 3,
+                 "cpu_batch": 2, "convs": 53, "fcs": 1, "profiled": 5}
+# card against CPU, int8 logits (ROADMAP Caveats: 15%): relative L2
+RESNET50_INT8_CPU_L2 = 0.15
+
+
+def _int8_products(qsym, shapes):
+    """``[(node, M, K, N, groups)]`` of every K4 product of one forward
+    of the int8 graph at the input ``shapes``."""
+    from mxnet_tpu_torch.symbol.symbol import _topo
+
+    known = qsym._infer({k: tuple(v) for k, v in shapes.items()})
+    out = []
+    for node in _topo(qsym._entries):
+        if node.op == "_contrib_quantized_conv":
+            c, oi = node.inputs[0]
+            n, ch = known[id(c), oi][:2]
+            o = known[id(node), 0]
+            g = node.attrs.get("num_group", 1)
+            k = (ch // g) * math.prod(node.attrs["kernel"])
+            out.append((node.name, n * math.prod(o[2:]), k,
+                        node.attrs["num_filter"] // g, g))
+        elif node.op == "_contrib_quantized_fully_connected":
+            c, oi = node.inputs[0]
+            s = known[id(c), oi]
+            out.append((node.name, s[0], math.prod(s[1:]),
+                        node.attrs["num_hidden"], 1))
+    return out
+
+
+def _int_mm_padded(qx, w, scale, bias):
+    """``_int_mm_epilogue`` with K zero-padded to a multiple of 8 as
+    ``torch._int_mm`` needs (ResNet-50's stem has K = 147): the zeros add
+    nothing to the product."""
+    k = qx.shape[1]
+    if k % 8:
+        qx = torch.nn.functional.pad(qx, (0, -k % 8))
+        w = torch.nn.functional.pad(w, (0, -k % 8))
+    return qx, w, scale, bias
+
+
+def _resnet_int8_products_timing(products, dev):
+    """K4 and ``torch._int_mm`` + epilogue over the forward's products at
+    their shapes, one call each, with random operands: each product held
+    bit for bit against K4's plain version and against ``torch._int_mm``
+    + epilogue (both exact int32 sums under the same float32 epilogue),
+    then device ms by the profiler and ms by CUDA events, and the summed
+    bound."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    ops = []
+    for _, m, k, n, g in products:
+        for _ in range(g):
+            ops.append(_int8_inputs(m, k, n, gen, dev))
+    padded = [_int_mm_padded(*o) for o in ops]
+    shapes = [(m, k, n) for _, m, k, n, g in products for _ in range(g)]
+    for (m, k, n), (qx, w, s, b), o in zip(shapes, ops, padded):
+        got = int8_gemm.int8_gemm(qx, w, s, bias=b)
+        for what, want in (("plain", int8_gemm.int8_gemm_plain(
+                qx, w, s, bias=b)), ("torch._int_mm", _int_mm_epilogue(*o))):
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"resnet50_v1_int8: K4 differs from {what} at M={m} "
+                    f"K={k} N={n}, max |diff| "
+                    f"{(got - want).abs().max().item()}")
+        del got, want
+
+    def run_k4():
+        for qx, w, s, b in ops:
+            int8_gemm.int8_gemm(qx, w, s, bias=b)
+
+    def run_lib():
+        for o in padded:
+            _int_mm_epilogue(*o)
+
+    bounds = [int8_bound(m, k, n) for _, m, k, n, g in products
+              for _ in range(g)]
+    return {"ms": cuda_ms(run_k4, iters=5), "device_ms": device_ms(
+                run_k4, iters=5),
+            "library_ms": cuda_ms(run_lib, iters=5),
+            "library_device_ms": sum(kernel_device_us(
+                run_lib, iters=5).values()) / 1e3,
+            "bound_ms": sum(b[0] for b in bounds),
+            "bound_by": {"bytes": sum(b[1] == "bytes" for b in bounds),
+                         "operations": sum(b[1] == "operations"
+                                           for b in bounds)},
+            "products": len(ops), "equal_to_plain_and_int_mm": len(ops)}
+
+
+def _resnet_int8_passes_timing(qsym, shapes, dev):
+    """Device ms of the activation's quantize and of the int8 im2col
+    before each of the forward's convolutions, at their input shapes
+    (channels-last activations, as the int8 graph hands them over; the
+    stem's input as fed)."""
+    from mxnet_tpu_torch.ops import quantization as q
+    from mxnet_tpu_torch.ops.nn import _tuplize
+    from mxnet_tpu_torch.symbol.symbol import _topo
+
+    known = qsym._infer({k: tuple(v) for k, v in shapes.items()})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    convs = []
+    for node in _topo(qsym._entries):
+        if node.op != "_contrib_quantized_conv":
+            continue
+        c, oi = node.inputs[0]
+        x = torch.randn(known[id(c), oi], generator=gen, device=dev)
+        if not c.is_var:
+            x = x.to(memory_format=torch.channels_last)
+        a = node.attrs
+        n = len(a["kernel"])
+        convs.append((x, tuple(a["kernel"]),
+                      _tuplize(a.get("stride") or 1, n),
+                      _tuplize(a.get("dilate") or 1, n),
+                      _tuplize(a.get("pad") or 0, n)))
+    s = torch.full((), 0.05, device=dev)
+    codes = [q._quantize(x, s) for x, *_ in convs]
+
+    def run_quantize():
+        for x, *_ in convs:
+            q._quantize(x, s)
+
+    def run_im2col():
+        for qx, (_, kernel, stride, dilate, pad) in zip(codes, convs):
+            q._im2col(qx, kernel, stride, dilate, pad)
+
+    return {"quantize_device_ms": device_ms(run_quantize, iters=5),
+            "im2col_device_ms": device_ms(run_im2col, iters=5),
+            "convolutions": len(convs)}
+
+
+@contextlib.contextmanager
+def _conv_output_nchw():
+    """The int8 convolution's output copied to contiguous NCHW in place
+    of the channels-last view the op returns, for modules bound and run
+    inside the block (a comparison of layouts, never the port's path)."""
+    from mxnet_tpu_torch.ops import registry
+
+    name = "_contrib_quantized_conv"
+    view = registry._REGISTRY[name]
+
+    @functools.wraps(view)
+    def copied(*args, **kwargs):
+        return view(*args, **kwargs).contiguous()
+
+    registry._REGISTRY[name] = copied
+    try:
+        yield
+    finally:
+        registry._REGISTRY[name] = view
+
+
+def _timed_forwards(forward, m, cfg, captured):
+    """``cfg["warmup"]`` then ``cfg["timed"]`` forwards of module ``m``,
+    captured or eager: their ms, the peak bytes and the launch counts of
+    the timed ones."""
+    prev = compile_service.set_enabled(captured)
+    try:
+        for _ in range(cfg["warmup"]):
+            forward(m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        ms = []
+        for _ in range(cfg["timed"]):
+            t0 = time.perf_counter()
+            forward(m)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms, torch.cuda.max_memory_allocated(), _counts()
+    finally:
+        compile_service.set_enabled(prev)
+
+
+def _resnet_int8_layout_timing(forward, qmod, qsym, qargs, qauxs, shape,
+                               dev, cfg):
+    """The captured int8 forward with the convolution's output as the
+    op's channels-last view against a contiguous NCHW copy of it, blocks
+    view, copy, copy, view; and the two forwards' largest difference."""
+    with _conv_output_nchw():
+        nchw = _bind_inference(qsym, qargs, qauxs, shape, dev)
+    blocks = []
+    for layout in ("view", "copy", "copy", "view"):
+        with _conv_output_nchw() if layout == "copy" else \
+                contextlib.nullcontext():
+            ms = _timed_forwards(forward, nchw if layout == "copy" else
+                                 qmod, cfg, captured=True)[0]
+        blocks.append([layout, statistics.median(ms), ms])
+    prev = compile_service.set_enabled(True)
+    try:
+        a = forward(qmod).asnumpy()
+        with _conv_output_nchw():
+            b = forward(nchw).asnumpy()
+    finally:
+        compile_service.set_enabled(prev)
+    med = {k: statistics.median([x for b_ in blocks if b_[0] == k
+                                 for x in b_[2]]) for k in ("view", "copy")}
+    return {"median_ms": med, "copy_over_view": med["copy"] / med["view"],
+            "block_medians_ms": [b_[:2] for b_ in blocks],
+            "max_abs_diff": float(np.abs(a - b).max())}
+
+
+def _bind_inference(sym, args, auxs, data_shape, dev):
+    m = mx.mod.Module(sym, context=dev)
+    m.bind(data_shapes=[("data", data_shape)],
+           label_shapes=[("softmax_label", data_shape[:1])],
+           for_training=False)
+    m.init_params(arg_params=args, aux_params=auxs, allow_missing=False)
+    return m
+
+
+def phase_resnet50_int8(smi):
+    """resnet50_v1_int8: MXNet 1.x's ``example/quantization/
+    imagenet_gen_qsym.py`` then ``imagenet_inference.py --benchmark``
+    over the port's resnet50_v1 at full width (224 x 224, 1000 classes):
+    the zoo's network initialised from a seed and exported,
+    ``quantize_model(calib_mode="entropy", quantize_granularity=
+    "channel-wise")`` over 2 synthetic batches of 32 (the cut: no
+    ImageNet), and an int8 ``Module`` bound for inference at batch 32.
+    Its forward timed captured and eager beside the float32 forward,
+    blocks in the order int8 captured, int8 eager, float32 captured,
+    float32 captured, int8 eager, int8 captured (median of 20 each after
+    3 warm-ups); K4's 54 launches a forward split by path, its device
+    time against the summed bound and ``torch._int_mm`` at the same
+    products (each product held bit for bit against K4's plain version
+    and ``torch._int_mm``), the quantize and im2col passes; a replay
+    with no host sync, and a replayed batch-32 forward equal to eager
+    bit for bit; the captured forward with the convolution's output as
+    a channels-last view against an NCHW copy; the int8 logits on the
+    card held against the same graph on the CPU at batch 2; int8 against
+    float32 reported, not held (the weights are random)."""
+    from mxnet_tpu_torch.contrib import quantization
+
+    cfg = RESNET50_INT8
+    t_phase = time.perf_counter()
+    dev = mx.gpu(0)
+    shape = (cfg["batch"],) + tuple(cfg["image_shape"])
+    mx.random.seed(0)
+    with dev:
+        net = vision.get_model(cfg["network"], classes=cfg["classes"])
+        net.initialize(mx.init.Xavier(),
+                       generator=torch.Generator().manual_seed(0))
+        net(mx.nd.zeros((1,) + tuple(cfg["image_shape"])))
+        with tempfile.TemporaryDirectory() as d:
+            net.export(os.path.join(d, "net"), 0)
+            body, args, auxs = mx.model.load_checkpoint(
+                os.path.join(d, "net"), 0)
+        del net
+        sym = mx.sym.SoftmaxOutput(body, mx.sym.var("softmax_label"),
+                                   name="softmax")
+        rs = np.random.RandomState(0)
+        n_cal = cfg["batch"] * cfg["calib_batches"]
+        calib = mx.io.NDArrayIter(
+            rs.uniform(-1, 1, (n_cal,) + shape[1:]).astype(np.float32),
+            rs.randint(0, cfg["classes"], n_cal).astype(np.float32),
+            cfg["batch"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qsym, qargs, qauxs = quantization.quantize_model(
+            sym, args, auxs, calib_data=calib, num_calib_examples=n_cal,
+            calib_mode=cfg["calib_mode"],
+            quantize_granularity=cfg["granularity"])
+        torch.cuda.synchronize()
+        quantize_s = time.perf_counter() - t0
+        census = quantization.last_quantization()["ops"]
+        thresholds = [t["threshold"] for t in
+                      quantization.last_calibration()["tensors"].values()]
+        gc.collect()
+        torch.cuda.empty_cache()
+        x = mx.nd.array(rs.uniform(-1, 1, shape).astype(np.float32))
+        yl = mx.nd.array(rs.randint(0, cfg["classes"], shape[0]).astype(
+            np.float32))
+        batch = mx.io.DataBatch(data=[x], label=[yl])
+        qmod = _bind_inference(qsym, qargs, qauxs, shape, dev)
+        fmod = _bind_inference(sym, args, auxs, shape, dev)
+    want = {"_contrib_quantized_conv": cfg["convs"],
+            "_contrib_quantized_fully_connected": cfg["fcs"]}
+    if census != want:
+        raise AssertionError(f"resnet50_v1_int8: census {census}, "
+                             f"expected {want}")
+    products = _int8_products(qsym, {"data": shape})
+    per_forward = cfg["convs"] + cfg["fcs"]
+    staged = sum(1 for _, _, k, _, _ in products if k % 16)
+
+    def forward(m):
+        m.forward(batch, is_train=False)
+        return m.get_outputs()[0]
+
+    blocks = []
+    for model, mode in (("int8", "captured"), ("int8", "eager"),
+                        ("float32", "captured"), ("float32", "captured"),
+                        ("int8", "eager"), ("int8", "captured")):
+        m = qmod if model == "int8" else fmod
+        ms, peak, launches = _timed_forwards(forward, m, cfg,
+                                             mode == "captured")
+        blocks.append({"model": model, "mode": mode, "ms": ms,
+                       "peak_bytes": peak, "launches": launches})
+        if model == "int8":
+            want = {"int8_gemm": per_forward * cfg["timed"],
+                    "int8_gemm.staged": staged * cfg["timed"],
+                    "int8_gemm.async": (per_forward - staged) * cfg["timed"]}
+            if {k: launches.get(k, 0) for k in want} != want:
+                raise AssertionError(f"resnet50_v1_int8 {mode}: launches "
+                                     f"{launches}, expected {want}")
+    med = {}
+    for b in blocks:
+        med.setdefault(f"{b['model']}_{b['mode']}", []).extend(b["ms"])
+    med = {k: statistics.median(v) for k, v in med.items()}
+    counted = next(b["launches"] for b in blocks
+                   if b["model"] == "int8" and b["mode"] == "captured")
+    counted = {k: counted.get(k, 0) for k in
+               ("int8_gemm", "int8_gemm.staged", "int8_gemm.async")}
+    syncs = _sync_count(lambda: [forward(qmod) for _ in range(2)])
+    if syncs:
+        raise AssertionError(f"resnet50_v1_int8: a replay synchronised "
+                             f"with the host at {syncs}")
+    # one batch-32 forward replayed against the same forward eager
+    outs = {}
+    for mode in ("captured", "eager"):
+        prev = compile_service.set_enabled(mode == "captured")
+        try:
+            outs[mode] = forward(qmod).asnumpy()
+        finally:
+            compile_service.set_enabled(prev)
+    if not np.array_equal(outs["captured"], outs["eager"]):
+        raise AssertionError(
+            f"resnet50_v1_int8: the replayed forward differs from eager, "
+            f"max |diff| {np.abs(outs['captured'] - outs['eager']).max()}")
+    layout = _resnet_int8_layout_timing(forward, qmod, qsym, qargs, qauxs,
+                                        shape, dev, cfg)
+    k4_us = {k: v for k, v in kernel_device_us(
+        lambda: forward(qmod), iters=cfg["profiled"], warmup=1).items()
+             if "int8_gemm_kernel" in k}
+    card = dev.torch_device()
+    products_timing = _resnet_int8_products_timing(products, card)
+    passes = _resnet_int8_passes_timing(qsym, {"data": shape}, card)
+    agreement = _resnet_int8_agreement(cfg, sym, args, auxs, qsym, qargs,
+                                       qauxs, x)
+    out = {"phase": "resnet50_v1_int8", "card": smi,
+           "source": "MXNet 1.x example/quantization/imagenet_gen_qsym.py "
+                     "(entropy, channel-wise) + imagenet_inference.py "
+                     "--benchmark on the zoo's resnet50_v1; cut: 2 synthetic "
+                     "calibration batches, random weights from a seed",
+           "config": cfg, "quantize_s": quantize_s, "census": census,
+           "calibration_thresholds": {"count": len(thresholds),
+                                      "min": min(thresholds),
+                                      "max": max(thresholds)},
+           "median_ms": med,
+           "img_s": {k: cfg["batch"] / v * 1e3 for k, v in med.items()},
+           "int8_over_float32_captured": med["int8_captured"] /
+           med["float32_captured"],
+           "peak_bytes": {f"{b['model']}_{b['mode']}": b["peak_bytes"]
+                          for b in blocks},
+           "block_medians_ms": [[b["model"], b["mode"],
+                                 statistics.median(b["ms"])]
+                                for b in blocks],
+           "k4_launches_counted": {"forwards": cfg["timed"], **counted},
+           "k4_launches_per_forward": counted["int8_gemm"] / cfg["timed"],
+           "k4_launches_by_path_per_forward": {
+               "staged": counted["int8_gemm.staged"] / cfg["timed"],
+               "async": counted["int8_gemm.async"] / cfg["timed"]},
+           "replay_equals_eager_batch": cfg["batch"],
+           "conv_output_layout": layout,
+           "k4_device_ms_per_forward": sum(k4_us.values()) / 1e3,
+           "k4_products": products_timing, "passes": passes,
+           "host_syncs_in_replay": syncs, **agreement,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    del qmod, fmod
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _head_name(qsym):
+    """The output name of the int8 graph's last fully connected node (the
+    logits before SoftmaxOutput)."""
+    from mxnet_tpu_torch.symbol.symbol import _topo
+
+    fcs = [n for n in _topo(qsym._entries)
+           if n.op == "_contrib_quantized_fully_connected"]
+    return f"{fcs[-1].name}_output"
+
+
+def _resnet_int8_agreement(cfg, sym, args, auxs, qsym, qargs, qauxs, x):
+    """The int8 logits on the card against the same int8 graph on the CPU
+    at batch ``cpu_batch`` (held to ``RESNET50_INT8_CPU_L2``), and the
+    int8 logits against the float32 graph's on the card at the full batch
+    (reported)."""
+    head = _head_name(qsym)
+    qhead = qsym.get_internals()[head]
+    fhead = sym.get_internals()[head]
+    n = cfg["cpu_batch"]
+    feed = {"data": x[:n], **qargs, **qauxs}
+    with torch.no_grad():
+        card = qhead.eval_with(feed).asnumpy()
+        cpu = qhead.eval_with({k: v.as_in_context(mx.cpu())
+                               for k, v in feed.items()}).asnumpy()
+        q_full = qhead.eval_with({"data": x, **qargs, **qauxs}).asnumpy()
+        f_full = fhead.eval_with({"data": x, **args, **auxs}).asnumpy()
+    rel = float(np.linalg.norm(card - cpu) / np.linalg.norm(cpu))
+    if not rel <= RESNET50_INT8_CPU_L2 or not np.isfinite(card).all():
+        raise AssertionError(f"resnet50_v1_int8: card logits {rel} of the "
+                             f"CPU's L2 away (bound {RESNET50_INT8_CPU_L2})")
+    return {"card_vs_cpu": {"rel_l2": rel, "bound": RESNET50_INT8_CPU_L2,
+                            "equal_rows": int((card == cpu).all(1).sum()),
+                            "rows": n,
+                            "max_abs": float(np.abs(card - cpu).max())},
+            "int8_vs_float32": {
+                "rel_l2": float(np.linalg.norm(q_full - f_full) /
+                                np.linalg.norm(f_full)),
+                "top1_agreement": float((q_full.argmax(1) ==
+                                         f_full.argmax(1)).mean())}}
+
+
+AMP_FINETUNE = {"batch": 32, "warmup": 3, "steps": 20, "block": 10,
+                "lr": 1e-4, "wd": 1e-4, "profiled": 3}
+
+
+class _DtypeCensus(TorchDispatchMode):
+    """The input dtypes of the watched aten ops a step runs."""
+
+    WATCH = {"mm": "gemm", "addmm": "gemm", "bmm": "gemm",
+             "native_layer_norm": "layer_norm",
+             "native_layer_norm_backward": "layer_norm",
+             "_log_softmax": "log_softmax",
+             "_log_softmax_backward_data": "log_softmax"}
+
+    def __init__(self):
+        super().__init__()
+        self.seen = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        group = self.WATCH.get(func.overloadpacket.__name__)
+        if group is not None:
+            for a in args:
+                if isinstance(a, torch.Tensor) and a.is_floating_point():
+                    key = f"{group}:{str(a.dtype).replace('torch.', '')}"
+                    self.seen[key] = self.seen.get(key, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def _amp_attention_timing(dev):
+    """K3 and K3-bwd in bfloat16 at the training shape (32, 12, 128, 128,
+    64), by CUDA events and the profiler, against their bounds at the
+    bfloat16 tensor-core peak and bfloat16 SDPA forward and backward."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    shape = (32, 12, 128, 128, 64)
+    q, k, v = flash_inputs(shape, torch.bfloat16, "dense", gen, dev)
+    do = flash_inputs(shape, torch.bfloat16, "dense", gen, dev)[0]
+    scale = 0.125
+    o, lse = flash.flash_forward(q, k, v, scale, False, with_lse=True)
+    dsum = flash.flash_backward_dq(q, k, v, o, lse, do, scale)[1]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = sdpa(*leaves, scale=scale)
+    runs = {"fwd": lambda: flash.flash_forward(q, k, v, scale, False),
+            "dq": lambda: flash.flash_backward_dq(q, k, v, o, lse, do,
+                                                  scale),
+            "dkv": lambda: flash.flash_backward_dkv(q, k, v, lse, dsum, do,
+                                                    scale),
+            "library_fwd": lambda: sdpa(q, k, v, scale=scale),
+            "library_bwd": lambda: torch.autograd.grad(out, leaves, do,
+                                                       retain_graph=True)}
+    bwd = flash_bwd_bounds(q, k, False)
+    b, h, sq, sk, d = shape
+    fl = b * h * sq * sk * d
+    e = q.element_size()
+    rows = b * h * sq * d
+    stats = b * h * sq * 4
+    peak = H100_BF16_TFLOPS * 1e12
+    bounds = {"fwd": attention_bound_ms(q, k, False, peak),
+              "dq": _bound_ms(6 * rows * e + 2 * stats, 6 * fl, peak),
+              "dkv": _bound_ms(6 * rows * e + 2 * stats, 8 * fl, peak)}
+    return {"shape": list(shape), "dtype": "bfloat16",
+            "ms": {n: cuda_ms(f) for n, f in runs.items()},
+            "device_ms": {n: (device_ms(f) if not n.startswith("library")
+                              else sum(kernel_device_us(f).values()) / 1e3)
+                          for n, f in runs.items()},
+            "bound_ms": {n: bb[0] for n, bb in bounds.items()},
+            "bound_by": {n: bb[1] for n, bb in bounds.items()},
+            "float32_rate_bound_ms": {"dq": bwd["dq"][0],
+                                      "dkv": bwd["dkv"][0]}}
+
+
+def _flash_kernel_dtypes(names):
+    """``{kernel: sorted dtypes}`` of the flash kernels among profiled
+    kernel names (``void flash_fwd_mma_kernel<__nv_bfloat16, 64>(...)``,
+    or its mangled form): "bfloat16" where the instance names it, else
+    "float"."""
+    out = {}
+    for name in names:
+        for stem in ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                     "flash_bwd_dkv_mma_kernel", "flash_fwd_simt_kernel",
+                     "flash_bwd_dq_simt_kernel", "flash_bwd_dkv_simt_kernel"):
+            if stem in name:
+                out.setdefault(stem, set()).add(
+                    "bfloat16" if "bfloat16" in name else "float")
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def phase_bert_finetune_amp(smi):
+    """bert_base_sst2_finetune_amp: the classifier of ``examples/gluon/
+    transformer_finetune.py`` at BERT-base width, hybridized, trained by
+    ``gluon.Trainer("adam")`` as MXNet 1.x's AMP recipe wires it:
+    ``amp.init()`` (bfloat16), ``amp.init_trainer``, ``with
+    amp.scale_loss(...)``, ``autograd.backward``, ``amp.unscale``, then
+    ``trainer.step``; batch 32, seq 128, 3 warm-ups and 20 steps with a
+    falling loss. Checks: the dtypes of one eager step's GEMMs (bfloat16),
+    LayerNorm and log-softmax (float32), by a dispatch-mode census; K3
+    12 and K3-bwd 12 + 12 launches a replayed step, their kernels the
+    bfloat16 instances (profiler names), K2 one; after
+    ``amp.turn_off()`` the next steps capture anew and run K3 in float32.
+    Step ms of AMP against the float32 step in the same call, blocks of
+    10 (after 3 warm-ups each) in the order AMP, float32, float32, AMP.
+    K3 and K3-bwd in bfloat16 at the training shape beside their bounds
+    and bfloat16 SDPA."""
+    from mxnet_tpu_torch import amp
+
+    cfg, a = BERT_BASE, AMP_FINETUNE
+    t_phase = time.perf_counter()
+    weights = random_params(cfg, seed=0)
+    x, y = make_task(a["batch"], cfg["seq_len"], cfg["vocab"],
+                     cfg["num_classes"], seed=5)
+    layers = cfg["layers"]
+    try:
+        amp.init()
+        clf = _classifier_on(mx.gpu(0), cfg, weights)
+        clf.hybridize()
+        with mx.gpu(0):
+            xb, yb = mx.nd.array(x), mx.nd.array(y)
+        loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+        trainer = mx.gluon.Trainer(clf.collect_params(), "adam",
+                                   {"learning_rate": a["lr"],
+                                    "wd": a["wd"]}, kvstore="local")
+        amp.init_trainer(trainer)
+
+        def step():
+            with mx.autograd.record():
+                out = clf(xb)
+                loss = loss_fn(out, yb)
+                with amp.scale_loss(loss, trainer) as scaled:
+                    mx.autograd.backward(scaled)
+            if amp.unscale(trainer):
+                raise AssertionError("bert_base_sst2_finetune_amp: an "
+                                     "overflow under bfloat16")
+            trainer.step(a["batch"])
+            return loss
+
+        census = _DtypeCensus()
+        prev = compile_service.set_enabled(False)
+        try:
+            with census:
+                loss0 = float(step().mean().asscalar())
+        finally:
+            compile_service.set_enabled(prev)
+        want_dtypes = {"gemm:bfloat16", "layer_norm:float32",
+                       "log_softmax:float32"}
+        off = [k for k in census.seen if k not in want_dtypes]
+        if off or not want_dtypes <= set(census.seen):
+            raise AssertionError(f"bert_base_sst2_finetune_amp: dtype "
+                                 f"census {census.seen}")
+        for _ in range(a["warmup"] - 1):
+            step()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        s0 = _site_stats("cachedop")
+        losses, ms = [], []
+        for _ in range(a["steps"]):
+            t0 = time.perf_counter()
+            losses.append(float(step().mean().asscalar()))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        per_step = {k: v / a["steps"] for k, v in _counts().items()}
+        s1 = _site_stats("cachedop")
+        want = {"flash_attention": layers, "flash_attention_bwd_dq": layers,
+                "flash_attention_bwd_dkv": layers, "opt_adam": 1}
+        if {k: per_step.get(k) for k in want} != want or \
+                s1["replays"] - s0["replays"] != 2 * a["steps"]:
+            raise AssertionError(f"bert_base_sst2_finetune_amp: launches a "
+                                 f"step {per_step}, site {s0} -> {s1}")
+        if not all(math.isfinite(v) for v in losses) or \
+                not statistics.mean(losses[-5:]) < statistics.mean(
+                    losses[:5]):
+            raise AssertionError(f"bert_base_sst2_finetune_amp: losses "
+                                 f"{losses}")
+        bf16_kernels = _flash_kernel_dtypes(kernel_device_us(
+            step, iters=a["profiled"], warmup=1))
+        if set(bf16_kernels) != {"flash_fwd_mma_kernel",
+                                 "flash_bwd_dq_mma_kernel",
+                                 "flash_bwd_dkv_mma_kernel"} or \
+                any(v != ["bfloat16"] for v in bf16_kernels.values()):
+            raise AssertionError(f"bert_base_sst2_finetune_amp: flash "
+                                 f"kernels under AMP {bf16_kernels}")
+        blocks = []
+        for mode in ("amp", "float32", "float32", "amp"):
+            if mode == "amp":
+                amp.init()
+            else:
+                amp.turn_off()
+            c0 = _site_stats("cachedop")
+            for _ in range(a["warmup"]):
+                step()
+            torch.cuda.synchronize()
+            c1 = _site_stats("cachedop")
+            kernels.reset_launch_counts()
+            bms = []
+            for _ in range(a["block"]):
+                t0 = time.perf_counter()
+                float(step().mean().asscalar())
+                bms.append((time.perf_counter() - t0) * 1e3)
+            blocks.append({"mode": mode, "step_ms": bms,
+                           "captures_in_warmup": c1["captures"] -
+                           c0["captures"],
+                           "launches": {k: v / a["block"] for k, v in
+                                        _counts().items()}})
+            if blocks[-1]["captures_in_warmup"] != 1:
+                raise AssertionError(f"bert_base_sst2_finetune_amp: {mode} "
+                                     f"block captured "
+                                     f"{blocks[-1]['captures_in_warmup']} "
+                                     "times in its warm-ups, expected 1")
+            if mode == "float32" and len(blocks) == 2:
+                f32_kernels = _flash_kernel_dtypes(kernel_device_us(
+                    step, iters=2, warmup=1))
+                if any(v != ["float"] for v in f32_kernels.values()) or \
+                        len(f32_kernels) != 3:
+                    raise AssertionError(
+                        f"bert_base_sst2_finetune_amp: flash kernels after "
+                        f"turn_off {f32_kernels}")
+    finally:
+        amp.turn_off()
+    per_mode = {}
+    for b in blocks:
+        per_mode.setdefault(b["mode"], []).extend(b["step_ms"])
+    med = {k: statistics.median(v) for k, v in per_mode.items()}
+    timing = _amp_attention_timing(torch.device("cuda", 0))
+    out = {"phase": "bert_base_sst2_finetune_amp", "card": smi,
+           "source": "examples/gluon/transformer_finetune.py's classifier "
+                     "at BERT-base width, hybridized, gluon.Trainer('adam') "
+                     "under MXNet 1.x's AMP recipe (amp.init, init_trainer, "
+                     "scale_loss, unscale)",
+           "config": cfg, **a, "target_dtype": "bfloat16",
+           "first_loss": loss0, "losses": losses, "step_ms": ms,
+           "median_step_ms_amp_run": statistics.median(ms),
+           "dtype_census": census.seen,
+           "launches_per_step": per_step,
+           "flash_kernels_amp": bf16_kernels,
+           "flash_kernels_after_turn_off": f32_kernels,
+           "median_step_ms": med, "amp_over_float32": med["amp"] /
+           med["float32"],
+           "block_medians_ms": [[b["mode"], statistics.median(b["step_ms"])]
+                                for b in blocks],
+           "captures_per_block": [b["captures_in_warmup"] for b in blocks],
+           "tokens_s_amp": a["batch"] * cfg["seq_len"] / med["amp"] * 1e3,
+           "attention_bf16": timing,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    del clf, trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "train_capture", "gluon_hybrid_train", "dropout_capture",
           "int8_gemm", "serve_int8", "capture", "online_update", "decode",
@@ -11765,7 +12623,9 @@ PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "bert_base_sst2_finetune_lamb", "dcgan", "zoo_check",
           "surface_check", "library_ops", "resnet50_v1_module_fit_custom",
           "ssd512_resnet50_v1_module_fit", "bert_base_sst2_finetune_zero",
-          "fm_criteo_row_sparse", "sparse_linear_mf", "dist_sparse_async")
+          "fm_criteo_row_sparse", "sparse_linear_mf", "dist_sparse_async",
+          "quantize_mnist", "resnet50_v1_int8",
+          "bert_base_sst2_finetune_amp")
 
 
 def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
@@ -11977,6 +12837,12 @@ def _run(phases):
         done["sparse_linear_mf"] = phase_sparse_linear_mf(smi)
     if "dist_sparse_async" in phases:
         done["dist_sparse_async"] = phase_dist_sparse_async(smi)
+    if "quantize_mnist" in phases:
+        done["quantize_mnist"] = phase_quantize_mnist(smi)
+    if "resnet50_v1_int8" in phases:
+        done["resnet50_v1_int8"] = phase_resnet50_int8(smi)
+    if "bert_base_sst2_finetune_amp" in phases:
+        done["bert_base_sst2_finetune_amp"] = phase_bert_finetune_amp(smi)
     _emit_warnings()
     if not set(PHASES) <= set(done):
         print(f"phases run: {sorted(done)}; no result line", flush=True)
@@ -12002,6 +12868,22 @@ def _run(phases):
     bkt = done["lstm_ptb_bucketing"]
     # this slice: the 20 reported steps of bert_base_sst2_finetune_zero
     fzl = done["bert_base_sst2_finetune_zero"]["launches"]
+    # this slice: the AMP fine-tune's launches a step (K3 and K3-bwd in
+    # bfloat16, K2) and the attention kernels in bfloat16 at its shape;
+    # the int8 convolution's route of K4 (quantize_mnist,
+    # resnet50_v1_int8)
+    amp_run = done["bert_base_sst2_finetune_amp"]
+    amp_step, amp_att = amp_run["launches_per_step"], \
+        amp_run["attention_bf16"]
+    qm, r8 = done["quantize_mnist"], done["resnet50_v1_int8"]
+
+    def amp_bf16(part, library):
+        return {"ms": amp_att["ms"][part],
+                "device_ms": amp_att["device_ms"][part],
+                "bound_ms": amp_att["bound_ms"][part],
+                "bound_by": amp_att["bound_by"][part],
+                "library_ms": amp_att["ms"][library],
+                "library_device_ms": amp_att["device_ms"][library]}
     lines = [
         _kernel_line("flash_attention", "flash_attention.cu",
                      "mxnet_tpu/kernels/flash.py:38",
@@ -12033,7 +12915,10 @@ def _run(phases):
                          "flash_launches"],
                      online_update_batches_and_steps=[
                          done["online_update"]["batches"],
-                         done["online_update"]["steps"]])]
+                         done["online_update"]["steps"]],
+                     launches_per_step_finetune_amp=amp_step[
+                         "flash_attention"],
+                     bf16_training_shape=amp_bf16("fwd", "library_fwd"))]
     # K3 and K3-bwd run every product on the tensor cores (3xTF32): their
     # bound is the tensor-core one; the float32 rate's stays beside it
     for part in ("dq", "dkv"):
@@ -12052,6 +12937,9 @@ def _run(phases):
                 f"flash_attention_bwd_{part}"],
             launches_online_update=ou[f"flash_attention_bwd_{part}"],
             launches_finetune_zero=fzl[f"flash_attention_bwd_{part}"],
+            launches_per_step_finetune_amp=amp_step[
+                f"flash_attention_bwd_{part}"],
+            bf16_training_shape=amp_bf16(part, "library_bwd"),
             lm_shape={"ms": bwd["lm_shape"]["ms"][part],
                       "plain_ms": bwd["lm_shape"]["ms"][f"{part}_plain"],
                       "library_ms": bwd["lm_shape"]["ms"]["library"],
@@ -12116,6 +13004,8 @@ def _run(phases):
             "resnet50_v1_dist_async"]["k1_launches_per_batch"][0],
         launches_fm_criteo_row_sparse=done["fm_criteo_row_sparse"][
             "launches"].get("opt_sgd", 0),
+        # this slice: quantize_mnist's Module.fit ("sgd", no momentum)
+        launches_quantize_mnist_fit=qm["fit_launches"].get("opt_sgd", 0),
         # this slice: one launch per replayed step of each ResNet-50 cell
         launches_per_replay={p: done[p]["captured"][
             "k1_launches_per_replay"] for p in (
@@ -12166,14 +13056,30 @@ def _run(phases):
                                       "blocks"]),
                               bert_adam_update_device_ms=done[
                                   "bert_base_sst2_finetune_lamb"][
-                                  "adam_update_device_ms_k2"]))
+                                  "adam_update_device_ms_k2"],
+                              launches_per_step_finetune_amp=amp_step[
+                                  "opt_adam"]))
     k4 = done["int8_gemm"]
     lines.append(_kernel_line(
         "int8_gemm", "int8_gemm.cu", "mxnet_tpu/kernels/int8_gemm.py:86",
         done["serve_int8"]["int8_launches"], 0.0, k4["ms"], k4["plain_ms"],
         (k4["bound_ms"], k4["bound_by"]), k4["library_ms"], captured=True,
         launches_per_replayed_batch=cap["bert_base_sst2_int8"][
-            "launches_per_replayed_batch"]["int8_gemm"]))
+            "launches_per_replayed_batch"]["int8_gemm"],
+        # this slice: the int8 convolution lowered to K4 (im2col, one
+        # launch a group): quantize_mnist's int8 score and served batches,
+        # resnet50_v1_int8's forward (53 convolutions and the FC)
+        launches_quantize_mnist=qm["score_launches"]["int8_gemm"] +
+        qm["served"]["launches"]["int8_gemm"],
+        launches_resnet50_v1_int8_per_forward=r8["k4_launches_per_forward"],
+        resnet50_v1_int8={
+            "by_path_per_forward": r8["k4_launches_by_path_per_forward"],
+            "device_ms_per_forward": r8["k4_device_ms_per_forward"],
+            "products_ms": r8["k4_products"]["ms"],
+            "products_device_ms": r8["k4_products"]["device_ms"],
+            "bound_ms": r8["k4_products"]["bound_ms"],
+            "library_ms": r8["k4_products"]["library_ms"],
+            "library_device_ms": r8["k4_products"]["library_device_ms"]}))
     dec = done["decode"]
     lines.append(_kernel_line(
         "decode_attention", "decode_attention.cu",

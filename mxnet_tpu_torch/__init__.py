@@ -53,6 +53,11 @@ from . import module
 from . import module as mod
 from . import operator
 from . import library
+from . import attribute
+from .attribute import AttrScope
+from . import amp
+from . import visualization
+from . import visualization as viz
 
 __all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "current_context", "autograd", "random", "nd", "ndarray",
@@ -61,4 +66,5 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "model", "contrib", "lr_scheduler", "optimizer", "kvstore", "kv",
            "parallel", "serving", "convert", "checkpoint", "compile",
            "cached_op", "executor", "metric", "callback", "monitor",
-           "module", "mod", "operator", "library", "__version__"]
+           "module", "mod", "operator", "library", "attribute",
+           "AttrScope", "amp", "visualization", "viz", "__version__"]

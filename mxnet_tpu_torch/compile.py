@@ -32,7 +32,9 @@ forward of ``Module``).
   and ``allow_tf32``; cuBLAS's ``allow_tf32`` and reduced-precision
   reductions; ``torch.use_deterministic_algorithms``): a change of
   flags makes the entry stale, as a rebound read does, and the next
-  call captures anew under the new flags.
+  call captures anew under the new flags. So does AMP's generation
+  (``_amp_core.GEN``, moved by ``amp.init`` and ``amp.turn_off``): a
+  graph holds the casts of the precision it was captured under.
 * **Two kinds of entry on a card** (``jit(kind=...)``), each made by a
   first call that runs the function for real, eagerly on this thread's
   capture stream (lazy initialisation: cuBLAS workspaces, kernel
@@ -143,6 +145,7 @@ import weakref
 
 import torch
 
+from . import _amp_core
 from .base import MXNetError
 
 __all__ = ["jit", "stats", "totals", "reset_stats", "set_enabled",
@@ -915,11 +918,14 @@ class ServiceFunction:
     def _reads(self):
         """``(reads, key)``: the tensors read beside the arguments, and
         their pointers, shapes, dtypes and grad requirements with the
-        backend flags, which an entry must have been built over."""
+        backend flags and AMP's generation (``_amp_core.GEN``: an entry
+        captured before ``amp.init`` or ``amp.turn_off`` holds the other
+        precision's casts), which an entry must have been built over."""
         reads = [] if self._reads_ref is None else \
             list(self._target(self._reads_ref, "its reads")())
-        return reads, (_flags(), tuple((t.data_ptr(), t.shape, t.dtype,
-                                        t.requires_grad) for t in reads))
+        return reads, (_flags(), _amp_core.GEN,
+                       tuple((t.data_ptr(), t.shape, t.dtype,
+                              t.requires_grad) for t in reads))
 
     def _fresh(self, sig, rkey):
         """The entry of ``sig`` if it was built over the same reads and

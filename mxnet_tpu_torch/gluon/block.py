@@ -187,6 +187,13 @@ class Block:
                 prefix + cname + "."))
         return ret
 
+    def hybridize(self, active=True, **kwargs):
+        """Hybridize the children (MXNet 1.x ``Block.hybridize``): a
+        plain Block runs its own forward eagerly, its HybridBlock
+        children captured."""
+        for child in self._children.values():
+            child.hybridize(active, **kwargs)
+
     def __call__(self, *args):
         return self.forward(*args)
 
@@ -314,6 +321,13 @@ class HybridBlock(Block):
                 save_dict[f"aux:{name}"] = param.data()
         nd_utils.save(f"{path}-{epoch:04d}.params", save_dict)
         return sym
+
+    def optimize_for(self, x, *args, backend=None, **kwargs):
+        """Hybridize and run ``x`` through the block, as the JAX package
+        does (``mxnet_tpu/gluon/block.py:353``): no backend rewrites a
+        block's graph, the captured forward is its optimized form."""
+        self.hybridize()
+        return self(x, *args)
 
 
 class SymbolBlock(HybridBlock):

@@ -36,6 +36,7 @@ import numbers
 import numpy as _np
 import torch
 
+from .. import _amp_core
 from ..base import canonical_dtype, numpy_dtype
 from ..context import Context, current_context
 from ..ops import registry as _reg
@@ -528,7 +529,10 @@ class NDArray:
 
 
 def _invoke(op_name, nd_inputs, kwargs):
-    out = _reg.get(op_name)(*[x._data for x in nd_inputs], **kwargs)
+    tensors = [x._data for x in nd_inputs]
+    if _amp_core.ACTIVE:   # amp.init(): the op's AMP cast
+        tensors = _amp_core.cast_inputs(_reg.canonical(op_name), tensors)
+    out = _reg.get(op_name)(*tensors, **kwargs)
     if isinstance(out, (tuple, list)):
         return tuple(NDArray(o) for o in out)
     return NDArray(out)

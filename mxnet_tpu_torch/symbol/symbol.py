@@ -35,11 +35,15 @@ import json
 
 import torch
 
+from .. import _amp_core
+from .. import attribute as _attribute
+from ..attribute import is_dunder as _is_dunder
 from ..base import MXNetError, canonical_dtype, dtype_name
 from ..ops import registry as _registry
 from ..ops.nn import rnn_param_size
 
-__all__ = ["Symbol", "var", "Group", "load", "load_json"]
+__all__ = ["Symbol", "var", "Group", "load", "load_json", "register_pass",
+           "list_passes", "GRAPH_PASSES"]
 
 # the ops whose training forward writes running statistics into their
 # auxiliary inputs 3 and 4
@@ -85,12 +89,9 @@ _LAYER_PARAMS = {
 _RUNTIME_PARAMS = frozenset({"training", "generator"})
 
 
-def _is_dunder(key):
-    return key.startswith("__") and key.endswith("__")
-
-
 def _op_kwargs(attrs):
-    """Node attributes minus the dunder-keyed variable metadata."""
+    """Node attributes minus the dunder-keyed ones: variable metadata and
+    ``AttrScope`` attributes, which never reach an op."""
     return {k: v for k, v in attrs.items() if not _is_dunder(k)}
 
 
@@ -269,6 +270,49 @@ class Symbol:
         return Symbol([(node, i) for node in _topo(self._entries)
                        for i in range(node.num_outputs)])
 
+    # ----------------------------------------------------------- attrs --
+    def attr(self, key):
+        """The attribute ``key`` of this one-node symbol as a string, or
+        None; a scope attribute is found by its plain key too
+        (``"ctx_group"`` for the stored ``"__ctx_group__"``)."""
+        if len(self._entries) != 1:
+            return None
+        attrs = self._entries[0][0].attrs
+        value = attrs.get(key)
+        if value is None and not _is_dunder(key):
+            value = attrs.get(_attribute.dunder(key))
+        return None if value is None else str(value)
+
+    def list_attr(self):
+        """This one-node symbol's attributes as strings."""
+        if len(self._entries) != 1:
+            return {}
+        return {k: str(v) for k, v in self._entries[0][0].attrs.items()}
+
+    def attr_dict(self):
+        """``{node name: {key: string}}`` over the graph's nodes."""
+        return {node.name: {k: str(v) for k, v in node.attrs.items()}
+                for node in _topo(self._entries) if node.attrs}
+
+    def _set_attr(self, **kwargs):
+        for node, _ in self._entries:
+            node.attrs.update(kwargs)
+
+    def optimize_for(self, backend, args=None, aux=None, ctx=None,
+                     **kwargs):
+        """The graph rewritten by the registered pass ``backend``
+        (:func:`register_pass`): ``"default"`` (the graph itself),
+        ``"amp"`` or ``"int8"``, or one of the caller's. The ``int8`` pass
+        returns ``quantize_graph``'s ``(qsym, qspecs)``, as the JAX
+        package's does (MXNet 1.x returns a Symbol; ROADMAP C31)."""
+        key = (backend or "default").lower()
+        try:
+            pass_fn = GRAPH_PASSES[key]
+        except KeyError:
+            raise MXNetError(f"unknown backend {backend!r}; registered: "
+                             f"{list_passes()}") from None
+        return pass_fn(self, args=args, aux=aux, **kwargs)
+
     # --------------------------------------------------------- shape/type --
     def infer_shape(self, **shapes):
         """Shapes from the given input shapes: ``(arg_shapes, out_shapes,
@@ -403,7 +447,9 @@ class Symbol:
         ``torch.profiler`` records, each node's op call runs inside a
         ``record_function("node:<name>")`` range, so a trace attributes
         the forward's kernels (and, by sequence number, the backward's)
-        to graph nodes; otherwise that costs one flag read a run."""
+        to graph nodes; otherwise that costs one flag read a run. While
+        AMP is on (``amp.init``), each node's inputs are cast by its op's
+        list (``_amp_core.cast_inputs``), as in the imperative path."""
         order = _topo(self._entries)
         heads = [(id(n), i) for n, i in self._entries]
         last_use = {}
@@ -429,19 +475,21 @@ class Symbol:
         def run(args, auxs=None, training=False):
             vals = {}
             labelled = torch._C._autograd._profiler_enabled()
+            amp = _amp_core.ACTIVE
             for node, op, kwargs, ins, done, stats in steps:
                 if node.is_var:
                     vals[id(node), 0] = (auxs if node.is_aux and auxs
                                          is not None else args)[node.name]
                     continue
+                inputs = [vals[k] for k in ins]
+                if amp:
+                    inputs = _amp_core.cast_inputs(node.op, inputs)
                 if labelled:
                     with torch.profiler.record_function(
                             f"node:{node.name}"):
-                        outs = _call(*op, [vals[k] for k in ins], kwargs,
-                                     training)
+                        outs = _call(*op, inputs, kwargs, training)
                 else:
-                    outs = _call(*op, [vals[k] for k in ins], kwargs,
-                                 training)
+                    outs = _call(*op, inputs, kwargs, training)
                 for k in done:
                     del vals[k]
                 for i, o in enumerate(outs):
@@ -672,6 +720,12 @@ def _param_shape_rules(node, data):
         put(1, (attrs["num_hidden"], in_units()), "int8")
         put(2, (attrs["num_hidden"],))
         put(3, (attrs["num_hidden"],))
+    elif node.op == "_contrib_quantized_conv":
+        kernel = tuple(attrs.get("kernel", ()))
+        put(1, (attrs["num_filter"], dshape[1] // attrs.get("num_group", 1))
+            + kernel, "int8")
+        put(2, (attrs["num_filter"],))
+        put(3, (attrs["num_filter"],))
     elif node.op == "_contrib_quantized_embedding":
         put(1, (attrs["input_dim"], attrs["output_dim"]), "int8")
         put(2, (1,))
@@ -756,16 +810,20 @@ def _apply_op(op_name, args, kwargs):
     if left:
         raise MXNetError(f"op {op!r}: {len(left)} symbol inputs left over")
     n_out = _registry.num_outputs(op, len(inputs), static)
+    scope = _attribute.current().get()
+    if scope:   # AttrScope: dunder keys, never op parameters
+        static = dict(scope, **static)
     node = _Node(op, name, static, [s._entries[0] for s in inputs], n_out)
     return Symbol([(node, i) for i in range(n_out)])
 
 
 def var(name, attr=None, shape=None, dtype=None, init=None, is_aux=False,
         **kwargs):
-    """A named graph input. ``init`` is kept as the ``__init__``
-    attribute (a name, or an initializer's ``repr``), as the JAX
-    package keeps it."""
-    attrs = dict(attr or {})
+    """A named graph input. ``attr`` and the active ``AttrScope``'s
+    attributes are stored under dunder keys (the user's winning), and
+    ``init`` as the ``__init__`` attribute (a name, or an initializer's
+    ``repr``), as the JAX package keeps them."""
+    attrs = _attribute.current().get(attr)
     if shape is not None:
         attrs["__shape__"] = tuple(shape)
     if dtype is not None:
@@ -815,3 +873,53 @@ def load_json(json_str):
 def load(fname):
     with open(fname) as f:
         return load_json(f.read())
+
+
+# ----------------------------------------------------- graph-pass registry
+
+#: pass name (lower case) -> ``fn(symbol, args=None, aux=None, **kwargs)``
+GRAPH_PASSES = {}
+
+
+def register_pass(name):
+    """Register a named graph pass for :meth:`Symbol.optimize_for`
+    (counterpart of ``mxnet_tpu/symbol/symbol.py:1055``; MXNet 1.x's
+    subgraph backends)."""
+    def deco(fn):
+        GRAPH_PASSES[name.lower()] = fn
+        return fn
+
+    return deco
+
+
+def list_passes():
+    return sorted(GRAPH_PASSES)
+
+
+@register_pass("default")
+def _default_pass(sym, args=None, aux=None, **kwargs):
+    """The graph itself: no backend rewrites it."""
+    return sym
+
+
+@register_pass("amp")
+def _amp_pass(sym, args=None, aux=None, target_dtype="bfloat16", **kwargs):
+    """With parameters, ``amp.convert_model`` (which turns AMP on); the
+    graph itself otherwise, as in the JAX package, whose casts happen
+    when a graph runs, not in the graph."""
+    if args is not None or aux is not None:
+        from .. import amp
+
+        return amp.convert_model(sym, args or {}, aux or {},
+                                 target_dtype=target_dtype)[0]
+    return sym
+
+
+@register_pass("int8")
+def _int8_pass(sym, args=None, aux=None, excluded_sym_names=(),
+               ranges=None, **kwargs):
+    """``contrib.quantization.quantize_graph``: ``(qsym, qspecs)``."""
+    from ..contrib.quantization import quantize_graph
+
+    return quantize_graph(sym, excluded_sym_names=excluded_sym_names,
+                          ranges=ranges)

@@ -68,6 +68,17 @@ run on a machine that has only PyTorch:
   ``LibSVMIter`` batches made on the card; a row-sparse gradient pushed
   with dense ones never reaching K1 (one launch over the dense keys, the
   embedding's untouched rows and momentum unchanged).
+* the int8 convolution's K4 route (``_contrib_quantized_conv``: im2col,
+  one K4 launch per group) bit for bit against the same op on the CPU
+  (the plain GEMM) at ResNet-50's stem (K = 147: the staged path), a 3x3
+  and a 1x1 on channels-last codes (the async path, the 1x1 with no
+  copy), a grouped and a depthwise case, with the launches by path;
+  an ``amp.init("float16")`` Dense step whose forced overflow halves the
+  loss scale and is reported by ``unscale``; the overflow check flagging
+  an inf and a NaN and not a large finite float16 gradient, leaving the
+  gradients as they are; quantize_mnist's int8 graph
+  bound in an inference executor replaying with no host sync, equal to
+  its eager forward and to the CPU's.
 """
 import math
 
@@ -2719,3 +2730,144 @@ def test_row_sparse_gradient_never_reaches_k1(cuda_device):
     keep[torch.from_numpy(rows).to(emb.device)] = False
     assert torch.equal(emb[keep], emb0[keep])
     assert not mom[keep].any() and mom[~keep].all()
+
+
+# (N, C, H, W), F, kernel, stride, pad, groups, channels-last codes, path
+QCONV_CARD_CASES = [
+    ((2, 3, 224, 224), 64, (7, 7), (2, 2), (3, 3), 1, False, "staged"),
+    ((4, 64, 56, 56), 64, (3, 3), (1, 1), (1, 1), 1, False, "async"),
+    ((4, 256, 56, 56), 64, (1, 1), (1, 1), (0, 0), 1, True, "async"),
+    ((4, 64, 28, 28), 64, (3, 3), (2, 2), (1, 1), 2, False, "async"),
+    ((2, 32, 14, 14), 32, (3, 3), (1, 1), (1, 1), 32, False, "staged"),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", QCONV_CARD_CASES, ids=[
+    "stem", "3x3", "1x1_nhwc", "grouped", "depthwise"])
+def test_quantized_conv_k4_route_equals_the_plain_route(cuda_device, case):
+    shape, f, kernel, stride, pad, g, nhwc, path = case
+    rs = np.random.RandomState(sum(shape))
+    x = torch.from_numpy(rs.randn(*shape).astype(np.float32))
+    if nhwc:
+        x = x.to(memory_format=torch.channels_last)
+    w = torch.from_numpy(rs.randint(-127, 128, (f, shape[1] // g) + kernel)
+                         .astype(np.int8))
+    scale = torch.from_numpy((rs.rand(f) * 1e-2 + 1e-4).astype(np.float32))
+    b = torch.from_numpy(rs.randn(f).astype(np.float32))
+    kw = dict(kernel=kernel, stride=stride, pad=pad, num_filter=f,
+              num_group=g, min_calib_range=-3.0, max_calib_range=3.5)
+    conv = reg.get("_contrib_quantized_conv")
+    want = conv(x, w, scale, b, **kw)
+    before = kernels.launch_counts()
+    got = conv(*(t.to(cuda_device) for t in (x, w, scale, b)), **kw)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    assert after["int8_gemm"] - before["int8_gemm"] == g
+    assert after[f"int8_gemm.{path}"] - before[f"int8_gemm.{path}"] == g
+    assert got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.gpu
+def test_amp_float16_dense_step_overflow_halves_the_scale(cuda_device):
+    from mxnet_tpu_torch import amp
+
+    try:
+        amp.init("float16")
+        with mx.gpu(0):
+            net = mx.gluon.nn.Dense(4, in_units=8)
+            net.initialize(mx.init.One())
+            trainer = mx.gluon.Trainer(net.collect_params(), "sgd",
+                                       {"learning_rate": 0.1})
+            amp.init_trainer(trainer)
+            scales, flags = [], []
+            for big in (False, True, False):
+                x = mx.nd.ones((2, 8)) * (1e4 if big else 1.0)
+                with mx.autograd.record():
+                    out = net(x)
+                    loss = out.mean()
+                    with amp.scale_loss(loss, trainer) as scaled:
+                        pass
+                scaled.backward()
+                assert out.dtype == torch.float16
+                flags.append(amp.unscale(trainer))
+                scales.append(trainer._amp_loss_scaler.loss_scale)
+                if not flags[-1]:
+                    trainer.step(1)
+                else:
+                    for p in net.collect_params().values():
+                        p._fresh_grad = False
+    finally:
+        amp.turn_off()
+    assert flags == [False, True, False]
+    assert scales == [2.0 ** 16, 2.0 ** 15, 2.0 ** 15]
+    assert np.isfinite(net.weight.data().asnumpy()).all()
+
+
+@pytest.mark.gpu
+def test_has_overflow_finds_inf_and_nan_on_the_card(cuda_device):
+    """The largest-magnitude pass flags an inf and a NaN in any gradient,
+    not a large finite float16 one, and leaves the gradients as they
+    are."""
+    from mxnet_tpu_torch import amp
+
+    scaler = amp.LossScaler()
+    grads = [torch.ones(1000, device=cuda_device),
+             torch.full((3, 700), 6e4, dtype=torch.float16,
+                        device=cuda_device),
+             torch.ones(2, 2, dtype=torch.bfloat16, device=cuda_device)]
+    before = [g.clone() for g in grads]
+    assert not scaler.has_overflow(grads)
+    for g, b in zip(grads, before):
+        assert torch.equal(g, b)
+    for i, where, bad in ((1, (2, 650), float("inf")), (0, 999, float("nan")),
+                          (2, (1, 1), float("-inf")),
+                          (1, (0, 0), float("nan"))):
+        grads[i][where] = bad
+        assert scaler.has_overflow(grads)
+        grads[i][where] = before[i][where]
+    assert not scaler.has_overflow(grads)
+
+
+@pytest.mark.gpu
+def test_int8_forward_replays_with_no_host_sync(cuda_device):
+    """quantize_mnist's CNN quantized on the CPU, bound for inference on
+    the card: the executor's forward captures once, a replay makes no
+    host sync and equals the eager forward and the CPU's bit for bit
+    (every op on the route is exact or correctly rounded)."""
+    from chip_smoke import mnist_sym
+    from mxnet_tpu_torch.contrib import quantization as q
+
+    rs = np.random.RandomState(0)
+    x = rs.rand(64, 1, 28, 28).astype(np.float32)
+    shapes = {"conv1_weight": (8, 1, 3, 3), "conv1_bias": (8,),
+              "fc1_weight": (64, 1352), "fc1_bias": (64,),
+              "fc2_weight": (10, 64), "fc2_bias": (10,)}
+    with mx.cpu():
+        args = {k: mx.nd.array(rs.randn(*v).astype(np.float32) * 0.1)
+                for k, v in shapes.items()}
+        y = np.arange(64, dtype=np.float32) % 10
+        qsym, qargs, _ = q.quantize_model(
+            mnist_sym(mx), args, {}, calib_mode="naive",
+            calib_data=mx.io.NDArrayIter(x, y, batch_size=32))
+    head = qsym.get_internals()["fc2_output"]
+    cpu = head.eval_with({"data": mx.nd.array(x[:32], ctx=mx.cpu()),
+                          **qargs}).asnumpy()
+    feed = {k: v.as_in_context(mx.gpu(0)) for k, v in qargs.items()}
+    exe = head.bind(mx.gpu(0), args={"data": mx.nd.array(
+        x[:32], ctx=mx.gpu(0)), **feed}, grad_req="null")
+    eager = exe.forward(is_train=False)[0].asnumpy()     # eager, capture
+    before = kernels.launch_counts()["int8_gemm"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = exe.forward(is_train=False)[0]
+        out = exe.forward(is_train=False)[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    st = exe._fwd.stats()
+    assert st["captures"] == 1 and st["replays"] == 2
+    assert kernels.launch_counts()["int8_gemm"] - before == 2 * 3
+    np.testing.assert_array_equal(out.asnumpy(), eager)
+    np.testing.assert_array_equal(eager, cpu)
