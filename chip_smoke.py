@@ -488,6 +488,22 @@ Phases, each printing one JSON line:
     equal to one process's K1 updates with rank 0's then rank 1's
     gradients).
 
+40. bert_base_np_finetune: the fine-tune classifier (BERT-base, batch 32,
+    seq 128, ``gluon.Trainer("adam")``) under ``npx.set_np()`` with
+    ``mx.np`` token ids and labels and the loss ``-npx.pick(
+    npx.log_softmax(logits), label).mean()``, eager and hybridized: each
+    route's loss trajectory bit for bit against the same steps in
+    ``mx.nd``, ``mx.np.ndarray`` outputs and losses, no numpy fallback
+    or host op, no host sync in a hybridized np step but the loss read,
+    K3 12, K3-bwd 12 + 12 and K2 1 launches a step; ms a step np against
+    nd (A B B A, medians of 20) and each run's peak memory.
+41. np_surface: every case of ``np_cases()`` (ops/numpy_ops.py's names)
+    and of the legacy ops of tests/test_op_schema.py on the card against
+    the CPU (exact ops bit for bit, the others within ``NP_TOL``), then
+    ``np.einsum`` at the attention scores' shape, ``np.linalg`` at
+    ``LINALG_CHECK``'s batch, a boolean mask on a BERT-base activation
+    and the samplers' moments over 10^7 draws.
+
 The twobit phase also holds the single-tensor compress and the
 decompress in float16 and bfloat16 bit for bit against their plain
 versions (thresholds 0.5 and 0.1) and times them over 109 M elements
@@ -12609,6 +12625,823 @@ def phase_bert_finetune_amp(smi):
     return out
 
 
+# ------------------------------------------------- the NumPy frontend ------
+# np_surface's cases at tests/test_numpy.py's sizes: one or more per op
+# name of ops/numpy_ops.py (the 271 names the NumPy frontend registers).
+# A case is (op name, input specs, keywords, family[, invariant]); a spec
+# "kind:shape" makes a numpy array from a seed (np_case_inputs). Families
+# and their card-against-CPU tolerance (ROADMAP.md "Numerics"): "exact"
+# bit for bit (data movement, comparisons, integer and sign ops, float
+# add/subtract/multiply/max/min/where/clip/floor); "ulp" rtol 1e-5 atol
+# 1e-6 (transcendentals, divisions: CUDA's and the CPU's libm differ by
+# an ulp or two); "reduce" rtol 1e-5 atol 1e-5 (sums in another order);
+# "linalg" rtol 1e-4 atol 1e-4 on each output's invariant (QR's product,
+# SVD's and eigh's reconstructions and values, eig's sorted real values:
+# the factors' signs differ between solvers); "sampler" the shape and
+# dtype, and a second draw under one seed bit for bit.
+NP_TOL = {"exact": (0.0, 0.0), "ulp": (1e-5, 1e-6), "reduce": (1e-5, 1e-5),
+          "linalg": (1e-4, 1e-4)}
+_NP_UNARY_IN = {"arccosh": "g", "arcsin": "u", "arccos": "u",
+                "arctanh": "u", "invert": "i", "logical_not": "b"}
+_NP_UNARY_EXACT = {"negative", "absolute", "sign", "rint", "ceil", "floor",
+                   "trunc", "fix", "square", "invert", "logical_not",
+                   "isnan", "isinf", "isposinf", "isneginf", "isfinite",
+                   "conj", "real", "imag"}
+_NP_BINARY_EXACT = {"add", "subtract", "multiply", "maximum", "minimum",
+                    "fmax", "fmin", "copysign", "bitwise_and",
+                    "bitwise_or", "bitwise_xor", "left_shift",
+                    "right_shift", "logical_and", "logical_or",
+                    "logical_xor", "equal", "not_equal", "less",
+                    "less_equal", "greater", "greater_equal", "gcd", "lcm"}
+
+
+def np_cases():
+    """The case list (see NP_TOL)."""
+    cases = []
+    for n in ("negative", "reciprocal", "absolute", "sign", "rint", "ceil",
+              "floor", "trunc", "fix", "square", "sqrt", "cbrt", "exp",
+              "expm1", "log", "log10", "log2", "log1p", "sin", "cos", "tan",
+              "arcsin", "arccos", "arctan", "sinh", "cosh", "tanh",
+              "arcsinh", "arccosh", "arctanh", "degrees", "radians",
+              "invert", "logical_not", "isnan", "isinf", "isposinf",
+              "isneginf", "isfinite", "conj", "real", "imag"):
+        kind = _NP_UNARY_IN.get(n, "p")
+        cases.append((f"_npi_{n}", [f"{kind}:3,4"], {},
+                      "exact" if n in _NP_UNARY_EXACT else "ulp"))
+    for n in ("add", "subtract", "multiply", "true_divide", "floor_divide",
+              "mod", "fmod", "remainder", "power", "maximum", "minimum",
+              "fmax", "fmin", "hypot", "arctan2", "copysign", "logaddexp",
+              "logical_and", "logical_or", "logical_xor", "equal",
+              "not_equal", "less", "less_equal", "greater",
+              "greater_equal"):
+        cases.append((f"_npi_{n}", ["f:3,4", "p:3,4"], {},
+                      "exact" if n in _NP_BINARY_EXACT else "ulp"))
+    for n in ("bitwise_and", "bitwise_or", "bitwise_xor", "gcd", "lcm"):
+        cases.append((f"_npi_{n}", ["n:3,4", "n:3,4"], {}, "exact"))
+    for n in ("left_shift", "right_shift"):
+        cases.append((f"_npi_{n}", ["n:3,4", "k:3,4"], {}, "exact"))
+    cases += [
+        ("_npi_ldexp", ["f:3,4", "k:3,4"], {}, "exact"),
+        ("_npi_matmul", ["f:3,4", "f:4,5"], {}, "reduce"),
+        ("_npi_dot", ["f:3,4", "f:4,5"], {}, "reduce"),
+        ("_np_dot", ["f:3,4", "f:4"], {}, "reduce"),
+        ("_npi_inner", ["f:3,4", "f:5,4"], {}, "reduce"),
+        ("_npi_outer", ["f:3", "f:4"], {}, "exact"),
+        ("_npi_kron", ["f:2,2", "f:2,3"], {}, "exact"),
+        ("_npi_cross", ["f:4,3", "f:4,3"], {}, "ulp"),
+        ("_npi_vdot", ["f:3,4", "f:3,4"], {}, "reduce"),
+        ("_npi_einsum", ["f:3,4", "f:4,5"], {"subscripts": "ij,jk->ik"},
+         "reduce"),
+        ("_npi_tensordot", ["f:2,3,4", "f:4,3,2"],
+         {"axes": ((1, 2), (1, 0))}, "reduce"),
+        ("_npi_tensordot_int_axes", ["f:3,4", "f:4,5"], {"axes": 1},
+         "reduce")]
+    for n in ("add", "subtract", "rsubtract", "multiply", "true_divide",
+              "rtrue_divide", "mod", "rmod", "power", "rpower",
+              "floor_divide", "rfloor_divide"):
+        exact = n in ("add", "subtract", "rsubtract", "multiply")
+        cases.append((f"_npi_{n}_scalar", ["p:3,4"], {"scalar": 2.5},
+                      "exact" if exact else "ulp"))
+    for n in ("bitwise_and", "bitwise_or", "bitwise_xor", "lcm"):
+        cases.append((f"_npi_{n}_scalar", ["n:3,4"], {"scalar": 6}, "exact"))
+    for n, fam in (("sum", "reduce"), ("prod", "reduce"), ("mean", "reduce"),
+                   ("max", "exact"), ("min", "exact"), ("amax", "exact"),
+                   ("amin", "exact"), ("nansum", "reduce"),
+                   ("nanprod", "reduce"), ("ptp", "exact")):
+        for axis in (None, 1):
+            cases.append((f"_npi_{n}", ["f:3,4"], {"axis": axis}, fam))
+    cases += [
+        ("_npi_sum", ["i:3,4"], {"axis": 0}, "exact"),
+        ("_npi_sum", ["b:3,4"], {}, "exact"),
+        ("_npi_std", ["f:3,4"], {"axis": 0, "ddof": 1}, "reduce"),
+        ("_npi_var", ["f:3,4"], {"axis": None}, "reduce"),
+        ("_npi_argmax", ["f:3,4"], {"axis": 1}, "exact"),
+        ("_npi_argmin", ["f:3,4"], {"axis": None}, "exact"),
+        ("_npi_any", ["b:3,4"], {"axis": 0}, "exact"),
+        ("_npi_all", ["b:3,4"], {"axis": 1}, "exact"),
+        ("_np_any", ["b:3,4"], {}, "exact"),
+        ("_np_all", ["b:3,4"], {}, "exact"),
+        ("_npi_cumsum", ["f:3,4"], {"axis": 0}, "reduce"),
+        ("_np_cumsum", ["i:3,4"], {"axis": 1}, "exact"),
+        ("_npi_cumprod", ["p:3,4"], {"axis": 1}, "reduce"),
+        ("_npi_median", ["f:5,4"], {"axis": 0}, "exact"),
+        ("_npi_quantile", ["f:25"], {"q": 0.3}, "ulp"),
+        ("_npi_percentile", ["f:25"], {"q": 30.0}, "ulp"),
+        ("_npi_average", ["f:3,4"], {"axis": 1}, "reduce"),
+        ("_npi_count_nonzero", ["i:3,4"], {"axis": 0}, "exact"),
+        ("_npi_reshape", ["f:3,4"], {"newshape": (4, 3)}, "exact"),
+        ("_np_reshape", ["f:3,4"], {"newshape": (-1,)}, "exact"),
+        ("_npi_transpose", ["f:2,3,4"], {"axes": (2, 0, 1)}, "exact"),
+        ("_np_transpose", ["f:3,4"], {}, "exact"),
+        ("_npi_swapaxes", ["f:2,3,4"], {"dim1": 0, "dim2": 2}, "exact"),
+        ("_npi_moveaxis", ["f:2,3,4"], {"source": 0, "destination": 2},
+         "exact"),
+        ("_np_moveaxis", ["f:2,3,4"], {"source": 2, "destination": 0},
+         "exact"),
+        ("_npi_expand_dims", ["f:3,4"], {"axis": 1}, "exact"),
+        ("_npi_squeeze", ["f:1,3,1"], {}, "exact"),
+        ("_np_squeeze", ["f:1,3,1"], {"axis": 0}, "exact"),
+        ("_npi_broadcast_to", ["f:1,4"], {"shape": (3, 4)}, "exact"),
+        ("_npi_ravel", ["f:3,4"], {}, "exact"),
+        ("_npi_flip", ["f:3,4"], {"axis": 0}, "exact"),
+        ("_npi_fliplr", ["f:3,4"], {}, "exact"),
+        ("_npi_flipud", ["f:3,4"], {}, "exact"),
+        ("_npi_roll", ["f:3,4"], {"shift": 1, "axis": 1}, "exact"),
+        ("_np_roll", ["f:3,4"], {"shift": -2}, "exact"),
+        ("_npi_rot90", ["f:3,4"], {"k": 1, "axes": (0, 1)}, "exact"),
+        ("_npi_tile", ["f:2,3"], {"reps": (2, 1)}, "exact"),
+        ("_npi_repeat", ["f:2,3"], {"repeats": 2, "axis": 1}, "exact"),
+        ("_npi_pad", ["f:3,4"], {"pad_width": ((1, 1), (2, 0))}, "exact"),
+        ("_npi_pad", ["f:3,4"], {"pad_width": ((1, 2), (2, 1)),
+                                 "mode": "reflect"}, "exact"),
+        ("_npi_pad", ["f:3,4"], {"pad_width": ((2, 2), (2, 2)),
+                                 "mode": "edge"}, "exact"),
+        ("_npi_pad", ["f:3,4"], {"pad_width": ((1, 1), (3, 0)),
+                                 "mode": "wrap"}, "exact"),
+        ("_npi_diag", ["f:4"], {"k": 1}, "exact"),
+        ("_np_diag", ["f:3,4"], {}, "exact"),
+        ("_npi_diagonal", ["f:3,4"], {"offset": 1}, "exact"),
+        ("_np_diagonal", ["f:2,3,3"], {"axis1": 1, "axis2": 2}, "exact"),
+        ("_npi_diagflat", ["f:3"], {"k": -1}, "exact"),
+        ("_np_diagflat", ["f:2,2"], {}, "exact"),
+        ("_npi_tril", ["f:3,4"], {"k": 1}, "exact"),
+        ("_npi_triu", ["f:3,4"], {"k": -1}, "exact"),
+        ("_npi_trace", ["f:3,4"], {}, "reduce"),
+        ("_np_trace", ["i:3,3"], {"offset": 1}, "exact"),
+        ("_npi_concatenate", ["f:2,3", "f:2,3"], {"axis": 1}, "exact"),
+        ("_npi_stack", ["f:2,3", "f:2,3"], {"axis": 1}, "exact"),
+        ("_npi_vstack", ["f:2,3", "f:2,3"], {}, "exact"),
+        ("_npi_hstack", ["f:2,3", "f:2,3"], {}, "exact"),
+        ("_npi_dstack", ["f:2,3", "f:2,3"], {}, "exact"),
+        ("_npi_column_stack", ["f:3", "f:3"], {}, "exact"),
+        ("_npi_atleast_1d", ["f:"], {}, "exact"),
+        ("_npi_atleast_2d", ["f:3"], {}, "exact"),
+        ("_npi_atleast_3d", ["f:3,4"], {}, "exact"),
+        ("_npi_split", ["f:2,6"], {"indices_or_sections": 3, "axis": 1},
+         "exact"),
+        ("_npi_array_split", ["f:2,7"], {"indices_or_sections": 3,
+                                         "axis": 1}, "exact"),
+        ("_npi_hsplit", ["f:4,6"], {"indices_or_sections": 2}, "exact"),
+        ("_npi_vsplit", ["f:4,6"], {"indices_or_sections": (1, 3)},
+         "exact"),
+        ("_npi_dsplit", ["f:2,2,4"], {"indices_or_sections": 2}, "exact"),
+        ("_split_v2", ["f:6,4"], {"indices": (2, 5), "axis": 0}, "exact"),
+        ("_npi_where", ["b:3,4", "f:3,4", "f:3,4"], {}, "exact"),
+        ("_npi_where_lscalar", ["b:3,4", "f:3,4"], {"scalar": 2.0},
+         "exact"),
+        ("_npi_where_rscalar", ["b:3,4", "f:3,4"], {"scalar": -1.0},
+         "exact"),
+        ("_npi_where_scalar2", ["b:3,4"], {"lscalar": 1.0, "rscalar": 0.5},
+         "exact"),
+        ("_npi_clip", ["f:3,4"], {"a_min": -0.5, "a_max": 0.5}, "exact"),
+        ("_npi_take", ["f:3,4", "x:2"], {"axis": 1}, "exact"),
+        ("_npi_take_along_axis", ["f:3,4", "x:3,1"], {"axis": 1}, "exact"),
+        ("_npi_searchsorted", ["o:8", "f:5"], {"side": "right"}, "exact"),
+        ("_npi_sort", ["f:3,4"], {"axis": 1}, "exact"),
+        ("_npi_argsort", ["f:3,4"], {"axis": 0}, "exact"),
+        ("_npi_unique", ["r:10"], {}, "exact"),
+        ("_npi_nonzero", ["i:3,4"], {}, "exact"),
+        ("_npx_nonzero", ["i:3,4"], {}, "exact"),
+        ("_npi_bincount", ["r:10"], {"minlength": 8}, "exact"),
+        ("_npi_histogram", ["f:50"], {"bins": 5}, "exact"),
+        ("_npi_interp", ["f:6", "o:8", "f:8"], {}, "ulp"),
+        ("_npi_nan_to_num", ["f:3,4"], {"nan": 1.0}, "exact"),
+        ("_npi_round", ["f:3,4"], {"decimals": 1}, "ulp"),
+        ("_npi_around", ["f:3,4"], {}, "exact"),
+        ("_npi_sign_nd", ["f:3,4"], {}, "exact"),
+        ("_npi_meshgrid", ["f:3", "f:4"], {"indexing": "ij"}, "exact"),
+        ("_npi_tril_indices", [], {"n": 4, "k": 1}, "exact"),
+        ("_npi_indices", [], {"dimensions": (2, 3)}, "exact"),
+        ("_npi_diff", ["f:3,5"], {"n": 2, "axis": 1}, "exact"),
+        ("_npi_ediff1d", ["f:6"], {"to_begin": 1.0}, "exact"),
+        ("_npi_gradient_op", ["f:3,5"], {}, "ulp"),
+        ("_npi_norm", ["f:3,4"], {}, "reduce"),
+        ("_npi_norm", ["f:3,4"], {"ord": 1, "axis": 1}, "reduce"),
+        ("_npi_inv", ["w:4,4"], {}, "linalg"),
+        ("_npi_pinv", ["w:4,4"], {}, "linalg"),
+        ("_npi_pinv_scalar_rcond", ["w:4,4"], {"rcond": 1e-6}, "linalg"),
+        ("_npi_det", ["w:4,4"], {}, "linalg"),
+        ("_npi_slogdet", ["w:4,4"], {}, "linalg"),
+        ("_npi_matrix_rank", ["w:4,4"], {}, "exact"),
+        ("_npi_svd", ["w:4,4"], {}, "linalg", "svd"),
+        ("_npi_qr", ["w:4,3"], {}, "linalg", "qr"),
+        ("_npi_cholesky", ["s:4,4"], {}, "linalg"),
+        ("_npi_eig", ["s:4,4"], {}, "linalg", "eig"),
+        ("_npi_eigvals", ["s:4,4"], {}, "linalg", "eigvals"),
+        ("_npi_eigh", ["s:4,4"], {}, "linalg", "eigh"),
+        ("_npi_eigvalsh", ["s:4,4"], {}, "linalg"),
+        ("_npi_solve", ["w:4,4", "f:4,2"], {}, "linalg"),
+        ("_npi_lstsq", ["w:6,4", "f:6,2"], {}, "linalg", "lstsq"),
+        ("_npi_matrix_power", ["w:3,3"], {"n": 3}, "linalg"),
+        ("_npi_multi_dot", ["f:2,3", "f:3,4", "f:4,2"], {}, "linalg"),
+        ("_npi_tensorinv", ["w:6,6"], {"ind": 1}, "linalg"),
+        ("_npi_tensorsolve", ["w:6,6", "f:6"], {}, "linalg"),
+        ("_npi_zeros", [], {"shape": (2, 3)}, "exact"),
+        ("_npi_ones", [], {"shape": (2, 3), "dtype": "int32"}, "exact"),
+        ("_npi_full", [], {"shape": (2, 3), "fill_value": 1.5}, "exact"),
+        ("_npi_arange", [], {"start": 1.0, "stop": 7.0, "step": 1.5},
+         "exact"),
+        ("_npi_linspace", [], {"start": 0.0, "stop": 1.0, "num": 9},
+         "ulp"),
+        ("_npi_logspace", [], {"start": 0.0, "stop": 2.0, "num": 5},
+         "ulp"),
+        ("_npi_eye", [], {"N": 3, "M": 4, "k": 1}, "exact"),
+        ("_npi_hanning", [], {"M": 7}, "ulp"),
+        ("_npi_hamming", [], {"M": 7}, "ulp"),
+        ("_npi_blackman", [], {"M": 7}, "ulp"),
+        ("_npi_polyval", ["f:3", "f:5"], {}, "ulp"),
+        ("_npi_delete", ["f:6"], {"obj": 2}, "exact"),
+        ("_npi_insert_scalar", ["f:5"], {"obj": 1, "val": 9.0}, "exact"),
+        ("_npi_insert_slice", ["f:5", "f:2"], {"start": 1, "stop": 3},
+         "exact"),
+        ("_npi_insert_tensor", ["f:5", "x:2", "f:2"], {}, "exact"),
+        ("_npi_diag_indices_from", ["f:3,3"], {}, "exact"),
+        ("_npi_boolean_mask_assign_scalar", ["f:3,4", "b:3,4"],
+         {"value": 0.5}, "exact"),
+        ("_npi_boolean_mask_assign_tensor", ["f:3,4", "b:3,4", "f:4"], {},
+         "exact"),
+        ("_npx_constraint_check", ["b:3,4"], {}, "exact"),
+        ("_npx_reshape", ["f:2,3,4"], {"newshape": (-3, -2)}, "exact"),
+        ("_npx_reshape", ["f:6,4"], {"newshape": (-4, 2, -1, -2)}, "exact"),
+        ("_npi_share_memory", ["f:3", "f:3"], {}, "exact"),
+        ("_np_copy", ["f:3,4"], {}, "exact"),
+        ("_npi_bitwise_not", ["i:3,4"], {}, "exact"),
+        ("_npi_deg2rad", ["f:3,4"], {}, "ulp"),
+        ("_npi_rad2deg", ["f:3,4"], {}, "ulp"),
+        ("_unravel_index", ["r:4"], {"shape": (3, 4)}, "exact"),
+        ("_ravel_multi_index", ["m:2,3"], {"shape": (3, 4)}, "exact")]
+    for n, kw in (
+            ("_npi_random_uniform", {"low": -1.0, "high": 2.0}),
+            ("_npi_uniform", {}), ("_npi_uniform_n", {}),
+            ("_npi_random_normal", {"loc": 1.0, "scale": 2.0}),
+            ("_npi_normal", {}), ("_npi_normal_n", {}),
+            ("_npi_random_randint", {"low": 0, "high": 7}),
+            ("_npi_random_gamma", {"shape_param": 2.0}),
+            ("_npi_gamma", {}), ("_npi_random_exponential", {"scale": 2.0}),
+            ("_npi_exponential", {}),
+            ("_npi_random_beta", {"a": 2.0, "b": 3.0}),
+            ("_npi_random_poisson", {"lam": 3.0}),
+            ("_npi_random_bernoulli", {"p": 0.3}), ("_npi_bernoulli", {}),
+            ("_npi_pareto", {"a": 3.0}), ("_npi_weibull", {"a": 2.0}),
+            ("_npi_rayleigh", {"scale": 2.0}), ("_npi_powerd", {"a": 2.0})):
+        cases.append((n, [], dict(kw, size=(4, 5)), "sampler"))
+    cases += [
+        ("_npi_random_choice", ["f:6"], {"size": (4,)}, "sampler"),
+        ("_npi_choice", ["f:6"], {"size": (3,), "replace": False},
+         "sampler"),
+        ("_npi_random_permutation", ["f:6"], {}, "sampler"),
+        ("_npi_multinomial", [], {"pvals": (0.2, 0.3, 0.5), "n": 10,
+                                  "size": (4,)}, "sampler")]
+    return cases
+
+
+def np_case_inputs(specs, seed):
+    """numpy arrays for a case's input specs, from ``RandomState(seed)``:
+    f normal, p in [0.5, 1.5), g in [1.5, 2.5), u in (-0.9, 0.9), i ints
+    in [-5, 5], n ints in [1, 9], k ints in [0, 3], r ints in [0, 6), b
+    bool, o sorted normal, x int indices in [0, 3), m coordinates of a
+    (3, 4) grid, s symmetric positive definite, w well conditioned (all
+    float32 or int32)."""
+    rs = np.random.RandomState(seed)
+    out = []
+    for spec in specs:
+        kind, _, dims = spec.partition(":")
+        shape = tuple(int(d) for d in dims.split(",") if d)
+        if kind == "f":
+            a = rs.standard_normal(shape)
+        elif kind == "p":
+            a = rs.uniform(0.5, 1.5, shape)
+        elif kind == "g":
+            a = rs.uniform(1.5, 2.5, shape)
+        elif kind == "u":
+            a = rs.uniform(-0.9, 0.9, shape)
+        elif kind == "o":
+            a = np.sort(rs.standard_normal(shape))
+        elif kind == "s":
+            m = rs.standard_normal(shape)
+            a = m @ m.T / shape[0] + np.eye(shape[0])
+        elif kind == "w":
+            a = rs.standard_normal(shape) + 4 * np.eye(*shape)
+        elif kind == "b":
+            out.append(rs.uniform(size=shape) > 0.5)
+            continue
+        else:
+            lo, hi = {"i": (-5, 6), "n": (1, 10), "k": (0, 4), "r": (0, 6),
+                      "x": (0, 3)}.get(kind, (0, 3))
+            if kind == "m":
+                a = np.stack([rs.randint(0, 3, shape[1:]),
+                              rs.randint(0, 4, shape[1:])])
+            else:
+                a = rs.randint(lo, hi, shape)
+            out.append(a.astype(np.int32))
+            continue
+        out.append(a.astype(np.float32))
+    return out
+
+
+def np_case_invariant(kind, outs):
+    """The solver-independent form of a factorisation's outputs (numpy
+    arrays in, numpy arrays out)."""
+    if kind == "qr":
+        return (outs[0] @ outs[1],)
+    if kind == "svd":
+        u, s, vt = outs
+        return (s, (u[:, :len(s)] * s) @ vt[:len(s)])
+    if kind == "eigh":
+        w, v = outs
+        return (w, (v * w) @ v.T)
+    if kind in ("eig", "eigvals"):
+        return (np.sort(np.real(outs[0])),)
+    if kind == "lstsq":
+        return (outs[0], outs[3])
+    return outs
+
+
+def np_run_case(case, ctx, seed=0):
+    """The port's outputs (numpy arrays) of one case on ``ctx``."""
+    name, specs, kw = case[:3]
+    kw = dict(kw)
+    if name == "_npi_multinomial":
+        kw["pvals"] = np.asarray(kw["pvals"], np.float32)
+    with ctx:
+        arrays = [mx.nd.array(a, dtype=a.dtype)
+                  for a in np_case_inputs(specs, seed)]
+        if "pvals" in kw:
+            kw["pvals"] = mx.nd.array(kw["pvals"])._data
+        out = mx.nd.invoke(name, *arrays, **kw)
+    outs = out if isinstance(out, tuple) else (out,)
+    host = tuple(o.asnumpy() if o._data.dtype != torch.complex64 else
+                 o._data.detach().cpu().numpy() for o in outs)
+    return np_case_invariant(case[4], host) if len(case) > 4 else host
+
+
+def np_case_close(family, a, b):
+    """Whether two outputs of a case agree within its family's
+    tolerance (``NP_TOL``); samplers by shape and dtype."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if family == "sampler":
+        return True
+    rtol, atol = NP_TOL[family]
+    if rtol == 0 and atol == 0:
+        return np.array_equal(a, b, equal_nan=a.dtype.kind == "f")
+    return bool(np.allclose(a, b, rtol=rtol, atol=atol, equal_nan=True))
+
+
+# the realistic sizes of np_surface: the attention scores of BERT-base,
+# np.linalg at LINALG_CHECK's batch, a boolean mask over a BERT-base
+# activation, and the samplers' first two moments
+NP_SURFACE = {"einsum": (32, 12, 128, 64), "activation": (32, 128, 768),
+              "draws": 10_000_000, "moment_sigmas": 6.0,
+              "einsum_rtol": 1e-4, "timed_iters": 20}
+# np-mode fine-tune: TRAIN's settings, each mode's loss trajectory from one
+# set of weights and batches; the A B B A blocks of TRAIN["steps"] steps
+NP_FINETUNE = {"batch": 32, "warmup": 3, "steps": 20, "lr": 1e-4,
+               "wd": 1e-4}
+
+
+def _np_loss(x_mod, logits, label):
+    """The fine-tune loss as an MXNet 1.x np user writes it, in either
+    frontend (``npx``, or ``nd``)."""
+    return -x_mod.pick(x_mod.log_softmax(logits), label).mean()
+
+
+def np_mode_steps(ctx, cfg, weights, batches, np_mode, hybridize, lr, wd):
+    """The classifier from ``weights`` trained one ``gluon.Trainer`` Adam
+    step per batch with the loss of :func:`_np_loss`, its inputs
+    ``mx.np.array`` (np_mode) or ``mx.nd.array``. Returns ``(losses,
+    {"classes": (output class, loss class)}, clf, step, feed)``:
+    ``step(xb, yb)`` runs one more step and returns the loss array, and
+    ``feed`` holds the batches as that frontend's arrays."""
+    from mxnet_tpu_torch import np as mnp
+    from mxnet_tpu_torch import npx
+
+    clf = _classifier_on(ctx, cfg, weights)
+    if hybridize:
+        clf.hybridize()
+    trainer = mx.gluon.Trainer(clf.collect_params(), "adam",
+                               {"learning_rate": lr, "wd": wd},
+                               kvstore="local")
+    m, xm = (mnp, npx) if np_mode else (mx.nd, mx.nd)
+    last = {}
+
+    def step(xb, yb):
+        with mx.autograd.record():
+            logits = clf(xb)
+            loss = _np_loss(xm, logits, yb)
+        loss.backward()
+        trainer.step(1)
+        last["classes"] = (type(logits).__name__, type(loss).__name__)
+        return loss
+
+    losses = []
+    with ctx:
+        feed = [(m.array(x), m.array(y)) for x, y in batches]
+    for xb, yb in feed:
+        losses.append(float(step(xb, yb).item()))
+    return losses, last, clf, step, feed
+
+
+def _np_blocks(routes, blocks_order, warmup, steps):
+    """A B B A blocks of ``steps`` timed steps (after ``warmup``) for the
+    routes ``{mode: (step, feed)}``, each step's ms on the host clock
+    with its loss read."""
+    blocks = []
+    for mode in blocks_order:
+        step, feed = routes[mode]
+        for i in range(warmup):
+            step(*feed[i % len(feed)])
+        torch.cuda.synchronize()
+        ms = []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            float(step(*feed[i % len(feed)]).item())
+            ms.append((time.perf_counter() - t0) * 1e3)
+        blocks.append({"mode": mode, "step_ms": ms})
+    return blocks
+
+
+def phase_bert_np_finetune(smi):
+    """bert_base_np_finetune: the classifier of ``examples/gluon/
+    transformer_finetune.py`` at BERT-base width under ``npx.set_np()``,
+    wired as an MXNet 1.x np user does: token ids and labels as
+    ``mx.np.array`` on ``gpu(0)``, the loss ``-npx.pick(npx.log_softmax(
+    logits), label).mean()``, ``autograd.record``, ``backward``,
+    ``gluon.Trainer("adam").step``; batch 32, seq 128, 3 warm-ups and 20
+    steps (``TRAIN``), eager and hybridized. Each route's np-mode loss
+    trajectory equals the same phase's NDArray-mode one (``mx.nd`` arrays
+    and ops) from the same weights and batches bit for bit; the output
+    and loss are ``mx.np.ndarray``; no numpy fallback and no host op is
+    hit; a hybridized np step makes no host sync but the loss read
+    (``set_sync_debug_mode``); K3 12, K3-bwd 12 + 12 and K2 1 launches a
+    step. Then ms a step, np against NDArray, in blocks of 20 in the
+    order np, nd, nd, np, eager and hybridized, and each run's peak
+    memory above what the runs before it hold."""
+    from mxnet_tpu_torch import np as mnp
+    from mxnet_tpu_torch import npx
+    from mxnet_tpu_torch.ops import registry
+
+    cfg, a = BERT_BASE, NP_FINETUNE
+    t_phase = time.perf_counter()
+    layers = cfg["layers"]
+    n = a["warmup"] + a["steps"]
+    weights = random_params(cfg, seed=0)
+    x, y = make_task(a["batch"] * n, cfg["seq_len"], cfg["vocab"],
+                     cfg["num_classes"], seed=5)
+    batches = [(x[i * a["batch"]:(i + 1) * a["batch"]],
+                y[i * a["batch"]:(i + 1) * a["batch"]]) for i in range(n)]
+    want = {"flash_attention": layers, "flash_attention_bwd_dq": layers,
+            "flash_attention_bwd_dkv": layers, "opt_adam": 1}
+    gpu = mx.gpu(0)
+    runs, routes = {}, {}
+    try:
+        with mnp.watching_fallbacks() as fallbacks, \
+                registry.watching_host_ops() as host_ops:
+            for hybrid in (False, True):
+                route = "hybridized" if hybrid else "eager"
+                for np_mode in (True, False):
+                    if np_mode:
+                        npx.set_np()
+                    else:
+                        npx.reset_np()
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    base = torch.cuda.memory_allocated()
+                    kernels.reset_launch_counts()
+                    losses, last, clf, step, feed = np_mode_steps(
+                        gpu, cfg, weights, batches, np_mode, hybrid,
+                        a["lr"], a["wd"])
+                    torch.cuda.synchronize()
+                    launches = {k: v / n for k, v in _counts().items()}
+                    mode = "np" if np_mode else "nd"
+                    runs[(route, mode)] = {
+                        "losses": losses, "classes": last["classes"],
+                        "launches_per_step": launches,
+                        "peak_memory_above_earlier_runs":
+                            torch.cuda.max_memory_allocated() - base}
+                    routes[(route, mode)] = (step, feed, clf)
+                    if {k: launches.get(k) for k in want} != want:
+                        raise AssertionError(
+                            f"bert_base_np_finetune: {route} {mode} "
+                            f"launches a step {launches}, want {want}")
+            npx.set_np()
+            step_np, feed_np, _ = routes[("hybridized", "np")]
+            syncs = _sync_count(lambda: step_np(*feed_np[0]))
+    finally:
+        npx.reset_np()
+    for route in ("eager", "hybridized"):
+        npl, ndl = runs[(route, "np")]["losses"], runs[(route, "nd")][
+            "losses"]
+        if npl != ndl:
+            raise AssertionError(f"bert_base_np_finetune: {route} np-mode "
+                                 f"losses {npl} differ from NDArray-mode "
+                                 f"{ndl}")
+        if runs[(route, "np")]["classes"] != ("ndarray", "ndarray") or \
+                runs[(route, "nd")]["classes"] != ("NDArray", "NDArray"):
+            raise AssertionError(f"bert_base_np_finetune: classes "
+                                 f"{runs[(route, 'np')]['classes']} / "
+                                 f"{runs[(route, 'nd')]['classes']}")
+        if not all(math.isfinite(v) for v in npl) or \
+                not statistics.mean(npl[-5:]) < statistics.mean(npl[:5]):
+            raise AssertionError(f"bert_base_np_finetune: {route} losses "
+                                 f"{npl}")
+    if fallbacks or host_ops or syncs:
+        raise AssertionError(f"bert_base_np_finetune: numpy fallbacks "
+                             f"{fallbacks}, host ops {host_ops}, host "
+                             f"syncs of a hybridized np step {syncs}")
+    timing = {}
+    for route in ("eager", "hybridized"):
+        blocks = _np_blocks({m: routes[(route, m)][:2] for m in ("np",
+                                                                 "nd")},
+                            ("np", "nd", "nd", "np"), a["warmup"],
+                            a["steps"])
+        med = {m: statistics.median([v for b in blocks if b["mode"] == m
+                                     for v in b["step_ms"]])
+               for m in ("np", "nd")}
+        timing[route] = {"block_medians_ms": [
+            [b["mode"], statistics.median(b["step_ms"])] for b in blocks],
+            "median_step_ms": med, "np_minus_nd_ms": med["np"] - med["nd"],
+            "step_ms_by_block": [b["step_ms"] for b in blocks]}
+    out = {"phase": "bert_base_np_finetune", "card": smi,
+           "source": "examples/gluon/transformer_finetune.py's classifier "
+                     "at BERT-base width under npx.set_np(), loss "
+                     "-npx.pick(npx.log_softmax(logits), label).mean(), "
+                     "gluon.Trainer('adam')",
+           "config": cfg, **a,
+           "losses": {f"{r}_{m}": v["losses"] for (r, m), v in
+                      runs.items()},
+           "np_equals_nd_bit_for_bit": True,
+           "classes": {f"{r}_{m}": v["classes"] for (r, m), v in
+                       runs.items()},
+           "launches_per_step": {f"{r}_{m}": v["launches_per_step"]
+                                 for (r, m), v in runs.items()},
+           "peak_memory_above_earlier_runs": {
+               f"{r}_{m}": v["peak_memory_above_earlier_runs"]
+               for (r, m), v in runs.items()},
+           "numpy_fallbacks": fallbacks, "host_ops": host_ops,
+           "host_syncs_hybridized_np_step": syncs,
+           "timing": timing,
+           "tokens_s_hybridized_np": a["batch"] * cfg["seq_len"] /
+           timing["hybridized"]["median_step_ms"]["np"] * 1e3,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    del routes
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# the legacy ops tests/test_op_schema.py exercises, card against CPU
+NP_SCHEMA_CASES = [
+    ("Activation", ["f:2,3,4"], {"act_type": "relu"}, "exact"),
+    ("Activation", ["f:2,3,4"], {"act_type": "softsign"}, "ulp"),
+    ("Pooling", ["f:2,3,8,8"], {"kernel": (2, 2), "stride": (2, 2),
+                                "pool_type": "max"}, "exact"),
+    ("Pooling", ["f:2,3,8,8"], {"kernel": (2, 2), "stride": (2, 2),
+                                "pool_type": "avg"}, "ulp"),
+    ("FullyConnected", ["f:4,8", "f:3,8", "f:3"], {"num_hidden": 3},
+     "reduce"),
+    ("Convolution", ["f:2,3,8,8", "f:8,3,3,3", "f:8"],
+     {"kernel": (3, 3), "num_filter": 8, "pad": (1, 1)}, "reduce"),
+    ("Concat", ["f:2,3", "f:2,4"], {"dim": 1}, "exact"),
+    ("Dropout", ["f:3,4"], {"p": 0.25}, "exact"),
+    ("softmax", ["f:3,4"], {"axis": 0}, "ulp"),
+    ("BatchNorm", ["f:2,3,4,4", "p:3", "f:3", "f:3", "p:3"],
+     {"use_global_stats": True}, "ulp")]
+
+
+def _moments(draws):
+    """Mean and variance of ``draws`` (float64 sums on the card) and the
+    standard errors of both (the second from the sample's fourth central
+    moment)."""
+    d = draws.to(torch.float64).reshape(-1)
+    n = d.numel()
+    mean = d.mean()
+    c = d - mean
+    var = (c * c).mean()
+    m4 = (c ** 4).mean()
+    return (float(mean), float(var), math.sqrt(float(var) / n),
+            math.sqrt(max(float(m4 - var * var), 0.0) / n))
+
+
+# the samplers' analytic mean and variance at np_surface's parameters
+_NP_MOMENTS = {
+    "uniform": (lambda m, s: m.random.uniform(-1.0, 2.0, size=s),
+                0.5, 0.75),
+    "normal": (lambda m, s: m.random.normal(1.0, 2.0, size=s), 1.0, 4.0),
+    "randint": (lambda m, s: m.random.randint(0, 7, size=s), 3.0, 4.0),
+    "exponential": (lambda m, s: m.random.exponential(2.0, size=s),
+                    2.0, 4.0),
+    "gamma": (lambda m, s: m.random.gamma(2.0, 1.5, size=s), 3.0, 4.5),
+    "beta": (lambda m, s: m.random.beta(2.0, 3.0, size=s), 0.4, 0.04),
+    "poisson": (lambda m, s: m.random.poisson(3.0, size=s), 3.0, 3.0),
+    "bernoulli": (lambda m, s: m.random.bernoulli(0.3, size=s), 0.3, 0.21),
+    "pareto": (lambda m, s: m.random.pareto(5.0, size=s), 0.25,
+               5.0 / 48.0),
+    "weibull": (lambda m, s: m.random.weibull(2.0, size=s),
+                math.gamma(1.5), 1.0 - math.gamma(1.5) ** 2),
+    "rayleigh": (lambda m, s: m.random.rayleigh(2.0, size=s),
+                 2.0 * math.sqrt(math.pi / 2), (4 - math.pi) / 2 * 4.0)}
+
+
+def phase_np_surface(smi):
+    """np_surface: the NumPy frontend on the card against the port on
+    the CPU. At tests/test_numpy.py's sizes, every case of
+    :func:`np_cases` (each of ops/numpy_ops.py's 271 names that a case
+    reaches) and the legacy ops of tests/test_op_schema.py
+    (``NP_SCHEMA_CASES``), each within its family's tolerance
+    (``NP_TOL``: exact ops bit for bit), samplers by shape and dtype and
+    repeating under one seed; a misspelt keyword raises ``OpParamError``
+    on the card before any launch. At a realistic size (``NP_SURFACE``):
+    ``np.einsum("bhqd,bhkd->bhqk")`` at BERT-base's attention shape
+    (timed beside ``torch.matmul`` and its bound), ``np.linalg``
+    cholesky/solve/svd/eigh/det at ``LINALG_CHECK``'s batch (det on
+    16 x 16 blocks) against the CPU, a boolean mask read and written on
+    a 32 x 128 x 768 activation (the write with no host sync), and the
+    samplers' first two moments over 10^7 draws within 6 standard
+    errors. Prints the names that ran, the host ops and numpy fallbacks
+    hit, and the names no case reaches; a failed case raises."""
+    from mxnet_tpu_torch import np as mnp
+    from mxnet_tpu_torch.ops import registry
+    from mxnet_tpu_torch.ops.schema import OpParamError
+
+    t_phase = time.perf_counter()
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    ran, failed = [], []
+    with mnp.watching_fallbacks() as fallbacks, \
+            registry.watching_host_ops() as host_ops:
+        for i, case in enumerate(np_cases() + NP_SCHEMA_CASES):
+            fam = case[3]
+            if fam == "sampler":
+                mx.random.seed(11)
+                card = np_run_case(case, gpu, i)
+                mx.random.seed(11)
+                again = np_run_case(case, gpu, i)
+                ok = all(np.array_equal(u, v) for u, v in zip(card, again))
+            else:
+                card, ok = np_run_case(case, gpu, i), True
+            host = np_run_case(case, cpu, i)
+            ok = ok and len(card) == len(host) and all(
+                np_case_close(fam, u, v) for u, v in zip(card, host))
+            (ran if ok else failed).append(case[0])
+            if not ok:
+                emit({"phase": "np_surface_case", "case": repr(case),
+                      "card": [repr(u)[:400] for u in card],
+                      "cpu": [repr(v)[:400] for v in host]})
+    with gpu:
+        kernels.reset_launch_counts()
+        try:
+            mx.nd.softmax(mx.nd.ones((2, 3)), axs=0)
+            raise AssertionError("np_surface: a misspelt keyword passed")
+        except OpParamError as e:
+            schema_error = str(e)
+    numpy_names = {n for n in registry.list_ops()
+                   if n.startswith(("_np_", "_npi_", "_npx_"))} | {
+        "_split_v2", "_unravel_index", "_ravel_multi_index"}
+    reached = {c[0] for c in np_cases()}
+    unreached = sorted(numpy_names - reached)
+    if failed:
+        raise AssertionError(f"np_surface: cases failed {failed}")
+    big = _np_surface_realistic()
+    out = {"phase": "np_surface", "card": smi,
+           "cases": len(ran), "names_ran": sorted(set(ran)),
+           "numpy_frontend_names": len(numpy_names),
+           "names_no_case_reaches": unreached,
+           "host_ops_hit": sorted(set(host_ops)),
+           "numpy_fallbacks_hit": fallbacks,
+           "schema_error_on_card": schema_error, "tolerances": NP_TOL,
+           "realistic": big, "phase_s": time.perf_counter() - t_phase}
+    emit(out)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _np_surface_realistic():
+    """np_surface's realistic sizes (see ``phase_np_surface``)."""
+    from mxnet_tpu_torch import np as mnp
+
+    s = NP_SURFACE
+    gpu, cpu = mx.gpu(0), mx.cpu()
+    rs = np.random.RandomState(3)
+    out = {}
+    # einsum at the attention scores' shape
+    b, h, sq, d = s["einsum"]
+    qh = rs.standard_normal((b, h, sq, d)).astype(np.float32)
+    kh = rs.standard_normal((b, h, sq, d)).astype(np.float32)
+    with gpu:
+        q, k = mnp.array(qh), mnp.array(kh)
+    card = mnp.einsum("bhqd,bhkd->bhqk", q, k)
+    with cpu:
+        ref = mnp.einsum("bhqd,bhkd->bhqk", mnp.array(qh), mnp.array(kh))
+    err = float(np.abs(card.asnumpy() - ref.asnumpy()).max())
+    scale = float(np.abs(ref.asnumpy()).max())
+    if not err <= s["einsum_rtol"] * scale:
+        raise AssertionError(f"np_surface: einsum {err} of {scale}")
+    qt, kt = q._data, k._data
+    nbytes = (qt.numel() + kt.numel() + b * h * sq * sq) * 4
+    bound = _bound_ms(nbytes, 2 * b * h * sq * sq * d, H100_F32_FLOPS)
+    out["einsum"] = {
+        "shape": [b, h, sq, d], "max_abs_err": err, "scale": scale,
+        "ms": cuda_ms(lambda: mnp.einsum("bhqd,bhkd->bhqk", q, k),
+                      iters=s["timed_iters"]),
+        "library_ms": cuda_ms(lambda: torch.matmul(qt, kt.transpose(-1, -2)),
+                              iters=s["timed_iters"]),
+        "bound_ms": bound[0], "bound_by": bound[1]}
+    # np.linalg at LINALG_CHECK's batch, card against CPU
+    nb, n = LINALG_CHECK["batch"], LINALG_CHECK["n"]
+    rtol = LINALG_CHECK["rtol"]["float32"]
+    m = rs.standard_normal((nb, n, n)).astype(np.float32)
+    spd = (m @ m.transpose(0, 2, 1) / n + np.eye(n, dtype=np.float32))
+    rhs = rs.standard_normal((nb, n, 4)).astype(np.float32)
+    dn = LINALG_CHECK["det_n"]
+    blocks = spd[:, :dn, :dn].copy()
+    ops = {"cholesky": (lambda L, A, B, D: (L.cholesky(A),), "plain"),
+           "solve": (lambda L, A, B, D: (L.solve(A, B),), "plain"),
+           "svd": (lambda L, A, B, D: L.svd(A), "svd"),
+           "eigh": (lambda L, A, B, D: L.eigh(A), "eigh"),
+           "det": (lambda L, A, B, D: (L.det(D),), "plain")}
+    out["linalg"] = {}
+    for name, (fn, inv) in ops.items():
+        res = {}
+        for where, ctx in (("card", gpu), ("cpu", cpu)):
+            with ctx:
+                A, B, D = mnp.array(spd), mnp.array(rhs), mnp.array(blocks)
+                [g.asnumpy() for g in fn(mnp.linalg, A, B, D)]   # warm
+                t0 = time.perf_counter()
+                got = fn(mnp.linalg, A, B, D)
+                host = [g.asnumpy() for g in got]
+                res[where] = (host, (time.perf_counter() - t0) * 1e3)
+        errs = []
+        for u, v in zip(*(_batched_invariant(inv, res[w][0])
+                          for w in ("card", "cpu"))):
+            e = float(np.abs(u - v).max() / max(np.abs(v).max(), 1e-30))
+            errs.append(e)
+        if not max(errs) <= rtol:
+            raise AssertionError(f"np_surface: np.linalg.{name} card "
+                                 f"against CPU {errs} > {rtol}")
+        with gpu:
+            A, B, D = mnp.array(spd), mnp.array(rhs), mnp.array(blocks)
+            syncs = _sync_count(lambda: fn(mnp.linalg, A, B, D))
+        out["linalg"][name] = {"relative_err": errs, "rtol": rtol,
+                               "card_ms_warm_with_read": res["card"][1],
+                               "cpu_ms": res["cpu"][1],
+                               "host_syncs": syncs}
+    # a boolean mask over a BERT-base activation
+    act = rs.standard_normal(s["activation"]).astype(np.float32)
+    with gpu:
+        a = mnp.array(act)
+    mask = a > 0.5
+    picked = a[mask].asnumpy()
+    if not np.array_equal(picked, act[act > 0.5]):
+        raise AssertionError("np_surface: boolean mask read")
+
+    def assign():
+        c = a.copy()
+        c[mask] = 0.0
+        return c
+
+    written = assign().asnumpy()
+    if not np.array_equal(written, np.where(act > 0.5, 0.0, act)):
+        raise AssertionError("np_surface: boolean mask assignment")
+    assign_syncs = _sync_count(assign)
+    if assign_syncs:
+        raise AssertionError(f"np_surface: the mask assignment synced "
+                             f"{assign_syncs}")
+    out["boolean_mask"] = {"shape": list(s["activation"]),
+                           "selected": int(picked.size),
+                           "read_ms": cuda_ms(lambda: a[mask]),
+                           "assign_ms": cuda_ms(assign),
+                           "assign_host_syncs": assign_syncs}
+    # the samplers' first two moments
+    moments = {}
+    mx.random.seed(0)
+    for name, (draw, mean, var) in _NP_MOMENTS.items():
+        with gpu:
+            d = draw(mnp, (s["draws"],))._data
+        got_mean, got_var, se_mean, se_var = _moments(d)
+        z = (abs(got_mean - mean) / se_mean, abs(got_var - var) / se_var)
+        moments[name] = {"mean": got_mean, "var": got_var,
+                         "want": [mean, var], "z": list(z),
+                         "dtype": str(d.dtype)}
+        if max(z) > s["moment_sigmas"]:
+            raise AssertionError(f"np_surface: {name} moments "
+                                 f"{moments[name]}")
+    out["sampler_moments"] = moments
+    return out
+
+
+def _batched_invariant(kind, outs):
+    """:func:`np_case_invariant` over a batch of matrices."""
+    if kind == "svd":
+        u, sv, vt = outs
+        return [sv, np.einsum("bij,bj,bjk->bik", u, sv, vt)]
+    if kind == "eigh":
+        w, v = outs
+        return [w, np.einsum("bij,bj,bkj->bik", v, w, v)]
+    return outs
+
+
 PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "train_capture", "gluon_hybrid_train", "dropout_capture",
           "int8_gemm", "serve_int8", "capture", "online_update", "decode",
@@ -12625,7 +13458,8 @@ PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "ssd512_resnet50_v1_module_fit", "bert_base_sst2_finetune_zero",
           "fm_criteo_row_sparse", "sparse_linear_mf", "dist_sparse_async",
           "quantize_mnist", "resnet50_v1_int8",
-          "bert_base_sst2_finetune_amp")
+          "bert_base_sst2_finetune_amp", "bert_base_np_finetune",
+          "np_surface")
 
 
 def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
@@ -12843,6 +13677,10 @@ def _run(phases):
         done["resnet50_v1_int8"] = phase_resnet50_int8(smi)
     if "bert_base_sst2_finetune_amp" in phases:
         done["bert_base_sst2_finetune_amp"] = phase_bert_finetune_amp(smi)
+    if "bert_base_np_finetune" in phases:
+        done["bert_base_np_finetune"] = phase_bert_np_finetune(smi)
+    if "np_surface" in phases:
+        done["np_surface"] = phase_np_surface(smi)
     _emit_warnings()
     if not set(PHASES) <= set(done):
         print(f"phases run: {sorted(done)}; no result line", flush=True)
@@ -12876,6 +13714,9 @@ def _run(phases):
     amp_step, amp_att = amp_run["launches_per_step"], \
         amp_run["attention_bf16"]
     qm, r8 = done["quantize_mnist"], done["resnet50_v1_int8"]
+    # this slice: the np-mode fine-tune's launches a step, hybridized
+    npf = done["bert_base_np_finetune"]["launches_per_step"][
+        "hybridized_np"]
 
     def amp_bf16(part, library):
         return {"ms": amp_att["ms"][part],
@@ -12918,6 +13759,7 @@ def _run(phases):
                          done["online_update"]["steps"]],
                      launches_per_step_finetune_amp=amp_step[
                          "flash_attention"],
+                     launches_per_step_finetune_np=npf["flash_attention"],
                      bf16_training_shape=amp_bf16("fwd", "library_fwd"))]
     # K3 and K3-bwd run every product on the tensor cores (3xTF32): their
     # bound is the tensor-core one; the float32 rate's stays beside it
@@ -12939,6 +13781,7 @@ def _run(phases):
             launches_finetune_zero=fzl[f"flash_attention_bwd_{part}"],
             launches_per_step_finetune_amp=amp_step[
                 f"flash_attention_bwd_{part}"],
+            launches_per_step_finetune_np=npf[f"flash_attention_bwd_{part}"],
             bf16_training_shape=amp_bf16(part, "library_bwd"),
             lm_shape={"ms": bwd["lm_shape"]["ms"][part],
                       "plain_ms": bwd["lm_shape"]["ms"][f"{part}_plain"],
@@ -13058,6 +13901,8 @@ def _run(phases):
                                   "bert_base_sst2_finetune_lamb"][
                                   "adam_update_device_ms_k2"],
                               launches_per_step_finetune_amp=amp_step[
+                                  "opt_adam"],
+                              launches_per_step_finetune_np=npf[
                                   "opt_adam"]))
     k4 = done["int8_gemm"]
     lines.append(_kernel_line(

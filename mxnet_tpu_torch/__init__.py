@@ -67,4 +67,22 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "parallel", "serving", "convert", "checkpoint", "compile",
            "cached_op", "executor", "metric", "callback", "monitor",
            "module", "mod", "operator", "library", "attribute",
-           "AttrScope", "amp", "visualization", "viz", "__version__"]
+           "AttrScope", "amp", "visualization", "viz", "np", "npx",
+           "util", "test_utils", "__version__"]
+
+# loaded at first use, as the JAX package's __init__ :83-93 maps them
+_LAZY = {"np": "numpy", "npx": "numpy_extension", "util": "util",
+         "test_utils": "test_utils", "numpy": "numpy",
+         "numpy_extension": "numpy_extension"}
+
+
+def __getattr__(name):
+    target = _LAZY.get(name)
+    if target is None:
+        raise AttributeError(f"module {__name__!r} has no attribute "
+                             f"{name!r}")
+    import importlib
+
+    mod = importlib.import_module("." + target, __name__)
+    globals()[name] = mod
+    return mod

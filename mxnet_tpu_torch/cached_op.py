@@ -108,38 +108,73 @@ class CachedOp:
         self._pair = _compile.jit(self._run_mode, site="cachedop",
                                   token=(self._site, id(self), "pair"),
                                   reads=self._param_tensors, kind="pair")
+        self._jit_np = None   # the entry of np-array calls, at first use
 
     def _param_tensors(self):
         return [p.data()._data for p in self._params]
 
-    def _run(self, *raws):
-        """The captured body: the forward on NDArrays around ``raws``,
-        its outputs as tensors."""
+    def _body(self, wrap, raws):
+        """The captured body: the forward on arrays of class ``wrap``
+        around ``raws``, its outputs as tensors."""
         from .ndarray import NDArray
 
         fn = self._fn_ref()
         if fn is None:
             raise MXNetError(f"{self._site}: the block whose forward this "
                              "op runs is gone")
-        return _map(fn(*_map(raws, NDArray, torch.Tensor)), _raw, NDArray)
+        return _map(fn(*_map(raws, wrap, torch.Tensor)), _raw, NDArray)
+
+    def _run(self, *raws):
+        from .ndarray import NDArray
+
+        return self._body(NDArray, raws)
+
+    def _run_np(self, *raws):
+        from .numpy import ndarray
+
+        return self._body(ndarray, raws)
 
     def _run_mode(self, mode, *raws):
-        """The pair's body; ``mode`` (recording, training) only keys it."""
+        """The pair's body; ``mode`` (recording, training, np) keys it."""
+        if mode[2]:
+            return self._run_np(*raws)
         return self._run(*raws)
 
     def __call__(self, *args):
+        """Run the forward, captured. Fed an ``mx.np.ndarray`` it returns
+        ``mx.np.ndarray`` (MXNet 1.x under ``use_np``; the JAX package
+        returns NDArray, ROADMAP C34), from an entry of its own whose
+        body sees np arrays, as the eager forward does."""
         from .ndarray import NDArray
 
+        np_mode = any(getattr(a, "_np_frontend", False) for a in args)
         raws = _map(args, _raw, NDArray)
         recording, training = autograd.is_recording(), autograd.is_training()
         if recording or training:
-            out = self._pair((recording, training), *raws)
+            out = self._pair((recording, training, np_mode), *raws)
+        elif np_mode:
+            if self._jit_np is None:
+                self._jit_np = _compile.jit(
+                    self._run_np, site="cachedop",
+                    token=(self._site, id(self), "np"),
+                    reads=self._param_tensors)
+            out = self._jit_np(*raws)
         else:
             out = self._jit(*raws)
+        if np_mode:
+            from .numpy import ndarray
+
+            return _map(out, ndarray, torch.Tensor)
         return _map(out, NDArray, torch.Tensor)
 
     def stats(self):
         """This op's capture statistics (``ServiceFunction.stats``), the
         inference entries' and the pairs' together."""
-        a, b = self._jit.stats(), self._pair.stats()
-        return {k: a[k] + b[k] for k in a}
+        parts = [self._jit.stats(), self._pair.stats()]
+        if self._jit_np is not None:
+            parts.append(self._jit_np.stats())
+        out = dict(parts[0])
+        for p in parts[1:]:
+            for k in out:
+                out[k] = out[k] + p[k]
+        return out

@@ -18,8 +18,8 @@ Counterpart of ``mxnet_tpu/checkpoint.py``:
   entry; ``ShardedTrainer.save_checkpoint`` / ``resume`` build on it.
 
 :func:`host_metadata` records torch and CUDA facts where the JAX package
-records JAX's. Left out: the JAX package's ``ckpt.write`` fault-injection
-point (its ``faults`` module is not ported).
+records JAX's. Every :func:`atomic_write` first hits the ``ckpt.write``
+fault-injection point (:mod:`mxnet_tpu_torch.faults`, JAX :106).
 """
 from __future__ import annotations
 
@@ -29,6 +29,8 @@ import threading
 import time
 import warnings
 import zlib
+
+from . import faults as _faults
 
 __all__ = ["CheckpointManager", "atomic_write", "crc32_file",
            "MANIFEST_NAME", "host_metadata"]
@@ -90,6 +92,8 @@ def atomic_write(path, writer):
     at any point leaves the previous content of ``path`` or the whole new
     one (a stray ``*.tmp.*`` sibling may remain after a kill). Returns
     ``(crc32, size)`` of what was written."""
+    if _faults.ARMED:
+        _faults.point("ckpt.write")
     path = os.fspath(path)
     # the pid and the thread: two threads may write one path at once
     tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"

@@ -16,6 +16,23 @@ Named injection points wired through the port:
                        bytes: ``corrupt`` flips bytes the CRC validation
                        must catch (reject: crc_mismatch), ``delay``/``hang``
                        stall the watcher, ``raise`` rejects as apply_error
+    ``ckpt.write``     every atomic file write (checkpoint.py), before it
+    ``kvstore.push``   every kvstore push (kvstore/kvstore.py, both stores)
+    ``kvstore.sync``   a blocking cross-worker sum, a barrier, and each
+                       bucket reduction the pipeline resolves
+                       (kvstore/buckets.py)
+    ``trainer.step``   every ``ShardedTrainer.step``, on the batch before
+                       the (captured) step runs: ``nan`` poisons it
+    ``host.sync``      every blocking host read of an NDArray
+                       (``asnumpy``, ``wait_to_read``)
+    ``io.fetch``       each ``PrefetchingIter`` worker's fetch
+    ``io.decode``      each ``ImageRecordIter`` batch and each
+                       ``TokenRecordIter`` read; a JPEG record the batch
+                       decode rejects is decoded again under :func:`retry`
+
+A point in a hot path is guarded by ``if faults.ARMED:``, one attribute
+read when no schedule is armed. No point sits inside a captured CUDA
+graph: each fires in the host code around a replay.
 
 Faults are configured programmatically (:func:`configure`) or through the
 ``MXNET_TPU_FAULTS`` environment variable, read once at first use (seed:
@@ -64,7 +81,7 @@ import threading
 import time
 
 __all__ = ["InjectedFault", "configure", "reset", "point", "active",
-           "stats", "retry"]
+           "stats", "retry", "ARMED"]
 
 
 class InjectedFault(RuntimeError):
@@ -95,6 +112,9 @@ _specs = {}   # point name -> _PointSpec
 _counts = {}  # point name -> invocation count
 _fired = {}   # point name -> fire count
 _loaded_env = False
+# False once the schedule is known to be empty: the hot paths' gate. True
+# until the environment has been read, so the first hit reads it.
+ARMED = True
 
 
 def _parse_trigger(tok):
@@ -138,7 +158,7 @@ def configure(spec=None, seed=0):
         e.g. ``{"ckpt.write": "raise@2"}``, or None to clear.
     seed : int — seeds the probabilistic triggers deterministically.
     """
-    global _loaded_env
+    global _loaded_env, ARMED
     if isinstance(spec, dict):
         spec = ";".join(f"{k}:{v}" for k, v in spec.items())
     with _lock:
@@ -148,6 +168,7 @@ def configure(spec=None, seed=0):
         if spec:
             _specs.update(_parse(spec, seed))
         _loaded_env = True  # explicit configure overrides the env
+        ARMED = bool(_specs)
 
 
 def reset():
@@ -156,7 +177,7 @@ def reset():
 
 
 def _ensure_env():
-    global _loaded_env
+    global _loaded_env, ARMED
     if _loaded_env:
         return
     with _lock:
@@ -167,6 +188,7 @@ def _ensure_env():
             _specs.update(_parse(env, int(os.environ.get(
                 "MXNET_TPU_FAULTS_SEED", "0"))))
         _loaded_env = True
+        ARMED = bool(_specs)
 
 
 def active() -> bool:
@@ -193,6 +215,16 @@ def _corrupt_bytes(payload, rng):
 
 
 def _poison_nan(payload):
+    if type(payload).__module__.startswith("torch"):
+        # a tensor is poisoned where it lies, in a copy
+        import torch
+
+        out = payload.detach().clone(memory_format=torch.contiguous_format)
+        if not out.is_floating_point():
+            out = out.float()
+        flat = out.view(-1)
+        flat[: max(1, flat.numel() // 8)] = float("nan")
+        return out
     import numpy as _np
 
     arr = _np.array(_np.asarray(payload), copy=True)

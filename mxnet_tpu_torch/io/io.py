@@ -16,9 +16,13 @@ Batches are NDArrays on the current context (the card unless a ``with
 mx.cpu():`` says otherwise); ``ImageRecordIter`` and ``PrefetchingIter``
 take the context at construction (``ctx=`` / ``device=``).
 ``LibSVMIter`` (JAX :846) yields CSR batches (``ndarray/sparse.py``).
-Not ported: the multi-card staging of ``DeviceStager`` (``mesh=``,
-``shardings=``), and the JAX package's fault-injection points (``faults.point``/``retry``) and
-watchdog deadlines. ``PrefetchingIter`` and ``ImageRecordIter`` keep
+The fault-injection points are the JAX package's: ``io.fetch`` in each
+``PrefetchingIter`` worker (JAX :631), ``io.decode`` at each
+``ImageRecordIter`` batch and ``TokenRecordIter`` read (:1117, :1343),
+and a JPEG record that the batch decode rejects is decoded again under
+``faults.retry`` before it is zero-filled (:1159). Not ported: the
+multi-card staging of ``DeviceStager`` (``mesh=``, ``shardings=``) and
+the watchdog deadlines. ``PrefetchingIter`` and ``ImageRecordIter`` keep
 their ``data_wait_ms`` and stage times, and report each wait to the step
 timeline as the next step's ``data_wait`` phase
 (:mod:`mxnet_tpu_torch.telemetry.steps`, JAX :696-708 and :1254-1266).
@@ -39,6 +43,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as _np
 import torch
 
+from .. import faults as _faults
 from .. import native
 from .. import ndarray as nd
 from ..base import MXNetError
@@ -551,6 +556,8 @@ class PrefetchingIter(DataIter):
 
         def worker(i, out):
             try:
+                if _faults.ARMED:
+                    _faults.point("io.fetch")   # a flaky or wedged source
                 out[i] = self._stage_batch(self.iters[i].next())
             except StopIteration:
                 out[i] = None
@@ -980,6 +987,36 @@ class ImageRecordIter(_ShardedEpochMixin, DataIter):
             raise ValueError(f"{self._rec.uri}: bad record at {off}")
         return recordio.unpack(body[8:8 + length])
 
+    def _retry_jpeg(self, jpg, failed, draws, sub, rows, rest, dh, dw,
+                    h, w):
+        """Decode again, one by one under ``faults.retry`` (2 retries,
+        a 5 s deadline, JAX :1159), the JPEG records the batch decode
+        rejected (positions ``failed`` of ``sub``); each one that decodes
+        is written into ``rows``. Returns the positions still failing."""
+        def decode_one(buf, d):
+            if d is None:
+                out, bad = native.decode_jpeg_batch(
+                    [buf], dh, dw, n_threads=1)
+            else:
+                out, bad = native.decode_augment_batch(
+                    [buf], dh, dw, h, w, [d[0]], [d[1]], [d[2]],
+                    _np.stack([d[3]]) if self._color_jitter else None,
+                    n_threads=1)
+            if bad:
+                raise ValueError("JPEG record rejected by the decoder")
+            return out[0]
+
+        decode_one = _faults.retry(decode_one, retries=2, backoff=0.01,
+                                   deadline=5.0)
+        still = []
+        for f in failed:
+            try:
+                rows[rest.index(jpg[f])] = decode_one(
+                    sub[f], None if draws is None else draws[f])
+            except (ValueError, MXNetError):
+                still.append(f)
+        return still
+
     def _record_one(self, key, i, pos, data):
         """Read record ``key`` (the ``i``-th of the batch, at epoch
         position ``pos``) and make its draws; a PNG is also decoded and
@@ -1018,6 +1055,9 @@ class ImageRecordIter(_ShardedEpochMixin, DataIter):
         ``slot`` when given. The reads and the PNG decodes (normalised as
         they are written) run in the decode threads; JPEG records in one
         OpenMP call, then the normalisation of their rows."""
+        if _faults.ARMED:
+            # a raise surfaces at next(), through the producer thread
+            _faults.point("io.decode")
         t0 = time.perf_counter()
         _c, h, w = self._data_shape
         dh, dw = self._decode_size()
@@ -1057,8 +1097,13 @@ class ImageRecordIter(_ShardedEpochMixin, DataIter):
             else:
                 out, failed = native.decode_jpeg_batch(
                     sub, dh, dw, n_threads=self._threads)
-            rows[[rest.index(i) for i in jpg]] = out   # failed: zero-filled
-            bad += [jpg[f] for f in failed]
+            rows[[rest.index(i) for i in jpg]] = out
+            if failed:
+                failed = self._retry_jpeg(
+                    jpg, failed, [results[i][3] for i in jpg]
+                    if self._augmenting() else None, sub, rows, rest,
+                    dh, dw, h, w)
+            bad += [jpg[f] for f in failed]      # zero-filled
             stages["jpeg"] = time.perf_counter() - t
         if bad:
             warnings.warn(f"ImageRecordIter: {len(bad)} corrupt image(s) "
@@ -1281,6 +1326,8 @@ class TokenRecordIter(_ShardedEpochMixin, DataIter):
         if nk is None:
             raise StopIteration
         _start, keys = nk
+        if _faults.ARMED:
+            _faults.point("io.decode")
         payloads = native.recordio_read(self._path, self._offsets[keys],
                                         self._lengths[keys])
         blocks = _np.stack([_np.frombuffer(p, self._dtype)

@@ -45,6 +45,7 @@ import weakref
 import numpy as _np
 import torch
 
+from .. import faults as _faults
 from ..base import canonical_dtype
 
 __all__ = ["DEFAULT_BUCKET_BYTES", "bucket_bytes", "bucket_force",
@@ -316,6 +317,9 @@ class BucketPipeline:
         entries = []
         for bid in [b for b in self._inflight if b in bids]:
             keys, metas, handle = self._inflight.pop(bid)
+            if _faults.ARMED:
+                # a peer that stopped reducing mid-bucket (JAX :282)
+                _faults.point("kvstore.sync")
             entries.append((bid, keys, metas, handle.result()))
         if entries:
             self._kv._apply_resolved(entries)

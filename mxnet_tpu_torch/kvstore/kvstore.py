@@ -77,6 +77,7 @@ import time
 
 import torch
 
+from .. import faults as _faults
 from .. import kernels as _kernels
 from .. import optimizer as opt_mod
 from ..base import MXNetError, dtype_name, maybe_init_distributed
@@ -173,6 +174,8 @@ class KVStore(KVStoreBase):
         learning-rate group, row-sparse sums split off to the lazy
         update); each key's result is its single push's."""
         OP_COUNTS["push"] += 1
+        if _faults.ARMED:
+            _faults.point("kvstore.push")   # a flaky gradient sync
         keys, values = self._canonical_push(key, value)
         if self._updater is not None and len(keys) > 1 and \
                 len(set(keys)) == len(keys):
@@ -457,6 +460,8 @@ class _DistKVStore(KVStore):
         the buckets; the unbucketed dense keys of the call follow the
         bucketed ones."""
         OP_COUNTS["push"] += 1
+        if _faults.ARMED:
+            _faults.point("kvstore.push")   # a flaky gradient sync
         keys, values = self._canonical_push(key, value)
         gather = self._gathers()
         compress = bool(self._compression) and self._procs > 1 and \
@@ -622,6 +627,8 @@ class _DistKVStore(KVStore):
         """The sum of ``value`` (an NDArray) over the workers, blocking."""
         import torch.distributed as dist
 
+        if _faults.ARMED:
+            _faults.point("kvstore.sync")   # a peer that stopped reducing
         wire = value._data.clone()
         if self._procs > 1:
             OP_COUNTS["allreduce"] += 1
@@ -727,6 +734,8 @@ class _DistKVStore(KVStore):
         workers."""
         if self._pipeline is not None:
             self._pipeline.resolve(None)
+        if _faults.ARMED:
+            _faults.point("kvstore.sync")   # a peer that died before it
         if self._procs > 1:
             import torch.distributed as dist
 

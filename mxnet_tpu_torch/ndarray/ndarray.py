@@ -25,8 +25,10 @@ take ``ctx``, default ``current_context()`` (the card).
 
 ``stype`` is ``"default"`` for a dense array and ``tostype`` converts
 through ``sparse.cast_storage`` (``ndarray/sparse.py`` holds the
-row-sparse and CSR subclasses). Left out: ``as_np_ndarray``/
-``as_nd_ndarray`` (``mx.np``, "the remaining surface"), ``__reduce__``
+row-sparse and CSR subclasses). ``as_np_ndarray``/``as_nd_ndarray``
+move between the frontends on the same tensor; an op with an
+``mx.np.ndarray`` input returns one (``_invoke``'s ``wrap``). Left out:
+``__reduce__``
 (pickling; ``nd.save`` is the port's format) and ``asnumpy_or_self``.
 """
 from __future__ import annotations
@@ -37,6 +39,7 @@ import numpy as _np
 import torch
 
 from .. import _amp_core
+from .. import faults as _faults
 from ..base import canonical_dtype, numpy_dtype
 from ..context import Context, current_context
 from ..ops import registry as _reg
@@ -67,6 +70,8 @@ class NDArray:
     """An n-dimensional array on one device."""
 
     __slots__ = ("_data", "_grad_req")
+    # mx.np.ndarray sets it: an op with such an input returns that class
+    _np_frontend = False
 
     def __init__(self, data, ctx=None, dtype=None):
         if isinstance(data, NDArray):
@@ -121,7 +126,10 @@ class NDArray:
     def asnumpy(self) -> _np.ndarray:
         """Copy to host (waits for the device); bfloat16 widens to
         float32. A copy on the CPU too: later updates in place do not show
-        through."""
+        through. Hits the ``host.sync`` fault point first (JAX
+        ``_bounded_block``, :224)."""
+        if _faults.ARMED:
+            _faults.point("host.sync")
         t = self._data.detach()
         return t.to("cpu", dtype=canonical_dtype(numpy_dtype(t.dtype)),
                     copy=True).numpy()
@@ -135,14 +143,16 @@ class NDArray:
 
     def wait_to_read(self):
         """Block until the array's producers have finished (a device
-        synchronise on a card)."""
+        synchronise on a card), after the ``host.sync`` fault point."""
+        if _faults.ARMED:
+            _faults.point("host.sync")
         if self._data.device.type == "cuda":
             torch.cuda.synchronize(self._data.device)
 
     def as_in_context(self, ctx: Context) -> "NDArray":
         if ctx == self.context:
             return self
-        return NDArray(self._data.to(ctx.torch_device()))
+        return self._like(self._data.to(ctx.torch_device()))
 
     as_in_ctx = as_in_context
 
@@ -170,7 +180,7 @@ class NDArray:
         return _invoke("copy", [self], {})
 
     def detach(self) -> "NDArray":
-        return NDArray(self._data.detach())
+        return self._like(self._data.detach())
 
     def item(self):
         return self.asscalar()
@@ -181,6 +191,20 @@ class NDArray:
     def to_device(self, ctx):
         return self.as_in_context(ctx)
 
+    def as_np_ndarray(self):
+        """This array as an ``mx.np.ndarray`` (the same tensor)."""
+        from ..numpy import ndarray
+
+        return ndarray(self._data)
+
+    def as_nd_ndarray(self):
+        """This array as a legacy NDArray (the same tensor)."""
+        return NDArray(self._data)
+
+    def _like(self, tensor):
+        """``tensor`` in this array's frontend class (mx.np or NDArray)."""
+        return type(self)(tensor) if self._np_frontend else NDArray(tensor)
+
     def _rebind(self, tensor):
         """Swap the underlying tensor (the mutation primitive)."""
         self._data = tensor
@@ -188,7 +212,7 @@ class NDArray:
     def __getitem__(self, key):
         if isinstance(key, NDArray):
             key = key._data
-        return NDArray(self._data[key])
+        return self._like(self._data[key])
 
     def __setitem__(self, key, value):
         """``x[key] = value``: the array is rebound to a copy with the
@@ -519,7 +543,7 @@ class NDArray:
         if self._data.grad is None:
             self._data.grad = torch.zeros_like(
                 self._data, memory_format=torch.contiguous_format)
-        return NDArray(self._data.grad)
+        return self._like(self._data.grad)
 
     def backward(self, out_grad=None, retain_graph=False, train_mode=True):
         from .. import autograd
@@ -528,14 +552,44 @@ class NDArray:
                           retain_graph=retain_graph, train_mode=train_mode)
 
 
-def _invoke(op_name, nd_inputs, kwargs):
+def _wrap_class(nd_inputs):
+    """The output class of an op on ``nd_inputs``: ``mx.np.ndarray`` when
+    one input is one (JAX :645-656), else NDArray; one attribute read an
+    input."""
+    for x in nd_inputs:
+        if x._np_frontend:
+            return type(x)
+    return NDArray
+
+
+def _invoke(op_name, nd_inputs, kwargs, wrap=None):
+    """Run op ``op_name`` on the arrays' tensors. ``wrap`` is the output
+    class (NDArray, or ``mx.np.ndarray`` for the NumPy frontend); by
+    default the inputs' (:func:`_wrap_class`)."""
+    # the op's schema: a misspelt keyword raises OpParamError here, and
+    # dmlc strings are coerced (one frozen-key lookup once seen)
+    kwargs = _reg.checked(op_name, kwargs)
+    if wrap is None:
+        wrap = _wrap_class(nd_inputs)
     tensors = [x._data for x in nd_inputs]
     if _amp_core.ACTIVE:   # amp.init(): the op's AMP cast
         tensors = _amp_core.cast_inputs(_reg.canonical(op_name), tensors)
     out = _reg.get(op_name)(*tensors, **kwargs)
     if isinstance(out, (tuple, list)):
-        return tuple(NDArray(o) for o in out)
-    return NDArray(out)
+        return tuple(wrap(o) for o in out)
+    return wrap(out)
+
+
+def _invoke_fn(fn, nd_inputs, wrap=None):
+    """Run the function ``fn`` of tensors on the arrays' tensors as if it
+    were an op (fancy indexing, frontend helpers; JAX ``_invoke_fn``,
+    :724-731), with :func:`_invoke`'s output class."""
+    if wrap is None:
+        wrap = _wrap_class(nd_inputs)
+    out = fn(*[x._data for x in nd_inputs])
+    if isinstance(out, (tuple, list)):
+        return tuple(wrap(o) for o in out)
+    return wrap(out)
 
 
 def invoke(op_name, *nd_inputs, **kwargs):

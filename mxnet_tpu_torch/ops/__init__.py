@@ -10,6 +10,7 @@ from . import quantization  # noqa: F401
 from . import random_ops  # noqa: F401
 from . import custom  # noqa: F401
 from . import contrib_ops  # noqa: F401
-from . import la_op  # noqa: F401  (last: aliases every linalg_* op)
+from . import la_op  # noqa: F401  (aliases every linalg_* op)
+from . import numpy_ops  # noqa: F401
 
 __all__ = ["registry"]

@@ -105,7 +105,10 @@ def _window_sum(x, kernel, stride):
 _MAX_POOL = {1: F.max_pool1d, 2: F.max_pool2d, 3: F.max_pool3d}
 
 
-@register("Pooling")
+@register("Pooling", param_specs={
+    "pool_type": {"choices": ("max", "avg", "sum", "lp"),
+                  "doc": "Pooling reduction"},
+    "pooling_convention": {"choices": ("valid", "full", "same")}})
 def _pooling(data, kernel=(), pool_type="max", stride=(), pad=(),
              global_pool=False, pooling_convention="valid", cudnn_off=False,
              count_include_pad=True, layout=None):
@@ -220,7 +223,10 @@ _ACTIVATIONS = {
 }
 
 
-@register("Activation")
+@register("Activation", param_specs={
+    "act_type": {"choices": ("relu", "sigmoid", "tanh", "softrelu",
+                             "softsign"),
+                 "doc": "Activation function to apply"}})
 def _activation(data, act_type="relu"):
     if act_type not in _ACTIVATIONS:
         raise ValueError(f"unknown Activation act_type {act_type!r}; "
@@ -268,11 +274,15 @@ def _leaky_relu(data, gamma=None, act_type="leaky", slope=0.25,
     raise ValueError(f"unknown LeakyReLU act_type {act_type}")
 
 
-@register("Dropout")
-def _dropout(data, p=0.5, training=False, generator=None, axes=()):
+@register("Dropout", param_specs={
+    "p": {"low": 0.0, "high": 1.0, "doc": "Fraction of units to drop"}})
+def _dropout(data, p=0.5, training=False, generator=None, axes=(),
+             mode="training", cudnn_off=False):
     """Identity unless ``training``. When training, the keep mask is
     drawn from ``generator``, a ``torch.Generator`` on ``data``'s device,
-    which the caller must pass."""
+    which the caller must pass. ``mode`` is resolved into ``training`` by
+    the frontends (``nd.Dropout``, ``gluon.nn.Dropout``) and, with
+    ``cudnn_off``, is accepted for the JAX op's schema."""
     if not training or p <= 0:
         return data
     if generator is None:

@@ -481,7 +481,7 @@ def _split_v2_indices(indices):
     return idx
 
 
-@register("split_v2", aliases=("_split_v2",), num_outputs=lambda n_in, kw:
+@register("split_v2", num_outputs=lambda n_in, kw:
           int(kw["sections"]) if kw.get("sections")
           else len(_split_v2_indices(kw.get("indices", ()))) + 1)
 def _split_v2(data, indices=(), axis=0, squeeze_axis=False, sections=0):
@@ -670,7 +670,7 @@ def _multi_sum_sq(*arrays, num_arrays=1):
     return torch.stack([torch.sum(torch.square(a)) for a in arrays])
 
 
-@register("unravel_index", aliases=("_unravel_index",))
+@register("unravel_index")
 def _unravel_index(data, shape=()):
     """Flat indices -> coordinates, ``(ndim,) + data.shape``, int32;
     out-of-range indices are clipped, as ``jnp.unravel_index`` does."""
@@ -683,7 +683,7 @@ def _unravel_index(data, shape=()):
     return torch.stack(coords[::-1], dim=0).to(torch.int32)
 
 
-@register("ravel_multi_index", aliases=("_ravel_multi_index",))
+@register("ravel_multi_index")
 def _ravel_multi_index(data, shape=()):
     """Coordinates ``(ndim, N)`` -> flat indices, int32; each coordinate
     clipped into its axis."""

@@ -130,6 +130,7 @@ import torch
 
 from .. import autograd
 from .. import compile as _compile
+from .. import faults as _faults
 from .. import lr_scheduler as _sched
 from .. import random as _random
 from ..base import MXNetError
@@ -673,6 +674,11 @@ class ShardedTrainer:
             self._place_params()
         t0 = time.perf_counter()
         x_raw, y_raw = self._put_batch(x), self._put_batch(y)
+        if _faults.ARMED:
+            # raise/delay/kill, or a NaN-poisoned batch for the nan guard
+            # to absorb; fired here, in the host code before the
+            # (captured) step, never inside its graph (JAX :710-713)
+            x_raw = _faults.point("trainer.step", x_raw)
         _tsteps.phase("h2d", (time.perf_counter() - t0) * 1e3)
         self._t += 1
         self._fill_scalars(self._t)

@@ -201,6 +201,10 @@ class Symbol:
     def name(self):
         return self._entries[0][0].name if len(self._entries) == 1 else None
 
+    def __len__(self):
+        """The number of outputs (MXNet's ``len(sym)``)."""
+        return len(self._entries)
+
     def __getitem__(self, index):
         if isinstance(index, str):
             for e in self._entries:
@@ -768,6 +772,10 @@ def _apply_op(op_name, args, kwargs):
     sym_kwargs = {k: v for k, v in kwargs.items() if isinstance(v, Symbol)}
     static = {k: v for k, v in kwargs.items()
               if not isinstance(v, Symbol) and k not in _RUNTIME_PARAMS}
+    # the op's schema checks and coerces the attributes here, at
+    # construction (JAX :872-877); a copy, since node attributes change
+    # later and the checked dict is the registry's cached one
+    static = dict(_registry.checked(op, static))
     name = _name.current().get(name, op_name.lower().lstrip("_"))
     layer_params = _LAYER_PARAMS.get(op, {})
     inputs = []
@@ -858,7 +866,11 @@ def load_json(json_str):
         except KeyError:
             raise MXNetError(f"node {rn['name']!r}: op {rn['op']!r} is not "
                              "ported") from None
-        built.append(_Node(op, rn["name"], _coerce_attrs(op, attrs)))
+        attrs = _coerce_attrs(op, attrs)
+        # a bad attribute raises OpParamError here, at load (JAX :1009)
+        clean = _registry.checked(
+            op, {k: v for k, v in attrs.items() if not _is_dunder(k)})
+        built.append(_Node(op, rn["name"], {**attrs, **clean}))
     for rn, node in zip(raw_nodes, built):
         node.inputs = [(built[i], oi) for i, oi, *_ in rn["inputs"]]
         if not node.is_var:

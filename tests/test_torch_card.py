@@ -79,6 +79,12 @@ run on a machine that has only PyTorch:
   gradients as they are; quantize_mnist's int8 graph
   bound in an inference executor replaying with no host sync, equal to
   its eager forward and to the CPU's.
+* the NumPy frontend: every small case of ``chip_smoke.np_cases()`` (one
+  or more per name of ops/numpy_ops.py) and of ``NP_SCHEMA_CASES`` on the
+  card against the CPU within its family's tolerance (``NP_TOL``, exact
+  ops bit for bit), samplers repeating under one seed; one np-mode step
+  of a 2-layer classifier at BERT-base width equal to the NDArray-mode
+  step bit for bit, its output and loss ``mx.np.ndarray``.
 """
 import math
 
@@ -2871,3 +2877,55 @@ def test_int8_forward_replays_with_no_host_sync(cuda_device):
     assert kernels.launch_counts()["int8_gemm"] - before == 2 * 3
     np.testing.assert_array_equal(out.asnumpy(), eager)
     np.testing.assert_array_equal(eager, cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["exact", "ulp", "reduce", "linalg",
+                                    "sampler"])
+def test_np_cases_on_card_against_the_cpu(cuda_device, family):
+    from chip_smoke import (NP_SCHEMA_CASES, np_case_close, np_cases,
+                            np_run_case)
+
+    bad = []
+    for i, case in enumerate(np_cases() + NP_SCHEMA_CASES):
+        if case[3] != family:
+            continue
+        if family == "sampler":
+            mx.random.seed(5)
+            card = np_run_case(case, mx.gpu(0), i)
+            mx.random.seed(5)
+            again = np_run_case(case, mx.gpu(0), i)
+            if not all(np.array_equal(a, b) for a, b in zip(card, again)):
+                bad.append((case[0], "repeat"))
+        else:
+            card = np_run_case(case, mx.gpu(0), i)
+        host = np_run_case(case, mx.cpu(), i)
+        if len(card) != len(host) or not all(
+                np_case_close(family, a, b) for a, b in zip(card, host)):
+            bad.append(case[0])
+    assert not bad, bad
+
+
+@pytest.mark.gpu
+def test_np_mode_step_equals_nd_mode_step(cuda_device):
+    """One gluon.Trainer Adam step of the fine-tune classifier (BERT-base
+    width, 2 layers, batch 4) fed mx.np arrays equals the same step fed
+    mx.nd arrays, loss and weights bit for bit."""
+    from chip_smoke import (BERT_BASE, make_task, np_mode_steps,
+                            random_params)
+
+    cfg = dict(BERT_BASE, layers=2)
+    weights = random_params(cfg, seed=0)
+    x, y = make_task(4, cfg["seq_len"], cfg["vocab"], cfg["num_classes"],
+                     seed=1)
+    got = {}
+    for np_mode in (True, False):
+        losses, last, clf, _, _ = np_mode_steps(
+            mx.gpu(0), cfg, weights, [(x, y)], np_mode, True, 1e-4, 1e-4)
+        got[np_mode] = (losses, last["classes"], [
+            p.data()._data.cpu() for p in clf.collect_params().values()])
+    assert got[True][0] == got[False][0]
+    assert got[True][1] == ("ndarray", "ndarray")
+    assert got[False][1] == ("NDArray", "NDArray")
+    for a, b in zip(got[True][2], got[False][2]):
+        assert torch.equal(a, b)

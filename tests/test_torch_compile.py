@@ -467,15 +467,18 @@ def test_counts_from_many_threads_are_not_lost():
     assert wrapper.launches_by_path["fast"] == 2 * threads * calls
 
 
-def test_a_capture_failure_names_the_op():
+def test_a_capture_failure_names_the_op(monkeypatch):
     """What ``CaptureError`` reports: the innermost registered op of the
     exception's traceback (here raised on the CPU, where nothing is
-    captured)."""
+    captured). The op's schema lets ``act_type="softsign"`` through, and
+    the op's body, without its table entry, raises."""
+    from mxnet_tpu_torch.ops import nn as ops_nn
+
     net = nn.HybridSequential()
     with net.name_scope():
-        net.add(nn.Activation("relu"))
+        net.add(nn.Activation("softsign"))
     net.initialize(ctx=CPU)
-    net[0]._act_type = "nope"
+    monkeypatch.delitem(ops_nn._ACTIVATIONS, "softsign")
     net.hybridize()
     with pytest.raises(ValueError) as info:
         net(_x())

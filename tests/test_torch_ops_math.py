@@ -28,8 +28,11 @@ def _rand(*shape, seed=0, lo=-2.0, hi=2.0):
 
 def _jax(name, arrays, kw, argnums, heads):
     """The JAX op's outputs (a list) and, for ``argnums``, its
-    gradients from ``heads``."""
+    gradients from ``heads``; the keywords pass the op's schema first,
+    as in the JAX ``_invoke`` (``Operator.checked``), since the port's
+    ``invoke`` coerces them so too."""
     fn = jreg.get(name).fn
+    kw = jreg.get(name).check_kwargs(kw)
     args = [jnp.asarray(a) for a in arrays]
 
     def f(*diff):
