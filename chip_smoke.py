@@ -13210,7 +13210,7 @@ NP_SCHEMA_CASES = [
      {"use_global_stats": True}, "ulp")]
 
 
-def _moments(draws):
+def _draw_moments(draws):
     """Mean and variance of ``draws`` (float64 sums on the card) and the
     standard errors of both (the second from the sample's fourth central
     moment)."""
@@ -13419,7 +13419,7 @@ def _np_surface_realistic():
     for name, (draw, mean, var) in _NP_MOMENTS.items():
         with gpu:
             d = draw(mnp, (s["draws"],))._data
-        got_mean, got_var, se_mean, se_var = _moments(d)
+        got_mean, got_var, se_mean, se_var = _draw_moments(d)
         z = (abs(got_mean - mean) / se_mean, abs(got_var - var) / se_var)
         moments[name] = {"mean": got_mean, "var": got_var,
                          "want": [mean, var], "z": list(z),

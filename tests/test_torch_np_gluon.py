@@ -165,3 +165,17 @@ def test_c33_softmax_length_masks_unlike_the_jax_package():
     onp.testing.assert_allclose(p, em / em.sum(-1, keepdims=True),
                                 rtol=1e-5, atol=1e-7)
     assert (p[~mask] == 0).all()
+
+
+def test_gluon_loss_takes_np_arrays_unchanged():
+    """``gluon.loss`` on mx.np arrays: an mx.np result equal to the same
+    loss on NDArrays bit for bit, in both packages' classes."""
+    rs = onp.random.RandomState(3)
+    logits = rs.randn(BATCH, CLASSES).astype(onp.float32)
+    label = rs.randint(0, CLASSES, BATCH).astype(onp.float32)
+    for pkg, m in ((mx, np), (jmx, jmx.np)):
+        loss = pkg.gluon.loss.SoftmaxCrossEntropyLoss()
+        got = loss(m.array(logits), m.array(label))
+        want = loss(pkg.nd.array(logits), pkg.nd.array(label))
+        assert type(got) is m.ndarray
+        onp.testing.assert_array_equal(got.asnumpy(), want.asnumpy())

@@ -46,3 +46,21 @@ def test_the_jax_eager_ops_are_host_ops():
     assert {n for n in registry.list_ops() if registry.is_host(n)
             and _numpy_frontend(n)} - set(eager) == {"_npi_eigh",
                                                      "_npi_eigvalsh"}
+
+
+def test_chip_smoke_defines_each_top_level_name_once():
+    """A second definition of a helper in chip_smoke.py silently replaces
+    the first for every phase that calls it."""
+    import ast
+    import collections
+    import pathlib
+
+    src = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    names = collections.Counter()
+    for node in ast.parse(src.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names[node.name] += 1
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets
+                         if isinstance(t, ast.Name))
+    assert [n for n, c in names.items() if c > 1] == []
