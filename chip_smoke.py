@@ -503,6 +503,32 @@ Phases, each printing one JSON line:
     ``np.einsum`` at the attention scores' shape, ``np.linalg`` at
     ``LINALG_CHECK``'s batch, a boolean mask on a BERT-base activation
     and the samplers' moments over 10^7 draws.
+42. preempt_drain: the fine-tune (``ShardedTrainer("adam")``, captured
+    step, dropout 0.1) in a child process with ``MXNET_TPU_PREEMPT=1``
+    and a ``CheckpointManager``; a real SIGTERM after step 7, the drain
+    (the step in flight finishes, ``DrainRequested``, the trainer's final
+    checkpoint with the exact step and data position, exit 75); a
+    second child resumes to step 20; every loss bit for bit against an
+    uninterrupted run; the SIGTERM-to-exit and checkpoint seconds.
+43. watchdog_stall: a child armed by ``MXNET_TPU_WATCHDOG=
+    "trainer.step:5,action:raise"`` meets a hung step (``StallError``
+    within deadline + 1 s, the warning first, a crash bundle); 20
+    bounded steps bit for bit against 20 inline; a bounded bfloat16
+    autocast step under ``npx.set_np()`` (an ``mx.np`` loss, the inline
+    value); the bounded step's cost, A B B A, and the bounded point's
+    own cost (no-op, thread start, wake-up).
+44. estimator_fit: ``Estimator.fit`` (the card by default) on the
+    hybridized classifier with ``gluon.Trainer("adam")``, 2 epochs of 10
+    batches, the stock handlers, a drain requested in epoch 2:
+    ``SystemExit(75)``, the mid-epoch checkpoint resumed bit for bit;
+    batch ms against a plain gluon loop.
+45. serve_drain: ``ModelServer.run_until_drained`` in a child at
+    BERT-base width behind HTTP, requests from 4 threads, a SIGTERM:
+    every admitted request answered (within ``SERVE_TOL`` of the block),
+    503 during the drain, exit 75; a ``serving.batch`` deadline and a
+    hung batch (its request fails typed, ``stalled_batches`` 1, the next
+    answered); ``mx.profiler`` with ``profile_device=True`` (the device
+    trace's K3 kernels equal the launch counter); ``mx.runtime``.
 
 The twobit phase also holds the single-tensor compress and the
 decompress in float16 and bfloat16 bit for bit against their plain
@@ -523,8 +549,8 @@ lstm_ptb_bucketing; K1 with its launches in the MobileNet v2 fit and
 none in its NAG fit, its launches under dist_async and none in the
 row-sparse FM; K2 with its launches in dcgan and none under
 "lamb"; K6 and K7 with their half-precision times; K2, K3 and K3-bwd
-with their launches in bert_base_sst2_finetune_zero), the
-card's name and power limit,
+with their launches in bert_base_sst2_finetune_zero and in the
+lifecycle phases), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Any failure is an
 exception and a non-zero exit. ``--phases`` runs a subset (device and
 build always run) and then prints no result line.
@@ -13442,6 +13468,1002 @@ def _batched_invariant(kind, outs):
     return outs
 
 
+# ------------------------------------------------------------ lifecycle ---
+# the run's lifecycle on the fine-tune cell (BERT-base, "adam", batch 32,
+# seq 128, dropout on): preemption drains, the stall watchdog, the
+# Estimator and a draining server. Phases that kill or wedge a process
+# run it as a child of this script (``--child``), so an abandoned waiter
+# thread never outlives its phase.
+LIFECYCLE = {"batch": 32, "lr": 1e-4, "wd": 1e-4, "dropout": 0.1,
+             "seed": 11, "data_seed": 7, "steps": 20, "sigterm_after": 7,
+             "stall_deadline_s": 5.0, "stall_hang_s": 30.0,
+             "bounded_deadline_s": 120.0, "timing_steps": 20,
+             "est_epochs": 2, "est_batches": 10, "est_drain_batch": 5,
+             "serve_threads": 4, "serve_rows": (1, 2, 4, 8),
+             "serve_before_sigterm_s": 3.0, "reject_grace_s": 1.5,
+             "serve_stall_deadline_s": 2.0, "serve_hang_s": 4.0,
+             "profile_requests": 8, "child_timeout_s": 300}
+LIFECYCLE_WANT = {"flash_attention": 12, "flash_attention_bwd_dq": 12,
+                  "flash_attention_bwd_dkv": 12, "opt_adam": 1}
+
+
+def _lifecycle_classifier(ctx, cfg, weights, dropout):
+    """The fine-tune classifier from ``weights`` with ``dropout`` in every
+    encoder cell's attention output and FFN (the example's cells have
+    none)."""
+    clf = _classifier_on(ctx, cfg, weights)
+    for cell in list(clf.encoder._children.values())[1:]:
+        cell.drop._rate = dropout
+        cell.attn.drop._rate = dropout
+    return clf
+
+
+def _lifecycle_trainer(cfg, lc, weights):
+    """A ``ShardedTrainer`` ("adam", ``DeviceMesh({"dp": 1})``, captured
+    step) over the dropout classifier, ``mx.random`` seeded first so
+    every process draws the same dropout masks."""
+    mx.random.seed(lc["seed"])
+    clf = _lifecycle_classifier(mx.gpu(0), cfg, weights, lc["dropout"])
+    return clf, ShardedTrainer(
+        clf, mx.gluon.loss.SoftmaxCrossEntropyLoss(), "adam",
+        {"learning_rate": lc["lr"], "wd": lc["wd"]},
+        mesh=DeviceMesh({"dp": 1}))
+
+
+def _lifecycle_iter(cfg, lc):
+    """The run's data: ``steps`` batches of make_task, in order, as an
+    ``NDArrayIter`` whose position a checkpoint records."""
+    n = lc["steps"] * lc["batch"]
+    x, y = make_task(n, cfg["seq_len"], cfg["vocab"], cfg["num_classes"],
+                     seed=lc["data_seed"])
+    return mx.io.NDArrayIter(x, y, batch_size=lc["batch"])
+
+
+def _lifecycle_steps(st, it, until, on_step=None):
+    """Train ``st`` on ``it`` until step ``until``: ``{step: loss}``.
+    The iterator's position is taken before each batch, so a step that a
+    drain refuses (``DrainRequested``) leaves it where the batch was."""
+    from mxnet_tpu_torch import preempt
+
+    losses = {}
+    while st._t < until:
+        pos = it.state_dict()
+        batch = it.next()
+        try:
+            loss = st.step(batch.data[0], batch.label[0])
+        except preempt.DrainRequested:
+            it.load_state_dict(pos)   # that batch was not trained on
+            raise
+        losses[st._t] = float(loss.asnumpy())
+        if on_step is not None:
+            on_step(st._t, losses[st._t])
+    return losses
+
+
+def _child_write(out, kind, rec):
+    path = Path(out) / f"{kind}.json"
+    path.write_text(json.dumps(rec))
+
+
+def _child_preempt_train(out):
+    """preempt_drain's child: trains the cell with ``MXNET_TPU_PREEMPT=1``
+    (the trainer installs the handlers) through a ``CheckpointManager``,
+    printing ``STEP <t> <loss>`` after each step; on a drain request the
+    refused step hands off to ``preempt.drain()`` (the trainer's final
+    checkpoint, the drain record, exit 75). With ``SMOKE_RESUME=1`` it
+    first resumes the newest checkpoint and its data position."""
+    from mxnet_tpu_torch import preempt
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+
+    cfg, lc = BERT_BASE, LIFECYCLE
+    resume = os.environ.get("SMOKE_RESUME") == "1"
+    kind = "preempt_resume" if resume else "preempt_train"
+    it = _lifecycle_iter(cfg, lc)
+    clf, st = _lifecycle_trainer(cfg, lc, random_params(cfg, seed=0))
+    mgr = CheckpointManager(os.path.join(out, "ckpt"), prefix="bert",
+                            keep=3)
+    rec = {"installed": preempt.installed(), "steps": {}}
+    t0 = time.perf_counter()
+    if resume:
+        entry = st.resume(mgr, data_iter=it)
+        rec["resumed"] = {"epoch": entry["epoch"], "step": entry["step"],
+                          "drain": (entry.get("meta") or {}).get("drain"),
+                          "trainer_t": st._t}
+        rec["resume_s"] = time.perf_counter() - t0
+    else:
+        st.save_checkpoint(mgr, 0, data_iter=it)   # the drain's target
+        rec["periodic_save_s"] = time.perf_counter() - t0
+    kernels.reset_launch_counts()
+
+    def report(t, loss):
+        rec["steps"][str(t)] = loss
+        print(f"STEP {t} {loss!r}", flush=True)
+
+    try:
+        _lifecycle_steps(st, it, lc["steps"], report)
+    except preempt.DrainRequested:
+        torch.cuda.synchronize()
+        rec.update(launches=_counts(), drain_step=st._t)
+        _child_write(out, kind, rec)
+        t0 = time.perf_counter()
+        try:
+            preempt.drain()   # the final checkpoint, the record, exit 75
+        finally:
+            rec["drain_s"] = time.perf_counter() - t0
+            rec["drain_event"] = preempt.last_drain()
+            _child_write(out, kind, rec)
+    torch.cuda.synchronize()
+    rec["launches"] = _counts()
+    _child_write(out, kind, rec)
+    return 0
+
+
+def _child_watchdog_stall(out):
+    """watchdog_stall's child: the trainer armed by
+    ``MXNET_TPU_WATCHDOG="trainer.step:5,action:raise"`` from the
+    environment, warmed up (one capture, no step, outside the bounded
+    step), two steps, then a ``hang`` fault at ``trainer.step``: the
+    step raises ``StallError`` within the deadline, after the warning,
+    with a crash bundle. Exits without waiting for the wedged waiter."""
+    from mxnet_tpu_torch import faults, watchdog
+
+    cfg, lc = BERT_BASE, LIFECYCLE
+    logs = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            logs.append((time.monotonic(), record.levelname,
+                         record.getMessage()))
+
+    logging.getLogger("mxnet_tpu.watchdog").addHandler(Keep())
+    it = _lifecycle_iter(cfg, lc)
+    clf, st = _lifecycle_trainer(cfg, lc, random_params(cfg, seed=0))
+    b = it.next()
+    t0 = time.perf_counter()
+    st.warmup(b.data[0], b.label[0])
+    rec = {"watchdog": watchdog.describe(), "warmup_s":
+           time.perf_counter() - t0}
+    rec["losses"] = list(_lifecycle_steps(st, it, 2).values())
+    faults.configure(f"trainer.step:hang@1:{lc['stall_hang_s']}")
+    b = it.next()
+    t0 = time.monotonic()
+    try:
+        st.step(b.data[0], b.label[0])
+        raise AssertionError("watchdog_stall: the hung step returned")
+    except watchdog.StallError as e:
+        raised = time.monotonic()
+        rec["stall"] = {"point": e.point, "label": e.label,
+                        "elapsed_s": e.elapsed, "deadline_s": e.deadline,
+                        "raised_after_s": raised - t0, "bundle": e.bundle}
+    bundle = rec["stall"]["bundle"]
+    files = sorted(os.listdir(bundle))
+    threads = Path(bundle, "threads.txt").read_text()
+    beats = json.loads(Path(bundle, "heartbeats.json").read_text())
+    report = json.loads(Path(bundle, "report.json").read_text())
+    rec["bundle_files"] = files
+    # the waiter's stack (runner -> the step -> the fault's sleep) and
+    # the caller's, waiting in _bounded
+    rec["bundle_threads_has_waiter"] = " in runner" in threads and \
+        " in _step_exec" in threads and " in _bounded" in threads
+    rec["bundle_threads_has_hang"] = "faults.py" in threads
+    rec["bundle_beats"] = len(beats)
+    rec["bundle_beat_points"] = sorted({b["point"] for b in beats})
+    rec["bundle_memory"] = report.get("memory")
+    order = [(lvl, msg[:120]) for t, lvl, msg in logs]
+    warn = [i for i, (lvl, m) in enumerate(order)
+            if "has been blocking" in m]
+    err = [i for i, (lvl, m) in enumerate(order)
+           if "crash bundle written" in m]
+    rec["log"] = order
+    rec["warned_first"] = bool(warn and err and warn[0] < err[0])
+    _child_write(out, "watchdog_stall", rec)
+    print("CHILD_OK watchdog_stall", flush=True)
+    sys.stdout.flush()
+    os._exit(0)   # the waiter stays wedged in its hang: leave it
+
+
+def _child_serve_drain(out):
+    """serve_drain's child: the classifier at BERT-base width behind
+    ``ModelServer`` and the HTTP front end, in
+    ``run_until_drained(exit=False)`` (its handlers installed from this
+    main thread); after the drain it keeps the front end up for
+    ``reject_grace_s`` (later requests get 503) and exits with the drain
+    record's code (75)."""
+    from mxnet_tpu_torch.serving.http import HttpFrontEnd
+
+    cfg, lc = BERT_BASE, LIFECYCLE
+    clf = _classifier_on(mx.gpu(0), cfg, random_params(cfg, seed=0))
+    model = serving.ServedModel.from_block("bert_base_sst2", clf,
+                                           example_shape=(cfg["seq_len"],))
+    srv = serving.ModelServer(serving.ModelContainer([model])).start()
+    srv.warmup()
+    front = HttpFrontEnd(srv, port=0).start()
+    kernels.reset_launch_counts()
+    print(f"READY {front.port}", flush=True)
+    ev = srv.run_until_drained(exit=False)
+    time.sleep(lc["reject_grace_s"])
+    torch.cuda.synchronize()
+    st = srv.stats()["models"]["bert_base_sst2"]
+    rec = {"event": {k: ev.get(k) for k in ("signal", "exit_code",
+                                             "final_checkpoint",
+                                             "recorded", "serving")},
+           "stats": {k: st.get(k) for k in (
+               "completed", "failed", "rejected", "batches", "rows",
+               "stalled_batches")},
+           "launches": _counts()}
+    _child_write(out, "serve_drain", rec)
+    front.close()
+    srv.stop()
+    raise SystemExit(ev["exit_code"])
+
+
+CHILDREN = {"preempt_train": _child_preempt_train,
+            "watchdog_stall": _child_watchdog_stall,
+            "serve_drain": _child_serve_drain}
+
+
+class _Child:
+    """One child of this script (``--child kind``) with its stdout lines
+    collected by a reader thread and its stderr in ``<out>/<name>.err``."""
+
+    def __init__(self, kind, out, env=None, name=None):
+        self.name = name or kind
+        self.lines, self.seen = [], threading.Condition()
+        self.err = open(Path(out) / f"{self.name}.err", "w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--child", kind,
+             "--out", str(out)], env=dict(os.environ, **(env or {})),
+            stdout=subprocess.PIPE, stderr=self.err, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        self.t_start = time.monotonic()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            with self.seen:
+                self.lines.append((time.monotonic(), line.rstrip("\n")))
+                self.seen.notify_all()
+        with self.seen:
+            self.seen.notify_all()
+
+    def wait_line(self, pred, timeout):
+        """The first stdout line that satisfies ``pred`` (its text),
+        waiting at most ``timeout`` seconds."""
+        end = time.monotonic() + timeout
+        with self.seen:
+            while True:
+                for t, line in self.lines:
+                    if pred(line):
+                        return line
+                left = end - time.monotonic()
+                if left <= 0 or self.proc.poll() is not None and \
+                        not self._reader.is_alive():
+                    raise AssertionError(
+                        f"child {self.name}: no awaited line in "
+                        f"{timeout:g}s (exit {self.proc.poll()}):\n"
+                        f"{self.tail()}")
+                self.seen.wait(min(left, 0.5))
+
+    def wait(self, timeout):
+        """The exit code; a child past ``timeout`` is killed and fails."""
+        try:
+            rc = self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait()
+            raise AssertionError(f"child {self.name} ran past {timeout}s:\n"
+                                 f"{self.tail()}")
+        self._reader.join(10)
+        return rc
+
+    def tail(self, n=3000):
+        self.err.seek(0)
+        out = "\n".join(line for _, line in self.lines[-20:])
+        return out + "\n--- stderr ---\n" + self.err.read()[-n:]
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self._reader.join(10)
+        self.proc.stdout.close()
+        self.err.close()
+
+
+def _child_json(out, kind):
+    return json.loads((Path(out) / f"{kind}.json").read_text())
+
+
+def _lifecycle_launches(counts, steps, what):
+    """Raises unless ``counts`` are K3 12, K3-bwd 12 + 12 and K2 1 a step
+    over ``steps`` steps."""
+    want = {k: v * steps for k, v in LIFECYCLE_WANT.items()}
+    got = {k: counts.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"{what}: launches {got} over {steps} steps, "
+                             f"want {want}")
+    return got
+
+
+def phase_preempt_drain(smi):
+    """preempt_drain: the fine-tune cell (``ShardedTrainer("adam")`` on
+    ``DeviceMesh({"dp": 1})``, captured step, dropout 0.1) trained by a
+    child with ``MXNET_TPU_PREEMPT=1`` and a ``CheckpointManager``; a
+    real SIGTERM once the child reports step ``sigterm_after``; the child
+    finishes the step in flight, the next ``step`` raises
+    ``DrainRequested``, ``preempt.drain()`` writes the trainer's final
+    checkpoint (``meta.drain``, the exact step, the data position) and
+    the drain record, and the child exits 75. A second child resumes it
+    and trains to step 20: every loss of both children equals, bit for
+    bit, an uninterrupted 20-step run in this process. Prints the
+    SIGTERM-to-exit seconds and the checkpoint write seconds."""
+    import signal
+    from mxnet_tpu_torch.checkpoint import CheckpointManager
+
+    cfg, lc = BERT_BASE, LIFECYCLE
+    t_phase = time.perf_counter()
+    # the uninterrupted run, here
+    weights = random_params(cfg, seed=0)
+    it = _lifecycle_iter(cfg, lc)
+    clf, st = _lifecycle_trainer(cfg, lc, weights)
+    kernels.reset_launch_counts()
+    ref = _lifecycle_steps(st, it, lc["steps"])
+    torch.cuda.synchronize()
+    ref_launches = _lifecycle_launches(_counts(), lc["steps"],
+                                       "preempt_drain reference")
+    state_bytes = sum(t.numel() * t.element_size()
+                      for t in st._state_tensors().values())
+    del clf, st, weights
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=_scratch_dir()) as out:
+        env = {"MXNET_TPU_PREEMPT": "1",
+               "MXNET_TPU_PREEMPT_DIR": os.path.join(out, "drain"),
+               "MXNET_TPU_CRASH_DIR": os.path.join(out, "crash")}
+        first = _Child("preempt_train", out, env)
+        try:
+            first.wait_line(
+                lambda s: s.startswith(f"STEP {lc['sigterm_after']} "),
+                lc["child_timeout_s"])
+            t_sig = time.monotonic()
+            first.proc.send_signal(signal.SIGTERM)
+            rc = first.wait(lc["child_timeout_s"])
+            sigterm_to_exit = time.monotonic() - t_sig
+        finally:
+            first.close()
+        if rc != 75:
+            raise AssertionError(f"preempt_drain: the drained child exited "
+                                 f"{rc}, want 75:\n{first.tail()}")
+        a = _child_json(out, "preempt_train")
+        mgr = CheckpointManager(os.path.join(out, "ckpt"), prefix="bert")
+        entry = mgr._manifest["checkpoints"][-1]
+        drain_meta = (entry.get("meta") or {}).get("drain") or {}
+        ev = a.get("drain_event") or {}
+        second = _Child("preempt_train", out, dict(env, SMOKE_RESUME="1"),
+                        name="preempt_resume")
+        try:
+            rc2 = second.wait(lc["child_timeout_s"])
+        finally:
+            second.close()
+        if rc2 != 0:
+            raise AssertionError(f"preempt_drain: the resumed child exited "
+                                 f"{rc2}:\n{second.tail()}")
+        b = _child_json(out, "preempt_resume")
+    k = a["drain_step"]
+    got = {int(t): v for t, v in list(a["steps"].items()) +
+           list(b["steps"].items())}
+    checks = {
+        "installed_from_env": a["installed"],
+        "drained_after_sigterm_step": k >= lc["sigterm_after"],
+        "event": ev.get("signal") == "SIGTERM" and ev.get("exit_code") == 75
+        and ev.get("final_checkpoint") == "written",
+        "checkpoint": entry["epoch"] == 1 and entry["step"] == k and
+        drain_meta.get("signal") == "SIGTERM" and
+        (entry.get("meta") or {}).get("data_state", {}).get("cursor") ==
+        (k - 1) * lc["batch"],
+        "resumed_at_drain_step": b["resumed"]["step"] == k and
+        b["resumed"]["trainer_t"] == k,
+        "every_step_once": sorted(got) == list(range(1, lc["steps"] + 1)),
+        "losses_bit_for_bit": all(got.get(t) == ref[t] for t in ref)}
+    launches = {"drained_child": a["launches"],
+                "resumed_child": b["launches"]}
+    _lifecycle_launches(
+        {f: a["launches"].get(f, 0) + b["launches"].get(f, 0)
+         for f in LIFECYCLE_WANT}, lc["steps"], "preempt_drain children")
+    if not all(checks.values()):
+        raise AssertionError(f"preempt_drain: {checks}; reference {ref}; "
+                             f"children {got}; entry {entry}; event {ev}")
+    out_rec = {"phase": "preempt_drain", "card": smi,
+               "cell": "BERT-base fine-tune, ShardedTrainer('adam'), "
+                       "DeviceMesh({'dp': 1}), captured step, dropout "
+                       f"{lc['dropout']}, batch {lc['batch']}",
+               "sigterm_after_step": lc["sigterm_after"], "drain_step": k,
+               "sigterm_to_exit_s": sigterm_to_exit,
+               "drain_s": a.get("drain_s"),
+               "periodic_save_s": a.get("periodic_save_s"),
+               "resume_s": b.get("resume_s"),
+               "state_bytes": state_bytes,
+               "checkpoint_bytes": sum(f["size"] for f in
+                                   entry["files"].values()),
+               "checks": checks, "losses": [ref[t] for t in sorted(ref)],
+               "launches_reference": ref_launches,
+               "launches": launches,
+               "phase_s": time.perf_counter() - t_phase}
+    emit(out_rec)
+    return out_rec
+
+
+def _scratch_dir():
+    """Where lifecycle phases write checkpoints, bundles and traces:
+    ``build/mxnet_tpu_torch/`` beside the kernels."""
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "mxnet_tpu_torch")
+    os.makedirs(d, exist_ok=True)
+    return d
+
+
+def _bounded_losses(cfg, lc, weights, steps, bounded):
+    """``steps`` steps of a fresh lifecycle trainer, ``trainer.step``
+    bounded (``action:raise``) or inline: ``(losses, launches, trainer,
+    iterator)``."""
+    from mxnet_tpu_torch import watchdog
+
+    watchdog.configure({"trainer.step": lc["bounded_deadline_s"]}
+                       if bounded else None)
+    it = _lifecycle_iter(cfg, lc)
+    clf, st = _lifecycle_trainer(cfg, lc, weights)
+    kernels.reset_launch_counts()
+    losses = _lifecycle_steps(st, it, steps)
+    torch.cuda.synchronize()
+    return losses, _counts(), st, it
+
+
+def _np_autocast_step(cfg, lc, weights, bounded):
+    """One step of a fresh lifecycle trainer under ``npx.set_np()`` and
+    bfloat16 autocast, ``trainer.step`` bounded or inline: ``(class of
+    the loss, loss)``."""
+    from mxnet_tpu_torch import npx, watchdog
+
+    watchdog.configure({"trainer.step": lc["bounded_deadline_s"]}
+                       if bounded else None)
+    it = _lifecycle_iter(cfg, lc)
+    clf, st = _lifecycle_trainer(cfg, lc, weights)
+    b = it.next()
+    npx.set_np()
+    try:
+        # no cast cache: the step's first call also captures a graph
+        with torch.autocast("cuda", dtype=torch.bfloat16,
+                            cache_enabled=False):
+            loss = st.step(b.data[0].as_np_ndarray(),
+                           b.label[0].as_np_ndarray())
+    finally:
+        npx.reset_np()
+    return type(loss).__name__, float(loss.asnumpy())
+
+
+def _sync_overhead_us(reps=200):
+    """Median µs of one ``watchdog.sync("trainer.step", fn)`` inline and
+    bounded (a waiter thread a call), for a no-op ``fn`` and for one that
+    allocates on the card: the bounded point's own cost, apart from the
+    step it bounds."""
+    from mxnet_tpu_torch import watchdog
+
+    dev = mx.gpu(0).torch_device()
+    work = {"noop": lambda: None,
+            "card_alloc": lambda: torch.empty(1, device=dev)}
+    out = {}
+    for mode in ("inline", "bounded"):
+        watchdog.configure({"trainer.step": LIFECYCLE["bounded_deadline_s"]}
+                           if mode == "bounded" else None)
+        for name, fn in work.items():
+            ts = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                watchdog.sync("trainer.step", fn)
+                ts.append((time.perf_counter() - t0) * 1e6)
+            out[f"{mode}_{name}"] = statistics.median(ts)
+    watchdog.configure(None)
+    ts = []
+    for _ in range(reps):   # the caller's state, taken and put on
+        t0 = time.perf_counter()
+        with watchdog.carried()():
+            pass
+        ts.append((time.perf_counter() - t0) * 1e6)
+    out["carried_state"] = statistics.median(ts)
+    return out
+
+
+def _thread_handoff_us(reps=200):
+    """Median µs of the two wake-ups a bounded point adds: a new
+    thread's start (``start()`` to its first line) and an ``Event``
+    handed back (``set()`` in the thread to the waiting caller's
+    return); and the interpreter's switch interval."""
+    start, back = [], []
+    for _ in range(reps):
+        box, ev = {}, threading.Event()
+
+        def run():
+            box["ran"] = time.perf_counter()
+            box["set"] = time.perf_counter()
+            ev.set()
+
+        t0 = time.perf_counter()
+        th = threading.Thread(target=run, daemon=True)
+        th.start()
+        ev.wait(10)
+        t1 = time.perf_counter()
+        th.join()
+        start.append((box["ran"] - t0) * 1e6)
+        back.append((t1 - box["set"]) * 1e6)
+    return {"thread_start_us": statistics.median(start),
+            "event_wake_us": statistics.median(back),
+            "switch_interval_s": sys.getswitchinterval()}
+
+
+def phase_watchdog_stall(smi):
+    """watchdog_stall: a child armed by ``MXNET_TPU_WATCHDOG=
+    "trainer.step:5,action:raise"`` meets a ``hang`` fault at
+    ``trainer.step``: ``StallError`` within deadline + 1 s, the warning
+    first, a crash bundle with every thread's traceback and the last
+    beats. Here: 20 captured steps with ``trainer.step`` bounded
+    (``action:raise``) against 20 inline, bit for bit; one bounded step
+    under ``npx.set_np()`` and bfloat16 autocast returns an
+    ``mx.np.ndarray`` and the inline loss; the bounded step's median
+    against the inline one (A B B A, 20 steps a block)."""
+    from mxnet_tpu_torch import watchdog
+
+    cfg, lc = BERT_BASE, LIFECYCLE
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=_scratch_dir()) as out:
+        env = {"MXNET_TPU_WATCHDOG":
+               f"trainer.step:{lc['stall_deadline_s']:g},action:raise",
+               "MXNET_TPU_CRASH_DIR": os.path.join(out, "crash")}
+        child = _Child("watchdog_stall", out, env)
+        try:
+            rc = child.wait(lc["child_timeout_s"])
+        finally:
+            child.close()
+        if rc != 0:
+            raise AssertionError(f"watchdog_stall child exited {rc}:\n"
+                                 f"{child.tail()}")
+        drill = _child_json(out, "watchdog_stall")
+    stall = drill["stall"]
+    drill_checks = {
+        "armed_from_env": drill["watchdog"].get("deadlines") ==
+        {"trainer.step": lc["stall_deadline_s"]},
+        "point": stall["point"] == "trainer.step",
+        "within_deadline_plus_1s": lc["stall_deadline_s"] <=
+        stall["raised_after_s"] <= lc["stall_deadline_s"] + 1.0,
+        "warned_first": drill["warned_first"],
+        "bundle": {"threads.txt", "heartbeats.json", "report.json",
+                   "flight.json"} <= set(drill["bundle_files"]),
+        "tracebacks": drill["bundle_threads_has_waiter"] and
+        drill["bundle_threads_has_hang"],
+        "beats": "trainer.step" in drill["bundle_beat_points"]}
+    if not all(drill_checks.values()):
+        raise AssertionError(f"watchdog_stall drill: {drill_checks}; "
+                             f"{drill}")
+    weights = random_params(cfg, seed=0)
+    n = lc["steps"]
+    inline, inline_counts, st_in, it_in = _bounded_losses(
+        cfg, lc, weights, n, False)
+    bounded, bounded_counts, st_b, it_b = _bounded_losses(
+        cfg, lc, weights, n, True)
+    launches = _lifecycle_launches(bounded_counts, n,
+                                   "watchdog_stall bounded run")
+    if bounded != inline:
+        raise AssertionError(f"watchdog_stall: bounded losses {bounded} "
+                             f"differ from inline {inline}")
+    # cost: A B B A blocks of timed steps on the two warmed trainers,
+    # each on the run's first batch
+    it_in.reset()
+    it_b.reset()
+    b_in, b_b = it_in.next(), it_b.next()
+    blocks = []
+    for mode in ("inline", "bounded", "bounded", "inline"):
+        watchdog.configure({"trainer.step": lc["bounded_deadline_s"]}
+                           if mode == "bounded" else None)
+        st, b = (st_b, b_b) if mode == "bounded" else (st_in, b_in)
+        med, ms = _median_ms(st, b.data[0], b.label[0],
+                             lc["timing_steps"])
+        blocks.append({"mode": mode, "median_ms": med, "step_ms": ms})
+    watchdog.configure(None)
+    med = {m: statistics.median([v for blk in blocks if blk["mode"] == m
+                                 for v in blk["step_ms"]])
+           for m in ("inline", "bounded")}
+    del st_in, st_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    carried = {mode: _np_autocast_step(cfg, lc, weights, mode == "bounded")
+               for mode in ("inline", "bounded")}
+    watchdog.configure(None)
+    if carried["bounded"] != carried["inline"] or \
+            carried["bounded"][0] != "ndarray":
+        raise AssertionError(f"watchdog_stall: np mode and bfloat16 "
+                             f"autocast in the bounded step: {carried}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = {"phase": "watchdog_stall", "card": smi,
+           "drill": {"checks": drill_checks, "stall": stall,
+                     "warmup_s": drill["warmup_s"],
+                     "bundle_files": drill["bundle_files"],
+                     "bundle_beats": drill["bundle_beats"],
+                     "bundle_memory_read": not str(
+                         drill["bundle_memory"]).startswith("<")},
+           "bounded_equals_inline_bit_for_bit": True,
+           "losses": [bounded[t] for t in sorted(bounded)],
+           "launches_bounded": launches,
+           "launches_inline": {k: inline_counts.get(k, 0)
+                               for k in LIFECYCLE_WANT},
+           "np_autocast_bf16_step": {m: {"class": c, "loss": v}
+                                     for m, (c, v) in carried.items()},
+           "timing": {"block_medians_ms": [[b["mode"], b["median_ms"]]
+                                           for b in blocks],
+                      "median_step_ms": med,
+                      "bounded_minus_inline_ms": med["bounded"] -
+                      med["inline"],
+                      "sync_overhead_us": _sync_overhead_us(),
+                      "thread_handoff": _thread_handoff_us(),
+                      "step_ms_by_block": [b["step_ms"] for b in blocks]},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(rec)
+    return rec
+
+
+class _DrainAt(mx.gluon.contrib.estimator.EpochBegin,
+               mx.gluon.contrib.estimator.EpochEnd,
+               mx.gluon.contrib.estimator.BatchBegin,
+               mx.gluon.contrib.estimator.BatchEnd):
+    """An Estimator event handler that asks for a drain at one batch of
+    one epoch (``preempt.request``), and times each batch."""
+
+    def __init__(self, epoch, batch):
+        self.at = (epoch, batch)
+        self.epoch, self.batch = 0, 0
+        self.batch_ms = []
+
+    def epoch_begin(self, estimator, *a, **kw):
+        self.batch = 0
+
+    def epoch_end(self, estimator, *a, **kw):
+        self.epoch += 1
+
+    def batch_begin(self, estimator, *a, **kw):
+        self._t0 = time.perf_counter()
+
+    def batch_end(self, estimator, *a, **kw):
+        from mxnet_tpu_torch import preempt
+
+        self.batch_ms.append((time.perf_counter() - self._t0) * 1e3)
+        self.batch += 1
+        if (self.epoch, self.batch) == self.at:
+            preempt.request("estimator_fit drill")
+
+
+def phase_estimator_fit(smi):
+    """estimator_fit: ``gluon.contrib.estimator.Estimator`` (``context=
+    None``: the card) on the hybridized classifier with
+    ``gluon.Trainer("adam")`` (K2 through ``fused_update_multi``), 2
+    epochs of 10 batches, with ``CheckpointHandler``,
+    ``EarlyStoppingHandler`` and ``LoggingHandler``; ``preempt.request``
+    at batch 5 of epoch 2: ``fit`` raises ``SystemExit(75)`` after a
+    mid-epoch checkpoint, which a new Estimator's
+    ``CheckpointHandler(resume_from_checkpoint=True)`` loads bit for bit.
+    Then the estimator's batch time against a plain gluon loop over the
+    same batches (record, backward, ``Trainer.step``, the same metrics)."""
+    from mxnet_tpu_torch import preempt
+    from mxnet_tpu_torch.gluon.contrib import estimator as est_mod
+
+    cfg, lc = BERT_BASE, LIFECYCLE
+    t_phase = time.perf_counter()
+    weights = random_params(cfg, seed=0)
+    nb = lc["est_batches"]
+    x, y = make_task(nb * lc["batch"], cfg["seq_len"], cfg["vocab"],
+                     cfg["num_classes"], seed=lc["data_seed"])
+    batches = [(mx.nd.array(x[i * lc["batch"]:(i + 1) * lc["batch"]]),
+                mx.nd.array(y[i * lc["batch"]:(i + 1) * lc["batch"]]))
+               for i in range(nb)]
+
+    def net_and_trainer():
+        clf = _classifier_on(mx.gpu(0), cfg, weights)
+        clf.hybridize()
+        return clf, mx.gluon.Trainer(
+            clf.collect_params(), "adam",
+            {"learning_rate": lc["lr"], "wd": lc["wd"]}, kvstore="local")
+
+    loss_fn = mx.gluon.loss.SoftmaxCrossEntropyLoss()
+    with tempfile.TemporaryDirectory(dir=_scratch_dir()) as out:
+        clf, trainer = net_and_trainer()
+        est = est_mod.Estimator(clf, loss_fn, trainer=trainer)
+        drill = _DrainAt(1, lc["est_drain_batch"])
+        ckpt = est_mod.CheckpointHandler(out, model_prefix="bert",
+                                         max_checkpoints=3)
+        handlers = [
+            ckpt, drill,
+            est_mod.EarlyStoppingHandler(est.train_loss_metric,
+                                         patience=lc["est_epochs"]),
+            est_mod.LoggingHandler(log_interval=nb,
+                                   metrics=est.train_metrics)]
+        kernels.reset_launch_counts()
+        code = None
+        try:
+            est.fit(batches, epochs=lc["est_epochs"],
+                    event_handlers=handlers)
+        except SystemExit as e:
+            code = e.code
+        finally:
+            preempt.clear()
+        torch.cuda.synchronize()
+        fitted = nb + lc["est_drain_batch"]
+        launches = _lifecycle_launches(_counts(), fitted,
+                                       "estimator_fit")
+        drained = {k: p.data().asnumpy().copy()
+                   for k, p in clf._collect_params_with_structure().items()}
+        entries = ckpt._manager._manifest["checkpoints"]
+        clf2, trainer2 = net_and_trainer()
+        est2 = est_mod.Estimator(clf2, loss_fn, trainer=trainer2)
+        resume = est_mod.CheckpointHandler(out, model_prefix="bert",
+                                           resume_from_checkpoint=True)
+        resume.train_begin(est2)
+        loaded = {k: p.data().asnumpy() for k, p in
+                  clf2._collect_params_with_structure().items()}
+    same = all(np.array_equal(drained[k], loaded[k]) for k in drained)
+    checks = {"exit_75": code == 75,
+              "checkpoints": [e["epoch"] for e in entries] == [1, 2],
+              "drain_reason": (entries[-1].get("meta") or {}).get(
+                  "drain", {}).get("reason") == "estimator_fit drill",
+              "resumed_epoch": resume.current_epoch == 2,
+              "resumed_params_bit_for_bit": same}
+    if not all(checks.values()):
+        raise AssertionError(f"estimator_fit: {checks}; entries {entries}")
+    # the plain loop over the same batches, with the same metrics
+    clf3, trainer3 = net_and_trainer()
+    metrics = [mx.metric.create("accuracy"), mx.metric.Loss("train_loss")]
+    plain_ms = []
+    for _ in range(2):
+        for xb, yb in batches:
+            t0 = time.perf_counter()
+            with mx.autograd.record():
+                pred = clf3(xb)
+                loss = loss_fn(pred, yb)
+            loss.backward()
+            trainer3.step(xb.shape[0])
+            metrics[0].update([yb], [pred])
+            metrics[1].update(None, [loss])
+            del pred, loss   # as Estimator.fit drops them
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+    est_ms = drill.batch_ms[2:]
+    rec = {"phase": "estimator_fit", "card": smi,
+           "context": str(est.context[0]), "checks": checks,
+           "checkpoint_epochs": [e["epoch"] for e in entries],
+           "launches": launches, "batches_fitted": fitted,
+           "estimator_batch_ms": drill.batch_ms,
+           "plain_batch_ms": plain_ms,
+           "median_batch_ms": {"estimator": statistics.median(est_ms),
+                               "plain": statistics.median(plain_ms[2:])},
+           "phase_s": time.perf_counter() - t_phase}
+    emit(rec)
+    del clf, clf2, clf3, est, est2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _post(port, x, timeout=60):
+    """One predict request: ``(status, body)``; a refused connection is
+    ``(None, None)``."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request("POST", "/v1/models/bert_base_sst2:predict",
+                     json.dumps({"data": x.tolist()}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, json.loads(resp.read())
+    except (ConnectionError, OSError):
+        return None, None
+    finally:
+        conn.close()
+
+
+def _serve_payload(cfg, lc, thread, i):
+    rs = np.random.RandomState(1000 * thread + i)
+    rows = lc["serve_rows"][rs.randint(len(lc["serve_rows"]))]
+    return rs.randint(cfg["num_classes"], cfg["vocab"],
+                      (rows, cfg["seq_len"])).astype(np.float32)
+
+
+def _held_to_block(clf, x, got):
+    with torch.inference_mode():
+        want = clf(mx.nd.array(x)).asnumpy()
+    got = np.asarray(got, np.float32)
+    np.testing.assert_allclose(got, want, rtol=SERVE_TOL, atol=SERVE_TOL)
+    return float(np.abs(got - want).max())
+
+
+def phase_serve_drain(smi):
+    """serve_drain: a child serves the classifier at BERT-base width in
+    ``ModelServer.run_until_drained``; threads here send requests over
+    HTTP, then a SIGTERM: every admitted request is answered (each equal
+    to the block's own output within ``SERVE_TOL``), requests during the
+    drain get 503, and the child exits 75. Here: a ``serving.batch``
+    deadline with a ``hang`` fault at one batch (its request fails typed,
+    ``stalled_batches`` 1, the next batch answered), the same server
+    under ``mx.profiler`` with ``profile_device=True`` (the device
+    trace's K3 kernels equal the launch counter), and
+    ``mx.runtime.Features()``."""
+    import signal
+    from mxnet_tpu_torch import faults, profiler, runtime, watchdog
+    from mxnet_tpu_torch.serving import RequestError
+
+    cfg, lc = BERT_BASE, LIFECYCLE
+    t_phase = time.perf_counter()
+    weights = random_params(cfg, seed=0)
+    clf = _classifier_on(mx.gpu(0), cfg, weights)
+    with tempfile.TemporaryDirectory(dir=_scratch_dir()) as out:
+        child = _Child("serve_drain", out,
+                       {"MXNET_TPU_PREEMPT_DIR": os.path.join(out, "drain")})
+        try:
+            port = int(child.wait_line(lambda s: s.startswith("READY "),
+                                       lc["child_timeout_s"]).split()[1])
+            results, stop = [], threading.Event()
+
+            def client(tid):
+                i = 0
+                while True:
+                    x = _serve_payload(cfg, lc, tid, i)
+                    status, body = _post(port, x)
+                    results.append((time.monotonic(), tid, i, status, body))
+                    i += 1
+                    if status is None or stop.is_set() and status == 503:
+                        return
+
+            threads = [threading.Thread(target=client, args=(t,),
+                                        daemon=True)
+                       for t in range(lc["serve_threads"])]
+            for t in threads:
+                t.start()
+            time.sleep(lc["serve_before_sigterm_s"])
+            t_sig = time.monotonic()
+            child.proc.send_signal(signal.SIGTERM)
+            stop.set()
+            rc = child.wait(lc["child_timeout_s"])
+            exit_s = time.monotonic() - t_sig
+            for t in threads:
+                t.join(60)
+        finally:
+            child.close()
+        if rc != 75:
+            raise AssertionError(f"serve_drain: the child exited {rc}, "
+                                 f"want 75:\n{child.tail()}")
+        served = _child_json(out, "serve_drain")
+    answered = [r for r in results if r[3] == 200]
+    refused = [r for r in results if r[3] == 503]
+    other = [r for r in results if r[3] not in (200, 503, None)]
+    max_err = max(_held_to_block(clf, _serve_payload(cfg, lc, tid, i),
+                                 body["outputs"][0])
+                  for _, tid, i, _, body in answered)
+    st = served["stats"]
+    drain_checks = {
+        "exit_75": rc == 75, "answered": len(answered) > 0,
+        "every_admitted_answered": st["completed"] == len(answered) and
+        st["failed"] == 0,
+        "refused_typed_after_sigterm": len(refused) > 0 and all(
+            t >= t_sig and "drain" in body["error"].lower()
+            for t, _, _, _, body in refused),
+        "no_other_status": not other,
+        "drained": (served["event"]["serving"] or {}).get("drained") is True,
+        "signal": served["event"]["signal"] == "SIGTERM"}
+    if not all(drain_checks.values()):
+        raise AssertionError(f"serve_drain: {drain_checks}; other "
+                             f"{other[:3]}; child {served}")
+    want_k3 = cfg["layers"] * served["stats"]["batches"]
+    if served["launches"].get("flash_attention") != want_k3:
+        raise AssertionError(f"serve_drain: K3 launches "
+                             f"{served['launches']}, want {want_k3}")
+    # the stall and the profiler, in this process
+    model = serving.ServedModel.from_block("bert_base_sst2", clf,
+                                           example_shape=(cfg["seq_len"],))
+    srv = serving.ModelServer(serving.ModelContainer([model])).start()
+    prof = {}
+    try:
+        srv.warmup()
+        with tempfile.TemporaryDirectory(dir=_scratch_dir()) as out:
+            watchdog.configure({"serving.batch":
+                                lc["serve_stall_deadline_s"]},
+                               crash_dir=os.path.join(out, "crash"))
+            faults.configure(f"serving.batch:hang@1:{lc['serve_hang_s']}")
+            x = _serve_payload(cfg, lc, 99, 0)
+            t0 = time.monotonic()
+            try:
+                srv.predict("bert_base_sst2", x, timeout=60)
+                raise AssertionError("serve_drain: the hung batch answered")
+            except RequestError as e:
+                cause = getattr(e, "cause", None) or e.__cause__
+                stall = {"error": type(e).__name__,
+                         "cause": type(cause).__name__,
+                         "failed_after_s": time.monotonic() - t0}
+            for t in threading.enumerate():
+                if t.name == "mxtpu-waiter-serving.batch":
+                    t.join(lc["serve_hang_s"] + 30)
+            faults.reset()
+            x2 = _serve_payload(cfg, lc, 99, 1)
+            got = srv.predict("bert_base_sst2", x2, timeout=60)
+            stall["next_batch_err"] = _held_to_block(clf, x2, got)
+            watchdog.configure(None)
+            stall["stalled_batches"] = srv.stats()["models"][
+                "bert_base_sst2"]["stalled_batches"]
+            if stall["cause"] != "StallError" or \
+                    stall["stalled_batches"] != 1:
+                raise AssertionError(f"serve_drain stall: {stall}")
+            # the profiler, device trace on: up to PROFILE_ATTEMPTS
+            # sessions until the trace holds every K3 launch the counter
+            # saw (a profiler_count line for each one that did not)
+            fname = os.path.join(out, "profile.json")
+            profiler.set_config(filename=fname, profile_device=True)
+            for attempt in range(1, PROFILE_ATTEMPTS + 1):
+                kernels.reset_launch_counts()
+                profiler.reset()
+                profiler.set_state("run")
+                for i in range(lc["profile_requests"]):
+                    srv.predict("bert_base_sst2",
+                                _serve_payload(cfg, lc, 98, i), timeout=60)
+                torch.cuda.synchronize()
+                profiler.set_state("stop")
+                counted = _counts().get("flash_attention", 0)
+                with open(profiler.device_trace_path()) as f:
+                    dev_events = json.load(f)["traceEvents"]
+                traced = sum(1 for e in dev_events
+                             if e.get("cat") == "kernel" and
+                             "flash_fwd_" in e.get("name", ""))
+                if counted == traced:
+                    break
+                emit({"phase": "profiler_count", "at": "serve_drain",
+                      "attempt": attempt, "k3_launch_counter": counted,
+                      "k3_device_trace": traced})
+            profiler.dump()
+            with open(fname) as f:
+                host = json.load(f)["traceEvents"]
+            prof = {"k3_launch_counter": counted, "k3_device_trace": traced,
+                    "attempt": attempt,
+                    "device_kernel_events": sum(
+                        1 for e in dev_events if e.get("cat") == "kernel"),
+                    "serving_events": sum(
+                        1 for e in host if e["name"] ==
+                        "serving[bert_base_sst2]"),
+                    "dumps_rows": profiler.dumps().count("\n") - 1}
+            profiler.set_config(profile_device=False)
+            profiler.reset()
+            if counted != traced or counted == 0 or \
+                    prof["serving_events"] < 1:
+                raise AssertionError(f"serve_drain profiler: {prof}")
+    finally:
+        faults.reset()
+        watchdog.configure(None)
+        srv.drain(timeout=60)
+        srv.stop()
+    features = {k: f.enabled for k, f in runtime.Features().items()}
+    if not (features["CUDA"] and features["PROFILER"]) or features["TPU"]:
+        raise AssertionError(f"serve_drain: runtime.Features {features}")
+    rec = {"phase": "serve_drain", "card": smi,
+           "drain": {"checks": drain_checks, "answered": len(answered),
+                     "refused_503": len(refused),
+                     "refused_connection_after_exit": sum(
+                         1 for r in results if r[3] is None),
+                     "sigterm_to_exit_s": exit_s,
+                     "child_stats": st, "max_abs_err_vs_block": max_err},
+           "launches": served["launches"], "stall": stall,
+           "profiler": prof, "features": features,
+           "phase_s": time.perf_counter() - t_phase}
+    emit(rec)
+    del clf, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
 PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "train_capture", "gluon_hybrid_train", "dropout_capture",
           "int8_gemm", "serve_int8", "capture", "online_update", "decode",
@@ -13459,7 +14481,8 @@ PHASES = ("flash", "serve", "flash_bwd", "opt", "train_check", "train",
           "fm_criteo_row_sparse", "sparse_linear_mf", "dist_sparse_async",
           "quantize_mnist", "resnet50_v1_int8",
           "bert_base_sst2_finetune_amp", "bert_base_np_finetune",
-          "np_surface")
+          "np_surface", "preempt_drain", "watchdog_stall", "estimator_fit",
+          "serve_drain")
 
 
 def _kernel_line(name, source, replaces, launches, err, ms, plain, bound,
@@ -13526,10 +14549,22 @@ def main(argv=None):
     p.add_argument("--worker", choices=sorted(WORKERS),
                    help="run as one worker process of a dist phase (the "
                         "phase starts these itself)")
-    p.add_argument("--out", help="the worker's output directory")
+    p.add_argument("--child", choices=sorted(CHILDREN),
+                   help="run as a child process of a lifecycle phase (the "
+                        "phase starts it itself)")
+    p.add_argument("--out", help="the worker's or child's output directory")
     args = p.parse_args(argv)
     if args.worker:
         return dist_worker(args.worker, args.out)
+    if args.child:
+        if not torch.cuda.is_available():
+            raise SystemExit(f"{args.child} child: torch.cuda.is_available() "
+                             "is false")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+        return CHILDREN[args.child](args.out)
     phases = set(args.phases.split(","))
     if phases - set(PHASES):
         raise SystemExit(f"unknown phases {sorted(phases - set(PHASES))}")
@@ -13681,6 +14716,14 @@ def _run(phases):
         done["bert_base_np_finetune"] = phase_bert_np_finetune(smi)
     if "np_surface" in phases:
         done["np_surface"] = phase_np_surface(smi)
+    if "preempt_drain" in phases:
+        done["preempt_drain"] = phase_preempt_drain(smi)
+    if "watchdog_stall" in phases:
+        done["watchdog_stall"] = phase_watchdog_stall(smi)
+    if "estimator_fit" in phases:
+        done["estimator_fit"] = phase_estimator_fit(smi)
+    if "serve_drain" in phases:
+        done["serve_drain"] = phase_serve_drain(smi)
     _emit_warnings()
     if not set(PHASES) <= set(done):
         print(f"phases run: {sorted(done)}; no result line", flush=True)
@@ -13717,6 +14760,23 @@ def _run(phases):
     # this slice: the np-mode fine-tune's launches a step, hybridized
     npf = done["bert_base_np_finetune"]["launches_per_step"][
         "hybridized_np"]
+
+    # this slice: the lifecycle phases' launches (the drained and the
+    # resumed child of preempt_drain together, watchdog_stall's 20
+    # bounded steps, estimator_fit's 15 batches, serve_drain's child)
+    def lifecycle(family):
+        pd = done["preempt_drain"]["launches"]
+        out = {"launches_preempt_drain": sum(
+                   pd[c].get(family, 0) for c in ("drained_child",
+                                                  "resumed_child")),
+               "launches_watchdog_stall_bounded": done["watchdog_stall"][
+                   "launches_bounded"][family],
+               "launches_estimator_fit": done["estimator_fit"]["launches"][
+                   family]}
+        if family == "flash_attention":
+            out["launches_serve_drain"] = done["serve_drain"][
+                "launches"].get(family, 0)
+        return out
 
     def amp_bf16(part, library):
         return {"ms": amp_att["ms"][part],
@@ -13760,7 +14820,8 @@ def _run(phases):
                      launches_per_step_finetune_amp=amp_step[
                          "flash_attention"],
                      launches_per_step_finetune_np=npf["flash_attention"],
-                     bf16_training_shape=amp_bf16("fwd", "library_fwd"))]
+                     bf16_training_shape=amp_bf16("fwd", "library_fwd"),
+                     **lifecycle("flash_attention"))]
     # K3 and K3-bwd run every product on the tensor cores (3xTF32): their
     # bound is the tensor-core one; the float32 rate's stays beside it
     for part in ("dq", "dkv"):
@@ -13782,6 +14843,7 @@ def _run(phases):
             launches_per_step_finetune_amp=amp_step[
                 f"flash_attention_bwd_{part}"],
             launches_per_step_finetune_np=npf[f"flash_attention_bwd_{part}"],
+            **lifecycle(f"flash_attention_bwd_{part}"),
             bf16_training_shape=amp_bf16(part, "library_bwd"),
             lm_shape={"ms": bwd["lm_shape"]["ms"][part],
                       "plain_ms": bwd["lm_shape"]["ms"][f"{part}_plain"],
@@ -13903,7 +14965,8 @@ def _run(phases):
                               launches_per_step_finetune_amp=amp_step[
                                   "opt_adam"],
                               launches_per_step_finetune_np=npf[
-                                  "opt_adam"]))
+                                  "opt_adam"],
+                              **lifecycle("opt_adam")))
     k4 = done["int8_gemm"]
     lines.append(_kernel_line(
         "int8_gemm", "int8_gemm.cu", "mxnet_tpu/kernels/int8_gemm.py:86",

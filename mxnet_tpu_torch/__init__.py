@@ -68,12 +68,14 @@ __all__ = ["MXNetError", "Context", "cpu", "gpu", "num_gpus",
            "cached_op", "executor", "metric", "callback", "monitor",
            "module", "mod", "operator", "library", "attribute",
            "AttrScope", "amp", "visualization", "viz", "np", "npx",
-           "util", "test_utils", "__version__"]
+           "util", "test_utils", "profiler", "runtime", "watchdog",
+           "preempt", "__version__"]
 
 # loaded at first use, as the JAX package's __init__ :83-93 maps them
 _LAZY = {"np": "numpy", "npx": "numpy_extension", "util": "util",
          "test_utils": "test_utils", "numpy": "numpy",
-         "numpy_extension": "numpy_extension"}
+         "numpy_extension": "numpy_extension", "profiler": "profiler",
+         "runtime": "runtime", "watchdog": "watchdog", "preempt": "preempt"}
 
 
 def __getattr__(name):

@@ -145,8 +145,10 @@ class CachedOp:
         ``mx.np.ndarray`` (MXNet 1.x under ``use_np``; the JAX package
         returns NDArray, ROADMAP C34), from an entry of its own whose
         body sees np arrays, as the eager forward does."""
+        from . import profiler as _profiler
         from .ndarray import NDArray
 
+        prof_t0 = _profiler._now_us() if _profiler._REC_SYMBOLIC else None
         np_mode = any(getattr(a, "_np_frontend", False) for a in args)
         raws = _map(args, _raw, NDArray)
         recording, training = autograd.is_recording(), autograd.is_training()
@@ -164,8 +166,14 @@ class CachedOp:
         if np_mode:
             from .numpy import ndarray
 
-            return _map(out, ndarray, torch.Tensor)
-        return _map(out, NDArray, torch.Tensor)
+            out = _map(out, ndarray, torch.Tensor)
+        else:
+            out = _map(out, NDArray, torch.Tensor)
+        if prof_t0 is not None:
+            _profiler.record_event("CachedOp", prof_t0,
+                                   _profiler._now_us() - prof_t0,
+                                   cat="symbolic")
+        return out
 
     def stats(self):
         """This op's capture statistics (``ServiceFunction.stats``), the

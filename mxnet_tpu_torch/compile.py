@@ -146,6 +146,7 @@ import weakref
 import torch
 
 from . import _amp_core
+from . import profiler as _profiler
 from .base import MXNetError
 
 __all__ = ["jit", "stats", "totals", "reset_stats", "set_enabled",
@@ -169,6 +170,9 @@ _SITES: dict = {}
 _UNCAPTURED: dict = {}  # site -> {reason: calls run uncaptured}
 _REGISTRY: dict = {}  # token key -> weakref(ServiceFunction)
 _tls = threading.local()
+# CUDA graph captures open in the process (any thread): the watchdog's
+# monitor and bundle writer make no CUDA call while one is
+_CAPTURES = 0
 
 
 class CaptureError(MXNetError, RuntimeError):
@@ -188,6 +192,12 @@ def set_enabled(on) -> bool:
     prev = _ENABLED
     _ENABLED = bool(on)
     return prev
+
+
+def capturing() -> bool:
+    """Whether a CUDA graph capture is open in this process (one global
+    read; ``torch.cuda.is_current_stream_capturing`` sees one stream)."""
+    return _CAPTURES > 0
 
 
 def inside() -> bool:
@@ -495,8 +505,10 @@ def _capturing(graph, stream, what, pool=None):
     captures, and the capture would be lost."""
     from . import kernels
 
+    global _CAPTURES
     collecting = gc.isenabled()
     gc.disable()
+    _CAPTURES += 1
     try:
         with kernels.recording(stream) as record, nested(), \
                 torch.cuda.graph(graph, pool=pool, stream=stream,
@@ -517,6 +529,7 @@ def _capturing(graph, stream, what, pool=None):
             f"{what}: the CUDA graph capture failed in {_where(e)}: "
             f"{type(e).__name__}: {e}") from e
     finally:
+        _CAPTURES -= 1
         if collecting:
             gc.enable()
 
@@ -969,6 +982,10 @@ class ServiceFunction:
             self._count(4)
             self._count(5, ms)
         entry.record["ms"] = ms
+        if _profiler._RECORDING:   # the profiler's compile track
+            _profiler.record_compile(self._site, ms,
+                                     "capture" if captured else "compile",
+                                     self._st[0], self._st[1])
 
     def _miss(self, fn, sig, rkey, args, reads):
         """Make the entry for ``sig`` over the reads ``rkey`` and return

@@ -64,7 +64,9 @@ Modes at a point ``faults.point(name, payload=None)``:
              the return value); other payloads fall back to ``nan``
     nan      a numpy array payload comes back as a NaN-poisoned copy
     kill     SIGKILL the process
-    preempt  SIGTERM the process and continue
+    preempt  SIGTERM the process and continue: with
+             :mod:`~mxnet_tpu_torch.preempt`'s handlers installed the
+             signal raises the drain flag and the step finishes
     hang     block the calling thread for ``arg`` seconds
     peerloss parsed, but firing it raises
              :class:`~mxnet_tpu_torch.base.MXNetError`: the elastic gang

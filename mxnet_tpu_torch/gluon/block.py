@@ -187,6 +187,40 @@ class Block:
                 prefix + cname + "."))
         return ret
 
+    def save_parameters(self, filename, deduplicate=False):
+        """Write the parameters to ``filename`` in the ``nd.save``
+        container, keyed by structural name, so a block of any prefix
+        (and the JAX package's ``load_parameters``) reads them back (JAX
+        ``gluon/block.py:158-164``)."""
+        from ..ndarray import utils as nd_utils
+
+        nd_utils.save(filename, {
+            name: p.data() for name, p in
+            self._collect_params_with_structure().items()})
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False):
+        """Read a :meth:`save_parameters` file (this package's or the JAX
+        package's) into the parameters, each keeping its device (JAX
+        :166-181)."""
+        from ..context import cpu
+        from ..ndarray import utils as nd_utils
+
+        loaded = nd_utils.load(filename, ctx=cpu())
+        params = self._collect_params_with_structure()
+        if not allow_missing:
+            for name in params:
+                if name not in loaded:
+                    raise ValueError(f"Parameter {name!r} missing in "
+                                     f"{filename!r}")
+        for name, value in loaded.items():
+            if name not in params:
+                if not ignore_extra:
+                    raise ValueError(f"Parameter {name!r} in file is not "
+                                     "in Block")
+                continue
+            params[name].set_data(value)
+
     def hybridize(self, active=True, **kwargs):
         """Hybridize the children (MXNet 1.x ``Block.hybridize``): a
         plain Block runs its own forward eagerly, its HybridBlock

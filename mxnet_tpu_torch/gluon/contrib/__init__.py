@@ -1,6 +1,7 @@
-"""gluon.contrib: experimental blocks (``nn``)."""
+"""gluon.contrib: experimental blocks (``nn``) and the Estimator
+(``estimator``)."""
 from __future__ import annotations
 
-from . import nn
+from . import estimator, nn
 
-__all__ = ["nn"]
+__all__ = ["estimator", "nn"]

@@ -21,8 +21,11 @@ The fault-injection points are the JAX package's: ``io.fetch`` in each
 ``ImageRecordIter`` batch and ``TokenRecordIter`` read (:1117, :1343),
 and a JPEG record that the batch decode rejects is decoded again under
 ``faults.retry`` before it is zero-filled (:1159). Not ported: the
-multi-card staging of ``DeviceStager`` (``mesh=``, ``shardings=``) and
-the watchdog deadlines. ``PrefetchingIter`` and ``ImageRecordIter`` keep
+multi-card staging of ``DeviceStager`` (``mesh=``, ``shardings=``).
+``PrefetchingIter``'s workers beat ``io.fetch`` as each batch is staged,
+and its join on them is bounded by an ``io.fetch`` watchdog deadline
+(JAX :618-680): a stall abandons the (daemon) workers and sticks until
+``reset()``. ``PrefetchingIter`` and ``ImageRecordIter`` keep
 their ``data_wait_ms`` and stage times, and report each wait to the step
 timeline as the next step's ``data_wait`` phase
 (:mod:`mxnet_tpu_torch.telemetry.steps`, JAX :696-708 and :1254-1266).
@@ -44,6 +47,7 @@ import numpy as _np
 import torch
 
 from .. import faults as _faults
+from .. import watchdog as _watchdog
 from .. import native
 from .. import ndarray as nd
 from ..base import MXNetError
@@ -553,12 +557,15 @@ class PrefetchingIter(DataIter):
         # a fresh slot list each round: an abandoned worker writes only
         # into its own round's list
         slots = self._next_batches = [None] * self.n_iter
+        ctx = current_context()   # a source makes its batch on the caller's
 
         def worker(i, out):
             try:
                 if _faults.ARMED:
                     _faults.point("io.fetch")   # a flaky or wedged source
-                out[i] = self._stage_batch(self.iters[i].next())
+                with ctx:
+                    out[i] = self._stage_batch(self.iters[i].next())
+                _watchdog.beat("io.fetch", f"worker {i} staged")
             except StopIteration:
                 out[i] = None
             except BaseException as e:  # raised at the consumer's next()
@@ -572,13 +579,28 @@ class PrefetchingIter(DataIter):
             t.start()
 
     def _join(self):
-        for t in self._threads:
-            t.join()
-        self._threads = []
+        threads = self._threads
+        if not threads:
+            return
+
+        def join_all():
+            for t in threads:
+                t.join()
+
+        try:
+            _watchdog.sync("io.fetch", join_all, label="prefetch join")
+        finally:
+            self._threads = []
 
     def reset(self):
+        """Clear a sticky error, abandon workers a stall left wedged,
+        reset the sources and stage the first batch again."""
+        stalled = isinstance(self._error, _watchdog.StallError)
         self._error = None
-        self._join()
+        if stalled:
+            self._threads = []
+        else:
+            self._join()
         for it in self.iters:
             it.reset()
         self._delivered = 0

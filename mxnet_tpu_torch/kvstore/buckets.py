@@ -315,12 +315,22 @@ class BucketPipeline:
             if bid in bids:
                 self._dispatch(bid)
         entries = []
+        from .kvstore import bounded_wait
+
         for bid in [b for b in self._inflight if b in bids]:
             keys, metas, handle = self._inflight.pop(bid)
-            if _faults.ARMED:
-                # a peer that stopped reducing mid-bucket (JAX :282)
-                _faults.point("kvstore.sync")
-            entries.append((bid, keys, metas, handle.result()))
+
+            def wait(handle=handle):
+                if _faults.ARMED:
+                    # a peer that stopped reducing mid-bucket (JAX :282)
+                    _faults.point("kvstore.sync")
+                return handle.result()
+
+            entries.append((bid, keys, metas, bounded_wait(
+                self._kv, "bucket_reduce", wait,
+                census=lambda bid=bid: {"bucket": bid,
+                                        "inflight": sorted(self._inflight),
+                                        "staged": sorted(self._staged)})))
         if entries:
             self._kv._apply_resolved(entries)
 

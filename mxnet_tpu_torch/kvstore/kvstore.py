@@ -65,8 +65,18 @@ that round's sum (over workers for ``dist_*``). The JAX package's
 ``_DistKVStore`` returns the stored value plus the pushes instead, so its
 stored value accumulates across rounds (ROADMAP.md section C).
 
-The JAX package's collective-schedule checker, watchdog and fault points
-wait for their modules. Telemetry: ``OP_COUNTS`` feeds
+Lifecycle (JAX :32-89, :135-157, :640-790): every push and pull beats
+the watchdog (``kvstore.push``, ``kvstore.pull``), and a dist store's
+gloo waits (the per-key all-reduce, the row gathers, the barrier, and
+the bucket pipeline's resolve in ``buckets.py``) run under the
+``kvstore.sync`` deadline, past which they raise :class:`PeerLostError`
+(a ``watchdog.StallError``) naming the operation, the rank and the group
+size. The group's own gloo timeout (``base.RENDEZVOUS_TIMEOUT_S``, 300 s,
+given to ``init_process_group``) also bounds each collective: a
+``kvstore.sync`` deadline under 300 s fires first, and without one a
+lost peer surfaces as gloo's ``RuntimeError`` after 300 s. The JAX
+package's collective-schedule checker (``analysis.distcheck``) is not
+ported. Telemetry: ``OP_COUNTS`` feeds
 ``mxtpu_kvstore_ops_total``, and a dist store's pull reports the time it
 waits for its reductions as the step timeline's ``sync`` phase
 (``mxnet_tpu/kvstore/kvstore.py:461-465``).
@@ -80,6 +90,7 @@ import torch
 from .. import faults as _faults
 from .. import kernels as _kernels
 from .. import optimizer as opt_mod
+from .. import watchdog as _watchdog
 from ..base import MXNetError, dtype_name, maybe_init_distributed
 from ..ndarray import NDArray
 from ..ndarray.sparse import RowSparseNDArray, sparse_add
@@ -87,12 +98,56 @@ from ..telemetry import steps as _tsteps
 from . import buckets as _buckets
 from .base import KVStoreBase
 
-__all__ = ["KVStore", "create", "OP_COUNTS"]
+__all__ = ["KVStore", "create", "OP_COUNTS", "PeerLostError"]
 
 # operation counts, read by the telemetry collector at scrape time
 # (mxtpu_kvstore_ops_total{op=...}): plain int bumps, nil per push
 OP_COUNTS = {"init": 0, "push": 0, "pull": 0, "barrier": 0,
              "allreduce": 0, "fused": 0}
+
+
+class PeerLostError(_watchdog.StallError):
+    """A dist kvstore's gloo wait (all-reduce, gather, barrier, bucket
+    resolve) missed its ``kvstore.sync`` watchdog deadline: a peer is
+    presumed dead or wedged.
+
+    A ``watchdog.StallError`` (its ``point``, ``label``, ``elapsed``,
+    ``deadline`` and ``bundle``; the bundle is written when this raises)
+    with ``op``, ``rank``, ``num_workers`` and ``census`` (the bucket
+    pipeline's pending buckets, for a bucket resolve). ``exit_code``
+    (76) is the ladder's peer-lost rung."""
+
+    exit_code = 76   # preempt.PEERLOST_EXIT_CODE
+
+    def __init__(self, op, rank, num_workers, stall, census=None):
+        super().__init__(stall.point, stall.label, stall.elapsed,
+                         stall.deadline, stall.bundle)
+        self.op = op
+        self.rank = rank
+        self.num_workers = num_workers
+        self.census = census
+        self.args = (
+            f"kvstore {op!r}: peer lost: rank {rank}/{num_workers} "
+            f"waited {stall.elapsed:.1f}s (deadline {stall.deadline:g}s) "
+            "for the group; a peer process is presumed dead or wedged"
+            + (f"; crash bundle: {stall.bundle}" if stall.bundle else "")
+            + (f"; bucket census: {census}" if census else ""),)
+
+
+def bounded_wait(kv, op, fn, census=None):
+    """``fn()``, a gloo wait of ``kv`` (a dist store), under the
+    ``kvstore.sync`` watchdog point; a stall raises
+    :class:`PeerLostError` for ``op``."""
+    try:
+        return _watchdog.sync(
+            "kvstore.sync", fn,
+            label=f"{op} rank {kv.rank}/{kv.num_workers}")
+    except PeerLostError:
+        raise
+    except _watchdog.StallError as e:
+        raise PeerLostError(op, kv.rank, kv.num_workers, e,
+                            census=census() if census else None) from e
+
 
 _LOCAL_TYPES = ("local", "local_update_cpu", "local_allreduce_cpu", "device",
                 "local_allreduce_device", "nccl")
@@ -174,6 +229,7 @@ class KVStore(KVStoreBase):
         learning-rate group, row-sparse sums split off to the lazy
         update); each key's result is its single push's."""
         OP_COUNTS["push"] += 1
+        _watchdog.beat("kvstore.push")
         if _faults.ARMED:
             _faults.point("kvstore.push")   # a flaky gradient sync
         keys, values = self._canonical_push(key, value)
@@ -219,6 +275,7 @@ class KVStore(KVStoreBase):
         one multi-tensor copy for all the keys. A row-sparse ``out`` is
         given the dense value (its parts are derived again when read)."""
         OP_COUNTS["pull"] += 1
+        _watchdog.beat("kvstore.pull")
         keys, outs = self._canonical(key, out)
         srcs, dsts = [], []
         for k, o in zip(keys, outs):
@@ -460,6 +517,7 @@ class _DistKVStore(KVStore):
         the buckets; the unbucketed dense keys of the call follow the
         bucketed ones."""
         OP_COUNTS["push"] += 1
+        _watchdog.beat("kvstore.push")
         if _faults.ARMED:
             _faults.point("kvstore.push")   # a flaky gradient sync
         keys, values = self._canonical_push(key, value)
@@ -523,20 +581,26 @@ class _DistKVStore(KVStore):
 
         idx, vals = rs.indices._data, rs.data._data
         dev, pin = vals.device, vals.device.type == "cuda"
-        count = torch.tensor([idx.numel()], dtype=torch.int64)
-        counts = [torch.zeros_like(count) for _ in range(self._procs)]
-        dist.all_gather(counts, count)
-        counts = [int(c) for c in counts]
-        most = max(counts)
-        hidx = torch.zeros(most, dtype=torch.int64, pin_memory=pin)
-        hval = torch.zeros((most,) + tuple(vals.shape[1:]), dtype=vals.dtype,
-                           pin_memory=pin)
-        hidx[:idx.numel()].copy_(idx)
-        hval[:idx.numel()].copy_(vals)
-        gidx = [torch.empty_like(hidx) for _ in range(self._procs)]
-        gval = [torch.empty_like(hval) for _ in range(self._procs)]
-        dist.all_gather(gidx, hidx)
-        dist.all_gather(gval, hval)
+
+        def gather():
+            count = torch.tensor([idx.numel()], dtype=torch.int64)
+            counts = [torch.zeros_like(count) for _ in range(self._procs)]
+            dist.all_gather(counts, count)
+            counts = [int(c) for c in counts]
+            most = max(counts)
+            hidx = torch.zeros(most, dtype=torch.int64, pin_memory=pin)
+            hval = torch.zeros((most,) + tuple(vals.shape[1:]),
+                               dtype=vals.dtype, pin_memory=pin)
+            hidx[:idx.numel()].copy_(idx)
+            hval[:idx.numel()].copy_(vals)
+            gidx = [torch.empty_like(hidx) for _ in range(self._procs)]
+            gval = [torch.empty_like(hval) for _ in range(self._procs)]
+            dist.all_gather(gidx, hidx)
+            dist.all_gather(gval, hval)
+            return counts, most, hidx, hval, gidx, gval
+
+        counts, most, hidx, hval, gidx, gval = bounded_wait(
+            self, "gather_rows", gather)
         st = self.sparse_stats
         st["pushes"] += 1
         st["rows"] += most
@@ -627,12 +691,16 @@ class _DistKVStore(KVStore):
         """The sum of ``value`` (an NDArray) over the workers, blocking."""
         import torch.distributed as dist
 
-        if _faults.ARMED:
-            _faults.point("kvstore.sync")   # a peer that stopped reducing
         wire = value._data.clone()
-        if self._procs > 1:
-            OP_COUNTS["allreduce"] += 1
-            dist.all_reduce(wire, op=dist.ReduceOp.SUM)
+
+        def reduce():
+            if _faults.ARMED:
+                _faults.point("kvstore.sync")   # a peer stopped reducing
+            if self._procs > 1:
+                OP_COUNTS["allreduce"] += 1
+                dist.all_reduce(wire, op=dist.ReduceOp.SUM)
+
+        bounded_wait(self, "cross_host_sum", reduce)
         return NDArray(wire)
 
     def _quantize(self, key, value):
@@ -734,12 +802,16 @@ class _DistKVStore(KVStore):
         workers."""
         if self._pipeline is not None:
             self._pipeline.resolve(None)
-        if _faults.ARMED:
-            _faults.point("kvstore.sync")   # a peer that died before it
-        if self._procs > 1:
-            import torch.distributed as dist
 
-            dist.barrier()
+        def rendezvous():
+            if _faults.ARMED:
+                _faults.point("kvstore.sync")   # a peer that died before it
+            if self._procs > 1:
+                import torch.distributed as dist
+
+                dist.barrier()
+
+        bounded_wait(self, "barrier", rendezvous)
         super().barrier()
 
 

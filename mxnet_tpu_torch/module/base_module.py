@@ -8,9 +8,10 @@ checkpoint), ``score``, ``predict``, ``forward_backward``,
 intermediate API (``bind``, ``init_params``, ``init_optimizer``,
 ``forward``, ``backward``, ``update``, ``update_metric``, ...).
 
-Left out: the JAX package's preemption hooks in ``fit`` (a SIGTERM that
-drains the batch and checkpoints, ``mxnet_tpu/preempt.py``), which are
-not ported.
+``fit`` drains on a preemption request (:mod:`mxnet_tpu_torch.preempt`,
+JAX :148-205): the batch in flight finishes, the ``epoch_end_callback``
+chain runs once for the partial epoch (where ``callback.do_checkpoint``
+saves), and the process exits with the reschedule code (75).
 """
 from __future__ import annotations
 
@@ -161,10 +162,15 @@ class BaseModule:
         optimizer, then per batch ``forward_backward``, ``update``,
         ``update_metric`` and the batch-end callbacks, and per epoch the
         metric's log, the epoch-end callbacks (checkpoints) and the
-        validation score."""
+        validation score. ``MXNET_TPU_PREEMPT`` installs the drain
+        handlers; a requested drain ends the loop after the batch in
+        flight (the module's docstring)."""
         if num_epoch is None:
             raise ValueError("please specify number of epochs")
         from .. import initializer as init_mod
+        from .. import preempt as _preempt
+
+        _preempt.maybe_install_from_env()
 
         if initializer is None:
             initializer = init_mod.Uniform(0.01)
@@ -199,6 +205,16 @@ class BaseModule:
                 for cb in _as_list(batch_end_callback):
                     cb(BatchEndParam(epoch, nbatch, eval_metric, locals()))
                 nbatch += 1
+                if _preempt.requested():
+                    self.logger.warning(
+                        "Epoch[%d] Batch[%d]: preemption drain requested; "
+                        "checkpointing and exiting for reschedule",
+                        epoch, nbatch)
+                    arg_p, aux_p = self.get_params()
+                    for cb in _as_list(epoch_end_callback):
+                        cb(epoch, self.symbol, arg_p, aux_p)
+                    # the callbacks checkpointed: record and exit only
+                    _preempt.drain(save=False)
 
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)

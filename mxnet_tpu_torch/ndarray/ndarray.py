@@ -40,6 +40,8 @@ import torch
 
 from .. import _amp_core
 from .. import faults as _faults
+from .. import profiler as _profiler
+from .. import watchdog as _watchdog
 from ..base import canonical_dtype, numpy_dtype
 from ..context import Context, current_context
 from ..ops import registry as _reg
@@ -143,11 +145,19 @@ class NDArray:
 
     def wait_to_read(self):
         """Block until the array's producers have finished (a device
-        synchronise on a card), after the ``host.sync`` fault point."""
-        if _faults.ARMED:
-            _faults.point("host.sync")
-        if self._data.device.type == "cuda":
-            torch.cuda.synchronize(self._data.device)
+        synchronise on a card), after the ``host.sync`` fault point; both
+        under a ``host.sync`` watchdog deadline when one is armed (JAX
+        ``_bounded_block``, :215-227), so a wedge raises a catchable
+        ``StallError``."""
+        device = self._data.device
+
+        def block():
+            if _faults.ARMED:
+                _faults.point("host.sync")
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+
+        _watchdog.sync("host.sync", block, label="wait_to_read")
 
     def as_in_context(self, ctx: Context) -> "NDArray":
         if ctx == self.context:
@@ -571,13 +581,17 @@ def _invoke(op_name, nd_inputs, kwargs, wrap=None):
     kwargs = _reg.checked(op_name, kwargs)
     if wrap is None:
         wrap = _wrap_class(nd_inputs)
+    prof_t0 = _profiler._now_us() if _profiler._REC_IMPERATIVE else None
     tensors = [x._data for x in nd_inputs]
     if _amp_core.ACTIVE:   # amp.init(): the op's AMP cast
         tensors = _amp_core.cast_inputs(_reg.canonical(op_name), tensors)
     out = _reg.get(op_name)(*tensors, **kwargs)
-    if isinstance(out, (tuple, list)):
-        return tuple(wrap(o) for o in out)
-    return wrap(out)
+    out = tuple(wrap(o) for o in out) if isinstance(out, (tuple, list)) \
+        else wrap(out)
+    if prof_t0 is not None:
+        _profiler.record_event(op_name, prof_t0,
+                               _profiler._now_us() - prof_t0)
+    return out
 
 
 def _invoke_fn(fn, nd_inputs, wrap=None):
@@ -719,9 +733,13 @@ def dot(lhs, rhs, transpose_a=False, transpose_b=False) -> NDArray:
 
 def waitall():
     """Wait for the work queued on every card a context has resolved to
-    (the JAX package's ``engine.wait_all``)."""
+    (the JAX package's ``engine.wait_all``), under a ``host.sync``
+    watchdog deadline when one is armed."""
     from ..context import _TOUCHED
 
-    if torch.cuda.is_available() and torch.cuda.is_initialized():
-        for index in sorted(_TOUCHED):
-            torch.cuda.synchronize(index)
+    def block():
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            for index in sorted(_TOUCHED):
+                torch.cuda.synchronize(index)
+
+    _watchdog.sync("host.sync", block, label="waitall")

@@ -107,10 +107,21 @@ devices raise in :class:`DeviceMesh`):
   ``resume(reshard=)`` compares the checkpoint's topology with this
   trainer's (:1070-1140).
 
-Not ported: the JAX trainer's checkpoint-on-drain hooks
-(``_remember_manager``, ``_final_checkpoint``, :1002-1037), which need
-``preempt.py``, and the HLO collective census of ``aot_lower``'s result
-(``analysis.distcheck``); both wait for ROADMAP.md item A11.
+The run's lifecycle (JAX :243, :653-661, :1002-1042): ``MXNET_TPU_PREEMPT``
+installs the drain handlers when the trainer is made; once a drain is
+requested, :meth:`step` raises ``preempt.DrainRequested`` before a new
+step, so the step in flight is the last; a ``trainer.step`` watchdog
+deadline bounds the whole step (placement, the fault point, the replay
+or eager call and the guard's read), which then runs in the watchdog's
+waiter thread under the caller's state. ``save_checkpoint`` and
+``resume`` register the trainer's final-checkpoint hook
+(``watchdog.set_last_resort``; it holds the trainer weakly), which a
+drain or an ``action:abort`` runs: one more checkpoint through the same manager at the next epoch,
+with ``meta.drain`` and the exact step, and the data iterator's position
+when one was given.
+
+Not ported: the HLO collective census of ``aot_lower``'s result
+(``analysis.distcheck``, ROADMAP.md item A11).
 
 ``publish_to`` / ``publish_update`` stream the weights into a model bus
 (:mod:`mxnet_tpu_torch.modelbus`) every K steps, in the JAX package's
@@ -123,6 +134,7 @@ import os
 import pickle
 import time
 import warnings
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as _np
@@ -132,7 +144,11 @@ from .. import autograd
 from .. import compile as _compile
 from .. import faults as _faults
 from .. import lr_scheduler as _sched
+from .. import preempt as _preempt
+from .. import profiler as _profiler
 from .. import random as _random
+from .. import util as _util
+from .. import watchdog as _watchdog
 from ..base import MXNetError
 from ..context import cpu
 from ..gluon.parameter import substitute
@@ -510,6 +526,13 @@ class ShardedTrainer:
         self._predict_fn = _compile.jit(self._predict_body, site="trainer",
                                         token=("predict", id(self)),
                                         reads=self._predict_reads)
+        # the manager, epoch and data iterator of the newest checkpoint:
+        # where a drain (or a watchdog abort) writes the final one
+        self._ckpt_manager = None
+        self._ckpt_epoch = 0
+        self._ckpt_data_iter = None
+        # one variable (MXNET_TPU_PREEMPT) arms the SIGTERM drain
+        _preempt.maybe_install_from_env()
 
     def _place_params(self):
         """Every parameter on the mesh's device, contiguous (the fused
@@ -656,7 +679,21 @@ class ShardedTrainer:
 
         The step's record of the telemetry timeline (``h2d``,
         ``compute``, ``sync``; :meth:`step_report`) opens here, and a step
-        that raises abandons it (JAX :662-679)."""
+        that raises abandons it (JAX :662-679).
+
+        Once a drain is requested it raises ``preempt.DrainRequested``
+        and starts nothing; under a ``trainer.step`` watchdog deadline the
+        step is bounded, and a wedged one raises ``watchdog.StallError``
+        (or checkpoints and exits 86 under ``action:abort``). The first
+        step of a signature includes its capture: size the deadline for
+        it."""
+        if _preempt.requested():
+            raise _preempt.DrainRequested(_preempt.event())
+        return _watchdog.sync("trainer.step",
+                              lambda: self._step_impl(x, y),
+                              label=f"step {self._t + 1}")
+
+    def _step_impl(self, x, y):
         _tsteps.begin_step(self._t + 1)
         try:
             out = self._step_exec(x, y)
@@ -667,6 +704,12 @@ class ShardedTrainer:
                          devices=self._mesh.num_devices)
         if self._bus is not None and self._t % self._bus_every == 0:
             self.publish_update()
+        if _util.is_np_array():
+            # under npx.set_np() the loss is an mx.np.ndarray, as MXNet
+            # 1.x np operators return (the JAX package: NDArray, C35)
+            from ..numpy import ndarray as np_ndarray
+
+            out = np_ndarray(out._data)
         return out
 
     def _step_exec(self, x, y):
@@ -911,6 +954,8 @@ class ShardedTrainer:
             return
         self.skipped_steps += 1
         self.consecutive_skips += 1
+        _profiler.record_skip_step(self.skipped_steps,
+                                   self.consecutive_skips)
         if self.consecutive_skips >= self._max_consecutive_skips:
             raise RuntimeError(
                 f"ShardedTrainer: {self.consecutive_skips} consecutive "
@@ -1041,18 +1086,54 @@ class ShardedTrainer:
                                    for n in self._param_names},
                 "zero": self._zero, "host": _ckpt.host_metadata()}
 
+    def _remember_manager(self, manager, epoch, data_iter=None):
+        """Note the newest manager, epoch and data iterator, and register
+        the final-checkpoint hook (``watchdog.set_last_resort``) that a
+        drain and an ``action:abort`` run. A hook the user installed is
+        left alone; only the trainers' own (tagged) is replaced."""
+        self._ckpt_manager = manager
+        self._ckpt_epoch = int(epoch)
+        if data_iter is not None:
+            self._ckpt_data_iter = data_iter
+        prev = _watchdog.last_resort()
+        if prev is None or getattr(prev, "_mxtpu_trainer_hook", False):
+            # weakly: the hook must not keep a dropped trainer (and its
+            # card memory and graphs) alive
+            ref = weakref.WeakMethod(self._final_checkpoint)
+
+            def hook():
+                final = ref()
+                return None if final is None else final()
+
+            hook._mxtpu_trainer_hook = True
+            _watchdog.set_last_resort(hook)
+
+    def _final_checkpoint(self):
+        """The drain's save: one more checkpoint through the remembered
+        manager at epoch ``last + 1`` with ``meta.drain`` (the drain
+        event); the entry's ``step`` is the exact step to resume at."""
+        mgr = self._ckpt_manager
+        if mgr is None:
+            return None
+        meta = {"drain": _preempt.event() or True}
+        return self.save_checkpoint(mgr, self._ckpt_epoch + 1, meta=meta,
+                                    data_iter=self._ckpt_data_iter)
+
     def save_checkpoint(self, manager, epoch, meta=None, data_iter=None):
         """Write the trainer's state through a ``checkpoint.
         CheckpointManager`` (atomic write, CRC-checked manifest entry with
         ``meta.topology``, keep-N rotation). ``data_iter`` (an iterator
         with ``state_dict()``: ImageRecordIter, TokenRecordIter,
         NDArrayIter, PrefetchingIter) has its stream position recorded as
-        ``meta.data_state``. Returns ``{name: path}``."""
+        ``meta.data_state``, here and in every later drain checkpoint.
+        Registers the manager as the drain's target. Returns ``{name:
+        path}``."""
         payload = self._state_payload()
         meta = dict(meta or {})
         meta.setdefault("topology", self.topology_meta())
         if data_iter is not None and "data_state" not in meta:
             meta["data_state"] = data_iter.state_dict()
+        self._remember_manager(manager, epoch, data_iter)
         return manager.save(
             epoch, {"states": lambda tmp: _nd_utils.save(tmp, payload)},
             step=self._t, meta=meta)
@@ -1123,6 +1204,7 @@ class ShardedTrainer:
         data_state = (entry.get("meta") or {}).get("data_state")
         if data_iter is not None and data_state is not None:
             data_iter.load_state_dict(data_state)
+        self._remember_manager(manager, entry["epoch"], data_iter)
         return entry
 
     # --------------------------------------------------------- model bus ---

@@ -33,11 +33,14 @@ Counterpart of ``mxnet_tpu/serving``:
     y = server.predict("clf", x, priority="batch", deadline_ms=50)
     server.drain()                        # answer admitted, stop
 
+A batch runs under a ``serving.batch`` watchdog deadline when one is
+armed (a stalled batch fails its requests typed and counts in
+``stalled_batches``), and ``ModelServer.run_until_drained`` serves until
+a SIGTERM, drains and exits 75 (:mod:`mxnet_tpu_torch.preempt`).
+
 Not ported, raising :class:`~mxnet_tpu_torch.base.MXNetError`: the serving
 fleet (``ServingFleet``, ``FleetError``: worker processes behind a
-router), ``ModelServer.run_until_drained`` (the preemption handlers) and
-``ServedModel.from_onnx`` (the ONNX importer). A batch runs without the
-watchdog's deadline, and responses carry no traced phases.
+router) and ``ServedModel.from_onnx`` (the ONNX importer).
 """
 from .batcher import PRIORITIES, BucketBatcher, ServingFuture
 from .cache import PredictionCache, content_key

@@ -56,9 +56,13 @@ when its copy to the card is started, the runner ``run_begin`` and
 ``run_end`` around the bucket's run, and fulfilment closes the five
 phases (``ServingFuture.request_id``, ``breakdown()``).
 
-Not ported: the watchdog deadline around a batch (a batch runs without
-one, as the JAX package's does with no watchdog configured). Every wait
-carries a timeout.
+Watchdog (JAX :495-535): each batch's run is a ``serving.batch`` span.
+Under a deadline it runs in the watchdog's waiter thread; a batch past
+it writes a crash bundle, fails its requests with a typed
+:class:`~mxnet_tpu_torch.serving.errors.RequestError` whose cause is the
+``StallError``, counts in ``stalled_batches``, and the runner goes on to
+the next batch (the abandoned waiter finishes or stays wedged on its
+own). Every other wait carries a timeout.
 """
 from __future__ import annotations
 
@@ -70,6 +74,7 @@ from collections import deque
 import torch
 
 from .. import faults as _faults
+from .. import watchdog as _watchdog
 from ..telemetry import trace as _trace
 from . import cache as _pcache
 from . import config as _config
@@ -502,13 +507,21 @@ class BucketBatcher:
             for r in reqs:
                 if r.fut._trace is not None:
                     r.fut._trace.mark("run_begin", t0)
-            try:
+
+            def run(x=x, rows=rows, ready=ready, warm=warm):
                 if warm is None:
                     # 'serving.batch' injection: raise fails the batch,
-                    # delay/hang stall it
+                    # delay/hang stall it (past a deadline: a stall)
                     _faults.point("serving.batch")
-                outs, model_version = model.run_versioned(x, rows, ready)
+                return model.run_versioned(x, rows, ready)
+
+            try:
+                outs, model_version = _watchdog.sync(
+                    "serving.batch", run,
+                    label=f"{model.name} bucket={bucket} rows={rows}")
             except Exception as e:  # fail this batch, keep serving
+                if isinstance(e, _watchdog.StallError):
+                    self.metrics.record_stall()
                 err = RequestError(
                     f"model {model.name!r}: batch of {rows} rows failed: "
                     f"{type(e).__name__}: {e}", cause=e)
@@ -548,7 +561,8 @@ class BucketBatcher:
                         self.metrics.record_deadline_outcome(
                             lat <= fut.deadline_ms)
                 off += r.n
-            self.metrics.record_batch(bucket, rows)
+            self.metrics.record_batch(bucket, rows, dur_ms,
+                                      self.queue_depth())
             with self._cond:
                 self._inflight -= 1
                 self._cond.notify_all()

@@ -2,10 +2,12 @@
 ``mxnet_tpu/serving/metrics.py``): latency percentiles over a bounded
 ring of recent requests, overall and by priority class, throughput,
 bucket census, batch fill ratio, deadline drops and outcomes and
-prediction-cache lookups. Rejects, batches and deadline drops also go
-to the flight recorder (:mod:`mxnet_tpu_torch.telemetry.flight`). The
-profiler's serving tracks and the watchdog's stalled batches are not
-ported (``stalled_batches`` stays 0).
+prediction-cache lookups, and the batches a ``serving.batch`` watchdog
+deadline stopped (``stalled_batches``). Rejects, batches, stalls and
+deadline drops also go to the flight recorder
+(:mod:`mxnet_tpu_torch.telemetry.flight`), and, while a profiler session
+records, rejects and batches to its serving tracks
+(``profiler.record_serving``).
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import threading
 import time
 from collections import Counter, deque
 
+from .. import profiler as _profiler
 from ..telemetry import flight as _flight
 
 __all__ = ["ModelMetrics", "percentile"]
@@ -39,7 +42,7 @@ class ModelMetrics:
         self.completed = 0
         self.rejected = 0        # admission fast-rejects (busy + draining)
         self.failed = 0          # requests failed by a failed batch or stop
-        self.stalled = 0         # watchdog-stopped batches (not ported)
+        self.stalled = 0         # batches stopped by a watchdog StallError
         self.batches = 0
         self.rows = 0            # real rows through batches
         self.padded_rows = 0     # padding rows (bucket - rows per batch)
@@ -63,6 +66,9 @@ class ModelMetrics:
         with self._lock:
             self.rejected += 1
         _flight.rec("serving.reject", self.model)
+        if _profiler._RECORDING:
+            _profiler.record_instant(f"serving.{self.model}.reject",
+                                     cat="serving")
 
     def record_fail(self, n=1):
         with self._lock:
@@ -110,7 +116,7 @@ class ModelMetrics:
         with self._lock:
             self.coalesced += 1
 
-    def record_batch(self, bucket, rows):
+    def record_batch(self, bucket, rows, dur_ms=0.0, queue_depth=0):
         with self._lock:
             self.batches += 1
             self.rows += rows
@@ -118,6 +124,15 @@ class ModelMetrics:
             self.bucket_census[bucket] += 1
         _flight.rec("serving.batch", self.model,
                     f"bucket={bucket} rows={rows}")
+        if _profiler._RECORDING:
+            _profiler.record_serving(self.model, bucket, rows, dur_ms,
+                                     queue_depth)
+
+    def record_stall(self):
+        """A batch the ``serving.batch`` deadline stopped."""
+        with self._lock:
+            self.stalled += 1
+        _flight.rec("serving.stall", self.model)
 
     def snapshot(self, **extra):
         """One JSON-able dict: counters, p50/p95/p99 latency over the

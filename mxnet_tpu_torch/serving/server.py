@@ -9,9 +9,10 @@ batches), and the drain protocol (stop the bus watcher, stop admission,
 answer everything admitted, stop the threads).
 
 Live servers register in a weak set (:func:`live_servers`,
-:func:`live_stats`). ``run_until_drained`` raises
-:class:`~mxnet_tpu_torch.base.MXNetError`: the preemption handlers it
-waits on are not ported.
+:func:`live_stats`). :meth:`ModelServer.run_until_drained` serves until a
+preemption drain is requested (SIGTERM through
+:mod:`mxnet_tpu_torch.preempt`), then drains and exits with the
+reschedule code (JAX :190-208).
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import threading
 import time
 import weakref
 
-from ..base import MXNetError
+from .. import profiler as _profiler
 from .batcher import BucketBatcher
 from .errors import ModelNotFound
 
@@ -167,6 +168,9 @@ class ModelServer:
             b.stop()
         self._drain_event = {"time": time.time(), "drained": ok,
                              "answered": answered, "failed": failed}
+        if _profiler._RECORDING:
+            _profiler.record_instant(f"serving.{self.name}.drain",
+                                     cat="serving", args=self._drain_event)
         return ok
 
     def stop(self):
@@ -179,12 +183,24 @@ class ModelServer:
         _LIVE.discard(self)
 
     def run_until_drained(self, poll=0.05, install=True, exit=False):
-        """Not ported: it waits for a preemption request from the
-        preemption handlers, which mxnet_tpu_torch does not have. Call
-        :meth:`drain` instead."""
-        raise MXNetError("ModelServer.run_until_drained is not ported: the "
-                         "preemption handlers it waits on are not in "
-                         "mxnet_tpu_torch; call drain()")
+        """Serve until a preemption drain is requested (SIGTERM through
+        the handlers :func:`preempt.install` puts in, which ``install``
+        does from the main thread, or ``preempt.request()``), then
+        :meth:`drain` (admission stops, every admitted request is
+        answered) and hand off to ``preempt.drain``, which records the
+        drain event and, with ``exit=True``, raises ``SystemExit(75)``.
+        Returns the drain event with ``exit=False``."""
+        from .. import preempt as _preempt
+
+        if install:
+            _preempt.install()
+        while not _preempt.requested():
+            time.sleep(poll)
+        ok = self.drain()
+        ev = _preempt.drain(save=False, exit=exit)
+        if isinstance(ev, dict):
+            ev["serving"] = dict(self._drain_event or {}, drained=ok)
+        return ev
 
     def stats(self):
         """Per-model counters, latency percentiles (overall and by

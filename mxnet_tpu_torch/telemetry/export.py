@@ -16,10 +16,11 @@ the port does not have, and the captures and replays beside them),
 ``mxtpu_serving_rows_total`` beside the JAX package's series),
 ``kvstore`` (its op counts and
 the bucket pipelines' reductions), ``memory`` (:mod:`memory`'s sample
-and :mod:`costs`' per-site sums), ``flight``, ``trace`` and
-``modelbus``. The JAX package's ``watchdog``, ``preempt`` and ``gang``
-collectors are absent: their subsystems (``watchdog.py``,
-``preempt.py``, ``elastic.py``) are not ported (ROADMAP.md item A11).
+and :mod:`costs`' per-site sums), ``flight``, ``trace``, ``modelbus``,
+``watchdog`` (the stalls the profiler counted, and whether a deadline is
+configured) and ``preempt`` (whether a drain is requested). The JAX
+package's ``gang`` collector is absent: its subsystem (``elastic.py``)
+is not ported (ROADMAP.md item A11).
 
 Exposure: the serving :class:`~mxnet_tpu_torch.serving.http.HttpFrontEnd`
 answers ``GET /metrics`` (Prometheus text) and ``GET /metrics.json``;
@@ -232,6 +233,29 @@ def _collect_serving():
                         class_lat.set(v, model, klass, q)
 
 
+def _collect_watchdog():
+    prof = sys.modules.get("mxnet_tpu_torch.profiler")
+    if prof is not None:
+        _registry.counter(
+            "mxtpu_watchdog_stalls_total",
+            "Deadline-blown sync points (crash bundles written)"
+        ).set_total(prof.stall_count())
+    wd = sys.modules.get("mxnet_tpu_torch.watchdog")
+    if wd is not None:
+        _registry.gauge("mxtpu_watchdog_enabled",
+                        "1 when a watchdog deadline config is installed"
+                        ).set(1.0 if wd.enabled() else 0.0)
+
+
+def _collect_preempt():
+    mod = sys.modules.get("mxnet_tpu_torch.preempt")
+    if mod is None:
+        return
+    _registry.gauge("mxtpu_preempt_drain_requested",
+                    "1 once a preemption drain has been requested").set(
+                        1.0 if mod.requested() else 0.0)
+
+
 def _collect_kvstore():
     mod = sys.modules.get("mxnet_tpu_torch.kvstore.kvstore")
     if mod is None:
@@ -337,6 +361,8 @@ def _ensure_defaults():
     register_collector("flight", _collect_flight)
     register_collector("trace", _collect_trace)
     register_collector("modelbus", _collect_modelbus)
+    register_collector("watchdog", _collect_watchdog)
+    register_collector("preempt", _collect_preempt)
 
 
 # ------------------------------------------------------ standalone server ---

@@ -26,9 +26,10 @@ Committed spans live in a bounded ring (``MXNET_TPU_TRACE``, default
 op. :func:`dump` writes this process's spans and flight-recorder tail as
 a Chrome-trace ``trace.json`` (Perfetto, ``chrome://tracing``).
 
-Not ported: the profiler's events in a dump (``include_profiler=True``
-raises: ``profiler.py`` waits for ROADMAP item A11) and the gang's
-telemetry shards (``run_dir=`` raises: ``fleet.py`` waits for item A12).
+A dump carries the profiler's recorded events on the same timeline
+(``include_profiler=True``, the default, as in the JAX package). Not
+ported: the gang's telemetry shards (``run_dir=`` raises: ``fleet.py``
+waits for item A12).
 :func:`merged_events` over shards handed to it is pure and is ported.
 """
 from __future__ import annotations
@@ -434,30 +435,57 @@ def _local_shard():
                   "spans": tail(), "flight": _flight.tail()}
 
 
-def dump(path="trace.json", run_dir=None, include_profiler=False):
+def dump(path="trace.json", run_dir=None, include_profiler=True):
     """Write this process's spans and flight-recorder tail as a
     Chrome-trace ``trace.json`` (one lane per rank, timestamps from the
-    first event). Returns the written path.
-
-    ``include_profiler=True`` (the JAX package's default: the profiler's
-    events on the same timeline) and ``run_dir`` (every rank's telemetry
-    shard) raise :class:`~mxnet_tpu_torch.base.MXNetError`: the profiler
-    and the fleet shards are not ported."""
+    first event), with the profiler's recorded events on the same
+    timeline unless ``include_profiler`` is false. Returns the written
+    path. ``run_dir`` (every rank's telemetry shard) raises
+    :class:`~mxnet_tpu_torch.base.MXNetError`: the fleet shards are not
+    ported."""
     global _last_dump
     from ..base import MXNetError
 
-    if include_profiler:
-        raise MXNetError("trace.dump(include_profiler=True): the profiler "
-                         "(profiler.py) is not ported to mxnet_tpu_torch "
-                         "yet; see ROADMAP.md item A11")
     if run_dir is not None:
         raise MXNetError("trace.dump(run_dir=...): the fleet's telemetry "
                          "shards (telemetry/fleet.py) are not ported to "
                          "mxnet_tpu_torch yet; see ROADMAP.md item A12")
     rank, local = _local_shard()
-    events, _ = _merged({rank: local})
+    events, base_wall = _merged({rank: local})
+    if include_profiler:
+        offset = local["t_wall"] - local["t_mono"]
+        events.extend(_profiler_events(rank, offset, base_wall))
+    # profiler events recorded before the first span would land at a
+    # negative timestamp: shift the whole timeline to start at 0
+    neg = min((e["ts"] for e in events if e.get("ph") != "M"),
+              default=0.0)
+    if neg < 0:
+        for e in events:
+            if e.get("ph") != "M":
+                e["ts"] = round(e["ts"] - neg, 3)
     payload = {"traceEvents": events, "displayTimeUnit": "ms"}
     with open(path, "w") as f:
         json.dump(payload, f)
     _last_dump = os.path.abspath(path)
     return _last_dump
+
+
+def _profiler_events(rank, offset, base_wall):
+    """The profiler's recorded chrome events, re-based onto this dump's
+    timeline (the profiler's timestamps count from its perf_counter
+    epoch; ``trace_info()`` gives that epoch's monotonic instant)."""
+    import sys
+
+    prof = sys.modules.get(f"{__package__.rsplit('.', 1)[0]}.profiler")
+    if prof is None:
+        return []
+    info = prof.trace_info()
+    epoch_mono = info["epoch_mono"]
+    out = []
+    for ev in info["events"]:
+        ev = dict(ev)
+        wall = epoch_mono + ev["ts"] / 1e6 + offset
+        ev["ts"] = round((wall - base_wall) * 1e6, 3)
+        ev["pid"] = rank
+        out.append(ev)
+    return out

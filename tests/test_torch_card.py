@@ -85,6 +85,10 @@ run on a machine that has only PyTorch:
   ops bit for bit), samplers repeating under one seed; one np-mode step
   of a 2-layer classifier at BERT-base width equal to the NDArray-mode
   step bit for bit, its output and loss ``mx.np.ndarray``.
+* the run's lifecycle: a watchdog-bounded ``ShardedTrainer`` step (run in
+  a waiter thread) called on a side stream under bfloat16 autocast equal
+  to the inline step bit for bit, and ``wait_to_read`` behind about a
+  second of device work raising ``StallError`` at a 0.05 s deadline.
 """
 import math
 
@@ -2929,3 +2933,93 @@ def test_np_mode_step_equals_nd_mode_step(cuda_device):
     assert got[False][1] == ("NDArray", "NDArray")
     for a, b in zip(got[True][2], got[False][2]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_bounded_step_on_a_side_stream_under_bf16_autocast(cuda_device):
+    """A ``ShardedTrainer`` step bounded by the watchdog (``trainer.step``
+    under ``action:raise``: the step runs in a waiter thread) called on a
+    non-default stream under bfloat16 autocast gives the inline step's
+    loss bit for bit; the step's loss function ran in the waiter, under
+    autocast; a float32 step gives another loss."""
+    import threading
+
+    from chip_smoke import BERT_BASE, _classifier_on, make_task, random_params
+    from mxnet_tpu_torch import watchdog
+    from mxnet_tpu_torch.parallel import DeviceMesh, ShardedTrainer
+
+    cfg = dict(BERT_BASE, layers=2)
+    weights = random_params(cfg, seed=0)
+    x, y = make_task(4, cfg["seq_len"], cfg["vocab"], cfg["num_classes"],
+                     seed=1)
+    seen = []
+
+    class Probe(mx.gluon.loss.SoftmaxCrossEntropyLoss):
+        def hybrid_forward(self, F, pred, label, *a):
+            seen.append((threading.get_ident(),
+                         torch.is_autocast_enabled("cuda")))
+            return super().hybrid_forward(F, pred, label, *a)
+
+    got = {}
+    try:
+        for mode in ("inline", "bounded", "float32"):
+            watchdog.configure({"trainer.step": 120}
+                               if mode == "bounded" else None)
+            st = ShardedTrainer(_classifier_on(mx.gpu(0), cfg, weights),
+                                Probe(), "adam", {"learning_rate": 1e-4},
+                                mesh=DeviceMesh({"dp": 1}))
+            side = torch.cuda.Stream()
+            del seen[:]
+            with torch.cuda.stream(side), torch.autocast(
+                    "cuda", dtype=torch.bfloat16, cache_enabled=False,
+                    enabled=mode != "float32"):
+                loss = st.step(mx.nd.array(x), mx.nd.array(y))
+                got[mode] = loss.asnumpy()
+            side.synchronize()
+            caller = threading.get_ident()
+            assert seen and all(ac == (mode != "float32")
+                                for _, ac in seen)
+            assert all((tid != caller) == (mode == "bounded")
+                       for tid, _ in seen)
+    finally:
+        watchdog.configure(None)
+    assert np.array_equal(got["bounded"], got["inline"])
+    assert not np.array_equal(got["bounded"], got["float32"])
+
+
+@pytest.mark.gpu
+def test_host_sync_on_a_busy_stream_stalls_at_its_deadline(cuda_device,
+                                                           tmp_path):
+    """``wait_to_read`` under a 0.05 s ``host.sync`` deadline, behind
+    about a second of spinning on the array's stream, raises
+    ``StallError`` well before the stream is done; the bundle records the
+    card's memory (no capture is open)."""
+    import json
+    import os
+    import threading
+    import time
+
+    from mxnet_tpu_torch import watchdog
+
+    a = mx.nd.ones((4,), ctx=mx.gpu(0))
+    torch.cuda.synchronize()
+    watchdog.configure({"host.sync": 0.05}, crash_dir=str(tmp_path),
+                       interval=0.02)
+    try:
+        torch.cuda._sleep(int(2e9))   # ~1 s of device spinning
+        t0 = time.monotonic()
+        with pytest.raises(watchdog.StallError) as ei:
+            a.wait_to_read()
+        elapsed = time.monotonic() - t0
+        busy = torch.cuda.current_stream().query() is False
+    finally:
+        torch.cuda.synchronize()
+        for t in threading.enumerate():
+            if t.name == "mxtpu-waiter-host.sync":
+                t.join(30)
+        watchdog.configure(None)
+    assert 0.05 <= elapsed < 0.5 and busy
+    assert ei.value.point == "host.sync" and ei.value.deadline == 0.05
+    with open(os.path.join(ei.value.bundle, "report.json")) as f:
+        report = json.load(f)
+    assert isinstance(report["memory"], dict)

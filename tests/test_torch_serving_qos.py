@@ -387,7 +387,7 @@ def test_failed_batch_fails_its_requests_and_the_server_keeps_serving():
         server.drain(timeout=10.0)
 
 
-def test_latency_by_class_in_stats():
+def test_latency_by_class_in_stats(monkeypatch, tmp_path):
     server = _tiny_server()
     try:
         x = np.zeros((1, DIM), np.float32)
@@ -401,5 +401,13 @@ def test_latency_by_class_in_stats():
             s["name"] == server.name for s in serving.live_stats())
     finally:
         server.drain(timeout=10.0)
-    with pytest.raises(mx.base.MXNetError, match="not ported"):
-        server.run_until_drained()
+    # a drain request ends run_until_drained with the drain record
+    from mxnet_tpu_torch import preempt
+
+    monkeypatch.setenv("MXNET_TPU_PREEMPT_DIR", str(tmp_path))
+    preempt.request("test")
+    try:
+        ev = server.run_until_drained(install=False)
+    finally:
+        preempt.clear()
+    assert ev["exit_code"] == 75 and ev["serving"]["drained"] is True

@@ -18,9 +18,9 @@ the JAX package's functions where the two take the same input.
   phases as children.
 
 The JAX tests of ``fleet`` shards, straggler detection and the gang drill
-wait for ROADMAP.md item A12 (``telemetry/fleet.py`` is not ported), and
-the profiler's events in a dump for item A11: ``dump(run_dir=...)`` and
-``dump(include_profiler=True)`` raise.
+wait for ROADMAP.md item A12 (``telemetry/fleet.py`` is not ported):
+``dump(run_dir=...)`` raises. ``dump(include_profiler=True)`` puts the
+profiler's recorded events on the dump's timeline.
 """
 import json
 import threading
@@ -275,7 +275,21 @@ def test_local_dump_is_a_chrome_trace_with_step_spans(tmp_path):
         events = _validate_chrome(json.load(f))
     cats = {e.get("cat") for e in events}
     assert {"trace.step", "trace.phase", "trace.request", "flight"} <= cats
-    with pytest.raises(MXNetError, match="profiler.py"):
-        trace.dump(str(tmp_path / "p.json"), include_profiler=True)
+    from mxnet_tpu_torch import profiler
+
+    profiler.set_config(filename=str(tmp_path / "prof.json"))
+    profiler.set_state("run")
+    try:
+        mx.nd.ones((2,), ctx=CPU) + 1
+    finally:
+        profiler.set_state("stop")
+    try:
+        with open(trace.dump(str(tmp_path / "p.json"),
+                             include_profiler=True)) as f:
+            events = _validate_chrome(json.load(f))
+        ops = [e for e in events if e.get("cat") == "operator"]
+        assert ops and min(e["ts"] for e in events) >= 0
+    finally:
+        profiler.reset()
     with pytest.raises(MXNetError, match="fleet.py"):
         trace.dump(str(tmp_path / "f.json"), run_dir=str(tmp_path))
